@@ -12,7 +12,6 @@ bf16 inputs 2e-2 (bf16 tile roundings on both sides).
 """
 import math
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest

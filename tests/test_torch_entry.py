@@ -73,7 +73,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert next(model.parameters()).device.type == "cpu"
 
 
-def test_run_slam_tiny_from_memory_frames_on_cpu():
+def test_run_slam_tiny_from_memory_frames_on_cpu(tmp_path):
     """Panned synthetic frames through the keyframe gate (torch backend),
     bucketed forwards, SL(4) RANSAC and the pose graph: at least two
     submaps with finite poses and homographies."""
@@ -91,7 +91,8 @@ def test_run_slam_tiny_from_memory_frames_on_cpu():
     args = main.parser.parse_args(
         ["--model_size", "tiny", "--submap_size", "3", "--max_loops", "0",
          "--min_disparity", "20", "--keyframe_backend", "torch",
-         "--timing"])
+         "--timing", "--save_path", str(tmp_path / "out"), "--log_results",
+         "--log_path", str(tmp_path / "poses.txt")])
     before = dict(attention.LAUNCHES)
     res = main.run_slam(args, frames=frames, device="cpu")
     solver = res["solver"]
@@ -104,4 +105,9 @@ def test_run_slam_tiny_from_memory_frames_on_cpu():
         assert np.isfinite(poses).all()
         assert np.isfinite(s.get_reference_homography()).all()
     assert "graph_optimize" in res["timer"].summary()
+    poses = np.loadtxt(tmp_path / "poses.txt")
+    assert poses.shape == (6, 8) and np.isfinite(poses).all()  # 4 + 2
+    assert (tmp_path / "out" / "result.pcd").stat().st_size > 0
+    assert len(os.listdir(tmp_path / "out" / "frame_output")) == 5
+    assert len(os.listdir(tmp_path / "poses_logs")) == 5
     assert attention.LAUNCHES == before     # CPU: plain versions only

@@ -1,4 +1,4 @@
-"""Binary PCD point-cloud writer and reader (a copy of the PCD part of
+"""Binary PCD point-cloud writer (a copy of the PCD writer of
 vggt_slam_tpu/data/pcd.py): x y z + PCL packed float rgb."""
 from __future__ import annotations
 
@@ -40,22 +40,3 @@ def write_pcd(path: str, points, colors=None) -> None:
     with open(path, "wb") as f:
         f.write(header.encode())
         f.write(np.ascontiguousarray(data, dtype=np.float32).tobytes())
-
-
-def read_pcd(path: str):
-    """Read a binary PCD written by write_pcd -> (points, packed rgb|None)."""
-    with open(path, "rb") as f:
-        header = {}
-        while True:
-            line = f.readline().decode(errors="replace").strip()
-            if line.startswith("#"):
-                continue
-            key, _, val = line.partition(" ")
-            header[key] = val
-            if key == "DATA":
-                break
-        fields = header["FIELDS"].split()
-        n = int(header["POINTS"])
-        data = np.frombuffer(f.read(4 * n * len(fields)),
-                             dtype=np.float32).reshape(n, len(fields))
-    return data[:, :3], (data[:, 3] if "rgb" in fields else None)

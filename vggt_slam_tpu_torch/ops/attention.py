@@ -202,8 +202,8 @@ def flash_multi_ref(q, k, v, smax, *, num_heads, valid_len=None,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_COMMON = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _F, _P, _P, _P,
-           _P, _P]
+_COMMON = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _F, _P, _P,
+           _P, _P, _P]
 _SIGNATURES = {
     "flash_single_fwd": (_COMMON + [_P], ctypes.c_int),
     "flash_multi_fwd": (_COMMON + [_P, _P], ctypes.c_int),
@@ -260,7 +260,11 @@ def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
         ln = torch.stack([_f32(t.reshape(-1), (D,), "qk_ln", dev)
                           for t in qk_ln])
     bias = _f32(kv_bias, (Nk,), "kv_bias", dev)
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+    # scratch for the k rows with LN and rope applied once per call
+    k_work = torch.empty_like(k) if (ln is not None or ck is not None) \
+        else None
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if k_work is None else k_work.data_ptr(), B, H,
             Nq, Nk, D, vl, LOG2E / math.sqrt(D),
             None if ln is None else ln.data_ptr(), float(qk_ln_eps),
             None if bias is None else bias.data_ptr()]

@@ -49,8 +49,8 @@ def build(name: str) -> str:
         build_seconds.setdefault(name, 0.0)
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # Build to a private name and rename, so concurrent builders never load
-    # a half-written library.
+    # Build to a private name and rename, so processes building at once never
+    # load a half-written library.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()

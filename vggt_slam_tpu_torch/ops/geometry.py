@@ -30,16 +30,6 @@ def pose_encoding_to_extri_intri(pose_enc: torch.Tensor, image_hw):
     return extrinsic, intrinsic
 
 
-def extri_intri_to_pose_encoding(extrinsic, intrinsic, image_hw):
-    """Inverse of pose_encoding_to_extri_intri."""
-    H, W = image_hw
-    q = lie.rotmat_to_quat(extrinsic[..., :3, :3])
-    fov_h = 2.0 * torch.atan((H / 2.0) / intrinsic[..., 1, 1])
-    fov_w = 2.0 * torch.atan((W / 2.0) / intrinsic[..., 0, 0])
-    return torch.cat([extrinsic[..., :3, 3], q, fov_h[..., None],
-                      fov_w[..., None]], dim=-1)
-
-
 def _pixels(H, W, like, channel_first):
     u = torch.arange(W, dtype=like.dtype, device=like.device)
     v = torch.arange(H, dtype=like.dtype, device=like.device)
@@ -75,15 +65,6 @@ def unproject_depth_map_to_point_map_cf(depth, extrinsic, intrinsic):
     R = extrinsic[..., :3, :3]
     t = extrinsic[..., :3, 3]
     return torch.einsum("sji,jshw->ishw", R, cam - t.T[:, :, None, None])
-
-
-def project_points(points_w, extrinsic, intrinsic):
-    """World points (..., N, 3) -> pixels (..., N, 2) and depth (..., N)."""
-    cam = torch.einsum("...ij,...nj->...ni", extrinsic[..., :3, :3],
-                       points_w) + extrinsic[..., None, :3, 3]
-    pix_h = torch.einsum("...ij,...nj->...ni", intrinsic, cam)
-    z = pix_h[..., 2]
-    return pix_h[..., :2] / (z[..., None] + 1e-12), z
 
 
 def rq_decomposition(M: torch.Tensor):
@@ -122,27 +103,3 @@ def poses_world_from_submap(intrinsics, cam2world, H_world_map):
     pose[:, :3, 3] = C[..., :3] / C[..., 3:]
     return pose
 
-
-def umeyama_sim3(src: torch.Tensor, dst: torch.Tensor,
-                 with_scale: bool = True):
-    """Least-squares Sim(3) with dst ~= s R src + t -> (s, R (3,3), t (3,))."""
-    n = src.shape[0]
-    mu_s, mu_d = src.mean(0), dst.mean(0)
-    X, Y = src - mu_s, dst - mu_d
-    U, svals, Vt = torch.linalg.svd((Y.T @ X) / n)
-    d = torch.sign(torch.linalg.det(U @ Vt))
-    fix = torch.ones(3, dtype=src.dtype, device=src.device)
-    fix[2] = d
-    R = U @ torch.diag(fix) @ Vt
-    if with_scale:
-        s = (svals * fix).sum() / ((X * X).sum() / n + 1e-12)
-    else:
-        s = torch.ones((), dtype=src.dtype, device=src.device)
-    return s, R, mu_d - s * (R @ mu_s)
-
-
-def sim3_matrix(s, R, t):
-    T = torch.eye(4, dtype=R.dtype, device=R.device)
-    T[:3, :3] = s * R
-    T[:3, 3] = t
-    return T

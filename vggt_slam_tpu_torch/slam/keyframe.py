@@ -57,8 +57,8 @@ class FrameTracker:
                 self.kf_gray, maxCorners=self.max_corners, qualityLevel=0.01,
                 minDistance=8, blockSize=7)
 
-    def compute_disparity(self, image: np.ndarray, min_disparity: float,
-                          visualize: bool = False) -> bool:
+    def compute_disparity(self, image: np.ndarray,
+                          min_disparity: float) -> bool:
         """True if `image` should start/extend the keyframe set."""
         if self.last_kf is None or self.kf_pts is None \
                 or len(self.kf_pts) < 10:

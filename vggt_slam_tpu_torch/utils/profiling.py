@@ -1,7 +1,7 @@
 """Per-stage wall-time accounting (counterpart of vggt_slam_tpu/utils/
-profiling.py): `StageTimer` accumulates host-clock seconds per named stage;
-with `sync=True` each stage ends with torch.cuda.synchronize so device work
-launched inside it is counted there."""
+profiling.py): `StageTimer` accumulates host-clock seconds per named stage.
+Device work queued inside a stage is counted where the host waits for it
+(`sync`, or the solver's copy events)."""
 from __future__ import annotations
 
 import contextlib
@@ -21,8 +21,7 @@ def sync() -> None:
 class StageTimer:
     """with timer.stage("vggt_forward"): ...  accumulates per-stage time."""
 
-    def __init__(self, sync: bool = False):
-        self.sync = sync
+    def __init__(self):
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
         self.samples: dict[str, list] = defaultdict(list)
@@ -33,8 +32,6 @@ class StageTimer:
         try:
             yield
         finally:
-            if self.sync:
-                sync()
             dt = time.perf_counter() - t0
             self.totals[name] += dt
             self.counts[name] += 1
