@@ -1,20 +1,35 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # build, check every kernel, drive SLAM
+                                     # and training
     python3 chip_smoke.py --kernels-only   # build and check the kernels only
-    python3 chip_smoke.py --profile        # also profile one forward
+    python3 chip_smoke.py --profile        # also profile one forward and
+                                           # one training step
 
 Phases, one line of output each (and the contract lines at the end):
   1. environment: device, `nvidia-smi` name and power limit, versions;
-  2. build the CUDA kernels from vggt_slam_tpu_torch/csrc with nvcc;
-  3. hold each kernel against its plain PyTorch version at the main path's
-     shapes (max abs / rel error, kernel / plain / SDPA times, bound);
-  4. a full-width VGGT-1B forward through the kernels against the same
+  2. build the CUDA kernels from vggt_slam_tpu_torch/csrc with nvcc, one
+     process per source, all at once;
+  3. hold each forward kernel against its plain PyTorch version at the SLAM
+     path's shapes (max abs / rel error, kernel / plain / SDPA times, bound);
+  4. hold the training kernels (the forward kernels' stats variant, dq and
+     dkv) against their plain versions at the training shapes, with the
+     kernel, plain and SDPA forward+backward times and the bounds;
+  5. a full-width VGGT-1B forward through the kernels against the same
      forward through the kernels' plain versions, on a 2-frame input;
-  5. the SLAM main path at VGGT-1B width (seeded random weights drawn on the
+  6. the SLAM main path at VGGT-1B width (seeded random weights drawn on the
      card) over a synthetic panned sequence, through `run_slam` with the
      torch keyframe backend: launches of each kernel, per-stage seconds,
-     submaps, poses; all poses and SL(4) homographies must be finite.
+     submaps, poses; all poses and SL(4) homographies must be finite;
+  7. the gradient of a 2-frame VGGT-1B training loss through the kernels
+     against the same gradient through their plain versions, on named
+     leaves;
+  8. the training path at VGGT-1B width and depth: 3 steps of
+     parallel.train.make_train_step on one 4-frame synth3d batch, with the
+     loss, step time, peak memory and launches per step; the loss and every
+     gradient must be finite and the loss must fall;
+  9. the train_tiny CLI on the small model for 6 steps, whose checkpoint
+     must load into the port's VGGT and give a finite forward on the card.
 The last lines are the kernels JSON object and {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero with no result line. It
 needs a CUDA device and imports nothing of JAX, OpenCV or the JAX package.
@@ -173,6 +188,149 @@ def sdpa_call(case):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
+def _rel_rms(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float(((a - b) ** 2).mean().sqrt()
+                 / (b ** 2).mean().sqrt().clamp_min(1e-30))
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+TRAINING_CASES = [
+    # name, B, N, H, D, valid_len, softmax, launches per 1B training step
+    ("encoder_frame", 4, 1041, 16, 64, None, "online", 48),
+    ("global", 1, 4164, 16, 64, None, "static", 24),
+    ("camera_trunk", 1, 4, 16, 128, None, "online", 16),
+    ("global_valid_len", 1, 4164, 16, 64, 3123, "static", 0),
+    ("small_global_d32", 1, 4164, 4, 32, None, "static", 0),
+]
+
+
+def training_bounds(B, N, H, D, vl):
+    """Least H100 time of the forward with stats, dq and dkv: flops (4, 6
+    and 8 N_q N_k H D per batch) over the bf16 peak against the bytes (each
+    input read once, each output written once) over the HBM rate."""
+    nk = N if vl is None else min(vl, N)
+    qd = 2.0 * B * N * H * D           # one bf16 (B, N, H*D) tensor
+    kd = 2.0 * B * nk * H * D          # the valid keys of k or v
+    st = 4.0 * B * H * N               # one f32 row stat
+    work = {
+        "fwd": (4, 2 * qd + 2 * kd + 2 * st),        # q,k,v -> out, m, l
+        "dq": (6, 2 * qd + 2 * kd + 3 * st + qd),    # q,k,v,dO,m,l,delta
+        "dkv": (8, 2 * qd + 2 * kd + 3 * st + 2 * kd),
+    }
+    out = {}
+    for name, (mult, nbytes) in work.items():
+        t_ops = mult * B * N * nk * H * D / BF16_PEAK_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = (max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def check_training_kernels(device):
+    """Forward with stats, dq and dkv against their plain versions at the
+    training shapes of VGGT-1B (and one of VGGTConfig.small, head dim 32),
+    on bf16 q, k, v that arrive with qk-norm and rope applied."""
+    import torch
+    import torch.nn.functional as F
+
+    from vggt_slam_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    results = []
+    for name, B, N, H, D, vl, softmax, per_step in TRAINING_CASES:
+        q, k, v, dout = (torch.randn((B, N, H * D), generator=g,
+                                     device=device).to(torch.bfloat16)
+                         for _ in range(4))
+        kw = dict(num_heads=H, valid_len=vl)
+        static = softmax == "static" and N > 2304
+        smax = A.static_bound(q, k, H) if static else None
+
+        def fwd():
+            return (A.flash_multi(q, k, v, smax, return_stats=True, **kw)
+                    if static else
+                    A.flash_single(q, k, v, return_stats=True, **kw))
+
+        def fwd_plain():
+            return (A.flash_multi_ref(q, k, v, smax, return_stats=True, **kw)
+                    if static else
+                    A.flash_single_ref(q, k, v, return_stats=True, **kw))
+
+        out, m, l = fwd()
+        torch.cuda.synchronize()
+        ref = fwd_plain()
+        errs = {"out": float((out.float() - ref[0].float()).abs().max()),
+                "m_rel": float(((m - ref[1]).abs()
+                                / ref[1].abs().clamp_min(1.0)).max()),
+                "l_rel": float(((l - ref[2]).abs() / ref[2]).max())}
+        delta = (dout.float() * out.float()).view(B, N, H, D).sum(-1) \
+            .transpose(1, 2).contiguous()
+        bwd_args = (q, k, v, dout, m, l, delta)
+
+        def dq_fn():
+            return A.flash_bwd_dq(*bwd_args, **kw)
+
+        def dkv_fn():
+            return A.flash_bwd_dkv(*bwd_args, **kw)
+
+        def bwd_plain():
+            return A.flash_bwd_ref(*bwd_args, **kw)
+
+        dq = dq_fn()
+        dk, dv = dkv_fn()
+        torch.cuda.synchronize()
+        refs = bwd_plain()
+        for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            scale = float(want.float().abs().max())
+            errs[gname] = float((got.float() - want.float()).abs().max())
+            errs[gname + "_rel_to_max"] = errs[gname] / max(scale, 1e-30)
+        if vl is not None:
+            errs["masked_dkv_max"] = float(torch.cat(
+                [dk[:, vl:], dv[:, vl:]]).float().abs().max())
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (out, m, l, dq, dk, dv))
+        iters = 10 if N > 100 else 50
+        times = {"fwd_ms": cuda_ms(fwd, iters), "dq_ms": cuda_ms(dq_fn, iters),
+                 "dkv_ms": cuda_ms(dkv_fn, iters),
+                 "fwd_plain_ms": cuda_ms(fwd_plain, 2),
+                 "bwd_plain_ms": cuda_ms(bwd_plain, 2)}
+        sdpa = None
+        if vl is None:
+            # SDPA on the same pre-applied bf16 q, k, v: forward + backward
+            qs, ks, vs = (t.view(B, N, H, D).transpose(1, 2).detach()
+                          .requires_grad_() for t in (q, k, v))
+            do_h = dout.view(B, N, H, D).transpose(1, 2)
+
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(qs, ks, vs)
+                torch.autograd.grad(o, (qs, ks, vs), do_h)
+
+            sdpa = cuda_ms(sdpa_fwd_bwd, iters)
+        bounds = training_bounds(B, N, H, D, vl)
+        res = dict(variant=name, B=B, N=N, H=H, D=D, valid_len=vl,
+                   kernel="flash_multi" if static else "flash_single",
+                   launches_per_1b_step=per_step, errors=errs, **times,
+                   kernels_fwd_bwd_ms=times["fwd_ms"] + times["dq_ms"]
+                   + times["dkv_ms"], sdpa_fwd_bwd_ms=sdpa,
+                   bound_ms={k_: b[0] for k_, b in bounds.items()},
+                   bound_by={k_: b[1] for k_, b in bounds.items()})
+        log("training_kernel_check", **res)
+        tol_ok = (errs["out"] <= 2e-2 and errs["m_rel"] <= 1e-3
+                  and errs["l_rel"] <= 1e-3
+                  and all(errs[n + "_rel_to_max"] <= 2e-2
+                          for n in ("dq", "dk", "dv"))
+                  and errs.get("masked_dkv_max", 0.0) == 0.0)
+        if not finite or not tol_ok:
+            raise AssertionError(f"training kernels disagree with their "
+                                 f"plain versions at {name}: {errs}")
+        results.append(res)
+        del q, k, v, dout, out, m, l, ref, dq, dk, dv, refs
+    return results
+
+
 def check_kernels(device):
     import torch
 
@@ -230,16 +388,20 @@ def check_kernels(device):
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def plain_attention(model):
-    """Run the model's attention through the kernels' plain versions (on
-    the card), then restore the kernels."""
+def plain_attention(model=None):
+    """Run the model's attention, forward and backward, through the kernels'
+    plain versions (on the card), then restore the kernels."""
     from vggt_slam_tpu_torch.ops import attention as A
-    saved = A.flash_single, A.flash_multi
+    names = ("flash_single", "flash_multi", "flash_bwd_dq", "flash_bwd_dkv")
+    saved = [getattr(A, n) for n in names]
     A.flash_single, A.flash_multi = A.flash_single_ref, A.flash_multi_ref
+    A.flash_bwd_dq = lambda *a, **kw: A.flash_bwd_ref(*a, **kw)[0]
+    A.flash_bwd_dkv = lambda *a, **kw: A.flash_bwd_ref(*a, **kw)[1:]
     try:
         yield
     finally:
-        A.flash_single, A.flash_multi = saved
+        for n, f in zip(names, saved):
+            setattr(A, n, f)
 
 
 @contextlib.contextmanager
@@ -297,15 +459,51 @@ def check_forward(model, device, frames):
     torch.cuda.synchronize()
 
 
-def profile_forward(model, device, frames):
-    """`--profile`: one bucketed forward (17 frames in an 18-frame bucket,
-    as on the main path) under torch.profiler: device time by kernel
-    family, and the device's busy share of the forward's wall time."""
-    import time as _time
-
+def profiled(fn):
+    """Run fn() once under torch.profiler (after the caller's warm-up):
+    wall ms, device kernel ms by family, the device's busy share, and the
+    largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # kernels only: operator events carry their kernels' time as well, and
+    # a user annotation (such as Optimizer.step) spans kernels on the device
+    rows = sorted(((e.key, dev_us(e) / 1e3) for e in prof.key_averages()
+                   if "CUDA" in str(e.device_type) and dev_us(e) > 0
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda r: -r[1])
+    families = {}
+    for name, ms in rows:
+        low = name.lower()
+        fam = ("attention" if "flash_fwd" in low or "prep_rows" in low
+               else "attention_bwd" if "flash_bwd" in low
+               else "matmul" if any(s in low for s in (
+                   "gemm", "xmma", "cutlass", "nvjet", "matmul"))
+               else "conv" if "conv" in low or "cudnn" in low
+               else "optimizer" if "multi_tensor" in low
+               else "other")
+        families[fam] = families.get(fam, 0.0) + ms
+    device_ms = sum(ms for _, ms in rows)
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                busy_share=device_ms / wall_ms, families_ms=families,
+                top=[[n[:80], ms] for n, ms in rows[:12]])
+
+
+def profile_forward(model, device, frames):
+    """`--profile`: one bucketed forward (17 frames in an 18-frame bucket,
+    as on the main path) under torch.profiler."""
     from vggt_slam_tpu_torch.data.images import preprocess_frames
     from vggt_slam_tpu_torch.models.vggt.model import make_bucketed_model_fn
 
@@ -313,35 +511,7 @@ def profile_forward(model, device, frames):
                                 with_unprojection=True, device=device)
     images = preprocess_frames(frames[:17])
     fn(images)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = _time.perf_counter()
-        fn(images)
-        torch.cuda.synchronize()
-        wall_ms = (_time.perf_counter() - t0) * 1e3
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # kernels only: operator events carry their kernels' time as well
-    rows = sorted(((e.key, dev_us(e) / 1e3) for e in prof.key_averages()
-                   if "CUDA" in str(e.device_type) and dev_us(e) > 0),
-                  key=lambda r: -r[1])
-    families = {}
-    for name, ms in rows:
-        low = name.lower()
-        fam = ("attention" if "flash_fwd" in low or "prep_rows" in low
-               else "matmul" if any(s in low for s in (
-                   "gemm", "xmma", "cutlass", "nvjet", "matmul"))
-               else "conv" if "conv" in low or "cudnn" in low
-               else "other")
-        families[fam] = families.get(fam, 0.0) + ms
-    device_ms = sum(ms for _, ms in rows)
-    log("profile", frames=17, bucket=18, wall_ms=wall_ms,
-        device_ms=device_ms, busy_share=device_ms / wall_ms,
-        families_ms=families, top=[[n[:80], ms] for n, ms in rows[:12]])
+    log("profile", frames=17, bucket=18, **profiled(lambda: fn(images)))
 
 
 # ---------------------------------------------------------------------------
@@ -422,11 +592,194 @@ def drive_main_path(model, device, frames):
         raise AssertionError(f"only {n_sub} submap(s) formed")
     if not finite:
         raise AssertionError("non-finite pose or homography")
-    for name, count in launches.items():
-        if count == 0:
+    for name in ("flash_single", "flash_multi"):   # inference: forward only
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "main path")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-9: training at VGGT-1B width, and the train_tiny CLI
+# ---------------------------------------------------------------------------
+
+def training_model(device):
+    """VGGT-1B width and depth with seeded random weights drawn on the
+    card, in the training configuration: flash_grad attention, activation
+    checkpointing, exact global attention, no point head, bf16 compute."""
+    from vggt_slam_tpu_torch.main import build_model
+    from vggt_slam_tpu_torch.models.vggt.config import VGGTConfig
+
+    cfg = VGGTConfig.vggt_1b(attn_impl="flash_grad", remat=True,
+                             global_kv_stride=1, enable_point_head=False)
+    return build_model(cfg, seed=SEED, device=device).train()
+
+
+def training_batch(n_frames, device):
+    import torch
+
+    from vggt_slam_tpu_torch.tools import synth3d
+    batch = synth3d.training_batch(SEED, n_frames=n_frames, image_hw=HW)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+GRAD_LEAVES = {
+    "frame_block_qkv": "aggregator.frame_block_12.attn.qkv.kernel",
+    "global_block_qkv": "aggregator.global_block_12.attn.qkv.kernel",
+    "camera_head_trunk_qkv": "camera_head.trunk_0.attn.qkv.kernel",
+    "camera_head_pose_branch": "camera_head.pose_branch.fc2.kernel",
+    "depth_head_last_conv": "depth_head.output_conv2_2.kernel",
+}
+
+
+def check_backward(device):
+    """Gradient of a 2-frame VGGT-1B training loss through the kernels
+    against the same gradient through their plain versions: the relative
+    RMS difference of named leaves, and of every attention projection in
+    forward order (to find where the two parted, should a leaf fail)."""
+    import torch
+
+    from vggt_slam_tpu_torch.ops import attention as A
+    from vggt_slam_tpu_torch.parallel.train import vggt_loss
+
+    model = training_model(device)
+    batch = training_batch(2, device)
+    params = dict(model.named_parameters())
+    qkv_names = [n for n in params if n.endswith("attn.qkv.kernel")]
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss = vggt_loss(model, batch)
+        loss.backward()
+        keep = set(GRAD_LEAVES.values()) | set(qkv_names)
+        return float(loss.detach()), {n: params[n].grad.detach().clone()
+                             for n in keep}
+
+    A.reset_launch_counts()
+    loss_k, g_k = grads()
+    torch.cuda.synchronize()
+    launches = dict(A.LAUNCHES)
+    with plain_attention():
+        loss_p, g_p = grads()
+    errs = {k: _rel_rms(g_k[n], g_p[n]) for k, n in GRAD_LEAVES.items()}
+    per_block = [[n, _rel_rms(g_k[n], g_p[n])] for n in qkv_names]
+    tol = 5e-2
+    first_apart = next((n for n, e in per_block if e > tol), None)
+    qkv_errs = [e for _, e in per_block]
+    log("backward_check", frames=2, loss_kernels=loss_k, loss_plain=loss_p,
+        rel_rms_grad_err=errs, tol=tol, launches=launches,
+        qkv_leaves=len(qkv_errs), qkv_rel_rms_min=min(qkv_errs),
+        qkv_rel_rms_max=max(qkv_errs), first_qkv_leaf_past_tol=first_apart,
+        note="relative RMS difference of bf16 gradients through the kernels "
+             "and through their plain versions")
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
+    del model, params, g_k, g_p
+    torch.cuda.empty_cache()
+    if not finite or max(errs.values()) > tol:
+        raise AssertionError(f"backward disagrees with the plain path: "
+                             f"{errs}; first qkv leaf apart: {first_apart}")
+
+
+def drive_training(device, n_steps=3, profile=False):
+    """The training path at VGGT-1B width and depth: `n_steps` of
+    make_train_step (AdamW, lr 1e-4, weight decay 0.05) on one 4-frame
+    synth3d batch at 392x518. Returns the launches of those steps and of
+    the last one. `profile`: one more step under torch.profiler."""
+    import torch
+
+    from vggt_slam_tpu_torch.ops import attention as A
+    from vggt_slam_tpu_torch.parallel.train import make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    model = training_model(device)
+    batch = training_batch(4, device)
+    step, _ = make_train_step(model)
+    params = list(model.parameters())
+    losses, step_ms, per_step = [], [], []
+    A.reset_launch_counts()
+    for _ in range(n_steps):
+        before = dict(A.LAUNCHES)
+        t0 = time.perf_counter()
+        loss = float(step(batch))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        per_step.append({k: A.LAUNCHES[k] - before[k] for k in before})
+        missing = sum(p.grad is None for p in params)
+        finite = all(bool(torch.isfinite(p.grad).all()) for p in params
+                     if p.grad is not None)
+        if missing or not finite or loss != loss:
+            raise AssertionError(f"training step: loss {loss}, {missing} "
+                                 f"parameters without a gradient, finite "
+                                 f"gradients {finite}")
+    launches = dict(A.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if profile:
+        log("profile_training_step", frames=4,
+            **profiled(lambda: step(batch)))
+    log("training", frames=4, image_hw=list(HW), steps=n_steps,
+        params=sum(p.numel() for p in params), losses=losses,
+        step_ms=step_ms, peak_memory_gib=peak / 2 ** 30,
+        launches=launches, launches_per_step=per_step)
+    del model, params, step, batch
+    torch.cuda.empty_cache()
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "training path")
+    return launches, per_step[-1]
+
+
+def drive_cli(device):
+    """`python -m vggt_slam_tpu_torch.tools.train_tiny` on the small model
+    for 6 steps into a temporary directory; its checkpoint must load into
+    the port's VGGT(small) and give a finite forward on the card."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from vggt_slam_tpu_torch.main import build_model
+    from vggt_slam_tpu_torch.models.vggt.config import VGGTConfig
+    from vggt_slam_tpu_torch.models.vggt.model import make_bucketed_model_fn
+    from vggt_slam_tpu_torch.tools import synth3d
+
+    out = tempfile.mkdtemp(prefix="train_tiny_")
+    try:
+        cmd = [sys.executable, "-m", "vggt_slam_tpu_torch.tools.train_tiny",
+               "--out", out, "--model_size", "small", "--frames", "4",
+               "--steps", "6", "--val_every", "3", "--ckpt_every", "3"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600, cwd=os.path.dirname(
+                                  os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+        tail = proc.stdout.strip().splitlines()[-4:]
+        if proc.returncode != 0:
+            raise AssertionError(f"train_tiny failed ({proc.returncode}): "
+                                 f"{proc.stderr[-2000:]}")
+        ckpt = os.path.join(out, "checkpoint.npz")
+        cfg = VGGTConfig.small(enable_point_head=False)
+        model = build_model(cfg, checkpoint=ckpt, device=device)
+        fn = make_bucketed_model_fn(model, 4, as_numpy=True, device=device)
+        images = synth3d.training_batch(SEED + 1, n_frames=4,
+                                        image_hw=HW)["images"]
+        pred = fn(images)
+        finite = all(np.isfinite(pred[k]).all()
+                     for k in ("pose_enc", "depth", "depth_conf"))
+        with open(os.path.join(out, "train_log.jsonl")) as f:
+            n_log = len(f.read().splitlines())
+        log("train_tiny_cli", wall_s=wall, files=sorted(os.listdir(out)),
+            log_rows=n_log, stdout_tail=tail, forward_finite=finite,
+            pose_enc_shape=list(pred["pose_enc"].shape))
+        if not finite:
+            raise AssertionError("the trained checkpoint's forward is not "
+                                 "finite")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -449,7 +802,9 @@ def main(argv) -> int:
         python=sys.version.split()[0])
 
     t0 = time.perf_counter()
+    cuda_build.build_all()
     A.kernel_library()
+    A.bwd_kernel_library()
     log("build", seconds=time.perf_counter() - t0,
         nvcc_seconds=cuda_build.build_seconds,
         ptxas=[ln for text in cuda_build.build_log.values()
@@ -457,6 +812,7 @@ def main(argv) -> int:
                or "spill" in ln])
 
     checks = check_kernels(device)
+    train_checks = check_training_kernels(device)
     if "--kernels-only" in argv:     # a quick build-and-compare run
         return 0
     t0 = time.perf_counter()
@@ -470,12 +826,22 @@ def main(argv) -> int:
     if "--profile" in argv:
         profile_forward(model, device, frames)
     launches = drive_main_path(model, device, frames)
+    del model
+    torch.cuda.empty_cache()
+    check_backward(device)
+    train_launches, train_per_step = drive_training(
+        device, profile="--profile" in argv)
+    drive_cli(device)
 
     replaces = {
         "flash_single": "vggt_slam_tpu/ops/attention.py:387 "
                         "(_flash_single_kernel, launched at :826)",
         "flash_multi": "vggt_slam_tpu/ops/attention.py:121 "
                        "(_flash_kernel, launched at :877)",
+        "flash_bwd_dq": "vggt_slam_tpu/ops/attention.py:1106 "
+                        "(_flash_bwd_dq_kernel, launched at :1215)",
+        "flash_bwd_dkv": "vggt_slam_tpu/ops/attention.py:1138 "
+                         "(_flash_bwd_dkv_kernel, launched at :1234)",
     }
     representative = {"flash_single": "frame_block",
                       "flash_multi": "global_block"}
@@ -492,7 +858,31 @@ def main(argv) -> int:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"],
+            "training_launches": train_launches[name],
+            "training_launches_per_step": train_per_step[name],
             "variants": variants})
+    rep = next(c for c in train_checks if c["variant"] == "global")
+    for name, key in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")):
+        kernels.append({
+            "name": name, "status": "ported", "route": "cuda",
+            "source": "vggt_slam_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": replaces[name], "launches": train_launches[name],
+            "launches_per_step": train_per_step[name],
+            "variant": rep["variant"],
+            "max_abs_err": max(max(c["errors"]["dk" if key == "dkv"
+                                                else "dq"],
+                                   c["errors"]["dv"] if key == "dkv"
+                                   else 0.0) for c in train_checks),
+            "ms": rep[f"{key}_ms"], "plain_ms": rep["bwd_plain_ms"],
+            "bound_ms": rep["bound_ms"][key],
+            "bound_by": rep["bound_by"][key],
+            # no single PyTorch call computes dq or (dk, dv) alone
+            "library_ms": None,
+            "sdpa_fwd_bwd_ms": rep["sdpa_fwd_bwd_ms"],
+            "variants": [{k_: c[k_] for k_ in (
+                "variant", "B", "N", "H", "D", "valid_len", "errors",
+                f"{key}_ms", "bwd_plain_ms", "sdpa_fwd_bwd_ms", "bound_ms",
+                "bound_by")} for c in train_checks]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

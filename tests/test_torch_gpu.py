@@ -4,7 +4,11 @@ Marked `gpu`; without a CUDA device each test skips with that reason (the
 decision is taken inside the fixture, never at import). On the card:
     python -m pytest tests/test_torch_gpu.py
 Tolerance 2e-2 on bf16 outputs: the bf16 output rounding (2^-9 relative)
-and the bf16 rounding of the softmax weights before PV.
+and the bf16 rounding of the softmax weights before PV. The row stats are
+f32 and are held to 1e-3 relative: the two sides sum the same bf16 products
+in another order. The backward's gradients are held to 2e-2 of the largest
+reference entry: dL is rounded to bf16 before its products on both sides,
+and a slightly different p flips single roundings.
 """
 import numpy as np
 import pytest
@@ -43,7 +47,7 @@ def _case(device, B, H, Nq, Nk, D, rope, ln, bias, seed=0):
     return q, k, v, kw
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("variant", ["plain", "rope_ln", "bias_valid_len"])
 def test_flash_single_matches_plain(cuda, variant, D):
     q, k, v, kw = _case(cuda, 2, 4, 300, 300, D, rope=variant == "rope_ln",
@@ -60,7 +64,7 @@ def test_flash_single_matches_plain(cuda, variant, D):
                                ref.float().cpu().numpy(), atol=TOL, rtol=0)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 def test_flash_multi_matches_plain(cuda, D):
     q, k, v, kw = _case(cuda, 1, 4, 700, 500, D, rope=True, ln=True,
                         bias=True)
@@ -75,10 +79,86 @@ def test_flash_multi_matches_plain(cuda, D):
                                ref.float().cpu().numpy(), atol=TOL, rtol=0)
 
 
+def _close(out, ref, tol):
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=tol, rtol=0)
+
+
+def _stats_close(out, ref):
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("variant", ["single", "single_valid_len",
+                                     "multi_static"])
+def test_forward_stats_match_plain(cuda, variant, D):
+    Nk = 2500 if variant == "multi_static" else 300
+    q, k, v, kw = _case(cuda, 1, 4, 260, Nk, D, rope=False, ln=False,
+                        bias=False, seed=3)
+    if variant == "single_valid_len":
+        kw["valid_len"] = 201
+    if variant == "multi_static":
+        smax = A.static_bound(q, k, 4)
+        out, m, l = A.flash_multi(q, k, v, smax, return_stats=True, **kw)
+        ref = A.flash_multi_ref(q, k, v, smax, return_stats=True, **kw)
+    else:
+        out, m, l = A.flash_single(q, k, v, return_stats=True, **kw)
+        ref = A.flash_single_ref(q, k, v, return_stats=True, **kw)
+    torch.cuda.synchronize()
+    assert m.shape == l.shape == (1, 4, 260)
+    _close(out, ref[0], TOL)
+    _stats_close(m, ref[1])
+    _stats_close(l, ref[2])
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("variant", ["single", "valid_len", "multi_static"])
+def test_backward_kernels_match_plain(cuda, variant, D):
+    N = 2500 if variant == "multi_static" else 300
+    q, k, v, kw = _case(cuda, 2, 2, N, N, D, rope=False, ln=False,
+                        bias=False, seed=4)
+    softmax = "static" if variant == "multi_static" else "online"
+    vl = 211 if variant == "valid_len" else None
+    out, m, l = A.flash_attention(q, k, v, num_heads=2, valid_len=vl,
+                                  softmax=softmax, return_stats=True)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dout = torch.randn(q.shape, generator=g, device=cuda).bfloat16()
+    delta = (dout.float() * out.float()).view(2, N, 2, D).sum(-1) \
+        .transpose(1, 2).contiguous()
+    args = (q, k, v, dout, m, l, delta)
+    before = dict(A.LAUNCHES)
+    dq = A.flash_bwd_dq(*args, num_heads=2, valid_len=vl)
+    dk, dv = A.flash_bwd_dkv(*args, num_heads=2, valid_len=vl)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert A.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    refs = A.flash_bwd_ref(*args, num_heads=2, valid_len=vl)
+    for got, ref in zip((dq, dk, dv), refs):
+        assert torch.isfinite(got).all()
+        _close(got, ref, 2e-2 * float(ref.float().abs().max()))
+    if vl is not None:
+        assert float(dk[:, vl:].float().abs().max()) == 0.0
+        assert float(dv[:, vl:].float().abs().max()) == 0.0
+
+
+def test_flash_attention_grad_launches_the_kernels(cuda):
+    q, k, v, kw = _case(cuda, 1, 2, 200, 200, 64, rope=False, ln=False,
+                        bias=False, seed=6)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = dict(A.LAUNCHES)
+    out = A.attention(q, k, v, impl="flash_grad", num_heads=2)
+    out.float().sin().sum().backward()
+    torch.cuda.synchronize()
+    for name in ("flash_single", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert A.LAUNCHES[name] == before[name] + 1
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
 def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     q = torch.randn(1, 16, 96, device=cuda)
     with pytest.raises(TypeError, match="bf16"):
         A.flash_single(q, q, q, num_heads=2)
     qb = q.bfloat16()
     with pytest.raises(ValueError, match="head dim"):
-        A.flash_single(qb, qb, qb, num_heads=3)
+        A.flash_single(qb, qb, qb, num_heads=4)      # head dim 24

@@ -1,0 +1,132 @@
+"""The port's trainer (vggt_slam_tpu_torch/tools/train_tiny.py) and its
+data (tools/synth3d.py) against the JAX reference on the CPU.
+
+* train_tiny's schedule against optax's warmup_cosine_decay_schedule
+  (1e-5 relative: optax evaluates it in float32).
+* train_tiny's optimizer chain against the reference's optax chain
+  (train_tiny.py:209-212) over three updates: 1e-6 relative on the
+  parameters (AdamW's decoupled decay is factored differently in torch and
+  optax, and the clip scale rounds differently; the clip here has no +1e-6
+  in the norm, as optax's).
+* synth3d.training_batch against the reference's copy for two seeds: pose
+  encodings bit-equal; images and depth within float32 rounding of the
+  reference's OpenCV resize, blur and remap (2e-4 on [0, 1] images, 1e-6
+  relative on depth), which the port writes in numpy.
+* train_tiny end to end on the CPU (log, checkpoints, resume continuing
+  the schedule), and its refusal to run without a card unless asked.
+"""
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from vggt_slam_tpu.tools import synth3d as jsynth
+from vggt_slam_tpu_torch.tools import synth3d, train_tiny
+
+
+def test_schedule_matches_optax():
+    for lr, warmup, steps in ((3e-4, 200, 8000), (1e-3, 3, 10)):
+        sched = optax.warmup_cosine_decay_schedule(
+            0.0, lr, warmup, max(steps, warmup + 1), lr * 1e-2)
+        for c in list(range(0, 2 * warmup + 3)) + [steps - 1, steps,
+                                                   steps + 5]:
+            assert train_tiny.warmup_cosine(
+                c, lr, warmup, max(steps, warmup + 1), lr * 1e-2) \
+                == pytest.approx(float(sched(c)), rel=1e-5, abs=1e-12)
+
+
+def test_optimizer_chain_matches_optax():
+    rng = np.random.default_rng(4)
+    params = {"w": rng.normal(size=(6, 5)).astype(np.float32),
+              "b": rng.normal(size=(5,)).astype(np.float32)}
+    grads = [{k: (s * rng.normal(size=v.shape)).astype(np.float32)
+              for k, v in params.items()} for s in (3.0, 0.1, 2.0)]
+    lr, wd, clip, warmup, steps = 1e-2, 0.01, 1.0, 2, 10
+    sched = optax.warmup_cosine_decay_schedule(
+        0.0, lr, warmup, max(steps, warmup + 1), lr * 1e-2)
+    tx = optax.chain(optax.clip_by_global_norm(clip),
+                     optax.adamw(sched, weight_decay=wd))
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    state = tx.init(jp)
+
+    module = torch.nn.ParameterDict(
+        {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+         for k, v in params.items()})
+    opt, lrs = train_tiny.make_optimizer(module, lr, wd, warmup, steps)
+    for i, g in enumerate(grads):
+        up, state = tx.update({k: jnp.asarray(v) for k, v in g.items()},
+                              state, jp)
+        jp = optax.apply_updates(jp, up)
+        for k, p in module.items():
+            p.grad = torch.from_numpy(g[k].copy())
+        train_tiny.clip_by_global_norm(list(module.parameters()), clip)
+        opt.step()
+        lrs.step()
+        for k, p in module.items():
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]),
+                                       rtol=1e-6, atol=1e-7,
+                                       err_msg=f"{k} after update {i + 1}")
+        if i == 0:   # the first update has lr 0: params unchanged
+            for k, p in module.items():
+                np.testing.assert_array_equal(p.detach().numpy(), params[k])
+
+
+@pytest.mark.parametrize("seed", [3, 8])
+def test_synth3d_training_batch_matches_reference(seed):
+    want = jsynth.training_batch(seed, n_frames=2, image_hw=(48, 64))
+    got = synth3d.training_batch(seed, n_frames=2, image_hw=(48, 64))
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype
+    np.testing.assert_array_equal(got["pose_enc_gt"], want["pose_enc_gt"])
+    np.testing.assert_allclose(got["images"], want["images"], atol=2e-4,
+                               rtol=0)
+    np.testing.assert_allclose(got["depth_gt"], want["depth_gt"], rtol=1e-6,
+                               atol=0)
+
+
+def _run(out, *extra):
+    train_tiny.main(["--out", str(out), "--model_size", "tiny",
+                     "--frames", "2", "--image_hw", "28", "42",
+                     "--val_every", "1", "--ckpt_every", "1", "--warmup",
+                     "1", "--device", "cpu", *extra])
+
+
+def test_train_tiny_cpu_run_and_resume(tmp_path):
+    _run(tmp_path / "a", "--steps", "2")
+    log = [json.loads(ln) for ln in
+           (tmp_path / "a" / "train_log.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in log if "loss" in r] == [1]
+    assert [r["step"] for r in log if "val_loss" in r] == [1, 2]
+    for name in ("checkpoint.npz", "last.npz", "last_opt.pt",
+                 "checkpoint_meta.json"):
+        assert (tmp_path / "a" / name).exists()
+    # Resume to step 3 against an uninterrupted 3-step run: the same
+    # parameters, so the optimizer moments, the schedule's position and
+    # the batch stream all continued.
+    _run(tmp_path / "a", "--steps", "3", "--resume",
+         str(tmp_path / "a" / "last.npz"))
+    _run(tmp_path / "b", "--steps", "3")
+    steps_a = [json.loads(ln)["step"] for ln in
+               (tmp_path / "a" / "train_log.jsonl").read_text().splitlines()]
+    assert steps_a[-1] == 3
+    state = torch.load(tmp_path / "a" / "last_opt.pt", weights_only=True)
+    assert state["step"] == 3
+    with np.load(tmp_path / "a" / "last.npz") as a, \
+            np.load(tmp_path / "b" / "last.npz") as b:
+        assert set(a.files) == set(b.files)
+        for k in a.files:
+            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-6,
+                                       err_msg=k)
+
+
+def test_train_tiny_needs_a_card_unless_cpu_is_asked(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert train_tiny.parser.parse_args(["--out", "x"]).device == "cuda"
+    assert train_tiny.parser.parse_args(["--out", "x"]).attn_impl == \
+        "flash_grad"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_tiny.main(["--out", str(tmp_path / "x"), "--steps", "1"])

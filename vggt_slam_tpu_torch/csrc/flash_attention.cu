@@ -24,7 +24,11 @@
 // (rounded to bf16), then rope x*C + [x2|x1]*S' with the softmax scale and
 // log2(e) folded into q's tables (rounded to bf16); without rope q is
 // scaled by the same constant and rounded to bf16. m is the running row
-// max (single) or the static bound (multi).
+// max (single) or the static bound (multi). When the caller passes m_out
+// and l_out (the training forward), each kernel also writes per (batch,
+// head, row) the shift m the summands were taken against and the row sum
+// l = sum_j exp2(s_j - m), the return_stats convention of the JAX kernels
+// (attention.py:365-384); the inference path passes null pointers.
 //
 // What bounds it on this card: at the main-path shapes both kernels do
 // ~4 N_q N_k D flops per head on ~(N_q + 2 N_k) D bf16 bytes, far above
@@ -40,18 +44,16 @@
 // shared memory); key tiles past valid_len are never loaded. wgmma, TMA
 // and warp specialisation are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace flash;
 
 constexpr int BQ = 64;                // query rows per CTA
 constexpr int BK = 64;                // keys per tile
 constexpr int NWARP = 4;
 constexpr int NTHREAD = NWARP * 32;
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
   const __nv_bfloat16* q;
@@ -66,6 +68,8 @@ struct Params {
   const float* cos_q;     // (Nq, D/2); or null (no rope)
   const float* sin_q;
   const float* smax;      // (B*H,) static bound, multi kernel only
+  float* m_out;           // (B*H, Nq) row shift, or null
+  float* l_out;           // (B*H, Nq) row sum, or null
 };
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -151,61 +155,6 @@ __global__ void __launch_bounds__(NTHREAD)
   for (int j = 0; j < PER; ++j) dst[base + j] = __float2bfloat16(x[j]);
 }
 
-// Copy rows [row0, row0 + 64) of head h into a shared tile with 16-byte
-// loads; rows at or past `limit` are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int b,
-                                          int h, int H, int N, int row0,
-                                          int limit) {
-  constexpr int VEC = D / 8;
-  constexpr int LD = D + 8;
-  for (int i = threadIdx.x; i < 64 * VEC; i += NTHREAD) {
-    const int r = i / VEC, c = i % VEC;
-    const int n = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (n < limit) {
-      val = *reinterpret_cast<const uint4*>(
-          src + ((size_t(b) * N + n) * H + h) * D + c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// D(16x8 f32) += A(16x16 bf16, row) * B(16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int D, bool STATIC>
 __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
   constexpr int LD = D + 8;          // bf16 tile row stride (conflict-free)
@@ -225,7 +174,7 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
 
   // q tile: load, prepare in place (one warp per row), then keep this
   // warp's 16 rows as A fragments in registers for the whole key sweep.
-  load_tile<D>(Qs, p.q, b, h, p.H, p.Nq, q0, p.Nq);
+  load_tile<D, NTHREAD>(Qs, p.q, b, h, p.H, p.Nq, q0, p.Nq);
   __syncthreads();
   for (int r = warp; r < BQ; r += NWARP) {
     const int n = q0 + r;
@@ -243,13 +192,9 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
   }
   __syncthreads();
   uint32_t qa[KS][4];
-  {
-    const int m = lane / 8, r = lane % 8;
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      ldmatrix_x4(qa[ks], Qs + (warp * 16 + (m % 2) * 8 + r) * LD + ks * 16 +
-                              (m / 2) * 8);
-  }
+  for (int ks = 0; ks < KS; ++ks)
+    load_a<LD>(qa[ks], Qs, warp * 16, ks * 16, lane);
 
   float o[DT][4];
 #pragma unroll
@@ -263,8 +208,8 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
   for (int tile = 0; tile < ntiles; ++tile) {
     const int k0 = tile * BK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(Ks, p.k, b, h, p.H, p.Nk, k0, p.Nk);
-    load_tile<D>(Vs, p.v, b, h, p.H, p.Nk, k0, vl);
+    load_tile<D, NTHREAD>(Ks, p.k, b, h, p.H, p.Nk, k0, p.Nk);
+    load_tile<D, NTHREAD>(Vs, p.v, b, h, p.H, p.Nk, k0, vl);
     __syncthreads();
 
     // S = Q_w K^T: 16 x 64 per warp in NT accumulator fragments.
@@ -275,11 +220,8 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
     for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
       for (int j = 0; j < NT; j += 2) {
-        // matrices: (keys 8j.., dims lo), (8j.., hi), (8j+8.., lo), (.., hi)
         uint32_t kb[4];
-        const int m = lane / 8, r = lane % 8;
-        ldmatrix_x4(kb, Ks + (j * 8 + (m / 2) * 8 + r) * LD + ks * 16 +
-                            (m % 2) * 8);
+        load_bt<LD>(kb, Ks, j * 8, ks * 16, lane);
         mma_bf16(s[j], qa[ks], kb[0], kb[1]);
         mma_bf16(s[j + 1], qa[ks], kb[2], kb[3]);
       }
@@ -343,12 +285,8 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
       pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int i = 0; i < DT; i += 2) {
-        // matrices: (keys lo, dims 8i..), (keys hi, 8i..), (lo, 8i+8..),
-        // (hi, 8i+8..), transposed on load
         uint32_t vb[4];
-        const int m = lane / 8, r = lane % 8;
-        ldmatrix_x4_trans(vb, Vs + (kk * 16 + (m % 2) * 8 + r) * LD +
-                                  (i + m / 2) * 8);
+        load_b<LD>(vb, Vs, kk * 16, i * 8, lane);
         mma_bf16(o[i], pa, vb[0], vb[1]);
         mma_bf16(o[i + 1], pa, vb[2], vb[3]);
       }
@@ -362,6 +300,17 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
   }
   const float d_lo = fmaxf(l_lo, 1e-30f), d_hi = fmaxf(l_hi, 1e-30f);
   const int n_lo = q0 + warp * 16 + g, n_hi = n_lo + 8;
+  if (p.m_out != nullptr && t == 0) {
+    const size_t row = size_t(bh) * p.Nq;
+    if (n_lo < p.Nq) {
+      p.m_out[row + n_lo] = m_lo;
+      p.l_out[row + n_lo] = l_lo;
+    }
+    if (n_hi < p.Nq) {
+      p.m_out[row + n_hi] = m_hi;
+      p.l_out[row + n_hi] = l_hi;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < DT; ++i) {
     const int d = i * 8 + 2 * t;
@@ -408,11 +357,13 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
              int valid_len, float q_scale, const void* ln, float ln_eps,
              const void* kv_bias, const void* cos_q, const void* sin_q,
              const void* cos_k, const void* sin_k, const void* smax,
-             void* stream) {
+             void* m_out, void* l_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lnf = static_cast<const float*>(ln);
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k);
-  if (D != 64 && D != 128) return int(cudaErrorInvalidValue);
+  if (D != 32 && D != 64 && D != 128) return int(cudaErrorInvalidValue);
+  if ((m_out == nullptr) != (l_out == nullptr))
+    return int(cudaErrorInvalidValue);
   if (ln != nullptr || cos_k != nullptr) {
     if (k_work == nullptr) return int(cudaErrorInvalidValue);
     __nv_bfloat16* kw = static_cast<__nv_bfloat16*>(k_work);
@@ -420,10 +371,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
     const float* sk = static_cast<const float*>(sin_k);
     const float* gk = lnf ? lnf + 2 * D : nullptr;
     const float* bk = lnf ? lnf + 3 * D : nullptr;
-    const int err =
-        D == 64 ? launch_prep<64>(kp, kw, B, Nk, H, gk, bk, ln_eps, ck, sk, st)
-                : launch_prep<128>(kp, kw, B, Nk, H, gk, bk, ln_eps, ck, sk,
-                                   st);
+    const auto prep = D == 32   ? launch_prep<32>
+                      : D == 64 ? launch_prep<64>
+                                : launch_prep<128>;
+    const int err = prep(kp, kw, B, Nk, H, gk, bk, ln_eps, ck, sk, st);
     if (err != 0) return err;
     kp = kw;
   }
@@ -443,7 +394,11 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   p.cos_q = static_cast<const float*>(cos_q);
   p.sin_q = static_cast<const float*>(sin_q);
   p.smax = static_cast<const float*>(smax);
-  return D == 64 ? launch<64, STATIC>(p, B, st) : launch<128, STATIC>(p, B, st);
+  p.m_out = static_cast<float*>(m_out);
+  p.l_out = static_cast<float*>(l_out);
+  return D == 32   ? launch<32, STATIC>(p, B, st)
+         : D == 64 ? launch<64, STATIC>(p, B, st)
+                   : launch<128, STATIC>(p, B, st);
 }
 
 }  // namespace
@@ -455,10 +410,10 @@ int flash_single_fwd(const void* q, const void* k, const void* v, void* o,
                      int valid_len, float q_scale, const void* ln,
                      float ln_eps, const void* kv_bias, const void* cos_q,
                      const void* sin_q, const void* cos_k, const void* sin_k,
-                     void* stream) {
+                     void* m_out, void* l_out, void* stream) {
   return dispatch<false>(q, k, v, o, k_work, B, H, Nq, Nk, D, valid_len,
                          q_scale, ln, ln_eps, kv_bias, cos_q, sin_q, cos_k,
-                         sin_k, nullptr, stream);
+                         sin_k, nullptr, m_out, l_out, stream);
 }
 
 int flash_multi_fwd(const void* q, const void* k, const void* v, void* o,
@@ -466,10 +421,10 @@ int flash_multi_fwd(const void* q, const void* k, const void* v, void* o,
                     int valid_len, float q_scale, const void* ln, float ln_eps,
                     const void* kv_bias, const void* cos_q, const void* sin_q,
                     const void* cos_k, const void* sin_k, const void* smax,
-                    void* stream) {
+                    void* m_out, void* l_out, void* stream) {
   return dispatch<true>(q, k, v, o, k_work, B, H, Nq, Nk, D, valid_len,
                         q_scale, ln, ln_eps, kv_bias, cos_q, sin_q, cos_k,
-                        sin_k, smax, stream);
+                        sin_k, smax, m_out, l_out, stream);
 }
 
 const char* flash_error_string(int code) {

@@ -17,7 +17,7 @@ from torch import nn
 
 from vggt_slam_tpu_torch.models.vggt.config import VGGTConfig
 from vggt_slam_tpu_torch.models.vggt.modules import Block, Dense, \
-    rope_2d_angles
+    rope_2d_angles, run_block
 from vggt_slam_tpu_torch.models.vggt.vit import DinoViT
 
 
@@ -160,16 +160,24 @@ class Aggregator(nn.Module):
         captured: Dict = {}
         capture_set = set(cfg.dpt_layers) | {cfg.agg_depth - 1}
         for d in range(cfg.agg_depth):
-            x = getattr(self, f"frame_block_{d}")(x, cos, sin)
+            x = run_block(getattr(self, f"frame_block_{d}"), cfg.remat, x,
+                          cos, sin)
             frame_out = x
             if merge_sim and d == 0:
                 merge["M"], merge["bias"] = sim_merge(
                     x, ns, dst_patch, src_patch, cfg.dtype)
             xg = x.reshape(1, S * N, cfg.agg_dim)
-            xg = getattr(self, f"global_block_{d}")(
-                xg, cos_g, sin_g, valid_len=global_valid, kv_map=kv_map,
-                kv_valid_len=kv_valid, kv_rope_cos=cos_kv,
-                kv_rope_sin=sin_kv, kv_bias=merge.get("bias"))
+            global_block = getattr(self, f"global_block_{d}")
+            # As the reference, global blocks are not checkpointed when
+            # K/V merging is on.
+            if merged:
+                xg = global_block(
+                    xg, cos_g, sin_g, valid_len=global_valid, kv_map=kv_map,
+                    kv_valid_len=kv_valid, kv_rope_cos=cos_kv,
+                    kv_rope_sin=sin_kv, kv_bias=merge.get("bias"))
+            else:
+                xg = run_block(global_block, cfg.remat, xg, cos_g, sin_g,
+                               valid_len=global_valid)
             x = xg.reshape(S, N, cfg.agg_dim)
             if d in capture_set:
                 captured[d] = torch.cat([frame_out, x], dim=-1)

@@ -43,7 +43,10 @@ class VGGTConfig:
     dpt_out_channels: Tuple[int, ...] = (256, 512, 1024, 1024)
 
     # Compute: "flash" runs the CUDA kernels on the card (their plain
-    # versions on the CPU); "chunked" is the plain reference everywhere.
+    # versions on the CPU); "flash_grad" is the differentiable training
+    # path (qk-norm and rope in torch ops, then the forward kernels with
+    # stats and the two backward kernels); "chunked" is the plain
+    # reference everywhere.
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "flash"
     enable_point_head: bool = True
@@ -58,6 +61,10 @@ class VGGTConfig:
     # "static": the global blocks' softmax shifts by a precomputed logit
     # bound instead of the running max (kernel 2); "online": running max.
     global_softmax: str = "static"
+    # Activation checkpointing (training): the encoder, frame and global
+    # blocks recompute their activations in the backward pass. Global
+    # blocks skip it when K/V merging is on, as in the reference.
+    remat: bool = False
 
     @property
     def tokens_per_frame_special(self) -> int:

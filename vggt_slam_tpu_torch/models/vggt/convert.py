@@ -22,6 +22,18 @@ def flax_key_to_torch(path: str) -> str:
     return path.replace("/", ".")
 
 
+def torch_key_to_flax(name: str) -> str:
+    """The inverse of `flax_key_to_torch`."""
+    return "params/" + name.replace(".", "/")
+
+
+def save_checkpoint(state_dict: dict, path: str) -> None:
+    """A state dict -> the reference's flat npz (keys = flax paths, f32),
+    which `load_checkpoint` here and in the reference both read."""
+    np.savez(path, **{torch_key_to_flax(k): v.detach().float().cpu().numpy()
+                      for k, v in state_dict.items()})
+
+
 def load_flax_params(flat: dict, device="cpu") -> dict:
     """{flax path: array} -> state dict of f32 tensors on `device`."""
     return {flax_key_to_torch(k): torch.as_tensor(

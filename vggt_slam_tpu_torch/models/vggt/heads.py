@@ -4,7 +4,9 @@ the iterative camera head and the DPT dense heads.
 Camera head: the final camera tokens are refined over `cam_iterations`;
 each iteration embeds the current 9-D pose encoding, gates an AdaLN
 modulation with a residual, runs a small self-attention trunk over the S
-frames (kernel 1 with the bucket's valid_len) and adds a predicted delta.
+frames (kernel 1 with the bucket's valid_len; under training the
+differentiable flash_grad path, the same exact softmax as the reference's
+chunked trunk) and adds a predicted delta.
 
 DPT head: the shared LayerNorm, 1x1 projections plus the UV sin/cos
 position embedding, learned resizes (ConvTranspose x4 / x2, identity,
@@ -49,7 +51,9 @@ class CameraHead(nn.Module):
         pred0 = self.empty_pose_tokens.to(cfg.dtype).expand(1, S, 9)
         pred = None
         for _ in range(cfg.cam_iterations):
-            inp = pred0 if pred is None else pred.to(cfg.dtype)
+            # the next iteration's input carries no gradient (the
+            # reference's stop_gradient)
+            inp = pred0 if pred is None else pred.detach().to(cfg.dtype)
             m = self.modulation(F.silu(self.embed_pose(inp)))
             shift, scale, gate = m.chunk(3, dim=-1)
             h = gate * (self.adaln_norm(cam).to(cfg.dtype) * (1 + scale)

@@ -14,6 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vggt_slam_tpu_torch.ops import attention as attn_ops
 
@@ -243,6 +244,15 @@ class Block(nn.Module):
         h = self.norm2(x).to(self.dtype)
         h = self.mlp(h)
         return x + (self.ls2(h) if self.layerscale is not None else h)
+
+
+def run_block(block, remat: bool, *args, **kw):
+    """block(*args, **kw), under activation checkpointing when `remat` and
+    autograd records (the reference's nn.remat): the backward pass then
+    recomputes the block's activations from its inputs."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False, **kw)
+    return block(*args, **kw)
 
 
 def lecun_std(shape) -> float:

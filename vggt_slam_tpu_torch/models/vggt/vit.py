@@ -9,7 +9,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from vggt_slam_tpu_torch.models.vggt.config import VGGTConfig
-from vggt_slam_tpu_torch.models.vggt.modules import Block, Conv, LayerNorm
+from vggt_slam_tpu_torch.models.vggt.modules import Block, Conv, \
+    LayerNorm, run_block
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -62,6 +63,6 @@ class DinoViT(nn.Module):
             special.append(self.register_tokens.to(x.dtype).expand(B, -1, -1))
         x = torch.cat(special + [x], dim=1)
         for i in range(cfg.enc_depth):
-            x = getattr(self, f"block_{i}")(x)
+            x = run_block(getattr(self, f"block_{i}"), cfg.remat, x)
         x = self.norm(x).to(cfg.dtype)
         return x[:, 1 + cfg.enc_num_registers:]

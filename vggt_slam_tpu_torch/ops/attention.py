@@ -1,5 +1,5 @@
-"""Multi-head attention for the VGGT trunk: plain versions and the two
-hand-written CUDA flash-attention kernels.
+"""Multi-head attention for the VGGT trunk: plain versions and the four
+hand-written CUDA flash-attention kernels (two forward, two backward).
 
 Counterpart of vggt_slam_tpu/ops/attention.py. The packed layout is the
 port's kernel layout: q/k/v are (B, N, H*D), the natural output of the
@@ -15,9 +15,17 @@ q/k/v projections, so no transposes cross device memory.
   valid_len; the global blocks) and its plain version.
 * `flash_attention`: the selection rule of the reference's
   `flash_attention` plus the static bound; `attention` dispatches by name.
+  With `return_stats` the two forward kernels also return the row stats
+  (m, l) of the reference's `return_stats`.
+* `flash_bwd_dq` / `flash_bwd_dkv` / `flash_bwd_ref`: the counterparts of
+  the TPU kernels `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` and
+  their plain version; `FlashAttentionGrad` / `flash_attention_grad` (the
+  reference's `flash_attention_grad`) wrap the forward with stats and the
+  two backward kernels as a `torch.autograd.Function`, `impl="flash_grad"`.
 
 A kernel wrapper runs its plain version only for tensors on the CPU; for a
-CUDA tensor it launches the kernel (csrc/flash_attention.cu) or raises.
+CUDA tensor it launches the kernel (csrc/flash_attention.cu,
+csrc/flash_attention_bwd.cu) or raises.
 """
 from __future__ import annotations
 
@@ -31,7 +39,9 @@ LOG2E = math.log2(math.e)
 
 # Launches of each CUDA kernel in this process (plain-version calls are not
 # counted). Read by chip_smoke.py to show the main path ran the kernels.
-LAUNCHES = {"flash_single": 0, "flash_multi": 0}
+LAUNCHES = {"flash_single": 0, "flash_multi": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+HEAD_DIMS = (32, 64, 128)
 
 
 def reset_launch_counts() -> None:
@@ -137,9 +147,10 @@ def _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln):
 
 
 def _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias, qk_ln,
-           qk_ln_eps, smax, q_chunk=2048):
+           qk_ln_eps, smax, return_stats=False, q_chunk=2048):
     """Shared plain version: `smax` None = exact running max (kernel 1),
-    else the static bound per (batch, head) (kernel 2)."""
+    else the static bound per (batch, head) (kernel 2). With
+    `return_stats` also the (B, H, Nq) f32 row shift m and row sum l."""
     _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln)
     B, Nq, HD = q.shape
     Nk = k.shape[1]
@@ -156,6 +167,8 @@ def _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias, qk_ln,
     vf = torch.where(keep[None, None, :, None], vf, 0.0)
     bias = None if kv_bias is None else kv_bias.float() * LOG2E
     out = torch.empty(B, H, Nq, D, dtype=q.dtype, device=q.device)
+    m_all = torch.empty(B, H, Nq, dtype=torch.float32, device=q.device)
+    l_all = torch.empty_like(m_all)
     for s in range(0, Nq, q_chunk):
         logits = torch.matmul(qp[:, :, s:s + q_chunk].float(),
                               kp.transpose(-1, -2))
@@ -167,32 +180,39 @@ def _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias, qk_ln,
         else:
             m = smax.float().view(B, H, 1, 1)
         p = torch.exp2(logits - m)
-        denom = p.sum(-1, keepdim=True).clamp_min(1e-30)
-        o = torch.matmul(p.to(v.dtype).float(), vf) / denom
+        lsum = p.sum(-1, keepdim=True)
+        o = torch.matmul(p.to(v.dtype).float(), vf) / lsum.clamp_min(1e-30)
         out[:, :, s:s + q_chunk] = o.to(q.dtype)
-    return out.transpose(1, 2).reshape(B, Nq, HD)
+        m_all[:, :, s:s + q_chunk] = m[..., 0]
+        l_all[:, :, s:s + q_chunk] = lsum[..., 0]
+    out = out.transpose(1, 2).reshape(B, Nq, HD)
+    return (out, m_all, l_all) if return_stats else out
 
 
 def flash_single_ref(q, k, v, *, num_heads, valid_len=None, rope_q=None,
-                     rope_k=None, kv_bias=None, qk_ln=None, qk_ln_eps=1e-5):
+                     rope_k=None, kv_bias=None, qk_ln=None, qk_ln_eps=1e-5,
+                     return_stats=False):
     """Plain version of `flash_single`: packed (B, N, H*D) exact softmax
     attention in f32 with the kernel's bf16 tile roundings.
 
     `rope_q`/`rope_k`: (cos, sin) tables (N, D/2); `qk_ln`: (gq, bq, gk, bk)
     per-head-dim LayerNorm params (needs rope); `kv_bias`: (Nk,) natural-log
-    per-key bias; `valid_len`: keys at or past it are masked."""
+    per-key bias; `valid_len`: keys at or past it are masked.
+    `return_stats`: return (out, m, l), m the exp2-domain row max and l the
+    row sum of exp2(s - m), each (B, H, Nq) f32 (reference
+    attention.py:365-384)."""
     return _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
-                  qk_ln, qk_ln_eps, None)
+                  qk_ln, qk_ln_eps, None, return_stats)
 
 
 def flash_multi_ref(q, k, v, smax, *, num_heads, valid_len=None,
                     rope_q=None, rope_k=None, kv_bias=None, qk_ln=None,
-                    qk_ln_eps=1e-5):
+                    qk_ln_eps=1e-5, return_stats=False):
     """Plain version of `flash_multi`: as `flash_single_ref`, but the
     softmax shift is the static per-(batch, head) bound `smax` (B*H,) in the
-    exp2 domain instead of the row max."""
+    exp2 domain instead of the row max (and is the stats' m)."""
     return _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
-                  qk_ln, qk_ln_eps, smax)
+                  qk_ln, qk_ln_eps, smax, return_stats)
 
 
 # ---------------------------------------------------------------------------
@@ -205,9 +225,16 @@ _F = ctypes.c_float
 _COMMON = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _F, _P, _P,
            _P, _P, _P]
 _SIGNATURES = {
-    "flash_single_fwd": (_COMMON + [_P], ctypes.c_int),
-    "flash_multi_fwd": (_COMMON + [_P, _P], ctypes.c_int),
+    "flash_single_fwd": (_COMMON + [_P, _P, _P], ctypes.c_int),
+    "flash_multi_fwd": (_COMMON + [_P, _P, _P, _P], ctypes.c_int),
     "flash_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+_BWD_COMMON = [_P] * 7
+_BWD_TAIL = [_I, _I, _I, _I, _I, _I, _F, _F, _P]
+_BWD_SIGNATURES = {
+    "flash_bwd_dq": (_BWD_COMMON + [_P] + _BWD_TAIL, ctypes.c_int),
+    "flash_bwd_dkv": (_BWD_COMMON + [_P, _P] + _BWD_TAIL, ctypes.c_int),
+    "flash_bwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
 
@@ -215,6 +242,12 @@ def kernel_library():
     """Build (if stale) and load csrc/flash_attention.cu."""
     from vggt_slam_tpu_torch.ops import cuda_build
     return cuda_build.load("flash_attention", _SIGNATURES)
+
+
+def bwd_kernel_library():
+    """Build (if stale) and load csrc/flash_attention_bwd.cu."""
+    from vggt_slam_tpu_torch.ops import cuda_build
+    return cuda_build.load("flash_attention_bwd", _BWD_SIGNATURES)
 
 
 def _f32(t, shape, name, device):
@@ -227,11 +260,8 @@ def _f32(t, shape, name, device):
     return t
 
 
-def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
-            qk_ln, qk_ln_eps, smax):
-    _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln)
-    dev = q.device
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_cuda_tensors(dev, named):
+    for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
         if t.dtype != torch.bfloat16:
@@ -239,16 +269,33 @@ def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _head_dim(HD, num_heads):
+    D = HD // num_heads
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernels take head dim 32, 64 or 128, "
+                         f"got {D}")
+    return D
+
+
+def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
+            qk_ln, qk_ln_eps, smax, return_stats):
+    _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln)
+    dev = q.device
+    _check_cuda_tensors(dev, (("q", q), ("k", k), ("v", v)))
     B, Nq, HD = q.shape
     Nk = k.shape[1]
     H = num_heads
-    D = HD // H
-    if D not in (64, 128):
-        raise ValueError(f"the CUDA kernel takes head dim 64 or 128, got {D}")
+    D = _head_dim(HD, H)
     vl = Nk if valid_len is None else max(0, min(int(valid_len), Nk))
     out = torch.empty_like(q)
+    m = lsum = None
+    if return_stats:
+        m = torch.empty(B, H, Nq, dtype=torch.float32, device=dev)
+        lsum = torch.empty_like(m)
     if Nq == 0 or B == 0:
-        return out
+        return (out, m, lsum) if return_stats else out
     cq = sq = ck = sk = None
     if rope_q is not None:
         cq = _f32(rope_q[0], (Nq, D // 2), "rope_q cos", dev)
@@ -272,6 +319,8 @@ def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
     if entry == "flash_multi_fwd":
         sm = _f32(smax, (B * H,), "smax", dev)
         args.append(sm.data_ptr())
+    args += [None if m is None else m.data_ptr(),
+             None if lsum is None else lsum.data_ptr()]
     lib = kernel_library()
     with torch.cuda.device(dev):
         args.append(torch.cuda.current_stream(dev).cuda_stream)
@@ -279,41 +328,199 @@ def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
     if code != 0:
         raise RuntimeError(f"{entry} launch failed: "
                            f"{lib.flash_error_string(code).decode()}")
-    return out
+    return (out, m, lsum) if return_stats else out
+
+
+def _require_cuda(q):
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
 
 
 def flash_single(q, k, v, *, num_heads, valid_len=None, rope_q=None,
-                 rope_k=None, kv_bias=None, qk_ln=None, qk_ln_eps=1e-5):
+                 rope_k=None, kv_bias=None, qk_ln=None, qk_ln_eps=1e-5,
+                 return_stats=False):
     """Exact softmax flash attention (kernel 1), packed (B, N, H*D) layout.
     CPU tensors take `flash_single_ref`; CUDA tensors the CUDA kernel."""
     if q.device.type == "cpu":
         return flash_single_ref(q, k, v, num_heads=num_heads,
                                 valid_len=valid_len, rope_q=rope_q,
                                 rope_k=rope_k, kv_bias=kv_bias, qk_ln=qk_ln,
-                                qk_ln_eps=qk_ln_eps)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
+                                qk_ln_eps=qk_ln_eps,
+                                return_stats=return_stats)
+    _require_cuda(q)
     out = _launch("flash_single_fwd", q, k, v, num_heads, valid_len, rope_q,
-                  rope_k, kv_bias, qk_ln, qk_ln_eps, None)
+                  rope_k, kv_bias, qk_ln, qk_ln_eps, None, return_stats)
     LAUNCHES["flash_single"] += 1
     return out
 
 
 def flash_multi(q, k, v, smax, *, num_heads, valid_len=None, rope_q=None,
-                rope_k=None, kv_bias=None, qk_ln=None, qk_ln_eps=1e-5):
+                rope_k=None, kv_bias=None, qk_ln=None, qk_ln_eps=1e-5,
+                return_stats=False):
     """Static-max flash attention (kernel 2), packed (B, N, H*D) layout.
     CPU tensors take `flash_multi_ref`; CUDA tensors the CUDA kernel."""
     if q.device.type == "cpu":
         return flash_multi_ref(q, k, v, smax, num_heads=num_heads,
                                valid_len=valid_len, rope_q=rope_q,
                                rope_k=rope_k, kv_bias=kv_bias, qk_ln=qk_ln,
-                               qk_ln_eps=qk_ln_eps)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
+                               qk_ln_eps=qk_ln_eps,
+                               return_stats=return_stats)
+    _require_cuda(q)
     out = _launch("flash_multi_fwd", q, k, v, num_heads, valid_len, rope_q,
-                  rope_k, kv_bias, qk_ln, qk_ln_eps, smax)
+                  rope_k, kv_bias, qk_ln, qk_ln_eps, smax, return_stats)
     LAUNCHES["flash_multi"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Backward: plain version, CUDA kernel wrappers, autograd Function
+# ---------------------------------------------------------------------------
+
+def flash_bwd_ref(q, k, v, dout, m, l, delta, *, num_heads, valid_len=None,
+                  q_chunk=2048):
+    """Plain version of the two backward kernels: packed (B, N, H*D) q, k,
+    v, dout and the forward's (B, H, Nq) f32 stats m, l with delta =
+    rowsum(dout * out) -> (dq, dk, dv) in the inputs' dtypes.
+
+    As the reference's `_flash_bwd_dq_kernel`/`_flash_bwd_dkv_kernel`:
+    p = exp2(c q.k - m) / max(l, 1e-30) with c = log2(e)/sqrt(D), zero for
+    keys at or past valid_len; dL = p (dout.v - delta) cast to the input
+    dtype before both of its products; p cast to dout's dtype before the
+    dv product; f32 accumulation."""
+    B, Nq, HD = q.shape
+    Nk = k.shape[1]
+    H = num_heads
+    D = HD // H
+    c_scale = LOG2E / math.sqrt(D)
+    inv_sqrt_d = 1.0 / math.sqrt(D)
+    vl = Nk if valid_len is None else max(0, min(int(valid_len), Nk))
+
+    def bhnd(t):
+        return t.view(B, t.shape[1], H, D).transpose(1, 2).float()
+
+    qh, kh, vh, doh = bhnd(q), bhnd(k), bhnd(v), bhnd(dout)
+    keep = torch.arange(Nk, device=q.device) < vl
+    w = 1.0 / l.float().clamp_min(1e-30)
+    dq = torch.empty(B, H, Nq, D, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(B, H, Nk, D, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for s in range(0, Nq, q_chunk):
+        sl = slice(s, s + q_chunk)
+        s2 = torch.matmul(qh[:, :, sl], kh.transpose(-1, -2)) * c_scale
+        p = torch.exp2(s2 - m[:, :, sl, None].float()) * w[:, :, sl, None]
+        p = torch.where(keep, p, 0.0)
+        dp = torch.matmul(doh[:, :, sl], vh.transpose(-1, -2))
+        dl = (p * (dp - delta[:, :, sl, None].float())).to(q.dtype).float()
+        dq[:, :, sl] = torch.matmul(dl, kh) * inv_sqrt_d
+        dk += torch.matmul(dl.transpose(-1, -2), qh[:, :, sl])
+        dv += torch.matmul(p.to(dout.dtype).float().transpose(-1, -2),
+                           doh[:, :, sl])
+
+    def packed(t, n, dtype):
+        return t.to(dtype).transpose(1, 2).reshape(B, n, HD)
+
+    return (packed(dq, Nq, q.dtype), packed(dk * inv_sqrt_d, Nk, k.dtype),
+            packed(dv, Nk, v.dtype))
+
+
+def _launch_bwd(entry, q, k, v, dout, m, l, delta, num_heads, valid_len,
+                outs):
+    _check_args(q, k, v, num_heads, None, None, None)
+    dev = q.device
+    _check_cuda_tensors(dev, (("q", q), ("k", k), ("v", v),
+                              ("dout", dout)))
+    if dout.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
+    B, Nq, HD = q.shape
+    Nk = k.shape[1]
+    H = num_heads
+    D = _head_dim(HD, H)
+    stats = [_f32(t, (B, H, Nq), name, dev)
+             for name, t in (("m", m), ("l", l), ("delta", delta))]
+    vl = Nk if valid_len is None else max(0, min(int(valid_len), Nk))
+    if B == 0 or Nq == 0 or Nk == 0:
+        for t in outs:
+            t.zero_()
+        return
+    lib = bwd_kernel_library()
+    args = [t.data_ptr() for t in (q, k, v, dout, *stats, *outs)]
+    args += [B, H, Nq, Nk, D, vl, LOG2E / math.sqrt(D), 1.0 / math.sqrt(D)]
+    with torch.cuda.device(dev):
+        args.append(torch.cuda.current_stream(dev).cuda_stream)
+        code = getattr(lib, entry)(*args)
+    if code != 0:
+        raise RuntimeError(f"{entry} launch failed: "
+                           f"{lib.flash_bwd_error_string(code).decode()}")
+
+
+def flash_bwd_dq(q, k, v, dout, m, l, delta, *, num_heads, valid_len=None):
+    """dq of the flash backward (kernel 3), packed layout. CPU tensors take
+    `flash_bwd_ref`; CUDA tensors the CUDA kernel."""
+    if q.device.type == "cpu":
+        return flash_bwd_ref(q, k, v, dout, m, l, delta, num_heads=num_heads,
+                             valid_len=valid_len)[0]
+    _require_cuda(q)
+    dq = torch.empty_like(q)
+    _launch_bwd("flash_bwd_dq", q, k, v, dout, m, l, delta, num_heads,
+                valid_len, (dq,))
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, dout, m, l, delta, *, num_heads, valid_len=None):
+    """(dk, dv) of the flash backward (kernel 4), packed layout. CPU tensors
+    take `flash_bwd_ref`; CUDA tensors the CUDA kernel."""
+    if q.device.type == "cpu":
+        return flash_bwd_ref(q, k, v, dout, m, l, delta, num_heads=num_heads,
+                             valid_len=valid_len)[1:]
+    _require_cuda(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_bwd_dkv", q, k, v, dout, m, l, delta, num_heads,
+                valid_len, (dk, dv))
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+class FlashAttentionGrad(torch.autograd.Function):
+    """Differentiable flash attention (reference `flash_attention_grad`):
+    the forward runs the stats variant of kernel 1 or 2 and saves q, k, v,
+    out, m and l; the backward computes delta = rowsum(dout * out) and runs
+    the dq and dkv kernels. Under activation checkpointing the forward runs
+    again in the backward pass and saves the recomputed stats, which are
+    the ones the kernels then read."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, valid_len, softmax):
+        out, m, l = flash_attention(q, k, v, num_heads=num_heads,
+                                    valid_len=valid_len, softmax=softmax,
+                                    return_stats=True)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.num_heads = num_heads
+        ctx.valid_len = valid_len
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        H = ctx.num_heads
+        dout = dout.contiguous()
+        B, Nq, HD = q.shape
+        delta = (dout.float() * out.float()).view(B, Nq, H, HD // H) \
+            .sum(-1).transpose(1, 2).contiguous()
+        kw = dict(num_heads=H, valid_len=ctx.valid_len)
+        dq = flash_bwd_dq(q, k, v, dout, m, l, delta, **kw)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, m, l, delta, **kw)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_grad(q, k, v, *, num_heads, valid_len=None,
+                         softmax="online"):
+    """Differentiable flash attention on packed (B, N, H*D) q, k, v that
+    arrive with qk-norm and rope already applied (autograd differentiates
+    those); softmax scale 1/sqrt(D) inside. Exact attention: no kv_bias."""
+    return FlashAttentionGrad.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), num_heads, valid_len,
+                                    softmax)
 
 
 # ---------------------------------------------------------------------------
@@ -350,18 +557,19 @@ def static_bound(q, k, num_heads, qk_ln=None, kv_bias=None):
 
 def flash_attention(q, k, v, *, num_heads, valid_len=None, rope_q=None,
                     rope_k=None, kv_bias=None, softmax="online", qk_ln=None,
-                    qk_ln_eps=1e-5, block_k=2048):
+                    qk_ln_eps=1e-5, block_k=2048, return_stats=False):
     """Packed (B, N, H*D) flash attention with the reference's selection
     rule (attention.py:972-979): key sets that fit one 128-rounded block of
     at most min(block_k, 2304) keys take kernel 1; longer ones take
     kernel 2 under softmax="static". Kernel 1 walks key tiles with a running
     max, so softmax="online" on long key sets runs it too: the same exact
-    softmax the reference's online multi-block kernel computes."""
+    softmax the reference's online multi-block kernel computes.
+    `return_stats` returns (out, m, l) as the reference's does."""
     Nk = k.shape[1]
     fits = -(-Nk // 128) * 128 <= min(block_k, 2304)
     kw = dict(num_heads=num_heads, valid_len=valid_len, rope_q=rope_q,
               rope_k=rope_k, kv_bias=kv_bias, qk_ln=qk_ln,
-              qk_ln_eps=qk_ln_eps)
+              qk_ln_eps=qk_ln_eps, return_stats=return_stats)
     if fits or softmax != "static":
         return flash_single(q, k, v, **kw)
     smax = static_bound(q, k, num_heads, qk_ln=qk_ln, kv_bias=kv_bias)
@@ -373,8 +581,8 @@ def attention(q, k, v, impl: str = "flash", valid_len=None, rope_q=None,
               qk_ln=None, qk_ln_eps: float = 1e-5, num_heads=None):
     """Dispatch by implementation name on packed (B, N, H*D) tensors.
 
-    Only "flash" takes rope and qk_ln in-kernel; "naive" and "chunked"
-    expect them pre-applied (they are the plain references)."""
+    Only "flash" takes rope and qk_ln in-kernel; "naive", "chunked" and
+    the differentiable "flash_grad" expect them pre-applied."""
     if num_heads is None:
         raise ValueError("packed layout requires num_heads")
     if impl == "flash":
@@ -385,6 +593,11 @@ def attention(q, k, v, impl: str = "flash", valid_len=None, rope_q=None,
                                qk_ln_eps=qk_ln_eps)
     if rope_q is not None or qk_ln is not None:
         raise ValueError(f"impl {impl!r} takes pre-applied rope and qk-norm")
+    if impl == "flash_grad":
+        if kv_bias is not None:
+            raise ValueError("flash_grad is exact attention: no kv_bias")
+        return flash_attention_grad(q, k, v, num_heads=num_heads,
+                                    valid_len=valid_len, softmax=softmax)
     B, Nq, HD = q.shape
     D = HD // num_heads
 

@@ -2,19 +2,22 @@
 
 Each source under `vggt_slam_tpu_torch/csrc/` is compiled with plain
 `nvcc` for `sm_90a` into a shared library with a C interface under
-`<repo>/build/vggt_slam_tpu_torch/`, rebuilt only when the source is newer
-than the library, and loaded with ctypes (the `native/kdtree.py` pattern of
+`<repo>/build/vggt_slam_tpu_torch/`, rebuilt only when the source or a
+shared header (`csrc/*.cuh`) is newer than the library, and loaded with
+ctypes (the `native/kdtree.py` pattern of
 the JAX package). Nothing here runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -45,7 +48,9 @@ def build(name: str) -> str:
     """Compile csrc/<name>.cu into lib<name>.so if stale; return its path."""
     src = os.path.join(CSRC, f"{name}.cu")
     lib = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+    newest = max(os.path.getmtime(f) for f in
+                 [src] + glob.glob(os.path.join(CSRC, "*.cuh")))
+    if os.path.exists(lib) and os.path.getmtime(lib) >= newest:
         build_seconds.setdefault(name, 0.0)
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -64,6 +69,14 @@ def build(name: str) -> str:
     build_seconds[name] = time.perf_counter() - t0
     build_log[name] = proc.stdout + proc.stderr
     return lib
+
+
+def build_all() -> list[str]:
+    """Build every csrc/*.cu at once, one nvcc process each."""
+    names = sorted(os.path.basename(f)[:-3]
+                   for f in glob.glob(os.path.join(CSRC, "*.cu")))
+    with ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
