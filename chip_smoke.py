@@ -30,6 +30,20 @@ Phases, one line of output each (and the contract lines at the end):
      gradient must be finite and the loss must fall;
   9. the train_tiny CLI on the small model for 6 steps, whose checkpoint
      must load into the port's VGGT and give a finite forward on the card.
+And, for the --qk_int8 path and the fused DPT tail:
+  A. the int8 kernels (flash_multi_i8, flash_single_i8) against their plain
+     versions at the SLAM global shape (18-frame bucket, merged K/V, rope,
+     kv_bias, valid_len) and the training global shape, beside the bf16
+     kernels' times at the same shapes;
+  B. the fused DPT tail on the depth head's own output_conv1 activations of
+     a full-width 18-frame forward, against its plain version and against
+     the head's unfused chain (heads.py:228-231, cuDNN, TF32 off);
+  C. the full-width 18-frame forward with global_qk_int8 through the
+     kernels against their plain versions, in both softmax modes (24 int8
+     launches each), and against the bf16 forward (reported);
+  D. the CLI's own path on a folder of 24 PNG frames at 480x640 with
+     --qk_int8: decoding and resizing without OpenCV, its own VGGT-1B,
+     at least 2 submaps, finite poses and homographies, the TUM log.
 The last lines are the kernels JSON object and {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero with no result line. It
 needs a CUDA device and imports nothing of JAX, OpenCV or the JAX package.
@@ -38,14 +52,18 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 SEED = 0
 N_FRAMES = 40
 HW = (392, 518)
 BF16_PEAK_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
+INT8_PEAK_OPS = 1979e12       # H100 SXM dense int8 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 
 
@@ -147,20 +165,22 @@ def main_path_attention_cases(device):
     ]
 
 
-def attention_bound_ms(case) -> tuple[float, str]:
+def attention_bound_ms(case, int8=False) -> tuple[float, str]:
     """Least H100 time for the call: bytes read once and written once over
-    the HBM rate, against the tensor-core flops over the bf16 peak."""
+    the HBM rate, against the tensor-core flops over the bf16 peak (with
+    `int8`, QK^T's half of them over the int8 peak)."""
     q, k, v, kw = case["q"], case["k"], case["v"], case["kw"]
     B, Nq, HD = q.shape
     Nk = k.shape[1]
     nk_used = min(kw.get("valid_len") or Nk, Nk)
-    flops = 4.0 * B * Nq * nk_used * HD               # QK^T and PV, all heads
+    half = 2.0 * B * Nq * nk_used * HD                # QK^T or PV, all heads
     nbytes = 2 * (q.numel() + 2 * B * nk_used * HD) + 2 * q.numel()
     for t in (kw.get("rope_q") or ()) + (kw.get("rope_k") or ()):
         nbytes += 4 * t.numel()
     if kw.get("kv_bias") is not None:
         nbytes += 4 * nk_used
-    t_ops = flops / BF16_PEAK_FLOPS * 1e3
+    t_ops = (half / (INT8_PEAK_OPS if int8 else BF16_PEAK_FLOPS)
+             + half / BF16_PEAK_FLOPS) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -600,6 +620,329 @@ def drive_main_path(model, device, frames):
 
 
 # ---------------------------------------------------------------------------
+# Phases A-D: the --qk_int8 path and the fused DPT tail
+# ---------------------------------------------------------------------------
+
+def int8_cases(device):
+    """The int8 kernels' shapes: the global block of the 18-frame SLAM
+    bucket (its qk-norm already applied outside, as with --qk_int8) and
+    the training global block (pre-applied q, k)."""
+    import torch
+
+    slam = next(c for c in main_path_attention_cases(device)
+                if c["name"] == "global_block")
+    kw = {k: v for k, v in slam["kw"].items() if k != "qk_ln"}
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    q, k, v = (torch.randn((1, n, 16 * 64), generator=g, device=device)
+               .to(torch.bfloat16) for n in (4164, 4164, 4164))
+    return [dict(name="slam_global", q=slam["q"], k=slam["k"], v=slam["v"],
+                 kw=kw),
+            dict(name="training_global", q=q, k=k, v=v,
+                 kw=dict(num_heads=16))]
+
+
+def check_int8_kernels(device):
+    """Phase A: flash_multi and flash_single with qk_int8 against their
+    plain versions (the same scales, exact s32 products), with the bf16
+    kernel's time at the same shape."""
+    import torch
+
+    from vggt_slam_tpu_torch.ops import attention as A
+
+    tol = 2e-2   # bf16 output rounding plus bf16 p, as the bf16 kernels
+    results = []
+    for case in int8_cases(device):
+        q, k, v, kw = case["q"], case["k"], case["v"], case["kw"]
+        smax = A.static_bound(q, k, kw["num_heads"],
+                              kv_bias=kw.get("kv_bias"))
+        calls = {
+            "flash_multi_i8": (
+                lambda i8: A.flash_multi(q, k, v, smax, qk_int8=i8, **kw),
+                lambda: A.flash_multi_ref(q, k, v, smax, qk_int8=True,
+                                          **kw)),
+            "flash_single_i8": (
+                lambda i8: A.flash_single(q, k, v, qk_int8=i8, **kw),
+                lambda: A.flash_single_ref(q, k, v, qk_int8=True, **kw))}
+        lib = sdpa_call(case)
+        library_ms = cuda_ms(lib, iters=10) if lib is not None else None
+        bound_ms, bound_by = attention_bound_ms(case, int8=True)
+        for name, (kern, plain) in calls.items():
+            out = kern(True)
+            torch.cuda.synchronize()
+            ref = plain().float()
+            max_abs = float((out.float() - ref).abs().max())
+            finite = bool(torch.isfinite(out).all())
+            res = dict(variant=case["name"], kernel=name,
+                       shape_q=list(q.shape), shape_kv=list(k.shape),
+                       valid_len=kw.get("valid_len"),
+                       rope=kw.get("rope_q") is not None,
+                       max_abs_err=max_abs, tol=tol,
+                       ms=cuda_ms(lambda: kern(True), iters=10),
+                       bf16_kernel_ms=cuda_ms(lambda: kern(False), iters=10),
+                       plain_ms=cuda_ms(plain, iters=2),
+                       library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            log("int8_kernel_check", **res)
+            if not finite or max_abs > tol:
+                raise AssertionError(f"{name} at {case['name']}: kernel "
+                                     f"disagrees with its plain version "
+                                     f"(max abs {max_abs})")
+            results.append(res)
+            del out, ref
+    return results
+
+
+@contextlib.contextmanager
+def int8_global(model, softmax):
+    """The model's global blocks with int8 QK^T (the qk-norm then runs
+    outside the kernel) under `softmax`, as --qk_int8 [--global_softmax]
+    configure them; restored afterwards."""
+    blocks = [getattr(model.aggregator, f"global_block_{d}").attn
+              for d in range(model.cfg.agg_depth)]
+    saved = [(b.qk_int8, b.softmax_mode) for b in blocks]
+    for b in blocks:
+        b.qk_int8, b.softmax_mode = True, softmax
+    try:
+        yield
+    finally:
+        for b, (i8, sm) in zip(blocks, saved):
+            b.qk_int8, b.softmax_mode = i8, sm
+
+
+def check_int8_forward(model, device, frames):
+    """Phases B and C on one 18-frame bucket (17 frames + 1 padding) at
+    392x518: the bf16 forward captures the depth head's output_conv1
+    activations for phase B; then the int8 forward through the kernels
+    against the same forward through their plain versions, in both softmax
+    modes. Returns (the captured activations, launches per mode)."""
+    import numpy as np
+    import torch
+
+    from vggt_slam_tpu_torch.data.images import preprocess_frames
+    from vggt_slam_tpu_torch.models.vggt.model import make_bucketed_model_fn
+    from vggt_slam_tpu_torch.ops import attention as A
+
+    images = preprocess_frames(frames[:17])
+    fn = make_bucketed_model_fn(model, 18, as_numpy=True,
+                                with_unprojection=True, device=device)
+    captured = {}
+    hook = model.depth_head.output_conv1.register_forward_hook(
+        lambda mod, inp, out: captured.update(x=out.detach(),
+                                              path=inp[0].detach()))
+    try:
+        out_bf16 = fn(images)
+    finally:
+        hook.remove()
+
+    def rel_rms(a, b):
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        return float(np.sqrt(np.mean((a - b) ** 2)
+                             / max(np.mean(b * b), 1e-30)))
+
+    keys = ("pose_enc", "depth", "depth_conf")
+    tol = 5e-2   # the bf16 forward check's bound (check_forward)
+    launches = {}
+    for softmax, name in (("static", "flash_multi_i8"),
+                          ("online", "flash_single_i8")):
+        with int8_global(model, softmax):
+            A.reset_launch_counts()
+            out_k = fn(images)
+            torch.cuda.synchronize()
+            launches[softmax] = dict(A.LAUNCHES)
+            with plain_attention():
+                out_p = fn(images)
+        errs = {}
+        for key in keys:
+            if out_k[key].shape != out_p[key].shape or \
+                    not np.isfinite(out_k[key]).all():
+                raise AssertionError(f"int8 forward output {key}: bad "
+                                     f"values")
+            errs[key] = rel_rms(out_k[key], out_p[key])
+        vs_bf16 = {key: rel_rms(out_k[key], out_bf16[key]) for key in keys}
+        log("int8_forward_check", frames=17, bucket=18, softmax=softmax,
+            rel_rms_err_vs_plain=errs, tol=tol,
+            rel_rms_vs_bf16_forward=vs_bf16, launches=launches[softmax],
+            note="global blocks with int8 QK^T through the kernels against "
+                 "the same forward through their plain versions; the bf16 "
+                 "comparison is for information")
+        if max(errs.values()) > tol:
+            raise AssertionError(f"int8 forward ({softmax}) disagrees with "
+                                 f"the plain path: {errs}")
+        if launches[softmax][name] != model.cfg.agg_depth:   # 24 at 1B
+            raise AssertionError(f"{name} launched {launches[softmax][name]}"
+                                 f" times in the int8 forward, not one per "
+                                 f"global block")
+    return captured, launches
+
+
+def check_dpt_tail(model, device, captured):
+    """Phase B: the depth head's tail on its own activations. x is
+    output_conv1's output after the column upsample, pos the head's 0.1 UV
+    embedding; the kernel against fused_tail_ref and against the head's
+    unfused chain (align-corners upsample, pos add, output_conv2_0, ReLU,
+    output_conv2_2)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vggt_slam_tpu_torch.models.vggt.heads import \
+        resize_bilinear_align_corners, uv_pos_embed
+    from vggt_slam_tpu_torch.ops import dpt_tail as T
+
+    head = model.depth_head
+    xh = captured["x"]                                    # (S, 128, h8, w8)
+    S, cin, rows_in, w_in = xh.shape
+    H, W = HW
+    x = T.upsample_columns(xh.permute(0, 2, 3, 1).contiguous(), W)
+    pe = uv_pos_embed(W, H, W / H, cin, device)           # (cin, H, W)
+    pos = (0.1 * pe).permute(1, 2, 0).contiguous()
+    args = (head.output_conv2_0.kernel, head.output_conv2_0.bias,
+            head.output_conv2_2.kernel, head.output_conv2_2.bias)
+
+    def chain():
+        y = resize_bilinear_align_corners(xh, (H, W))
+        y = y + (0.1 * pe[None]).to(y.dtype)
+        return head.output_conv2_2(F.relu(head.output_conv2_0(y)))
+
+    T.reset_launch_counts()
+    out = T.fused_tail(x, pos, *args)
+    torch.cuda.synchronize()
+    launches = T.LAUNCHES["dpt_tail"]
+    ref = T.fused_tail_ref(x, pos, *args)
+    want = chain()
+    max_abs = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    rel_chain = _rel_rms(out, want)
+    cmid, cout = args[0].shape[-1], args[2].shape[-1]
+    flops = 2.0 * S * H * W * (9 * cin * cmid + cmid * cout)
+    nbytes = 2 * x.numel() + 2 * pos.numel() + 4 * out.numel()
+    t_ops = flops / BF16_PEAK_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    res = dict(kernel="dpt_tail", shape_x=list(x.shape),
+               rows_out=H, cmid=cmid, cout=cout, launches=launches,
+               max_abs_err=max_abs, ref_max_abs=scale,
+               tol=1e-2 * scale, rel_rms_vs_head_chain=rel_chain,
+               tol_vs_head_chain=2e-2,
+               ms=cuda_ms(lambda: T.fused_tail(x, pos, *args), iters=10),
+               plain_ms=cuda_ms(lambda: T.fused_tail_ref(x, pos, *args),
+                                iters=2),
+               library_ms=cuda_ms(chain, iters=5),
+               column_upsample_ms=cuda_ms(
+                   lambda: T.upsample_columns(
+                       xh.permute(0, 2, 3, 1).contiguous(), W), iters=5),
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               gflop=flops / 1e9, gbytes=nbytes / 1e9,
+               note="library_ms: the head's own unfused chain (bilinear "
+                    "upsample, pos add, cuDNN 3x3 conv with TF32 off, "
+                    "ReLU, 1x1 einsum)")
+    log("dpt_tail_check", **res)
+    # fused vs plain: the same roundings, f32 sums in another order;
+    # vs the head's chain: it rounds the 2D upsample, the pos sum and the
+    # conv output to bf16 at other places
+    if not bool(torch.isfinite(out).all()) or max_abs > 1e-2 * scale \
+            or rel_chain > 2e-2:
+        raise AssertionError(f"dpt_tail disagrees: max abs {max_abs} of "
+                             f"{scale}, rel RMS vs the head {rel_chain}")
+    if launches != 1:
+        raise AssertionError("dpt_tail was not launched")
+    del x, pos, out, ref, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def write_png(path, bgr):
+    """(H, W, 3) uint8 BGR -> an 8-bit RGB PNG, rows unfiltered (zlib)."""
+    rgb = bgr[..., ::-1]
+    h, w = rgb.shape[:2]
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xffffffff))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def drive_image_folder_cli(device):
+    """Phase D: the CLI's own path on a PNG folder with --qk_int8: 24
+    panned 480x640 frames written here, read back by the in-repo decoder,
+    resized without OpenCV to 392x518, and run by `run_slam` with the
+    model it builds itself (VGGT-1B, seeded random weights)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vggt_slam_tpu_torch.data.images import load_image
+    from vggt_slam_tpu_torch.main import parser, run_slam
+    from vggt_slam_tpu_torch.ops import attention as A
+    from vggt_slam_tpu_torch.utils.profiling import sync
+
+    tmp = tempfile.mkdtemp(prefix="png_folder_")
+    try:
+        folder = os.path.join(tmp, "rgb")
+        os.makedirs(folder)
+        frames = synth_frames(24, hw=(480, 640), step_px=70, seed=SEED + 3)
+        t0 = time.perf_counter()
+        for i, f in enumerate(frames):
+            write_png(os.path.join(folder, f"{i:06d}.png"), f)
+        if not np.array_equal(load_image(os.path.join(folder, "000005.png")),
+                              frames[5]):
+            raise AssertionError("the PNG reader does not give back the "
+                                 "frame written")
+        write_s = time.perf_counter() - t0
+        log_path = os.path.join(tmp, "poses.txt")
+        args = parser.parse_args(
+            ["--image_folder", folder, "--keyframe_backend", "torch",
+             "--qk_int8", "--log_results", "--skip_dense_log", "--log_path",
+             log_path, "--seed", str(SEED), "--timing"])
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run_slam(args, device=device)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(A.LAUNCHES)
+        solver = result["solver"]
+        n_sub = solver.map.get_num_submaps()
+        poses = [p for s in solver.map.ordered_submaps_by_key()
+                 for p in s.get_all_poses_world()]
+        homogs = [solver.graph.get_homography(k)
+                  for k in sorted(solver.graph.initialized_nodes)]
+        finite = bool(all(np.isfinite(p).all() for p in poses)
+                      and all(np.isfinite(h).all() for h in homogs))
+        tum = np.loadtxt(log_path) if os.path.exists(log_path) else None
+        dets = [float(np.linalg.det(h)) for h in homogs]
+        stages = {k: {"total_s": v["total_s"], "count": v["count"]}
+                  for k, v in result["timer"].summary().items()}
+        log("image_folder_cli", frames=len(frames), frame_hw=[480, 640],
+            png_write_s=write_s, submaps=n_sub, poses=len(poses),
+            tum_rows=None if tum is None else int(tum.shape[0]),
+            homography_dets=dets, launches=launches, wall_s=wall,
+            fps=len(frames) / wall, stages=stages, all_finite=finite)
+        if n_sub < 2:
+            raise AssertionError(f"only {n_sub} submap(s) formed")
+        if not finite or any(abs(d - 1.0) > 1e-3 for d in dets):
+            raise AssertionError(f"non-finite pose, or a homography off "
+                                 f"SL(4): dets {dets}")
+        if tum is None or tum.ndim != 2 or tum.shape[1] != 8 or \
+                not np.isfinite(tum).all():
+            raise AssertionError("the TUM pose log was not written")
+        if launches["flash_multi_i8"] == 0:
+            raise AssertionError("the int8 kernel was not launched on the "
+                                 "--qk_int8 path")
+        del result, solver
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # Phases 7-9: training at VGGT-1B width, and the train_tiny CLI
 # ---------------------------------------------------------------------------
 
@@ -725,8 +1068,9 @@ def drive_training(device, n_steps=3, profile=False):
     torch.cuda.empty_cache()
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    for name, count in launches.items():
-        if count == 0:
+    for name in ("flash_single", "flash_multi", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "training path")
     return launches, per_step[-1]
@@ -792,6 +1136,7 @@ def main(argv) -> int:
     from vggt_slam_tpu_torch.main import build_model, make_config, parser
     from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.ops import cuda_build
+    from vggt_slam_tpu_torch.ops import dpt_tail as T
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -805,6 +1150,7 @@ def main(argv) -> int:
     cuda_build.build_all()
     A.kernel_library()
     A.bwd_kernel_library()
+    T.kernel_library()
     log("build", seconds=time.perf_counter() - t0,
         nvcc_seconds=cuda_build.build_seconds,
         ptxas=[ln for text in cuda_build.build_log.values()
@@ -812,6 +1158,7 @@ def main(argv) -> int:
                or "spill" in ln])
 
     checks = check_kernels(device)
+    int8_checks = check_int8_kernels(device)
     train_checks = check_training_kernels(device)
     if "--kernels-only" in argv:     # a quick build-and-compare run
         return 0
@@ -826,8 +1173,11 @@ def main(argv) -> int:
     if "--profile" in argv:
         profile_forward(model, device, frames)
     launches = drive_main_path(model, device, frames)
-    del model
+    captured, int8_launches = check_int8_forward(model, device, frames)
+    tail = check_dpt_tail(model, device, captured)
+    del model, captured
     torch.cuda.empty_cache()
+    cli_launches = drive_image_folder_cli(device)
     check_backward(device)
     train_launches, train_per_step = drive_training(
         device, profile="--profile" in argv)
@@ -842,6 +1192,14 @@ def main(argv) -> int:
                         "(_flash_bwd_dq_kernel, launched at :1215)",
         "flash_bwd_dkv": "vggt_slam_tpu/ops/attention.py:1138 "
                          "(_flash_bwd_dkv_kernel, launched at :1234)",
+        "flash_multi_i8": "vggt_slam_tpu/ops/attention.py:121 "
+                          "(_flash_kernel with qk_int8=True, static "
+                          "softmax, launched at :877)",
+        "flash_single_i8": "vggt_slam_tpu/ops/attention.py:121 "
+                           "(_flash_kernel with qk_int8=True, online "
+                           "softmax, launched at :877)",
+        "dpt_tail": "vggt_slam_tpu/ops/dpt_tail.py:84 (_kernel, launched "
+                    "at :179)",
     }
     representative = {"flash_single": "frame_block",
                       "flash_multi": "global_block"}
@@ -883,6 +1241,38 @@ def main(argv) -> int:
                 "variant", "B", "N", "H", "D", "valid_len", "errors",
                 f"{key}_ms", "bwd_plain_ms", "sdpa_fwd_bwd_ms", "bound_ms",
                 "bound_by")} for c in train_checks]})
+    # The int8 kernels: launches on their own paths (the --qk_int8 CLI run
+    # for the static kernel, the online-softmax int8 forward for the other;
+    # counts reset just before each).
+    int8_path = {"flash_multi_i8": (cli_launches, "image_folder_cli"),
+                 "flash_single_i8": (int8_launches["online"],
+                                     "int8_forward_online")}
+    for name in ("flash_multi_i8", "flash_single_i8"):
+        variants = [c for c in int8_checks if c["kernel"] == name]
+        rep_ = next(c for c in variants if c["variant"] == "slam_global")
+        kernels.append({
+            "name": name, "status": "ported", "route": "cuda",
+            "source": "vggt_slam_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces[name],
+            "launches": int8_path[name][0][name],
+            "launches_path": int8_path[name][1],
+            "variant": rep_["variant"],
+            "max_abs_err": max(c["max_abs_err"] for c in variants),
+            "ms": rep_["ms"], "plain_ms": rep_["plain_ms"],
+            "bound_ms": rep_["bound_ms"], "bound_by": rep_["bound_by"],
+            "library_ms": rep_["library_ms"],
+            "bf16_kernel_ms": rep_["bf16_kernel_ms"],
+            "variants": variants})
+    kernels.append({
+        "name": "dpt_tail", "status": "ported", "route": "cuda",
+        "source": "vggt_slam_tpu_torch/csrc/dpt_tail.cu",
+        "replaces": replaces["dpt_tail"], "launches": tail["launches"],
+        "launches_path": "phase B, the depth head's activations (the "
+                         "reference wires no path to this kernel)",
+        "max_abs_err": tail["max_abs_err"], "ms": tail["ms"],
+        "plain_ms": tail["plain_ms"], "bound_ms": tail["bound_ms"],
+        "bound_by": tail["bound_by"], "library_ms": tail["library_ms"],
+        "rel_rms_vs_head_chain": tail["rel_rms_vs_head_chain"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -111,3 +111,36 @@ def test_run_slam_tiny_from_memory_frames_on_cpu(tmp_path):
     assert len(os.listdir(tmp_path / "out" / "frame_output")) == 5
     assert len(os.listdir(tmp_path / "poses_logs")) == 5
     assert attention.LAUNCHES == before     # CPU: plain versions only
+
+
+def test_run_slam_tiny_from_png_folder_on_cpu(tmp_path):
+    """The CLI's own folder path: PNG frames decoded by the in-repo reader
+    and resized without OpenCV (48x444 -> 56x518, INTER_LINEAR), with
+    --qk_int8 given, through the tiny model on the CPU."""
+    import cv2
+
+    from vggt_slam_tpu_torch import main
+
+    rng = np.random.default_rng(1)
+    coarse = rng.uniform(0, 255, (6, 50)).astype(np.float32)
+    tex = torch.nn.functional.interpolate(
+        torch.from_numpy(coarse)[None, None], size=(80, 800),
+        mode="bicubic", align_corners=False)[0, 0].clamp(0, 255).numpy()
+    tex = np.repeat(tex.astype(np.uint8)[..., None], 3, axis=2)
+    folder = tmp_path / "imgs"
+    folder.mkdir()
+    for i in range(5):
+        cv2.imwrite(str(folder / f"{i:03d}.png"),
+                    np.ascontiguousarray(tex[16:64, 16 + 36 * i:460 + 36 * i]))
+    args = main.parser.parse_args(
+        ["--image_folder", str(folder), "--model_size", "tiny",
+         "--submap_size", "3", "--max_loops", "0", "--min_disparity", "20",
+         "--keyframe_backend", "torch", "--qk_int8", "--log_results",
+         "--skip_dense_log", "--log_path", str(tmp_path / "poses.txt")])
+    res = main.run_slam(args, device="cpu")
+    solver = res["solver"]
+    assert res["n_frames"] == 5 and solver.map.get_num_submaps() == 2
+    for s in solver.map.ordered_submaps_by_key():
+        assert np.isfinite(s.get_all_poses_world()).all()
+    poses = np.loadtxt(tmp_path / "poses.txt")
+    assert poses.shape == (6, 8) and np.isfinite(poses).all()

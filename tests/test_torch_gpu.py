@@ -9,12 +9,18 @@ f32 and are held to 1e-3 relative: the two sides sum the same bf16 products
 in another order. The backward's gradients are held to 2e-2 of the largest
 reference entry: dL is rounded to bf16 before its products on both sides,
 and a slightly different p flips single roundings.
+The int8 kernels are held to the same 2e-2: both sides quantize with the
+same scales and their s32 products are exact, so what is left is the bf16
+output rounding and the bf16 p. The fused DPT tail is held to 1e-2 of its
+largest output: both sides round u and h to bf16, and the f32 sums of the
+3x3 conv run in another order, which can flip a rounding of h.
 """
 import numpy as np
 import pytest
 import torch
 
 from vggt_slam_tpu_torch.ops import attention as A
+from vggt_slam_tpu_torch.ops import dpt_tail as T
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-2
@@ -162,3 +168,47 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     qb = q.bfloat16()
     with pytest.raises(ValueError, match="head dim"):
         A.flash_single(qb, qb, qb, num_heads=4)      # head dim 24
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("variant", ["single", "multi", "multi_no_rope"])
+def test_int8_kernels_match_plain(cuda, variant, D):
+    q, k, v, kw = _case(cuda, 1, 4, 700, 500, D, rope=variant != "multi_no_rope",
+                        ln=False, bias=True, seed=7)
+    kw.update(valid_len=437, qk_int8=True)
+    name = "flash_single_i8" if variant == "single" else "flash_multi_i8"
+    before = dict(A.LAUNCHES)
+    if variant == "single":
+        out = A.flash_single(q, k, v, **kw)
+        ref = A.flash_single_ref(q, k, v, **kw)
+    else:
+        smax = A.static_bound(q, k, 4, kv_bias=kw["kv_bias"])
+        out = A.flash_multi(q, k, v, smax, **kw)
+        ref = A.flash_multi_ref(q, k, v, smax, **kw)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES[name] == before[name] + 1
+    assert all(A.LAUNCHES[n] == before[n] for n in before if n != name)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("cout", [2, 4])
+def test_fused_tail_matches_plain(cuda, cout):
+    # W = 100 leaves a masked edge column tile; rows 224 -> 392
+    g = torch.Generator(device=cuda).manual_seed(8)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=cuda)
+
+    S, W, cin = 2, 100, 64
+    x = rnd(S, 224, W, cin).bfloat16()
+    args = (0.1 * rnd(392, W, cin), rnd(3, 3, cin, 32) / 24.0,
+            0.1 * rnd(32), rnd(1, 1, 32, cout) / 6.0, rnd(cout))
+    before = T.LAUNCHES["dpt_tail"]
+    out = T.fused_tail(x, *args)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES["dpt_tail"] == before + 1
+    ref = T.fused_tail_ref(x, *args)
+    assert out.shape == (cout, S, 392, W) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               atol=1e-2 * float(ref.abs().max()), rtol=0)

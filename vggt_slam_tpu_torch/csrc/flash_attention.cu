@@ -43,6 +43,18 @@
 // accumulator fragments, P is repacked into A fragments without touching
 // shared memory); key tiles past valid_len are never loaded. wgmma, TMA
 // and warp specialisation are later work.
+//
+// The int8 variants (flash_single_i8_fwd, flash_multi_i8_fwd) replace
+// _flash_kernel with qk_int8=True (vggt_slam_tpu/ops/attention.py:103,
+// :169-221, :274-276, :310-311, :606-629): q and k are roped with tables
+// at scale 1, rounded to bf16 and quantized to int8 as
+// clip(rint(x * 127 / amax), +-127) with per-(batch, head) scales from the
+// caller; QK^T runs on mma.sync m16n8k32 s8 with s32 accumulation, and the
+// s32 logits times amax_q amax_k log2(e) / (sqrt(D) 127^2) enter the same
+// softmax, P repack and bf16 PV as the bf16 kernels. The prep kernel writes
+// the quantized k once per call; each CTA quantizes its own q tile. The
+// int8 products run at twice the bf16 rate, so QK^T's share of the bound
+// halves; PV, the softmax and the bytes are unchanged.
 
 #include "flash_common.cuh"
 
@@ -55,14 +67,21 @@ constexpr int BK = 64;                // keys per tile
 constexpr int NWARP = 4;
 constexpr int NTHREAD = NWARP * 32;
 
+// The int8 kernels pass their two extra pointers in fields they do not use
+// (k and ln), so this by-value kernel parameter keeps its layout: two more
+// fields, or anonymous unions, raised the bf16 D=64 instances from 127-128
+// to 131-139 registers (3 CTAs per SM instead of 4; ptxas, H100).
 struct Params {
   const __nv_bfloat16* q;
-  const __nv_bfloat16* k;   // prepared k (LN + rope applied) or raw k
+  const __nv_bfloat16* k;   // prepared k (LN + rope applied) or raw k; int8
+                            // kernels: the prepared int8 k
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
   int H, Nq, Nk, valid_len;
   float q_scale;          // softmax scale * log2(e)
-  const float* ln;        // (4, D): q gamma, q beta, k gamma, k beta; or null
+  const float* ln;        // (4, D): q gamma, q beta, k gamma, k beta; or
+                          // null; int8 kernels (no LN): (3, B*H) 127/amax_q,
+                          // 127/amax_k, dequant scale
   float ln_eps;
   const float* kv_bias;   // (Nk,) natural-log units; or null
   const float* cos_q;     // (Nq, D/2); or null (no rope)
@@ -155,16 +174,41 @@ __global__ void __launch_bounds__(NTHREAD)
   for (int j = 0; j < PER; ++j) dst[base + j] = __float2bfloat16(x[j]);
 }
 
-template <int D, bool STATIC>
+// Prepared int8 k rows (int8 kernels): rope at scale 1, rounded to bf16,
+// then quantized with the row's (batch, head) scale. One warp per row.
+template <int D>
+__global__ void __launch_bounds__(NTHREAD)
+    prep_rows_i8_kernel(const __nv_bfloat16* src, int8_t* dst, int rows,
+                        int N, int H, const float* cos_t, const float* sin_t,
+                        const float* inv) {
+  constexpr int PER = D / 32;
+  const int lane = threadIdx.x % 32;
+  const int item = blockIdx.x * NWARP + threadIdx.x / 32;
+  if (item >= rows * H) return;
+  const int row = item / H;
+  const float sc = inv[(row / N) * H + item % H];
+  const size_t base = size_t(item) * D + lane * PER;
+  float x[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) x[j] = __bfloat162float(src[base + j]);
+  prep_row<D>(x, lane, row % N, nullptr, nullptr, 0.f, cos_t, sin_t, 1.f);
+#pragma unroll
+  for (int j = 0; j < PER; ++j) dst[base + j] = quant_i8(x[j], sc);
+}
+
+template <int D, bool STATIC, bool INT8>
 __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
   constexpr int LD = D + 8;          // bf16 tile row stride (conflict-free)
-  constexpr int KS = D / 16;         // k-steps of QK^T
+  constexpr int LDB = D + 16;        // int8 tile row stride in bytes
+  constexpr int KS = INT8 ? D / 32 : D / 16;   // k-steps of QK^T
   constexpr int NT = BK / 8;         // 8-key n-tiles of S
   constexpr int DT = D / 8;          // 8-dim n-tiles of O
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + BQ * LD;
+  __nv_bfloat16* Ks = Qs + BQ * LD;                   // bf16 K tile, or
   __nv_bfloat16* Vs = Ks + BK * LD;
+  int8_t* K8 = reinterpret_cast<int8_t*>(Ks);         // the int8 K tile
+  int8_t* Q8 = reinterpret_cast<int8_t*>(Vs + BK * LD);   // int8 q tile
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;   // mma fragment coordinates
 
@@ -172,20 +216,27 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
   const int b = bh / p.H, h = bh % p.H;
   const int q0 = blockIdx.x * BQ;
 
-  // q tile: load, prepare in place (one warp per row), then keep this
-  // warp's 16 rows as A fragments in registers for the whole key sweep.
+  // q tile: load, prepare in place (one warp per row; int8: quantized into
+  // Q8), then keep this warp's 16 rows as A fragments in registers for the
+  // whole key sweep.
   load_tile<D, NTHREAD>(Qs, p.q, b, h, p.H, p.Nq, q0, p.Nq);
   __syncthreads();
+  const float inv_q = INT8 ? p.ln[bh] : 0.f;
   for (int r = warp; r < BQ; r += NWARP) {
     const int n = q0 + r;
     __nv_bfloat16* row = Qs + r * LD + lane * (D / 32);
     float x[D / 32];
 #pragma unroll
     for (int j = 0; j < D / 32; ++j) x[j] = __bfloat162float(row[j]);
+    const float* ln = INT8 ? nullptr : p.ln;
     const bool changed = prep_row<D>(
-        x, lane, min(n, p.Nq - 1), p.ln, p.ln ? p.ln + D : nullptr, p.ln_eps,
+        x, lane, min(n, p.Nq - 1), ln, ln ? ln + D : nullptr, p.ln_eps,
         p.cos_q, p.sin_q, p.q_scale);
-    if (changed) {
+    if constexpr (INT8) {
+      int8_t* row8 = Q8 + r * LDB + lane * (D / 32);
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j) row8[j] = quant_i8(x[j], inv_q);
+    } else if (changed) {
 #pragma unroll
       for (int j = 0; j < D / 32; ++j) row[j] = __float2bfloat16(x[j]);
     }
@@ -193,8 +244,11 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
   __syncthreads();
   uint32_t qa[KS][4];
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    load_a<LD>(qa[ks], Qs, warp * 16, ks * 16, lane);
+  for (int ks = 0; ks < KS; ++ks) {
+    if constexpr (INT8) load_a8<LDB>(qa[ks], Q8, warp * 16, ks * 32, lane);
+    else load_a<LD>(qa[ks], Qs, warp * 16, ks * 16, lane);
+  }
+  const float sc2 = INT8 ? p.ln[2 * gridDim.y + bh] : 0.f;
 
   float o[DT][4];
 #pragma unroll
@@ -208,22 +262,49 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
   for (int tile = 0; tile < ntiles; ++tile) {
     const int k0 = tile * BK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, NTHREAD>(Ks, p.k, b, h, p.H, p.Nk, k0, p.Nk);
+    if constexpr (INT8)
+      load_tile_i8<D, NTHREAD>(K8, reinterpret_cast<const int8_t*>(p.k), b,
+                               h, p.H, p.Nk, k0, p.Nk);
+    else
+      load_tile<D, NTHREAD>(Ks, p.k, b, h, p.H, p.Nk, k0, p.Nk);
     load_tile<D, NTHREAD>(Vs, p.v, b, h, p.H, p.Nk, k0, vl);
     __syncthreads();
 
     // S = Q_w K^T: 16 x 64 per warp in NT accumulator fragments.
     float s[NT][4];
+    if constexpr (INT8) {
+      int acc[NT][4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int j = 0; j < NT; ++j)
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
+      for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t kb[4];
-        load_bt<LD>(kb, Ks, j * 8, ks * 16, lane);
-        mma_bf16(s[j], qa[ks], kb[0], kb[1]);
-        mma_bf16(s[j + 1], qa[ks], kb[2], kb[3]);
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t kb[4];
+          load_bt8<LDB>(kb, K8, j * 8, ks * 32, lane);
+          mma_s8(acc[j], qa[ks], kb[0], kb[1]);
+          mma_s8(acc[j + 1], qa[ks], kb[2], kb[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = __fmul_rn(static_cast<float>(acc[j][e]), sc2);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t kb[4];
+          load_bt<LD>(kb, Ks, j * 8, ks * 16, lane);
+          mma_bf16(s[j], qa[ks], kb[0], kb[1]);
+          mma_bf16(s[j + 1], qa[ks], kb[2], kb[3]);
+        }
       }
     }
 
@@ -327,46 +408,58 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
   }
 }
 
-template <int D, bool STATIC>
+template <int D, bool STATIC, bool INT8>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  const size_t bytes = size_t(BQ + 2 * BK) * (D + 8) * 2;
+  const size_t bytes = size_t(BQ + 2 * BK) * (D + 8) * 2 +
+                       (INT8 ? size_t(BQ) * (D + 16) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, STATIC>,
+      flash_fwd_kernel<D, STATIC, INT8>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((p.Nq + BQ - 1) / BQ, B * p.H);
-  flash_fwd_kernel<D, STATIC><<<grid, NTHREAD, bytes, stream>>>(p);
+  flash_fwd_kernel<D, STATIC, INT8><<<grid, NTHREAD, bytes, stream>>>(p);
   return int(cudaGetLastError());
 }
 
 template <int D>
-int launch_prep(const __nv_bfloat16* src, __nv_bfloat16* dst, int B, int N,
-                int H, const float* gamma, const float* beta, float eps,
-                const float* cos_t, const float* sin_t, cudaStream_t stream) {
+int launch_prep(const __nv_bfloat16* src, void* dst, int B, int N, int H,
+                const float* gamma, const float* beta, float eps,
+                const float* cos_t, const float* sin_t, const float* inv,
+                cudaStream_t stream) {
   const int items = B * N * H;
-  prep_rows_kernel<D><<<(items + NWARP - 1) / NWARP, NTHREAD, 0, stream>>>(
-      src, dst, B * N, N, H, gamma, beta, eps, cos_t, sin_t);
+  const int blocks = (items + NWARP - 1) / NWARP;
+  if (inv != nullptr) {
+    prep_rows_i8_kernel<D><<<blocks, NTHREAD, 0, stream>>>(
+        src, static_cast<int8_t*>(dst), B * N, N, H, cos_t, sin_t, inv);
+  } else {
+    prep_rows_kernel<D><<<blocks, NTHREAD, 0, stream>>>(
+        src, static_cast<__nv_bfloat16*>(dst), B * N, N, H, gamma, beta, eps,
+        cos_t, sin_t);
+  }
   return int(cudaGetLastError());
 }
 
 // k_work: scratch of k's shape for the prepared k, used when k needs LN or
-// rope (null otherwise).
-template <bool STATIC>
+// rope (null otherwise); int8 kernels: an int8 scratch of k's shape, always
+// used, and i8 the (3, B*H) scales.
+template <bool STATIC, bool INT8>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              void* k_work, int B, int H, int Nq, int Nk, int D,
              int valid_len, float q_scale, const void* ln, float ln_eps,
              const void* kv_bias, const void* cos_q, const void* sin_q,
-             const void* cos_k, const void* sin_k, const void* smax,
-             void* m_out, void* l_out, void* stream) {
+             const void* cos_k, const void* sin_k, const void* i8,
+             const void* smax, void* m_out, void* l_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lnf = static_cast<const float*>(ln);
+  const float* scales = static_cast<const float*>(i8);
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k);
   if (D != 32 && D != 64 && D != 128) return int(cudaErrorInvalidValue);
   if ((m_out == nullptr) != (l_out == nullptr))
     return int(cudaErrorInvalidValue);
-  if (ln != nullptr || cos_k != nullptr) {
+  if (INT8 && (ln != nullptr || scales == nullptr || k_work == nullptr))
+    return int(cudaErrorInvalidValue);
+  if (INT8 || ln != nullptr || cos_k != nullptr) {
     if (k_work == nullptr) return int(cudaErrorInvalidValue);
-    __nv_bfloat16* kw = static_cast<__nv_bfloat16*>(k_work);
     const float* ck = static_cast<const float*>(cos_k);
     const float* sk = static_cast<const float*>(sin_k);
     const float* gk = lnf ? lnf + 2 * D : nullptr;
@@ -374,13 +467,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
     const auto prep = D == 32   ? launch_prep<32>
                       : D == 64 ? launch_prep<64>
                                 : launch_prep<128>;
-    const int err = prep(kp, kw, B, Nk, H, gk, bk, ln_eps, ck, sk, st);
+    const int err = prep(kp, k_work, B, Nk, H, gk, bk, ln_eps, ck, sk,
+                         INT8 ? scales + B * H : nullptr, st);
     if (err != 0) return err;
-    kp = kw;
+    if (!INT8) kp = static_cast<const __nv_bfloat16*>(k_work);
   }
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = kp;
+  p.k = INT8 ? static_cast<const __nv_bfloat16*>(k_work) : kp;
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
   p.H = H;
@@ -388,7 +482,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   p.Nk = Nk;
   p.valid_len = valid_len;
   p.q_scale = q_scale;
-  p.ln = lnf;
+  p.ln = INT8 ? scales : lnf;
   p.ln_eps = ln_eps;
   p.kv_bias = static_cast<const float*>(kv_bias);
   p.cos_q = static_cast<const float*>(cos_q);
@@ -396,35 +490,43 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   p.smax = static_cast<const float*>(smax);
   p.m_out = static_cast<float*>(m_out);
   p.l_out = static_cast<float*>(l_out);
-  return D == 32   ? launch<32, STATIC>(p, B, st)
-         : D == 64 ? launch<64, STATIC>(p, B, st)
-                   : launch<128, STATIC>(p, B, st);
+  return D == 32   ? launch<32, STATIC, INT8>(p, B, st)
+         : D == 64 ? launch<64, STATIC, INT8>(p, B, st)
+                   : launch<128, STATIC, INT8>(p, B, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-int flash_single_fwd(const void* q, const void* k, const void* v, void* o,
-                     void* k_work, int B, int H, int Nq, int Nk, int D,
-                     int valid_len, float q_scale, const void* ln,
-                     float ln_eps, const void* kv_bias, const void* cos_q,
-                     const void* sin_q, const void* cos_k, const void* sin_k,
-                     void* m_out, void* l_out, void* stream) {
-  return dispatch<false>(q, k, v, o, k_work, B, H, Nq, Nk, D, valid_len,
-                         q_scale, ln, ln_eps, kv_bias, cos_q, sin_q, cos_k,
-                         sin_k, nullptr, m_out, l_out, stream);
+#define FLASH_ARGS                                                           \
+  const void *q, const void *k, const void *v, void *o, void *k_work, int B, \
+      int H, int Nq, int Nk, int D, int valid_len, float q_scale,            \
+      const void *ln, float ln_eps, const void *kv_bias, const void *cos_q,  \
+      const void *sin_q, const void *cos_k, const void *sin_k
+#define FLASH_PASS                                                          \
+  q, k, v, o, k_work, B, H, Nq, Nk, D, valid_len, q_scale, ln, ln_eps,      \
+      kv_bias, cos_q, sin_q, cos_k, sin_k
+
+int flash_single_fwd(FLASH_ARGS, void* m_out, void* l_out, void* stream) {
+  return dispatch<false, false>(FLASH_PASS, nullptr, nullptr, m_out, l_out,
+                                stream);
 }
 
-int flash_multi_fwd(const void* q, const void* k, const void* v, void* o,
-                    void* k_work, int B, int H, int Nq, int Nk, int D,
-                    int valid_len, float q_scale, const void* ln, float ln_eps,
-                    const void* kv_bias, const void* cos_q, const void* sin_q,
-                    const void* cos_k, const void* sin_k, const void* smax,
-                    void* m_out, void* l_out, void* stream) {
-  return dispatch<true>(q, k, v, o, k_work, B, H, Nq, Nk, D, valid_len,
-                        q_scale, ln, ln_eps, kv_bias, cos_q, sin_q, cos_k,
-                        sin_k, smax, m_out, l_out, stream);
+int flash_multi_fwd(FLASH_ARGS, const void* smax, void* m_out, void* l_out,
+                    void* stream) {
+  return dispatch<true, false>(FLASH_PASS, nullptr, smax, m_out, l_out,
+                               stream);
+}
+
+int flash_single_i8_fwd(FLASH_ARGS, const void* i8, void* m_out, void* l_out,
+                        void* stream) {
+  return dispatch<false, true>(FLASH_PASS, i8, nullptr, m_out, l_out, stream);
+}
+
+int flash_multi_i8_fwd(FLASH_ARGS, const void* i8, const void* smax,
+                       void* m_out, void* l_out, void* stream) {
+  return dispatch<true, true>(FLASH_PASS, i8, smax, m_out, l_out, stream);
 }
 
 const char* flash_error_string(int code) {

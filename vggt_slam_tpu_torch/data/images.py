@@ -1,13 +1,20 @@
 """Image loading and preprocessing for the VGGT input pipeline (a copy of
-vggt_slam_tpu/data/images.py): resize to width 518 with the height rounded
-to the 14-px patch, values in [0, 1], (S, 3, H, W) float32. OpenCV is
-imported only to decode or to resize; frames already at the target size
-need neither."""
+vggt_slam_tpu/data/images.py without OpenCV): resize to width 518 with the
+height rounded to the 14-px patch, values in [0, 1], (S, 3, H, W) float32.
+
+OpenCV is not used. PNG (TUM RGB-D, 7-Scenes and Replica ship it) is decoded
+by an in-repo reader on the standard library's zlib; other formats, JPEG
+included, by PIL or torchvision where one of them imports. The two resizes
+of the reference (`cv2.resize` with INTER_LINEAR and INTER_AREA) are written
+in numpy with OpenCV's conventions.
+"""
 from __future__ import annotations
 
 import glob
 import os
 import re
+import struct
+import zlib
 
 import numpy as np
 
@@ -21,14 +28,216 @@ def preprocessed_hw(orig_h: int, orig_w: int,
     return max(PATCH, min(new_h, target_width)), target_width
 
 
+# ---------------------------------------------------------------------------
+# Decoding
+# ---------------------------------------------------------------------------
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 6: 4}     # gray, RGB, palette, RGBA
+
+
+def _paeth_row(f: np.ndarray, prev: np.ndarray, bpp: int) -> bytearray:
+    out = bytearray(f.tobytes())
+    up = prev.tolist()
+    for i in range(bpp):                  # a = c = 0: the predictor is b
+        out[i] = (out[i] + up[i]) & 255
+    for i in range(bpp, len(out)):
+        a, b, c = out[i - bpp], up[i], up[i - bpp]
+        pa, pb = b - c, a - c
+        pc = abs(pa + pb)
+        pa, pb = abs(pa), abs(pb)
+        out[i] = (out[i] + (a if pa <= pb and pa <= pc
+                            else b if pb <= pc else c)) & 255
+    return out
+
+
+def _average_row(f: np.ndarray, prev: np.ndarray, bpp: int) -> bytearray:
+    out = bytearray(f.tobytes())
+    up = prev.tolist()
+    for i in range(bpp):
+        out[i] = (out[i] + (up[i] >> 1)) & 255
+    for i in range(bpp, len(out)):
+        out[i] = (out[i] + ((out[i - bpp] + up[i]) >> 1)) & 255
+    return out
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """The five PNG row filters undone -> (h, stride) uint8."""
+    rows = np.frombuffer(raw, np.uint8)[:h * (stride + 1)].reshape(
+        h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        kind, f = rows[y, 0], rows[y, 1:]
+        if kind == 0:
+            cur = f
+        elif kind == 1:      # sub: a running sum per byte of a pixel
+            cur = np.cumsum(f.reshape(-1, bpp), axis=0, dtype=np.uint8
+                            ).reshape(-1)
+        elif kind == 2:      # up
+            cur = f + prev
+        elif kind in (3, 4):  # average, paeth: sequential along the row
+            cur = np.frombuffer((_average_row if kind == 3 else _paeth_row)(
+                f, prev, bpp), np.uint8)
+        else:
+            raise ValueError(f"bad PNG row filter {kind}")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
+def read_png(path: str) -> np.ndarray:
+    """Decode an 8-bit gray, RGB, RGBA or palette PNG that is not
+    interlaced -> (H, W, 3) uint8 BGR, as cv2.imread(IMREAD_COLOR) gives
+    (alpha dropped). Raises ValueError on any other PNG."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIG:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, palette, hdr = 8, [], None, None
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    w, h, depth, color, _, _, interlace = hdr
+    if depth != 8 or color not in _PNG_CHANNELS or interlace != 0 or \
+            (color == 3 and palette is None):
+        raise ValueError(
+            f"{path}: unsupported PNG (bit depth {depth}, colour type "
+            f"{color}, interlace {interlace}); the reader takes 8-bit gray, "
+            f"RGB, RGBA and palette PNGs that are not interlaced")
+    ch = _PNG_CHANNELS[color]
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) < h * (w * ch + 1):
+        raise ValueError(f"{path}: truncated PNG image data")
+    try:
+        px = _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+    if color == 3:
+        rgb = palette[np.minimum(px[..., 0], len(palette) - 1)]
+    elif ch == 1:
+        rgb = np.repeat(px, 3, axis=2)
+    else:
+        rgb = px[..., :3]
+    return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def _read_other(path: str) -> np.ndarray:
+    """JPEG and the other formats through PIL or torchvision -> BGR."""
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is not None:
+        with Image.open(path) as im:
+            rgb = np.asarray(im.convert("RGB"))
+        return np.ascontiguousarray(rgb[..., ::-1])
+    try:
+        from torchvision.io import ImageReadMode, decode_image, read_file
+    except ImportError:
+        raise RuntimeError(
+            f"cannot decode {path}: PNG is read in-repo; other formats "
+            f"(JPEG included) need PIL or torchvision, and neither "
+            f"imports") from None
+    rgb = decode_image(read_file(path), mode=ImageReadMode.RGB)
+    return np.ascontiguousarray(rgb.permute(1, 2, 0).numpy()[..., ::-1])
+
+
 def load_image(path: str) -> np.ndarray:
     """Decode one image file -> (H, W, 3) uint8 BGR."""
-    import cv2
-
-    img = cv2.imread(path, cv2.IMREAD_COLOR)
-    if img is None:
+    if not os.path.isfile(path):
         raise FileNotFoundError(f"cannot read image: {path}")
-    return img
+    with open(path, "rb") as f:
+        is_png = f.read(8) == _PNG_SIG
+    return read_png(path) if is_png else _read_other(path)
+
+
+# ---------------------------------------------------------------------------
+# Resizing (cv2.resize's INTER_LINEAR and INTER_AREA in numpy)
+# ---------------------------------------------------------------------------
+
+def _linear_taps(n_in: int, n_out: int):
+    """OpenCV's INTER_LINEAR taps: half-pixel centres, clamped edges, no
+    antialiasing; 11-bit fixed-point weights (w0 + w1 = 2048)."""
+    f = ((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5).astype(np.float32)
+    i0 = np.floor(f)
+    frac = f - i0
+    i0 = i0.astype(np.int64)
+    w1 = np.rint(frac * np.float32(2048)).astype(np.int64)
+    w0 = np.rint((np.float32(1) - frac) * np.float32(2048)).astype(np.int64)
+    return (np.clip(i0, 0, n_in - 1), np.clip(i0 + 1, 0, n_in - 1), w0, w1,
+            frac)
+
+
+def resize_linear(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR) for (H, W, C)
+    images. uint8 follows OpenCV's fixed point (within one step of it,
+    where its scalar tail rounds otherwise); float images are interpolated
+    in float32."""
+    H, W = img.shape[:2]
+    x0, x1, ax0, ax1, fx = _linear_taps(W, w)
+    y0, y1, by0, by1, fy = _linear_taps(H, h)
+    if img.dtype == np.uint8:
+        src = img.astype(np.int64)
+        rows = (src[:, x0] * ax0[None, :, None] + src[:, x1]
+                * ax1[None, :, None])                     # (H, w, C), 2^11
+        # the vertical pass as OpenCV's SIMD path rounds it: 16-bit high
+        # products of the rows (>> 4) and weights, then (sum + 2) >> 2
+        out = ((((rows[y0] >> 4) * by0[:, None, None]) >> 16)
+               + (((rows[y1] >> 4) * by1[:, None, None]) >> 16) + 2) >> 2
+        return np.clip(out, 0, 255).astype(np.uint8)
+    src = img.astype(np.float32)
+    fx, fy = fx[None, :, None], fy[:, None, None]
+    rows = src[:, x0] * (1 - fx) + src[:, x1] * fx
+    return (rows[y0] * (1 - fy) + rows[y1] * fy).astype(np.float32)
+
+
+def _area_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) INTER_AREA weights (OpenCV computeResizeAreaTab): each
+    output cell averages the input pixels it covers, with fractional
+    weights at its two ends."""
+    scale = n_in / n_out
+    A = np.zeros((n_out, n_in))
+    for d in range(n_out):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_in - f1)
+        s2 = min(int(np.floor(f2)), n_in - 1)
+        s1 = min(int(np.ceil(f1)), s2)
+        if s1 - f1 > 1e-3:
+            A[d, s1 - 1] = (s1 - f1) / cell
+        A[d, s1:s2] = 1.0 / cell
+        if f2 - s2 > 1e-3:
+            A[d, s2] = min(min(f2 - s2, 1.0), cell) / cell
+    return A
+
+
+def resize_area(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA) for shrinking
+    (H, W, C) images: box weights at fractional scales, a plain mean at
+    integer ones. uint8 output rounds as OpenCV (half up for the mean,
+    half to even otherwise)."""
+    H, W = img.shape[:2]
+    cols = np.tensordot(img.astype(np.float64), _area_matrix(W, w),
+                        axes=(1, 1))                      # (H, C, w)
+    out = np.tensordot(_area_matrix(H, h), cols, axes=(1, 0)
+                       ).transpose(0, 2, 1)
+    if img.dtype != np.uint8:
+        return out.astype(np.float32)
+    integer = H % h == 0 and W % w == 0
+    out = np.floor(out + 0.5) if integer else np.rint(out)
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 def preprocess_array(img_rgb: np.ndarray,
@@ -39,17 +248,15 @@ def preprocess_array(img_rgb: np.ndarray,
     interim_h = int(round(H * new_w / W))
     if (H, W) == (new_h, new_w):
         resized = img_rgb
+    elif interim_h < new_h:
+        # the reference resizes to interim_h first and throws it away
+        resized = resize_linear(img_rgb, new_w, new_h)
     else:
-        import cv2
-        resized = cv2.resize(img_rgb, (new_w, interim_h),
-                             interpolation=cv2.INTER_AREA if interim_h < H
-                             else cv2.INTER_LINEAR)
+        resize = resize_area if interim_h < H else resize_linear
+        resized = resize(img_rgb, new_w, interim_h)
         if interim_h > new_h:
             top = (interim_h - new_h) // 2
             resized = resized[top:top + new_h]
-        elif interim_h < new_h:
-            resized = cv2.resize(img_rgb, (new_w, new_h),
-                                 interpolation=cv2.INTER_LINEAR)
     out = resized.astype(np.float32)
     if img_rgb.dtype == np.uint8:
         out /= 255.0

@@ -57,6 +57,11 @@ parser.add_argument("--global_merge", type=str, default="sim",
                     choices=["sim", "stride"])
 parser.add_argument("--global_softmax", type=str, default=None,
                     choices=["online", "static"])
+parser.add_argument("--qk_int8", action="store_true",
+                    help="run global-attention QK^T on the int8 kernels "
+                         "(per-(batch, head) scales, s32 accumulation; "
+                         "max |err| ~1e-3 vs f32 instead of ~2e-4 - see "
+                         "config.global_qk_int8)")
 parser.add_argument("--attn_impl", type=str, default="flash",
                     choices=["flash", "chunked"],
                     help="flash = the CUDA kernels (their plain versions on "
@@ -80,6 +85,7 @@ def make_config(args):
         stride = 16 if _AGG_DIM.get(args.model_size, 1024) > 128 else 8
     kw = dict(attn_impl=args.attn_impl, global_kv_stride=stride,
               global_merge=args.global_merge,
+              global_qk_int8=bool(args.qk_int8),
               enable_point_head=bool(args.use_point_map))
     if args.global_softmax:
         kw["global_softmax"] = args.global_softmax

@@ -82,7 +82,8 @@ class Aggregator(nn.Module):
                 cfg.agg_dim, cfg.agg_heads, cfg.agg_mlp_ratio,
                 layerscale=cfg.agg_layerscale, dtype=cfg.dtype,
                 attn_impl=cfg.attn_impl, qk_norm=cfg.agg_qk_norm,
-                softmax_mode=cfg.global_softmax))
+                softmax_mode=cfg.global_softmax,
+                qk_int8=cfg.global_qk_int8))
 
     def forward(self, images: torch.Tensor,
                 valid_frames: int | None = None) -> Dict:

@@ -61,6 +61,10 @@ class VGGTConfig:
     # "static": the global blocks' softmax shifts by a precomputed logit
     # bound instead of the running max (kernel 2); "online": running max.
     global_softmax: str = "static"
+    # int8 QK^T in the global blocks (flash only, multi-block key sets):
+    # q and k are quantized after rope with per-(batch, head) scales, and
+    # the qk-norm then runs outside the kernel (reference config.py:75-86).
+    global_qk_int8: bool = False
     # Activation checkpointing (training): the encoder, frame and global
     # blocks recompute their activations in the backward pass. Global
     # blocks skip it when K/V merging is on, as in the reference.

@@ -140,13 +140,14 @@ class Attention(nn.Module):
     (identity rotation on special tokens). `kv_map` maps (B, N, C) tokens to
     the reduced (B, n_kv, C) key/value source; k and v are projected only
     on it. qk-norm runs before rope; on the flash path both run inside the
-    kernel.
+    kernel, except with `qk_int8` (int8 QK^T, whose scales are taken before
+    the LN): then the LN runs outside and rope stays in the kernel.
     """
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
                  attn_impl: str = "flash", qkv_bias: bool = True,
                  qk_norm: bool = False, ln_eps: float = 1e-5,
-                 softmax_mode: str = "online"):
+                 softmax_mode: str = "online", qk_int8: bool = False):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
@@ -154,6 +155,7 @@ class Attention(nn.Module):
         self.attn_impl = attn_impl
         self.ln_eps = ln_eps
         self.softmax_mode = softmax_mode
+        self.qk_int8 = qk_int8
         self.qkv = _FusedQKV(dim, qkv_bias)
         if qk_norm:
             self.q_norm = _LNParams(dim // num_heads)
@@ -187,7 +189,7 @@ class Attention(nn.Module):
         if self.qk_norm:
             params = (self.q_norm.scale, self.q_norm.bias, self.k_norm.scale,
                       self.k_norm.bias)
-            if flash and rope_cos is not None:
+            if flash and rope_cos is not None and not self.qk_int8:
                 qk_ln = params
             else:
                 q = attn_ops.ln_fast(q.view(B, N, H, Dh), params[0],
@@ -209,7 +211,8 @@ class Attention(nn.Module):
             q.contiguous(), k.contiguous(), v.contiguous(),
             impl=self.attn_impl, valid_len=kv_valid_len, rope_q=rope_q,
             rope_k=rope_k, kv_bias=kv_bias, softmax=self.softmax_mode,
-            qk_ln=qk_ln, qk_ln_eps=self.ln_eps, num_heads=H)
+            qk_ln=qk_ln, qk_ln_eps=self.ln_eps, num_heads=H,
+            qk_int8=self.qk_int8)
         return self.proj(out)
 
 
@@ -219,13 +222,14 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4,
                  layerscale=None, dtype=torch.float32,
                  attn_impl: str = "flash", qk_norm: bool = False,
-                 ln_eps: float = 1e-5, softmax_mode: str = "online"):
+                 ln_eps: float = 1e-5, softmax_mode: str = "online",
+                 qk_int8: bool = False):
         super().__init__()
         self.dtype = dtype
         self.norm1 = LayerNorm(dim, ln_eps)
         self.attn = Attention(dim, num_heads, dtype, attn_impl,
                               qk_norm=qk_norm, ln_eps=ln_eps,
-                              softmax_mode=softmax_mode)
+                              softmax_mode=softmax_mode, qk_int8=qk_int8)
         self.norm2 = LayerNorm(dim, ln_eps)
         self.mlp = Mlp(dim, dim * mlp_ratio, dim, dtype)
         if layerscale is not None:

@@ -17,6 +17,11 @@ q/k/v projections, so no transposes cross device memory.
   `flash_attention` plus the static bound; `attention` dispatches by name.
   With `return_stats` the two forward kernels also return the row stats
   (m, l) of the reference's `return_stats`.
+* `qk_int8=True` on either forward: the reference's int8 QK^T variant of
+  `_flash_kernel` (per-(batch, head) scales from `int8_scales`, q and k
+  quantized after rope, s32 logits, bf16 PV), counted as
+  `flash_single_i8` / `flash_multi_i8`. `flash_attention` takes it only
+  where the key set does not fit one block, as the reference does.
 * `flash_bwd_dq` / `flash_bwd_dkv` / `flash_bwd_ref`: the counterparts of
   the TPU kernels `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` and
   their plain version; `FlashAttentionGrad` / `flash_attention_grad` (the
@@ -40,7 +45,7 @@ LOG2E = math.log2(math.e)
 # Launches of each CUDA kernel in this process (plain-version calls are not
 # counted). Read by chip_smoke.py to show the main path ran the kernels.
 LAUNCHES = {"flash_single": 0, "flash_multi": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+            "flash_bwd_dkv": 0, "flash_single_i8": 0, "flash_multi_i8": 0}
 HEAD_DIMS = (32, 64, 128)
 
 
@@ -133,7 +138,36 @@ def _prep(x, num_heads, ln, ln_eps, rope, scale):
     return t
 
 
-def _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln):
+def int8_scales(q, k, num_heads, rope: bool):
+    """Per-(batch, head) int8 quantization scales of packed q and k
+    (reference attention.py:606-629): amax is the largest pair norm of
+    (x1, x2) when rope rotates the rows (so every rotated component stays
+    within it), else the largest |x|, at least 1e-6, over all rows passed
+    in. Returns (3, B*H) f32: 127/amax_q, 127/amax_k and the dequant scale
+    amax_q amax_k log2(e) / (sqrt(D) 127^2)."""
+    B, H = q.shape[0], num_heads
+    D = q.shape[2] // H
+
+    def amax(x):
+        xf = x.view(B, x.shape[1], H, D).float()
+        if rope:
+            x1, x2 = xf[..., :D // 2], xf[..., D // 2:]
+            xf = torch.sqrt(x1 * x1 + x2 * x2)
+        return xf.abs().amax(dim=(1, 3)).clamp_min(1e-6).reshape(-1)
+
+    sq, sk = amax(q), amax(k)
+    c_scale = LOG2E / math.sqrt(D)
+    return torch.stack([127.0 / sq, 127.0 / sk,
+                        sq * sk * (c_scale / (127.0 * 127.0))])
+
+
+def _quant_i8(t, inv):
+    """(B, H, N, D) -> int8 grid values in f32 (`_quant_i8`)."""
+    B, H = t.shape[:2]
+    return torch.round(t.float() * inv.view(B, H, 1, 1)).clamp(-127, 127)
+
+
+def _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln, qk_int8=False):
     if q.dim() != 3 or k.shape != v.shape or q.shape[0] != k.shape[0] \
             or q.shape[2] != k.shape[2]:
         raise ValueError(f"packed q/k/v expected, got {tuple(q.shape)}, "
@@ -144,24 +178,37 @@ def _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln):
         raise ValueError("rope_q and rope_k go together")
     if qk_ln is not None and rope_q is None:
         raise ValueError("qk_ln requires in-kernel rope (as the reference)")
+    if qk_ln is not None and qk_int8:
+        raise ValueError("qk_ln and qk_int8 do not go together: the int8 "
+                         "scales are taken before the LN (as the reference)")
 
 
 def _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias, qk_ln,
-           qk_ln_eps, smax, return_stats=False, q_chunk=2048):
+           qk_ln_eps, smax, return_stats=False, qk_int8=False, q_chunk=2048):
     """Shared plain version: `smax` None = exact running max (kernel 1),
     else the static bound per (batch, head) (kernel 2). With
-    `return_stats` also the (B, H, Nq) f32 row shift m and row sum l."""
-    _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln)
+    `return_stats` also the (B, H, Nq) f32 row shift m and row sum l. With
+    `qk_int8` q and k are quantized whole with `int8_scales`, and QK^T is
+    an f32 product of the int8 values: exact, as |sum| <= 128 * 127^2 <
+    2^24."""
+    _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln, qk_int8)
     B, Nq, HD = q.shape
     Nk = k.shape[1]
     H = num_heads
     D = HD // H
     c_scale = LOG2E / math.sqrt(D)
     vl = Nk if valid_len is None else max(0, min(int(valid_len), Nk))
-    qp = _prep(q, H, None if qk_ln is None else qk_ln[0:2], qk_ln_eps,
-               rope_q, c_scale)
-    kp = _prep(k, H, None if qk_ln is None else qk_ln[2:4], qk_ln_eps,
-               rope_k, 1.0).float()
+    sc2 = None
+    if qk_int8:
+        inv_q, inv_k, sc2 = int8_scales(q, k, H, rope_q is not None)
+        qp = _quant_i8(_prep(q, H, None, qk_ln_eps, rope_q, 1.0), inv_q)
+        kp = _quant_i8(_prep(k, H, None, qk_ln_eps, rope_k, 1.0), inv_k)
+        sc2 = sc2.view(B, H, 1, 1)
+    else:
+        qp = _prep(q, H, None if qk_ln is None else qk_ln[0:2], qk_ln_eps,
+                   rope_q, c_scale)
+        kp = _prep(k, H, None if qk_ln is None else qk_ln[2:4], qk_ln_eps,
+                   rope_k, 1.0).float()
     vf = v.view(B, Nk, H, D).transpose(1, 2).float()
     keep = torch.arange(Nk, device=q.device) < vl
     vf = torch.where(keep[None, None, :, None], vf, 0.0)
@@ -172,6 +219,8 @@ def _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias, qk_ln,
     for s in range(0, Nq, q_chunk):
         logits = torch.matmul(qp[:, :, s:s + q_chunk].float(),
                               kp.transpose(-1, -2))
+        if sc2 is not None:
+            logits = logits * sc2
         if bias is not None:
             logits = logits + bias
         logits = torch.where(keep, logits, _NEG_INF)
@@ -191,7 +240,7 @@ def _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias, qk_ln,
 
 def flash_single_ref(q, k, v, *, num_heads, valid_len=None, rope_q=None,
                      rope_k=None, kv_bias=None, qk_ln=None, qk_ln_eps=1e-5,
-                     return_stats=False):
+                     qk_int8=False, return_stats=False):
     """Plain version of `flash_single`: packed (B, N, H*D) exact softmax
     attention in f32 with the kernel's bf16 tile roundings.
 
@@ -200,19 +249,19 @@ def flash_single_ref(q, k, v, *, num_heads, valid_len=None, rope_q=None,
     per-key bias; `valid_len`: keys at or past it are masked.
     `return_stats`: return (out, m, l), m the exp2-domain row max and l the
     row sum of exp2(s - m), each (B, H, Nq) f32 (reference
-    attention.py:365-384)."""
+    attention.py:365-384). `qk_int8`: int8 QK^T, see `_plain`."""
     return _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
-                  qk_ln, qk_ln_eps, None, return_stats)
+                  qk_ln, qk_ln_eps, None, return_stats, qk_int8)
 
 
 def flash_multi_ref(q, k, v, smax, *, num_heads, valid_len=None,
                     rope_q=None, rope_k=None, kv_bias=None, qk_ln=None,
-                    qk_ln_eps=1e-5, return_stats=False):
+                    qk_ln_eps=1e-5, qk_int8=False, return_stats=False):
     """Plain version of `flash_multi`: as `flash_single_ref`, but the
     softmax shift is the static per-(batch, head) bound `smax` (B*H,) in the
     exp2 domain instead of the row max (and is the stats' m)."""
     return _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
-                  qk_ln, qk_ln_eps, smax, return_stats)
+                  qk_ln, qk_ln_eps, smax, return_stats, qk_int8)
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +276,8 @@ _COMMON = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _F, _P, _P,
 _SIGNATURES = {
     "flash_single_fwd": (_COMMON + [_P, _P, _P], ctypes.c_int),
     "flash_multi_fwd": (_COMMON + [_P, _P, _P, _P], ctypes.c_int),
+    "flash_single_i8_fwd": (_COMMON + [_P, _P, _P, _P], ctypes.c_int),
+    "flash_multi_i8_fwd": (_COMMON + [_P, _P, _P, _P, _P], ctypes.c_int),
     "flash_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 _BWD_COMMON = [_P] * 7
@@ -280,8 +331,8 @@ def _head_dim(HD, num_heads):
 
 
 def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
-            qk_ln, qk_ln_eps, smax, return_stats):
-    _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln)
+            qk_ln, qk_ln_eps, smax, return_stats, qk_int8):
+    _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln, qk_int8)
     dev = q.device
     _check_cuda_tensors(dev, (("q", q), ("k", k), ("v", v)))
     B, Nq, HD = q.shape
@@ -307,16 +358,25 @@ def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
         ln = torch.stack([_f32(t.reshape(-1), (D,), "qk_ln", dev)
                           for t in qk_ln])
     bias = _f32(kv_bias, (Nk,), "kv_bias", dev)
-    # scratch for the k rows with LN and rope applied once per call
-    k_work = torch.empty_like(k) if (ln is not None or ck is not None) \
-        else None
+    # scratch for the k rows with LN and rope applied once per call, or
+    # for the quantized k of the int8 kernels
+    scales = None
+    if qk_int8:
+        scales = int8_scales(q, k, H, rope_q is not None).contiguous()
+        entry = entry.replace("_fwd", "_i8_fwd")
+        k_work = torch.empty(k.shape, dtype=torch.int8, device=dev)
+    else:
+        k_work = torch.empty_like(k) if (ln is not None or ck is not None) \
+            else None
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if k_work is None else k_work.data_ptr(), B, H,
-            Nq, Nk, D, vl, LOG2E / math.sqrt(D),
+            Nq, Nk, D, vl, 1.0 if qk_int8 else LOG2E / math.sqrt(D),
             None if ln is None else ln.data_ptr(), float(qk_ln_eps),
             None if bias is None else bias.data_ptr()]
     args += [None if t is None else t.data_ptr() for t in (cq, sq, ck, sk)]
-    if entry == "flash_multi_fwd":
+    if scales is not None:
+        args.append(scales.data_ptr())
+    if entry.startswith("flash_multi"):
         sm = _f32(smax, (B * H,), "smax", dev)
         args.append(sm.data_ptr())
     args += [None if m is None else m.data_ptr(),
@@ -338,37 +398,41 @@ def _require_cuda(q):
 
 def flash_single(q, k, v, *, num_heads, valid_len=None, rope_q=None,
                  rope_k=None, kv_bias=None, qk_ln=None, qk_ln_eps=1e-5,
-                 return_stats=False):
-    """Exact softmax flash attention (kernel 1), packed (B, N, H*D) layout.
-    CPU tensors take `flash_single_ref`; CUDA tensors the CUDA kernel."""
+                 qk_int8=False, return_stats=False):
+    """Exact softmax flash attention (kernel 1), packed (B, N, H*D) layout;
+    int8 QK^T with `qk_int8`. CPU tensors take `flash_single_ref`; CUDA
+    tensors the CUDA kernel."""
     if q.device.type == "cpu":
         return flash_single_ref(q, k, v, num_heads=num_heads,
                                 valid_len=valid_len, rope_q=rope_q,
                                 rope_k=rope_k, kv_bias=kv_bias, qk_ln=qk_ln,
-                                qk_ln_eps=qk_ln_eps,
+                                qk_ln_eps=qk_ln_eps, qk_int8=qk_int8,
                                 return_stats=return_stats)
     _require_cuda(q)
     out = _launch("flash_single_fwd", q, k, v, num_heads, valid_len, rope_q,
-                  rope_k, kv_bias, qk_ln, qk_ln_eps, None, return_stats)
-    LAUNCHES["flash_single"] += 1
+                  rope_k, kv_bias, qk_ln, qk_ln_eps, None, return_stats,
+                  qk_int8)
+    LAUNCHES["flash_single_i8" if qk_int8 else "flash_single"] += 1
     return out
 
 
 def flash_multi(q, k, v, smax, *, num_heads, valid_len=None, rope_q=None,
                 rope_k=None, kv_bias=None, qk_ln=None, qk_ln_eps=1e-5,
-                return_stats=False):
-    """Static-max flash attention (kernel 2), packed (B, N, H*D) layout.
-    CPU tensors take `flash_multi_ref`; CUDA tensors the CUDA kernel."""
+                qk_int8=False, return_stats=False):
+    """Static-max flash attention (kernel 2), packed (B, N, H*D) layout;
+    int8 QK^T with `qk_int8`. CPU tensors take `flash_multi_ref`; CUDA
+    tensors the CUDA kernel."""
     if q.device.type == "cpu":
         return flash_multi_ref(q, k, v, smax, num_heads=num_heads,
                                valid_len=valid_len, rope_q=rope_q,
                                rope_k=rope_k, kv_bias=kv_bias, qk_ln=qk_ln,
-                               qk_ln_eps=qk_ln_eps,
+                               qk_ln_eps=qk_ln_eps, qk_int8=qk_int8,
                                return_stats=return_stats)
     _require_cuda(q)
     out = _launch("flash_multi_fwd", q, k, v, num_heads, valid_len, rope_q,
-                  rope_k, kv_bias, qk_ln, qk_ln_eps, smax, return_stats)
-    LAUNCHES["flash_multi"] += 1
+                  rope_k, kv_bias, qk_ln, qk_ln_eps, smax, return_stats,
+                  qk_int8)
+    LAUNCHES["flash_multi_i8" if qk_int8 else "flash_multi"] += 1
     return out
 
 
@@ -557,19 +621,26 @@ def static_bound(q, k, num_heads, qk_ln=None, kv_bias=None):
 
 def flash_attention(q, k, v, *, num_heads, valid_len=None, rope_q=None,
                     rope_k=None, kv_bias=None, softmax="online", qk_ln=None,
-                    qk_ln_eps=1e-5, block_k=2048, return_stats=False):
+                    qk_ln_eps=1e-5, qk_int8=False, block_k=2048,
+                    return_stats=False):
     """Packed (B, N, H*D) flash attention with the reference's selection
     rule (attention.py:972-979): key sets that fit one 128-rounded block of
     at most min(block_k, 2304) keys take kernel 1; longer ones take
     kernel 2 under softmax="static". Kernel 1 walks key tiles with a running
     max, so softmax="online" on long key sets runs it too: the same exact
     softmax the reference's online multi-block kernel computes.
-    `return_stats` returns (out, m, l) as the reference's does."""
+    `return_stats` returns (out, m, l) as the reference's does. `qk_int8`
+    quantizes QK^T to int8 only where the key set does not fit one block
+    (the reference's `use_int8`, attention.py:549); elsewhere it stays
+    bf16."""
+    if qk_int8 and qk_ln is not None:
+        raise ValueError("qk_ln and qk_int8 do not go together")
     Nk = k.shape[1]
     fits = -(-Nk // 128) * 128 <= min(block_k, 2304)
     kw = dict(num_heads=num_heads, valid_len=valid_len, rope_q=rope_q,
               rope_k=rope_k, kv_bias=kv_bias, qk_ln=qk_ln,
-              qk_ln_eps=qk_ln_eps, return_stats=return_stats)
+              qk_ln_eps=qk_ln_eps, qk_int8=bool(qk_int8) and not fits,
+              return_stats=return_stats)
     if fits or softmax != "static":
         return flash_single(q, k, v, **kw)
     smax = static_bound(q, k, num_heads, qk_ln=qk_ln, kv_bias=kv_bias)
@@ -578,11 +649,14 @@ def flash_attention(q, k, v, *, num_heads, valid_len=None, rope_q=None,
 
 def attention(q, k, v, impl: str = "flash", valid_len=None, rope_q=None,
               rope_k=None, kv_bias=None, softmax: str = "online",
-              qk_ln=None, qk_ln_eps: float = 1e-5, num_heads=None):
+              qk_ln=None, qk_ln_eps: float = 1e-5, num_heads=None,
+              qk_int8: bool = False):
     """Dispatch by implementation name on packed (B, N, H*D) tensors.
 
     Only "flash" takes rope and qk_ln in-kernel; "naive", "chunked" and
-    the differentiable "flash_grad" expect them pre-applied."""
+    the differentiable "flash_grad" expect them pre-applied. `qk_int8`
+    (flash only) runs QK^T in int8, see `flash_attention`; "naive" and
+    "chunked" ignore it, as the reference's do."""
     if num_heads is None:
         raise ValueError("packed layout requires num_heads")
     if impl == "flash":
@@ -590,12 +664,13 @@ def attention(q, k, v, impl: str = "flash", valid_len=None, rope_q=None,
                                valid_len=valid_len, rope_q=rope_q,
                                rope_k=rope_k, kv_bias=kv_bias,
                                softmax=softmax, qk_ln=qk_ln,
-                               qk_ln_eps=qk_ln_eps)
+                               qk_ln_eps=qk_ln_eps, qk_int8=qk_int8)
     if rope_q is not None or qk_ln is not None:
         raise ValueError(f"impl {impl!r} takes pre-applied rope and qk-norm")
     if impl == "flash_grad":
-        if kv_bias is not None:
-            raise ValueError("flash_grad is exact attention: no kv_bias")
+        if kv_bias is not None or qk_int8:
+            raise ValueError("flash_grad is exact attention: no kv_bias, "
+                             "no qk_int8")
         return flash_attention_grad(q, k, v, num_heads=num_heads,
                                     valid_len=valid_len, softmax=softmax)
     B, Nq, HD = q.shape

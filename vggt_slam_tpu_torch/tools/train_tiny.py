@@ -13,9 +13,9 @@ backward kernels) with activation checkpointing.
 
 The optimizer chain is the reference's optax chain: clip_by_global_norm,
 then AdamW under a linear-warmup cosine schedule whose first update has
-lr 0. Parameters are saved as the reference's flat npz (both packages load
-them); the optimizer state and step go to `<stem>_opt.pt`, the
-port's own format (optax's leaf layout does not carry over).
+lr 0. Parameters are saved as the reference's flat npz, and the optimizer
+state and step as the reference's `<stem>_opt.npz` (the flat optax leaves),
+so either package resumes a run of the other.
 
 CLI:
   python -m vggt_slam_tpu_torch.tools.train_tiny --out runs/small_synth \
@@ -95,22 +95,65 @@ def make_optimizer(model, lr: float, weight_decay: float, warmup: int,
     return opt, sched
 
 
-def save_train_state(opt, step: int, path: str) -> None:
-    """Optimizer moments and the step index (crash-resume support), in the
-    port's own torch format."""
-    torch.save({"step": int(step), "optimizer": opt.state_dict()}, path)
+def _flax_order(model) -> list:
+    """The model's parameters in the order jax.tree_util.tree_leaves walks
+    the reference's flax parameter tree: nested dicts, keys sorted."""
+    from vggt_slam_tpu_torch.models.vggt.convert import torch_key_to_flax
+    named = sorted(model.named_parameters(),
+                   key=lambda kv: tuple(torch_key_to_flax(kv[0]).split("/")))
+    return [p for _, p in named]
 
 
-def load_train_state(opt, sched, path: str) -> int:
-    """Restore `opt` from `path` and put `sched` at the saved step, with the
-    learning rate of this run's schedule there (as optax evaluates its
-    schedule at the restored count); returns the step."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    opt.load_state_dict(state["optimizer"])
-    step = int(state["step"])
-    sched.last_epoch = step
+def save_train_state(opt, sched, model, step: int, path: str) -> None:
+    """Optimizer state and step index in the reference's `<stem>_opt.npz`
+    layout (vggt_slam_tpu/tools/train_tiny.py:63-79): `step` and the leaves
+    of chain(clip_by_global_norm, adamw(schedule)) in tree_leaves order,
+    leaf_0 the Adam count, then mu and nu over the flax paths in sorted
+    order, then the schedule's count."""
+    params = _flax_order(model)
+    mu, nu, count = [], [], 0
+    for p in params:
+        st = opt.state.get(p) or {}
+        if st:
+            count = int(st["step"])
+        for out, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+            t = st.get(key)
+            out.append(np.zeros(tuple(p.shape), np.float32) if t is None
+                       else t.detach().float().cpu().numpy())
+    leaves = [np.int32(count), *mu, *nu, np.int32(sched.last_epoch)]
+    np.savez(path, step=np.int64(step),
+             **{f"leaf_{i}": x for i, x in enumerate(leaves)})
+
+
+def load_train_state(opt, sched, model, path: str) -> int:
+    """Restore `opt` from a `<stem>_opt.npz` of either package and put
+    `sched` at the saved schedule count, with the learning rate of this
+    run's schedule there (as optax evaluates its schedule at the restored
+    count); returns the step."""
+    params = _flax_order(model)
+    n = len(params)
+    with np.load(path) as data:
+        n_leaves = sum(k.startswith("leaf_") for k in data.files)
+        if n_leaves != 2 * n + 2:
+            raise ValueError(f"{path}: {n_leaves} optimizer leaves, the "
+                             f"model needs {2 * n + 2}")
+        count = int(data["leaf_0"])
+        for i, p in enumerate(params):
+            mu, nu = data[f"leaf_{1 + i}"], data[f"leaf_{1 + n + i}"]
+            if mu.shape != tuple(p.shape) or nu.shape != tuple(p.shape):
+                raise ValueError(f"{path}: leaf {1 + i} has shape "
+                                 f"{mu.shape}, the parameter {tuple(p.shape)}")
+            opt.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": torch.as_tensor(mu, device=p.device,
+                                           dtype=p.dtype).clone(),
+                "exp_avg_sq": torch.as_tensor(nu, device=p.device,
+                                              dtype=p.dtype).clone()}
+        sched_count = int(data[f"leaf_{2 * n + 1}"])
+        step = int(data["step"])
+    sched.last_epoch = sched_count
     for group, lam in zip(opt.param_groups, sched.lr_lambdas):
-        group["lr"] = group["initial_lr"] * lam(step)
+        group["lr"] = group["initial_lr"] * lam(sched_count)
     return step
 
 
@@ -170,8 +213,9 @@ parser.add_argument("--val_every", type=int, default=250)
 parser.add_argument("--seed", type=int, default=0)
 parser.add_argument("--resume", default=None,
                     help="checkpoint.npz to warm-start params from; if a "
-                         "sibling <stem>_opt.pt exists, optimizer state "
-                         "and step index are restored too")
+                         "sibling <stem>_opt.npz exists (written by either "
+                         "package), optimizer state and step index are "
+                         "restored too")
 parser.add_argument("--attn_impl", default="flash_grad",
                     choices=["flash_grad", "chunked"],
                     help="attention implementation (default: the flash "
@@ -183,7 +227,7 @@ parser.add_argument("--device", default="cuda",
 
 def _opt_path(ckpt_path: str) -> str:
     stem = ckpt_path[:-4] if ckpt_path.endswith(".npz") else ckpt_path
-    return stem + "_opt.pt"
+    return stem + "_opt.npz"
 
 
 def main(argv=None):
@@ -213,7 +257,8 @@ def main(argv=None):
                                 args.steps)
     start_step = 1
     if args.resume and os.path.exists(_opt_path(args.resume)):
-        last_step = load_train_state(opt, sched, _opt_path(args.resume))
+        last_step = load_train_state(opt, sched, model,
+                                     _opt_path(args.resume))
         start_step = last_step + 1
         print(f"resumed opt state + step {last_step} from "
               f"{_opt_path(args.resume)}", flush=True)
@@ -309,12 +354,12 @@ def main(argv=None):
 
         if step % args.ckpt_every == 0:
             save_checkpoint(model.state_dict(), last_path)
-            save_train_state(opt, step, _opt_path(last_path))
+            save_train_state(opt, sched, model, step, _opt_path(last_path))
 
     if pending is not None:
         log_train_row(*pending)
     save_checkpoint(model.state_dict(), last_path)
-    save_train_state(opt, args.steps, _opt_path(last_path))
+    save_train_state(opt, sched, model, args.steps, _opt_path(last_path))
     print(f"done: best val_loss {best_val:.4f}; checkpoint at {ckpt_path}",
           flush=True)
 
