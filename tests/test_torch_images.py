@@ -148,6 +148,16 @@ def test_png_reader_every_row_filter(tmp_path, kinds):
                                   cv2.imread(path, cv2.IMREAD_COLOR))
 
 
+@pytest.mark.parametrize("hw", [(1, 9), (9, 1), (41, 17), (480, 640)])
+def test_png_reader_mixed_filters_any_shape(tmp_path, hw):
+    # Average and Paeth rows go through the anti-diagonal wavefront; one
+    # row, one column, tall and TUM-sized frames
+    path = str(tmp_path / "m.png")
+    _write_png(path, _frame(*hw, seed=7), 2, kinds=(4, 3, 4, 1, 2, 0))
+    np.testing.assert_array_equal(images.read_png(path),
+                                  cv2.imread(path, cv2.IMREAD_COLOR))
+
+
 def test_png_written_by_cv2_and_unsupported_pngs(tmp_path):
     path = str(tmp_path / "cv.png")
     img = _frame(48, 64, seed=6)

@@ -56,6 +56,8 @@
 // int8 products run at twice the bf16 rate, so QK^T's share of the bound
 // halves; PV, the softmax and the bytes are unchanged.
 
+#include <type_traits>
+
 #include "flash_common.cuh"
 
 namespace {
@@ -67,21 +69,14 @@ constexpr int BK = 64;                // keys per tile
 constexpr int NWARP = 4;
 constexpr int NTHREAD = NWARP * 32;
 
-// The int8 kernels pass their two extra pointers in fields they do not use
-// (k and ln), so this by-value kernel parameter keeps its layout: two more
-// fields, or anonymous unions, raised the bf16 D=64 instances from 127-128
-// to 131-139 registers (3 CTAs per SM instead of 4; ptxas, H100).
 struct Params {
   const __nv_bfloat16* q;
-  const __nv_bfloat16* k;   // prepared k (LN + rope applied) or raw k; int8
-                            // kernels: the prepared int8 k
+  const __nv_bfloat16* k;   // prepared k (LN + rope applied) or raw k
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
   int H, Nq, Nk, valid_len;
   float q_scale;          // softmax scale * log2(e)
-  const float* ln;        // (4, D): q gamma, q beta, k gamma, k beta; or
-                          // null; int8 kernels (no LN): (3, B*H) 127/amax_q,
-                          // 127/amax_k, dequant scale
+  const float* ln;        // (4, D): q gamma, q beta, k gamma, k beta; or null
   float ln_eps;
   const float* kv_bias;   // (Nk,) natural-log units; or null
   const float* cos_q;     // (Nq, D/2); or null (no rope)
@@ -90,6 +85,29 @@ struct Params {
   float* m_out;           // (B*H, Nq) row shift, or null
   float* l_out;           // (B*H, Nq) row sum, or null
 };
+
+// The int8 kernels' parameters: no LN and no softmax scale (rope tables at
+// scale 1), the int8 k and the quantization scales instead. A struct of its
+// own, so that the bf16 instances keep Params' layout and register count
+// (two more fields there raised the bf16 D=64 instances from 127-128 to
+// 131-139 registers: 3 CTAs per SM instead of 4; ptxas, H100).
+struct ParamsI8 {
+  const __nv_bfloat16* q;
+  const int8_t* k;        // prepared int8 k (rope, bf16 round, quantized)
+  const __nv_bfloat16* v;
+  __nv_bfloat16* o;
+  int H, Nq, Nk, valid_len;
+  const float* scales;    // (3, B*H): 127/amax_q, 127/amax_k, dequant scale
+  const float* kv_bias;
+  const float* cos_q;
+  const float* sin_q;
+  const float* smax;
+  float* m_out;
+  float* l_out;
+};
+
+template <bool INT8>
+using ParamsOf = std::conditional_t<INT8, ParamsI8, Params>;
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -139,7 +157,11 @@ __device__ __forceinline__ bool prep_row(float (&x)[D / 32], int lane, int n,
       const float c = cos_t[size_t(n) * HALF + f] * scale;
       float sn = sin_t[size_t(n) * HALF + f] * scale;
       if (d < HALF) sn = -sn;
-      y[j] = __bfloat162float(__float2bfloat16(x[j] * c + partner * sn));
+      // products and sum rounded apart (no fma), as the plain version's
+      // separate f32 ops: the bf16 round then agrees bit for bit, which
+      // the int8 kernels need (a flipped bf16 ulp flips an int8 value)
+      y[j] = __bfloat162float(__float2bfloat16(
+          __fadd_rn(__fmul_rn(x[j], c), __fmul_rn(partner, sn))));
     }
 #pragma unroll
     for (int j = 0; j < PER; ++j) x[j] = y[j];
@@ -197,7 +219,7 @@ __global__ void __launch_bounds__(NTHREAD)
 }
 
 template <int D, bool STATIC, bool INT8>
-__global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
+__global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(ParamsOf<INT8> p) {
   constexpr int LD = D + 8;          // bf16 tile row stride (conflict-free)
   constexpr int LDB = D + 16;        // int8 tile row stride in bytes
   constexpr int KS = INT8 ? D / 32 : D / 16;   // k-steps of QK^T
@@ -221,17 +243,25 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
   // whole key sweep.
   load_tile<D, NTHREAD>(Qs, p.q, b, h, p.H, p.Nq, q0, p.Nq);
   __syncthreads();
-  const float inv_q = INT8 ? p.ln[bh] : 0.f;
+  const float* ln = nullptr;    // int8: no LN, rope at scale 1
+  float ln_eps = 0.f, q_scale = 1.f, inv_q = 0.f, sc2 = 0.f;
+  if constexpr (INT8) {
+    inv_q = p.scales[bh];
+    sc2 = p.scales[2 * gridDim.y + bh];
+  } else {
+    ln = p.ln;
+    ln_eps = p.ln_eps;
+    q_scale = p.q_scale;
+  }
   for (int r = warp; r < BQ; r += NWARP) {
     const int n = q0 + r;
     __nv_bfloat16* row = Qs + r * LD + lane * (D / 32);
     float x[D / 32];
 #pragma unroll
     for (int j = 0; j < D / 32; ++j) x[j] = __bfloat162float(row[j]);
-    const float* ln = INT8 ? nullptr : p.ln;
     const bool changed = prep_row<D>(
-        x, lane, min(n, p.Nq - 1), ln, ln ? ln + D : nullptr, p.ln_eps,
-        p.cos_q, p.sin_q, p.q_scale);
+        x, lane, min(n, p.Nq - 1), ln, ln ? ln + D : nullptr, ln_eps,
+        p.cos_q, p.sin_q, q_scale);
     if constexpr (INT8) {
       int8_t* row8 = Q8 + r * LDB + lane * (D / 32);
 #pragma unroll
@@ -248,7 +278,6 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
     if constexpr (INT8) load_a8<LDB>(qa[ks], Q8, warp * 16, ks * 32, lane);
     else load_a<LD>(qa[ks], Qs, warp * 16, ks * 16, lane);
   }
-  const float sc2 = INT8 ? p.ln[2 * gridDim.y + bh] : 0.f;
 
   float o[DT][4];
 #pragma unroll
@@ -263,8 +292,7 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
     const int k0 = tile * BK;
     __syncthreads();  // every warp is done with the previous K/V tile
     if constexpr (INT8)
-      load_tile_i8<D, NTHREAD>(K8, reinterpret_cast<const int8_t*>(p.k), b,
-                               h, p.H, p.Nk, k0, p.Nk);
+      load_tile_i8<D, NTHREAD>(K8, p.k, b, h, p.H, p.Nk, k0, p.Nk);
     else
       load_tile<D, NTHREAD>(Ks, p.k, b, h, p.H, p.Nk, k0, p.Nk);
     load_tile<D, NTHREAD>(Vs, p.v, b, h, p.H, p.Nk, k0, vl);
@@ -409,7 +437,7 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(Params p) {
 }
 
 template <int D, bool STATIC, bool INT8>
-int launch(const Params& p, int B, cudaStream_t stream) {
+int launch(const ParamsOf<INT8>& p, int B, cudaStream_t stream) {
   const size_t bytes = size_t(BQ + 2 * BK) * (D + 8) * 2 +
                        (INT8 ? size_t(BQ) * (D + 16) : 0);
   cudaError_t err = cudaFuncSetAttribute(
@@ -421,60 +449,67 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
+template <bool STATIC, bool INT8>
+int launch_dim(const ParamsOf<INT8>& p, int B, int D, cudaStream_t stream) {
+  return D == 32   ? launch<32, STATIC, INT8>(p, B, stream)
+         : D == 64 ? launch<64, STATIC, INT8>(p, B, stream)
+                   : launch<128, STATIC, INT8>(p, B, stream);
+}
+
 template <int D>
-int launch_prep(const __nv_bfloat16* src, void* dst, int B, int N, int H,
-                const float* gamma, const float* beta, float eps,
-                const float* cos_t, const float* sin_t, const float* inv,
-                cudaStream_t stream) {
-  const int items = B * N * H;
-  const int blocks = (items + NWARP - 1) / NWARP;
-  if (inv != nullptr) {
-    prep_rows_i8_kernel<D><<<blocks, NTHREAD, 0, stream>>>(
-        src, static_cast<int8_t*>(dst), B * N, N, H, cos_t, sin_t, inv);
-  } else {
-    prep_rows_kernel<D><<<blocks, NTHREAD, 0, stream>>>(
-        src, static_cast<__nv_bfloat16*>(dst), B * N, N, H, gamma, beta, eps,
-        cos_t, sin_t);
-  }
+int launch_prep(const __nv_bfloat16* src, __nv_bfloat16* dst, int B, int N,
+                int H, const float* gamma, const float* beta, float eps,
+                const float* cos_t, const float* sin_t, cudaStream_t stream) {
+  const int blocks = (B * N * H + NWARP - 1) / NWARP;
+  prep_rows_kernel<D><<<blocks, NTHREAD, 0, stream>>>(
+      src, dst, B * N, N, H, gamma, beta, eps, cos_t, sin_t);
   return int(cudaGetLastError());
 }
 
+template <int D>
+int launch_prep_i8(const __nv_bfloat16* src, int8_t* dst, int B, int N,
+                   int H, const float* cos_t, const float* sin_t,
+                   const float* inv, cudaStream_t stream) {
+  const int blocks = (B * N * H + NWARP - 1) / NWARP;
+  prep_rows_i8_kernel<D><<<blocks, NTHREAD, 0, stream>>>(
+      src, dst, B * N, N, H, cos_t, sin_t, inv);
+  return int(cudaGetLastError());
+}
+
+bool bad_shape(int D, const void* m_out, const void* l_out) {
+  return (D != 32 && D != 64 && D != 128) ||
+         (m_out == nullptr) != (l_out == nullptr);
+}
+
 // k_work: scratch of k's shape for the prepared k, used when k needs LN or
-// rope (null otherwise); int8 kernels: an int8 scratch of k's shape, always
-// used, and i8 the (3, B*H) scales.
-template <bool STATIC, bool INT8>
+// rope (null otherwise).
+template <bool STATIC>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              void* k_work, int B, int H, int Nq, int Nk, int D,
              int valid_len, float q_scale, const void* ln, float ln_eps,
              const void* kv_bias, const void* cos_q, const void* sin_q,
-             const void* cos_k, const void* sin_k, const void* i8,
-             const void* smax, void* m_out, void* l_out, void* stream) {
+             const void* cos_k, const void* sin_k, const void* smax,
+             void* m_out, void* l_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lnf = static_cast<const float*>(ln);
-  const float* scales = static_cast<const float*>(i8);
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k);
-  if (D != 32 && D != 64 && D != 128) return int(cudaErrorInvalidValue);
-  if ((m_out == nullptr) != (l_out == nullptr))
-    return int(cudaErrorInvalidValue);
-  if (INT8 && (ln != nullptr || scales == nullptr || k_work == nullptr))
-    return int(cudaErrorInvalidValue);
-  if (INT8 || ln != nullptr || cos_k != nullptr) {
+  if (bad_shape(D, m_out, l_out)) return int(cudaErrorInvalidValue);
+  if (ln != nullptr || cos_k != nullptr) {
     if (k_work == nullptr) return int(cudaErrorInvalidValue);
-    const float* ck = static_cast<const float*>(cos_k);
-    const float* sk = static_cast<const float*>(sin_k);
-    const float* gk = lnf ? lnf + 2 * D : nullptr;
-    const float* bk = lnf ? lnf + 3 * D : nullptr;
+    __nv_bfloat16* kw = static_cast<__nv_bfloat16*>(k_work);
     const auto prep = D == 32   ? launch_prep<32>
                       : D == 64 ? launch_prep<64>
                                 : launch_prep<128>;
-    const int err = prep(kp, k_work, B, Nk, H, gk, bk, ln_eps, ck, sk,
-                         INT8 ? scales + B * H : nullptr, st);
+    const int err = prep(kp, kw, B, Nk, H, lnf ? lnf + 2 * D : nullptr,
+                         lnf ? lnf + 3 * D : nullptr, ln_eps,
+                         static_cast<const float*>(cos_k),
+                         static_cast<const float*>(sin_k), st);
     if (err != 0) return err;
-    if (!INT8) kp = static_cast<const __nv_bfloat16*>(k_work);
+    kp = kw;
   }
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = INT8 ? static_cast<const __nv_bfloat16*>(k_work) : kp;
+  p.k = kp;
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
   p.H = H;
@@ -482,7 +517,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   p.Nk = Nk;
   p.valid_len = valid_len;
   p.q_scale = q_scale;
-  p.ln = INT8 ? scales : lnf;
+  p.ln = lnf;
   p.ln_eps = ln_eps;
   p.kv_bias = static_cast<const float*>(kv_bias);
   p.cos_q = static_cast<const float*>(cos_q);
@@ -490,9 +525,47 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   p.smax = static_cast<const float*>(smax);
   p.m_out = static_cast<float*>(m_out);
   p.l_out = static_cast<float*>(l_out);
-  return D == 32   ? launch<32, STATIC, INT8>(p, B, st)
-         : D == 64 ? launch<64, STATIC, INT8>(p, B, st)
-                   : launch<128, STATIC, INT8>(p, B, st);
+  return launch_dim<STATIC, false>(p, B, D, st);
+}
+
+// k8_work: an int8 scratch of k's shape for the quantized k; scales the
+// (3, B*H) f32 scales of ParamsI8.
+template <bool STATIC>
+int dispatch_i8(const void* q, const void* k, const void* v, void* o,
+                void* k8_work, int B, int H, int Nq, int Nk, int D,
+                int valid_len, const void* scales, const void* kv_bias,
+                const void* cos_q, const void* sin_q, const void* cos_k,
+                const void* sin_k, const void* smax, void* m_out,
+                void* l_out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scales);
+  int8_t* k8 = static_cast<int8_t*>(k8_work);
+  if (bad_shape(D, m_out, l_out) || sc == nullptr || k8 == nullptr)
+    return int(cudaErrorInvalidValue);
+  const auto prep = D == 32   ? launch_prep_i8<32>
+                    : D == 64 ? launch_prep_i8<64>
+                              : launch_prep_i8<128>;
+  const int err = prep(static_cast<const __nv_bfloat16*>(k), k8, B, Nk, H,
+                       static_cast<const float*>(cos_k),
+                       static_cast<const float*>(sin_k), sc + B * H, st);
+  if (err != 0) return err;
+  ParamsI8 p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = k8;
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.H = H;
+  p.Nq = Nq;
+  p.Nk = Nk;
+  p.valid_len = valid_len;
+  p.scales = sc;
+  p.kv_bias = static_cast<const float*>(kv_bias);
+  p.cos_q = static_cast<const float*>(cos_q);
+  p.sin_q = static_cast<const float*>(sin_q);
+  p.smax = static_cast<const float*>(smax);
+  p.m_out = static_cast<float*>(m_out);
+  p.l_out = static_cast<float*>(l_out);
+  return launch_dim<STATIC, true>(p, B, D, st);
 }
 
 }  // namespace
@@ -507,26 +580,32 @@ extern "C" {
 #define FLASH_PASS                                                          \
   q, k, v, o, k_work, B, H, Nq, Nk, D, valid_len, q_scale, ln, ln_eps,      \
       kv_bias, cos_q, sin_q, cos_k, sin_k
+#define FLASH_I8_ARGS                                                       \
+  const void *q, const void *k, const void *v, void *o, void *k8_work,      \
+      int B, int H, int Nq, int Nk, int D, int valid_len,                   \
+      const void *scales, const void *kv_bias, const void *cos_q,           \
+      const void *sin_q, const void *cos_k, const void *sin_k
+#define FLASH_I8_PASS                                                       \
+  q, k, v, o, k8_work, B, H, Nq, Nk, D, valid_len, scales, kv_bias, cos_q,  \
+      sin_q, cos_k, sin_k
 
 int flash_single_fwd(FLASH_ARGS, void* m_out, void* l_out, void* stream) {
-  return dispatch<false, false>(FLASH_PASS, nullptr, nullptr, m_out, l_out,
-                                stream);
+  return dispatch<false>(FLASH_PASS, nullptr, m_out, l_out, stream);
 }
 
 int flash_multi_fwd(FLASH_ARGS, const void* smax, void* m_out, void* l_out,
                     void* stream) {
-  return dispatch<true, false>(FLASH_PASS, nullptr, smax, m_out, l_out,
-                               stream);
+  return dispatch<true>(FLASH_PASS, smax, m_out, l_out, stream);
 }
 
-int flash_single_i8_fwd(FLASH_ARGS, const void* i8, void* m_out, void* l_out,
+int flash_single_i8_fwd(FLASH_I8_ARGS, void* m_out, void* l_out,
                         void* stream) {
-  return dispatch<false, true>(FLASH_PASS, i8, nullptr, m_out, l_out, stream);
+  return dispatch_i8<false>(FLASH_I8_PASS, nullptr, m_out, l_out, stream);
 }
 
-int flash_multi_i8_fwd(FLASH_ARGS, const void* i8, const void* smax,
-                       void* m_out, void* l_out, void* stream) {
-  return dispatch<true, true>(FLASH_PASS, i8, smax, m_out, l_out, stream);
+int flash_multi_i8_fwd(FLASH_I8_ARGS, const void* smax, void* m_out,
+                       void* l_out, void* stream) {
+  return dispatch_i8<true>(FLASH_I8_PASS, smax, m_out, l_out, stream);
 }
 
 const char* flash_error_string(int code) {

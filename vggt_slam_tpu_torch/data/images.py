@@ -36,54 +36,62 @@ _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 6: 4}     # gray, RGB, palette, RGBA
 
 
-def _paeth_row(f: np.ndarray, prev: np.ndarray, bpp: int) -> bytearray:
-    out = bytearray(f.tobytes())
-    up = prev.tolist()
-    for i in range(bpp):                  # a = c = 0: the predictor is b
-        out[i] = (out[i] + up[i]) & 255
-    for i in range(bpp, len(out)):
-        a, b, c = out[i - bpp], up[i], up[i - bpp]
-        pa, pb = b - c, a - c
-        pc = abs(pa + pb)
-        pa, pb = abs(pa), abs(pb)
-        out[i] = (out[i] + (a if pa <= pb and pa <= pc
-                            else b if pb <= pc else c)) & 255
+def _unfilter_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Rows filtered with None, Sub or Up only: one vectorised step per
+    row."""
+    out = np.empty((rows.shape[0], rows.shape[1] - 1), np.uint8)
+    prev = np.zeros(out.shape[1], np.uint8)
+    for y, (kind, f) in enumerate(zip(rows[:, 0], rows[:, 1:])):
+        if kind == 0:
+            out[y] = f
+        elif kind == 1:      # sub: a running sum per byte of a pixel
+            out[y] = np.cumsum(f.reshape(-1, bpp), axis=0, dtype=np.uint8
+                               ).reshape(-1)
+        else:                # up
+            out[y] = f + prev
+        prev = out[y]
     return out
 
 
-def _average_row(f: np.ndarray, prev: np.ndarray, bpp: int) -> bytearray:
-    out = bytearray(f.tobytes())
-    up = prev.tolist()
-    for i in range(bpp):
-        out[i] = (out[i] + (up[i] >> 1)) & 255
-    for i in range(bpp, len(out)):
-        out[i] = (out[i] + ((out[i - bpp] + up[i]) >> 1)) & 255
-    return out
+def _unfilter_wavefront(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Any mix of the five filters. A pixel depends on its left, upper and
+    upper-left neighbours only, so each anti-diagonal x + y = t is one
+    vectorised step over its rows (h + w - 1 steps). The pixels sit in a
+    diagonal-major copy, pixel (y, x) at z[x + y + 1, y + 1]: its left
+    neighbour at z[t, y + 1], its upper one at z[t, y], its upper-left one
+    at z[t - 1, y]; row and column 0 are the zero border."""
+    h = rows.shape[0]
+    w = (rows.shape[1] - 1) // bpp
+    kind = rows[:, :1].astype(np.intp)
+    if kind.max() > 4:
+        raise ValueError(f"bad PNG row filter {kind.max()}")
+    yy, xx = np.mgrid[:h, :w]
+    raw = np.zeros((w + h, h, bpp), np.int16)
+    raw[xx + yy, yy] = rows[:, 1:].reshape(h, w, bpp)
+    z = np.zeros((w + h + 1, h + 1, bpp), np.int16)
+    zero = np.zeros((h, bpp), np.int16)
+    for t in range(h + w - 1):
+        y0, y1 = max(0, t - w + 1), min(h, t + 1)
+        a, b = z[t, y0 + 1:y1 + 1], z[t, y0:y1]
+        c = z[t - 1, y0:y1] if t else zero[y0:y1]
+        d1, d2 = b - c, a - c
+        pa, pb, pc = np.abs(d1), np.abs(d2), np.abs(d1 + d2)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, b, c))
+        pred = np.choose(kind[y0:y1], (zero[y0:y1], a, b, (a + b) >> 1,
+                                       paeth))
+        pred += raw[t, y0:y1]
+        z[t + 1, y0 + 1:y1 + 1] = pred & 255
+    return z[xx + yy + 1, yy + 1].astype(np.uint8).reshape(h, w * bpp)
 
 
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     """The five PNG row filters undone -> (h, stride) uint8."""
     rows = np.frombuffer(raw, np.uint8)[:h * (stride + 1)].reshape(
         h, stride + 1)
-    out = np.empty((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        kind, f = rows[y, 0], rows[y, 1:]
-        if kind == 0:
-            cur = f
-        elif kind == 1:      # sub: a running sum per byte of a pixel
-            cur = np.cumsum(f.reshape(-1, bpp), axis=0, dtype=np.uint8
-                            ).reshape(-1)
-        elif kind == 2:      # up
-            cur = f + prev
-        elif kind in (3, 4):  # average, paeth: sequential along the row
-            cur = np.frombuffer((_average_row if kind == 3 else _paeth_row)(
-                f, prev, bpp), np.uint8)
-        else:
-            raise ValueError(f"bad PNG row filter {kind}")
-        out[y] = cur
-        prev = out[y]
-    return out
+    if rows[:, 0].max() <= 2:
+        return _unfilter_rows(rows, bpp)
+    return _unfilter_wavefront(rows, bpp)
 
 
 def read_png(path: str) -> np.ndarray:

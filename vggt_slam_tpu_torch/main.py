@@ -137,8 +137,7 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
 
     Returns {"solver", "n_frames", "wall_s", "fps", "timer"}."""
     from vggt_slam_tpu_torch.data.images import downsample_images, \
-        list_image_folder, load_and_preprocess_images, load_image, \
-        preprocess_frames
+        list_image_folder, load_image, preprocess_frames
     from vggt_slam_tpu_torch.slam.loop_closure import ImageRetrieval
     from vggt_slam_tpu_torch.slam.solver import Solver
     from vggt_slam_tpu_torch.utils.profiling import StageTimer
@@ -167,11 +166,6 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
     if not items:
         sys.exit(f"no images in {args.image_folder}")
 
-    def batch(idx):
-        if frames is None:
-            return load_and_preprocess_images([items[i] for i in idx])
-        return preprocess_frames([items[i] for i in idx])
-
     timer = StageTimer() if args.timing else None
     solver.timer = timer
 
@@ -194,6 +188,7 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
     pending = None
     next_id = 0
     subset: list[int] = []
+    decoded = {}      # index -> the decoded keyframes of `subset`
     for i, item in enumerate(items):
         with stage("keyframe_gate"), solver.side_stream():
             img = load_image(item) if frames is None else item
@@ -201,10 +196,11 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
                 img, args.min_disparity)
         if is_kf:
             subset.append(i)
+            decoded[i] = img
         is_last = i == len(items) - 1
         if len(subset) == args.submap_size + args.overlapping_window_size \
                 or (is_last and len(subset) > 1):
-            images = batch(subset)
+            images = preprocess_frames([decoded[j] for j in subset])
             sub_names = [names[j] for j in subset]
             if not args.no_pipeline:
                 with stage("dispatch_predictions"):
@@ -221,6 +217,7 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
                 integrate(preds)
             next_id += 1
             subset = subset[-args.overlapping_window_size:]
+            decoded = {j: decoded[j] for j in subset}
     if pending is not None:
         integrate(pending)
 

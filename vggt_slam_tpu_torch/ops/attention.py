@@ -273,11 +273,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _COMMON = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _F, _P, _P,
            _P, _P, _P]
+_I8_COMMON = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+              _P, _P]
 _SIGNATURES = {
     "flash_single_fwd": (_COMMON + [_P, _P, _P], ctypes.c_int),
     "flash_multi_fwd": (_COMMON + [_P, _P, _P, _P], ctypes.c_int),
-    "flash_single_i8_fwd": (_COMMON + [_P, _P, _P, _P], ctypes.c_int),
-    "flash_multi_i8_fwd": (_COMMON + [_P, _P, _P, _P, _P], ctypes.c_int),
+    "flash_single_i8_fwd": (_I8_COMMON + [_P, _P, _P], ctypes.c_int),
+    "flash_multi_i8_fwd": (_I8_COMMON + [_P, _P, _P, _P], ctypes.c_int),
     "flash_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 _BWD_COMMON = [_P] * 7
@@ -360,23 +362,20 @@ def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
     bias = _f32(kv_bias, (Nk,), "kv_bias", dev)
     # scratch for the k rows with LN and rope applied once per call, or
     # for the quantized k of the int8 kernels
-    scales = None
     if qk_int8:
         scales = int8_scales(q, k, H, rope_q is not None).contiguous()
-        entry = entry.replace("_fwd", "_i8_fwd")
         k_work = torch.empty(k.shape, dtype=torch.int8, device=dev)
+        mid = [scales.data_ptr()]
     else:
         k_work = torch.empty_like(k) if (ln is not None or ck is not None) \
             else None
+        mid = [LOG2E / math.sqrt(D), None if ln is None else ln.data_ptr(),
+               float(qk_ln_eps)]
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if k_work is None else k_work.data_ptr(), B, H,
-            Nq, Nk, D, vl, 1.0 if qk_int8 else LOG2E / math.sqrt(D),
-            None if ln is None else ln.data_ptr(), float(qk_ln_eps),
-            None if bias is None else bias.data_ptr()]
+            Nq, Nk, D, vl] + mid + [None if bias is None else bias.data_ptr()]
     args += [None if t is None else t.data_ptr() for t in (cq, sq, ck, sk)]
-    if scales is not None:
-        args.append(scales.data_ptr())
-    if entry.startswith("flash_multi"):
+    if smax is not None:
         sm = _f32(smax, (B * H,), "smax", dev)
         args.append(sm.data_ptr())
     args += [None if m is None else m.data_ptr(),
@@ -409,9 +408,9 @@ def flash_single(q, k, v, *, num_heads, valid_len=None, rope_q=None,
                                 qk_ln_eps=qk_ln_eps, qk_int8=qk_int8,
                                 return_stats=return_stats)
     _require_cuda(q)
-    out = _launch("flash_single_fwd", q, k, v, num_heads, valid_len, rope_q,
-                  rope_k, kv_bias, qk_ln, qk_ln_eps, None, return_stats,
-                  qk_int8)
+    entry = "flash_single_i8_fwd" if qk_int8 else "flash_single_fwd"
+    out = _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k,
+                  kv_bias, qk_ln, qk_ln_eps, None, return_stats, qk_int8)
     LAUNCHES["flash_single_i8" if qk_int8 else "flash_single"] += 1
     return out
 
@@ -429,9 +428,9 @@ def flash_multi(q, k, v, smax, *, num_heads, valid_len=None, rope_q=None,
                                qk_ln_eps=qk_ln_eps, qk_int8=qk_int8,
                                return_stats=return_stats)
     _require_cuda(q)
-    out = _launch("flash_multi_fwd", q, k, v, num_heads, valid_len, rope_q,
-                  rope_k, kv_bias, qk_ln, qk_ln_eps, smax, return_stats,
-                  qk_int8)
+    entry = "flash_multi_i8_fwd" if qk_int8 else "flash_multi_fwd"
+    out = _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k,
+                  kv_bias, qk_ln, qk_ln_eps, smax, return_stats, qk_int8)
     LAUNCHES["flash_multi_i8" if qk_int8 else "flash_multi"] += 1
     return out
 
