@@ -44,6 +44,14 @@ And, for the --qk_int8 path and the fused DPT tail:
   D. the CLI's own path on a folder of 24 PNG frames at 480x640 with
      --qk_int8: decoding and resizing without OpenCV, its own VGGT-1B,
      at least 2 submaps, finite poses and homographies, the TUM log.
+And, for the frame-attention probes of scripts/bench_attention.py:
+  E. the four probe kernels (matmul-only, softmax-only, grouped and
+     pipelined at G = 2, 4, 8) against their plain versions at the SLAM
+     frame shape through the probe script's main, with a padded-keys
+     control, their times beside flash_single and SDPA, and one exp2 per
+     softmax-only logit (SASS count, time against the card's exp2 rate);
+     then `python -m vggt_slam_tpu_torch.scripts.bench_attention --check`
+     at its defaults. Phase E runs under --kernels-only too.
 The last lines are the kernels JSON object and {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero with no result line. It
 needs a CUDA device and imports nothing of JAX, OpenCV or the JAX package.
@@ -1013,6 +1021,188 @@ def drive_image_folder_cli(device):
 
 
 # ---------------------------------------------------------------------------
+# Phase E: the frame-attention probes (vggt_slam_tpu_torch/scripts/
+# bench_attention.py, the counterpart of scripts/bench_attention.py)
+# ---------------------------------------------------------------------------
+
+PROBE_COMMAND = "python -m vggt_slam_tpu_torch.scripts.bench_attention --check"
+# kernel: (representative variant, the TPU kernel it replaces)
+PROBE_KERNELS = {
+    "matmul_only": ("matmul-only floor",
+                    "scripts/bench_attention.py:45 (_matmul_only_kernel, "
+                    "through make_flat_call, launched at :171)"),
+    "softmax_only": ("softmax-only floor",
+                     "scripts/bench_attention.py:57 (_softmax_only_kernel, "
+                     "through make_flat_call, launched at :171)"),
+    "grouped": ("grouped G=2",
+                "scripts/bench_attention.py:70 (_grouped_kernel, through "
+                "make_grouped_call, launched at :142)"),
+    "pipelined": ("pipelined G=2",
+                  "scripts/bench_attention.py:101 (_pipelined_kernel, "
+                  "through make_grouped_call, launched at :142)"),
+}
+
+
+def _instance_patterns(variant):
+    """Demangled and mangled name patterns of a variant's kernel instance in
+    ptxas's report (grouped_kernel<G, schedule>: 0 straight, 1 interleaved,
+    2 pipelined)."""
+    kind = variant.split(" ")[0]
+    if kind in ("matmul-only", "softmax-only"):
+        return (kind.replace("-", "_") + "_kernel",)
+    if kind in ("grouped", "interleaved", "pipelined"):
+        G = variant.split("G=")[1]
+        sched = ("grouped", "interleaved", "pipelined").index(kind)
+        return (f"grouped_kernel<{G}, {sched}>(",
+                f"grouped_kernelILi{G}ELi{sched}EE")
+    if kind == "production":
+        return ("flash_fwd_kernel<64, false, false>(",
+                "flash_fwd_kernelILi64ELb0ELb0EE")
+    return ()
+
+
+def mufu_ex2_counts(lib_path):
+    """{kernel function: MUFU.EX2 instructions in its SASS}, from
+    `cuobjdump -sass`, or None where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300)
+    counts, fn = {}, None
+    for ln in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and "MUFU.EX2" in ln:
+            counts[fn] += 1
+    return counts
+
+
+def run_probe_script(BA, argv):
+    """The probe script's main(argv), its printed lines captured."""
+    import io
+
+    import torch
+
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        result = BA.main(argv)
+    torch.cuda.synchronize()
+    return result, dict(command=f"python -m {BA.__name__} {' '.join(argv)}",
+                        seconds=time.perf_counter() - t0,
+                        output=text.getvalue().splitlines())
+
+
+def check_probe_kernels(device):
+    """Phase E. The probe script's main at the SLAM bucket's frame attention
+    (S = 18 frames x 16 heads, N = 1041 padded to 1152, D = 64) with
+    --check: every probe kernel, at every G and schedule, against its plain
+    version on all problems (softmax-only bit-exact, the others 1e-2 of
+    max|ref|), timed beside flash_single and SDPA. Here beside it: a control
+    that drops the padded keys from l, which the check must reject; ptxas
+    registers and spills per instance; that the softmax-only kernel runs
+    one exp2 per logit (its SASS's MUFU.EX2 count where cuobjdump is found,
+    and always its time against the card's measured exp2 rate). Then the
+    script at its defaults with --check, counts reset just before."""
+    import torch
+
+    from vggt_slam_tpu_torch.ops import cuda_build
+    from vggt_slam_tpu_torch.scripts import bench_attention as BA
+
+    S, H, N, D = 18, 16, 1041, 64
+    BH, Np = S * H, BA.roundup(N, 128)
+    frame, run = run_probe_script(BA, ["--frames", str(S), "--check"])
+    log("probe_frame_shape", **run)
+    registers, spills = ptxas_report(cuda_build.build_log)
+    results = {}
+    for line in frame["lines"]:
+        patterns = _instance_patterns(line["variant"])
+        line["registers"], line["spill_store_bytes"] = next(
+            ((r, spills.get(f, 0)) for f, r in registers.items()
+             if any(pat in f for pat in patterns)), (None, None))
+        results[line["variant"]] = line
+        log("probe_check", **line)
+
+    p = BA.make_variants(S, H, N, D)["grouped G=2"]
+    args = p.prep(*BA.make_inputs(S, H, N, D, seed=SEED, device=device))
+    out = p.run(*args)
+    err, tol = BA.probe_error(p.kind, out, p.plain(*args))
+    ctrl, _ = BA.probe_error(p.kind, out,
+                             BA.exp2_attention_ref(*args, l_keys=N))
+    log("probe_control", variant="grouped G=2", max_abs_err=err, tol=tol,
+        padded_keys_dropped_err=ctrl)
+    if not (err <= tol < ctrl):
+        raise AssertionError(f"the check does not tell a kernel that drops "
+                             f"padded keys from l ({err}, {tol}, {ctrl})")
+    del args, out
+
+    soft = results["softmax-only floor"]
+    ex2_floor_ms = BH * Np * Np / frame["ex2_rate_measured"] * 1e3
+    sass = mufu_ex2_counts(os.path.join(cuda_build.BUILD_DIR,
+                                        "libbench_attention.so"))
+    n_ex2 = (None if sass is None else
+             [c for f, c in sass.items() if "softmax_only_kernel" in f])
+    log("probe_exp2", ex2_rate_derived=frame["ex2_rate_derived"],
+        ex2_derivation=frame["ex2_derivation"],
+        ex2_rate_measured=frame["ex2_rate_measured"],
+        softmax_only_ms=soft["ms"], ex2_floor_ms=ex2_floor_ms,
+        sass_check="cuobjdump" if sass is not None else
+        "not run: no cuobjdump (the timing check stands alone)",
+        softmax_only_mufu_ex2=n_ex2, mufu_ex2_per_kernel=sass)
+    # one exp2 per logit cannot run faster than the card's exp2 rate
+    if not soft["ms"] >= ex2_floor_ms:
+        raise AssertionError(f"softmax-only took {soft['ms']} ms, under "
+                             f"{ex2_floor_ms} ms of exp2: it was hoisted")
+    # one MUFU.EX2 per logit of a 16 x 64 tile per warp: 32 per thread
+    if sass is not None and (not n_ex2 or n_ex2[0] < 32):
+        raise AssertionError(f"softmax-only SASS has {n_ex2} MUFU.EX2: "
+                             f"the exp2 was hoisted")
+    torch.cuda.empty_cache()
+
+    BA.reset_launch_counts()
+    _, run = run_probe_script(BA, ["--check"])
+    launches = {name: BA.LAUNCHES[name] for name in PROBE_KERNELS}
+    log("probe_path", launches=launches, **run)
+    if not all(launches.values()):
+        raise AssertionError(f"the probe script did not launch every probe "
+                             f"kernel: {launches}")
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+def probe_kernel_entries(results, launches):
+    """The four probe kernels' entries of the kernels line."""
+    library_ms = results["SDPA (library)"]["ms"]
+    entries = []
+    for name, (rep, replaces) in PROBE_KERNELS.items():
+        variants = [r for r in results.values() if r["kernel"] == name]
+        r = results[rep]
+        entry = {
+            "name": name, "status": "ported", "route": "cuda",
+            "source": "vggt_slam_tpu_torch/csrc/bench_attention.cu",
+            "replaces": replaces, "launches": launches[name],
+            "launches_path": PROBE_COMMAND + " (its defaults: S = 33)",
+            "variant": rep,
+            "max_abs_err": max(c["max_abs_err"] for c in variants),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "variants": variants}
+        if name in ("grouped", "pipelined"):
+            entry["library_ms"] = library_ms
+        else:
+            entry["library_ms_reason"] = ("no single PyTorch call computes "
+                                          "a probe floor")
+        entries.append(entry)
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # Phases 7-9: training at VGGT-1B width, and the train_tiny CLI
 # ---------------------------------------------------------------------------
 
@@ -1235,6 +1425,7 @@ def main(argv) -> int:
     from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.ops import cuda_build
     from vggt_slam_tpu_torch.ops import dpt_tail as T
+    from vggt_slam_tpu_torch.scripts import bench_attention as BA
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1249,6 +1440,7 @@ def main(argv) -> int:
     A.kernel_library()
     A.bwd_kernel_library()
     T.kernel_library()
+    BA.kernel_library()
     registers, spills = ptxas_report(cuda_build.build_log)
     log("build", seconds=time.perf_counter() - t0,
         nvcc_seconds=cuda_build.build_seconds, registers=registers,
@@ -1257,6 +1449,7 @@ def main(argv) -> int:
     checks = check_kernels(device)
     int8_checks = check_int8_kernels(device)
     train_checks = check_training_kernels(device)
+    probe_checks, probe_launches = check_probe_kernels(device)
     if "--kernels-only" in argv:     # a quick build-and-compare run
         return 0
     t0 = time.perf_counter()
@@ -1370,6 +1563,7 @@ def main(argv) -> int:
         "plain_ms": tail["plain_ms"], "bound_ms": tail["bound_ms"],
         "bound_by": tail["bound_by"], "library_ms": tail["library_ms"],
         "rel_rms_vs_head_chain": tail["rel_rms_vs_head_chain"]})
+    kernels += probe_kernel_entries(probe_checks, probe_launches)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """The port's package boundary and entry points: it imports nothing of JAX,
-flax, OpenCV or the JAX package; its entry points default to the card and
+flax, OpenCV or the JAX package (every module, the probe script
+`scripts/bench_attention` among them); its entry points default to the card and
 refuse to run without one unless the CPU is asked for; chip_smoke.py exits
 non-zero without a card and outside the repository; and the tiny-config
 SLAM loop runs end to end on the CPU from in-memory frames."""
@@ -18,6 +19,7 @@ import importlib, pkgutil, sys
 sys.path.insert(0, {repo!r})
 import vggt_slam_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+assert "vggt_slam_tpu_torch.scripts.bench_attention" in names
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -27,6 +27,7 @@ import torch
 
 from vggt_slam_tpu_torch.ops import attention as A
 from vggt_slam_tpu_torch.ops import dpt_tail as T
+from vggt_slam_tpu_torch.scripts import bench_attention as BA
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-2
@@ -224,3 +225,48 @@ def test_fused_tail_matches_plain(cuda, cout):
     assert out.shape == (cout, S, 392, W) and out.dtype == torch.float32
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                atol=1e-2 * float(ref.abs().max()), rtol=0)
+
+
+# The frame-attention probes (scripts/bench_attention.py's port): at a small
+# shape (BH 8, N 100 -> 128) and the SLAM frame shape (BH 288, N 1041 ->
+# 1152). Softmax-only is bit-exact; the others are held to 1e-2 of max|ref|
+# (matmul-only: another f32 summation order can flip a bf16 rounding of s;
+# attention: the kernels round p to bf16 against the running max, the plain
+# version against the row max). The attention probes must also be further
+# than that from a control that drops the padded keys from l.
+_PROBE_SHAPES = {"small": (2, 4, 100), "frame": (18, 16, 1041)}
+_PROBES = ["matmul-only floor", "softmax-only floor"] + [
+    f"{s} G={G}" for G in (2, 4, 8)
+    for s in ("grouped", "interleaved", "pipelined")]
+
+
+@pytest.mark.parametrize("shape", ["small", "frame"])
+@pytest.mark.parametrize("variant", _PROBES)
+def test_probe_kernels_match_plain(cuda, variant, shape):
+    S, H, N = _PROBE_SHAPES[shape]
+    p = BA.make_variants(S, H, N, 64)[variant]
+    args = p.prep(*BA.make_inputs(S, H, N, 64, seed=3, device=cuda))
+    before = BA.LAUNCHES[p.counter]
+    out = p.run(*args)
+    torch.cuda.synchronize()
+    assert BA.LAUNCHES[p.counter] == before + 1
+    err, tol = BA.probe_error(p.kind, out, p.plain(*args))
+    assert err <= tol
+    if p.kind == "attention":
+        ctrl, _ = BA.probe_error(p.kind, out,
+                                 BA.exp2_attention_ref(*args, l_keys=N))
+        assert ctrl > tol
+
+
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    d32 = torch.zeros(4, 128, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        BA.matmul_only(d32, d32, d32)
+    f32 = torch.zeros(4, 128, 64, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        BA.softmax_only(f32, f32, f32)
+    g3 = torch.zeros(1, 3, 128, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        BA.grouped_attention(g3, g3, g3)
+    rate = BA.ex2_rate(cuda, iters=256)
+    assert 1e12 < rate < 1e13

@@ -1,0 +1,551 @@
+"""Microbenchmark of the frame-attention kernel on the card: the port's
+counterpart of scripts/bench_attention.py.
+
+Frame attention (and the DINOv2 encoder attention, same shape) is BH = S·H
+independent (frame, head) problems of ~1041 tokens at D = 64. This script
+times the port's production kernel (`ops.attention.flash_single`) beside
+four hand-written CUDA probes (csrc/bench_attention.cu) that split it:
+
+* `matmul_only`: o = bf16(q kᵀ) v, no softmax - the tensor-core floor;
+* `softmax_only`: the exp2 softmax of a broadcast logit row, no matmuls -
+  the softmax floor (its output is 1/Np everywhere);
+* `grouped_attention` (straight or interleaved) and `pipelined_attention`:
+  exp2-domain attention on pre-scaled q, G problems per CTA in three
+  instruction schedules, to see whether one problem's tensor-core work
+  hides another's softmax;
+
+and SDPA at the padded shape as the library yardstick: at scale ln 2 its
+exp is the probes' exp2. Inputs are padded to Np = roundup(N, 128) with
+zeros and the padded keys are not masked, as in the reference. G runs over
+2, 4 and 8 where it divides BH.
+
+    python -m vggt_slam_tpu_torch.scripts.bench_attention [--iters 20]
+        [--frames 33] [--heads 16] [--tokens 1041] [--dim 64] [--check]
+
+Each line gives ms (CUDA events over --iters launches, best of 3; the
+inputs exceed the 50 MB L2 at the default shape), TF/s (4·BH·Np²·D over
+the time, as the reference counts), the bound and the share of it.
+Each line also gives the plain version's time on the same arguments.
+`--check` first holds every call against its plain version on the same
+arguments (softmax-only bit-exact, the others 1e-2 of the largest |ref|)
+and the attention calls against naive attention on the first frame's
+first two heads (0.05, the reference's check), and raises on a mismatch.
+The script runs on the card and raises without one.
+
+The kernel wrappers take their plain versions for CPU tensors only; a CUDA
+tensor launches the kernel or raises. `LAUNCHES` counts kernel launches.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import functools
+import math
+import subprocess
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from vggt_slam_tpu_torch.ops.attention import (LOG2E, flash_single,
+                                               flash_single_ref,
+                                               naive_attention)
+
+BF16_PEAK_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+EX2_PER_SM_CLOCK = 16         # MUFU.EX2 results per SM per clock
+HEAD_DIM = 64                 # the head dim the probe kernels are built for
+
+# Launches of each CUDA kernel in this process (plain-version calls are not
+# counted). Read by chip_smoke.py to show the script ran the kernels.
+LAUNCHES = {"matmul_only": 0, "softmax_only": 0, "grouped": 0,
+            "pipelined": 0, "ex2_rate": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def roundup(x, m):
+    return -(-x // m) * m
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _by_problem(fn, q, k, v, chunk=64):
+    """fn over chunks of at most `chunk` problems of (..., Np, D) inputs,
+    which bounds the (chunk, Np, Np) f32 intermediates."""
+    qf, kf, vf = (t.reshape(-1, *t.shape[-2:]) for t in (q, k, v))
+    out = torch.cat([fn(qf[i:i + chunk], kf[i:i + chunk], vf[i:i + chunk])
+                     for i in range(0, qf.shape[0], chunk)])
+    return out.reshape(q.shape)
+
+
+def matmul_only_ref(q, k, v):
+    """Plain version of `matmul_only`: o = bf16(q kᵀ) v with f32 products,
+    cast to q's dtype."""
+    def fn(q, k, v):
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)).to(v.dtype)
+        return torch.matmul(s.float(), v.float()).to(q.dtype)
+    return _by_problem(fn, q, k, v)
+
+
+def softmax_only_ref(q, k, v):
+    """Plain version of `softmax_only`: the logits of row r are
+    q[r, 0]·0.01 in f32 in each of the Np = k.shape[-2] columns; m = max,
+    p = exp2(s - m), l = Σp, o = p[:, :D] / max(l, 1e-30) in q's dtype."""
+    def fn(q, k, v):
+        s = (q[..., :1].float() * 0.01).expand(-1, -1, k.shape[-2])
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        l = p.sum(-1, keepdim=True)
+        return (p[..., :q.shape[-1]] / l.clamp_min(1e-30)).to(q.dtype)
+    return _by_problem(fn, q, k, v)
+
+
+def exp2_attention_ref(q, k, v, l_keys=None):
+    """Plain version of `grouped_attention` and `pipelined_attention`:
+    s = q kᵀ in f32 on pre-scaled q, m the row max over all keys (padded
+    keys too: logit 0, v 0), p = exp2(s - m), l the f32 sum of the unrounded
+    p, o = (bf16(p) v) / max(l, 1e-30) in q's dtype. `l_keys` sums l over
+    the first l_keys keys only: a control that drops the padded keys from
+    l, which the checks must tell from the real function."""
+    def fn(q, k, v):
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        l = (p if l_keys is None else p[..., :l_keys]).sum(-1, keepdim=True)
+        o = torch.matmul(p.to(v.dtype).float(), v.float())
+        return (o / l.clamp_min(1e-30)).to(q.dtype)
+    return _by_problem(fn, q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "bench_matmul_only": ([_P] * 4 + [_I] * 3 + [_P], ctypes.c_int),
+    "bench_softmax_only": ([_P, _P, _I, _I, _I, ctypes.c_float, _P],
+                           ctypes.c_int),
+    "bench_grouped": ([_P] * 4 + [_I] * 5 + [_P], ctypes.c_int),
+    "bench_pipelined": ([_P] * 4 + [_I] * 4 + [_P], ctypes.c_int),
+    "bench_ex2_rate": ([_P, _I, _I, _P], ctypes.c_int),
+    "bench_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
+def kernel_library():
+    """Build (if stale) and load csrc/bench_attention.cu."""
+    from vggt_slam_tpu_torch.ops import cuda_build
+    return cuda_build.load("bench_attention", _SIGNATURES)
+
+
+def _check_cuda(q, k, v, ndim):
+    if q.dim() != ndim or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v of one {ndim}-d shape expected, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the probe kernels take bf16 {name}, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    Np, D = q.shape[-2:]
+    if D != HEAD_DIM or Np % 64:
+        raise ValueError(f"the probe kernels take head dim {HEAD_DIM} and a "
+                         f"multiple of 64 rows, got {Np} x {D}")
+
+
+def _launch(entry, device, *args):
+    lib = kernel_library()
+    with torch.cuda.device(device):
+        code = getattr(lib, entry)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"{entry} launch failed: "
+                           f"{lib.bench_error_string(code).decode()}")
+
+
+def _require_cuda(q):
+    if q.device.type != "cuda":
+        raise ValueError(f"no probe kernel for device {q.device}")
+
+
+def matmul_only(q, k, v):
+    """Matmul-only probe on (BH, Np, D) bf16: CPU tensors take
+    `matmul_only_ref`, CUDA tensors the CUDA kernel."""
+    if q.device.type == "cpu":
+        return matmul_only_ref(q, k, v)
+    _require_cuda(q)
+    _check_cuda(q, k, v, 3)
+    out = torch.empty_like(q)
+    _launch("bench_matmul_only", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), *q.shape)
+    LAUNCHES["matmul_only"] += 1
+    return out
+
+
+def softmax_only(q, k, v):
+    """Softmax-only probe on (BH, Np, D) bf16 (k and v give the shape
+    only): CPU tensors take `softmax_only_ref`, CUDA tensors the CUDA
+    kernel, whose z = 0 keeps each logit opaque to the compiler."""
+    if q.device.type == "cpu":
+        return softmax_only_ref(q, k, v)
+    _require_cuda(q)
+    _check_cuda(q, k, v, 3)
+    out = torch.empty_like(q)
+    _launch("bench_softmax_only", q.device, q.data_ptr(), out.data_ptr(),
+            *q.shape, 0.0)
+    LAUNCHES["softmax_only"] += 1
+    return out
+
+
+def grouped_attention(q, k, v, *, interleave=False):
+    """Grouped probe on (BH/G, G, Np, D) bf16, G in (2, 4, 8): the G
+    problems of a group share a CTA, problem by problem or, with
+    `interleave`, all G QKᵀ products of a key tile before the G softmax and
+    PV chains. CPU tensors take `exp2_attention_ref`, CUDA tensors the CUDA
+    kernel."""
+    if q.device.type == "cpu":
+        return exp2_attention_ref(q, k, v)
+    _require_cuda(q)
+    _check_cuda(q, k, v, 4)
+    out = torch.empty_like(q)
+    _launch("bench_grouped", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), q.shape[0] * q.shape[1],
+            q.shape[2], q.shape[3], q.shape[1], int(bool(interleave)))
+    LAUNCHES["grouped"] += 1
+    return out
+
+
+def pipelined_attention(q, k, v):
+    """Pipelined probe on (BH/G, G, Np, D) bf16: per key tile the QKᵀ of
+    problem g + 1 is issued before the softmax and PV of problem g. CPU
+    tensors take `exp2_attention_ref`, CUDA tensors the CUDA kernel."""
+    if q.device.type == "cpu":
+        return exp2_attention_ref(q, k, v)
+    _require_cuda(q)
+    _check_cuda(q, k, v, 4)
+    out = torch.empty_like(q)
+    _launch("bench_pipelined", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), q.shape[0] * q.shape[1],
+            q.shape[2], q.shape[3], q.shape[1])
+    LAUNCHES["pipelined"] += 1
+    return out
+
+
+def sdpa(q, k, v):
+    """The library yardstick: SDPA at scale ln 2, whose exp(ln 2·s) is
+    exp2(s), on pre-scaled q computes `exp2_attention_ref`'s function. The
+    port never calls it."""
+    return F.scaled_dot_product_attention(q, k, v, scale=math.log(2.0))
+
+
+# call: (kind, its LAUNCHES counter, its plain version)
+_ROLE = {matmul_only: ("matmul", "matmul_only", matmul_only_ref),
+         softmax_only: ("softmax", "softmax_only", softmax_only_ref),
+         grouped_attention: ("attention", "grouped", exp2_attention_ref),
+         pipelined_attention: ("attention", "pipelined", exp2_attention_ref),
+         sdpa: ("library", None, exp2_attention_ref)}
+
+
+# ---------------------------------------------------------------------------
+# The reference's calls: padding, reshapes, pre-scale
+# ---------------------------------------------------------------------------
+
+class Probe:
+    """One line of the benchmark. `prep(q, k, v)` turns (S, H, N, D)
+    inputs into the call's arguments once (padding, reshapes, pre-scale;
+    untimed), `run(*args)` is the timed call, `plain(*args)` its plain
+    version, `unprep(out, shape)` slices back to (S, H, N, D), `kind` picks
+    the bound and the tolerance, and `counter` names the call's LAUNCHES
+    entry (None for flash_single and SDPA). Calling it runs all of it."""
+
+    def __init__(self, kind, counter, prep, run, plain, unprep):
+        self.kind, self.counter, self.prep, self.run = kind, counter, prep, run
+        self.plain, self.unprep = plain, unprep
+
+    def __call__(self, q, k, v):
+        return self.unprep(self.run(*self.prep(q, k, v)), q.shape)
+
+
+def _pad_rows(t, BH, N, D, Np):
+    t = t.reshape(BH, N, D)
+    return F.pad(t, (0, 0, 0, Np - N)) if Np > N else t.contiguous()
+
+
+def make_flat_call(kernel, N, D, BH, extra=()):
+    """One problem per (BH, Np, D) row block, the production layout: the
+    inputs padded to Np = roundup(N, 128) rows with zeros, the output
+    sliced back to N."""
+    Np = roundup(N, 128)
+
+    def prep(q, k, v):
+        return tuple(_pad_rows(t, BH, N, D, Np) for t in (q, k, v))
+
+    def unprep(out, shape):
+        return out[:, :N].reshape(shape)
+
+    kind, counter, plain = _ROLE[kernel]
+    return Probe(kind, counter, prep,
+                 functools.partial(kernel, **dict(extra)), plain, unprep)
+
+
+def make_grouped_call(kernel, G, N, D, BH, extra=()):
+    """As `make_flat_call`, with the padded problems grouped G at a time
+    into (BH/G, G, Np, D)."""
+    Np = roundup(N, 128)
+
+    def prep(q, k, v):
+        return tuple(_pad_rows(t, BH, N, D, Np).reshape(BH // G, G, Np, D)
+                     for t in (q, k, v))
+
+    def unprep(out, shape):
+        return out.reshape(BH, Np, D)[:, :N].reshape(shape)
+
+    kind, counter, plain = _ROLE[kernel]
+    return Probe(kind, counter, prep,
+                 functools.partial(kernel, **dict(extra)), plain, unprep)
+
+
+def scaled(probe, D):
+    """q pre-scaled by log2(e)/sqrt(D) in f32 and rounded back to its
+    dtype before the call, as the reference's `scaled`."""
+    c_scale = LOG2E / math.sqrt(D)
+
+    def prep(q, k, v):
+        return probe.prep((q.float() * c_scale).to(q.dtype), k, v)
+
+    return Probe(probe.kind, probe.counter, prep, probe.run, probe.plain,
+                 probe.unprep)
+
+
+def production(H):
+    """The port's `flash_single` on the inputs packed once into its
+    (S, N, H·D) layout, unpadded (it takes ragged N itself)."""
+    def prep(q, k, v):
+        return tuple(t.transpose(1, 2).reshape(t.shape[0], t.shape[2], -1)
+                     .contiguous() for t in (q, k, v))
+
+    def unprep(out, shape):
+        S, H_, N, D = shape
+        return out.view(S, N, H_, D).transpose(1, 2)
+
+    return Probe("production", None, prep,
+                 functools.partial(flash_single, num_heads=H),
+                 functools.partial(flash_single_ref, num_heads=H), unprep)
+
+
+def make_variants(S, H, N, D):
+    """The reference's variants by name, plus SDPA."""
+    BH = S * H
+    variants = {
+        "production flash_attention": production(H),
+        "matmul-only floor": make_flat_call(matmul_only, N, D, BH),
+        "softmax-only floor": make_flat_call(softmax_only, N, D, BH),
+    }
+    for G in (2, 4, 8):
+        if BH % G:
+            continue
+        variants[f"grouped G={G}"] = scaled(make_grouped_call(
+            grouped_attention, G, N, D, BH, extra=(("interleave", False),)),
+            D)
+        variants[f"interleaved G={G}"] = scaled(make_grouped_call(
+            grouped_attention, G, N, D, BH, extra=(("interleave", True),)), D)
+        variants[f"pipelined G={G}"] = scaled(make_grouped_call(
+            pipelined_attention, G, N, D, BH), D)
+    variants["SDPA (library)"] = scaled(make_grouped_call(sdpa, H, N, D, BH),
+                                        D)
+    return variants
+
+
+def make_inputs(S, H, N, D, seed=0, device="cpu"):
+    """q, k, v (S, H, N, D) bf16 from a seeded numpy normal, in the
+    reference's order."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(S, H, N, D))
+                                  .astype(np.float32)).to(device)
+                 .to(torch.bfloat16) for _ in range(3))
+
+
+def probe_error(kind, out, ref):
+    """(max |out - ref|, tolerance) of a call against its plain version:
+    softmax-only is bit-exact (tolerance 0); the others 1e-2 of max |ref|
+    (matmul-only: one bf16 rounding of s can flip under another f32
+    summation order; attention: the kernels round p to bf16 against the
+    running max, the plain version against the final one)."""
+    diff = float((out.float() - ref.float()).abs().max())
+    tol = 0.0 if kind == "softmax" else 1e-2 * float(ref.float().abs().max())
+    return diff, tol
+
+
+# ---------------------------------------------------------------------------
+# Bounds and timing
+# ---------------------------------------------------------------------------
+
+def bound_ms(kind, BH, n, D, ex2_rate):
+    """Least time on the card for one call on BH problems of n keys (Np for
+    the probes, N for flash_single): (ms, "operations" or "bytes"). The
+    operations are the tensor-core flops 4·BH·n²·D over the bf16 peak
+    (matmul-only), the BH·n² exp2 over `ex2_rate` (softmax-only), or the
+    larger of the two (attention); the bytes read each input and write the
+    output once over the HBM rate (softmax-only reads only q)."""
+    tensor = 4.0 * BH * n * n * D / BF16_PEAK_FLOPS * 1e3
+    sfu = BH * n * n / ex2_rate * 1e3
+    ops = {"matmul": tensor, "softmax": sfu}.get(kind, max(tensor, sfu))
+    nbytes = (2 if kind == "softmax" else 4) * 2.0 * BH * n * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops, "operations") if ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sfu_rate(device):
+    """The card's MUFU.EX2 rate derived from its SM count and its maximum SM
+    clock (nvidia-smi clocks.max.sm) at 16 per SM per clock:
+    (exp2 per second, derivation)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "-i", str(device.index or 0)],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0 or not out.stdout.strip():
+        raise RuntimeError(f"nvidia-smi gave no SM clock: {out.stderr}")
+    mhz = float(out.stdout.split()[0])
+    return (sms * EX2_PER_SM_CLOCK * mhz * 1e6,
+            f"{sms} SMs x {EX2_PER_SM_CLOCK} x {mhz:.0f} MHz")
+
+
+def bench(fn, args, iters):
+    """Best of 3 mean device times (ms) of fn(*args) over `iters` launches,
+    CUDA events, after one warm-up call."""
+    fn(*args)
+    best = math.inf
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
+def ex2_rate(device, iters=4096):
+    """The card's measured MUFU.EX2 rate (exp2 per second): 8 CTAs of 256
+    threads per SM, each thread 8 independent chains x <- 2^-x on
+    ex2.approx (a calibration kernel, not a port), CUDA events. Every
+    output must be 8 times the chain's fixed point."""
+    if device.type != "cuda":
+        raise ValueError(f"ex2_rate measures a card, not {device}")
+    blocks = 8 * torch.cuda.get_device_properties(device).multi_processor_count
+    out = torch.empty(blocks * 256, device=device)
+
+    def launch():
+        _launch("bench_ex2_rate", device, out.data_ptr(), blocks, iters)
+        LAUNCHES["ex2_rate"] += 1
+
+    ms = bench(launch, (), 2)
+    x = 0.5
+    for _ in range(100):
+        x = 2.0 ** -x
+    err = float((out - 8 * x).abs().max())
+    if not err < 1e-4:
+        raise AssertionError(f"ex2 chains end {err} away from 8 x {x}")
+    return blocks * 256 * 8 * iters / (ms * 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Entry point
+# ---------------------------------------------------------------------------
+
+parser = argparse.ArgumentParser(
+    description="Frame-attention probes on the card (matmul-only and "
+                "softmax-only floors, grouped and pipelined schedules) "
+                "beside flash_single and SDPA.")
+parser.add_argument("--iters", type=int, default=20)
+parser.add_argument("--frames", type=int, default=33)
+parser.add_argument("--heads", type=int, default=16)
+parser.add_argument("--tokens", type=int, default=1041)
+parser.add_argument("--dim", type=int, default=64)
+parser.add_argument("--check", action="store_true",
+                    help="hold every call against its plain version and the "
+                         "attention calls against naive attention first")
+
+
+def check(variants, q, k, v):
+    """--check: every call against its plain version on the same arguments,
+    the attention calls also against f32 naive attention on the first
+    frame's first two heads. Returns {name: (max |err| against the plain
+    version, its tolerance)}; raises on a mismatch."""
+    ref = naive_attention(*(t[:1, :2].float() for t in (q, k, v)))
+    errors = {}
+    for name, p in variants.items():
+        args = p.prep(q, k, v)
+        out = p.run(*args)
+        err, tol = probe_error(p.kind, out, p.plain(*args))
+        line = (f"  check {name}: max|err|={err:.3g} against plain "
+                f"(tol {tol:.3g})")
+        ok = err <= tol
+        if p.kind not in ("matmul", "softmax"):
+            e2 = float((p.unprep(out, q.shape)[:1, :2].float() - ref)
+                       .abs().max())
+            line += f", {e2:.4f} against naive attention (tol 0.05)"
+            ok = ok and e2 < 0.05
+        print(line, flush=True)
+        if not ok:
+            raise AssertionError(f"{name}: {line.strip()}")
+        errors[name] = (err, tol)
+    return errors
+
+
+def main(argv=None):
+    """Run the benchmark on the card. Returns the exp2 rates and one dict
+    per line (with the check's error and tolerance under --check)."""
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the probes run on the card")
+    device = torch.device("cuda", torch.cuda.current_device())
+    S, H, N, D = args.frames, args.heads, args.tokens, args.dim
+    BH, Np = S * H, roundup(N, 128)
+    q, k, v = make_inputs(S, H, N, D, device=device)
+    flops = 4 * BH * Np ** 2 * D
+    variants = make_variants(S, H, N, D)
+    errors = check(variants, q, k, v) if args.check else {}
+    print(f"shape: BH={BH} N={N} (Np={Np}) D={D}; {flops / 1e9:.1f} "
+          f"GFLOP/call", flush=True)
+    rate, how = sfu_rate(device)
+    measured = ex2_rate(device)
+    print(f"exp2 rate: {rate / 1e12:.3f} T/s derived ({how}), "
+          f"{measured / 1e12:.3f} T/s measured (ex2.approx chains)",
+          flush=True)
+    lines = []
+    for name, p in variants.items():
+        call_args = p.prep(q, k, v)
+        ms = bench(p.run, call_args, args.iters)
+        plain_ms = bench(p.plain, call_args, 1)
+        bound, by = bound_ms(p.kind, BH, N if p.kind == "production" else Np,
+                             D, rate)
+        print(f"{name:32s} {ms:7.3f} ms {flops / ms / 1e9:7.1f} TF/s   "
+              f"bound {bound:.4f} ms ({by}), {100 * bound / ms:5.1f}% of it; "
+              f"plain {plain_ms:.3f} ms", flush=True)
+        line = dict(variant=name, kind=p.kind, kernel=p.counter, ms=ms,
+                    plain_ms=plain_ms, tflops=flops / ms / 1e9,
+                    bound_ms=bound, bound_by=by, pct_of_bound=100 * bound / ms)
+        if name in errors:
+            line["max_abs_err"], line["tol"] = errors[name]
+        lines.append(line)
+        del call_args
+    return dict(ex2_rate_derived=rate, ex2_derivation=how,
+                ex2_rate_measured=measured, lines=lines)
+
+
+if __name__ == "__main__":
+    main()
