@@ -51,7 +51,14 @@ And, for the frame-attention probes of scripts/bench_attention.py:
      control, their times beside flash_single and SDPA, and one exp2 per
      softmax-only logit (SASS count, time against the card's exp2 rate);
      then `python -m vggt_slam_tpu_torch.scripts.bench_attention --check`
-     at its defaults. Phase E runs under --kernels-only too.
+     at its defaults.
+And, for the global-shape probes of scripts/bench_global_attention.py,
+bench_softmax_variants.py and bench_int8_inkernel.py:
+  F. each script's main with --check at its defaults (BH 16, N 34816,
+     D 64): every mode and tiling against its plain version, the int8
+     controls, the launches, ptxas registers per instance, the times beside
+     their bounds and SDPA.
+Phases E and F run under --kernels-only too.
 The last lines are the kernels JSON object and {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero with no result line. It
 needs a CUDA device and imports nothing of JAX, OpenCV or the JAX package.
@@ -1203,6 +1210,106 @@ def probe_kernel_entries(results, launches):
 
 
 # ---------------------------------------------------------------------------
+# Phase F: the global-shape probes (vggt_slam_tpu_torch/scripts/
+# bench_global_attention.py, bench_softmax_variants.py and
+# bench_int8_inkernel.py, the counterparts of the scripts of those names)
+# ---------------------------------------------------------------------------
+
+GLOBAL_PROBE_ITERS = "4"
+# script: (its LAUNCHES key, its kernel template, the TPU kernel it replaces,
+# the representative variant of the kernels line)
+GLOBAL_PROBES = {
+    "bench_global_attention": (
+        "global_attention", "global_attention_kernel",
+        "scripts/bench_global_attention.py:48 (_kernel, launched through "
+        "run_kernel at :106)", "bf16 bq=64 bk=64"),
+    "bench_softmax_variants": (
+        "softmax_variants", "softmax_variant_kernel",
+        "scripts/bench_softmax_variants.py:41 (_kernel, launched through "
+        "run_kernel at :118)", "online bq=64 bk=64"),
+    "bench_int8_inkernel": (
+        "int8_inkernel", "int8_inkernel_kernel",
+        "scripts/bench_int8_inkernel.py:43 (_kernel, launched through run "
+        "at :118)", "qk8 bq=64 bk=64"),
+}
+
+
+def check_global_probes():
+    """Phase F. Each global-shape probe script's main at its defaults (BH
+    16, N 34353 padded to 34816, D 64) with --check and --iters cut to
+    GLOBAL_PROBE_ITERS, counts reset just before: every mode at the default
+    tiling on all q rows and every other tiling on a 2048-row slab against
+    its plain version (1e-2 of max|ref|), the int8 controls (int8,
+    staticint8, qk8, qk8av8 further from the bf16 mode's plain version than
+    from their own), each kernel launched; ptxas registers and spills per
+    instance. Returns {script: (main's result, launches)}."""
+    import importlib
+
+    import torch
+
+    from vggt_slam_tpu_torch.ops import cuda_build
+
+    registers, spills = ptxas_report(cuda_build.build_log)
+    results = {}
+    for script, (counter, template, _, _) in GLOBAL_PROBES.items():
+        mod = importlib.import_module(f"vggt_slam_tpu_torch.scripts.{script}")
+        mod.reset_launch_counts()
+        out, run = run_probe_script(
+            mod, ["--check", "--iters", GLOBAL_PROBE_ITERS])
+        launches = mod.LAUNCHES[counter]
+        log("global_probe_path", script=script, launches=launches, **run)
+        if not launches:
+            raise AssertionError(f"{script} launched no kernel")
+        for line in out["lines"]:
+            mode = mod.MODES.index(line["mode"])
+            bq, bk = line["block_q"], line["block_k"]
+            patterns = (f"{template}<{bq}, {bk}, {mode}>(",
+                        f"{template}ILi{bq}ELi{bk}ELi{mode}EE")
+            line["registers"], line["spill_store_bytes"] = next(
+                ((r, spills.get(f, 0)) for f, r in registers.items()
+                 if any(pat in f for pat in patterns)), (None, None))
+            log("global_probe_line", script=script, **line)
+        checks = out["checks"]
+        n_modes, n_tilings = len(mod.MODES), len(mod.TILINGS)
+        controls = {k: c for k, c in checks.items()
+                    if "mean_dist_own_plain" in c}
+        log("global_probe_check", script=script, checks=checks)
+        if (len(checks) != n_modes * n_tilings
+                or len(controls) != (2 if counter == "int8_inkernel" else 1)):
+            raise AssertionError(f"{script}: the check covered {list(checks)}"
+                                 f", controls {list(controls)}")
+        results[script] = (out, launches)
+        torch.cuda.empty_cache()
+    return results
+
+
+def global_probe_entries(results):
+    """The three global-shape probe kernels' entries of the kernels line."""
+    entries = []
+    for script, (_, _, replaces, rep) in GLOBAL_PROBES.items():
+        out, launches = results[script]
+        r = next(line for line in out["lines"] if line["variant"] == rep)
+        entry = {
+            "name": script, "status": "ported", "route": "cuda",
+            "source": f"vggt_slam_tpu_torch/csrc/{script}.cu",
+            "replaces": replaces, "launches": launches,
+            "launches_path": f"python -m vggt_slam_tpu_torch.scripts.{script}"
+                             f" --check --iters {GLOBAL_PROBE_ITERS} (its "
+                             f"defaults: BH 16, N 34816, D 64)",
+            "variant": rep,
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in out["checks"].values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "bound_unit": r["bound_unit"], "library_ms": r["library_ms"],
+            "variants": out["lines"]}
+        if r.get("library_ms_reason"):
+            entry["library_ms_reason"] = r["library_ms_reason"]
+        entries.append(entry)
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # Phases 7-9: training at VGGT-1B width, and the train_tiny CLI
 # ---------------------------------------------------------------------------
 
@@ -1426,6 +1533,9 @@ def main(argv) -> int:
     from vggt_slam_tpu_torch.ops import cuda_build
     from vggt_slam_tpu_torch.ops import dpt_tail as T
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
+    from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
+    from vggt_slam_tpu_torch.scripts import bench_int8_inkernel as IK
+    from vggt_slam_tpu_torch.scripts import bench_softmax_variants as SV
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1441,6 +1551,8 @@ def main(argv) -> int:
     A.bwd_kernel_library()
     T.kernel_library()
     BA.kernel_library()
+    for probe in (GA, SV, IK):
+        probe.kernel_library()
     registers, spills = ptxas_report(cuda_build.build_log)
     log("build", seconds=time.perf_counter() - t0,
         nvcc_seconds=cuda_build.build_seconds, registers=registers,
@@ -1450,6 +1562,7 @@ def main(argv) -> int:
     int8_checks = check_int8_kernels(device)
     train_checks = check_training_kernels(device)
     probe_checks, probe_launches = check_probe_kernels(device)
+    global_probes = check_global_probes()
     if "--kernels-only" in argv:     # a quick build-and-compare run
         return 0
     t0 = time.perf_counter()
@@ -1564,6 +1677,7 @@ def main(argv) -> int:
         "bound_by": tail["bound_by"], "library_ms": tail["library_ms"],
         "rel_rms_vs_head_chain": tail["rel_rms_vs_head_chain"]})
     kernels += probe_kernel_entries(probe_checks, probe_launches)
+    kernels += global_probe_entries(global_probes)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,9 @@ import torch
 from vggt_slam_tpu_torch.ops import attention as A
 from vggt_slam_tpu_torch.ops import dpt_tail as T
 from vggt_slam_tpu_torch.scripts import bench_attention as BA
+from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
+from vggt_slam_tpu_torch.scripts import bench_int8_inkernel as IK
+from vggt_slam_tpu_torch.scripts import bench_softmax_variants as SV
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-2
@@ -270,3 +273,92 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         BA.grouped_attention(g3, g3, g3)
     rate = BA.ex2_rate(cuda, iters=256)
     assert 1e12 < rate < 1e13
+
+
+# The global-shape probes (bench_global_attention, bench_softmax_variants,
+# bench_int8_inkernel): every mode and tiling at a small shape (BH 2, N 512)
+# against its plain version, which takes the kernels' running max per key
+# block: 1e-2 of max|ref| (f32 sums in another order can flip a bf16 or p8
+# rounding). The int8 modes must be further from the bf16 mode's plain
+# version than from their own.
+_GLOBAL_PROBES = (
+    [("global", m, t) for m in GA.MODES for t in GA.TILINGS]
+    + [("softmax", m, t) for m in SV.MODES for t in SV.TILINGS]
+    + [("inkernel", m, t) for m in IK.MODES for t in IK.TILINGS])
+
+
+def _global_probe(script, mode, tiling, device, BH=2, N=512):
+    """(kernel call, plain call, args, bf16 counterpart's args, LAUNCHES
+    dict and key) of one global-shape probe case."""
+    if script == "global":
+        q, k, v = GA.make_inputs(BH, N, 64, seed=3, device=device)
+        bf16_args = (q, k, v, *tiling, "bf16", 0.125)
+        args = (q, k, v, *tiling, mode, 0.125)
+        if mode == "int8":
+            q8, k8, s8 = GA.int8_operands(q, k, 0.125)
+            args = (q8, k8, v, *tiling, mode, s8)
+        return (GA.run_kernel, GA.run_kernel_ref, args, bf16_args,
+                GA.LAUNCHES, "global_attention")
+    if script == "softmax":
+        q, k, v = GA.make_inputs(BH, N, 64, seed=3, device=device, scale=0.3)
+        bf16_args = (q, k, v, *tiling, "static")
+        args = (q, k, v, *tiling, mode)
+        if mode == "staticint8":
+            q8, k8, smax = SV.int8_operands(q, k)
+            args = (q8, k8, v, *tiling, mode, smax)
+        return (SV.run_kernel, SV.run_kernel_ref, args, bf16_args,
+                SV.LAUNCHES, "softmax_variants")
+    q, k, v = GA.make_inputs(BH, N, 64, seed=3, device=device)
+    return (IK.run, IK.run_ref, (q, k, v, *tiling, mode),
+            (q, k, v, *tiling, "bf16"), IK.LAUNCHES, "int8_inkernel")
+
+
+@pytest.mark.parametrize("script,mode,tiling", _GLOBAL_PROBES,
+                         ids=[f"{s}-{m}-{t[0]}x{t[1]}"
+                              for s, m, t in _GLOBAL_PROBES])
+def test_global_probe_kernels_match_plain(cuda, script, mode, tiling):
+    run, plain, args, bf16_args, launches, key = _global_probe(
+        script, mode, tiling, cuda)
+    before = launches[key]
+    out = run(*args)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    ref = plain(*args)
+    err, tol = BA.probe_error("attention", out, ref)
+    assert err <= tol
+    if mode in ("int8", "staticint8", "qk8", "qk8av8"):
+        assert (GA.mean_distance(out, plain(*bf16_args))
+                > GA.mean_distance(out, ref))
+
+
+def test_global_probe_key_count_follows_the_reference(cuda):
+    """run_kernel attends to the first q.shape[1] keys, as the reference's
+    grid; n_keys widens a q slab to all keys."""
+    q, k, v = GA.make_inputs(2, 512, 64, seed=4, device=cuda)
+    slab = q[:, :128].contiguous()
+    got = GA.run_kernel(slab, k, v, 64, 64, "bf16", 0.125)
+    want = GA.run_kernel(slab, k[:, :128].contiguous(),
+                         v[:, :128].contiguous(), 64, 64, "bf16", 0.125)
+    assert torch.equal(got, want)
+    wide = GA.run_kernel(slab, k, v, 64, 64, "bf16", 0.125, n_keys=512)
+    err, tol = BA.probe_error("attention", 
+        wide, GA.run_kernel_ref(slab, k, v, 64, 64, "bf16", 0.125, 512))
+    assert err <= tol
+
+
+def test_global_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(2, 512, 64, dtype=torch.bfloat16, device=cuda)
+    d32 = torch.zeros(2, 512, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        GA.run_kernel(d32, d32, d32, 64, 64, "bf16", 1.0)
+    with pytest.raises(TypeError, match="int8"):
+        GA.run_kernel(x, x, x, 64, 64, "int8", 1.0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        SV.run_kernel(x.float(), x, x, 64, 64, "online")
+    with pytest.raises(ValueError, match="does not divide"):
+        SV.run_kernel(x[:, :480].contiguous(), x, x, 64, 64, "static")
+    with pytest.raises(ValueError, match="not built"):
+        IK.run(x, x, x, 64, 128, "qk8")
+    with pytest.raises(ValueError, match="contiguous"):
+        GA.run_kernel(x.transpose(1, 2).contiguous().transpose(1, 2), x, x,
+                      64, 64, "bf16", 1.0)

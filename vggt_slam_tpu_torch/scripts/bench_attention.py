@@ -163,8 +163,10 @@ def _check_cuda(q, k, v, ndim):
                          f"multiple of 64 rows, got {Np} x {D}")
 
 
-def _launch(entry, device, *args):
-    lib = kernel_library()
+def _launch(entry, device, *args, lib=None):
+    """Launch the C entry point `entry` of `lib` (default: this script's
+    library) on the device's current stream; raise on a nonzero code."""
+    lib = lib or kernel_library()
     with torch.cuda.device(device):
         code = getattr(lib, entry)(
             *args, torch.cuda.current_stream(device).cuda_stream)
@@ -421,12 +423,12 @@ def sfu_rate(device):
             f"{sms} SMs x {EX2_PER_SM_CLOCK} x {mhz:.0f} MHz")
 
 
-def bench(fn, args, iters):
-    """Best of 3 mean device times (ms) of fn(*args) over `iters` launches,
-    CUDA events, after one warm-up call."""
+def bench(fn, args, iters, reps=3):
+    """Best of `reps` mean device times (ms) of fn(*args) over `iters`
+    launches, CUDA events, after one warm-up call."""
     fn(*args)
     best = math.inf
-    for _ in range(3):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
