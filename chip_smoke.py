@@ -14,7 +14,8 @@ Phases, one line of output each (and the contract lines at the end):
      path's shapes (max abs / rel error, kernel / plain / SDPA times, bound);
   4. hold the training kernels (the forward kernels' stats variant, dq and
      dkv) against their plain versions at the training shapes, with the
-     kernel, plain and SDPA forward+backward times and the bounds;
+     kernel and plain times, SDPA's forward and forward+backward times and
+     the bounds;
   5. a full-width VGGT-1B forward through the kernels against the same
      forward through the kernels' plain versions, on a 2-frame input;
   6. the SLAM main path at VGGT-1B width (seeded random weights drawn on the
@@ -58,7 +59,11 @@ bench_softmax_variants.py and bench_int8_inkernel.py:
      D 64): every mode and tiling against its plain version, the int8
      controls, the launches, ptxas registers per instance, the times beside
      their bounds and SDPA.
-Phases E and F run under --kernels-only too.
+And, for the matmul-shape probes of scripts/bench_matmul_shapes.py:
+  G. its main with --check at its defaults: both kernels, tilings and
+     shapes against their plain version with three controls, launches,
+     ptxas registers per instance, times beside bounds and torch.bmm.
+Phases E, F and G run under --kernels-only too.
 The last lines are the kernels JSON object and {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero with no result line. It
 needs a CUDA device and imports nothing of JAX, OpenCV or the JAX package.
@@ -332,9 +337,11 @@ def check_training_kernels(device):
                  "dkv_ms": cuda_ms(dkv_fn, iters),
                  "fwd_plain_ms": cuda_ms(fwd_plain, 2),
                  "bwd_plain_ms": cuda_ms(bwd_plain, 2)}
-        sdpa = None
+        sdpa = sdpa_fwd = None
         if vl is None:
-            # SDPA on the same pre-applied bf16 q, k, v: forward + backward
+            # SDPA on the same pre-applied bf16 q, k, v: forward + backward,
+            # and the forward alone (keeping its logsumexp, as the kernel
+            # its row stats, since q, k, v need grad)
             qs, ks, vs = (t.view(B, N, H, D).transpose(1, 2).detach()
                           .requires_grad_() for t in (q, k, v))
             do_h = dout.view(B, N, H, D).transpose(1, 2)
@@ -344,12 +351,15 @@ def check_training_kernels(device):
                 torch.autograd.grad(o, (qs, ks, vs), do_h)
 
             sdpa = cuda_ms(sdpa_fwd_bwd, iters)
+            sdpa_fwd = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qs, ks, vs), iters)
         bounds = training_bounds(B, N, H, D, vl)
         res = dict(variant=name, B=B, N=N, H=H, D=D, valid_len=vl,
                    kernel="flash_multi" if static else "flash_single",
                    launches_per_1b_step=per_step, errors=errs, **times,
                    kernels_fwd_bwd_ms=times["fwd_ms"] + times["dq_ms"]
                    + times["dkv_ms"], sdpa_fwd_bwd_ms=sdpa,
+                   sdpa_fwd_ms=sdpa_fwd,
                    bound_ms={k_: b[0] for k_, b in bounds.items()},
                    bound_by={k_: b[1] for k_, b in bounds.items()})
         log("training_kernel_check", **res)
@@ -1310,6 +1320,82 @@ def global_probe_entries(results):
 
 
 # ---------------------------------------------------------------------------
+# Phase G: the matmul-shape probes (vggt_slam_tpu_torch/scripts/
+# bench_matmul_shapes.py, the counterpart of scripts/bench_matmul_shapes.py)
+# ---------------------------------------------------------------------------
+
+MATMUL_COMMAND = ("python -m vggt_slam_tpu_torch.scripts.bench_matmul_shapes "
+                  "--check")
+# kernel: (the TPU kernel it replaces, its representative line at the
+# reference's B = 528 QK^T shape)
+MATMUL_PROBES = {
+    "batched_mm": ("scripts/bench_matmul_shapes.py:41 (pallas_batched_mm, "
+                   "launched at :49)", "batched 64x64"),
+    "grouped_mm": ("scripts/bench_matmul_shapes.py:64 (pallas_grouped_mm, "
+                   "launched at :75)", "grouped G=2 64x64"),
+}
+
+
+def check_matmul_probes():
+    """Phase G: the script's main with --check at its defaults, counts
+    reset just before; every line checked, the controls run at both B = 528
+    shapes, each kernel launched; ptxas registers and spills per instance.
+    Returns (main's result, launches)."""
+    import torch
+
+    from vggt_slam_tpu_torch.ops import cuda_build
+    from vggt_slam_tpu_torch.scripts import bench_matmul_shapes as MM
+
+    MM.reset_launch_counts()
+    out, run = run_probe_script(MM, ["--check"])
+    launches = dict(MM.LAUNCHES)
+    log("matmul_probe_path", launches=launches, **run)
+    if not all(launches.values()):
+        raise AssertionError(f"the matmul script did not launch every "
+                             f"kernel: {launches}")
+    registers, spills = ptxas_report(cuda_build.build_log)
+    for line in out["lines"]:
+        bm, bn = line["tiling"]
+        grouped = line["kernel"] == "grouped_mm"     # mm_kernel's GROUPED
+        patterns = (f"mm_kernel<{bm}, {bn}, {str(grouped).lower()}>(",
+                    f"mm_kernelILi{bm}ELi{bn}ELb{int(grouped)}EE")
+        line["registers"], line["spill_store_bytes"] = next(
+            ((r, spills.get(f, 0)) for f, r in registers.items()
+             if any(pat in f for pat in patterns)), (None, None))
+        log("matmul_probe_line", **line)
+    log("matmul_probe_check", library=out["library"], checks=out["checks"],
+        controls=out["controls"])
+    if (len(out["checks"]) != len(out["lines"])
+            or len(out["controls"]) != 2):
+        raise AssertionError(f"the check covered {len(out['checks'])} of "
+                             f"{len(out['lines'])} lines, controls at "
+                             f"{list(out['controls'])}")
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def matmul_probe_entries(out, launches):
+    """The two matmul-shape kernels' entries of the kernels line."""
+    entries = []
+    for name, (replaces, rep) in MATMUL_PROBES.items():
+        variants = [line for line in out["lines"] if line["kernel"] == name]
+        r = next(line for line in variants if line["variant"] == rep
+                 and line["B"] == 528 and line["K"] == 64)
+        entries.append({
+            "name": name, "status": "ported", "route": "cuda",
+            "source": "vggt_slam_tpu_torch/csrc/bench_matmul_shapes.cu",
+            "replaces": replaces, "launches": launches[name],
+            "launches_path": MATMUL_COMMAND + " (its defaults)",
+            "variant": f"B=528 (1056,64,1056) {rep}",
+            "max_abs_err": max(line["max_abs_err"] for line in variants),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "library": "torch.bmm",
+            "variants": variants})
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # Phases 7-9: training at VGGT-1B width, and the train_tiny CLI
 # ---------------------------------------------------------------------------
 
@@ -1535,6 +1621,7 @@ def main(argv) -> int:
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
     from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
     from vggt_slam_tpu_torch.scripts import bench_int8_inkernel as IK
+    from vggt_slam_tpu_torch.scripts import bench_matmul_shapes as MM
     from vggt_slam_tpu_torch.scripts import bench_softmax_variants as SV
 
     device = torch.device("cuda", 0)
@@ -1551,7 +1638,7 @@ def main(argv) -> int:
     A.bwd_kernel_library()
     T.kernel_library()
     BA.kernel_library()
-    for probe in (GA, SV, IK):
+    for probe in (GA, SV, IK, MM):
         probe.kernel_library()
     registers, spills = ptxas_report(cuda_build.build_log)
     log("build", seconds=time.perf_counter() - t0,
@@ -1563,6 +1650,7 @@ def main(argv) -> int:
     train_checks = check_training_kernels(device)
     probe_checks, probe_launches = check_probe_kernels(device)
     global_probes = check_global_probes()
+    matmul_probes = check_matmul_probes()
     if "--kernels-only" in argv:     # a quick build-and-compare run
         return 0
     t0 = time.perf_counter()
@@ -1606,10 +1694,14 @@ def main(argv) -> int:
     }
     representative = {"flash_single": "frame_block",
                       "flash_multi": "global_block"}
+    # the training case most of the kernel's training launches come from
+    training_case = {"flash_single": "encoder_frame", "flash_multi": "global"}
     kernels = []
     for name in ("flash_single", "flash_multi"):
         variants = [c for c in checks if c["kernel"] == name]
         rep = next(c for c in variants if c["variant"] == representative[name])
+        train = next(c for c in train_checks
+                     if c["variant"] == training_case[name])
         kernels.append({
             "name": name, "status": "ported", "route": "cuda",
             "source": "vggt_slam_tpu_torch/csrc/flash_attention.cu",
@@ -1621,6 +1713,9 @@ def main(argv) -> int:
             "library_ms": rep["library_ms"],
             "training_launches": train_launches[name],
             "training_launches_per_step": train_per_step[name],
+            "training_variant": train["variant"],
+            "training_ms": train["fwd_ms"],
+            "training_library_ms": train["sdpa_fwd_ms"],
             "variants": variants})
     rep = next(c for c in train_checks if c["variant"] == "global")
     for name, key in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")):
@@ -1678,6 +1773,7 @@ def main(argv) -> int:
         "rel_rms_vs_head_chain": tail["rel_rms_vs_head_chain"]})
     kernels += probe_kernel_entries(probe_checks, probe_launches)
     kernels += global_probe_entries(global_probes)
+    kernels += matmul_probe_entries(*matmul_probes)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

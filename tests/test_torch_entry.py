@@ -1,7 +1,7 @@
 """The port's package boundary and entry points: it imports nothing of JAX,
-flax, OpenCV or the JAX package (every module, the probe script
-`scripts/bench_attention` among them); its entry points default to the card and
-refuse to run without one unless the CPU is asked for; chip_smoke.py exits
+flax, OpenCV or the JAX package (every module, the probe scripts
+`scripts/bench_attention` and `scripts/bench_matmul_shapes` among them); its
+entry points default to the card and refuse to run without one unless the CPU is asked for; chip_smoke.py exits
 non-zero without a card and outside the repository; and the tiny-config
 SLAM loop runs end to end on the CPU from in-memory frames."""
 import os
@@ -19,7 +19,8 @@ import importlib, pkgutil, sys
 sys.path.insert(0, {repo!r})
 import vggt_slam_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-assert "vggt_slam_tpu_torch.scripts.bench_attention" in names
+assert all("vggt_slam_tpu_torch.scripts." + m in names
+           for m in ("bench_attention", "bench_matmul_shapes"))
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -20,6 +20,7 @@ largest output: both sides round u and h to bf16, and the f32 sums of the
 3x3 conv run in another order, which can flip a rounding of h.
 """
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ from vggt_slam_tpu_torch.ops import dpt_tail as T
 from vggt_slam_tpu_torch.scripts import bench_attention as BA
 from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
 from vggt_slam_tpu_torch.scripts import bench_int8_inkernel as IK
+from vggt_slam_tpu_torch.scripts import bench_matmul_shapes as MM
 from vggt_slam_tpu_torch.scripts import bench_softmax_variants as SV
 
 pytestmark = pytest.mark.gpu
@@ -362,3 +364,79 @@ def test_global_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         GA.run_kernel(x.transpose(1, 2).contiguous().transpose(1, 2), x, x,
                       64, 64, "bf16", 1.0)
+
+
+# The matmul-shape probes: both kernels and tilings within one bf16 ulp of
+# max|ref| of the plain version (the script's check), at its B = 528 and
+# square shapes and odd ones (edges in M, N, K; B = 1); the controls.
+_MM_SHAPES = {"qk": (528, 1056, 64, 1056), "pv": (528, 1056, 1056, 64),
+              "square": (1, 2048, 2048, 2048), "odd": (6, 100, 72, 40),
+              "odd_b1": (1, 130, 200, 136)}
+
+
+def _mm_inputs(device, B, M, K, N, seed=5):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(s, generator=g, device=device).bfloat16()
+                 for s in ((B, M, K), (B, K, N)))
+
+
+@pytest.mark.parametrize("shape", list(_MM_SHAPES))
+@pytest.mark.parametrize("tile", MM.TILINGS, ids=MM.tile_name)
+@pytest.mark.parametrize("kernel", ["batched_mm", "grouped_mm"])
+def test_matmul_probe_kernels_match_plain(cuda, kernel, tile, shape):
+    B, M, K, N = _MM_SHAPES[shape]
+    G = next(g for g in (16, 3, 1) if B % g == 0)
+    a, b = _mm_inputs(cuda, B, M, K, N)
+    before = MM.LAUNCHES[kernel]
+    out = _nan_out(a, b)
+    assert MM.run_variant(kernel, a, b, G, tile, out) is out
+    torch.cuda.synchronize()
+    assert MM.LAUNCHES[kernel] == before + 1
+    err, tol = MM.mm_error(out, MM.batched_mm_ref(a, b))
+    assert err <= tol
+
+
+def _nan_out(a, b):
+    """A NaN-filled output: an element the kernel does not write fails."""
+    return torch.full((*a.shape[:2], b.shape[2]), math.nan,
+                      dtype=torch.bfloat16, device=a.device)
+
+
+@pytest.mark.parametrize("shape", ["qk", "pv"])
+def test_matmul_probe_controls_are_rejected(cuda, shape):
+    a, b = _mm_inputs(cuda, *_MM_SHAPES[shape])
+    out = MM.run_variant("batched_mm", a, b, 1, MM.DEFAULT_TILING,
+                         _nan_out(a, b))
+    ctrl = MM.controls(a, b, out, MM.batched_mm_ref(a, b))
+    assert ctrl["batch"] > ctrl["tol"] and ctrl["k_tile"] > ctrl["tol"]
+    assert math.isnan(ctrl["edge"])
+
+
+def test_matmul_probe_launches_count_graph_replays(cuda):
+    """graph_bench's warm-up call counts once, each replay its n calls;
+    the calls captured into the graph launch nothing and count nothing."""
+    sets = [(*_mm_inputs(cuda, 2, 64, 64, 64, seed), 1, (64, 64))
+            for seed in (1, 2, 3)]
+    before = MM.LAUNCHES["batched_mm"]
+    BA.graph_bench(functools.partial(MM.run_variant, "batched_mm"), sets, 4,
+                   reps=2, replayed=lambda n: MM.count("batched_mm", n))
+    assert MM.LAUNCHES["batched_mm"] == before + 1 + 3 * 6
+
+
+def test_matmul_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    a, b = _mm_inputs(cuda, 4, 64, 64, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        MM.batched_mm(a.float(), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        MM.batched_mm(a.transpose(1, 2).contiguous().transpose(1, 2), b)
+    with pytest.raises(ValueError, match="aligned"):
+        MM.batched_mm(a.reshape(-1)[4:4 + a.numel() - 64 * 64]
+                      .view(3, 64, 64), b[:3].contiguous())
+    with pytest.raises(ValueError, match="does not divide"):
+        MM.grouped_mm(a, b, 3)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        MM.batched_mm(*_mm_inputs(cuda, 2, 64, 60, 64))
+    with pytest.raises(ValueError, match="not built"):
+        MM.batched_mm(a, b, (128, 64))
+    with pytest.raises(ValueError, match="is on cpu"):
+        MM.run_variant("batched_mm", a, b, 1, (64, 64), _nan_out(a, b).cpu())

@@ -440,6 +440,33 @@ def bench(fn, args, iters, reps=3):
     return best
 
 
+def graph_bench(fn, arg_sets, iters, reps=3, replayed=None):
+    """`bench` for calls shorter than a launch from Python: best of `reps`
+    mean device ms of fn(*args) over one CUDA graph of at least `iters`
+    calls that cycles through `arg_sets`, after a warm-up call and replay.
+    `replayed(n)` hears of the n calls each replay runs."""
+    n = len(arg_sets) * -(-iters // len(arg_sets))
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(*arg_sets[i % len(arg_sets)])
+    best = math.inf
+    for rep in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        if replayed:
+            replayed(n)
+        if rep:
+            best = min(best, start.elapsed_time(end) / n)
+    return best
+
+
 def ex2_rate(device, iters=4096):
     """The card's measured MUFU.EX2 rate (exp2 per second): 8 CTAs of 256
     threads per SM, each thread 8 independent chains x <- 2^-x on
