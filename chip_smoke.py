@@ -5,13 +5,19 @@
     python3 chip_smoke.py --kernels-only   # build and check the kernels only
     python3 chip_smoke.py --profile        # also profile one forward and
                                            # one training step
+    python3 chip_smoke.py --ab DIR...   # build, then time the bf16 forward
+                                        # of each DIR's flash_attention.cu
+                                        # and this tree's in turns, and stop
 
 Phases, one line of output each (and the contract lines at the end):
   1. environment: device, `nvidia-smi` name and power limit, versions;
   2. build the CUDA kernels from vggt_slam_tpu_torch/csrc with nvcc, one
      process per source, all at once;
   3. hold each forward kernel against its plain PyTorch version at the SLAM
-     path's shapes (max abs / rel error, kernel / plain / SDPA times, bound);
+     path's shapes (max abs / rel error, kernel / plain / SDPA times, bound;
+     the design each shape ran, from the names of the kernels it launched;
+     SDPA on the prepared q and k where the
+     kernel applies LN and rope itself);
   4. hold the training kernels (the forward kernels' stats variant, dq and
      dkv) against their plain versions at the training shapes, with the
      kernel and plain times, SDPA's forward and forward+backward times and
@@ -63,7 +69,12 @@ And, for the matmul-shape probes of scripts/bench_matmul_shapes.py:
   G. its main with --check at its defaults: both kernels, tilings and
      shapes against their plain version with three controls, launches,
      ptxas registers per instance, times beside bounds and torch.bmm.
-Phases E, F and G run under --kernels-only too.
+Phases E, F and G run under --kernels-only too. With --ab DIR... the
+script builds the kernels, then times the bf16 forward at every
+head-dim-64 shape of phases 3 and 4 in turns (each DIR's
+flash_attention.cu, built with the headers beside it and named after its
+folder, then this tree's), each held against its plain version first,
+with the host cost per call, and stops without the result lines.
 The last lines are the kernels JSON object and {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero with no result line. It
 needs a CUDA device and imports nothing of JAX, OpenCV or the JAX package.
@@ -72,6 +83,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import struct
 import subprocess
@@ -228,6 +240,56 @@ def sdpa_call(case):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
+def sdpa_prepared_call(case):
+    """SDPA on q and k prepared by the plain version's `_prep` (LN and rope
+    applied before the call, so its time excludes that work, which the
+    kernel does in-kernel), kv_bias and the valid_len mask as one additive
+    float mask: the same function as the kernel. None where `sdpa_call`
+    applies."""
+    import torch
+    import torch.nn.functional as F
+
+    from vggt_slam_tpu_torch.ops import attention as A
+
+    kw = case["kw"]
+    if kw.get("rope_q") is None and kw.get("qk_ln") is None:
+        return None
+    H, ln = kw["num_heads"], kw.get("qk_ln")
+    q, k, v = case["q"], case["k"], case["v"]
+    qp = A._prep(q, H, ln and ln[0:2], 1e-5, kw.get("rope_q"), 1.0)
+    kp = A._prep(k, H, ln and ln[2:4], 1e-5, kw.get("rope_k"), 1.0)
+    vh = v.view(v.shape[0], v.shape[1], H, -1).transpose(1, 2)
+    mask = None
+    if kw.get("kv_bias") is not None or kw.get("valid_len") is not None:
+        Nk = k.shape[1]
+        mask = torch.zeros(Nk, device=q.device)
+        if kw.get("kv_bias") is not None:
+            mask += kw["kv_bias"].float()
+        mask[min(kw.get("valid_len") or Nk, Nk):] = -math.inf
+        mask = mask.to(q.dtype)[None, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qp, kp, vh, attn_mask=mask)
+
+
+def launched_design(fn) -> str:
+    """The design that fn(), one forward call, ran, read from the names of
+    the kernels it launched under torch.profiler: "tma_wgmma" for
+    flash_fwd_sm90 (csrc/flash_sm90.cuh), "mma_sync" for flash_fwd_kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    found = [d for d, k in (("tma_wgmma", "flash_fwd_sm90"),
+                            ("mma_sync", "flash_fwd_kernel")) if k in names]
+    if len(found) != 1:
+        raise AssertionError(f"no single forward design among the kernels "
+                             f"launched: {names[:400]}")
+    return found[0]
+
+
 def _rel_rms(a, b) -> float:
     a, b = a.double(), b.double()
     return float(((a - b) ** 2).mean().sqrt()
@@ -356,6 +418,7 @@ def check_training_kernels(device):
         bounds = training_bounds(B, N, H, D, vl)
         res = dict(variant=name, B=B, N=N, H=H, D=D, valid_len=vl,
                    kernel="flash_multi" if static else "flash_single",
+                   design=launched_design(fwd),
                    launches_per_1b_step=per_step, errors=errs, **times,
                    kernels_fwd_bwd_ms=times["fwd_ms"] + times["dq_ms"]
                    + times["dkv_ms"], sdpa_fwd_bwd_ms=sdpa,
@@ -412,11 +475,15 @@ def check_kernels(device):
         plain_ms = cuda_ms(plain, iters=2)
         lib = sdpa_call(case)
         library_ms = cuda_ms(lib, iters=10) if lib is not None else None
+        lib = sdpa_prepared_call(case)
+        prepared_ms = cuda_ms(lib, iters=10) if lib is not None else None
         bound_ms, bound_by = attention_bound_ms(case)
         res = dict(variant=case["name"], kernel=case["kernel"],
+                   design=launched_design(kern),
                    shape_q=list(q.shape), shape_kv=list(k.shape),
                    max_abs_err=max_abs, max_rel_err=max_rel, tol=tol,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library_prepared_ms=prepared_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
                    launches_per_forward=case["launches_per_forward"])
         log("kernel_check", **res)
@@ -1580,6 +1647,176 @@ def drive_cli(device):
 
 
 # ---------------------------------------------------------------------------
+# --ab DIR: the bf16 forward at head dim 64 against an earlier build, in turns
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def using_library(lib):
+    """Route ops/attention.py's forward wrappers to `lib`, one ctypes build
+    of some flash_attention.cu, inside the block."""
+    from vggt_slam_tpu_torch.ops import attention as A
+    saved = A.kernel_library
+    A.kernel_library = lambda: lib
+    try:
+        yield
+    finally:
+        A.kernel_library = saved
+
+
+def ab_libraries(dirs):
+    """{build: library}: each of `dirs` (a flash_attention.cu with the
+    headers it includes beside it), named after its folder, then this
+    tree's "tma_wgmma"."""
+    from vggt_slam_tpu_torch.ops import attention as A
+    from vggt_slam_tpu_torch.ops import cuda_build
+
+    libs = {}
+    for d in dirs:
+        name = os.path.basename(os.path.normpath(d))
+        libs[name] = cuda_build.load(f"flash_attention_ab_{name}",
+                                     A._SIGNATURES,
+                                     os.path.join(d, "flash_attention.cu"))
+    libs["tma_wgmma"] = A.kernel_library()
+    return libs
+
+
+def _forward_calls(q, k, v, kw, smax):
+    """(kernel call, plain call): flash_multi with `smax`, or flash_single
+    where it is None."""
+    from vggt_slam_tpu_torch.ops import attention as A
+
+    if smax is None:
+        return (lambda: A.flash_single(q, k, v, **kw),
+                lambda: A.flash_single_ref(q, k, v, **kw))
+    return (lambda: A.flash_multi(q, k, v, smax, **kw),
+            lambda: A.flash_multi_ref(q, k, v, smax, **kw))
+
+
+def ab_cases(device):
+    """The head-dim-64 shapes of phases 3 and 4: (name, kernel, bound ms,
+    kern(), plain(), with row stats)."""
+    import torch
+
+    from vggt_slam_tpu_torch.ops import attention as A
+
+    cases = []
+    for case in main_path_attention_cases(device):
+        q, k, v, kw = case["q"], case["k"], case["v"], case["kw"]
+        if q.shape[2] // kw["num_heads"] != 64:
+            continue
+        smax = (A.static_bound(q, k, kw["num_heads"], qk_ln=kw["qk_ln"],
+                               kv_bias=kw["kv_bias"])
+                if case["kernel"] == "flash_multi" else None)
+        kern, plain = _forward_calls(q, k, v, kw, smax)
+        cases.append((case["name"], case["kernel"],
+                      attention_bound_ms(case)[0], kern, plain, False))
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    for name, B, N, H, D, vl, softmax, _ in TRAINING_CASES:
+        if D != 64:
+            continue
+        q, k, v = (torch.randn((B, N, H * D), generator=g, device=device)
+                   .to(torch.bfloat16) for _ in range(3))
+        kw = dict(num_heads=H, valid_len=vl, return_stats=True)
+        smax = A.static_bound(q, k, H) if softmax == "static" else None
+        kern, plain = _forward_calls(q, k, v, kw, smax)
+        cases.append((f"training_{name}",
+                       "flash_multi" if smax is not None else "flash_single",
+                       training_bounds(B, N, H, D, vl)["fwd"][0], kern, plain,
+                       True))
+    return cases
+
+
+def ab_errors(got, ref, stats):
+    """Max abs error of the output (tolerance 2e-2) and, with row stats,
+    their max relative errors (1e-3), as phases 3 and 4 hold them."""
+    import torch
+
+    out, want = (got[0], ref[0]) if stats else (got, ref)
+    errs = {"out": float((out.float() - want.float()).abs().max())}
+    if stats:
+        errs["m_rel"] = float(((got[1] - ref[1]).abs()
+                               / ref[1].abs().clamp_min(1.0)).max())
+        errs["l_rel"] = float(((got[2] - ref[2]).abs() / ref[2]).max())
+    ok = errs["out"] <= 2e-2 and all(errs[n] <= 1e-3 for n in errs
+                                     if n != "out")
+    return errs, ok and bool(torch.isfinite(out).all())
+
+
+def ab_host_us(libs, device, calls=200):
+    """Host microseconds per flash_multi call at a small shape (B 1, N 256,
+    H 16, D 64; LN, rope, kv_bias, valid_len), where the card keeps up: the
+    wrapper, the tensor-map encodes (tma_wgmma) and the launch; every
+    build in turns."""
+    import torch
+
+    from vggt_slam_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    q, k, v = (torch.randn((1, 256, 1024), generator=g, device=device)
+               .to(torch.bfloat16) for _ in range(3))
+    cs = torch.rand((256, 32), generator=g, device=device)
+    ln = tuple(torch.ones(64, device=device) for _ in range(4))
+    kw = dict(num_heads=16, rope_q=(cs, cs), rope_k=(cs, cs), qk_ln=ln,
+              kv_bias=torch.zeros(256, device=device), valid_len=250)
+    smax = A.static_bound(q, k, 16, qk_ln=ln, kv_bias=kw["kv_bias"])
+    names = list(libs)
+    runs = {n: [] for n in names}
+    for name in names + names[::-1]:
+        with using_library(libs[name]):
+            A.flash_multi(q, k, v, smax, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                A.flash_multi(q, k, v, smax, **kw)
+            torch.cuda.synchronize()
+            runs[name].append((time.perf_counter() - t0) / calls * 1e6)
+    return runs
+
+
+def ab_forward(device, dirs):
+    """Each build (`dirs`, then this tree) against its plain version, then
+    timed in turns (first to last, then back), at every head-dim-64 shape
+    of phases 3 and 4; returns the rows (also logged)."""
+    import torch
+
+    from vggt_slam_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    libs = ab_libraries(dirs)
+    log("ab_build", seconds=time.perf_counter() - t0,
+        nvcc_seconds={n: cuda_build.build_seconds.get(
+            f"flash_attention_ab_{n}") for n in libs if n != "tma_wgmma"})
+    names = list(libs)
+    rows = []
+    for name, kernel, bound, kern, plain, stats in ab_cases(device):
+        ref = plain()
+        errs, runs = {}, {n: [] for n in names}
+        for n in names + names[::-1]:
+            with using_library(libs[n]):
+                if n not in errs:
+                    got = kern()
+                    torch.cuda.synchronize()
+                    errs[n], ok = ab_errors(got, ref, stats)
+                    if not ok:
+                        raise AssertionError(f"{n} disagrees with the plain "
+                                             f"version at {name}: {errs[n]}")
+                    del got
+                runs[n].append(cuda_ms(kern, iters=20))
+        ms = {n: sum(r) / len(r) for n, r in runs.items()}
+        row = dict(variant=name, kernel=kernel, stats=stats, bound_ms=bound,
+                   ms=ms, runs=runs, errors=errs,
+                   share_of_bound={n: bound / t for n, t in ms.items()})
+        row["faster_than"] = {n: ms["tma_wgmma"] < t for n, t in ms.items()
+                              if n != "tma_wgmma"}
+        log("ab_forward", **row)
+        rows.append(row)
+        del ref
+    log("ab_host", us_per_call=ab_host_us(libs, device))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 def ptxas_report(build_log) -> tuple[dict, dict]:
     """({kernel: registers}, {kernel: spill-store bytes, where not 0}) from
@@ -1645,6 +1882,10 @@ def main(argv) -> int:
         nvcc_seconds=cuda_build.build_seconds, registers=registers,
         spill_store_bytes=spills)
 
+    if "--ab" in argv:     # the forward's builds in turns, then stop
+        rest = argv[argv.index("--ab") + 1:]
+        ab_forward(device, [d for d in rest if not d.startswith("-")])
+        return 0
     checks = check_kernels(device)
     int8_checks = check_int8_kernels(device)
     train_checks = check_training_kernels(device)
@@ -1702,15 +1943,23 @@ def main(argv) -> int:
         rep = next(c for c in variants if c["variant"] == representative[name])
         train = next(c for c in train_checks
                      if c["variant"] == training_case[name])
+        static = name == "flash_multi"   # the Hopper instance's template
         kernels.append({
             "name": name, "status": "ported", "route": "cuda",
-            "source": "vggt_slam_tpu_torch/csrc/flash_attention.cu",
+            "source": "vggt_slam_tpu_torch/csrc/flash_attention.cu, "
+                      "csrc/flash_sm90.cuh (head dim 64)",
             "replaces": replaces[name], "launches": launches[name],
-            "variant": rep["variant"],
+            "variant": rep["variant"], "design": rep["design"],
+            "designs": {c["variant"]: c["design"] for c in variants
+                        + [t for t in train_checks if t["kernel"] == name]},
+            "registers": {k: v for k, v in registers.items()
+                          if "flash_fwd_sm90" in k and
+                          (("<true" in k or "ILb1" in k) == static)},
             "max_abs_err": max(c["max_abs_err"] for c in variants),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"],
+            "library_prepared_ms": rep["library_prepared_ms"],
             "training_launches": train_launches[name],
             "training_launches_per_step": train_per_step[name],
             "training_variant": train["variant"],

@@ -125,6 +125,46 @@ def test_flash_multi_plain_matches_reference_kernel(name):
     _run(2, B, H, Nq, Nk, D, multi=True, **kw)
 
 
+# The tile edges of the CUDA kernel at head dim 64 (128-row q tiles and
+# 128-key tiles, tests/test_torch_gpu.py): Nq and Nk at 127, 129 and 257,
+# valid_len at 0, 128 and 129; in-kernel LN, rope and kv_bias throughout.
+EDGE_CASES = [
+    # (Nq, Nk, valid_len, multi)
+    (127, 127, None, False), (129, 129, None, False),
+    (257, 257, 128, False), (129, 257, 129, False),
+    (127, 257, 128, True), (257, 129, None, True),
+    (129, 257, 129, True), (257, 257, None, True),
+    (129, 257, 0, False), (129, 257, 0, True),
+]
+
+
+@pytest.mark.parametrize("nq,nk,valid_len,multi", EDGE_CASES)
+def test_plain_matches_reference_kernel_at_tile_edges(nq, nk, valid_len,
+                                                      multi):
+    _run(7, 1, 2, nq, nk, 64, multi=multi, valid_len=valid_len, rope=True,
+         ln=True, bias=True)
+
+
+@pytest.mark.parametrize("softmax", ["online", "static"])
+def test_plain_stats_with_no_valid_key(softmax):
+    """valid_len 0 keeps no key: out is 0, l sums nothing (0, as the CUDA
+    kernels, which load no key tile, write it) and m is the shift the
+    kernels start from, -1e30 online or the static bound."""
+    q, k, v, extra = _inputs(8, 1, 2, 129, 257, 64, rope=True, ln=True,
+                             bias=True)
+    tq, tk, tv = (_torch(x, torch.float32) for x in (q, k, v))
+    tkw = {key: _torch(val, torch.float32) for key, val in extra.items()}
+    smax = (tattn.static_bound(tq, tk, 2, qk_ln=tkw["qk_ln"],
+                               kv_bias=tkw["kv_bias"])
+            if softmax == "static" else None)
+    out, m, l = tattn._plain(tq, tk, tv, 2, 0, tkw["rope_q"], tkw["rope_k"],
+                             tkw["kv_bias"], tkw["qk_ln"], 1e-5, smax, True)
+    assert not out.any() and not l.any()
+    want = (torch.full_like(m, -1e30) if smax is None
+            else smax.float().view(1, 2, 1).expand_as(m))
+    assert torch.equal(m, want)
+
+
 @pytest.mark.parametrize("multi", [False, True])
 def test_bf16_plain_matches_reference_kernel(multi):
     _run(3, 1, 2, 140, 200, 64, multi=multi, dtype="bf16", rope=True,

@@ -35,14 +35,18 @@
 // the H100's ~295 flop/byte ridge, so the tensor cores bound them.
 // Design: the TPU kernel caches the prepared k once per (batch, head); here
 // a small prep kernel writes LN+rope'd k once to a scratch buffer
-// (prep_rows_kernel), and each attention CTA prepares its own q tile. One
-// CTA of 4 warps per (64-row q tile, batch, head) walks 64-key K/V tiles
-// staged in shared memory; QK^T and PV run on mma.sync m16n8k16 bf16 with
-// f32 accumulators that stay in registers (the FlashAttention-2 layout:
-// each warp owns 16 query rows, the softmax state lives in the
-// accumulator fragments, P is repacked into A fragments without touching
-// shared memory); key tiles past valid_len are never loaded. wgmma, TMA
-// and warp specialisation are later work.
+// (prep_rows_kernel), and each attention CTA prepares its own q tile (at
+// head dim 64 the prep kernel prepares q too, see flash_sm90.cuh).
+// bf16 at head dim 64 (every VGGT-1B attention but the camera trunk) runs
+// the Hopper design of flash_sm90.cuh: TMA-fed K/V ring, wgmma for both
+// products, 128-row q tiles. The other routes (bf16 at D = 32 and 128, and
+// the int8 kernels) run flash_fwd_kernel: one CTA of 4 warps per (64-row q
+// tile, batch, head) walks 64-key K/V tiles staged in shared memory; QK^T
+// and PV run on mma.sync m16n8k16 with f32 accumulators that stay in
+// registers (the FlashAttention-2 layout: each warp owns 16 query rows, the
+// softmax state lives in the accumulator fragments, P is repacked into A
+// fragments without touching shared memory); key tiles past valid_len are
+// never loaded.
 //
 // The int8 variants (flash_single_i8_fwd, flash_multi_i8_fwd) replace
 // _flash_kernel with qk_int8=True (vggt_slam_tpu/ops/attention.py:103,
@@ -176,12 +180,14 @@ __device__ __forceinline__ bool prep_row(float (&x)[D / 32], int lane, int n,
   return gamma != nullptr;
 }
 
-// Prepared k rows, written once per call: one warp per (row, head).
+// Prepared rows, written once per call: one warp per (row, head). k at
+// scale 1; at head dim 64 also q, at the softmax scale (flash_sm90.cuh).
 template <int D>
 __global__ void __launch_bounds__(NTHREAD)
     prep_rows_kernel(const __nv_bfloat16* src, __nv_bfloat16* dst, int rows,
                      int N, int H, const float* gamma, const float* beta,
-                     float eps, const float* cos_t, const float* sin_t) {
+                     float eps, const float* cos_t, const float* sin_t,
+                     float scale) {
   constexpr int PER = D / 32;
   const int lane = threadIdx.x % 32;
   const int item = blockIdx.x * NWARP + threadIdx.x / 32;
@@ -191,7 +197,7 @@ __global__ void __launch_bounds__(NTHREAD)
   float x[PER];
 #pragma unroll
   for (int j = 0; j < PER; ++j) x[j] = __bfloat162float(src[base + j]);
-  prep_row<D>(x, lane, row % N, gamma, beta, eps, cos_t, sin_t, 1.f);
+  prep_row<D>(x, lane, row % N, gamma, beta, eps, cos_t, sin_t, scale);
 #pragma unroll
   for (int j = 0; j < PER; ++j) dst[base + j] = __float2bfloat16(x[j]);
 }
@@ -449,20 +455,14 @@ int launch(const ParamsOf<INT8>& p, int B, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-template <bool STATIC, bool INT8>
-int launch_dim(const ParamsOf<INT8>& p, int B, int D, cudaStream_t stream) {
-  return D == 32   ? launch<32, STATIC, INT8>(p, B, stream)
-         : D == 64 ? launch<64, STATIC, INT8>(p, B, stream)
-                   : launch<128, STATIC, INT8>(p, B, stream);
-}
-
 template <int D>
 int launch_prep(const __nv_bfloat16* src, __nv_bfloat16* dst, int B, int N,
                 int H, const float* gamma, const float* beta, float eps,
-                const float* cos_t, const float* sin_t, cudaStream_t stream) {
+                const float* cos_t, const float* sin_t, float scale,
+                cudaStream_t stream) {
   const int blocks = (B * N * H + NWARP - 1) / NWARP;
   prep_rows_kernel<D><<<blocks, NTHREAD, 0, stream>>>(
-      src, dst, B * N, N, H, gamma, beta, eps, cos_t, sin_t);
+      src, dst, B * N, N, H, gamma, beta, eps, cos_t, sin_t, scale);
   return int(cudaGetLastError());
 }
 
@@ -474,6 +474,23 @@ int launch_prep_i8(const __nv_bfloat16* src, int8_t* dst, int B, int N,
   prep_rows_i8_kernel<D><<<blocks, NTHREAD, 0, stream>>>(
       src, dst, B * N, N, H, cos_t, sin_t, inv);
   return int(cudaGetLastError());
+}
+
+}  // namespace
+
+// flash_fwd_sm90: needs Params and launch_prep
+#include "flash_sm90.cuh"
+
+namespace {
+
+template <bool STATIC, bool INT8>
+int launch_dim(const ParamsOf<INT8>& p, int B, int D, cudaStream_t stream) {
+  if (D == 64) {
+    if constexpr (INT8) return launch<64, STATIC, true>(p, B, stream);
+    else return launch_sm90<STATIC>(p, B, stream);
+  }
+  return D == 32 ? launch<32, STATIC, INT8>(p, B, stream)
+                 : launch<128, STATIC, INT8>(p, B, stream);
 }
 
 bool bad_shape(int D, const void* m_out, const void* l_out) {
@@ -503,7 +520,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
     const int err = prep(kp, kw, B, Nk, H, lnf ? lnf + 2 * D : nullptr,
                          lnf ? lnf + 3 * D : nullptr, ln_eps,
                          static_cast<const float*>(cos_k),
-                         static_cast<const float*>(sin_k), st);
+                         static_cast<const float*>(sin_k), 1.f, st);
     if (err != 0) return err;
     kp = kw;
   }

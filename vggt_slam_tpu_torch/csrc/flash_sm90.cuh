@@ -1,0 +1,648 @@
+// Hopper design of the bf16 flash-attention forward at head dim 64, the
+// route of flash_single_fwd and flash_multi_fwd for bf16 q/k/v with D = 64
+// (launch_dim in flash_attention.cu). Included by flash_attention.cu after
+// Params and launch_prep; it computes what flash_fwd_kernel<64, STATIC,
+// false> computes (the formula in that file's header), the same roundings
+// in the same places, except that a softmax weight below 2^-126 flushes to
+// zero (ex2 below).
+//
+// What bounds it: at the main-path shapes ~4 Nq Nk D flops per head on
+// ~(Nq + 2 Nk) D bf16 bytes, above the H100's ridge, so the tensor cores
+// (989 TFLOP/s bf16, reached only through wgmma) and, at D = 64, the exp
+// units (one exp2 per logit, about as many cycles as the two products).
+//
+// Design. A persistent grid of one CTA per SM; a work item is a (128-row q
+// tile, batch * head). A CTA has two consumer warpgroups, warpgroup w
+// owning q rows [64w, 64w + 64) (wgmma's M) and warp i rows [16i, 16i +
+// 16), and one producer warpgroup that hands them its registers
+// (setmaxnreg).
+// - Loads: one producer lane brings each item's Q tile into one of two Q
+//   buffers and its K and V tiles of SM90_BK keys into a ring of
+//   SM90_STAGES slots by TMA (cp.async.bulk.tensor), running ahead across
+//   items, so the next item's loads overlap this one's sweep and epilogue.
+//   The tensor maps are 4-D, (D, H, N, B) with a box of one head, so rows
+//   past N arrive as zeros and never as the next batch's rows; K's and V's
+//   maps end at valid_len, so masked V rows are exact zeros. kv_bias comes
+//   with its K tile through a 1-D map, so the softmax reads it from shared
+//   memory (L1 stays free for the rope tables). Every buffer
+//   has a "full" mbarrier (expect_tx of its bytes) and an "empty" one that
+//   the eight consumer warps arrive on after their last read of it, on
+//   which the producer waits before it refills it. A tile row is D = 64
+//   bf16 = 128 bytes, loaded with the 128-byte swizzle, which is wgmma's
+//   128B-swizzle layout.
+// - q with LN or rope is prepared before the kernel by prep_rows_kernel
+//   (prep_row: LN, rope with the softmax scale, bf16 rounds) into the
+//   output buffer, which the kernel loads Q from; without them the kernel
+//   scales its Q tile in place. Then fence.proxy.async and a warpgroup
+//   barrier hand it to wgmma.
+// - S = Q K^T: wgmma m64n128k16, both operands from shared memory
+//   (K-major), 4 k-steps, f32 accumulators in registers. Per warp the
+//   accumulator is mma.sync's m16n8 C layout repeated over the 16 key
+//   n-tiles, so the bias, mask and online or static softmax are
+//   flash_fwd_kernel's.
+// - O += P V: wgmma m64n64k16 with P as the register A operand (mma.sync's
+//   A layout, so P packs as before) and V from shared memory MN-major
+//   (transpose bit), 8 k-steps per tile.
+// - Pipeline: QK^T of tile t + 1 is issued before PV of tile t, and the
+//   softmax of tile t + 1 runs while PV of tile t is on the tensor cores;
+//   O is rescaled once PV(t) is done, then P(t + 1) is packed. The two
+//   warpgroups take turns to issue (ping-pong), so one's softmax also
+//   overlaps the other's products.
+// - Epilogue: O / max(l, 1e-30) stored as bf16 straight from registers,
+//   rows masked at Nq; m and l where requested.
+#pragma once
+
+#include <cuda.h>
+
+namespace {
+
+using namespace flash;
+
+constexpr int SM90_BQ = 128;            // q rows per CTA
+constexpr int SM90_BK = 128;            // keys per tile
+constexpr int SM90_STAGES = 3;          // K/V ring depth
+constexpr int SM90_THREADS = 384;       // 2 consumer warpgroups, 1 producer
+constexpr int SM90_TILE = 128 * 128;    // bytes of one 128-row tile
+constexpr int SM90_BIAS = SM90_BK * 4;  // bytes of one kv_bias tile
+// 1 KB of alignment slack, two Q buffers, the K, V and kv_bias rings, 3
+// barriers a ring slot and 2 a Q buffer.
+constexpr size_t SM90_SMEM = 1024 + (2 + 2 * SM90_STAGES) * SM90_TILE +
+                             SM90_STAGES * SM90_BIAS +
+                             8 * (3 * SM90_STAGES + 4);
+
+struct ParamsSm90 {
+  CUtensorMap tq, tk, tv, tb;   // tb: kv_bias, where given
+  Params a;
+  int n_qt, items;   // q tiles per (batch, head); work items (q tile, b*h)
+};
+
+// Shared memory of one CTA: the 1 KB-aligned base of the Q buffers, the
+// rings after them, the barriers last.
+struct Sm90Smem {
+  uint32_t q, k, v, bias, full_k, full_v, empty, q_full, q_empty;
+  __device__ explicit Sm90Smem(uint32_t base)
+      : q(base), k(base + 2 * SM90_TILE),
+        v(k + SM90_STAGES * SM90_TILE),
+        bias(v + SM90_STAGES * SM90_TILE),
+        full_k(bias + SM90_STAGES * SM90_BIAS),
+        full_v(full_k + 8 * SM90_STAGES), empty(full_v + 8 * SM90_STAGES),
+        q_full(empty + 8 * SM90_STAGES), q_empty(q_full + 16) {}
+};
+
+// Byte offset of 16-byte chunk c of row r in a 128B-swizzled tile.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + (((c ^ r) & 7) << 4);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete. A phase that never
+// completes (a fault in the barrier protocol) traps after 2^30 polls, so
+// the launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (polls == (1u << 30)) __trap();
+  }
+}
+
+// Keys [k0, k0 + SM90_BK) of kv_bias (a 1-D map) into shared memory.
+__device__ __forceinline__ void tma_load_bias(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int k0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0) : "memory");
+}
+
+// Rows [row, row + box) of head h of batch b into a swizzled tile.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int h, int row,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h),
+      "r"(row), "r"(b) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128B-swizzled tile: 8-row atoms of
+// 1024 bytes (stride byte offset 64 x 16 B); the leading offset is unused
+// when the operand's contiguous extent is one 128-byte row (K-major Q and
+// K at D = 64, MN-major V with N = 64).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(64) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma region.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+  }
+}
+
+#define SM90_F4(d, j) \
+  "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+
+// d (64 x 128 per warpgroup) = or += A (64 x 16, smem) B^T (128 x 16, smem).
+__device__ __forceinline__ void wgmma_qk(float (&d)[16][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SM90_F4(d, 0), SM90_F4(d, 1), SM90_F4(d, 2), SM90_F4(d, 3),
+        SM90_F4(d, 4), SM90_F4(d, 5), SM90_F4(d, 6), SM90_F4(d, 7),
+        SM90_F4(d, 8), SM90_F4(d, 9), SM90_F4(d, 10), SM90_F4(d, 11),
+        SM90_F4(d, 12), SM90_F4(d, 13), SM90_F4(d, 14), SM90_F4(d, 15)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 per warpgroup) += A (64 x 16, registers) B (16 x 64, smem,
+// MN-major).
+__device__ __forceinline__ void wgmma_pv(float (&d)[8][4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : SM90_F4(d, 0), SM90_F4(d, 1), SM90_F4(d, 2), SM90_F4(d, 3),
+        SM90_F4(d, 4), SM90_F4(d, 5), SM90_F4(d, 6), SM90_F4(d, 7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef SM90_F4
+
+// 2^x in one MUFU.EX2: exp2f's own instruction without the three that
+// keep results below 2^-126 subnormal; those flush to 0 here. Below a row's
+// running max that is invisible (l >= 1, P rounds to bf16); with the static
+// bound it zeroes keys more than 126 below the bound.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Bias, mask and softmax of one S tile (flash_fwd_kernel's arithmetic):
+// updates the row shift m and the partial row sum l, sets c to the factor
+// O must be rescaled by before this tile's PV, and leaves p = exp2(s - m)
+// in s.
+// `bias` is the tile's kv_bias in shared memory (null without kv_bias).
+template <bool STATIC, int NT>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[NT][4], int k0, int vl, const float* bias, int t,
+    float& m_lo, float& m_hi, float& l_lo, float& l_hi, float& c_lo,
+    float& c_hi) {
+  // Each check is taken once per tile, so the unrolled loops stay
+  // straight-line code.
+  if (bias != nullptr) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {   // keys 2t, 2t + 1 of n-tile j
+      const float2 bb = *reinterpret_cast<const float2*>(bias + j * 8 + 2 * t);
+      s[j][0] += bb.x * LOG2E;
+      s[j][1] += bb.y * LOG2E;
+      s[j][2] += bb.x * LOG2E;
+      s[j][3] += bb.y * LOG2E;
+    }
+  }
+  if (k0 + NT * 8 > vl) {   // the last tile: mask keys at or past vl
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + j * 8 + 2 * t + (e & 1) >= vl) s[j][e] = NEG_INF;
+    }
+  }
+  float mx_lo = NEG_INF, mx_hi = NEG_INF;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+  }
+  c_lo = c_hi = 1.f;
+  if (!STATIC) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    const float n_lo = fmaxf(m_lo, mx_lo), n_hi = fmaxf(m_hi, mx_hi);
+    c_lo = ex2(m_lo - n_lo);
+    c_hi = ex2(m_hi - n_hi);
+    m_lo = n_lo;
+    m_hi = n_hi;
+    l_lo *= c_lo;
+    l_hi *= c_hi;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    s[j][0] = ex2(s[j][0] - m_lo);
+    s[j][1] = ex2(s[j][1] - m_lo);
+    s[j][2] = ex2(s[j][2] - m_hi);
+    s[j][3] = ex2(s[j][3] - m_hi);
+    l_lo += s[j][0] + s[j][1];
+    l_hi += s[j][2] + s[j][3];
+  }
+}
+
+// Ping-pong: the two consumer warpgroups take turns to issue their wgmma
+// groups (named barriers 3 and 4; warpgroup 1 hands warpgroup 0 the first
+// turn), so one's softmax overlaps the other's products.
+#define SM90_TURN() \
+  asm volatile("bar.sync %0, 256;" ::"r"(3 + warp / 4) : "memory")
+#define SM90_PASS() \
+  asm volatile("bar.arrive %0, 256;" ::"r"(4 - warp / 4) : "memory")
+
+// The consumer warps' part of flash_fwd_sm90: for each work item, q
+// preparation, the key sweep and the epilogue.
+template <bool STATIC>
+__device__ __forceinline__ void consume(const ParamsSm90& P,
+                                        unsigned char* Q0, const Sm90Smem& sm,
+                                        int warp, int lane) {
+  constexpr int NT = SM90_BK / 8;    // 8-key n-tiles of S
+  constexpr int DT = 64 / 8;         // 8-dim n-tiles of O
+  constexpr int S = SM90_STAGES;
+  const Params& p = P.a;
+  const int g = lane / 4, t = lane % 4;     // fragment coordinates
+  const int vl = min(p.valid_len, p.Nk);
+  const int ntiles = (vl + SM90_BK - 1) / SM90_BK;
+  float o[DT][4], s[NT][4];
+  uint32_t pa[SM90_BK / 16][4];   // P as A fragments, one per 16-key step
+  float m_lo, m_hi, l_lo, l_hi, c_lo, c_hi;
+
+  if (warp / 4 == 1 && ntiles > 0 && blockIdx.x < P.items)
+    asm volatile("bar.arrive 3, 256;" ::: "memory");
+  int it = 0;
+  for (int item = blockIdx.x; item < P.items; item += gridDim.x, ++it) {
+    const int bh = item / P.n_qt, q0 = (item % P.n_qt) * SM90_BQ;
+    const int b = bh / p.H, h = bh % p.H;
+    const int qb = it % 2;                    // Q buffer
+    unsigned char* Qs = Q0 + qb * SM90_TILE;
+    const uint32_t q_desc = sm.q + qb * SM90_TILE + (warp / 4) * 64 * 128;
+    const int kv0 = it * ntiles;   // ring index of the item's first tile
+
+    // q arrives prepared (launch_sm90), or needs only the softmax scale,
+    // applied here in place: warp i its 16 rows; lane l holds dims 2l,
+    // 2l + 1 (16-byte chunk l / 4, bytes 4 (l % 4) within it), rounded to
+    // bf16 as prep_row does. Each warpgroup reads only its own rows.
+    mbar_wait(sm.q_full + 8 * qb, (it / 2) & 1);
+    if (p.q_scale != 1.f) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        auto* cell = reinterpret_cast<__nv_bfloat162*>(
+            Qs + swz(warp * 16 + i, lane / 4) + (lane % 4) * 4);
+        const float2 f = __bfloat1622float2(*cell);
+        *cell = __floats2bfloat162_rn(f.x * p.q_scale, f.y * p.q_scale);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + warp / 4) : "memory");
+
+#pragma unroll
+    for (int i = 0; i < DT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+    m_lo = m_hi = STATIC ? p.smax[bh] : NEG_INF;
+    l_lo = l_hi = 0.f;
+
+    // S = Q_w K^T of `tile` into s, issued (asynchronous, committed).
+    auto issue_qk = [&](int tile) {
+      const int i = (kv0 + tile) % S;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      mbar_wait(sm.full_k + 8 * i, ((kv0 + tile) / S) & 1);
+      reg_fence(s);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_qk(s, sw128_desc(q_desc + ks * 32),
+                 sw128_desc(sm.k + i * SM90_TILE + ks * 32), ks);
+      wgmma_commit();
+    };
+    // O += P V of `tile`, issued (asynchronous, committed).
+    auto issue_pv = [&](int tile) {
+      const int i = (kv0 + tile) % S;
+      mbar_wait(sm.full_v + 8 * i, ((kv0 + tile) / S) & 1);
+      reg_fence(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < SM90_BK / 16; ++kk)
+        wgmma_pv(o, pa[kk], sw128_desc(sm.v + i * SM90_TILE + kk * 2048));
+      wgmma_commit();
+    };
+    // p (in s) as bf16 A fragments: keys 16kk + 2t.. in n-tile 2kk, + 8 in
+    // n-tile 2kk + 1.
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        pa[j / 2][2 * (j % 2)] = pack_bf16(s[j][0], s[j][1]);
+        pa[j / 2][2 * (j % 2) + 1] = pack_bf16(s[j][2], s[j][3]);
+      }
+    };
+    // The kv_bias of `tile` (arrived with its K tile), or null.
+    auto bias_tile = [&](int tile) -> const float* {
+      if (p.kv_bias == nullptr) return nullptr;
+      return reinterpret_cast<const float*>(
+          Q0 + (2 + 2 * S) * SM90_TILE + ((kv0 + tile) % S) * SM90_BIAS);
+    };
+    // Release a ring slot: the producer refills it once all eight consumer
+    // warps are done with it.
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    // Software pipeline: while PV(tile) runs on the tensor cores, QK^T of
+    // tile + 1 has been issued ahead of it and its softmax runs on the SM.
+    // The steady-state body has no branch around a wgmma, so ptxas keeps
+    // both groups in flight; the last tile's PV follows the loop.
+    if (ntiles > 0) {
+      SM90_TURN();
+      issue_qk(0);
+      SM90_PASS();
+      wgmma_wait<0>();
+      reg_fence(s);
+      softmax_tile<STATIC>(s, 0, vl, bias_tile(0), t, m_lo, m_hi, l_lo,
+                           l_hi, c_lo, c_hi);
+      pack_p();
+      for (int tile = 0; tile + 1 < ntiles; ++tile) {
+        SM90_TURN();
+        issue_qk(tile + 1);
+        issue_pv(tile);
+        SM90_PASS();
+        // QK^T of tile + 1 is done (committed before PV, the one group
+        // that may still run)
+        wgmma_wait<1>();
+        reg_fence(s);
+        softmax_tile<STATIC>(s, (tile + 1) * SM90_BK, vl, bias_tile(tile + 1),
+                             t, m_lo, m_hi, l_lo, l_hi, c_lo, c_hi);
+        wgmma_wait<0>();
+        reg_fence(o);
+        release(sm.empty + 8 * ((kv0 + tile) % S));
+#pragma unroll
+        for (int d = 0; d < DT; ++d) {
+          o[d][0] *= c_lo;
+          o[d][1] *= c_lo;
+          o[d][2] *= c_hi;
+          o[d][3] *= c_hi;
+        }
+        pack_p();
+      }
+      SM90_TURN();
+      issue_pv(ntiles - 1);
+      // warpgroup 1's last turn passes none: warpgroup 0 has no more
+      if (warp / 4 == 0 || item + gridDim.x < P.items) SM90_PASS();
+      wgmma_wait<0>();
+      reg_fence(o);
+      release(sm.empty + 8 * ((kv0 + ntiles - 1) % S));
+    }
+    release(sm.q_empty + 8 * qb);   // the Q buffer too
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
+    const float r_lo = 1.f / fmaxf(l_lo, 1e-30f);
+    const float r_hi = 1.f / fmaxf(l_hi, 1e-30f);
+    const int n_lo = q0 + warp * 16 + g, n_hi = n_lo + 8;
+    if (p.m_out != nullptr && t == 0) {
+      const size_t row = size_t(bh) * p.Nq;
+      if (n_lo < p.Nq) {
+        p.m_out[row + n_lo] = m_lo;
+        p.l_out[row + n_lo] = l_lo;
+      }
+      if (n_hi < p.Nq) {
+        p.m_out[row + n_hi] = m_hi;
+        p.l_out[row + n_hi] = l_hi;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      const int d = i * 8 + 2 * t;
+      if (n_lo < p.Nq)
+        *reinterpret_cast<__nv_bfloat162*>(
+            p.o + ((size_t(b) * p.Nq + n_lo) * p.H + h) * 64 + d) =
+            __floats2bfloat162_rn(o[i][0] * r_lo, o[i][1] * r_lo);
+      if (n_hi < p.Nq)
+        *reinterpret_cast<__nv_bfloat162*>(
+            p.o + ((size_t(b) * p.Nq + n_hi) * p.H + h) * 64 + d) =
+            __floats2bfloat162_rn(o[i][2] * r_hi, o[i][3] * r_hi);
+    }
+  }
+}
+
+// A persistent grid: CTA c takes work items c, c + gridDim.x, ..., item =
+// q tile + n_qt * (batch * head), so neighbouring CTAs share K and V in L2.
+template <bool STATIC>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    flash_fwd_sm90(const __grid_constant__ ParamsSm90 P) {
+  constexpr int S = SM90_STAGES;
+  const Params& p = P.a;
+  extern __shared__ unsigned char sm90_raw[];
+  const uint32_t raw = smem_addr(sm90_raw);
+  const Sm90Smem sm((raw + 1023) & ~1023u);   // 128B swizzle: 1 KB aligned
+  unsigned char* Q0 = sm90_raw + (sm.q - raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int vl = min(p.valid_len, p.Nk);
+  const int ntiles = (vl + SM90_BK - 1) / SM90_BK;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(sm.full_k + 8 * i, 1);
+      mbar_init(sm.full_v + 8 * i, 1);
+      mbar_init(sm.empty + 8 * i, 8);     // one arrival per consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(sm.q_full + 8 * i, 1);
+      mbar_init(sm.q_empty + 8 * i, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Warp specialisation: the producer warpgroup hands registers to the two
+  // consumer warpgroups (128 threads each at 40, 232 and 232: 64,512 of the
+  // SM's 65,536); their paths never meet again.
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {   // one lane issues every load
+      int it = 0;
+      for (int item = blockIdx.x; item < P.items; item += gridDim.x, ++it) {
+        const int bh = item / P.n_qt, q0 = (item % P.n_qt) * SM90_BQ;
+        const int b = bh / p.H, h = bh % p.H;
+        const int qb = it % 2;
+        if (it >= 2) mbar_wait(sm.q_empty + 8 * qb, ((it / 2) & 1) ^ 1);
+        mbar_expect_tx(sm.q_full + 8 * qb, SM90_TILE);
+        tma_load(sm.q + qb * SM90_TILE, &P.tq, sm.q_full + 8 * qb, h, q0, b);
+        for (int tile = 0; tile < ntiles; ++tile) {
+          const int kv = it * ntiles + tile, i = kv % S;
+          if (kv >= S) mbar_wait(sm.empty + 8 * i, ((kv / S) & 1) ^ 1);
+          mbar_expect_tx(sm.full_k + 8 * i,
+                         SM90_TILE + (p.kv_bias ? SM90_BIAS : 0));
+          tma_load(sm.k + i * SM90_TILE, &P.tk, sm.full_k + 8 * i, h,
+                   tile * SM90_BK, b);
+          if (p.kv_bias != nullptr)
+            tma_load_bias(sm.bias + i * SM90_BIAS, &P.tb, sm.full_k + 8 * i,
+                          tile * SM90_BK);
+          mbar_expect_tx(sm.full_v + 8 * i, SM90_TILE);
+          tma_load(sm.v + i * SM90_TILE, &P.tv, sm.full_v + 8 * i, h,
+                   tile * SM90_BK, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    consume<STATIC>(P, Q0, sm, warp, lane);
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver at run time: the library
+// is linked without -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                         cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      f = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault) != cudaSuccess)
+      f = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// 4-D map (64, H, n, B) of a packed (B, N, H*64) bf16 tensor, cut at
+// n <= N rows: a box is `rows` rows of one head, 128B-swizzled; rows at or
+// past n read as zeros.
+int encode_heads(CUtensorMap* map, const void* ptr, int B, int N, int n,
+                 int H, int rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return int(cudaErrorNotSupported);
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+    return int(cudaErrorMisalignedAddress);
+  const cuuint64_t dims[4] = {64, cuuint64_t(H), cuuint64_t(n),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {128, 128ull * H, 128ull * H * N};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
+}
+
+// 1-D map of kv_bias cut at vl keys: a box is one key tile; keys at or past
+// vl read as zeros.
+int encode_bias(CUtensorMap* map, const float* ptr, int vl) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return int(cudaErrorNotSupported);
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+    return int(cudaErrorMisalignedAddress);
+  const cuuint64_t dims[1] = {cuuint64_t(vl)}, strides[1] = {0};  // unused
+  const cuuint32_t box[1] = {SM90_BK}, step[1] = {1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
+}
+
+// q with LN or rope is prepared by prep_rows_kernel into the output
+// buffer, from which the kernel loads it: each work item reads its q rows
+// before it writes the same rows, and no item touches another's.
+template <bool STATIC>
+int launch_sm90(const Params& a, int B, cudaStream_t stream) {
+  ParamsSm90 P{};
+  P.a = a;
+  if (a.ln != nullptr || a.cos_q != nullptr) {
+    const int err = launch_prep<64>(a.q, a.o, B, a.Nq, a.H, a.ln,
+                                    a.ln ? a.ln + 64 : nullptr, a.ln_eps,
+                                    a.cos_q, a.sin_q, a.q_scale, stream);
+    if (err != 0) return err;
+    P.a.q = a.o;
+    P.a.ln = P.a.cos_q = P.a.sin_q = nullptr;
+    P.a.q_scale = 1.f;
+  }
+  const int vl = a.valid_len < a.Nk ? a.valid_len : a.Nk;
+  int err = encode_heads(&P.tq, P.a.q, B, a.Nq, a.Nq, a.H, SM90_BQ);
+  if (err == 0 && vl > 0)
+    err = encode_heads(&P.tk, a.k, B, a.Nk, vl, a.H, SM90_BK);
+  if (err == 0 && vl > 0)
+    err = encode_heads(&P.tv, a.v, B, a.Nk, vl, a.H, SM90_BK);
+  if (err == 0 && vl > 0 && a.kv_bias != nullptr)
+    err = encode_bias(&P.tb, a.kv_bias, vl);
+  if (err != 0) return err;
+  const auto kernel = flash_fwd_sm90<STATIC>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SM90_SMEM));
+  if (e != cudaSuccess) return int(e);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  P.n_qt = (a.Nq + SM90_BQ - 1) / SM90_BQ;
+  P.items = P.n_qt * B * a.H;
+  const int grid = P.items < sms ? P.items : sms;
+  kernel<<<grid, SM90_THREADS, SM90_SMEM, stream>>>(P);
+  return int(cudaGetLastError());
+}
+
+}  // namespace

@@ -229,6 +229,8 @@ def _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias, qk_ln,
         else:
             m = smax.float().view(B, H, 1, 1)
         p = torch.exp2(logits - m)
+        if vl < Nk:   # masked keys add nothing to l, in a row of no key too
+            p = torch.where(keep, p, 0.0)
         lsum = p.sum(-1, keepdim=True)
         o = torch.matmul(p.to(v.dtype).float(), vf) / lsum.clamp_min(1e-30)
         out[:, :, s:s + q_chunk] = o.to(q.dtype)
@@ -304,9 +306,13 @@ def bwd_kernel_library():
 
 
 def _f32(t, shape, name, device):
+    """t as a contiguous f32 tensor on `device`, 16-byte aligned (the TMA
+    maps of the head-dim-64 kernel read kv_bias with it)."""
     if t is None:
         return None
     t = t.to(device=device, dtype=torch.float32).contiguous()
+    if t.data_ptr() % 16:
+        t = t.clone()
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {shape}, got "
                          f"{tuple(t.shape)}")
@@ -333,7 +339,9 @@ def _head_dim(HD, num_heads):
 
 
 def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
-            qk_ln, qk_ln_eps, smax, return_stats, qk_int8):
+            qk_ln, qk_ln_eps, smax, return_stats, qk_int8, out=None):
+    """Launch `entry` on packed q, k, v; `out` (q's shape and dtype) is
+    written in place when given, else allocated."""
     _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln, qk_int8)
     dev = q.device
     _check_cuda_tensors(dev, (("q", q), ("k", k), ("v", v)))
@@ -342,7 +350,12 @@ def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
     H = num_heads
     D = _head_dim(HD, H)
     vl = Nk if valid_len is None else max(0, min(int(valid_len), Nk))
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
+    else:
+        _check_cuda_tensors(dev, (("out", out),))
+        if out.shape != q.shape:
+            raise ValueError(f"out {tuple(out.shape)} != q {tuple(q.shape)}")
     m = lsum = None
     if return_stats:
         m = torch.empty(B, H, Nq, dtype=torch.float32, device=dev)

@@ -44,12 +44,13 @@ def nvcc_path() -> str:
                        "use and need the CUDA toolkit")
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu into lib<name>.so if stale; return its path."""
-    src = os.path.join(CSRC, f"{name}.cu")
+def build(name: str, src: str | None = None) -> str:
+    """Compile `src` (default csrc/<name>.cu) into lib<name>.so if stale;
+    return its path."""
+    src = src or os.path.join(CSRC, f"{name}.cu")
     lib = os.path.join(BUILD_DIR, f"lib{name}.so")
-    newest = max(os.path.getmtime(f) for f in
-                 [src] + glob.glob(os.path.join(CSRC, "*.cuh")))
+    newest = max(os.path.getmtime(f) for f in [src] + glob.glob(
+        os.path.join(os.path.dirname(src), "*.cuh")))
     if os.path.exists(lib) and os.path.getmtime(lib) >= newest:
         build_seconds.setdefault(name, 0.0)
         return lib
@@ -79,12 +80,12 @@ def build_all() -> list[str]:
         return list(pool.map(build, names))
 
 
-def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """Build if needed, load, and declare `signatures` {fn: (argtypes,
-    restype)} on the library."""
+def load(name: str, signatures: dict, src: str | None = None) -> ctypes.CDLL:
+    """Build if needed (see `build`), load, and declare `signatures` {fn:
+    (argtypes, restype)} on the library."""
     with _lock:
         if name not in _loaded:
-            lib = ctypes.CDLL(build(name))
+            lib = ctypes.CDLL(build(name, src))
             for fn, (argtypes, restype) in signatures.items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
