@@ -14,10 +14,12 @@ Phases, one line of output each (and the contract lines at the end):
   2. build the CUDA kernels from vggt_slam_tpu_torch/csrc with nvcc, one
      process per source, all at once;
   3. hold each forward kernel against its plain PyTorch version at the SLAM
-     path's shapes (max abs / rel error, kernel / plain / SDPA times, bound;
-     the design each shape ran, from the names of the kernels it launched;
-     SDPA on the prepared q and k where the
-     kernel applies LN and rope itself);
+     path's shapes, VGGT-1B's and the small model's (head dim 32) (max abs /
+     rel error, kernel / plain / SDPA times, bound with the unit that sets
+     it; the design each shape ran, from the C launcher's counts of the
+     kernels it launched, which must be flash_sm90.cuh's at head dims 32
+     and 64; SDPA on the prepared q and k where the kernel applies LN and
+     rope itself);
   4. hold the training kernels (the forward kernels' stats variant, dq and
      dkv) against their plain versions at the training shapes, with the
      kernel and plain times, SDPA's forward and forward+backward times and
@@ -36,7 +38,9 @@ Phases, one line of output each (and the contract lines at the end):
      loss, step time, peak memory and launches per step; the loss and every
      gradient must be finite and the loss must fall;
   9. the train_tiny CLI on the small model for 6 steps, whose checkpoint
-     must load into the port's VGGT and give a finite forward on the card.
+     must load into the port's VGGT and give a finite forward on the card,
+     with the launches of that forward (counts set to 0 just before it:
+     18 flash_single, 6 flash_multi) and its design (flash_sm90.cuh).
 And, for the --qk_int8 path and the fused DPT tail:
   A. the int8 kernels (flash_multi_i8, flash_single_i8) against their plain
      versions at the SLAM global shape (18-frame bucket, merged K/V, rope,
@@ -70,11 +74,12 @@ And, for the matmul-shape probes of scripts/bench_matmul_shapes.py:
      shapes against their plain version with three controls, launches,
      ptxas registers per instance, times beside bounds and torch.bmm.
 Phases E, F and G run under --kernels-only too. With --ab DIR... the
-script builds the kernels, then times the bf16 forward at every
-head-dim-64 shape of phases 3 and 4 in turns (each DIR's
+script builds the kernels, then times the bf16 forward at every shape of
+phases 3 and 4 (head dims 32, 64 and 128) in turns (each DIR's
 flash_attention.cu, built with the headers beside it and named after its
 folder, then this tree's), each held against its plain version first,
-with the host cost per call, and stops without the result lines.
+beside SDPA and the bound, with the host cost per call at two shapes, and
+stops without the result lines.
 The last lines are the kernels JSON object and {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero with no result line. It
 needs a CUDA device and imports nothing of JAX, OpenCV or the JAX package.
@@ -82,6 +87,7 @@ needs a CUDA device and imports nothing of JAX, OpenCV or the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -134,7 +140,9 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 def main_path_attention_cases(device):
     """The attention calls of one bucketed VGGT-1B forward (S = 16 + 1 + 1
     frames, 392x518 -> 28x37 patches + 5 special tokens = 1041 tokens per
-    frame, global K/V sim-merged at stride 16, the last frame padding)."""
+    frame, global K/V sim-merged at stride 16, the last frame padding), and
+    those of VGGTConfig.small at the same tokens (4 heads of 32; the
+    encoder, frame and global blocks, 4, 6 and 6 a forward)."""
     import torch
 
     from vggt_slam_tpu_torch.models.vggt.modules import rope_2d_angles
@@ -151,17 +159,20 @@ def main_path_attention_cases(device):
     yy, xx = torch.meshgrid(torch.arange(1, h + 1, device=device).float(),
                             torch.arange(1, w + 1, device=device).float(),
                             indexing="ij")
-    cos_p, sin_p = rope_2d_angles(
-        torch.stack([yy.reshape(-1), xx.reshape(-1)], -1), 64, 100.0)
-    cos = torch.cat([torch.ones(ns, 32, device=device), cos_p])
-    sin = torch.cat([torch.zeros(ns, 32, device=device), sin_p])
 
-    def ln_params():
-        return (1.0 + 0.1 * torch.randn(64, generator=g, device=device),
-                0.05 * torch.randn(64, generator=g, device=device),
-                1.0 + 0.1 * torch.randn(64, generator=g, device=device),
-                0.05 * torch.randn(64, generator=g, device=device))
+    def rope(D):
+        cos_p, sin_p = rope_2d_angles(
+            torch.stack([yy.reshape(-1), xx.reshape(-1)], -1), D, 100.0)
+        return (torch.cat([torch.ones(ns, D // 2, device=device), cos_p]),
+                torch.cat([torch.zeros(ns, D // 2, device=device), sin_p]))
 
+    def ln_params(D=64):
+        return (1.0 + 0.1 * torch.randn(D, generator=g, device=device),
+                0.05 * torch.randn(D, generator=g, device=device),
+                1.0 + 0.1 * torch.randn(D, generator=g, device=device),
+                0.05 * torch.randn(D, generator=g, device=device))
+
+    cos, sin = rope(64)
     per_frame = ns + len(range(0, h * w, 16))                     # 70
     nk = N + (S - 1) * per_frame                                  # 2231
     kv_idx = torch.cat([torch.arange(N, device=device)] + [
@@ -172,6 +183,9 @@ def main_path_attention_cases(device):
     kv_bias = torch.where(torch.arange(nk, device=device) < N, 0.0,
                           torch.log(counts))
     cos_g, sin_g = cos.repeat(S, 1), sin.repeat(S, 1)
+    cos32, sin32 = rope(32)
+    cos32_g, sin32_g = cos32.repeat(S, 1), sin32.repeat(S, 1)
+    hs = 4                                          # VGGTConfig.small
     return [
         dict(name="encoder", kernel="flash_single", launches_per_forward=24,
              q=rnd(S, N, H * 64), k=rnd(S, N, H * 64), v=rnd(S, N, H * 64),
@@ -194,13 +208,51 @@ def main_path_attention_cases(device):
                      rope_k=(cos_g[kv_idx], sin_g[kv_idx]),
                      qk_ln=ln_params(), kv_bias=kv_bias,
                      valid_len=N + (valid_frames - 1) * per_frame)),
+        dict(name="small_encoder", kernel="flash_single",
+             launches_per_forward=4,
+             q=rnd(S, N, hs * 32), k=rnd(S, N, hs * 32), v=rnd(S, N, hs * 32),
+             kw=dict(num_heads=hs)),
+        dict(name="small_frame_block", kernel="flash_single",
+             launches_per_forward=6,
+             q=rnd(S, N, hs * 32), k=rnd(S, N, hs * 32), v=rnd(S, N, hs * 32),
+             kw=dict(num_heads=hs, rope_q=(cos32, sin32),
+                     rope_k=(cos32, sin32), qk_ln=ln_params(32))),
+        dict(name="small_global_block", kernel="flash_multi",
+             launches_per_forward=6,
+             q=rnd(1, S * N, hs * 32), k=rnd(1, nk, hs * 32),
+             v=rnd(1, nk, hs * 32),
+             kw=dict(num_heads=hs, rope_q=(cos32_g, sin32_g),
+                     rope_k=(cos32_g[kv_idx], sin32_g[kv_idx]),
+                     qk_ln=ln_params(32), kv_bias=kv_bias,
+                     valid_len=N + (valid_frames - 1) * per_frame)),
     ]
 
 
-def attention_bound_ms(case, int8=False) -> tuple[float, str]:
-    """Least H100 time for the call: bytes read once and written once over
-    the HBM rate, against the tensor-core flops over the bf16 peak (with
-    `int8`, QK^T's half of them over the int8 peak)."""
+@functools.lru_cache(maxsize=None)
+def ex2_per_s() -> float:
+    """The card's exp2 rate: MUFU.EX2 at 16 per SM per clock at its SM
+    count and maximum SM clock (bench_attention.sfu_rate)."""
+    import torch
+
+    from vggt_slam_tpu_torch.scripts.bench_attention import sfu_rate
+    return sfu_rate(torch.device("cuda", 0))[0]
+
+
+def least_ms(t_tensor, n_exp2, nbytes) -> tuple[float, str, str]:
+    """The bound of a call from its tensor-core time (ms), its exp2 count and
+    its bytes: (ms, "operations" or "bytes", which unit: "tensor cores",
+    "exp units" or "bytes")."""
+    terms = {"tensor cores": t_tensor, "exp units": n_exp2 / ex2_per_s() * 1e3,
+             "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    unit = max(terms, key=terms.get)
+    return terms[unit], "bytes" if unit == "bytes" else "operations", unit
+
+
+def attention_bound_ms(case, int8=False) -> tuple[float, str, str]:
+    """Least H100 time for the call (`least_ms`): bytes read once and
+    written once over the HBM rate, against the tensor-core flops over the
+    bf16 peak (with `int8`, QK^T's half of them over the int8 peak) and one
+    exp2 per valid logit over the card's exp2 rate."""
     q, k, v, kw = case["q"], case["k"], case["v"], case["kw"]
     B, Nq, HD = q.shape
     Nk = k.shape[1]
@@ -213,9 +265,7 @@ def attention_bound_ms(case, int8=False) -> tuple[float, str]:
         nbytes += 4 * nk_used
     t_ops = (half / (INT8_PEAK_OPS if int8 else BF16_PEAK_FLOPS)
              + half / BF16_PEAK_FLOPS) * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    return least_ms(t_ops, B * kw["num_heads"] * Nq * nk_used, nbytes)
 
 
 def sdpa_call(case):
@@ -271,23 +321,34 @@ def sdpa_prepared_call(case):
 
 
 def launched_design(fn) -> str:
-    """The design that fn(), one forward call, ran, read from the names of
-    the kernels it launched under torch.profiler: "tma_wgmma" for
-    flash_fwd_sm90 (csrc/flash_sm90.cuh), "mma_sync" for flash_fwd_kernel."""
+    """The design that fn(), one forward call, ran: the forward launches by
+    design that the C launcher counted during it, "tma_wgmma" for
+    flash_fwd_sm90 (csrc/flash_sm90.cuh), "mma_sync" for flash_fwd_kernel.
+    (torch.profiler on the card has lost every kernel record of such a
+    short profile, so the kernels' names are not read here.)"""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from vggt_slam_tpu_torch.ops import attention as A
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = " ".join(e.key for e in prof.key_averages())
-    found = [d for d, k in (("tma_wgmma", "flash_fwd_sm90"),
-                            ("mma_sync", "flash_fwd_kernel")) if k in names]
+    before = A.forward_design_launches()
+    fn()
+    torch.cuda.synchronize()
+    ran = {d: n - before[d] for d, n in A.forward_design_launches().items()}
+    found = [d for d, n in ran.items() if n > 0]
     if len(found) != 1:
         raise AssertionError(f"no single forward design among the kernels "
-                             f"launched: {names[:400]}")
+                             f"launched: {ran}")
     return found[0]
+
+
+def expect_design(name, D, design):
+    """The bf16 forward runs flash_sm90.cuh at head dims 32 and 64 and
+    flash_fwd_kernel at 128 (flash_attention.cu launch_dim)."""
+    want = "tma_wgmma" if D in (32, 64) else "mma_sync"
+    if design != want:
+        raise AssertionError(f"{name} (head dim {D}) ran {design}, not "
+                             f"{want}")
 
 
 def _rel_rms(a, b) -> float:
@@ -307,13 +368,24 @@ TRAINING_CASES = [
     ("camera_trunk", 1, 4, 16, 128, None, "online", 16),
     ("global_valid_len", 1, 4164, 16, 64, 3123, "static", 0),
     ("small_global_d32", 1, 4164, 4, 32, None, "static", 0),
+    ("small_frame_d32", 4, 1041, 4, 32, None, "online", 0),
 ]
 
 
+def takes_static(softmax, N) -> bool:
+    """Whether a TRAINING_CASES entry's forward runs flash_multi: a static
+    softmax over more keys than flash_attention's one-block rule allows."""
+    from vggt_slam_tpu_torch.ops import attention as A
+
+    return softmax == "static" and not A.fits_one_block(N)
+
+
 def training_bounds(B, N, H, D, vl):
-    """Least H100 time of the forward with stats, dq and dkv: flops (4, 6
-    and 8 N_q N_k H D per batch) over the bf16 peak against the bytes (each
-    input read once, each output written once) over the HBM rate."""
+    """Least H100 time of the forward with stats, dq and dkv (`least_ms`):
+    flops (4, 6 and 8 N_q N_k H D per batch) over the bf16 peak, one exp2
+    per valid logit in each (the backward kernels recompute p) over the
+    card's exp2 rate, against the bytes (each input read once, each output
+    written once) over the HBM rate."""
     nk = N if vl is None else min(vl, N)
     qd = 2.0 * B * N * H * D           # one bf16 (B, N, H*D) tensor
     kd = 2.0 * B * nk * H * D          # the valid keys of k or v
@@ -323,13 +395,9 @@ def training_bounds(B, N, H, D, vl):
         "dq": (6, 2 * qd + 2 * kd + 3 * st + qd),    # q,k,v,dO,m,l,delta
         "dkv": (8, 2 * qd + 2 * kd + 3 * st + 2 * kd),
     }
-    out = {}
-    for name, (mult, nbytes) in work.items():
-        t_ops = mult * B * N * nk * H * D / BF16_PEAK_FLOPS * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        out[name] = (max(t_ops, t_bytes),
-                     "operations" if t_ops >= t_bytes else "bytes")
-    return out
+    return {name: least_ms(mult * B * N * nk * H * D / BF16_PEAK_FLOPS * 1e3,
+                           B * H * N * nk, nbytes)
+            for name, (mult, nbytes) in work.items()}
 
 
 def check_training_kernels(device):
@@ -348,7 +416,7 @@ def check_training_kernels(device):
                                      device=device).to(torch.bfloat16)
                          for _ in range(4))
         kw = dict(num_heads=H, valid_len=vl)
-        static = softmax == "static" and N > 2304
+        static = takes_static(softmax, N)
         smax = A.static_bound(q, k, H) if static else None
 
         def fwd():
@@ -424,8 +492,10 @@ def check_training_kernels(device):
                    + times["dkv_ms"], sdpa_fwd_bwd_ms=sdpa,
                    sdpa_fwd_ms=sdpa_fwd,
                    bound_ms={k_: b[0] for k_, b in bounds.items()},
-                   bound_by={k_: b[1] for k_, b in bounds.items()})
+                   bound_by={k_: b[1] for k_, b in bounds.items()},
+                   bound_unit={k_: b[2] for k_, b in bounds.items()})
         log("training_kernel_check", **res)
+        expect_design(name, D, res["design"])
         tol_ok = (errs["out"] <= 2e-2 and errs["m_rel"] <= 1e-3
                   and errs["l_rel"] <= 1e-3
                   and all(errs[n + "_rel_to_max"] <= 2e-2
@@ -477,7 +547,7 @@ def check_kernels(device):
         library_ms = cuda_ms(lib, iters=10) if lib is not None else None
         lib = sdpa_prepared_call(case)
         prepared_ms = cuda_ms(lib, iters=10) if lib is not None else None
-        bound_ms, bound_by = attention_bound_ms(case)
+        bound_ms, bound_by, bound_unit = attention_bound_ms(case)
         res = dict(variant=case["name"], kernel=case["kernel"],
                    design=launched_design(kern),
                    shape_q=list(q.shape), shape_kv=list(k.shape),
@@ -485,8 +555,11 @@ def check_kernels(device):
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    library_prepared_ms=prepared_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
+                   bound_unit=bound_unit,
                    launches_per_forward=case["launches_per_forward"])
         log("kernel_check", **res)
+        expect_design(case["name"], q.shape[2] // kw["num_heads"],
+                      res["design"])
         if not finite or max_abs > tol:
             raise AssertionError(f"{case['name']}: kernel disagrees with its "
                                  f"plain version (max abs {max_abs})")
@@ -806,7 +879,7 @@ def check_int8_kernels(device):
                     q, k, v, qk_int8=i8, return_stats=st, **kw))}
         lib = sdpa_call(case)
         library_ms = cuda_ms(lib, iters=10) if lib is not None else None
-        bound_ms, bound_by = attention_bound_ms(case, int8=True)
+        bound_ms, bound_by, bound_unit = attention_bound_ms(case, int8=True)
         for name, (kern, plain) in calls.items():
             got = kern(True, True)
             torch.cuda.synchronize()
@@ -819,7 +892,7 @@ def check_int8_kernels(device):
                        bf16_kernel_ms=cuda_ms(lambda: kern(False), iters=10),
                        plain_ms=cuda_ms(lambda: plain(True), iters=2),
                        library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
+                       bound_by=bound_by, bound_unit=bound_unit)
             log("int8_kernel_check", **res)
             why = int8_failure(errs)
             if why is not None:
@@ -1596,10 +1669,27 @@ def drive_training(device, n_steps=3, profile=False):
     return launches, per_step[-1]
 
 
+def small_forward_launches(cfg) -> dict:
+    """Kernel launches of one forward of a VGGTConfig-`cfg` model on 4
+    frames of HW: each encoder and frame block and each camera-trunk block
+    at each iteration runs flash_single, each global block (4 frames of
+    1041 tokens, static softmax) flash_multi."""
+    from vggt_slam_tpu_torch.ops import attention as A
+
+    want = dict.fromkeys(A.LAUNCHES, 0)
+    want["flash_single"] = (cfg.enc_depth + cfg.agg_depth
+                            + cfg.cam_trunk_depth * cfg.cam_iterations)
+    want["flash_multi"] = cfg.agg_depth
+    return want
+
+
 def drive_cli(device):
     """`python -m vggt_slam_tpu_torch.tools.train_tiny` on the small model
     for 6 steps into a temporary directory; its checkpoint must load into
-    the port's VGGT(small) and give a finite forward on the card."""
+    the port's VGGT(small) and give a finite forward on the card, the small
+    model's own path: its launches (counts set to 0 just before it) and the
+    design its kernels ran (flash_sm90.cuh at head dims 32 and 64) are
+    checked."""
     import os
     import shutil
     import tempfile
@@ -1607,6 +1697,7 @@ def drive_cli(device):
     import numpy as np
 
     from vggt_slam_tpu_torch.main import build_model
+    from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.models.vggt.config import VGGTConfig
     from vggt_slam_tpu_torch.models.vggt.model import make_bucketed_model_fn
     from vggt_slam_tpu_torch.tools import synth3d
@@ -1631,17 +1722,28 @@ def drive_cli(device):
         fn = make_bucketed_model_fn(model, 4, as_numpy=True, device=device)
         images = synth3d.training_batch(SEED + 1, n_frames=4,
                                         image_hw=HW)["images"]
-        pred = fn(images)
+        pred = {}
+        A.reset_launch_counts()
+        design = launched_design(lambda: pred.update(fn(images)))
+        launches = dict(A.LAUNCHES)
+        want = small_forward_launches(cfg)
         finite = all(np.isfinite(pred[k]).all()
                      for k in ("pose_enc", "depth", "depth_conf"))
         with open(os.path.join(out, "train_log.jsonl")) as f:
             n_log = len(f.read().splitlines())
         log("train_tiny_cli", wall_s=wall, files=sorted(os.listdir(out)),
             log_rows=n_log, stdout_tail=tail, forward_finite=finite,
-            pose_enc_shape=list(pred["pose_enc"].shape))
+            pose_enc_shape=list(pred["pose_enc"].shape),
+            forward_launches=launches, forward_design=design)
         if not finite:
             raise AssertionError("the trained checkpoint's forward is not "
                                  "finite")
+        if launches != want:
+            raise AssertionError(f"the small model's forward launched "
+                                 f"{launches}, not {want}")
+        if design != "tma_wgmma":
+            raise AssertionError(f"the small model's forward ran {design}, "
+                                 f"not tma_wgmma")
     finally:
         shutil.rmtree(out, ignore_errors=True)
 
@@ -1652,78 +1754,100 @@ def drive_cli(device):
 
 
 @contextlib.contextmanager
-def using_library(lib):
-    """Route ops/attention.py's forward wrappers to `lib`, one ctypes build
-    of some flash_attention.cu, inside the block."""
+def using_library(lib, mod=None):
+    """Route the forward wrappers of `mod` (default this tree's
+    ops/attention.py) to `lib`, one ctypes build of some
+    flash_attention.cu, inside the block."""
     from vggt_slam_tpu_torch.ops import attention as A
-    saved = A.kernel_library
-    A.kernel_library = lambda: lib
+    mod = mod or A
+    saved = mod.kernel_library
+    mod.kernel_library = lambda: lib
     try:
-        yield
+        yield mod
     finally:
-        A.kernel_library = saved
+        mod.kernel_library = saved
 
 
-def ab_libraries(dirs):
-    """{build: library}: each of `dirs` (a flash_attention.cu with the
-    headers it includes beside it), named after its folder, then this
-    tree's "tma_wgmma"."""
+def ab_builds(dirs):
+    """{build: (wrapper module, library)}: each of `dirs`, named after its
+    folder, then this tree's, "this_tree". A DIR holds a flash_attention.cu
+    with the headers it includes, and may hold an attention.py (the same
+    tree's ops/attention.py): then its build runs behind that wrapper,
+    else behind this tree's."""
+    import importlib.util
+
     from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.ops import cuda_build
 
-    libs = {}
+    builds = {}
     for d in dirs:
         name = os.path.basename(os.path.normpath(d))
-        libs[name] = cuda_build.load(f"flash_attention_ab_{name}",
-                                     A._SIGNATURES,
-                                     os.path.join(d, "flash_attention.cu"))
-    libs["tma_wgmma"] = A.kernel_library()
-    return libs
+        mod, wrapper = A, os.path.join(d, "attention.py")
+        if os.path.exists(wrapper):
+            spec = importlib.util.spec_from_file_location(
+                f"ab_attention_{name}", wrapper)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+        builds[name] = (mod, cuda_build.load(
+            f"flash_attention_ab_{name}", mod._SIGNATURES,
+            os.path.join(d, "flash_attention.cu")))
+    builds["this_tree"] = (A, A.kernel_library())
+    return builds
 
 
 def _forward_calls(q, k, v, kw, smax):
-    """(kernel call, plain call): flash_multi with `smax`, or flash_single
-    where it is None."""
+    """(kernel call of a wrapper module, plain call): flash_multi with
+    `smax`, or flash_single where it is None."""
     from vggt_slam_tpu_torch.ops import attention as A
 
     if smax is None:
-        return (lambda: A.flash_single(q, k, v, **kw),
+        return (lambda mod: lambda: mod.flash_single(q, k, v, **kw),
                 lambda: A.flash_single_ref(q, k, v, **kw))
-    return (lambda: A.flash_multi(q, k, v, smax, **kw),
+    return (lambda mod: lambda: mod.flash_multi(q, k, v, smax, **kw),
             lambda: A.flash_multi_ref(q, k, v, smax, **kw))
 
 
 def ab_cases(device):
-    """The head-dim-64 shapes of phases 3 and 4: (name, kernel, bound ms,
-    kern(), plain(), with row stats)."""
+    """The bf16 forward's shapes of phases 3 and 4 (head dims 32, 64 and
+    128): dicts of name, kernel, D, bound (ms and unit), kern(module) (the
+    call through a wrapper module), plain(), stats (with row stats) and
+    sdpa (one SDPA call computing the same function, or None)."""
     import torch
+    import torch.nn.functional as F
 
     from vggt_slam_tpu_torch.ops import attention as A
 
     cases = []
     for case in main_path_attention_cases(device):
         q, k, v, kw = case["q"], case["k"], case["v"], case["kw"]
-        if q.shape[2] // kw["num_heads"] != 64:
-            continue
         smax = (A.static_bound(q, k, kw["num_heads"], qk_ln=kw["qk_ln"],
                                kv_bias=kw["kv_bias"])
                 if case["kernel"] == "flash_multi" else None)
         kern, plain = _forward_calls(q, k, v, kw, smax)
-        cases.append((case["name"], case["kernel"],
-                      attention_bound_ms(case)[0], kern, plain, False))
+        bound = attention_bound_ms(case)
+        cases.append(dict(name=case["name"], kernel=case["kernel"],
+                          D=q.shape[2] // kw["num_heads"], bound=bound[0],
+                          unit=bound[2], kern=kern, plain=plain, stats=False,
+                          sdpa=sdpa_call(case) or sdpa_prepared_call(case)))
     g = torch.Generator(device=device).manual_seed(SEED + 1)
     for name, B, N, H, D, vl, softmax, _ in TRAINING_CASES:
-        if D != 64:
-            continue
         q, k, v = (torch.randn((B, N, H * D), generator=g, device=device)
                    .to(torch.bfloat16) for _ in range(3))
         kw = dict(num_heads=H, valid_len=vl, return_stats=True)
-        smax = A.static_bound(q, k, H) if softmax == "static" else None
+        static = takes_static(softmax, N)
+        smax = A.static_bound(q, k, H) if static else None
         kern, plain = _forward_calls(q, k, v, kw, smax)
-        cases.append((f"training_{name}",
-                       "flash_multi" if smax is not None else "flash_single",
-                       training_bounds(B, N, H, D, vl)["fwd"][0], kern, plain,
-                       True))
+        sdpa = None
+        if vl is None:   # as phase 4: q, k, v need grad, SDPA keeps its lse
+            qs, ks, vs = (t.view(B, N, H, D).transpose(1, 2).detach()
+                          .requires_grad_() for t in (q, k, v))
+            sdpa = functools.partial(F.scaled_dot_product_attention, qs, ks,
+                                     vs)
+        bound = training_bounds(B, N, H, D, vl)["fwd"]
+        cases.append(dict(name=f"training_{name}",
+                          kernel="flash_multi" if static else "flash_single",
+                          D=D, bound=bound[0], unit=bound[2], kern=kern,
+                          plain=plain, stats=True, sdpa=sdpa))
     return cases
 
 
@@ -1743,11 +1867,15 @@ def ab_errors(got, ref, stats):
     return errs, ok and bool(torch.isfinite(out).all())
 
 
-def ab_host_us(libs, device, calls=200):
-    """Host microseconds per flash_multi call at a small shape (B 1, N 256,
-    H 16, D 64; LN, rope, kv_bias, valid_len), where the card keeps up: the
-    wrapper, the tensor-map encodes (tma_wgmma) and the launch; every
-    build in turns."""
+def ab_host_us(builds, device, calls=100, rounds=12):
+    """Host microseconds per forward call, where the card keeps up, at a
+    small shape (B 1, N 256, H 16, D 64; LN, rope, kv_bias, valid_len;
+    flash_multi) and at the camera-trunk training shape (B 1, N 4, H 16,
+    D 128, row stats; flash_single): each build behind its wrapper (the
+    Python side, tensor-map encodes, attributes, launches), `calls` calls at
+    a time in turns, first to last and back, `rounds` times; the median of
+    the 2 * `rounds` runs of each (the host's clock varies from run to run
+    by more than the differences)."""
     import torch
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -1760,40 +1888,91 @@ def ab_host_us(libs, device, calls=200):
     kw = dict(num_heads=16, rope_q=(cs, cs), rope_k=(cs, cs), qk_ln=ln,
               kv_bias=torch.zeros(256, device=device), valid_len=250)
     smax = A.static_bound(q, k, 16, qk_ln=ln, kv_bias=kw["kv_bias"])
-    names = list(libs)
-    runs = {n: [] for n in names}
-    for name in names + names[::-1]:
-        with using_library(libs[name]):
-            A.flash_multi(q, k, v, smax, **kw)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                A.flash_multi(q, k, v, smax, **kw)
-            torch.cuda.synchronize()
-            runs[name].append((time.perf_counter() - t0) / calls * 1e6)
-    return runs
+    qc, kc, vc = (torch.randn((1, 4, 2048), generator=g, device=device)
+                  .to(torch.bfloat16) for _ in range(3))
+    shapes = {
+        "n256_d64_ln_rope": lambda mod: mod.flash_multi(q, k, v, smax, **kw),
+        "camera_trunk_stats": lambda mod: mod.flash_single(
+            qc, kc, vc, num_heads=16, return_stats=True)}
+    names = list(builds)
+    runs = {s_: {n: [] for n in names} for s_ in shapes}
+    for name in (names + names[::-1]) * rounds:
+        mod, lib = builds[name]
+        with using_library(lib, mod):
+            for shape, fn in shapes.items():
+                runs[shape][name].append(_host_us(lambda: fn(mod), calls))
+    return {s_: {n: dict(runs=r, median=sorted(r)[len(r) // 2], min=min(r))
+                 for n, r in rn.items()} for s_, rn in runs.items()}
+
+
+def graph_ms(fn, calls=20, reps=3):
+    """Device ms per fn() from one CUDA graph of `calls` calls, best of
+    `reps` replays after a warm-up call and replay: no host cost in it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    best = math.inf
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / calls)
+    del graph
+    return best
+
+
+def _host_us(fn, calls):
+    """Host microseconds per fn() over `calls` calls after one warm-up call,
+    ending in a synchronize (at these shapes the card keeps up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def ab_forward(device, dirs):
-    """Each build (`dirs`, then this tree) against its plain version, then
-    timed in turns (first to last, then back), at every head-dim-64 shape
-    of phases 3 and 4; returns the rows (also logged)."""
+    """Each build (`dirs`, then this tree; `ab_builds`) against its plain
+    version, then timed in turns (first to last, then back) at every bf16
+    forward shape of phases 3 and 4: CUDA events around 20 eager calls
+    (`ms`: the host's time where it is the longer) and one CUDA graph of 20
+    calls (`graph_ms`: the device's), beside SDPA and the bound; then the
+    host cost per call (`ab_host_us`). Returns the rows (also logged)."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
 
+    from vggt_slam_tpu_torch.ops import attention as A
+
     t0 = time.perf_counter()
-    libs = ab_libraries(dirs)
+    builds = ab_builds(dirs)
     log("ab_build", seconds=time.perf_counter() - t0,
         nvcc_seconds={n: cuda_build.build_seconds.get(
-            f"flash_attention_ab_{n}") for n in libs if n != "tma_wgmma"})
-    names = list(libs)
+            f"flash_attention_ab_{n}") for n in builds if n != "this_tree"})
+    names = list(builds)
     rows = []
-    for name, kernel, bound, kern, plain, stats in ab_cases(device):
-        ref = plain()
-        errs, runs = {}, {n: [] for n in names}
+    for c in ab_cases(device):
+        name, stats = c["name"], c["stats"]
+        ref = c["plain"]()
+        errs, runs, graph_runs = {}, {n: [] for n in names}, {
+            n: [] for n in names}
         for n in names + names[::-1]:
-            with using_library(libs[n]):
+            mod, lib = builds[n]
+            with using_library(lib, mod):
+                kern = c["kern"](mod)
                 if n not in errs:
                     got = kern()
                     torch.cuda.synchronize()
@@ -1803,16 +1982,24 @@ def ab_forward(device, dirs):
                                              f"version at {name}: {errs[n]}")
                     del got
                 runs[n].append(cuda_ms(kern, iters=20))
+                graph_runs[n].append(graph_ms(kern))
         ms = {n: sum(r) / len(r) for n, r in runs.items()}
-        row = dict(variant=name, kernel=kernel, stats=stats, bound_ms=bound,
-                   ms=ms, runs=runs, errors=errs,
-                   share_of_bound={n: bound / t for n, t in ms.items()})
-        row["faster_than"] = {n: ms["tma_wgmma"] < t for n, t in ms.items()
-                              if n != "tma_wgmma"}
+        dev_ms = {n: sum(r) / len(r) for n, r in graph_runs.items()}
+        sdpa_ms = cuda_ms(c["sdpa"], iters=20) if c["sdpa"] else None
+        row = dict(variant=name, kernel=c["kernel"], D=c["D"], stats=stats,
+                   design=launched_design(c["kern"](A)), bound_ms=c["bound"],
+                   bound_unit=c["unit"], ms=ms, graph_ms=dev_ms, runs=runs,
+                   graph_runs=graph_runs, errors=errs, sdpa_ms=sdpa_ms,
+                   share_of_bound={n: c["bound"] / t
+                                   for n, t in dev_ms.items()})
+        row["faster_than"] = {n: dev_ms["this_tree"] < t
+                              for n, t in dev_ms.items() if n != "this_tree"}
+        if sdpa_ms is not None:
+            row["no_slower_than_sdpa"] = ms["this_tree"] <= sdpa_ms
         log("ab_forward", **row)
         rows.append(row)
         del ref
-    log("ab_host", us_per_call=ab_host_us(libs, device))
+    log("ab_host", us_per_call=ab_host_us(builds, device))
     return rows
 
 
@@ -1947,14 +2134,14 @@ def main(argv) -> int:
         kernels.append({
             "name": name, "status": "ported", "route": "cuda",
             "source": "vggt_slam_tpu_torch/csrc/flash_attention.cu, "
-                      "csrc/flash_sm90.cuh (head dim 64)",
+                      "csrc/flash_sm90.cuh (head dims 32 and 64)",
             "replaces": replaces[name], "launches": launches[name],
             "variant": rep["variant"], "design": rep["design"],
             "designs": {c["variant"]: c["design"] for c in variants
                         + [t for t in train_checks if t["kernel"] == name]},
             "registers": {k: v for k, v in registers.items()
                           if "flash_fwd_sm90" in k and
-                          (("<true" in k or "ILb1" in k) == static)},
+                          (("true>" in k or "Lb1E" in k) == static)},
             "max_abs_err": max(c["max_abs_err"] for c in variants),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

@@ -5,7 +5,8 @@ The plain versions of the two CUDA kernels (`flash_single_ref`,
 `flash_multi_ref`) are held against the reference's Pallas kernels run in
 interpret mode, on the same numpy inputs, in the packed (B, N, H*D) layout
 with every variant the main path uses: in-kernel qk-LN + rope, kv_bias,
-valid_len cutting a key block, static-max softmax, head dims 64 and 128.
+valid_len cutting a key block, static-max softmax, head dims 32 (the small
+models), 64 and 128.
 Tolerances: f32 inputs 5e-5 (the reference's own flash tests use 2e-5 on
 unit-scale data; the in-kernel LN/rope round in a different order here);
 bf16 inputs 2e-2 (bf16 tile roundings on both sides).
@@ -102,6 +103,10 @@ SINGLE_CASES = {
                                                    valid_len=137)),
     "rope_ln_valid_len_d128": (1, 2, 70, 70, 128, dict(rope=True, ln=True,
                                                        valid_len=61)),
+    "encoder_d32": (2, 4, 150, 150, 32, {}),
+    "frame_rope_ln_d32": (2, 4, 150, 150, 32, dict(rope=True, ln=True)),
+    "bias_valid_len_d32": (1, 4, 90, 200, 32, dict(bias=True,
+                                                   valid_len=137)),
 }
 
 MULTI_CASES = {
@@ -110,6 +115,8 @@ MULTI_CASES = {
     "global_d128": (1, 2, 200, 300, 128, dict(rope=True, ln=True,
                                               bias=True, valid_len=290)),
     "no_ln_row_norm_bound_d64": (2, 2, 150, 260, 64, dict(valid_len=250)),
+    "global_d32": (1, 4, 300, 300, 32, dict(rope=True, ln=True, bias=True,
+                                            valid_len=201)),
 }
 
 
@@ -125,9 +132,10 @@ def test_flash_multi_plain_matches_reference_kernel(name):
     _run(2, B, H, Nq, Nk, D, multi=True, **kw)
 
 
-# The tile edges of the CUDA kernel at head dim 64 (128-row q tiles and
-# 128-key tiles, tests/test_torch_gpu.py): Nq and Nk at 127, 129 and 257,
-# valid_len at 0, 128 and 129; in-kernel LN, rope and kv_bias throughout.
+# The tile edges of the CUDA kernel at head dims 32 and 64 (128-row q tiles
+# and 128-key tiles, tests/test_torch_gpu.py): Nq and Nk at 127, 129 and
+# 257, valid_len at 0, 128 and 129; in-kernel LN, rope and kv_bias
+# throughout. The head-dim-32 cases' ids begin with "d32-".
 EDGE_CASES = [
     # (Nq, Nk, valid_len, multi)
     (127, 127, None, False), (129, 129, None, False),
@@ -136,12 +144,15 @@ EDGE_CASES = [
     (129, 257, 129, True), (257, 257, None, True),
     (129, 257, 0, False), (129, 257, 0, True),
 ]
+EDGE_PARAMS = [pytest.param(*case, D, id=("d32-" if D == 32 else "")
+                            + "-".join(map(str, case)))
+               for D in (64, 32) for case in EDGE_CASES]
 
 
-@pytest.mark.parametrize("nq,nk,valid_len,multi", EDGE_CASES)
+@pytest.mark.parametrize("nq,nk,valid_len,multi,D", EDGE_PARAMS)
 def test_plain_matches_reference_kernel_at_tile_edges(nq, nk, valid_len,
-                                                      multi):
-    _run(7, 1, 2, nq, nk, 64, multi=multi, valid_len=valid_len, rope=True,
+                                                      multi, D):
+    _run(7, 1, 2, nq, nk, D, multi=multi, valid_len=valid_len, rope=True,
          ln=True, bias=True)
 
 
@@ -231,6 +242,27 @@ def test_static_bound_matches_reference_formula():
     want = math.log2(math.e) / 8.0 * pb * pb + bias.max() * math.log2(math.e)
     assert smax.shape == (4,)
     np.testing.assert_allclose(smax.numpy(), want, rtol=1e-6)
+
+
+def test_f32_hands_back_a_ready_tensor_and_converts_the_rest():
+    """`_f32` returns a contiguous f32 tensor of the right shape on the
+    device as it is (no copy on the wrapper's path), converts or copies any
+    other, aligns to 16 bytes only when asked (kv_bias, read by a TMA map),
+    and refuses a wrong shape."""
+    cpu = torch.device("cpu")
+    t = torch.arange(16, dtype=torch.float32)
+    assert tattn._f32(t, (16,), "t", cpu) is t
+    view = t[1:9]                                # 4 bytes past alignment
+    assert tattn._f32(view, (8,), "t", cpu).data_ptr() == view.data_ptr()
+    aligned = tattn._f32(view, (8,), "t", cpu, align=True)
+    assert aligned.data_ptr() % 16 == 0 and torch.equal(aligned, view)
+    half = tattn._f32(t.bfloat16(), (16,), "t", cpu)
+    assert half.dtype == torch.float32 and torch.equal(half, t)
+    strided = tattn._f32(t.view(4, 4).t(), (4, 4), "t", cpu)
+    assert strided.is_contiguous() and torch.equal(strided,
+                                                   t.view(4, 4).t())
+    with pytest.raises(ValueError, match="expected shape"):
+        tattn._f32(t, (8,), "t", cpu)
 
 
 def test_cpu_wrappers_use_plain_version_and_count_no_launch():

@@ -186,15 +186,56 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         A.flash_single(qb, qb, qb, num_heads=4)      # head dim 24
 
 
-# The Hopper design of the bf16 forward at head dim 64 (csrc/flash_sm90.cuh:
-# 128-row q tiles, 128-key K/V tiles by TMA from 4-D maps that end at
-# valid_len): its tile edges, batch edges and masked rows, each written into
-# a NaN-filled output so that a missed store fails, against the plain
+# The Hopper design of the bf16 forward at head dims 32 and 64
+# (csrc/flash_sm90.cuh: 128-row q tiles, 128-key K/V tiles by TMA from 4-D
+# maps that end at valid_len; 64-byte rows and swizzle at D = 32, 128-byte
+# at D = 64): its tile edges, batch edges and masked rows, each written
+# into a NaN-filled output so that a missed store fails, against the plain
 # version at the tolerances above.
+SM90_DIMS = [32, 64]
 
-def _d64_check(q, k, v, kw, softmax, stats=True):
-    """Launch the D = 64 route into a NaN-filled output and hold out (and
-    the row stats) against the plain version; return the output."""
+
+def test_bf16_forward_route_by_head_dim(cuda):
+    """bf16 at head dims 32 and 64 launches flash_fwd_sm90<D, ...>, at 128
+    flash_fwd_kernel<128, ...> (flash_attention.cu launch_dim): the three
+    calls under one profiler, each launched once before it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cases = [(D, _case(cuda, 1, 2, 200, 200, D, rope=False, ln=False,
+                       bias=False, seed=10)) for D in (32, 64, 128)]
+    for _, (q, k, v, kw) in cases:
+        A.flash_single(q, k, v, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _, (q, k, v, kw) in cases:
+            A.flash_single(q, k, v, **kw)
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    for D, _ in cases:
+        want, other = (("flash_fwd_sm90", "flash_fwd_kernel") if D < 128
+                       else ("flash_fwd_kernel", "flash_fwd_sm90"))
+        assert f"{want}<{D}," in names, (D, names[:800])
+        assert f"{other}<{D}," not in names, (D, names[:800])
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_forward_design_launches_count_each_launch(cuda, D):
+    """One bf16 forward adds one to the C launcher's count of its design
+    (flash_sm90.cuh at head dims 32 and 64) and nothing to the other's."""
+    q, k, v, kw = _case(cuda, 1, 2, 200, 200, D, rope=False, ln=False,
+                        bias=False, seed=11)
+    want = "tma_wgmma" if D < 128 else "mma_sync"
+    before = A.forward_design_launches()
+    A.flash_single(q, k, v, **kw)
+    torch.cuda.synchronize()
+    after = A.forward_design_launches()
+    assert {d: after[d] - before[d] for d in after} == {
+        d: int(d == want) for d in after}
+
+
+def _sm90_check(q, k, v, kw, softmax, stats=True):
+    """Launch the flash_sm90.cuh route into a NaN-filled output and hold out
+    (and the row stats) against the plain version; return the output."""
     H, static = kw["num_heads"], softmax == "static"
     smax = A.static_bound(q, k, H, qk_ln=kw.get("qk_ln"),
                           kv_bias=kw.get("kv_bias")) if static else None
@@ -217,44 +258,48 @@ def _d64_check(q, k, v, kw, softmax, stats=True):
     return out
 
 
+@pytest.mark.parametrize("D", SM90_DIMS)
 @pytest.mark.parametrize("softmax", ["online", "static"])
 @pytest.mark.parametrize("nq", [1, 127, 128, 129, 1041])
-def test_d64_q_tile_edges(cuda, nq, softmax):
-    q, k, v, kw = _case(cuda, 2, 2, nq, 300, 64, rope=True, ln=True,
+def test_sm90_q_tile_edges(cuda, nq, softmax, D):
+    q, k, v, kw = _case(cuda, 2, 2, nq, 300, D, rope=True, ln=True,
                         bias=True, seed=11)
-    _d64_check(q, k, v, kw, softmax)
+    _sm90_check(q, k, v, kw, softmax)
 
 
+@pytest.mark.parametrize("D", SM90_DIMS)
 @pytest.mark.parametrize("softmax", ["online", "static"])
 @pytest.mark.parametrize("vl", [0, 1, 127, 128, 129, 2161])
-def test_d64_valid_len_edges(cuda, vl, softmax):
+def test_sm90_valid_len_edges(cuda, vl, softmax, D):
     nk = 2231 if vl == 2161 else 300
-    q, k, v, kw = _case(cuda, 1, 2, 200, nk, 64, rope=True, ln=True,
+    q, k, v, kw = _case(cuda, 1, 2, 200, nk, D, rope=True, ln=True,
                         bias=True, seed=12)
     kw["valid_len"] = vl
-    _d64_check(q, k, v, kw, softmax)
+    _sm90_check(q, k, v, kw, softmax)
 
 
+@pytest.mark.parametrize("D", SM90_DIMS)
 @pytest.mark.parametrize("softmax", ["online", "static"])
 @pytest.mark.parametrize("variant", ["plain", "rope_ln", "bias_valid_len",
                                      "rope_ln_bias_valid_len"])
-def test_d64_variants_with_and_without_stats(cuda, variant, softmax):
-    q, k, v, kw = _case(cuda, 2, 4, 300, 500, 64, rope="rope" in variant,
+def test_sm90_variants_with_and_without_stats(cuda, variant, softmax, D):
+    q, k, v, kw = _case(cuda, 2, 4, 300, 500, D, rope="rope" in variant,
                         ln="ln" in variant, bias="bias" in variant, seed=13)
     if "valid_len" in variant:
         kw["valid_len"] = 437
     for stats in (True, False):
-        _d64_check(q, k, v, kw, softmax, stats)
+        _sm90_check(q, k, v, kw, softmax, stats)
 
 
+@pytest.mark.parametrize("D", SM90_DIMS)
 @pytest.mark.parametrize("fill", [1e4, math.inf])
-def test_d64_batches_do_not_mix(cuda, fill):
+def test_sm90_batches_do_not_mix(cuda, fill, D):
     """B = 4 at N = 1041: batch 1's k and v filled with `fill` leave the
     other batches' outputs bit-equal (a map over B * N rows would read batch
     1's rows into batch 0's last key tile, and inf * 0 is NaN)."""
-    q, k, v, kw = _case(cuda, 4, 16, 1041, 1041, 64, rope=True, ln=True,
+    q, k, v, kw = _case(cuda, 4, 16, 1041, 1041, D, rope=True, ln=True,
                         bias=False, seed=14)
-    clean = _d64_check(q, k, v, kw, "online", stats=False)
+    clean = _sm90_check(q, k, v, kw, "online", stats=False)
     k2, v2 = k.clone(), v.clone()
     k2[1] = fill
     v2[1] = fill
@@ -264,13 +309,14 @@ def test_d64_batches_do_not_mix(cuda, fill):
         assert torch.equal(out[b], clean[b])
 
 
+@pytest.mark.parametrize("D", SM90_DIMS)
 @pytest.mark.parametrize("softmax", ["online", "static"])
-def test_d64_inf_past_valid_len_gives_finite_output(cuda, softmax):
-    q, k, v, kw = _case(cuda, 1, 4, 300, 400, 64, rope=False, ln=False,
+def test_sm90_inf_past_valid_len_gives_finite_output(cuda, softmax, D):
+    q, k, v, kw = _case(cuda, 1, 4, 300, 400, D, rope=False, ln=False,
                         bias=True, seed=15)
     kw["valid_len"] = 257
     v[:, 257:] = math.inf
-    _d64_check(q, k, v, kw, softmax)
+    _sm90_check(q, k, v, kw, softmax)
 
 
 @pytest.mark.parametrize("D", [32, 64, 128])

@@ -32,16 +32,18 @@
 //
 // What bounds it on this card: at the main-path shapes both kernels do
 // ~4 N_q N_k D flops per head on ~(N_q + 2 N_k) D bf16 bytes, far above
-// the H100's ~295 flop/byte ridge, so the tensor cores bound them.
+// the H100's ~295 flop/byte ridge, so the tensor cores bound them, and at
+// head dim 32 the exp units (one exp2 per logit outweighs both products).
 // Design: the TPU kernel caches the prepared k once per (batch, head); here
 // a small prep kernel writes LN+rope'd k once to a scratch buffer
 // (prep_rows_kernel), and each attention CTA prepares its own q tile (at
-// head dim 64 the prep kernel prepares q too, see flash_sm90.cuh).
-// bf16 at head dim 64 (every VGGT-1B attention but the camera trunk) runs
-// the Hopper design of flash_sm90.cuh: TMA-fed K/V ring, wgmma for both
-// products, 128-row q tiles. The other routes (bf16 at D = 32 and 128, and
-// the int8 kernels) run flash_fwd_kernel: one CTA of 4 warps per (64-row q
-// tile, batch, head) walks 64-key K/V tiles staged in shared memory; QK^T
+// head dims 32 and 64 the prep kernel prepares q too, see flash_sm90.cuh).
+// bf16 at head dims 32 and 64 (every attention of VGGT-1B but the camera
+// trunk, and every one of the small models) runs the Hopper design of
+// flash_sm90.cuh: TMA-fed K/V ring, wgmma for both products, 128-row q
+// tiles. The other routes (bf16 at D = 128 and the int8 kernels) run
+// flash_fwd_kernel: one CTA of 4 warps per (64-row q tile, batch, head)
+// walks 64-key K/V tiles staged in shared memory; QK^T
 // and PV run on mma.sync m16n8k16 with f32 accumulators that stay in
 // registers (the FlashAttention-2 layout: each warp owns 16 query rows, the
 // softmax state lives in the accumulator fragments, P is repacked into A
@@ -80,7 +82,8 @@ struct Params {
   __nv_bfloat16* o;
   int H, Nq, Nk, valid_len;
   float q_scale;          // softmax scale * log2(e)
-  const float* ln;        // (4, D): q gamma, q beta, k gamma, k beta; or null
+  const float* ln_g;      // (D,) q's LayerNorm gamma, or null (no LN)
+  const float* ln_b;      // (D,) q's LayerNorm beta
   float ln_eps;
   const float* kv_bias;   // (Nk,) natural-log units; or null
   const float* cos_q;     // (Nq, D/2); or null (no rope)
@@ -181,7 +184,8 @@ __device__ __forceinline__ bool prep_row(float (&x)[D / 32], int lane, int n,
 }
 
 // Prepared rows, written once per call: one warp per (row, head). k at
-// scale 1; at head dim 64 also q, at the softmax scale (flash_sm90.cuh).
+// scale 1; at head dims 32 and 64 also q, at the softmax scale
+// (flash_sm90.cuh).
 template <int D>
 __global__ void __launch_bounds__(NTHREAD)
     prep_rows_kernel(const __nv_bfloat16* src, __nv_bfloat16* dst, int rows,
@@ -249,13 +253,14 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(ParamsOf<INT8> p) {
   // whole key sweep.
   load_tile<D, NTHREAD>(Qs, p.q, b, h, p.H, p.Nq, q0, p.Nq);
   __syncthreads();
-  const float* ln = nullptr;    // int8: no LN, rope at scale 1
-  float ln_eps = 0.f, q_scale = 1.f, inv_q = 0.f, sc2 = 0.f;
+  const float *ln_g = nullptr, *ln_b = nullptr;   // int8: no LN, rope at
+  float ln_eps = 0.f, q_scale = 1.f, inv_q = 0.f, sc2 = 0.f;   // scale 1
   if constexpr (INT8) {
     inv_q = p.scales[bh];
     sc2 = p.scales[2 * gridDim.y + bh];
   } else {
-    ln = p.ln;
+    ln_g = p.ln_g;
+    ln_b = p.ln_b;
     ln_eps = p.ln_eps;
     q_scale = p.q_scale;
   }
@@ -265,9 +270,8 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(ParamsOf<INT8> p) {
     float x[D / 32];
 #pragma unroll
     for (int j = 0; j < D / 32; ++j) x[j] = __bfloat162float(row[j]);
-    const bool changed = prep_row<D>(
-        x, lane, min(n, p.Nq - 1), ln, ln ? ln + D : nullptr, ln_eps,
-        p.cos_q, p.sin_q, q_scale);
+    const bool changed = prep_row<D>(x, lane, min(n, p.Nq - 1), ln_g, ln_b,
+                                     ln_eps, p.cos_q, p.sin_q, q_scale);
     if constexpr (INT8) {
       int8_t* row8 = Q8 + r * LDB + lane * (D / 32);
 #pragma unroll
@@ -442,17 +446,29 @@ __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(ParamsOf<INT8> p) {
   }
 }
 
+// Forward launches by design since the library loaded, counted where each
+// kernel is launched: [0] flash_fwd_kernel (mma.sync), [1] flash_fwd_sm90
+// (TMA + wgmma). Read by flash_fwd_design_launches.
+std::atomic<long long> fwd_launches[2];
+
+inline int counted_launch(int design) {
+  const int err = int(cudaGetLastError());
+  if (err == 0) fwd_launches[design].fetch_add(1, std::memory_order_relaxed);
+  return err;
+}
+
 template <int D, bool STATIC, bool INT8>
 int launch(const ParamsOf<INT8>& p, int B, cudaStream_t stream) {
   const size_t bytes = size_t(BQ + 2 * BK) * (D + 8) * 2 +
                        (INT8 ? size_t(BQ) * (D + 16) : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, STATIC, INT8>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err != cudaSuccess) return int(err);
+  static std::atomic<uint64_t> attr_set{0};
+  int dev = 0;
+  const int err = smem_limit_once(flash_fwd_kernel<D, STATIC, INT8>,
+                                  int(bytes), attr_set, &dev);
+  if (err != 0) return err;
   const dim3 grid((p.Nq + BQ - 1) / BQ, B * p.H);
   flash_fwd_kernel<D, STATIC, INT8><<<grid, NTHREAD, bytes, stream>>>(p);
-  return int(cudaGetLastError());
+  return counted_launch(0);
 }
 
 template <int D>
@@ -478,19 +494,25 @@ int launch_prep_i8(const __nv_bfloat16* src, int8_t* dst, int B, int N,
 
 }  // namespace
 
-// flash_fwd_sm90: needs Params and launch_prep
+// flash_fwd_sm90: needs Params, launch_prep and counted_launch
 #include "flash_sm90.cuh"
 
 namespace {
 
+// bf16 at D = 32 and 64 runs flash_sm90.cuh; bf16 at D = 128 (the camera
+// trunk, 4-18 tokens, where the call's fixed cost and not the kernel sets
+// the time) and the int8 kernels run flash_fwd_kernel.
 template <bool STATIC, bool INT8>
 int launch_dim(const ParamsOf<INT8>& p, int B, int D, cudaStream_t stream) {
-  if (D == 64) {
-    if constexpr (INT8) return launch<64, STATIC, true>(p, B, stream);
-    else return launch_sm90<STATIC>(p, B, stream);
+  if constexpr (!INT8) {
+    if (D == 64) return launch_sm90<64, STATIC>(p, B, stream);
+    if (D == 32) return launch_sm90<32, STATIC>(p, B, stream);
+    return launch<128, STATIC, false>(p, B, stream);
+  } else {
+    return D == 32   ? launch<32, STATIC, true>(p, B, stream)
+           : D == 64 ? launch<64, STATIC, true>(p, B, stream)
+                     : launch<128, STATIC, true>(p, B, stream);
   }
-  return D == 32 ? launch<32, STATIC, INT8>(p, B, stream)
-                 : launch<128, STATIC, INT8>(p, B, stream);
 }
 
 bool bad_shape(int D, const void* m_out, const void* l_out) {
@@ -500,25 +522,30 @@ bool bad_shape(int D, const void* m_out, const void* l_out) {
 
 // k_work: scratch of k's shape for the prepared k, used when k needs LN or
 // rope (null otherwise).
+// ln_*: the (D,) f32 LayerNorm gammas and betas of q and k, all null
+// without LN.
 template <bool STATIC>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              void* k_work, int B, int H, int Nq, int Nk, int D,
-             int valid_len, float q_scale, const void* ln, float ln_eps,
-             const void* kv_bias, const void* cos_q, const void* sin_q,
-             const void* cos_k, const void* sin_k, const void* smax,
-             void* m_out, void* l_out, void* stream) {
+             int valid_len, float q_scale, const void* ln_qg,
+             const void* ln_qb, const void* ln_kg, const void* ln_kb,
+             float ln_eps, const void* kv_bias, const void* cos_q,
+             const void* sin_q, const void* cos_k, const void* sin_k,
+             const void* smax, void* m_out, void* l_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* lnf = static_cast<const float*>(ln);
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k);
-  if (bad_shape(D, m_out, l_out)) return int(cudaErrorInvalidValue);
-  if (ln != nullptr || cos_k != nullptr) {
+  const bool ln = ln_qg != nullptr;
+  if (bad_shape(D, m_out, l_out) || (ln_qb != nullptr) != ln ||
+      (ln_kg != nullptr) != ln || (ln_kb != nullptr) != ln)
+    return int(cudaErrorInvalidValue);
+  if (ln || cos_k != nullptr) {
     if (k_work == nullptr) return int(cudaErrorInvalidValue);
     __nv_bfloat16* kw = static_cast<__nv_bfloat16*>(k_work);
     const auto prep = D == 32   ? launch_prep<32>
                       : D == 64 ? launch_prep<64>
                                 : launch_prep<128>;
-    const int err = prep(kp, kw, B, Nk, H, lnf ? lnf + 2 * D : nullptr,
-                         lnf ? lnf + 3 * D : nullptr, ln_eps,
+    const int err = prep(kp, kw, B, Nk, H, static_cast<const float*>(ln_kg),
+                         static_cast<const float*>(ln_kb), ln_eps,
                          static_cast<const float*>(cos_k),
                          static_cast<const float*>(sin_k), 1.f, st);
     if (err != 0) return err;
@@ -534,7 +561,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   p.Nk = Nk;
   p.valid_len = valid_len;
   p.q_scale = q_scale;
-  p.ln = lnf;
+  p.ln_g = static_cast<const float*>(ln_qg);
+  p.ln_b = static_cast<const float*>(ln_qb);
   p.ln_eps = ln_eps;
   p.kv_bias = static_cast<const float*>(kv_bias);
   p.cos_q = static_cast<const float*>(cos_q);
@@ -592,11 +620,13 @@ extern "C" {
 #define FLASH_ARGS                                                           \
   const void *q, const void *k, const void *v, void *o, void *k_work, int B, \
       int H, int Nq, int Nk, int D, int valid_len, float q_scale,            \
-      const void *ln, float ln_eps, const void *kv_bias, const void *cos_q,  \
-      const void *sin_q, const void *cos_k, const void *sin_k
+      const void *ln_qg, const void *ln_qb, const void *ln_kg,               \
+      const void *ln_kb, float ln_eps, const void *kv_bias,                  \
+      const void *cos_q, const void *sin_q, const void *cos_k,               \
+      const void *sin_k
 #define FLASH_PASS                                                          \
-  q, k, v, o, k_work, B, H, Nq, Nk, D, valid_len, q_scale, ln, ln_eps,      \
-      kv_bias, cos_q, sin_q, cos_k, sin_k
+  q, k, v, o, k_work, B, H, Nq, Nk, D, valid_len, q_scale, ln_qg, ln_qb,    \
+      ln_kg, ln_kb, ln_eps, kv_bias, cos_q, sin_q, cos_k, sin_k
 #define FLASH_I8_ARGS                                                       \
   const void *q, const void *k, const void *v, void *o, void *k8_work,      \
       int B, int H, int Nq, int Nk, int D, int valid_len,                   \
@@ -623,6 +653,12 @@ int flash_single_i8_fwd(FLASH_I8_ARGS, void* m_out, void* l_out,
 int flash_multi_i8_fwd(FLASH_I8_ARGS, const void* smax, void* m_out,
                        void* l_out, void* stream) {
   return dispatch_i8<true>(FLASH_I8_PASS, smax, m_out, l_out, stream);
+}
+
+// out[0]: flash_fwd_kernel launches, out[1]: flash_fwd_sm90 launches.
+void flash_fwd_design_launches(long long* out) {
+  out[0] = fwd_launches[0].load(std::memory_order_relaxed);
+  out[1] = fwd_launches[1].load(std::memory_order_relaxed);
 }
 
 const char* flash_error_string(int code) {

@@ -322,9 +322,10 @@ template <int D, bool DKV>
 int launch(const BwdParams& p, int B, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
   auto kernel = DKV ? flash_bwd_dkv_kernel<D> : flash_bwd_dq_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err != cudaSuccess) return int(err);
+  static std::atomic<uint64_t> attr_set{0};
+  int dev = 0;
+  const int err = smem_limit_once(kernel, int(bytes), attr_set, &dev);
+  if (err != 0) return err;
   const int n = DKV ? p.Nk : p.Nq;
   const dim3 grid((n + 63) / 64, B * p.H);
   kernel<<<grid, NTHREAD, bytes, stream>>>(p);

@@ -1,24 +1,29 @@
-// Hopper design of the bf16 flash-attention forward at head dim 64, the
-// route of flash_single_fwd and flash_multi_fwd for bf16 q/k/v with D = 64
-// (launch_dim in flash_attention.cu). Included by flash_attention.cu after
-// Params and launch_prep; it computes what flash_fwd_kernel<64, STATIC,
-// false> computes (the formula in that file's header), the same roundings
-// in the same places, except that a softmax weight below 2^-126 flushes to
-// zero (ex2 below).
+// Hopper design of the bf16 flash-attention forward at head dims 32 and 64,
+// the route of flash_single_fwd and flash_multi_fwd for bf16 q/k/v with
+// D = 32 or 64 (launch_dim in flash_attention.cu). Included by
+// flash_attention.cu after Params and launch_prep; it computes what
+// flash_fwd_kernel<D, STATIC, false> computes (the formula in that file's
+// header), the same roundings in the same places, except that a softmax
+// weight below 2^-126 flushes to zero (ex2 below).
 //
 // What bounds it: at the main-path shapes ~4 Nq Nk D flops per head on
 // ~(Nq + 2 Nk) D bf16 bytes, above the H100's ridge, so the tensor cores
-// (989 TFLOP/s bf16, reached only through wgmma) and, at D = 64, the exp
-// units (one exp2 per logit, about as many cycles as the two products).
+// (989 TFLOP/s bf16, reached only through wgmma) or the exp units (one
+// exp2 per logit at ~4.18e12/s): at D = 64 the products take 2.59e-13 s a
+// logit against the exp2's 2.39e-13, at D = 32 half that, so there the
+// exp units bound it, 1.85x the tensor cores' time. The schedule below
+// keeps them busy: the softmax of one tile overlaps the products of the
+// previous one and of the other warpgroup.
 //
-// Design. A persistent grid of one CTA per SM; a work item is a (128-row q
-// tile, batch * head). A CTA has two consumer warpgroups, warpgroup w
+// Design (the same for both head dims; D sets the row width, the swizzle
+// and PV's N). A persistent grid of one CTA per SM; a work item is a
+// (128-row q tile, batch * head). A CTA has two consumer warpgroups, warpgroup w
 // owning q rows [64w, 64w + 64) (wgmma's M) and warp i rows [16i, 16i +
 // 16), and one producer warpgroup that hands them its registers
 // (setmaxnreg).
 // - Loads: one producer lane brings each item's Q tile into one of two Q
 //   buffers and its K and V tiles of SM90_BK keys into a ring of
-//   SM90_STAGES slots by TMA (cp.async.bulk.tensor), running ahead across
+//   Sm90Cfg<D>::STAGES slots by TMA (cp.async.bulk.tensor), running ahead across
 //   items, so the next item's loads overlap this one's sweep and epilogue.
 //   The tensor maps are 4-D, (D, H, N, B) with a box of one head, so rows
 //   past N arrive as zeros and never as the next batch's rows; K's and V's
@@ -27,20 +32,20 @@
 //   memory (L1 stays free for the rope tables). Every buffer
 //   has a "full" mbarrier (expect_tx of its bytes) and an "empty" one that
 //   the eight consumer warps arrive on after their last read of it, on
-//   which the producer waits before it refills it. A tile row is D = 64
-//   bf16 = 128 bytes, loaded with the 128-byte swizzle, which is wgmma's
-//   128B-swizzle layout.
+//   which the producer waits before it refills it. A tile row is D bf16:
+//   128 bytes at D = 64, loaded with the 128-byte swizzle, 64 bytes at
+//   D = 32 with the 64-byte one; each is wgmma's layout of that swizzle.
 // - q with LN or rope is prepared before the kernel by prep_rows_kernel
 //   (prep_row: LN, rope with the softmax scale, bf16 rounds) into the
 //   output buffer, which the kernel loads Q from; without them the kernel
 //   scales its Q tile in place. Then fence.proxy.async and a warpgroup
 //   barrier hand it to wgmma.
 // - S = Q K^T: wgmma m64n128k16, both operands from shared memory
-//   (K-major), 4 k-steps, f32 accumulators in registers. Per warp the
+//   (K-major), D / 16 k-steps, f32 accumulators in registers. Per warp the
 //   accumulator is mma.sync's m16n8 C layout repeated over the 16 key
 //   n-tiles, so the bias, mask and online or static softmax are
 //   flash_fwd_kernel's.
-// - O += P V: wgmma m64n64k16 with P as the register A operand (mma.sync's
+// - O += P V: wgmma m64nDk16 with P as the register A operand (mma.sync's
 //   A layout, so P packs as before) and V from shared memory MN-major
 //   (transpose bit), 8 k-steps per tile.
 // - Pipeline: QK^T of tile t + 1 is issued before PV of tile t, and the
@@ -60,15 +65,23 @@ using namespace flash;
 
 constexpr int SM90_BQ = 128;            // q rows per CTA
 constexpr int SM90_BK = 128;            // keys per tile
-constexpr int SM90_STAGES = 3;          // K/V ring depth
 constexpr int SM90_THREADS = 384;       // 2 consumer warpgroups, 1 producer
-constexpr int SM90_TILE = 128 * 128;    // bytes of one 128-row tile
 constexpr int SM90_BIAS = SM90_BK * 4;  // bytes of one kv_bias tile
-// 1 KB of alignment slack, two Q buffers, the K, V and kv_bias rings, 3
-// barriers a ring slot and 2 a Q buffer.
-constexpr size_t SM90_SMEM = 1024 + (2 + 2 * SM90_STAGES) * SM90_TILE +
-                             SM90_STAGES * SM90_BIAS +
-                             8 * (3 * SM90_STAGES + 4);
+
+// What the head dim sets: the bytes of a tile row (D bf16) and of a
+// 128-row tile, the swizzle (the row's width: 128B at D = 64, 64B at
+// D = 32) and the ring depth.
+template <int D>
+struct Sm90Cfg {
+  static_assert(D == 32 || D == 64, "flash_fwd_sm90 takes D = 32 or 64");
+  static constexpr int ROW = 2 * D;
+  static constexpr int TILE = 128 * ROW;
+  static constexpr int STAGES = 3;      // K/V ring depth
+  // 1 KB of alignment slack, two Q buffers, the K, V and kv_bias rings, 3
+  // barriers a ring slot and 2 a Q buffer.
+  static constexpr size_t SMEM = 1024 + (2 + 2 * STAGES) * TILE +
+                                 STAGES * SM90_BIAS + 8 * (3 * STAGES + 4);
+};
 
 struct ParamsSm90 {
   CUtensorMap tq, tk, tv, tb;   // tb: kv_bias, where given
@@ -78,20 +91,24 @@ struct ParamsSm90 {
 
 // Shared memory of one CTA: the 1 KB-aligned base of the Q buffers, the
 // rings after them, the barriers last.
+template <int D>
 struct Sm90Smem {
+  static constexpr int TILE = Sm90Cfg<D>::TILE, S = Sm90Cfg<D>::STAGES;
   uint32_t q, k, v, bias, full_k, full_v, empty, q_full, q_empty;
   __device__ explicit Sm90Smem(uint32_t base)
-      : q(base), k(base + 2 * SM90_TILE),
-        v(k + SM90_STAGES * SM90_TILE),
-        bias(v + SM90_STAGES * SM90_TILE),
-        full_k(bias + SM90_STAGES * SM90_BIAS),
-        full_v(full_k + 8 * SM90_STAGES), empty(full_v + 8 * SM90_STAGES),
-        q_full(empty + 8 * SM90_STAGES), q_empty(q_full + 16) {}
+      : q(base), k(base + 2 * TILE), v(k + S * TILE), bias(v + S * TILE),
+        full_k(bias + S * SM90_BIAS), full_v(full_k + 8 * S),
+        empty(full_v + 8 * S), q_full(empty + 8 * S), q_empty(q_full + 16) {}
 };
 
-// Byte offset of 16-byte chunk c of row r in a 128B-swizzled tile.
+// Byte offset of 16-byte chunk c of row r in a swizzled tile of D-wide
+// rows: the chunk index XORs with address bits 7 and up (CUTLASS's
+// Swizzle<3,4,3> at 128-byte rows, c ^ (r & 7); Swizzle<2,4,3> at 64-byte
+// rows, c ^ ((r >> 1) & 3)), as TMA writes it and wgmma reads it.
+template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  return r * 128 + (((c ^ r) & 7) << 4);
+  constexpr int ROW = Sm90Cfg<D>::ROW;
+  return r * ROW + ((c ^ ((r * ROW >> 7) & (ROW / 16 - 1))) << 4);
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -146,13 +163,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "r"(row), "r"(b) : "memory");
 }
 
-// wgmma shared-memory descriptor of a 128B-swizzled tile: 8-row atoms of
-// 1024 bytes (stride byte offset 64 x 16 B); the leading offset is unused
-// when the operand's contiguous extent is one 128-byte row (K-major Q and
-// K at D = 64, MN-major V with N = 64).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+// wgmma shared-memory descriptor of a swizzled tile of D-wide rows (PTX
+// ISA, matrix descriptor: start address >> 4 in bits 0-13, leading byte
+// offset >> 4 in 16-29, stride byte offset >> 4 in 32-45, swizzle mode in
+// 62-63: 1 = 128B, 2 = 64B). The stride offset steps over an 8-row atom,
+// 8 rows of 2D bytes: 1024 bytes at D = 64, 512 at D = 32. The leading
+// offset is unused, as the operand's contiguous extent is one row (K-major
+// Q and K with K = D; MN-major V with N = D).
+template <int D>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr) {
+  constexpr int ROW = Sm90Cfg<D>::ROW;
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(64) << 32) | (uint64_t(1) << 62);
+         (uint64_t(8 * ROW / 16) << 32) |
+         (uint64_t(D == 64 ? 1 : 2) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -211,6 +234,19 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[8][4],
       "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : SM90_F4(d, 0), SM90_F4(d, 1), SM90_F4(d, 2), SM90_F4(d, 3),
         SM90_F4(d, 4), SM90_F4(d, 5), SM90_F4(d, 6), SM90_F4(d, 7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 32 per warpgroup) += A (64 x 16, registers) B (16 x 32, smem,
+// MN-major).
+__device__ __forceinline__ void wgmma_pv(float (&d)[4][4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : SM90_F4(d, 0), SM90_F4(d, 1), SM90_F4(d, 2), SM90_F4(d, 3)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -298,13 +334,16 @@ __device__ __forceinline__ void softmax_tile(
 
 // The consumer warps' part of flash_fwd_sm90: for each work item, q
 // preparation, the key sweep and the epilogue.
-template <bool STATIC>
+template <int D, bool STATIC>
 __device__ __forceinline__ void consume(const ParamsSm90& P,
-                                        unsigned char* Q0, const Sm90Smem& sm,
-                                        int warp, int lane) {
+                                        unsigned char* Q0,
+                                        const Sm90Smem<D>& sm, int warp,
+                                        int lane) {
   constexpr int NT = SM90_BK / 8;    // 8-key n-tiles of S
-  constexpr int DT = 64 / 8;         // 8-dim n-tiles of O
-  constexpr int S = SM90_STAGES;
+  constexpr int DT = D / 8;          // 8-dim n-tiles of O
+  constexpr int S = Sm90Cfg<D>::STAGES;
+  constexpr int TILE = Sm90Cfg<D>::TILE, ROW = Sm90Cfg<D>::ROW;
+  constexpr int LPR = D / 2;         // lanes per q row (2 dims each)
   const Params& p = P.a;
   const int g = lane / 4, t = lane % 4;     // fragment coordinates
   const int vl = min(p.valid_len, p.Nk);
@@ -320,20 +359,23 @@ __device__ __forceinline__ void consume(const ParamsSm90& P,
     const int bh = item / P.n_qt, q0 = (item % P.n_qt) * SM90_BQ;
     const int b = bh / p.H, h = bh % p.H;
     const int qb = it % 2;                    // Q buffer
-    unsigned char* Qs = Q0 + qb * SM90_TILE;
-    const uint32_t q_desc = sm.q + qb * SM90_TILE + (warp / 4) * 64 * 128;
+    unsigned char* Qs = Q0 + qb * TILE;
+    const uint32_t q_desc = sm.q + qb * TILE + (warp / 4) * 64 * ROW;
     const int kv0 = it * ntiles;   // ring index of the item's first tile
 
     // q arrives prepared (launch_sm90), or needs only the softmax scale,
-    // applied here in place: warp i its 16 rows; lane l holds dims 2l,
-    // 2l + 1 (16-byte chunk l / 4, bytes 4 (l % 4) within it), rounded to
-    // bf16 as prep_row does. Each warpgroup reads only its own rows.
+    // applied here in place: warp i its 16 rows, 32 / LPR rows at a time;
+    // lane l holds dims 2c, 2c + 1 of row l / LPR, c = l % LPR (16-byte
+    // chunk c / 4, bytes 4 (c % 4) within it), rounded to bf16 as prep_row
+    // does. Each warpgroup reads only its own rows.
     mbar_wait(sm.q_full + 8 * qb, (it / 2) & 1);
     if (p.q_scale != 1.f) {
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < 16 * LPR / 32; ++i) {
+        const int r = warp * 16 + i * (32 / LPR) + lane / LPR;
+        const int c = lane % LPR;
         auto* cell = reinterpret_cast<__nv_bfloat162*>(
-            Qs + swz(warp * 16 + i, lane / 4) + (lane % 4) * 4);
+            Qs + swz<D>(r, c / 4) + (c % 4) * 4);
         const float2 f = __bfloat1622float2(*cell);
         *cell = __floats2bfloat162_rn(f.x * p.q_scale, f.y * p.q_scale);
       }
@@ -355,9 +397,9 @@ __device__ __forceinline__ void consume(const ParamsSm90& P,
       reg_fence(s);
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        wgmma_qk(s, sw128_desc(q_desc + ks * 32),
-                 sw128_desc(sm.k + i * SM90_TILE + ks * 32), ks);
+      for (int ks = 0; ks < D / 16; ++ks)   // 32 bytes of each row a step
+        wgmma_qk(s, sw_desc<D>(q_desc + ks * 32),
+                 sw_desc<D>(sm.k + i * TILE + ks * 32), ks);
       wgmma_commit();
     };
     // O += P V of `tile`, issued (asynchronous, committed).
@@ -367,8 +409,8 @@ __device__ __forceinline__ void consume(const ParamsSm90& P,
       reg_fence(o);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < SM90_BK / 16; ++kk)
-        wgmma_pv(o, pa[kk], sw128_desc(sm.v + i * SM90_TILE + kk * 2048));
+      for (int kk = 0; kk < SM90_BK / 16; ++kk)   // 16 rows of V a step
+        wgmma_pv(o, pa[kk], sw_desc<D>(sm.v + i * TILE + kk * 16 * ROW));
       wgmma_commit();
     };
     // p (in s) as bf16 A fragments: keys 16kk + 2t.. in n-tile 2kk, + 8 in
@@ -384,7 +426,7 @@ __device__ __forceinline__ void consume(const ParamsSm90& P,
     auto bias_tile = [&](int tile) -> const float* {
       if (p.kv_bias == nullptr) return nullptr;
       return reinterpret_cast<const float*>(
-          Q0 + (2 + 2 * S) * SM90_TILE + ((kv0 + tile) % S) * SM90_BIAS);
+          Q0 + (2 + 2 * S) * TILE + ((kv0 + tile) % S) * SM90_BIAS);
     };
     // Release a ring slot: the producer refills it once all eight consumer
     // warps are done with it.
@@ -463,11 +505,11 @@ __device__ __forceinline__ void consume(const ParamsSm90& P,
       const int d = i * 8 + 2 * t;
       if (n_lo < p.Nq)
         *reinterpret_cast<__nv_bfloat162*>(
-            p.o + ((size_t(b) * p.Nq + n_lo) * p.H + h) * 64 + d) =
+            p.o + ((size_t(b) * p.Nq + n_lo) * p.H + h) * D + d) =
             __floats2bfloat162_rn(o[i][0] * r_lo, o[i][1] * r_lo);
       if (n_hi < p.Nq)
         *reinterpret_cast<__nv_bfloat162*>(
-            p.o + ((size_t(b) * p.Nq + n_hi) * p.H + h) * 64 + d) =
+            p.o + ((size_t(b) * p.Nq + n_hi) * p.H + h) * D + d) =
             __floats2bfloat162_rn(o[i][2] * r_hi, o[i][3] * r_hi);
     }
   }
@@ -475,14 +517,15 @@ __device__ __forceinline__ void consume(const ParamsSm90& P,
 
 // A persistent grid: CTA c takes work items c, c + gridDim.x, ..., item =
 // q tile + n_qt * (batch * head), so neighbouring CTAs share K and V in L2.
-template <bool STATIC>
+template <int D, bool STATIC>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
     flash_fwd_sm90(const __grid_constant__ ParamsSm90 P) {
-  constexpr int S = SM90_STAGES;
+  constexpr int S = Sm90Cfg<D>::STAGES, TILE = Sm90Cfg<D>::TILE;
   const Params& p = P.a;
   extern __shared__ unsigned char sm90_raw[];
   const uint32_t raw = smem_addr(sm90_raw);
-  const Sm90Smem sm((raw + 1023) & ~1023u);   // 128B swizzle: 1 KB aligned
+  // 1 KB aligned, as the 128B swizzle's 8-row atom (64B: 512 bytes)
+  const Sm90Smem<D> sm((raw + 1023) & ~1023u);
   unsigned char* Q0 = sm90_raw + (sm.q - raw);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int vl = min(p.valid_len, p.Nk);
@@ -514,27 +557,27 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
         const int b = bh / p.H, h = bh % p.H;
         const int qb = it % 2;
         if (it >= 2) mbar_wait(sm.q_empty + 8 * qb, ((it / 2) & 1) ^ 1);
-        mbar_expect_tx(sm.q_full + 8 * qb, SM90_TILE);
-        tma_load(sm.q + qb * SM90_TILE, &P.tq, sm.q_full + 8 * qb, h, q0, b);
+        mbar_expect_tx(sm.q_full + 8 * qb, TILE);
+        tma_load(sm.q + qb * TILE, &P.tq, sm.q_full + 8 * qb, h, q0, b);
         for (int tile = 0; tile < ntiles; ++tile) {
           const int kv = it * ntiles + tile, i = kv % S;
           if (kv >= S) mbar_wait(sm.empty + 8 * i, ((kv / S) & 1) ^ 1);
           mbar_expect_tx(sm.full_k + 8 * i,
-                         SM90_TILE + (p.kv_bias ? SM90_BIAS : 0));
-          tma_load(sm.k + i * SM90_TILE, &P.tk, sm.full_k + 8 * i, h,
+                         TILE + (p.kv_bias ? SM90_BIAS : 0));
+          tma_load(sm.k + i * TILE, &P.tk, sm.full_k + 8 * i, h,
                    tile * SM90_BK, b);
           if (p.kv_bias != nullptr)
             tma_load_bias(sm.bias + i * SM90_BIAS, &P.tb, sm.full_k + 8 * i,
                           tile * SM90_BK);
-          mbar_expect_tx(sm.full_v + 8 * i, SM90_TILE);
-          tma_load(sm.v + i * SM90_TILE, &P.tv, sm.full_v + 8 * i, h,
+          mbar_expect_tx(sm.full_v + 8 * i, TILE);
+          tma_load(sm.v + i * TILE, &P.tv, sm.full_v + 8 * i, h,
                    tile * SM90_BK, b);
         }
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    consume<STATIC>(P, Q0, sm, warp, lane);
+    consume<D, STATIC>(P, Q0, sm, warp, lane);
   }
 }
 
@@ -567,25 +610,27 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// 4-D map (64, H, n, B) of a packed (B, N, H*64) bf16 tensor, cut at
-// n <= N rows: a box is `rows` rows of one head, 128B-swizzled; rows at or
-// past n read as zeros.
+// 4-D map (D, H, n, B) of a packed (B, N, H*D) bf16 tensor, cut at
+// n <= N rows: a box is `rows` rows of one head, swizzled as swz<D>; rows
+// at or past n read as zeros.
+template <int D>
 int encode_heads(CUtensorMap* map, const void* ptr, int B, int N, int n,
                  int H, int rows) {
+  constexpr cuuint64_t ROW = Sm90Cfg<D>::ROW;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return int(cudaErrorNotSupported);
   if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
     return int(cudaErrorMisalignedAddress);
-  const cuuint64_t dims[4] = {64, cuuint64_t(H), cuuint64_t(n),
+  const cuuint64_t dims[4] = {D, cuuint64_t(H), cuuint64_t(n),
                               cuuint64_t(B)};
-  const cuuint64_t strides[3] = {128, 128ull * H, 128ull * H * N};
-  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint64_t strides[3] = {ROW, ROW * H, ROW * H * N};
+  const cuuint32_t box[4] = {D, 1, cuuint32_t(rows), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
 }
 
@@ -609,40 +654,40 @@ int encode_bias(CUtensorMap* map, const float* ptr, int vl) {
 // q with LN or rope is prepared by prep_rows_kernel into the output
 // buffer, from which the kernel loads it: each work item reads its q rows
 // before it writes the same rows, and no item touches another's.
-template <bool STATIC>
+template <int D, bool STATIC>
 int launch_sm90(const Params& a, int B, cudaStream_t stream) {
+  constexpr size_t SMEM = Sm90Cfg<D>::SMEM;
   ParamsSm90 P{};
   P.a = a;
-  if (a.ln != nullptr || a.cos_q != nullptr) {
-    const int err = launch_prep<64>(a.q, a.o, B, a.Nq, a.H, a.ln,
-                                    a.ln ? a.ln + 64 : nullptr, a.ln_eps,
-                                    a.cos_q, a.sin_q, a.q_scale, stream);
+  if (a.ln_g != nullptr || a.cos_q != nullptr) {
+    const int err = launch_prep<D>(a.q, a.o, B, a.Nq, a.H, a.ln_g, a.ln_b,
+                                   a.ln_eps, a.cos_q, a.sin_q, a.q_scale,
+                                   stream);
     if (err != 0) return err;
     P.a.q = a.o;
-    P.a.ln = P.a.cos_q = P.a.sin_q = nullptr;
+    P.a.ln_g = P.a.ln_b = P.a.cos_q = P.a.sin_q = nullptr;
     P.a.q_scale = 1.f;
   }
   const int vl = a.valid_len < a.Nk ? a.valid_len : a.Nk;
-  int err = encode_heads(&P.tq, P.a.q, B, a.Nq, a.Nq, a.H, SM90_BQ);
+  int err = encode_heads<D>(&P.tq, P.a.q, B, a.Nq, a.Nq, a.H, SM90_BQ);
   if (err == 0 && vl > 0)
-    err = encode_heads(&P.tk, a.k, B, a.Nk, vl, a.H, SM90_BK);
+    err = encode_heads<D>(&P.tk, a.k, B, a.Nk, vl, a.H, SM90_BK);
   if (err == 0 && vl > 0)
-    err = encode_heads(&P.tv, a.v, B, a.Nk, vl, a.H, SM90_BK);
+    err = encode_heads<D>(&P.tv, a.v, B, a.Nk, vl, a.H, SM90_BK);
   if (err == 0 && vl > 0 && a.kv_bias != nullptr)
     err = encode_bias(&P.tb, a.kv_bias, vl);
   if (err != 0) return err;
-  const auto kernel = flash_fwd_sm90<STATIC>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SM90_SMEM));
-  if (e != cudaSuccess) return int(e);
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const auto kernel = flash_fwd_sm90<D, STATIC>;
+  static std::atomic<uint64_t> attr_set{0};
+  int dev = 0;
+  err = smem_limit_once(kernel, int(SMEM), attr_set, &dev);
+  if (err != 0) return err;
   P.n_qt = (a.Nq + SM90_BQ - 1) / SM90_BQ;
   P.items = P.n_qt * B * a.H;
+  const int sms = sm_count(dev);
   const int grid = P.items < sms ? P.items : sms;
-  kernel<<<grid, SM90_THREADS, SM90_SMEM, stream>>>(P);
-  return int(cudaGetLastError());
+  kernel<<<grid, SM90_THREADS, SMEM, stream>>>(P);
+  return counted_launch(1);
 }
 
 }  // namespace

@@ -273,8 +273,8 @@ def flash_multi_ref(q, k, v, smax, *, num_heads, valid_len=None,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_COMMON = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _F, _P, _P,
-           _P, _P, _P]
+_COMMON = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P,
+           _F, _P, _P, _P, _P, _P]
 _I8_COMMON = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
               _P, _P]
 _SIGNATURES = {
@@ -283,6 +283,7 @@ _SIGNATURES = {
     "flash_single_i8_fwd": (_I8_COMMON + [_P, _P, _P], ctypes.c_int),
     "flash_multi_i8_fwd": (_I8_COMMON + [_P, _P, _P, _P], ctypes.c_int),
     "flash_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "flash_fwd_design_launches": ([ctypes.POINTER(ctypes.c_longlong)], None),
 }
 _BWD_COMMON = [_P] * 7
 _BWD_TAIL = [_I, _I, _I, _I, _I, _I, _F, _F, _P]
@@ -299,21 +300,33 @@ def kernel_library():
     return cuda_build.load("flash_attention", _SIGNATURES)
 
 
+def forward_design_launches() -> dict:
+    """The forward kernels' launches in this process by design, counted by
+    the C launcher at each launch: "mma_sync" for flash_fwd_kernel,
+    "tma_wgmma" for flash_fwd_sm90 (csrc/flash_sm90.cuh)."""
+    out = (ctypes.c_longlong * 2)()
+    kernel_library().flash_fwd_design_launches(out)
+    return {"mma_sync": out[0], "tma_wgmma": out[1]}
+
+
 def bwd_kernel_library():
     """Build (if stale) and load csrc/flash_attention_bwd.cu."""
     from vggt_slam_tpu_torch.ops import cuda_build
     return cuda_build.load("flash_attention_bwd", _BWD_SIGNATURES)
 
 
-def _f32(t, shape, name, device):
-    """t as a contiguous f32 tensor on `device`, 16-byte aligned (the TMA
-    maps of the head-dim-64 kernel read kv_bias with it)."""
+def _f32(t, shape, name, device, align=False):
+    """t as a contiguous f32 tensor of `shape` on `device`, 16-byte aligned
+    with `align` (the TMA map of kv_bias reads it so); t itself where it is
+    one already."""
     if t is None:
         return None
-    t = t.to(device=device, dtype=torch.float32).contiguous()
-    if t.data_ptr() % 16:
-        t = t.clone()
-    if tuple(t.shape) != tuple(shape):
+    if not (t.dtype is torch.float32 and t.device == device
+            and t.is_contiguous() and not (align and t.data_ptr() % 16)):
+        t = t.to(device=device, dtype=torch.float32).contiguous()
+        if align and t.data_ptr() % 16:
+            t = t.clone()
+    if t.shape != shape:
         raise ValueError(f"{name}: expected shape {shape}, got "
                          f"{tuple(t.shape)}")
     return t
@@ -328,6 +341,25 @@ def _check_cuda_tensors(dev, named):
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _raw_stream(dev):
+    """The handle of `dev`'s current CUDA stream: torch's own accessor of
+    the raw handle where this build of torch has it (a fraction of a
+    microsecond), else through the public Stream object (a few)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _call_on(dev, fn, args):
+    """fn(*args, stream) on `dev`'s current stream, with `dev` made the
+    current device only where it is not already."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, _raw_stream(dev))
+    with torch.cuda.device(dev):
+        return fn(*args, _raw_stream(dev))
 
 
 def _head_dim(HD, num_heads):
@@ -357,9 +389,8 @@ def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
         if out.shape != q.shape:
             raise ValueError(f"out {tuple(out.shape)} != q {tuple(q.shape)}")
     m = lsum = None
-    if return_stats:
-        m = torch.empty(B, H, Nq, dtype=torch.float32, device=dev)
-        lsum = torch.empty_like(m)
+    if return_stats:     # one allocation for both
+        m, lsum = torch.empty(2, B, H, Nq, dtype=torch.float32, device=dev)
     if Nq == 0 or B == 0:
         return (out, m, lsum) if return_stats else out
     cq = sq = ck = sk = None
@@ -368,11 +399,10 @@ def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
         sq = _f32(rope_q[1], (Nq, D // 2), "rope_q sin", dev)
         ck = _f32(rope_k[0], (Nk, D // 2), "rope_k cos", dev)
         sk = _f32(rope_k[1], (Nk, D // 2), "rope_k sin", dev)
-    ln = None
+    ln = None   # q's gamma and beta, then k's
     if qk_ln is not None:
-        ln = torch.stack([_f32(t.reshape(-1), (D,), "qk_ln", dev)
-                          for t in qk_ln])
-    bias = _f32(kv_bias, (Nk,), "kv_bias", dev)
+        ln = [_f32(t.reshape(-1), (D,), "qk_ln", dev) for t in qk_ln]
+    bias = _f32(kv_bias, (Nk,), "kv_bias", dev, align=True)
     # scratch for the k rows with LN and rope applied once per call, or
     # for the quantized k of the int8 kernels
     if qk_int8:
@@ -382,8 +412,9 @@ def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
     else:
         k_work = torch.empty_like(k) if (ln is not None or ck is not None) \
             else None
-        mid = [LOG2E / math.sqrt(D), None if ln is None else ln.data_ptr(),
-               float(qk_ln_eps)]
+        mid = [LOG2E / math.sqrt(D)]
+        mid += [None] * 4 if ln is None else [t.data_ptr() for t in ln]
+        mid.append(float(qk_ln_eps))
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if k_work is None else k_work.data_ptr(), B, H,
             Nq, Nk, D, vl] + mid + [None if bias is None else bias.data_ptr()]
@@ -394,9 +425,7 @@ def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
     args += [None if m is None else m.data_ptr(),
              None if lsum is None else lsum.data_ptr()]
     lib = kernel_library()
-    with torch.cuda.device(dev):
-        args.append(torch.cuda.current_stream(dev).cuda_stream)
-        code = getattr(lib, entry)(*args)
+    code = _call_on(dev, getattr(lib, entry), args)
     if code != 0:
         raise RuntimeError(f"{entry} launch failed: "
                            f"{lib.flash_error_string(code).decode()}")
@@ -521,9 +550,7 @@ def _launch_bwd(entry, q, k, v, dout, m, l, delta, num_heads, valid_len,
     lib = bwd_kernel_library()
     args = [t.data_ptr() for t in (q, k, v, dout, *stats, *outs)]
     args += [B, H, Nq, Nk, D, vl, LOG2E / math.sqrt(D), 1.0 / math.sqrt(D)]
-    with torch.cuda.device(dev):
-        args.append(torch.cuda.current_stream(dev).cuda_stream)
-        code = getattr(lib, entry)(*args)
+    code = _call_on(dev, getattr(lib, entry), args)
     if code != 0:
         raise RuntimeError(f"{entry} launch failed: "
                            f"{lib.flash_bwd_error_string(code).decode()}")
@@ -631,6 +658,13 @@ def static_bound(q, k, num_heads, qk_ln=None, kv_bias=None):
     return smax
 
 
+def fits_one_block(Nk: int, block_k: int = 2048) -> bool:
+    """Whether Nk keys fit one 128-rounded block of at most
+    min(block_k, 2304) keys: kernel 1's key sets under the reference's
+    selection rule (attention.py:972-979)."""
+    return -(-Nk // 128) * 128 <= min(block_k, 2304)
+
+
 def flash_attention(q, k, v, *, num_heads, valid_len=None, rope_q=None,
                     rope_k=None, kv_bias=None, softmax="online", qk_ln=None,
                     qk_ln_eps=1e-5, qk_int8=False, block_k=2048,
@@ -648,7 +682,7 @@ def flash_attention(q, k, v, *, num_heads, valid_len=None, rope_q=None,
     if qk_int8 and qk_ln is not None:
         raise ValueError("qk_ln and qk_int8 do not go together")
     Nk = k.shape[1]
-    fits = -(-Nk // 128) * 128 <= min(block_k, 2304)
+    fits = fits_one_block(Nk, block_k)
     kw = dict(num_heads=num_heads, valid_len=valid_len, rope_q=rope_q,
               rope_k=rope_k, kv_bias=kv_bias, qk_ln=qk_ln,
               qk_ln_eps=qk_ln_eps, qk_int8=bool(qk_int8) and not fits,
