@@ -6,8 +6,10 @@
     python3 chip_smoke.py --profile        # also profile one forward and
                                            # one training step
     python3 chip_smoke.py --ab DIR...   # build, then time the bf16 forward
-                                        # of each DIR's flash_attention.cu
-                                        # and this tree's in turns, and stop
+                                        # and the backward of each DIR's
+                                        # flash_attention.cu and
+                                        # flash_attention_bwd.cu and this
+                                        # tree's in turns, and stop
 
 Phases, one line of output each (and the contract lines at the end):
   1. environment: device, `nvidia-smi` name and power limit, versions;
@@ -20,10 +22,12 @@ Phases, one line of output each (and the contract lines at the end):
      kernels it launched, which must be flash_sm90.cuh's at head dims 32
      and 64; SDPA on the prepared q and k where the kernel applies LN and
      rope itself);
-  4. hold the training kernels (the forward kernels' stats variant, dq and
-     dkv) against their plain versions at the training shapes, with the
-     kernel and plain times, SDPA's forward and forward+backward times and
-     the bounds;
+  4. hold the training kernels (the forward kernels' stats variant and the
+     backward, flash_bwd, which computes dq, dk and dv in one call) against
+     their plain versions at the training shapes, with the kernel and plain
+     times, SDPA's forward, forward+backward and backward-alone times, the
+     bounds, the backward's design (flash_bwd_sm90.cuh at head dims 32 and
+     64) and dq's run-to-run spread;
   5. a full-width VGGT-1B forward through the kernels against the same
      forward through the kernels' plain versions, on a 2-frame input;
   6. the SLAM main path at VGGT-1B width (seeded random weights drawn on the
@@ -36,11 +40,14 @@ Phases, one line of output each (and the contract lines at the end):
   8. the training path at VGGT-1B width and depth: 3 steps of
      parallel.train.make_train_step on one 4-frame synth3d batch, with the
      loss, step time, peak memory and launches per step; the loss and every
-     gradient must be finite and the loss must fall;
-  9. the train_tiny CLI on the small model for 6 steps, whose checkpoint
-     must load into the port's VGGT and give a finite forward on the card,
-     with the launches of that forward (counts set to 0 just before it:
-     18 flash_single, 6 flash_multi) and its design (flash_sm90.cuh).
+     gradient must be finite and the loss must fall, and the backward must
+     run flash_bwd_sm90.cuh at head dims 32 and 64 (launches by design);
+  9. the train_tiny CLI on the small model for 6 steps, whose backward
+     must run flash_bwd_sm90.cuh (the launches by design it prints), and
+     whose checkpoint must load into the port's VGGT and give a finite
+     forward on the card, with the launches of that forward (counts set to
+     0 just before it: 18 flash_single, 6 flash_multi) and its design
+     (flash_sm90.cuh).
 And, for the --qk_int8 path and the fused DPT tail:
   A. the int8 kernels (flash_multi_i8, flash_single_i8) against their plain
      versions at the SLAM global shape (18-frame bucket, merged K/V, rope,
@@ -78,8 +85,12 @@ script builds the kernels, then times the bf16 forward at every shape of
 phases 3 and 4 (head dims 32, 64 and 128) in turns (each DIR's
 flash_attention.cu, built with the headers beside it and named after its
 folder, then this tree's), each held against its plain version first,
-beside SDPA and the bound, with the host cost per call at two shapes, and
-stops without the result lines.
+beside SDPA and the bound, with the host cost per call at two shapes; then
+the backward at the six training shapes in turns (each DIR's
+flash_attention_bwd.cu through its own entries, then this tree's
+flash_bwd; a DIR may hold only the backward's sources), beside SDPA's
+backward alone (eager and as a CUDA graph) and the bound; and stops
+without the result lines.
 The last lines are the kernels JSON object and {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero with no result line. It
 needs a CUDA device and imports nothing of JAX, OpenCV or the JAX package.
@@ -320,31 +331,36 @@ def sdpa_prepared_call(case):
     return lambda: F.scaled_dot_product_attention(qp, kp, vh, attn_mask=mask)
 
 
-def launched_design(fn) -> str:
+def launched_design(fn, counts=None) -> str:
     """The design that fn(), one forward call, ran: the forward launches by
     design that the C launcher counted during it, "tma_wgmma" for
-    flash_fwd_sm90 (csrc/flash_sm90.cuh), "mma_sync" for flash_fwd_kernel.
-    (torch.profiler on the card has lost every kernel record of such a
-    short profile, so the kernels' names are not read here.)"""
+    flash_fwd_sm90 (csrc/flash_sm90.cuh), "mma_sync" for flash_fwd_kernel;
+    with `counts` = bwd_design_launches, one flash_bwd call's
+    (csrc/flash_bwd_sm90.cuh, or the mma.sync kernels). (torch.profiler on
+    the card has lost every kernel record of such a short profile, so the
+    kernels' names are not read here.)"""
     import torch
 
     from vggt_slam_tpu_torch.ops import attention as A
 
+    counts = counts or A.forward_design_launches
     torch.cuda.synchronize()
-    before = A.forward_design_launches()
+    before = counts()
     fn()
     torch.cuda.synchronize()
-    ran = {d: n - before[d] for d, n in A.forward_design_launches().items()}
+    ran = {d: n - before[d] for d, n in counts().items()}
     found = [d for d, n in ran.items() if n > 0]
     if len(found) != 1:
-        raise AssertionError(f"no single forward design among the kernels "
+        raise AssertionError(f"no single design among the kernels "
                              f"launched: {ran}")
     return found[0]
 
 
 def expect_design(name, D, design):
     """The bf16 forward runs flash_sm90.cuh at head dims 32 and 64 and
-    flash_fwd_kernel at 128 (flash_attention.cu launch_dim)."""
+    flash_fwd_kernel at 128 (flash_attention.cu launch_dim); the backward
+    flash_bwd_sm90.cuh at 32 and 64 and the mma.sync kernels at 128
+    (flash_attention_bwd.cu flash_bwd)."""
     want = "tma_wgmma" if D in (32, 64) else "mma_sync"
     if design != want:
         raise AssertionError(f"{name} (head dim {D}) ran {design}, not "
@@ -381,19 +397,20 @@ def takes_static(softmax, N) -> bool:
 
 
 def training_bounds(B, N, H, D, vl):
-    """Least H100 time of the forward with stats, dq and dkv (`least_ms`):
-    flops (4, 6 and 8 N_q N_k H D per batch) over the bf16 peak, one exp2
-    per valid logit in each (the backward kernels recompute p) over the
-    card's exp2 rate, against the bytes (each input read once, each output
-    written once) over the HBM rate."""
+    """Least H100 time of the forward with stats and of the backward
+    (`least_ms`): flops (4 and 10 N_q N_k H D per batch: the backward's
+    five products, QK^T recomputed) over the bf16 peak, one exp2 per valid
+    logit in each (the backward recomputes p once) over the card's exp2
+    rate, against the bytes (each input read once, each output written
+    once) over the HBM rate."""
     nk = N if vl is None else min(vl, N)
     qd = 2.0 * B * N * H * D           # one bf16 (B, N, H*D) tensor
     kd = 2.0 * B * nk * H * D          # the valid keys of k or v
     st = 4.0 * B * H * N               # one f32 row stat
     work = {
         "fwd": (4, 2 * qd + 2 * kd + 2 * st),        # q,k,v -> out, m, l
-        "dq": (6, 2 * qd + 2 * kd + 3 * st + qd),    # q,k,v,dO,m,l,delta
-        "dkv": (8, 2 * qd + 2 * kd + 3 * st + 2 * kd),
+        # q, k, v, dO, out, m, l -> dq, dk, dv
+        "bwd": (10, 3 * qd + 2 * kd + 2 * st + 3 * qd),
     }
     return {name: least_ms(mult * B * N * nk * H * D / BF16_PEAK_FLOPS * 1e3,
                            B * H * N * nk, nbytes)
@@ -401,9 +418,12 @@ def training_bounds(B, N, H, D, vl):
 
 
 def check_training_kernels(device):
-    """Forward with stats, dq and dkv against their plain versions at the
-    training shapes of VGGT-1B (and one of VGGTConfig.small, head dim 32),
-    on bf16 q, k, v that arrive with qk-norm and rope applied."""
+    """Forward with stats and the backward (flash_bwd: dq, dk, dv) against
+    their plain versions at the training shapes of VGGT-1B (and two of
+    VGGTConfig.small, head dim 32), on bf16 q, k, v that arrive with
+    qk-norm and rope applied. The backward runs twice: dq's f32 sums are
+    atomic adds in a varying order, so its bits may differ by a bf16
+    rounding (held to 2^-7 of its largest entry)."""
     import torch
     import torch.nn.functional as F
 
@@ -436,42 +456,41 @@ def check_training_kernels(device):
                 "m_rel": float(((m - ref[1]).abs()
                                 / ref[1].abs().clamp_min(1.0)).max()),
                 "l_rel": float(((l - ref[2]).abs() / ref[2]).max())}
-        delta = (dout.float() * out.float()).view(B, N, H, D).sum(-1) \
-            .transpose(1, 2).contiguous()
-        bwd_args = (q, k, v, dout, m, l, delta)
 
-        def dq_fn():
-            return A.flash_bwd_dq(*bwd_args, **kw)
-
-        def dkv_fn():
-            return A.flash_bwd_dkv(*bwd_args, **kw)
+        def bwd():
+            return A.flash_bwd(q, k, v, dout, out, m, l, **kw)
 
         def bwd_plain():
-            return A.flash_bwd_ref(*bwd_args, **kw)
+            return A.flash_bwd_ref(q, k, v, dout, m, l,
+                                   A.bwd_delta(dout, out, H), **kw)
 
-        dq = dq_fn()
-        dk, dv = dkv_fn()
+        dq, dk, dv = bwd()
+        dq_again = bwd()[0]
         torch.cuda.synchronize()
         refs = bwd_plain()
         for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
             scale = float(want.float().abs().max())
             errs[gname] = float((got.float() - want.float()).abs().max())
             errs[gname + "_rel_to_max"] = errs[gname] / max(scale, 1e-30)
+        errs["dq_run_to_run"] = float((dq.float() - dq_again.float()).abs()
+                                      .max())
+        errs["dq_run_to_run_rel_to_max"] = errs["dq_run_to_run"] / max(
+            float(refs[0].float().abs().max()), 1e-30)
         if vl is not None:
             errs["masked_dkv_max"] = float(torch.cat(
                 [dk[:, vl:], dv[:, vl:]]).float().abs().max())
         finite = all(bool(torch.isfinite(t).all())
                      for t in (out, m, l, dq, dk, dv))
         iters = 10 if N > 100 else 50
-        times = {"fwd_ms": cuda_ms(fwd, iters), "dq_ms": cuda_ms(dq_fn, iters),
-                 "dkv_ms": cuda_ms(dkv_fn, iters),
+        times = {"fwd_ms": cuda_ms(fwd, iters), "bwd_ms": cuda_ms(bwd, iters),
                  "fwd_plain_ms": cuda_ms(fwd_plain, 2),
                  "bwd_plain_ms": cuda_ms(bwd_plain, 2)}
-        sdpa = sdpa_fwd = None
+        sdpa = sdpa_fwd = sdpa_bwd = None
         if vl is None:
             # SDPA on the same pre-applied bf16 q, k, v: forward + backward,
-            # and the forward alone (keeping its logsumexp, as the kernel
-            # its row stats, since q, k, v need grad)
+            # the forward alone (keeping its logsumexp, as the kernel its
+            # row stats, since q, k, v need grad), and the backward alone
+            # on one saved forward
             qs, ks, vs = (t.view(B, N, H, D).transpose(1, 2).detach()
                           .requires_grad_() for t in (q, k, v))
             do_h = dout.view(B, N, H, D).transpose(1, 2)
@@ -483,29 +502,36 @@ def check_training_kernels(device):
             sdpa = cuda_ms(sdpa_fwd_bwd, iters)
             sdpa_fwd = cuda_ms(
                 lambda: F.scaled_dot_product_attention(qs, ks, vs), iters)
+            o_saved = F.scaled_dot_product_attention(qs, ks, vs)
+            sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+                o_saved, (qs, ks, vs), do_h, retain_graph=True), iters)
+            del o_saved
         bounds = training_bounds(B, N, H, D, vl)
         res = dict(variant=name, B=B, N=N, H=H, D=D, valid_len=vl,
                    kernel="flash_multi" if static else "flash_single",
                    design=launched_design(fwd),
+                   bwd_design=launched_design(bwd, A.bwd_design_launches),
                    launches_per_1b_step=per_step, errors=errs, **times,
-                   kernels_fwd_bwd_ms=times["fwd_ms"] + times["dq_ms"]
-                   + times["dkv_ms"], sdpa_fwd_bwd_ms=sdpa,
-                   sdpa_fwd_ms=sdpa_fwd,
+                   kernels_fwd_bwd_ms=times["fwd_ms"] + times["bwd_ms"],
+                   sdpa_fwd_bwd_ms=sdpa, sdpa_fwd_ms=sdpa_fwd,
+                   sdpa_bwd_ms=sdpa_bwd,
                    bound_ms={k_: b[0] for k_, b in bounds.items()},
                    bound_by={k_: b[1] for k_, b in bounds.items()},
                    bound_unit={k_: b[2] for k_, b in bounds.items()})
         log("training_kernel_check", **res)
         expect_design(name, D, res["design"])
+        expect_design(name + " backward", D, res["bwd_design"])
         tol_ok = (errs["out"] <= 2e-2 and errs["m_rel"] <= 1e-3
                   and errs["l_rel"] <= 1e-3
                   and all(errs[n + "_rel_to_max"] <= 2e-2
                           for n in ("dq", "dk", "dv"))
+                  and errs["dq_run_to_run_rel_to_max"] <= 2 ** -7
                   and errs.get("masked_dkv_max", 0.0) == 0.0)
         if not finite or not tol_ok:
             raise AssertionError(f"training kernels disagree with their "
                                  f"plain versions at {name}: {errs}")
         results.append(res)
-        del q, k, v, dout, out, m, l, ref, dq, dk, dv, refs
+        del q, k, v, dout, out, m, l, ref, dq, dk, dv, dq_again, refs
     return results
 
 
@@ -577,11 +603,16 @@ def plain_attention(model=None):
     """Run the model's attention, forward and backward, through the kernels'
     plain versions (on the card), then restore the kernels."""
     from vggt_slam_tpu_torch.ops import attention as A
-    names = ("flash_single", "flash_multi", "flash_bwd_dq", "flash_bwd_dkv")
+    names = ("flash_single", "flash_multi", "flash_bwd")
     saved = [getattr(A, n) for n in names]
     A.flash_single, A.flash_multi = A.flash_single_ref, A.flash_multi_ref
-    A.flash_bwd_dq = lambda *a, **kw: A.flash_bwd_ref(*a, **kw)[0]
-    A.flash_bwd_dkv = lambda *a, **kw: A.flash_bwd_ref(*a, **kw)[1:]
+
+    def bwd_plain(q, k, v, dout, out, m, l, *, num_heads, valid_len=None):
+        return A.flash_bwd_ref(q, k, v, dout, m, l,
+                               A.bwd_delta(dout, out, num_heads),
+                               num_heads=num_heads, valid_len=valid_len)
+
+    A.flash_bwd = bwd_plain
     try:
         yield
     finally:
@@ -673,7 +704,8 @@ def profiled(fn):
     for name, ms in rows:
         low = name.lower()
         fam = ("attention" if "flash_fwd" in low or "prep_rows" in low
-               else "attention_bwd" if "flash_bwd" in low
+               else "attention_bwd" if any(s in low for s in (
+                   "flash_bwd", "bwd_prep", "bwd_dq_kernel"))
                else "matmul" if any(s in low for s in (
                    "gemm", "xmma", "cutlass", "nvjet", "matmul"))
                else "conv" if "conv" in low or "cudnn" in low
@@ -1628,11 +1660,13 @@ def drive_training(device, n_steps=3, profile=False):
 
     torch.cuda.reset_peak_memory_stats()
     model = training_model(device)
+    model_cfg = model.cfg
     batch = training_batch(4, device)
     step, _ = make_train_step(model)
     params = list(model.parameters())
     losses, step_ms, per_step = [], [], []
     A.reset_launch_counts()
+    designs_before = A.bwd_design_launches()
     for _ in range(n_steps):
         before = dict(A.LAUNCHES)
         t0 = time.perf_counter()
@@ -1649,6 +1683,8 @@ def drive_training(device, n_steps=3, profile=False):
                                  f"parameters without a gradient, finite "
                                  f"gradients {finite}")
     launches = dict(A.LAUNCHES)
+    designs = {d: n - designs_before[d]
+               for d, n in A.bwd_design_launches().items()}
     peak = torch.cuda.max_memory_allocated()
     if profile:
         log("profile_training_step", frames=4,
@@ -1656,7 +1692,8 @@ def drive_training(device, n_steps=3, profile=False):
     log("training", frames=4, image_hw=list(HW), steps=n_steps,
         params=sum(p.numel() for p in params), losses=losses,
         step_ms=step_ms, peak_memory_gib=peak / 2 ** 30,
-        launches=launches, launches_per_step=per_step)
+        launches=launches, launches_per_step=per_step,
+        bwd_design_launches=designs)
     del model, params, step, batch
     torch.cuda.empty_cache()
     if not losses[-1] < losses[0]:
@@ -1666,7 +1703,28 @@ def drive_training(device, n_steps=3, profile=False):
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "training path")
+    want = backward_designs(model_cfg, n_steps)
+    if designs != want:
+        raise AssertionError(f"the training steps' backward ran {designs} "
+                             f"by design, not {want}")
     return launches, per_step[-1]
+
+
+def backward_designs(cfg, n_steps) -> dict:
+    """flash_bwd launches by design in `n_steps` training steps of a
+    VGGTConfig-`cfg` model: each encoder, frame and global block once a
+    step, each camera-trunk block at each iteration (activation
+    checkpointing recomputes forwards, not backwards); head dims 32 and 64
+    run flash_bwd_sm90.cuh ("tma_wgmma"), 128 the mma.sync kernels."""
+    want = {"mma_sync": 0, "tma_wgmma": 0}
+    for n, dim, heads in (
+            (cfg.enc_depth, cfg.enc_dim, cfg.enc_heads),
+            (2 * cfg.agg_depth, cfg.agg_dim, cfg.agg_heads),
+            (cfg.cam_trunk_depth * cfg.cam_iterations, 2 * cfg.agg_dim,
+             cfg.agg_heads)):
+        want["tma_wgmma" if dim // heads in (32, 64) else "mma_sync"] += \
+            n * n_steps
+    return want
 
 
 def small_forward_launches(cfg) -> dict:
@@ -1716,6 +1774,7 @@ def drive_cli(device):
         if proc.returncode != 0:
             raise AssertionError(f"train_tiny failed ({proc.returncode}): "
                                  f"{proc.stderr[-2000:]}")
+        train_designs = json.loads(tail[-1])["bwd_design_launches"]
         ckpt = os.path.join(out, "checkpoint.npz")
         cfg = VGGTConfig.small(enable_point_head=False)
         model = build_model(cfg, checkpoint=ckpt, device=device)
@@ -1734,7 +1793,8 @@ def drive_cli(device):
         log("train_tiny_cli", wall_s=wall, files=sorted(os.listdir(out)),
             log_rows=n_log, stdout_tail=tail, forward_finite=finite,
             pose_enc_shape=list(pred["pose_enc"].shape),
-            forward_launches=launches, forward_design=design)
+            forward_launches=launches, forward_design=design,
+            train_bwd_design_launches=train_designs)
         if not finite:
             raise AssertionError("the trained checkpoint's forward is not "
                                  "finite")
@@ -1744,6 +1804,10 @@ def drive_cli(device):
         if design != "tma_wgmma":
             raise AssertionError(f"the small model's forward ran {design}, "
                                  f"not tma_wgmma")
+        want_bwd = backward_designs(cfg, 6)
+        if train_designs != want_bwd:
+            raise AssertionError(f"train_tiny's backward ran {train_designs}"
+                                 f" by design, not {want_bwd}")
     finally:
         shutil.rmtree(out, ignore_errors=True)
 
@@ -1754,45 +1818,188 @@ def drive_cli(device):
 
 
 @contextlib.contextmanager
-def using_library(lib, mod=None):
+def using_library(lib, mod=None, loader="kernel_library"):
     """Route the forward wrappers of `mod` (default this tree's
     ops/attention.py) to `lib`, one ctypes build of some
-    flash_attention.cu, inside the block."""
+    flash_attention.cu, inside the block; with loader="bwd_kernel_library"
+    its backward wrappers to a build of some flash_attention_bwd.cu."""
     from vggt_slam_tpu_torch.ops import attention as A
     mod = mod or A
-    saved = mod.kernel_library
-    mod.kernel_library = lambda: lib
+    saved = getattr(mod, loader)
+    setattr(mod, loader, lambda: lib)
     try:
         yield mod
     finally:
-        mod.kernel_library = saved
+        setattr(mod, loader, saved)
+
+
+def _ab_wrapper(d):
+    """The wrapper module of A/B folder `d`: its attention.py (the same
+    tree's ops/attention.py) where it holds one, else this tree's."""
+    import importlib.util
+
+    from vggt_slam_tpu_torch.ops import attention as A
+
+    wrapper = os.path.join(d, "attention.py")
+    if not os.path.exists(wrapper):
+        return A
+    name = os.path.basename(os.path.normpath(d))
+    spec = importlib.util.spec_from_file_location(f"ab_attention_{name}",
+                                                  wrapper)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def ab_builds(dirs):
-    """{build: (wrapper module, library)}: each of `dirs`, named after its
-    folder, then this tree's, "this_tree". A DIR holds a flash_attention.cu
-    with the headers it includes, and may hold an attention.py (the same
-    tree's ops/attention.py): then its build runs behind that wrapper,
-    else behind this tree's."""
-    import importlib.util
-
+    """{build: (wrapper module, library)}: each of `dirs` that holds a
+    flash_attention.cu with the headers it includes, named after its
+    folder, then this tree's, "this_tree"; each behind its `_ab_wrapper`."""
     from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.ops import cuda_build
 
     builds = {}
     for d in dirs:
+        if not os.path.exists(os.path.join(d, "flash_attention.cu")):
+            continue
         name = os.path.basename(os.path.normpath(d))
-        mod, wrapper = A, os.path.join(d, "attention.py")
-        if os.path.exists(wrapper):
-            spec = importlib.util.spec_from_file_location(
-                f"ab_attention_{name}", wrapper)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
+        mod = _ab_wrapper(d)
         builds[name] = (mod, cuda_build.load(
             f"flash_attention_ab_{name}", mod._SIGNATURES,
             os.path.join(d, "flash_attention.cu")))
     builds["this_tree"] = (A, A.kernel_library())
     return builds
+
+
+def ab_bwd_calls(builds, dirs):
+    """{build: call(q, k, v, dout, out, m, l, H, vl) -> (dq, dk, dv)}: the
+    backward of each of `dirs` that holds a flash_attention_bwd.cu, behind
+    the wrapper module of its forward build (`ab_builds`; its
+    `_ab_wrapper` where the DIR has no forward): through its own
+    flash_bwd, or, for a build from before flash_bwd, delta in torch and
+    its flash_bwd_dq and flash_bwd_dkv entries, as that tree's
+    FlashAttentionGrad ran them; then this tree's flash_bwd."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vggt_slam_tpu_torch.ops import attention as A
+    from vggt_slam_tpu_torch.ops import cuda_build
+
+    def through(mod, lib):
+        def call(q, k, v, dout, out, m, l, H, vl):
+            with using_library(lib, mod, "bwd_kernel_library"):
+                if hasattr(mod, "flash_bwd"):
+                    return mod.flash_bwd(q, k, v, dout, out, m, l,
+                                         num_heads=H, valid_len=vl)
+                delta = A.bwd_delta(dout, out, H)
+                dq = mod.flash_bwd_dq(q, k, v, dout, m, l, delta,
+                                      num_heads=H, valid_len=vl)
+                return (dq, *mod.flash_bwd_dkv(q, k, v, dout, m, l, delta,
+                                               num_heads=H, valid_len=vl))
+        return call
+
+    folders = {os.path.basename(os.path.normpath(d)): d for d in dirs}
+    srcs = {n: os.path.join(d, "flash_attention_bwd.cu")
+            for n, d in folders.items()}
+    srcs = {n: src for n, src in srcs.items() if os.path.exists(src)}
+    with ThreadPoolExecutor(max(len(srcs), 1)) as pool:   # nvcc at once
+        list(pool.map(lambda n: cuda_build.build(
+            f"flash_attention_bwd_ab_{n}", srcs[n]), srcs))
+    calls = {}
+    for name, src in srcs.items():
+        mod = (builds[name][0] if name in builds
+               else _ab_wrapper(folders[name]))
+        calls[name] = through(mod, cuda_build.load(
+            f"flash_attention_bwd_ab_{name}", mod._BWD_SIGNATURES, src))
+    calls["this_tree"] = through(A, A.bwd_kernel_library())
+    return calls
+
+
+def ab_backward(device, builds, dirs):
+    """The backward of each build (`ab_bwd_calls`) against its plain
+    version, then timed in turns (first to last, then back) at the six
+    training shapes of phase 4, on this tree's forward's out and stats:
+    CUDA events around 20 eager calls (`ms`) and one CUDA graph of 20 calls
+    (`graph_ms`), beside SDPA's backward alone timed both ways and the
+    fused bound. Returns the rows (also logged)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vggt_slam_tpu_torch.ops import attention as A
+
+    calls = ab_bwd_calls(builds, dirs)
+    names = list(calls)
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    rows = []
+    for name, B, N, H, D, vl, softmax, _ in TRAINING_CASES:
+        q, k, v, dout = (torch.randn((B, N, H * D), generator=g,
+                                     device=device).to(torch.bfloat16)
+                         for _ in range(4))
+        smax = A.static_bound(q, k, H) if takes_static(softmax, N) else None
+        kw = dict(num_heads=H, valid_len=vl, return_stats=True)
+        out, m, l = (A.flash_single(q, k, v, **kw) if smax is None
+                     else A.flash_multi(q, k, v, smax, **kw))
+        refs = A.flash_bwd_ref(q, k, v, dout, m, l, A.bwd_delta(dout, out, H),
+                               num_heads=H, valid_len=vl)
+        args = (q, k, v, dout, out, m, l, H, vl)
+        errs, runs, graph_runs = {}, {n: [] for n in names}, {
+            n: [] for n in names}
+        for n in names + names[::-1]:
+            fn = functools.partial(calls[n], *args)
+            if n not in errs:
+                got = fn()
+                torch.cuda.synchronize()
+                errs[n] = {gn: float((a.float() - b.float()).abs().max()
+                                     / max(float(b.float().abs().max()),
+                                           1e-30))
+                           for gn, a, b in zip(("dq", "dk", "dv"), got, refs)}
+                bad = max(errs[n].values()) > 2e-2 or not all(
+                    bool(torch.isfinite(t).all()) for t in got)
+                if bad:
+                    raise AssertionError(f"{n}'s backward disagrees with "
+                                         f"its plain version at {name}: "
+                                         f"{errs[n]}")
+                del got
+            runs[n].append(cuda_ms(fn, iters=20))
+            graph_runs[n].append(graph_ms(fn))
+        sdpa_ms = sdpa_graph_ms = None
+        if vl is None:
+            # each on one saved forward of its own leaves: eager on this
+            # stream's, the graph on one run on the stream it captures
+            # (autograd runs each backward op on its forward's stream)
+            do_h = dout.view(B, N, H, D).transpose(1, 2)
+
+            def leaves():
+                return tuple(t.view(B, N, H, D).transpose(1, 2).detach()
+                             .requires_grad_() for t in (q, k, v))
+
+            xs = leaves()
+            o = F.scaled_dot_product_attention(*xs)
+            sdpa_ms = cuda_ms(lambda: torch.autograd.grad(
+                o, xs, do_h, retain_graph=True), iters=20)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                xs_side = leaves()
+                o_side = F.scaled_dot_product_attention(*xs_side)
+            torch.cuda.current_stream().wait_stream(side)
+            sdpa_graph_ms = graph_ms(lambda: torch.autograd.grad(
+                o_side, xs_side, do_h, retain_graph=True), stream=side)
+            del o, o_side
+        bound = training_bounds(B, N, H, D, vl)["bwd"]
+        dev_ms = {n: sum(r) / len(r) for n, r in graph_runs.items()}
+        row = dict(variant=f"training_{name}", D=D, bound_ms=bound[0],
+                   bound_unit=bound[2],
+                   ms={n: sum(r) / len(r) for n, r in runs.items()},
+                   graph_ms=dev_ms, runs=runs, graph_runs=graph_runs,
+                   errors=errs, sdpa_bwd_ms=sdpa_ms,
+                   sdpa_bwd_graph_ms=sdpa_graph_ms,
+                   share_of_bound={n: bound[0] / t for n, t in dev_ms.items()},
+                   speedup={n: t / dev_ms["this_tree"]
+                            for n, t in dev_ms.items() if n != "this_tree"})
+        log("ab_backward", **row)
+        rows.append(row)
+        del q, k, v, dout, out, m, l, refs
+    return rows
 
 
 def _forward_calls(q, k, v, kw, smax):
@@ -1905,15 +2112,17 @@ def ab_host_us(builds, device, calls=100, rounds=12):
                  for n, r in rn.items()} for s_, rn in runs.items()}
 
 
-def graph_ms(fn, calls=20, reps=3):
-    """Device ms per fn() from one CUDA graph of `calls` calls, best of
-    `reps` replays after a warm-up call and replay: no host cost in it."""
+def graph_ms(fn, calls=20, reps=3, stream=None):
+    """Device ms per fn() from one CUDA graph of `calls` calls, captured on
+    `stream` (a side stream of its own where None), best of `reps` replays
+    after a warm-up call and replay: no host cost in it."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="relaxed"):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -1950,7 +2159,8 @@ def ab_forward(device, dirs):
     forward shape of phases 3 and 4: CUDA events around 20 eager calls
     (`ms`: the host's time where it is the longer) and one CUDA graph of 20
     calls (`graph_ms`: the device's), beside SDPA and the bound; then the
-    host cost per call (`ab_host_us`). Returns the rows (also logged)."""
+    host cost per call (`ab_host_us`). Returns the builds and the rows
+    (also logged)."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -2000,7 +2210,7 @@ def ab_forward(device, dirs):
         rows.append(row)
         del ref
     log("ab_host", us_per_call=ab_host_us(builds, device))
-    return rows
+    return builds, rows
 
 
 # ---------------------------------------------------------------------------
@@ -2069,9 +2279,11 @@ def main(argv) -> int:
         nvcc_seconds=cuda_build.build_seconds, registers=registers,
         spill_store_bytes=spills)
 
-    if "--ab" in argv:     # the forward's builds in turns, then stop
+    if "--ab" in argv:     # the builds in turns, then stop
         rest = argv[argv.index("--ab") + 1:]
-        ab_forward(device, [d for d in rest if not d.startswith("-")])
+        dirs = [d for d in rest if not d.startswith("-")]
+        builds, _ = ab_forward(device, dirs)
+        ab_backward(device, builds, dirs)
         return 0
     checks = check_kernels(device)
     int8_checks = check_int8_kernels(device)
@@ -2153,28 +2365,33 @@ def main(argv) -> int:
             "training_ms": train["fwd_ms"],
             "training_library_ms": train["sdpa_fwd_ms"],
             "variants": variants})
+    # One flash_bwd call computes both TPU kernels' functions (dq; dk, dv):
+    # both rows carry its time, the fused bound and SDPA's backward alone.
     rep = next(c for c in train_checks if c["variant"] == "global")
-    for name, key in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")):
+    for name, grads in (("flash_bwd_dq", ("dq",)),
+                        ("flash_bwd_dkv", ("dk", "dv"))):
         kernels.append({
             "name": name, "status": "ported", "route": "cuda",
-            "source": "vggt_slam_tpu_torch/csrc/flash_attention_bwd.cu",
+            "source": "vggt_slam_tpu_torch/csrc/flash_attention_bwd.cu, "
+                      "csrc/flash_bwd_sm90.cuh (head dims 32 and 64)",
             "replaces": replaces[name], "launches": train_launches[name],
             "launches_per_step": train_per_step[name],
-            "variant": rep["variant"],
-            "max_abs_err": max(max(c["errors"]["dk" if key == "dkv"
-                                                else "dq"],
-                                   c["errors"]["dv"] if key == "dkv"
-                                   else 0.0) for c in train_checks),
-            "ms": rep[f"{key}_ms"], "plain_ms": rep["bwd_plain_ms"],
-            "bound_ms": rep["bound_ms"][key],
-            "bound_by": rep["bound_by"][key],
-            # no single PyTorch call computes dq or (dk, dv) alone
-            "library_ms": None,
+            "variant": rep["variant"], "design": rep["bwd_design"],
+            "designs": {c["variant"]: c["bwd_design"] for c in train_checks},
+            "registers": {k: v for k, v in registers.items()
+                          if "flash_bwd_sm90" in k},
+            "max_abs_err": max(c["errors"][n] for c in train_checks
+                               for n in grads),
+            "ms": rep["bwd_ms"], "plain_ms": rep["bwd_plain_ms"],
+            "bound_ms": rep["bound_ms"]["bwd"],
+            "bound_by": rep["bound_by"]["bwd"],
+            "library_ms": rep["sdpa_bwd_ms"],
             "sdpa_fwd_bwd_ms": rep["sdpa_fwd_bwd_ms"],
             "variants": [{k_: c[k_] for k_ in (
                 "variant", "B", "N", "H", "D", "valid_len", "errors",
-                f"{key}_ms", "bwd_plain_ms", "sdpa_fwd_bwd_ms", "bound_ms",
-                "bound_by")} for c in train_checks]})
+                "bwd_design", "bwd_ms", "bwd_plain_ms", "sdpa_bwd_ms",
+                "sdpa_fwd_bwd_ms", "bound_ms", "bound_by")}
+                for c in train_checks]})
     # The int8 kernels: launches on their own paths (the --qk_int8 CLI run
     # for the static kernel, the online-softmax int8 forward for the other;
     # counts reset just before each).

@@ -12,6 +12,11 @@
   head dim 32 case: 3e-5 (the reference's own bound for its kernels against
   autodiff), with the dk and dv rows of masked keys below 1e-6.
 * The same backward against torch autograd of `naive_attention`: 3e-5.
+* `flash_bwd`'s plain path (delta from the forward's output, then
+  `flash_bwd_ref`) against the reference's `_flash_bwd` in interpret mode
+  on the reference forward's out, m and l, at head dims 32, 64 and 128,
+  with and without valid_len, Nq equal to Nk and not: f32, 3e-5 of the
+  largest entry of each gradient (at least 3e-5).
 """
 import jax
 import jax.numpy as jnp
@@ -116,6 +121,36 @@ def test_backward_matches_autograd_of_naive(H, N, D, vl):
     for name, g, t in zip("qkv", got, (qt, kt, vt)):
         np.testing.assert_allclose(g, t.grad.numpy(), atol=GRAD_TOL, rtol=0,
                                    err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,H,Nq,Nk,D,vl", [
+    (1, 2, 150, 150, 64, None),
+    (1, 2, 130, 200, 64, 170),     # Nq != Nk, valid_len
+    (2, 2, 150, 150, 32, None),
+    (1, 2, 200, 140, 32, 97),      # Nq > Nk, valid_len
+    (1, 1, 90, 90, 128, None),
+    (1, 1, 70, 130, 128, 111),
+])
+def test_flash_bwd_plain_matches_reference_bwd(B, H, Nq, Nk, D, vl):
+    q, k, v = _qkv(4, B, H, Nq, D, Nk)
+    do = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
+    out, m, l = jattn.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), valid_len=vl,
+        interpret=True, layout="packed", num_heads=H, return_stats=True)
+    want = jattn._flash_bwd(
+        *(_packed_to_bhnd(t, H) for t in (q, k, v, np.asarray(out))), m, l,
+        _packed_to_bhnd(do, H), vl, 128, 128, True)
+    got = tattn.flash_bwd(
+        *(torch.from_numpy(np.array(t)) for t in (q, k, v, do, out, m, l)),
+        num_heads=H, valid_len=vl)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = _bhnd_to_packed(w)
+        assert g.shape == w.shape, name
+        tol = GRAD_TOL * max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g.numpy(), w, atol=tol, rtol=0,
+                                   err_msg=name)
+        if vl is not None and name != "dq":
+            assert not g[:, vl:].any(), name
 
 
 def test_flash_grad_refuses_kv_bias_and_in_kernel_rope():

@@ -1,19 +1,21 @@
-// Flash-attention backward kernels for Hopper (sm_90a), packed (B, N, H*D)
-// bf16 layout, bound to PyTorch through a plain C interface (ctypes).
+// Flash-attention backward for Hopper (sm_90a), packed (B, N, H*D) bf16
+// layout, bound to PyTorch through a plain C interface (ctypes).
 //
-// Two entry points, one per TPU kernel of the JAX package:
+// One entry point, flash_bwd, computes what the two TPU kernels of the JAX
+// package compute together: _flash_bwd_dq_kernel (dq) and
+// _flash_bwd_dkv_kernel (dk, dv), vggt_slam_tpu/ops/attention.py:1106 and
+// :1138. It first runs bwd_prep_kernel (delta = rowsum(dO * O), and the
+// zeroing of the dq accumulator), then by head dim:
 //
-//   flash_bwd_dq   replaces vggt_slam_tpu/ops/attention.py
-//                  _flash_bwd_dq_kernel: one CTA per (64-row q tile, batch,
-//                  head) sweeps the key tiles and accumulates dq.
-//   flash_bwd_dkv  replaces _flash_bwd_dkv_kernel: one CTA per (64-key
-//                  tile, batch, head) sweeps the q tiles and accumulates dk
-//                  and dv.
+//   D = 32, 64   flash_bwd_sm90 (flash_bwd_sm90.cuh: TMA, wgmma, one CTA
+//                per 128-key tile computing dq, dk and dv) and
+//                bwd_dq_kernel;
+//   D = 128      flash_bwd_dq_kernel and flash_bwd_dkv_kernel below (the
+//                camera trunk: 4-18 tokens, where the call's fixed cost
+//                and not the kernel sets the time).
 //
-// Each output tile is owned by one CTA, so neither kernel needs atomics
-// (the TPU kernels split the work the same way). Both recompute, per tile,
-// the FlashAttention backward from the forward's row stats (m, l) and
-// delta = rowsum(dO * O):
+// Every design recomputes, per tile, the FlashAttention backward from the
+// forward's row stats (m, l) and delta:
 //     p_ij  = exp2(c * q_i.k_j - m_i) / max(l_i, 1e-30),  0 for j >= valid_len
 //     dv_j  = sum_i bf16(p_ij) dO_i
 //     dl_ij = bf16(p_ij (dO_i.v_j - delta_i))
@@ -23,16 +25,15 @@
 // before the dv product). Rows of dk and dv at or past valid_len are exactly
 // zero, and query rows past Nq add nothing.
 //
-// What bounds it on this card: dq does ~6 N_q N_k D flops per head and dkv
-// ~8, on ~(4 N_q + 2 N_k) D bf16 bytes plus three f32 stats per row, far
-// above the H100's ~295 flop/byte ridge, so the tensor cores bound both.
-// Design: the forward kernels' FlashAttention-2 layout. 4 warps; each warp
+// The D = 128 kernels: each output tile is owned by one CTA, so neither
+// needs atomics (the TPU kernels split the work the same way). dq does ~6
+// N_q N_k D flops per head and dkv ~8; the tensor cores bound both. They
+// keep the forward kernels' FlashAttention-2 layout: 4 warps; each warp
 // owns 16 rows of the CTA's own tile (q rows in dq, key rows in dkv), the
 // other side is staged in 64-row shared tiles, and every product runs on
 // mma.sync m16n8k16 bf16 with f32 accumulators in registers; P and dL are
 // repacked from accumulator fragments into A fragments without touching
-// shared memory. Key tiles past valid_len are never loaded. wgmma, TMA and
-// warp specialisation are later work.
+// shared memory. Key tiles past valid_len are never loaded.
 
 #include "flash_common.cuh"
 
@@ -68,6 +69,7 @@ constexpr size_t smem_bytes() {
 
 template <int D>
 __global__ void __launch_bounds__(NTHREAD) flash_bwd_dq_kernel(BwdParams p) {
+  static_assert(D == 128, "head dims 32 and 64 run flash_bwd_sm90");
   constexpr int LD = D + 8;
   constexpr int KS = D / 16;         // k-steps over the head dim
   constexpr int NT = BK / 8;         // 8-key n-tiles of S and dP
@@ -189,6 +191,7 @@ __global__ void __launch_bounds__(NTHREAD) flash_bwd_dq_kernel(BwdParams p) {
 
 template <int D>
 __global__ void __launch_bounds__(NTHREAD) flash_bwd_dkv_kernel(BwdParams p) {
+  static_assert(D == 128, "head dims 32 and 64 run flash_bwd_sm90");
   constexpr int LD = D + 8;
   constexpr int KS = D / 16;
   constexpr int NT = BQ / 8;         // 8-query n-tiles of S^T and dP^T
@@ -332,20 +335,78 @@ int launch(const BwdParams& p, int B, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-template <bool DKV>
-int dispatch(const void* q, const void* k, const void* v, const void* dout,
-             const void* m, const void* l, const void* delta, void* dq,
-             void* dk, void* dv, int B, int H, int Nq, int Nk, int D,
-             int valid_len, float c_scale, float inv_sqrt_d, void* stream) {
+}  // namespace
+
+// flash_bwd_sm90 and the passes around it: need flash_common.cuh
+#include "flash_bwd_sm90.cuh"
+
+namespace {
+
+// Backward launches by design since the library loaded: [0] the mma.sync
+// kernels (D = 128), [1] flash_bwd_sm90 (TMA + wgmma). Read by
+// flash_bwd_design_launches.
+std::atomic<long long> bwd_launches[2];
+
+}  // namespace
+
+extern "C" {
+
+// The floats of scratch flash_bwd takes, for the caller to allocate:
+// out[0] for `work` (the q tiles' m, w and delta at D = 32 and 64, delta at
+// D = 128), out[1] for `dq_acc` (0 at D = 128).
+void flash_bwd_scratch_floats(int B, int H, int Nq, int D, long long* out) {
+  if (D == 128) {
+    out[0] = (long long)B * H * Nq;
+    out[1] = 0;
+  } else {
+    bwd_sm90_scratch(B, H, Nq, D, &out[0], &out[1]);
+  }
+}
+
+// dq, dk, dv of packed bf16 q, k, v, dout, out and the forward's f32 row
+// stats m, l (B*H, Nq), with `work` and `dq_acc` of the sizes
+// flash_bwd_scratch_floats gives.
+int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
+              const void* out, const void* m, const void* l, void* dq,
+              void* dk, void* dv, void* dq_acc, void* work, int B, int H,
+              int Nq, int Nk, int D, int valid_len, float c_scale,
+              float inv_sqrt_d, void* stream) {
   if (D != 32 && D != 64 && D != 128) return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* dout_ = static_cast<const __nv_bfloat16*>(dout);
+  const auto* out_ = static_cast<const __nv_bfloat16*>(out);
+  const auto* m_ = static_cast<const float*>(m);
+  const auto* l_ = static_cast<const float*>(l);
+  float* work_ = static_cast<float*>(work);
+  float* acc = static_cast<float*>(dq_acc);
+  const int n_qt = (Nq + BW_BQ - 1) / BW_BQ;
+  int err;
+  if (D != 128) {
+    err = D == 64 ? launch_bwd_prep<64, true>(dout_, out_, m_, l_, work_,
+                                              acc, B, H, Nq, n_qt, st)
+                  : launch_bwd_prep<32, true>(dout_, out_, m_, l_, work_,
+                                              acc, B, H, Nq, n_qt, st);
+    if (err == 0)
+      err = D == 64 ? launch_bwd_sm90<64>(q, k, v, dout, work_, acc, dq, dk,
+                                          dv, B, H, Nq, Nk, valid_len,
+                                          c_scale, inv_sqrt_d, st)
+                    : launch_bwd_sm90<32>(q, k, v, dout, work_, acc, dq, dk,
+                                          dv, B, H, Nq, Nk, valid_len,
+                                          c_scale, inv_sqrt_d, st);
+    if (err == 0) bwd_launches[1].fetch_add(1, std::memory_order_relaxed);
+    return err;
+  }
+  err = launch_bwd_prep<128, false>(dout_, out_, m_, l_, work_, nullptr, B,
+                                    H, Nq, n_qt, st);
+  if (err != 0) return err;
   BwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.m = static_cast<const float*>(m);
-  p.l = static_cast<const float*>(l);
-  p.delta = static_cast<const float*>(delta);
+  p.dout = dout_;
+  p.m = m_;
+  p.l = l_;
+  p.delta = work_;
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
@@ -355,32 +416,16 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
   p.valid_len = valid_len;
   p.c_scale = c_scale;
   p.inv_sqrt_d = inv_sqrt_d;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 32   ? launch<32, DKV>(p, B, st)
-         : D == 64 ? launch<64, DKV>(p, B, st)
-                   : launch<128, DKV>(p, B, st);
+  err = launch<128, false>(p, B, st);
+  if (err == 0) err = launch<128, true>(p, B, st);
+  if (err == 0) bwd_launches[0].fetch_add(1, std::memory_order_relaxed);
+  return err;
 }
 
-}  // namespace
-
-extern "C" {
-
-int flash_bwd_dq(const void* q, const void* k, const void* v,
-                 const void* dout, const void* m, const void* l,
-                 const void* delta, void* dq, int B, int H, int Nq, int Nk,
-                 int D, int valid_len, float c_scale, float inv_sqrt_d,
-                 void* stream) {
-  return dispatch<false>(q, k, v, dout, m, l, delta, dq, nullptr, nullptr, B,
-                         H, Nq, Nk, D, valid_len, c_scale, inv_sqrt_d, stream);
-}
-
-int flash_bwd_dkv(const void* q, const void* k, const void* v,
-                  const void* dout, const void* m, const void* l,
-                  const void* delta, void* dk, void* dv, int B, int H,
-                  int Nq, int Nk, int D, int valid_len, float c_scale,
-                  float inv_sqrt_d, void* stream) {
-  return dispatch<true>(q, k, v, dout, m, l, delta, nullptr, dk, dv, B, H,
-                        Nq, Nk, D, valid_len, c_scale, inv_sqrt_d, stream);
+// out[0]: mma.sync launches (D = 128), out[1]: flash_bwd_sm90 launches.
+void flash_bwd_design_launches(long long* out) {
+  out[0] = bwd_launches[0].load(std::memory_order_relaxed);
+  out[1] = bwd_launches[1].load(std::memory_order_relaxed);
 }
 
 const char* flash_bwd_error_string(int code) {

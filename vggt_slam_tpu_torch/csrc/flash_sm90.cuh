@@ -4,7 +4,7 @@
 // flash_attention.cu after Params and launch_prep; it computes what
 // flash_fwd_kernel<D, STATIC, false> computes (the formula in that file's
 // header), the same roundings in the same places, except that a softmax
-// weight below 2^-126 flushes to zero (ex2 below).
+// weight below 2^-126 flushes to zero (ex2, sm90_common.cuh).
 //
 // What bounds it: at the main-path shapes ~4 Nq Nk D flops per head on
 // ~(Nq + 2 Nk) D bf16 bytes, above the H100's ridge, so the tensor cores
@@ -57,7 +57,7 @@
 //   rows masked at Nq; m and l where requested.
 #pragma once
 
-#include <cuda.h>
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -101,108 +101,6 @@ struct Sm90Smem {
         empty(full_v + 8 * S), q_full(empty + 8 * S), q_empty(q_full + 16) {}
 };
 
-// Byte offset of 16-byte chunk c of row r in a swizzled tile of D-wide
-// rows: the chunk index XORs with address bits 7 and up (CUTLASS's
-// Swizzle<3,4,3> at 128-byte rows, c ^ (r & 7); Swizzle<2,4,3> at 64-byte
-// rows, c ^ ((r >> 1) & 3)), as TMA writes it and wgmma reads it.
-template <int D>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  constexpr int ROW = Sm90Cfg<D>::ROW;
-  return r * ROW + ((c ^ ((r * ROW >> 7) & (ROW / 16 - 1))) << 4);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete. A phase that never
-// completes (a fault in the barrier protocol) traps after 2^30 polls, so
-// the launch fails instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  for (uint32_t polls = 0;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (polls == (1u << 30)) __trap();
-  }
-}
-
-// Keys [k0, k0 + SM90_BK) of kv_bias (a 1-D map) into shared memory.
-__device__ __forceinline__ void tma_load_bias(uint32_t dst,
-                                              const CUtensorMap* map,
-                                              uint32_t bar, int k0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0) : "memory");
-}
-
-// Rows [row, row + box) of head h of batch b into a swizzled tile.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int h, int row,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h),
-      "r"(row), "r"(b) : "memory");
-}
-
-// wgmma shared-memory descriptor of a swizzled tile of D-wide rows (PTX
-// ISA, matrix descriptor: start address >> 4 in bits 0-13, leading byte
-// offset >> 4 in 16-29, stride byte offset >> 4 in 32-45, swizzle mode in
-// 62-63: 1 = 128B, 2 = 64B). The stride offset steps over an 8-row atom,
-// 8 rows of 2D bytes: 1024 bytes at D = 64, 512 at D = 32. The leading
-// offset is unused, as the operand's contiguous extent is one row (K-major
-// Q and K with K = D; MN-major V with N = D).
-template <int D>
-__device__ __forceinline__ uint64_t sw_desc(uint32_t addr) {
-  constexpr int ROW = Sm90Cfg<D>::ROW;
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(8 * ROW / 16) << 32) |
-         (uint64_t(D == 64 ? 1 : 2) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma region.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
-  }
-}
-
-#define SM90_F4(d, j) \
-  "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
-
 // d (64 x 128 per warpgroup) = or += A (64 x 16, smem) B^T (128 x 16, smem).
 __device__ __forceinline__ void wgmma_qk(float (&d)[16][4], uint64_t da,
                                          uint64_t db, int accumulate) {
@@ -222,45 +120,7 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[16][4], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x 64 per warpgroup) += A (64 x 16, registers) B (16 x 64, smem,
-// MN-major).
-__device__ __forceinline__ void wgmma_pv(float (&d)[8][4],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : SM90_F4(d, 0), SM90_F4(d, 1), SM90_F4(d, 2), SM90_F4(d, 3),
-        SM90_F4(d, 4), SM90_F4(d, 5), SM90_F4(d, 6), SM90_F4(d, 7)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 32 per warpgroup) += A (64 x 16, registers) B (16 x 32, smem,
-// MN-major).
-__device__ __forceinline__ void wgmma_pv(float (&d)[4][4],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : SM90_F4(d, 0), SM90_F4(d, 1), SM90_F4(d, 2), SM90_F4(d, 3)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 #undef SM90_F4
-
-// 2^x in one MUFU.EX2: exp2f's own instruction without the three that
-// keep results below 2^-126 subnormal; those flush to 0 here. Below a row's
-// running max that is invisible (l >= 1, P rounds to bf16); with the static
-// bound it zeroes keys more than 126 below the bound.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Bias, mask and softmax of one S tile (flash_fwd_kernel's arithmetic):
 // updates the row shift m and the partial row sum l, sets c to the factor
@@ -579,59 +439,6 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     consume<D, STATIC>(P, Q0, sm, warp, lane);
   }
-}
-
-// cuTensorMapEncodeTiled, fetched from the driver at run time: the library
-// is linked without -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-#if CUDART_VERSION >= 12050
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                         cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      f = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                cudaEnableDefault) != cudaSuccess)
-      f = nullptr;
-#endif
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// 4-D map (D, H, n, B) of a packed (B, N, H*D) bf16 tensor, cut at
-// n <= N rows: a box is `rows` rows of one head, swizzled as swz<D>; rows
-// at or past n read as zeros.
-template <int D>
-int encode_heads(CUtensorMap* map, const void* ptr, int B, int N, int n,
-                 int H, int rows) {
-  constexpr cuuint64_t ROW = Sm90Cfg<D>::ROW;
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return int(cudaErrorNotSupported);
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
-    return int(cudaErrorMisalignedAddress);
-  const cuuint64_t dims[4] = {D, cuuint64_t(H), cuuint64_t(n),
-                              cuuint64_t(B)};
-  const cuuint64_t strides[3] = {ROW, ROW * H, ROW * H * N};
-  const cuuint32_t box[4] = {D, 1, cuuint32_t(rows), 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
 }
 
 // 1-D map of kv_bias cut at vl keys: a box is one key tile; keys at or past

@@ -1,5 +1,5 @@
-"""Multi-head attention for the VGGT trunk: plain versions and the four
-hand-written CUDA flash-attention kernels (two forward, two backward).
+"""Multi-head attention for the VGGT trunk: plain versions and the
+hand-written CUDA flash-attention kernels (forward and backward).
 
 Counterpart of vggt_slam_tpu/ops/attention.py. The packed layout is the
 port's kernel layout: q/k/v are (B, N, H*D), the natural output of the
@@ -22,11 +22,12 @@ q/k/v projections, so no transposes cross device memory.
   quantized after rope, s32 logits, bf16 PV), counted as
   `flash_single_i8` / `flash_multi_i8`. `flash_attention` takes it only
   where the key set does not fit one block, as the reference does.
-* `flash_bwd_dq` / `flash_bwd_dkv` / `flash_bwd_ref`: the counterparts of
-  the TPU kernels `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` and
-  their plain version; `FlashAttentionGrad` / `flash_attention_grad` (the
-  reference's `flash_attention_grad`) wrap the forward with stats and the
-  two backward kernels as a `torch.autograd.Function`, `impl="flash_grad"`.
+* `flash_bwd` / `flash_bwd_ref`: one CUDA call computing what the TPU
+  kernels `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` compute
+  together (dq, dk, dv), and their plain version; `FlashAttentionGrad` /
+  `flash_attention_grad` (the reference's `flash_attention_grad`) wrap the
+  forward with stats and the backward as a `torch.autograd.Function`,
+  `impl="flash_grad"`.
 
 A kernel wrapper runs its plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel (csrc/flash_attention.cu,
@@ -43,7 +44,9 @@ _NEG_INF = -1e30
 LOG2E = math.log2(math.e)
 
 # Launches of each CUDA kernel in this process (plain-version calls are not
-# counted). Read by chip_smoke.py to show the main path ran the kernels.
+# counted), one key per TPU kernel: a `flash_bwd` call computes both
+# backward kernels' functions and adds one to each of their keys. Read by
+# chip_smoke.py to show the main path ran the kernels.
 LAUNCHES = {"flash_single": 0, "flash_multi": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "flash_single_i8": 0, "flash_multi_i8": 0}
 HEAD_DIMS = (32, 64, 128)
@@ -285,12 +288,12 @@ _SIGNATURES = {
     "flash_error_string": ([ctypes.c_int], ctypes.c_char_p),
     "flash_fwd_design_launches": ([ctypes.POINTER(ctypes.c_longlong)], None),
 }
-_BWD_COMMON = [_P] * 7
-_BWD_TAIL = [_I, _I, _I, _I, _I, _I, _F, _F, _P]
 _BWD_SIGNATURES = {
-    "flash_bwd_dq": (_BWD_COMMON + [_P] + _BWD_TAIL, ctypes.c_int),
-    "flash_bwd_dkv": (_BWD_COMMON + [_P, _P] + _BWD_TAIL, ctypes.c_int),
+    "flash_bwd": ([_P] * 12 + [_I] * 6 + [_F, _F, _P], ctypes.c_int),
     "flash_bwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "flash_bwd_design_launches": ([ctypes.POINTER(ctypes.c_longlong)], None),
+    "flash_bwd_scratch_floats": (
+        [_I] * 4 + [ctypes.POINTER(ctypes.c_longlong)], None),
 }
 
 
@@ -313,6 +316,16 @@ def bwd_kernel_library():
     """Build (if stale) and load csrc/flash_attention_bwd.cu."""
     from vggt_slam_tpu_torch.ops import cuda_build
     return cuda_build.load("flash_attention_bwd", _BWD_SIGNATURES)
+
+
+def bwd_design_launches() -> dict:
+    """The backward's launches in this process by design, counted by the C
+    launcher at each `flash_bwd` call: "tma_wgmma" for flash_bwd_sm90
+    (csrc/flash_bwd_sm90.cuh, head dims 32 and 64), "mma_sync" for the dq
+    and dkv kernels of csrc/flash_attention_bwd.cu (head dim 128)."""
+    out = (ctypes.c_longlong * 2)()
+    bwd_kernel_library().flash_bwd_design_launches(out)
+    return {"mma_sync": out[0], "tma_wgmma": out[1]}
 
 
 def _f32(t, shape, name, device, align=False):
@@ -483,7 +496,7 @@ def flash_multi(q, k, v, smax, *, num_heads, valid_len=None, rope_q=None,
 
 def flash_bwd_ref(q, k, v, dout, m, l, delta, *, num_heads, valid_len=None,
                   q_chunk=2048):
-    """Plain version of the two backward kernels: packed (B, N, H*D) q, k,
+    """Plain version of the backward kernels: packed (B, N, H*D) q, k,
     v, dout and the forward's (B, H, Nq) f32 stats m, l with delta =
     rowsum(dout * out) -> (dq, dk, dv) in the inputs' dtypes.
 
@@ -528,69 +541,77 @@ def flash_bwd_ref(q, k, v, dout, m, l, delta, *, num_heads, valid_len=None,
             packed(dv, Nk, v.dtype))
 
 
-def _launch_bwd(entry, q, k, v, dout, m, l, delta, num_heads, valid_len,
-                outs):
+def bwd_delta(dout, out, num_heads):
+    """delta = rowsum(dout * out) per head, (B, H, Nq) f32: the plain
+    version of the backward's pre-pass."""
+    B, Nq, HD = out.shape
+    return (dout.float() * out.float()).view(B, Nq, num_heads, -1).sum(-1) \
+        .transpose(1, 2).contiguous()
+
+
+def _launch_bwd(q, k, v, dout, out, m, l, num_heads, valid_len, outs):
+    """Launch `flash_bwd` into `outs` = (dq, dk, dv)."""
     _check_args(q, k, v, num_heads, None, None, None)
     dev = q.device
-    _check_cuda_tensors(dev, (("q", q), ("k", k), ("v", v),
-                              ("dout", dout)))
-    if dout.shape != q.shape:
-        raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
+    _check_cuda_tensors(dev, (("q", q), ("k", k), ("v", v), ("dout", dout),
+                              ("out", out), ("dq", outs[0]),
+                              ("dk", outs[1]), ("dv", outs[2])))
+    for name, t, like in (("dout", dout, q), ("out", out, q),
+                          ("dq", outs[0], q), ("dk", outs[1], k),
+                          ("dv", outs[2], v)):
+        if t.shape != like.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != "
+                             f"{tuple(like.shape)}")
     B, Nq, HD = q.shape
     Nk = k.shape[1]
     H = num_heads
     D = _head_dim(HD, H)
-    stats = [_f32(t, (B, H, Nq), name, dev)
-             for name, t in (("m", m), ("l", l), ("delta", delta))]
+    stats = [_f32(t, (B, H, Nq), name, dev) for name, t in (("m", m),
+                                                            ("l", l))]
     vl = Nk if valid_len is None else max(0, min(int(valid_len), Nk))
     if B == 0 or Nq == 0 or Nk == 0:
         for t in outs:
             t.zero_()
         return
+    # one allocation for the kernel's scratch, of the sizes it states
     lib = bwd_kernel_library()
-    args = [t.data_ptr() for t in (q, k, v, dout, *stats, *outs)]
-    args += [B, H, Nq, Nk, D, vl, LOG2E / math.sqrt(D), 1.0 / math.sqrt(D)]
-    code = _call_on(dev, getattr(lib, entry), args)
+    sizes = (ctypes.c_longlong * 2)()
+    lib.flash_bwd_scratch_floats(B, H, Nq, D, sizes)
+    n_work, n_acc = sizes
+    scratch = torch.empty(n_work + n_acc, dtype=torch.float32, device=dev)
+    args = [t.data_ptr() for t in (q, k, v, dout, out, *stats, *outs)]
+    args += [scratch.data_ptr() + 4 * n_work if n_acc else None,
+             scratch.data_ptr(), B, H, Nq, Nk, D, vl, LOG2E / math.sqrt(D),
+             1.0 / math.sqrt(D)]
+    code = _call_on(dev, lib.flash_bwd, args)
     if code != 0:
-        raise RuntimeError(f"{entry} launch failed: "
+        raise RuntimeError(f"flash_bwd launch failed: "
                            f"{lib.flash_bwd_error_string(code).decode()}")
 
 
-def flash_bwd_dq(q, k, v, dout, m, l, delta, *, num_heads, valid_len=None):
-    """dq of the flash backward (kernel 3), packed layout. CPU tensors take
-    `flash_bwd_ref`; CUDA tensors the CUDA kernel."""
+def flash_bwd(q, k, v, dout, out, m, l, *, num_heads, valid_len=None):
+    """(dq, dk, dv) of the flash backward (kernels 3 and 4 in one call),
+    packed layout, from the forward's output `out` and row stats m, l. CPU
+    tensors take `bwd_delta` and `flash_bwd_ref`; CUDA tensors the CUDA
+    kernels (flash_bwd_sm90 at head dims 32 and 64)."""
     if q.device.type == "cpu":
-        return flash_bwd_ref(q, k, v, dout, m, l, delta, num_heads=num_heads,
-                             valid_len=valid_len)[0]
+        return flash_bwd_ref(q, k, v, dout, m, l,
+                             bwd_delta(dout, out, num_heads),
+                             num_heads=num_heads, valid_len=valid_len)
     _require_cuda(q)
-    dq = torch.empty_like(q)
-    _launch_bwd("flash_bwd_dq", q, k, v, dout, m, l, delta, num_heads,
-                valid_len, (dq,))
+    outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    _launch_bwd(q, k, v, dout, out, m, l, num_heads, valid_len, outs)
     LAUNCHES["flash_bwd_dq"] += 1
-    return dq
-
-
-def flash_bwd_dkv(q, k, v, dout, m, l, delta, *, num_heads, valid_len=None):
-    """(dk, dv) of the flash backward (kernel 4), packed layout. CPU tensors
-    take `flash_bwd_ref`; CUDA tensors the CUDA kernel."""
-    if q.device.type == "cpu":
-        return flash_bwd_ref(q, k, v, dout, m, l, delta, num_heads=num_heads,
-                             valid_len=valid_len)[1:]
-    _require_cuda(q)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_bwd_dkv", q, k, v, dout, m, l, delta, num_heads,
-                valid_len, (dk, dv))
     LAUNCHES["flash_bwd_dkv"] += 1
-    return dk, dv
+    return outs
 
 
 class FlashAttentionGrad(torch.autograd.Function):
     """Differentiable flash attention (reference `flash_attention_grad`):
     the forward runs the stats variant of kernel 1 or 2 and saves q, k, v,
-    out, m and l; the backward computes delta = rowsum(dout * out) and runs
-    the dq and dkv kernels. Under activation checkpointing the forward runs
-    again in the backward pass and saves the recomputed stats, which are
-    the ones the kernels then read."""
+    out, m and l; the backward runs `flash_bwd`. Under activation
+    checkpointing the forward runs again in the backward pass and saves the
+    recomputed stats, which are the ones the kernels then read."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, valid_len, softmax):
@@ -605,14 +626,9 @@ class FlashAttentionGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, m, l = ctx.saved_tensors
-        H = ctx.num_heads
-        dout = dout.contiguous()
-        B, Nq, HD = q.shape
-        delta = (dout.float() * out.float()).view(B, Nq, H, HD // H) \
-            .sum(-1).transpose(1, 2).contiguous()
-        kw = dict(num_heads=H, valid_len=ctx.valid_len)
-        dq = flash_bwd_dq(q, k, v, dout, m, l, delta, **kw)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, m, l, delta, **kw)
+        dq, dk, dv = flash_bwd(q, k, v, dout.contiguous(), out, m, l,
+                               num_heads=ctx.num_heads,
+                               valid_len=ctx.valid_len)
         return dq, dk, dv, None, None, None
 
 

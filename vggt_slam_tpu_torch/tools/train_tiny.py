@@ -8,8 +8,10 @@ parallel/train.vggt_loss: camera pose-encoding regression plus
 confidence-weighted dense depth (conf * |err| - alpha * log conf), with a
 pose weight and an optional log-space scale-consistency term. Training uses
 exact attention (global_kv_stride=1) through the differentiable flash
-kernels (`flash_grad`: the forward kernels with row stats and the two
-backward kernels) with activation checkpointing.
+kernels (`flash_grad`: the forward kernels with row stats and the
+backward, `flash_bwd`) with activation checkpointing. On the card the
+last line of its output holds the kernel launches and the backward's
+launches by design.
 
 The optimizer chain is the reference's optax chain: clip_by_global_norm,
 then AdamW under a linear-warmup cosine schedule whose first update has
@@ -362,6 +364,11 @@ def main(argv=None):
     save_train_state(opt, sched, model, args.steps, _opt_path(last_path))
     print(f"done: best val_loss {best_val:.4f}; checkpoint at {ckpt_path}",
           flush=True)
+    if device.type == "cuda":   # which kernels, and which backward design
+        from vggt_slam_tpu_torch.ops import attention as A
+        print(json.dumps({"kernel_launches": dict(A.LAUNCHES),
+                          "bwd_design_launches": A.bwd_design_launches()}),
+              flush=True)
 
 
 if __name__ == "__main__":
