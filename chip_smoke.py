@@ -5,9 +5,9 @@
     python3 chip_smoke.py --kernels-only   # build and check the kernels only
     python3 chip_smoke.py --profile        # also profile one forward and
                                            # one training step
-    python3 chip_smoke.py --ab DIR...   # build, then time the bf16 forward
-                                        # and the backward of each DIR's
-                                        # flash_attention.cu and
+    python3 chip_smoke.py --ab DIR...   # build, then time the bf16 and
+                                        # int8 forwards and the backward of
+                                        # each DIR's flash_attention.cu and
                                         # flash_attention_bwd.cu and this
                                         # tree's in turns, and stop
 
@@ -51,17 +51,21 @@ Phases, one line of output each (and the contract lines at the end):
 And, for the --qk_int8 path and the fused DPT tail:
   A. the int8 kernels (flash_multi_i8, flash_single_i8) against their plain
      versions at the SLAM global shape (18-frame bucket, merged K/V, rope,
-     kv_bias, valid_len) and the training global shape, beside the bf16
-     kernels' times at the same shapes;
+     kv_bias, valid_len) at VGGT-1B's and the small model's widths and the
+     training global shape, beside the bf16 kernels' times at the same
+     shapes; the design each ran (flash_sm90.cuh at head dims 32 and 64),
+     and the call's scales pass against int8_scales (bit-equal; timed);
   B. the fused DPT tail on the depth head's own output_conv1 activations of
      a full-width 18-frame forward, against its plain version and against
      the head's unfused chain (heads.py:228-231, cuDNN, TF32 off);
   C. the full-width 18-frame forward with global_qk_int8 through the
      kernels against their plain versions, in both softmax modes (24 int8
-     launches each), and against the bf16 forward (reported);
+     launches each, on the bf16 forward's designs), and against the bf16
+     forward (reported, with the three forwards' times);
   D. the CLI's own path on a folder of 24 PNG frames at 480x640 with
      --qk_int8: decoding and resizing without OpenCV, its own VGGT-1B,
-     at least 2 submaps, finite poses and homographies, the TUM log.
+     at least 2 submaps, finite poses and homographies, the TUM log, the
+     int8 launches on flash_sm90.cuh (the designs by count).
 And, for the frame-attention probes of scripts/bench_attention.py:
   E. the four probe kernels (matmul-only, softmax-only, grouped and
      pipelined at G = 2, 4, 8) against their plain versions at the SLAM
@@ -86,7 +90,9 @@ phases 3 and 4 (head dims 32, 64 and 128) in turns (each DIR's
 flash_attention.cu, built with the headers beside it and named after its
 folder, then this tree's), each held against its plain version first,
 beside SDPA and the bound, with the host cost per call at two shapes; then
-the backward at the six training shapes in turns (each DIR's
+the int8 forward at phase A's shapes, both kernels (each build's against
+its own plain version, eager and as a CUDA graph, beside this tree's bf16
+call); then the backward at the six training shapes in turns (each DIR's
 flash_attention_bwd.cu through its own entries, then this tree's
 flash_bwd; a DIR may hold only the backward's sources), beside SDPA's
 backward alone (eager and as a CUDA graph) and the bound; and stops
@@ -357,8 +363,9 @@ def launched_design(fn, counts=None) -> str:
 
 
 def expect_design(name, D, design):
-    """The bf16 forward runs flash_sm90.cuh at head dims 32 and 64 and
-    flash_fwd_kernel at 128 (flash_attention.cu launch_dim); the backward
+    """The forward, bf16 or int8, runs flash_sm90.cuh at head dims 32 and
+    64 and flash_fwd_kernel at 128 (flash_attention.cu launch_dim); the
+    backward
     flash_bwd_sm90.cuh at 32 and 64 and the mma.sync kernels at 128
     (flash_attention_bwd.cu flash_bwd)."""
     want = "tma_wgmma" if D in (32, 64) else "mma_sync"
@@ -822,20 +829,44 @@ def drive_main_path(model, device, frames):
 
 def int8_cases(device):
     """The int8 kernels' shapes: the global block of the 18-frame SLAM
-    bucket (its qk-norm already applied outside, as with --qk_int8) and
-    the training global block (pre-applied q, k)."""
+    bucket at VGGT-1B's and the small model's widths (head dims 64 and 32;
+    the qk-norm already applied outside, as with --qk_int8) and the
+    training global block (pre-applied q, k)."""
     import torch
 
-    slam = next(c for c in main_path_attention_cases(device)
-                if c["name"] == "global_block")
-    kw = {k: v for k, v in slam["kw"].items() if k != "qk_ln"}
+    cases = {c["name"]: c for c in main_path_attention_cases(device)}
     g = torch.Generator(device=device).manual_seed(SEED + 2)
     q, k, v = (torch.randn((1, n, 16 * 64), generator=g, device=device)
                .to(torch.bfloat16) for n in (4164, 4164, 4164))
-    return [dict(name="slam_global", q=slam["q"], k=slam["k"], v=slam["v"],
-                 kw=kw),
-            dict(name="training_global", q=q, k=k, v=v,
-                 kw=dict(num_heads=16))]
+    out = [dict(name="training_global", q=q, k=k, v=v,
+                kw=dict(num_heads=16))]
+    for name, c in (("slam_global", cases["global_block"]),
+                    ("small_global", cases["small_global_block"])):
+        kw = {k_: v_ for k_, v_ in c["kw"].items() if k_ != "qk_ln"}
+        out.insert(len(out) - 1, dict(name=name, q=c["q"], k=c["k"],
+                                      v=c["v"], kw=kw))
+    return out
+
+
+def int8_calls(case, mod=None):
+    """{kernel: (call(i8, stats=False) through wrapper module `mod`, its
+    plain version)} at an `int8_cases` case."""
+    from vggt_slam_tpu_torch.ops import attention as A
+
+    mod = mod or A
+    q, k, v, kw = case["q"], case["k"], case["v"], case["kw"]
+    smax = A.static_bound(q, k, kw["num_heads"], kv_bias=kw.get("kv_bias"))
+    return {
+        "flash_multi_i8": (
+            lambda i8, st=False: mod.flash_multi(
+                q, k, v, smax, qk_int8=i8, return_stats=st, **kw),
+            lambda i8, st=False: mod.flash_multi_ref(
+                q, k, v, smax, qk_int8=i8, return_stats=st, **kw)),
+        "flash_single_i8": (
+            lambda i8, st=False: mod.flash_single(
+                q, k, v, qk_int8=i8, return_stats=st, **kw),
+            lambda i8, st=False: mod.flash_single_ref(
+                q, k, v, qk_int8=i8, return_stats=st, **kw))}
 
 
 INT8_STATS_TOL = 1e-4
@@ -887,8 +918,10 @@ def int8_failure(e):
 def check_int8_kernels(device):
     """Phase A: flash_multi and flash_single with qk_int8 against their
     plain versions (the same scales, exact s32 products) and against the
-    bf16 plain path as a control (`int8_errors`), with the bf16 kernel's
-    time at the same shape."""
+    bf16 plain path as a control (`int8_errors`), with the design each ran
+    and the bf16 kernel's time at the same shape; the call's scales pass
+    (`int8_scales_cuda`) against `int8_scales`, bit for bit, both timed as
+    CUDA graphs."""
     import torch
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -896,36 +929,33 @@ def check_int8_kernels(device):
     results = []
     for case in int8_cases(device):
         q, k, v, kw = case["q"], case["k"], case["v"], case["kw"]
-        smax = A.static_bound(q, k, kw["num_heads"],
-                              kv_bias=kw.get("kv_bias"))
-        calls = {
-            "flash_multi_i8": (
-                lambda i8, st=False: A.flash_multi(
-                    q, k, v, smax, qk_int8=i8, return_stats=st, **kw),
-                lambda i8, st=False: A.flash_multi_ref(
-                    q, k, v, smax, qk_int8=i8, return_stats=st, **kw)),
-            "flash_single_i8": (
-                lambda i8, st=False: A.flash_single(
-                    q, k, v, qk_int8=i8, return_stats=st, **kw),
-                lambda i8, st=False: A.flash_single_ref(
-                    q, k, v, qk_int8=i8, return_stats=st, **kw))}
+        H, rope = kw["num_heads"], kw.get("rope_q") is not None
+        D = q.shape[2] // H
+        scales = (lambda: A.int8_scales_cuda(q, k, H, rope),
+                  lambda: A.int8_scales(q, k, H, rope))
+        if not torch.equal(scales[0](), scales[1]()):
+            raise AssertionError(f"the int8 scales pass differs from "
+                                 f"int8_scales at {case['name']}")
+        scales_ms = [graph_ms(f) for f in scales]
         lib = sdpa_call(case)
         library_ms = cuda_ms(lib, iters=10) if lib is not None else None
         bound_ms, bound_by, bound_unit = attention_bound_ms(case, int8=True)
-        for name, (kern, plain) in calls.items():
+        for name, (kern, plain) in int8_calls(case).items():
             got = kern(True, True)
             torch.cuda.synchronize()
             errs = int8_errors(got, plain(True, True), plain(False, True))
-            res = dict(variant=case["name"], kernel=name,
+            design = launched_design(lambda: kern(True))
+            res = dict(variant=case["name"], kernel=name, D=D, design=design,
                        shape_q=list(q.shape), shape_kv=list(k.shape),
-                       valid_len=kw.get("valid_len"),
-                       rope=kw.get("rope_q") is not None, **errs,
+                       valid_len=kw.get("valid_len"), rope=rope, **errs,
+                       scales_ms=scales_ms[0], scales_plain_ms=scales_ms[1],
                        ms=cuda_ms(lambda: kern(True), iters=10),
                        bf16_kernel_ms=cuda_ms(lambda: kern(False), iters=10),
                        plain_ms=cuda_ms(lambda: plain(True), iters=2),
                        library_ms=library_ms, bound_ms=bound_ms,
                        bound_by=bound_by, bound_unit=bound_unit)
             log("int8_kernel_check", **res)
+            expect_design(f"{name} at {case['name']}", D, design)
             why = int8_failure(errs)
             if why is not None:
                 raise AssertionError(f"{name} at {case['name']}: {why}")
@@ -956,7 +986,10 @@ def check_int8_forward(model, device, frames):
     392x518: the bf16 forward captures the depth head's output_conv1
     activations for phase B; then the int8 forward through the kernels
     against the same forward through their plain versions, in both softmax
-    modes. Returns (the captured activations, launches per mode)."""
+    modes, on the bf16 forward's designs (the C launcher's counts: the int8
+    launches take the bf16 global blocks' flash_sm90.cuh). Host ms of each
+    forward (ending in the outputs on the host). Returns (the captured
+    activations, launches per mode, the bf16 forward's designs)."""
     import numpy as np
     import torch
 
@@ -967,12 +1000,20 @@ def check_int8_forward(model, device, frames):
     images = preprocess_frames(frames[:17])
     fn = make_bucketed_model_fn(model, 18, as_numpy=True,
                                 with_unprojection=True, device=device)
+    def timed():   # (outputs, host ms, designs by count)
+        torch.cuda.synchronize()
+        before, t0 = A.forward_design_launches(), time.perf_counter()
+        out = fn(images)
+        ms = (time.perf_counter() - t0) * 1e3
+        return out, ms, {d: n - before[d]
+                         for d, n in A.forward_design_launches().items()}
+
     captured = {}
     hook = model.depth_head.output_conv1.register_forward_hook(
         lambda mod, inp, out: captured.update(x=out.detach(),
                                               path=inp[0].detach()))
     try:
-        out_bf16 = fn(images)
+        out_bf16, bf16_ms, bf16_designs = timed()
     finally:
         hook.remove()
 
@@ -988,8 +1029,7 @@ def check_int8_forward(model, device, frames):
                           ("online", "flash_single_i8")):
         with int8_global(model, softmax):
             A.reset_launch_counts()
-            out_k = fn(images)
-            torch.cuda.synchronize()
+            out_k, ms, designs = timed()
             launches[softmax] = dict(A.LAUNCHES)
             with plain_attention():
                 out_p = fn(images)
@@ -1004,9 +1044,11 @@ def check_int8_forward(model, device, frames):
         log("int8_forward_check", frames=17, bucket=18, softmax=softmax,
             rel_rms_err_vs_plain=errs, tol=tol,
             rel_rms_vs_bf16_forward=vs_bf16, launches=launches[softmax],
+            designs=designs, bf16_designs=bf16_designs, forward_ms=ms,
+            bf16_forward_ms=bf16_ms,
             note="global blocks with int8 QK^T through the kernels against "
                  "the same forward through their plain versions; the bf16 "
-                 "comparison is for information")
+                 "comparison is for information; host ms of one forward")
         if max(errs.values()) > tol:
             raise AssertionError(f"int8 forward ({softmax}) disagrees with "
                                  f"the plain path: {errs}")
@@ -1014,7 +1056,11 @@ def check_int8_forward(model, device, frames):
             raise AssertionError(f"{name} launched {launches[softmax][name]}"
                                  f" times in the int8 forward, not one per "
                                  f"global block")
-    return captured, launches
+        if designs != bf16_designs:
+            raise AssertionError(f"the int8 forward ran designs {designs}, "
+                                 f"the bf16 one {bf16_designs}: int8 left "
+                                 f"flash_sm90.cuh")
+    return captured, launches, bf16_designs
 
 
 def check_dpt_tail(model, device, captured):
@@ -1126,11 +1172,13 @@ def write_png(path, bgr):
     return kind
 
 
-def drive_image_folder_cli(device):
+def drive_image_folder_cli(device, per_forward):
     """Phase D: the CLI's own path on a PNG folder with --qk_int8: 24
     panned 480x640 frames written here, read back by the in-repo decoder,
     resized without OpenCV to 392x518, and run by `run_slam` with the
-    model it builds itself (VGGT-1B, seeded random weights)."""
+    model it builds itself (VGGT-1B, seeded random weights). `per_forward`:
+    one 18-frame forward's designs (phase C), whose mma_sync launches (the
+    camera trunk's) must be all that each of the run's forwards adds."""
     import shutil
     import tempfile
 
@@ -1167,11 +1215,13 @@ def drive_image_folder_cli(device):
              log_path, "--seed", str(SEED), "--timing"])
         torch.cuda.synchronize()
         A.reset_launch_counts()
-        t0 = time.perf_counter()
+        before, t0 = A.forward_design_launches(), time.perf_counter()
         result = run_slam(args, device=device)
         sync()
         wall = time.perf_counter() - t0
         launches = dict(A.LAUNCHES)
+        designs = {d: n - before[d]
+                   for d, n in A.forward_design_launches().items()}
         solver = result["solver"]
         n_sub = solver.map.get_num_submaps()
         poses = [p for s in solver.map.ordered_submaps_by_key()
@@ -1189,7 +1239,8 @@ def drive_image_folder_cli(device):
             png_row_filters=np.bincount(kinds, minlength=5).tolist(),
             submaps=n_sub, poses=len(poses),
             tum_rows=None if tum is None else int(tum.shape[0]),
-            homography_dets=dets, launches=launches, wall_s=wall,
+            homography_dets=dets, launches=launches, designs=designs,
+            wall_s=wall,
             fps=len(frames) / wall, stages=stages, all_finite=finite)
         if n_sub < 2:
             raise AssertionError(f"only {n_sub} submap(s) formed")
@@ -1202,6 +1253,10 @@ def drive_image_folder_cli(device):
         if launches["flash_multi_i8"] == 0:
             raise AssertionError("the int8 kernel was not launched on the "
                                  "--qk_int8 path")
+        forwards = launches["flash_multi_i8"] / 24   # VGGT-1B global blocks
+        if designs["mma_sync"] != forwards * per_forward["mma_sync"]:
+            raise AssertionError(f"{designs} over {forwards} forwards: "
+                                 f"the int8 kernel left flash_sm90.cuh")
         del result, solver
         torch.cuda.empty_cache()
         return launches
@@ -2213,7 +2268,76 @@ def ab_forward(device, dirs):
     return builds, rows
 
 
+def ab_int8(device, builds):
+    """The int8 forward of each build (`ab_builds`) at phase A's shapes,
+    both kernels: held to its own wrapper's plain version and bf16 control
+    (`int8_errors`, `int8_failure`), then timed in turns with this tree's
+    bf16 call at the same shape and softmax mode (first to last, then
+    back): CUDA events around 20 eager calls (`ms`) and one CUDA graph of
+    20 calls (`graph_ms`). Returns the rows (also logged)."""
+    names = list(builds) + ["bf16"]
+    rows = []
+    for case in int8_cases(device):
+        D = case["q"].shape[2] // case["kw"]["num_heads"]
+        bound = attention_bound_ms(case, int8=True)
+        bf16_bound = attention_bound_ms(case)[0]
+        for kernel in ("flash_multi_i8", "flash_single_i8"):
+            calls = {n: int8_calls(case, builds[n][0])[kernel]
+                     for n in builds}
+            errs, runs, graph_runs = {}, {n: [] for n in names}, {
+                n: [] for n in names}
+            for n in names + names[::-1]:
+                mod, lib = builds["this_tree" if n == "bf16" else n]
+                with using_library(lib, mod):
+                    kern = calls["this_tree" if n == "bf16" else n][0]
+                    fn = functools.partial(kern, n != "bf16")
+                    if n not in errs and n != "bf16":
+                        plain = calls[n][1]
+                        errs[n] = int8_errors(kern(True, True),
+                                              plain(True, True),
+                                              plain(False, True))
+                        why = int8_failure(errs[n])
+                        if why is not None:
+                            raise AssertionError(f"{n}'s {kernel} at "
+                                                 f"{case['name']}: {why}")
+                    runs[n].append(cuda_ms(fn, iters=20))
+                    graph_runs[n].append(graph_ms(fn))
+            ms = {n: sum(r) / len(r) for n, r in runs.items()}
+            dev_ms = {n: sum(r) / len(r) for n, r in graph_runs.items()}
+            row = dict(variant=case["name"], kernel=kernel, D=D,
+                       design=launched_design(functools.partial(
+                           calls["this_tree"][0], True)),
+                       bound_ms=bound[0], bound_unit=bound[2], ms=ms,
+                       graph_ms=dev_ms, runs=runs, graph_runs=graph_runs,
+                       errors=errs,
+                       share_of_bound={
+                           n: (bf16_bound if n == "bf16" else bound[0]) / t
+                           for n, t in dev_ms.items()},
+                       speedup={n: t / dev_ms["this_tree"]
+                                for n, t in dev_ms.items()
+                                if n not in ("this_tree", "bf16")},
+                       vs_bf16=dev_ms["this_tree"] / dev_ms["bf16"])
+            log("ab_int8", **row)
+            expect_design(f"{kernel} at {case['name']}", D, row["design"])
+            rows.append(row)
+    return rows
+
+
 # ---------------------------------------------------------------------------
+
+def sm90_registers(registers, static, int8) -> dict:
+    """ptxas registers of the flash_fwd_sm90<D, STATIC, I8> instances with
+    these flags, by (demangled or mangled) name."""
+    import re
+
+    out = {}
+    for name, n in registers.items():
+        m = (re.search(r"flash_fwd_sm90<\d+, (\w+), (\w+)>", name)
+             or re.search(r"flash_fwd_sm90ILi\d+ELb([01])ELb([01])E", name))
+        if m and [f in ("true", "1") for f in m.groups()] == [static, int8]:
+            out[name] = n
+    return out
+
 
 def ptxas_report(build_log) -> tuple[dict, dict]:
     """({kernel: registers}, {kernel: spill-store bytes, where not 0}) from
@@ -2283,6 +2407,7 @@ def main(argv) -> int:
         rest = argv[argv.index("--ab") + 1:]
         dirs = [d for d in rest if not d.startswith("-")]
         builds, _ = ab_forward(device, dirs)
+        ab_int8(device, builds)
         ab_backward(device, builds, dirs)
         return 0
     checks = check_kernels(device)
@@ -2304,11 +2429,12 @@ def main(argv) -> int:
     if "--profile" in argv:
         profile_forward(model, device, frames)
     launches = drive_main_path(model, device, frames)
-    captured, int8_launches = check_int8_forward(model, device, frames)
+    captured, int8_launches, per_forward = check_int8_forward(model, device,
+                                                              frames)
     tail = check_dpt_tail(model, device, captured)
     del model, captured
     torch.cuda.empty_cache()
-    cli_launches = drive_image_folder_cli(device)
+    cli_launches = drive_image_folder_cli(device, per_forward)
     check_backward(device)
     train_launches, train_per_step = drive_training(
         device, profile="--profile" in argv)
@@ -2351,9 +2477,7 @@ def main(argv) -> int:
             "variant": rep["variant"], "design": rep["design"],
             "designs": {c["variant"]: c["design"] for c in variants
                         + [t for t in train_checks if t["kernel"] == name]},
-            "registers": {k: v for k, v in registers.items()
-                          if "flash_fwd_sm90" in k and
-                          (("true>" in k or "Lb1E" in k) == static)},
+            "registers": sm90_registers(registers, static, False),
             "max_abs_err": max(c["max_abs_err"] for c in variants),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -2403,11 +2527,17 @@ def main(argv) -> int:
         rep_ = next(c for c in variants if c["variant"] == "slam_global")
         kernels.append({
             "name": name, "status": "ported", "route": "cuda",
-            "source": "vggt_slam_tpu_torch/csrc/flash_attention.cu",
+            "source": "vggt_slam_tpu_torch/csrc/flash_attention.cu, "
+                      "csrc/flash_sm90.cuh (head dims 32 and 64)",
             "replaces": replaces[name],
             "launches": int8_path[name][0][name],
             "launches_path": int8_path[name][1],
-            "variant": rep_["variant"],
+            "variant": rep_["variant"], "design": rep_["design"],
+            "designs": {c["variant"]: c["design"] for c in variants},
+            "registers": sm90_registers(registers, name == "flash_multi_i8",
+                                        True),
+            "scales_ms": rep_["scales_ms"],
+            "scales_plain_ms": rep_["scales_plain_ms"],
             "max_abs_err": max(c["max_abs_err"] for c in variants),
             "ms": rep_["ms"], "plain_ms": rep_["plain_ms"],
             "bound_ms": rep_["bound_ms"], "bound_by": rep_["bound_by"],

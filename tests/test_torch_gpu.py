@@ -451,6 +451,127 @@ def test_int8_kernels_match_plain(cuda, variant, D):
     assert float(((l - bf16_l).abs() / bf16_l).max()) > 1e-3
 
 
+# The int8 route at head dims 32 and 64 (flash_fwd_sm90 with int8 Q and K
+# tiles, s8 wgmma; q and k quantized by the call's pre-pass, whose scales
+# must equal int8_scales bit for bit): its tile, mask and batch edges,
+# each written into a NaN-filled output and held to the plain version at
+# the int8 tolerances above.
+def _i8_check(q, k, v, kw, softmax, stats=True):
+    H, static = kw["num_heads"], softmax == "static"
+    smax = A.static_bound(q, k, H, kv_bias=kw.get("kv_bias")) \
+        if static else None
+    args = (q, k, v, H, kw.get("valid_len"), kw.get("rope_q"),
+            kw.get("rope_k"), kw.get("kv_bias"), None, 1e-5, smax, stats)
+    out = torch.full_like(q, math.nan)
+    got = A._launch("flash_multi_i8_fwd" if static else "flash_single_i8_fwd",
+                    *args, True, out=out)
+    torch.cuda.synchronize()
+    ref = A._plain(*args, qk_int8=True)
+    ref_out = ref[0] if stats else ref
+    assert bool(torch.isfinite(out).all())
+    _close(out, ref_out, 1e-2 * float(ref_out.float().abs().max()))
+    if stats:
+        np.testing.assert_allclose(got[1].cpu().numpy(), ref[1].cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(got[2].cpu().numpy(), ref[2].cpu().numpy(),
+                                   rtol=1e-4, atol=0)
+    return got
+
+
+@pytest.mark.parametrize("D", SM90_DIMS)
+@pytest.mark.parametrize("softmax", ["online", "static"])
+@pytest.mark.parametrize("nq", [1, 127, 128, 129, 700])
+def test_int8_q_tile_edges(cuda, nq, softmax, D):
+    q, k, v, kw = _case(cuda, 2, 2, nq, 300, D, rope=True, ln=False,
+                        bias=True, seed=21)
+    _i8_check(q, k, v, kw, softmax)
+
+
+@pytest.mark.parametrize("D", SM90_DIMS)
+@pytest.mark.parametrize("softmax", ["online", "static"])
+@pytest.mark.parametrize("vl", [0, 1, 127, 128, 129, "Nk"])
+def test_int8_valid_len_edges(cuda, vl, softmax, D):
+    nk = 2231 if vl == "Nk" else 300
+    q, k, v, kw = _case(cuda, 1, 2, 200, nk, D, rope=True, ln=False,
+                        bias=True, seed=22)
+    kw["valid_len"] = nk if vl == "Nk" else vl
+    _i8_check(q, k, v, kw, softmax)
+
+
+@pytest.mark.parametrize("D", SM90_DIMS)
+@pytest.mark.parametrize("fill", [1e4, math.inf])
+def test_int8_batches_do_not_mix(cuda, fill, D):
+    """B = 4 at N = 1041: batch 1's k and v filled with `fill` leave the
+    other batches' outputs bit-equal (its scales, maps and tiles are its
+    own)."""
+    q, k, v, kw = _case(cuda, 4, 16, 1041, 1041, D, rope=True, ln=False,
+                        bias=False, seed=23)
+    clean = _i8_check(q, k, v, kw, "online", stats=False)
+    k2, v2 = k.clone(), v.clone()
+    k2[1] = fill
+    v2[1] = fill
+    out = A.flash_single(q, k2, v2, qk_int8=True, **kw)
+    torch.cuda.synchronize()
+    for b in (0, 2, 3):
+        assert torch.equal(out[b], clean[b])
+
+
+@pytest.mark.parametrize("D", SM90_DIMS)
+@pytest.mark.parametrize("softmax", ["online", "static"])
+def test_int8_inf_past_valid_len_gives_finite_output(cuda, softmax, D):
+    q, k, v, kw = _case(cuda, 1, 4, 300, 400, D, rope=False, ln=False,
+                        bias=True, seed=24)
+    kw["valid_len"] = 257
+    v[:, 257:] = math.inf
+    _i8_check(q, k, v, kw, softmax)
+
+
+@pytest.mark.parametrize("D", SM90_DIMS)
+@pytest.mark.parametrize("softmax", ["online", "static"])
+def test_int8_repeated_runs_are_bit_equal(cuda, softmax, D):
+    """Each output row has one CTA and no atomics: two runs agree bit for
+    bit (out, m and l)."""
+    q, k, v, kw = _case(cuda, 2, 4, 700, 1300, D, rope=True, ln=False,
+                        bias=True, seed=25)
+    kw["valid_len"] = 1111
+    first, second = (_i8_check(q, k, v, kw, softmax) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_int8_design_launches_count_each_launch(cuda, D):
+    """One int8 forward adds one to the C launcher's count of its design
+    (flash_sm90.cuh at head dims 32 and 64, flash_fwd_kernel at 128) and
+    nothing to the other's."""
+    q, k, v, kw = _case(cuda, 1, 2, 200, 300, D, rope=True, ln=False,
+                        bias=False, seed=26)
+    want = "tma_wgmma" if D < 128 else "mma_sync"
+    before = A.forward_design_launches()
+    A.flash_single(q, k, v, qk_int8=True, **kw)
+    torch.cuda.synchronize()
+    after = A.forward_design_launches()
+    assert {d: after[d] - before[d] for d in after} == {
+        d: int(d == want) for d in after}
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("rope", [True, False])
+def test_int8_scales_kernel_equals_plain(cuda, rope, D):
+    """The pre-pass's scales torch.equal int8_scales: two batches 10x
+    apart, 5000 and 700 rows (several row blocks), one head of q and one of
+    k all zeros (the 1e-6 clamp)."""
+    q, k, _, _ = _case(cuda, 2, 4, 5000, 700, D, rope=False, ln=False,
+                       bias=False, seed=27)
+    q[1] *= 10
+    q.view(2, 5000, 4, D)[:, :, 1] = 0
+    k.view(2, 700, 4, D)[:, :, 3] = 0
+    got = A.int8_scales_cuda(q, k, 4, rope)
+    want = A.int8_scales(q, k, 4, rope)
+    assert float((127.0 / want[0].view(2, 4)[:, 1]).max()) == \
+        pytest.approx(1e-6)
+    assert torch.equal(got, want), (got - want).abs().max()
+
+
 @pytest.mark.parametrize("cout", [2, 4])
 def test_fused_tail_matches_plain(cuda, cout):
     # W = 100 leaves a masked edge column tile; rows 224 -> 392

@@ -8,6 +8,11 @@
   tests/test_attention.py:101-190). Tolerance 1e-4 max abs in f32: both
   sides quantize to the same int8 grid with the same scales, and the s32
   products are exact on both; what is left is f32 summation order.
+* The plain int8 path at the edges of the card's int8 route (Nq 1 and 129
+  against its 128-row q tiles, valid_len 0 and 1, two batches whose
+  per-(batch, head) amax differ 10x), at the same tolerance; and the q and
+  k int8 grids (`_quant_i8` after `_prep` at scale 1, bf16 rows) against
+  the reference's `_quant_i8` after `_rope_in_kernel`, bit for bit.
 * The tiny model with `global_qk_int8=True` against the reference's VGGT
   at 2 frames of 392x518 with exact global attention (Nk = 2082 keys,
   more than one 2048-key block, so the int8 path runs), and a fast case of
@@ -113,6 +118,80 @@ def test_int8_attention_matches_reference_kernel(name):
                                   softmax=softmax, valid_len=valid_len, **tkw)
     err = (got - exact).abs()
     assert 0 < float(err.mean()) < 1.5e-3
+
+
+EDGE_CASES = {
+    # name: (B, H, Nq, Nk, D, softmax, valid_len, rope, batch-1 scale)
+    "nq1_d64": (1, 2, 1, 300, 64, "online", 257, True, 1.0),
+    "nq129_d32": (1, 2, 129, 300, 32, "static", None, True, 1.0),
+    "valid_len0_d64": (1, 2, 200, 300, 64, "static", 0, True, 1.0),
+    "valid_len0_d32": (1, 2, 200, 300, 32, "online", 0, False, 1.0),
+    "valid_len1_d64": (1, 2, 200, 300, 64, "online", 1, True, 1.0),
+    "valid_len1_d32": (1, 2, 200, 300, 32, "static", 1, True, 1.0),
+    "b2_amax_10x_d64": (2, 2, 150, 260, 64, "static", 201, True, 10.0),
+    "b2_amax_10x_d32": (2, 2, 150, 260, 32, "online", None, False, 10.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_int8_edges_match_reference_kernel(name):
+    """The int8 route's tile and mask edges: each output against the
+    reference kernel at TOL; with a 10x batch the scales differ by 10x."""
+    B, H, Nq, Nk, D, softmax, valid_len, rope, big = EDGE_CASES[name]
+    q, k, v, extra = _inputs(11, B, H, Nq, Nk, D, rope=rope, bias=True)
+    if B > 1:
+        q[1] *= big
+        k[1] *= big
+    want = jattn.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), layout="packed",
+        num_heads=H, block_q=128, block_k=128, interpret=True, qk_int8=True,
+        softmax=softmax,
+        valid_len=None if valid_len is None else jnp.int32(valid_len),
+        **{key: _conv(val, jnp.asarray) for key, val in extra.items()})
+    tkw = {key: _conv(val, torch.from_numpy) for key, val in extra.items()}
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    if B > 1:   # amax (127 / scale) about 10x apart, per head and side
+        inv = tattn.int8_scales(tq, tk, H, rope).view(3, B, H)[:2]
+        ratio = (inv[:, 0] / inv[:, 1]).numpy()
+        assert ((ratio > 5) & (ratio < 20)).all(), ratio
+    got = tattn.flash_attention(tq, tk, tv, num_heads=H, block_k=128,
+                                qk_int8=True, softmax=softmax,
+                                valid_len=valid_len, **tkw)
+    assert got.shape == (B, Nq, H * D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=0)
+    if valid_len == 0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("rope", [True, False])
+def test_int8_grids_match_reference_bit_for_bit(rope):
+    """The int8 values QK^T multiplies: the port's (`_prep` at scale 1,
+    then `_quant_i8`) and the reference kernel's (`_rope_in_kernel`, then
+    `_quant_i8`) on the same bf16 rows and the same scales, exactly."""
+    B, H, N, D = 2, 3, 97, 64
+    q, k, _, extra = _inputs(12, B, H, N, N, D, rope=rope)
+    q[1] *= 10.0
+    tq, tk = (torch.from_numpy(x).bfloat16() for x in (q, k))
+    inv_q, inv_k, _ = tattn.int8_scales(tq, tk, H, rope)
+    for x, inv, table in ((tq, inv_q, "rope_q"), (tk, inv_k, "rope_k")):
+        tables = (tuple(torch.from_numpy(t) for t in extra[table])
+                  if rope else None)
+        got = tattn._quant_i8(tattn._prep(x, H, None, 1e-5, tables, 1.0),
+                              inv)
+        rows = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+        if rope:
+            C, S = jattn._rope_tables(*(jnp.asarray(t)
+                                        for t in extra[table]), 1.0, 0)
+        for b in range(B):
+            for h in range(H):
+                t = rows[b, :, h * D:(h + 1) * D]
+                if rope:
+                    t = jattn._rope_in_kernel(t, C, S)
+                want = jattn._quant_i8(t.astype(jnp.float32),
+                                       jnp.float32(inv[b * H + h].item()))
+                np.testing.assert_array_equal(got[b, h].numpy(),
+                                              np.asarray(want, np.float32))
 
 
 def test_int8_single_block_stays_exact():

@@ -38,10 +38,10 @@
 // a small prep kernel writes LN+rope'd k once to a scratch buffer
 // (prep_rows_kernel), and each attention CTA prepares its own q tile (at
 // head dims 32 and 64 the prep kernel prepares q too, see flash_sm90.cuh).
-// bf16 at head dims 32 and 64 (every attention of VGGT-1B but the camera
-// trunk, and every one of the small models) runs the Hopper design of
-// flash_sm90.cuh: TMA-fed K/V ring, wgmma for both products, 128-row q
-// tiles. The other routes (bf16 at D = 128 and the int8 kernels) run
+// Head dims 32 and 64 (every attention of VGGT-1B but the camera trunk,
+// and every one of the small models), bf16 or int8 QK^T, run the Hopper
+// design of flash_sm90.cuh: TMA-fed K/V ring, wgmma for both products,
+// 128-row q tiles. Head dim 128 (the camera trunk, 4-18 tokens) runs
 // flash_fwd_kernel: one CTA of 4 warps per (64-row q tile, batch, head)
 // walks 64-key K/V tiles staged in shared memory; QK^T
 // and PV run on mma.sync m16n8k16 with f32 accumulators that stay in
@@ -55,12 +55,14 @@
 // :169-221, :274-276, :310-311, :606-629): q and k are roped with tables
 // at scale 1, rounded to bf16 and quantized to int8 as
 // clip(rint(x * 127 / amax), +-127) with per-(batch, head) scales from the
-// caller; QK^T runs on mma.sync m16n8k32 s8 with s32 accumulation, and the
-// s32 logits times amax_q amax_k log2(e) / (sqrt(D) 127^2) enter the same
-// softmax, P repack and bf16 PV as the bf16 kernels. The prep kernel writes
-// the quantized k once per call; each CTA quantizes its own q tile. The
-// int8 products run at twice the bf16 rate, so QK^T's share of the bound
-// halves; PV, the softmax and the bytes are unchanged.
+// int8 pre-pass (i8_scales_kernel, bit-equal to int8_scales in
+// ops/attention.py); QK^T runs with s32 accumulation (wgmma s8 at head dims
+// 32 and 64, mma.sync m16n8k32 s8 at 128), and the s32 logits times
+// amax_q amax_k log2(e) / (sqrt(D) 127^2) enter the same softmax, P repack
+// and bf16 PV as the bf16 kernels. The pre-pass writes the quantized k, and
+// at head dims 32 and 64 q, once per call; at 128 each CTA quantizes its
+// own q tile. The int8 products run at twice the bf16 rate, so QK^T's
+// share of the bound halves; PV, the softmax and the bytes are unchanged.
 
 #include <type_traits>
 
@@ -99,7 +101,7 @@ struct Params {
 // (two more fields there raised the bf16 D=64 instances from 127-128 to
 // 131-139 registers: 3 CTAs per SM instead of 4; ptxas, H100).
 struct ParamsI8 {
-  const __nv_bfloat16* q;
+  const __nv_bfloat16* q;   // raw q (flash_fwd_kernel quantizes it)
   const int8_t* k;        // prepared int8 k (rope, bf16 round, quantized)
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
@@ -206,30 +208,162 @@ __global__ void __launch_bounds__(NTHREAD)
   for (int j = 0; j < PER; ++j) dst[base + j] = __float2bfloat16(x[j]);
 }
 
-// Prepared int8 k rows (int8 kernels): rope at scale 1, rounded to bf16,
-// then quantized with the row's (batch, head) scale. One warp per row.
+// The int8 pre-pass of flash_single_i8_fwd and flash_multi_i8_fwd, the
+// counterpart of int8_scales (ops/attention.py; reference attention.py
+// :606-629) and of the reference's _quant_i8 after its rope (:103,
+// :169-221): the per-(batch, head) scales over every row of q and k, then
+// q and k quantized once per call. What bounds it: bytes (q and k read
+// twice, their int8 copies written once).
+struct I8Prep {
+  const __nv_bfloat16* x[2];   // q, k: packed (B, N, H*D)
+  int8_t* x8[2];      // their int8 copies (x8[0] null: each CTA quantizes q)
+  const float* cos_t[2];   // (N, D/2) rope tables at scale 1, or null
+  const float* sin_t[2];
+  int N[2], B, H, rope;
+  unsigned* amax;   // (2, B*H) f32 bits of the largest x1^2 + x2^2 (rope)
+                    // or |x|, then the count of finished scales blocks
+  float* scales;    // (3, B*H): 127/amax_q, 127/amax_k, dequant scale
+  float dq;         // log2(e) / sqrt(D) / 127^2, as the caller rounds it
+};
+
+constexpr int I8_THREADS = 256;
+constexpr int I8_ROWS = 256;   // rows of one head a scales block reduces
+
+__device__ __forceinline__ void unpack8(const uint4& u, float (&x)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(p[e]);
+    x[2 * e] = f.x;
+    x[2 * e + 1] = f.y;
+  }
+}
+
+// quant_i8 of 8 values, packed in order.
+__device__ __forceinline__ uint2 quant8(const float (&x)[8], float inv) {
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    w[e / 4] |= uint32_t(uint8_t(quant_i8(x[e], inv))) << (8 * (e % 4));
+  return make_uint2(w[0], w[1]);
+}
+
+// Pass 1, grid (row blocks, 2 B H): the largest x1^2 + x2^2 over the rope
+// pairs (products and sum rounded apart, as int8_scales' separate f32 ops)
+// or the largest |x|, of I8_ROWS rows of one head of q (y < B H) or k. A
+// thread takes dims [8c, 8c + 8) and their partners D/2 away. The values
+// are not negative, so their f32 bits order as unsigned ints and blocks
+// combine by atomicMax; IEEE sqrt is monotone, so the largest pair norm is
+// the root of the largest square. The last block to finish turns the
+// maxima into the scales with int8_scales' roundings: the clamp at 1e-6,
+// 127/amax by one IEEE division, and (amax_q amax_k) dq.
 template <int D>
-__global__ void __launch_bounds__(NTHREAD)
-    prep_rows_i8_kernel(const __nv_bfloat16* src, int8_t* dst, int rows,
-                        int N, int H, const float* cos_t, const float* sin_t,
-                        const float* inv) {
-  constexpr int PER = D / 32;
-  const int lane = threadIdx.x % 32;
-  const int item = blockIdx.x * NWARP + threadIdx.x / 32;
-  if (item >= rows * H) return;
-  const int row = item / H;
-  const float sc = inv[(row / N) * H + item % H];
-  const size_t base = size_t(item) * D + lane * PER;
-  float x[PER];
+__global__ void __launch_bounds__(I8_THREADS) i8_scales_kernel(I8Prep a) {
+  constexpr int TPR = D / 16;                 // threads per row
+  constexpr int STEP = I8_THREADS / TPR;      // rows per step
+  static_assert(I8_ROWS % STEP == 0, "a block takes whole steps");
+  const int BH = a.B * a.H;
+  const int side = blockIdx.y >= BH, bh = blockIdx.y - side * BH;
+  const int N = side ? a.N[1] : a.N[0];
+  const size_t stride = size_t(a.H) * D;
+  const __nv_bfloat16* x = (side ? a.x[1] : a.x[0]) +
+                           (size_t(bh / a.H) * N * a.H + bh % a.H) * D +
+                           (threadIdx.x % TPR) * 8;
+  float mx = 0.f;
 #pragma unroll
-  for (int j = 0; j < PER; ++j) x[j] = __bfloat162float(src[base + j]);
-  prep_row<D>(x, lane, row % N, nullptr, nullptr, 0.f, cos_t, sin_t, 1.f);
+  for (int i = 0; i < I8_ROWS / STEP; ++i) {
+    const int r = blockIdx.x * I8_ROWS + i * STEP + threadIdx.x / TPR;
+    if (r < N) {
+      float x1[8], x2[8];
+      unpack8(*reinterpret_cast<const uint4*>(x + r * stride), x1);
+      unpack8(*reinterpret_cast<const uint4*>(x + r * stride + D / 2), x2);
 #pragma unroll
-  for (int j = 0; j < PER; ++j) dst[base + j] = quant_i8(x[j], sc);
+      for (int e = 0; e < 8; ++e)
+        mx = a.rope ? fmaxf(mx, __fadd_rn(__fmul_rn(x1[e], x1[e]),
+                                          __fmul_rn(x2[e], x2[e])))
+                    : fmaxf(mx, fmaxf(fabsf(x1[e]), fabsf(x2[e])));
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  __shared__ float part[I8_THREADS / 32];
+  __shared__ bool last;
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < I8_THREADS / 32; ++w) mx = fmaxf(mx, part[w]);
+    if (mx > 0.f) atomicMax(a.amax + blockIdx.y, __float_as_uint(mx));
+    __threadfence();
+    last = atomicAdd(a.amax + 2 * BH, 1u) == gridDim.x * gridDim.y - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < BH; i += I8_THREADS) {
+    float aq = __uint_as_float(__ldcg(a.amax + i));
+    float ak = __uint_as_float(__ldcg(a.amax + BH + i));
+    if (a.rope) {
+      aq = __fsqrt_rn(aq);
+      ak = __fsqrt_rn(ak);
+    }
+    aq = fmaxf(aq, 1e-6f);
+    ak = fmaxf(ak, 1e-6f);
+    a.scales[i] = __fdiv_rn(127.f, aq);
+    a.scales[BH + i] = __fdiv_rn(127.f, ak);
+    a.scales[2 * BH + i] = __fmul_rn(__fmul_rn(aq, ak), a.dq);
+  }
+}
+
+// Pass 2: q rows (where x8[0] is given), then k rows, rope'd at scale 1
+// (products and sum rounded apart), rounded to bf16 and quantized with
+// their (batch, head) scale: prep_row and quant_i8 as flash_fwd_kernel
+// applies them. A thread takes dims [8c, 8c + 8) of one (row, head) and
+// their rope partners D/2 away.
+template <int D>
+__global__ void __launch_bounds__(I8_THREADS) prep_rows_i8_kernel(I8Prep a) {
+  constexpr int TPR = D / 16, HALF = D / 2;
+  const size_t n_q = a.x8[0] ? size_t(a.B) * a.N[0] * a.H * TPR : 0;
+  size_t t = size_t(blockIdx.x) * I8_THREADS + threadIdx.x;
+  const int side = t >= n_q;
+  if (side) t -= n_q;
+  // (the pointers picked by value: a runtime index into the parameter
+  // arrays would copy them to local memory)
+  const int N = side ? a.N[1] : a.N[0];
+  if (t >= size_t(a.B) * N * a.H * TPR) return;
+  const __nv_bfloat16* src = side ? a.x[1] : a.x[0];
+  int8_t* dst = side ? a.x8[1] : a.x8[0];
+  const float* cos_t = side ? a.cos_t[1] : a.cos_t[0];
+  const float* sin_t = side ? a.sin_t[1] : a.sin_t[0];
+  const int c = t % TPR;
+  const size_t item = t / TPR, row = item / a.H;   // (row, head) item
+  const int n = row % N, bh = (row / N) * a.H + item % a.H;
+  const float inv = a.scales[side * a.B * a.H + bh];
+  const size_t base = item * D + c * 8;
+  float x1[8], x2[8];
+  unpack8(*reinterpret_cast<const uint4*>(src + base), x1);
+  unpack8(*reinterpret_cast<const uint4*>(src + base + HALF), x2);
+  if (cos_t != nullptr) {
+    const float* cs = cos_t + size_t(n) * HALF + c * 8;
+    const float* sn = sin_t + size_t(n) * HALF + c * 8;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float y1 = __fadd_rn(__fmul_rn(x1[e], cs[e]),
+                                 __fmul_rn(x2[e], -sn[e]));
+      const float y2 = __fadd_rn(__fmul_rn(x2[e], cs[e]),
+                                 __fmul_rn(x1[e], sn[e]));
+      x1[e] = __bfloat162float(__float2bfloat16(y1));
+      x2[e] = __bfloat162float(__float2bfloat16(y2));
+    }
+  }
+  *reinterpret_cast<uint2*>(dst + base) = quant8(x1, inv);
+  *reinterpret_cast<uint2*>(dst + base + HALF) = quant8(x2, inv);
 }
 
 template <int D, bool STATIC, bool INT8>
 __global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(ParamsOf<INT8> p) {
+  static_assert(!INT8 || D == 128,
+                "int8 at head dims 32 and 64 runs flash_fwd_sm90");
   constexpr int LD = D + 8;          // bf16 tile row stride (conflict-free)
   constexpr int LDB = D + 16;        // int8 tile row stride in bytes
   constexpr int KS = INT8 ? D / 32 : D / 16;   // k-steps of QK^T
@@ -482,13 +616,23 @@ int launch_prep(const __nv_bfloat16* src, __nv_bfloat16* dst, int B, int N,
   return int(cudaGetLastError());
 }
 
+// The int8 pre-pass: zero the counters, the scales, then (with
+// `quantize`) q and k.
 template <int D>
-int launch_prep_i8(const __nv_bfloat16* src, int8_t* dst, int B, int N,
-                   int H, const float* cos_t, const float* sin_t,
-                   const float* inv, cudaStream_t stream) {
-  const int blocks = (B * N * H + NWARP - 1) / NWARP;
-  prep_rows_i8_kernel<D><<<blocks, NTHREAD, 0, stream>>>(
-      src, dst, B * N, N, H, cos_t, sin_t, inv);
+int launch_i8_prepass(const I8Prep& a, bool quantize, cudaStream_t stream) {
+  const int BH = a.B * a.H;
+  int err = int(cudaMemsetAsync(a.amax, 0, sizeof(unsigned) * (2 * BH + 1),
+                                stream));
+  if (err != 0) return err;
+  const int rows = a.N[0] > a.N[1] ? a.N[0] : a.N[1];
+  i8_scales_kernel<D><<<dim3((rows + I8_ROWS - 1) / I8_ROWS, 2 * BH),
+                        I8_THREADS, 0, stream>>>(a);
+  err = int(cudaGetLastError());
+  if (err != 0 || !quantize) return err;
+  const size_t threads =
+      (size_t(a.x8[0] ? a.N[0] : 0) + a.N[1]) * BH * (D / 16);
+  prep_rows_i8_kernel<D><<<(threads + I8_THREADS - 1) / I8_THREADS,
+                           I8_THREADS, 0, stream>>>(a);
   return int(cudaGetLastError());
 }
 
@@ -499,20 +643,15 @@ int launch_prep_i8(const __nv_bfloat16* src, int8_t* dst, int B, int N,
 
 namespace {
 
-// bf16 at D = 32 and 64 runs flash_sm90.cuh; bf16 at D = 128 (the camera
-// trunk, 4-18 tokens, where the call's fixed cost and not the kernel sets
-// the time) and the int8 kernels run flash_fwd_kernel.
+// D = 32 and 64 run flash_sm90.cuh (int8: on q8, q quantized by the
+// pre-pass); D = 128 (the camera trunk, 4-18 tokens, where the call's
+// fixed cost and not the kernel sets the time) runs flash_fwd_kernel.
 template <bool STATIC, bool INT8>
-int launch_dim(const ParamsOf<INT8>& p, int B, int D, cudaStream_t stream) {
-  if constexpr (!INT8) {
-    if (D == 64) return launch_sm90<64, STATIC>(p, B, stream);
-    if (D == 32) return launch_sm90<32, STATIC>(p, B, stream);
-    return launch<128, STATIC, false>(p, B, stream);
-  } else {
-    return D == 32   ? launch<32, STATIC, true>(p, B, stream)
-           : D == 64 ? launch<64, STATIC, true>(p, B, stream)
-                     : launch<128, STATIC, true>(p, B, stream);
-  }
+int launch_dim(const ParamsOf<INT8>& p, int B, int D, cudaStream_t stream,
+               const int8_t* q8 = nullptr) {
+  if (D == 64) return launch_sm90<64, STATIC, INT8>(p, B, stream, q8);
+  if (D == 32) return launch_sm90<32, STATIC, INT8>(p, B, stream, q8);
+  return launch<128, STATIC, INT8>(p, B, stream);
 }
 
 bool bad_shape(int D, const void* m_out, const void* l_out) {
@@ -573,44 +712,76 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   return launch_dim<STATIC, false>(p, B, D, st);
 }
 
-// k8_work: an int8 scratch of k's shape for the quantized k; scales the
-// (3, B*H) f32 scales of ParamsI8.
+// work: one int8 buffer of B H D (Nq + Nk) + 4 (2 B H + 1) bytes: q8 (q
+// quantized; unused at D = 128), k8, then the pre-pass's counters. scales:
+// the (3, B*H) f32 scales of ParamsI8, which the pre-pass writes; dq: the
+// dequant constant log2(e) / sqrt(D) / 127^2.
+I8Prep i8_prep_args(const void* q, const void* k, void* work, int B, int H,
+                    int Nq, int Nk, int D, int rope, float dq, void* scales,
+                    const void* cos_q, const void* sin_q, const void* cos_k,
+                    const void* sin_k) {
+  int8_t* w = static_cast<int8_t*>(work);
+  const size_t row = size_t(B) * H * D;
+  I8Prep a;
+  a.x[0] = static_cast<const __nv_bfloat16*>(q);
+  a.x[1] = static_cast<const __nv_bfloat16*>(k);
+  a.x8[0] = D == 128 ? nullptr : w;
+  a.x8[1] = w + row * Nq;
+  a.cos_t[0] = static_cast<const float*>(cos_q);
+  a.sin_t[0] = static_cast<const float*>(sin_q);
+  a.cos_t[1] = static_cast<const float*>(cos_k);
+  a.sin_t[1] = static_cast<const float*>(sin_k);
+  a.N[0] = Nq;
+  a.N[1] = Nk;
+  a.B = B;
+  a.H = H;
+  a.rope = rope;
+  a.amax = reinterpret_cast<unsigned*>(w + row * (size_t(Nq) + Nk));
+  a.scales = static_cast<float*>(scales);
+  a.dq = dq;
+  return a;
+}
+
+int launch_i8_prepass_dim(const I8Prep& a, int D, bool quantize,
+                          cudaStream_t stream) {
+  return D == 32   ? launch_i8_prepass<32>(a, quantize, stream)
+         : D == 64 ? launch_i8_prepass<64>(a, quantize, stream)
+                   : launch_i8_prepass<128>(a, quantize, stream);
+}
+
 template <bool STATIC>
 int dispatch_i8(const void* q, const void* k, const void* v, void* o,
-                void* k8_work, int B, int H, int Nq, int Nk, int D,
-                int valid_len, const void* scales, const void* kv_bias,
+                void* work, int B, int H, int Nq, int Nk, int D,
+                int valid_len, void* scales, float dq, const void* kv_bias,
                 const void* cos_q, const void* sin_q, const void* cos_k,
                 const void* sin_k, const void* smax, void* m_out,
                 void* l_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scales);
-  int8_t* k8 = static_cast<int8_t*>(k8_work);
-  if (bad_shape(D, m_out, l_out) || sc == nullptr || k8 == nullptr)
+  if (bad_shape(D, m_out, l_out) || scales == nullptr || work == nullptr ||
+      (cos_q == nullptr) != (cos_k == nullptr))
     return int(cudaErrorInvalidValue);
-  const auto prep = D == 32   ? launch_prep_i8<32>
-                    : D == 64 ? launch_prep_i8<64>
-                              : launch_prep_i8<128>;
-  const int err = prep(static_cast<const __nv_bfloat16*>(k), k8, B, Nk, H,
-                       static_cast<const float*>(cos_k),
-                       static_cast<const float*>(sin_k), sc + B * H, st);
+  const I8Prep a = i8_prep_args(q, k, work, B, H, Nq, Nk, D,
+                                cos_q != nullptr, dq, scales, cos_q, sin_q,
+                                cos_k, sin_k);
+  const int err = launch_i8_prepass_dim(a, D, true, st);
   if (err != 0) return err;
   ParamsI8 p;
   p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = k8;
+  p.k = a.x8[1];
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
   p.H = H;
   p.Nq = Nq;
   p.Nk = Nk;
   p.valid_len = valid_len;
-  p.scales = sc;
+  p.scales = a.scales;
   p.kv_bias = static_cast<const float*>(kv_bias);
   p.cos_q = static_cast<const float*>(cos_q);
   p.sin_q = static_cast<const float*>(sin_q);
   p.smax = static_cast<const float*>(smax);
   p.m_out = static_cast<float*>(m_out);
   p.l_out = static_cast<float*>(l_out);
-  return launch_dim<STATIC, true>(p, B, D, st);
+  return launch_dim<STATIC, true>(p, B, D, st, a.x8[0]);
 }
 
 }  // namespace
@@ -628,12 +799,12 @@ extern "C" {
   q, k, v, o, k_work, B, H, Nq, Nk, D, valid_len, q_scale, ln_qg, ln_qb,    \
       ln_kg, ln_kb, ln_eps, kv_bias, cos_q, sin_q, cos_k, sin_k
 #define FLASH_I8_ARGS                                                       \
-  const void *q, const void *k, const void *v, void *o, void *k8_work,      \
-      int B, int H, int Nq, int Nk, int D, int valid_len,                   \
-      const void *scales, const void *kv_bias, const void *cos_q,           \
-      const void *sin_q, const void *cos_k, const void *sin_k
+  const void *q, const void *k, const void *v, void *o, void *work, int B,  \
+      int H, int Nq, int Nk, int D, int valid_len, void *scales, float dq,  \
+      const void *kv_bias, const void *cos_q, const void *sin_q,            \
+      const void *cos_k, const void *sin_k
 #define FLASH_I8_PASS                                                       \
-  q, k, v, o, k8_work, B, H, Nq, Nk, D, valid_len, scales, kv_bias, cos_q,  \
+  q, k, v, o, work, B, H, Nq, Nk, D, valid_len, scales, dq, kv_bias, cos_q, \
       sin_q, cos_k, sin_k
 
 int flash_single_fwd(FLASH_ARGS, void* m_out, void* l_out, void* stream) {
@@ -653,6 +824,18 @@ int flash_single_i8_fwd(FLASH_I8_ARGS, void* m_out, void* l_out,
 int flash_multi_i8_fwd(FLASH_I8_ARGS, const void* smax, void* m_out,
                        void* l_out, void* stream) {
   return dispatch_i8<true>(FLASH_I8_PASS, smax, m_out, l_out, stream);
+}
+
+// The int8 pre-pass's scales alone, as flash_*_i8_fwd computes them: the
+// (3, B*H) f32 `scales` of q and k (rope: pair norms), `work` as theirs.
+int flash_i8_scales(const void* q, const void* k, void* work, int B, int H,
+                    int Nq, int Nk, int D, int rope, float dq, void* scales,
+                    void* stream) {
+  if (bad_shape(D, nullptr, nullptr) || scales == nullptr || work == nullptr)
+    return int(cudaErrorInvalidValue);
+  const I8Prep a = i8_prep_args(q, k, work, B, H, Nq, Nk, D, rope, dq, scales,
+                                nullptr, nullptr, nullptr, nullptr);
+  return launch_i8_prepass_dim(a, D, false, static_cast<cudaStream_t>(stream));
 }
 
 // out[0]: flash_fwd_kernel launches, out[1]: flash_fwd_sm90 launches.

@@ -1,8 +1,9 @@
-// Hopper design of the bf16 flash-attention forward at head dims 32 and 64,
-// the route of flash_single_fwd and flash_multi_fwd for bf16 q/k/v with
-// D = 32 or 64 (launch_dim in flash_attention.cu). Included by
-// flash_attention.cu after Params and launch_prep; it computes what
-// flash_fwd_kernel<D, STATIC, false> computes (the formula in that file's
+// Hopper design of the flash-attention forward at head dims 32 and 64, the
+// route of flash_single_fwd and flash_multi_fwd (bf16 QK^T) and of
+// flash_single_i8_fwd and flash_multi_i8_fwd (int8 QK^T, I8) at D = 32 or
+// 64 (launch_dim in flash_attention.cu). Included by flash_attention.cu
+// after Params, ParamsI8 and launch_prep; it computes what
+// flash_fwd_kernel<D, STATIC, I8> computes (the formula in that file's
 // header), the same roundings in the same places, except that a softmax
 // weight below 2^-126 flushes to zero (ex2, sm90_common.cuh).
 //
@@ -55,6 +56,14 @@
 //   overlaps the other's products.
 // - Epilogue: O / max(l, 1e-30) stored as bf16 straight from registers,
 //   rows masked at Nq; m and l where requested.
+// - int8 QK^T (I8): q and k arrive quantized by the int8 pre-pass
+//   (flash_attention.cu dispatch_i8), so Q and K tiles are int8 rows of D
+//   bytes (64-byte swizzle at D = 64, 32-byte at D = 32; V stays bf16).
+//   S = Q K^T runs on wgmma m64n128k32 s32.s8.s8 (both operands K-major, as
+//   PTX requires of 8-bit operands), D / 32 k-steps; the s32 accumulator
+//   has the f32 one's fragment layout, and each logit is its exact f32
+//   value times the (batch, head) dequant scale, rounded once, as
+//   flash_fwd_kernel does. The rest is the bf16 route's.
 #pragma once
 
 #include "sm90_common.cuh"
@@ -68,37 +77,44 @@ constexpr int SM90_BK = 128;            // keys per tile
 constexpr int SM90_THREADS = 384;       // 2 consumer warpgroups, 1 producer
 constexpr int SM90_BIAS = SM90_BK * 4;  // bytes of one kv_bias tile
 
-// What the head dim sets: the bytes of a tile row (D bf16) and of a
-// 128-row tile, the swizzle (the row's width: 128B at D = 64, 64B at
-// D = 32) and the ring depth.
-template <int D>
+// What the head dim and the QK^T type set: the bytes of a V row (D bf16)
+// and of a Q or K row (D bf16, or D int8 with I8) and of their 128-row
+// tiles, the swizzle (the row's width: 128B, 64B or 32B) and the ring
+// depth.
+template <int D, bool I8>
 struct Sm90Cfg {
   static_assert(D == 32 || D == 64, "flash_fwd_sm90 takes D = 32 or 64");
-  static constexpr int ROW = 2 * D;
+  static constexpr int ROW = 2 * D;             // V
+  static constexpr int QK_ROW = I8 ? D : 2 * D;
   static constexpr int TILE = 128 * ROW;
+  static constexpr int QK_TILE = 128 * QK_ROW;
   static constexpr int STAGES = 3;      // K/V ring depth
   // 1 KB of alignment slack, two Q buffers, the K, V and kv_bias rings, 3
   // barriers a ring slot and 2 a Q buffer.
-  static constexpr size_t SMEM = 1024 + (2 + 2 * STAGES) * TILE +
-                                 STAGES * SM90_BIAS + 8 * (3 * STAGES + 4);
+  static constexpr size_t SMEM = 1024 + 2 * QK_TILE +
+                                 STAGES * (QK_TILE + TILE + SM90_BIAS) +
+                                 8 * (3 * STAGES + 4);
 };
 
+template <bool I8>
 struct ParamsSm90 {
   CUtensorMap tq, tk, tv, tb;   // tb: kv_bias, where given
-  Params a;
+  ParamsOf<I8> a;
   int n_qt, items;   // q tiles per (batch, head); work items (q tile, b*h)
 };
 
 // Shared memory of one CTA: the 1 KB-aligned base of the Q buffers, the
 // rings after them, the barriers last.
-template <int D>
+template <int D, bool I8>
 struct Sm90Smem {
-  static constexpr int TILE = Sm90Cfg<D>::TILE, S = Sm90Cfg<D>::STAGES;
+  using C = Sm90Cfg<D, I8>;
+  static constexpr int S = C::STAGES;
   uint32_t q, k, v, bias, full_k, full_v, empty, q_full, q_empty;
   __device__ explicit Sm90Smem(uint32_t base)
-      : q(base), k(base + 2 * TILE), v(k + S * TILE), bias(v + S * TILE),
-        full_k(bias + S * SM90_BIAS), full_v(full_k + 8 * S),
-        empty(full_v + 8 * S), q_full(empty + 8 * S), q_empty(q_full + 16) {}
+      : q(base), k(base + 2 * C::QK_TILE), v(k + S * C::QK_TILE),
+        bias(v + S * C::TILE), full_k(bias + S * SM90_BIAS),
+        full_v(full_k + 8 * S), empty(full_v + 8 * S),
+        q_full(empty + 8 * S), q_empty(q_full + 16) {}
 };
 
 // d (64 x 128 per warpgroup) = or += A (64 x 16, smem) B^T (128 x 16, smem).
@@ -120,7 +136,30 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[16][4], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+#define SM90_R4(d, j) \
+  "+r"(d[j][0]), "+r"(d[j][1]), "+r"(d[j][2]), "+r"(d[j][3])
+
+// The same product of int8 tiles (K = 32 bytes a step), s32 sums.
+__device__ __forceinline__ void wgmma_qk(int (&d)[16][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : SM90_R4(d, 0), SM90_R4(d, 1), SM90_R4(d, 2), SM90_R4(d, 3),
+        SM90_R4(d, 4), SM90_R4(d, 5), SM90_R4(d, 6), SM90_R4(d, 7),
+        SM90_R4(d, 8), SM90_R4(d, 9), SM90_R4(d, 10), SM90_R4(d, 11),
+        SM90_R4(d, 12), SM90_R4(d, 13), SM90_R4(d, 14), SM90_R4(d, 15)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #undef SM90_F4
+#undef SM90_R4
 
 // Bias, mask and softmax of one S tile (flash_fwd_kernel's arithmetic):
 // updates the row shift m and the partial row sum l, sets c to the factor
@@ -192,23 +231,33 @@ __device__ __forceinline__ void softmax_tile(
 #define SM90_PASS() \
   asm volatile("bar.arrive %0, 256;" ::"r"(4 - warp / 4) : "memory")
 
+// The QK^T accumulator: the s32 logits with int8 operands, else S itself.
+template <bool I8, typename A, typename B>
+__device__ __forceinline__ auto& qk_acc(A& s32, B& s) {
+  if constexpr (I8) return s32;
+  else return s;
+}
+
 // The consumer warps' part of flash_fwd_sm90: for each work item, q
 // preparation, the key sweep and the epilogue.
-template <int D, bool STATIC>
-__device__ __forceinline__ void consume(const ParamsSm90& P,
+template <int D, bool STATIC, bool I8>
+__device__ __forceinline__ void consume(const ParamsSm90<I8>& P,
                                         unsigned char* Q0,
-                                        const Sm90Smem<D>& sm, int warp,
+                                        const Sm90Smem<D, I8>& sm, int warp,
                                         int lane) {
+  using C = Sm90Cfg<D, I8>;
   constexpr int NT = SM90_BK / 8;    // 8-key n-tiles of S
   constexpr int DT = D / 8;          // 8-dim n-tiles of O
-  constexpr int S = Sm90Cfg<D>::STAGES;
-  constexpr int TILE = Sm90Cfg<D>::TILE, ROW = Sm90Cfg<D>::ROW;
+  constexpr int S = C::STAGES, TILE = C::TILE, ROW = C::ROW;
+  constexpr int QK_TILE = C::QK_TILE, QK_ROW = C::QK_ROW;
   constexpr int LPR = D / 2;         // lanes per q row (2 dims each)
-  const Params& p = P.a;
+  const auto& p = P.a;
   const int g = lane / 4, t = lane % 4;     // fragment coordinates
   const int vl = min(p.valid_len, p.Nk);
   const int ntiles = (vl + SM90_BK - 1) / SM90_BK;
   float o[DT][4], s[NT][4];
+  int si[NT][4];                  // int8 QK^T: the s32 logits
+  auto& acc = qk_acc<I8>(si, s);  // QK^T's accumulator
   uint32_t pa[SM90_BK / 16][4];   // P as A fragments, one per 16-key step
   float m_lo, m_hi, l_lo, l_hi, c_lo, c_hi;
 
@@ -219,25 +268,29 @@ __device__ __forceinline__ void consume(const ParamsSm90& P,
     const int bh = item / P.n_qt, q0 = (item % P.n_qt) * SM90_BQ;
     const int b = bh / p.H, h = bh % p.H;
     const int qb = it % 2;                    // Q buffer
-    unsigned char* Qs = Q0 + qb * TILE;
-    const uint32_t q_desc = sm.q + qb * TILE + (warp / 4) * 64 * ROW;
+    unsigned char* Qs = Q0 + qb * QK_TILE;
+    const uint32_t q_desc = sm.q + qb * QK_TILE + (warp / 4) * 64 * QK_ROW;
     const int kv0 = it * ntiles;   // ring index of the item's first tile
+    float sc2 = 0.f;               // int8: the (batch, head) dequant scale
+    if constexpr (I8) sc2 = p.scales[2 * (P.items / P.n_qt) + bh];
 
-    // q arrives prepared (launch_sm90), or needs only the softmax scale,
-    // applied here in place: warp i its 16 rows, 32 / LPR rows at a time;
-    // lane l holds dims 2c, 2c + 1 of row l / LPR, c = l % LPR (16-byte
-    // chunk c / 4, bytes 4 (c % 4) within it), rounded to bf16 as prep_row
-    // does. Each warpgroup reads only its own rows.
+    // q arrives prepared (launch_sm90; int8: quantized), or needs only the
+    // softmax scale, applied here in place: warp i its 16 rows, 32 / LPR
+    // rows at a time; lane l holds dims 2c, 2c + 1 of row l / LPR, c = l %
+    // LPR (16-byte chunk c / 4, bytes 4 (c % 4) within it), rounded to bf16
+    // as prep_row does. Each warpgroup reads only its own rows.
     mbar_wait(sm.q_full + 8 * qb, (it / 2) & 1);
-    if (p.q_scale != 1.f) {
+    if constexpr (!I8) {
+      if (p.q_scale != 1.f) {
 #pragma unroll
-      for (int i = 0; i < 16 * LPR / 32; ++i) {
-        const int r = warp * 16 + i * (32 / LPR) + lane / LPR;
-        const int c = lane % LPR;
-        auto* cell = reinterpret_cast<__nv_bfloat162*>(
-            Qs + swz<D>(r, c / 4) + (c % 4) * 4);
-        const float2 f = __bfloat1622float2(*cell);
-        *cell = __floats2bfloat162_rn(f.x * p.q_scale, f.y * p.q_scale);
+        for (int i = 0; i < 16 * LPR / 32; ++i) {
+          const int r = warp * 16 + i * (32 / LPR) + lane / LPR;
+          const int c = lane % LPR;
+          auto* cell = reinterpret_cast<__nv_bfloat162*>(
+              Qs + swz<D>(r, c / 4) + (c % 4) * 4);
+          const float2 f = __bfloat1622float2(*cell);
+          *cell = __floats2bfloat162_rn(f.x * p.q_scale, f.y * p.q_scale);
+        }
       }
     }
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -248,19 +301,35 @@ __device__ __forceinline__ void consume(const ParamsSm90& P,
     m_lo = m_hi = STATIC ? p.smax[bh] : NEG_INF;
     l_lo = l_hi = 0.f;
 
-    // S = Q_w K^T of `tile` into s, issued (asynchronous, committed).
+    // S = Q_w K^T of `tile` into s (int8: si), issued (asynchronous,
+    // committed).
     auto issue_qk = [&](int tile) {
       const int i = (kv0 + tile) % S;
 #pragma unroll
-      for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int j = 0; j < NT; ++j)
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
       mbar_wait(sm.full_k + 8 * i, ((kv0 + tile) / S) & 1);
-      reg_fence(s);
+      reg_fence(acc);
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)   // 32 bytes of each row a step
-        wgmma_qk(s, sw_desc<D>(q_desc + ks * 32),
-                 sw_desc<D>(sm.k + i * TILE + ks * 32), ks);
+      for (int ks = 0; ks < QK_ROW / 32; ++ks)   // 32 bytes of each row a step
+        wgmma_qk(acc, row_desc<QK_ROW>(q_desc + ks * 32),
+                 row_desc<QK_ROW>(sm.k + i * QK_TILE + ks * 32), ks);
       wgmma_commit();
+    };
+    // The finished QK^T in s: int8's s32 logits, exact in f32, times sc2.
+    auto take_s = [&]() {
+      if constexpr (I8) {
+        reg_fence(si);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = __fmul_rn(static_cast<float>(si[j][e]), sc2);
+        }
+      } else {
+        reg_fence(s);
+      }
     };
     // O += P V of `tile`, issued (asynchronous, committed).
     auto issue_pv = [&](int tile) {
@@ -286,7 +355,7 @@ __device__ __forceinline__ void consume(const ParamsSm90& P,
     auto bias_tile = [&](int tile) -> const float* {
       if (p.kv_bias == nullptr) return nullptr;
       return reinterpret_cast<const float*>(
-          Q0 + (2 + 2 * S) * TILE + ((kv0 + tile) % S) * SM90_BIAS);
+          Q0 + (sm.bias - sm.q) + ((kv0 + tile) % S) * SM90_BIAS);
     };
     // Release a ring slot: the producer refills it once all eight consumer
     // warps are done with it.
@@ -304,7 +373,7 @@ __device__ __forceinline__ void consume(const ParamsSm90& P,
       issue_qk(0);
       SM90_PASS();
       wgmma_wait<0>();
-      reg_fence(s);
+      take_s();
       softmax_tile<STATIC>(s, 0, vl, bias_tile(0), t, m_lo, m_hi, l_lo,
                            l_hi, c_lo, c_hi);
       pack_p();
@@ -316,7 +385,7 @@ __device__ __forceinline__ void consume(const ParamsSm90& P,
         // QK^T of tile + 1 is done (committed before PV, the one group
         // that may still run)
         wgmma_wait<1>();
-        reg_fence(s);
+        take_s();
         softmax_tile<STATIC>(s, (tile + 1) * SM90_BK, vl, bias_tile(tile + 1),
                              t, m_lo, m_hi, l_lo, l_hi, c_lo, c_hi);
         wgmma_wait<0>();
@@ -377,15 +446,17 @@ __device__ __forceinline__ void consume(const ParamsSm90& P,
 
 // A persistent grid: CTA c takes work items c, c + gridDim.x, ..., item =
 // q tile + n_qt * (batch * head), so neighbouring CTAs share K and V in L2.
-template <int D, bool STATIC>
+template <int D, bool STATIC, bool I8>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
-    flash_fwd_sm90(const __grid_constant__ ParamsSm90 P) {
-  constexpr int S = Sm90Cfg<D>::STAGES, TILE = Sm90Cfg<D>::TILE;
-  const Params& p = P.a;
+    flash_fwd_sm90(const __grid_constant__ ParamsSm90<I8> P) {
+  using C = Sm90Cfg<D, I8>;
+  constexpr int S = C::STAGES, TILE = C::TILE, QK_TILE = C::QK_TILE;
+  const auto& p = P.a;
   extern __shared__ unsigned char sm90_raw[];
   const uint32_t raw = smem_addr(sm90_raw);
-  // 1 KB aligned, as the 128B swizzle's 8-row atom (64B: 512 bytes)
-  const Sm90Smem<D> sm((raw + 1023) & ~1023u);
+  // 1 KB aligned, as the 128B swizzle's 8-row atom (64B: 512 bytes; 32B:
+  // 256)
+  const Sm90Smem<D, I8> sm((raw + 1023) & ~1023u);
   unsigned char* Q0 = sm90_raw + (sm.q - raw);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int vl = min(p.valid_len, p.Nk);
@@ -417,14 +488,14 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
         const int b = bh / p.H, h = bh % p.H;
         const int qb = it % 2;
         if (it >= 2) mbar_wait(sm.q_empty + 8 * qb, ((it / 2) & 1) ^ 1);
-        mbar_expect_tx(sm.q_full + 8 * qb, TILE);
-        tma_load(sm.q + qb * TILE, &P.tq, sm.q_full + 8 * qb, h, q0, b);
+        mbar_expect_tx(sm.q_full + 8 * qb, QK_TILE);
+        tma_load(sm.q + qb * QK_TILE, &P.tq, sm.q_full + 8 * qb, h, q0, b);
         for (int tile = 0; tile < ntiles; ++tile) {
           const int kv = it * ntiles + tile, i = kv % S;
           if (kv >= S) mbar_wait(sm.empty + 8 * i, ((kv / S) & 1) ^ 1);
           mbar_expect_tx(sm.full_k + 8 * i,
-                         TILE + (p.kv_bias ? SM90_BIAS : 0));
-          tma_load(sm.k + i * TILE, &P.tk, sm.full_k + 8 * i, h,
+                         QK_TILE + (p.kv_bias ? SM90_BIAS : 0));
+          tma_load(sm.k + i * QK_TILE, &P.tk, sm.full_k + 8 * i, h,
                    tile * SM90_BK, b);
           if (p.kv_bias != nullptr)
             tma_load_bias(sm.bias + i * SM90_BIAS, &P.tb, sm.full_k + 8 * i,
@@ -437,7 +508,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    consume<D, STATIC>(P, Q0, sm, warp, lane);
+    consume<D, STATIC, I8>(P, Q0, sm, warp, lane);
   }
 }
 
@@ -458,33 +529,40 @@ int encode_bias(CUtensorMap* map, const float* ptr, int vl) {
   return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
 }
 
-// q with LN or rope is prepared by prep_rows_kernel into the output
+// bf16: q with LN or rope is prepared by prep_rows_kernel into the output
 // buffer, from which the kernel loads it: each work item reads its q rows
-// before it writes the same rows, and no item touches another's.
-template <int D, bool STATIC>
-int launch_sm90(const Params& a, int B, cudaStream_t stream) {
-  constexpr size_t SMEM = Sm90Cfg<D>::SMEM;
-  ParamsSm90 P{};
+// before it writes the same rows, and no item touches another's. int8
+// (I8): q8 is q quantized by the pre-pass, a buffer of q's shape (int8
+// rows at half o's stride would overlap rows that other items write).
+template <int D, bool STATIC, bool I8>
+int launch_sm90(const ParamsOf<I8>& a, int B, cudaStream_t stream,
+                const int8_t* q8 = nullptr) {
+  constexpr size_t SMEM = Sm90Cfg<D, I8>::SMEM;
+  constexpr int QK_ESZ = I8 ? 1 : 2;
+  ParamsSm90<I8> P{};
   P.a = a;
-  if (a.ln_g != nullptr || a.cos_q != nullptr) {
+  const void* q = a.q;
+  if constexpr (I8) {
+    q = q8;
+  } else if (a.ln_g != nullptr || a.cos_q != nullptr) {
     const int err = launch_prep<D>(a.q, a.o, B, a.Nq, a.H, a.ln_g, a.ln_b,
                                    a.ln_eps, a.cos_q, a.sin_q, a.q_scale,
                                    stream);
     if (err != 0) return err;
-    P.a.q = a.o;
+    q = P.a.q = a.o;
     P.a.ln_g = P.a.ln_b = P.a.cos_q = P.a.sin_q = nullptr;
     P.a.q_scale = 1.f;
   }
   const int vl = a.valid_len < a.Nk ? a.valid_len : a.Nk;
-  int err = encode_heads<D>(&P.tq, P.a.q, B, a.Nq, a.Nq, a.H, SM90_BQ);
+  int err = encode_heads<D, QK_ESZ>(&P.tq, q, B, a.Nq, a.Nq, a.H, SM90_BQ);
   if (err == 0 && vl > 0)
-    err = encode_heads<D>(&P.tk, a.k, B, a.Nk, vl, a.H, SM90_BK);
+    err = encode_heads<D, QK_ESZ>(&P.tk, a.k, B, a.Nk, vl, a.H, SM90_BK);
   if (err == 0 && vl > 0)
     err = encode_heads<D>(&P.tv, a.v, B, a.Nk, vl, a.H, SM90_BK);
   if (err == 0 && vl > 0 && a.kv_bias != nullptr)
     err = encode_bias(&P.tb, a.kv_bias, vl);
   if (err != 0) return err;
-  const auto kernel = flash_fwd_sm90<D, STATIC>;
+  const auto kernel = flash_fwd_sm90<D, STATIC, I8>;
   static std::atomic<uint64_t> attr_set{0};
   int dev = 0;
   err = smem_limit_once(kernel, int(SMEM), attr_set, &dev);

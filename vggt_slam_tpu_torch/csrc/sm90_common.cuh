@@ -2,9 +2,10 @@
 // and backward (flash_bwd_sm90.cuh): mbarriers, TMA loads, the swizzled
 // tile layout and its wgmma descriptors, wgmma issue and synchronisation,
 // the register-A product with an MN-major B, exp2 on MUFU.EX2, and the
-// 4-D tensor maps of the packed (B, N, H*D) bf16 layout. A tile row is D
-// bf16: 128 bytes at D = 64 (128-byte swizzle), 64 bytes at D = 32
-// (64-byte swizzle).
+// 4-D tensor maps of the packed (B, N, H*D) layout. A tile row is D bf16:
+// 128 bytes at D = 64 (128-byte swizzle), 64 bytes at D = 32 (64-byte
+// swizzle); or D int8 (the int8 forward's q and k): 64 bytes at D = 64,
+// 32 bytes at D = 32 (32-byte swizzle).
 #pragma once
 
 #include <cuda.h>
@@ -75,19 +76,25 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "r"(row), "r"(b) : "memory");
 }
 
-// wgmma shared-memory descriptor of a swizzled tile of D-wide rows (PTX
-// ISA, matrix descriptor: start address >> 4 in bits 0-13, leading byte
-// offset >> 4 in 16-29, stride byte offset >> 4 in 32-45, swizzle mode in
-// 62-63: 1 = 128B, 2 = 64B). The stride offset steps over an 8-row atom,
-// 8 rows of 2D bytes: 1024 bytes at D = 64, 512 at D = 32. The leading
-// offset is unused, as the operand's contiguous extent is one row (K-major
-// Q and K with K = D; MN-major V with N = D).
-template <int D>
-__device__ __forceinline__ uint64_t sw_desc(uint32_t addr) {
-  constexpr int ROW = 2 * D;
+// wgmma shared-memory descriptor of a tile of ROW-byte rows, swizzled by
+// the row's width (PTX ISA, matrix descriptor: start address >> 4 in bits
+// 0-13, leading byte offset >> 4 in 16-29, stride byte offset >> 4 in
+// 32-45, swizzle mode in 62-63: 1 = 128B, 2 = 64B, 3 = 32B). The stride
+// offset steps over an 8-row atom, 8 rows of ROW bytes: 1024, 512 or 256
+// bytes. The leading offset is unused, as the operand's contiguous extent
+// is one row (K-major Q and K with K = D; MN-major V with N = D).
+template <int ROW>
+__device__ __forceinline__ uint64_t row_desc(uint32_t addr) {
+  static_assert(ROW == 32 || ROW == 64 || ROW == 128, "row of 32-128 bytes");
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
          (uint64_t(8 * ROW / 16) << 32) |
-         (uint64_t(D == 64 ? 1 : 2) << 62);
+         (uint64_t(ROW == 128 ? 1 : ROW == 64 ? 2 : 3) << 62);
+}
+
+// The descriptor of a tile of D-wide bf16 rows.
+template <int D>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr) {
+  return row_desc<2 * D>(addr);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -109,6 +116,14 @@ __device__ __forceinline__ void reg_fence(float (&d)[N][4]) {
   for (int j = 0; j < N; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+  }
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(int (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[j][e])::"memory");
   }
 }
 
@@ -182,13 +197,15 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// 4-D map (D, H, n, B) of a packed (B, N, H*D) bf16 tensor, cut at
-// n <= N rows: a box is `rows` rows of one head, swizzled as swz<D>; rows
-// at or past n read as zeros.
-template <int D>
+// 4-D map (D, H, n, B) of a packed (B, N, H*D) tensor of ESZ-byte
+// elements (bf16, or int8 with ESZ = 1), cut at n <= N rows: a box is
+// `rows` rows of one head, swizzled by the row's width (as swz<D> for
+// bf16); rows at or past n read as zeros.
+template <int D, int ESZ = 2>
 int encode_heads(CUtensorMap* map, const void* ptr, int B, int N, int n,
                  int H, int rows) {
-  constexpr cuuint64_t ROW = 2 * D;
+  constexpr cuuint64_t ROW = ESZ * D;
+  static_assert(ROW == 32 || ROW == 64 || ROW == 128, "row of 32-128 bytes");
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return int(cudaErrorNotSupported);
   if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
@@ -199,9 +216,13 @@ int encode_heads(CUtensorMap* map, const void* ptr, int B, int N, int n,
   const cuuint32_t box[4] = {D, 1, cuuint32_t(rows), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      map,
+      ESZ == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      4, const_cast<void*>(ptr), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                  : CU_TENSOR_MAP_SWIZZLE_32B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
 }

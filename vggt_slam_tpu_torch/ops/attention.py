@@ -21,7 +21,9 @@ q/k/v projections, so no transposes cross device memory.
   `_flash_kernel` (per-(batch, head) scales from `int8_scales`, q and k
   quantized after rope, s32 logits, bf16 PV), counted as
   `flash_single_i8` / `flash_multi_i8`. `flash_attention` takes it only
-  where the key set does not fit one block, as the reference does.
+  where the key set does not fit one block, as the reference does. On
+  CUDA tensors the call's pre-pass computes the scales bit for bit as
+  `int8_scales` does (`int8_scales_cuda` runs it alone).
 * `flash_bwd` / `flash_bwd_ref`: one CUDA call computing what the TPU
   kernels `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` compute
   together (dq, dk, dv), and their plain version; `FlashAttentionGrad` /
@@ -146,8 +148,10 @@ def int8_scales(q, k, num_heads, rope: bool):
     (reference attention.py:606-629): amax is the largest pair norm of
     (x1, x2) when rope rotates the rows (so every rotated component stays
     within it), else the largest |x|, at least 1e-6, over all rows passed
-    in. Returns (3, B*H) f32: 127/amax_q, 127/amax_k and the dequant scale
-    amax_q amax_k log2(e) / (sqrt(D) 127^2)."""
+    in. Returns (3, B*H) f32: 127/amax_q, 127/amax_k (one division, as
+    the reference's; `127.0 / t` would take torch's reciprocal, then a
+    product, an ulp off it at times) and the dequant scale amax_q amax_k
+    log2(e) / (sqrt(D) 127^2)."""
     B, H = q.shape[0], num_heads
     D = q.shape[2] // H
 
@@ -159,9 +163,14 @@ def int8_scales(q, k, num_heads, rope: bool):
         return xf.abs().amax(dim=(1, 3)).clamp_min(1e-6).reshape(-1)
 
     sq, sk = amax(q), amax(k)
+    c127 = torch.full_like(sq, 127.0)
+    return torch.stack([c127 / sq, c127 / sk, sq * sk * _dequant(D)])
+
+
+def _dequant(D):
+    """The f32 dequant constant's factor log2(e) / sqrt(D) / 127^2."""
     c_scale = LOG2E / math.sqrt(D)
-    return torch.stack([127.0 / sq, 127.0 / sk,
-                        sq * sk * (c_scale / (127.0 * 127.0))])
+    return c_scale / (127.0 * 127.0)
 
 
 def _quant_i8(t, inv):
@@ -278,13 +287,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _COMMON = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P,
            _F, _P, _P, _P, _P, _P]
-_I8_COMMON = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-              _P, _P]
+_I8_COMMON = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _P, _P,
+              _P, _P, _P]
 _SIGNATURES = {
     "flash_single_fwd": (_COMMON + [_P, _P, _P], ctypes.c_int),
     "flash_multi_fwd": (_COMMON + [_P, _P, _P, _P], ctypes.c_int),
     "flash_single_i8_fwd": (_I8_COMMON + [_P, _P, _P], ctypes.c_int),
     "flash_multi_i8_fwd": (_I8_COMMON + [_P, _P, _P, _P], ctypes.c_int),
+    "flash_i8_scales": ([_P, _P, _P] + [_I] * 6 + [_F, _P, _P],
+                        ctypes.c_int),
     "flash_error_string": ([ctypes.c_int], ctypes.c_char_p),
     "flash_fwd_design_launches": ([ctypes.POINTER(ctypes.c_longlong)], None),
 }
@@ -417,11 +428,10 @@ def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
         ln = [_f32(t.reshape(-1), (D,), "qk_ln", dev) for t in qk_ln]
     bias = _f32(kv_bias, (Nk,), "kv_bias", dev, align=True)
     # scratch for the k rows with LN and rope applied once per call, or
-    # for the quantized k of the int8 kernels
+    # the int8 pre-pass's (`_i8_scratch`)
     if qk_int8:
-        scales = int8_scales(q, k, H, rope_q is not None).contiguous()
-        k_work = torch.empty(k.shape, dtype=torch.int8, device=dev)
-        mid = [scales.data_ptr()]
+        scales, k_work = _i8_scratch(B, H, Nq, Nk, D, dev)
+        mid = [scales.data_ptr(), _dequant(D)]
     else:
         k_work = torch.empty_like(k) if (ln is not None or ck is not None) \
             else None
@@ -443,6 +453,34 @@ def _launch(entry, q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
         raise RuntimeError(f"{entry} launch failed: "
                            f"{lib.flash_error_string(code).decode()}")
     return (out, m, lsum) if return_stats else out
+
+
+def _i8_scratch(B, H, Nq, Nk, D, dev):
+    """The int8 pre-pass's (3, B*H) f32 scales and its int8 work buffer:
+    the quantized q and k, then 2 B H + 1 counters."""
+    scales = torch.empty(3, B * H, dtype=torch.float32, device=dev)
+    work = torch.empty(B * (Nq + Nk) * H * D + 4 * (2 * B * H + 1),
+                       dtype=torch.int8, device=dev)
+    return scales, work
+
+
+def int8_scales_cuda(q, k, num_heads, rope: bool):
+    """`int8_scales` of CUDA q and k computed by the int8 forward's
+    pre-pass (csrc/flash_attention.cu i8_scales_kernel), bit for bit."""
+    _check_cuda_tensors(q.device, (("q", q), ("k", k)))
+    B, Nq, HD = q.shape
+    Nk = k.shape[1]
+    D = _head_dim(HD, num_heads)
+    scales, work = _i8_scratch(B, num_heads, Nq, Nk, D, q.device)
+    lib = kernel_library()
+    code = _call_on(q.device, lib.flash_i8_scales,
+                    [q.data_ptr(), k.data_ptr(), work.data_ptr(), B,
+                     num_heads, Nq, Nk, D, int(rope), _dequant(D),
+                     scales.data_ptr()])
+    if code != 0:
+        raise RuntimeError(f"flash_i8_scales launch failed: "
+                           f"{lib.flash_error_string(code).decode()}")
+    return scales
 
 
 def _require_cuda(q):
