@@ -19,29 +19,31 @@ Phases, one line of output each (and the contract lines at the end):
      path's shapes, VGGT-1B's and the small model's (head dim 32) (max abs /
      rel error, kernel / plain / SDPA times, bound with the unit that sets
      it; the design each shape ran, from the C launcher's counts of the
-     kernels it launched, which must be flash_sm90.cuh's at head dims 32
-     and 64; SDPA on the prepared q and k where the kernel applies LN and
+     kernels it launched, which must be flash_sm90.cuh's at every head
+     dim; SDPA on the prepared q and k where the kernel applies LN and
      rope itself);
   4. hold the training kernels (the forward kernels' stats variant and the
      backward, flash_bwd, which computes dq, dk and dv in one call) against
      their plain versions at the training shapes, with the kernel and plain
      times, SDPA's forward, forward+backward and backward-alone times, the
-     bounds, the backward's design (flash_bwd_sm90.cuh at head dims 32 and
-     64) and dq's run-to-run spread;
+     bounds, the backward's design (flash_bwd_sm90.cuh at every head dim)
+     and dq's run-to-run spread;
   5. a full-width VGGT-1B forward through the kernels against the same
      forward through the kernels' plain versions, on a 2-frame input;
   6. the SLAM main path at VGGT-1B width (seeded random weights drawn on the
      card) over a synthetic panned sequence, through `run_slam` with the
      torch keyframe backend: launches of each kernel, per-stage seconds,
-     submaps, poses; all poses and SL(4) homographies must be finite;
+     submaps, poses; all poses and SL(4) homographies must be finite, and
+     every forward launch must run flash_sm90.cuh (launches by design);
   7. the gradient of a 2-frame VGGT-1B training loss through the kernels
      against the same gradient through their plain versions, on named
      leaves;
   8. the training path at VGGT-1B width and depth: 3 steps of
      parallel.train.make_train_step on one 4-frame synth3d batch, with the
      loss, step time, peak memory and launches per step; the loss and every
-     gradient must be finite and the loss must fall, and the backward must
-     run flash_bwd_sm90.cuh at head dims 32 and 64 (launches by design);
+     gradient must be finite and the loss must fall, and the forward and
+     backward must run flash_sm90.cuh and flash_bwd_sm90.cuh at every
+     head dim (launches by design);
   9. the train_tiny CLI on the small model for 6 steps, whose backward
      must run flash_bwd_sm90.cuh (the launches by design it prints), and
      whose checkpoint must load into the port's VGGT and give a finite
@@ -51,10 +53,11 @@ Phases, one line of output each (and the contract lines at the end):
 And, for the --qk_int8 path and the fused DPT tail:
   A. the int8 kernels (flash_multi_i8, flash_single_i8) against their plain
      versions at the SLAM global shape (18-frame bucket, merged K/V, rope,
-     kv_bias, valid_len) at VGGT-1B's and the small model's widths and the
-     training global shape, beside the bf16 kernels' times at the same
-     shapes; the design each ran (flash_sm90.cuh at head dims 32 and 64),
-     and the call's scales pass against int8_scales (bit-equal; timed);
+     kv_bias, valid_len) at VGGT-1B's and the small model's widths, the
+     camera trunk's shape (head dim 128) and the training global shape,
+     beside the bf16 kernels' times at the same shapes; the design each
+     ran (flash_sm90.cuh), and the call's scales pass against int8_scales
+     (bit-equal; timed);
   B. the fused DPT tail on the depth head's own output_conv1 activations of
      a full-width 18-frame forward, against its plain version and against
      the head's unfused chain (heads.py:228-231, cuDNN, TF32 off);
@@ -340,11 +343,11 @@ def sdpa_prepared_call(case):
 def launched_design(fn, counts=None) -> str:
     """The design that fn(), one forward call, ran: the forward launches by
     design that the C launcher counted during it, "tma_wgmma" for
-    flash_fwd_sm90 (csrc/flash_sm90.cuh), "mma_sync" for flash_fwd_kernel;
-    with `counts` = bwd_design_launches, one flash_bwd call's
-    (csrc/flash_bwd_sm90.cuh, or the mma.sync kernels). (torch.profiler on
-    the card has lost every kernel record of such a short profile, so the
-    kernels' names are not read here.)"""
+    flash_fwd_sm90 (csrc/flash_sm90.cuh); with `counts` =
+    bwd_design_launches, one flash_bwd call's (csrc/flash_bwd_sm90.cuh).
+    Raises where the call launched none. (torch.profiler on the card has
+    lost every kernel record of such a short profile, so the kernels' names
+    are not read here.)"""
     import torch
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -362,13 +365,18 @@ def launched_design(fn, counts=None) -> str:
     return found[0]
 
 
+def forward_calls(launches) -> int:
+    """The forward calls among a LAUNCHES count, bf16 and int8: each
+    launches flash_fwd_sm90 once."""
+    return sum(n for k, n in launches.items()
+               if k.startswith(("flash_single", "flash_multi")))
+
+
 def expect_design(name, D, design):
-    """The forward, bf16 or int8, runs flash_sm90.cuh at head dims 32 and
-    64 and flash_fwd_kernel at 128 (flash_attention.cu launch_dim); the
-    backward
-    flash_bwd_sm90.cuh at 32 and 64 and the mma.sync kernels at 128
-    (flash_attention_bwd.cu flash_bwd)."""
-    want = "tma_wgmma" if D in (32, 64) else "mma_sync"
+    """The forward, bf16 or int8, runs flash_sm90.cuh and the backward
+    flash_bwd_sm90.cuh at every head dim, 32, 64 and 128
+    (flash_attention.cu launch_dim, flash_attention_bwd.cu flash_bwd)."""
+    want = "tma_wgmma"
     if design != want:
         raise AssertionError(f"{name} (head dim {D}) ran {design}, not "
                              f"{want}")
@@ -794,11 +802,14 @@ def drive_main_path(model, device, frames):
     model_fn = make_bucketed_model_fn(model, bucket, as_numpy=False,
                                       with_unprojection=True, device=device)
     A.reset_launch_counts()
+    before = A.forward_design_launches()
     t0 = time.perf_counter()
     result = run_slam(args, frames=frames, model_fn=model_fn, device=device)
     sync()
     wall = time.perf_counter() - t0
     launches = dict(A.LAUNCHES)
+    designs = {d: n - before[d]
+               for d, n in A.forward_design_launches().items()}
     solver = result["solver"]
     n_sub = solver.map.get_num_submaps()
     poses = [p for s in solver.map.ordered_submaps_by_key()
@@ -810,8 +821,8 @@ def drive_main_path(model, device, frames):
     stages = {k: {"total_s": v["total_s"], "count": v["count"]}
               for k, v in result["timer"].summary().items()}
     log("main_path", frames=len(frames), submaps=n_sub, poses=len(poses),
-        launches=launches, wall_s=wall, fps=len(frames) / wall,
-        stages=stages, all_finite=finite)
+        launches=launches, designs=designs, wall_s=wall,
+        fps=len(frames) / wall, stages=stages, all_finite=finite)
     if n_sub < 2:
         raise AssertionError(f"only {n_sub} submap(s) formed")
     if not finite:
@@ -820,6 +831,9 @@ def drive_main_path(model, device, frames):
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "main path")
+    if designs != {"tma_wgmma": forward_calls(launches)}:
+        raise AssertionError(f"the main path's forward calls {launches} "
+                             f"ran {designs} by design")
     return launches
 
 
@@ -830,7 +844,8 @@ def drive_main_path(model, device, frames):
 def int8_cases(device):
     """The int8 kernels' shapes: the global block of the 18-frame SLAM
     bucket at VGGT-1B's and the small model's widths (head dims 64 and 32;
-    the qk-norm already applied outside, as with --qk_int8) and the
+    the qk-norm already applied outside, as with --qk_int8), the camera
+    trunk's call of that bucket (head dim 128, valid_len 17) and the
     training global block (pre-applied q, k)."""
     import torch
 
@@ -841,7 +856,8 @@ def int8_cases(device):
     out = [dict(name="training_global", q=q, k=k, v=v,
                 kw=dict(num_heads=16))]
     for name, c in (("slam_global", cases["global_block"]),
-                    ("small_global", cases["small_global_block"])):
+                    ("small_global", cases["small_global_block"]),
+                    ("camera_trunk", cases["camera_trunk"])):
         kw = {k_: v_ for k_, v_ in c["kw"].items() if k_ != "qk_ln"}
         out.insert(len(out) - 1, dict(name=name, q=c["q"], k=c["k"],
                                       v=c["v"], kw=kw))
@@ -1177,8 +1193,8 @@ def drive_image_folder_cli(device, per_forward):
     panned 480x640 frames written here, read back by the in-repo decoder,
     resized without OpenCV to 392x518, and run by `run_slam` with the
     model it builds itself (VGGT-1B, seeded random weights). `per_forward`:
-    one 18-frame forward's designs (phase C), whose mma_sync launches (the
-    camera trunk's) must be all that each of the run's forwards adds."""
+    one 18-frame forward's designs (phase C), all flash_sm90.cuh's
+    ("tma_wgmma"), what each of the run's forwards must add."""
     import shutil
     import tempfile
 
@@ -1254,9 +1270,10 @@ def drive_image_folder_cli(device, per_forward):
             raise AssertionError("the int8 kernel was not launched on the "
                                  "--qk_int8 path")
         forwards = launches["flash_multi_i8"] / 24   # VGGT-1B global blocks
-        if designs["mma_sync"] != forwards * per_forward["mma_sync"]:
-            raise AssertionError(f"{designs} over {forwards} forwards: "
-                                 f"the int8 kernel left flash_sm90.cuh")
+        want = {d: forwards * n for d, n in per_forward.items()}
+        if designs != want:
+            raise AssertionError(f"{designs} over {forwards} forwards, not "
+                                 f"{want}: a forward left flash_sm90.cuh")
         del result, solver
         torch.cuda.empty_cache()
         return launches
@@ -1300,8 +1317,8 @@ def _instance_patterns(variant):
         return (f"grouped_kernel<{G}, {sched}>(",
                 f"grouped_kernelILi{G}ELi{sched}EE")
     if kind == "production":
-        return ("flash_fwd_kernel<64, false, false>(",
-                "flash_fwd_kernelILi64ELb0ELb0EE")
+        return ("flash_fwd_sm90<64, false, false>(",
+                "flash_fwd_sm90ILi64ELb0ELb0EE")
     return ()
 
 
@@ -1722,6 +1739,7 @@ def drive_training(device, n_steps=3, profile=False):
     losses, step_ms, per_step = [], [], []
     A.reset_launch_counts()
     designs_before = A.bwd_design_launches()
+    fwd_before = A.forward_design_launches()
     for _ in range(n_steps):
         before = dict(A.LAUNCHES)
         t0 = time.perf_counter()
@@ -1740,6 +1758,8 @@ def drive_training(device, n_steps=3, profile=False):
     launches = dict(A.LAUNCHES)
     designs = {d: n - designs_before[d]
                for d, n in A.bwd_design_launches().items()}
+    fwd_designs = {d: n - fwd_before[d]
+                   for d, n in A.forward_design_launches().items()}
     peak = torch.cuda.max_memory_allocated()
     if profile:
         log("profile_training_step", frames=4,
@@ -1748,7 +1768,7 @@ def drive_training(device, n_steps=3, profile=False):
         params=sum(p.numel() for p in params), losses=losses,
         step_ms=step_ms, peak_memory_gib=peak / 2 ** 30,
         launches=launches, launches_per_step=per_step,
-        bwd_design_launches=designs)
+        fwd_design_launches=fwd_designs, bwd_design_launches=designs)
     del model, params, step, batch
     torch.cuda.empty_cache()
     if not losses[-1] < losses[0]:
@@ -1762,6 +1782,9 @@ def drive_training(device, n_steps=3, profile=False):
     if designs != want:
         raise AssertionError(f"the training steps' backward ran {designs} "
                              f"by design, not {want}")
+    if fwd_designs != {"tma_wgmma": forward_calls(launches)}:
+        raise AssertionError(f"the training steps' forward calls {launches}"
+                             f" ran {fwd_designs} by design")
     return launches, per_step[-1]
 
 
@@ -1769,17 +1792,11 @@ def backward_designs(cfg, n_steps) -> dict:
     """flash_bwd launches by design in `n_steps` training steps of a
     VGGTConfig-`cfg` model: each encoder, frame and global block once a
     step, each camera-trunk block at each iteration (activation
-    checkpointing recomputes forwards, not backwards); head dims 32 and 64
-    run flash_bwd_sm90.cuh ("tma_wgmma"), 128 the mma.sync kernels."""
-    want = {"mma_sync": 0, "tma_wgmma": 0}
-    for n, dim, heads in (
-            (cfg.enc_depth, cfg.enc_dim, cfg.enc_heads),
-            (2 * cfg.agg_depth, cfg.agg_dim, cfg.agg_heads),
-            (cfg.cam_trunk_depth * cfg.cam_iterations, 2 * cfg.agg_dim,
-             cfg.agg_heads)):
-        want["tma_wgmma" if dim // heads in (32, 64) else "mma_sync"] += \
-            n * n_steps
-    return want
+    checkpointing recomputes forwards, not backwards), all on
+    flash_bwd_sm90.cuh ("tma_wgmma")."""
+    return {"tma_wgmma": n_steps * (cfg.enc_depth + 2 * cfg.agg_depth
+                                    + cfg.cam_trunk_depth
+                                    * cfg.cam_iterations)}
 
 
 def small_forward_launches(cfg) -> dict:
@@ -1801,8 +1818,7 @@ def drive_cli(device):
     for 6 steps into a temporary directory; its checkpoint must load into
     the port's VGGT(small) and give a finite forward on the card, the small
     model's own path: its launches (counts set to 0 just before it) and the
-    design its kernels ran (flash_sm90.cuh at head dims 32 and 64) are
-    checked."""
+    design its kernels ran (flash_sm90.cuh) are checked."""
     import os
     import shutil
     import tempfile
@@ -2213,7 +2229,8 @@ def ab_forward(device, dirs):
     version, then timed in turns (first to last, then back) at every bf16
     forward shape of phases 3 and 4: CUDA events around 20 eager calls
     (`ms`: the host's time where it is the longer) and one CUDA graph of 20
-    calls (`graph_ms`: the device's), beside SDPA and the bound; then the
+    calls (`graph_ms`: the device's), beside SDPA timed both ways and the
+    bound; then the
     host cost per call (`ab_host_us`). Returns the builds and the rows
     (also logged)."""
     import torch
@@ -2251,10 +2268,12 @@ def ab_forward(device, dirs):
         ms = {n: sum(r) / len(r) for n, r in runs.items()}
         dev_ms = {n: sum(r) / len(r) for n, r in graph_runs.items()}
         sdpa_ms = cuda_ms(c["sdpa"], iters=20) if c["sdpa"] else None
+        sdpa_graph = graph_ms(c["sdpa"]) if c["sdpa"] else None
         row = dict(variant=name, kernel=c["kernel"], D=c["D"], stats=stats,
                    design=launched_design(c["kern"](A)), bound_ms=c["bound"],
                    bound_unit=c["unit"], ms=ms, graph_ms=dev_ms, runs=runs,
                    graph_runs=graph_runs, errors=errs, sdpa_ms=sdpa_ms,
+                   sdpa_graph_ms=sdpa_graph,
                    share_of_bound={n: c["bound"] / t
                                    for n, t in dev_ms.items()})
         row["faster_than"] = {n: dev_ms["this_tree"] < t
@@ -2472,7 +2491,7 @@ def main(argv) -> int:
         kernels.append({
             "name": name, "status": "ported", "route": "cuda",
             "source": "vggt_slam_tpu_torch/csrc/flash_attention.cu, "
-                      "csrc/flash_sm90.cuh (head dims 32 and 64)",
+                      "csrc/flash_sm90.cuh",
             "replaces": replaces[name], "launches": launches[name],
             "variant": rep["variant"], "design": rep["design"],
             "designs": {c["variant"]: c["design"] for c in variants
@@ -2497,7 +2516,7 @@ def main(argv) -> int:
         kernels.append({
             "name": name, "status": "ported", "route": "cuda",
             "source": "vggt_slam_tpu_torch/csrc/flash_attention_bwd.cu, "
-                      "csrc/flash_bwd_sm90.cuh (head dims 32 and 64)",
+                      "csrc/flash_bwd_sm90.cuh",
             "replaces": replaces[name], "launches": train_launches[name],
             "launches_per_step": train_per_step[name],
             "variant": rep["variant"], "design": rep["bwd_design"],
@@ -2528,7 +2547,7 @@ def main(argv) -> int:
         kernels.append({
             "name": name, "status": "ported", "route": "cuda",
             "source": "vggt_slam_tpu_torch/csrc/flash_attention.cu, "
-                      "csrc/flash_sm90.cuh (head dims 32 and 64)",
+                      "csrc/flash_sm90.cuh",
             "replaces": replaces[name],
             "launches": int8_path[name][0][name],
             "launches_path": int8_path[name][1],

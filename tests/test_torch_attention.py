@@ -132,10 +132,11 @@ def test_flash_multi_plain_matches_reference_kernel(name):
     _run(2, B, H, Nq, Nk, D, multi=True, **kw)
 
 
-# The tile edges of the CUDA kernel at head dims 32 and 64 (128-row q tiles
-# and 128-key tiles, tests/test_torch_gpu.py): Nq and Nk at 127, 129 and
-# 257, valid_len at 0, 128 and 129; in-kernel LN, rope and kv_bias
-# throughout. The head-dim-32 cases' ids begin with "d32-".
+# The tile edges of the CUDA kernel at head dims 32, 64 and 128 (128-row q
+# tiles and 128-key tiles, tests/test_torch_gpu.py): Nq and Nk at 127, 129
+# and 257, valid_len at 0, 128 and 129; in-kernel LN, rope and kv_bias
+# throughout. The head-dim-32 and -128 cases' ids begin with "d32-" and
+# "d128-".
 EDGE_CASES = [
     # (Nq, Nk, valid_len, multi)
     (127, 127, None, False), (129, 129, None, False),
@@ -144,9 +145,9 @@ EDGE_CASES = [
     (129, 257, 129, True), (257, 257, None, True),
     (129, 257, 0, False), (129, 257, 0, True),
 ]
-EDGE_PARAMS = [pytest.param(*case, D, id=("d32-" if D == 32 else "")
+EDGE_PARAMS = [pytest.param(*case, D, id=("" if D == 64 else f"d{D}-")
                             + "-".join(map(str, case)))
-               for D in (64, 32) for case in EDGE_CASES]
+               for D in (64, 32, 128) for case in EDGE_CASES]
 
 
 @pytest.mark.parametrize("nq,nk,valid_len,multi,D", EDGE_PARAMS)

@@ -3,7 +3,8 @@
 * The stats output of the forward kernels' plain versions (out, m, l)
   against the reference's `flash_attention(..., return_stats=True)` with the
   Pallas kernels in interpret mode, in the packed layout: one-block,
-  multi-block static, valid_len and head dim 32 cases. f32: 5e-5 on out,
+  multi-block static, valid_len, head dim 32 and camera-trunk (head dim
+  128) cases. f32: 5e-5 on out,
   5e-5 of the largest |m| and |l| on the stats (l sums up to Nk terms).
 * The backward through `FlashAttentionGrad` (the plain versions of the two
   backward kernels on CPU tensors) against the reference's
@@ -45,6 +46,8 @@ def _qkv(seed, B, H, N, D, Nk=None):
     (1, 2, 300, 2200, 64, None, "static"),     # multi-block, static max
     (1, 2, 400, 2300, 32, 2100, "static"),     # head dim 32, valid_len
     (1, 4, 257, 257, 32, None, "online"),      # head dim 32, packed heads
+    (1, 16, 4, 4, 128, None, "online"),        # camera trunk, training
+    (1, 16, 18, 18, 128, 13, "online"),        # camera trunk, valid_len
 ])
 def test_forward_stats_match_reference(B, H, Nq, Nk, D, vl, softmax):
     q, k, v = _qkv(0, B, H, Nq, D, Nk)

@@ -12,9 +12,9 @@ the approximate one, which can flip one bf16 rounding of a prepared q or k
 element (2^-8 relative) and move a row's l by ~1e-3: those stats are held
 to 1e-2 relative. The backward's gradients are held to 2e-2 of the largest
 reference entry: dL is rounded to bf16 before its products on both sides,
-and a slightly different p flips single roundings. At head dims 32 and 64
-dq is summed across key tiles by f32 atomic adds in a varying order, so two
-runs may differ by one bf16 rounding: held to 2^-7 of the largest entry.
+and a slightly different p flips single roundings. dq is summed across
+key tiles by f32 atomic adds in a varying order, so two runs may differ by
+one bf16 rounding: held to 2^-7 of the largest entry.
 The edge cases add an absolute floor of 1e-5 to the gradients' tolerance:
 with one key the exact dq and dk are 0, and the two sides compute dL there
 as a difference of two f32 dot products summed in other orders (~1e-7).
@@ -180,10 +180,10 @@ def test_flash_attention_grad_launches_the_kernels(cuda):
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
 
-# The backward at head dims 32 and 64 runs csrc/flash_bwd_sm90.cuh
-# (128-key tiles a CTA, 64-row q tiles by TMA from 4-D maps, K and V maps
-# that end at valid_len, dq summed by bulk f32 reduce-adds), at 128 the
-# mma.sync kernels: sequence, valid_len, batch and head edges, each case
+# The backward runs csrc/flash_bwd_sm90.cuh at every head dim (128-key
+# tiles a CTA, 64-row q tiles by TMA from 4-D maps, two 64-column panels a
+# row at D = 128, K and V maps that end at valid_len, dq summed by bulk f32
+# reduce-adds): sequence, valid_len, batch and head edges, each case
 # written twice into NaN-filled dq, dk, dv (a missed store fails), against
 # the plain version at the tolerances above.
 def _bwd_case(device, B, H, Nq, Nk, D, vl, seed):
@@ -219,10 +219,9 @@ def _bwd_check(args, H, vl):
 @pytest.mark.parametrize("D", [32, 64, 128])
 def test_bwd_design_launches_count_each_call(cuda, D):
     """One flash_bwd call adds one to the C launcher's count of its design
-    (flash_bwd_sm90.cuh at head dims 32 and 64) and nothing to the
-    other's."""
+    (flash_bwd_sm90.cuh at every head dim)."""
     args = _bwd_case(cuda, 1, 2, 200, 200, D, None, seed=20)
-    want = "tma_wgmma" if D < 128 else "mma_sync"
+    want = "tma_wgmma"
     before = A.bwd_design_launches()
     A.flash_bwd(*args, num_heads=2)
     torch.cuda.synchronize()
@@ -255,7 +254,7 @@ def test_bwd_nq_not_nk(cuda, nq, nk, vl, D):
     _bwd_check(_bwd_case(cuda, 2, 2, nq, nk, D, vl, seed=24), 2, vl)
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 128])
 def test_bwd_repeated_runs_agree(cuda, D):
     """Sixty calls at the small global shape (66 q tiles a CTA, one wave):
     dk and dv bit-equal from call to call (each CTA owns its key rows), dq
@@ -290,19 +289,19 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         A.flash_single(qb, qb, qb, num_heads=4)      # head dim 24
 
 
-# The Hopper design of the bf16 forward at head dims 32 and 64
+# The Hopper design of the bf16 forward at every head dim
 # (csrc/flash_sm90.cuh: 128-row q tiles, 128-key K/V tiles by TMA from 4-D
 # maps that end at valid_len; 64-byte rows and swizzle at D = 32, 128-byte
-# at D = 64): its tile edges, batch edges and masked rows, each written
-# into a NaN-filled output so that a missed store fails, against the plain
-# version at the tolerances above.
-SM90_DIMS = [32, 64]
+# at D = 64, two 128-byte panels a row at D = 128): its tile edges, batch
+# edges and masked rows, each written into a NaN-filled output so that a
+# missed store fails, against the plain version at the tolerances above.
+SM90_DIMS = [32, 64, 128]
 
 
 def test_bf16_forward_route_by_head_dim(cuda):
-    """bf16 at head dims 32 and 64 launches flash_fwd_sm90<D, ...>, at 128
-    flash_fwd_kernel<128, ...> (flash_attention.cu launch_dim): the three
-    calls under one profiler, each launched once before it."""
+    """bf16 at every head dim launches flash_fwd_sm90<D, ...>
+    (flash_attention.cu launch_dim): the three calls under one profiler,
+    each launched once before it."""
     from torch.profiler import ProfilerActivity, profile
 
     cases = [(D, _case(cuda, 1, 2, 200, 200, D, rope=False, ln=False,
@@ -316,19 +315,16 @@ def test_bf16_forward_route_by_head_dim(cuda):
         torch.cuda.synchronize()
     names = " ".join(e.key for e in prof.key_averages())
     for D, _ in cases:
-        want, other = (("flash_fwd_sm90", "flash_fwd_kernel") if D < 128
-                       else ("flash_fwd_kernel", "flash_fwd_sm90"))
-        assert f"{want}<{D}," in names, (D, names[:800])
-        assert f"{other}<{D}," not in names, (D, names[:800])
+        assert f"flash_fwd_sm90<{D}," in names, (D, names[:800])
 
 
 @pytest.mark.parametrize("D", [32, 64, 128])
 def test_forward_design_launches_count_each_launch(cuda, D):
     """One bf16 forward adds one to the C launcher's count of its design
-    (flash_sm90.cuh at head dims 32 and 64) and nothing to the other's."""
+    (flash_sm90.cuh at every head dim)."""
     q, k, v, kw = _case(cuda, 1, 2, 200, 200, D, rope=False, ln=False,
                         bias=False, seed=11)
-    want = "tma_wgmma" if D < 128 else "mma_sync"
+    want = "tma_wgmma"
     before = A.forward_design_launches()
     A.flash_single(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -451,7 +447,7 @@ def test_int8_kernels_match_plain(cuda, variant, D):
     assert float(((l - bf16_l).abs() / bf16_l).max()) > 1e-3
 
 
-# The int8 route at head dims 32 and 64 (flash_fwd_sm90 with int8 Q and K
+# The int8 route at every head dim (flash_fwd_sm90 with int8 Q and K
 # tiles, s8 wgmma; q and k quantized by the call's pre-pass, whose scales
 # must equal int8_scales bit for bit): its tile, mask and batch edges,
 # each written into a NaN-filled output and held to the plain version at
@@ -541,11 +537,10 @@ def test_int8_repeated_runs_are_bit_equal(cuda, softmax, D):
 @pytest.mark.parametrize("D", [32, 64, 128])
 def test_int8_design_launches_count_each_launch(cuda, D):
     """One int8 forward adds one to the C launcher's count of its design
-    (flash_sm90.cuh at head dims 32 and 64, flash_fwd_kernel at 128) and
-    nothing to the other's."""
+    (flash_sm90.cuh at every head dim)."""
     q, k, v, kw = _case(cuda, 1, 2, 200, 300, D, rope=True, ln=False,
                         bias=False, seed=26)
-    want = "tma_wgmma" if D < 128 else "mma_sync"
+    want = "tma_wgmma"
     before = A.forward_design_launches()
     A.flash_single(q, k, v, qk_int8=True, **kw)
     torch.cuda.synchronize()
@@ -570,6 +565,23 @@ def test_int8_scales_kernel_equals_plain(cuda, rope, D):
     assert float((127.0 / want[0].view(2, 4)[:, 1]).max()) == \
         pytest.approx(1e-6)
     assert torch.equal(got, want), (got - want).abs().max()
+
+
+# The camera trunk's calls (head dim 128, 16 heads, a few tokens, one key
+# tile): bf16 and int8, both softmax modes, with and without row stats,
+# batch 2, and the backward, at the SLAM shape (18 tokens, valid_len 13
+# and none) and the training shape (4 tokens).
+@pytest.mark.parametrize("n,vl", [(4, None), (18, None), (18, 13), (18, 0),
+                                  (18, 1)])
+def test_camera_trunk_shapes(cuda, n, vl):
+    q, k, v, kw = _case(cuda, 2, 16, n, n, 128, rope=False, ln=False,
+                        bias=False, seed=30)
+    kw["valid_len"] = vl
+    for softmax in ("online", "static"):
+        for stats in (True, False):
+            _sm90_check(q, k, v, kw, softmax, stats)
+            _i8_check(q, k, v, kw, softmax, stats)
+    _bwd_check(_bwd_case(cuda, 2, 16, n, n, 128, vl, seed=31), 16, vl)
 
 
 @pytest.mark.parametrize("cout", [2, 4])

@@ -4,8 +4,8 @@
   qk_int8=True)` in the port) against the reference's
   `flash_attention(..., block_q=128, block_k=128, interpret=True,
   qk_int8=True)`, in the packed layout, with and without rope, valid_len,
-  kv_bias and static softmax, at head dims 32 and 64 (the cases of
-  tests/test_attention.py:101-190). Tolerance 1e-4 max abs in f32: both
+  kv_bias and static softmax, at head dims 32, 64 and 128 (the cases of
+  tests/test_attention.py:101-190, and two at 128). Tolerance 1e-4 max abs in f32: both
   sides quantize to the same int8 grid with the same scales, and the s32
   products are exact on both; what is left is f32 summation order.
 * The plain int8 path at the edges of the card's int8 route (Nq 1 and 129
@@ -13,6 +13,13 @@
   per-(batch, head) amax differ 10x), at the same tolerance; and the q and
   k int8 grids (`_quant_i8` after `_prep` at scale 1, bf16 rows) against
   the reference's `_quant_i8` after `_rope_in_kernel`, bit for bit.
+* At head dim 128 the reference's interpret-mode kernel, traced by XLA,
+  contracts rope's x*C + swap(x)*S into a fused multiply-add: at seed 7
+  and (Nq 256, Nk 384) that moves one q value (row 83, head 1) across an
+  int8 rounding boundary and its output row 7.7e-4 off the exact one. The
+  port rounds the products and the sum apart, as its CUDA kernel does: its
+  grids there are held bit for bit to numpy's f32 arithmetic and its
+  output to a float64 evaluation on them (1e-5).
 * The tiny model with `global_qk_int8=True` against the reference's VGGT
   at 2 frames of 392x518 with exact global attention (Nk = 2082 keys,
   more than one 2048-key block, so the int8 path runs), and a fast case of
@@ -60,6 +67,10 @@ CASES = {
     "static_rope_bias_d32": (1, 2, 256, 384, 32,
                              dict(softmax="static", rope=True, bias=True,
                                   valid_len=333)),
+    "multiblock_d128": (1, 2, 384, 512, 128, {}),
+    "static_rope_bias_d128": (1, 2, 200, 384, 128,
+                              dict(softmax="static", rope=True, bias=True,
+                                   valid_len=290)),
 }
 
 
@@ -130,6 +141,11 @@ EDGE_CASES = {
     "valid_len1_d32": (1, 2, 200, 300, 32, "static", 1, True, 1.0),
     "b2_amax_10x_d64": (2, 2, 150, 260, 64, "static", 201, True, 10.0),
     "b2_amax_10x_d32": (2, 2, 150, 260, 32, "online", None, False, 10.0),
+    "nq1_d128": (1, 2, 1, 300, 128, "static", 257, True, 1.0),
+    "nq129_d128": (1, 2, 129, 300, 128, "online", None, False, 1.0),
+    "valid_len0_d128": (1, 2, 200, 300, 128, "online", 0, True, 1.0),
+    "valid_len1_d128": (1, 2, 200, 300, 128, "static", 1, False, 1.0),
+    "b2_amax_10x_d128": (2, 2, 150, 260, 128, "static", 201, True, 10.0),
 }
 
 
@@ -162,6 +178,45 @@ def test_int8_edges_match_reference_kernel(name):
                                rtol=0)
     if valid_len == 0:
         assert not got.any()
+
+
+def test_int8_d128_rope_rounds_apart():
+    """The case where the reference's contracted rope flips an int8 value
+    (module docstring): the port's q and k grids equal numpy's separately
+    rounded rope and quantization bit for bit, and its output a float64
+    evaluation of the int8 attention on those grids to 1e-5."""
+    B, H, Nq, Nk, D, vl = 1, 2, 256, 384, 128, 333
+    q, k, v, extra = _inputs(7, B, H, Nq, Nk, D, rope=True, bias=True)
+    tkw = {key: _conv(val, torch.from_numpy) for key, val in extra.items()}
+    tq, tk = torch.from_numpy(q), torch.from_numpy(k)
+    inv_q, inv_k, sc2 = (t.numpy() for t in tattn.int8_scales(tq, tk, H,
+                                                               True))
+    grids = []
+    for x, inv, table in ((q, inv_q, "rope_q"), (k, inv_k, "rope_k")):
+        cos, sin = (np.asarray(t, np.float32) for t in extra[table])
+        C = np.concatenate([cos, cos], -1)[:, None]          # (N, 1, D)
+        S = np.concatenate([-sin, sin], -1)[:, None]
+        xh = x.reshape(x.shape[1], H, D)
+        sw = np.concatenate([xh[..., D // 2:], xh[..., :D // 2]], -1)
+        y = (xh * C).astype(np.float32) + (sw * S).astype(np.float32)
+        want = np.clip(np.rint(y * inv[None, :, None]), -127, 127)
+        got = tattn._quant_i8(tattn._prep(torch.from_numpy(x), H, None, 1e-5,
+                                          tkw[table], 1.0),
+                              torch.from_numpy(inv))
+        np.testing.assert_array_equal(got[0].numpy(),
+                                      want.transpose(1, 0, 2))
+        grids.append(want.astype(np.float64))
+    s = np.einsum("qhd,khd->hqk", *grids) * sc2[:, None, None]
+    s = s + extra["kv_bias"].astype(np.float64) * np.log2(np.e)
+    s[:, :, vl:] = -np.inf
+    p = np.exp2(s - s.max(-1, keepdims=True))
+    vh = v.reshape(Nk, H, D).astype(np.float64)
+    exact = np.einsum("hqk,khd->qhd", p / p.sum(-1, keepdims=True), vh)
+    got = tattn.flash_attention(tq, tk, torch.from_numpy(v), num_heads=H,
+                                block_k=128, qk_int8=True, softmax="static",
+                                valid_len=vl, **tkw)
+    np.testing.assert_allclose(got.numpy().reshape(Nq, H, D), exact,
+                               atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("rope", [True, False])

@@ -8,8 +8,8 @@
 //                     running row max (encoder, frame blocks, camera trunk).
 //                     The TPU kernel holds all keys in one block; 1041 keys
 //                     of K and V do not fit in 227 KB of shared memory, so
-//                     this kernel walks 64-key tiles with an online softmax,
-//                     which computes the same function.
+//                     this kernel walks 128-key tiles with an online
+//                     softmax, which computes the same function.
 //   flash_multi_fwd   replaces vggt_slam_tpu/ops/attention.py _flash_kernel
 //                     in its default composite: static-max softmax (a
 //                     per-(batch, head) bound replaces the running max, so
@@ -33,22 +33,15 @@
 // What bounds it on this card: at the main-path shapes both kernels do
 // ~4 N_q N_k D flops per head on ~(N_q + 2 N_k) D bf16 bytes, far above
 // the H100's ~295 flop/byte ridge, so the tensor cores bound them, and at
-// head dim 32 the exp units (one exp2 per logit outweighs both products).
+// head dim 32 the exp units (one exp2 per logit outweighs both products);
+// at head dim 128 (the camera trunk, 4-18 tokens) the bytes.
 // Design: the TPU kernel caches the prepared k once per (batch, head); here
 // a small prep kernel writes LN+rope'd k once to a scratch buffer
-// (prep_rows_kernel), and each attention CTA prepares its own q tile (at
-// head dims 32 and 64 the prep kernel prepares q too, see flash_sm90.cuh).
-// Head dims 32 and 64 (every attention of VGGT-1B but the camera trunk,
-// and every one of the small models), bf16 or int8 QK^T, run the Hopper
-// design of flash_sm90.cuh: TMA-fed K/V ring, wgmma for both products,
-// 128-row q tiles. Head dim 128 (the camera trunk, 4-18 tokens) runs
-// flash_fwd_kernel: one CTA of 4 warps per (64-row q tile, batch, head)
-// walks 64-key K/V tiles staged in shared memory; QK^T
-// and PV run on mma.sync m16n8k16 with f32 accumulators that stay in
-// registers (the FlashAttention-2 layout: each warp owns 16 query rows, the
-// softmax state lives in the accumulator fragments, P is repacked into A
-// fragments without touching shared memory); key tiles past valid_len are
-// never loaded.
+// (prep_rows_kernel), and q with LN or rope into the output buffer, which
+// the attention kernel reads its q tiles from. Every head dim (32, 64,
+// 128), bf16 or int8 QK^T, runs the Hopper design of flash_sm90.cuh:
+// TMA-fed K/V ring, wgmma for both products, 128-row q tiles; key tiles
+// past valid_len are never loaded.
 //
 // The int8 variants (flash_single_i8_fwd, flash_multi_i8_fwd) replace
 // _flash_kernel with qk_int8=True (vggt_slam_tpu/ops/attention.py:103,
@@ -56,13 +49,12 @@
 // at scale 1, rounded to bf16 and quantized to int8 as
 // clip(rint(x * 127 / amax), +-127) with per-(batch, head) scales from the
 // int8 pre-pass (i8_scales_kernel, bit-equal to int8_scales in
-// ops/attention.py); QK^T runs with s32 accumulation (wgmma s8 at head dims
-// 32 and 64, mma.sync m16n8k32 s8 at 128), and the s32 logits times
-// amax_q amax_k log2(e) / (sqrt(D) 127^2) enter the same softmax, P repack
-// and bf16 PV as the bf16 kernels. The pre-pass writes the quantized k, and
-// at head dims 32 and 64 q, once per call; at 128 each CTA quantizes its
-// own q tile. The int8 products run at twice the bf16 rate, so QK^T's
-// share of the bound halves; PV, the softmax and the bytes are unchanged.
+// ops/attention.py), which also writes the quantized q and k once per
+// call; QK^T runs on s8 wgmma with s32 accumulation, and the s32 logits
+// times amax_q amax_k log2(e) / (sqrt(D) 127^2) enter the same softmax, P
+// repack and bf16 PV as the bf16 kernels. The int8 products run at twice
+// the bf16 rate, so QK^T's share of the bound halves; PV, the softmax and
+// the bytes are unchanged.
 
 #include <type_traits>
 
@@ -72,9 +64,7 @@ namespace {
 
 using namespace flash;
 
-constexpr int BQ = 64;                // query rows per CTA
-constexpr int BK = 64;                // keys per tile
-constexpr int NWARP = 4;
+constexpr int NWARP = 4;              // prep_rows_kernel: a warp per row
 constexpr int NTHREAD = NWARP * 32;
 
 struct Params {
@@ -95,21 +85,16 @@ struct Params {
   float* l_out;           // (B*H, Nq) row sum, or null
 };
 
-// The int8 kernels' parameters: no LN and no softmax scale (rope tables at
-// scale 1), the int8 k and the quantization scales instead. A struct of its
-// own, so that the bf16 instances keep Params' layout and register count
-// (two more fields there raised the bf16 D=64 instances from 127-128 to
-// 131-139 registers: 3 CTAs per SM instead of 4; ptxas, H100).
+// The int8 kernels' parameters: no LN, no rope and no softmax scale (q and
+// k arrive quantized by the pre-pass), the quantization scales instead.
 struct ParamsI8 {
-  const __nv_bfloat16* q;   // raw q (flash_fwd_kernel quantizes it)
-  const int8_t* k;        // prepared int8 k (rope, bf16 round, quantized)
+  const int8_t* q;        // q quantized by the pre-pass (rope, bf16 round)
+  const int8_t* k;        // k quantized likewise
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
   int H, Nq, Nk, valid_len;
   const float* scales;    // (3, B*H): 127/amax_q, 127/amax_k, dequant scale
   const float* kv_bias;
-  const float* cos_q;
-  const float* sin_q;
   const float* smax;
   float* m_out;
   float* l_out;
@@ -186,8 +171,7 @@ __device__ __forceinline__ bool prep_row(float (&x)[D / 32], int lane, int n,
 }
 
 // Prepared rows, written once per call: one warp per (row, head). k at
-// scale 1; at head dims 32 and 64 also q, at the softmax scale
-// (flash_sm90.cuh).
+// scale 1, q at the softmax scale (flash_sm90.cuh).
 template <int D>
 __global__ void __launch_bounds__(NTHREAD)
     prep_rows_kernel(const __nv_bfloat16* src, __nv_bfloat16* dst, int rows,
@@ -216,7 +200,7 @@ __global__ void __launch_bounds__(NTHREAD)
 // twice, their int8 copies written once).
 struct I8Prep {
   const __nv_bfloat16* x[2];   // q, k: packed (B, N, H*D)
-  int8_t* x8[2];      // their int8 copies (x8[0] null: each CTA quantizes q)
+  int8_t* x8[2];      // their int8 copies
   const float* cos_t[2];   // (N, D/2) rope tables at scale 1, or null
   const float* sin_t[2];
   int N[2], B, H, rope;
@@ -315,15 +299,14 @@ __global__ void __launch_bounds__(I8_THREADS) i8_scales_kernel(I8Prep a) {
   }
 }
 
-// Pass 2: q rows (where x8[0] is given), then k rows, rope'd at scale 1
-// (products and sum rounded apart), rounded to bf16 and quantized with
-// their (batch, head) scale: prep_row and quant_i8 as flash_fwd_kernel
-// applies them. A thread takes dims [8c, 8c + 8) of one (row, head) and
-// their rope partners D/2 away.
+// Pass 2: q rows, then k rows, rope'd at scale 1 (products and sum
+// rounded apart, as prep_row), rounded to bf16 and quantized with their
+// (batch, head) scale (quant_i8). A thread takes dims [8c, 8c + 8) of one
+// (row, head) and their rope partners D/2 away.
 template <int D>
 __global__ void __launch_bounds__(I8_THREADS) prep_rows_i8_kernel(I8Prep a) {
   constexpr int TPR = D / 16, HALF = D / 2;
-  const size_t n_q = a.x8[0] ? size_t(a.B) * a.N[0] * a.H * TPR : 0;
+  const size_t n_q = size_t(a.B) * a.N[0] * a.H * TPR;
   size_t t = size_t(blockIdx.x) * I8_THREADS + threadIdx.x;
   const int side = t >= n_q;
   if (side) t -= n_q;
@@ -360,249 +343,14 @@ __global__ void __launch_bounds__(I8_THREADS) prep_rows_i8_kernel(I8Prep a) {
   *reinterpret_cast<uint2*>(dst + base + HALF) = quant8(x2, inv);
 }
 
-template <int D, bool STATIC, bool INT8>
-__global__ void __launch_bounds__(NTHREAD) flash_fwd_kernel(ParamsOf<INT8> p) {
-  static_assert(!INT8 || D == 128,
-                "int8 at head dims 32 and 64 runs flash_fwd_sm90");
-  constexpr int LD = D + 8;          // bf16 tile row stride (conflict-free)
-  constexpr int LDB = D + 16;        // int8 tile row stride in bytes
-  constexpr int KS = INT8 ? D / 32 : D / 16;   // k-steps of QK^T
-  constexpr int NT = BK / 8;         // 8-key n-tiles of S
-  constexpr int DT = D / 8;          // 8-dim n-tiles of O
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + BQ * LD;                   // bf16 K tile, or
-  __nv_bfloat16* Vs = Ks + BK * LD;
-  int8_t* K8 = reinterpret_cast<int8_t*>(Ks);         // the int8 K tile
-  int8_t* Q8 = reinterpret_cast<int8_t*>(Vs + BK * LD);   // int8 q tile
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;   // mma fragment coordinates
+// flash_fwd_sm90 launches since the library loaded, counted where the
+// kernel is launched. Read by flash_fwd_design_launches.
+std::atomic<long long> fwd_launches{0};
 
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * BQ;
-
-  // q tile: load, prepare in place (one warp per row; int8: quantized into
-  // Q8), then keep this warp's 16 rows as A fragments in registers for the
-  // whole key sweep.
-  load_tile<D, NTHREAD>(Qs, p.q, b, h, p.H, p.Nq, q0, p.Nq);
-  __syncthreads();
-  const float *ln_g = nullptr, *ln_b = nullptr;   // int8: no LN, rope at
-  float ln_eps = 0.f, q_scale = 1.f, inv_q = 0.f, sc2 = 0.f;   // scale 1
-  if constexpr (INT8) {
-    inv_q = p.scales[bh];
-    sc2 = p.scales[2 * gridDim.y + bh];
-  } else {
-    ln_g = p.ln_g;
-    ln_b = p.ln_b;
-    ln_eps = p.ln_eps;
-    q_scale = p.q_scale;
-  }
-  for (int r = warp; r < BQ; r += NWARP) {
-    const int n = q0 + r;
-    __nv_bfloat16* row = Qs + r * LD + lane * (D / 32);
-    float x[D / 32];
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j) x[j] = __bfloat162float(row[j]);
-    const bool changed = prep_row<D>(x, lane, min(n, p.Nq - 1), ln_g, ln_b,
-                                     ln_eps, p.cos_q, p.sin_q, q_scale);
-    if constexpr (INT8) {
-      int8_t* row8 = Q8 + r * LDB + lane * (D / 32);
-#pragma unroll
-      for (int j = 0; j < D / 32; ++j) row8[j] = quant_i8(x[j], inv_q);
-    } else if (changed) {
-#pragma unroll
-      for (int j = 0; j < D / 32; ++j) row[j] = __float2bfloat16(x[j]);
-    }
-  }
-  __syncthreads();
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    if constexpr (INT8) load_a8<LDB>(qa[ks], Q8, warp * 16, ks * 32, lane);
-    else load_a<LD>(qa[ks], Qs, warp * 16, ks * 16, lane);
-  }
-
-  float o[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  // rows g and g + 8 of this warp's 16; l is this lane's partial row sum
-  float m_lo = STATIC ? p.smax[bh] : NEG_INF, m_hi = m_lo;
-  float l_lo = 0.f, l_hi = 0.f;
-  const int vl = min(p.valid_len, p.Nk);
-  const int ntiles = (vl + BK - 1) / BK;
-
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int k0 = tile * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    if constexpr (INT8)
-      load_tile_i8<D, NTHREAD>(K8, p.k, b, h, p.H, p.Nk, k0, p.Nk);
-    else
-      load_tile<D, NTHREAD>(Ks, p.k, b, h, p.H, p.Nk, k0, p.Nk);
-    load_tile<D, NTHREAD>(Vs, p.v, b, h, p.H, p.Nk, k0, vl);
-    __syncthreads();
-
-    // S = Q_w K^T: 16 x 64 per warp in NT accumulator fragments.
-    float s[NT][4];
-    if constexpr (INT8) {
-      int acc[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          uint32_t kb[4];
-          load_bt8<LDB>(kb, K8, j * 8, ks * 32, lane);
-          mma_s8(acc[j], qa[ks], kb[0], kb[1]);
-          mma_s8(acc[j + 1], qa[ks], kb[2], kb[3]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] = __fmul_rn(static_cast<float>(acc[j][e]), sc2);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          uint32_t kb[4];
-          load_bt<LD>(kb, Ks, j * 8, ks * 16, lane);
-          mma_bf16(s[j], qa[ks], kb[0], kb[1]);
-          mma_bf16(s[j + 1], qa[ks], kb[2], kb[3]);
-        }
-      }
-    }
-
-    // Bias, mask, softmax shift.
-    float mx_lo = NEG_INF, mx_hi = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        float v = s[j][e];
-        if (col < vl) {
-          if (p.kv_bias != nullptr) v += p.kv_bias[col] * LOG2E;
-        } else {
-          v = NEG_INF;
-        }
-        s[j][e] = v;
-      }
-      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
-    }
-    if (!STATIC) {
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-      }
-      const float n_lo = fmaxf(m_lo, mx_lo), n_hi = fmaxf(m_hi, mx_hi);
-      const float c_lo = exp2f(m_lo - n_lo), c_hi = exp2f(m_hi - n_hi);
-      m_lo = n_lo;
-      m_hi = n_hi;
-      l_lo *= c_lo;
-      l_hi *= c_hi;
-#pragma unroll
-      for (int i = 0; i < DT; ++i) {
-        o[i][0] *= c_lo;
-        o[i][1] *= c_lo;
-        o[i][2] *= c_hi;
-        o[i][3] *= c_hi;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = exp2f(s[j][0] - m_lo);
-      s[j][1] = exp2f(s[j][1] - m_lo);
-      s[j][2] = exp2f(s[j][2] - m_hi);
-      s[j][3] = exp2f(s[j][3] - m_hi);
-      l_lo += s[j][0] + s[j][1];
-      l_hi += s[j][2] + s[j][3];
-    }
-
-    // O += P V: P repacked from the S fragments into bf16 A fragments.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int i = 0; i < DT; i += 2) {
-        uint32_t vb[4];
-        load_b<LD>(vb, Vs, kk * 16, i * 8, lane);
-        mma_bf16(o[i], pa, vb[0], vb[1]);
-        mma_bf16(o[i + 1], pa, vb[2], vb[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float d_lo = fmaxf(l_lo, 1e-30f), d_hi = fmaxf(l_hi, 1e-30f);
-  const int n_lo = q0 + warp * 16 + g, n_hi = n_lo + 8;
-  if (p.m_out != nullptr && t == 0) {
-    const size_t row = size_t(bh) * p.Nq;
-    if (n_lo < p.Nq) {
-      p.m_out[row + n_lo] = m_lo;
-      p.l_out[row + n_lo] = l_lo;
-    }
-    if (n_hi < p.Nq) {
-      p.m_out[row + n_hi] = m_hi;
-      p.l_out[row + n_hi] = l_hi;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < DT; ++i) {
-    const int d = i * 8 + 2 * t;
-    if (n_lo < p.Nq) {
-      __nv_bfloat162 v = __floats2bfloat162_rn(o[i][0] / d_lo, o[i][1] / d_lo);
-      *reinterpret_cast<__nv_bfloat162*>(
-          p.o + ((size_t(b) * p.Nq + n_lo) * p.H + h) * D + d) = v;
-    }
-    if (n_hi < p.Nq) {
-      __nv_bfloat162 v = __floats2bfloat162_rn(o[i][2] / d_hi, o[i][3] / d_hi);
-      *reinterpret_cast<__nv_bfloat162*>(
-          p.o + ((size_t(b) * p.Nq + n_hi) * p.H + h) * D + d) = v;
-    }
-  }
-}
-
-// Forward launches by design since the library loaded, counted where each
-// kernel is launched: [0] flash_fwd_kernel (mma.sync), [1] flash_fwd_sm90
-// (TMA + wgmma). Read by flash_fwd_design_launches.
-std::atomic<long long> fwd_launches[2];
-
-inline int counted_launch(int design) {
+inline int counted_launch() {
   const int err = int(cudaGetLastError());
-  if (err == 0) fwd_launches[design].fetch_add(1, std::memory_order_relaxed);
+  if (err == 0) fwd_launches.fetch_add(1, std::memory_order_relaxed);
   return err;
-}
-
-template <int D, bool STATIC, bool INT8>
-int launch(const ParamsOf<INT8>& p, int B, cudaStream_t stream) {
-  const size_t bytes = size_t(BQ + 2 * BK) * (D + 8) * 2 +
-                       (INT8 ? size_t(BQ) * (D + 16) : 0);
-  static std::atomic<uint64_t> attr_set{0};
-  int dev = 0;
-  const int err = smem_limit_once(flash_fwd_kernel<D, STATIC, INT8>,
-                                  int(bytes), attr_set, &dev);
-  if (err != 0) return err;
-  const dim3 grid((p.Nq + BQ - 1) / BQ, B * p.H);
-  flash_fwd_kernel<D, STATIC, INT8><<<grid, NTHREAD, bytes, stream>>>(p);
-  return counted_launch(0);
 }
 
 template <int D>
@@ -629,8 +377,7 @@ int launch_i8_prepass(const I8Prep& a, bool quantize, cudaStream_t stream) {
                         I8_THREADS, 0, stream>>>(a);
   err = int(cudaGetLastError());
   if (err != 0 || !quantize) return err;
-  const size_t threads =
-      (size_t(a.x8[0] ? a.N[0] : 0) + a.N[1]) * BH * (D / 16);
+  const size_t threads = (size_t(a.N[0]) + a.N[1]) * BH * (D / 16);
   prep_rows_i8_kernel<D><<<(threads + I8_THREADS - 1) / I8_THREADS,
                            I8_THREADS, 0, stream>>>(a);
   return int(cudaGetLastError());
@@ -638,20 +385,18 @@ int launch_i8_prepass(const I8Prep& a, bool quantize, cudaStream_t stream) {
 
 }  // namespace
 
-// flash_fwd_sm90: needs Params, launch_prep and counted_launch
+// flash_fwd_sm90: needs Params, ParamsI8, launch_prep and counted_launch
 #include "flash_sm90.cuh"
 
 namespace {
 
-// D = 32 and 64 run flash_sm90.cuh (int8: on q8, q quantized by the
-// pre-pass); D = 128 (the camera trunk, 4-18 tokens, where the call's
-// fixed cost and not the kernel sets the time) runs flash_fwd_kernel.
+// Every head dim runs flash_sm90.cuh (int8: on q and k quantized by the
+// pre-pass).
 template <bool STATIC, bool INT8>
-int launch_dim(const ParamsOf<INT8>& p, int B, int D, cudaStream_t stream,
-               const int8_t* q8 = nullptr) {
-  if (D == 64) return launch_sm90<64, STATIC, INT8>(p, B, stream, q8);
-  if (D == 32) return launch_sm90<32, STATIC, INT8>(p, B, stream, q8);
-  return launch<128, STATIC, INT8>(p, B, stream);
+int launch_dim(const ParamsOf<INT8>& p, int B, int D, cudaStream_t stream) {
+  if (D == 64) return launch_sm90<64, STATIC, INT8>(p, B, stream);
+  if (D == 32) return launch_sm90<32, STATIC, INT8>(p, B, stream);
+  return launch_sm90<128, STATIC, INT8>(p, B, stream);
 }
 
 bool bad_shape(int D, const void* m_out, const void* l_out) {
@@ -713,7 +458,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 }
 
 // work: one int8 buffer of B H D (Nq + Nk) + 4 (2 B H + 1) bytes: q8 (q
-// quantized; unused at D = 128), k8, then the pre-pass's counters. scales:
+// quantized), k8, then the pre-pass's counters. scales:
 // the (3, B*H) f32 scales of ParamsI8, which the pre-pass writes; dq: the
 // dequant constant log2(e) / sqrt(D) / 127^2.
 I8Prep i8_prep_args(const void* q, const void* k, void* work, int B, int H,
@@ -725,7 +470,7 @@ I8Prep i8_prep_args(const void* q, const void* k, void* work, int B, int H,
   I8Prep a;
   a.x[0] = static_cast<const __nv_bfloat16*>(q);
   a.x[1] = static_cast<const __nv_bfloat16*>(k);
-  a.x8[0] = D == 128 ? nullptr : w;
+  a.x8[0] = w;
   a.x8[1] = w + row * Nq;
   a.cos_t[0] = static_cast<const float*>(cos_q);
   a.sin_t[0] = static_cast<const float*>(sin_q);
@@ -766,7 +511,7 @@ int dispatch_i8(const void* q, const void* k, const void* v, void* o,
   const int err = launch_i8_prepass_dim(a, D, true, st);
   if (err != 0) return err;
   ParamsI8 p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.q = a.x8[0];
   p.k = a.x8[1];
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
@@ -776,12 +521,10 @@ int dispatch_i8(const void* q, const void* k, const void* v, void* o,
   p.valid_len = valid_len;
   p.scales = a.scales;
   p.kv_bias = static_cast<const float*>(kv_bias);
-  p.cos_q = static_cast<const float*>(cos_q);
-  p.sin_q = static_cast<const float*>(sin_q);
   p.smax = static_cast<const float*>(smax);
   p.m_out = static_cast<float*>(m_out);
   p.l_out = static_cast<float*>(l_out);
-  return launch_dim<STATIC, true>(p, B, D, st, a.x8[0]);
+  return launch_dim<STATIC, true>(p, B, D, st);
 }
 
 }  // namespace
@@ -838,10 +581,9 @@ int flash_i8_scales(const void* q, const void* k, void* work, int B, int H,
   return launch_i8_prepass_dim(a, D, false, static_cast<cudaStream_t>(stream));
 }
 
-// out[0]: flash_fwd_kernel launches, out[1]: flash_fwd_sm90 launches.
+// out[0]: flash_fwd_sm90 launches.
 void flash_fwd_design_launches(long long* out) {
-  out[0] = fwd_launches[0].load(std::memory_order_relaxed);
-  out[1] = fwd_launches[1].load(std::memory_order_relaxed);
+  out[0] = fwd_launches.load(std::memory_order_relaxed);
 }
 
 const char* flash_error_string(int code) {

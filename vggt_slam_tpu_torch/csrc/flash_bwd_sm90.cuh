@@ -1,5 +1,5 @@
-// Hopper design of the bf16 flash-attention backward at head dims 32 and
-// 64: one kernel that computes what the TPU kernels _flash_bwd_dq_kernel
+// Hopper design of the bf16 flash-attention backward at head dims 32, 64
+// and 128: one kernel that computes what the TPU kernels _flash_bwd_dq_kernel
 // and _flash_bwd_dkv_kernel (vggt_slam_tpu/ops/attention.py:1106, :1138)
 // compute together, with the formula and roundings of the header of
 // flash_attention_bwd.cu, except that a p below 2^-126 before its
@@ -11,34 +11,44 @@
 // dV, dK, dQ; P is recomputed, never stored) and one exp2 per valid logit,
 // on ~(3 Nq + 2 Nk) D bf16 bytes, far above the H100's ridge: the tensor
 // cores at D = 64 (989 TFLOP/s, reached only through wgmma), the exp units
-// at D = 32 (~4.18e12 exp2/s). Splitting dq from dk/dv, as the TPU kernels
-// do, would compute S, dP and the exp twice.
+// at D = 32 (~4.18e12 exp2/s); at D = 128 (the camera trunk, 4-18 tokens,
+// one key tile) the bytes. Splitting dq from dk/dv, as the TPU kernels do,
+// would compute S, dP and the exp twice.
 //
-// Design (FlashAttention-3's backward). One CTA per (128-key tile, batch *
-// head); two consumer warpgroups, warpgroup w owning keys [64w, 64w + 64)
-// of the tile (wgmma's M), and one producer warpgroup that hands them its
-// registers (setmaxnreg).
+// Design (FlashAttention-3's backward). One CTA per (key tile, batch *
+// head); BwdCfg<D>::NW consumer warpgroups, warpgroup w owning keys [64w,
+// 64w + 64) of the tile (wgmma's M), and one producer warpgroup. At D = 32
+// and 64 two consumer warpgroups (128-key tiles), to which the producer
+// hands its registers (setmaxnreg: 40, 232, 232). At D = 128 one (64-key
+// tiles, 256 threads, up to 255 registers each): a consumer thread holds
+// dK and dV at 64 f32 each and S^T and dP^T at 32 each, which under two
+// consumer warpgroups' 168 registers spilled (1,280 bytes) and serialized
+// the wgmma; the camera trunk's 4-18 keys are one tile either way.
 // - Loads: one producer lane brings the tile's K and V once, then each
 //   64-row q tile's Q and dO (TMA, 4-D (D, H, N, B) maps of one head, so
 //   rows past N read as zeros) and its 768 bytes of row stats (m, w =
 //   1 / max(l, 1e-30) and delta, 0 past Nq, written by bwd_prep_kernel;
-//   one bulk copy) into a ring of BwdCfg<D>::STAGES slots with full and
-//   empty mbarriers. K's and V's maps end at valid_len; a key tile wholly
-//   past it loads nothing and stores exact zeros.
-// - Per q tile, each warpgroup: S^T = K Q^T and dP^T = V dO^T (wgmma
+//   one bulk copy) into a ring of BwdCfg<D>::STAGES (3) slots with full
+//   and empty mbarriers. K's and V's maps end at valid_len; a key tile
+//   wholly past it loads nothing and stores exact zeros. At D = 128 a
+//   256-byte row is two panels of 64 columns (sm90_common.cuh `panel`),
+//   one TMA box each.
+// - Per q tile, each consumer warpgroup: S^T = K Q^T and dP^T = V dO^T (wgmma
 //   m64n64k16, both operands K-major from shared memory); P^T and dL^T in
 //   registers (the one exp2 per logit; keys at or past valid_len give 0);
 //   dV += bf16(P^T) dO and dK += bf16(dL^T) Q (register A operand, Q and dO
-//   MN-major, as V in the forward's PV); dL^T stored once to shared memory
-//   as bf16, 128-byte rows of 64 queries in the 128-byte swizzle; then,
-//   after both warpgroups stored theirs, dQ = dL K over all 128 keys with
-//   both operands MN-major from shared memory (transpose bits), warpgroup w
-//   computing dims [w D / 2, (w + 1) D / 2). dL^T has two buffers, by the
-//   parity of the q tile: the other warpgroup's dQ of tile qt may still
-//   read buffer qt & 1 while this one writes tile qt + 1's, and the
+//   MN-major, as V in the forward's PV; one product per panel); dL^T
+//   stored once to shared memory as bf16, 128-byte rows of 64 queries in
+//   the 128-byte swizzle; then, after every warpgroup stored its own,
+//   dQ = dL K over all the tile's keys with both operands MN-major from
+//   shared memory (transpose bits), in halves of D / 2 dims (at D = 128
+//   one panel of K each): warpgroup w of two computes half w, the one
+//   warpgroup at D = 128 both, one after the other. dL^T has two buffers,
+//   by the parity of the q tile: the other warpgroup's dQ of tile qt may
+//   still read buffer qt & 1 while this one writes tile qt + 1's, and the
 //   barrier of tile qt + 1 orders both reads of it before tile qt + 2's
 //   writes.
-// - dq across key tiles: each warpgroup stores its f32 half of the dQ
+// - dq across key tiles: each warpgroup stores its f32 halves of the dQ
 //   tile to shared memory (two buffers) in the accumulator's layout
 //   (acc_off: the halves apart, 8-float chunks swizzled so that the stores
 //   are free of bank conflicts), and one of its threads adds it to the f32
@@ -56,25 +66,36 @@ namespace {
 
 using namespace flash;
 
-constexpr int BW_BK = 128;            // keys per CTA
 constexpr int BW_BQ = 64;             // q rows per tile
-constexpr int BW_THREADS = 384;       // 2 consumer warpgroups, 1 producer
 constexpr int BW_STATS = 3 * BW_BQ * 4;  // m, w, delta of one q tile
-constexpr int BW_DL = BW_BK * 128;    // dL^T: 128 keys x 64 bf16 queries
 
+// Shared memory of a CTA at head dim D with `bk` keys and a ring `stages`
+// deep: 1 KB of alignment slack, K, V, two dL^T buffers (bk keys x 64 bf16
+// queries), the Q, dO and stats rings, two f32 dQ buffers, 2 barriers a
+// ring slot and one for K/V.
+__host__ __device__ constexpr size_t bwd_smem(int D, int bk, int stages) {
+  return 1024 + 2 * size_t(bk) * 2 * D + 2 * size_t(bk) * 128 +
+         stages * size_t(2 * BW_BQ * 2 * D + BW_STATS) + 2 * BW_BQ * D * 4 +
+         8 * (2 * stages + 1);
+}
+
+// What the head dim sets: the consumer warpgroups (64 keys each), the keys
+// and threads of a CTA, the tiles' bytes and the ring depth, 3 where it
+// fits.
 template <int D>
 struct BwdCfg {
-  static_assert(D == 32 || D == 64, "flash_bwd_sm90 takes D = 32 or 64");
+  static_assert(D == 32 || D == 64 || D == 128,
+                "flash_bwd_sm90 takes D = 32, 64 or 128");
+  static constexpr int NW = D == 128 ? 1 : 2;   // consumer warpgroups
+  static constexpr int BK = 64 * NW;            // keys per CTA
+  static constexpr int THREADS = 128 * (NW + 1);
   static constexpr int ROW = 2 * D;
-  static constexpr int KV = BW_BK * ROW;    // one K or V tile
+  static constexpr int KV = BK * ROW;       // one K or V tile
   static constexpr int QT = BW_BQ * ROW;    // one Q or dO tile
   static constexpr int DQ = BW_BQ * D * 4;  // one f32 dQ tile
-  static constexpr int STAGES = 3;
-  // 1 KB of alignment slack, K, V, two dL^T buffers, the Q, dO and stats
-  // rings, two dQ buffers, 2 barriers a ring slot and one for K/V.
-  static constexpr size_t SMEM = 1024 + 2 * KV + 2 * BW_DL +
-                                 STAGES * (2 * QT + BW_STATS) + 2 * DQ +
-                                 8 * (2 * STAGES + 1);
+  static constexpr int DL = BK * 128;       // one dL^T buffer
+  static constexpr int STAGES = bwd_smem(D, BK, 3) <= SM90_SMEM_MAX ? 3 : 2;
+  static constexpr size_t SMEM = bwd_smem(D, BK, STAGES);
 };
 
 struct BwdSm90 {
@@ -95,12 +116,12 @@ struct BwdSmem {
   static constexpr int S = C::STAGES;
   uint32_t k, v, dl, q, dout, st, dq, full, empty, kv_full;
   __device__ explicit BwdSmem(uint32_t base)
-      : k(base), v(k + C::KV), dl(v + C::KV), q(dl + 2 * BW_DL),
+      : k(base), v(k + C::KV), dl(v + C::KV), q(dl + 2 * C::DL),
         dout(q + S * C::QT), st(dout + S * C::QT), dq(st + S * BW_STATS),
         full(dq + 2 * C::DQ), empty(full + 8 * S), kv_full(empty + 8 * S) {}
 };
 
-// Floats of flash_bwd's scratch at D = 32 and 64: `work`, the q tiles' m,
+// Floats of flash_bwd's scratch: `work`, the q tiles' m,
 // w and delta rows (B*H, n_qt, 3, 64), and `acc`, the f32 dq accumulator
 // (B*H, n_qt, 64 * D).
 inline void bwd_sm90_scratch(int B, int H, int Nq, int D, long long* work,
@@ -111,7 +132,7 @@ inline void bwd_sm90_scratch(int B, int H, int Nq, int D, long long* work,
 }
 
 // Float offset of dims [8j, 8j + 8) of half `half` (dims [half D / 2,
-// (half + 1) D / 2), one consumer warpgroup's) of row r of a q tile in the
+// (half + 1) D / 2), one dQ product's) of row r of a q tile in the
 // dq accumulator: the halves apart, each 64 rows of D / 2 floats, and the
 // 8-float chunks of a row XOR-swizzled so that a warp's float2 stores to 8
 // rows hit distinct banks.
@@ -154,9 +175,10 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-// Both consumer warpgroups (named barrier 1).
+// The NW consumer warpgroups (named barrier 1).
+template <int NW>
 __device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, 256;" ::: "memory");
+  asm volatile("bar.sync 1, %0;" ::"n"(128 * NW) : "memory");
 }
 
 // Consumer warpgroup w alone (named barrier 2 + w).
@@ -192,7 +214,19 @@ __device__ __forceinline__ void wgmma_tt(float (&d)[4][4], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// The same at N = 16.
+// The same at N = 64 and at N = 16.
+__device__ __forceinline__ void wgmma_tt(float (&d)[8][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : SM90_F4(d, 0), SM90_F4(d, 1), SM90_F4(d, 2), SM90_F4(d, 3),
+        SM90_F4(d, 4), SM90_F4(d, 5), SM90_F4(d, 6), SM90_F4(d, 7)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 __device__ __forceinline__ void wgmma_tt(float (&d)[2][4], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
@@ -213,17 +247,20 @@ __device__ __forceinline__ void bwd_consume(const BwdSm90& P,
                                             const BwdSmem<D>& sm, int warp,
                                             int lane, bool sweep) {
   using C = BwdCfg<D>;
-  constexpr int S = C::STAGES, ROW = C::ROW;
+  constexpr int S = C::STAGES, ROW = C::ROW, BK = C::BK;
   constexpr int DT = D / 8;          // 8-dim n-tiles of dK and dV
   constexpr int QN = D / 16;         // 8-dim n-tiles of a half dQ tile
+  constexpr int NH = 2 / C::NW;      // dQ halves a warpgroup computes
   const int w = warp / 4, wi = warp % 4;    // warpgroup, warp within it
   const int g = lane / 4, t = lane % 4;     // fragment coordinates
   const int bh = blockIdx.y, b = bh / P.H, h = bh % P.H;
-  const int k0 = blockIdx.x * BW_BK;
+  const int k0 = blockIdx.x * BK;
   const int r_lo = 64 * w + 16 * wi + g;    // key rows of this thread
   const int key_lo = k0 + r_lo, key_hi = key_lo + 8;
   const bool ok_lo = key_lo < P.vl, ok_hi = key_hi < P.vl;
-  const uint32_t k_w = sm.k + w * 64 * ROW, v_w = sm.v + w * 64 * ROW;
+  // this warpgroup's 64 rows of K and V (in each panel)
+  const uint32_t k_w = at_row<ROW, BK>(sm.k, 64 * w, 0);
+  const uint32_t v_w = at_row<ROW, BK>(sm.v, 64 * w, 0);
   unsigned char* gen = base_ptr - sm.k;     // generic = gen + smem address
   float dk[DT][4], dv[DT][4];
 #pragma unroll
@@ -249,12 +286,12 @@ __device__ __forceinline__ void bwd_consume(const BwdSm90& P,
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks)   // 32 bytes of each row a step
-        wgmma_ss64(s, sw_desc<D>(k_w + ks * 32), sw_desc<D>(q_s + ks * 32),
-                   ks);
+        wgmma_ss64(s, sw_desc<D>(at_row<ROW, BK>(k_w, 0, ks * 32)),
+                   sw_desc<D>(at_row<ROW, BW_BQ>(q_s, 0, ks * 32)), ks);
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks)
-        wgmma_ss64(dp, sw_desc<D>(v_w + ks * 32), sw_desc<D>(do_s + ks * 32),
-                   ks);
+        wgmma_ss64(dp, sw_desc<D>(at_row<ROW, BK>(v_w, 0, ks * 32)),
+                   sw_desc<D>(at_row<ROW, BW_BQ>(do_s, 0, ks * 32)), ks);
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(s);
@@ -266,7 +303,7 @@ __device__ __forceinline__ void bwd_consume(const BwdSm90& P,
       // 16-byte chunk j.
       const float* st = reinterpret_cast<const float*>(
           gen + sm.st + slot * BW_STATS);
-      const uint32_t dl_s = sm.dl + (qt & 1) * BW_DL;
+      const uint32_t dl_s = sm.dl + (qt & 1) * C::DL;
       unsigned char* dl = gen + dl_s;
       uint32_t pa[4][4], la[4][4];
 #pragma unroll
@@ -302,55 +339,63 @@ __device__ __forceinline__ void bwd_consume(const BwdSm90& P,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv(dv, pa[kk], sw_desc<D>(do_s + kk * 16 * ROW));
+        wgmma_pv_rows<D, BW_BQ>(dv, pa[kk], do_s, kk * 16);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv(dk, la[kk], sw_desc<D>(q_s + kk * 16 * ROW));
+        wgmma_pv_rows<D, BW_BQ>(dk, la[kk], q_s, kk * 16);
       wgmma_commit();
 
-      // Both warpgroups' dL^T stored; the dQ buffer of this tile free (the
+      // Every warpgroup's dL^T stored; the dQ buffer of this tile free (the
       // bulk reduces two tiles ago done reading).
       fence_proxy_async();
       if (threadIdx.x % 128 == 0) bulk_wait_read<1>();
-      consumers_sync();
+      consumers_sync<C::NW>();
 
-      // dQ (64 queries x D / 2 dims) = dL K[:, half w], 16 keys a step.
-      float dq[QN][4];
-#pragma unroll
-      for (int j = 0; j < QN; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-      reg_fence(dq);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BW_BK / 16; ++kk)
-        wgmma_tt(dq, sw_desc<64>(dl_s + kk * 16 * 128),
-                 sw_desc<D>(sm.k + kk * 16 * ROW + w * D), kk);
-      wgmma_commit();
-      wgmma_wait<0>();
-      reg_fence(dq);
-      reg_fence(dk);
-      reg_fence(dv);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(sm.empty + 8 * slot);   // Q, dO, stats
-
-      // This warpgroup's half of the f32 dQ tile into its buffer, then one
-      // bulk reduce of it into the accumulator.
+      // This warpgroup's halves of dQ (64 queries x D / 2 dims each) = dL
+      // K[:, half], 16 keys a step, each stored to the tile's f32 buffer in
+      // the accumulator's layout; then one bulk reduce of them into the
+      // accumulator.
       const uint32_t dq_s = sm.dq + (qt & 1) * C::DQ;
       float* dqb = reinterpret_cast<float*>(gen + dq_s);
 #pragma unroll
-      for (int j = 0; j < QN; ++j) {
-        const int r = 16 * wi + g;
-        *reinterpret_cast<float2*>(dqb + acc_off<D>(r, w, j) + 2 * t) =
-            make_float2(dq[j][0], dq[j][1]);
-        *reinterpret_cast<float2*>(dqb + acc_off<D>(r + 8, w, j) + 2 * t) =
-            make_float2(dq[j][2], dq[j][3]);
+      for (int i = 0; i < NH; ++i) {
+        const int half = w * NH + i;
+        const uint32_t k_half = at_row<ROW, BK>(sm.k, 0, half * D);
+        float dq[QN][4];
+#pragma unroll
+        for (int j = 0; j < QN; ++j)
+          dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+        reg_fence(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_tt(dq, sw_desc<64>(dl_s + kk * 16 * 128),
+                   sw_desc<D>(k_half + kk * 16 * panel(ROW)), kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(dq);
+        reg_fence(dk);
+        reg_fence(dv);
+        if (i == NH - 1) {   // every read of the Q, dO and stats slot done
+          __syncwarp();
+          if (lane == 0) mbar_arrive(sm.empty + 8 * slot);
+        }
+#pragma unroll
+        for (int j = 0; j < QN; ++j) {
+          const int r = 16 * wi + g;
+          *reinterpret_cast<float2*>(dqb + acc_off<D>(r, half, j) + 2 * t) =
+              make_float2(dq[j][0], dq[j][1]);
+          *reinterpret_cast<float2*>(dqb + acc_off<D>(r + 8, half, j) +
+                                     2 * t) = make_float2(dq[j][2], dq[j][3]);
+        }
       }
       fence_proxy_async();
       warpgroup_sync(w);
       if (threadIdx.x % 128 == 0) {
-        const int half = acc_off<D>(0, w, 0);
+        const int first = acc_off<D>(0, w * NH, 0);
         bulk_reduce_add(P.dq_acc + (size_t(bh) * P.n_qt + qt) * BW_BQ * D +
-                            half,
-                        dq_s + 4 * half, C::DQ / 2);
+                            first,
+                        dq_s + 4 * first, C::DQ / 2 * NH);
         bulk_commit();
       }
     }
@@ -381,59 +426,63 @@ __device__ __forceinline__ void bwd_consume(const BwdSm90& P,
 
 // Grid (key tiles, B * H).
 template <int D>
-__global__ void __launch_bounds__(BW_THREADS, 1)
+__global__ void __launch_bounds__(BwdCfg<D>::THREADS, 1)
     flash_bwd_sm90(const __grid_constant__ BwdSm90 P) {
   using C = BwdCfg<D>;
-  constexpr int S = C::STAGES;
+  constexpr int S = C::STAGES, NW = C::NW;
   extern __shared__ unsigned char bw_raw[];
   const uint32_t raw = smem_addr(bw_raw);
   // 1 KB aligned, as the 128B swizzle's 8-row atom (64B: 512 bytes)
   const BwdSmem<D> sm((raw + 1023) & ~1023u);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int k0 = blockIdx.x * BW_BK;
+  const int k0 = blockIdx.x * C::BK;
   const bool sweep = k0 < P.vl;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
       mbar_init(sm.full + 8 * i, 1);
-      mbar_init(sm.empty + 8 * i, 8);     // one arrival per consumer warp
+      mbar_init(sm.empty + 8 * i, 4 * NW);   // one arrival a consumer warp
     }
     mbar_init(sm.kv_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (warp >= 8) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (warp == 8 && lane == 0 && sweep) {   // one lane issues every load
+  // Two consumer warpgroups take the producer's registers (128 threads
+  // each at 40, 232 and 232); one has 255 without.
+  if (warp >= 4 * NW) {
+    if constexpr (NW == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 4 * NW && lane == 0 && sweep) {   // one lane issues the loads
       const int bh = blockIdx.y, b = bh / P.H, h = bh % P.H;
       mbar_expect_tx(sm.kv_full, 2 * C::KV);
-      tma_load(sm.k, &P.tk, sm.kv_full, h, k0, b);
-      tma_load(sm.v, &P.tv, sm.kv_full, h, k0, b);
+      tma_load_tile<D, C::BK>(sm.k, &P.tk, sm.kv_full, h, k0, b);
+      tma_load_tile<D, C::BK>(sm.v, &P.tv, sm.kv_full, h, k0, b);
       for (int qt = 0; qt < P.n_qt; ++qt) {
         const int i = qt % S;
         if (qt >= S) mbar_wait(sm.empty + 8 * i, ((qt / S) & 1) ^ 1);
         mbar_expect_tx(sm.full + 8 * i, 2 * C::QT + BW_STATS);
-        tma_load(sm.q + i * C::QT, &P.tq, sm.full + 8 * i, h, qt * BW_BQ, b);
-        tma_load(sm.dout + i * C::QT, &P.tdo, sm.full + 8 * i, h,
-                 qt * BW_BQ, b);
+        tma_load_tile<D, BW_BQ>(sm.q + i * C::QT, &P.tq, sm.full + 8 * i, h,
+                                qt * BW_BQ, b);
+        tma_load_tile<D, BW_BQ>(sm.dout + i * C::QT, &P.tdo, sm.full + 8 * i,
+                                h, qt * BW_BQ, b);
         bulk_load(sm.st + i * BW_STATS,
                   P.work + (size_t(bh) * P.n_qt + qt) * (BW_STATS / 4),
                   BW_STATS, sm.full + 8 * i);
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    if constexpr (NW == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     bwd_consume<D>(P, bw_raw + (sm.k - raw), sm, warp, lane, sweep);
   }
 }
 
 // delta = rowsum(dO * O) of each (b, n, h) row, D / 8 lanes a row at 16
-// bytes each. TILED (flash_bwd_sm90): the rows' m, w = 1 / max(l, 1e-30)
-// and delta into `work` as (B*H, n_qt, 3, 64), zeros for the rows in [Nq,
-// n_qt * 64); the threads also zero `acc` (n4 float4s). Else delta alone
-// into `work` as (B*H, Nq).
-template <int D, bool TILED>
+// bytes each, and the rows' m, w = 1 / max(l, 1e-30) and delta into `work`
+// as (B*H, n_qt, 3, 64), zeros for the rows in [Nq, n_qt * 64); the
+// threads also zero `acc` (n4 float4s).
+template <int D>
 __global__ void bwd_prep_kernel(const __nv_bfloat16* dout,
                                 const __nv_bfloat16* out, const float* m,
                                 const float* l, float* work, float4* acc,
@@ -442,7 +491,7 @@ __global__ void bwd_prep_kernel(const __nv_bfloat16* dout,
   const size_t gid = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
   for (size_t i = gid; i < n4; i += size_t(gridDim.x) * blockDim.x)
     acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int rows = TILED ? n_qt * BW_BQ : Nq;   // rows per (b, h)
+  const int rows = n_qt * BW_BQ;   // rows per (b, h)
   const size_t row = gid / LPR;
   const int part = int(gid % LPR);
   const int h = int(row % H);
@@ -467,10 +516,6 @@ __global__ void bwd_prep_kernel(const __nv_bfloat16* dout,
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (part != 0 || b >= B) return;
   const size_t bhn = size_t(b * H + h);
-  if (!TILED) {
-    work[bhn * Nq + n] = sum;
-    return;
-  }
   float* t = work + (bhn * n_qt + n / BW_BQ) * (BW_STATS / 4) + n % BW_BQ;
   t[0] = in ? m[bhn * Nq + n] : 0.f;
   t[BW_BQ] = in ? 1.f / fmaxf(l[bhn * Nq + n], 1e-30f) : 0.f;
@@ -500,17 +545,16 @@ __global__ void bwd_dq_kernel(const float* acc, __nv_bfloat16* dq, int B,
   *reinterpret_cast<uint4*>(dq + row * D + d) = o;
 }
 
-template <int D, bool TILED>
+template <int D>
 int launch_bwd_prep(const __nv_bfloat16* dout, const __nv_bfloat16* out,
                     const float* m, const float* l, float* work, float* acc,
                     int B, int H, int Nq, int n_qt, cudaStream_t stream) {
-  const size_t rows = size_t(B) * H * (TILED ? n_qt * BW_BQ : Nq);
+  const size_t rows = size_t(B) * H * n_qt * BW_BQ;
   const size_t threads = rows * (D / 8);
-  const size_t n4 = TILED ? size_t(B) * H * n_qt * BW_BQ * D / 4 : 0;
-  bwd_prep_kernel<D, TILED><<<unsigned((threads + 255) / 256), 256, 0,
-                              stream>>>(dout, out, m, l, work,
-                                        reinterpret_cast<float4*>(acc), n4,
-                                        B, H, Nq, n_qt);
+  const size_t n4 = rows * D / 4;
+  bwd_prep_kernel<D><<<unsigned((threads + 255) / 256), 256, 0, stream>>>(
+      dout, out, m, l, work, reinterpret_cast<float4*>(acc), n4, B, H, Nq,
+      n_qt);
   return int(cudaGetLastError());
 }
 
@@ -522,16 +566,16 @@ int launch_bwd_sm90(const void* q, const void* k, const void* v,
                     void* dq, void* dk, void* dv, int B, int H, int Nq,
                     int Nk, int valid_len, float c_scale, float inv_sqrt_d,
                     cudaStream_t stream) {
-  constexpr size_t SMEM = BwdCfg<D>::SMEM;
+  using C = BwdCfg<D>;
   BwdSm90 P{};
   P.vl = valid_len < Nk ? valid_len : Nk;
   P.n_qt = (Nq + BW_BQ - 1) / BW_BQ;
   int err = encode_heads<D>(&P.tq, q, B, Nq, Nq, H, BW_BQ);
   if (err == 0) err = encode_heads<D>(&P.tdo, dout, B, Nq, Nq, H, BW_BQ);
   if (err == 0 && P.vl > 0)
-    err = encode_heads<D>(&P.tk, k, B, Nk, P.vl, H, BW_BK);
+    err = encode_heads<D>(&P.tk, k, B, Nk, P.vl, H, C::BK);
   if (err == 0 && P.vl > 0)
-    err = encode_heads<D>(&P.tv, v, B, Nk, P.vl, H, BW_BK);
+    err = encode_heads<D>(&P.tv, v, B, Nk, P.vl, H, C::BK);
   if (err != 0) return err;
   P.work = work;
   P.dq_acc = acc;
@@ -543,10 +587,10 @@ int launch_bwd_sm90(const void* q, const void* k, const void* v,
   P.inv_sqrt_d = inv_sqrt_d;
   static std::atomic<uint64_t> attr_set{0};
   int dev = 0;
-  err = smem_limit_once(flash_bwd_sm90<D>, int(SMEM), attr_set, &dev);
+  err = smem_limit_once(flash_bwd_sm90<D>, int(C::SMEM), attr_set, &dev);
   if (err != 0) return err;
-  const dim3 grid((Nk + BW_BK - 1) / BW_BK, B * H);
-  flash_bwd_sm90<D><<<grid, BW_THREADS, SMEM, stream>>>(P);
+  const dim3 grid((Nk + C::BK - 1) / C::BK, B * H);
+  flash_bwd_sm90<D><<<grid, C::THREADS, C::SMEM, stream>>>(P);
   err = int(cudaGetLastError());
   if (err != 0) return err;
   const size_t threads = size_t(B) * Nq * H * (D / 8);

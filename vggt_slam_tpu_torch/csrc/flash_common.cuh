@@ -1,5 +1,7 @@
-// mma.sync fragment helpers shared by the flash-attention forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu) kernels.
+// Helpers shared by the port's kernels: the launch attributes, bf16
+// packing and int8 rounding of the flash-attention kernels, and the
+// mma.sync fragment helpers of the DPT tail (dpt_tail.cu) and the probes
+// (bench_*.cu, global_probe.cuh).
 //
 // Conventions of mma.sync m16n8k16 (row.col, bf16 in, f32 accumulate), with
 // g = lane / 4 and t = lane % 4:
@@ -180,26 +182,6 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
           src + ((size_t(b) * N + n) * H + h) * D + c * 8);
     }
     *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
-}
-
-// load_tile for a packed (B, N, H*D) int8 tensor into a byte tile of row
-// stride D + 16.
-template <int D, int NTHREAD>
-__device__ __forceinline__ void load_tile_i8(int8_t* dst, const int8_t* src,
-                                             int b, int h, int H, int N,
-                                             int row0, int limit) {
-  constexpr int VEC = D / 16;
-  constexpr int LDB = D + 16;
-  for (int i = threadIdx.x; i < 64 * VEC; i += NTHREAD) {
-    const int r = i / VEC, c = i % VEC;
-    const int n = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (n < limit) {
-      val = *reinterpret_cast<const uint4*>(
-          src + ((size_t(b) * N + n) * H + h) * D + c * 16);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDB + c * 16) = val;
   }
 }
 

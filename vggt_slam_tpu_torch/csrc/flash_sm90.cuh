@@ -1,11 +1,10 @@
-// Hopper design of the flash-attention forward at head dims 32 and 64, the
-// route of flash_single_fwd and flash_multi_fwd (bf16 QK^T) and of
-// flash_single_i8_fwd and flash_multi_i8_fwd (int8 QK^T, I8) at D = 32 or
-// 64 (launch_dim in flash_attention.cu). Included by flash_attention.cu
-// after Params, ParamsI8 and launch_prep; it computes what
-// flash_fwd_kernel<D, STATIC, I8> computes (the formula in that file's
-// header), the same roundings in the same places, except that a softmax
-// weight below 2^-126 flushes to zero (ex2, sm90_common.cuh).
+// Hopper design of the flash-attention forward, the route of
+// flash_single_fwd and flash_multi_fwd (bf16 QK^T) and of
+// flash_single_i8_fwd and flash_multi_i8_fwd (int8 QK^T, I8) at every head
+// dim, 32, 64 and 128 (launch_dim in flash_attention.cu). Included by
+// flash_attention.cu after Params, ParamsI8 and launch_prep; it computes
+// the formula in that file's header, with prep_row's roundings, and a
+// softmax weight below 2^-126 flushes to zero (ex2, sm90_common.cuh).
 //
 // What bounds it: at the main-path shapes ~4 Nq Nk D flops per head on
 // ~(Nq + 2 Nk) D bf16 bytes, above the H100's ridge, so the tensor cores
@@ -14,41 +13,48 @@
 // logit against the exp2's 2.39e-13, at D = 32 half that, so there the
 // exp units bound it, 1.85x the tensor cores' time. The schedule below
 // keeps them busy: the softmax of one tile overlaps the products of the
-// previous one and of the other warpgroup.
+// previous one and of the other warpgroup. At D = 128 (the camera trunk,
+// 4-18 tokens) the bytes bound it, and a call is one tile per (batch,
+// head).
 //
-// Design (the same for both head dims; D sets the row width, the swizzle
-// and PV's N). A persistent grid of one CTA per SM; a work item is a
-// (128-row q tile, batch * head). A CTA has two consumer warpgroups, warpgroup w
-// owning q rows [64w, 64w + 64) (wgmma's M) and warp i rows [16i, 16i +
-// 16), and one producer warpgroup that hands them its registers
-// (setmaxnreg).
+// Design (the same for every head dim; D sets the row width, the swizzle,
+// the panels and PV's N). A persistent grid of one CTA per SM; a work item
+// is a (128-row q tile, batch * head). A CTA has two consumer warpgroups,
+// warpgroup w owning q rows [64w, 64w + 64) (wgmma's M) and warp i rows
+// [16i, 16i + 16), and one producer warpgroup that hands them its
+// registers (setmaxnreg).
 // - Loads: one producer lane brings each item's Q tile into one of two Q
 //   buffers and its K and V tiles of SM90_BK keys into a ring of
-//   Sm90Cfg<D>::STAGES slots by TMA (cp.async.bulk.tensor), running ahead across
-//   items, so the next item's loads overlap this one's sweep and epilogue.
-//   The tensor maps are 4-D, (D, H, N, B) with a box of one head, so rows
-//   past N arrive as zeros and never as the next batch's rows; K's and V's
-//   maps end at valid_len, so masked V rows are exact zeros. kv_bias comes
-//   with its K tile through a 1-D map, so the softmax reads it from shared
-//   memory (L1 stays free for the rope tables). Every buffer
+//   Sm90Cfg::STAGES slots by TMA (cp.async.bulk.tensor), running ahead
+//   across items, so the next item's loads overlap this one's sweep and
+//   epilogue. The tensor maps are 4-D, (D, H, N, B) with a box of one head,
+//   so rows past N arrive as zeros and never as the next batch's rows; K's
+//   and V's maps end at valid_len, so masked V rows are exact zeros.
+//   kv_bias comes with its K tile through a 1-D map, so the softmax reads
+//   it from shared memory (L1 stays free for the rope tables). Every buffer
 //   has a "full" mbarrier (expect_tx of its bytes) and an "empty" one that
 //   the eight consumer warps arrive on after their last read of it, on
 //   which the producer waits before it refills it. A tile row is D bf16:
 //   128 bytes at D = 64, loaded with the 128-byte swizzle, 64 bytes at
-//   D = 32 with the 64-byte one; each is wgmma's layout of that swizzle.
+//   D = 32 with the 64-byte one; each is wgmma's layout of that swizzle. At
+//   D = 128 a 256-byte row is wider than the 128-byte swizzle's atom and a
+//   TMA box, so a tile is two panels of 64 columns (sm90_common.cuh
+//   `panel`), one box each; the ring is 2 slots deep there (3 would take
+//   264,808 bytes of shared memory), the int8 route's 3.
 // - q with LN or rope is prepared before the kernel by prep_rows_kernel
 //   (prep_row: LN, rope with the softmax scale, bf16 rounds) into the
 //   output buffer, which the kernel loads Q from; without them the kernel
 //   scales its Q tile in place. Then fence.proxy.async and a warpgroup
 //   barrier hand it to wgmma.
 // - S = Q K^T: wgmma m64n128k16, both operands from shared memory
-//   (K-major), D / 16 k-steps, f32 accumulators in registers. Per warp the
-//   accumulator is mma.sync's m16n8 C layout repeated over the 16 key
-//   n-tiles, so the bias, mask and online or static softmax are
-//   flash_fwd_kernel's.
-// - O += P V: wgmma m64nDk16 with P as the register A operand (mma.sync's
-//   A layout, so P packs as before) and V from shared memory MN-major
-//   (transpose bit), 8 k-steps per tile.
+//   (K-major), D / 16 k-steps (at D = 128 four in each panel), f32
+//   accumulators in registers. Per warp the accumulator is mma.sync's m16n8
+//   C layout repeated over the 16 key n-tiles, so the bias, mask and online
+//   or static softmax act on fragments as FlashAttention-2's do.
+// - O += P V: wgmma m64nDk16 (at D = 128 two m64n64k16, one per panel of
+//   V) with P as the register A operand (mma.sync's A layout, so P packs
+//   from S's fragments) and V from shared memory MN-major (transpose bit),
+//   8 k-steps per tile.
 // - Pipeline: QK^T of tile t + 1 is issued before PV of tile t, and the
 //   softmax of tile t + 1 runs while PV of tile t is on the tensor cores;
 //   O is rescaled once PV(t) is done, then P(t + 1) is packed. The two
@@ -58,12 +64,12 @@
 //   rows masked at Nq; m and l where requested.
 // - int8 QK^T (I8): q and k arrive quantized by the int8 pre-pass
 //   (flash_attention.cu dispatch_i8), so Q and K tiles are int8 rows of D
-//   bytes (64-byte swizzle at D = 64, 32-byte at D = 32; V stays bf16).
-//   S = Q K^T runs on wgmma m64n128k32 s32.s8.s8 (both operands K-major, as
-//   PTX requires of 8-bit operands), D / 32 k-steps; the s32 accumulator
-//   has the f32 one's fragment layout, and each logit is its exact f32
-//   value times the (batch, head) dequant scale, rounded once, as
-//   flash_fwd_kernel does. The rest is the bf16 route's.
+//   bytes (128-byte swizzle at D = 128, 64-byte at D = 64, 32-byte at D =
+//   32; V stays bf16). S = Q K^T runs on wgmma m64n128k32 s32.s8.s8 (both
+//   operands K-major, as PTX requires of 8-bit operands), D / 32 k-steps;
+//   the s32 accumulator has the f32 one's fragment layout, and each logit
+//   is its exact f32 value times the (batch, head) dequant scale, rounded
+//   once. The rest is the bf16 route's.
 #pragma once
 
 #include "sm90_common.cuh"
@@ -77,23 +83,30 @@ constexpr int SM90_BK = 128;            // keys per tile
 constexpr int SM90_THREADS = 384;       // 2 consumer warpgroups, 1 producer
 constexpr int SM90_BIAS = SM90_BK * 4;  // bytes of one kv_bias tile
 
+// Shared memory of a CTA with Q and K tiles of qk_tile bytes, V tiles of
+// `tile` and a ring `stages` deep: 1 KB of alignment slack, two Q buffers,
+// the K, V and kv_bias rings, 3 barriers a ring slot and 2 a Q buffer.
+__host__ __device__ constexpr size_t sm90_smem(int qk_tile, int tile,
+                                              int stages) {
+  return 1024 + 2 * size_t(qk_tile) +
+         stages * size_t(qk_tile + tile + SM90_BIAS) + 8 * (3 * stages + 4);
+}
+
 // What the head dim and the QK^T type set: the bytes of a V row (D bf16)
 // and of a Q or K row (D bf16, or D int8 with I8) and of their 128-row
-// tiles, the swizzle (the row's width: 128B, 64B or 32B) and the ring
-// depth.
+// tiles, the swizzle (the panel row's width: 128B, 64B or 32B) and the ring
+// depth, 3 where it fits.
 template <int D, bool I8>
 struct Sm90Cfg {
-  static_assert(D == 32 || D == 64, "flash_fwd_sm90 takes D = 32 or 64");
+  static_assert(D == 32 || D == 64 || D == 128,
+                "flash_fwd_sm90 takes D = 32, 64 or 128");
   static constexpr int ROW = 2 * D;             // V
   static constexpr int QK_ROW = I8 ? D : 2 * D;
   static constexpr int TILE = 128 * ROW;
   static constexpr int QK_TILE = 128 * QK_ROW;
-  static constexpr int STAGES = 3;      // K/V ring depth
-  // 1 KB of alignment slack, two Q buffers, the K, V and kv_bias rings, 3
-  // barriers a ring slot and 2 a Q buffer.
-  static constexpr size_t SMEM = 1024 + 2 * QK_TILE +
-                                 STAGES * (QK_TILE + TILE + SM90_BIAS) +
-                                 8 * (3 * STAGES + 4);
+  static constexpr int STAGES =
+      sm90_smem(QK_TILE, TILE, 3) <= SM90_SMEM_MAX ? 3 : 2;
+  static constexpr size_t SMEM = sm90_smem(QK_TILE, TILE, STAGES);
 };
 
 template <bool I8>
@@ -248,9 +261,10 @@ __device__ __forceinline__ void consume(const ParamsSm90<I8>& P,
   using C = Sm90Cfg<D, I8>;
   constexpr int NT = SM90_BK / 8;    // 8-key n-tiles of S
   constexpr int DT = D / 8;          // 8-dim n-tiles of O
-  constexpr int S = C::STAGES, TILE = C::TILE, ROW = C::ROW;
+  constexpr int S = C::STAGES, TILE = C::TILE;
   constexpr int QK_TILE = C::QK_TILE, QK_ROW = C::QK_ROW;
-  constexpr int LPR = D / 2;         // lanes per q row (2 dims each)
+  constexpr int QK_PR = panel(QK_ROW);   // a Q or K panel row
+  constexpr int PAIRS = D / 2;       // bf16 pairs of a q row
   const auto& p = P.a;
   const int g = lane / 4, t = lane % 4;     // fragment coordinates
   const int vl = min(p.valid_len, p.Nk);
@@ -269,25 +283,28 @@ __device__ __forceinline__ void consume(const ParamsSm90<I8>& P,
     const int b = bh / p.H, h = bh % p.H;
     const int qb = it % 2;                    // Q buffer
     unsigned char* Qs = Q0 + qb * QK_TILE;
-    const uint32_t q_desc = sm.q + qb * QK_TILE + (warp / 4) * 64 * QK_ROW;
+    // this warpgroup's 64 rows of the Q buffer (in each panel)
+    const uint32_t q_w = at_row<QK_ROW, SM90_BQ>(sm.q + qb * QK_TILE,
+                                                 (warp / 4) * 64, 0);
     const int kv0 = it * ntiles;   // ring index of the item's first tile
     float sc2 = 0.f;               // int8: the (batch, head) dequant scale
     if constexpr (I8) sc2 = p.scales[2 * (P.items / P.n_qt) + bh];
 
     // q arrives prepared (launch_sm90; int8: quantized), or needs only the
-    // softmax scale, applied here in place: warp i its 16 rows, 32 / LPR
-    // rows at a time; lane l holds dims 2c, 2c + 1 of row l / LPR, c = l %
-    // LPR (16-byte chunk c / 4, bytes 4 (c % 4) within it), rounded to bf16
-    // as prep_row does. Each warpgroup reads only its own rows.
+    // softmax scale, applied here in place: warp i its 16 rows, D / 2 bf16
+    // pairs a row, lane l taking pairs l, l + 32, ... of them in row-major
+    // order (pair c: dims 2c, 2c + 1, bytes 4 (c % 4) of 16-byte chunk
+    // c / 4), rounded to bf16 as prep_row does. Each warpgroup reads only
+    // its own rows.
     mbar_wait(sm.q_full + 8 * qb, (it / 2) & 1);
     if constexpr (!I8) {
       if (p.q_scale != 1.f) {
 #pragma unroll
-        for (int i = 0; i < 16 * LPR / 32; ++i) {
-          const int r = warp * 16 + i * (32 / LPR) + lane / LPR;
-          const int c = lane % LPR;
+        for (int i = 0; i < 16 * PAIRS / 32; ++i) {
+          const int x = i * 32 + lane;
+          const int r = warp * 16 + x / PAIRS, c = x % PAIRS;
           auto* cell = reinterpret_cast<__nv_bfloat162*>(
-              Qs + swz<D>(r, c / 4) + (c % 4) * 4);
+              Qs + swz<D, SM90_BQ>(r, c / 4) + (c % 4) * 4);
           const float2 f = __bfloat1622float2(*cell);
           *cell = __floats2bfloat162_rn(f.x * p.q_scale, f.y * p.q_scale);
         }
@@ -313,8 +330,10 @@ __device__ __forceinline__ void consume(const ParamsSm90<I8>& P,
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < QK_ROW / 32; ++ks)   // 32 bytes of each row a step
-        wgmma_qk(acc, row_desc<QK_ROW>(q_desc + ks * 32),
-                 row_desc<QK_ROW>(sm.k + i * QK_TILE + ks * 32), ks);
+        wgmma_qk(acc, row_desc<QK_PR>(at_row<QK_ROW, SM90_BQ>(q_w, 0, ks * 32)),
+                 row_desc<QK_PR>(at_row<QK_ROW, SM90_BK>(sm.k + i * QK_TILE,
+                                                         0, ks * 32)),
+                 ks);
       wgmma_commit();
     };
     // The finished QK^T in s: int8's s32 logits, exact in f32, times sc2.
@@ -339,7 +358,7 @@ __device__ __forceinline__ void consume(const ParamsSm90<I8>& P,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < SM90_BK / 16; ++kk)   // 16 rows of V a step
-        wgmma_pv(o, pa[kk], sw_desc<D>(sm.v + i * TILE + kk * 16 * ROW));
+        wgmma_pv_rows<D, SM90_BK>(o, pa[kk], sm.v + i * TILE, kk * 16);
       wgmma_commit();
     };
     // p (in s) as bf16 A fragments: keys 16kk + 2t.. in n-tile 2kk, + 8 in
@@ -451,6 +470,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     flash_fwd_sm90(const __grid_constant__ ParamsSm90<I8> P) {
   using C = Sm90Cfg<D, I8>;
   constexpr int S = C::STAGES, TILE = C::TILE, QK_TILE = C::QK_TILE;
+  constexpr int QK_ESZ = I8 ? 1 : 2;
   const auto& p = P.a;
   extern __shared__ unsigned char sm90_raw[];
   const uint32_t raw = smem_addr(sm90_raw);
@@ -489,20 +509,22 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
         const int qb = it % 2;
         if (it >= 2) mbar_wait(sm.q_empty + 8 * qb, ((it / 2) & 1) ^ 1);
         mbar_expect_tx(sm.q_full + 8 * qb, QK_TILE);
-        tma_load(sm.q + qb * QK_TILE, &P.tq, sm.q_full + 8 * qb, h, q0, b);
+        tma_load_tile<D, SM90_BQ, QK_ESZ>(sm.q + qb * QK_TILE, &P.tq,
+                                          sm.q_full + 8 * qb, h, q0, b);
         for (int tile = 0; tile < ntiles; ++tile) {
           const int kv = it * ntiles + tile, i = kv % S;
           if (kv >= S) mbar_wait(sm.empty + 8 * i, ((kv / S) & 1) ^ 1);
           mbar_expect_tx(sm.full_k + 8 * i,
                          QK_TILE + (p.kv_bias ? SM90_BIAS : 0));
-          tma_load(sm.k + i * QK_TILE, &P.tk, sm.full_k + 8 * i, h,
-                   tile * SM90_BK, b);
+          tma_load_tile<D, SM90_BK, QK_ESZ>(sm.k + i * QK_TILE, &P.tk,
+                                            sm.full_k + 8 * i, h,
+                                            tile * SM90_BK, b);
           if (p.kv_bias != nullptr)
             tma_load_bias(sm.bias + i * SM90_BIAS, &P.tb, sm.full_k + 8 * i,
                           tile * SM90_BK);
           mbar_expect_tx(sm.full_v + 8 * i, TILE);
-          tma_load(sm.v + i * TILE, &P.tv, sm.full_v + 8 * i, h,
-                   tile * SM90_BK, b);
+          tma_load_tile<D, SM90_BK>(sm.v + i * TILE, &P.tv,
+                                    sm.full_v + 8 * i, h, tile * SM90_BK, b);
         }
       }
     }
@@ -532,26 +554,25 @@ int encode_bias(CUtensorMap* map, const float* ptr, int vl) {
 // bf16: q with LN or rope is prepared by prep_rows_kernel into the output
 // buffer, from which the kernel loads it: each work item reads its q rows
 // before it writes the same rows, and no item touches another's. int8
-// (I8): q8 is q quantized by the pre-pass, a buffer of q's shape (int8
+// (I8): a.q is q quantized by the pre-pass, a buffer of q's shape (int8
 // rows at half o's stride would overlap rows that other items write).
 template <int D, bool STATIC, bool I8>
-int launch_sm90(const ParamsOf<I8>& a, int B, cudaStream_t stream,
-                const int8_t* q8 = nullptr) {
+int launch_sm90(const ParamsOf<I8>& a, int B, cudaStream_t stream) {
   constexpr size_t SMEM = Sm90Cfg<D, I8>::SMEM;
   constexpr int QK_ESZ = I8 ? 1 : 2;
   ParamsSm90<I8> P{};
   P.a = a;
   const void* q = a.q;
-  if constexpr (I8) {
-    q = q8;
-  } else if (a.ln_g != nullptr || a.cos_q != nullptr) {
-    const int err = launch_prep<D>(a.q, a.o, B, a.Nq, a.H, a.ln_g, a.ln_b,
-                                   a.ln_eps, a.cos_q, a.sin_q, a.q_scale,
-                                   stream);
-    if (err != 0) return err;
-    q = P.a.q = a.o;
-    P.a.ln_g = P.a.ln_b = P.a.cos_q = P.a.sin_q = nullptr;
-    P.a.q_scale = 1.f;
+  if constexpr (!I8) {
+    if (a.ln_g != nullptr || a.cos_q != nullptr) {
+      const int err = launch_prep<D>(a.q, a.o, B, a.Nq, a.H, a.ln_g, a.ln_b,
+                                     a.ln_eps, a.cos_q, a.sin_q, a.q_scale,
+                                     stream);
+      if (err != 0) return err;
+      q = P.a.q = a.o;
+      P.a.ln_g = P.a.ln_b = P.a.cos_q = P.a.sin_q = nullptr;
+      P.a.q_scale = 1.f;
+    }
   }
   const int vl = a.valid_len < a.Nk ? a.valid_len : a.Nk;
   int err = encode_heads<D, QK_ESZ>(&P.tq, q, B, a.Nq, a.Nq, a.H, SM90_BQ);
@@ -572,7 +593,7 @@ int launch_sm90(const ParamsOf<I8>& a, int B, cudaStream_t stream,
   const int sms = sm_count(dev);
   const int grid = P.items < sms ? P.items : sms;
   kernel<<<grid, SM90_THREADS, SMEM, stream>>>(P);
-  return counted_launch(1);
+  return counted_launch();
 }
 
 }  // namespace

@@ -3,9 +3,10 @@
 // tile layout and its wgmma descriptors, wgmma issue and synchronisation,
 // the register-A product with an MN-major B, exp2 on MUFU.EX2, and the
 // 4-D tensor maps of the packed (B, N, H*D) layout. A tile row is D bf16:
-// 128 bytes at D = 64 (128-byte swizzle), 64 bytes at D = 32 (64-byte
-// swizzle); or D int8 (the int8 forward's q and k): 64 bytes at D = 64,
-// 32 bytes at D = 32 (32-byte swizzle).
+// 256 bytes at D = 128, 128 at D = 64 (128-byte swizzle), 64 at D = 32
+// (64-byte swizzle); or D int8 (the int8 forward's q and k): 128, 64 or 32
+// bytes (32-byte swizzle). A row wider than the 128-byte swizzle's atom is
+// kept as panels (`panel`).
 #pragma once
 
 #include <cuda.h>
@@ -14,14 +15,35 @@
 
 namespace {
 
-// Byte offset of 16-byte chunk c of row r in a swizzled tile of D-wide
-// rows: the chunk index XORs with address bits 7 and up (CUTLASS's
-// Swizzle<3,4,3> at 128-byte rows, c ^ (r & 7); Swizzle<2,4,3> at 64-byte
-// rows, c ^ ((r >> 1) & 3)), as TMA writes it and wgmma reads it.
-template <int D>
+// Shared memory a block may take on an H100 (dynamic, after the attribute).
+constexpr size_t SM90_SMEM_MAX = 232448;
+
+// The bytes of one row of a tile's panel. A tile of R rows of ROW bytes
+// lies in shared memory as ROW / panel(ROW) panels, each R rows of
+// panel(ROW) bytes: one swizzle atom and one TMA box wide. At ROW = 256 (D =
+// 128 bf16) panel p holds bytes [128p, 128p + 128) of every row.
+__host__ __device__ constexpr int panel(int row) {
+  return row < 128 ? row : 128;
+}
+
+// Byte offset of 16-byte chunk c of row r in a swizzled tile of R rows of D
+// bf16: the chunk index within its panel row XORs with address bits 7 and
+// up (CUTLASS's Swizzle<3,4,3> at 128-byte rows, c ^ (r & 7); Swizzle<2,4,3>
+// at 64-byte rows, c ^ ((r >> 1) & 3)), as TMA writes it and wgmma reads it.
+template <int D, int R = 128>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  constexpr int ROW = 2 * D;
-  return r * ROW + ((c ^ ((r * ROW >> 7) & (ROW / 16 - 1))) << 4);
+  constexpr int PR = panel(2 * D), PC = PR / 16;   // chunks of a panel row
+  return (c / PC) * (R * PR) + r * PR +
+         (((c % PC) ^ ((r * PR >> 7) & (PC - 1))) << 4);
+}
+
+// Shared address of byte x of row r in a tile of R rows of ROW bytes at
+// `tile` (panel x / panel(ROW)): a descriptor's start where r is a multiple
+// of 8 and the bytes it spans lie in one panel.
+template <int ROW, int R>
+__device__ __forceinline__ uint32_t at_row(uint32_t tile, int r, int x) {
+  constexpr int PR = panel(ROW);
+  return tile + (x / PR) * (R * PR) + r * PR + x % PR;
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -65,15 +87,29 @@ __device__ __forceinline__ void tma_load_bias(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0) : "memory");
 }
 
-// Rows [row, row + box) of head h of batch b into a swizzled tile.
+// Rows [row, row + box) of columns [c, c + box) of head h of batch b into
+// a swizzled tile.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int h, int row,
+                                         uint32_t bar, int c, int h, int row,
                                          int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(h),
       "r"(row), "r"(b) : "memory");
+}
+
+// Rows [row, row + R) of head h of batch b, D elements of ESZ bytes each,
+// into a tile of R rows (`encode_heads`' map): one box per panel.
+template <int D, int R, int ESZ = 2>
+__device__ __forceinline__ void tma_load_tile(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int h, int row,
+                                              int b) {
+  constexpr int PR = panel(ESZ * D);
+#pragma unroll
+  for (int p = 0; p < ESZ * D / PR; ++p)
+    tma_load(dst + p * R * PR, map, bar, p * PR / ESZ, h, row, b);
 }
 
 // wgmma shared-memory descriptor of a tile of ROW-byte rows, swizzled by
@@ -82,7 +118,8 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 // 32-45, swizzle mode in 62-63: 1 = 128B, 2 = 64B, 3 = 32B). The stride
 // offset steps over an 8-row atom, 8 rows of ROW bytes: 1024, 512 or 256
 // bytes. The leading offset is unused, as the operand's contiguous extent
-// is one row (K-major Q and K with K = D; MN-major V with N = D).
+// is one panel row (K-major Q and K, 32 bytes of K a step; MN-major V and
+// the backward's operands, N at most one panel row).
 template <int ROW>
 __device__ __forceinline__ uint64_t row_desc(uint32_t addr) {
   static_assert(ROW == 32 || ROW == 64 || ROW == 128, "row of 32-128 bytes");
@@ -91,10 +128,10 @@ __device__ __forceinline__ uint64_t row_desc(uint32_t addr) {
          (uint64_t(ROW == 128 ? 1 : ROW == 64 ? 2 : 3) << 62);
 }
 
-// The descriptor of a tile of D-wide bf16 rows.
+// The descriptor of a tile of D-wide bf16 rows (its panel at D = 128).
 template <int D>
 __device__ __forceinline__ uint64_t sw_desc(uint32_t addr) {
-  return row_desc<2 * D>(addr);
+  return row_desc<panel(2 * D)>(addr);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -158,6 +195,20 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[4][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x D per warpgroup) += A (64 x 16, registers) B (16 x D: rows [r0,
+// r0 + 16) of a tile of R rows of D bf16 at `tile`, MN-major), one product
+// per panel (at D = 128 two m64n64k16, each on its half of d's n-tiles).
+template <int D, int R>
+__device__ __forceinline__ void wgmma_pv_rows(float (&d)[D / 8][4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t tile, int r0) {
+  constexpr int PR = panel(2 * D), NT = PR / 16;   // 8-dim n-tiles a panel
+#pragma unroll
+  for (int p = 0; p < D / 8 / NT; ++p)
+    wgmma_pv(*reinterpret_cast<float(*)[NT][4]>(d[p * NT]), a,
+             sw_desc<D>(tile + p * R * PR + r0 * PR));
+}
+
 // 2^x in one MUFU.EX2: exp2f's own instruction without the three that
 // keep results below 2^-126 subnormal; those flush to 0 here. Below a row's
 // running max that is invisible (l >= 1, P rounds to bf16); with the static
@@ -199,13 +250,16 @@ EncodeTiled tensor_map_encoder() {
 
 // 4-D map (D, H, n, B) of a packed (B, N, H*D) tensor of ESZ-byte
 // elements (bf16, or int8 with ESZ = 1), cut at n <= N rows: a box is
-// `rows` rows of one head, swizzled by the row's width (as swz<D> for
-// bf16); rows at or past n read as zeros.
+// `rows` rows of one panel of one head (the whole row at D * ESZ <= 128
+// bytes), swizzled by the panel row's width (as swz<D> for bf16); rows at
+// or past n read as zeros.
 template <int D, int ESZ = 2>
 int encode_heads(CUtensorMap* map, const void* ptr, int B, int N, int n,
                  int H, int rows) {
   constexpr cuuint64_t ROW = ESZ * D;
-  static_assert(ROW == 32 || ROW == 64 || ROW == 128, "row of 32-128 bytes");
+  constexpr cuuint32_t PR = panel(ROW);
+  static_assert(ROW == 32 || ROW == 64 || ROW == 128 || ROW == 256,
+                "row of 32-256 bytes");
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return int(cudaErrorNotSupported);
   if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
@@ -213,16 +267,16 @@ int encode_heads(CUtensorMap* map, const void* ptr, int B, int N, int n,
   const cuuint64_t dims[4] = {D, cuuint64_t(H), cuuint64_t(n),
                               cuuint64_t(B)};
   const cuuint64_t strides[3] = {ROW, ROW * H, ROW * H * N};
-  const cuuint32_t box[4] = {D, 1, cuuint32_t(rows), 1};
+  const cuuint32_t box[4] = {PR / ESZ, 1, cuuint32_t(rows), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map,
       ESZ == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
       4, const_cast<void*>(ptr), dims, strides, box, step,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
-      ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                  : CU_TENSOR_MAP_SWIZZLE_32B,
+      PR == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : PR == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                 : CU_TENSOR_MAP_SWIZZLE_32B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
 }

@@ -316,11 +316,11 @@ def kernel_library():
 
 def forward_design_launches() -> dict:
     """The forward kernels' launches in this process by design, counted by
-    the C launcher at each launch: "mma_sync" for flash_fwd_kernel,
-    "tma_wgmma" for flash_fwd_sm90 (csrc/flash_sm90.cuh)."""
-    out = (ctypes.c_longlong * 2)()
+    the C launcher at each launch: "tma_wgmma" for flash_fwd_sm90
+    (csrc/flash_sm90.cuh), the one design at every head dim."""
+    out = (ctypes.c_longlong * 1)()
     kernel_library().flash_fwd_design_launches(out)
-    return {"mma_sync": out[0], "tma_wgmma": out[1]}
+    return {"tma_wgmma": out[0]}
 
 
 def bwd_kernel_library():
@@ -332,11 +332,10 @@ def bwd_kernel_library():
 def bwd_design_launches() -> dict:
     """The backward's launches in this process by design, counted by the C
     launcher at each `flash_bwd` call: "tma_wgmma" for flash_bwd_sm90
-    (csrc/flash_bwd_sm90.cuh, head dims 32 and 64), "mma_sync" for the dq
-    and dkv kernels of csrc/flash_attention_bwd.cu (head dim 128)."""
-    out = (ctypes.c_longlong * 2)()
+    (csrc/flash_bwd_sm90.cuh), the one design at every head dim."""
+    out = (ctypes.c_longlong * 1)()
     bwd_kernel_library().flash_bwd_design_launches(out)
-    return {"mma_sync": out[0], "tma_wgmma": out[1]}
+    return {"tma_wgmma": out[0]}
 
 
 def _f32(t, shape, name, device, align=False):
@@ -631,7 +630,7 @@ def flash_bwd(q, k, v, dout, out, m, l, *, num_heads, valid_len=None):
     """(dq, dk, dv) of the flash backward (kernels 3 and 4 in one call),
     packed layout, from the forward's output `out` and row stats m, l. CPU
     tensors take `bwd_delta` and `flash_bwd_ref`; CUDA tensors the CUDA
-    kernels (flash_bwd_sm90 at head dims 32 and 64)."""
+    kernels (csrc/flash_bwd_sm90.cuh)."""
     if q.device.type == "cpu":
         return flash_bwd_ref(q, k, v, dout, m, l,
                              bwd_delta(dout, out, num_heads),
