@@ -6,9 +6,11 @@
     python3 chip_smoke.py --profile        # also profile one forward and
                                            # one training step
     python3 chip_smoke.py --ab DIR...   # build, then time the bf16 and
-                                        # int8 forwards and the backward of
-                                        # each DIR's flash_attention.cu and
-                                        # flash_attention_bwd.cu and this
+                                        # int8 forwards, the backward and
+                                        # the grouped probes of each DIR's
+                                        # flash_attention.cu,
+                                        # flash_attention_bwd.cu and
+                                        # bench_attention.cu and this
                                         # tree's in turns, and stop
 
 Phases, one line of output each (and the contract lines at the end):
@@ -75,8 +77,12 @@ And, for the frame-attention probes of scripts/bench_attention.py:
      frame shape through the probe script's main, with a padded-keys
      control, their times beside flash_single and SDPA, and one exp2 per
      softmax-only logit (SASS count, time against the card's exp2 rate);
-     then `python -m vggt_slam_tpu_torch.scripts.bench_attention --check`
-     at its defaults.
+     the grouped and pipelined kernels (grouped_sm90: TMA, wgmma) also
+     at a small shape and the frame shape against the plain version at
+     their own key tile, every launch of them one of grouped_sm90 by the C
+     launcher's count; then `python -m
+     vggt_slam_tpu_torch.scripts.bench_attention --check` at its
+     defaults.
 And, for the global-shape probes of scripts/bench_global_attention.py,
 bench_softmax_variants.py and bench_int8_inkernel.py:
   F. each script's main with --check at its defaults (BH 16, N 34816,
@@ -98,8 +104,11 @@ its own plain version, eager and as a CUDA graph, beside this tree's bf16
 call); then the backward at the six training shapes in turns (each DIR's
 flash_attention_bwd.cu through its own entries, then this tree's
 flash_bwd; a DIR may hold only the backward's sources), beside SDPA's
-backward alone (eager and as a CUDA graph) and the bound; and stops
-without the result lines.
+backward alone (eager and as a CUDA graph) and the bound; then the nine
+grouped, interleaved and pipelined probes of each DIR's bench_attention.cu
+beside this tree's at the frame shape (each held to its plain version,
+then in turns as CUDA graphs, beside SDPA and the bound); each leg runs
+where some DIR holds its source; and stops without the result lines.
 The last lines are the kernels JSON object and {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero with no result line. It
 needs a CUDA device and imports nothing of JAX, OpenCV or the JAX package.
@@ -1306,16 +1315,18 @@ PROBE_KERNELS = {
 
 def _instance_patterns(variant):
     """Demangled and mangled name patterns of a variant's kernel instance in
-    ptxas's report (grouped_kernel<G, schedule>: 0 straight, 1 interleaved,
+    ptxas's report (grouped_sm90<G, schedule>: 0 straight, 1 interleaved,
     2 pipelined)."""
+    from vggt_slam_tpu_torch.scripts import bench_attention as BA
+
     kind = variant.split(" ")[0]
     if kind in ("matmul-only", "softmax-only"):
         return (kind.replace("-", "_") + "_kernel",)
-    if kind in ("grouped", "interleaved", "pipelined"):
-        G = variant.split("G=")[1]
-        sched = ("grouped", "interleaved", "pipelined").index(kind)
-        return (f"grouped_kernel<{G}, {sched}>(",
-                f"grouped_kernelILi{G}ELi{sched}EE")
+    if BA.instance(variant):
+        schedule, G = BA.instance(variant)
+        sched = BA.SCHEDULES.index(schedule)
+        return (f"grouped_sm90<{G}, {sched}>(",
+                f"grouped_sm90ILi{G}ELi{sched}EE")
     if kind == "production":
         return ("flash_fwd_sm90<64, false, false>(",
                 "flash_fwd_sm90ILi64ELb0ELb0EE")
@@ -1360,17 +1371,58 @@ def run_probe_script(BA, argv):
                         output=text.getvalue().splitlines())
 
 
+def check_grouped_tiled(device):
+    """The nine grouped, interleaved and pipelined instances at the small
+    (S 2, H 4, N 100 -> 128) and frame (S 18, H 16, N 1041 -> 1152) shapes,
+    each written into a NaN-filled output and held to the plain version at
+    its own key tile (`BA.tiled_error`: 2e-3, or one bf16 step of the plain
+    value where larger), each launch one of grouped_sm90 by the C
+    launcher's count. Returns {variant: {shape: (max abs err, share of the
+    tolerance, block_k)}} (also logged)."""
+    import torch
+
+    from vggt_slam_tpu_torch.scripts import bench_attention as BA
+
+    out = {}
+    for shape, (S, H, N) in (("small", (2, 4, 100)),
+                             ("frame", (18, 16, 1041))):
+        qkv = BA.make_inputs(S, H, N, 64, seed=SEED + 2, device=device)
+        for name, p in BA.make_variants(S, H, N, 64).items():
+            if not BA.instance(name):
+                continue
+            args = p.prep(*qkv)
+            before = BA.design_launches()["tma_wgmma"]
+            got = p.run(*args, out=torch.full_like(args[0], math.nan))
+            torch.cuda.synchronize()
+            launched = BA.design_launches()["tma_wgmma"] - before
+            err = BA.tiled_error(name, args, got)
+            out.setdefault(name, {})[shape] = err
+            if not (err[1] <= 1 and launched == 1):
+                raise AssertionError(f"{name} at the {shape} shape: {err} "
+                                     f"(share of tolerance must be <= 1), "
+                                     f"{launched} grouped_sm90 launches")
+            del args, got
+        del qkv
+    log("probe_tiled", errors=out)
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_probe_kernels(device):
     """Phase E. The probe script's main at the SLAM bucket's frame attention
     (S = 18 frames x 16 heads, N = 1041 padded to 1152, D = 64) with
     --check: every probe kernel, at every G and schedule, against its plain
     version on all problems (softmax-only bit-exact, the others 1e-2 of
-    max|ref|), timed beside flash_single and SDPA. Here beside it: a control
+    max|ref|; the grouped kernels also at their key tile), timed beside
+    flash_single and SDPA. Here beside it: the grouped kernels at the small
+    and frame shapes at their key tile (`check_grouped_tiled`); a control
     that drops the padded keys from l, which the check must reject; ptxas
     registers and spills per instance; that the softmax-only kernel runs
     one exp2 per logit (its SASS's MUFU.EX2 count where cuobjdump is found,
     and always its time against the card's measured exp2 rate). Then the
-    script at its defaults with --check, counts reset just before."""
+    script at its defaults with --check, counts reset just before. Every
+    grouped and pipelined launch must be one of grouped_sm90 (the C
+    launcher's count)."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -1378,7 +1430,11 @@ def check_probe_kernels(device):
 
     S, H, N, D = 18, 16, 1041, 64
     BH, Np = S * H, BA.roundup(N, 128)
+    tiled = check_grouped_tiled(device)
+    BA.reset_launch_counts()
+    before = BA.design_launches()["tma_wgmma"]
     frame, run = run_probe_script(BA, ["--frames", str(S), "--check"])
+    expect_probe_design(BA, before)
     log("probe_frame_shape", **run)
     registers, spills = ptxas_report(cuda_build.build_log)
     results = {}
@@ -1387,6 +1443,8 @@ def check_probe_kernels(device):
         line["registers"], line["spill_store_bytes"] = next(
             ((r, spills.get(f, 0)) for f, r in registers.items()
              if any(pat in f for pat in patterns)), (None, None))
+        if line["variant"] in tiled:
+            line["tiled"] = tiled[line["variant"]]
         results[line["variant"]] = line
         log("probe_check", **line)
 
@@ -1427,14 +1485,28 @@ def check_probe_kernels(device):
     torch.cuda.empty_cache()
 
     BA.reset_launch_counts()
+    before = BA.design_launches()["tma_wgmma"]
     _, run = run_probe_script(BA, ["--check"])
     launches = {name: BA.LAUNCHES[name] for name in PROBE_KERNELS}
-    log("probe_path", launches=launches, **run)
+    designs = expect_probe_design(BA, before)
+    log("probe_path", launches=launches, designs=designs, **run)
     if not all(launches.values()):
         raise AssertionError(f"the probe script did not launch every probe "
                              f"kernel: {launches}")
     torch.cuda.empty_cache()
     return results, launches
+
+
+def expect_probe_design(BA, before):
+    """Every grouped and pipelined launch since the counts were reset was
+    one of grouped_sm90, by the C launcher's count (`before` its count
+    then). Returns {"tma_wgmma": launches}."""
+    n = BA.design_launches()["tma_wgmma"] - before
+    calls = BA.LAUNCHES["grouped"] + BA.LAUNCHES["pipelined"]
+    if not (n == calls > 0):
+        raise AssertionError(f"{calls} grouped and pipelined launches, "
+                             f"{n} of them grouped_sm90")
+    return {"tma_wgmma": n}
 
 
 def probe_kernel_entries(results, launches):
@@ -1444,9 +1516,11 @@ def probe_kernel_entries(results, launches):
     for name, (rep, replaces) in PROBE_KERNELS.items():
         variants = [r for r in results.values() if r["kernel"] == name]
         r = results[rep]
+        grouped = name in ("grouped", "pipelined")
         entry = {
             "name": name, "status": "ported", "route": "cuda",
-            "source": "vggt_slam_tpu_torch/csrc/bench_attention.cu",
+            "source": "vggt_slam_tpu_torch/csrc/bench_attention.cu" + (
+                ", csrc/sm90_common.cuh" if grouped else ""),
             "replaces": replaces, "launches": launches[name],
             "launches_path": PROBE_COMMAND + " (its defaults: S = 33)",
             "variant": rep,
@@ -1454,7 +1528,8 @@ def probe_kernel_entries(results, launches):
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "variants": variants}
-        if name in ("grouped", "pipelined"):
+        if grouped:
+            entry["design"] = "tma_wgmma (grouped_sm90)"
             entry["library_ms"] = library_ms
         else:
             entry["library_ms_reason"] = ("no single PyTorch call computes "
@@ -2287,6 +2362,79 @@ def ab_forward(device, dirs):
     return builds, rows
 
 
+def ab_probes(device, dirs):
+    """The grouped, interleaved and pipelined probes of each of `dirs` that
+    holds a bench_attention.cu (with the headers it includes beside it;
+    the build named after its folder), then this tree's, at the SLAM frame
+    shape (S 18, H 16, N 1041 -> 1152): each build held to its plain
+    version first (1e-2 of max|ref|; this tree's also at its key tile),
+    then timed in turns (first to last, then back) as one CUDA graph of 20
+    calls (`graph_ms`: device ms), beside SDPA's graph and the bound.
+    Returns the rows (also logged)."""
+    import torch
+
+    from vggt_slam_tpu_torch.ops import cuda_build
+    from vggt_slam_tpu_torch.scripts import bench_attention as BA
+
+    ported = {n: sig for n, sig in BA._SIGNATURES.items()
+              if n not in ("bench_grouped_block_k",
+                           "bench_attention_design_launches")}
+    libs = {}
+    for d in dirs:
+        src = os.path.join(d, "bench_attention.cu")
+        if os.path.exists(src):
+            name = os.path.basename(os.path.normpath(d))
+            libs[name] = cuda_build.load(f"bench_attention_ab_{name}",
+                                         ported, src)
+    libs["this_tree"] = BA.kernel_library()
+    names = list(libs)
+    S, H, N, D = 18, 16, 1041, 64
+    Np = BA.roundup(N, 128)
+    qkv = BA.make_inputs(S, H, N, D, seed=SEED, device=device)
+    variants = BA.make_variants(S, H, N, D)
+    bound = BA.bound_ms("attention", S * H, Np, D, BA.sfu_rate(device)[0])
+    sdpa = variants["SDPA (library)"]
+    sdpa_args = sdpa.prep(*qkv)
+    sdpa_ms = graph_ms(lambda: sdpa.run(*sdpa_args))
+    del sdpa_args
+    rows = []
+    for variant, p in variants.items():
+        if not BA.instance(variant):
+            continue
+        args = p.prep(*qkv)
+        ref = p.plain(*args)
+        errs, runs = {}, {n: [] for n in names}
+        for n in names + names[::-1]:
+            with using_library(libs[n], BA):
+                def call():
+                    return p.run(*args)
+                if n not in errs:
+                    got = call()
+                    torch.cuda.synchronize()
+                    errs[n] = BA.probe_error(p.kind, got, ref)
+                    if n == "this_tree":
+                        errs["this_tree_tiled"] = BA.tiled_error(variant,
+                                                                 args, got)
+                    if not (errs[n][0] <= errs[n][1]
+                            and errs.get(f"{n}_tiled", (0, 0))[1] <= 1):
+                        raise AssertionError(f"{n} disagrees with the plain "
+                                             f"version at {variant}: {errs}")
+                    del got
+                runs[n].append(graph_ms(call))
+        dev_ms = {n: sum(r) / len(r) for n, r in runs.items()}
+        row = dict(variant=variant, graph_ms=dev_ms, runs=runs, errors=errs,
+                   bound_ms=bound[0], bound_by=bound[1], sdpa_graph_ms=sdpa_ms,
+                   share_of_bound={n: bound[0] / t for n, t in dev_ms.items()},
+                   over_sdpa={n: t / sdpa_ms for n, t in dev_ms.items()})
+        row["faster_than"] = {n: dev_ms["this_tree"] < t
+                              for n, t in dev_ms.items() if n != "this_tree"}
+        log("ab_probe", **row)
+        rows.append(row)
+        del args, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def ab_int8(device, builds):
     """The int8 forward of each build (`ab_builds`) at phase A's shapes,
     both kernels: held to its own wrapper's plain version and bf16 control
@@ -2425,9 +2573,18 @@ def main(argv) -> int:
     if "--ab" in argv:     # the builds in turns, then stop
         rest = argv[argv.index("--ab") + 1:]
         dirs = [d for d in rest if not d.startswith("-")]
-        builds, _ = ab_forward(device, dirs)
-        ab_int8(device, builds)
-        ab_backward(device, builds, dirs)
+
+        def holding(src):
+            return any(os.path.exists(os.path.join(d, src)) for d in dirs)
+
+        builds = {}
+        if holding("flash_attention.cu"):
+            builds, _ = ab_forward(device, dirs)
+            ab_int8(device, builds)
+        if holding("flash_attention_bwd.cu"):
+            ab_backward(device, builds, dirs)
+        if holding("bench_attention.cu"):
+            ab_probes(device, dirs)
         return 0
     checks = check_kernels(device)
     int8_checks = check_int8_kernels(device)

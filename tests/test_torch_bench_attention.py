@@ -12,7 +12,12 @@ Tolerances:
 * matmul-only: 1e-2 of max|ref|: s is rounded to bf16 before PV, and
   another f32 summation order can flip one of those roundings;
 * grouped, interleaved, pipelined: 2e-3 abs: the same exp2-domain function
-  with bf16 p on both sides, summed in f32.
+  with bf16 p on both sides, summed in f32; at G = 8 on S 2, H 4 (BH 8).
+* the plain version at the kernels' key tiles (`block_k` 16 to 128, the
+  running max per tile): `tiled_tolerance`, 2e-3 or one bf16 step of the
+  reference's value where that is larger (|o| reaches 0.90 at S 2, H 4, where
+  p rounded against the running max moves one output across a bf16
+  rounding boundary: one step, 0.0039).
 """
 import functools
 import importlib.util
@@ -56,6 +61,15 @@ def inputs():
     return ts, [jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in ts]
 
 
+@pytest.fixture(scope="module")
+def inputs8():
+    """As `inputs` at S 2, H 4: BH 8, so G = 8 divides it."""
+    rng = np.random.default_rng(0)
+    ts = [torch.from_numpy(rng.normal(size=(2, H, N, D)).astype(np.float32))
+          .bfloat16() for _ in range(3)]
+    return ts, [jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in ts]
+
+
 def _f32(x):
     if isinstance(x, torch.Tensor):
         return x.float().numpy()
@@ -85,24 +99,80 @@ def test_softmax_only_is_exactly_one_over_np(ref, inputs):
     assert (got == one_over_np).all()
 
 
+def _calls(ref, schedule, G, bh):
+    """The reference's call and the port's of `schedule` at G on bh
+    problems."""
+    if schedule == "pipelined":
+        return (ref.make_grouped_call(ref._pipelined_kernel, G, N, D, bh,
+                                      extra=(("G", G),)),
+                BA.make_grouped_call(BA.pipelined_attention, G, N, D, bh))
+    il = schedule == "interleaved"
+    return (ref.make_grouped_call(ref._grouped_kernel, G, N, D, bh,
+                                  extra=(("G", G), ("interleave", il))),
+            BA.make_grouped_call(BA.grouped_attention, G, N, D, bh,
+                                 extra=(("interleave", il),)))
+
+
 @pytest.mark.parametrize("G", [2, 4])
 @pytest.mark.parametrize("schedule", ["straight", "interleaved", "pipelined"])
 def test_attention_probes_match_reference(ref, inputs, schedule, G):
     ts, js = inputs
-    if schedule == "pipelined":
-        ref_call = ref.make_grouped_call(ref._pipelined_kernel, G, N, D, BH,
-                                         extra=(("G", G),))
-        port = BA.make_grouped_call(BA.pipelined_attention, G, N, D, BH)
-    else:
-        il = schedule == "interleaved"
-        ref_call = ref.make_grouped_call(ref._grouped_kernel, G, N, D, BH,
-                                         extra=(("G", G), ("interleave", il)))
-        port = BA.make_grouped_call(BA.grouped_attention, G, N, D, BH,
-                                    extra=(("interleave", il),))
+    ref_call, port = _calls(ref, schedule, G, BH)
     want = _f32(ref_call(_ref_scaled(js[0]), js[1], js[2]))
     got = _f32(BA.scaled(port, D)(*ts))
     assert got.shape == (S, H, N, D)
     np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("schedule", ["straight", "interleaved", "pipelined"])
+def test_attention_probes_match_reference_at_g8(ref, inputs8, schedule):
+    ts, js = inputs8
+    ref_call, port = _calls(ref, schedule, 8, 2 * H)
+    want = _f32(ref_call(_ref_scaled(js[0]), js[1], js[2]))
+    got = _f32(BA.scaled(port, D)(*ts))
+    assert got.shape == (2, H, N, D)
+    np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("G", [2, 4, 8])
+@pytest.mark.parametrize("schedule", ["straight", "interleaved", "pipelined"])
+def test_tiled_plain_version_matches_reference(ref, inputs8, schedule, G):
+    """The plain version at every key tile the kernels take (running max
+    per tile) against the reference's kernel (row max over all keys)."""
+    ts, js = inputs8
+    ref_call, port = _calls(ref, schedule, G, 2 * H)
+    want = torch.tensor(_f32(ref_call(_ref_scaled(js[0]), js[1], js[2])))
+    call = BA.scaled(port, D)
+    args = call.prep(*ts)
+    tol = BA.tiled_tolerance(want)
+    for bk in (16, 32, 64, 128):
+        got = call.unprep(BA.exp2_attention_ref(*args, block_k=bk),
+                          ts[0].shape).float()
+        assert ((got - want).abs() <= tol).all(), bk
+
+
+def test_tiled_plain_version_at_one_tile_is_untiled(inputs8):
+    ts, _ = inputs8
+    args = BA.scaled(BA.make_grouped_call(BA.grouped_attention, 8, N, D,
+                                          2 * H), D).prep(*ts)
+    torch.testing.assert_close(BA.exp2_attention_ref(*args, block_k=NP),
+                               BA.exp2_attention_ref(*args), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n", [100, 1041])
+def test_tiled_control_fails_the_tiled_tolerance(n):
+    """The card's tiled check tells a kernel that drops the padded keys from
+    l: the tiled plain version with l over the first n keys is further from
+    the real one than `tiled_tolerance`, at every key tile."""
+    q, k, v = BA.make_inputs(1, 2, n, D, seed=1)
+    args = BA.scaled(BA.make_grouped_call(BA.grouped_attention, 2, n, D, 2),
+                     D).prep(q, k, v)
+    for bk in (16, 32, 64, 128):
+        real = BA.exp2_attention_ref(*args, block_k=bk)
+        dropped = BA.exp2_attention_ref(*args, l_keys=n, block_k=bk)
+        share = ((dropped.float() - real.float()).abs()
+                 / BA.tiled_tolerance(real)).max()
+        assert share > 2, bk
 
 
 def test_prescale_and_padding_match_reference(inputs):

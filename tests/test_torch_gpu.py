@@ -611,12 +611,23 @@ def test_fused_tail_matches_plain(cuda, cout):
 # 1152). Softmax-only is bit-exact; the others are held to 1e-2 of max|ref|
 # (matmul-only: another f32 summation order can flip a bf16 rounding of s;
 # attention: the kernels round p to bf16 against the running max, the plain
-# version against the row max). The attention probes must also be further
-# than that from a control that drops the padded keys from l.
+# version against the row max). The grouped and pipelined kernels are also
+# held to the plain version at their own key tile (the running max per
+# tile, as theirs): `BA.tiled_tolerance`, 2e-3 or one bf16 step of the
+# plain value where that is larger (both sides round o to bf16). Their
+# outputs are written into NaN-filled tensors, so a missed store fails, and
+# each launch adds one to the C launcher's count of the design. The
+# attention probes must also be further than the tolerance from a control
+# that drops the padded keys from l.
 _PROBE_SHAPES = {"small": (2, 4, 100), "frame": (18, 16, 1041)}
-_PROBES = ["matmul-only floor", "softmax-only floor"] + [
-    f"{s} G={G}" for G in (2, 4, 8)
-    for s in ("grouped", "interleaved", "pipelined")]
+_GROUPED = [f"{s} G={G}" for G in (2, 4, 8)
+            for s in ("grouped", "interleaved", "pipelined")]
+_PROBES = ["matmul-only floor", "softmax-only floor"] + _GROUPED
+
+
+def _grouped_run(p, args):
+    """A grouped or pipelined probe's call into a NaN-filled output."""
+    return p.run(*args, out=torch.full_like(args[0], math.nan))
 
 
 @pytest.mark.parametrize("shape", ["small", "frame"])
@@ -626,7 +637,9 @@ def test_probe_kernels_match_plain(cuda, variant, shape):
     p = BA.make_variants(S, H, N, 64)[variant]
     args = p.prep(*BA.make_inputs(S, H, N, 64, seed=3, device=cuda))
     before = BA.LAUNCHES[p.counter]
-    out = p.run(*args)
+    grouped = BA.instance(variant) is not None
+    designs = BA.design_launches() if grouped else None
+    out = _grouped_run(p, args) if grouped else p.run(*args)
     torch.cuda.synchronize()
     assert BA.LAUNCHES[p.counter] == before + 1
     err, tol = BA.probe_error(p.kind, out, p.plain(*args))
@@ -635,6 +648,65 @@ def test_probe_kernels_match_plain(cuda, variant, shape):
         ctrl, _ = BA.probe_error(p.kind, out,
                                  BA.exp2_attention_ref(*args, l_keys=N))
         assert ctrl > tol
+    if grouped:
+        assert BA.design_launches()["tma_wgmma"] == designs["tma_wgmma"] + 1
+        _, share, bk = BA.tiled_error(variant, args, out)
+        assert share <= 1, (share, bk)
+        dropped = BA.exp2_attention_ref(*args, l_keys=N, block_k=bk)
+        ctrl = ((out.float() - dropped.float()).abs()
+                / BA.tiled_tolerance(dropped)).max()
+        assert ctrl > 1
+
+
+@pytest.mark.parametrize("Np", [128, 1152])
+@pytest.mark.parametrize("variant", _GROUPED)
+def test_grouped_probe_one_group(cuda, variant, Np):
+    """BH = G: one group, so fewer work items than SMs (one item at Np 128,
+    9 or 18 at 1152), all key tiles of one sweep in a CTA."""
+    _, G = BA.instance(variant)
+    p = BA.make_variants(1, G, Np, 64)[variant]
+    args = p.prep(*BA.make_inputs(1, G, Np, 64, seed=5, device=cuda))
+    out = _grouped_run(p, args)
+    torch.cuda.synchronize()
+    _, share, bk = BA.tiled_error(variant, args, out)
+    assert share <= 1, (share, bk)
+
+
+def test_grouped_probe_runs_are_bit_equal(cuda):
+    """No atomics: each instance gives the same bits twice, at the frame
+    shape (more work items than SMs). Schedules that share a key tile at
+    the same G reorder the same arithmetic: their outputs are bit-equal."""
+    S, H, N = _PROBE_SHAPES["frame"]
+    variants = BA.make_variants(S, H, N, 64)
+    qkv = BA.make_inputs(S, H, N, 64, seed=7, device=cuda)
+    outs, shared = {}, 0
+    for name in _GROUPED:
+        args = variants[name].prep(*qkv)
+        a, b = (_grouped_run(variants[name], args) for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), name
+        key = (BA.instance(name)[1], BA.block_k(*BA.instance(name)))
+        if key in outs:
+            assert torch.equal(a, outs[key]), (name, key)
+            shared += 1
+        outs.setdefault(key, a)
+    assert shared >= 1    # interleaved and pipelined at G = 2 (BK 64)
+
+
+def test_grouped_probe_design_counts_each_launch(cuda):
+    """Every grouped, interleaved and pipelined launch is one launch of
+    grouped_sm90 by the C launcher's count; a refused launch counts none."""
+    p = BA.make_variants(1, 8, 128, 64)
+    qkv = BA.make_inputs(1, 8, 128, 64, device=cuda)
+    before = BA.design_launches()["tma_wgmma"]
+    for name in _GROUPED:
+        p[name].run(*p[name].prep(*qkv))
+    torch.cuda.synchronize()
+    assert BA.design_launches()["tma_wgmma"] == before + len(_GROUPED)
+    g3 = torch.zeros(1, 3, 128, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        BA.pipelined_attention(g3, g3, g3)
+    assert BA.design_launches()["tma_wgmma"] == before + len(_GROUPED)
 
 
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -647,6 +719,9 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     g3 = torch.zeros(1, 3, 128, 64, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         BA.grouped_attention(g3, g3, g3)
+    np64 = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 128 rows"):
+        BA.grouped_attention(np64, np64, np64)
     rate = BA.ex2_rate(cuda, iters=256)
     assert 1e12 < rate < 1e13
 

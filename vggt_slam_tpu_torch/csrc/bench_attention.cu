@@ -14,7 +14,8 @@
 //                       q[r, 0] * 0.01 in every column; m = row max,
 //                       p = exp2(s - m), l = sum p, o = p[:, :D] / l. No
 //                       matmuls; the softmax floor (o is 1/Np everywhere).
-//   bench_grouped       _grouped_kernel (:70): G problems per CTA of
+//   bench_grouped       _grouped_kernel (:70): G problems of the grouped
+//                       (BH/G, G, Np, D) layout per work item of
 //                       exp2-domain attention on pre-scaled q,
 //                       o = bf16(p) v / max(l, 1e-30), padded keys unmasked
 //                       (logit 0, v 0); straight or interleaved schedule.
@@ -22,28 +23,52 @@
 //                       QK^T of problem g + 1 issued before the softmax and
 //                       PV of problem g.
 //
-// Tiling follows flash_attention.cu: one CTA of 4 warps per 64-row q tile
-// and per problem (or group of G problems); 64-key K/V tiles staged in
-// shared memory; QK^T and PV on mma.sync m16n8k16 bf16 with f32
-// accumulators in registers; P repacked into A fragments in registers. Np
-// is a multiple of 64, so no tile is ragged and nothing is masked.
+// The two floors keep the first design of the port: one CTA of 4 warps per
+// 64-row q tile and problem, 64-key K/V tiles staged in shared memory, QK^T
+// and PV on mma.sync m16n8k16 with f32 accumulators in registers.
 //
-// The softmax: the reference takes the row max over all Np keys before any
-// exp2, but a 64 x Np f32 row block does not fit in registers. The grouped
-// and pipelined kernels keep a running max instead (FlashAttention-2's
-// online softmax, as flash_single does): the same function up to the bf16
-// rounding of p, which is taken against the running max, not the final one.
-//
-// Schedules, per 64-key tile:
-//   straight     problem by problem: each problem's whole key sweep, then
-//                the next (one problem live, flash_single's registers);
-//   interleaved  the G QK^T products of the tile, then the G softmax + PV
-//                chains (G score tiles and G accumulators live);
-//   pipelined    QK^T of problem g + 1, then softmax + PV of problem g (two
-//                score tiles and G accumulators live).
-// For G = 2 interleaved and pipelined are the same order, as in the
-// reference. The order is the source's; ptxas may schedule independent
-// instructions across it.
+// bench_grouped and bench_pipelined run grouped_sm90<G, SCHED>, the Hopper
+// design of flash_sm90.cuh without its ping-pong, so that a probe measures
+// the order of the products and the softmax inside one warpgroup:
+// - A persistent grid of one CTA per SM; a work item is (q tile, group of G
+//   problems). Two consumer warpgroups, 256 threads, so that ptxas allows
+//   up to 255 registers a thread: a producer warp or warpgroup beside them
+//   puts a third warp on one of the SM's four schedulers (16,384 registers
+//   each), and ptxas then compiles every thread to 168, setmaxnreg or not.
+// - Loads: each sweep's Q tiles and each key step's K and V tiles come by
+//   TMA into Q buffers and a ring, each with a "full" mbarrier that expects
+//   its bytes. There is no producer: a warp done with a buffer adds one to
+//   its release count, and the eighth warp to do so issues the load that
+//   refills it at once (thread 0 issues the first ones). The maps are
+//   4-D, (D, 1, Np, BH) through encode_heads<64>, a box of NB consecutive
+//   problems, so one load brings a key step of every problem of the group.
+//   Np is a multiple of 128: no tile is ragged, nothing is masked.
+// - S = Q K^T on wgmma m64nBKk16 from shared memory (128B swizzle), O += P V
+//   on wgmma m64n64k16 with P as the register A operand, V MN-major.
+// - The softmax: the running max per key tile (FlashAttention-2's online
+//   softmax), so p is rounded to bf16 against the running max, as
+//   exp2_attention_ref(block_k=BK) computes it.
+// - The schedules are orders of asynchronous wgmma groups inside each
+//   consumer warpgroup, per key tile:
+//     straight     each problem's whole key sweep in turn; QK^T is waited
+//                  on (wait_group 0) before its softmax and PV before the
+//                  next QK^T: no overlap inside the warpgroup;
+//     interleaved  the QK^T of all the warpgroup's problems committed as
+//                  one group each, then the softmax + PV chains, each
+//                  waiting only for its own group;
+//     pipelined    the QK^T of problem g + 1 committed before the softmax
+//                  and PV of problem g (two score tiles live).
+//   Both overlap PV of problem g - 1 with the softmax of problem g. For
+//   G = 2 interleaved and pipelined are the same order, as in the
+//   reference.
+// - What a warpgroup keeps live (f32 registers a thread at a 64-row tile:
+//   a score tile BK / 2, an accumulator 32) sets each instance (GCfg):
+//   straight one problem at BK = 128 (128-row q tiles, warpgroup w its rows
+//   [64w, 64w + 64)); G = 2 both problems at BK = 64; G = 4 all four at
+//   BK = 32; G = 8 splits the problems between the warpgroups (warpgroup w
+//   takes g = w mod 2, 64-row q tiles), four each at BK = 32. So the
+//   schedules that reorder the same problems share a key tile. The ring is
+//   as deep as shared memory allows (2-4 key steps).
 //
 // What bounds them on this card: matmul-only does 4 BH Np^2 D flops on
 // 4 BH Np D bf16 values (tensor cores); softmax-only does BH Np^2 exp2 on
@@ -59,6 +84,7 @@
 // bound is taken against.
 
 #include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -282,98 +308,331 @@ __global__ void __launch_bounds__(NTHREAD)
   finish(st, out, bh, Np, q0, warp, lane);
 }
 
-template <int G, int SCHED>
-__global__ void __launch_bounds__(NTHREAD)
-    grouped_kernel(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                   const __nv_bfloat16* v, __nv_bfloat16* out, int Np) {
-  constexpr int NSET = SCHED == STRAIGHT ? 1 : G;   // problems staged at once
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + NSET * TILE;
-  __nv_bfloat16* Vs = Ks + NSET * TILE;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh0 = blockIdx.y * G, q0 = blockIdx.x * BQ;
 
-  if constexpr (SCHED == STRAIGHT) {
-#pragma unroll 1
-    for (int g = 0; g < G; ++g) {
-      const int bh = bh0 + g;
-      __syncthreads();  // the previous problem's tiles are consumed
-      load(Qs, q, bh, Np, q0);
-      __syncthreads();
-      uint32_t qa[KS][4];
-      load_q(qa, Qs, warp, lane);
-      RowState st;
-      init(st);
-      for (int k0 = 0; k0 < Np; k0 += BK) {
-        __syncthreads();
-        load(Ks, k, bh, Np, k0);
-        load(Vs, v, bh, Np, k0);
-        __syncthreads();
-        float s[NT][4];
-        qk(s, qa, Ks, lane);
-        softmax_tile(st, s);
-        pv(st.o, s, Vs, lane);
-      }
-      finish(st, out, bh, Np, q0, warp, lane);
-    }
-  } else {
-#pragma unroll
-    for (int g = 0; g < G; ++g) load(Qs + g * TILE, q, bh0 + g, Np, q0);
-    RowState st[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) init(st[g]);
-    for (int k0 = 0; k0 < Np; k0 += BK) {
-      __syncthreads();
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        load(Ks + g * TILE, k, bh0 + g, Np, k0);
-        load(Vs + g * TILE, v, bh0 + g, Np, k0);
-      }
-      __syncthreads();
-      // q fragments come from shared memory at each use, to spare G x 16
-      // registers
-      if constexpr (SCHED == INTERLEAVED) {
-        float s[G][NT][4];
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          uint32_t qa[KS][4];
-          load_q(qa, Qs + g * TILE, warp, lane);
-          qk(s[g], qa, Ks + g * TILE, lane);
-        }
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          softmax_tile(st[g], s[g]);
-          pv(st[g].o, s[g], Vs + g * TILE, lane);
-        }
-      } else {
-        float s[2][NT][4];
-        {
-          uint32_t qa[KS][4];
-          load_q(qa, Qs, warp, lane);
-          qk(s[0], qa, Ks, lane);
-        }
-#pragma unroll
-        for (int g = 1; g < G; ++g) {
-          uint32_t qa[KS][4];
-          load_q(qa, Qs + g * TILE, warp, lane);
-          qk(s[g & 1], qa, Ks + g * TILE, lane);
-          softmax_tile(st[g - 1], s[(g - 1) & 1]);
-          pv(st[g - 1].o, s[(g - 1) & 1], Vs + (g - 1) * TILE, lane);
-        }
-        softmax_tile(st[G - 1], s[(G - 1) & 1]);
-        pv(st[G - 1].o, s[(G - 1) & 1], Vs + (G - 1) * TILE, lane);
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) finish(st[g], out, bh0 + g, Np, q0, warp, lane);
+// ---------------------------------------------------------------------------
+// grouped_sm90: bench_grouped and bench_pipelined on TMA and wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int ROWB = 2 * D;        // bytes of a q, k or v row: a 128B swizzle row
+constexpr int GS_THREADS = 256;    // two consumer warpgroups
+
+// Shared memory of nq Q buffers of qbuf bytes and a ring of `stages` slots
+// of `slot` bytes (a key step's K and V): 1 KB of alignment slack, the
+// buffers, 2 barriers and a release count a slot, 1 and 1 a Q buffer.
+__host__ __device__ constexpr size_t gs_smem(int qbuf, int nq, int slot,
+                                            int stages) {
+  return 1024 + size_t(nq) * qbuf + size_t(stages) * slot +
+         20 * stages + 12 * nq;
+}
+
+// The deepest ring of at most 4 slots that fits.
+__host__ __device__ constexpr int gs_stages(int qbuf, int nq, int slot) {
+  int s = 4;
+  while (s > 1 && gs_smem(qbuf, nq, slot, s) > SM90_SMEM_MAX) --s;
+  return s;
+}
+
+// What G and the schedule set (the file header says why).
+template <int G, int SCHED>
+struct GCfg {
+  static_assert(G == 2 || G == 4 || G == 8, "G of 2, 4 or 8");
+  // G = 8: warpgroup w takes problems w, w + 2, ... of 64-row q tiles
+  static constexpr bool SPLIT = SCHED != STRAIGHT && G == 8;
+  // problems a warpgroup keeps live (straight runs them one at a time)
+  static constexpr int PW = SCHED == STRAIGHT ? 1 : SPLIT ? G / 2 : G;
+  static constexpr int QR = SPLIT ? 64 : 128;   // q rows of a work item
+  static constexpr int BK = SCHED == STRAIGHT ? 128 : PW == 2 ? 64 : 32;
+  // score tiles live: one per problem interleaved, two pipelined
+  static constexpr int NS = SCHED == INTERLEAVED ? PW
+                            : SCHED == PIPELINED ? 2
+                                                 : 1;
+  static constexpr int NB = SCHED == STRAIGHT ? 1 : G;  // problems a load brings
+  static constexpr int UNITS = G / NB;                  // key sweeps an item
+  static constexpr int QBUF = NB * QR * ROWB;
+  static constexpr int KT = NB * BK * ROWB;   // K (or V) bytes of a ring slot
+  static constexpr int NQ =
+      gs_smem(QBUF, 2, 2 * KT, 2) <= SM90_SMEM_MAX ? 2 : 1;
+  static constexpr int STAGES = gs_stages(QBUF, NQ, 2 * KT);
+  static_assert(STAGES >= 2, "two key steps in flight");
+  static constexpr size_t SMEM = gs_smem(QBUF, NQ, 2 * KT, STAGES);
+};
+
+struct GParams {
+  CUtensorMap tq, tk, tv;
+  __nv_bfloat16* o;
+  int Np, n_qt, items;   // q tiles a problem; work items (q tile, group)
+};
+
+// wgmma.wait_group n, n a constant once the caller's loop is unrolled.
+__device__ __forceinline__ void wgmma_wait_n(int n) {
+  switch (n) {
+    case 0: wgmma_wait<0>(); break;
+    case 1: wgmma_wait<1>(); break;
+    case 2: wgmma_wait<2>(); break;
+    default: wgmma_wait<3>(); break;
   }
 }
 
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
+// Online softmax of one score tile (KN n-tiles of 8 keys; rows g and g + 8
+// of the warp): fold the tile's row max into m, set c to the factor that O
+// and l are rescaled by, leave p = exp2(s - m) in s and add it to l.
+template <int KN>
+__device__ __forceinline__ void online_tile(float (&s)[KN][4], float (&m)[2],
+                                            float (&l)[2], float (&c)[2]) {
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < KN; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+    const float n = fmaxf(m[r], mx[r]);
+    c[r] = ex2(m[r] - n);
+    m[r] = n;
+    l[r] *= c[r];
+  }
+#pragma unroll
+  for (int j = 0; j < KN; ++j) {
+    s[j][0] = ex2(s[j][0] - m[0]);
+    s[j][1] = ex2(s[j][1] - m[0]);
+    s[j][2] = ex2(s[j][2] - m[1]);
+    s[j][3] = ex2(s[j][3] - m[1]);
+    l[0] += s[j][0] + s[j][1];
+    l[1] += s[j][2] + s[j][3];
+  }
+}
+
+// O *= c (rows g, g + 8), then p (in s) as bf16 A fragments of PV: keys
+// 16kk + 2t.. in n-tile 2kk, + 8 in n-tile 2kk + 1.
+template <int KN>
+__device__ __forceinline__ void rescale_pack(float (&o)[8][4],
+                                             const float (&c)[2],
+                                             uint32_t (&pa)[KN / 2][4],
+                                             const float (&s)[KN][4]) {
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+    o[d][0] *= c[0];
+    o[d][1] *= c[0];
+    o[d][2] *= c[1];
+    o[d][3] *= c[1];
+  }
+#pragma unroll
+  for (int j = 0; j < KN; ++j) {
+    pa[j / 2][2 * (j % 2)] = pack_bf16(s[j][0], s[j][1]);
+    pa[j / 2][2 * (j % 2) + 1] = pack_bf16(s[j][2], s[j][3]);
+  }
+}
+
+template <int G, int SCHED>
+__global__ void __launch_bounds__(GS_THREADS, 1)
+    grouped_sm90(const __grid_constant__ GParams P) {
+  using C = GCfg<G, SCHED>;
+  constexpr int S = C::STAGES, NQ = C::NQ, PW = C::PW, BKT = C::BK;
+  constexpr int KN = BKT / 8;   // 8-key n-tiles of a score tile
+  extern __shared__ unsigned char gs_raw[];
+  // 1 KB aligned, as the 128B swizzle's 8-row atom
+  const uint32_t sq = (smem_addr(gs_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + NQ * C::QBUF, sv = sk + S * C::KT;
+  const uint32_t full_k = sv + S * C::KT, full_v = full_k + 8 * S,
+                 q_full = full_v + 8 * S, counts = q_full + 8 * NQ;
+  // release counts: of ring slot i at [i], of Q buffer b at [S + b]
+  unsigned* released =
+      reinterpret_cast<unsigned*>(gs_raw + (counts - smem_addr(gs_raw)));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nkt = P.Np / BKT;
+
+  // The loads of this CTA in order: its work items' key sweeps in turn,
+  // sweep m (item blockIdx.x + (m / UNITS) gridDim.x, unit m % UNITS) its
+  // Q tiles into buffer m % NQ, key step kv (sweep kv / nkt) its K and V
+  // tiles into ring slot kv % S.
+  auto load_q = [&](int m) {
+    const int item = blockIdx.x + (m / C::UNITS) * gridDim.x;
+    if (item >= P.items) return;
+    const int qb = m % NQ;
+    mbar_expect_tx(q_full + 8 * qb, C::QBUF);
+    tma_load(sq + qb * C::QBUF, &P.tq, q_full + 8 * qb, 0, 0,
+             (item % P.n_qt) * C::QR, (item / P.n_qt) * G + m % C::UNITS);
+  };
+  auto load_kv = [&](int kv) {
+    const int m = kv / nkt, item = blockIdx.x + (m / C::UNITS) * gridDim.x;
+    if (item >= P.items) return;
+    const int i = kv % S, row = (kv % nkt) * BKT;
+    const int bh = (item / P.n_qt) * G + m % C::UNITS;
+    mbar_expect_tx(full_k + 8 * i, C::KT);
+    tma_load(sk + i * C::KT, &P.tk, full_k + 8 * i, 0, 0, row, bh);
+    mbar_expect_tx(full_v + 8 * i, C::KT);
+    tma_load(sv + i * C::KT, &P.tv, full_v + 8 * i, 0, 0, row, bh);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full_k + 8 * i, 1);
+      mbar_init(full_v + 8 * i, 1);
+    }
+    for (int i = 0; i < NQ; ++i) mbar_init(q_full + 8 * i, 1);
+    for (int i = 0; i < S + NQ; ++i) released[i] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int m = 0; m < NQ; ++m) load_q(m);
+    for (int kv = 0; kv < S; ++kv) load_kv(kv);
+  }
+  __syncthreads();
+
+  // The consumers: warpgroup wg, warp warp % 4 of it owning 16 of its 64
+  // q rows (fragment rows g and g + 8).
+  const int wg = warp / 4, g = lane / 4, t4 = lane % 4;
+  const int row_w = C::SPLIT ? 0 : 64 * wg;   // its first row of the q tile
+  // problem j of the warpgroup: its place among the problems of a load
+  auto prob = [&](int j) { return C::SPLIT ? 2 * j + wg : j; };
+  float o[PW][8][4], s[C::NS][KN][4], m[PW][2], l[PW][2], c[2];
+  uint32_t pa[BKT / 16][4];
+  // The warp is done with ring slot kv % S (key step kv) or Q buffer
+  // qi % NQ (sweep qi): the eighth warp to say so loads the step S (the
+  // sweep NQ) later into it at once.
+  auto release = [&](int n, int at, bool q) {
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      if (atomicAdd(released + at, 1u) % 8 == 7) {
+        __threadfence_block();
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        if (q) load_q(n);
+        else load_kv(n);
+      }
+    }
+    __syncwarp();
+  };
+  auto release_kv = [&](int kv) { release(kv + S, kv % S, false); };
+  auto release_q = [&](int qi) { release(qi + NQ, S + qi % NQ, true); };
+
+  int kv = 0, qi = 0;
+  for (int item = blockIdx.x; item < P.items; item += gridDim.x) {
+    const int grp = item / P.n_qt, q0 = (item % P.n_qt) * C::QR;
+#pragma unroll 1
+    for (int u = 0; u < C::UNITS; ++u, ++qi) {
+      const int qb = qi % NQ;
+      const uint32_t qw = sq + qb * C::QBUF + row_w * ROWB;
+#pragma unroll
+      for (int j = 0; j < PW; ++j) {
+#pragma unroll
+        for (int d = 0; d < 8; ++d)
+          o[j][d][0] = o[j][d][1] = o[j][d][2] = o[j][d][3] = 0.f;
+        m[j][0] = m[j][1] = NEG_INF;
+        l[j][0] = l[j][1] = 0.f;
+      }
+      mbar_wait(q_full + 8 * qb, (qi / NQ) & 1);
+
+      // S = Q_j K_j^T of ring slot i into acc, issued and committed.
+      auto issue_qk = [&](int j, float(&acc)[KN][4], int i) {
+#pragma unroll
+        for (int n = 0; n < KN; ++n)
+          acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+        const uint32_t a = qw + prob(j) * C::QR * ROWB;
+        const uint32_t b = sk + i * C::KT + prob(j) * BKT * ROWB;
+        reg_fence(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < ROWB / 32; ++ks)   // 32 bytes of a row a step
+          wgmma_qk(acc, row_desc<ROWB>(a + ks * 32),
+                   row_desc<ROWB>(b + ks * 32), ks);
+        wgmma_commit();
+      };
+      // O_j += P V_j of ring slot i, issued and committed.
+      auto issue_pv = [&](int j, int i) {
+        const uint32_t b = sv + i * C::KT + prob(j) * BKT * ROWB;
+        reg_fence(o[j]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BKT / 16; ++kk)   // 16 rows of V a step
+          wgmma_pv_rows<D, BKT>(o[j], pa[kk], b, kk * 16);
+        wgmma_commit();
+      };
+
+      for (int t = 0; t < nkt; ++t, ++kv) {
+        const int i = kv % S, ph = (kv / S) & 1;
+        mbar_wait(full_k + 8 * i, ph);
+        if constexpr (SCHED == STRAIGHT) {
+          issue_qk(0, s[0], i);
+          // PV of the previous key step is done: its slot is free (the
+          // bookkeeping runs while QK^T is in flight)
+          if (t > 0) release_kv(kv - 1);
+          wgmma_wait<0>();
+          reg_fence(s[0]);
+          online_tile(s[0], m[0], l[0], c);
+          rescale_pack(o[0], c, pa, s[0]);
+          mbar_wait(full_v + 8 * i, ph);
+          issue_pv(0, i);
+          wgmma_wait<0>();
+          reg_fence(o[0]);
+        } else {
+          if constexpr (SCHED == INTERLEAVED) {
+#pragma unroll
+            for (int j = 0; j < PW; ++j) issue_qk(j, s[j], i);
+          } else {
+            issue_qk(0, s[0], i);
+          }
+#pragma unroll
+          for (int j = 0; j < PW; ++j) {
+            auto& sj = s[SCHED == INTERLEAVED ? j : j & 1];
+            if (SCHED == PIPELINED && j + 1 < PW)
+              issue_qk(j + 1, s[(j + 1) & 1], i);
+            // QK^T of problem j is done, with every group committed before
+            // it; still running: interleaved the later QK^T and PV of
+            // problem j - 1, pipelined PV of j - 1 and QK^T of j + 1
+            wgmma_wait_n(SCHED == INTERLEAVED ? (j < 2 ? PW - 1 : 1)
+                                              : (j + 1 < PW) + (j > 0));
+            // the previous key step's PV is done: its slot is free
+            if (j == 0 && t > 0) release_kv(kv - 1);
+            reg_fence(sj);
+            online_tile(sj, m[j], l[j], c);
+            // PV of problem j - 1 is done: pa is free
+            if (j > 0)
+              wgmma_wait_n(SCHED == INTERLEAVED ? 0 : int(j + 1 < PW));
+            reg_fence(o[j]);
+            rescale_pack(o[j], c, pa, sj);
+            if (j == 0) mbar_wait(full_v + 8 * i, ph);
+            issue_pv(j, i);
+          }
+        }
+      }
+      if constexpr (SCHED != STRAIGHT) {
+        wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < PW; ++j) reg_fence(o[j]);
+      }
+      release_kv(kv - 1);
+      release_q(qi);
+
+      // o / max(l, 1e-30) in bf16, l summed over the 4 lanes of a row
+#pragma unroll
+      for (int j = 0; j < PW; ++j) {
+        const int bh = grp * G + (SCHED == STRAIGHT ? u : prob(j));
+        float den[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float sum = l[j][r];
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, off);
+          den[r] = fmaxf(sum, 1e-30f);
+        }
+        const size_t lo =
+            (size_t(bh) * P.Np + q0 + row_w + (warp % 4) * 16 + g) * D;
+        const size_t hi = lo + 8 * D;
+#pragma unroll
+        for (int d = 0; d < 8; ++d) {
+          const int x = d * 8 + 2 * t4;
+          *reinterpret_cast<__nv_bfloat162*>(P.o + lo + x) =
+              __floats2bfloat162_rn(o[j][d][0] / den[0], o[j][d][1] / den[0]);
+          *reinterpret_cast<__nv_bfloat162*>(P.o + hi + x) =
+              __floats2bfloat162_rn(o[j][d][2] / den[1], o[j][d][3] / den[1]);
+        }
+      }
+    }
+  }
 }
 
 constexpr int EX2_CHAINS = 8;
@@ -386,7 +645,7 @@ __global__ void __launch_bounds__(EX2_THREADS)
   for (int i = 0; i < EX2_CHAINS; ++i) x[i] = 0.125f * i;
   for (int it = 0; it < iters; ++it) {
 #pragma unroll
-    for (int i = 0; i < EX2_CHAINS; ++i) x[i] = ex2_approx(-x[i]);
+    for (int i = 0; i < EX2_CHAINS; ++i) x[i] = ex2(-x[i]);
   }
   float sum = 0.f;
 #pragma unroll
@@ -399,36 +658,57 @@ bool bad_shape(int BH, int Np, int D_, int G) {
          BH % G != 0 || BH / G > 65535;
 }
 
+// grouped_sm90 launches since the library loaded, counted where the kernel
+// is launched. Read by bench_attention_design_launches.
+std::atomic<long long> design_launches{0};
+
 template <int G, int SCHED>
-int launch_grouped(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                   const __nv_bfloat16* v, __nv_bfloat16* o, int BH, int Np,
-                   cudaStream_t st) {
-  constexpr int NSET = SCHED == STRAIGHT ? 1 : G;
-  const size_t bytes = size_t(3) * NSET * TILE * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      grouped_kernel<G, SCHED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(bytes));
-  if (err != cudaSuccess) return int(err);
-  grouped_kernel<G, SCHED>
-      <<<dim3(Np / BQ, BH / G), NTHREAD, bytes, st>>>(q, k, v, o, Np);
-  return int(cudaGetLastError());
+int launch_grouped(const void* q, const void* k, const void* v, void* o,
+                   int BH, int Np, cudaStream_t stream) {
+  using C = GCfg<G, SCHED>;
+  GParams P{};
+  int err = encode_heads<D>(&P.tq, q, BH, Np, Np, 1, C::QR, C::NB);
+  if (err == 0) err = encode_heads<D>(&P.tk, k, BH, Np, Np, 1, C::BK, C::NB);
+  if (err == 0) err = encode_heads<D>(&P.tv, v, BH, Np, Np, 1, C::BK, C::NB);
+  if (err != 0) return err;
+  const auto kernel = grouped_sm90<G, SCHED>;
+  static std::atomic<uint64_t> attr_set{0};
+  int dev = 0;
+  err = smem_limit_once(kernel, int(C::SMEM), attr_set, &dev);
+  if (err != 0) return err;
+  P.o = static_cast<__nv_bfloat16*>(o);
+  P.Np = Np;
+  P.n_qt = Np / C::QR;
+  P.items = P.n_qt * (BH / G);
+  const int sms = sm_count(dev);
+  if (sms <= 0) return int(cudaErrorInvalidValue);
+  kernel<<<P.items < sms ? P.items : sms, GS_THREADS, C::SMEM, stream>>>(P);
+  err = int(cudaGetLastError());
+  if (err == 0) design_launches.fetch_add(1, std::memory_order_relaxed);
+  return err;
 }
 
 template <int SCHED>
 int dispatch_grouped(const void* q, const void* k, const void* v, void* o,
                      int BH, int Np, int D_, int G, void* stream) {
-  if (bad_shape(BH, Np, D_, G)) return int(cudaErrorInvalidValue);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  auto* op = static_cast<__nv_bfloat16*>(o);
+  if (D_ != D || BH <= 0 || Np <= 0 || Np % 128 != 0 || G <= 0 ||
+      BH % G != 0)
+    return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (G) {
-    case 2: return launch_grouped<2, SCHED>(qp, kp, vp, op, BH, Np, st);
-    case 4: return launch_grouped<4, SCHED>(qp, kp, vp, op, BH, Np, st);
-    case 8: return launch_grouped<8, SCHED>(qp, kp, vp, op, BH, Np, st);
+    case 2: return launch_grouped<2, SCHED>(q, k, v, o, BH, Np, st);
+    case 4: return launch_grouped<4, SCHED>(q, k, v, o, BH, Np, st);
+    case 8: return launch_grouped<8, SCHED>(q, k, v, o, BH, Np, st);
     default: return int(cudaErrorInvalidValue);
   }
+}
+
+template <int SCHED>
+int block_k_of(int G) {
+  return G == 2 ? GCfg<2, SCHED>::BK
+         : G == 4 ? GCfg<4, SCHED>::BK
+         : G == 8 ? GCfg<8, SCHED>::BK
+                  : 0;
 }
 
 }  // namespace
@@ -470,6 +750,22 @@ int bench_grouped(const void* q, const void* k, const void* v, void* o,
 int bench_pipelined(const void* q, const void* k, const void* v, void* o,
                     int BH, int Np, int D_, int G, void* stream) {
   return dispatch_grouped<PIPELINED>(q, k, v, o, BH, Np, D_, G, stream);
+}
+
+// The key tile of the grouped_sm90 instance of G and schedule (0 straight,
+// 1 interleaved, 2 pipelined); 0 where there is none.
+int bench_grouped_block_k(int G, int schedule) {
+  switch (schedule) {
+    case STRAIGHT: return block_k_of<STRAIGHT>(G);
+    case INTERLEAVED: return block_k_of<INTERLEAVED>(G);
+    case PIPELINED: return block_k_of<PIPELINED>(G);
+    default: return 0;
+  }
+}
+
+// out[0]: grouped_sm90 launches (bench_grouped, bench_pipelined).
+void bench_attention_design_launches(long long* out) {
+  out[0] = design_launches.load(std::memory_order_relaxed);
 }
 
 // out: blocks * 256 floats, each the sum of 8 chains after `iters` steps.

@@ -186,21 +186,6 @@ __device__ __forceinline__ void warpgroup_sync(int w) {
   asm volatile("bar.sync %0, 128;" ::"r"(2 + w) : "memory");
 }
 
-// d (64 x 64 per warpgroup) = or += A (64 x 16, smem) B^T (64 x 16, smem),
-// both K-major.
-__device__ __forceinline__ void wgmma_ss64(float (&d)[8][4], uint64_t da,
-                                           uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : SM90_F4(d, 0), SM90_F4(d, 1), SM90_F4(d, 2), SM90_F4(d, 3),
-        SM90_F4(d, 4), SM90_F4(d, 5), SM90_F4(d, 6), SM90_F4(d, 7)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
 // d (64 x 32 per warpgroup) = or += A (64 x 16) B (16 x 32), both from
 // shared memory MN-major (transpose bits set).
 __device__ __forceinline__ void wgmma_tt(float (&d)[4][4], uint64_t da,
@@ -286,11 +271,11 @@ __device__ __forceinline__ void bwd_consume(const BwdSm90& P,
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks)   // 32 bytes of each row a step
-        wgmma_ss64(s, sw_desc<D>(at_row<ROW, BK>(k_w, 0, ks * 32)),
+        wgmma_qk(s, sw_desc<D>(at_row<ROW, BK>(k_w, 0, ks * 32)),
                    sw_desc<D>(at_row<ROW, BW_BQ>(q_s, 0, ks * 32)), ks);
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks)
-        wgmma_ss64(dp, sw_desc<D>(at_row<ROW, BK>(v_w, 0, ks * 32)),
+        wgmma_qk(dp, sw_desc<D>(at_row<ROW, BK>(v_w, 0, ks * 32)),
                    sw_desc<D>(at_row<ROW, BW_BQ>(do_s, 0, ks * 32)), ks);
       wgmma_commit();
       wgmma_wait<0>();

@@ -1,8 +1,9 @@
-// Hopper helpers shared by the flash-attention forward (flash_sm90.cuh)
-// and backward (flash_bwd_sm90.cuh): mbarriers, TMA loads, the swizzled
-// tile layout and its wgmma descriptors, wgmma issue and synchronisation,
-// the register-A product with an MN-major B, exp2 on MUFU.EX2, and the
-// 4-D tensor maps of the packed (B, N, H*D) layout. A tile row is D bf16:
+// Hopper helpers shared by the flash-attention forward (flash_sm90.cuh),
+// backward (flash_bwd_sm90.cuh) and grouped probes (bench_attention.cu):
+// mbarriers, TMA loads, the swizzled tile layout and its wgmma
+// descriptors, wgmma issue and synchronisation, the register-A product
+// with an MN-major B, exp2 on MUFU.EX2, and the 4-D tensor maps of the
+// packed (B, N, H*D) layout. A tile row is D bf16:
 // 256 bytes at D = 128, 128 at D = 64 (128-byte swizzle), 64 at D = 32
 // (64-byte swizzle); or D int8 (the int8 forward's q and k): 128, 64 or 32
 // bytes (32-byte swizzle). A row wider than the 128-byte swizzle's atom is
@@ -209,6 +210,47 @@ __device__ __forceinline__ void wgmma_pv_rows(float (&d)[D / 8][4],
              sw_desc<D>(tile + p * R * PR + r0 * PR));
 }
 
+// d (64 x 8N per warpgroup) = or += A (64 x 16, smem) B^T (8N x 16, smem),
+// both K-major (QK^T of bf16 tiles): wgmma m64n{128,64,32}k16.
+__device__ __forceinline__ void wgmma_qk(float (&d)[16][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SM90_F4(d, 0), SM90_F4(d, 1), SM90_F4(d, 2), SM90_F4(d, 3),
+        SM90_F4(d, 4), SM90_F4(d, 5), SM90_F4(d, 6), SM90_F4(d, 7),
+        SM90_F4(d, 8), SM90_F4(d, 9), SM90_F4(d, 10), SM90_F4(d, 11),
+        SM90_F4(d, 12), SM90_F4(d, 13), SM90_F4(d, 14), SM90_F4(d, 15)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_qk(float (&d)[8][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : SM90_F4(d, 0), SM90_F4(d, 1), SM90_F4(d, 2), SM90_F4(d, 3),
+        SM90_F4(d, 4), SM90_F4(d, 5), SM90_F4(d, 6), SM90_F4(d, 7)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_qk(float (&d)[4][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : SM90_F4(d, 0), SM90_F4(d, 1), SM90_F4(d, 2), SM90_F4(d, 3)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 // 2^x in one MUFU.EX2: exp2f's own instruction without the three that
 // keep results below 2^-126 subnormal; those flush to 0 here. Below a row's
 // running max that is invisible (l >= 1, P rounds to bf16); with the static
@@ -251,11 +293,11 @@ EncodeTiled tensor_map_encoder() {
 // 4-D map (D, H, n, B) of a packed (B, N, H*D) tensor of ESZ-byte
 // elements (bf16, or int8 with ESZ = 1), cut at n <= N rows: a box is
 // `rows` rows of one panel of one head (the whole row at D * ESZ <= 128
-// bytes), swizzled by the panel row's width (as swz<D> for bf16); rows at
-// or past n read as zeros.
+// bytes) of `batches` consecutive batches, batch-major, swizzled by the
+// panel row's width (as swz<D> for bf16); rows at or past n read as zeros.
 template <int D, int ESZ = 2>
 int encode_heads(CUtensorMap* map, const void* ptr, int B, int N, int n,
-                 int H, int rows) {
+                 int H, int rows, int batches = 1) {
   constexpr cuuint64_t ROW = ESZ * D;
   constexpr cuuint32_t PR = panel(ROW);
   static_assert(ROW == 32 || ROW == 64 || ROW == 128 || ROW == 256,
@@ -267,7 +309,8 @@ int encode_heads(CUtensorMap* map, const void* ptr, int B, int N, int n,
   const cuuint64_t dims[4] = {D, cuuint64_t(H), cuuint64_t(n),
                               cuuint64_t(B)};
   const cuuint64_t strides[3] = {ROW, ROW * H, ROW * H * N};
-  const cuuint32_t box[4] = {PR / ESZ, 1, cuuint32_t(rows), 1};
+  const cuuint32_t box[4] = {PR / ESZ, 1, cuuint32_t(rows),
+                            cuuint32_t(batches)};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map,

@@ -10,9 +10,10 @@ four hand-written CUDA probes (csrc/bench_attention.cu) that split it:
 * `softmax_only`: the exp2 softmax of a broadcast logit row, no matmuls -
   the softmax floor (its output is 1/Np everywhere);
 * `grouped_attention` (straight or interleaved) and `pipelined_attention`:
-  exp2-domain attention on pre-scaled q, G problems per CTA in three
-  instruction schedules, to see whether one problem's tensor-core work
-  hides another's softmax;
+  exp2-domain attention on pre-scaled q, G problems per work item in three
+  orders of asynchronous `wgmma` groups (the Hopper design of
+  csrc/bench_attention.cu's `grouped_sm90`), to see whether one problem's
+  tensor-core work hides another's softmax;
 
 and SDPA at the padded shape as the library yardstick: at scale ln 2 its
 exp is the probes' exp2. Inputs are padded to Np = roundup(N, 128) with
@@ -27,13 +28,17 @@ inputs exceed the 50 MB L2 at the default shape), TF/s (4·BH·Np²·D over
 the time, as the reference counts), the bound and the share of it.
 Each line also gives the plain version's time on the same arguments.
 `--check` first holds every call against its plain version on the same
-arguments (softmax-only bit-exact, the others 1e-2 of the largest |ref|)
-and the attention calls against naive attention on the first frame's
-first two heads (0.05, the reference's check), and raises on a mismatch.
-The script runs on the card and raises without one.
+arguments (softmax-only bit-exact, the others 1e-2 of the largest |ref|),
+the grouped and pipelined kernels also against the plain version at their
+own key tile (`tiled_tolerance`: 2e-3, or one bf16 step of |ref| where
+larger), and the attention calls against naive
+attention on the first frame's first two heads (0.05, the reference's
+check), and raises on a mismatch. The script runs on the card and raises
+without one.
 
 The kernel wrappers take their plain versions for CPU tensors only; a CUDA
-tensor launches the kernel or raises. `LAUNCHES` counts kernel launches.
+tensor launches the kernel or raises. `LAUNCHES` counts kernel launches,
+`design_launches()` the C launcher's count of `grouped_sm90` launches.
 """
 from __future__ import annotations
 
@@ -55,6 +60,9 @@ BF16_PEAK_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 EX2_PER_SM_CLOCK = 16         # MUFU.EX2 results per SM per clock
 HEAD_DIM = 64                 # the head dim the probe kernels are built for
+# The grouped kernels' schedules, in the order of their C ids.
+SCHEDULES = ("straight", "interleaved", "pipelined")
+TILED_TOL = 2e-3              # against the plain version at the key tile
 
 # Launches of each CUDA kernel in this process (plain-version calls are not
 # counted). Read by chip_smoke.py to show the script ran the kernels.
@@ -105,19 +113,44 @@ def softmax_only_ref(q, k, v):
     return _by_problem(fn, q, k, v)
 
 
-def exp2_attention_ref(q, k, v, l_keys=None):
+def exp2_attention_ref(q, k, v, l_keys=None, block_k=None):
     """Plain version of `grouped_attention` and `pipelined_attention`:
     s = q kᵀ in f32 on pre-scaled q, m the row max over all keys (padded
     keys too: logit 0, v 0), p = exp2(s - m), l the f32 sum of the unrounded
-    p, o = (bf16(p) v) / max(l, 1e-30) in q's dtype. `l_keys` sums l over
+    p, o = (bf16(p) v) / max(l, 1e-30) in q's dtype. With `block_k`, m is
+    the running max over key tiles of block_k, as the kernels take it (the
+    online softmax: per tile m' = max(m, tile max), a = exp2(m - m'),
+    p = exp2(s - m'), l = a l + Σp, acc = a acc + bf16(p) v), so p is
+    rounded against the same max as in the kernel. `l_keys` sums l over
     the first l_keys keys only: a control that drops the padded keys from
     l, which the checks must tell from the real function."""
+    def logits(q, k):
+        return torch.matmul(q.float(), k.float().transpose(-1, -2))
+
     def fn(q, k, v):
-        s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-        p = torch.exp2(s - s.amax(-1, keepdim=True))
-        l = (p if l_keys is None else p[..., :l_keys]).sum(-1, keepdim=True)
-        o = torch.matmul(p.to(v.dtype).float(), v.float())
-        return (o / l.clamp_min(1e-30)).to(q.dtype)
+        if block_k is None:
+            s = logits(q, k)
+            p = torch.exp2(s - s.amax(-1, keepdim=True))
+            l = (p if l_keys is None else p[..., :l_keys]).sum(-1,
+                                                               keepdim=True)
+            o = torch.matmul(p.to(v.dtype).float(), v.float())
+            return (o / l.clamp_min(1e-30)).to(q.dtype)
+        shape = q.shape[:-1] + (1,)
+        m = torch.full(shape, -1e30, device=q.device)
+        l = torch.zeros(shape, device=q.device)
+        acc = torch.zeros(q.shape, device=q.device)
+        for j in range(0, k.shape[-2], block_k):
+            s = logits(q, k[..., j:j + block_k, :])
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            a = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            n = block_k if l_keys is None else min(max(l_keys - j, 0),
+                                                   block_k)
+            l = a * l + p[..., :n].sum(-1, keepdim=True)
+            acc = a * acc + torch.matmul(p.to(v.dtype).float(),
+                                         v[..., j:j + block_k, :].float())
+            m = m_new
+        return (acc / l.clamp_min(1e-30)).to(q.dtype)
     return _by_problem(fn, q, k, v)
 
 
@@ -135,6 +168,9 @@ _SIGNATURES = {
     "bench_pipelined": ([_P] * 4 + [_I] * 4 + [_P], ctypes.c_int),
     "bench_ex2_rate": ([_P, _I, _I, _P], ctypes.c_int),
     "bench_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "bench_grouped_block_k": ([_I, _I], ctypes.c_int),
+    "bench_attention_design_launches": (
+        [ctypes.POINTER(ctypes.c_longlong)], None),
 }
 
 
@@ -144,7 +180,58 @@ def kernel_library():
     return cuda_build.load("bench_attention", _SIGNATURES)
 
 
-def _check_cuda(q, k, v, ndim):
+def design_launches() -> dict:
+    """The grouped and pipelined kernels' launches in this process by
+    design, counted by the C launcher at each launch: "tma_wgmma" for
+    `grouped_sm90` (csrc/bench_attention.cu), their one design."""
+    out = (ctypes.c_longlong * 1)()
+    kernel_library().bench_attention_design_launches(out)
+    return {"tma_wgmma": out[0]}
+
+
+def instance(variant):
+    """(schedule, G) of a grouped, interleaved or pipelined variant's name
+    ("grouped G=2" is the straight schedule), else None."""
+    kind, _, G = variant.partition(" G=")
+    if not G or kind not in ("grouped", "interleaved", "pipelined"):
+        return None
+    return ("straight" if kind == "grouped" else kind), int(G)
+
+
+def block_k(schedule, G):
+    """The key tile of the `grouped_sm90` instance of `schedule` and G, as
+    its library reports it (on the card): the `block_k` of its plain
+    version."""
+    n = kernel_library().bench_grouped_block_k(G, SCHEDULES.index(schedule))
+    if n <= 0:
+        raise ValueError(f"no grouped kernel for {schedule} at G={G}")
+    return n
+
+
+def tiled_tolerance(ref):
+    """Elementwise tolerance against the plain version at the kernel's key
+    tile: TILED_TOL, or one bf16 step of |ref| where that is larger (|ref|
+    >= 0.5). Both sides round o to bf16, so two right f32 evaluations of a
+    value near a rounding boundary end one step apart."""
+    m, e = torch.frexp(ref.float())
+    step = torch.where(m == 0, torch.zeros_like(m),
+                       torch.ldexp(torch.ones_like(m), e - 8))
+    return step.clamp_min(TILED_TOL)
+
+
+def tiled_error(variant, args, out):
+    """(max |out - ref|, max |out - ref| / `tiled_tolerance`, block_k) of a
+    grouped or pipelined variant's kernel output on its call's arguments
+    against `exp2_attention_ref` at the instance's own key tile: it holds
+    where the second number is at most 1."""
+    bk = block_k(*instance(variant))
+    ref = exp2_attention_ref(*args, block_k=bk)
+    diff = (out.float() - ref.float()).abs()
+    return (float(diff.max()), float((diff / tiled_tolerance(ref)).max()),
+            bk)
+
+
+def _check_cuda(q, k, v, ndim, rows=64):
     if q.dim() != ndim or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v of one {ndim}-d shape expected, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -158,9 +245,9 @@ def _check_cuda(q, k, v, ndim):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     Np, D = q.shape[-2:]
-    if D != HEAD_DIM or Np % 64:
+    if D != HEAD_DIM or Np % rows:
         raise ValueError(f"the probe kernels take head dim {HEAD_DIM} and a "
-                         f"multiple of 64 rows, got {Np} x {D}")
+                         f"multiple of {rows} rows, got {Np} x {D}")
 
 
 def _launch(entry, device, *args, lib=None):
@@ -209,36 +296,47 @@ def softmax_only(q, k, v):
     return out
 
 
-def grouped_attention(q, k, v, *, interleave=False):
-    """Grouped probe on (BH/G, G, Np, D) bf16, G in (2, 4, 8): the G
-    problems of a group share a CTA, problem by problem or, with
-    `interleave`, all G QKᵀ products of a key tile before the G softmax and
-    PV chains. CPU tensors take `exp2_attention_ref`, CUDA tensors the CUDA
-    kernel."""
+def _grouped_out(q, k, v, out):
+    """Check a grouped call's arguments; its output (`out` where given)."""
+    _require_cuda(q)
+    _check_cuda(q, k, v, 4, rows=128)
+    if out is None:
+        return torch.empty_like(q)
+    if (out.shape != q.shape or out.dtype != q.dtype
+            or out.device != q.device or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous tensor like q")
+    return out
+
+
+def grouped_attention(q, k, v, *, interleave=False, out=None):
+    """Grouped probe on (BH/G, G, Np, D) bf16, G in (2, 4, 8), Np a
+    multiple of 128: a work item takes the G problems of a group, problem
+    by problem or, with `interleave`, all QKᵀ products of a key tile before
+    the softmax and PV chains. CPU tensors take `exp2_attention_ref`, CUDA
+    tensors the CUDA kernel (of the library `kernel_library` gives),
+    written into `out` where given."""
     if q.device.type == "cpu":
         return exp2_attention_ref(q, k, v)
-    _require_cuda(q)
-    _check_cuda(q, k, v, 4)
-    out = torch.empty_like(q)
+    out = _grouped_out(q, k, v, out)
     _launch("bench_grouped", q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), q.shape[0] * q.shape[1],
-            q.shape[2], q.shape[3], q.shape[1], int(bool(interleave)))
+            q.shape[2], q.shape[3], q.shape[1], int(bool(interleave)),
+            lib=kernel_library())
     LAUNCHES["grouped"] += 1
     return out
 
 
-def pipelined_attention(q, k, v):
+def pipelined_attention(q, k, v, *, out=None):
     """Pipelined probe on (BH/G, G, Np, D) bf16: per key tile the QKᵀ of
     problem g + 1 is issued before the softmax and PV of problem g. CPU
-    tensors take `exp2_attention_ref`, CUDA tensors the CUDA kernel."""
+    tensors take `exp2_attention_ref`, CUDA tensors the CUDA kernel,
+    written into `out` where given."""
     if q.device.type == "cpu":
         return exp2_attention_ref(q, k, v)
-    _require_cuda(q)
-    _check_cuda(q, k, v, 4)
-    out = torch.empty_like(q)
+    out = _grouped_out(q, k, v, out)
     _launch("bench_pipelined", q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), q.shape[0] * q.shape[1],
-            q.shape[2], q.shape[3], q.shape[1])
+            q.shape[2], q.shape[3], q.shape[1], lib=kernel_library())
     LAUNCHES["pipelined"] += 1
     return out
 
@@ -511,9 +609,11 @@ parser.add_argument("--check", action="store_true",
 
 def check(variants, q, k, v):
     """--check: every call against its plain version on the same arguments,
-    the attention calls also against f32 naive attention on the first
-    frame's first two heads. Returns {name: (max |err| against the plain
-    version, its tolerance)}; raises on a mismatch."""
+    on the card the grouped and pipelined kernels also against it at their
+    own key tile (`tiled_error`), the attention calls against f32 naive
+    attention on the first frame's first two heads. Returns {name: (max
+    |err| against the plain version, its tolerance)}; raises on a
+    mismatch."""
     ref = naive_attention(*(t[:1, :2].float() for t in (q, k, v)))
     errors = {}
     for name, p in variants.items():
@@ -523,6 +623,11 @@ def check(variants, q, k, v):
         line = (f"  check {name}: max|err|={err:.3g} against plain "
                 f"(tol {tol:.3g})")
         ok = err <= tol
+        if instance(name) and out.device.type == "cuda":
+            terr, share, bk = tiled_error(name, args, out)
+            line += (f", {terr:.3g} at block_k {bk} ({share:.3g} of "
+                     f"tiled_tolerance)")
+            ok = ok and share <= 1
         if p.kind not in ("matmul", "softmax"):
             e2 = float((p.unprep(out, q.shape)[:1, :2].float() - ref)
                        .abs().max())
