@@ -1649,39 +1649,46 @@ MATMUL_COMMAND = ("python -m vggt_slam_tpu_torch.scripts.bench_matmul_shapes "
 # reference's B = 528 QK^T shape)
 MATMUL_PROBES = {
     "batched_mm": ("scripts/bench_matmul_shapes.py:41 (pallas_batched_mm, "
-                   "launched at :49)", "batched 64x64"),
+                   "launched at :49)", "batched 128x128"),
     "grouped_mm": ("scripts/bench_matmul_shapes.py:64 (pallas_grouped_mm, "
-                   "launched at :75)", "grouped G=2 64x64"),
+                   "launched at :75)", "grouped G=2 128x128"),
 }
 
 
 def check_matmul_probes():
     """Phase G: the script's main with --check at its defaults, counts
     reset just before; every line checked, the controls run at both B = 528
-    shapes, each kernel launched; ptxas registers and spills per instance.
-    Returns (main's result, launches)."""
+    shapes, each kernel launched, and every call of the C entries one
+    launch of mm_sm90 by the C launcher's count; ptxas registers and spills
+    per instance, a line with no report an error. Returns (main's result,
+    launches, launches by design)."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
     from vggt_slam_tpu_torch.scripts import bench_matmul_shapes as MM
 
     MM.reset_launch_counts()
+    before = MM.design_launches()["tma_wgmma"]
     out, run = run_probe_script(MM, ["--check"])
     launches = dict(MM.LAUNCHES)
-    log("matmul_probe_path", launches=launches, **run)
+    designs = {"tma_wgmma": MM.design_launches()["tma_wgmma"] - before}
+    calls = sum(MM.CALLS.values())
+    log("matmul_probe_path", launches=launches, calls=dict(MM.CALLS),
+        design_launches=designs, **run)
     if not all(launches.values()):
         raise AssertionError(f"the matmul script did not launch every "
                              f"kernel: {launches}")
-    registers, spills = ptxas_report(cuda_build.build_log)
+    if not designs["tma_wgmma"] == calls > 0:
+        raise AssertionError(f"{calls} calls of the matmul entries, "
+                             f"{designs['tma_wgmma']} of them mm_sm90")
+    report = ptxas_report(cuda_build.build_log)
     for line in out["lines"]:
-        bm, bn = line["tiling"]
-        grouped = line["kernel"] == "grouped_mm"     # mm_kernel's GROUPED
-        patterns = (f"mm_kernel<{bm}, {bn}, {str(grouped).lower()}>(",
-                    f"mm_kernelILi{bm}ELi{bn}ELb{int(grouped)}EE")
-        line["registers"], line["spill_store_bytes"] = next(
-            ((r, spills.get(f, 0)) for f, r in registers.items()
-             if any(pat in f for pat in patterns)), (None, None))
+        bn = line["tiling"][1]     # both kernels run mm_sm90<block_n>
+        line["registers"], line["spill_store_bytes"] = mm_ptxas(report, bn)
         log("matmul_probe_line", **line)
+        if line["registers"] is None:
+            raise AssertionError(f"no ptxas report of mm_sm90<{bn}> for "
+                                 f"{line['variant']}")
     log("matmul_probe_check", library=out["library"], checks=out["checks"],
         controls=out["controls"])
     if (len(out["checks"]) != len(out["lines"])
@@ -1690,10 +1697,19 @@ def check_matmul_probes():
                              f"{len(out['lines'])} lines, controls at "
                              f"{list(out['controls'])}")
     torch.cuda.empty_cache()
-    return out, launches
+    return out, launches, designs
 
 
-def matmul_probe_entries(out, launches):
+def mm_ptxas(report, bn):
+    """(registers, spill-store bytes) of mm_sm90<bn> in `ptxas_report`'s
+    result, by demangled or mangled name; (None, None) if absent."""
+    registers, spills = report
+    patterns = (f"mm_sm90<{bn}>(", f"mm_sm90ILi{bn}EE")
+    return next(((r, spills.get(f, 0)) for f, r in registers.items()
+                 if any(pat in f for pat in patterns)), (None, None))
+
+
+def matmul_probe_entries(out, launches, designs):
     """The two matmul-shape kernels' entries of the kernels line."""
     entries = []
     for name, (replaces, rep) in MATMUL_PROBES.items():
@@ -1702,9 +1718,15 @@ def matmul_probe_entries(out, launches):
                  and line["B"] == 528 and line["K"] == 64)
         entries.append({
             "name": name, "status": "ported", "route": "cuda",
-            "source": "vggt_slam_tpu_torch/csrc/bench_matmul_shapes.cu",
+            "source": "vggt_slam_tpu_torch/csrc/bench_matmul_shapes.cu, "
+                      "csrc/sm90_common.cuh",
             "replaces": replaces, "launches": launches[name],
             "launches_path": MATMUL_COMMAND + " (its defaults)",
+            "design": "tma_wgmma (mm_sm90: persistent, TMA ring, wgmma, "
+                      "TMA-store epilogue)",
+            "design_launches_both_kernels": designs,
+            "registers": {f"{line['tiling'][0]}x{line['tiling'][1]}":
+                          line["registers"] for line in variants},
             "variant": f"B=528 (1056,64,1056) {rep}",
             "max_abs_err": max(line["max_abs_err"] for line in variants),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -2435,6 +2457,126 @@ def ab_probes(device, dirs):
     return rows
 
 
+AB_MM_GROUPS = (2, 16)
+
+
+def ab_mm_tilings(d):
+    """The tilings of A/B folder `d`'s matmul build: TILINGS of the
+    bench_matmul_shapes.py beside its .cu (that tree's port script), read
+    without importing it, else this tree's."""
+    import ast
+
+    from vggt_slam_tpu_torch.scripts import bench_matmul_shapes as MM
+
+    script = os.path.join(d, "bench_matmul_shapes.py")
+    if not os.path.exists(script):
+        return MM.TILINGS
+    with open(script) as f:
+        tree = ast.parse(f.read())
+    return next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "TILINGS"
+                        for t in node.targets))
+
+
+def ab_mm_call(lib, tilings):
+    """run_variant's launch on one ctypes build `lib` of some
+    bench_matmul_shapes.cu, whose tilings are `tilings`: the operands
+    checked, its C entry called into `out`, nothing counted."""
+    from vggt_slam_tpu_torch.scripts import bench_attention as BA
+    from vggt_slam_tpu_torch.scripts import bench_matmul_shapes as MM
+
+    def call(kernel, a, b, G, tile, out):
+        MM.check_operands(a, b, G, tile, out, tilings)
+        BA._launch(f"bench_{kernel}", a.device, a.data_ptr(), b.data_ptr(),
+                   out.data_ptr(), *a.shape, b.shape[2],
+                   *((G,) if kernel == "grouped_mm" else ()), *tile, lib=lib)
+        return out
+    return call
+
+
+def ab_matmul(device, dirs, iters=20):
+    """The matmul-shape probes of each of `dirs` that holds a
+    bench_matmul_shapes.cu (with the headers it includes beside it; the
+    build named after its folder), then this tree's, at every tiling of
+    each build (`ab_mm_tilings`): batched_mm at the reference's nine B = 1
+    shapes, batched_mm and grouped_mm at G in AB_MM_GROUPS at the QK^T and
+    PV shapes at B 528. Each line held within one bf16 ulp of max|ref| of
+    `batched_mm_ref` first (a NaN-filled output), then timed in turns
+    (first to last, then back) as CUDA graphs over copies spanning 2 x L2
+    (`graph_bench`: device ms), beside the library call (torch.bmm,
+    torch.matmul at B = 1) and the bound. Returns the rows (also logged)."""
+    import torch
+
+    from vggt_slam_tpu_torch.ops import cuda_build
+    from vggt_slam_tpu_torch.scripts import bench_attention as BA
+    from vggt_slam_tpu_torch.scripts import bench_matmul_shapes as MM
+
+    sigs = {n: sig for n, sig in MM._SIGNATURES.items()
+            if n != "bench_matmul_design_launches"}
+    libs, tilings = {}, {}
+    for d in dirs:
+        src = os.path.join(d, "bench_matmul_shapes.cu")
+        if os.path.exists(src):
+            name = os.path.basename(os.path.normpath(d))
+            libs[name] = cuda_build.load(f"bench_matmul_shapes_ab_{name}",
+                                         sigs, src)
+            tilings[name] = ab_mm_tilings(d)
+    libs["this_tree"], tilings["this_tree"] = MM.kernel_library(), MM.TILINGS
+    calls = {n: ab_mm_call(lib, tilings[n]) for n, lib in libs.items()}
+    log("ab_matmul_builds", tilings=tilings)
+    runners = [(n, t) for n in libs for t in tilings[n]]
+    gen = torch.Generator(device).manual_seed(SEED)
+    rows = []
+    for _, B, (M, K, N) in MM.sections():
+        a, b = (torch.randn(s_, generator=gen, device=device).to(
+            torch.bfloat16) for s_ in ((B, M, K), (B, K, N)))
+        ref = MM.batched_mm_ref(a, b)
+        bound, by = MM.bound_ms(B, M, K, N)
+        sets = [(x, y, torch.empty(B, M, N, dtype=torch.bfloat16,
+                                   device=device)) for x, y in
+                [(a, b)] + [(a.clone(), b.clone())
+                            for _ in range(MM.copies(B, M, K, N) - 1)]]
+        lib_ms = BA.graph_bench(MM.library_mm, sets, iters)
+        kernels = [("batched_mm", 1)] + ([("grouped_mm", G)
+                                          for G in AB_MM_GROUPS] if B > 1
+                                         else [])
+        for kernel, G in kernels:
+            errs, runs = {}, {r: [] for r in runners}
+            for n, t in runners + runners[::-1]:
+                if (n, t) not in errs:
+                    out = calls[n](kernel, a, b, G, t,
+                                   torch.full_like(ref, math.nan))
+                    torch.cuda.synchronize()
+                    errs[n, t] = MM.mm_error(out, ref)
+                    del out
+                    if not errs[n, t][0] <= errs[n, t][1]:
+                        raise AssertionError(
+                            f"{n} {kernel} G={G} {t} at B={B} "
+                            f"({M},{K},{N}): {errs[n, t]}")
+                runs[n, t].append(BA.graph_bench(
+                    calls[n], [(kernel, x, y, G, t, o) for x, y, o in sets],
+                    iters))
+            name = {r: f"{r[0]} {MM.tile_name(r[1])}" for r in runners}
+            ms = {name[r]: sum(v) / len(v) for r, v in runs.items()}
+            best = {n: min(ms[name[n, t]] for t in tilings[n]) for n in libs}
+            row = dict(kernel=kernel, G=G, B=B, M=M, K=K, N=N, graph_ms=ms,
+                       runs={name[r]: v for r, v in runs.items()},
+                       errors={name[r]: e for r, e in errs.items()},
+                       best_ms=best, bound_ms=bound, bound_by=by,
+                       library="torch.bmm" if B > 1 else "torch.matmul",
+                       library_ms=lib_ms, copies=len(sets),
+                       share_of_bound={n: bound / t for n, t in best.items()},
+                       over_library={n: t / lib_ms for n, t in best.items()})
+            row["faster_than"] = {n: best["this_tree"] < t
+                                  for n, t in best.items() if n != "this_tree"}
+            log("ab_matmul", **row)
+            rows.append(row)
+        del a, b, ref, sets
+        torch.cuda.empty_cache()
+    return rows
+
+
 def ab_int8(device, builds):
     """The int8 forward of each build (`ab_builds`) at phase A's shapes,
     both kernels: held to its own wrapper's plain version and bf16 control
@@ -2585,6 +2727,8 @@ def main(argv) -> int:
             ab_backward(device, builds, dirs)
         if holding("bench_attention.cu"):
             ab_probes(device, dirs)
+        if holding("bench_matmul_shapes.cu"):
+            ab_matmul(device, dirs)
         return 0
     checks = check_kernels(device)
     int8_checks = check_int8_kernels(device)

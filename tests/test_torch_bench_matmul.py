@@ -160,14 +160,19 @@ def test_tolerance_is_one_ulp_of_the_largest_output():
     assert MM.mm_error(out, ref) == (tol, tol)
 
 
-@pytest.mark.parametrize("shape", [(4, 72, 64, 24), (3, 72, 80, 16)],
-                         ids=["qk_like", "pv_like"])
+# ragged at the tiles: M 136 and 200 leave 8 and 72 rows past 128, so the
+# `edge` control's NaN band starts at row 128, where the last row tile
+# begins; N 264 leaves 8 columns past 256
+@pytest.mark.parametrize("shape", [(4, 72, 64, 24), (3, 72, 80, 16),
+                                   (2, 136, 64, 24), (3, 200, 80, 264)],
+                         ids=["qk_like", "pv_like", "qk_ragged_128",
+                              "ragged_128x256"])
 def test_check_and_controls_on_cpu_tensors(shape, capsys):
     """`check` and its three controls on CPU tensors (no launch)."""
     a, b = _inputs(*shape, seed=4)
     before = dict(MM.LAUNCHES)
     names = MM.variants(shape[0])
-    assert [n for n, *_ in names] == ["batched 64x64", "batched 128x128"]
+    assert [n for n, *_ in names] == ["batched 128x128", "batched 128x256"]
     errors, ctrl = MM.check(a, b, MM.batched_mm_ref(a, b), names, True)
     assert all(e["max_abs_err"] == 0.0 for e in errors.values())
     assert set(ctrl) == {"batch", "edge", "k_tile", "tol"}
@@ -223,7 +228,91 @@ def test_variants_follow_the_reference_sections():
     assert "grouped G=16 128x128" in names
 
 
+@pytest.mark.parametrize("B", [MM.BATCH, 1])
+def test_variants_list_every_tiling(B):
+    """Every built tiling has its batched line at both batch sizes, and at
+    B = 528 its grouped line at every G; names are unique."""
+    lines = MM.variants(B)
+    assert len({n for n, *_ in lines}) == len(lines)
+    for tile in MM.TILINGS:
+        assert (f"batched {MM.tile_name(tile)}", "batched_mm", 1,
+                tile) in lines
+        for G in MM.GROUPS:
+            grouped = (f"grouped G={G} {MM.tile_name(tile)}", "grouped_mm",
+                       G, tile)
+            assert (grouped in lines) == (B == MM.BATCH)
+    assert MM.TILINGS == ((128, 128), (128, 256))
+    assert MM.DEFAULT_TILING in MM.TILINGS
+
+
 def test_main_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MM.main(["--check"])
+
+
+# ptxas's -v report of the two mm_sm90 instances, as nvcc prints it.
+_PTXAS = "\n".join(
+    f"ptxas info    : Compiling entry function "
+    f"'_ZN12_GLOBAL__N_17mm_sm90ILi{bn}EEEvNS_8MmParamsE' for 'sm_90a'\n"
+    f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    f"ptxas info    : Used {regs} registers, 384 bytes cmem[0]"
+    for bn, regs in ((128, 90), (256, 154)))
+
+
+def test_ptxas_report_survives_a_cached_build(tmp_path, monkeypatch):
+    """Phase G's register lookup finds mm_sm90<128> and <256> whether the
+    library was just built or was already up to date: the report is kept
+    beside the library and read back on a cache hit."""
+    import chip_smoke
+    from vggt_slam_tpu_torch.ops import cuda_build
+
+    nvcc = tmp_path / "nvcc"
+    (tmp_path / "report.txt").write_text(_PTXAS + "\n")
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = -o ] && '
+                    'out="$2"; shift; done\n: > "$out"\n'
+                    f'cat "{tmp_path / "report.txt"}" >&2\n')
+    nvcc.chmod(0o755)
+    src = tmp_path / "csrc" / "probe.cu"
+    src.parent.mkdir()
+    src.write_text("// a probe\n")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: str(nvcc))
+    for run in ("built", "cached"):
+        monkeypatch.setattr(cuda_build, "build_log", {})
+        monkeypatch.setattr(cuda_build, "build_seconds", {})
+        lib = cuda_build.build("probe", str(src))
+        assert os.path.exists(lib)
+        assert (cuda_build.build_seconds["probe"] == 0.0) == (run == "cached")
+        report = chip_smoke.ptxas_report(cuda_build.build_log)
+        assert chip_smoke.mm_ptxas(report, 128) == (90, 0), run
+        assert chip_smoke.mm_ptxas(report, 256) == (154, 0), run
+        assert chip_smoke.mm_ptxas(report, 64) == (None, None), run
+        if run == "built":      # a cache hit must not call nvcc
+            monkeypatch.setattr(cuda_build, "nvcc_path", _no_nvcc)
+
+
+def _no_nvcc():
+    raise AssertionError("nvcc called on an up-to-date library")
+
+
+@pytest.mark.parametrize("carries_script", [True, False])
+def test_ab_leg_takes_each_builds_tilings(tmp_path, carries_script):
+    """The A/B leg reads a folder's tilings from the port script beside its
+    .cu (this tree's where there is none) and refuses, before any launch,
+    a tiling that build does not take."""
+    import chip_smoke
+
+    parent = ((64, 64), (128, 128))
+    if carries_script:
+        (tmp_path / "bench_matmul_shapes.py").write_text(
+            f"import math\n\nTILINGS = {parent!r}   # (block_m, block_n)\n"
+            f"DEFAULT_TILING = (64, 64)\n")
+    tilings = chip_smoke.ab_mm_tilings(str(tmp_path))
+    assert tilings == (parent if carries_script else MM.TILINGS)
+    a, b = _inputs(2, 40, 64, 24)
+    out = torch.empty(2, 40, 24, dtype=torch.bfloat16)
+    refused = next(t for t in ((64, 64), (128, 256)) if t not in tilings)
+    with pytest.raises(ValueError, match="not built"):
+        chip_smoke.ab_mm_call(None, tilings)("batched_mm", a, b, 1, refused,
+                                             out)

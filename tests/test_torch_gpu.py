@@ -817,10 +817,22 @@ def test_global_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 # The matmul-shape probes: both kernels and tilings within one bf16 ulp of
 # max|ref| of the plain version (the script's check), at its B = 528 and
-# square shapes and odd ones (edges in M, N, K; B = 1); the controls.
+# square shapes and odd ones (edges in M, N, K; B = 1); the controls. The
+# edges of the 128 x 128 and 128 x 256 tiles: M 1056 leaves 32 rows past
+# 1024, N 1056 32 columns past 1024, K 1056 a 32-deep last step (K 40 a
+# half k16 step); M < 64 (one warpgroup's rows), N < BN at B = 1; N = K =
+# 8; and more work items than 132 SMs x 4 ring slots (864 and 768 at 128
+# x 128), so the ring and the staging buffers wrap many times; more
+# problems than 65535 and more than 65535 64-row tiles (the persistent grid
+# has no per-dimension limit).
 _MM_SHAPES = {"qk": (528, 1056, 64, 1056), "pv": (528, 1056, 1056, 64),
               "square": (1, 2048, 2048, 2048), "odd": (6, 100, 72, 40),
-              "odd_b1": (1, 130, 200, 136)}
+              "odd_b1": (1, 130, 200, 136),
+              "m_ragged": (4, 1056, 64, 256), "n_ragged": (4, 128, 64, 1056),
+              "k_ragged": (4, 256, 1056, 256), "k_half_step": (4, 192, 40, 136),
+              "small_b1": (1, 40, 64, 24), "n8_k8": (4, 72, 8, 8),
+              "wraps": (96, 384, 136, 264), "wraps_g": (128, 256, 64, 264),
+              "b_65544": (65544, 16, 8, 8), "m_4194368": (1, 4194368, 8, 8)}
 
 
 def _mm_inputs(device, B, M, K, N, seed=5):
@@ -834,13 +846,15 @@ def _mm_inputs(device, B, M, K, N, seed=5):
 @pytest.mark.parametrize("kernel", ["batched_mm", "grouped_mm"])
 def test_matmul_probe_kernels_match_plain(cuda, kernel, tile, shape):
     B, M, K, N = _MM_SHAPES[shape]
-    G = next(g for g in (16, 3, 1) if B % g == 0)
+    G = next(g for g in (16, 4, 3, 2, 1) if B % g == 0)
     a, b = _mm_inputs(cuda, B, M, K, N)
     before = MM.LAUNCHES[kernel]
+    designs = MM.design_launches()["tma_wgmma"]
     out = _nan_out(a, b)
     assert MM.run_variant(kernel, a, b, G, tile, out) is out
     torch.cuda.synchronize()
     assert MM.LAUNCHES[kernel] == before + 1
+    assert MM.design_launches()["tma_wgmma"] == designs + 1
     err, tol = MM.mm_error(out, MM.batched_mm_ref(a, b))
     assert err <= tol
 
@@ -864,7 +878,7 @@ def test_matmul_probe_controls_are_rejected(cuda, shape):
 def test_matmul_probe_launches_count_graph_replays(cuda):
     """graph_bench's warm-up call counts once, each replay its n calls;
     the calls captured into the graph launch nothing and count nothing."""
-    sets = [(*_mm_inputs(cuda, 2, 64, 64, 64, seed), 1, (64, 64))
+    sets = [(*_mm_inputs(cuda, 2, 64, 64, 64, seed), 1, MM.DEFAULT_TILING)
             for seed in (1, 2, 3)]
     before = MM.LAUNCHES["batched_mm"]
     BA.graph_bench(functools.partial(MM.run_variant, "batched_mm"), sets, 4,
@@ -887,5 +901,54 @@ def test_matmul_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         MM.batched_mm(*_mm_inputs(cuda, 2, 64, 60, 64))
     with pytest.raises(ValueError, match="not built"):
         MM.batched_mm(a, b, (128, 64))
+    with pytest.raises(ValueError, match="not built"):
+        MM.batched_mm(a, b, (64, 64))
     with pytest.raises(ValueError, match="is on cpu"):
-        MM.run_variant("batched_mm", a, b, 1, (64, 64), _nan_out(a, b).cpu())
+        MM.run_variant("batched_mm", a, b, 1, MM.DEFAULT_TILING,
+                       _nan_out(a, b).cpu())
+
+
+@pytest.mark.parametrize("tile", MM.TILINGS, ids=MM.tile_name)
+def test_matmul_probe_runs_are_bit_equal(cuda, tile):
+    """No atomics: a repeated run gives the same bits, and grouped_mm at
+    every G gives batched_mm's bits (the same sums, items in another
+    order)."""
+    a, b = _mm_inputs(cuda, 16, 264, 1056, 200, seed=7)
+    first = MM.batched_mm(a, b, tile)
+    assert torch.equal(MM.batched_mm(a, b, tile), first)
+    for G in (2, 4, 16):
+        assert torch.equal(MM.grouped_mm(a, b, G, tile), first)
+
+
+@pytest.mark.parametrize("tile", MM.TILINGS, ids=MM.tile_name)
+@pytest.mark.parametrize("kernel", ["batched_mm", "grouped_mm"])
+def test_matmul_probe_writes_nothing_outside_its_output(cuda, kernel, tile):
+    """o between two NaN guard bands of one allocation: a store that
+    reached past an edge (a map cut wrong, a batch folded into rows) would
+    write a guard; every element of o is written and right."""
+    B, M, K, N = 6, 200, 72, 264
+    a, b = _mm_inputs(cuda, B, M, K, N, seed=8)
+    guard = 64 * N   # 64 rows before and after, 16-byte aligned
+    buf = torch.full((2 * guard + B * M * N,), math.nan, dtype=torch.bfloat16,
+                     device=cuda)
+    out = buf[guard:guard + B * M * N].view(B, M, N)
+    MM.run_variant(kernel, a, b, 2 if kernel == "grouped_mm" else 1, tile,
+                   out)
+    torch.cuda.synchronize()
+    assert torch.isnan(buf[:guard]).all() and torch.isnan(buf[-guard:]).all()
+    err, tol = MM.mm_error(out, MM.batched_mm_ref(a, b))
+    assert err <= tol
+
+
+def test_matmul_design_launches_count_each_launch(cuda):
+    """The C launcher counts one mm_sm90 launch a call, of each kernel at
+    each tiling; CALLS agrees."""
+    a, b = _mm_inputs(cuda, 4, 64, 64, 64)
+    before, calls = MM.design_launches()["tma_wgmma"], dict(MM.CALLS)
+    for tile in MM.TILINGS:
+        MM.batched_mm(a, b, tile)
+        MM.grouped_mm(a, b, 2, tile)
+    torch.cuda.synchronize()
+    n = 2 * len(MM.TILINGS)
+    assert MM.design_launches()["tma_wgmma"] == before + n
+    assert sum(MM.CALLS.values()) == sum(calls.values()) + n

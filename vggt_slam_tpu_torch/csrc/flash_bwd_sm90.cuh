@@ -161,29 +161,10 @@ __device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src,
       "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// At most N bulk groups still reading shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
 // The NW consumer warpgroups (named barrier 1).
 template <int NW>
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(128 * NW) : "memory");
-}
-
-// Consumer warpgroup w alone (named barrier 2 + w).
-__device__ __forceinline__ void warpgroup_sync(int w) {
-  asm volatile("bar.sync %0, 128;" ::"r"(2 + w) : "memory");
 }
 
 // d (64 x 32 per warpgroup) = or += A (64 x 16) B (16 x 32), both from
@@ -385,7 +366,7 @@ __device__ __forceinline__ void bwd_consume(const BwdSm90& P,
       }
     }
     if (threadIdx.x % 128 == 0)
-      asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+      bulk_wait_all();
   }
 
   const float sc = P.inv_sqrt_d;

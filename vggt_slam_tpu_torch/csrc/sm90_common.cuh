@@ -1,9 +1,12 @@
 // Hopper helpers shared by the flash-attention forward (flash_sm90.cuh),
-// backward (flash_bwd_sm90.cuh) and grouped probes (bench_attention.cu):
-// mbarriers, TMA loads, the swizzled tile layout and its wgmma
+// backward (flash_bwd_sm90.cuh), grouped probes (bench_attention.cu) and
+// matmul-shape probes (bench_matmul_shapes.cu): mbarriers, TMA loads and
+// stores with their bulk groups, the swizzled tile layout and its wgmma
 // descriptors, wgmma issue and synchronisation, the register-A product
-// with an MN-major B, exp2 on MUFU.EX2, and the 4-D tensor maps of the
-// packed (B, N, H*D) layout. A tile row is D bf16:
+// with an MN-major B, the shared-A product with an MN-major B of several
+// panels, exp2 on MUFU.EX2, the 4-D tensor maps of the packed (B, N, H*D)
+// layout and the 3-D maps of a contiguous (B, rows, cols) tensor. A tile
+// row is D bf16:
 // 256 bytes at D = 128, 128 at D = 64 (128-byte swizzle), 64 at D = 32
 // (64-byte swizzle); or D int8 (the int8 forward's q and k): 128, 64 or 32
 // bytes (32-byte swizzle). A row wider than the 128-byte swizzle's atom is
@@ -100,6 +103,55 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "r"(row), "r"(b) : "memory");
 }
 
+// Box (c0, c1, c2) of a 3-D map (`encode_rows`) into a swizzled tile.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2) : "memory");
+}
+
+// A swizzled tile at src to box (c0, c1, c2) of a 3-D map, in this
+// thread's open bulk group; elements past the map's extent are not
+// written. The writes into src must precede a fence_proxy_async.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// At most N of this thread's bulk groups still reading shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// Every bulk group of this thread complete.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// This thread's shared-memory writes visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Warpgroup w alone (named barrier 2 + w; 1 is the backward's consumers).
+__device__ __forceinline__ void warpgroup_sync(int w) {
+  asm volatile("bar.sync %0, 128;" ::"r"(2 + w) : "memory");
+}
+
 // Rows [row, row + R) of head h of batch b, D elements of ESZ bytes each,
 // into a tile of R rows (`encode_heads`' map): one box per panel.
 template <int D, int R, int ESZ = 2>
@@ -127,6 +179,16 @@ __device__ __forceinline__ uint64_t row_desc(uint32_t addr) {
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
          (uint64_t(8 * ROW / 16) << 32) |
          (uint64_t(ROW == 128 ? 1 : ROW == 64 ? 2 : 3) << 62);
+}
+
+// The descriptor of an MN-major operand of several 128-byte panels (64
+// bf16 of N each) whose 8-row K groups lie 1024 bytes apart: the leading
+// byte offset steps from one panel to the next (`stride` bytes), so one
+// instruction reads N = 64 x panels (CUTLASS's canonical MN-major SW128
+// layout, ((8 chunks, panels), (8 rows, k)) : ((16 B, LBO), (128 B, SBO))).
+__device__ __forceinline__ uint64_t mn_desc(uint32_t addr, uint32_t stride) {
+  return (row_desc<128>(addr) & ~(uint64_t(0x3FFF) << 16)) |
+         (uint64_t(stride >> 4) << 16);
 }
 
 // The descriptor of a tile of D-wide bf16 rows (its panel at D = 128).
@@ -251,6 +313,55 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[4][4], uint64_t da,
       : SM90_F4(d, 0), SM90_F4(d, 1), SM90_F4(d, 2), SM90_F4(d, 3)
       : "l"(da), "l"(db), "r"(accumulate));
 }
+// d (64 x N per warpgroup) = or += A (64 x 16, smem, K-major) B (16 x N,
+// smem, MN-major: `mn_desc`): wgmma m64n{256,128}k16, transpose bit of B
+// set.
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32][4], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : SM90_F4(d, 0), SM90_F4(d, 1), SM90_F4(d, 2), SM90_F4(d, 3),
+        SM90_F4(d, 4), SM90_F4(d, 5), SM90_F4(d, 6), SM90_F4(d, 7),
+        SM90_F4(d, 8), SM90_F4(d, 9), SM90_F4(d, 10), SM90_F4(d, 11),
+        SM90_F4(d, 12), SM90_F4(d, 13), SM90_F4(d, 14), SM90_F4(d, 15),
+        SM90_F4(d, 16), SM90_F4(d, 17), SM90_F4(d, 18), SM90_F4(d, 19),
+        SM90_F4(d, 20), SM90_F4(d, 21), SM90_F4(d, 22), SM90_F4(d, 23),
+        SM90_F4(d, 24), SM90_F4(d, 25), SM90_F4(d, 26), SM90_F4(d, 27),
+        SM90_F4(d, 28), SM90_F4(d, 29), SM90_F4(d, 30), SM90_F4(d, 31)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[16][4], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : SM90_F4(d, 0), SM90_F4(d, 1), SM90_F4(d, 2), SM90_F4(d, 3),
+        SM90_F4(d, 4), SM90_F4(d, 5), SM90_F4(d, 6), SM90_F4(d, 7),
+        SM90_F4(d, 8), SM90_F4(d, 9), SM90_F4(d, 10), SM90_F4(d, 11),
+        SM90_F4(d, 12), SM90_F4(d, 13), SM90_F4(d, 14), SM90_F4(d, 15)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // 2^x in one MUFU.EX2: exp2f's own instruction without the three that
 // keep results below 2^-126 subnormal; those flush to 0 here. Below a row's
 // running max that is invisible (l >= 1, P rounds to bf16); with the static
@@ -321,6 +432,31 @@ int encode_heads(CUtensorMap* map, const void* ptr, int B, int N, int n,
       : PR == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                  : CU_TENSOR_MAP_SWIZZLE_32B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
+}
+
+// 3-D map (cols, rows, B) of a contiguous (B, rows, cols) bf16 tensor:
+// a box is `box_rows` rows of 64 columns (one 128-byte panel) of one
+// batch, 128-byte swizzled; elements past an edge read as zeros and are
+// not written by a store. The batch is a dimension of its own, so a box
+// never reaches into the next batch.
+inline int encode_rows(CUtensorMap* map, const void* ptr, int B, int rows,
+                       int cols, int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return int(cudaErrorNotSupported);
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || cols % 8 != 0)
+    return int(cudaErrorMisalignedAddress);
+  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[2] = {2 * cuuint64_t(cols),
+                                 2 * cuuint64_t(cols) * rows};
+  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
 }
 

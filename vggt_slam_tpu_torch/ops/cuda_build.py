@@ -3,7 +3,8 @@
 Each source under `vggt_slam_tpu_torch/csrc/` is compiled with plain
 `nvcc` for `sm_90a` into a shared library with a C interface under
 `<repo>/build/vggt_slam_tpu_torch/`, rebuilt only when the source or a
-shared header (`csrc/*.cuh`) is newer than the library, and loaded with
+shared header (`csrc/*.cuh`) is newer than the library or its ptxas
+report, and loaded with
 ctypes (the `native/kdtree.py` pattern of
 the JAX package). Nothing here runs at import time.
 """
@@ -28,7 +29,8 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 # Seconds spent in nvcc per library by this process (0.0 when up to date),
-# and nvcc's output (ptxas register/shared-memory report).
+# and nvcc's output (ptxas register/shared-memory report), kept beside each
+# library as lib<name>.ptxas.log and read from there when it is up to date.
 build_seconds: dict[str, float] = {}
 build_log: dict[str, str] = {}
 
@@ -49,14 +51,19 @@ def build(name: str, src: str | None = None) -> str:
     return its path."""
     src = src or os.path.join(CSRC, f"{name}.cu")
     lib = os.path.join(BUILD_DIR, f"lib{name}.so")
+    report = os.path.join(BUILD_DIR, f"lib{name}.ptxas.log")
     newest = max(os.path.getmtime(f) for f in [src] + glob.glob(
         os.path.join(os.path.dirname(src), "*.cuh")))
-    if os.path.exists(lib) and os.path.getmtime(lib) >= newest:
+    if all(os.path.exists(f) and os.path.getmtime(f) >= newest
+           for f in (lib, report)):
         build_seconds.setdefault(name, 0.0)
+        with open(report) as f:
+            build_log.setdefault(name, f.read())
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # Build to a private name and rename, so processes building at once never
-    # load a half-written library.
+    # Build to private names and rename, so processes building at once never
+    # load a half-written library; the report first, so that a library is
+    # never newer than its report.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
@@ -66,9 +73,13 @@ def build(name: str, src: str | None = None) -> str:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n"
                            f"{proc.stderr}")
+    text = proc.stdout + proc.stderr
+    with open(tmp + ".log", "w") as f:
+        f.write(text)
+    os.replace(tmp + ".log", report)
     os.replace(tmp, lib)
     build_seconds[name] = time.perf_counter() - t0
-    build_log[name] = proc.stdout + proc.stderr
+    build_log[name] = text
     return lib
 
 

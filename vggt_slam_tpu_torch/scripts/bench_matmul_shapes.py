@@ -4,9 +4,11 @@ scripts/bench_matmul_shapes.py.
 Do the tensor cores keep up at K = 64 contractions, and does a grid of one
 problem per tile keep up with the library's batched product?
 csrc/bench_matmul_shapes.cu computes o[p] = bf16(a[p] @ b[p]) (f32 sums
-rounded once) on bf16 a (B, M, K), b (B, K, N): `batched_mm` (one output
-tile of one problem per CTA; `pallas_batched_mm`) and `grouped_mm` (that
-tile of G problems; `pallas_grouped_mm`), at TILINGS, beside `torch.bmm`
+rounded once) on bf16 a (B, M, K), b (B, K, N) with one Hopper kernel, a
+persistent grid fed by a TMA ring, `wgmma` products and a TMA-store
+epilogue: `batched_mm` (a work item is one output tile of one problem;
+`pallas_batched_mm`) and `grouped_mm` (that tile of G consecutive problems
+in order; `pallas_grouped_mm`), at TILINGS, beside `torch.bmm`
 (`torch.matmul` at B = 1), in the reference's sections: nine products at
 B = 1 (µs), B = 528 at the QKᵀ shape with G in (2, 4, 8, 16), the PV shape.
 
@@ -27,7 +29,9 @@ the card (seed 0, a then b per shape; numpy takes ~20 s at the PV shape).
 bf16 ulp of max|ref| of the plain version, logs the library's distance,
 and at B = 528 runs three controls it must reject. `main(argv)` needs the
 card. CPU tensors take the plain version; `LAUNCHES` counts the kernels'
-runs on the card (a graph's at each replay).
+runs on the card (a graph's at each replay), `CALLS` the C entries' calls
+that launched or were captured, and `design_launches()` the C launcher's
+count of `mm_sm90` launches (captures included), so CALLS and it agree.
 """
 from __future__ import annotations
 
@@ -40,8 +44,8 @@ import torch
 from vggt_slam_tpu_torch.scripts import bench_attention as BA
 from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
 
-TILINGS = ((64, 64), (128, 128))      # CTA output tiles (block_m, block_n)
-DEFAULT_TILING = (64, 64)
+TILINGS = ((128, 128), (128, 256))    # output tiles (block_m, block_n)
+DEFAULT_TILING = (128, 128)
 L2_BYTES = 50e6                       # H100 L2
 SINGLE_SHAPES = [(1056, 64, 1056), (1024, 64, 1024), (1056, 128, 1056),
                  (1056, 256, 1056), (1056, 512, 1056), (1024, 1024, 1024),
@@ -52,13 +56,15 @@ PV_SHAPE = (1056, 1056, 64)
 GROUPS = (2, 4, 8, 16)
 K_DROPPED = 16                        # the lost-K control's dropped depth
 
-# Kernel launches in this process, read by chip_smoke.py.
+# Kernel runs on the card in this process, and calls of the C entries
+# (captures into a graph included), read by chip_smoke.py.
 LAUNCHES = {"batched_mm": 0, "grouped_mm": 0}
+CALLS = {"batched_mm": 0, "grouped_mm": 0}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
-        LAUNCHES[name] = 0
+        LAUNCHES[name] = CALLS[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +115,8 @@ _SIGNATURES = {
     "bench_batched_mm": ([_P] * 3 + [_I] * 6 + [_P], ctypes.c_int),
     "bench_grouped_mm": ([_P] * 3 + [_I] * 7 + [_P], ctypes.c_int),
     "bench_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "bench_matmul_design_launches": (
+        [ctypes.POINTER(ctypes.c_longlong)], None),
 }
 
 
@@ -118,10 +126,20 @@ def kernel_library():
     return cuda_build.load("bench_matmul_shapes", _SIGNATURES)
 
 
-def check_operands(a, b, G, tile, out=None):
+def design_launches() -> dict:
+    """Both kernels' launches in this process by design, counted by the C
+    launcher at each launch or capture: "tma_wgmma" for `mm_sm90`
+    (csrc/bench_matmul_shapes.cu), their one design."""
+    out = (ctypes.c_longlong * 1)()
+    kernel_library().bench_matmul_design_launches(out)
+    return {"tma_wgmma": out[0]}
+
+
+def check_operands(a, b, G, tile, out=None, tilings=None):
     """Raise unless a (B, M, K), b (B, K, N) and any out (B, M, N) are
     bf16, contiguous, 16-byte aligned, on one device, K and N multiples of
-    8, G divides B and the tiling is built."""
+    8, G divides B and the tiling is one of `tilings` (default TILINGS,
+    this tree's build)."""
     if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
             or a.shape[2] != b.shape[1]:
         raise ValueError(f"(B, M, K) and (B, K, N) operands expected, got "
@@ -146,9 +164,10 @@ def check_operands(a, b, G, tile, out=None):
                          f"got K {K}, N {b.shape[2]}")
     if G < 1 or B % G:
         raise ValueError(f"G = {G} does not divide B = {B}")
-    if tuple(tile) not in TILINGS:
+    tilings = TILINGS if tilings is None else tilings
+    if tuple(tile) not in tilings:
         raise ValueError(f"tiling {tuple(tile)} not built; the kernels take "
-                         f"{list(TILINGS)}")
+                         f"{list(tilings)}")
 
 
 def count(kernel, n=1):
@@ -173,18 +192,21 @@ def run_variant(kernel, a, b, G, tile, out=None):
                out.data_ptr(), B, M, K, N,
                *((G,) if kernel == "grouped_mm" else ()), *tile,
                lib=kernel_library())
+    CALLS[kernel] += 1
     if not torch.cuda.is_current_stream_capturing():   # graph_bench counts
         count(kernel)                                   # the replays
     return out
 
 
 def batched_mm(a, b, tile=DEFAULT_TILING):
-    """o[p] = bf16(a[p] @ b[p]), one output tile of one problem per CTA."""
+    """o[p] = bf16(a[p] @ b[p]), a work item one output tile of one
+    problem."""
     return run_variant("batched_mm", a, b, 1, tile)
 
 
 def grouped_mm(a, b, G, tile=DEFAULT_TILING):
-    """The same product, the same tile of G consecutive problems per CTA."""
+    """The same product, a work item the same tile of G consecutive
+    problems, in order."""
     return run_variant("grouped_mm", a, b, G, tile)
 
 
@@ -276,9 +298,10 @@ def check(a, b, ref, names, with_controls):
 
 parser = argparse.ArgumentParser(
     description="Batched bf16 matmul rates at attention-like shapes on the "
-                "card: hand-written mma.sync grids (one problem, or G, per "
-                f"CTA; tilings {[tile_name(t) for t in TILINGS]}) beside "
-                "torch.bmm.")
+                "card: one hand-written Hopper kernel (persistent grid, TMA "
+                "ring, wgmma, TMA-store epilogue; a work item one output "
+                "tile of one problem, or of G; tilings "
+                f"{[tile_name(t) for t in TILINGS]}) beside torch.bmm.")
 parser.add_argument("--iters", type=int, default=20)
 parser.add_argument("--check", action="store_true",
                     help="hold every line against the plain version, with "
