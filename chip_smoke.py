@@ -1546,21 +1546,34 @@ def probe_kernel_entries(results, launches):
 
 GLOBAL_PROBE_ITERS = "4"
 # script: (its LAUNCHES key, its kernel template, the TPU kernel it replaces,
-# the representative variant of the kernels line)
+# the representative variant of the kernels line, the offset of its modes in
+# global_sm90's MODE, None where it runs the mma.sync design)
 GLOBAL_PROBES = {
     "bench_global_attention": (
-        "global_attention", "global_attention_kernel",
+        "global_attention", "global_sm90",
         "scripts/bench_global_attention.py:48 (_kernel, launched through "
-        "run_kernel at :106)", "bf16 bq=64 bk=64"),
+        "run_kernel at :106)", "bf16 bq=64 bk=64", 0),
     "bench_softmax_variants": (
         "softmax_variants", "softmax_variant_kernel",
         "scripts/bench_softmax_variants.py:41 (_kernel, launched through "
-        "run_kernel at :118)", "online bq=64 bk=64"),
+        "run_kernel at :118)", "online bq=64 bk=64", None),
     "bench_int8_inkernel": (
-        "int8_inkernel", "int8_inkernel_kernel",
+        "int8_inkernel", "global_sm90",
         "scripts/bench_int8_inkernel.py:43 (_kernel, launched through run "
-        "at :118)", "qk8 bq=64 bk=64"),
+        "at :118)", "qk8 bq=64 bk=64", 3),
 }
+GLOBAL_SM90_DESIGN = ("tma_wgmma (global_sm90: TMA ring refilled by release "
+                      "counts, wgmma, QK^T of tile t + 1 before PV of t)")
+
+
+def global_ptxas(report, template, mode, bq, bk):
+    """(registers, spill-store bytes) of instance <bq, bk, mode> of
+    `template` in `ptxas_report`'s result; (None, None) if absent."""
+    registers, spills = report
+    patterns = (f"{template}<{bq}, {bk}, {mode}>(",
+                f"{template}ILi{bq}ELi{bk}ELi{mode}EE")
+    return next(((r, spills.get(f, 0)) for f, r in registers.items()
+                 if any(pat in f for pat in patterns)), (None, None))
 
 
 def check_global_probes():
@@ -1570,34 +1583,45 @@ def check_global_probes():
     tiling on all q rows and every other tiling on a 2048-row slab against
     its plain version (1e-2 of max|ref|), the int8 controls (int8,
     staticint8, qk8, qk8av8 further from the bf16 mode's plain version than
-    from their own), each kernel launched; ptxas registers and spills per
-    instance. Returns {script: (main's result, launches)}."""
+    from their own), each kernel launched, and every launch of
+    bench_global_attention and bench_int8_inkernel one global_sm90 launch
+    by the C launcher's count; ptxas registers and spills per instance (a
+    global_sm90 line with no report an error). Returns {script: (main's
+    result, launches, global_sm90 launches or None)}."""
     import importlib
 
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
 
-    registers, spills = ptxas_report(cuda_build.build_log)
+    report = ptxas_report(cuda_build.build_log)
     results = {}
-    for script, (counter, template, _, _) in GLOBAL_PROBES.items():
+    for script, (counter, template, _, _, offset) in GLOBAL_PROBES.items():
         mod = importlib.import_module(f"vggt_slam_tpu_torch.scripts.{script}")
         mod.reset_launch_counts()
+        before = None if offset is None else \
+            mod.design_launches()["tma_wgmma"]
         out, run = run_probe_script(
             mod, ["--check", "--iters", GLOBAL_PROBE_ITERS])
         launches = mod.LAUNCHES[counter]
-        log("global_probe_path", script=script, launches=launches, **run)
+        designs = None if offset is None else \
+            mod.design_launches()["tma_wgmma"] - before
+        log("global_probe_path", script=script, launches=launches,
+            design_launches=designs, **run)
         if not launches:
             raise AssertionError(f"{script} launched no kernel")
+        if offset is not None and designs != launches:
+            raise AssertionError(f"{script}: {launches} launches, "
+                                 f"{designs} of them global_sm90")
         for line in out["lines"]:
-            mode = mod.MODES.index(line["mode"])
+            mode = mod.MODES.index(line["mode"]) + (offset or 0)
             bq, bk = line["block_q"], line["block_k"]
-            patterns = (f"{template}<{bq}, {bk}, {mode}>(",
-                        f"{template}ILi{bq}ELi{bk}ELi{mode}EE")
-            line["registers"], line["spill_store_bytes"] = next(
-                ((r, spills.get(f, 0)) for f, r in registers.items()
-                 if any(pat in f for pat in patterns)), (None, None))
+            line["registers"], line["spill_store_bytes"] = global_ptxas(
+                report, template, mode, bq, bk)
             log("global_probe_line", script=script, **line)
+            if offset is not None and line["registers"] is None:
+                raise AssertionError(f"no ptxas report of {template}<{bq}, "
+                                     f"{bk}, {mode}> for {line['variant']}")
         checks = out["checks"]
         n_modes, n_tilings = len(mod.MODES), len(mod.TILINGS)
         controls = {k: c for k, c in checks.items()
@@ -1607,7 +1631,7 @@ def check_global_probes():
                 or len(controls) != (2 if counter == "int8_inkernel" else 1)):
             raise AssertionError(f"{script}: the check covered {list(checks)}"
                                  f", controls {list(controls)}")
-        results[script] = (out, launches)
+        results[script] = (out, launches, designs)
         torch.cuda.empty_cache()
     return results
 
@@ -1615,16 +1639,23 @@ def check_global_probes():
 def global_probe_entries(results):
     """The three global-shape probe kernels' entries of the kernels line."""
     entries = []
-    for script, (_, _, replaces, rep) in GLOBAL_PROBES.items():
-        out, launches = results[script]
+    for script, (_, _, replaces, rep, offset) in GLOBAL_PROBES.items():
+        out, launches, designs = results[script]
         r = next(line for line in out["lines"] if line["variant"] == rep)
         entry = {
             "name": script, "status": "ported", "route": "cuda",
-            "source": f"vggt_slam_tpu_torch/csrc/{script}.cu",
+            "source": f"vggt_slam_tpu_torch/csrc/{script}.cu"
+                      + (", csrc/global_sm90.cuh" if offset is not None
+                         else ", csrc/global_probe.cuh"),
             "replaces": replaces, "launches": launches,
             "launches_path": f"python -m vggt_slam_tpu_torch.scripts.{script}"
                              f" --check --iters {GLOBAL_PROBE_ITERS} (its "
                              f"defaults: BH 16, N 34816, D 64)",
+            "design": GLOBAL_SM90_DESIGN if offset is not None else
+            "mma_sync (global_probe.cuh: synchronous single-buffered tiles)",
+            "design_launches": designs,
+            "registers": {line["variant"]: line["registers"]
+                          for line in out["lines"]},
             "variant": rep,
             "max_abs_err": max(c["max_abs_err"]
                                for c in out["checks"].values()),
@@ -2577,6 +2608,117 @@ def ab_matmul(device, dirs, iters=20):
     return rows
 
 
+def ab_global_libs(dirs):
+    """{script: {build: library}} for bench_global_attention and
+    bench_int8_inkernel: each of `dirs` that holds the script's .cu (with
+    the headers it includes beside it), named after its folder, then this
+    tree's, "this_tree"; a script no DIR holds is left out. Builds on
+    first use (`cuda_build.load`, which raises where there is no nvcc)."""
+    from vggt_slam_tpu_torch.ops import cuda_build
+    from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
+    from vggt_slam_tpu_torch.scripts import bench_int8_inkernel as IK
+
+    libs = {}
+    for script, mod in (("bench_global_attention", GA),
+                        ("bench_int8_inkernel", IK)):
+        sigs = {n: sig for n, sig in mod._SIGNATURES.items()
+                if not n.endswith("_design_launches")}
+        found = {}
+        for d in dirs:
+            src = os.path.join(d, f"{script}.cu")
+            if os.path.exists(src):
+                name = os.path.basename(os.path.normpath(d))
+                found[name] = cuda_build.load(f"{script}_ab_{name}", sigs,
+                                              src)
+        if found:
+            found["this_tree"] = mod.kernel_library()
+            libs[script] = found
+    return libs
+
+
+def ab_global(device, dirs, iters=4):
+    """The two global-shape probes on global_sm90 against each of `dirs`
+    that holds their .cu (`ab_global_libs`), at the global shape (BH 16, N
+    34816, D 64): every mode and tiling of each build held to its plain
+    version on a 2048-row slab over all keys first (`check_line`), then
+    timed in turns (first to last, then back; CUDA events, best of 2 over
+    `iters` calls), beside SDPA (scale 1/sqrt(D)), the bound and this
+    tree's ptxas registers. Returns the rows (also logged)."""
+    import torch
+
+    from vggt_slam_tpu_torch.ops import cuda_build
+    from vggt_slam_tpu_torch.scripts import bench_attention as BA
+    from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
+    from vggt_slam_tpu_torch.scripts import bench_int8_inkernel as IK
+
+    libs = ab_global_libs(dirs)
+    report = ptxas_report(cuda_build.build_log)
+    BH, D = 16, GA.HEAD_DIM
+    N = BA.roundup(34353, 2048)
+    q, k, v = GA.make_inputs(BH, N, D, device=device)
+    scale = 1.0 / math.sqrt(D)
+    rate = BA.ex2_rate(device)
+    sdpa_ms = BA.bench(GA.sdpa, (q, k, v, scale), iters)
+    q8, k8, s8 = GA.int8_operands(q, k, scale)
+    rows = []
+    for script, builds in libs.items():
+        _, template, _, _, offset = GLOBAL_PROBES[script]
+        mod = GA if script == "bench_global_attention" else IK
+        run, plain = ((GA.run_kernel, GA.run_kernel_ref) if mod is GA
+                      else (IK.attention, IK.attention_ref))
+        for mode in mod.MODES:
+            if mod is GA:
+                ops = (q8, k8, v, s8) if mode == "int8" else (q, k, v, scale)
+                bound = GA.bound_ms(BH, N, N, D, rate, qk8=mode == "int8",
+                                    exp=mode != "matmul",
+                                    qk_bytes=1 if mode == "int8" else 2)
+            else:
+                sc = IK.scales(q, k, v, mode)
+                bound = GA.bound_ms(BH, N, N, D, rate, qk8=mode != "bf16",
+                                    pv8=mode == "qk8av8")
+
+            def call(bq, bk, n_rows=N, mode=mode):
+                """The wrapper's arguments on the first n_rows q rows."""
+                if mod is GA:
+                    qq, kk, vv, sc_ = ops
+                    return (qq[:, :n_rows].contiguous(), kk, vv, bq, bk, mode,
+                            sc_, N)
+                return (sc, q[:, :n_rows].contiguous(), k, v, bq, bk, mode)
+            for bq, bk in mod.TILINGS:
+                slab = call(bq, bk, GA.SLAB_ROWS)
+                ref = plain(*slab)
+                errs, runs = {}, {n: [] for n in builds}
+                for n in list(builds) + list(builds)[::-1]:
+                    with using_library(builds[n], mod):
+                        if n not in errs:
+                            errs[n] = GA.check_line(
+                                f"{n} {GA.variant_name(mode, bq, bk)}",
+                                run(*slab), ref, GA.SLAB_ROWS)
+                        runs[n].append(BA.bench(run, call(bq, bk), iters,
+                                                reps=2))
+                ms = {n: sum(r) / len(r) for n, r in runs.items()}
+                regs, spill = global_ptxas(
+                    report, template, mod.MODES.index(mode) + offset, bq, bk)
+                row = dict(script=script, variant=GA.variant_name(mode, bq,
+                                                                  bk),
+                           mode=mode, block_q=bq, block_k=bk, ms=ms,
+                           runs=runs, errors=errs, bound_ms=bound[0],
+                           bound_by=bound[1], bound_unit=bound[2],
+                           sdpa_ms=sdpa_ms, registers=regs,
+                           spill_store_bytes=spill,
+                           share_of_bound={n: bound[0] / t
+                                           for n, t in ms.items()},
+                           over_sdpa={n: t / sdpa_ms for n, t in ms.items()})
+                row["faster_than"] = {n: ms["this_tree"] < t
+                                      for n, t in ms.items()
+                                      if n != "this_tree"}
+                log("ab_global", **row)
+                rows.append(row)
+                del ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def ab_int8(device, builds):
     """The int8 forward of each build (`ab_builds`) at phase A's shapes,
     both kernels: held to its own wrapper's plain version and bf16 control
@@ -2729,6 +2871,9 @@ def main(argv) -> int:
             ab_probes(device, dirs)
         if holding("bench_matmul_shapes.cu"):
             ab_matmul(device, dirs)
+        if (holding("bench_global_attention.cu")
+                or holding("bench_int8_inkernel.cu")):
+            ab_global(device, dirs)
         return 0
     checks = check_kernels(device)
     int8_checks = check_int8_kernels(device)

@@ -782,6 +782,86 @@ def test_global_probe_kernels_match_plain(cuda, script, mode, tiling):
                 > GA.mean_distance(out, ref))
 
 
+# The two probes on global_sm90 (bench_global_attention, bench_int8_inkernel)
+# at their edges: 27 or 54 CTAs at BH 3, N 1152 (not a multiple of the 132
+# SMs); a NaN-filled output, so a row the kernel does not write fails; k
+# and v of 768 rows, NaN past the 512 keys attended, which a load reaching
+# past Nk would bring in; every call one global_sm90 launch by the C
+# launcher's count.
+_SM90_PROBES = ([("global", m, t) for m in GA.MODES for t in GA.TILINGS]
+                + [("inkernel", m, t) for m in IK.MODES for t in IK.TILINGS])
+
+
+def _sm90_design(script):
+    return (GA.design_launches() if script == "global"
+            else IK.design_launches())["tma_wgmma"]
+
+
+@pytest.mark.parametrize("script,mode,tiling", _SM90_PROBES,
+                         ids=[f"{s}-{m}-{t[0]}x{t[1]}"
+                              for s, m, t in _SM90_PROBES])
+def test_global_sm90_edges(cuda, script, mode, tiling):
+    run, plain, args, _, _, _ = _global_probe(script, mode, tiling, cuda,
+                                              BH=3, N=1152)
+    designs = _sm90_design(script)
+    out = torch.full(args[0].shape, math.nan, dtype=torch.bfloat16,
+                     device=cuda)
+    if script == "global":
+        got = GA.run_kernel(*args, out=out)
+    else:
+        q, k, v = args[:3]
+        got = IK.attention(IK.scales(q, k, v, mode), *args, out=out)
+    torch.cuda.synchronize()
+    assert got is out and not torch.isnan(out).any()
+    err, tol = BA.probe_error("attention", out, plain(*args))
+    assert err <= tol
+    calls = 1
+    if script == "global":
+        q, k, v = args[:3]
+        # int8 k holds no NaN: 127 there, which would move every logit
+        pad = torch.full((3, 256, 64), math.nan, device=cuda)
+        k_pad = pad.bfloat16() if k.dtype == torch.bfloat16 else \
+            torch.full_like(pad, 127).to(k.dtype)
+        k_long = torch.cat([k, k_pad], 1).contiguous()
+        v_long = torch.cat([v, pad.bfloat16()], 1).contiguous()
+        slab = q[:, :256].contiguous()
+        got = GA.run_kernel(slab, k_long, v_long, *args[3:], n_keys=1152)
+        calls += 1
+        torch.cuda.synchronize()
+        want = GA.run_kernel_ref(slab, k, v, *args[3:], n_keys=1152)
+        err, tol = BA.probe_error("attention", got, want)
+        assert err <= tol
+    assert _sm90_design(script) == designs + calls
+
+
+def _key_pos(key):
+    """global_sm90.cuh's key_pos: the byte of key `key` in a row of the
+    transposed V8 tile."""
+    w = key & 7
+    return ((key & ~31) + ((key >> 4) & 1) * 16 + (w >> 1) * 4
+            + ((key >> 3) & 1) * 2 + (w & 1))
+
+
+def test_qk8av8_needs_key_pos(cuda):
+    """The control of qk8av8's layout: a kernel that stored V8 without
+    key_pos would compute sum_k p8_k v_{key_pos(k)}. That function is
+    further from the plain version than the check's tolerance, and the
+    kernel is within it."""
+    q, k, v = GA.make_inputs(2, 512, 64, seed=6, device=cuda)
+    perm = torch.tensor([_key_pos(i) for i in range(512)], device=cuda)
+    assert sorted(perm.tolist()) == list(range(512))
+    sc = IK.scales(q, k, v, "qk8av8")
+    for tiling in IK.TILINGS:
+        out = IK.attention(sc, q, k, v, *tiling, "qk8av8")
+        ref = IK.attention_ref(sc, q, k, v, *tiling, "qk8av8")
+        dropped = IK.attention_ref(sc, q, k, v[:, perm].contiguous(),
+                                   *tiling, "qk8av8")
+        err, tol = BA.probe_error("attention", out, ref)
+        assert err <= tol
+        assert BA.probe_error("attention", dropped, ref)[0] > 4 * tol
+        assert GA.mean_distance(out, dropped) > 4 * GA.mean_distance(out, ref)
+
+
 def test_global_probe_key_count_follows_the_reference(cuda):
     """run_kernel attends to the first q.shape[1] keys, as the reference's
     grid; n_keys widens a q slab to all keys."""

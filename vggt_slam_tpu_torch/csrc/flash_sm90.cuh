@@ -130,29 +130,6 @@ struct Sm90Smem {
         q_full(empty + 8 * S), q_empty(q_full + 16) {}
 };
 
-#define SM90_R4(d, j) \
-  "+r"(d[j][0]), "+r"(d[j][1]), "+r"(d[j][2]), "+r"(d[j][3])
-
-// wgmma_qk (sm90_common.cuh) on int8 tiles (K = 32 bytes a step), s32
-// sums: wgmma m64n128k32.
-__device__ __forceinline__ void wgmma_qk(int (&d)[16][4], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p;\n}\n"
-      : SM90_R4(d, 0), SM90_R4(d, 1), SM90_R4(d, 2), SM90_R4(d, 3),
-        SM90_R4(d, 4), SM90_R4(d, 5), SM90_R4(d, 6), SM90_R4(d, 7),
-        SM90_R4(d, 8), SM90_R4(d, 9), SM90_R4(d, 10), SM90_R4(d, 11),
-        SM90_R4(d, 12), SM90_R4(d, 13), SM90_R4(d, 14), SM90_R4(d, 15)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
 #undef SM90_F4
 #undef SM90_R4
 

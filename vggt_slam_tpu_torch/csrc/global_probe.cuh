@@ -1,15 +1,14 @@
-// Building blocks of the global-shape attention probes
-// (bench_global_attention.cu, bench_softmax_variants.cu,
-// bench_int8_inkernel.cu). Each probe runs one CTA of BQ / 16 warps per
-// BQ-row q tile of one (batch, head) problem of contiguous (BH, N, 64)
-// tensors: every warp owns 16 q rows, whose A fragments stay in registers
-// for the whole key sweep; BK-key K and V tiles are staged in shared memory
-// between two barriers; QK^T and PV run on mma.sync with register
-// accumulators in the layout of flash_common.cuh (rows g and g + 8 of the
-// warp's 16, g = lane / 4; columns 2t, 2t + 1 of each 8-column n-tile,
-// t = lane % 4). The loads are synchronous and single-buffered, as in
-// bench_attention.cu: the probes are held to the same simple design as the
-// production kernel, so their times split its time.
+// Building blocks of the global-shape softmax-variants probe
+// (bench_softmax_variants.cu), the first design of the port's probes
+// (bench_global_attention.cu and bench_int8_inkernel.cu run global_sm90.cuh
+// since). It runs one CTA of BQ / 16 warps per BQ-row q tile of one
+// (batch, head) problem of contiguous (BH, N, 64) tensors: every warp owns
+// 16 q rows, whose A fragments stay in registers for the whole key sweep;
+// BK-key K and V tiles are staged in shared memory between two barriers;
+// QK^T and PV run on mma.sync with register accumulators in the layout of
+// flash_common.cuh (rows g and g + 8 of the warp's 16, g = lane / 4;
+// columns 2t, 2t + 1 of each 8-column n-tile, t = lane % 4). The loads are
+// synchronous and single-buffered.
 #pragma once
 
 #include "flash_common.cuh"
@@ -25,12 +24,6 @@ constexpr int KS = D / 16;     // k-steps of a bf16 QK^T
 constexpr int KS8 = D / 32;    // k-steps of an int8 QK^T
 constexpr int DT = D / 8;      // 8-column n-tiles of O
 constexpr uint32_t ONES_BF16X2 = 0x3F803F80u;   // two bf16 1.0
-
-// Element e of eight bf16 packed in a uint4, as f32 (exact).
-__device__ __forceinline__ float bf16_at(const uint4& raw, int e) {
-  const uint32_t w = e < 2 ? raw.x : e < 4 ? raw.y : e < 6 ? raw.z : raw.w;
-  return __uint_as_float(e % 2 ? w & 0xffff0000u : w << 16);
-}
 
 // Rows [row0, row0 + ROWS) of a (rows, D) bf16 matrix into a tile of row
 // stride LD, 16 bytes a load.
@@ -52,25 +45,6 @@ __device__ __forceinline__ void stage_i8(int8_t* dst, const int8_t* src,
     const int r = i / (D / 16), c = i % (D / 16);
     *reinterpret_cast<uint4*>(dst + r * LDB + c * 16) =
         *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * D + c * 16);
-  }
-}
-
-// Rows of a bf16 matrix quantized by quant_i8(x, inv) as they are staged
-// into a byte tile of row stride LDB.
-template <int ROWS, int NTHREAD>
-__device__ __forceinline__ void stage_quant(int8_t* dst,
-                                            const __nv_bfloat16* src,
-                                            int row0, float inv) {
-  for (int i = threadIdx.x; i < ROWS * (D / 8); i += NTHREAD) {
-    const int r = i / (D / 8), c = i % (D / 8);
-    const uint4 raw =
-        *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * D + c * 8);
-    uint32_t w[2] = {0u, 0u};
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      w[e / 4] |= uint32_t(uint8_t(quant_i8(bf16_at(raw, e), inv)))
-                  << (8 * (e % 4));
-    *reinterpret_cast<uint2*>(dst + r * LDB + c * 8) = make_uint2(w[0], w[1]);
   }
 }
 

@@ -1,11 +1,13 @@
 // Hopper helpers shared by the flash-attention forward (flash_sm90.cuh),
-// backward (flash_bwd_sm90.cuh), grouped probes (bench_attention.cu) and
-// matmul-shape probes (bench_matmul_shapes.cu): mbarriers, TMA loads and
-// stores with their bulk groups, the swizzled tile layout and its wgmma
-// descriptors, wgmma issue and synchronisation, the register-A product
-// with an MN-major B, the shared-A product with an MN-major B of several
-// panels, exp2 on MUFU.EX2, the 4-D tensor maps of the packed (B, N, H*D)
-// layout and the 3-D maps of a contiguous (B, rows, cols) tensor. A tile
+// backward (flash_bwd_sm90.cuh), grouped probes (bench_attention.cu),
+// matmul-shape probes (bench_matmul_shapes.cu) and global-shape probes
+// (global_sm90.cuh): mbarriers, TMA loads and stores with their bulk
+// groups, the swizzled tile layout and its wgmma descriptors, wgmma issue
+// and synchronisation, the register-A product with an MN-major B (bf16) or
+// a K-major B (int8), the shared-A product with an MN-major B of several
+// panels, the int8 QK^T, exp2 on MUFU.EX2, the 4-D tensor maps of the
+// packed (B, N, H*D) layout and the 3-D maps of a contiguous (B, rows,
+// cols) tensor. A tile
 // row is D bf16:
 // 256 bytes at D = 128, 128 at D = 64 (128-byte swizzle), 64 at D = 32
 // (64-byte swizzle); or D int8 (the int8 forward's q and k): 128, 64 or 32
@@ -362,6 +364,70 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[16][4], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+#define SM90_R4(d, j) \
+  "+r"(d[j][0]), "+r"(d[j][1]), "+r"(d[j][2]), "+r"(d[j][3])
+
+// wgmma_qk on int8 tiles (K = 32 bytes a step), s32 sums, both operands
+// K-major as PTX requires of 8-bit ones: wgmma m64n{128,64,32}k32.
+__device__ __forceinline__ void wgmma_qk(int (&d)[16][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : SM90_R4(d, 0), SM90_R4(d, 1), SM90_R4(d, 2), SM90_R4(d, 3),
+        SM90_R4(d, 4), SM90_R4(d, 5), SM90_R4(d, 6), SM90_R4(d, 7),
+        SM90_R4(d, 8), SM90_R4(d, 9), SM90_R4(d, 10), SM90_R4(d, 11),
+        SM90_R4(d, 12), SM90_R4(d, 13), SM90_R4(d, 14), SM90_R4(d, 15)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_qk(int (&d)[8][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : SM90_R4(d, 0), SM90_R4(d, 1), SM90_R4(d, 2), SM90_R4(d, 3),
+        SM90_R4(d, 4), SM90_R4(d, 5), SM90_R4(d, 6), SM90_R4(d, 7)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_qk(int (&d)[4][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p;\n}\n"
+      : SM90_R4(d, 0), SM90_R4(d, 1), SM90_R4(d, 2), SM90_R4(d, 3)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 s32 per warpgroup) = or += A (64 x 32 int8, registers) B (32 x
+// 64 int8, smem, K-major): wgmma m64n64k32. Each warp's 16 rows of A take
+// mma.sync m16n8k32's A layout (a[0]: row g, bytes 4t..4t+3; a[1]: row
+// g + 8; a[2], a[3]: the same rows, bytes 16 + 4t..).
+__device__ __forceinline__ void wgmma_pv8(int (&d)[8][4],
+                                          const uint32_t (&a)[4], uint64_t db,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : SM90_R4(d, 0), SM90_R4(d, 1), SM90_R4(d, 2), SM90_R4(d, 3),
+        SM90_R4(d, 4), SM90_R4(d, 5), SM90_R4(d, 6), SM90_R4(d, 7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 // 2^x in one MUFU.EX2: exp2f's own instruction without the three that
 // keep results below 2^-126 subnormal; those flush to 0 here. Below a row's
 // running max that is invisible (l >= 1, P rounds to bf16); with the static
@@ -435,28 +501,35 @@ int encode_heads(CUtensorMap* map, const void* ptr, int B, int N, int n,
   return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
 }
 
-// 3-D map (cols, rows, B) of a contiguous (B, rows, cols) bf16 tensor:
-// a box is `box_rows` rows of 64 columns (one 128-byte panel) of one
-// batch, 128-byte swizzled; elements past an edge read as zeros and are
-// not written by a store. The batch is a dimension of its own, so a box
-// never reaches into the next batch.
-inline int encode_rows(CUtensorMap* map, const void* ptr, int B, int rows,
-                       int cols, int box_rows) {
+// 3-D map (cols, rows, B) of a contiguous (B, batch_rows, cols) tensor of
+// ESZ-byte elements (bf16, or int8 with ESZ = 1), cut at rows <= batch_rows
+// (default rows): a box is `box_rows` rows of 64 columns (one 128-byte
+// panel of bf16, 128-byte swizzled; 64 bytes of int8, 64-byte swizzled) of
+// one batch; elements past an edge read as zeros and are not written by a
+// store. The batch is a dimension of its own, so a box never reaches into
+// the next batch.
+template <int ESZ = 2>
+int encode_rows(CUtensorMap* map, const void* ptr, int B, int rows, int cols,
+                int box_rows, int batch_rows = 0) {
+  static_assert(ESZ == 1 || ESZ == 2, "bf16 or int8 elements");
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return int(cudaErrorNotSupported);
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || cols % 8 != 0)
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || cols * ESZ % 16 != 0)
     return int(cudaErrorMisalignedAddress);
+  if (batch_rows < rows) batch_rows = rows;
   const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows),
                               cuuint64_t(B)};
-  const cuuint64_t strides[2] = {2 * cuuint64_t(cols),
-                                 2 * cuuint64_t(cols) * rows};
+  const cuuint64_t strides[2] = {cuuint64_t(ESZ) * cols,
+                                 cuuint64_t(ESZ) * cols * batch_rows};
   const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      ESZ == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      3, const_cast<void*>(ptr), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      ESZ == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
 }
 

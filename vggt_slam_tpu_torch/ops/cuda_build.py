@@ -60,6 +60,7 @@ def build(name: str, src: str | None = None) -> str:
         with open(report) as f:
             build_log.setdefault(name, f.read())
         return lib
+    nvcc = nvcc_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
     # Build to private names and rename, so processes building at once never
     # load a half-written library; the report first, so that a library is
@@ -67,7 +68,7 @@ def build(name: str, src: str | None = None) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)

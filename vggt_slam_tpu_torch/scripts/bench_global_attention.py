@@ -3,9 +3,9 @@ scripts/bench_global_attention.py.
 
 At the exact global shape of an S = 33 submap (BH 16 heads, N = 34353
 padded to roundup(n, 2048) = 34816, D 64; every key real, nothing masked),
-one CUDA kernel (csrc/bench_global_attention.cu) computes the reference's
-modes at five CTA tilings of the card's own (TILINGS, beside the
-reference's VMEM blocks):
+one CUDA kernel (csrc/bench_global_attention.cu on csrc/global_sm90.cuh:
+TMA ring, wgmma) computes the reference's modes at five CTA tilings of the
+card's own (TILINGS, beside the reference's VMEM blocks):
 
 * `bf16`: s = f32(q kᵀ)/√D, online softmax with the natural exp;
 * `int8`: q, k quantized per tensor outside the kernel as the reference
@@ -28,7 +28,8 @@ over all keys) with the int8 control, and raises on a mismatch. The
 script raises without a card. This module also holds what the other
 global-shape probes share: the plain versions' blockwise online softmax,
 the operand checks, the bound and the line. Wrappers take their plain
-versions for CPU tensors only; `LAUNCHES` counts kernel launches.
+versions for CPU tensors only; `LAUNCHES` counts kernel launches and
+`design_launches` the C launcher's.
 """
 from __future__ import annotations
 
@@ -135,6 +136,8 @@ _SIGNATURES = {
     "bench_global_attention": ([_P] * 4 + [_I] * 8 + [ctypes.c_float, _P],
                                ctypes.c_int),
     "bench_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "bench_global_attention_design_launches": (
+        [ctypes.POINTER(ctypes.c_longlong)], None),
 }
 
 
@@ -142,6 +145,29 @@ def kernel_library():
     """Build (if stale) and load csrc/bench_global_attention.cu."""
     from vggt_slam_tpu_torch.ops import cuda_build
     return cuda_build.load("bench_global_attention", _SIGNATURES)
+
+
+def design_launches(lib=None, entry="bench_global_attention") -> dict:
+    """The kernel's launches in this process by design, counted by the C
+    launcher at each launch: "tma_wgmma" for `global_sm90`
+    (csrc/global_sm90.cuh), its one design. `lib` and `entry` name another
+    probe's library (bench_int8_inkernel's)."""
+    out = (ctypes.c_longlong * 1)()
+    getattr(lib or kernel_library(), f"{entry}_design_launches")(out)
+    return {"tma_wgmma": out[0]}
+
+
+def output(q, out):
+    """`out` (default a new tensor) checked as a bf16 tensor of q's shape,
+    contiguous, on q's device."""
+    if out is None:
+        return torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    if (out.shape != q.shape or out.dtype != torch.bfloat16
+            or out.device != q.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous bf16 {tuple(q.shape)} "
+                         f"tensor on {q.device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+    return out
 
 
 def check_operands(q, k, v, qk_dtype, block_q, block_k, n_keys, tilings):
@@ -178,17 +204,18 @@ def check_operands(q, k, v, qk_dtype, block_q, block_k, n_keys, tilings):
                          f"{q.shape[1]} q rows and {n_keys} keys")
 
 
-def run_kernel(q, k, v, block_q, block_k, mode, scale, n_keys=None):
+def run_kernel(q, k, v, block_q, block_k, mode, scale, n_keys=None,
+               out=None):
     """The probe on (BH, Nq, D) q and (BH, Nk, D) k, v (int8 q and k in
     mode "int8", bf16 otherwise), attending to the first n_keys keys
-    (default Nq, as the reference's run_kernel). CPU tensors take
-    `run_kernel_ref`, CUDA tensors the CUDA kernel."""
+    (default Nq, as the reference's run_kernel), into `out` where given.
+    CPU tensors take `run_kernel_ref`, CUDA tensors the CUDA kernel."""
     if q.device.type == "cpu":
         return run_kernel_ref(q, k, v, block_q, block_k, mode, scale, n_keys)
     n = q.shape[1] if n_keys is None else n_keys
     check_operands(q, k, v, torch.int8 if mode == "int8" else torch.bfloat16,
                    block_q, block_k, n, TILINGS)
-    out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    out = output(q, out)
     BA._launch("bench_global_attention", q.device, q.data_ptr(),
                k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0],
                q.shape[1], n, k.shape[1], q.shape[2], block_q, block_k,

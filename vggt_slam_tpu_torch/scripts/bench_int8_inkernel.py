@@ -2,14 +2,14 @@
 scripts/bench_int8_inkernel.py.
 
 BH 16, N 34353 padded to 34816, D 64, bf16 q, k, v. One CUDA kernel
-(csrc/bench_int8_inkernel.cu) computes exp2-domain online-softmax
-attention with the per-(b, h) scales that `scales` computes outside it,
-as the reference's `run` does: `bf16` (nothing quantized), `qk8` (q and k
-quantized in the kernel, QKᵀ in int8) and `qk8av8` (p and v too, PV in
-int8). The card's kernel quantizes each K (and V) tile as it stages it,
-where the reference fills a persistent per-head scratch on the TPU's
-in-order grid: the same int8 values. SDPA (scale 1/√D) is the library
-line of bf16.
+(csrc/bench_int8_inkernel.cu on csrc/global_sm90.cuh) computes
+exp2-domain online-softmax attention with the per-(b, h) scales that
+`scales` computes outside it, as the reference's `run` does: `bf16`
+(nothing quantized), `qk8` (q and k quantized in the kernel, QKᵀ in int8)
+and `qk8av8` (p and v too, PV in int8). The card's kernel quantizes each K
+(and V) tile as it lands, where the reference fills a persistent per-head
+scratch on the TPU's in-order grid: the same int8 values. SDPA (scale
+1/√D) is the library line of bf16.
 
     python -m vggt_slam_tpu_torch.scripts.bench_int8_inkernel
         [--iters 6] [--n 34353] [--check]
@@ -20,7 +20,7 @@ as in bench_global_attention (the kernel timed on precomputed scales).
 `--check` holds every mode against its plain version (the default tiling
 on all q rows, the other on a 2048-row slab) with the int8 controls for
 qk8 and qk8av8. The script raises without a card; `LAUNCHES` counts
-kernel launches.
+kernel launches and `design_launches` the C launcher's.
 """
 from __future__ import annotations
 
@@ -119,6 +119,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "bench_int8_inkernel": ([_P] * 5 + [_I] * 7 + [_P], ctypes.c_int),
     "bench_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "bench_int8_inkernel_design_launches": (
+        [ctypes.POINTER(ctypes.c_longlong)], None),
 }
 
 
@@ -128,10 +130,16 @@ def kernel_library():
     return cuda_build.load("bench_int8_inkernel", _SIGNATURES)
 
 
-def attention(sc, q, k, v, block_q, block_k, mode):
+def design_launches() -> dict:
+    """The kernel's launches in this process by design, counted by the C
+    launcher: "tma_wgmma" for `global_sm90` (csrc/global_sm90.cuh)."""
+    return G.design_launches(kernel_library(), "bench_int8_inkernel")
+
+
+def attention(sc, q, k, v, block_q, block_k, mode, out=None):
     """The probe on bf16 (BH, Nq, D) q and (BH, Nk, D) k, v with (5, BH)
-    f32 scales `sc`. CPU tensors take `attention_ref`, CUDA tensors the
-    CUDA kernel."""
+    f32 scales `sc`, into `out` where given. CPU tensors take
+    `attention_ref`, CUDA tensors the CUDA kernel."""
     if q.device.type == "cpu":
         return attention_ref(sc, q, k, v, block_q, block_k, mode)
     G.check_operands(q, k, v, torch.bfloat16, block_q, block_k, k.shape[1],
@@ -141,7 +149,7 @@ def attention(sc, q, k, v, block_q, block_k, mode):
         raise ValueError(f"contiguous (5, {q.shape[0]}) f32 scales on "
                          f"{q.device} expected, got {tuple(sc.shape)} "
                          f"{sc.dtype} on {sc.device}")
-    out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    out = G.output(q, out)
     BA._launch("bench_int8_inkernel", q.device, sc.data_ptr(), q.data_ptr(),
                k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0],
                q.shape[1], k.shape[1], q.shape[2], block_q, block_k,
