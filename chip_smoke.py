@@ -5,12 +5,9 @@
     python3 chip_smoke.py --kernels-only   # build and check the kernels only
     python3 chip_smoke.py --profile        # also profile one forward and
                                            # one training step
-    python3 chip_smoke.py --ab DIR...   # build, then time the bf16 and
-                                        # int8 forwards, the backward and
-                                        # the grouped probes of each DIR's
-                                        # flash_attention.cu,
-                                        # flash_attention_bwd.cu and
-                                        # bench_attention.cu and this
+    python3 chip_smoke.py --ab DIR...   # build, then time the forwards,
+                                        # the backward and the probes of
+                                        # each DIR's sources and this
                                         # tree's in turns, and stop
 
 Phases, one line of output each (and the contract lines at the end):
@@ -79,16 +76,17 @@ And, for the frame-attention probes of scripts/bench_attention.py:
      softmax-only logit (SASS count, time against the card's exp2 rate);
      the grouped and pipelined kernels (grouped_sm90: TMA, wgmma) also
      at a small shape and the frame shape against the plain version at
-     their own key tile, every launch of them one of grouped_sm90 by the C
-     launcher's count; then `python -m
-     vggt_slam_tpu_torch.scripts.bench_attention --check` at its
-     defaults.
+     their own key tile, every launch of them one of grouped_sm90 and
+     every matmul-only launch one of global_sm90 by the C launcher's
+     counts; then `python -m vggt_slam_tpu_torch.scripts.bench_attention
+     --check` at its defaults.
 And, for the global-shape probes of scripts/bench_global_attention.py,
 bench_softmax_variants.py and bench_int8_inkernel.py:
   F. each script's main with --check at its defaults (BH 16, N 34816,
      D 64): every mode and tiling against its plain version, the int8
-     controls, the launches, ptxas registers per instance, the times beside
-     their bounds and SDPA.
+     controls, the launches (each one of global_sm90 by the C launcher's
+     count), ptxas registers of every instance (no spill), the times
+     beside their bounds and SDPA.
 And, for the matmul-shape probes of scripts/bench_matmul_shapes.py:
   G. its main with --check at its defaults: both kernels, tilings and
      shapes against their plain version with three controls, launches,
@@ -104,11 +102,15 @@ its own plain version, eager and as a CUDA graph, beside this tree's bf16
 call); then the backward at the six training shapes in turns (each DIR's
 flash_attention_bwd.cu through its own entries, then this tree's
 flash_bwd; a DIR may hold only the backward's sources), beside SDPA's
-backward alone (eager and as a CUDA graph) and the bound; then the nine
-grouped, interleaved and pipelined probes of each DIR's bench_attention.cu
-beside this tree's at the frame shape (each held to its plain version,
-then in turns as CUDA graphs, beside SDPA and the bound); each leg runs
-where some DIR holds its source; and stops without the result lines.
+backward alone (eager and as a CUDA graph) and the bound; then the
+matmul-only floor and the nine grouped, interleaved and pipelined probes
+of each DIR's bench_attention.cu beside this tree's at the frame shape
+(each held to its plain version, then in turns as CUDA graphs, beside
+SDPA and the bound); then every mode and tiling of
+each DIR's bench_global_attention.cu, bench_softmax_variants.cu and
+bench_int8_inkernel.cu beside this tree's at the global shape; each leg
+runs where some DIR holds its source; and stops without the result
+lines.
 The last lines are the kernels JSON object and {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero with no result line. It
 needs a CUDA device and imports nothing of JAX, OpenCV or the JAX package.
@@ -1320,8 +1322,10 @@ def _instance_patterns(variant):
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
 
     kind = variant.split(" ")[0]
-    if kind in ("matmul-only", "softmax-only"):
-        return (kind.replace("-", "_") + "_kernel",)
+    if kind == "matmul-only":       # bench_attention.cu's one global_sm90
+        return ("global_sm90<", "global_sm90ILi")
+    if kind == "softmax-only":
+        return ("softmax_only_kernel",)
     if BA.instance(variant):
         schedule, G = BA.instance(variant)
         sched = BA.SCHEDULES.index(schedule)
@@ -1432,17 +1436,28 @@ def check_probe_kernels(device):
     BH, Np = S * H, BA.roundup(N, 128)
     tiled = check_grouped_tiled(device)
     BA.reset_launch_counts()
-    before = BA.design_launches()["tma_wgmma"]
+    before = BA.design_launches()
     frame, run = run_probe_script(BA, ["--frames", str(S), "--check"])
     expect_probe_design(BA, before)
     log("probe_frame_shape", **run)
-    registers, spills = ptxas_report(cuda_build.build_log)
+    # the probes' instances from their own library's report (global_sm90's
+    # matmul instance has namesakes in the global probes' libraries)
+    report = ptxas_report(cuda_build.build_log)
+    probe_report = own_ptxas_report("bench_attention")
     results = {}
     for line in frame["lines"]:
         patterns = _instance_patterns(line["variant"])
+        registers, spills = probe_report if line["kernel"] else report
         line["registers"], line["spill_store_bytes"] = next(
             ((r, spills.get(f, 0)) for f, r in registers.items()
              if any(pat in f for pat in patterns)), (None, None))
+        if line["kernel"] == "matmul_only":
+            line["instance"] = next((f for f in registers
+                                     if any(pat in f for pat in patterns)),
+                                    None)
+            if line["instance"] is None or line["spill_store_bytes"]:
+                raise AssertionError(f"matmul-only's global_sm90 instance: "
+                                     f"{line}")
         if line["variant"] in tiled:
             line["tiled"] = tiled[line["variant"]]
         results[line["variant"]] = line
@@ -1485,7 +1500,7 @@ def check_probe_kernels(device):
     torch.cuda.empty_cache()
 
     BA.reset_launch_counts()
-    before = BA.design_launches()["tma_wgmma"]
+    before = BA.design_launches()
     _, run = run_probe_script(BA, ["--check"])
     launches = {name: BA.LAUNCHES[name] for name in PROBE_KERNELS}
     designs = expect_probe_design(BA, before)
@@ -1499,14 +1514,20 @@ def check_probe_kernels(device):
 
 def expect_probe_design(BA, before):
     """Every grouped and pipelined launch since the counts were reset was
-    one of grouped_sm90, by the C launcher's count (`before` its count
-    then). Returns {"tma_wgmma": launches}."""
-    n = BA.design_launches()["tma_wgmma"] - before
+    one of grouped_sm90, and every matmul-only launch one of global_sm90,
+    by the C launcher's counts (`before` its counts then). Returns
+    {"tma_wgmma": grouped_sm90 launches, "global_sm90": launches}."""
+    now = BA.design_launches()
+    n = {d: now[d] - before[d] for d in now}
     calls = BA.LAUNCHES["grouped"] + BA.LAUNCHES["pipelined"]
-    if not (n == calls > 0):
+    if not (n["tma_wgmma"] == calls > 0):
         raise AssertionError(f"{calls} grouped and pipelined launches, "
-                             f"{n} of them grouped_sm90")
-    return {"tma_wgmma": n}
+                             f"{n['tma_wgmma']} of them grouped_sm90")
+    if not n["global_sm90"] == BA.LAUNCHES["matmul_only"] > 0:
+        raise AssertionError(f"{BA.LAUNCHES['matmul_only']} matmul-only "
+                             f"launches, {n['global_sm90']} of them "
+                             f"global_sm90")
+    return n
 
 
 def probe_kernel_entries(results, launches):
@@ -1520,7 +1541,8 @@ def probe_kernel_entries(results, launches):
         entry = {
             "name": name, "status": "ported", "route": "cuda",
             "source": "vggt_slam_tpu_torch/csrc/bench_attention.cu" + (
-                ", csrc/sm90_common.cuh" if grouped else ""),
+                ", csrc/sm90_common.cuh" if grouped else
+                ", csrc/global_sm90.cuh" if name == "matmul_only" else ""),
             "replaces": replaces, "launches": launches[name],
             "launches_path": PROBE_COMMAND + " (its defaults: S = 33)",
             "variant": rep,
@@ -1532,6 +1554,9 @@ def probe_kernel_entries(results, launches):
             entry["design"] = "tma_wgmma (grouped_sm90)"
             entry["library_ms"] = library_ms
         else:
+            if name == "matmul_only":
+                entry["design"] = f"{GLOBAL_SM90_DESIGN}: {r['instance']}"
+                entry["registers"] = r["registers"]
             entry["library_ms_reason"] = ("no single PyTorch call computes "
                                           "a probe floor")
         entries.append(entry)
@@ -1547,16 +1572,16 @@ def probe_kernel_entries(results, launches):
 GLOBAL_PROBE_ITERS = "4"
 # script: (its LAUNCHES key, its kernel template, the TPU kernel it replaces,
 # the representative variant of the kernels line, the offset of its modes in
-# global_sm90's MODE, None where it runs the mma.sync design)
+# global_sm90's MODE)
 GLOBAL_PROBES = {
     "bench_global_attention": (
         "global_attention", "global_sm90",
         "scripts/bench_global_attention.py:48 (_kernel, launched through "
         "run_kernel at :106)", "bf16 bq=64 bk=64", 0),
     "bench_softmax_variants": (
-        "softmax_variants", "softmax_variant_kernel",
+        "softmax_variants", "global_sm90",
         "scripts/bench_softmax_variants.py:41 (_kernel, launched through "
-        "run_kernel at :118)", "online bq=64 bk=64", None),
+        "run_kernel at :118)", "online bq=64 bk=64", 6),
     "bench_int8_inkernel": (
         "int8_inkernel", "global_sm90",
         "scripts/bench_int8_inkernel.py:43 (_kernel, launched through run "
@@ -1583,45 +1608,48 @@ def check_global_probes():
     tiling on all q rows and every other tiling on a 2048-row slab against
     its plain version (1e-2 of max|ref|), the int8 controls (int8,
     staticint8, qk8, qk8av8 further from the bf16 mode's plain version than
-    from their own), each kernel launched, and every launch of
-    bench_global_attention and bench_int8_inkernel one global_sm90 launch
-    by the C launcher's count; ptxas registers and spills per instance (a
-    global_sm90 line with no report an error). Returns {script: (main's
-    result, launches, global_sm90 launches or None)}."""
+    from their own), each kernel launched, and every launch one
+    global_sm90 launch by the C launcher's count; ptxas registers per
+    instance, every mode and tiling of each script (an instance with no
+    report or with spills an error). Returns {script: (main's result,
+    launches, global_sm90 launches)}."""
     import importlib
 
     import torch
 
-    from vggt_slam_tpu_torch.ops import cuda_build
-
-    report = ptxas_report(cuda_build.build_log)
     results = {}
     for script, (counter, template, _, _, offset) in GLOBAL_PROBES.items():
         mod = importlib.import_module(f"vggt_slam_tpu_torch.scripts.{script}")
+        report = own_ptxas_report(script)
         mod.reset_launch_counts()
-        before = None if offset is None else \
-            mod.design_launches()["tma_wgmma"]
+        before = mod.design_launches()["tma_wgmma"]
         out, run = run_probe_script(
             mod, ["--check", "--iters", GLOBAL_PROBE_ITERS])
         launches = mod.LAUNCHES[counter]
-        designs = None if offset is None else \
-            mod.design_launches()["tma_wgmma"] - before
+        designs = mod.design_launches()["tma_wgmma"] - before
         log("global_probe_path", script=script, launches=launches,
             design_launches=designs, **run)
         if not launches:
             raise AssertionError(f"{script} launched no kernel")
-        if offset is not None and designs != launches:
+        if designs != launches:
             raise AssertionError(f"{script}: {launches} launches, "
                                  f"{designs} of them global_sm90")
+        instances = {}
+        for mode in mod.MODES:
+            for bq, bk in mod.TILINGS:
+                m = mod.MODES.index(mode) + offset
+                name = f"{template}<{bq}, {bk}, {m}>"
+                instances[name] = global_ptxas(report, template, m, bq, bk)
+                if instances[name][0] is None or instances[name][1]:
+                    raise AssertionError(f"{name} ({mode}): (registers, "
+                                         f"spill-store bytes) "
+                                         f"{instances[name]}")
+        log("global_probe_instances", script=script, instances=instances)
         for line in out["lines"]:
-            mode = mod.MODES.index(line["mode"]) + (offset or 0)
-            bq, bk = line["block_q"], line["block_k"]
-            line["registers"], line["spill_store_bytes"] = global_ptxas(
-                report, template, mode, bq, bk)
+            mode = mod.MODES.index(line["mode"]) + offset
+            line["registers"], line["spill_store_bytes"] = instances[
+                f"{template}<{line['block_q']}, {line['block_k']}, {mode}>"]
             log("global_probe_line", script=script, **line)
-            if offset is not None and line["registers"] is None:
-                raise AssertionError(f"no ptxas report of {template}<{bq}, "
-                                     f"{bk}, {mode}> for {line['variant']}")
         checks = out["checks"]
         n_modes, n_tilings = len(mod.MODES), len(mod.TILINGS)
         controls = {k: c for k, c in checks.items()
@@ -1639,20 +1667,18 @@ def check_global_probes():
 def global_probe_entries(results):
     """The three global-shape probe kernels' entries of the kernels line."""
     entries = []
-    for script, (_, _, replaces, rep, offset) in GLOBAL_PROBES.items():
+    for script, (_, _, replaces, rep, _) in GLOBAL_PROBES.items():
         out, launches, designs = results[script]
         r = next(line for line in out["lines"] if line["variant"] == rep)
         entry = {
             "name": script, "status": "ported", "route": "cuda",
-            "source": f"vggt_slam_tpu_torch/csrc/{script}.cu"
-                      + (", csrc/global_sm90.cuh" if offset is not None
-                         else ", csrc/global_probe.cuh"),
+            "source": f"vggt_slam_tpu_torch/csrc/{script}.cu, "
+                      f"csrc/global_sm90.cuh",
             "replaces": replaces, "launches": launches,
             "launches_path": f"python -m vggt_slam_tpu_torch.scripts.{script}"
                              f" --check --iters {GLOBAL_PROBE_ITERS} (its "
                              f"defaults: BH 16, N 34816, D 64)",
-            "design": GLOBAL_SM90_DESIGN if offset is not None else
-            "mma_sync (global_probe.cuh: synchronous single-buffered tiles)",
+            "design": GLOBAL_SM90_DESIGN,
             "design_launches": designs,
             "registers": {line["variant"]: line["registers"]
                           for line in out["lines"]},
@@ -2415,17 +2441,12 @@ def ab_forward(device, dirs):
     return builds, rows
 
 
-def ab_probes(device, dirs):
-    """The grouped, interleaved and pipelined probes of each of `dirs` that
-    holds a bench_attention.cu (with the headers it includes beside it;
-    the build named after its folder), then this tree's, at the SLAM frame
-    shape (S 18, H 16, N 1041 -> 1152): each build held to its plain
-    version first (1e-2 of max|ref|; this tree's also at its key tile),
-    then timed in turns (first to last, then back) as one CUDA graph of 20
-    calls (`graph_ms`: device ms), beside SDPA's graph and the bound.
-    Returns the rows (also logged)."""
-    import torch
-
+def ab_probe_libs(dirs):
+    """{build: library}: each of `dirs` that holds a bench_attention.cu
+    (with the headers it includes beside it), named after its folder,
+    without the entries an older build lacks, then this tree's,
+    "this_tree". Builds on first use (`cuda_build.load`, which raises
+    where there is no nvcc)."""
     from vggt_slam_tpu_torch.ops import cuda_build
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
 
@@ -2440,20 +2461,62 @@ def ab_probes(device, dirs):
             libs[name] = cuda_build.load(f"bench_attention_ab_{name}",
                                          ported, src)
     libs["this_tree"] = BA.kernel_library()
+    return libs
+
+
+def ab_matmul_only_tilings(args, ref):
+    """global_sm90's matmul mode at scale 1, the matmul-only floor's
+    function, at every tiling of bench_global_attention on the floor's
+    arguments `args`: each held to the plain version `ref` first, then
+    timed in turns as CUDA graphs (`graph_ms`), so that the floor's tiling
+    is the fastest. Returns {"BQxBK": device ms}."""
+    from vggt_slam_tpu_torch.scripts import bench_attention as BA
+    from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
+
+    calls = {f"{bq}x{bk}": functools.partial(GA.run_kernel, *args, bq, bk,
+                                             "matmul", 1.0)
+             for bq, bk in GA.TILINGS}
+    for name, call in calls.items():
+        err, tol = BA.probe_error("matmul", call(), ref)
+        if not err <= tol:
+            raise AssertionError(f"global_sm90 matmul {name}: {err} > {tol}")
+    runs = {n: [] for n in calls}
+    for n in list(calls) + list(calls)[::-1]:
+        runs[n].append(graph_ms(calls[n]))
+    return {n: sum(r) / len(r) for n, r in runs.items()}
+
+
+def ab_probes(device, dirs):
+    """The matmul-only floor and the grouped, interleaved and pipelined
+    probes of each of `dirs` that holds a bench_attention.cu
+    (`ab_probe_libs`), then this tree's, at the SLAM frame shape (S 18,
+    H 16, N 1041 -> 1152): each build held to its plain version first
+    (1e-2 of max|ref|; this tree's grouped kernels also at their key tile),
+    then timed in turns (first to last, then back) as one CUDA graph of 20
+    calls (`graph_ms`: device ms), beside the bound and, for the attention
+    probes, SDPA's graph; the floor's row also holds this tree's
+    global_sm90 matmul mode at every tiling (`ab_matmul_only_tilings`).
+    Returns the rows (also logged)."""
+    import torch
+
+    from vggt_slam_tpu_torch.scripts import bench_attention as BA
+
+    libs = ab_probe_libs(dirs)
     names = list(libs)
     S, H, N, D = 18, 16, 1041, 64
     Np = BA.roundup(N, 128)
     qkv = BA.make_inputs(S, H, N, D, seed=SEED, device=device)
     variants = BA.make_variants(S, H, N, D)
-    bound = BA.bound_ms("attention", S * H, Np, D, BA.sfu_rate(device)[0])
+    rate = BA.sfu_rate(device)[0]
     sdpa = variants["SDPA (library)"]
     sdpa_args = sdpa.prep(*qkv)
     sdpa_ms = graph_ms(lambda: sdpa.run(*sdpa_args))
     del sdpa_args
     rows = []
     for variant, p in variants.items():
-        if not BA.instance(variant):
+        if not (BA.instance(variant) or p.counter == "matmul_only"):
             continue
+        bound = BA.bound_ms(p.kind, S * H, Np, D, rate)
         args = p.prep(*qkv)
         ref = p.plain(*args)
         errs, runs = {}, {n: [] for n in names}
@@ -2465,7 +2528,7 @@ def ab_probes(device, dirs):
                     got = call()
                     torch.cuda.synchronize()
                     errs[n] = BA.probe_error(p.kind, got, ref)
-                    if n == "this_tree":
+                    if n == "this_tree" and BA.instance(variant):
                         errs["this_tree_tiled"] = BA.tiled_error(variant,
                                                                  args, got)
                     if not (errs[n][0] <= errs[n][1]
@@ -2476,9 +2539,13 @@ def ab_probes(device, dirs):
                 runs[n].append(graph_ms(call))
         dev_ms = {n: sum(r) / len(r) for n, r in runs.items()}
         row = dict(variant=variant, graph_ms=dev_ms, runs=runs, errors=errs,
-                   bound_ms=bound[0], bound_by=bound[1], sdpa_graph_ms=sdpa_ms,
-                   share_of_bound={n: bound[0] / t for n, t in dev_ms.items()},
-                   over_sdpa={n: t / sdpa_ms for n, t in dev_ms.items()})
+                   bound_ms=bound[0], bound_by=bound[1],
+                   share_of_bound={n: bound[0] / t for n, t in dev_ms.items()})
+        if p.kind == "attention":
+            row.update(sdpa_graph_ms=sdpa_ms,
+                       over_sdpa={n: t / sdpa_ms for n, t in dev_ms.items()})
+        else:
+            row["global_sm90_tilings_ms"] = ab_matmul_only_tilings(args, ref)
         row["faster_than"] = {n: dev_ms["this_tree"] < t
                               for n, t in dev_ms.items() if n != "this_tree"}
         log("ab_probe", **row)
@@ -2608,19 +2675,23 @@ def ab_matmul(device, dirs, iters=20):
     return rows
 
 
+AB_GLOBAL_SCRIPTS = ("bench_global_attention", "bench_softmax_variants",
+                     "bench_int8_inkernel")
+
+
 def ab_global_libs(dirs):
-    """{script: {build: library}} for bench_global_attention and
-    bench_int8_inkernel: each of `dirs` that holds the script's .cu (with
-    the headers it includes beside it), named after its folder, then this
-    tree's, "this_tree"; a script no DIR holds is left out. Builds on
-    first use (`cuda_build.load`, which raises where there is no nvcc)."""
+    """{script: {build: library}} for the three global-shape probes: each
+    of `dirs` that holds the script's .cu (with the headers it includes
+    beside it), named after its folder, then this tree's, "this_tree"; a
+    script no DIR holds is left out. Builds on first use
+    (`cuda_build.load`, which raises where there is no nvcc)."""
+    import importlib
+
     from vggt_slam_tpu_torch.ops import cuda_build
-    from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
-    from vggt_slam_tpu_torch.scripts import bench_int8_inkernel as IK
 
     libs = {}
-    for script, mod in (("bench_global_attention", GA),
-                        ("bench_int8_inkernel", IK)):
+    for script in AB_GLOBAL_SCRIPTS:
+        mod = importlib.import_module(f"vggt_slam_tpu_torch.scripts.{script}")
         sigs = {n: sig for n, sig in mod._SIGNATURES.items()
                 if not n.endswith("_design_launches")}
         found = {}
@@ -2636,54 +2707,72 @@ def ab_global_libs(dirs):
     return libs
 
 
-def ab_global(device, dirs, iters=4):
-    """The two global-shape probes on global_sm90 against each of `dirs`
-    that holds their .cu (`ab_global_libs`), at the global shape (BH 16, N
-    34816, D 64): every mode and tiling of each build held to its plain
-    version on a 2048-row slab over all keys first (`check_line`), then
-    timed in turns (first to last, then back; CUDA events, best of 2 over
-    `iters` calls), beside SDPA (scale 1/sqrt(D)), the bound and this
-    tree's ptxas registers. Returns the rows (also logged)."""
-    import torch
-
-    from vggt_slam_tpu_torch.ops import cuda_build
+def ab_global_modes(script, device, rate, iters):
+    """One global-shape probe at the global shape (BH 16, N 34816, D 64):
+    (module, wrapper, plain version, SDPA ms on the script's inputs and
+    scale, {mode: (args(bq, bk, n_rows): the wrapper's arguments on the
+    first n_rows q rows (None: all), bound)})."""
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
     from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
     from vggt_slam_tpu_torch.scripts import bench_int8_inkernel as IK
+    from vggt_slam_tpu_torch.scripts import bench_softmax_variants as SV
 
-    libs = ab_global_libs(dirs)
-    report = ptxas_report(cuda_build.build_log)
     BH, D = 16, GA.HEAD_DIM
     N = BA.roundup(34353, 2048)
-    q, k, v = GA.make_inputs(BH, N, D, device=device)
-    scale = 1.0 / math.sqrt(D)
-    rate = BA.ex2_rate(device)
+    sv = script == "bench_softmax_variants"
+    q, k, v = GA.make_inputs(BH, N, D, device=device,
+                             scale=0.3 if sv else 1.0)
+    scale = math.log(2.0) if sv else 1.0 / math.sqrt(D)
     sdpa_ms = BA.bench(GA.sdpa, (q, k, v, scale), iters)
-    q8, k8, s8 = GA.int8_operands(q, k, scale)
+    modes = {}
+    if script == "bench_int8_inkernel":
+        for mode in IK.MODES:
+            sc = IK.scales(q, k, v, mode)
+            modes[mode] = (
+                lambda bq, bk, n, mode=mode, sc=sc: (
+                    sc, q[:, :n].contiguous(), k, v, bq, bk, mode),
+                GA.bound_ms(BH, N, N, D, rate, qk8=mode != "bf16",
+                            pv8=mode == "qk8av8"))
+        return IK, IK.attention, IK.attention_ref, sdpa_ms, modes
+    mod = SV if sv else GA
+    int8_mode = "staticint8" if sv else "int8"
+    q8, k8, s8 = (SV.int8_operands(q, k) if sv
+                  else GA.int8_operands(q, k, scale))
+    for mode in mod.MODES:
+        qq, kk, sc = ((q8, k8, s8) if mode == int8_mode
+                      else (q, k, SV.SMAX if sv else scale))
+        modes[mode] = (
+            lambda bq, bk, n, mode=mode, qq=qq, kk=kk, sc=sc: (
+                qq[:, :n].contiguous(), kk, v, bq, bk, mode, sc, N),
+            GA.bound_ms(BH, N, N, D, rate, qk8=mode == int8_mode,
+                        exp=mode != "matmul",
+                        qk_bytes=1 if mode == int8_mode else 2))
+    return mod, mod.run_kernel, mod.run_kernel_ref, sdpa_ms, modes
+
+
+def ab_global(device, dirs, iters=4):
+    """The three global-shape probes on global_sm90 against each of `dirs`
+    that holds their .cu (`ab_global_libs`), at the global shape (BH 16, N
+    34816, D 64; `ab_global_modes`): every mode and tiling of each build
+    held to its plain version on a 2048-row slab over all keys first
+    (`check_line`), then timed in turns (first to last, then back; CUDA
+    events, best of 2 over `iters` calls), beside SDPA (scale 1/sqrt(D), or
+    ln 2 for the softmax variants' raw logits), the bound and this tree's
+    ptxas registers. Returns the rows (also logged)."""
+    import torch
+
+    from vggt_slam_tpu_torch.scripts import bench_attention as BA
+    from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
+
+    libs = ab_global_libs(dirs)
+    rate = BA.ex2_rate(device)
     rows = []
     for script, builds in libs.items():
         _, template, _, _, offset = GLOBAL_PROBES[script]
-        mod = GA if script == "bench_global_attention" else IK
-        run, plain = ((GA.run_kernel, GA.run_kernel_ref) if mod is GA
-                      else (IK.attention, IK.attention_ref))
-        for mode in mod.MODES:
-            if mod is GA:
-                ops = (q8, k8, v, s8) if mode == "int8" else (q, k, v, scale)
-                bound = GA.bound_ms(BH, N, N, D, rate, qk8=mode == "int8",
-                                    exp=mode != "matmul",
-                                    qk_bytes=1 if mode == "int8" else 2)
-            else:
-                sc = IK.scales(q, k, v, mode)
-                bound = GA.bound_ms(BH, N, N, D, rate, qk8=mode != "bf16",
-                                    pv8=mode == "qk8av8")
-
-            def call(bq, bk, n_rows=N, mode=mode):
-                """The wrapper's arguments on the first n_rows q rows."""
-                if mod is GA:
-                    qq, kk, vv, sc_ = ops
-                    return (qq[:, :n_rows].contiguous(), kk, vv, bq, bk, mode,
-                            sc_, N)
-                return (sc, q[:, :n_rows].contiguous(), k, v, bq, bk, mode)
+        report = own_ptxas_report(script)
+        mod, run, plain, sdpa_ms, modes = ab_global_modes(script, device,
+                                                          rate, iters)
+        for mode, (call, bound) in modes.items():
             for bq, bk in mod.TILINGS:
                 slab = call(bq, bk, GA.SLAB_ROWS)
                 ref = plain(*slab)
@@ -2694,8 +2783,8 @@ def ab_global(device, dirs, iters=4):
                             errs[n] = GA.check_line(
                                 f"{n} {GA.variant_name(mode, bq, bk)}",
                                 run(*slab), ref, GA.SLAB_ROWS)
-                        runs[n].append(BA.bench(run, call(bq, bk), iters,
-                                                reps=2))
+                        runs[n].append(BA.bench(run, call(bq, bk, None),
+                                                iters, reps=2))
                 ms = {n: sum(r) / len(r) for n, r in runs.items()}
                 regs, spill = global_ptxas(
                     report, template, mod.MODES.index(mode) + offset, bq, bk)
@@ -2715,6 +2804,7 @@ def ab_global(device, dirs, iters=4):
                 log("ab_global", **row)
                 rows.append(row)
                 del ref
+        del modes
         torch.cuda.empty_cache()
     return rows
 
@@ -2788,6 +2878,14 @@ def sm90_registers(registers, static, int8) -> dict:
         if m and [f in ("true", "1") for f in m.groups()] == [static, int8]:
             out[name] = n
     return out
+
+
+def own_ptxas_report(name) -> tuple[dict, dict]:
+    """`ptxas_report` of this tree's library `name` alone: an A/B build or
+    another library may hold instances of the same name."""
+    from vggt_slam_tpu_torch.ops import cuda_build
+
+    return ptxas_report({name: cuda_build.build_log[name]})
 
 
 def ptxas_report(build_log) -> tuple[dict, dict]:
@@ -2871,8 +2969,7 @@ def main(argv) -> int:
             ab_probes(device, dirs)
         if holding("bench_matmul_shapes.cu"):
             ab_matmul(device, dirs)
-        if (holding("bench_global_attention.cu")
-                or holding("bench_int8_inkernel.cu")):
+        if any(holding(f"{s}.cu") for s in AB_GLOBAL_SCRIPTS):
             ab_global(device, dirs)
         return 0
     checks = check_kernels(device)

@@ -175,6 +175,31 @@ def test_softmax_variants_match_reference(ref, mode):
         _close(got, want, mode)
 
 
+@pytest.mark.parametrize("tiling", [t for t in SV.TILINGS if t != (64, 128)])
+@pytest.mark.parametrize("mode", SV.MODES)
+def test_softmax_variants_match_reference_at_other_tilings(ref, mode,
+                                                            tiling):
+    """As test_softmax_variants_match_reference, at the port's other two
+    tilings; staticint8 held to the reference's first q block (zeroed
+    scratch), its later blocks shown off by their carried l."""
+    q, k, v = _inputs(scale=0.3)
+    smax = 12.0
+    R = ref["bench_softmax_variants"]
+    if mode == "staticint8":
+        q, k, smax = SV.int8_operands(q, k)
+        R = _load("bench_softmax_variants", pltpu.InterpretParams(
+            uninitialized_memory="zero"))
+    want = R.run_kernel(_jax(q), _jax(k), _jax(v), *tiling, mode, smax)
+    got = SV.run_kernel(q, k, v, *tiling, mode, smax)
+    if mode == "staticint8":
+        bq = tiling[0]
+        _close(got[:1, :bq], want[:1, :bq], mode)
+        ratio = _f32(got[:, bq:]) / _f32(want[:, bq:])
+        assert np.median(ratio) > 1.5       # l grown by the earlier blocks
+    else:
+        _close(got, want, mode)
+
+
 def test_softmax_variants_int8_operands_match_reference():
     q, k, _ = _inputs(scale=0.3)
     qi, ki, smax = _reference_staticint8(q, k)
@@ -356,7 +381,11 @@ def test_wrappers_launch_nothing_on_cpu_and_refuse_other_devices():
 @pytest.mark.parametrize("holds", [("bench_global_attention",),
                                    ("bench_int8_inkernel",),
                                    ("bench_global_attention",
-                                    "bench_int8_inkernel"), ()])
+                                    "bench_int8_inkernel"), (),
+                                   ("bench_softmax_variants",),
+                                   ("bench_global_attention",
+                                    "bench_softmax_variants",
+                                    "bench_int8_inkernel")])
 def test_ab_global_leg_builds_what_each_folder_holds(tmp_path, monkeypatch,
                                                      holds):
     """The leg builds, for each script, the .cu of each folder that holds
@@ -376,11 +405,13 @@ def test_ab_global_leg_builds_what_each_folder_holds(tmp_path, monkeypatch,
         return name
     monkeypatch.setattr(cuda_build, "load", load)
     monkeypatch.setattr(GA, "kernel_library", lambda: "this GA")
+    monkeypatch.setattr(SV, "kernel_library", lambda: "this SV")
     monkeypatch.setattr(IK, "kernel_library", lambda: "this IK")
     libs = chip_smoke.ab_global_libs([str(folder), str(tmp_path / "none")])
     assert list(libs) == list(holds)
-    this = {"bench_global_attention": "this GA", "bench_int8_inkernel":
-            "this IK"}
+    this = {"bench_global_attention": "this GA",
+            "bench_softmax_variants": "this SV",
+            "bench_int8_inkernel": "this IK"}
     for script in holds:
         assert libs[script] == {"parent": f"{script}_ab_parent",
                                 "this_tree": this[script]}
@@ -390,8 +421,11 @@ def test_ab_global_leg_builds_what_each_folder_holds(tmp_path, monkeypatch,
         assert sigs and not any(n.endswith("_design_launches") for n in sigs)
 
 
+@pytest.mark.parametrize("script", ["bench_int8_inkernel",
+                                    "bench_softmax_variants"])
 def test_ab_global_leg_without_nvcc_raises_before_any_launch(tmp_path,
-                                                             monkeypatch):
+                                                             monkeypatch,
+                                                             script):
     """Where there is no CUDA toolkit the leg's first build raises nvcc's
     error before it writes anything: no build is skipped and nothing is
     timed."""
@@ -404,7 +438,7 @@ def test_ab_global_leg_without_nvcc_raises_before_any_launch(tmp_path,
     monkeypatch.setattr(cuda_build, "nvcc_path", no_nvcc)
     monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(cuda_build, "_loaded", {})
-    (tmp_path / "bench_int8_inkernel.cu").write_text("// a build\n")
+    (tmp_path / f"{script}.cu").write_text("// a build\n")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         chip_smoke.ab_global_libs([str(tmp_path)])
     with pytest.raises(RuntimeError, match="nvcc not found"):

@@ -709,6 +709,29 @@ def test_grouped_probe_design_counts_each_launch(cuda):
     assert BA.design_launches()["tma_wgmma"] == before + len(_GROUPED)
 
 
+# The matmul-only floor on global_sm90 (its matmul mode at scale 1): at
+# the frame shape (BH 288, N 1041 padded to 1152) and at BH 3, Np 1152
+# (fewer CTAs than SMs), into a NaN-filled output; each launch one of
+# global_sm90 by the C launcher's count, none of grouped_sm90; two runs
+# bit-equal (no atomics).
+@pytest.mark.parametrize("S,H,N", [(18, 16, 1041), (1, 3, 1152)],
+                         ids=["frame", "bh3"])
+def test_matmul_only_on_global_sm90(cuda, S, H, N):
+    p = BA.make_variants(S, H, N, 64)["matmul-only floor"]
+    args = p.prep(*BA.make_inputs(S, H, N, 64, seed=8, device=cuda))
+    before = BA.design_launches()
+    out = torch.full_like(args[0], math.nan)
+    assert p.run(*args, out=out) is out
+    torch.cuda.synchronize()
+    assert BA.design_launches() == {
+        "tma_wgmma": before["tma_wgmma"],
+        "global_sm90": before["global_sm90"] + 1}
+    assert not torch.isnan(out).any()
+    err, tol = BA.probe_error(p.kind, out, p.plain(*args))
+    assert err <= tol
+    assert torch.equal(p.run(*args), out)
+
+
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     d32 = torch.zeros(4, 128, 32, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -722,6 +745,8 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     np64 = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="multiple of 128 rows"):
         BA.grouped_attention(np64, np64, np64)
+    with pytest.raises(ValueError, match="multiple of 128 rows"):
+        BA.matmul_only(np64[0], np64[0], np64[0])
     rate = BA.ex2_rate(cuda, iters=256)
     assert 1e12 < rate < 1e13
 
@@ -782,19 +807,21 @@ def test_global_probe_kernels_match_plain(cuda, script, mode, tiling):
                 > GA.mean_distance(out, ref))
 
 
-# The two probes on global_sm90 (bench_global_attention, bench_int8_inkernel)
-# at their edges: 27 or 54 CTAs at BH 3, N 1152 (not a multiple of the 132
-# SMs); a NaN-filled output, so a row the kernel does not write fails; k
-# and v of 768 rows, NaN past the 512 keys attended, which a load reaching
-# past Nk would bring in; every call one global_sm90 launch by the C
-# launcher's count.
+# The three probes on global_sm90 (bench_global_attention,
+# bench_int8_inkernel, bench_softmax_variants) at their edges: 27 or 54
+# CTAs at BH 3, N 1152 (not a multiple of the 132 SMs); a NaN-filled
+# output, so a row the kernel does not write fails; for the global probe
+# and the softmax variants k and v of 1408 rows, NaN (int8 k: 127) past the
+# 1152 keys attended, which a load reaching past Nk would bring in; every
+# call one global_sm90 launch by the C launcher's count.
 _SM90_PROBES = ([("global", m, t) for m in GA.MODES for t in GA.TILINGS]
-                + [("inkernel", m, t) for m in IK.MODES for t in IK.TILINGS])
+                + [("inkernel", m, t) for m in IK.MODES for t in IK.TILINGS]
+                + [("softmax", m, t) for m in SV.MODES for t in SV.TILINGS])
+_SM90_MODULE = {"global": GA, "softmax": SV, "inkernel": IK}
 
 
 def _sm90_design(script):
-    return (GA.design_launches() if script == "global"
-            else IK.design_launches())["tma_wgmma"]
+    return _SM90_MODULE[script].design_launches()["tma_wgmma"]
 
 
 @pytest.mark.parametrize("script,mode,tiling", _SM90_PROBES,
@@ -806,17 +833,18 @@ def test_global_sm90_edges(cuda, script, mode, tiling):
     designs = _sm90_design(script)
     out = torch.full(args[0].shape, math.nan, dtype=torch.bfloat16,
                      device=cuda)
-    if script == "global":
-        got = GA.run_kernel(*args, out=out)
-    else:
+    mod = _SM90_MODULE[script]
+    if script == "inkernel":
         q, k, v = args[:3]
         got = IK.attention(IK.scales(q, k, v, mode), *args, out=out)
+    else:
+        got = mod.run_kernel(*args, out=out)
     torch.cuda.synchronize()
     assert got is out and not torch.isnan(out).any()
     err, tol = BA.probe_error("attention", out, plain(*args))
     assert err <= tol
     calls = 1
-    if script == "global":
+    if script != "inkernel":
         q, k, v = args[:3]
         # int8 k holds no NaN: 127 there, which would move every logit
         pad = torch.full((3, 256, 64), math.nan, device=cuda)
@@ -825,13 +853,47 @@ def test_global_sm90_edges(cuda, script, mode, tiling):
         k_long = torch.cat([k, k_pad], 1).contiguous()
         v_long = torch.cat([v, pad.bfloat16()], 1).contiguous()
         slab = q[:, :256].contiguous()
-        got = GA.run_kernel(slab, k_long, v_long, *args[3:], n_keys=1152)
+        got = mod.run_kernel(slab, k_long, v_long, *args[3:], n_keys=1152)
         calls += 1
         torch.cuda.synchronize()
-        want = GA.run_kernel_ref(slab, k, v, *args[3:], n_keys=1152)
+        want = mod.run_kernel_ref(slab, k, v, *args[3:], n_keys=1152)
         err, tol = BA.probe_error("attention", got, want)
         assert err <= tol
     assert _sm90_design(script) == designs + calls
+
+
+def test_staticfused_sums_the_rounded_weights(cuda):
+    """staticfused's l is the tensor cores' sum of bf16(p) (the ones
+    panel's product), static's the f32 sum of p. Every logit 12 against
+    smax 12 - log2(1.0035), so every p is 1.0035 and bf16(p) is 1; v all
+    ones. staticfused gives exactly its plain version's 1 (n / n), static
+    1 / 1.0035, one bf16 step below: a kernel that summed p, or dropped
+    the ones product (l = 0), fails."""
+    BH, N = 2, 1152
+    q = torch.zeros(BH, N, 64, dtype=torch.bfloat16, device=cuda)
+    k, v = torch.zeros_like(q), torch.ones_like(q)
+    q[..., 0], k[..., 0] = 12.0, 1.0
+    smax = 12.0 - math.log2(1.0035)
+    for tiling in SV.TILINGS:
+        fused = SV.run_kernel(q, k, v, *tiling, "staticfused", smax)
+        static = SV.run_kernel(q, k, v, *tiling, "static", smax)
+        torch.cuda.synchronize()
+        assert torch.equal(fused, SV.run_kernel_ref(q, k, v, *tiling,
+                                                    "staticfused", smax))
+        assert bool((fused == 1).all())
+        want = SV.run_kernel_ref(q, k, v, *tiling, "static", smax)
+        assert torch.equal(static, want) and bool((want < 1).all())
+
+
+@pytest.mark.parametrize("mode", SV.MODES)
+def test_softmax_variant_runs_are_bit_equal(cuda, mode):
+    """No atomics: every global_sm90 instance of the softmax variants gives
+    the same bits twice, at BH 3, N 1152."""
+    for tiling in SV.TILINGS:
+        _, _, args, _, _, _ = _global_probe("softmax", mode, tiling, cuda,
+                                            BH=3, N=1152)
+        first = SV.run_kernel(*args)
+        assert torch.equal(SV.run_kernel(*args), first), tiling
 
 
 def _key_pos(key):

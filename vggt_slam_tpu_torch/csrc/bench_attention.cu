@@ -9,7 +9,10 @@
 //
 //   bench_matmul_only   _matmul_only_kernel (:45): o = bf16(q k^T) v with
 //                       f32 accumulation and no softmax; the tensor-core
-//                       floor.
+//                       floor. It runs global_sm90<MO_BQ, MO_BK, G_MATMUL>
+//                       (global_sm90.cuh, the global probes' design: a TMA
+//                       ring refilled by release counts, wgmma, QK^T of
+//                       tile t + 1 issued before PV of tile t) at scale 1.
 //   bench_softmax_only  _softmax_only_kernel (:57): the logits of row r are
 //                       q[r, 0] * 0.01 in every column; m = row max,
 //                       p = exp2(s - m), l = sum p, o = p[:, :D] / l. No
@@ -23,9 +26,9 @@
 //                       QK^T of problem g + 1 issued before the softmax and
 //                       PV of problem g.
 //
-// The two floors keep the first design of the port: one CTA of 4 warps per
-// 64-row q tile and problem, 64-key K/V tiles staged in shared memory, QK^T
-// and PV on mma.sync m16n8k16 with f32 accumulators in registers.
+// The softmax-only floor keeps the first design of the port: one CTA of 4
+// warps per 64-row q tile and problem, the logits made in registers in
+// mma.sync's accumulator layout (no products).
 //
 // bench_grouped and bench_pipelined run grouped_sm90<G, SCHED>, the Hopper
 // design of flash_sm90.cuh without its ping-pong, so that a probe measures
@@ -62,7 +65,7 @@
 //   G = 2 interleaved and pipelined are the same order, as in the
 //   reference.
 // - What a warpgroup keeps live (f32 registers a thread at a 64-row tile:
-//   a score tile BK / 2, an accumulator 32) sets each instance (GCfg):
+//   a score tile BK / 2, an accumulator 32) sets each instance (GsCfg):
 //   straight one problem at BK = 128 (128-row q tiles, warpgroup w its rows
 //   [64w, 64w + 64)); G = 2 both problems at BK = 64; G = 4 all four at
 //   BK = 32; G = 8 splits the problems between the warpgroups (warpgroup w
@@ -83,7 +86,7 @@
 // x <- 2^-x on ex2.approx, to measure the MUFU.EX2 rate that the softmax
 // bound is taken against.
 
-#include "flash_common.cuh"
+#include "global_sm90.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -91,70 +94,17 @@ namespace {
 using namespace flash;
 
 constexpr int D = 64;                 // the frame attention's head dim
-constexpr int BQ = 64;                // query rows per CTA
-constexpr int BK = 64;                // keys per tile
+constexpr int BQ = 64;                // query rows per CTA (softmax-only)
+constexpr int BK = 64;                // keys per tile (softmax-only)
 constexpr int NWARP = 4;
 constexpr int NTHREAD = NWARP * 32;
-constexpr int LD = D + 8;             // bf16 tile row stride
-constexpr int TILE = 64 * LD;         // bf16 elements of one staged tile
-constexpr int KS = D / 16;            // k-steps of QK^T
 constexpr int NT = BK / 8;            // 8-key n-tiles of S
 constexpr int DT = D / 8;             // 8-dim n-tiles of O
+// matmul-only's global_sm90 tiling, the fastest of the five at the frame
+// shape (BH 288, Np 1152; 64 x 64 took 1.13x as long, 128 x 32 1.35x)
+constexpr int MO_BQ = 128, MO_BK = 64;
 
 enum Schedule { STRAIGHT = 0, INTERLEAVED = 1, PIPELINED = 2 };
-
-// Rows [row0, row0 + 64) of problem bh of a (BH, Np, D) tensor.
-__device__ __forceinline__ void load(__nv_bfloat16* dst,
-                                     const __nv_bfloat16* src, int bh,
-                                     int Np, int row0) {
-  load_tile<D, NTHREAD>(dst, src, bh, 0, 1, Np, row0, Np);
-}
-
-// This warp's 16 q rows of a staged tile as A fragments.
-__device__ __forceinline__ void load_q(uint32_t (&qa)[KS][4],
-                                       const __nv_bfloat16* Qs, int warp,
-                                       int lane) {
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) load_a<LD>(qa[ks], Qs, warp * 16, ks * 16, lane);
-}
-
-// S = Q_w K^T: 16 rows x the 64 keys of a staged K tile.
-__device__ __forceinline__ void qk(float (&s)[NT][4],
-                                   const uint32_t (&qa)[KS][4],
-                                   const __nv_bfloat16* Ks, int lane) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      uint32_t kb[4];
-      load_bt<LD>(kb, Ks, j * 8, ks * 16, lane);
-      mma_bf16(s[j], qa[ks], kb[0], kb[1]);
-      mma_bf16(s[j + 1], qa[ks], kb[2], kb[3]);
-    }
-  }
-}
-
-// O += bf16(P) V over one 64-key tile, P the S fragments.
-__device__ __forceinline__ void pv(float (&o)[DT][4], const float (&p)[NT][4],
-                                   const __nv_bfloat16* Vs, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int i = 0; i < DT; i += 2) {
-      uint32_t vb[4];
-      load_b<LD>(vb, Vs, kk * 16, i * 8, lane);
-      mma_bf16(o[i], pa, vb[0], vb[1]);
-      mma_bf16(o[i + 1], pa, vb[2], vb[3]);
-    }
-  }
-}
 
 // One problem's softmax state for this warp's rows g and g + 8: the output
 // accumulator, the running max, and this lane's partial row sums.
@@ -242,34 +192,6 @@ __device__ __forceinline__ void finish(RowState& st, __nv_bfloat16* out,
 }
 
 __global__ void __launch_bounds__(NTHREAD)
-    matmul_only_kernel(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                       const __nv_bfloat16* v, __nv_bfloat16* out, int Np) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + TILE;
-  __nv_bfloat16* Vs = Ks + TILE;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  load(Qs, q, bh, Np, q0);
-  __syncthreads();
-  uint32_t qa[KS][4];
-  load_q(qa, Qs, warp, lane);
-  float o[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  for (int k0 = 0; k0 < Np; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load(Ks, k, bh, Np, k0);
-    load(Vs, v, bh, Np, k0);
-    __syncthreads();
-    float s[NT][4];
-    qk(s, qa, Ks, lane);
-    pv(o, s, Vs, lane);   // S rounded to bf16 as the A operand
-  }
-  store(o, 1.f, 1.f, out, bh, Np, q0, warp, lane);
-}
-
-__global__ void __launch_bounds__(NTHREAD)
     softmax_only_kernel(const __nv_bfloat16* q, __nv_bfloat16* out, int Np,
                         float z) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -334,7 +256,7 @@ __host__ __device__ constexpr int gs_stages(int qbuf, int nq, int slot) {
 
 // What G and the schedule set (the file header says why).
 template <int G, int SCHED>
-struct GCfg {
+struct GsCfg {
   static_assert(G == 2 || G == 4 || G == 8, "G of 2, 4 or 8");
   // G = 8: warpgroup w takes problems w, w + 2, ... of 64-row q tiles
   static constexpr bool SPLIT = SCHED != STRAIGHT && G == 8;
@@ -357,7 +279,7 @@ struct GCfg {
   static constexpr size_t SMEM = gs_smem(QBUF, NQ, 2 * KT, STAGES);
 };
 
-struct GParams {
+struct GsParams {
   CUtensorMap tq, tk, tv;
   __nv_bfloat16* o;
   int Np, n_qt, items;   // q tiles a problem; work items (q tile, group)
@@ -429,8 +351,8 @@ __device__ __forceinline__ void rescale_pack(float (&o)[8][4],
 
 template <int G, int SCHED>
 __global__ void __launch_bounds__(GS_THREADS, 1)
-    grouped_sm90(const __grid_constant__ GParams P) {
-  using C = GCfg<G, SCHED>;
+    grouped_sm90(const __grid_constant__ GsParams P) {
+  using C = GsCfg<G, SCHED>;
   constexpr int S = C::STAGES, NQ = C::NQ, PW = C::PW, BKT = C::BK;
   constexpr int KN = BKT / 8;   // 8-key n-tiles of a score tile
   extern __shared__ unsigned char gs_raw[];
@@ -659,14 +581,15 @@ bool bad_shape(int BH, int Np, int D_, int G) {
 }
 
 // grouped_sm90 launches since the library loaded, counted where the kernel
-// is launched. Read by bench_attention_design_launches.
-std::atomic<long long> design_launches{0};
+// is launched. Read by bench_attention_design_launches (beside
+// global_sm90.cuh's design_launches, matmul-only's).
+std::atomic<long long> grouped_launches{0};
 
 template <int G, int SCHED>
 int launch_grouped(const void* q, const void* k, const void* v, void* o,
                    int BH, int Np, cudaStream_t stream) {
-  using C = GCfg<G, SCHED>;
-  GParams P{};
+  using C = GsCfg<G, SCHED>;
+  GsParams P{};
   int err = encode_heads<D>(&P.tq, q, BH, Np, Np, 1, C::QR, C::NB);
   if (err == 0) err = encode_heads<D>(&P.tk, k, BH, Np, Np, 1, C::BK, C::NB);
   if (err == 0) err = encode_heads<D>(&P.tv, v, BH, Np, Np, 1, C::BK, C::NB);
@@ -684,7 +607,7 @@ int launch_grouped(const void* q, const void* k, const void* v, void* o,
   if (sms <= 0) return int(cudaErrorInvalidValue);
   kernel<<<P.items < sms ? P.items : sms, GS_THREADS, C::SMEM, stream>>>(P);
   err = int(cudaGetLastError());
-  if (err == 0) design_launches.fetch_add(1, std::memory_order_relaxed);
+  if (err == 0) grouped_launches.fetch_add(1, std::memory_order_relaxed);
   return err;
 }
 
@@ -705,9 +628,9 @@ int dispatch_grouped(const void* q, const void* k, const void* v, void* o,
 
 template <int SCHED>
 int block_k_of(int G) {
-  return G == 2 ? GCfg<2, SCHED>::BK
-         : G == 4 ? GCfg<4, SCHED>::BK
-         : G == 8 ? GCfg<8, SCHED>::BK
+  return G == 2 ? GsCfg<2, SCHED>::BK
+         : G == 4 ? GsCfg<4, SCHED>::BK
+         : G == 8 ? GsCfg<8, SCHED>::BK
                   : 0;
 }
 
@@ -718,14 +641,9 @@ extern "C" {
 int bench_matmul_only(const void* q, const void* k, const void* v, void* o,
                       int BH, int Np, int D_, void* stream) {
   if (bad_shape(BH, Np, D_, 1)) return int(cudaErrorInvalidValue);
-  const size_t bytes = size_t(3) * TILE * sizeof(__nv_bfloat16);  // < 48 KB
-  matmul_only_kernel<<<dim3(Np / BQ, BH), NTHREAD, bytes,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Np);
-  return int(cudaGetLastError());
+  return launch_global_sm90<MO_BQ, MO_BK, G_MATMUL>(
+      q, k, v, o, nullptr, 1.f, BH, Np, Np, Np,
+      static_cast<cudaStream_t>(stream));
 }
 
 // z must be 0: it only hides from the compiler that a row's logits are equal.
@@ -763,9 +681,11 @@ int bench_grouped_block_k(int G, int schedule) {
   }
 }
 
-// out[0]: grouped_sm90 launches (bench_grouped, bench_pipelined).
+// out[0]: grouped_sm90 launches (bench_grouped, bench_pipelined); out[1]:
+// global_sm90 launches (bench_matmul_only).
 void bench_attention_design_launches(long long* out) {
-  out[0] = design_launches.load(std::memory_order_relaxed);
+  out[0] = grouped_launches.load(std::memory_order_relaxed);
+  out[1] = design_launches.load(std::memory_order_relaxed);
 }
 
 // out: blocks * 256 floats, each the sum of 8 chains after `iters` steps.

@@ -1,7 +1,6 @@
 // Helpers shared by the port's kernels: the launch attributes, bf16
 // packing and int8 rounding of the flash-attention kernels, and the
-// mma.sync fragment helpers of the DPT tail (dpt_tail.cu) and the probes
-// (bench_*.cu, global_probe.cuh).
+// mma.sync fragment helpers of the DPT tail (dpt_tail.cu).
 //
 // Conventions of mma.sync m16n8k16 (row.col, bf16 in, f32 accumulate), with
 // g = lane / 4 and t = lane % 4:
@@ -101,17 +100,6 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4],
   ldmatrix_x4(a, tile + (row0 + (m % 2) * 8 + r) * LD + col0 + (m / 2) * 8);
 }
 
-// B fragments of X^T for two 8-row n-tiles: rows [row0, row0 + 16) of the
-// tile are the n index, cols [col0, col0 + 16) the k index. b[0], b[1] feed
-// n-tile row0 / 8, b[2], b[3] n-tile row0 / 8 + 1 (the S = Q K^T pattern).
-template <int LD>
-__device__ __forceinline__ void load_bt(uint32_t (&b)[4],
-                                        const __nv_bfloat16* tile, int row0,
-                                        int col0, int lane) {
-  const int m = lane / 8, r = lane % 8;
-  ldmatrix_x4(b, tile + (row0 + (m / 2) * 8 + r) * LD + col0 + (m % 2) * 8);
-}
-
 // B fragments of X for two 8-col n-tiles: rows [row0, row0 + 16) of the
 // tile are the k index, cols [col0, col0 + 16) the n index. b[0], b[1] feed
 // n-tile col0 / 8, b[2], b[3] n-tile col0 / 8 + 1 (the O += P V pattern).
@@ -124,65 +112,10 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[4],
                            (m / 2) * 8);
 }
 
-// int8 QK^T (mma.sync m16n8k32, row.col, s8 in, s32 accumulate). An 8x8
-// b16 ldmatrix over int8 rows whose D is contiguous hands lane (g, t) the 4
-// bytes [4t, 4t + 4) of row g of an 8-row x 16-byte block: the byte layout
-// of m16n8k32's A (a0..a3: rows g / g+8, k bytes 4t.. / 16+4t..) and B (b0,
-// b1: key g, k bytes 4t.. / 16+4t..) operands; the s32 accumulator has the
-// f32 accumulator's layout. Byte tiles use a row stride of LDB = D + 16
-// bytes, which keeps the 8-row reads free of bank conflicts.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of rows [row0, row0 + 16), k bytes [col0, col0 + 32).
-template <int LDB>
-__device__ __forceinline__ void load_a8(uint32_t (&a)[4], const int8_t* tile,
-                                        int row0, int col0, int lane) {
-  const int m = lane / 8, r = lane % 8;
-  ldmatrix_x4(a, tile + (row0 + (m % 2) * 8 + r) * LDB + col0 + (m / 2) * 16);
-}
-
-// B fragments of X^T for two 8-key n-tiles (rows [row0, row0 + 16) of the
-// tile), k bytes [col0, col0 + 32): b[0], b[1] feed n-tile row0 / 8, b[2],
-// b[3] n-tile row0 / 8 + 1.
-template <int LDB>
-__device__ __forceinline__ void load_bt8(uint32_t (&b)[4], const int8_t* tile,
-                                         int row0, int col0, int lane) {
-  const int m = lane / 8, r = lane % 8;
-  ldmatrix_x4(b, tile + (row0 + (m / 2) * 8 + r) * LDB + col0 + (m % 2) * 16);
-}
-
 // Round-half-even quantization of x * inv to [-127, 127] (`_quant_i8`).
 __device__ __forceinline__ int8_t quant_i8(float x, float inv) {
   const int q = __float2int_rn(__fmul_rn(x, inv));
   return static_cast<int8_t>(max(-127, min(127, q)));
-}
-
-// Copy rows [row0, row0 + 64) of head h of a packed (B, N, H*D) tensor into
-// a shared tile with 16-byte loads; rows at or past `limit` are zero.
-template <int D, int NTHREAD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int b,
-                                          int h, int H, int N, int row0,
-                                          int limit) {
-  constexpr int VEC = D / 8;
-  constexpr int LD = D + 8;
-  for (int i = threadIdx.x; i < 64 * VEC; i += NTHREAD) {
-    const int r = i / VEC, c = i % VEC;
-    const int n = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (n < limit) {
-      val = *reinterpret_cast<const uint4*>(
-          src + ((size_t(b) * N + n) * H + h) * D + c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
 }
 
 }  // namespace flash

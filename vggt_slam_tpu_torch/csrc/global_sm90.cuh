@@ -1,9 +1,12 @@
 // global_sm90: the Hopper design of the global-shape probes
-// bench_global_attention.cu (modes bf16, int8, matmul) and
-// bench_int8_inkernel.cu (modes bf16, qk8, qk8av8), on contiguous
-// (BH, rows, 64) tensors. Each CTA takes one work item, a BQ-row q tile of
-// one (batch, head) problem, and sweeps its Nk keys in BK-key tiles (the
-// probes' tilings, whose meaning the scripts' TILINGS keep).
+// bench_global_attention.cu (modes bf16, int8, matmul),
+// bench_int8_inkernel.cu (modes bf16, qk8, qk8av8) and
+// bench_softmax_variants.cu (modes matmul, online, static, staticfused,
+// staticint8), and of bench_attention.cu's matmul-only floor (the global
+// matmul mode at the frame shape), on contiguous (BH, rows, 64) tensors.
+// Each CTA takes one work item, a BQ-row q tile of one (batch, head)
+// problem, and sweeps its Nk keys in BK-key tiles (the probes' tilings,
+// whose meaning the scripts' TILINGS keep).
 //
 // What bounds it: at the global shape (BH 16, N 34816) the products (4 Nq
 // Nk D flops, 5.0 ms at 989 TFLOP/s in bf16) and one exp per logit (4.6 ms
@@ -45,10 +48,17 @@
 //   ring of 3, V8 of 4, since a warpgroup may be a tile behind the other),
 //   then fence.proxy.async and a CTA barrier before the s8 wgmma reads it.
 // - The softmax: the natural exp (__expf, ex2.approx of x log2 e) in the
-//   global probe; in the in-kernel probe exp2 as `ex2` (ex2.approx.ftz,
-//   sm90_common.cuh) in place of exp2f: weights below 2^-126 flush to 0,
-//   invisible against a row's running max (l >= 1).
-// - Epilogue: O / l (matmul: O) as bf16 straight from registers.
+//   global probe; in the in-kernel probe and the softmax variants exp2 as
+//   `ex2` (ex2.approx.ftz, sm90_common.cuh) in place of exp2f: weights
+//   below 2^-126 flush to 0, invisible against a row's running max
+//   (l >= 1). The variants' static modes take p = exp2(s - smax) against
+//   a fixed smax: no row max, no rescale.
+// - staticfused: l is the tensor cores' sum of bf16(p), a second m64n64k16
+//   of the same P on a 16 x 64 panel of ones written once per CTA (V
+//   widened to 128 columns, as the reference's); the epilogue reads every
+//   column of that accumulator, so no product of it can be dropped.
+// - Epilogue: O / l (the variants: O / max(l, 1e-30); matmul: O) as bf16
+//   straight from registers.
 #pragma once
 
 #include <type_traits>
@@ -60,20 +70,30 @@ namespace {
 
 using namespace flash;
 
-// The modes of both probes, numbered apart so that every instance's name
-// (global_sm90<BQ, BK, MODE>) is its own in the ptxas report.
+// The modes of the three probes, numbered apart so that every instance's
+// name (global_sm90<BQ, BK, MODE>) is its own in the ptxas report.
 enum GMode { G_BF16 = 0, G_INT8 = 1, G_MATMUL = 2,
-             IK_BF16 = 3, IK_QK8 = 4, IK_QK8AV8 = 5 };
+             IK_BF16 = 3, IK_QK8 = 4, IK_QK8AV8 = 5,
+             SV_MATMUL = 6, SV_ONLINE = 7, SV_STATIC = 8, SV_STATICFUSED = 9,
+             SV_STATICINT8 = 10 };
 
 template <int MODE>
 struct ModeOf {
-  static constexpr bool SOFTMAX = MODE != G_MATMUL;
-  static constexpr bool NATURAL = MODE < IK_BF16;   // global: exp, else exp2
-  static constexpr bool I8_IN = MODE == G_INT8;     // q, k int8 from the caller
+  static constexpr bool SOFTMAX = MODE != G_MATMUL && MODE != SV_MATMUL;
+  static constexpr bool NATURAL = MODE <= G_MATMUL;  // global: exp, else exp2
+  static constexpr bool STATIC = MODE >= SV_STATIC;  // exp2(s - smax), no max
+  static constexpr bool ONES = MODE == SV_STATICFUSED;  // l from a ones panel
+  // q, k int8 from the caller
+  static constexpr bool I8_IN = MODE == G_INT8 || MODE == SV_STATICINT8;
   static constexpr bool QUANT = MODE == IK_QK8 || MODE == IK_QK8AV8;
   static constexpr bool S8 = I8_IN || QUANT;        // QK^T on s8 wgmma
   static constexpr bool AV8 = MODE == IK_QK8AV8;    // PV on s8 wgmma
-  static constexpr bool SCALES = MODE >= IK_BF16;   // (5, BH) scales
+  static constexpr bool SCALES = MODE >= IK_BF16 && MODE <= IK_QK8AV8;
+  // the variants' raw bf16 logits: s = f32(sum), no multiply by 1 (which
+  // cost their bf16 modes 4-8%, up to 12%, at the global shape; staticint8,
+  // whose code it leaves alone, read within 0.6%)
+  static constexpr bool RAW = MODE >= SV_MATMUL && !I8_IN;
+  static constexpr bool CLAMP = MODE >= SV_ONLINE;  // O / max(l, 1e-30)
 };
 
 constexpr int G_D = 64;            // the head dim the probes are built for
@@ -94,15 +114,19 @@ struct GCfg {
   static constexpr int Q8BYTES = M::QUANT ? BQ * 64 : 0;
   static constexpr int T8 = BK * 64;          // an int8 K or transposed V tile
   static constexpr int NK8 = M::QUANT ? 3 : 0, NV8 = M::AV8 ? 4 : 0;
+  static constexpr int ONESB = M::ONES ? 16 * 128 : 0;   // 16 rows of ones
   // CTAs an SM is sized for, ptxas's limit following at BQ = 64: at 64 x 64
   // four (a 2-slot ring) took 9-10% off the softmax modes and added 12% to
   // matmul against three (4 slots); with the in-kernel quantization's int8
-  // rings three would leave too small a key ring
-  static constexpr int CTAS = BK > 64 ? (BQ == 64 ? 2 : 1)
-                              : BQ == 64 && !M::QUANT ? (M::SOFTMAX ? 4 : 3)
-                                                      : 2;
+  // rings three would leave too small a key ring; staticfused's 32 more
+  // accumulator registers do not fit four
+  static constexpr int CTAS =
+      BK > 64 ? (BQ == 64 ? 2 : 1)
+      : BQ == 64 && !M::QUANT ? (M::SOFTMAX && !M::ONES ? 4 : 3)
+                              : 2;
   static constexpr int MINB = BQ == 64 ? CTAS : 1;
-  static constexpr int FIXED = 1024 + QBYTES + Q8BYTES + (NK8 + NV8) * T8 + 8;
+  static constexpr int FIXED =
+      1024 + QBYTES + ONESB + Q8BYTES + (NK8 + NV8) * T8 + 8;
   static constexpr int BUDGET = G_SM_SMEM / CTAS - 1024;
   static constexpr int FIT = (BUDGET - FIXED) / (SLOT + 20);
   static constexpr int STAGES = FIT < G_MAX_STAGES ? FIT : G_MAX_STAGES;
@@ -114,7 +138,8 @@ struct GParams {
   CUtensorMap tq, tk, tv;
   __nv_bfloat16* o;
   const float* sc;   // in-kernel: (5, BH) scales
-  float scale;       // global: the logit scale
+  float scale;       // global: the logit scale; staticint8: the dequant
+  float smax;        // static modes: the fixed max p = exp2(s - smax) takes
   int BH, Nq, Nk;
 };
 
@@ -238,7 +263,8 @@ __global__ void __launch_bounds__(GCfg<BQ, BK, MODE>::NTHREAD,
   extern __shared__ unsigned char g_raw[];
   const uint32_t raw = smem_addr(g_raw);
   // 1 KB aligned, as the 128B swizzle's 8-row atom
-  const uint32_t sq = (raw + 1023) & ~1023u, sq8 = sq + C::QBYTES;
+  const uint32_t sq = (raw + 1023) & ~1023u, sones = sq + C::QBYTES;
+  const uint32_t sq8 = sones + C::ONESB;
   const uint32_t ring = sq8 + C::Q8BYTES, sk8 = ring + S * C::SLOT;
   const uint32_t sv8 = sk8 + C::NK8 * C::T8;
   const uint32_t full_k = sv8 + C::NV8 * C::T8, full_v = full_k + 8 * S;
@@ -269,6 +295,11 @@ __global__ void __launch_bounds__(GCfg<BQ, BK, MODE>::NTHREAD,
     mbar_expect_tx(q_full, C::QBYTES);
     tma_load_3d(sq, &P.tq, q_full, 0, q0, bh);
     for (int t = 0; t < S; ++t) load_kv(t);
+  }
+  if constexpr (M::ONES) {   // bf16 ones (any swizzle reads them as ones)
+    for (int i = threadIdx.x; i < C::ONESB / 4; i += C::NTHREAD)
+      reinterpret_cast<uint32_t*>(gen + C::QBYTES)[i] = 0x3F803F80u;
+    fence_proxy_async();
   }
   __syncthreads();
 
@@ -329,11 +360,15 @@ __global__ void __launch_bounds__(GCfg<BQ, BK, MODE>::NTHREAD,
 
   Acc acc[NT][4];
   float s[NT][4], o[DT][4];
+  float o1[M::ONES ? DT : 1][4];                 // staticfused: P times ones
   int acc8[DT][4];                               // qk8av8: PV's s32 sums
   uint32_t pa[M::AV8 ? BK / 32 : BK / 16][4];    // P as A fragments
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, c[2] = {1.f, 1.f};
 #pragma unroll
   for (int i = 0; i < DT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (M::ONES ? DT : 1); ++i)
+    o1[i][0] = o1[i][1] = o1[i][2] = o1[i][3] = 0.f;
 
   // S = Q_w K^T of tile t into acc, issued (asynchronous, committed).
   auto issue_qk = [&](int t) {
@@ -371,26 +406,44 @@ __global__ void __launch_bounds__(GCfg<BQ, BK, MODE>::NTHREAD,
       const int i = t % S;
       mbar_wait(full_v + 8 * i, (t / S) & 1);
       reg_fence(o);
+      if constexpr (M::ONES) reg_fence(o1);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)   // 16 rows of V a step
+      for (int kk = 0; kk < BK / 16; ++kk) {   // 16 rows of V a step
         wgmma_pv_rows<G_D, BK>(o, pa[kk], ring + i * C::SLOT + C::KBYTES,
                                kk * 16);
+        if constexpr (M::ONES) wgmma_pv(o1, pa[kk], row_desc<128>(sones));
+      }
     }
     wgmma_commit();
   };
-  // The finished QK^T: s = f32(acc) * scale, rounded once; then the online
-  // softmax step in the reference's order (m_new = max(m, row max), c =
-  // exp(m - m_new), p = exp(s - m_new), l = c l + sum p), p left in s.
+  // The finished QK^T: s = f32(acc) * scale, rounded once (the variants'
+  // bf16 modes: f32(acc)); then the online softmax step in the reference's
+  // order (m_new = max(m, row max), c = exp(m - m_new), p = exp(s - m_new),
+  // l = c l + sum p), or the static one (p = exp2(s - smax), l += sum p;
+  // staticfused sums on the tensor cores), p left in s.
   auto softmax = [&]() {
     reg_fence(acc);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        s[j][e] = __fmul_rn(static_cast<float>(acc[j][e]), scale);
+        s[j][e] = M::RAW ? static_cast<float>(acc[j][e])
+                         : __fmul_rn(static_cast<float>(acc[j][e]), scale);
     }
-    if constexpr (M::SOFTMAX) {
+    if constexpr (M::STATIC) {
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = ex2(s[j][e] - P.smax);
+          if constexpr (!M::ONES) sum[e / 2] += s[j][e];
+        }
+      }
+      l[0] += sum[0];
+      l[1] += sum[1];
+    } else if constexpr (M::SOFTMAX) {
       float mx[2] = {NEG_INF, NEG_INF}, sum[2] = {0.f, 0.f};
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -431,7 +484,8 @@ __global__ void __launch_bounds__(GCfg<BQ, BK, MODE>::NTHREAD,
       }
     }
     // skipped where no row of the warp moved its max (c = 1: exact)
-    if (M::SOFTMAX && __any_sync(0xffffffffu, c[0] != 1.f || c[1] != 1.f)) {
+    if (M::SOFTMAX && !M::STATIC &&
+        __any_sync(0xffffffffu, c[0] != 1.f || c[1] != 1.f)) {
 #pragma unroll
       for (int i = 0; i < DT; ++i) {
 #pragma unroll
@@ -520,13 +574,23 @@ __global__ void __launch_bounds__(GCfg<BQ, BK, MODE>::NTHREAD,
     }
   } else {
     reg_fence(o);
+    if constexpr (M::ONES) reg_fence(o1);
   }
   release(ntiles - 1);
 
   // O / l (l summed over the 4 lanes of a row) in bf16, rows g and g + 8
   // of the warp's 16.
   float den[2] = {1.f, 1.f};
-  if constexpr (M::SOFTMAX) {
+  if constexpr (M::ONES) {
+    // every column of o1 is the row sum of bf16(p); their max reads them all
+    den[0] = o1[0][0];
+    den[1] = o1[0][2];
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      den[0] = fmaxf(den[0], fmaxf(o1[i][0], o1[i][1]));
+      den[1] = fmaxf(den[1], fmaxf(o1[i][2], o1[i][3]));
+    }
+  } else if constexpr (M::SOFTMAX) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       den[r] = l[r];
@@ -534,6 +598,10 @@ __global__ void __launch_bounds__(GCfg<BQ, BK, MODE>::NTHREAD,
       for (int off = 1; off < 4; off <<= 1)
         den[r] += __shfl_xor_sync(0xffffffffu, den[r], off);
     }
+  }
+  if constexpr (M::CLAMP) {
+    den[0] = fmaxf(den[0], 1e-30f);
+    den[1] = fmaxf(den[1], 1e-30f);
   }
   __nv_bfloat16* lo =
       P.o + (size_t(bh) * P.Nq + q0 + warp * 16 + lane / 4) * G_D;
@@ -552,12 +620,13 @@ __global__ void __launch_bounds__(GCfg<BQ, BK, MODE>::NTHREAD,
 std::atomic<long long> design_launches{0};
 
 // q (BH, Nq, 64), k and v (BH, k_rows, 64), o (BH, Nq, 64), contiguous;
-// q, k int8 in G_INT8, else bf16; attends to the first Nk keys. sc: the
-// (5, BH) scales of the in-kernel modes, else unused.
+// q, k int8 in G_INT8 and SV_STATICINT8, else bf16; attends to the first Nk
+// keys. sc: the (5, BH) scales of the in-kernel modes, else unused; smax:
+// the static modes' fixed max.
 template <int BQ, int BK, int MODE>
 int launch_global_sm90(const void* q, const void* k, const void* v, void* o,
                        const float* sc, float scale, int BH, int Nq, int Nk,
-                       int k_rows, cudaStream_t st) {
+                       int k_rows, cudaStream_t st, float smax = 0.f) {
   using C = GCfg<BQ, BK, MODE>;
   constexpr int ESZ = ModeOf<MODE>::I8_IN ? 1 : 2;
   if (Nq % BQ != 0 || Nk % BK != 0 || Nk > k_rows)
@@ -575,6 +644,7 @@ int launch_global_sm90(const void* q, const void* k, const void* v, void* o,
   P.o = static_cast<__nv_bfloat16*>(o);
   P.sc = sc;
   P.scale = scale;
+  P.smax = smax;
   P.BH = BH;
   P.Nq = Nq;
   P.Nk = Nk;

@@ -38,7 +38,8 @@ without one.
 
 The kernel wrappers take their plain versions for CPU tensors only; a CUDA
 tensor launches the kernel or raises. `LAUNCHES` counts kernel launches,
-`design_launches()` the C launcher's count of `grouped_sm90` launches.
+`design_launches()` the C launcher's counts of `grouped_sm90` and (the
+matmul-only floor's) `global_sm90` launches.
 """
 from __future__ import annotations
 
@@ -181,12 +182,13 @@ def kernel_library():
 
 
 def design_launches() -> dict:
-    """The grouped and pipelined kernels' launches in this process by
-    design, counted by the C launcher at each launch: "tma_wgmma" for
-    `grouped_sm90` (csrc/bench_attention.cu), their one design."""
-    out = (ctypes.c_longlong * 1)()
+    """The probe kernels' launches in this process by design, counted by
+    the C launcher at each launch: "tma_wgmma" for `grouped_sm90`
+    (csrc/bench_attention.cu: the grouped and pipelined kernels),
+    "global_sm90" for the matmul-only floor (csrc/global_sm90.cuh)."""
+    out = (ctypes.c_longlong * 2)()
     kernel_library().bench_attention_design_launches(out)
-    return {"tma_wgmma": out[0]}
+    return {"tma_wgmma": out[0], "global_sm90": out[1]}
 
 
 def instance(variant):
@@ -267,14 +269,15 @@ def _require_cuda(q):
         raise ValueError(f"no probe kernel for device {q.device}")
 
 
-def matmul_only(q, k, v):
-    """Matmul-only probe on (BH, Np, D) bf16: CPU tensors take
-    `matmul_only_ref`, CUDA tensors the CUDA kernel."""
+def matmul_only(q, k, v, *, out=None):
+    """Matmul-only probe on (BH, Np, D) bf16, Np a multiple of 128: CPU
+    tensors take `matmul_only_ref`, CUDA tensors the CUDA kernel, written
+    into `out` where given."""
     if q.device.type == "cpu":
         return matmul_only_ref(q, k, v)
     _require_cuda(q)
-    _check_cuda(q, k, v, 3)
-    out = torch.empty_like(q)
+    _check_cuda(q, k, v, 3, rows=128)
+    out = _output(q, out)
     _launch("bench_matmul_only", q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), *q.shape)
     LAUNCHES["matmul_only"] += 1
@@ -296,16 +299,22 @@ def softmax_only(q, k, v):
     return out
 
 
-def _grouped_out(q, k, v, out):
-    """Check a grouped call's arguments; its output (`out` where given)."""
-    _require_cuda(q)
-    _check_cuda(q, k, v, 4, rows=128)
+def _output(q, out):
+    """A call's output: `out` where given, checked to be a contiguous
+    tensor like q, else a new one."""
     if out is None:
         return torch.empty_like(q)
     if (out.shape != q.shape or out.dtype != q.dtype
             or out.device != q.device or not out.is_contiguous()):
         raise ValueError("out must be a contiguous tensor like q")
     return out
+
+
+def _grouped_out(q, k, v, out):
+    """Check a grouped call's arguments; its output (`out` where given)."""
+    _require_cuda(q)
+    _check_cuda(q, k, v, 4, rows=128)
+    return _output(q, out)
 
 
 def grouped_attention(q, k, v, *, interleave=False, out=None):

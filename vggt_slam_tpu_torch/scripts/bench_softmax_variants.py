@@ -2,14 +2,15 @@
 scripts/bench_softmax_variants.py.
 
 BH 16, N 34353 padded to 34816, D 64, q and k × 0.3, raw logits s = q kᵀ.
-One CUDA kernel (csrc/bench_softmax_variants.cu) computes the modes:
-`matmul` (o = Σ bf16(s) v), `online` (exp2, running max), `static` (p =
-exp2(s - 12), l the sum of the unrounded p), `staticfused` (v widened to
-128 columns of ones past D, so l is the sum of bf16(p) from accumulator
-column D: twice the PV mma.sync in place of the row sum's adds) and
-`staticint8` (q, k quantized per tensor outside by x·(127/amax),
-p = exp2(f32(s32)·dequant - 12)). SDPA at scale ln 2 (whose exp is the
-exp2 of raw logits) is the library line of online and static.
+One CUDA kernel (csrc/bench_softmax_variants.cu on csrc/global_sm90.cuh:
+TMA ring, wgmma) computes the modes: `matmul` (o = Σ bf16(s) v), `online`
+(exp2, running max), `static` (p = exp2(s - 12), l the sum of the
+unrounded p), `staticfused` (v widened to 128 columns by 64 of ones, so l
+is the tensor cores' sum of bf16(p): a second PV product in place of the
+row sum's adds) and `staticint8` (q, k quantized per tensor outside by
+x·(127/amax), p = exp2(f32(s32)·dequant - 12)). SDPA at scale ln 2 (whose
+exp is the exp2 of raw logits) is the library line of online and
+static.
 
     python -m vggt_slam_tpu_torch.scripts.bench_softmax_variants
         [--iters 8] [--n 34353] [--heads 16] [--block_q 64] [--block_k 64]
@@ -21,7 +22,8 @@ reference's `max |static-online|` and `|staticfused-online|`. `--check`
 holds every mode at the chosen tiling on all q rows, and at the others on
 a 2048-row slab, against its plain version, with the int8 control
 (staticint8 against static's plain version). The script raises without a
-card; `LAUNCHES` counts kernel launches.
+card; `LAUNCHES` counts kernel launches and `design_launches` the C
+launcher's.
 """
 from __future__ import annotations
 
@@ -94,6 +96,8 @@ _SIGNATURES = {
     "bench_softmax_variant": ([_P] * 4 + [_I] * 8 + [ctypes.c_float] * 2
                               + [_P], ctypes.c_int),
     "bench_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "bench_softmax_variants_design_launches": (
+        [ctypes.POINTER(ctypes.c_longlong)], None),
 }
 
 
@@ -103,12 +107,19 @@ def kernel_library():
     return cuda_build.load("bench_softmax_variants", _SIGNATURES)
 
 
-def run_kernel(q, k, v, block_q, block_k, mode, smax=SMAX, n_keys=None):
+def design_launches() -> dict:
+    """The kernel's launches in this process by design, counted by the C
+    launcher: "tma_wgmma" for `global_sm90` (csrc/global_sm90.cuh)."""
+    return G.design_launches(kernel_library(), "bench_softmax_variants")
+
+
+def run_kernel(q, k, v, block_q, block_k, mode, smax=SMAX, n_keys=None,
+               out=None):
     """The probe on (BH, Nq, D) q and (BH, Nk, D) k, v (int8 q and k in
     `staticint8`, whose smax is (12.0, dequant); bf16 otherwise),
     attending to the first n_keys keys (default Nq, as the reference's
-    run_kernel). CPU tensors take `run_kernel_ref`, CUDA tensors the CUDA
-    kernel."""
+    run_kernel), into `out` where given. CPU tensors take
+    `run_kernel_ref`, CUDA tensors the CUDA kernel."""
     if q.device.type == "cpu":
         return run_kernel_ref(q, k, v, block_q, block_k, mode, smax, n_keys)
     int8 = mode == "staticint8"
@@ -116,7 +127,7 @@ def run_kernel(q, k, v, block_q, block_k, mode, smax=SMAX, n_keys=None):
     G.check_operands(q, k, v, torch.int8 if int8 else torch.bfloat16,
                      block_q, block_k, n, TILINGS)
     shift, dequant = smax if int8 else (smax, 1.0)
-    out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    out = G.output(q, out)
     BA._launch("bench_softmax_variant", q.device, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), out.data_ptr(), q.shape[0], q.shape[1], n,
                k.shape[1], q.shape[2], block_q, block_k, MODES.index(mode),
