@@ -31,7 +31,8 @@ Phases, one line of output each (and the contract lines at the end):
      forward through the kernels' plain versions, on a 2-frame input;
   6. the SLAM main path at VGGT-1B width (seeded random weights drawn on the
      card) over a synthetic panned sequence, through `run_slam` with the
-     torch keyframe backend: launches of each kernel, per-stage seconds,
+     CLI's default keyframe backend (auto, which must resolve to the torch
+     tracker on the card): launches of each kernel, per-stage seconds,
      submaps, poses; all poses and SL(4) homographies must be finite, and
      every forward launch must run flash_sm90.cuh (launches by design);
   7. the gradient of a 2-frame VGGT-1B training loss through the kernels
@@ -59,13 +60,16 @@ And, for the --qk_int8 path and the fused DPT tail:
      (bit-equal; timed);
   B. the fused DPT tail on the depth head's own output_conv1 activations of
      a full-width 18-frame forward, against its plain version and against
-     the head's unfused chain (heads.py:228-231, cuDNN, TF32 off);
+     the head's unfused chain (heads.py:228-231, cuDNN, TF32 off), its one
+     launch counted by the wrapper and by the C launcher's design count
+     (dpt_tail_sm90), its ptxas registers;
   C. the full-width 18-frame forward with global_qk_int8 through the
      kernels against their plain versions, in both softmax modes (24 int8
      launches each, on the bf16 forward's designs), and against the bf16
      forward (reported, with the three forwards' times);
   D. the CLI's own path on a folder of 24 PNG frames at 480x640 with
-     --qk_int8: decoding and resizing without OpenCV, its own VGGT-1B,
+     --qk_int8 and the default keyframe backend (auto: the torch tracker
+     on the card): decoding and resizing without OpenCV, its own VGGT-1B,
      at least 2 submaps, finite poses and homographies, the TUM log, the
      int8 launches on flash_sm90.cuh (the designs by count).
 And, for the frame-attention probes of scripts/bench_attention.py:
@@ -108,9 +112,11 @@ of each DIR's bench_attention.cu beside this tree's at the frame shape
 (each held to its plain version, then in turns as CUDA graphs, beside
 SDPA and the bound); then every mode and tiling of
 each DIR's bench_global_attention.cu, bench_softmax_variants.cu and
-bench_int8_inkernel.cu beside this tree's at the global shape; each leg
-runs where some DIR holds its source; and stops without the result
-lines.
+bench_int8_inkernel.cu beside this tree's at the global shape; then
+each DIR's dpt_tail.cu (behind the dpt_tail.py beside it, if any) beside
+this tree's at phase B's shape, cout 2 and 4, as CUDA graphs, with the
+bound and its share; each leg runs where some DIR holds its source; and
+stops without the result lines.
 The last lines are the kernels JSON object and {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero with no result line. It
 needs a CUDA device and imports nothing of JAX, OpenCV or the JAX package.
@@ -807,8 +813,7 @@ def drive_main_path(model, device, frames):
     from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.utils.profiling import sync
 
-    args = parser.parse_args(["--keyframe_backend", "torch", "--timing",
-                              "--seed", str(SEED)])
+    args = parser.parse_args(["--timing", "--seed", str(SEED)])
     bucket = args.submap_size + args.overlapping_window_size + args.max_loops
     model_fn = make_bucketed_model_fn(model, bucket, as_numpy=False,
                                       with_unprojection=True, device=device)
@@ -832,12 +837,17 @@ def drive_main_path(model, device, frames):
     stages = {k: {"total_s": v["total_s"], "count": v["count"]}
               for k, v in result["timer"].summary().items()}
     log("main_path", frames=len(frames), submaps=n_sub, poses=len(poses),
+        keyframe_backend=[args.keyframe_backend,
+                          solver.flow_tracker.backend],
         launches=launches, designs=designs, wall_s=wall,
         fps=len(frames) / wall, stages=stages, all_finite=finite)
     if n_sub < 2:
         raise AssertionError(f"only {n_sub} submap(s) formed")
     if not finite:
         raise AssertionError("non-finite pose or homography")
+    if solver.flow_tracker.backend != "torch":   # the default, auto, on CUDA
+        raise AssertionError(f"keyframe backend {args.keyframe_backend} ran "
+                             f"{solver.flow_tracker.backend} on the card")
     for name in ("flash_single", "flash_multi"):   # inference: forward only
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
@@ -1119,9 +1129,12 @@ def check_dpt_tail(model, device, captured):
         return head.output_conv2_2(F.relu(head.output_conv2_0(y)))
 
     T.reset_launch_counts()
+    before = T.design_launches()
     out = T.fused_tail(x, pos, *args)
     torch.cuda.synchronize()
     launches = T.LAUNCHES["dpt_tail"]
+    designs = {d: n - before[d] for d, n in T.design_launches().items()}
+    registers, spills = own_ptxas_report("dpt_tail")
     ref = T.fused_tail_ref(x, pos, *args)
     want = chain()
     max_abs = float((out - ref).abs().max())
@@ -1134,10 +1147,13 @@ def check_dpt_tail(model, device, captured):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     res = dict(kernel="dpt_tail", shape_x=list(x.shape),
                rows_out=H, cmid=cmid, cout=cout, launches=launches,
+               designs=designs, registers=registers, spill_store_bytes=spills,
                max_abs_err=max_abs, ref_max_abs=scale,
                tol=1e-2 * scale, rel_rms_vs_head_chain=rel_chain,
                tol_vs_head_chain=2e-2,
                ms=cuda_ms(lambda: T.fused_tail(x, pos, *args), iters=10),
+               graph_ms=graph_ms(lambda: T.fused_tail(x, pos, *args),
+                                 calls=10),
                plain_ms=cuda_ms(lambda: T.fused_tail_ref(x, pos, *args),
                                 iters=2),
                library_ms=cuda_ms(chain, iters=5),
@@ -1160,6 +1176,12 @@ def check_dpt_tail(model, device, captured):
                              f"{scale}, rel RMS vs the head {rel_chain}")
     if launches != 1:
         raise AssertionError("dpt_tail was not launched")
+    if designs != {"wgmma_sm90": 1}:
+        raise AssertionError(f"the fused tail's launch ran {designs} by "
+                             f"design, not one dpt_tail_sm90")
+    if not registers or spills:
+        raise AssertionError(f"dpt_tail_sm90's ptxas report: registers "
+                             f"{registers}, spill stores {spills}")
     del x, pos, out, ref, want
     torch.cuda.empty_cache()
     return res
@@ -1237,9 +1259,9 @@ def drive_image_folder_cli(device, per_forward):
         del decoded
         log_path = os.path.join(tmp, "poses.txt")
         args = parser.parse_args(
-            ["--image_folder", folder, "--keyframe_backend", "torch",
-             "--qk_int8", "--log_results", "--skip_dense_log", "--log_path",
-             log_path, "--seed", str(SEED), "--timing"])
+            ["--image_folder", folder, "--qk_int8", "--log_results",
+             "--skip_dense_log", "--log_path", log_path, "--seed", str(SEED),
+             "--timing"])
         torch.cuda.synchronize()
         A.reset_launch_counts()
         before, t0 = A.forward_design_launches(), time.perf_counter()
@@ -1262,6 +1284,8 @@ def drive_image_folder_cli(device, per_forward):
         stages = {k: {"total_s": v["total_s"], "count": v["count"]}
                   for k, v in result["timer"].summary().items()}
         log("image_folder_cli", frames=len(frames), frame_hw=[480, 640],
+            keyframe_backend=[args.keyframe_backend,
+                              solver.flow_tracker.backend],
             png_write_s=write_s, png_decode_s_per_frame=decode_s,
             png_row_filters=np.bincount(kinds, minlength=5).tolist(),
             submaps=n_sub, poses=len(poses),
@@ -1271,6 +1295,9 @@ def drive_image_folder_cli(device, per_forward):
             fps=len(frames) / wall, stages=stages, all_finite=finite)
         if n_sub < 2:
             raise AssertionError(f"only {n_sub} submap(s) formed")
+        if solver.flow_tracker.backend != "torch":
+            raise AssertionError(f"the CLI's default keyframe backend ran "
+                                 f"{solver.flow_tracker.backend} on the card")
         if not finite or any(abs(d - 1.0) > 1e-3 for d in dets):
             raise AssertionError(f"non-finite pose, or a homography off "
                                  f"SL(4): dets {dets}")
@@ -2058,18 +2085,18 @@ def using_library(lib, mod=None, loader="kernel_library"):
         setattr(mod, loader, saved)
 
 
-def _ab_wrapper(d):
-    """The wrapper module of A/B folder `d`: its attention.py (the same
-    tree's ops/attention.py) where it holds one, else this tree's."""
+def _ab_wrapper(d, module="attention"):
+    """The wrapper module of A/B folder `d`: its `module`.py (the same
+    tree's ops/`module`.py, e.g. entries that take their arguments in
+    another layout) where it holds one, else this tree's."""
+    import importlib
     import importlib.util
 
-    from vggt_slam_tpu_torch.ops import attention as A
-
-    wrapper = os.path.join(d, "attention.py")
+    wrapper = os.path.join(d, f"{module}.py")
     if not os.path.exists(wrapper):
-        return A
+        return importlib.import_module(f"vggt_slam_tpu_torch.ops.{module}")
     name = os.path.basename(os.path.normpath(d))
-    spec = importlib.util.spec_from_file_location(f"ab_attention_{name}",
+    spec = importlib.util.spec_from_file_location(f"ab_{module}_{name}",
                                                   wrapper)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -2675,6 +2702,86 @@ def ab_matmul(device, dirs, iters=20):
     return rows
 
 
+def ab_dpt_tail(device, dirs, calls=10):
+    """The DPT tail of each of `dirs` holding a dpt_tail.cu (with its
+    headers; behind its `_ab_wrapper`), then this tree's, at phase B's
+    shape (seeded inputs on the card, x and pos bf16), cout 2 (depth head)
+    and 4 (point head): each build's `_launch` held to fused_tail_ref (1e-2
+    of max|ref|), then in turns as CUDA graphs of `calls` calls (device ms,
+    with the wrapper's few small weight kernels), beside the bound. Returns
+    the rows (also logged)."""
+    import torch
+
+    from vggt_slam_tpu_torch.ops import cuda_build
+    from vggt_slam_tpu_torch.ops import dpt_tail as T
+
+    builds = {}
+    for d in dirs:
+        src = os.path.join(d, "dpt_tail.cu")
+        if os.path.exists(src):
+            name = os.path.basename(os.path.normpath(d))
+            mod = _ab_wrapper(d, "dpt_tail")
+            sigs = {n: sig for n, sig in mod._SIGNATURES.items()
+                    if not n.endswith("_design_launches")}
+            builds[name] = (mod, cuda_build.load(f"dpt_tail_ab_{name}", sigs,
+                                                 src))
+    builds["this_tree"] = (T, T.kernel_library())
+    names = list(builds)
+    gen = torch.Generator(device).manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    S, rows_in, (H, W), cin, cmid = 18, 224, HW, 128, 32
+    x = rnd(S, rows_in, W, cin).bfloat16()
+    pos = (0.1 * rnd(H, W, cin)).bfloat16()
+    w0 = (rnd(3, 3, cin, cmid) / (3 * cin ** 0.5)).bfloat16()
+    b0 = 0.1 * rnd(cmid)
+    rows = []
+    for cout in (2, 4):
+        w1, b1 = rnd(1, 1, cmid, cout) / 6.0, rnd(cout)
+        args = (x, pos, w0, b0, w1, b1)
+        ref = T.fused_tail_ref(*args)
+        tol = 1e-2 * float(ref.abs().max())
+        flops = 2.0 * S * H * W * (9 * cin * cmid + cmid * cout)
+        nbytes = 2 * x.numel() + 2 * pos.numel() + 4 * ref.numel()
+        t_ops = flops / BF16_PEAK_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        errs, runs = {}, {n: [] for n in names}
+        for n in names + names[::-1]:
+            mod, lib = builds[n]
+            with using_library(lib, mod):
+                def call():
+                    return mod._launch(*args)
+                if n not in errs:
+                    got = call()
+                    torch.cuda.synchronize()
+                    errs[n] = float((got - ref).abs().nan_to_num(math.inf)
+                                    .max())
+                    del got
+                    if not errs[n] <= tol:
+                        raise AssertionError(f"{n}'s dpt_tail disagrees with "
+                                             f"the plain version at cout "
+                                             f"{cout}: {errs[n]} > {tol}")
+                runs[n].append(graph_ms(call, calls=calls))
+        dev_ms = {n: sum(r) / len(r) for n, r in runs.items()}
+        row = dict(kernel="dpt_tail", cout=cout, shape_x=list(x.shape),
+                   rows_out=H, graph_ms=dev_ms, runs=runs, errors=errs,
+                   tol=tol, bound_ms=bound,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   share_of_bound={n: bound / t for n, t in dev_ms.items()},
+                   faster_than={n: dev_ms["this_tree"] < t
+                                for n, t in dev_ms.items()
+                                if n != "this_tree"})
+        log("ab_dpt_tail", **row)
+        rows.append(row)
+        del ref
+    del x, pos
+    torch.cuda.empty_cache()
+    return rows
+
+
 AB_GLOBAL_SCRIPTS = ("bench_global_attention", "bench_softmax_variants",
                      "bench_int8_inkernel")
 
@@ -2971,6 +3078,8 @@ def main(argv) -> int:
             ab_matmul(device, dirs)
         if any(holding(f"{s}.cu") for s in AB_GLOBAL_SCRIPTS):
             ab_global(device, dirs)
+        if holding("dpt_tail.cu"):
+            ab_dpt_tail(device, dirs)
         return 0
     checks = check_kernels(device)
     int8_checks = check_int8_kernels(device)
@@ -3112,7 +3221,10 @@ def main(argv) -> int:
         "replaces": replaces["dpt_tail"], "launches": tail["launches"],
         "launches_path": "phase B, the depth head's activations (the "
                          "reference wires no path to this kernel)",
+        "design": "wgmma_sm90", "designs": tail["designs"],
+        "registers": tail["registers"],
         "max_abs_err": tail["max_abs_err"], "ms": tail["ms"],
+        "graph_ms": tail["graph_ms"],
         "plain_ms": tail["plain_ms"], "bound_ms": tail["bound_ms"],
         "bound_by": tail["bound_by"], "library_ms": tail["library_ms"],
         "rel_rms_vs_head_chain": tail["rel_rms_vs_head_chain"]})

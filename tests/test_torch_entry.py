@@ -76,6 +76,19 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert next(model.parameters()).device.type == "cpu"
 
 
+def test_keyframe_auto_is_the_cv2_tracker_on_the_cpu():
+    """The CLI's default gate, auto, resolves on the solver's device: cv2
+    on the CPU, as the reference's auto (torch on a CUDA device,
+    tests/test_torch_gpu.py)."""
+    from vggt_slam_tpu_torch import main
+    from vggt_slam_tpu_torch.slam.solver import Solver
+
+    args = main.parser.parse_args(["--device", "cpu"])
+    assert args.keyframe_backend == "auto"
+    solver = Solver(keyframe_backend=args.keyframe_backend, device=args.device)
+    assert solver.flow_tracker.backend == "cv2"
+
+
 def test_run_slam_tiny_from_memory_frames_on_cpu(tmp_path):
     """Panned synthetic frames through the keyframe gate (torch backend),
     bucketed forwards, SL(4) RANSAC and the pose graph: at least two

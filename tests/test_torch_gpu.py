@@ -26,7 +26,9 @@ must differ from the bf16 path's by more than ten times that 1e-4, which
 the int8 grid's logit error gives (relative 6e-3 to 1.7 at these shapes in
 the plain versions): so the test tells int8 QK^T from bf16. The fused DPT tail is held to 1e-2 of its
 largest output: both sides round u and h to bf16, and the f32 sums of the
-3x3 conv run in another order, which can flip a rounding of h.
+3x3 conv run in another order, which can flip a rounding of h; its
+outputs are written into NaN-filled tensors, and the check must reject
+the output with frames 0 and 1 swapped.
 """
 import functools
 import math
@@ -584,26 +586,58 @@ def test_camera_trunk_shapes(cuda, n, vl):
     _bwd_check(_bwd_case(cuda, 2, 16, n, n, 128, vl, seed=31), 16, vl)
 
 
-@pytest.mark.parametrize("cout", [2, 4])
-def test_fused_tail_matches_plain(cuda, cout):
-    # W = 100 leaves a masked edge column tile; rows 224 -> 392
+# The fused DPT tail at rows 224 -> 392: (S, W, cin, cout). W 100 leaves a
+# masked edge strip, W 37 is less than one 64-column strip, W 518 is the
+# production tail (nine strips, the last of 6 columns); S 1 and S 3 leave a
+# frame pair with one frame; cin 32 to 128 (the kernel's four instances).
+_TAIL_CASES = {
+    "w100_cout2": (2, 100, 64, 2),
+    "w100_cout4": (2, 100, 64, 4),
+    "w518_s18_cout2": (18, 518, 128, 2),
+    "w518_s1_cin32_cout3": (1, 518, 32, 3),
+    "w37_s1_cin32_cout1": (1, 37, 32, 1),
+    "w37_s18_cin128_cout3": (18, 37, 128, 3),
+    "w100_s3_cin96_cout1": (3, 100, 96, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(_TAIL_CASES))
+def test_fused_tail_matches_plain(cuda, case):
+    S, W, cin, cout = _TAIL_CASES[case]
     g = torch.Generator(device=cuda).manual_seed(8)
 
     def rnd(*s):
         return torch.randn(s, generator=g, device=cuda)
 
-    S, W, cin = 2, 100, 64
     x = rnd(S, 224, W, cin).bfloat16()
-    args = (0.1 * rnd(392, W, cin), rnd(3, 3, cin, 32) / 24.0,
+    args = (0.1 * rnd(392, W, cin), rnd(3, 3, cin, 32) / (3 * cin ** 0.5),
             0.1 * rnd(32), rnd(1, 1, 32, cout) / 6.0, rnd(cout))
-    before = T.LAUNCHES["dpt_tail"]
-    out = T.fused_tail(x, *args)
+    before, designs = T.LAUNCHES["dpt_tail"], T.design_launches()
+    counted = T.fused_tail(x, *args)
+    out = T._launch(x, *args, out=torch.full_like(counted, math.nan))
     torch.cuda.synchronize()
     assert T.LAUNCHES["dpt_tail"] == before + 1
+    assert T.design_launches()["wgmma_sm90"] == designs["wgmma_sm90"] + 2
     ref = T.fused_tail_ref(x, *args)
     assert out.shape == (cout, S, 392, W) and out.dtype == torch.float32
-    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
-                               atol=1e-2 * float(ref.abs().max()), rtol=0)
+    tol = 1e-2 * float(ref.abs().max())
+    for got in (out, counted):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   atol=tol, rtol=0)
+    if S > 1:   # control: frames 0 and 1 swapped must fail the check
+        swapped = out.clone()
+        swapped[:, [0, 1]] = out[:, [1, 0]]
+        assert float((swapped - ref).abs().max()) > tol
+
+
+def test_keyframe_auto_is_the_torch_tracker_on_the_card(cuda):
+    from vggt_slam_tpu_torch.main import parser
+    from vggt_slam_tpu_torch.slam.solver import Solver
+
+    args = parser.parse_args([])
+    assert args.keyframe_backend == "auto"
+    solver = Solver(keyframe_backend=args.keyframe_backend, device=cuda)
+    assert solver.flow_tracker.backend == "torch"
 
 
 # The frame-attention probes (scripts/bench_attention.py's port): at a small

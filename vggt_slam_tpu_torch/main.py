@@ -37,11 +37,13 @@ parser.add_argument("--loop_inlier_thresh", type=float, default=0.9,
                          "inlier fraction is below this fraction of the "
                          "running median of the sequential registrations' "
                          "(0 = no gate)")
-parser.add_argument("--keyframe_backend", default="cv2",
-                    choices=["cv2", "torch"],
+parser.add_argument("--keyframe_backend", default="auto",
+                    choices=["auto", "cv2", "torch"],
                     help="keyframe disparity gate: host OpenCV LK, or the "
                          "torch tracker on the solver's device "
-                         "(slam/keyframe_torch.py)")
+                         "(slam/keyframe_torch.py). auto = torch on a CUDA "
+                         "device (the card's machine has no OpenCV), cv2 on "
+                         "the CPU, as the reference's auto")
 parser.add_argument("--use_point_map", action="store_true")
 parser.add_argument("--conf_threshold", type=float, default=25.0)
 parser.add_argument("--save_path", type=str, default=None)

@@ -11,7 +11,8 @@ kernel (csrc/dpt_tail.cu) does the rest, writing the output channel-first,
 roundings. As in the reference, `DPTHead` does not call it.
 
 `fused_tail` runs its plain version only for tensors on the CPU; for a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises. The kernel takes w0 in the
+layout `kernel_weights` prepares (its wgmma B operands).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ _SIGNATURES = {
     "dpt_tail_fwd": ([_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
                      ctypes.c_int),
     "dpt_tail_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "dpt_tail_design_launches": ([ctypes.POINTER(ctypes.c_longlong)], None),
 }
 
 
@@ -104,7 +106,27 @@ def kernel_library():
     return cuda_build.load("dpt_tail", _SIGNATURES)
 
 
-def _launch(x, pos, w0, b0, w1, b1):
+def design_launches() -> dict:
+    """The kernel's launches in this process by design, counted by the C
+    launcher at each launch: "wgmma_sm90" for dpt_tail_sm90, the one
+    design."""
+    out = (ctypes.c_longlong * 1)()
+    kernel_library().dpt_tail_design_launches(out)
+    return {"wgmma_sm90": out[0]}
+
+
+def kernel_weights(w0: torch.Tensor) -> torch.Tensor:
+    """w0 (3, 3, cin, cmid) -> the kernel's B operand, (3 cin / 8, 3 cmid,
+    8) bf16: the K-major matrix B[n = (dr, m), k = (dc, ci)] = w0[dr, dc,
+    ci, m] in 8-element chunks of k, chunk-major (the no-swizzle
+    core-matrix layout, as one bulk copy lands it in shared memory)."""
+    cmid = w0.shape[-1]
+    w = w0.to(torch.bfloat16).permute(1, 2, 0, 3)     # dc, ci, dr, m
+    w = w.reshape(-1, 8, 3 * cmid)                    # k chunk, k % 8, n
+    return w.transpose(1, 2).contiguous()
+
+
+def _launch(x, pos, w0, b0, w1, b1, out=None):
     dev = x.device
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise TypeError(f"the CUDA kernel takes contiguous bf16 x, got "
@@ -119,19 +141,21 @@ def _launch(x, pos, w0, b0, w1, b1):
         raise ValueError(f"shapes do not fit: x {tuple(x.shape)}, pos "
                          f"{tuple(pos.shape)}, w0 {tuple(w0.shape)}, w1 "
                          f"{tuple(w1.shape)}")
-    if cmid != 32 or cin % 32 or not 1 <= cout <= 4:
-        raise ValueError(f"the CUDA kernel takes cin % 32 == 0, cmid 32, "
-                         f"cout <= 4; got {cin}, {cmid}, {cout}")
+    if cmid != 32 or cin % 32 or not 32 <= cin <= 128 or not 1 <= cout <= 4:
+        raise ValueError(f"the CUDA kernel takes cin 32, 64, 96 or 128, "
+                         f"cmid 32, cout <= 4; got {cin}, {cmid}, {cout}")
     for name, t in (("pos", pos), ("w0", w0), ("b0", b0), ("w1", w1),
                     ("b1", b1)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
     pos_b = pos.to(torch.bfloat16).contiguous()
-    w0_b = w0.to(torch.bfloat16).reshape(9 * cin, cmid).contiguous()
+    w0_b = kernel_weights(w0)
     b0_f = b0.float().contiguous()
     w1t = w1m.to(torch.bfloat16).float().t().contiguous()
     b1_f = b1.float().contiguous()
-    out = torch.empty(cout, S, rows_out, W, dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty(cout, S, rows_out, W, dtype=torch.float32,
+                          device=dev)
     _, _, ratio = _row_taps(rows_in, rows_out, "cpu")
     lib = kernel_library()
     with torch.cuda.device(dev):
@@ -154,7 +178,8 @@ def fused_tail(x, pos, w0, b0, w1, b1) -> torch.Tensor:
     resolution (already scaled by 0.1); w0, b0: (3, 3, cin, cmid), (cmid,);
     w1, b1: (1, 1, cmid, cout) or (cmid, cout), (cout,). Returns
     (cout, S, rows_out, W) f32. CPU tensors take `fused_tail_ref`; CUDA
-    tensors the CUDA kernel (bf16 x, cin % 32 == 0, cmid 32, cout <= 4)."""
+    tensors the CUDA kernel (bf16 x, cin 32 to 128 in steps of 32, cmid 32,
+    cout <= 4)."""
     rows_in, rows_out = x.shape[1], pos.shape[0]
     if not supported(rows_in, rows_out):
         raise ValueError(f"unsupported rows {rows_in} -> {rows_out}")

@@ -58,9 +58,14 @@ class Solver:
     def __init__(self, init_conf_threshold: float = 25.0,
                  use_point_map: bool = False, use_sim3: bool = False,
                  retrieval: ImageRetrieval | None = None, seed: int = 0,
-                 keyframe_backend: str = "cv2",
+                 keyframe_backend: str = "auto",
                  loop_inlier_thresh: float = 0.0, device="cpu"):
         self.device = torch.device(device)
+        if keyframe_backend == "auto":
+            # The torch tracker on a CUDA device, whose machine may have no
+            # OpenCV; host cv2 on the CPU, as the reference's auto.
+            keyframe_backend = ("torch" if self.device.type == "cuda"
+                                else "cv2")
         self.init_conf_threshold = init_conf_threshold
         self.use_point_map = use_point_map
         self.use_sim3 = use_sim3
