@@ -95,6 +95,14 @@ And, for the matmul-shape probes of scripts/bench_matmul_shapes.py:
   G. its main with --check at its defaults: both kernels, tilings and
      shapes against their plain version with three controls, launches,
      ptxas registers per instance, times beside bounds and torch.bmm.
+And, for loop closure (after phase 9; `check_converters`, `check_salad`,
+`drive_loop_closure`):
+  H. both torch-checkpoint converters over the released manifests, and a
+     seeded dino_salad checkpoint into an npz;
+  S. SALAD at full width on that npz: 12 flash_single launches a call,
+     descriptors against the plain f32 path and two controls, its times;
+  L. the CLI at VGGT-1B width on a synthetic loop with the tiny and the
+     SALAD backends, then evals/smoke_loop.py at its defaults.
 Phases E, F and G run under --kernels-only too. With --ab DIR... the
 script builds the kernels, then times the bf16 forward at every shape of
 phases 3 and 4 (head dims 32, 64 and 128) in turns (each DIR's
@@ -128,11 +136,10 @@ import functools
 import json
 import math
 import os
-import struct
 import subprocess
 import sys
+import tempfile
 import time
-import zlib
 
 SEED = 0
 N_FRAMES = 40
@@ -1187,40 +1194,6 @@ def check_dpt_tail(model, device, captured):
     return res
 
 
-def write_png(path, bgr):
-    """(H, W, 3) uint8 BGR -> an 8-bit RGB PNG (zlib), each row filtered as
-    libpng's adaptive choice does it: of the five filters, the one whose
-    residuals, read as signed bytes, have the least absolute sum. Returns
-    the rows' filter types."""
-    import numpy as np
-
-    h, w = bgr.shape[:2]
-    x = bgr[..., ::-1].reshape(h, w * 3).astype(np.int16)
-    up = np.concatenate([np.zeros((1, w * 3), np.int16), x[:-1]])
-    left = np.concatenate([np.zeros((h, 3), np.int16), x[:, :-3]], 1)
-    ul = np.concatenate([np.zeros((h, 3), np.int16), up[:, :-3]], 1)
-    pa, pb, pc = (np.abs(up - ul), np.abs(left - ul),
-                  np.abs(left + up - 2 * ul))
-    paeth = np.where((pa <= pb) & (pa <= pc), left,
-                     np.where(pb <= pc, up, ul))
-    res = np.stack([(x - p) & 255 for p in (0, left, up, (left + up) >> 1,
-                                            paeth)]).astype(np.uint8)
-    kind = np.abs(res.view(np.int8).astype(np.int32)).sum(2).argmin(0)
-    rows = np.concatenate([kind[:, None].astype(np.uint8),
-                           res[kind, np.arange(h)]], 1)
-
-    def chunk(tag, body):
-        return (struct.pack(">I", len(body)) + tag + body
-                + struct.pack(">I", zlib.crc32(tag + body) & 0xffffffff))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                + chunk(b"IEND", b""))
-    return kind
-
-
 def drive_image_folder_cli(device, per_forward):
     """Phase D: the CLI's own path on a PNG folder with --qk_int8: 24
     panned 480x640 frames written here, read back by the in-repo decoder,
@@ -1234,7 +1207,7 @@ def drive_image_folder_cli(device, per_forward):
     import numpy as np
     import torch
 
-    from vggt_slam_tpu_torch.data.images import load_image
+    from vggt_slam_tpu_torch.data.images import load_image, write_png
     from vggt_slam_tpu_torch.main import parser, run_slam
     from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.utils.profiling import sync
@@ -2062,6 +2035,333 @@ def drive_cli(device):
                                  f" by design, not {want_bwd}")
     finally:
         shutil.rmtree(out, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Phases H, S, L: the torch-checkpoint converters, SALAD at full width, and
+# loop closure through the CLI
+# ---------------------------------------------------------------------------
+
+SALAD_TOL = 2e-2      # L2 distance of a descriptor from the plain f32 path
+LOOP_SEQ_SEED = 4_000_000     # evals/smoke_loop.py's sequence
+
+
+def unit_salad_weight(key: str) -> bool:
+    """The seeded SALAD checkpoint's LayerNorm weights and LayerScale
+    gammas, drawn as 1 (the rest N(0, 0.02)). With every tensor N(0, 0.02)
+    the attention hardly reaches the descriptor and panned frames'
+    descriptors nearly coincide, so phase S's controls (another frame's
+    descriptor, the attention zeroed) could not be rejected."""
+    return key.endswith(".gamma") or (".norm" in key
+                                      and key.endswith(".weight"))
+
+
+def check_converters(tmp):
+    """Phase H: both converters over full-size zero weights broadcast from
+    the released checkpoints' manifests (tests/data/manifest_*.json; no
+    memory): every parameter filled, every unused key allowlisted. Then a
+    seeded dino_salad-layout checkpoint in the manifest's shapes
+    (`unit_salad_weight`) through the SALAD converter's CLI helper into an
+    npz, which phases S and L load. Returns the npz path."""
+    import torch
+
+    from vggt_slam_tpu_torch.models import retrieval as R
+    from vggt_slam_tpu_torch.models.vggt import convert as C
+    from vggt_slam_tpu_torch.models.vggt.config import VGGTConfig
+    from vggt_slam_tpu_torch.models.vggt.model import VGGT
+
+    def manifest(name):
+        with open(os.path.join("tests", "data", f"manifest_{name}.json")) \
+                as f:
+            return json.load(f)
+
+    out = {}
+    for name, convert, template, allowed in (
+            ("vggt_1b", C.convert_torch_state_dict,
+             C.meta_template(VGGT, VGGTConfig.vggt_1b()),
+             C.allowed_unused_vggt),
+            ("salad", R.convert_torch_state_dict,
+             C.meta_template(R.SALAD, R.SALADConfig()),
+             R.allowed_unused_salad)):
+        t0 = time.perf_counter()
+        sd = {k: torch.zeros(()).expand(s)
+              for k, s in manifest(name).items()}
+        _, report = convert(sd, template)
+        stray = [k for k in report["unused_torch"] if not allowed(k)]
+        out[name] = {"torch_keys": len(sd), "params": len(template),
+                     "unmatched": report["unmatched_flax"],
+                     "unused": report["unused_torch"], "stray": stray,
+                     "seconds": time.perf_counter() - t0}
+        if report["unmatched_flax"] or stray:
+            raise AssertionError(f"{name} converter: {out[name]}")
+    g = torch.Generator().manual_seed(SEED)
+    sd = {k: torch.ones(s) if unit_salad_weight(k) else
+          torch.randn(s, generator=g) * 0.02
+          for k, s in manifest("salad").items()}
+    ckpt = os.path.join(tmp, "dino_salad.ckpt")
+    torch.save({"state_dict": sd}, ckpt)
+    npz = os.path.join(tmp, "salad.npz")
+    t0 = time.perf_counter()
+    report = R.convert_torch_checkpoint(ckpt, npz)
+    out["salad_checkpoint"] = {"seconds": time.perf_counter() - t0,
+                               "unmatched": report["unmatched_flax"],
+                               "unused": report["unused_torch"],
+                               "npz_bytes": os.path.getsize(npz)}
+    log("converters", **out)
+    if report["unmatched_flax"]:
+        raise AssertionError("the seeded dino_salad checkpoint left "
+                             f"{report['unmatched_flax']} unmatched")
+    return npz
+
+
+@contextlib.contextmanager
+def zero_attention():
+    """Inside the block every attention of the port's modules returns
+    zeros: the descriptor of a kernel that wrote nothing."""
+    import torch
+
+    from vggt_slam_tpu_torch.models.vggt import modules
+
+    saved = modules.attn_ops.attention
+    modules.attn_ops.attention = lambda q, k, v, **kw: torch.zeros_like(q)
+    try:
+        yield
+    finally:
+        modules.attn_ops.attention = saved
+
+
+def check_salad(device, npz, frames):
+    """Phase S: SALAD at full width (DINOv2-B/14 at 224 px, 8448-D) with
+    phase H's weights on 17 frames of the SLAM sequence: 12 flash_single
+    launches a call, all on flash_sm90.cuh by the C launcher's count;
+    finite unit-norm descriptors within SALAD_TOL (L2) of the plain f32
+    path on the card (chunked attention), which two controls must exceed:
+    another frame's descriptor and the descriptor with the attention
+    zeroed; SALAD's ms a call, and flash_single at
+    SALAD's (B*H, N, D) = (204, 257, 64) against its plain version, SDPA
+    and the bound. Returns the flash_single row's SALAD entry."""
+    import torch
+
+    from vggt_slam_tpu_torch.data.images import preprocess_frames
+    from vggt_slam_tpu_torch.models import retrieval as R
+    from vggt_slam_tpu_torch.ops import attention as A
+
+    model = R.build_salad(224, npz, str(device))
+    plain = R.SALAD(R.SALADConfig(attn_impl="chunked"))
+    plain.load_state_dict(model.state_dict())
+    plain = plain.to(device).eval()
+    x = torch.from_numpy(preprocess_frames(frames[:17])).to(device)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        before = A.forward_design_launches()
+        desc = model(x)
+        torch.cuda.synchronize()
+        launches = dict(A.LAUNCHES)
+        designs = {d: n - before[d]
+                   for d, n in A.forward_design_launches().items()}
+        ref = plain(x)
+        with zero_attention():
+            broken = plain(x)
+        salad_ms = cuda_ms(lambda: model(x), 5)
+        plain_salad_ms = cuda_ms(lambda: plain(x), 2)
+    dist = torch.linalg.vector_norm(desc - ref, dim=1)
+    control = torch.linalg.vector_norm(desc - ref.roll(1, 0), dim=1)
+    broken_l2 = torch.linalg.vector_norm(desc - broken, dim=1)
+    norms = torch.linalg.vector_norm(desc, dim=1)
+    finite = bool(torch.isfinite(desc).all())
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    B, N, H, D = 17, 257, 12, 64
+    case = dict(q=None, kw=dict(num_heads=H))
+    case["q"], case["k"], case["v"] = (
+        torch.randn(B, N, H * D, generator=g, device=device).to(
+            torch.bfloat16) for _ in range(3))
+    q, k, v = case["q"], case["k"], case["v"]
+    with torch.no_grad():
+        out_k = A.flash_single(q, k, v, num_heads=H)
+        out_p = A.flash_single_ref(q, k, v, num_heads=H)
+        err = float((out_k.float() - out_p.float()).abs().max())
+        kernel_ms = cuda_ms(lambda: A.flash_single(q, k, v, num_heads=H), 20)
+        plain_ms = cuda_ms(lambda: A.flash_single_ref(q, k, v, num_heads=H),
+                           5)
+        sdpa_ms = cuda_ms(sdpa_call(case), 20)
+    bound, bound_by, unit = attention_bound_ms(case)
+    res = {"frames": 17, "descriptor_dim": int(desc.shape[1]),
+           "launches_per_call": launches, "designs": designs,
+           "salad_ms": salad_ms, "plain_salad_ms": plain_salad_ms,
+           "max_l2_from_plain": float(dist.max()), "tol": SALAD_TOL,
+           "control_min_l2": float(control.min()),
+           "zero_attention_min_l2": float(broken_l2.min()),
+           "norm_err": float((norms - 1).abs().max()), "finite": finite,
+           "flash_single": {"shape_bh_n_d": [B * H, N, D],
+                            "max_abs_err": err, "ms": kernel_ms,
+                            "plain_ms": plain_ms, "library_ms": sdpa_ms,
+                            "bound_ms": bound, "bound_by": bound_by,
+                            "bound_unit": unit}}
+    log("salad", **res)
+    if not finite or tuple(desc.shape) != (17, 8448) or \
+            res["norm_err"] > 1e-4:
+        raise AssertionError(f"SALAD descriptors {tuple(desc.shape)}, "
+                             f"finite {finite}, |norm - 1| "
+                             f"{res['norm_err']}")
+    if launches != {k: 12 * (k == "flash_single") for k in launches} or \
+            designs != {"tma_wgmma": 12}:
+        raise AssertionError(f"a SALAD call launched {launches}, "
+                             f"{designs} by design: not 12 flash_single "
+                             f"on flash_sm90.cuh")
+    if res["max_l2_from_plain"] > SALAD_TOL:
+        raise AssertionError(f"SALAD on the kernels lies "
+                             f"{res['max_l2_from_plain']} from its plain "
+                             f"path (tol {SALAD_TOL})")
+    for ctrl in ("control_min_l2", "zero_attention_min_l2"):
+        if res[ctrl] <= SALAD_TOL:
+            raise AssertionError(f"{ctrl} {res[ctrl]} lies within the "
+                                 f"tolerance: the check cannot reject it")
+    if err > 2e-2:
+        raise AssertionError(f"flash_single at SALAD's shape: {err}")
+    return {"launches_per_call": 12, "salad_ms": salad_ms,
+            **res["flash_single"]}
+
+
+# Phase L's CLI runs: the tiny backend at evals/smoke_loop.py's settings;
+# SALAD on phase H's weights at the CLI's defaults (submap 16: SALAD's
+# batch is the 17-frame bucket, B*H = 204) but smoke_loop's keyframe
+# disparity, without which this sequence gives one submap.
+LOOP_RUNS = (("tiny", ("--submap_size", "4", "--max_loops", "3",
+                       "--min_disparity", "8")),
+             ("salad", ("--min_disparity", "8")))
+
+
+def loop_cli_run(device, seq, backend, extra=()):
+    """The CLI's run_slam on the loop sequence at VGGT-1B width (seeded
+    random weights): loops detected, inserted and rejected by the gate,
+    the TUM log, the ATE against groundtruth.txt (random weights)."""
+    import numpy as np
+
+    from vggt_slam_tpu_torch.evals.ate import ate_from_files
+    from vggt_slam_tpu_torch.main import parser, run_slam
+    from vggt_slam_tpu_torch.ops import attention as A
+    from vggt_slam_tpu_torch.utils.profiling import sync
+
+    log_path = os.path.join(seq, f"poses_{backend}.txt")
+    args = parser.parse_args(
+        ["--image_folder", os.path.join(seq, "rgb"), "--retrieval_backend",
+         backend, "--log_results", "--skip_dense_log", "--log_path",
+         log_path, "--seed", str(SEED), "--timing", *extra])
+    sync()
+    A.reset_launch_counts()
+    before, t0 = A.forward_design_launches(), time.perf_counter()
+    result = run_slam(args, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(A.LAUNCHES)
+    designs = {d: n - before[d]
+               for d, n in A.forward_design_launches().items()}
+    solver = result["solver"]
+    stages = {k: {"total_s": v["total_s"], "count": v["count"]}
+              for k, v in result["timer"].summary().items()}
+    tum = np.loadtxt(log_path) if os.path.exists(log_path) else None
+    ate = ate_from_files(os.path.join(seq, "groundtruth.txt"), log_path)
+    res = {"backend": backend, "args": list(extra),
+           "frames": result["n_frames"],
+           "submaps": solver.map.get_num_submaps(),
+           "detected": solver.detected_loop_count,
+           "inserted": solver.graph.get_num_loops(),
+           "rejected": solver.rejected_loop_count,
+           "tum_rows": None if tum is None else int(tum.shape[0]),
+           "ate_rmse_random_weights": ate.rmse, "ate_pairs": ate.n_pairs,
+           "wall_s": wall, "fps": result["n_frames"] / wall,
+           "launches": launches, "designs": designs, "stages": stages}
+    log("loop_cli", **res)
+    if tum is None or tum.ndim != 2 or tum.shape[1] != 8 or \
+            not np.isfinite(tum).all():
+        raise AssertionError(f"{backend}: the TUM pose log was not written")
+    if res["detected"] < 1 or \
+            res["detected"] != res["inserted"] + res["rejected"]:
+        raise AssertionError(f"{backend}: loops detected {res['detected']},"
+                             f" inserted {res['inserted']}, rejected "
+                             f"{res['rejected']}")
+    if designs != {"tma_wgmma": forward_calls(launches)}:
+        raise AssertionError(f"{backend}: forward calls {launches} ran "
+                             f"{designs} by design")
+    del result, solver
+    return res
+
+
+def run_smoke_loop(*argv):
+    """evals/smoke_loop.py as a subprocess; (exit code, stdout)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vggt_slam_tpu_torch.evals.smoke_loop",
+         *argv], capture_output=True, text=True, timeout=600)
+    log("smoke_loop", argv=list(argv), rc=proc.returncode,
+        seconds=time.perf_counter() - t0,
+        stdout_tail=proc.stdout.strip().splitlines()[-6:])
+    return proc.returncode, proc.stdout + proc.stderr[-1500:]
+
+
+def drive_loop_closure(device, npz):
+    """Phase L: a 40-frame kind="loop" sequence written by the port's
+    write_tum_sequence; the CLI at VGGT-1B width with the tiny backend and
+    with SALAD on phase H's weights (LOOP_RUNS; the SALAD run's forward
+    calls must be the tiny run's per submap plus 12 flash_single a SALAD
+    call, one call a submap), each with >= 1 loop detected and every
+    detection inserted or rejected by the gate, and a run at
+    --loop_inlier_thresh 0 (no gate) with >= 1 loop factor where the gate
+    rejected them all; then evals/smoke_loop.py at its defaults as a
+    subprocess, which must exit 0; where it fails because the gate
+    rejected every loop it detected (random weights), it runs again with
+    the gate off and must exit 0 then, and the first exit code is logged.
+    Returns the SALAD run's launches."""
+    import re
+    import shutil
+
+    import torch
+
+    from vggt_slam_tpu_torch.tools.synth3d import write_tum_sequence
+
+    seq = tempfile.mkdtemp(prefix="loop_seq_")
+    try:
+        t0 = time.perf_counter()
+        write_tum_sequence(seq, n_frames=40, seed=LOOP_SEQ_SEED,
+                           image_hw=HW, kind="loop")
+        log("loop_sequence", frames=40, seconds=time.perf_counter() - t0)
+        runs = {}
+        for backend, settings in LOOP_RUNS:
+            if backend == "salad":
+                settings += ("--retrieval_checkpoint", npz)
+            runs[backend] = loop_cli_run(device, seq, backend, settings)
+            if runs[backend]["inserted"] == 0:
+                r = loop_cli_run(device, seq, backend,
+                                 settings + ("--loop_inlier_thresh", "0"))
+                if r["inserted"] < 1:
+                    raise AssertionError(f"{backend}: no loop factor "
+                                         f"without the gate")
+            torch.cuda.empty_cache()
+        # a VGGT forward a submap (88 forward calls at 1B, the global
+        # blocks on flash_single or flash_multi by the bucket), and in the
+        # SALAD run one 12-call SALAD forward a submap
+        tiny, salad = runs["tiny"], runs["salad"]
+        per_forward = forward_calls(tiny["launches"]) / tiny["submaps"]
+        want = salad["submaps"] * (per_forward + 12)
+        if forward_calls(salad["launches"]) != want:
+            raise AssertionError(f"the SALAD run launched "
+                                 f"{salad['launches']}, not {want} forward "
+                                 f"calls")
+    finally:
+        shutil.rmtree(seq, ignore_errors=True)
+    rc, out = run_smoke_loop()
+    if rc != 0:
+        m = re.search(r"Loop closures detected (\d+), rejected by the "
+                      r"geometric gate (\d+)", out)
+        if not (m and int(m.group(1)) >= 1 and m.group(1) == m.group(2)):
+            raise AssertionError(f"smoke_loop failed ({rc}): {out[-3000:]}")
+        rc, out = run_smoke_loop("--loop_inlier_thresh", "0")
+        if rc != 0:
+            raise AssertionError(f"smoke_loop without the gate failed "
+                                 f"({rc}): {out[-3000:]}")
+    return salad["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -3110,6 +3410,10 @@ def main(argv) -> int:
     train_launches, train_per_step = drive_training(
         device, profile="--profile" in argv)
     drive_cli(device)
+    with tempfile.TemporaryDirectory(prefix="converters_") as tmp:
+        salad_npz = check_converters(tmp)
+        salad = check_salad(device, salad_npz, frames)
+        salad["loop_cli_launches"] = drive_loop_closure(device, salad_npz)
 
     replaces = {
         "flash_single": "vggt_slam_tpu/ops/attention.py:387 "
@@ -3159,6 +3463,7 @@ def main(argv) -> int:
             "training_variant": train["variant"],
             "training_ms": train["fwd_ms"],
             "training_library_ms": train["sdpa_fwd_ms"],
+            **({"salad": salad} if name == "flash_single" else {}),
             "variants": variants})
     # One flash_bwd call computes both TPU kernels' functions (dq; dk, dv):
     # both rows carry its time, the fused bound and SDPA's backward alone.

@@ -1,6 +1,6 @@
 """The port's package boundary and entry points: it imports nothing of JAX,
-flax, OpenCV or the JAX package (every module, the probe scripts
-`scripts/bench_attention` and `scripts/bench_matmul_shapes` among them); its
+flax, OpenCV or the JAX package (every module, the probe scripts, the
+converters, retrieval, the evals and the SLAM-state checkpoint among them); its
 entry points default to the card and refuse to run without one unless the CPU is asked for; chip_smoke.py exits
 non-zero without a card and outside the repository; and the tiny-config
 SLAM loop runs end to end on the CPU from in-memory frames."""
@@ -19,8 +19,11 @@ import importlib, pkgutil, sys
 sys.path.insert(0, {repo!r})
 import vggt_slam_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-assert all("vggt_slam_tpu_torch.scripts." + m in names
-           for m in ("bench_attention", "bench_matmul_shapes"))
+assert all("vggt_slam_tpu_torch." + m in names
+           for m in ("scripts.bench_attention", "scripts.bench_matmul_shapes",
+                     "models.retrieval", "models.vggt.convert", "evals.ate",
+                     "evals.smoke_loop", "slam.alignment", "slam.checkpoint",
+                     "tools.synth3d"))
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -37,7 +40,7 @@ def test_port_imports_no_jax_flax_cv2_or_reference_package():
                          cwd=REPO)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 25
+    assert int(n) >= 30
     assert bad == "[]"
 
 

@@ -1128,3 +1128,28 @@ def test_matmul_design_launches_count_each_launch(cuda):
     n = 2 * len(MM.TILINGS)
     assert MM.design_launches()["tma_wgmma"] == before + n
     assert sum(MM.CALLS.values()) == sum(calls.values()) + n
+
+
+def test_f32_block_attention_runs_the_bf16_kernel(cuda):
+    """An f32 module (SALAD's DINOv2 blocks) on the flash route: one
+    flash_single launch on bf16 q, k, v, its output cast back to f32,
+    within TOL of the same block on the plain f32 route."""
+    from vggt_slam_tpu_torch.models.vggt.modules import Block
+
+    torch.manual_seed(0)
+    blocks = [Block(768, 12, layerscale=1.0, attn_impl=impl).to(cuda)
+              for impl in ("flash", "chunked")]
+    for b in blocks:
+        for p in b.parameters():
+            torch.nn.init.normal_(p, std=0.02)
+            if p.dim() == 1 and p.shape[0] == 768:
+                p.data.add_(1.0)
+    blocks[1].load_state_dict(blocks[0].state_dict())
+    x = torch.randn(3, 257, 768, device=cuda)
+    A.reset_launch_counts()
+    with torch.no_grad():
+        got = blocks[0](x)
+        want = blocks[1](x)
+    assert got.dtype == torch.float32
+    assert A.LAUNCHES["flash_single"] == 1
+    assert (got - want).abs().max().item() < TOL * want.abs().max().item()

@@ -6,7 +6,8 @@ no OpenCV, against OpenCV and the JAX package's copy on the CPU.
   0.05 steps. OpenCV's uint8 paths sum in SIMD orders (and round ties) that
   numpy does not reproduce bit for bit.
 * `read_png` against cv2.imread, bit-exact, over gray, RGB, RGBA and
-  palette PNGs whose rows use every one of the five filters.
+  palette PNGs whose rows use every one of the five filters; `write_png`'s
+  files read back bit-exact by both.
 * `load_and_preprocess_images` against the reference's on a PNG folder of
   TUM-sized frames: within one uint8 step (1/255) and a mean under 0.05/255.
 """
@@ -156,6 +157,18 @@ def test_png_reader_mixed_filters_any_shape(tmp_path, hw):
     _write_png(path, _frame(*hw, seed=7), 2, kinds=(4, 3, 4, 1, 2, 0))
     np.testing.assert_array_equal(images.read_png(path),
                                   cv2.imread(path, cv2.IMREAD_COLOR))
+
+
+@pytest.mark.parametrize("hw", [(1, 9), (37, 53), (392, 518)])
+def test_png_writer_reads_back(tmp_path, hw):
+    """`write_png` (each row's filter chosen as libpng's adaptive choice)
+    -> the in-repo reader and OpenCV give back the frame bit for bit."""
+    path = str(tmp_path / "w.png")
+    img = _frame(*hw, seed=9)
+    kinds = images.write_png(path, img)
+    assert kinds.shape == (hw[0],) and kinds.max() <= 4
+    np.testing.assert_array_equal(images.read_png(path), img)
+    np.testing.assert_array_equal(cv2.imread(path, cv2.IMREAD_COLOR), img)
 
 
 def test_png_written_by_cv2_and_unsupported_pngs(tmp_path):

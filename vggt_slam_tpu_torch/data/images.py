@@ -3,7 +3,8 @@ vggt_slam_tpu/data/images.py without OpenCV): resize to width 518 with the
 height rounded to the 14-px patch, values in [0, 1], (S, 3, H, W) float32.
 
 OpenCV is not used. PNG (TUM RGB-D, 7-Scenes and Replica ship it) is decoded
-by an in-repo reader on the standard library's zlib; other formats, JPEG
+by an in-repo reader on the standard library's zlib, and written by
+`write_png`; other formats, JPEG
 included, by PIL or torchvision where one of them imports. The two resizes
 of the reference (`cv2.resize` with INTER_LINEAR and INTER_AREA) are written
 in numpy with OpenCV's conventions.
@@ -139,6 +140,38 @@ def read_png(path: str) -> np.ndarray:
     else:
         rgb = px[..., :3]
     return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def write_png(path, bgr):
+    """(H, W, 3) uint8 BGR -> an 8-bit RGB PNG (zlib), each row filtered as
+    libpng's adaptive choice does it: of the five filters, the one whose
+    residuals, read as signed bytes, have the least absolute sum. Returns
+    the rows' filter types."""
+    h, w = bgr.shape[:2]
+    x = bgr[..., ::-1].reshape(h, w * 3).astype(np.int16)
+    up = np.concatenate([np.zeros((1, w * 3), np.int16), x[:-1]])
+    left = np.concatenate([np.zeros((h, 3), np.int16), x[:, :-3]], 1)
+    ul = np.concatenate([np.zeros((h, 3), np.int16), up[:, :-3]], 1)
+    pa, pb, pc = (np.abs(up - ul), np.abs(left - ul),
+                  np.abs(left + up - 2 * ul))
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, ul))
+    res = np.stack([(x - p) & 255 for p in (0, left, up, (left + up) >> 1,
+                                            paeth)]).astype(np.uint8)
+    kind = np.abs(res.view(np.int8).astype(np.int32)).sum(2).argmin(0)
+    rows = np.concatenate([kind[:, None].astype(np.uint8),
+                           res[kind, np.arange(h)]], 1)
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xffffffff))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + chunk(b"IEND", b""))
+    return kind
 
 
 def _read_other(path: str) -> np.ndarray:

@@ -50,6 +50,18 @@ parser.add_argument("--save_path", type=str, default=None)
 parser.add_argument("--checkpoint", type=str, default=None,
                     help="flat npz of VGGT weights keyed by flax path; "
                          "seeded random weights when absent")
+parser.add_argument("--retrieval_checkpoint", type=str, default=None,
+                    help="converted SALAD weights (flat npz, models/"
+                         "retrieval.convert_torch_checkpoint); loop closure "
+                         "is DISABLED without them (random descriptors "
+                         "would insert bogus loop factors)")
+parser.add_argument("--retrieval_backend", default="salad",
+                    choices=["salad", "tiny"],
+                    help="place-recognition descriptors: the SALAD network "
+                         "on --device (needs --retrieval_checkpoint) or the "
+                         "weight-free tiny-image descriptor (models/"
+                         "retrieval.tiny_image_descriptor_fn), which enables "
+                         "loop closure with no weights")
 parser.add_argument("--model_size", type=str, default="1b",
                     choices=["1b", "small", "small64", "small256", "tiny"])
 parser.add_argument("--global_kv_stride", type=int, default=None,
@@ -140,6 +152,8 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
     Returns {"solver", "n_frames", "wall_s", "fps", "timer"}."""
     from vggt_slam_tpu_torch.data.images import downsample_images, \
         list_image_folder, load_image, preprocess_frames
+    from vggt_slam_tpu_torch.models.retrieval import \
+        tiny_image_descriptor_fn
     from vggt_slam_tpu_torch.slam.loop_closure import ImageRetrieval
     from vggt_slam_tpu_torch.slam.solver import Solver
     from vggt_slam_tpu_torch.utils.profiling import StageTimer
@@ -147,7 +161,10 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
     device = resolve_device(device)
     if retrieval is None:
         retrieval = ImageRetrieval(
-            batch_bucket=args.submap_size + args.overlapping_window_size)
+            descriptor_fn=(tiny_image_descriptor_fn()
+                           if args.retrieval_backend == "tiny" else None),
+            batch_bucket=args.submap_size + args.overlapping_window_size,
+            checkpoint=args.retrieval_checkpoint, device=device)
     solver = Solver(init_conf_threshold=args.conf_threshold,
                     use_point_map=args.use_point_map, use_sim3=args.use_sim3,
                     retrieval=retrieval, seed=args.seed,
@@ -228,6 +245,8 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
     print(f"Total number of submaps in map {solver.map.get_num_submaps()}")
     print(f"Total number of loop closures in map "
           f"{solver.graph.get_num_loops()}")
+    print(f"Loop closures detected {solver.detected_loop_count}, rejected "
+          f"by the geometric gate {solver.rejected_loop_count}")
     print(f"Processed {n_frames} frames in {dt:.1f}s "
           f"({n_frames / dt:.2f} FPS end-to-end)")
     if timer is not None:

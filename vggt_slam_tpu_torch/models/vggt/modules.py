@@ -207,13 +207,18 @@ class Attention(nn.Module):
                 k = apply_rope(k.view(B, Nk, H, Dh).transpose(1, 2),
                                kv_rope_cos, kv_rope_sin
                                ).transpose(1, 2).reshape(B, Nk, C)
+        # The CUDA kernels take bf16: an f32 module (SALAD's backbone) gives
+        # them bf16 q, k, v and casts the output back.
+        cast = flash and q.device.type == "cuda" and q.dtype != torch.bfloat16
+        if cast:
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
         out = attn_ops.attention(
             q.contiguous(), k.contiguous(), v.contiguous(),
             impl=self.attn_impl, valid_len=kv_valid_len, rope_q=rope_q,
             rope_k=rope_k, kv_bias=kv_bias, softmax=self.softmax_mode,
             qk_ln=qk_ln, qk_ln_eps=self.ln_eps, num_heads=H,
             qk_int8=self.qk_int8)
-        return self.proj(out)
+        return self.proj(out.to(self.dtype) if cast else out)
 
 
 class Block(nn.Module):

@@ -1,4 +1,5 @@
-"""DINOv2-style ViT image encoder, patch tokens only (counterpart of
+"""DINOv2-style ViT image encoder, patch tokens (and the CLS token for
+SALAD) (counterpart of
 vggt_slam_tpu/models/vggt/vit.py): cls and register tokens, learned
 position embeddings resized bilinearly (antialiased when shrinking, as
 jax.image.resize) to the input grid, LayerScale blocks, no rope."""
@@ -27,9 +28,10 @@ def resize_pos_embed(pos: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 
 class DinoViT(nn.Module):
-    def __init__(self, cfg: VGGTConfig):
+    def __init__(self, cfg: VGGTConfig, return_cls: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.return_cls = return_cls
         g = cfg.img_size // cfg.patch_size
         self.patch_embed = Conv(3, cfg.enc_dim, cfg.patch_size,
                                 stride=cfg.patch_size, dtype=cfg.dtype)
@@ -46,7 +48,9 @@ class DinoViT(nn.Module):
         self.norm = LayerNorm(cfg.enc_dim, 1e-6)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images (B, 3, H, W) in [0, 1] -> patch tokens (B, h*w, enc_dim)."""
+        """images (B, 3, H, W) in [0, 1] -> patch tokens (B, h*w, enc_dim),
+        or (patch tokens, the final CLS token (B, enc_dim)) with
+        `return_cls`."""
         cfg = self.cfg
         B, _, H, W = images.shape
         h, w = cfg.patch_grid(H, W)
@@ -65,4 +69,5 @@ class DinoViT(nn.Module):
         for i in range(cfg.enc_depth):
             x = run_block(getattr(self, f"block_{i}"), cfg.remat, x)
         x = self.norm(x).to(cfg.dtype)
-        return x[:, 1 + cfg.enc_num_registers:]
+        patches = x[:, 1 + cfg.enc_num_registers:]
+        return (patches, x[:, 0]) if self.return_cls else patches

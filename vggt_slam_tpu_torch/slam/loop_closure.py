@@ -1,9 +1,11 @@
 """Loop-closure retrieval: per-frame descriptors and best-frame matching
-(counterpart of vggt_slam_tpu/slam/loop_closure.py).
+(counterpart of vggt_slam_tpu/slam/loop_closure.py): L2 matching against
+every older submap's frames with the current and previous submap excluded,
+accepted under 0.80, at most `max_loops` matches kept.
 
-The SALAD descriptor network is a later part of the port. Without a
-trusted descriptor source loop detection is off, as in the reference when
-no retrieval checkpoint is given: `untrusted_descriptor_fn` is that stub.
+Descriptors come from SALAD (models/retrieval.py) by default. Without a
+retrieval checkpoint they are random-init and untrusted, so loop detection
+is off, as in the reference.
 """
 from __future__ import annotations
 
@@ -43,24 +45,21 @@ class LoopMatchQueue:
         return [m for _, m in sorted(self.heap, reverse=True)]
 
 
-def untrusted_descriptor_fn():
-    """Descriptor stub for runs without retrieval weights: marked untrusted,
-    so ImageRetrieval disables loop detection and never calls it."""
-    def run(frames):
-        raise RuntimeError("untrusted descriptors are never computed")
-
-    run.trusted = False
-    return run
-
-
 class ImageRetrieval:
     """Descriptor extraction + loop search. `descriptor_fn`: callable
-    (S, 3, H, W) float [0, 1] -> (S, D); defaults to the untrusted stub."""
+    (S, 3, H, W) float [0, 1] -> (S, D); defaults to SALAD at `input_size`
+    on `device`, trusted only with a converted `checkpoint`."""
 
-    def __init__(self, descriptor_fn=None, batch_bucket: int | None = None):
+    def __init__(self, descriptor_fn=None, input_size: int = 224,
+                 batch_bucket: int | None = None,
+                 checkpoint: str | None = None, device="cuda"):
         self.batch_bucket = batch_bucket
-        self.descriptor_fn = (untrusted_descriptor_fn() if descriptor_fn
-                              is None else descriptor_fn)
+        if descriptor_fn is None:
+            from vggt_slam_tpu_torch.models.retrieval import \
+                default_descriptor_fn
+            descriptor_fn = default_descriptor_fn(
+                input_size=input_size, checkpoint=checkpoint, device=device)
+        self.descriptor_fn = descriptor_fn
         self.trusted = bool(getattr(self.descriptor_fn, "trusted", True))
         self._warned_untrusted = False
 
@@ -70,6 +69,8 @@ class ImageRetrieval:
         if not self.trusted:
             return np.zeros((S, 1), np.float32)
         if self.batch_bucket is not None and S < self.batch_bucket:
+            # one shape a run; frames are encoded independently, so the
+            # zero frames do not reach the real frames' descriptors
             pad = np.zeros((self.batch_bucket - S,) + frames.shape[1:],
                            np.float32)
             frames = np.concatenate([frames, pad], axis=0)
@@ -82,8 +83,10 @@ class ImageRetrieval:
         if not self.trusted:
             if not self._warned_untrusted:
                 self._warned_untrusted = True
-                print("loop closure DISABLED: no trusted retrieval "
-                      "descriptors", file=sys.stderr)
+                print("loop closure DISABLED: retrieval descriptors are "
+                      "random-init (no checkpoint); pass a converted SALAD "
+                      "checkpoint to enable place recognition",
+                      file=sys.stderr)
             return []
         queue = LoopMatchQueue(max_size=max_loop_closures)
         for query_id, qvec in enumerate(submap.get_all_retrieval_vectors()):

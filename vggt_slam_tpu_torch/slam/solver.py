@@ -70,6 +70,7 @@ class Solver:
         self.use_point_map = use_point_map
         self.use_sim3 = use_sim3
         self.loop_inlier_thresh = loop_inlier_thresh
+        self.detected_loop_count = 0     # retrieval hits given to the gate
         self.rejected_loop_count = 0
         self._seq_reg_fracs: list[float] = []
         self.flow_tracker = FrameTracker(backend=keyframe_backend,
@@ -78,7 +79,7 @@ class Solver:
         self.graph = PoseGraph("se3" if use_sim3 else "sl4",
                                device=self.device)
         self.image_retrieval = retrieval if retrieval is not None \
-            else ImageRetrieval()
+            else ImageRetrieval(device=self.device)
         self.current_working_submap: Submap | None = None
         self.first_edge = True
         self.prior_pcd = None
@@ -128,11 +129,12 @@ class Solver:
         new_submap = Submap(new_id)
         new_submap.add_all_frames(images)
         new_submap.set_frame_ids(names)
-        new_submap.set_all_retrieval_vectors(
-            self.image_retrieval.get_all_submap_embeddings(new_submap))
-        detected_loops = self.image_retrieval.find_loop_closures(
-            self.map, new_submap, max_loop_closures=max_loops,
-            skip_last=previous_in_map)
+        with self._stage("retrieval"):
+            new_submap.set_all_retrieval_vectors(
+                self.image_retrieval.get_all_submap_embeddings(new_submap))
+            detected_loops = self.image_retrieval.find_loop_closures(
+                self.map, new_submap, max_loop_closures=max_loops,
+                skip_last=previous_in_map)
         retrieved = self.map.get_frames_from_loops(detected_loops)
         new_submap.set_last_non_loop_frame_index(images.shape[0] - 1)
         if retrieved:
@@ -298,6 +300,7 @@ class Solver:
                                self.init_conf_threshold, intrinsics_cam)
             sub.set_conf_masks(conf)
 
+        self.detected_loop_count += len(detected_loops)
         for index, loop in enumerate(detected_loops):
             self._add_loop(sub, loop, index)
         self.map.add_submap(sub)

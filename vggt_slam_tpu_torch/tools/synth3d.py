@@ -1,6 +1,9 @@
 """Synthetic 3D scenes with exact multi-view ground truth, the port's
-copy of vggt_slam_tpu/tools/synth3d.py down to `training_batch`, the data
-of tools/train_tiny.py.
+copy of vggt_slam_tpu/tools/synth3d.py: `training_batch`, the data of
+tools/train_tiny.py, and `write_tum_sequence`, the TUM-layout sequences of
+evals/smoke_loop.py.
+
+    python -m vggt_slam_tpu_torch.tools.synth3d --out_dir DIR [--kind loop]
 
 A textured smooth heightfield is raycast from a moving perspective camera:
 frames with real parallax plus exact per-pixel depth and camera ground
@@ -14,10 +17,13 @@ pixel. Cubic resize (A = -0.75, half-pixel centres, clamped taps), the
 Gaussian blur (OpenCV's kernel size and weights for float images, reflect-
 101 border) and bilinear remap (reflect border) agree with OpenCV to float32
 rounding, not to the bit: OpenCV sums in another order. The camera path and
-the pose encodings are the reference's numpy code unchanged.
+the pose encodings are the reference's numpy code unchanged. PNGs are written
+by data/images.write_png.
 """
 from __future__ import annotations
 
+import argparse
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -411,3 +417,63 @@ def training_batch(seed: int, n_frames: int = 8,
     enc = pose_encodings(relative_to_frame0(extr), K, (H, W))
     return {"images": imgs, "pose_enc_gt": enc.astype(np.float32),
             "depth_gt": depths}
+
+
+def write_tum_sequence(out_dir: str, n_frames: int = 120, seed: int = 0,
+                       image_hw: tuple[int, int] = (392, 518),
+                       kind: str = "loop", span: float = 0.9,
+                       fov_w_deg: float = 55.0, fps: float = 30.0,
+                       ng: int = 1536) -> list[str]:
+    """TUM-RGBD-layout sequence: rgb/<stamp>.png + groundtruth.txt, whose
+    rows "t x y z qx qy qz qw" hold the cam->world pose (TUM convention;
+    evals/ate.py associates and Sim3-aligns against it)."""
+    from vggt_slam_tpu_torch.data.images import write_png
+
+    H, W = image_hw
+    scene = make_scene(seed=seed, ng=ng)
+    centers, rots = camera_path(n_frames, seed=seed, kind=kind, span=span)
+    K = camera_intrinsics(H, W, fov_w_deg)
+
+    img_dir = os.path.join(out_dir, "rgb")
+    os.makedirs(img_dir, exist_ok=True)
+    names = []
+    gt_rows = []
+    t0 = 1000.0
+    for i in range(n_frames):
+        rgb, _, _ = render(scene, centers[i], rots[i], K, (H, W))
+        stamp = t0 + i / fps
+        name = os.path.join(img_dir, f"{stamp:.6f}.png")
+        write_png(name, (rgb * 255).astype(np.uint8)[..., ::-1])
+        names.append(name)
+        q = rotmat_to_quat_np(rots[i].T[None])[0]  # cam->world (w, x, y, z)
+        c = centers[i]
+        gt_rows.append(
+            f"{stamp:.6f} {c[0]:.6f} {c[1]:.6f} {c[2]:.6f} "
+            f"{q[1]:.6f} {q[2]:.6f} {q[3]:.6f} {q[0]:.6f}")
+    with open(os.path.join(out_dir, "groundtruth.txt"), "w") as f:
+        f.write("# timestamp tx ty tz qx qy qz qw\n")
+        f.write("\n".join(gt_rows) + "\n")
+    return names
+
+
+def main():
+    p = argparse.ArgumentParser(
+        description="Generate a synthetic 3D (heightfield) TUM-layout "
+                    "sequence with exact groundtruth")
+    p.add_argument("--out_dir", required=True)
+    p.add_argument("--n_frames", type=int, default=120)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--kind", choices=["loop", "pan"], default="loop")
+    p.add_argument("--span", type=float, default=0.9)
+    p.add_argument("--size", type=int, nargs=2, default=(518, 392),
+                   metavar=("W", "H"))
+    args = p.parse_args()
+    W, H = args.size
+    names = write_tum_sequence(args.out_dir, n_frames=args.n_frames,
+                               seed=args.seed, image_hw=(H, W),
+                               kind=args.kind, span=args.span)
+    print(f"wrote {len(names)} frames to {args.out_dir}")
+
+
+if __name__ == "__main__":
+    main()
