@@ -102,7 +102,16 @@ And, for loop closure (after phase 9; `check_converters`, `check_salad`,
   S. SALAD at full width on that npz: 12 flash_single launches a call,
      descriptors against the plain f32 path and two controls, its times;
   L. the CLI at VGGT-1B width on a synthetic loop with the tiny and the
-     SALAD backends, then evals/smoke_loop.py at its defaults.
+     SALAD backends, then evals/smoke_loop.py at its defaults;
+  V. on phase L's sequence (`drive_viewer_and_evals`): the CLI at 1B with
+     --colmap_images_txt (images.txt from groundtruth.txt under a known
+     Sim(3)), --profile_dir and --vis_map on tests/viser_stub.py (every
+     homography T times its value before, RMSE not worse, a point cloud
+     per submap, a frame and frustum per pose, a GLB of the map that
+     parses, a trace that parses, tma_wgmma forwards); run_eval
+     --in_process and process_logs (a finite ATE over >= 30 pairs);
+     geometry_eval on result.pcd with the g++-built kd-tree against
+     cKDTree; pipeline_overlap's serial and pipelined runs.
 Phases E, F and G run under --kernels-only too. With --ab DIR... the
 script builds the kernels, then times the bf16 forward at every shape of
 phases 3 and 4 (head dims 32, 64 and 128) in turns (each DIR's
@@ -2349,6 +2358,7 @@ def drive_loop_closure(device, npz):
             raise AssertionError(f"the SALAD run launched "
                                  f"{salad['launches']}, not {want} forward "
                                  f"calls")
+        drive_viewer_and_evals(device, seq)
     finally:
         shutil.rmtree(seq, ignore_errors=True)
     rc, out = run_smoke_loop()
@@ -2362,6 +2372,248 @@ def drive_loop_closure(device, npz):
             raise AssertionError(f"smoke_loop without the gate failed "
                                  f"({rc}): {out[-3000:]}")
     return salad["launches"]
+
+
+# ---------------------------------------------------------------------------
+# Phase V: the rest of the CLI (COLMAP alignment, the profiler trace, the
+# viewer, GLB export) and the host evals, on phase L's sequence
+# ---------------------------------------------------------------------------
+
+ALIGN_SIM3 = (1.5, (0.3, -0.2, 0.1), (0.5, -1.0, 2.0))  # s, axis-angle, t
+
+
+def write_colmap_images(seq, path):
+    """images.txt putting each frame's camera at its groundtruth.txt centre
+    under ALIGN_SIM3 (identity orientations; the alignment reads centres)."""
+    import numpy as np
+
+    s, w, t = ALIGN_SIM3
+    th = np.linalg.norm(w)
+    k = np.array(w) / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    R = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+    lines = []
+    with open(os.path.join(seq, "groundtruth.txt")) as f:
+        rows = [r.split() for r in f if r.strip() and not r.startswith("#")]
+    for i, r in enumerate(rows):
+        c = s * R @ np.array(r[1:4], float) + np.array(t)
+        lines += [f"{i + 1} 1 0 0 0 {-c[0]:.17g} {-c[1]:.17g} "
+                  f"{-c[2]:.17g} 1 {r[0]}.png", ""]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return len(rows)
+
+
+def check_glb(path, n_points):
+    """The GLB's header, JSON chunk and point accessor."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    magic, version, total = struct.unpack_from("<III", data)
+    js_len, js_type = struct.unpack_from("<II", data, 12)
+    gltf = json.loads(data[20:20 + js_len])
+    count = gltf["accessors"][gltf["meshes"][0]["primitives"][0][
+        "attributes"]["POSITION"]]["count"]
+    if (magic, version, total, js_type) != (0x46546C67, 2, len(data),
+                                            0x4E4F534A) or count != n_points:
+        raise AssertionError(f"GLB: {magic:#x} v{version} {total}/"
+                             f"{len(data)} bytes, {count} of {n_points} "
+                             f"points")
+    return len(data)
+
+
+def check_trace(path):
+    """Parse the CLI's Chrome trace; count its CUDA kernel events."""
+    t0 = time.perf_counter()
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"bytes": size, "events": len(events), "kernels": len(kernels),
+            "flash_kernels": sorted({k for k in kernels if "flash" in k}),
+            "parse_s": time.perf_counter() - t0}
+
+
+def load_viser_stub():
+    """tests/viser_stub.py by path (an installed package named `tests`
+    may shadow the repository's)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "viser_stub", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "viser_stub.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def viewer_cli_run(device, seq, tmp):
+    """The CLI at VGGT-1B width (tiny backend, submap 16) with the COLMAP
+    alignment, the outputs, the trace and the viewer on tests/viser_stub."""
+    import io
+    import re
+
+    import numpy as np
+
+    from vggt_slam_tpu_torch.main import parser, run_slam
+    from vggt_slam_tpu_torch.ops import attention as A
+    from vggt_slam_tpu_torch.slam.map import GraphMap
+    from vggt_slam_tpu_torch.utils.profiling import sync
+    from vggt_slam_tpu_torch.viz.glb import GLBExporter
+
+    calls = load_viser_stub().install(sys.modules)
+    images_txt = os.path.join(tmp, "images.txt")
+    n_gt = write_colmap_images(seq, images_txt)
+    args = parser.parse_args(
+        ["--image_folder", os.path.join(seq, "rgb"), "--retrieval_backend",
+         "tiny", "--min_disparity", "8", "--colmap_images_txt", images_txt,
+         "--save_path", os.path.join(tmp, "out"), "--log_results",
+         "--skip_dense_log", "--log_path", os.path.join(tmp, "poses.txt"),
+         "--profile_dir", os.path.join(tmp, "prof"), "--vis_map",
+         "--vis_stride", "4", "--seed", str(SEED), "--timing"])
+    seen = {}
+    align = GraphMap.align_scale_to_colmap
+
+    def recording(self, *a, **kw):
+        seen["before"] = {k: s.get_reference_homography().copy()
+                          for k, s in self.submaps.items()}
+        seen["T"] = align(self, *a, **kw)
+        return seen["T"]
+
+    out = io.StringIO()
+    sync()
+    A.reset_launch_counts()
+    before, t0 = A.forward_design_launches(), time.perf_counter()
+    GraphMap.align_scale_to_colmap = recording
+    try:
+        with contextlib.redirect_stdout(out):
+            result = run_slam(args, device=device)
+    finally:
+        GraphMap.align_scale_to_colmap = align
+    sync()
+    wall = time.perf_counter() - t0
+    print(out.getvalue()[-1500:], flush=True)
+    launches = dict(A.LAUNCHES)
+    designs = {d: n - before[d]
+               for d, n in A.forward_design_launches().items()}
+    if designs != {"tma_wgmma": forward_calls(launches)}:
+        raise AssertionError(f"forward calls {launches} ran {designs}")
+    solver = result["solver"]
+    subs = list(solver.map.ordered_submaps_by_key())
+    rm = re.search(r"RMSE before: (\S+)\s+after: (\S+)", out.getvalue())
+    if not rm or float(rm.group(2)) > float(rm.group(1)):
+        raise AssertionError(f"[align]: {rm and rm.groups()}")
+    T = seen["T"]
+    for s in subs:
+        want = T @ seen["before"][s.get_id()]
+        got = s.get_reference_homography()
+        if np.abs(got - want).max() > 1e-9 * np.abs(want).max():
+            raise AssertionError(f"submap {s.get_id()}: H != T H_before")
+    # the viewer: a point cloud per submap, a frame and a frustum per pose
+    poses = sum(len(s.get_all_poses_world()) for s in subs)
+    want = {"scene.add_point_cloud": len(subs), "scene.add_frame": poses,
+            "scene.add_camera_frustum": poses}
+    named = {k: set() for k in want}
+    for name, a, kw in calls:
+        if name in want:
+            named[name].add(kw.get("name") or a[0])
+    got = {k: len(v) for k, v in named.items()}
+    if got != want or named["scene.add_point_cloud"] != {
+            f"pcd_{s.get_id()}" for s in subs}:
+        raise AssertionError(f"viewer calls {got}, want {want}")
+    ex = GLBExporter()
+    for s in subs:
+        ex.add_point_cloud(s.get_points_in_world_frame(stride=4),
+                           s.get_points_colors(stride=4))
+        for pose in s.get_all_poses_world(ignore_loop_closure_frames=True):
+            ex.add_camera_pose(pose)
+    n_points = sum(len(p) for p in ex.points)
+    glb_bytes = check_glb(ex.export(os.path.join(tmp, "scene.glb")),
+                          n_points)
+    trace = check_trace(os.path.join(tmp, "prof", "trace.json"))
+    res = {"frames": result["n_frames"], "submaps": len(subs),
+           "gt_frames": n_gt, "align": [float(v) for v in rm.groups()],
+           "T": T.tolist(), "wall_s": wall, "fps": result["n_frames"] / wall,
+           "viewer_calls": got, "glb_points": n_points,
+           "glb_bytes": glb_bytes, "trace": trace, "launches": launches,
+           "designs": designs,
+           "stages": {k: v["total_s"]
+                      for k, v in result["timer"].summary().items()}}
+    log("viewer_cli", **res)
+    return res
+
+
+def drive_viewer_and_evals(device, seq):
+    """Phase V on phase L's sequence: the CLI's COLMAP alignment, trace,
+    viewer and GLB; run_eval --in_process and process_logs; geometry_eval
+    with the g++-built kd-tree against cKDTree; pipeline_overlap."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from vggt_slam_tpu_torch.data.pcd import read_pcd
+    from vggt_slam_tpu_torch.evals import geometry_eval as GE
+    from vggt_slam_tpu_torch.evals import process_logs, run_eval
+    from vggt_slam_tpu_torch.native import kdtree
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase_v_") as tmp:
+        viewer_cli_run(device, seq, tmp)
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        csv_path = os.path.join(tmp, "eval.csv")
+        rows = run_eval.main(
+            ["--dataset_root", os.path.dirname(seq), "--sequences",
+             os.path.basename(seq), "--trials", "1", "--min_disparity", "8",
+             "--global_kv_stride", "16", "--retrieval_backend", "tiny",
+             "--in_process", "--out", csv_path])
+        run_eval._WARM.update(model_fn=None, retrieval=None)
+        torch.cuda.empty_cache()
+        summary = process_logs.summarize(csv_path)
+        row = rows[0]
+        log("run_eval", row=row, summary=summary,
+            seconds=time.perf_counter() - t0)
+        if len(rows) != 1 or not np.isfinite(row["ate_rmse"]) or \
+                row["ate_pairs"] < 30:
+            raise AssertionError(f"run_eval: {rows}")
+
+        t0 = time.perf_counter()
+        pts, _ = read_pcd(os.path.join(tmp, "out", "result.pcd"))
+        pts = pts[:: max(1, len(pts) // 400_000)]
+        shifted = pts + np.float32([0.01, -0.02, 0.005])
+        if not kdtree.available():
+            raise AssertionError("the kd-tree did not build")
+        d = GE.nn_distances(pts, shifted)
+        d_ref, _ = cKDTree(shifted).query(pts, k=1, workers=-1)
+        cham = GE.chamfer(pts, shifted)
+        err = float(np.abs(d - d_ref).max())
+        log("geometry_eval", points=len(pts), max_abs_vs_ckdtree=err,
+            chamfer=cham, seconds=time.perf_counter() - t0)
+        if err > 1e-6 or d.max() > 0.0230:   # no farther than |shift|
+            raise AssertionError(f"geometry_eval: {err}, {cham}")
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "vggt_slam_tpu_torch.evals."
+             "pipeline_overlap", "--seq_dir", seq, "--frames", "40",
+             "--warmup_frames", "17", "--submap_size", "16",
+             "--min_disparity", "8", "--model_size", "1b", "--out",
+             os.path.join(tmp, "pipeline_overlap.txt")],
+            capture_output=True, text=True, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"pipeline_overlap ({proc.returncode}): "
+                                 f"{proc.stdout[-2000:]}"
+                                 f"{proc.stderr[-2000:]}")
+        split = json.loads(lines[-1])
+        log("pipeline_overlap", **split, seconds=time.perf_counter() - t0,
+            report=lines[-30:-2])
+        if any(split[k]["frames"] != 40 or not split[k]["fps"] > 0
+               for k in ("serial", "pipelined")):
+            raise AssertionError(f"pipeline_overlap: {split}")
+    log("phase_v", seconds=time.perf_counter() - t_phase)
 
 
 # ---------------------------------------------------------------------------
@@ -3338,6 +3590,7 @@ def main(argv) -> int:
     from vggt_slam_tpu_torch.scripts import bench_matmul_shapes as MM
     from vggt_slam_tpu_torch.scripts import bench_softmax_variants as SV
 
+    t_smoke = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3536,6 +3789,7 @@ def main(argv) -> int:
     kernels += probe_kernel_entries(probe_checks, probe_launches)
     kernels += global_probe_entries(global_probes)
     kernels += matmul_probe_entries(*matmul_probes)
+    log("smoke", seconds=time.perf_counter() - t_smoke)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Binary PCD point-cloud writer (a copy of the PCD writer of
+"""Binary PCD point clouds (a copy of the writer and the binary reader of
 vggt_slam_tpu/data/pcd.py): x y z + PCL packed float rgb."""
 from __future__ import annotations
 
@@ -40,3 +40,27 @@ def write_pcd(path: str, points, colors=None) -> None:
     with open(path, "wb") as f:
         f.write(header.encode())
         f.write(np.ascontiguousarray(data, dtype=np.float32).tobytes())
+
+
+def read_pcd(path: str):
+    """A binary .pcd as write_pcd writes it -> ((N, 3) float32 points,
+    (N, 3) uint8 colors or None)."""
+    with open(path, "rb") as f:
+        header = {}
+        while "DATA" not in header:
+            line = f.readline().decode(errors="replace").strip()
+            if line and not line.startswith("#"):
+                key, _, val = line.partition(" ")
+                header[key] = val
+        if header["DATA"] != "binary":
+            raise ValueError(f"{path}: only binary PCD is read")
+        fields = header["FIELDS"].split()
+        n = int(header["POINTS"])
+        data = np.frombuffer(f.read(4 * n * len(fields)), dtype=np.float32
+                             ).reshape(n, len(fields))
+    colors = None
+    if "rgb" in fields:
+        packed = data[:, fields.index("rgb")].copy().view(np.uint32)
+        colors = np.stack([(packed >> s) & 0xFF for s in (16, 8, 0)],
+                          axis=-1).astype(np.uint8)
+    return data[:, :3], colors

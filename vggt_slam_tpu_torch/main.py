@@ -1,7 +1,8 @@
 """VGGT-SLAM CLI on PyTorch: incremental dense SLAM over an image folder
 (counterpart of vggt_slam_tpu/main.py): per-frame keyframe gate, per-submap
 forward -> registration -> pose-graph solve, and the reference's artifacts
-(result.pcd, frame_output/*.npz, TUM pose log).
+(result.pcd, frame_output/*.npz, TUM pose log), COLMAP alignment, the
+focal-length plot, a torch.profiler trace and the viser viewer.
 
 Run:  python -m vggt_slam_tpu_torch.main --image_folder <dir> [flags]
 
@@ -15,17 +16,41 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from vggt_slam_tpu_torch.utils.device import resolve_device
 
+
+class _NeedsMatplotlib(argparse.Action):
+    """A store_true flag refused at parse time where matplotlib is absent
+    (the reference imports it only after the run)."""
+
+    def __init__(self, option_strings, dest, **kw):
+        super().__init__(option_strings, dest, nargs=0, default=False, **kw)
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            parser.error(f"{option_string} needs matplotlib, which is not "
+                         f"installed")
+        setattr(namespace, self.dest, True)
+
+
 parser = argparse.ArgumentParser(description="VGGT-SLAM on PyTorch/CUDA")
 parser.add_argument("--image_folder", type=str,
                     default="examples/kitchen/images/")
+parser.add_argument("--vis_map", action="store_true",
+                    help="visualize the map incrementally (requires viser)")
+parser.add_argument("--vis_flow", action="store_true",
+                    help="accepted and ignored, as in the reference")
 parser.add_argument("--log_results", action="store_true")
 parser.add_argument("--skip_dense_log", action="store_true")
 parser.add_argument("--log_path", type=str, default="poses.txt")
 parser.add_argument("--use_sim3", action="store_true")
+parser.add_argument("--plot_focal_lengths", action=_NeedsMatplotlib,
+                    help="write focal_lengths.png (requires matplotlib)")
 parser.add_argument("--submap_size", type=int, default=16)
 parser.add_argument("--overlapping_window_size", type=int, default=1,
                     help="ONLY DEFAULT OF 1 SUPPORTED RIGHT NOW")
@@ -46,7 +71,12 @@ parser.add_argument("--keyframe_backend", default="auto",
                          "the CPU, as the reference's auto")
 parser.add_argument("--use_point_map", action="store_true")
 parser.add_argument("--conf_threshold", type=float, default=25.0)
+parser.add_argument("--vis_stride", type=int, default=1)
+parser.add_argument("--vis_point_size", type=float, default=0.003)
 parser.add_argument("--save_path", type=str, default=None)
+parser.add_argument("--keep_alive", action="store_true")
+parser.add_argument("--colmap_images_txt", type=str, default=None)
+parser.add_argument("--align_no_scale", action="store_true")
 parser.add_argument("--checkpoint", type=str, default=None,
                     help="flat npz of VGGT weights keyed by flax path; "
                          "seeded random weights when absent")
@@ -80,6 +110,9 @@ parser.add_argument("--attn_impl", type=str, default="flash",
                     choices=["flash", "chunked"],
                     help="flash = the CUDA kernels (their plain versions on "
                          "the CPU); chunked = the plain reference")
+parser.add_argument("--profile_dir", type=str, default=None,
+                    help="write a torch.profiler Chrome trace of the SLAM "
+                         "loop here")
 parser.add_argument("--no_pipeline", action="store_true",
                     help="serial flow: forward, integrate, repeat")
 parser.add_argument("--timing", action="store_true",
@@ -159,6 +192,13 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
     from vggt_slam_tpu_torch.utils.profiling import StageTimer
 
     device = resolve_device(device)
+    viewer = None
+    if args.vis_map or args.keep_alive:
+        try:
+            from vggt_slam_tpu_torch.viz.viser_viewer import ViserViewer
+            viewer = ViserViewer(rng=np.random.RandomState(args.seed))
+        except ImportError:
+            print("viser not installed; continuing headless")
     if retrieval is None:
         retrieval = ImageRetrieval(
             descriptor_fn=(tiny_image_descriptor_fn()
@@ -167,7 +207,9 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
             checkpoint=args.retrieval_checkpoint, device=device)
     solver = Solver(init_conf_threshold=args.conf_threshold,
                     use_point_map=args.use_point_map, use_sim3=args.use_sim3,
-                    retrieval=retrieval, seed=args.seed,
+                    viewer=viewer, retrieval=retrieval,
+                    vis_stride=args.vis_stride,
+                    vis_point_size=args.vis_point_size, seed=args.seed,
                     keyframe_backend=args.keyframe_backend,
                     loop_inlier_thresh=args.loop_inlier_thresh,
                     device=device)
@@ -185,6 +227,15 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
     if not items:
         sys.exit(f"no images in {args.image_folder}")
 
+    profiler = None
+    if args.profile_dir:    # started after the model's build, as the reference
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+
+    focal_data = []
     timer = StageTimer() if args.timing else None
     solver.timer = timer
 
@@ -195,11 +246,17 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
         if "outputs" in predictions:
             with stage("collect_predictions"):
                 predictions = solver.collect_predictions(predictions)
+        focal_data.append(predictions["intrinsic"][:, 0, 0])
         with stage("add_points"), solver.side_stream():
             solver.add_points(predictions)
         with stage("graph_optimize"), solver.side_stream():
             solver.graph.optimize()
             solver.map.update_submap_homographies(solver.graph)
+        if args.vis_map:
+            if len(predictions["detected_loops"]) > 0:
+                solver.update_all_submap_vis()
+            else:
+                solver.update_latest_submap_vis()
 
     # Dispatch-ahead: submap k+1's forward is queued before submap k is
     # integrated, so the host work overlaps the device forward.
@@ -212,7 +269,7 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
         with stage("keyframe_gate"), solver.side_stream():
             img = load_image(item) if frames is None else item
             is_kf = solver.flow_tracker.compute_disparity(
-                img, args.min_disparity)
+                img, args.min_disparity, args.vis_flow)
         if is_kf:
             subset.append(i)
             decoded[i] = img
@@ -252,6 +309,18 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
     if timer is not None:
         print("Per-stage timing:")
         print(timer.report())
+    if profiler is not None:
+        profiler.stop()
+        os.makedirs(args.profile_dir, exist_ok=True)
+        trace = os.path.join(args.profile_dir, "trace.json")
+        profiler.export_chrome_trace(trace)
+        print(f"Wrote the torch.profiler trace {trace}")
+    if args.colmap_images_txt is not None:
+        print(f"Aligning map to COLMAP poses: {args.colmap_images_txt}")
+        solver.map.align_scale_to_colmap(args.colmap_images_txt,
+                                         with_scale=not args.align_no_scale)
+    if not args.vis_map and viewer is not None:
+        solver.update_all_submap_vis()
     if args.save_path:
         os.makedirs(args.save_path, exist_ok=True)
         solver.map.write_points_to_file(
@@ -264,8 +333,33 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
         if not args.skip_dense_log:
             solver.map.save_framewise_pointclouds(
                 args.log_path.replace(".txt", "_logs"))
+    if args.plot_focal_lengths:
+        plot_focal_lengths(focal_data)
+    if args.keep_alive and viewer is not None:
+        print("\nViser server is running. Press Enter to exit...")
+        try:
+            input()
+        except (KeyboardInterrupt, EOFError):
+            pass
     return {"solver": solver, "n_frames": n_frames, "wall_s": dt,
             "fps": n_frames / dt, "timer": timer}
+
+
+def plot_focal_lengths(focal_data, path="focal_lengths.png"):
+    """Each submap's focal lengths against its index (matplotlib, Agg)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    colors = plt.cm.viridis(np.linspace(0, 1, len(focal_data)))
+    plt.figure(figsize=(8, 6))
+    for i, values in enumerate(focal_data):
+        plt.scatter([i] * len(values), values, color=colors[i])
+    plt.xlabel("poses")
+    plt.ylabel("Focal lengths")
+    plt.grid()
+    plt.savefig(path)
+    plt.close()
+    print(f"Saved {path}")
 
 
 def main():

@@ -57,9 +57,10 @@ class FrameTracker:
                 self.kf_gray, maxCorners=self.max_corners, qualityLevel=0.01,
                 minDistance=8, blockSize=7)
 
-    def compute_disparity(self, image: np.ndarray,
-                          min_disparity: float) -> bool:
-        """True if `image` should start/extend the keyframe set."""
+    def compute_disparity(self, image: np.ndarray, min_disparity: float,
+                          visualize: bool = False) -> bool:
+        """True if `image` should start/extend the keyframe set.
+        `visualize` is accepted and ignored, as in the reference."""
         if self.last_kf is None or self.kf_pts is None \
                 or len(self.kf_pts) < 10:
             self.initialize_keyframe(image)

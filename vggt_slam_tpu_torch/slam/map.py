@@ -1,6 +1,6 @@
-"""Global map: submap registry, retrieval search, homography write-back
-and writers (counterpart of vggt_slam_tpu/slam/map.py, without the
-semantic voxel map and the COLMAP alignment)."""
+"""Global map: submap registry, retrieval search, homography write-back,
+writers and the COLMAP Sim(3) alignment (counterpart of
+vggt_slam_tpu/slam/map.py, without the semantic voxel map)."""
 from __future__ import annotations
 
 import os
@@ -10,6 +10,8 @@ import torch
 
 from vggt_slam_tpu_torch.data.pcd import write_pcd
 from vggt_slam_tpu_torch.ops import lie
+from vggt_slam_tpu_torch.slam.alignment import parse_colmap_images_txt, \
+    rmse, umeyama_sim3_np
 
 
 class GraphMap:
@@ -129,3 +131,59 @@ class GraphMap:
         if colors.max() > 1.0:
             colors = colors / 255.0
         write_pcd(file_name, pts, colors)
+
+    # -- global alignment ----------------------------------------------------
+
+    def apply_similarity_transform(self, T_world_from_pred) -> None:
+        """Left-multiply every submap's homography by a 4x4 T (f64)."""
+        T = np.asarray(T_world_from_pred, dtype=np.float64)
+        if T.shape != (4, 4):
+            raise ValueError(f"T_world_from_pred must be 4x4, got {T.shape}")
+        for submap in self.ordered_submaps_by_key():
+            H = submap.get_reference_homography()
+            if H is None:
+                continue
+            submap.set_reference_homography((T @ H).astype(np.float64))
+
+    def align_scale_to_colmap(self, colmap_images_txt: str,
+                              with_scale: bool = True,
+                              ignore_loop_closure_frames: bool = True
+                              ) -> np.ndarray:
+        """Umeyama Sim(3) (or SE(3)) from the camera centres to COLMAP's,
+        matched by image basename, applied to the map; returns T."""
+        gt_centers = parse_colmap_images_txt(colmap_images_txt)
+        pred_pts, gt_pts = [], []
+        for submap in self.ordered_submaps_by_key():
+            poses = submap.get_all_poses_world(
+                ignore_loop_closure_frames=ignore_loop_closure_frames)
+            if poses is None:
+                continue
+            names = submap.frame_names
+            if names is None:
+                id_to_name = submap.frame_id_to_name
+                names = [id_to_name[str(f)] for f in submap.get_frame_ids()]
+            if len(names) != poses.shape[0]:
+                print(f"can't align submap {submap.get_id()}: "
+                      f"{len(names)} names vs {poses.shape[0]} poses")
+                continue
+            for name, pose in zip(names, poses):
+                base = str(name).split("/")[-1]
+                if base in gt_centers:
+                    pred_pts.append(pose[:3, 3].astype(np.float64))
+                    gt_pts.append(gt_centers[base])
+        if len(pred_pts) < 3:
+            raise RuntimeError(
+                f"Need >=3 matched frames for alignment; got {len(pred_pts)}.")
+        pred = np.stack(pred_pts)
+        gt = np.stack(gt_pts)
+        before = rmse(pred, gt)
+        s, R, t = umeyama_sim3_np(pred, gt, with_scale=with_scale)
+        T = np.eye(4)
+        T[:3, :3] = s * R
+        T[:3, 3] = t
+        after = rmse((s * (R @ pred.T)).T + t[None, :], gt)
+        print(f"[align] matched frames: {len(pred_pts)}")
+        print(f"[align] RMSE before: {before:.4f}  after: {after:.4f}")
+        print(f"[align] scale: {s:.6f}")
+        self.apply_similarity_transform(T)
+        return T

@@ -57,10 +57,14 @@ def _finish_host_copy(item) -> np.ndarray:
 class Solver:
     def __init__(self, init_conf_threshold: float = 25.0,
                  use_point_map: bool = False, use_sim3: bool = False,
-                 retrieval: ImageRetrieval | None = None, seed: int = 0,
-                 keyframe_backend: str = "auto",
+                 viewer=None, retrieval: ImageRetrieval | None = None,
+                 vis_stride: int = 1, vis_point_size: float = 0.001,
+                 seed: int = 0, keyframe_backend: str = "auto",
                  loop_inlier_thresh: float = 0.0, device="cpu"):
         self.device = torch.device(device)
+        self.viewer = viewer
+        self.vis_stride = vis_stride
+        self.vis_point_size = vis_point_size
         if keyframe_backend == "auto":
             # The torch tracker on a CUDA device, whose machine may have no
             # OpenCV; host cv2 on the CPU, as the reference's auto.
@@ -335,3 +339,34 @@ class Solver:
                                       loop.query_submap_id, H_rel_lc,
                                       self.graph.relative_noise)
         self.graph.increment_loop_closure()
+
+    # -- viewer pass-throughs (no-ops without a viewer) ---------------------
+
+    def set_submap_point_cloud(self, submap):
+        if self.viewer is None:
+            return
+        self.viewer.add_point_cloud(
+            submap.get_points_in_world_frame(stride=self.vis_stride),
+            submap.get_points_colors(stride=self.vis_stride),
+            name=str(submap.get_id()), point_size=self.vis_point_size)
+
+    def set_submap_poses(self, submap):
+        if self.viewer is None:
+            return
+        self.viewer.add_frames(submap.get_all_poses_world(),
+                               submap.get_all_frames(), submap.get_id())
+
+    def update_all_submap_vis(self):
+        for submap in self.map.get_submaps():
+            self.set_submap_point_cloud(submap)
+            self.set_submap_poses(submap)
+
+    def update_latest_submap_vis(self):
+        submap = self.map.get_latest_submap()
+        self.set_submap_point_cloud(submap)
+        self.set_submap_poses(submap)
+
+    def export_3d_scene(self, output_path: str = "output.glb"):
+        if self.viewer is None:
+            raise RuntimeError("no viewer attached")
+        return self.viewer.export(output_path)
