@@ -112,6 +112,13 @@ And, for loop closure (after phase 9; `check_converters`, `check_salad`,
      --in_process and process_logs (a finite ATE over >= 30 pairs);
      geometry_eval on result.pcd with the g++-built kd-tree against
      cKDTree; pipeline_overlap's serial and pipelined runs.
+  W. on phase L's sequence (`drive_semantics`): the embedder CLI
+     (Felzenszwalb masks, colour hash, d 64), the CLI at 1B with
+     --semantic_emb_dir --get_voxel --voxel_save_dir (build seconds, N, V,
+     d), the saved map reloaded (finite, every contributor a frame of the
+     sequence, voxelize_np's centres), voxelize_device on the card against
+     voxelize_np at capacity V + 1 and V // 2 with a shifted control, and
+     query_voxelmap --top_k 5 --visualize on tests/viser_stub.py.
 Phases E, F and G run under --kernels-only too. With --ab DIR... the
 script builds the kernels, then times the bf16 forward at every shape of
 phases 3 and 4 (head dims 32, 64 and 128) in turns (each DIR's
@@ -2359,6 +2366,7 @@ def drive_loop_closure(device, npz):
                                  f"{salad['launches']}, not {want} forward "
                                  f"calls")
         drive_viewer_and_evals(device, seq)
+        drive_semantics(device, seq)
     finally:
         shutil.rmtree(seq, ignore_errors=True)
     rc, out = run_smoke_loop()
@@ -2614,6 +2622,206 @@ def drive_viewer_and_evals(device, seq):
                for k in ("serial", "pipelined")):
             raise AssertionError(f"pipeline_overlap: {split}")
     log("phase_v", seconds=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------------
+# Phase W: the semantic voxel map on phase L's sequence
+# ---------------------------------------------------------------------------
+
+SEMANTIC_TARGET = 128       # the embedder's square size (the Solver resizes)
+VOXEL_SIZE = 0.05
+
+
+def voxelize_errors(got, centers, counts, means, feats):
+    """voxelize_device's output on the card against voxelize_np's first
+    num voxels: (centres equal, counts equal, means within mean_tolerance,
+    the largest mean error)."""
+    import numpy as np
+
+    from vggt_slam_tpu_torch.ops.voxel import mean_tolerance
+
+    c, m, n, num = (x.cpu().numpy() for x in got)
+    k = int(num)
+    if k > len(centers):
+        return False, False, False, float("inf")
+    err = np.abs(m[:k] - means[:k]).max(1)
+    return (bool(np.array_equal(c[:k], centers[:k])),
+            bool(np.array_equal(n[:k], counts[:k]) and not n[k:].any()),
+            bool((err <= mean_tolerance(counts[:k], feats)).all()),
+            float(err.max(initial=0.0)))
+
+
+def check_voxelize(device, pts, feats, V):
+    """voxelize_device on the card against voxelize_np on the map's own
+    points, at capacity V + 1 and V // 2 (against voxelize_np's first V // 2
+    voxels), then points shifted by half a voxel, which the check must
+    reject; device ms by CUDA events, the host path's seconds. Returns
+    (the results, voxelize_np's (centers, means, counts))."""
+    import numpy as np
+    import torch
+
+    from vggt_slam_tpu_torch.ops.voxel import voxelize_device, voxelize_np
+
+    t0 = time.perf_counter()
+    centers, means, inverse = voxelize_np(pts, feats, VOXEL_SIZE)
+    np_s = time.perf_counter() - t0
+    counts = np.bincount(inverse)
+    if len(centers) != V:
+        raise AssertionError(f"voxelize_np: {len(centers)} voxels, the map "
+                             f"{V}")
+    p, f = torch.from_numpy(pts).to(device), torch.from_numpy(feats).to(device)
+    mask = torch.ones(len(pts), dtype=torch.bool, device=device)
+    res = {"np_s": np_s}
+    for name, cap in (("full", V + 1), ("half", V // 2)):
+        got = voxelize_device(p, f, mask, VOXEL_SIZE, cap)
+        ok = voxelize_errors(got, centers, counts, means, feats)
+        res[name] = {"capacity": cap, "num": int(got[3]),
+                     "centres": ok[0], "counts": ok[1], "means": ok[2],
+                     "max_abs_err": ok[3]}
+        if not all(ok[:3]) or int(got[3]) != min(V, cap):
+            raise AssertionError(f"voxelize_device ({name}): {res[name]}")
+    shifted = voxelize_device(p + VOXEL_SIZE / 2, f, mask, VOXEL_SIZE, V + 1)
+    ctrl = voxelize_errors(shifted, centers, counts, means, feats)
+    res["control_rejected"] = not all(ctrl[:3])
+    if not res["control_rejected"]:
+        raise AssertionError("voxelize_device: the shifted control passed")
+    res["device_ms"] = cuda_ms(
+        lambda: voxelize_device(p, f, mask, VOXEL_SIZE, V + 1), 3)
+    return res, (centers, means, counts)
+
+
+def drive_semantics(device, seq):
+    """Phase W on phase L's sequence: the embedder CLI (its default masker
+    must be the Felzenszwalb segmenter); the SLAM CLI at VGGT-1B with
+    --semantic_emb_dir --get_voxel --voxel_save_dir (tiny backend, submap
+    16, disparity 8; every forward call tma_wgmma); the saved map reloaded
+    (V > 0, finite features, every contributor a frame of the sequence,
+    centres equal to voxelize_np's on the map's points, features within
+    mean_tolerance); voxelize_device on the card against voxelize_np
+    (`check_voxelize`); query_voxelmap --top_k 5 --visualize on the viser
+    stub."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from vggt_slam_tpu_torch.data.images import load_image, resize_linear
+    from vggt_slam_tpu_torch.main import parser, run_slam
+    from vggt_slam_tpu_torch.native import felzenszwalb
+    from vggt_slam_tpu_torch.ops import attention as A
+    from vggt_slam_tpu_torch.ops.voxel import mean_tolerance
+    from vggt_slam_tpu_torch.semantic import embedder
+    from vggt_slam_tpu_torch.semantic.voxel_map import SemanticVoxelMap
+    from vggt_slam_tpu_torch.tools import query_voxelmap
+    from vggt_slam_tpu_torch.utils.profiling import sync
+
+    t_phase = time.perf_counter()
+    rgb = os.path.join(seq, "rgb")
+    frames = sorted(os.listdir(rgb))
+    with tempfile.TemporaryDirectory(prefix="phase_w_") as tmp:
+        emb_dir, vox_dir = os.path.join(tmp, "emb"), os.path.join(tmp, "vox")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            n = embedder.main(["--image_dir", rgb, "--out_dir", emb_dir,
+                               "--target_size", str(SEMANTIC_TARGET)])
+        embed_s = time.perf_counter() - t0
+        first = load_image(os.path.join(rgb, frames[0]))[..., ::-1] / 255.0
+        masks = embedder.felzenszwalb_mask_generator(resize_linear(
+            first.astype(np.float32), SEMANTIC_TARGET, SEMANTIC_TARGET))
+        with np.load(os.path.join(emb_dir, os.path.splitext(frames[0])[0]
+                                  + ".npz")) as z:
+            d = z["embedding"].shape[-1]
+        log("embedder", frames=n, seconds=embed_s, s_per_frame=embed_s / n,
+            masks_first_frame=len(masks), d=d, out=out.getvalue().strip())
+        if n != len(frames) or not felzenszwalb.available() or \
+                "felzenszwalb_mask_generator" not in out.getvalue():
+            raise AssertionError(f"embedder: {n} of {len(frames)} frames, "
+                                 f"{out.getvalue()!r}")
+
+        args = parser.parse_args(
+            ["--image_folder", rgb, "--retrieval_backend", "tiny",
+             "--min_disparity", "8", "--semantic_emb_dir", emb_dir,
+             "--get_voxel", "--voxel_size", str(VOXEL_SIZE),
+             "--voxel_save_dir", vox_dir, "--seed", str(SEED), "--timing"])
+        out = io.StringIO()
+        sync()
+        A.reset_launch_counts()
+        before, t0 = A.forward_design_launches(), time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = run_slam(args, device=device)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(A.LAUNCHES)
+        designs = {k: v - before[k]
+                   for k, v in A.forward_design_launches().items()}
+        if designs != {"tma_wgmma": forward_calls(launches)} or \
+                not forward_calls(launches):
+            raise AssertionError(f"forward calls {launches} ran {designs}")
+        solver = result["solver"]
+        stages = result["timer"].summary()
+        t0 = time.perf_counter()       # the build's point filters alone
+        pts, feats, _, _, _ = solver.map.semantic_points(VOXEL_SIZE,
+                                                         device=device)
+        points_s = time.perf_counter() - t0
+        vm = result["voxel_map"]
+        V = len(vm.get_centers_world())
+        res = {"frames": result["n_frames"],
+               "submaps": solver.map.get_num_submaps(), "wall_s": wall,
+               "build_s": stages["semantic_voxel_map"]["total_s"],
+               "filters_s": points_s,
+               "N": len(pts), "V": V, "d": int(feats.shape[1]),
+               "launches": launches, "designs": designs,
+               "stages": {k: v["total_s"] for k, v in stages.items()}}
+        log("semantic_cli", **res)
+        del result, solver
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        loaded = SemanticVoxelMap.load_from_directory(vox_dir)
+        load_s = time.perf_counter() - t0
+        names = set(frames)
+        bad = [c for c in {c for cs in loaded.get_contributors() for c in cs}
+               if loaded.resolve_contributor(*c) not in names]
+        lf = loaded.get_features()
+        if V == 0 or len(loaded.get_centers_world()) != V or \
+                not np.isfinite(lf).all() or bad:
+            raise AssertionError(f"saved map: V {V}, "
+                                 f"{len(loaded.get_centers_world())} loaded, "
+                                 f"finite {np.isfinite(lf).all()}, "
+                                 f"{len(bad)} unresolved contributors")
+        vox, (centers, means, counts) = check_voxelize(device, pts, feats, V)
+        map_err = np.abs(lf - means).max(1)
+        if not np.array_equal(loaded.get_centers_world(), centers) or \
+                (map_err > mean_tolerance(counts, feats)).any():
+            raise AssertionError(f"the map's voxels are not voxelize_np's "
+                                 f"(features off by {map_err.max()})")
+        log("voxelize", **vox, map_max_abs_err=float(map_err.max()),
+            load_s=load_s)
+
+        calls = load_viser_stub().install(sys.modules)
+        # phase V's viewer module holds phase V's stub: import it afresh
+        sys.modules.pop("vggt_slam_tpu_torch.viz.viser_viewer", None)
+        out, stdin = io.StringIO(), sys.stdin
+        sys.stdin = io.StringIO("")      # show_voxels waits for Enter
+        try:
+            with contextlib.redirect_stdout(out):
+                ranked = query_voxelmap.main(
+                    ["--voxel_dir", vox_dir, "--query", "a chair",
+                     "--top_k", "5", "--image_dir", rgb, "--out_dir",
+                     os.path.join(tmp, "query"), "--visualize"])
+        finally:
+            sys.stdin = stdin
+        clouds = [kw for name, _, kw in calls
+                  if name == "scene.add_point_cloud"]
+        log("query_voxelmap", ranked=[list(r) for r in ranked],
+            copied=len(os.listdir(os.path.join(tmp, "query"))),
+            viewer_points=len(clouds[0]["points"]) if clouds else 0)
+        if len(ranked) != 5 or any(r[3] not in names for r in ranked) or \
+                len(clouds) != 1:
+            raise AssertionError(f"query_voxelmap: {ranked}, {len(clouds)} "
+                                 f"clouds")
+    log("phase_w", seconds=time.perf_counter() - t_phase)
 
 
 # ---------------------------------------------------------------------------

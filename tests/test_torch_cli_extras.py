@@ -123,11 +123,9 @@ def test_parser_has_the_reference_flags():
     from vggt_slam_tpu import main as ref
     from vggt_slam_tpu_torch import main as port
 
-    semantic = {"--semantic_emb_dir", "--get_voxel", "--voxel_size",
-                "--voxel_save_dir", "--voxel_port", "--voxel_point_size"}
     multi_device = {"--shard", "--seq_parallel"}
     assert _options(ref.parser) - _options(port.parser) == \
-        semantic | multi_device | {"--platform"}
+        multi_device | {"--platform"}
     assert _options(port.parser) - _options(ref.parser) == \
         {"--device", "--seed"}
 

@@ -1,7 +1,7 @@
 """The port's package boundary and entry points: it imports nothing of JAX,
 flax, OpenCV or the JAX package (every module, the probe scripts, the
-converters, retrieval, the evals, the kd-tree, the GLB writer and the
-SLAM-state checkpoint among them; the viser viewer against tests/
+converters, retrieval, the evals, the kd-tree, the GLB writer, the
+SLAM-state checkpoint and the semantic voxel map and embedder among them; the viser viewer against tests/
 viser_stub.py, since viser is absent); its
 entry points default to the card and refuse to run without one unless the CPU is asked for; chip_smoke.py exits
 non-zero without a card and outside the repository; and the tiny-config
@@ -28,7 +28,9 @@ assert all("vggt_slam_tpu_torch." + m in names
                      "tools.synth3d", "viz.glb", "viz.viser_viewer",
                      "evals.geometry_eval", "evals.run_eval",
                      "evals.process_logs", "evals.pipeline_overlap",
-                     "native.kdtree"))
+                     "native.kdtree", "native.felzenszwalb", "ops.voxel",
+                     "semantic.voxel_map", "semantic.embedder",
+                     "tools.query_voxelmap"))
 viewer = "vggt_slam_tpu_torch.viz.viser_viewer"   # needs viser: the stub
 for name in names:
     if name != viewer:
@@ -49,7 +51,7 @@ def test_port_imports_no_jax_flax_cv2_or_reference_package():
                          cwd=REPO)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 58
+    assert int(n) >= 64
     assert bad == "[]"
 
 

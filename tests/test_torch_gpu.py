@@ -28,7 +28,9 @@ the plain versions): so the test tells int8 QK^T from bf16. The fused DPT tail i
 largest output: both sides round u and h to bf16, and the f32 sums of the
 3x3 conv run in another order, which can flip a rounding of h; its
 outputs are written into NaN-filled tensors, and the check must reject
-the output with frames 0 and 1 swapped.
+the output with frames 0 and 1 swapped. voxelize_device (torch on the card,
+no kernel of its own) sums by atomic adds: its means are held to
+ops/voxel.mean_tolerance of voxelize_np's, its centres and counts exactly.
 """
 import functools
 import math
@@ -1153,3 +1155,34 @@ def test_f32_block_attention_runs_the_bf16_kernel(cuda):
     assert got.dtype == torch.float32
     assert A.LAUNCHES["flash_single"] == 1
     assert (got - want).abs().max().item() < TOL * want.abs().max().item()
+
+
+def test_voxelize_device_matches_voxelize_np(cuda):
+    """voxelize_device on the card against voxelize_np on the masked-in
+    points, with room for every voxel and with half of them (then against
+    voxelize_np's first half: both orders put x first); points shifted by
+    half a voxel must fail the centres check."""
+    from vggt_slam_tpu_torch.ops import voxel as VX
+
+    rng = np.random.default_rng(0)
+    pts = rng.normal(scale=1.5, size=(300_000, 3)).astype(np.float32)
+    feats = rng.normal(size=(300_000, 64)).astype(np.float32)
+    mask = rng.random(300_000) > 0.2
+    centers, means, inverse = VX.voxelize_np(pts[mask], feats[mask], 0.05)
+    counts = np.bincount(inverse)
+    V = len(centers)
+    for cap in (V + 3, V // 2):
+        c, m, n, num = (x.cpu().numpy() for x in VX.voxelize_device(
+            *(torch.from_numpy(a).to(cuda) for a in (pts, feats, mask)),
+            0.05, cap))
+        k = min(V, cap)
+        assert int(num) == k and not n[k:].any()
+        np.testing.assert_array_equal(c[:k], centers[:k])
+        np.testing.assert_array_equal(n[:k], counts[:k])
+        err = np.abs(m[:k] - means[:k]).max(1)
+        assert (err <= VX.mean_tolerance(counts[:k], feats)).all()
+    c, _, _, num = VX.voxelize_device(
+        *(torch.from_numpy(a).to(cuda) for a in (pts + 0.025, feats, mask)),
+        0.05, V + 3)
+    k = min(V, int(num))
+    assert not np.array_equal(c[:k].cpu().numpy(), centers[:k])

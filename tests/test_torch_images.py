@@ -4,7 +4,8 @@ no OpenCV, against OpenCV and the JAX package's copy on the CPU.
 * `resize_linear` / `resize_area` against cv2.resize INTER_LINEAR /
   INTER_AREA: within one uint8 step everywhere and a mean difference under
   0.05 steps. OpenCV's uint8 paths sum in SIMD orders (and round ties) that
-  numpy does not reproduce bit for bit.
+  numpy does not reproduce bit for bit. float32 `resize_linear` equals
+  OpenCV's portable code (IPP off) bit for bit.
 * `read_png` against cv2.imread, bit-exact, over gray, RGB, RGBA and
   palette PNGs whose rows use every one of the five filters; `write_png`'s
   files read back bit-exact by both.
@@ -119,6 +120,22 @@ def test_float_resizes_match_cv2():
     np.testing.assert_allclose(
         images.resize_area(img, 97, 61),
         cv2.resize(img, (97, 61), interpolation=cv2.INTER_AREA), atol=1e-5)
+
+
+@pytest.mark.parametrize("hw,out_wh", [((120, 160), (97, 61)),
+                                       ((7, 9), (224, 224)),
+                                       ((300, 41), (52, 40))])
+def test_float_resize_linear_is_opencv_portable_bit_for_bit(hw, out_wh):
+    """OpenCV's portable INTER_LINEAR (IPP off), which the semantic
+    embedder's crops go through: equal bit for bit, edge columns too."""
+    img = _frame(*hw, seed=5).astype(np.float32) / 255.0
+    was = cv2.ipp.useIPP()
+    cv2.ipp.setUseIPP(False)
+    try:
+        want = cv2.resize(img, out_wh, interpolation=cv2.INTER_LINEAR)
+    finally:
+        cv2.ipp.setUseIPP(was)
+    np.testing.assert_array_equal(images.resize_linear(img, *out_wh), want)
 
 
 @pytest.mark.parametrize("kind", ["gray", "rgb", "rgba", "palette"])

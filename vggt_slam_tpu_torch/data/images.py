@@ -225,7 +225,8 @@ def resize_linear(img: np.ndarray, w: int, h: int) -> np.ndarray:
     """cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR) for (H, W, C)
     images. uint8 follows OpenCV's fixed point (within one step of it,
     where its scalar tail rounds otherwise); float images are interpolated
-    in float32."""
+    in float32 as OpenCV's portable code does it, bit for bit (its IPP
+    build differs by up to ~2e-5)."""
     H, W = img.shape[:2]
     x0, x1, ax0, ax1, fx = _linear_taps(W, w)
     y0, y1, by0, by1, fy = _linear_taps(H, h)
@@ -239,6 +240,9 @@ def resize_linear(img: np.ndarray, w: int, h: int) -> np.ndarray:
                + (((rows[y1] >> 4) * by1[:, None, None]) >> 16) + 2) >> 2
         return np.clip(out, 0, 255).astype(np.uint8)
     src = img.astype(np.float32)
+    # OpenCV's float path: a column whose taps clamp to one source column
+    # takes it with weight 1 (rows blend their clamped neighbours)
+    fx = np.where(x0 == x1, np.float32(0), fx)
     fx, fy = fx[None, :, None], fy[:, None, None]
     rows = src[:, x0] * (1 - fx) + src[:, x1] * fx
     return (rows[y0] * (1 - fy) + rows[y1] * fy).astype(np.float32)

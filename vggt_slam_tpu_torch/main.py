@@ -1,8 +1,9 @@
 """VGGT-SLAM CLI on PyTorch: incremental dense SLAM over an image folder
 (counterpart of vggt_slam_tpu/main.py): per-frame keyframe gate, per-submap
 forward -> registration -> pose-graph solve, and the reference's artifacts
-(result.pcd, frame_output/*.npz, TUM pose log), COLMAP alignment, the
-focal-length plot, a torch.profiler trace and the viser viewer.
+(result.pcd, frame_output/*.npz, TUM pose log), the semantic voxel map,
+COLMAP alignment, the focal-length plot, a torch.profiler trace and the
+viser viewer.
 
 Run:  python -m vggt_slam_tpu_torch.main --image_folder <dir> [flags]
 
@@ -75,6 +76,19 @@ parser.add_argument("--vis_stride", type=int, default=1)
 parser.add_argument("--vis_point_size", type=float, default=0.003)
 parser.add_argument("--save_path", type=str, default=None)
 parser.add_argument("--keep_alive", action="store_true")
+parser.add_argument("--semantic_emb_dir", type=str, default=None,
+                    help="per-frame embeddings {stem}.npz (key "
+                         "'embedding', (h, w, d)), as semantic/embedder.py "
+                         "writes them")
+parser.add_argument("--get_voxel", action="store_true",
+                    help="with --semantic_emb_dir: build the semantic voxel "
+                         "map after the run")
+parser.add_argument("--voxel_size", type=float, default=0.05)
+parser.add_argument("--voxel_save_dir", type=str, default=None)
+parser.add_argument("--voxel_port", type=int, default=8081,
+                    help="parsed and unused, as in the reference")
+parser.add_argument("--voxel_point_size", type=float, default=0.01,
+                    help="parsed and unused, as in the reference")
 parser.add_argument("--colmap_images_txt", type=str, default=None)
 parser.add_argument("--align_no_scale", action="store_true")
 parser.add_argument("--checkpoint", type=str, default=None,
@@ -182,7 +196,8 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
     """Run the SLAM loop over `args.image_folder`, or over `frames`: a
     sequence of decoded (H, W, 3) uint8 BGR images (no decoder needed).
 
-    Returns {"solver", "n_frames", "wall_s", "fps", "timer"}."""
+    Returns {"solver", "n_frames", "wall_s", "fps", "timer", "voxel_map"}
+    (the semantic voxel map with --get_voxel, else None)."""
     from vggt_slam_tpu_torch.data.images import downsample_images, \
         list_image_folder, load_image, preprocess_frames
     from vggt_slam_tpu_torch.models.retrieval import \
@@ -242,6 +257,19 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
     def stage(name):
         return timer.stage(name) if timer else contextlib.nullcontext()
 
+    def load_semantics(sub_names):
+        if args.semantic_emb_dir is None:
+            return None
+        embs = []
+        for name in sub_names:
+            stem = os.path.splitext(os.path.basename(name))[0]
+            path = os.path.join(args.semantic_emb_dir, f"{stem}.npz")
+            if not os.path.exists(path):
+                raise FileNotFoundError(
+                    f"Missing semantic embedding for {name}: {path}")
+            embs.append(np.load(path)["embedding"])
+        return np.stack(embs, axis=0)
+
     def integrate(predictions):
         if "outputs" in predictions:
             with stage("collect_predictions"):
@@ -278,18 +306,23 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
                 or (is_last and len(subset) > 1):
             images = preprocess_frames([decoded[j] for j in subset])
             sub_names = [names[j] for j in subset]
+            semantic_embeddings = load_semantics(sub_names)
             if not args.no_pipeline:
                 with stage("dispatch_predictions"):
                     new_pending = solver.dispatch_predictions(
-                        images, model_fn, args.max_loops, names=sub_names,
-                        new_id=next_id, previous_in_map=pending is None)
+                        images, model_fn, args.max_loops,
+                        semantic_embeddings=semantic_embeddings,
+                        names=sub_names, new_id=next_id,
+                        previous_in_map=pending is None)
                 if pending is not None:
                     integrate(pending)
                 pending = new_pending
             else:
                 with stage("run_predictions"):
                     preds = solver.run_predictions(
-                        images, model_fn, args.max_loops, names=sub_names)
+                        images, model_fn, args.max_loops,
+                        semantic_embeddings=semantic_embeddings,
+                        names=sub_names)
                 integrate(preds)
             next_id += 1
             subset = subset[-args.overlapping_window_size:]
@@ -333,6 +366,15 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
         if not args.skip_dense_log:
             solver.map.save_framewise_pointclouds(
                 args.log_path.replace(".txt", "_logs"))
+    vm = None
+    if args.get_voxel and args.semantic_emb_dir:
+        with stage("semantic_voxel_map"):
+            vm = solver.map.build_semantic_voxel_map(
+                voxel_size=args.voxel_size, device=device)
+        print(f"Semantic voxel map: {len(vm.get_centers_world())} voxels")
+        if args.voxel_save_dir:
+            vm.save_to_directory(args.voxel_save_dir)
+            print(f"Saved semantic voxel map to {args.voxel_save_dir}")
     if args.plot_focal_lengths:
         plot_focal_lengths(focal_data)
     if args.keep_alive and viewer is not None:
@@ -342,7 +384,7 @@ def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
         except (KeyboardInterrupt, EOFError):
             pass
     return {"solver": solver, "n_frames": n_frames, "wall_s": dt,
-            "fps": n_frames / dt, "timer": timer}
+            "fps": n_frames / dt, "timer": timer, "voxel_map": vm}
 
 
 def plot_focal_lengths(focal_data, path="focal_lengths.png"):

@@ -6,16 +6,13 @@ take scipy's cKDTree."""
 from __future__ import annotations
 
 import ctypes
-import os
 import subprocess
-import tempfile
 
 import numpy as np
 
-from vggt_slam_tpu_torch.ops.cuda_build import BUILD_DIR
+from vggt_slam_tpu_torch.native import build_library, paths
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kdtree.cpp")
-_LIB = os.path.join(BUILD_DIR, "libkdtree.so")
+_SRC, _LIB = paths("kdtree")
 _lib = None
 
 
@@ -23,21 +20,7 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB) or \
-            os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        # a private name, renamed when done: concurrent builds never load a
-        # half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            subprocess.run(["g++", "-O3", "-shared", "-fPIC", _SRC, "-o",
-                            tmp], check=True, capture_output=True)
-            os.replace(tmp, _LIB)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(_LIB)
+    lib = ctypes.CDLL(build_library(_SRC, _LIB))
     lib.kdtree_build.restype = ctypes.c_void_p
     lib.kdtree_build.argtypes = [ctypes.POINTER(ctypes.c_float),
                                  ctypes.c_int32]

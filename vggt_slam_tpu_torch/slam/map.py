@@ -1,6 +1,8 @@
 """Global map: submap registry, retrieval search, homography write-back,
-writers and the COLMAP Sim(3) alignment (counterpart of
-vggt_slam_tpu/slam/map.py, without the semantic voxel map)."""
+writers, the semantic voxel map and the COLMAP Sim(3) alignment
+(counterpart of vggt_slam_tpu/slam/map.py). The voxel map's per-submap
+filters run on the host as the reference's; its voxelization and
+contributor sets on the device."""
 from __future__ import annotations
 
 import os
@@ -10,8 +12,12 @@ import torch
 
 from vggt_slam_tpu_torch.data.pcd import write_pcd
 from vggt_slam_tpu_torch.ops import lie
+from vggt_slam_tpu_torch.ops.voxel import unique_rows, voxel_coords
+from vggt_slam_tpu_torch.semantic.voxel_map import SemanticVoxel, \
+    SemanticVoxelMap
 from vggt_slam_tpu_torch.slam.alignment import parse_colmap_images_txt, \
     rmse, umeyama_sim3_np
+from vggt_slam_tpu_torch.utils.device import resolve_device
 
 
 class GraphMap:
@@ -132,6 +138,115 @@ class GraphMap:
             colors = colors / 255.0
         write_pcd(file_name, pts, colors)
 
+    # -- semantic voxel map --------------------------------------------------
+
+    def semantic_points(self, voxel_size: float, stride: int = 1,
+                        ignore_loop_closure_frames: bool = True,
+                        device="cuda"):
+        """The world points the semantic voxel map averages. Per submap
+        with embeddings, in order: confidence >= its threshold, finite,
+        inside the 0.5-99.5 percentile box (these on the host), and in a
+        3x-voxel cell of >= 10 points (counted on `device`); loop frames
+        are skipped. Returns (points (N, 3) f32, features (N, d) f32, pair
+        (N,) int, pairs: [(submap id, frame id)], frame_name_maps), points
+        None where nothing is left."""
+        if voxel_size <= 0.0:
+            raise ValueError("voxel_size must be > 0")
+        if stride < 1:
+            raise ValueError("stride must be >= 1")
+        device = resolve_device(device)
+        all_pts, all_feats, all_pairs, pairs = [], [], [], []
+        frame_name_maps = {}
+        for submap in self.ordered_submaps_by_key():
+            if submap.semantic_embeddings is None or \
+                    submap.pointclouds is None or submap.conf is None or \
+                    submap.conf_threshold is None or \
+                    submap.H_world_map is None:
+                continue
+            end = submap.pointclouds.shape[0]
+            if ignore_loop_closure_frames and \
+                    submap.last_non_loop_frame_index is not None:
+                end = min(end, submap.last_non_loop_frame_index + 1)
+            s = slice(None, None, stride)
+            pts = submap.pointclouds[:end, s, s]
+            sem = submap.semantic_embeddings[:end, s, s]
+            mask = submap.conf[:end, s, s] >= submap.conf_threshold
+            if not mask.any():
+                continue
+            sid = int(submap.get_id())
+            pair = len(pairs) + np.broadcast_to(
+                np.arange(end)[:, None, None], mask.shape)[mask]
+            pairs += [(sid, str(submap.frame_ids[i])) for i in range(end)]
+            pts, sem = submap._to_world(pts[mask]).astype(np.float32), \
+                sem[mask]
+            # the rows kept; the embeddings are gathered once, at the end
+            keep = np.flatnonzero(np.isfinite(pts).all(1)
+                                  & np.isfinite(sem).all(1))
+            pts = pts[keep]
+            if len(keep):
+                k = _in_percentile_box(pts)
+                pts, keep = pts[k], keep[k]
+            if len(keep):
+                k = _dense(pts, voxel_size, device)
+                pts, keep = pts[k], keep[k]
+            if not len(keep):
+                continue
+            all_pts.append(pts)
+            all_feats.append(sem[keep].astype(np.float32, copy=False))
+            all_pairs.append(pair[keep])
+            if submap.frame_id_to_name is not None:
+                frame_name_maps[str(sid)] = dict(submap.frame_id_to_name)
+        if not all_pts:
+            return None, None, None, pairs, frame_name_maps
+        return (np.concatenate(all_pts), np.concatenate(all_feats),
+                np.concatenate(all_pairs), pairs, frame_name_maps)
+
+    def build_semantic_voxel_map(self, voxel_size: float, stride: int = 1,
+                                 ignore_loop_closure_frames: bool = True,
+                                 deduplicate_contributors: bool = True,
+                                 device="cuda") -> SemanticVoxelMap:
+        """The voxel means of `semantic_points` on `device`, voxels in
+        np.unique's order, with each voxel's contributors (submap id, frame
+        id): sorted and unique, or one per point in point order."""
+        dev = resolve_device(device)
+        pts, feats, pair, pairs, frame_name_maps = self.semantic_points(
+            voxel_size, stride, ignore_loop_closure_frames, dev)
+        if pts is None:
+            vox = SemanticVoxel(float(voxel_size),
+                                np.zeros((0, 3), np.float32),
+                                np.zeros((0, 0), np.float32), [])
+            return SemanticVoxelMap(vox, frame_name_maps=frame_name_maps)
+
+        unique_coords, inverse, counts = unique_rows(voxel_coords(
+            torch.from_numpy(pts).to(dev), float(voxel_size)))
+        V = counts.shape[0]
+        feats = torch.from_numpy(feats).to(dev)
+        feat_sum = feats.new_zeros((V, feats.shape[1])).index_add_(
+            0, inverse, feats)
+        feat_avg = (feat_sum.double() / counts[:, None]).cpu().numpy()
+        centers = (unique_coords.cpu().numpy().astype(np.float32) + 0.5) \
+            * float(voxel_size)
+
+        # contributors: (voxel, pair rank) keys, pairs ranked as sorted()
+        # orders their (int, str) tuples
+        names = sorted(set(pairs))
+        index = {p: i for i, p in enumerate(names)}
+        rank = torch.as_tensor([index[p] for p in pairs], device=dev)
+        point_rank = rank[torch.from_numpy(pair).to(dev)]
+        if deduplicate_contributors:
+            keys = torch.unique(inverse * len(names) + point_rank)
+            vox, ranks = keys // len(names), keys % len(names)
+        else:
+            by_voxel = torch.sort(inverse, stable=True).indices
+            vox, ranks = inverse[by_voxel], point_rank[by_voxel]
+        bounds = torch.searchsorted(
+            vox, torch.arange(V + 1, device=dev)).tolist()
+        flat = [names[r] for r in ranks.tolist()]
+        contributors = [flat[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+        vox = SemanticVoxel(float(voxel_size), centers, feat_avg,
+                            contributors)
+        return SemanticVoxelMap(vox, frame_name_maps=frame_name_maps)
+
     # -- global alignment ----------------------------------------------------
 
     def apply_similarity_transform(self, T_world_from_pred) -> None:
@@ -187,3 +302,16 @@ class GraphMap:
         print(f"[align] scale: {s:.6f}")
         self.apply_similarity_transform(T)
         return T
+
+
+def _in_percentile_box(pts):
+    lo = np.percentile(pts, 0.5, axis=0)
+    hi = np.percentile(pts, 99.5, axis=0)
+    return (pts >= lo).all(1) & (pts <= hi).all(1)
+
+
+def _dense(pts, voxel_size, device):
+    """In a cell of 3 voxels a side holding >= 10 points."""
+    _, inverse, counts = unique_rows(voxel_coords(
+        torch.from_numpy(pts).to(device), float(voxel_size) * 3.0))
+    return (counts[inverse] >= 10).cpu().numpy()

@@ -146,8 +146,8 @@ class Solver:
                 [images, np.stack([np.asarray(f) for f in retrieved])])
             new_submap.add_all_frames(images)
         if semantic_embeddings is not None:
-            new_submap.semantic_embeddings = self._fit_semantics(
-                semantic_embeddings, images)
+            new_submap.add_all_semantic_embeddings(self._fit_semantics(
+                semantic_embeddings, images))
         self.current_working_submap = new_submap
         outputs = {k: _start_host_copy(v)
                    for k, v in model_fn(images).items()}

@@ -1,6 +1,6 @@
 """Per-submap store: poses, frames, point maps, confidences, retrieval
-vectors (counterpart of vggt_slam_tpu/slam/submap.py, without the semantic
-voxel export). Storage is host numpy; the SL(4) pose readout and the
+vectors, semantic embeddings (counterpart of vggt_slam_tpu/slam/submap.py).
+Storage is host numpy; the SL(4) pose readout and the
 world-frame point transform run in torch f64 on the host."""
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ class Submap:
         self.frame_ids = None
         self.frame_names = None
         self.frame_id_to_name = None
+        self.semantic_embeddings = None   # (S, H, W, d)
 
     def add_all_poses(self, poses) -> None:
         self.poses = np.asarray(poses)
@@ -49,6 +50,21 @@ class Submap:
 
     def add_all_frames(self, frames) -> None:
         self.frames = np.asarray(frames)
+
+    def add_all_semantic_embeddings(self, semantic_embeddings) -> None:
+        if semantic_embeddings is None:
+            self.semantic_embeddings = None
+            return
+        sem = np.asarray(semantic_embeddings)
+        if sem.ndim != 4:
+            raise ValueError(
+                f"semantic_embeddings must be (S,H,W,d), got {sem.shape}")
+        if self.pointclouds is not None and \
+                sem.shape[:3] != self.pointclouds.shape[:3]:
+            raise ValueError(
+                "semantic_embeddings spatial dims must match pointclouds: "
+                f"{sem.shape[:3]} vs {self.pointclouds.shape[:3]}")
+        self.semantic_embeddings = sem
 
     def set_frame_ids(self, file_paths) -> None:
         """Numeric frame ids from file names (the first number in each)."""
@@ -150,3 +166,42 @@ class Submap:
         masks = [self.conf_masks[i] >= self.conf_threshold
                  for i in range(end)]
         return list(world), ids, masks
+
+    def get_semantic_voxel_in_world_frame(self, voxel_size: float,
+                                          stride: int = 1,
+                                          ignore_loop_closure_frames=False):
+        """Voxel-mean semantic features of the confident points in the
+        world frame, with (submap id, frame id) contributors per point
+        (`stride` is accepted and unused, as in the reference)."""
+        from vggt_slam_tpu_torch.ops.voxel import voxelize_np
+        from vggt_slam_tpu_torch.semantic.voxel_map import SemanticVoxel
+
+        if voxel_size <= 0.0:
+            raise ValueError("voxel_size must be > 0")
+        if self.pointclouds is None or self.semantic_embeddings is None \
+                or self.H_world_map is None:
+            raise RuntimeError("submap missing points/semantics/homography")
+        end = self.pointclouds.shape[0]
+        if ignore_loop_closure_frames and \
+                self.last_non_loop_frame_index is not None:
+            end = min(end, self.last_non_loop_frame_index + 1)
+        sem = self.semantic_embeddings[:end]
+        mask = self.conf[:end] >= self.conf_threshold
+        pts_flat, sem_flat = self.pointclouds[:end][mask], sem[mask]
+        if pts_flat.shape[0] == 0:
+            return SemanticVoxel(voxel_size, np.zeros((0, 3), np.float32),
+                                 np.zeros((0, sem.shape[-1]), np.float32), [])
+        frame_idx = np.broadcast_to(
+            np.arange(end, dtype=np.int32)[:, None, None], mask.shape)[mask]
+        centers, feats, inverse = voxelize_np(
+            self._to_world(pts_flat).astype(np.float32),
+            sem_flat.astype(np.float32), voxel_size)
+        contributors = [[] for _ in range(centers.shape[0])]
+        sid = int(self.submap_id)
+        for p_i, v_i in enumerate(inverse.tolist()):
+            fi = int(frame_idx[p_i])
+            fid = str(self.frame_ids[fi]) if (self.frame_ids is not None and
+                                              fi < len(self.frame_ids)) \
+                else str(fi)
+            contributors[v_i].append((sid, fid))
+        return SemanticVoxel(voxel_size, centers, feats, contributors)

@@ -1,7 +1,7 @@
 """Viser viewer (optional dependency), the port's counterpart of
-vggt_slam_tpu/viz/viser_viewer.py's `ViserViewer`: per-submap camera
+vggt_slam_tpu/viz/viser_viewer.py: `ViserViewer` (per-submap camera
 frames and image frustums coloured from a fixed random palette, a global
-show/hide checkbox, and point-cloud layers. Importing this module needs
+show/hide checkbox, and point-cloud layers) and `show_voxels`. Importing this module needs
 viser; the SLAM loop runs headless without it. The frustum images are
 shrunk by data/images.resize_area (OpenCV's INTER_AREA, no OpenCV)."""
 from __future__ import annotations
@@ -74,3 +74,64 @@ class ViserViewer:
 
     def export(self, output_path: str):
         raise NotImplementedError("use viz.glb.GLBExporter for file export")
+
+
+def show_voxels(voxel_map, port: int = 8081, name: str = "semantic_voxels",
+                point_size: float = 0.01, color_mode: str = "pca",
+                max_voxels: int | None = 20000, query_voxel_indices=None,
+                base_color=(0.75, 0.75, 0.75), highlight_color=(1.0, 0.0, 0.0),
+                keep_alive: bool = True, x_offset: float = 0.0,
+                render_mode: str = "points", cube_opacity: float = 0.5,
+                server=None):
+    """Render a SemanticVoxelMap in viser: `render_mode="points"` as one
+    point cloud, "cubes" as one translucent box a voxel. Colours: "pca"
+    (features_to_rgb), "first3", "ones", or "query" (base colour, the
+    voxels of `query_voxel_indices` highlighted). At most `max_voxels`
+    voxels, drawn with numpy's global generator; `x_offset` shifts the
+    layer; `server` draws onto an existing viser server. Returns (server,
+    handle)."""
+    points = voxel_map.get_centers_world().astype(np.float32).copy()
+    points[:, 0] += x_offset
+    feats = voxel_map.get_features().astype(np.float32)
+    orig = np.arange(points.shape[0])
+    if max_voxels is not None and points.shape[0] > max_voxels:
+        idx = np.random.choice(points.shape[0], max_voxels, replace=False)
+        points, feats, orig = points[idx], feats[idx], orig[idx]
+
+    if color_mode == "query":
+        colors = np.tile(np.asarray(base_color, np.float32),
+                         (points.shape[0], 1))
+        if query_voxel_indices:
+            qset = set(int(i) for i in query_voxel_indices)
+            mask = np.array([int(i) in qset for i in orig])
+            colors[mask] = np.asarray(highlight_color, np.float32)
+    elif color_mode == "ones":
+        colors = np.ones((points.shape[0], 3), np.float32)
+    elif color_mode == "first3":
+        colors = voxel_map.features_to_rgb(feats[:, :3])
+    else:
+        colors = voxel_map.features_to_rgb(feats)
+
+    if server is None:
+        server = viser.ViserServer(host="0.0.0.0", port=port)
+    if render_mode == "cubes":
+        size = float(voxel_map.get_voxel_size())
+        handle = [server.scene.add_box(
+            name=f"{name}/voxel_{i}",
+            position=tuple(float(v) for v in points[i]),
+            dimensions=(size, size, size),
+            color=tuple(float(v) for v in colors[i][:3]),
+            opacity=cube_opacity) for i in range(points.shape[0])]
+    elif render_mode == "points":
+        handle = server.scene.add_point_cloud(
+            name=name, points=points, colors=colors, point_size=point_size,
+            point_shape="circle")
+    else:
+        raise ValueError(f"unknown render_mode {render_mode!r}")
+    if keep_alive:
+        print(f"Viser server on port {port}. Press Enter to exit...")
+        try:
+            input()
+        except (KeyboardInterrupt, EOFError):
+            pass
+    return server, handle
