@@ -119,6 +119,16 @@ And, for loop closure (after phase 9; `check_converters`, `check_salad`,
      sequence, voxelize_np's centres), voxelize_device on the card against
      voxelize_np at capacity V + 1 and V // 2 with a shifted control, and
      query_voxelmap --top_k 5 --visualize on tests/viser_stub.py.
+  P. on phase L's sequence (`drive_clip`): a seeded ViT-B/32 checkpoint
+     directory (the manifest's 398 keys, an authored vocabulary); its
+     encoders through resolve_clip_encoders on the card: 106 crops (two
+     chunks at 224 px, one of another size) against the plain f32 path
+     (L2 2e-2) with two controls (attention zeroed, keys permuted), 12
+     flash_single launches a chunk on flash_sm90.cuh; the text tower
+     against the CPU (1e-4); the vision forward and flash_single at (64,
+     50, 12, 64) timed; then the embedder CLI with --clip_model_dir on 8
+     frames (d 512), the CLI at the small model with --semantic_emb_dir
+     --get_voxel, and query_voxelmap --clip_model_dir --top_k 5.
 Phases E, F and G run under --kernels-only too. With --ab DIR... the
 script builds the kernels, then times the bf16 forward at every shape of
 phases 3 and 4 (head dims 32, 64 and 128) in turns (each DIR's
@@ -2133,17 +2143,20 @@ def check_converters(tmp):
 @contextlib.contextmanager
 def zero_attention():
     """Inside the block every attention of the port's modules returns
-    zeros: the descriptor of a kernel that wrote nothing."""
+    zeros (`attention`, and `flash_single`, which CLIP's vision tower
+    calls): the output of a kernel that wrote nothing."""
     import torch
 
     from vggt_slam_tpu_torch.models.vggt import modules
 
-    saved = modules.attn_ops.attention
-    modules.attn_ops.attention = lambda q, k, v, **kw: torch.zeros_like(q)
+    ops = modules.attn_ops
+    saved = ops.attention, ops.flash_single
+    ops.attention = ops.flash_single = \
+        lambda q, k, v, **kw: torch.zeros_like(q)
     try:
         yield
     finally:
-        modules.attn_ops.attention = saved
+        ops.attention, ops.flash_single = saved
 
 
 def check_salad(device, npz, frames):
@@ -2329,7 +2342,8 @@ def drive_loop_closure(device, npz):
     subprocess, which must exit 0; where it fails because the gate
     rejected every loop it detected (random weights), it runs again with
     the gate off and must exit 0 then, and the first exit code is logged.
-    Returns the SALAD run's launches."""
+    Phases V, W and P run on the sequence before smoke_loop. Returns the
+    SALAD run's launches and phase P's flash_single entry."""
     import re
     import shutil
 
@@ -2367,6 +2381,7 @@ def drive_loop_closure(device, npz):
                                  f"calls")
         drive_viewer_and_evals(device, seq)
         drive_semantics(device, seq)
+        clip = drive_clip(device, seq)
     finally:
         shutil.rmtree(seq, ignore_errors=True)
     rc, out = run_smoke_loop()
@@ -2379,7 +2394,7 @@ def drive_loop_closure(device, npz):
         if rc != 0:
             raise AssertionError(f"smoke_loop without the gate failed "
                                  f"({rc}): {out[-3000:]}")
-    return salad["launches"]
+    return salad["launches"], clip
 
 
 # ---------------------------------------------------------------------------
@@ -2822,6 +2837,341 @@ def drive_semantics(device, seq):
             raise AssertionError(f"query_voxelmap: {ranked}, {len(clouds)} "
                                  f"clouds")
     log("phase_w", seconds=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------------
+# Phase P: CLIP ViT-B/32 and its tokenizer on the card, then the semantic map
+# on CLIP's features
+# ---------------------------------------------------------------------------
+
+CLIP_TOL = SALAD_TOL   # L2 distance of a unit feature from the plain f32 path
+CLIP_TEXT_TOL = 1e-4   # the text tower on the card against the CPU
+CLIP_FRAMES = 8        # phase P's stretch of phase L's sequence
+CLIP_MERGES = ("c h", "a i", "ai r</w>", "ch air</w>", "t a", "b l",
+               "ta bl", "tabl e</w>", "d o", "o r</w>", "do or</w>", "c a",
+               "ca t</w>")
+CLIP_QUERIES = ("a chair", "a table by the door", "IT'S a photo of a cat!",
+                "½ cup ٣ café", "")
+
+
+def write_clip_checkpoint(path, device):
+    """A ViT-B/32 checkpoint directory with nothing downloaded: config.json
+    in transformers' layout; pytorch_model.bin of seeded weights
+    (`clip.init_torch_state_dict`: N(0, 0.02), q_proj and k_proj drawn for
+    a logit std of 3), whose keys and shapes must be
+    tests/data/manifest_clip_vit_b32.json's; an authored vocab.json and
+    merges.txt in the released files' format (the 256 byte symbols, their
+    </w> forms, CLIP_MERGES, the two specials). Returns (values,
+    seconds)."""
+    import torch
+
+    from vggt_slam_tpu_torch.models import clip as M
+    from vggt_slam_tpu_torch.models.clip_tokenizer import bytes_to_unicode
+
+    t0 = time.perf_counter()
+    cfg = M.CLIPConfig.base_patch32()
+    g = torch.Generator(device=device).manual_seed(SEED)
+    sd = {k: v.cpu() for k, v in M.init_torch_state_dict(cfg, g).items()}
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "data", "manifest_clip_vit_b32.json")) \
+            as f:
+        manifest = {k: tuple(v) for k, v in json.load(f).items()}
+    values = sum(v.numel() for v in sd.values())
+    if {k: tuple(v.shape) for k, v in sd.items()} != manifest or \
+            values != 151_277_313:
+        raise AssertionError(f"the seeded checkpoint ({len(sd)} keys, "
+                             f"{values} values) is not the manifest's")
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg.to_hf_dict(), f)
+    vocab = list(bytes_to_unicode().values())
+    vocab += [v + "</w>" for v in vocab]
+    vocab += ["".join(m.split()) for m in CLIP_MERGES]
+    vocab += ["<|startoftext|>", "<|endoftext|>"]
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({t: i for i, t in enumerate(vocab)}, f)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(CLIP_MERGES) + "\n")
+    return values, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def permuted_keys():
+    """Inside the block flash_single sees each crop's keys rolled by one
+    token against its values: a kernel that pairs keys with the wrong
+    values."""
+    from vggt_slam_tpu_torch.ops import attention as A
+
+    flash = A.flash_single
+    A.flash_single = lambda q, k, v, **kw: flash(
+        q, k.roll(1, dims=1).contiguous(), v, **kw)
+    try:
+        yield
+    finally:
+        A.flash_single = flash
+
+
+def clip_crops(seq, n, size, seed=SEED):
+    """n (3, size, size) float [0, 1] windows of phase L's frames."""
+    import numpy as np
+
+    from vggt_slam_tpu_torch.data.images import load_image
+
+    rgb = os.path.join(seq, "rgb")
+    names = sorted(os.listdir(rgb))[:10]
+    frames = [load_image(os.path.join(rgb, f))[..., ::-1] for f in names]
+    rng = np.random.default_rng(seed)
+    out = np.empty((n, 3, size[0], size[1]), np.float32)
+    for i in range(n):
+        f = frames[i % len(frames)]
+        y = rng.integers(0, f.shape[0] - size[0] + 1)
+        x = rng.integers(0, f.shape[1] - size[1] + 1)
+        out[i] = f[y:y + size[0], x:x + size[1]].transpose(2, 0, 1) / 255.0
+    return out
+
+
+def check_clip(device, ckpt, seq):
+    """The vision tower through the user's entry point: 100 crops at 224
+    px (chunks of 64 and 36) and 6 at 180 x 150 (the resize path), with 12
+    flash_single launches a chunk, all tma_wgmma by the C launcher's count;
+    unit features within CLIP_TOL (L2) of the same weights' plain f32 path
+    on the card, which the zeroed-attention and permuted-keys controls must
+    exceed on every crop; the text tower on the card within CLIP_TEXT_TOL
+    of make_encoders(device="cpu"); the vision forward at a batch of 64 and
+    flash_single at (64, 50, 12, 64) against its plain version, SDPA and
+    the bound. Returns the results."""
+    import numpy as np
+    import torch
+
+    from vggt_slam_tpu_torch.models import clip as M
+    from vggt_slam_tpu_torch.ops import attention as A
+    from vggt_slam_tpu_torch.semantic.embedder import resolve_clip_encoders
+
+    t0 = time.perf_counter()
+    encode_crops, encode_text = resolve_clip_encoders(ckpt, "auto",
+                                                      str(device))
+    load_s = time.perf_counter() - t0
+    model = encode_crops.model
+    crops = clip_crops(seq, 100, (224, 224))
+    odd = clip_crops(seq, 6, (180, 150), seed=SEED + 1)
+
+    def both():
+        return np.concatenate([encode_crops(crops), encode_crops(odd)])
+
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    before = A.forward_design_launches()
+    t0 = time.perf_counter()
+    feats = both()
+    encode_s = time.perf_counter() - t0
+    launches = dict(A.LAUNCHES)
+    designs = {d: n - before[d]
+               for d, n in A.forward_design_launches().items()}
+    model.set_attn_impl("plain")
+    ref = both()
+    model.set_attn_impl("flash")
+    with zero_attention():
+        zeroed = both()
+    with permuted_keys():
+        permuted = both()
+
+    def l2(a):
+        return np.linalg.norm(a - ref, axis=1)
+
+    text = encode_text(list(CLIP_QUERIES))
+    _, cpu_text = M.make_encoders(ckpt, device="cpu")
+    text_ref = cpu_text(list(CLIP_QUERIES))
+
+    x = M.preprocess_images(torch.from_numpy(crops[:64]).to(device), 224)
+    with torch.no_grad():
+        vision_ms = cuda_ms(lambda: model.encode_image(x), 10)
+        model.set_attn_impl("plain")
+        plain_vision_ms = cuda_ms(lambda: model.encode_image(x), 10)
+        model.set_attn_impl("flash")
+    g = torch.Generator(device=device).manual_seed(SEED)
+    B, N, H, D = 64, 50, 12, 64
+    case = dict(kw=dict(num_heads=H))
+    case["q"], case["k"], case["v"] = (
+        torch.randn(B, N, H * D, generator=g, device=device).to(
+            torch.bfloat16) for _ in range(3))
+    q, k, v = case["q"], case["k"], case["v"]
+    with torch.no_grad():
+        err = float((A.flash_single(q, k, v, num_heads=H).float()
+                     - A.flash_single_ref(q, k, v, num_heads=H).float()
+                     ).abs().max())
+        kernel_ms = cuda_ms(lambda: A.flash_single(q, k, v, num_heads=H), 20)
+        plain_ms = cuda_ms(lambda: A.flash_single_ref(q, k, v, num_heads=H),
+                           5)
+        sdpa_ms = cuda_ms(sdpa_call(case), 20)
+    bound, bound_by, unit = attention_bound_ms(case)
+    chunks, per_chunk = 2 + 1, model.cfg.vision_layers    # 12 at ViT-B
+    res = {"crops": len(feats), "d": int(feats.shape[1]), "load_s": load_s,
+           "encode_s": encode_s, "launches": launches, "designs": designs,
+           "max_l2_from_plain": float(l2(feats).max()), "tol": CLIP_TOL,
+           "zero_attention_min_l2": float(l2(zeroed).min()),
+           "permuted_keys_min_l2": float(l2(permuted).min()),
+           "norm_err": float(np.abs(np.linalg.norm(feats, axis=1) - 1).max()),
+           "finite": bool(np.isfinite(feats).all()),
+           "text_max_abs_err": float(np.abs(text - text_ref).max()),
+           "text_tol": CLIP_TEXT_TOL,
+           "vision_ms_batch64": vision_ms,
+           "plain_vision_ms_batch64": plain_vision_ms,
+           "crops_per_s": 64e3 / vision_ms, "launches_per_chunk": per_chunk,
+           "flash_single": {"shape_b_n_h_d": [B, N, H, D],
+                            "max_abs_err": err, "ms": kernel_ms,
+                            "plain_ms": plain_ms, "library_ms": sdpa_ms,
+                            "bound_ms": bound, "bound_by": bound_by,
+                            "bound_unit": unit}}
+    log("clip", **res)
+    if not res["finite"] or feats.shape != (106, 512) or \
+            res["norm_err"] > 1e-4 or text.shape != (len(CLIP_QUERIES), 512):
+        raise AssertionError(f"CLIP features {feats.shape}, finite "
+                             f"{res['finite']}, |norm - 1| "
+                             f"{res['norm_err']}, text {text.shape}")
+    if launches != {n: per_chunk * chunks * (n == "flash_single")
+                    for n in launches} or \
+            designs != {"tma_wgmma": per_chunk * chunks}:
+        raise AssertionError(f"CLIP's {chunks} chunks launched {launches}, "
+                             f"{designs} by design: not {per_chunk} "
+                             f"flash_single a chunk on flash_sm90.cuh")
+    if res["max_l2_from_plain"] > CLIP_TOL:
+        raise AssertionError(f"CLIP on the kernel lies "
+                             f"{res['max_l2_from_plain']} from its plain "
+                             f"path (tol {CLIP_TOL})")
+    for ctrl in ("zero_attention_min_l2", "permuted_keys_min_l2"):
+        if res[ctrl] <= CLIP_TOL:
+            raise AssertionError(f"{ctrl} {res[ctrl]} lies within the "
+                                 f"tolerance: the check cannot reject it")
+    if res["text_max_abs_err"] > CLIP_TEXT_TOL:
+        raise AssertionError(f"CLIP's text tower on the card lies "
+                             f"{res['text_max_abs_err']} from the CPU")
+    if err > 2e-2:
+        raise AssertionError(f"flash_single at CLIP's shape: {err}")
+    return res
+
+
+def drive_clip(device, seq):
+    """Phase P on phase L's sequence: `write_clip_checkpoint`,
+    `check_clip`, then the embedder CLI with --clip_model_dir --device cuda
+    (Felzenszwalb masks) on its first CLIP_FRAMES frames (12 flash_single a
+    frame, one chunk of <= 64 masks; every painted pixel a finite unit
+    vector of d 512), the SLAM CLI at the small model with --semantic_emb_dir
+    --get_voxel --voxel_save_dir on them (every forward call tma_wgmma; a
+    map of d 512), and query_voxelmap --clip_model_dir --top_k 5 on it
+    (five finite results). Returns flash_single's phase-P entry."""
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vggt_slam_tpu_torch.main import parser, run_slam
+    from vggt_slam_tpu_torch.ops import attention as A
+    from vggt_slam_tpu_torch.semantic import embedder
+    from vggt_slam_tpu_torch.tools import query_voxelmap
+    from vggt_slam_tpu_torch.utils.profiling import sync
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase_p_") as tmp:
+        ckpt = os.path.join(tmp, "clip")
+        os.makedirs(ckpt)
+        values, write_s = write_clip_checkpoint(ckpt, device)
+        log("clip_checkpoint", values=values, seconds=write_s)
+        res = check_clip(device, ckpt, seq)
+        torch.cuda.empty_cache()
+
+        rgb = os.path.join(tmp, "rgb")
+        os.makedirs(rgb)
+        frames = sorted(os.listdir(os.path.join(seq, "rgb")))[:CLIP_FRAMES]
+        for f in frames:
+            shutil.copy(os.path.join(seq, "rgb", f), rgb)
+        emb_dir, vox_dir = os.path.join(tmp, "emb"), os.path.join(tmp, "vox")
+        out = io.StringIO()
+        sync()
+        A.reset_launch_counts()
+        before, t0 = A.forward_design_launches(), time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            n = embedder.main(["--image_dir", rgb, "--out_dir", emb_dir,
+                               "--target_size", str(SEMANTIC_TARGET),
+                               "--clip_model_dir", ckpt, "--device", "cuda"])
+        sync()
+        embed_s = time.perf_counter() - t0
+        launches = dict(A.LAUNCHES)
+        designs = {k: v - before[k]
+                   for k, v in A.forward_design_launches().items()}
+        painted, norm_err, finite, d = 0.0, 0.0, True, set()
+        for f in frames:
+            with np.load(os.path.join(emb_dir, os.path.splitext(f)[0]
+                                      + ".npz")) as z:
+                e = z["embedding"]
+            norms = np.linalg.norm(e, axis=-1)
+            d.add(e.shape[-1])
+            finite &= bool(np.isfinite(e).all())
+            painted += float((norms > 0).mean()) / len(frames)
+            norm_err = max(norm_err, float(np.abs(norms[norms > 0] - 1).max()))
+        emb = {"frames": n, "seconds": embed_s, "s_per_frame": embed_s / n,
+               "launches": launches, "designs": designs, "d": sorted(d),
+               "painted_share": painted, "norm_err": norm_err,
+               "finite": finite, "out": out.getvalue().strip()}
+        log("clip_embedder", **emb)
+        if n != len(frames) or d != {512} or not finite or norm_err > 1e-4 \
+                or "felzenszwalb_mask_generator" not in emb["out"] or \
+                launches["flash_single"] != res["launches_per_chunk"] * n \
+                or designs != {"tma_wgmma": res["launches_per_chunk"] * n}:
+            raise AssertionError(f"the embedder with CLIP: {emb}")
+
+        args = parser.parse_args(
+            ["--image_folder", rgb, "--model_size", "small",
+             "--min_disparity", "8", "--semantic_emb_dir", emb_dir,
+             "--get_voxel", "--voxel_size", str(VOXEL_SIZE),
+             "--voxel_save_dir", vox_dir, "--seed", str(SEED), "--timing"])
+        out = io.StringIO()
+        sync()
+        A.reset_launch_counts()
+        before, t0 = A.forward_design_launches(), time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = run_slam(args, device=device)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(A.LAUNCHES)
+        designs = {k: v - before[k]
+                   for k, v in A.forward_design_launches().items()}
+        vm = result["voxel_map"]
+        feats = vm.get_features()
+        stages = result["timer"].summary()
+        cli = {"frames": result["n_frames"],
+               "submaps": result["solver"].map.get_num_submaps(),
+               "wall_s": wall,
+               "build_s": stages["semantic_voxel_map"]["total_s"],
+               "V": len(vm.get_centers_world()), "d": int(feats.shape[1]),
+               "launches": launches, "designs": designs,
+               "stages": {k: v["total_s"] for k, v in stages.items()}}
+        log("clip_semantic_cli", **cli)
+        del result, vm
+        if designs != {"tma_wgmma": forward_calls(launches)} or \
+                not forward_calls(launches) or cli["d"] != 512 or \
+                cli["V"] < 5 or not np.isfinite(feats).all():
+            raise AssertionError(f"the SLAM CLI on CLIP features: {cli}")
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            ranked = query_voxelmap.main(
+                ["--voxel_dir", vox_dir, "--query", "a chair", "--top_k",
+                 "5", "--clip_model_dir", ckpt, "--device", "cuda"])
+        log("clip_query", ranked=[list(r) for r in ranked])
+        if len(ranked) != 5 or not all(np.isfinite(r[2]) for r in ranked) \
+                or any(r[3] not in frames for r in ranked):
+            raise AssertionError(f"query_voxelmap with CLIP: {ranked}")
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log("phase_p", seconds=seconds)
+    return {"launches_per_chunk": res["launches_per_chunk"],
+            "check_launches": res["launches"]["flash_single"],
+            "embedder_launches": emb["launches"]["flash_single"],
+            "vision_ms_batch64": res["vision_ms_batch64"],
+            "crops_per_s": res["crops_per_s"],
+            "max_l2_from_plain": res["max_l2_from_plain"],
+            "phase_s": seconds, **res["flash_single"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3874,7 +4224,8 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory(prefix="converters_") as tmp:
         salad_npz = check_converters(tmp)
         salad = check_salad(device, salad_npz, frames)
-        salad["loop_cli_launches"] = drive_loop_closure(device, salad_npz)
+        salad["loop_cli_launches"], clip = drive_loop_closure(device,
+                                                              salad_npz)
 
     replaces = {
         "flash_single": "vggt_slam_tpu/ops/attention.py:387 "
@@ -3924,7 +4275,12 @@ def main(argv) -> int:
             "training_variant": train["variant"],
             "training_ms": train["fwd_ms"],
             "training_library_ms": train["sdpa_fwd_ms"],
-            **({"salad": salad} if name == "flash_single" else {}),
+            **({"salad": salad, "clip": clip,
+                "launches_path": "phase 6, the SLAM main path; a SALAD "
+                                 "call 12 (phases S, L); CLIP's vision "
+                                 "tower 12 a chunk of <= 64 crops "
+                                 "(phase P)"}
+               if name == "flash_single" else {}),
             "variants": variants})
     # One flash_bwd call computes both TPU kernels' functions (dq; dk, dv):
     # both rows carry its time, the fused bound and SDPA's backward alone.

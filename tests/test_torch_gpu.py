@@ -28,7 +28,9 @@ the plain versions): so the test tells int8 QK^T from bf16. The fused DPT tail i
 largest output: both sides round u and h to bf16, and the f32 sums of the
 3x3 conv run in another order, which can flip a rounding of h; its
 outputs are written into NaN-filled tensors, and the check must reject
-the output with frames 0 and 1 swapped. voxelize_device (torch on the card,
+the output with frames 0 and 1 swapped. CLIP's vision tower (flash_single
+on bf16 q, k, v in an f32 module) is held to 2e-2 (L2) of its plain f32
+route on unit features, SALAD's bound. voxelize_device (torch on the card,
 no kernel of its own) sums by atomic adds: its means are held to
 ops/voxel.mean_tolerance of voxelize_np's, its centres and counts exactly.
 """
@@ -1186,3 +1188,50 @@ def test_voxelize_device_matches_voxelize_np(cuda):
         0.05, V + 3)
     k = min(V, int(num))
     assert not np.array_equal(c[:k].cpu().numpy(), centers[:k])
+
+
+def test_clip_vision_attention_runs_flash_single_at_50_tokens(cuda):
+    """CLIP ViT-B/32's vision tower cut to 2 layers (50 tokens, 12 heads of
+    64; q_proj, k_proj drawn so the logits spread by ~3): the kernel alone
+    at (16, 50, 768) within TOL of flash_single_ref, written into a
+    NaN-filled output, then the tower's unit features within 2e-2 (L2) of
+    the plain f32 route, 2 launches a forward; the keys permuted against
+    the values within each crop must fail that check."""
+    from vggt_slam_tpu_torch.models import clip as M
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(16, 50, 768, generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    out = torch.full_like(q, float("nan"))
+    A._launch("flash_single_fwd", q, k, v, 12, None, None, None, None, None,
+              1e-5, None, False, False, out=out)
+    want = A.flash_single_ref(q, k, v, num_heads=12)
+    assert (out.float() - want.float()).abs().max().item() < TOL
+
+    cfg = M.CLIPConfig.base_patch32(vision_layers=2, text_layers=1)
+    with torch.device("meta"):
+        model = M.CLIP(cfg)
+    sd = M.convert_torch_state_dict(M.init_torch_state_dict(cfg, g), cfg)
+    model.load_state_dict(sd, assign=True)
+    x = M.preprocess_images(torch.rand(16, 3, 224, 224, generator=g,
+                                       device=cuda), 224)
+    flash = A.flash_single
+
+    def permuted(q, k, v, **kw):
+        return flash(q, k.roll(1, dims=1).contiguous(), v, **kw)
+
+    with torch.no_grad():
+        A.reset_launch_counts()
+        got = model.encode_image(x)
+        launches = A.LAUNCHES["flash_single"]
+        model.set_attn_impl("plain")
+        plain = model.encode_image(x)
+        model.set_attn_impl("flash")
+        A.flash_single = permuted
+        try:
+            bad = model.encode_image(x)
+        finally:
+            A.flash_single = flash
+    assert launches == 2
+    assert torch.linalg.vector_norm(got - plain, dim=1).max().item() < 2e-2
+    assert torch.linalg.vector_norm(bad - plain, dim=1).min().item() > 2e-2

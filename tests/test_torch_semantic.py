@@ -7,9 +7,11 @@ build_semantic_voxel_map and the Submap hooks on identical submaps
 labels (bit-equal), the embedder (1e-6, file names and keys equal; the
 reference's cv2 runs without IPP, whose float INTER_LINEAR differs from
 OpenCV's portable code by up to ~2e-5, and the port is that code bit for
-bit), the hash text embeddings, show_voxels on tests/viser_stub.py, and
-the CLI end to end: embedder, SLAM with --semantic_emb_dir --get_voxel
---voxel_save_dir at the tiny model, then query_voxelmap."""
+bit), the hash text embeddings, the embedder CLI and the query tool's text
+embedding with a tiny CLIP checkpoint (--clip_model_dir, 1e-5),
+show_voxels on tests/viser_stub.py, and the CLI end to end: embedder, SLAM
+with --semantic_emb_dir --get_voxel --voxel_save_dir at the tiny model,
+then query_voxelmap."""
 import contextlib
 import io
 import json
@@ -361,18 +363,85 @@ def test_text_embeddings_equal_reference():
 
 
 def test_missing_models_raise_naming_the_module(tmp_path):
+    """SigLIP (models.siglip) and the hf backend (transformers), which
+    `auto` takes without a CLIP config.json, are not ported; nor is SAM2."""
     from vggt_slam_tpu_torch.semantic import embedder
     from vggt_slam_tpu_torch.tools import query_voxelmap
 
     (tmp_path / "config.json").write_text(json.dumps({"model_type":
                                                       "siglip"}))
     with pytest.raises(ModuleNotFoundError, match="models.siglip"):
-        query_voxelmap.text_embedding("x", 8, str(tmp_path))
-    with pytest.raises(ModuleNotFoundError, match="models.clip"):
+        query_voxelmap.text_embedding("x", 8, str(tmp_path), device="cpu")
+    with pytest.raises(ModuleNotFoundError, match="hf backend"):
         embedder.resolve_clip_encoders(str(tmp_path / "none"))
+    with pytest.raises(ModuleNotFoundError, match="hf backend"):
+        embedder.resolve_clip_encoders(str(tmp_path), "hf", "cpu")
     with pytest.raises(ModuleNotFoundError, match="semantic.sam2_amg"):
         embedder.main(["--image_dir", str(tmp_path), "--out_dir",
                        str(tmp_path / "o"), "--masker", "sam2"])
+
+
+def _clip_dir(path):
+    """A tiny CLIP checkpoint directory (tests/test_torch_clip.py)."""
+    from tests.test_torch_clip import write_checkpoint
+    from vggt_slam_tpu_torch.models.clip import CLIPConfig
+
+    path.mkdir()
+    cfg = CLIPConfig.tiny_test(vocab_size=524, context_length=16)
+    write_checkpoint(str(path), cfg, "bin")
+    return str(path), cfg
+
+
+def test_embedder_cli_with_clip_matches_reference(tmp_path, monkeypatch):
+    """The embedder CLI with --clip_model_dir --device cpu against the
+    reference's CLI (its flax CLIP): the same npz files and keys, the
+    embeddings within 1e-5, d the projection width, each painted pixel
+    unit-norm."""
+    import sys
+
+    from vggt_slam_tpu.semantic import embedder as ref
+    from vggt_slam_tpu_torch.data.images import write_png
+    from vggt_slam_tpu_torch.semantic import embedder
+
+    ckpt, cfg = _clip_dir(tmp_path / "clip")
+    folder = tmp_path / "rgb"
+    folder.mkdir()
+    for i in range(2):
+        write_png(str(folder / f"{i:03d}.png"), _image(30 + i)[..., ::-1])
+    args = ["--image_dir", str(folder), "--target_size", "40",
+            "--clip_model_dir", ckpt]
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert embedder.main(args + ["--out_dir", str(tmp_path / "port"),
+                                     "--device", "cpu"]) == 2
+        monkeypatch.setattr(sys, "argv", ["embedder"] + args + [
+            "--out_dir", str(tmp_path / "ref")])
+        with _portable_cv2():
+            ref.main()
+    files = sorted(os.listdir(tmp_path / "ref"))
+    assert sorted(os.listdir(tmp_path / "port")) == files and len(files) == 2
+    for f in files:
+        with np.load(tmp_path / "port" / f) as a, \
+                np.load(tmp_path / "ref" / f) as b:
+            assert a.files == b.files == ["embedding"]
+            e = a["embedding"]
+            assert e.shape == (40, 40, cfg.projection_dim)
+            np.testing.assert_allclose(e, b["embedding"], rtol=0, atol=1e-5)
+        norms = np.linalg.norm(e, axis=-1)
+        painted = norms > 0
+        assert painted.mean() > 0.5
+        np.testing.assert_allclose(norms[painted], 1.0, atol=1e-5)
+
+
+def test_query_text_embedding_with_clip_matches_reference(tmp_path):
+    from vggt_slam_tpu.tools import query_voxelmap as ref_query
+    from vggt_slam_tpu_torch.tools import query_voxelmap
+
+    ckpt, cfg = _clip_dir(tmp_path / "clip")
+    for q in ("a chair", "the cat and the dog", ""):
+        got = query_voxelmap.text_embedding(q, 64, ckpt, device="cpu")
+        want = np.asarray(ref_query.text_embedding(q, 64, ckpt))
+        assert got.shape == (cfg.projection_dim,)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("render_mode,color_mode,max_voxels", [

@@ -6,14 +6,16 @@ image becomes an (H, W, d) feature map saved as `{stem}.npz` under the key
 Masks come from a mask generator, image -> [dict(segmentation=(H, W) bool,
 area=int)] (Felzenszwalb segments, or a grid where g++ is missing); each
 mask's black-background box crop is embedded by a crop encoder, crops
-(N, 3, h, w) float [0, 1] -> (N, d) (colour statistics under a seeded
+(N, 3, h, w) float [0, 1] -> (N, d) (CLIP's image tower with
+--clip_model_dir, on --device; else colour statistics under a seeded
 projection), and the masks are painted largest first. Resizes are
 data/images.resize_linear (OpenCV's INTER_LINEAR without OpenCV). SAM2
-masks and CLIP or SigLIP encoders are not ported yet: asking for them
-raises an error that names the missing module.
+masks, SigLIP and the transformers (hf) backend are not ported: asking for
+them raises an error that names what is missing.
 
     python -m vggt_slam_tpu_torch.semantic.embedder --image_dir DIR \
-        --out_dir DIR [--masker felzenszwalb|grid] [--target_size N]
+        --out_dir DIR [--masker felzenszwalb|grid] [--target_size N] \
+        [--clip_model_dir DIR [--device cuda|cpu]]
 """
 from __future__ import annotations
 
@@ -105,23 +107,37 @@ def render_masks_overlay(image_rgb: np.ndarray, masks: list,
     return np.clip(overlay, 0, 255).astype(np.uint8)
 
 
-def resolve_clip_encoders(model_dir: str, backend: str = "auto"):
-    """CLIP or SigLIP crop and text encoders of a local checkpoint: not
-    ported yet, so this raises, naming the module the checkpoint needs."""
+def resolve_clip_encoders(model_dir: str, backend: str = "auto",
+                          device="cuda"):
+    """(encode_crops, encode_text) of a local checkpoint directory, by the
+    reference's rule: `native`, or `auto` on a config.json of model_type
+    "clip", is the port's CLIP (models/clip.make_encoders) on `device`;
+    SigLIP (models.siglip) is not ported, nor is `hf` (transformers on the
+    host), which `auto` takes for any other model_type: both raise."""
     if backend not in ("auto", "native", "hf"):
         raise ValueError(f"unknown clip backend {backend!r}")
     model_type = None
-    try:
+    if backend in ("auto", "native"):
         import json
-        with open(os.path.join(model_dir, "config.json")) as f:
-            model_type = json.load(f).get("model_type")
-    except OSError:
-        pass
-    module = "vggt_slam_tpu_torch.models." + (
-        "siglip" if model_type == "siglip" else "clip")
-    raise ModuleNotFoundError(
-        f"--clip_model_dir needs {module} (the CLIP/SigLIP towers and "
-        f"tokenizers), which the port does not have yet", name=module)
+        try:
+            with open(os.path.join(model_dir, "config.json")) as f:
+                model_type = json.load(f).get("model_type")
+        except OSError:
+            model_type = None
+        if backend == "auto":
+            backend = "native" if model_type in ("clip", "siglip") else "hf"
+    if backend == "hf":
+        raise ModuleNotFoundError(
+            f"{model_dir} (model_type {model_type!r}) needs the hf backend, "
+            f"transformers on the host, which the port does not carry",
+            name="transformers")
+    if model_type == "siglip":
+        module = "vggt_slam_tpu_torch.models.siglip"
+        raise ModuleNotFoundError(
+            f"--clip_model_dir {model_dir} needs {module} (SigLIP and its "
+            f"tokenizer), which the port does not have yet", name=module)
+    from vggt_slam_tpu_torch.models.clip import make_encoders
+    return make_encoders(model_dir, device=device)
 
 
 def default_mask_generator():
@@ -265,11 +281,12 @@ class SemanticEmbedder:
 
 def _mp_worker(shard_index: int, num_shards: int, image_dir: str,
                out_dir: str, limit, clip_model_dir, target_size: int,
-               clip_backend: str = "auto"):
+               clip_backend: str = "auto", device="cuda"):
     """One spawned worker: its own embedder over its shard of the folder."""
     crop_encoder = None
     if clip_model_dir:
-        crop_encoder, _ = resolve_clip_encoders(clip_model_dir, clip_backend)
+        crop_encoder, _ = resolve_clip_encoders(clip_model_dir, clip_backend,
+                                                device)
     emb = SemanticEmbedder(crop_encoder=crop_encoder,
                            target_hw=(target_size, target_size))
     n = emb.embed_folder_to_npz(image_dir, out_dir, limit=limit,
@@ -281,7 +298,8 @@ def _mp_worker(shard_index: int, num_shards: int, image_dir: str,
 def embed_folder_multiproc(image_dir: str, out_dir: str, num_procs: int,
                            limit=None, clip_model_dir=None,
                            target_size: int = 518,
-                           clip_backend: str = "auto") -> None:
+                           clip_backend: str = "auto",
+                           device="cuda") -> None:
     """The folder over `num_procs` spawned workers, round-robin."""
     import multiprocessing as mp
 
@@ -289,7 +307,8 @@ def embed_folder_multiproc(image_dir: str, out_dir: str, num_procs: int,
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_mp_worker,
                          args=(i, num_procs, image_dir, out_dir, limit,
-                               clip_model_dir, target_size, clip_backend))
+                               clip_model_dir, target_size, clip_backend,
+                               device))
              for i in range(num_procs)]
     for p in procs:
         p.start()
@@ -308,10 +327,16 @@ def main(argv=None) -> int:
     p.add_argument("--image_dir", required=True)
     p.add_argument("--out_dir", required=True)
     p.add_argument("--clip_model_dir", default=None,
-                   help="CLIP/SigLIP checkpoint dir (not ported yet: "
-                        "raises); the colour-hash encoder without it")
+                   help="a local CLIP checkpoint dir (transformers' files; "
+                        "SigLIP is not ported yet: raises); the colour-hash "
+                        "encoder without it")
     p.add_argument("--clip_backend", default="auto",
-                   choices=["auto", "native", "hf"])
+                   choices=["auto", "native", "hf"],
+                   help="native = the port's CLIP; hf (transformers) is "
+                        "not ported: raises; auto = native for a CLIP "
+                        "config.json")
+    p.add_argument("--device", default="cuda",
+                   help="where CLIP runs (cuda, or cpu)")
     p.add_argument("--masker", default="auto",
                    choices=["auto", "felzenszwalb", "grid", "sam2"],
                    help="auto = felzenszwalb where the native segmenter "
@@ -339,12 +364,13 @@ def main(argv=None) -> int:
                                limit=args.limit,
                                clip_model_dir=args.clip_model_dir,
                                target_size=args.target_size,
-                               clip_backend=args.clip_backend)
+                               clip_backend=args.clip_backend,
+                               device=args.device)
         return 0
     crop_encoder = text_encoder = None
     if args.clip_model_dir:
         crop_encoder, text_encoder = resolve_clip_encoders(
-            args.clip_model_dir, args.clip_backend)
+            args.clip_model_dir, args.clip_backend, args.device)
     mask_generator = {"grid": grid_mask_generator,
                       "felzenszwalb": felzenszwalb_mask_generator}.get(
                           args.masker)

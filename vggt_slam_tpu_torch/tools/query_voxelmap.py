@@ -5,7 +5,8 @@ optionally copy) the latest contributing frame of each, and optionally
 highlight them in viser.
 
     python -m vggt_slam_tpu_torch.tools.query_voxelmap --voxel_dir DIR \
-        --query "a chair" [--top_k 5] [--image_dir DIR] [--visualize]
+        --query "a chair" [--top_k 5] [--image_dir DIR] [--visualize] \
+        [--clip_model_dir DIR [--device cuda|cpu]]
 """
 from __future__ import annotations
 
@@ -19,14 +20,16 @@ from vggt_slam_tpu_torch.semantic.voxel_map import SemanticVoxelMap
 
 
 def text_embedding(query: str, dim: int, clip_model_dir: str | None,
-                   clip_backend: str = "auto"):
-    """The CLIP text embedding, or without a checkpoint a unit vector drawn
-    from a generator seeded by Python's hash(query), which is salted per
-    process (PYTHONHASHSEED), as in the reference."""
+                   clip_backend: str = "auto", device="cuda"):
+    """The CLIP text embedding (the text tower on `device`), or without a
+    checkpoint a unit vector drawn from a generator seeded by Python's
+    hash(query), which is salted per process (PYTHONHASHSEED), as in the
+    reference."""
     if clip_model_dir:
         from vggt_slam_tpu_torch.semantic.embedder import \
             resolve_clip_encoders
-        _, encode_text = resolve_clip_encoders(clip_model_dir, clip_backend)
+        _, encode_text = resolve_clip_encoders(clip_model_dir, clip_backend,
+                                               device)
         return encode_text([query])[0]
     rng = np.random.default_rng(abs(hash(query)) % (2 ** 31))
     v = rng.normal(size=dim).astype(np.float32)
@@ -43,6 +46,8 @@ def main(argv=None):
     p.add_argument("--clip_model_dir", default=None)
     p.add_argument("--clip_backend", default="auto",
                    choices=["auto", "native", "hf"])
+    p.add_argument("--device", default="cuda",
+                   help="where the CLIP text tower runs (cuda, or cpu)")
     p.add_argument("--image_dir", default=None,
                    help="if given, copy the retrieved frame image here")
     p.add_argument("--out_dir", default="query_results")
@@ -52,7 +57,7 @@ def main(argv=None):
 
     vm = SemanticVoxelMap.load_from_directory(args.voxel_dir)
     qe = text_embedding(args.query, vm.get_features().shape[-1],
-                        args.clip_model_dir, args.clip_backend)
+                        args.clip_model_dir, args.clip_backend, args.device)
     idx, coords, sims = vm.query_with_embedding(qe, top_k=args.top_k)
     print(f"query: {args.query!r}")
     results = []
