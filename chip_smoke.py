@@ -1,159 +1,60 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # build, check every kernel, drive SLAM
-                                     # and training
-    python3 chip_smoke.py --kernels-only   # build and check the kernels only
-    python3 chip_smoke.py --profile        # also profile one forward and
-                                           # one training step
-    python3 chip_smoke.py --ab DIR...   # build, then time the forwards,
-                                        # the backward and the probes of
-                                        # each DIR's sources and this
-                                        # tree's in turns, and stop
+    python3 chip_smoke.py                 # build, check, drive every path
+    python3 chip_smoke.py --kernels-only  # build and check the kernels only
+    python3 chip_smoke.py --profile       # also profile a forward and a step
+    python3 chip_smoke.py --ab DIR...     # time each DIR's sources beside
+                                          # this tree's in turns, and stop
 
-Phases, one line of output each (and the contract lines at the end):
-  1. environment: device, `nvidia-smi` name and power limit, versions;
-  2. build the CUDA kernels from vggt_slam_tpu_torch/csrc with nvcc, one
-     process per source, all at once;
-  3. hold each forward kernel against its plain PyTorch version at the SLAM
-     path's shapes, VGGT-1B's and the small model's (head dim 32) (max abs /
-     rel error, kernel / plain / SDPA times, bound with the unit that sets
-     it; the design each shape ran, from the C launcher's counts of the
-     kernels it launched, which must be flash_sm90.cuh's at every head
-     dim; SDPA on the prepared q and k where the kernel applies LN and
-     rope itself);
-  4. hold the training kernels (the forward kernels' stats variant and the
-     backward, flash_bwd, which computes dq, dk and dv in one call) against
-     their plain versions at the training shapes, with the kernel and plain
-     times, SDPA's forward, forward+backward and backward-alone times, the
-     bounds, the backward's design (flash_bwd_sm90.cuh at every head dim)
-     and dq's run-to-run spread;
-  5. a full-width VGGT-1B forward through the kernels against the same
-     forward through the kernels' plain versions, on a 2-frame input;
-  6. the SLAM main path at VGGT-1B width (seeded random weights drawn on the
-     card) over a synthetic panned sequence, through `run_slam` with the
-     CLI's default keyframe backend (auto, which must resolve to the torch
-     tracker on the card): launches of each kernel, per-stage seconds,
-     submaps, poses; all poses and SL(4) homographies must be finite, and
-     every forward launch must run flash_sm90.cuh (launches by design);
-  7. the gradient of a 2-frame VGGT-1B training loss through the kernels
-     against the same gradient through their plain versions, on named
-     leaves;
-  8. the training path at VGGT-1B width and depth: 3 steps of
-     parallel.train.make_train_step on one 4-frame synth3d batch, with the
-     loss, step time, peak memory and launches per step; the loss and every
-     gradient must be finite and the loss must fall, and the forward and
-     backward must run flash_sm90.cuh and flash_bwd_sm90.cuh at every
-     head dim (launches by design);
-  9. the train_tiny CLI on the small model for 6 steps, whose backward
-     must run flash_bwd_sm90.cuh (the launches by design it prints), and
-     whose checkpoint must load into the port's VGGT and give a finite
-     forward on the card, with the launches of that forward (counts set to
-     0 just before it: 18 flash_single, 6 flash_multi) and its design
-     (flash_sm90.cuh).
-And, for the --qk_int8 path and the fused DPT tail:
-  A. the int8 kernels (flash_multi_i8, flash_single_i8) against their plain
-     versions at the SLAM global shape (18-frame bucket, merged K/V, rope,
-     kv_bias, valid_len) at VGGT-1B's and the small model's widths, the
-     camera trunk's shape (head dim 128) and the training global shape,
-     beside the bf16 kernels' times at the same shapes; the design each
-     ran (flash_sm90.cuh), and the call's scales pass against int8_scales
-     (bit-equal; timed);
-  B. the fused DPT tail on the depth head's own output_conv1 activations of
-     a full-width 18-frame forward, against its plain version and against
-     the head's unfused chain (heads.py:228-231, cuDNN, TF32 off), its one
-     launch counted by the wrapper and by the C launcher's design count
-     (dpt_tail_sm90), its ptxas registers;
-  C. the full-width 18-frame forward with global_qk_int8 through the
-     kernels against their plain versions, in both softmax modes (24 int8
-     launches each, on the bf16 forward's designs), and against the bf16
-     forward (reported, with the three forwards' times);
-  D. the CLI's own path on a folder of 24 PNG frames at 480x640 with
-     --qk_int8 and the default keyframe backend (auto: the torch tracker
-     on the card): decoding and resizing without OpenCV, its own VGGT-1B,
-     at least 2 submaps, finite poses and homographies, the TUM log, the
-     int8 launches on flash_sm90.cuh (the designs by count).
-And, for the frame-attention probes of scripts/bench_attention.py:
-  E. the four probe kernels (matmul-only, softmax-only, grouped and
-     pipelined at G = 2, 4, 8) against their plain versions at the SLAM
-     frame shape through the probe script's main, with a padded-keys
-     control, their times beside flash_single and SDPA, and one exp2 per
-     softmax-only logit (SASS count, time against the card's exp2 rate);
-     the grouped and pipelined kernels (grouped_sm90: TMA, wgmma) also
-     at a small shape and the frame shape against the plain version at
-     their own key tile, every launch of them one of grouped_sm90 and
-     every matmul-only launch one of global_sm90 by the C launcher's
-     counts; then `python -m vggt_slam_tpu_torch.scripts.bench_attention
-     --check` at its defaults.
-And, for the global-shape probes of scripts/bench_global_attention.py,
-bench_softmax_variants.py and bench_int8_inkernel.py:
-  F. each script's main with --check at its defaults (BH 16, N 34816,
-     D 64): every mode and tiling against its plain version, the int8
-     controls, the launches (each one of global_sm90 by the C launcher's
-     count), ptxas registers of every instance (no spill), the times
-     beside their bounds and SDPA.
-And, for the matmul-shape probes of scripts/bench_matmul_shapes.py:
-  G. its main with --check at its defaults: both kernels, tilings and
-     shapes against their plain version with three controls, launches,
-     ptxas registers per instance, times beside bounds and torch.bmm.
-And, for loop closure (after phase 9; `check_converters`, `check_salad`,
-`drive_loop_closure`):
-  H. both torch-checkpoint converters over the released manifests, and a
-     seeded dino_salad checkpoint into an npz;
-  S. SALAD at full width on that npz: 12 flash_single launches a call,
-     descriptors against the plain f32 path and two controls, its times;
-  L. the CLI at VGGT-1B width on a synthetic loop with the tiny and the
-     SALAD backends, then evals/smoke_loop.py at its defaults;
-  V. on phase L's sequence (`drive_viewer_and_evals`): the CLI at 1B with
-     --colmap_images_txt (images.txt from groundtruth.txt under a known
-     Sim(3)), --profile_dir and --vis_map on tests/viser_stub.py (every
-     homography T times its value before, RMSE not worse, a point cloud
-     per submap, a frame and frustum per pose, a GLB of the map that
-     parses, a trace that parses, tma_wgmma forwards); run_eval
-     --in_process and process_logs (a finite ATE over >= 30 pairs);
-     geometry_eval on result.pcd with the g++-built kd-tree against
-     cKDTree; pipeline_overlap's serial and pipelined runs.
-  W. on phase L's sequence (`drive_semantics`): the embedder CLI
-     (Felzenszwalb masks, colour hash, d 64), the CLI at 1B with
-     --semantic_emb_dir --get_voxel --voxel_save_dir (build seconds, N, V,
-     d), the saved map reloaded (finite, every contributor a frame of the
-     sequence, voxelize_np's centres), voxelize_device on the card against
-     voxelize_np at capacity V + 1 and V // 2 with a shifted control, and
-     query_voxelmap --top_k 5 --visualize on tests/viser_stub.py.
-  P. on phase L's sequence (`drive_clip`): a seeded ViT-B/32 checkpoint
-     directory (the manifest's 398 keys, an authored vocabulary); its
-     encoders through resolve_clip_encoders on the card: 106 crops (two
-     chunks at 224 px, one of another size) against the plain f32 path
-     (L2 2e-2) with two controls (attention zeroed, keys permuted), 12
-     flash_single launches a chunk on flash_sm90.cuh; the text tower
-     against the CPU (1e-4); the vision forward and flash_single at (64,
-     50, 12, 64) timed; then the embedder CLI with --clip_model_dir on 8
-     frames (d 512), the CLI at the small model with --semantic_emb_dir
-     --get_voxel, and query_voxelmap --clip_model_dir --top_k 5.
-Phases E, F and G run under --kernels-only too. With --ab DIR... the
-script builds the kernels, then times the bf16 forward at every shape of
-phases 3 and 4 (head dims 32, 64 and 128) in turns (each DIR's
-flash_attention.cu, built with the headers beside it and named after its
-folder, then this tree's), each held against its plain version first,
-beside SDPA and the bound, with the host cost per call at two shapes; then
-the int8 forward at phase A's shapes, both kernels (each build's against
-its own plain version, eager and as a CUDA graph, beside this tree's bf16
-call); then the backward at the six training shapes in turns (each DIR's
-flash_attention_bwd.cu through its own entries, then this tree's
-flash_bwd; a DIR may hold only the backward's sources), beside SDPA's
-backward alone (eager and as a CUDA graph) and the bound; then the
-matmul-only floor and the nine grouped, interleaved and pipelined probes
-of each DIR's bench_attention.cu beside this tree's at the frame shape
-(each held to its plain version, then in turns as CUDA graphs, beside
-SDPA and the bound); then every mode and tiling of
-each DIR's bench_global_attention.cu, bench_softmax_variants.cu and
-bench_int8_inkernel.cu beside this tree's at the global shape; then
-each DIR's dpt_tail.cu (behind the dpt_tail.py beside it, if any) beside
-this tree's at phase B's shape, cout 2 and 4, as CUDA graphs, with the
-bound and its share; each leg runs where some DIR holds its source; and
-stops without the result lines.
-The last lines are the kernels JSON object and {"ok": true, "device": ...}.
-Any failure raises, and the script exits non-zero with no result line. It
-needs a CUDA device and imports nothing of JAX, OpenCV or the JAX package.
+Phases, one JSON line of output each:
+  1-2. environment (`nvidia-smi` name and power limit); build the CUDA
+     sources with one nvcc each, all at once;
+  3-4. each forward and training kernel (flash_single, flash_multi, their
+     stats, flash_bwd) against its plain version at the SLAM and training
+     shapes of VGGT-1B and the small model: errors, kernel, plain and SDPA
+     times, the bound and its unit, the design from the C launcher's
+     counts (flash_sm90.cuh, flash_bwd_sm90.cuh at every head dim);
+  5-6. a full-width forward through the kernels against their plain
+     versions; the SLAM path at VGGT-1B (seeded weights) through `run_slam`
+     on a panned sequence: launches, stage seconds, finite poses;
+  7-9. a 2-frame gradient against the plain path; 3 training steps at
+     VGGT-1B (finite, falling loss, peak memory); the train_tiny CLI on the
+     small model and its checkpoint's forward (18 flash_single, 6
+     flash_multi);
+  A-D. the int8 kernels against their plain versions and the scales pass;
+     the fused DPT tail on the depth head's activations (against the head's
+     cuDNN chain too); the 18-frame int8 forward; the CLI on 24 PNG frames
+     with --qk_int8;
+  E-G. the probe scripts' kernels (bench_attention, the three global-shape
+     scripts, bench_matmul_shapes) through their mains with --check: every
+     variant and tiling against its plain version, controls, launches by
+     design, ptxas registers (no spill), times beside SDPA or torch.bmm;
+  H, S, L. both torch-checkpoint converters over the released manifests;
+     SALAD on flash_single against its plain f32 path with two controls;
+     loop closure through the CLI at VGGT-1B (tiny and SALAD backends),
+     then evals/smoke_loop.py;
+  V. on phase L's sequence: the CLI with --colmap_images_txt,
+     --profile_dir and --vis_map (tests/viser_stub.py), a GLB, run_eval,
+     process_logs, geometry_eval (kd-tree against cKDTree),
+     pipeline_overlap;
+  W. the embedder CLI, the CLI with --get_voxel, the saved map,
+     voxelize_device against voxelize_np with a shifted control,
+     query_voxelmap --visualize;
+  P. a seeded ViT-B/32 checkpoint directory; its encoders on 106 crops
+     against the plain f32 path (two controls) and the CPU; the embedder
+     with --clip_model_dir, the small-model CLI, query_voxelmap;
+  M. a seeded sam2.1_hiera_base_plus .pt; SAM2 at 1024 against float64
+     with a layout control; the AMG at its defaults and at zero
+     thresholds; the embedder CLI with --masker sam2 --clip_model_dir.
+Phases E, F and G run under --kernels-only too. --ab builds each DIR's
+forward, int8, backward, probe, matmul, global and DPT-tail sources (with
+the headers, and where its C entries differ the tree's wrapper, beside
+them) and times them beside this tree's in turns, each held to its plain
+version first, where some DIR holds the source.
+The last lines are the card's `nvidia-smi` line, the kernels JSON object
+and {"ok": true, "device": ...}. Any failure raises, and the script exits
+non-zero with no result line. It needs a CUDA device and imports nothing
+of JAX, OpenCV or the JAX package.
 """
 from __future__ import annotations
 
@@ -391,13 +292,10 @@ def sdpa_prepared_call(case):
 
 
 def launched_design(fn, counts=None) -> str:
-    """The design that fn(), one forward call, ran: the forward launches by
-    design that the C launcher counted during it, "tma_wgmma" for
-    flash_fwd_sm90 (csrc/flash_sm90.cuh); with `counts` =
-    bwd_design_launches, one flash_bwd call's (csrc/flash_bwd_sm90.cuh).
-    Raises where the call launched none. (torch.profiler on the card has
-    lost every kernel record of such a short profile, so the kernels' names
-    are not read here.)"""
+    """The design one forward call fn() ran, by the C launcher's counts
+    ("tma_wgmma": flash_fwd_sm90); with `counts` = bwd_design_launches, one
+    flash_bwd call's. Raises where it launched none (short profiles on the
+    card have lost their kernel records, so no names are read)."""
     import torch
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -944,15 +842,11 @@ INT8_STATS_TOL = 1e-4
 
 def int8_errors(got, ref, ctrl):
     """The int8 kernel's (out, m, l) against its plain version `ref` and
-    against the bf16 plain path `ctrl` on the same inputs. Both int8 sides
-    quantize with the same scales and their s32 logits are exact, so the
-    f32 row stats m and l agree to f32 summation order (relative error
-    INT8_STATS_TOL at most) and the outputs to the bf16 output rounding
-    (one bf16 ulp is at most 2^-7 = 0.0078 of the largest |out|, held to
-    1e-2 of it). The bf16 path's l differs from the int8 one by the int8
-    grid's logit error (relative 6e-3 to 1.7 at these shapes in the plain
-    versions), so the control proves that the check tells int8 QK^T from
-    bf16: it must exceed ten times INT8_STATS_TOL."""
+    the bf16 plain path `ctrl`. Both int8 sides share the scales and exact
+    s32 logits: m and l agree to f32 summation order (INT8_STATS_TOL
+    relative), outputs to 1e-2 of max|out| (one bf16 ulp <= 2^-7 of it).
+    The bf16 path's l must lie more than ten times INT8_STATS_TOL away, so
+    the check tells int8 QK^T from bf16."""
     import torch
 
     out, m, l = got
@@ -1052,14 +946,11 @@ def int8_global(model, softmax):
 
 
 def check_int8_forward(model, device, frames):
-    """Phases B and C on one 18-frame bucket (17 frames + 1 padding) at
-    392x518: the bf16 forward captures the depth head's output_conv1
-    activations for phase B; then the int8 forward through the kernels
-    against the same forward through their plain versions, in both softmax
-    modes, on the bf16 forward's designs (the C launcher's counts: the int8
-    launches take the bf16 global blocks' flash_sm90.cuh). Host ms of each
-    forward (ending in the outputs on the host). Returns (the captured
-    activations, launches per mode, the bf16 forward's designs)."""
+    """Phases B and C on one 18-frame bucket at 392x518: the bf16 forward
+    captures the depth head's output_conv1 activations (phase B); the int8
+    forward through the kernels against their plain versions, both softmax
+    modes, on the bf16 forward's designs (C launcher's counts); host ms of
+    each. Returns (activations, launches per mode, the bf16 designs)."""
     import numpy as np
     import torch
 
@@ -1221,12 +1112,9 @@ def check_dpt_tail(model, device, captured):
 
 
 def drive_image_folder_cli(device, per_forward):
-    """Phase D: the CLI's own path on a PNG folder with --qk_int8: 24
-    panned 480x640 frames written here, read back by the in-repo decoder,
-    resized without OpenCV to 392x518, and run by `run_slam` with the
-    model it builds itself (VGGT-1B, seeded random weights). `per_forward`:
-    one 18-frame forward's designs (phase C), all flash_sm90.cuh's
-    ("tma_wgmma"), what each of the run's forwards must add."""
+    """Phase D: the CLI on 24 panned 480x640 PNG frames with --qk_int8,
+    decoded and resized without OpenCV, its own VGGT-1B; `per_forward`, one
+    18-frame forward's designs (phase C), is what each forward must add."""
     import shutil
     import tempfile
 
@@ -1403,12 +1291,10 @@ def run_probe_script(BA, argv):
 
 def check_grouped_tiled(device):
     """The nine grouped, interleaved and pipelined instances at the small
-    (S 2, H 4, N 100 -> 128) and frame (S 18, H 16, N 1041 -> 1152) shapes,
-    each written into a NaN-filled output and held to the plain version at
-    its own key tile (`BA.tiled_error`: 2e-3, or one bf16 step of the plain
-    value where larger), each launch one of grouped_sm90 by the C
-    launcher's count. Returns {variant: {shape: (max abs err, share of the
-    tolerance, block_k)}} (also logged)."""
+    (S 2, H 4, N 100 -> 128) and frame shapes, into NaN-filled outputs,
+    held to the plain version at their key tile (`BA.tiled_error`), each
+    launch one of grouped_sm90 by the C count. Returns {variant: {shape:
+    (max abs err, share of the tolerance, block_k)}}."""
     import torch
 
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
@@ -1439,20 +1325,16 @@ def check_grouped_tiled(device):
 
 
 def check_probe_kernels(device):
-    """Phase E. The probe script's main at the SLAM bucket's frame attention
-    (S = 18 frames x 16 heads, N = 1041 padded to 1152, D = 64) with
-    --check: every probe kernel, at every G and schedule, against its plain
-    version on all problems (softmax-only bit-exact, the others 1e-2 of
-    max|ref|; the grouped kernels also at their key tile), timed beside
-    flash_single and SDPA. Here beside it: the grouped kernels at the small
-    and frame shapes at their key tile (`check_grouped_tiled`); a control
-    that drops the padded keys from l, which the check must reject; ptxas
-    registers and spills per instance; that the softmax-only kernel runs
-    one exp2 per logit (its SASS's MUFU.EX2 count where cuobjdump is found,
-    and always its time against the card's measured exp2 rate). Then the
-    script at its defaults with --check, counts reset just before. Every
-    grouped and pipelined launch must be one of grouped_sm90 (the C
-    launcher's count)."""
+    """Phase E: the probe script's main with --check at the SLAM frame
+    attention (S 18 x H 16, N 1041 -> 1152, D 64): every probe kernel at
+    every G and schedule against its plain version (softmax-only
+    bit-exact, else 1e-2 of max|ref|), timed beside flash_single and SDPA;
+    the grouped kernels at their key tile (`check_grouped_tiled`); a
+    padded-keys control that must be rejected; ptxas registers and spills;
+    one exp2 a logit in the softmax-only kernel (SASS count where cuobjdump
+    is found, its time against the measured exp2 rate); then the script at
+    its defaults. Every grouped and pipelined launch one of grouped_sm90
+    by the C count."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -1628,17 +1510,13 @@ def global_ptxas(report, template, mode, bq, bk):
 
 
 def check_global_probes():
-    """Phase F. Each global-shape probe script's main at its defaults (BH
-    16, N 34353 padded to 34816, D 64) with --check and --iters cut to
-    GLOBAL_PROBE_ITERS, counts reset just before: every mode at the default
-    tiling on all q rows and every other tiling on a 2048-row slab against
-    its plain version (1e-2 of max|ref|), the int8 controls (int8,
-    staticint8, qk8, qk8av8 further from the bf16 mode's plain version than
-    from their own), each kernel launched, and every launch one
-    global_sm90 launch by the C launcher's count; ptxas registers per
-    instance, every mode and tiling of each script (an instance with no
-    report or with spills an error). Returns {script: (main's result,
-    launches, global_sm90 launches)}."""
+    """Phase F: each global-shape probe script's main at its defaults (BH
+    16, N 34353 -> 34816, D 64) with --check --iters GLOBAL_PROBE_ITERS:
+    every mode and tiling against its plain version (1e-2 of max|ref|;
+    other tilings on a 2048-row slab), the int8 controls, every launch one
+    global_sm90 launch by the C count, ptxas registers of every instance
+    (none missing, no spill). Returns {script: (result, launches,
+    global_sm90 launches)}."""
     import importlib
 
     import torch
@@ -1739,12 +1617,10 @@ MATMUL_PROBES = {
 
 
 def check_matmul_probes():
-    """Phase G: the script's main with --check at its defaults, counts
-    reset just before; every line checked, the controls run at both B = 528
-    shapes, each kernel launched, and every call of the C entries one
-    launch of mm_sm90 by the C launcher's count; ptxas registers and spills
-    per instance, a line with no report an error. Returns (main's result,
-    launches, launches by design)."""
+    """Phase G: the script's main with --check at its defaults: every line,
+    the controls at both B 528 shapes, every C-entry call one mm_sm90
+    launch by the C count, ptxas registers per instance (none missing).
+    Returns (result, launches, launches by design)."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -2083,12 +1959,10 @@ def unit_salad_weight(key: str) -> bool:
 
 
 def check_converters(tmp):
-    """Phase H: both converters over full-size zero weights broadcast from
-    the released checkpoints' manifests (tests/data/manifest_*.json; no
-    memory): every parameter filled, every unused key allowlisted. Then a
-    seeded dino_salad-layout checkpoint in the manifest's shapes
-    (`unit_salad_weight`) through the SALAD converter's CLI helper into an
-    npz, which phases S and L load. Returns the npz path."""
+    """Phase H: both converters over zero weights broadcast from the
+    released manifests (tests/data/manifest_*.json), every parameter
+    filled; then a seeded dino_salad-layout checkpoint through the SALAD
+    converter into an npz for phases S and L. Returns its path."""
     import torch
 
     from vggt_slam_tpu_torch.models import retrieval as R
@@ -2160,15 +2034,12 @@ def zero_attention():
 
 
 def check_salad(device, npz, frames):
-    """Phase S: SALAD at full width (DINOv2-B/14 at 224 px, 8448-D) with
-    phase H's weights on 17 frames of the SLAM sequence: 12 flash_single
-    launches a call, all on flash_sm90.cuh by the C launcher's count;
-    finite unit-norm descriptors within SALAD_TOL (L2) of the plain f32
-    path on the card (chunked attention), which two controls must exceed:
-    another frame's descriptor and the descriptor with the attention
-    zeroed; SALAD's ms a call, and flash_single at
-    SALAD's (B*H, N, D) = (204, 257, 64) against its plain version, SDPA
-    and the bound. Returns the flash_single row's SALAD entry."""
+    """Phase S: SALAD at full width (DINOv2-B/14, 224 px, 8448-D) on phase
+    H's weights and 17 frames: 12 flash_single a call, all flash_sm90.cuh
+    by the C count; unit descriptors within SALAD_TOL (L2) of the plain
+    f32 path, which another frame's and the zeroed-attention descriptors
+    must exceed; ms a call; flash_single at (204, 257, 64) against its
+    plain version, SDPA and the bound. Returns the row's SALAD entry."""
     import torch
 
     from vggt_slam_tpu_torch.data.images import preprocess_frames
@@ -2331,19 +2202,14 @@ def run_smoke_loop(*argv):
 
 
 def drive_loop_closure(device, npz):
-    """Phase L: a 40-frame kind="loop" sequence written by the port's
-    write_tum_sequence; the CLI at VGGT-1B width with the tiny backend and
-    with SALAD on phase H's weights (LOOP_RUNS; the SALAD run's forward
-    calls must be the tiny run's per submap plus 12 flash_single a SALAD
-    call, one call a submap), each with >= 1 loop detected and every
-    detection inserted or rejected by the gate, and a run at
-    --loop_inlier_thresh 0 (no gate) with >= 1 loop factor where the gate
-    rejected them all; then evals/smoke_loop.py at its defaults as a
-    subprocess, which must exit 0; where it fails because the gate
-    rejected every loop it detected (random weights), it runs again with
-    the gate off and must exit 0 then, and the first exit code is logged.
-    Phases V, W and P run on the sequence before smoke_loop. Returns the
-    SALAD run's launches and phase P's flash_single entry."""
+    """Phase L: a 40-frame loop sequence (write_tum_sequence); the CLI at
+    VGGT-1B with the tiny backend and with SALAD (LOOP_RUNS; the SALAD
+    run's forward calls the tiny run's a submap plus 12 flash_single a
+    submap), each with >= 1 loop and every detection inserted or rejected,
+    or with >= 1 loop factor at --loop_inlier_thresh 0; phases V, W, P and
+    M on the sequence; then evals/smoke_loop.py, rerun without the gate
+    where the gate rejected every loop it found (the first exit code
+    logged). Returns the SALAD run's launches and phase P's entry."""
     import re
     import shutil
 
@@ -2381,7 +2247,9 @@ def drive_loop_closure(device, npz):
                                  f"calls")
         drive_viewer_and_evals(device, seq)
         drive_semantics(device, seq)
-        clip = drive_clip(device, seq)
+        os.makedirs(os.path.join(seq, "clip"))
+        clip = drive_clip(device, seq, os.path.join(seq, "clip"))
+        drive_sam2(device, seq, os.path.join(seq, "clip"))
     finally:
         shutil.rmtree(seq, ignore_errors=True)
     rc, out = run_smoke_loop()
@@ -2706,15 +2574,12 @@ def check_voxelize(device, pts, feats, V):
 
 
 def drive_semantics(device, seq):
-    """Phase W on phase L's sequence: the embedder CLI (its default masker
-    must be the Felzenszwalb segmenter); the SLAM CLI at VGGT-1B with
-    --semantic_emb_dir --get_voxel --voxel_save_dir (tiny backend, submap
-    16, disparity 8; every forward call tma_wgmma); the saved map reloaded
-    (V > 0, finite features, every contributor a frame of the sequence,
-    centres equal to voxelize_np's on the map's points, features within
-    mean_tolerance); voxelize_device on the card against voxelize_np
-    (`check_voxelize`); query_voxelmap --top_k 5 --visualize on the viser
-    stub."""
+    """Phase W on phase L's sequence: the embedder CLI (Felzenszwalb
+    masks); the CLI at VGGT-1B with --semantic_emb_dir --get_voxel
+    --voxel_save_dir (every forward tma_wgmma); the saved map reloaded
+    (finite, contributors frames of the sequence, voxelize_np's centres,
+    means within mean_tolerance); `check_voxelize`; query_voxelmap --top_k
+    5 --visualize on the viser stub."""
     import io
 
     import numpy as np
@@ -2855,14 +2720,11 @@ CLIP_QUERIES = ("a chair", "a table by the door", "IT'S a photo of a cat!",
 
 
 def write_clip_checkpoint(path, device):
-    """A ViT-B/32 checkpoint directory with nothing downloaded: config.json
-    in transformers' layout; pytorch_model.bin of seeded weights
-    (`clip.init_torch_state_dict`: N(0, 0.02), q_proj and k_proj drawn for
-    a logit std of 3), whose keys and shapes must be
-    tests/data/manifest_clip_vit_b32.json's; an authored vocab.json and
-    merges.txt in the released files' format (the 256 byte symbols, their
-    </w> forms, CLIP_MERGES, the two specials). Returns (values,
-    seconds)."""
+    """A ViT-B/32 checkpoint directory: transformers' config.json,
+    pytorch_model.bin of seeded weights (`clip.init_torch_state_dict`)
+    whose keys and shapes must be tests/data/manifest_clip_vit_b32.json's,
+    an authored vocab.json and merges.txt (the byte symbols, their </w>
+    forms, CLIP_MERGES, the specials). Returns (values, seconds)."""
     import torch
 
     from vggt_slam_tpu_torch.models import clip as M
@@ -2931,15 +2793,12 @@ def clip_crops(seq, n, size, seed=SEED):
 
 
 def check_clip(device, ckpt, seq):
-    """The vision tower through the user's entry point: 100 crops at 224
-    px (chunks of 64 and 36) and 6 at 180 x 150 (the resize path), with 12
-    flash_single launches a chunk, all tma_wgmma by the C launcher's count;
-    unit features within CLIP_TOL (L2) of the same weights' plain f32 path
-    on the card, which the zeroed-attention and permuted-keys controls must
-    exceed on every crop; the text tower on the card within CLIP_TEXT_TOL
-    of make_encoders(device="cpu"); the vision forward at a batch of 64 and
-    flash_single at (64, 50, 12, 64) against its plain version, SDPA and
-    the bound. Returns the results."""
+    """CLIP's vision tower through resolve_clip_encoders: 100 crops at 224
+    px and 6 at 180 x 150, 12 flash_single a chunk (tma_wgmma by the C
+    count), unit features within CLIP_TOL (L2) of the plain f32 path,
+    which the zeroed-attention and permuted-keys controls must exceed; the
+    text tower within CLIP_TEXT_TOL of the CPU; the vision forward at a
+    batch of 64 and flash_single at (64, 50, 12, 64) timed."""
     import numpy as np
     import torch
 
@@ -3050,15 +2909,13 @@ def check_clip(device, ckpt, seq):
     return res
 
 
-def drive_clip(device, seq):
-    """Phase P on phase L's sequence: `write_clip_checkpoint`,
-    `check_clip`, then the embedder CLI with --clip_model_dir --device cuda
-    (Felzenszwalb masks) on its first CLIP_FRAMES frames (12 flash_single a
-    frame, one chunk of <= 64 masks; every painted pixel a finite unit
-    vector of d 512), the SLAM CLI at the small model with --semantic_emb_dir
-    --get_voxel --voxel_save_dir on them (every forward call tma_wgmma; a
-    map of d 512), and query_voxelmap --clip_model_dir --top_k 5 on it
-    (five finite results). Returns flash_single's phase-P entry."""
+def drive_clip(device, seq, ckpt):
+    """Phase P on phase L's sequence: `write_clip_checkpoint` into ckpt,
+    `check_clip`; the embedder CLI with --clip_model_dir on CLIP_FRAMES
+    frames (12 flash_single a frame, painted pixels finite unit vectors of
+    d 512); the CLI at the small model with --get_voxel on them; then
+    query_voxelmap --clip_model_dir --top_k 5. Returns flash_single's
+    phase-P entry."""
     import io
     import shutil
 
@@ -3073,8 +2930,6 @@ def drive_clip(device, seq):
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="phase_p_") as tmp:
-        ckpt = os.path.join(tmp, "clip")
-        os.makedirs(ckpt)
         values, write_s = write_clip_checkpoint(ckpt, device)
         log("clip_checkpoint", values=values, seconds=write_s)
         res = check_clip(device, ckpt, seq)
@@ -3175,6 +3030,145 @@ def drive_clip(device, seq):
 
 
 # ---------------------------------------------------------------------------
+# Phase M: SAM2 (Hiera-B+) and its automatic mask generator on the card
+# ---------------------------------------------------------------------------
+
+SAM2_TOL = 1e-4     # f32 on the card against float64, of the largest entry
+
+
+def sam2_errors(model, ref, image, points):
+    """embed_image's three features and decode_points' masks, iou and obj
+    of `model` against `ref` (float64): max abs error over the largest
+    entry, each."""
+    import torch
+
+    with torch.no_grad():
+        f, r = model.embed_image(image), ref.embed_image(image.double())
+        got = (*f.values(), *model.decode_points(f, points))
+        want = (*r.values(), *ref.decode_points(r, points.double()))
+    return [float((a.double() - b).abs().max() / b.abs().max())
+            for a, b in zip(got, want)]
+
+
+def drive_sam2(device, seq, clip_ckpt):
+    """Phase M: a seeded sam2.1_hiera_base_plus .pt (public names; the IoU
+    head's last bias raised by 3, so that random weights pass the AMG's
+    0.9 IoU filter) through load_params; embed_image and a 192-point
+    decode at 1024 against float64 (SAM2_TOL), with a layout control
+    (transposed convs unflipped, patch kernel transposed) that must exceed
+    it; both timed; the AMG on a frame at its defaults, then at zero
+    thresholds (masks inside the frame, largest first); the embedder CLI
+    with --masker sam2 --clip_model_dir on 4 frames."""
+    import copy
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vggt_slam_tpu_torch.data.images import load_image, resize_linear
+    from vggt_slam_tpu_torch.models import sam2 as S
+    from vggt_slam_tpu_torch.ops import attention as A
+    from vggt_slam_tpu_torch.semantic import embedder
+    from vggt_slam_tpu_torch.semantic import sam2_amg as AMG
+
+    t_phase = time.perf_counter()
+    cfg = S.SAM2Config.base_plus()
+    rgb = os.path.join(seq, "rgb")
+    frames = sorted(os.listdir(rgb))[:4]
+    with tempfile.TemporaryDirectory(prefix="phase_m_") as tmp:
+        pt = os.path.join(tmp, "sam2.1_hiera_base_plus.pt")
+        sd = S.init_state_dict(cfg, SEED, device)
+        sd["mask_decoder.iou_head.layers_2.bias"] += 3.0   # IoUs ~0.95
+        torch.save({"model": {k: v.cpu() for k, v in
+                              S.to_torch_state_dict(sd, cfg).items()}}, pt)
+        t0 = time.perf_counter()
+        gen = AMG.make_sam2_mask_generator(pt, device="cuda")
+        load_s = time.perf_counter() - t0
+        model = gen.model
+        got = model.state_dict()
+        if sorted(got) != sorted(sd) or any(
+                not torch.equal(got[k], sd[k]) for k in sd):
+            raise AssertionError("load_params did not give back the weights")
+        ref = copy.deepcopy(model).double()
+        bad = copy.deepcopy(model)
+        for m in (bad.mask_decoder.upscale_dc1, bad.mask_decoder.upscale_dc2):
+            m.kernel.data = m.kernel.flip(0, 1)
+        k = bad.trunk.patch_embed.kernel
+        k.data = k.transpose(0, 1).contiguous()
+        frame = load_image(os.path.join(rgb, frames[0]))[..., ::-1]
+        S_ = cfg.img_size
+        image = torch.from_numpy(resize_linear(frame, S_, S_)[None]).to(
+            device, torch.float32)
+        pts = torch.from_numpy(AMG.build_point_grid(24)[:192] * S_).to(
+            device, torch.float32)
+        errs = sam2_errors(model, ref, image, pts)
+        ctrl = sam2_errors(bad, ref, image, pts)
+        del ref, bad
+        with torch.no_grad():
+            feats = model.embed_image(image)
+            embed_ms = cuda_ms(lambda: model.embed_image(image), 3)
+            decode_ms = cuda_ms(lambda: AMG.decode_chunk(model, feats, pts),
+                                3)
+        res = {"values": sum(v.numel() for v in sd.values()),
+               "load_s": load_s, "f64_rel_err": dict(zip(
+                   ("image_embed", "feat_s0", "feat_s1", "masks", "iou",
+                    "obj"), errs)), "tol": SAM2_TOL,
+               "control_rel_err": [ctrl[0], ctrl[3]], "embed_ms": embed_ms,
+               "decode_chunk_ms_192": decode_ms}
+        del feats
+        for name, kw in (("defaults", {}), ("zero_thresh", dict(
+                pred_iou_thresh=0.0, stability_score_thresh=0.0))):
+            amg = AMG.SAM2MaskGenerator(model, **kw)
+            t0 = time.perf_counter()
+            masks = amg(frame)
+            res[name] = {"masks": len(masks), "seconds":
+                         time.perf_counter() - t0, "chunks": amg.chunks,
+                         **amg.seconds}
+        h, w = frame.shape[:2]
+        areas = [m["area"] for m in masks]
+        inside = all(0 <= m["bbox"][0] <= m["bbox"][0] + m["bbox"][2] <= w
+                     and 0 <= m["bbox"][1] <= m["bbox"][1] + m["bbox"][3]
+                     <= h for m in masks)
+        log("sam2", **res, inside=inside)
+        if res["values"] != 73_328_657 or \
+                not all(e <= SAM2_TOL for e in errs) or \
+                not ctrl[0] > SAM2_TOL < ctrl[3] or not masks or \
+                not inside or areas != sorted(areas, reverse=True):
+            raise AssertionError(f"SAM2 on the card: {res}")
+        del gen, amg, model
+        torch.cuda.empty_cache()
+
+        sub = os.path.join(tmp, "rgb")
+        os.makedirs(sub)
+        for f in frames:
+            shutil.copy(os.path.join(rgb, f), sub)
+        out = io.StringIO()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            n = embedder.main(
+                ["--image_dir", sub, "--out_dir", os.path.join(tmp, "emb"),
+                 "--target_size", str(SEMANTIC_TARGET), "--masker", "sam2",
+                 "--sam2_checkpoint", pt, "--clip_model_dir", clip_ckpt,
+                 "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        embs = [np.load(os.path.join(tmp, "emb", os.path.splitext(f)[0]
+                                     + ".npz"))["embedding"] for f in frames]
+        cli = {"frames": n, "seconds": seconds, "s_per_frame": seconds / 4,
+               "d": sorted({e.shape[-1] for e in embs}),
+               "painted_share": float(np.mean([(np.abs(e).sum(-1) > 0).mean()
+                                               for e in embs])),
+               "launches": dict(A.LAUNCHES), "out": out.getvalue().strip()}
+        log("sam2_embedder", **cli)
+        if n != 4 or not all(np.isfinite(e).all() for e in embs) or \
+                "SAM2MaskGenerator" not in cli["out"]:
+            raise AssertionError(f"the embedder with SAM2: {cli}")
+    torch.cuda.empty_cache()
+    log("phase_m", seconds=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------------
 # --ab DIR: the bf16 forward at head dim 64 against an earlier build, in turns
 # ---------------------------------------------------------------------------
 
@@ -3234,13 +3228,10 @@ def ab_builds(dirs):
 
 
 def ab_bwd_calls(builds, dirs):
-    """{build: call(q, k, v, dout, out, m, l, H, vl) -> (dq, dk, dv)}: the
-    backward of each of `dirs` that holds a flash_attention_bwd.cu, behind
-    the wrapper module of its forward build (`ab_builds`; its
-    `_ab_wrapper` where the DIR has no forward): through its own
-    flash_bwd, or, for a build from before flash_bwd, delta in torch and
-    its flash_bwd_dq and flash_bwd_dkv entries, as that tree's
-    FlashAttentionGrad ran them; then this tree's flash_bwd."""
+    """{build: call(q, k, v, dout, out, m, l, H, vl) -> (dq, dk, dv)}: each
+    DIR's backward behind its forward build's wrapper (its flash_bwd, or
+    before flash_bwd torch's delta and its dq and dkv entries), then this
+    tree's flash_bwd."""
     from concurrent.futures import ThreadPoolExecutor
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -3277,12 +3268,10 @@ def ab_bwd_calls(builds, dirs):
 
 
 def ab_backward(device, builds, dirs):
-    """The backward of each build (`ab_bwd_calls`) against its plain
-    version, then timed in turns (first to last, then back) at the six
-    training shapes of phase 4, on this tree's forward's out and stats:
-    CUDA events around 20 eager calls (`ms`) and one CUDA graph of 20 calls
-    (`graph_ms`), beside SDPA's backward alone timed both ways and the
-    fused bound. Returns the rows (also logged)."""
+    """Each build's backward against its plain version, then in turns at
+    phase 4's six training shapes: 20 eager calls (`ms`) and a CUDA graph
+    of 20 (`graph_ms`) beside SDPA's backward both ways and the fused
+    bound. Returns the rows."""
     import torch
     import torch.nn.functional as F
 
@@ -3437,14 +3426,11 @@ def ab_errors(got, ref, stats):
 
 
 def ab_host_us(builds, device, calls=100, rounds=12):
-    """Host microseconds per forward call, where the card keeps up, at a
-    small shape (B 1, N 256, H 16, D 64; LN, rope, kv_bias, valid_len;
-    flash_multi) and at the camera-trunk training shape (B 1, N 4, H 16,
-    D 128, row stats; flash_single): each build behind its wrapper (the
-    Python side, tensor-map encodes, attributes, launches), `calls` calls at
-    a time in turns, first to last and back, `rounds` times; the median of
-    the 2 * `rounds` runs of each (the host's clock varies from run to run
-    by more than the differences)."""
+    """Host µs per forward call where the card keeps up, at (B 1, N 256,
+    H 16, D 64; flash_multi with LN, rope, kv_bias, valid_len) and the
+    camera-trunk training shape (N 4, D 128, stats; flash_single): each
+    build behind its wrapper, `calls` calls at a time in turns, there and
+    back, `rounds` times; the median of each build's runs."""
     import torch
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -3516,14 +3502,11 @@ def _host_us(fn, calls):
 
 
 def ab_forward(device, dirs):
-    """Each build (`dirs`, then this tree; `ab_builds`) against its plain
-    version, then timed in turns (first to last, then back) at every bf16
-    forward shape of phases 3 and 4: CUDA events around 20 eager calls
-    (`ms`: the host's time where it is the longer) and one CUDA graph of 20
-    calls (`graph_ms`: the device's), beside SDPA timed both ways and the
-    bound; then the
-    host cost per call (`ab_host_us`). Returns the builds and the rows
-    (also logged)."""
+    """Each build (each DIR, then this tree) against its plain version,
+    then in turns at every bf16 forward shape of phases 3 and 4: 20 eager
+    calls (`ms`) and a CUDA graph of 20 (`graph_ms`) beside SDPA both ways
+    and the bound; then the host cost per call (`ab_host_us`). Returns the
+    builds and the rows."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -3625,15 +3608,11 @@ def ab_matmul_only_tilings(args, ref):
 
 def ab_probes(device, dirs):
     """The matmul-only floor and the grouped, interleaved and pipelined
-    probes of each of `dirs` that holds a bench_attention.cu
-    (`ab_probe_libs`), then this tree's, at the SLAM frame shape (S 18,
-    H 16, N 1041 -> 1152): each build held to its plain version first
-    (1e-2 of max|ref|; this tree's grouped kernels also at their key tile),
-    then timed in turns (first to last, then back) as one CUDA graph of 20
-    calls (`graph_ms`: device ms), beside the bound and, for the attention
-    probes, SDPA's graph; the floor's row also holds this tree's
-    global_sm90 matmul mode at every tiling (`ab_matmul_only_tilings`).
-    Returns the rows (also logged)."""
+    probes of each DIR holding a bench_attention.cu, then this tree's, at
+    the SLAM frame shape: each held to its plain version first, then timed
+    in turns as a CUDA graph of 20 calls beside the bound and SDPA; the
+    floor's row also times this tree's global_sm90 matmul mode at every
+    tiling. Returns the rows."""
     import torch
 
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
@@ -3731,16 +3710,13 @@ def ab_mm_call(lib, tilings):
 
 
 def ab_matmul(device, dirs, iters=20):
-    """The matmul-shape probes of each of `dirs` that holds a
-    bench_matmul_shapes.cu (with the headers it includes beside it; the
-    build named after its folder), then this tree's, at every tiling of
-    each build (`ab_mm_tilings`): batched_mm at the reference's nine B = 1
-    shapes, batched_mm and grouped_mm at G in AB_MM_GROUPS at the QK^T and
-    PV shapes at B 528. Each line held within one bf16 ulp of max|ref| of
-    `batched_mm_ref` first (a NaN-filled output), then timed in turns
-    (first to last, then back) as CUDA graphs over copies spanning 2 x L2
-    (`graph_bench`: device ms), beside the library call (torch.bmm,
-    torch.matmul at B = 1) and the bound. Returns the rows (also logged)."""
+    """The matmul-shape probes of each DIR holding a
+    bench_matmul_shapes.cu, then this tree's, at every tiling of each build
+    (`ab_mm_tilings`): the nine B = 1 shapes, and QK^T and PV at B 528,
+    grouped at AB_MM_GROUPS; each held within one bf16 ulp of max|ref| into
+    a NaN-filled output, then timed in turns as CUDA graphs over copies
+    spanning 2 x L2 beside torch.bmm / torch.matmul and the bound. Returns
+    the rows."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -3813,13 +3789,10 @@ def ab_matmul(device, dirs, iters=20):
 
 
 def ab_dpt_tail(device, dirs, calls=10):
-    """The DPT tail of each of `dirs` holding a dpt_tail.cu (with its
-    headers; behind its `_ab_wrapper`), then this tree's, at phase B's
-    shape (seeded inputs on the card, x and pos bf16), cout 2 (depth head)
-    and 4 (point head): each build's `_launch` held to fused_tail_ref (1e-2
-    of max|ref|), then in turns as CUDA graphs of `calls` calls (device ms,
-    with the wrapper's few small weight kernels), beside the bound. Returns
-    the rows (also logged)."""
+    """Each DIR's DPT tail (behind its `_ab_wrapper`), then this tree's,
+    at phase B's shape, cout 2 and 4: held to fused_tail_ref (1e-2 of
+    max|ref|), then in turns as CUDA graphs of `calls` calls beside the
+    bound. Returns the rows."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -3968,14 +3941,11 @@ def ab_global_modes(script, device, rate, iters):
 
 
 def ab_global(device, dirs, iters=4):
-    """The three global-shape probes on global_sm90 against each of `dirs`
-    that holds their .cu (`ab_global_libs`), at the global shape (BH 16, N
-    34816, D 64; `ab_global_modes`): every mode and tiling of each build
-    held to its plain version on a 2048-row slab over all keys first
-    (`check_line`), then timed in turns (first to last, then back; CUDA
-    events, best of 2 over `iters` calls), beside SDPA (scale 1/sqrt(D), or
-    ln 2 for the softmax variants' raw logits), the bound and this tree's
-    ptxas registers. Returns the rows (also logged)."""
+    """The three global-shape probes of each DIR holding their .cu, then
+    this tree's, at (BH 16, N 34816, D 64): every mode and tiling held to
+    its plain version on a 2048-row slab, then timed in turns (CUDA
+    events, best of 2 over `iters` calls) beside SDPA, the bound and the
+    ptxas registers. Returns the rows."""
     import torch
 
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
@@ -4027,12 +3997,10 @@ def ab_global(device, dirs, iters=4):
 
 
 def ab_int8(device, builds):
-    """The int8 forward of each build (`ab_builds`) at phase A's shapes,
-    both kernels: held to its own wrapper's plain version and bf16 control
-    (`int8_errors`, `int8_failure`), then timed in turns with this tree's
-    bf16 call at the same shape and softmax mode (first to last, then
-    back): CUDA events around 20 eager calls (`ms`) and one CUDA graph of
-    20 calls (`graph_ms`). Returns the rows (also logged)."""
+    """Each build's int8 forward at phase A's shapes, both kernels, held to
+    its own wrapper's plain version and bf16 control (`int8_errors`), then
+    in turns beside this tree's bf16 call: 20 eager calls (`ms`) and a CUDA
+    graph of 20 (`graph_ms`). Returns the rows."""
     names = list(builds) + ["bf16"]
     rows = []
     for case in int8_cases(device):

@@ -1,8 +1,8 @@
 """The port's package boundary and entry points: it imports nothing of JAX,
 flax, OpenCV or the JAX package (every module, the probe scripts, the
 converters, retrieval, the evals, the kd-tree, the GLB writer, the
-SLAM-state checkpoint, the semantic voxel map and embedder and CLIP with
-its tokenizer among them; nor regex, transformers or safetensors; the viser viewer against tests/
+SLAM-state checkpoint, the semantic voxel map and embedder, CLIP with
+its tokenizer, SAM2 and its mask generator among them; nor regex, transformers or safetensors; the viser viewer against tests/
 viser_stub.py, since viser is absent); its
 entry points default to the card and refuse to run without one unless the CPU is asked for; chip_smoke.py exits
 non-zero without a card and outside the repository; and the tiny-config
@@ -32,7 +32,8 @@ assert all("vggt_slam_tpu_torch." + m in names
                      "native.kdtree", "native.felzenszwalb", "ops.voxel",
                      "semantic.voxel_map", "semantic.embedder",
                      "tools.query_voxelmap", "models.clip",
-                     "models.clip_tokenizer"))
+                     "models.clip_tokenizer", "models.sam2",
+                     "semantic.sam2_amg"))
 viewer = "vggt_slam_tpu_torch.viz.viser_viewer"   # needs viser: the stub
 for name in names:
     if name != viewer:
@@ -56,7 +57,7 @@ def test_port_imports_no_jax_flax_cv2_or_reference_package():
                          cwd=REPO)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 66
+    assert int(n) >= 68
     assert bad == "[]"
 
 

@@ -30,8 +30,9 @@ largest output: both sides round u and h to bf16, and the f32 sums of the
 outputs are written into NaN-filled tensors, and the check must reject
 the output with frames 0 and 1 swapped. CLIP's vision tower (flash_single
 on bf16 q, k, v in an f32 module) is held to 2e-2 (L2) of its plain f32
-route on unit features, SALAD's bound. voxelize_device (torch on the card,
-no kernel of its own) sums by atomic adds: its means are held to
+route on unit features, SALAD's bound. SAM2 (plain torch, no kernel) in
+f32 is held to chip_smoke.SAM2_TOL of its float64 self. voxelize_device
+(torch on the card, no kernel of its own) sums by atomic adds: its means are held to
 ops/voxel.mean_tolerance of voxelize_np's, its centres and counts exactly.
 """
 import functools
@@ -1235,3 +1236,29 @@ def test_clip_vision_attention_runs_flash_single_at_50_tokens(cuda):
     assert launches == 2
     assert torch.linalg.vector_norm(got - plain, dim=1).max().item() < 2e-2
     assert torch.linalg.vector_norm(bad - plain, dim=1).min().item() > 2e-2
+
+
+def test_sam2_base_plus_matches_float64(cuda):
+    """SAM2 at sam2.1_hiera_base_plus width on a 1024 x 1024 image and 192
+    points: embed_image and decode_points in f32 (TF32 off) against the
+    same module in float64."""
+    import copy
+
+    from chip_smoke import SAM2_TOL, sam2_errors
+    from vggt_slam_tpu_torch.models import sam2 as S
+
+    cfg = S.SAM2Config.base_plus()
+    model = S.build_model(cfg, S.init_state_dict(cfg, 0, cuda), cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    image = torch.rand(1, 1024, 1024, 3, generator=g, device=cuda) * 255
+    pts = torch.rand(192, 2, generator=g, device=cuda) * 1024
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    tf32 = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        errs = sam2_errors(model, copy.deepcopy(model).double(), image, pts)
+    finally:
+        for f, t in zip(flags, tf32):
+            f.allow_tf32 = t
+    assert max(errs) < SAM2_TOL, errs

@@ -362,9 +362,11 @@ def test_text_embeddings_equal_reference():
             ref_query.text_embedding(t, 16, None))
 
 
-def test_missing_models_raise_naming_the_module(tmp_path):
+def test_missing_models_raise_naming_the_module(tmp_path, monkeypatch):
     """SigLIP (models.siglip) and the hf backend (transformers), which
-    `auto` takes without a CLIP config.json, are not ported; nor is SAM2."""
+    `auto` takes without a CLIP config.json, are not ported. SAM2 is:
+    `--masker sam2` runs (base_plus, seeded, on an empty folder here), and
+    on --device cuda without a card it raises."""
     from vggt_slam_tpu_torch.semantic import embedder
     from vggt_slam_tpu_torch.tools import query_voxelmap
 
@@ -376,9 +378,13 @@ def test_missing_models_raise_naming_the_module(tmp_path):
         embedder.resolve_clip_encoders(str(tmp_path / "none"))
     with pytest.raises(ModuleNotFoundError, match="hf backend"):
         embedder.resolve_clip_encoders(str(tmp_path), "hf", "cpu")
-    with pytest.raises(ModuleNotFoundError, match="semantic.sam2_amg"):
-        embedder.main(["--image_dir", str(tmp_path), "--out_dir",
-                       str(tmp_path / "o"), "--masker", "sam2"])
+    (tmp_path / "empty").mkdir()
+    argv = ["--image_dir", str(tmp_path / "empty"), "--out_dir",
+            str(tmp_path / "o"), "--masker", "sam2"]
+    assert embedder.main(argv + ["--device", "cpu"]) == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        embedder.main(argv)
 
 
 def _clip_dir(path):

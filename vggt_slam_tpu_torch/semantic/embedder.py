@@ -9,13 +9,15 @@ mask's black-background box crop is embedded by a crop encoder, crops
 (N, 3, h, w) float [0, 1] -> (N, d) (CLIP's image tower with
 --clip_model_dir, on --device; else colour statistics under a seeded
 projection), and the masks are painted largest first. Resizes are
-data/images.resize_linear (OpenCV's INTER_LINEAR without OpenCV). SAM2
-masks, SigLIP and the transformers (hf) backend are not ported: asking for
-them raises an error that names what is missing.
+data/images.resize_linear (OpenCV's INTER_LINEAR without OpenCV).
+`--masker sam2` runs SAM2's automatic mask generator (semantic/sam2_amg) on
+--device, with --sam2_checkpoint's weights or seeded random ones. SigLIP
+and the transformers (hf) backend are not ported: asking for them raises
+an error that names what is missing.
 
     python -m vggt_slam_tpu_torch.semantic.embedder --image_dir DIR \
-        --out_dir DIR [--masker felzenszwalb|grid] [--target_size N] \
-        [--clip_model_dir DIR [--device cuda|cpu]]
+        --out_dir DIR [--masker felzenszwalb|grid|sam2 [--sam2_checkpoint
+        PT]] [--target_size N] [--clip_model_dir DIR] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -336,13 +338,15 @@ def main(argv=None) -> int:
                         "not ported: raises; auto = native for a CLIP "
                         "config.json")
     p.add_argument("--device", default="cuda",
-                   help="where CLIP runs (cuda, or cpu)")
+                   help="where CLIP and SAM2 run (cuda, or cpu)")
     p.add_argument("--masker", default="auto",
                    choices=["auto", "felzenszwalb", "grid", "sam2"],
                    help="auto = felzenszwalb where the native segmenter "
-                        "builds, else grid (with a warning); sam2 is not "
-                        "ported yet (raises)")
-    p.add_argument("--sam2_checkpoint", default=None)
+                        "builds, else grid (with a warning); sam2 = SAM2's "
+                        "automatic mask generator")
+    p.add_argument("--sam2_checkpoint", default=None,
+                   help="sam2.1_hiera_base_plus .pt or converted .npz for "
+                        "--masker sam2 (seeded random weights without)")
     p.add_argument("--target_size", type=int, default=518)
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--shard_index", type=int, default=0)
@@ -354,12 +358,7 @@ def main(argv=None) -> int:
     p.add_argument("--bbox_expand_pct", type=float, default=0.0)
     args = p.parse_args(argv)
 
-    if args.masker == "sam2":
-        module = "vggt_slam_tpu_torch.semantic.sam2_amg"
-        raise ModuleNotFoundError(
-            f"--masker sam2 needs {module} (SAM2 and its automatic mask "
-            f"generator), which the port does not have yet", name=module)
-    if args.num_procs > 1:
+    if args.num_procs > 1:     # ignores --masker, as the reference does
         embed_folder_multiproc(args.image_dir, args.out_dir, args.num_procs,
                                limit=args.limit,
                                clip_model_dir=args.clip_model_dir,
@@ -374,6 +373,11 @@ def main(argv=None) -> int:
     mask_generator = {"grid": grid_mask_generator,
                       "felzenszwalb": felzenszwalb_mask_generator}.get(
                           args.masker)
+    if args.masker == "sam2":
+        from vggt_slam_tpu_torch.semantic.sam2_amg import \
+            make_sam2_mask_generator
+        mask_generator = make_sam2_mask_generator(
+            checkpoint=args.sam2_checkpoint, device=args.device)
     emb = SemanticEmbedder(mask_generator=mask_generator,
                            crop_encoder=crop_encoder,
                            text_encoder=text_encoder,
@@ -384,8 +388,9 @@ def main(argv=None) -> int:
                                 shard_index=args.shard_index,
                                 num_shards=args.num_shards,
                                 mask_vis_dir=args.mask_vis_dir)
+    g = emb.mask_generator
     print(f"embedded {n} images -> {args.out_dir} "
-          f"(masks: {emb.mask_generator.__name__})")
+          f"(masks: {getattr(g, '__name__', type(g).__name__)})")
     return n
 
 
