@@ -6,55 +6,26 @@
     python3 chip_smoke.py --ab DIR...     # time each DIR's sources beside
                                           # this tree's in turns, and stop
 
-Phases, one JSON line of output each:
-  1-2. environment (`nvidia-smi` name and power limit); build the CUDA
-     sources with one nvcc each, all at once;
-  3-4. each forward and training kernel (flash_single, flash_multi, their
-     stats, flash_bwd) against its plain version at the SLAM and training
-     shapes of VGGT-1B and the small model: errors, kernel, plain and SDPA
-     times, the bound and its unit, the design from the C launcher's
-     counts (flash_sm90.cuh, flash_bwd_sm90.cuh at every head dim);
-  5-6. a full-width forward through the kernels against their plain
-     versions; the SLAM path at VGGT-1B (seeded weights) through `run_slam`
-     on a panned sequence: launches, stage seconds, finite poses;
-  7-9. a 2-frame gradient against the plain path; 3 training steps at
-     VGGT-1B (finite, falling loss, peak memory); the train_tiny CLI on the
-     small model and its checkpoint's forward (18 flash_single, 6
-     flash_multi);
-  A-D. the int8 kernels against their plain versions and the scales pass;
-     the fused DPT tail on the depth head's activations (against the head's
-     cuDNN chain too); the 18-frame int8 forward; the CLI on 24 PNG frames
-     with --qk_int8;
-  E-G. the probe scripts' kernels (bench_attention, the three global-shape
-     scripts, bench_matmul_shapes) through their mains with --check: every
-     variant and tiling against its plain version, controls, launches by
-     design, ptxas registers (no spill), times beside SDPA or torch.bmm;
-  H, S, L. both torch-checkpoint converters over the released manifests;
-     SALAD on flash_single against its plain f32 path with two controls;
-     loop closure through the CLI at VGGT-1B (tiny and SALAD backends),
-     then evals/smoke_loop.py;
-  V. on phase L's sequence: the CLI with --colmap_images_txt,
-     --profile_dir and --vis_map (tests/viser_stub.py), a GLB, run_eval,
-     process_logs, geometry_eval (kd-tree against cKDTree),
-     pipeline_overlap;
-  W. the embedder CLI, the CLI with --get_voxel, the saved map,
-     voxelize_device against voxelize_np with a shifted control,
-     query_voxelmap --visualize;
-  P. a seeded ViT-B/32 checkpoint directory; its encoders on 106 crops
-     against the plain f32 path (two controls) and the CPU; the embedder
-     with --clip_model_dir, the small-model CLI, query_voxelmap;
-  M. a seeded sam2.1_hiera_base_plus .pt; SAM2 at 1024 against float64
-     with a layout control; the AMG at its defaults and at zero
-     thresholds; the embedder CLI with --masker sam2 --clip_model_dir.
-Phases E, F and G run under --kernels-only too. --ab builds each DIR's
-forward, int8, backward, probe, matmul, global and DPT-tail sources (with
-the headers, and where its C entries differ the tree's wrapper, beside
-them) and times them beside this tree's in turns, each held to its plain
-version first, where some DIR holds the source.
-The last lines are the card's `nvidia-smi` line, the kernels JSON object
-and {"ok": true, "device": ...}. Any failure raises, and the script exits
-non-zero with no result line. It needs a CUDA device and imports nothing
-of JAX, OpenCV or the JAX package.
+Phases, one JSON line each: 1-2 environment (`nvidia-smi` name and power
+limit), the CUDA sources built by one nvcc each, all at once; 3-4 every forward
+and training kernel against its plain version at VGGT-1B's and the small
+model's shapes (errors, kernel, plain and SDPA ms, the bound, the design by the
+C launcher's counts); 5-6 a full-width forward against the plain path, then the
+SLAM path at VGGT-1B through `run_slam`; 7-9 a gradient against the plain path,
+3 training steps, the train_tiny CLI; A-D the int8 kernels, the fused DPT tail,
+the int8 forward, the CLI on 24 PNGs with --qk_int8; E-G the probe scripts'
+mains with --check; H, S, L both converters, SALAD on flash_single, loop
+closure through the CLI and evals/smoke_loop.py; then on phase L's sequence V
+(COLMAP alignment, --profile_dir, the viewer stub, GLB, the host evals), W (the
+embedder, --get_voxel, voxelize_device, the query), P (CLIP ViT-B/32), M (SAM2
+against float64, the AMG, the embedder with --masker sam2), N (SigLIP
+base-patch16-224); P and N: a seeded checkpoint through resolve_clip_encoders
+against the plain path with two controls, the embedder, the CLI and the query
+with --clip_model_dir. --ab builds each DIR's sources beside this tree's and
+times them in turns after holding each to its plain version. The last lines are
+the `nvidia-smi` line, the kernels JSON object and {"ok": true, "device": ...};
+any failure exits non-zero without them. It needs a CUDA device and imports
+nothing of JAX, OpenCV or the JAX package.
 """
 from __future__ import annotations
 
@@ -104,16 +75,12 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-# ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
-# ---------------------------------------------------------------------------
 
 def main_path_attention_cases(device):
-    """The attention calls of one bucketed VGGT-1B forward (S = 16 + 1 + 1
-    frames, 392x518 -> 28x37 patches + 5 special tokens = 1041 tokens per
-    frame, global K/V sim-merged at stride 16, the last frame padding), and
-    those of VGGTConfig.small at the same tokens (4 heads of 32; the
-    encoder, frame and global blocks, 4, 6 and 6 a forward)."""
+    """The attention calls of one bucketed VGGT-1B forward (18 frames of 1041
+    tokens, global K/V sim-merged at stride 16, the last frame padding) and of
+    VGGTConfig.small at the same tokens (4 heads of 32)."""
     import torch
 
     from vggt_slam_tpu_torch.models.vggt.modules import rope_2d_angles
@@ -201,8 +168,7 @@ def main_path_attention_cases(device):
 
 @functools.lru_cache(maxsize=None)
 def ex2_per_s() -> float:
-    """The card's exp2 rate: MUFU.EX2 at 16 per SM per clock at its SM
-    count and maximum SM clock (bench_attention.sfu_rate)."""
+    """The card's exp2 rate (bench_attention.sfu_rate)."""
     import torch
 
     from vggt_slam_tpu_torch.scripts.bench_attention import sfu_rate
@@ -210,9 +176,8 @@ def ex2_per_s() -> float:
 
 
 def least_ms(t_tensor, n_exp2, nbytes) -> tuple[float, str, str]:
-    """The bound of a call from its tensor-core time (ms), its exp2 count and
-    its bytes: (ms, "operations" or "bytes", which unit: "tensor cores",
-    "exp units" or "bytes")."""
+    """A call's bound from its tensor-core ms, exp2 count and bytes: (ms,
+    "operations" or "bytes", the unit that sets it)."""
     terms = {"tensor cores": t_tensor, "exp units": n_exp2 / ex2_per_s() * 1e3,
              "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
     unit = max(terms, key=terms.get)
@@ -220,10 +185,9 @@ def least_ms(t_tensor, n_exp2, nbytes) -> tuple[float, str, str]:
 
 
 def attention_bound_ms(case, int8=False) -> tuple[float, str, str]:
-    """Least H100 time for the call (`least_ms`): bytes read once and
-    written once over the HBM rate, against the tensor-core flops over the
-    bf16 peak (with `int8`, QK^T's half of them over the int8 peak) and one
-    exp2 per valid logit over the card's exp2 rate."""
+    """`least_ms` of the call: bytes read and written once; tensor-core flops
+    at the bf16 peak (with `int8`, QK^T's half at the int8 peak); one exp2 a
+    valid logit."""
     q, k, v, kw = case["q"], case["k"], case["v"], case["kw"]
     B, Nq, HD = q.shape
     Nk = k.shape[1]
@@ -240,8 +204,8 @@ def attention_bound_ms(case, int8=False) -> tuple[float, str, str]:
 
 
 def sdpa_call(case):
-    """One scaled_dot_product_attention call computing the same function on
-    the same inputs, where SDPA can express it (no in-kernel LN or rope)."""
+    """One SDPA call computing the same function, where SDPA can (no in-kernel
+    LN or rope)."""
     import torch
     import torch.nn.functional as F
 
@@ -262,11 +226,9 @@ def sdpa_call(case):
 
 
 def sdpa_prepared_call(case):
-    """SDPA on q and k prepared by the plain version's `_prep` (LN and rope
-    applied before the call, so its time excludes that work, which the
-    kernel does in-kernel), kv_bias and the valid_len mask as one additive
-    float mask: the same function as the kernel. None where `sdpa_call`
-    applies."""
+    """SDPA on q and k prepared by `_prep` (LN and rope outside the timed
+    call), kv_bias and the valid_len mask as one float mask; None where
+    `sdpa_call` applies."""
     import torch
     import torch.nn.functional as F
 
@@ -292,10 +254,9 @@ def sdpa_prepared_call(case):
 
 
 def launched_design(fn, counts=None) -> str:
-    """The design one forward call fn() ran, by the C launcher's counts
-    ("tma_wgmma": flash_fwd_sm90); with `counts` = bwd_design_launches, one
-    flash_bwd call's. Raises where it launched none (short profiles on the
-    card have lost their kernel records, so no names are read)."""
+    """The one design fn() ran by the C launcher's counts (forward, or
+    flash_bwd with `counts` = bwd_design_launches); raises where it ran
+    none."""
     import torch
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -321,9 +282,7 @@ def forward_calls(launches) -> int:
 
 
 def expect_design(name, D, design):
-    """The forward, bf16 or int8, runs flash_sm90.cuh and the backward
-    flash_bwd_sm90.cuh at every head dim, 32, 64 and 128
-    (flash_attention.cu launch_dim, flash_attention_bwd.cu flash_bwd)."""
+    """Forward and backward run the Hopper headers at every head dim."""
     want = "tma_wgmma"
     if design != want:
         raise AssertionError(f"{name} (head dim {D}) ran {design}, not "
@@ -336,9 +295,7 @@ def _rel_rms(a, b) -> float:
                  / (b ** 2).mean().sqrt().clamp_min(1e-30))
 
 
-# ---------------------------------------------------------------------------
 # Phase 4: training kernels against their plain versions
-# ---------------------------------------------------------------------------
 
 TRAINING_CASES = [
     # name, B, N, H, D, valid_len, softmax, launches per 1B training step
@@ -352,20 +309,17 @@ TRAINING_CASES = [
 
 
 def takes_static(softmax, N) -> bool:
-    """Whether a TRAINING_CASES entry's forward runs flash_multi: a static
-    softmax over more keys than flash_attention's one-block rule allows."""
+    """Whether a TRAINING_CASES forward runs flash_multi (static softmax over
+    more keys than one block)."""
     from vggt_slam_tpu_torch.ops import attention as A
 
     return softmax == "static" and not A.fits_one_block(N)
 
 
 def training_bounds(B, N, H, D, vl):
-    """Least H100 time of the forward with stats and of the backward
-    (`least_ms`): flops (4 and 10 N_q N_k H D per batch: the backward's
-    five products, QK^T recomputed) over the bf16 peak, one exp2 per valid
-    logit in each (the backward recomputes p once) over the card's exp2
-    rate, against the bytes (each input read once, each output written
-    once) over the HBM rate."""
+    """`least_ms` of the forward with stats and of the backward: 4 and 10 N_q
+    N_k H D flops a batch, one exp2 a valid logit in each, each input read and
+    each output written once."""
     nk = N if vl is None else min(vl, N)
     qd = 2.0 * B * N * H * D           # one bf16 (B, N, H*D) tensor
     kd = 2.0 * B * nk * H * D          # the valid keys of k or v
@@ -381,12 +335,9 @@ def training_bounds(B, N, H, D, vl):
 
 
 def check_training_kernels(device):
-    """Forward with stats and the backward (flash_bwd: dq, dk, dv) against
-    their plain versions at the training shapes of VGGT-1B (and two of
-    VGGTConfig.small, head dim 32), on bf16 q, k, v that arrive with
-    qk-norm and rope applied. The backward runs twice: dq's f32 sums are
-    atomic adds in a varying order, so its bits may differ by a bf16
-    rounding (held to 2^-7 of its largest entry)."""
+    """The forward with stats and flash_bwd against their plain versions at
+    VGGT-1B's and the small model's training shapes; the backward twice (dq's
+    atomic adds vary by a bf16 rounding)."""
     import torch
     import torch.nn.functional as F
 
@@ -450,10 +401,8 @@ def check_training_kernels(device):
                  "bwd_plain_ms": cuda_ms(bwd_plain, 2)}
         sdpa = sdpa_fwd = sdpa_bwd = None
         if vl is None:
-            # SDPA on the same pre-applied bf16 q, k, v: forward + backward,
-            # the forward alone (keeping its logsumexp, as the kernel its
-            # row stats, since q, k, v need grad), and the backward alone
-            # on one saved forward
+            # SDPA on the same q, k, v: forward + backward, the forward
+            # alone (with grad, as the kernel keeps stats), the backward
             qs, ks, vs = (t.view(B, N, H, D).transpose(1, 2).detach()
                           .requires_grad_() for t in (q, k, v))
             do_h = dout.view(B, N, H, D).transpose(1, 2)
@@ -557,14 +506,12 @@ def check_kernels(device):
     return results
 
 
-# ---------------------------------------------------------------------------
 # Phase 4: full-width forward, kernels against the plain attention path
-# ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
 def plain_attention(model=None):
-    """Run the model's attention, forward and backward, through the kernels'
-    plain versions (on the card), then restore the kernels."""
+    """The model's attention, forward and backward, through the plain versions
+    inside the block."""
     from vggt_slam_tpu_torch.ops import attention as A
     names = ("flash_single", "flash_multi", "flash_bwd")
     saved = [getattr(A, n) for n in names]
@@ -598,9 +545,8 @@ def chunked_attention(model):
 
 
 def check_forward(model, device, frames):
-    """2-frame VGGT-1B forward through the kernels against the same forward
-    through the kernels' plain versions (the check), and against the
-    chunked reference path (reported)."""
+    """A 2-frame VGGT-1B forward through the kernels against the plain versions
+    (the check) and the chunked path (reported)."""
     import numpy as np
     import torch
 
@@ -623,10 +569,8 @@ def check_forward(model, device, frames):
                 raise AssertionError(f"forward output {key}: bad values")
             errs[name][key] = float(np.sqrt(np.mean((a - b) ** 2)
                                             / max(np.mean(b * b), 1e-30)))
-    # Relative RMS, not max: random bf16 weights through 48 blocks amplify
-    # single-ulp attention differences into a few percent at the worst
-    # pixel. The RMS measured 0.9e-2 to 1.9e-2 on an H100; the bound
-    # leaves room for the card-to-card spread of bf16 summation order.
+    # Relative RMS, not max: 48 random bf16 blocks amplify single-ulp
+    # differences to a few percent at the worst pixel (RMS 0.9e-2-1.9e-2).
     tol = 5e-2
     log("forward_check", frames=2, rel_rms_err_vs_plain=errs["plain"],
         rel_rms_err_vs_chunked=errs["chunked"], tol=tol,
@@ -639,9 +583,8 @@ def check_forward(model, device, frames):
 
 
 def profiled(fn):
-    """Run fn() once under torch.profiler (after the caller's warm-up):
-    wall ms, device kernel ms by family, the device's busy share, and the
-    largest kernels."""
+    """fn() once under torch.profiler: wall ms, device kernel ms by family,
+    busy share, the largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -682,8 +625,7 @@ def profiled(fn):
 
 
 def profile_forward(model, device, frames):
-    """`--profile`: one bucketed forward (17 frames in an 18-frame bucket,
-    as on the main path) under torch.profiler."""
+    """`--profile`: one bucketed 17-frame forward under torch.profiler."""
     from vggt_slam_tpu_torch.data.images import preprocess_frames
     from vggt_slam_tpu_torch.models.vggt.model import make_bucketed_model_fn
 
@@ -694,15 +636,11 @@ def profile_forward(model, device, frames):
     log("profile", frames=17, bucket=18, **profiled(lambda: fn(images)))
 
 
-# ---------------------------------------------------------------------------
 # Phase 5: the SLAM main path
-# ---------------------------------------------------------------------------
 
 def synth_frames(n_frames: int, hw=HW, step_px: int = 60, seed: int = SEED):
-    """A camera panning over a textured plane: a low-frequency colour field,
-    sparse large shapes and light noise (the scene of the JAX package's
-    tools/synth_sequence.py, drawn with numpy and torch). Returns (H, W, 3)
-    uint8 BGR frames."""
+    """(H, W, 3) uint8 BGR frames of a camera panning over a textured plane
+    (tools/synth_sequence.py's scene)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -789,16 +727,12 @@ def drive_main_path(model, device, frames):
     return launches
 
 
-# ---------------------------------------------------------------------------
 # Phases A-D: the --qk_int8 path and the fused DPT tail
-# ---------------------------------------------------------------------------
 
 def int8_cases(device):
-    """The int8 kernels' shapes: the global block of the 18-frame SLAM
-    bucket at VGGT-1B's and the small model's widths (head dims 64 and 32;
-    the qk-norm already applied outside, as with --qk_int8), the camera
-    trunk's call of that bucket (head dim 128, valid_len 17) and the
-    training global block (pre-applied q, k)."""
+    """The int8 kernels' shapes: the 18-frame bucket's global block at both
+    widths, its camera-trunk call (D 128, valid_len 17) and the training global
+    block."""
     import torch
 
     cases = {c["name"]: c for c in main_path_attention_cases(device)}
@@ -841,12 +775,9 @@ INT8_STATS_TOL = 1e-4
 
 
 def int8_errors(got, ref, ctrl):
-    """The int8 kernel's (out, m, l) against its plain version `ref` and
-    the bf16 plain path `ctrl`. Both int8 sides share the scales and exact
-    s32 logits: m and l agree to f32 summation order (INT8_STATS_TOL
-    relative), outputs to 1e-2 of max|out| (one bf16 ulp <= 2^-7 of it).
-    The bf16 path's l must lie more than ten times INT8_STATS_TOL away, so
-    the check tells int8 QK^T from bf16."""
+    """The int8 (out, m, l) against its plain version `ref` (stats to
+    INT8_STATS_TOL relative, outputs to 1e-2 of max) and the bf16 path `ctrl`,
+    whose l must lie ten times INT8_STATS_TOL away."""
     import torch
 
     out, m, l = got
@@ -880,12 +811,9 @@ def int8_failure(e):
 
 
 def check_int8_kernels(device):
-    """Phase A: flash_multi and flash_single with qk_int8 against their
-    plain versions (the same scales, exact s32 products) and against the
-    bf16 plain path as a control (`int8_errors`), with the design each ran
-    and the bf16 kernel's time at the same shape; the call's scales pass
-    (`int8_scales_cuda`) against `int8_scales`, bit for bit, both timed as
-    CUDA graphs."""
+    """Phase A: both int8 kernels against their plain versions and the bf16
+    control (`int8_errors`), their designs and the bf16 kernel's time; the
+    scales pass bit for bit, timed as CUDA graphs."""
     import torch
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -930,9 +858,8 @@ def check_int8_kernels(device):
 
 @contextlib.contextmanager
 def int8_global(model, softmax):
-    """The model's global blocks with int8 QK^T (the qk-norm then runs
-    outside the kernel) under `softmax`, as --qk_int8 [--global_softmax]
-    configure them; restored afterwards."""
+    """The global blocks with int8 QK^T under `softmax`, as --qk_int8
+    [--global_softmax] set them, inside the block."""
     blocks = [getattr(model.aggregator, f"global_block_{d}").attn
               for d in range(model.cfg.agg_depth)]
     saved = [(b.qk_int8, b.softmax_mode) for b in blocks]
@@ -946,11 +873,10 @@ def int8_global(model, softmax):
 
 
 def check_int8_forward(model, device, frames):
-    """Phases B and C on one 18-frame bucket at 392x518: the bf16 forward
-    captures the depth head's output_conv1 activations (phase B); the int8
-    forward through the kernels against their plain versions, both softmax
-    modes, on the bf16 forward's designs (C launcher's counts); host ms of
-    each. Returns (activations, launches per mode, the bf16 designs)."""
+    """Phases B and C on an 18-frame bucket: the bf16 forward captures
+    output_conv1's activations; the int8 forward in both softmax modes against
+    the plain versions on the bf16 designs. Returns (activations, launches per
+    mode, the bf16 designs)."""
     import numpy as np
     import torch
 
@@ -1025,11 +951,8 @@ def check_int8_forward(model, device, frames):
 
 
 def check_dpt_tail(model, device, captured):
-    """Phase B: the depth head's tail on its own activations. x is
-    output_conv1's output after the column upsample, pos the head's 0.1 UV
-    embedding; the kernel against fused_tail_ref and against the head's
-    unfused chain (align-corners upsample, pos add, output_conv2_0, ReLU,
-    output_conv2_2)."""
+    """Phase B: the DPT tail on the depth head's activations against
+    fused_tail_ref and against the head's unfused chain."""
     import torch
     import torch.nn.functional as F
 
@@ -1112,9 +1035,8 @@ def check_dpt_tail(model, device, captured):
 
 
 def drive_image_folder_cli(device, per_forward):
-    """Phase D: the CLI on 24 panned 480x640 PNG frames with --qk_int8,
-    decoded and resized without OpenCV, its own VGGT-1B; `per_forward`, one
-    18-frame forward's designs (phase C), is what each forward must add."""
+    """Phase D: the CLI on 24 panned 480x640 PNGs with --qk_int8; each forward
+    adds `per_forward` (phase C's designs)."""
     import shutil
     import tempfile
 
@@ -1206,10 +1128,8 @@ def drive_image_folder_cli(device, per_forward):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# ---------------------------------------------------------------------------
 # Phase E: the frame-attention probes (vggt_slam_tpu_torch/scripts/
 # bench_attention.py, the counterpart of scripts/bench_attention.py)
-# ---------------------------------------------------------------------------
 
 PROBE_COMMAND = "python -m vggt_slam_tpu_torch.scripts.bench_attention --check"
 # kernel: (representative variant, the TPU kernel it replaces)
@@ -1230,9 +1150,8 @@ PROBE_KERNELS = {
 
 
 def _instance_patterns(variant):
-    """Demangled and mangled name patterns of a variant's kernel instance in
-    ptxas's report (grouped_sm90<G, schedule>: 0 straight, 1 interleaved,
-    2 pipelined)."""
+    """Name patterns of a variant's grouped_sm90<G, schedule> instance in
+    ptxas's report."""
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
 
     kind = variant.split(" ")[0]
@@ -1252,8 +1171,8 @@ def _instance_patterns(variant):
 
 
 def mufu_ex2_counts(lib_path):
-    """{kernel function: MUFU.EX2 instructions in its SASS}, from
-    `cuobjdump -sass`, or None where the toolkit has no cuobjdump."""
+    """{kernel: MUFU.EX2 count} from `cuobjdump -sass`, or None without
+    cuobjdump."""
     import re
     import shutil
 
@@ -1290,11 +1209,10 @@ def run_probe_script(BA, argv):
 
 
 def check_grouped_tiled(device):
-    """The nine grouped, interleaved and pipelined instances at the small
-    (S 2, H 4, N 100 -> 128) and frame shapes, into NaN-filled outputs,
-    held to the plain version at their key tile (`BA.tiled_error`), each
-    launch one of grouped_sm90 by the C count. Returns {variant: {shape:
-    (max abs err, share of the tolerance, block_k)}}."""
+    """The nine grouped, interleaved and pipelined instances at the small and
+    frame shapes, into NaN-filled outputs, held at their key tile
+    (`BA.tiled_error`), each one grouped_sm90 launch. Returns {variant: {shape:
+    (err, share of tol, block_k)}}."""
     import torch
 
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
@@ -1325,16 +1243,11 @@ def check_grouped_tiled(device):
 
 
 def check_probe_kernels(device):
-    """Phase E: the probe script's main with --check at the SLAM frame
-    attention (S 18 x H 16, N 1041 -> 1152, D 64): every probe kernel at
-    every G and schedule against its plain version (softmax-only
-    bit-exact, else 1e-2 of max|ref|), timed beside flash_single and SDPA;
-    the grouped kernels at their key tile (`check_grouped_tiled`); a
-    padded-keys control that must be rejected; ptxas registers and spills;
-    one exp2 a logit in the softmax-only kernel (SASS count where cuobjdump
-    is found, its time against the measured exp2 rate); then the script at
-    its defaults. Every grouped and pipelined launch one of grouped_sm90
-    by the C count."""
+    """Phase E: bench_attention's main with --check at the frame shape (288 x
+    1152 x 64): every kernel against its plain version, timed beside
+    flash_single and SDPA; `check_grouped_tiled`; a padded-keys control; ptxas
+    registers; the softmax-only kernel's exp2 count; then the script at its
+    defaults."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -1421,10 +1334,8 @@ def check_probe_kernels(device):
 
 
 def expect_probe_design(BA, before):
-    """Every grouped and pipelined launch since the counts were reset was
-    one of grouped_sm90, and every matmul-only launch one of global_sm90,
-    by the C launcher's counts (`before` its counts then). Returns
-    {"tma_wgmma": grouped_sm90 launches, "global_sm90": launches}."""
+    """Every grouped and pipelined launch since `before` ran grouped_sm90 and
+    every matmul-only launch global_sm90. Returns both counts."""
     now = BA.design_launches()
     n = {d: now[d] - before[d] for d in now}
     calls = BA.LAUNCHES["grouped"] + BA.LAUNCHES["pipelined"]
@@ -1471,11 +1382,9 @@ def probe_kernel_entries(results, launches):
     return entries
 
 
-# ---------------------------------------------------------------------------
 # Phase F: the global-shape probes (vggt_slam_tpu_torch/scripts/
 # bench_global_attention.py, bench_softmax_variants.py and
 # bench_int8_inkernel.py, the counterparts of the scripts of those names)
-# ---------------------------------------------------------------------------
 
 GLOBAL_PROBE_ITERS = "4"
 # script: (its LAUNCHES key, its kernel template, the TPU kernel it replaces,
@@ -1500,8 +1409,8 @@ GLOBAL_SM90_DESIGN = ("tma_wgmma (global_sm90: TMA ring refilled by release "
 
 
 def global_ptxas(report, template, mode, bq, bk):
-    """(registers, spill-store bytes) of instance <bq, bk, mode> of
-    `template` in `ptxas_report`'s result; (None, None) if absent."""
+    """(registers, spill bytes) of <bq, bk, mode> of `template` in a
+    `ptxas_report`; (None, None) if absent."""
     registers, spills = report
     patterns = (f"{template}<{bq}, {bk}, {mode}>(",
                 f"{template}ILi{bq}ELi{bk}ELi{mode}EE")
@@ -1510,13 +1419,10 @@ def global_ptxas(report, template, mode, bq, bk):
 
 
 def check_global_probes():
-    """Phase F: each global-shape probe script's main at its defaults (BH
-    16, N 34353 -> 34816, D 64) with --check --iters GLOBAL_PROBE_ITERS:
-    every mode and tiling against its plain version (1e-2 of max|ref|;
-    other tilings on a 2048-row slab), the int8 controls, every launch one
-    global_sm90 launch by the C count, ptxas registers of every instance
-    (none missing, no spill). Returns {script: (result, launches,
-    global_sm90 launches)}."""
+    """Phase F: each global-shape script's main with --check --iters
+    GLOBAL_PROBE_ITERS: every mode and tiling against its plain version, the
+    int8 controls, one global_sm90 launch a call, ptxas registers. Returns
+    {script: (result, launches, global_sm90 launches)}."""
     import importlib
 
     import torch
@@ -1599,10 +1505,8 @@ def global_probe_entries(results):
     return entries
 
 
-# ---------------------------------------------------------------------------
 # Phase G: the matmul-shape probes (vggt_slam_tpu_torch/scripts/
 # bench_matmul_shapes.py, the counterpart of scripts/bench_matmul_shapes.py)
-# ---------------------------------------------------------------------------
 
 MATMUL_COMMAND = ("python -m vggt_slam_tpu_torch.scripts.bench_matmul_shapes "
                   "--check")
@@ -1617,10 +1521,9 @@ MATMUL_PROBES = {
 
 
 def check_matmul_probes():
-    """Phase G: the script's main with --check at its defaults: every line,
-    the controls at both B 528 shapes, every C-entry call one mm_sm90
-    launch by the C count, ptxas registers per instance (none missing).
-    Returns (result, launches, launches by design)."""
+    """Phase G: the script's main with --check: every line, the B 528 controls,
+    one mm_sm90 launch a C call, ptxas registers. Returns (result, launches,
+    designs)."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -1660,8 +1563,8 @@ def check_matmul_probes():
 
 
 def mm_ptxas(report, bn):
-    """(registers, spill-store bytes) of mm_sm90<bn> in `ptxas_report`'s
-    result, by demangled or mangled name; (None, None) if absent."""
+    """(registers, spill bytes) of mm_sm90<bn> in a `ptxas_report`; (None,
+    None) if absent."""
     registers, spills = report
     patterns = (f"mm_sm90<{bn}>(", f"mm_sm90ILi{bn}EE")
     return next(((r, spills.get(f, 0)) for f, r in registers.items()
@@ -1695,14 +1598,12 @@ def matmul_probe_entries(out, launches, designs):
     return entries
 
 
-# ---------------------------------------------------------------------------
 # Phases 7-9: training at VGGT-1B width, and the train_tiny CLI
-# ---------------------------------------------------------------------------
 
 def training_model(device):
-    """VGGT-1B width and depth with seeded random weights drawn on the
-    card, in the training configuration: flash_grad attention, activation
-    checkpointing, exact global attention, no point head, bf16 compute."""
+    """VGGT-1B with seeded weights on the card, configured for training
+    (flash_grad, checkpointing, exact global attention, no point head,
+    bf16)."""
     from vggt_slam_tpu_torch.main import build_model
     from vggt_slam_tpu_torch.models.vggt.config import VGGTConfig
 
@@ -1729,10 +1630,9 @@ GRAD_LEAVES = {
 
 
 def check_backward(device):
-    """Gradient of a 2-frame VGGT-1B training loss through the kernels
-    against the same gradient through their plain versions: the relative
-    RMS difference of named leaves, and of every attention projection in
-    forward order (to find where the two parted, should a leaf fail)."""
+    """A 2-frame VGGT-1B loss's gradient through the kernels against the plain
+    versions: relative RMS of named leaves and of every attention projection in
+    forward order."""
     import torch
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -1777,10 +1677,9 @@ def check_backward(device):
 
 
 def drive_training(device, n_steps=3, profile=False):
-    """The training path at VGGT-1B width and depth: `n_steps` of
-    make_train_step (AdamW, lr 1e-4, weight decay 0.05) on one 4-frame
-    synth3d batch at 392x518. Returns the launches of those steps and of
-    the last one. `profile`: one more step under torch.profiler."""
+    """`n_steps` of make_train_step at VGGT-1B on one 4-frame synth3d batch.
+    Returns the steps' launches and the last one's; `profile` adds a profiled
+    step."""
     import torch
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -1845,21 +1744,17 @@ def drive_training(device, n_steps=3, profile=False):
 
 
 def backward_designs(cfg, n_steps) -> dict:
-    """flash_bwd launches by design in `n_steps` training steps of a
-    VGGTConfig-`cfg` model: each encoder, frame and global block once a
-    step, each camera-trunk block at each iteration (activation
-    checkpointing recomputes forwards, not backwards), all on
-    flash_bwd_sm90.cuh ("tma_wgmma")."""
+    """flash_bwd launches by design in `n_steps` steps of a `cfg` model (each
+    camera-trunk block at each iteration), all "tma_wgmma"."""
     return {"tma_wgmma": n_steps * (cfg.enc_depth + 2 * cfg.agg_depth
                                     + cfg.cam_trunk_depth
                                     * cfg.cam_iterations)}
 
 
 def small_forward_launches(cfg) -> dict:
-    """Kernel launches of one forward of a VGGTConfig-`cfg` model on 4
-    frames of HW: each encoder and frame block and each camera-trunk block
-    at each iteration runs flash_single, each global block (4 frames of
-    1041 tokens, static softmax) flash_multi."""
+    """Launches of one 4-frame forward of a `cfg` model: flash_single for the
+    encoder, frame and camera-trunk blocks, flash_multi for the global
+    blocks."""
     from vggt_slam_tpu_torch.ops import attention as A
 
     want = dict.fromkeys(A.LAUNCHES, 0)
@@ -1870,11 +1765,8 @@ def small_forward_launches(cfg) -> dict:
 
 
 def drive_cli(device):
-    """`python -m vggt_slam_tpu_torch.tools.train_tiny` on the small model
-    for 6 steps into a temporary directory; its checkpoint must load into
-    the port's VGGT(small) and give a finite forward on the card, the small
-    model's own path: its launches (counts set to 0 just before it) and the
-    design its kernels ran (flash_sm90.cuh) are checked."""
+    """train_tiny on the small model for 6 steps; its checkpoint's forward on
+    the card with its launches and design checked."""
     import os
     import shutil
     import tempfile
@@ -1939,30 +1831,25 @@ def drive_cli(device):
         shutil.rmtree(out, ignore_errors=True)
 
 
-# ---------------------------------------------------------------------------
 # Phases H, S, L: the torch-checkpoint converters, SALAD at full width, and
 # loop closure through the CLI
-# ---------------------------------------------------------------------------
 
 SALAD_TOL = 2e-2      # L2 distance of a descriptor from the plain f32 path
 LOOP_SEQ_SEED = 4_000_000     # evals/smoke_loop.py's sequence
 
 
 def unit_salad_weight(key: str) -> bool:
-    """The seeded SALAD checkpoint's LayerNorm weights and LayerScale
-    gammas, drawn as 1 (the rest N(0, 0.02)). With every tensor N(0, 0.02)
-    the attention hardly reaches the descriptor and panned frames'
-    descriptors nearly coincide, so phase S's controls (another frame's
-    descriptor, the attention zeroed) could not be rejected."""
+    """The seeded SALAD checkpoint's LayerNorm weights and LayerScale gammas,
+    drawn as 1: with all tensors N(0, 0.02) phase S's controls could not be
+    rejected."""
     return key.endswith(".gamma") or (".norm" in key
                                       and key.endswith(".weight"))
 
 
 def check_converters(tmp):
-    """Phase H: both converters over zero weights broadcast from the
-    released manifests (tests/data/manifest_*.json), every parameter
-    filled; then a seeded dino_salad-layout checkpoint through the SALAD
-    converter into an npz for phases S and L. Returns its path."""
+    """Phase H: both converters over the released manifests; then a seeded
+    dino_salad checkpoint converted into an npz for phases S and L. Returns its
+    path."""
     import torch
 
     from vggt_slam_tpu_torch.models import retrieval as R
@@ -2016,9 +1903,8 @@ def check_converters(tmp):
 
 @contextlib.contextmanager
 def zero_attention():
-    """Inside the block every attention of the port's modules returns
-    zeros (`attention`, and `flash_single`, which CLIP's vision tower
-    calls): the output of a kernel that wrote nothing."""
+    """Every attention of the port's modules (`attention`, `flash_single`)
+    returns zeros inside the block."""
     import torch
 
     from vggt_slam_tpu_torch.models.vggt import modules
@@ -2034,12 +1920,11 @@ def zero_attention():
 
 
 def check_salad(device, npz, frames):
-    """Phase S: SALAD at full width (DINOv2-B/14, 224 px, 8448-D) on phase
-    H's weights and 17 frames: 12 flash_single a call, all flash_sm90.cuh
-    by the C count; unit descriptors within SALAD_TOL (L2) of the plain
-    f32 path, which another frame's and the zeroed-attention descriptors
-    must exceed; ms a call; flash_single at (204, 257, 64) against its
-    plain version, SDPA and the bound. Returns the row's SALAD entry."""
+    """Phase S: SALAD at full width on phase H's weights and 17 frames: 12
+    flash_single a call by design; descriptors within SALAD_TOL (L2) of the
+    plain path, which another frame's and the zeroed-attention ones must
+    exceed; flash_single at (204, 257, 64) timed. Returns the row's SALAD
+    entry."""
     import torch
 
     from vggt_slam_tpu_torch.data.images import preprocess_frames
@@ -2124,19 +2009,16 @@ def check_salad(device, npz, frames):
             **res["flash_single"]}
 
 
-# Phase L's CLI runs: the tiny backend at evals/smoke_loop.py's settings;
-# SALAD on phase H's weights at the CLI's defaults (submap 16: SALAD's
-# batch is the 17-frame bucket, B*H = 204) but smoke_loop's keyframe
-# disparity, without which this sequence gives one submap.
+# Phase L's runs: tiny at smoke_loop's settings; SALAD on phase H's weights
+# at the CLI's defaults (B*H = 204) but smoke_loop's keyframe disparity.
 LOOP_RUNS = (("tiny", ("--submap_size", "4", "--max_loops", "3",
                        "--min_disparity", "8")),
              ("salad", ("--min_disparity", "8")))
 
 
 def loop_cli_run(device, seq, backend, extra=()):
-    """The CLI's run_slam on the loop sequence at VGGT-1B width (seeded
-    random weights): loops detected, inserted and rejected by the gate,
-    the TUM log, the ATE against groundtruth.txt (random weights)."""
+    """run_slam on the loop sequence at VGGT-1B (seeded weights): loops
+    detected, inserted, rejected; the TUM log and its ATE."""
     import numpy as np
 
     from vggt_slam_tpu_torch.evals.ate import ate_from_files
@@ -2202,14 +2084,12 @@ def run_smoke_loop(*argv):
 
 
 def drive_loop_closure(device, npz):
-    """Phase L: a 40-frame loop sequence (write_tum_sequence); the CLI at
-    VGGT-1B with the tiny backend and with SALAD (LOOP_RUNS; the SALAD
-    run's forward calls the tiny run's a submap plus 12 flash_single a
-    submap), each with >= 1 loop and every detection inserted or rejected,
-    or with >= 1 loop factor at --loop_inlier_thresh 0; phases V, W, P and
-    M on the sequence; then evals/smoke_loop.py, rerun without the gate
-    where the gate rejected every loop it found (the first exit code
-    logged). Returns the SALAD run's launches and phase P's entry."""
+    """Phase L: a 40-frame loop sequence through the CLI at VGGT-1B with the
+    tiny and SALAD backends (>= 1 loop, each detection inserted or rejected, or
+    a loop factor without the gate); phases V, W, P, M and N on it; then
+    evals/smoke_loop.py (rerun without the gate where the gate rejected every
+    loop). Returns the SALAD run's launches and {"clip": phase P's entry,
+    "siglip": phase N's}."""
     import re
     import shutil
 
@@ -2235,9 +2115,7 @@ def drive_loop_closure(device, npz):
                     raise AssertionError(f"{backend}: no loop factor "
                                          f"without the gate")
             torch.cuda.empty_cache()
-        # a VGGT forward a submap (88 forward calls at 1B, the global
-        # blocks on flash_single or flash_multi by the bucket), and in the
-        # SALAD run one 12-call SALAD forward a submap
+        # a VGGT forward a submap (88 calls at 1B), plus 12 SALAD's in SALAD's
         tiny, salad = runs["tiny"], runs["salad"]
         per_forward = forward_calls(tiny["launches"]) / tiny["submaps"]
         want = salad["submaps"] * (per_forward + 12)
@@ -2247,9 +2125,11 @@ def drive_loop_closure(device, npz):
                                  f"calls")
         drive_viewer_and_evals(device, seq)
         drive_semantics(device, seq)
-        os.makedirs(os.path.join(seq, "clip"))
-        clip = drive_clip(device, seq, os.path.join(seq, "clip"))
+        encoders = {"clip": drive_encoders(device, seq,
+                                           os.path.join(seq, "clip"))}
         drive_sam2(device, seq, os.path.join(seq, "clip"))
+        encoders["siglip"] = drive_encoders(
+            device, seq, os.path.join(seq, "siglip"), "siglip")
     finally:
         shutil.rmtree(seq, ignore_errors=True)
     rc, out = run_smoke_loop()
@@ -2262,20 +2142,18 @@ def drive_loop_closure(device, npz):
         if rc != 0:
             raise AssertionError(f"smoke_loop without the gate failed "
                                  f"({rc}): {out[-3000:]}")
-    return salad["launches"], clip
+    return salad["launches"], encoders
 
 
-# ---------------------------------------------------------------------------
 # Phase V: the rest of the CLI (COLMAP alignment, the profiler trace, the
 # viewer, GLB export) and the host evals, on phase L's sequence
-# ---------------------------------------------------------------------------
 
 ALIGN_SIM3 = (1.5, (0.3, -0.2, 0.1), (0.5, -1.0, 2.0))  # s, axis-angle, t
 
 
 def write_colmap_images(seq, path):
-    """images.txt putting each frame's camera at its groundtruth.txt centre
-    under ALIGN_SIM3 (identity orientations; the alignment reads centres)."""
+    """images.txt with each frame's camera at its groundtruth.txt centre under
+    ALIGN_SIM3 (identity orientations)."""
     import numpy as np
 
     s, w, t = ALIGN_SIM3
@@ -2340,8 +2218,8 @@ def load_viser_stub():
 
 
 def viewer_cli_run(device, seq, tmp):
-    """The CLI at VGGT-1B width (tiny backend, submap 16) with the COLMAP
-    alignment, the outputs, the trace and the viewer on tests/viser_stub."""
+    """The CLI at VGGT-1B (tiny backend, submap 16) with the COLMAP alignment,
+    the outputs, the trace and the viewer stub."""
     import io
     import re
 
@@ -2436,9 +2314,8 @@ def viewer_cli_run(device, seq, tmp):
 
 
 def drive_viewer_and_evals(device, seq):
-    """Phase V on phase L's sequence: the CLI's COLMAP alignment, trace,
-    viewer and GLB; run_eval --in_process and process_logs; geometry_eval
-    with the g++-built kd-tree against cKDTree; pipeline_overlap."""
+    """Phase V: the CLI's COLMAP alignment, trace, viewer and GLB; run_eval,
+    process_logs, geometry_eval (kd-tree against cKDTree), pipeline_overlap."""
     import numpy as np
     import torch
     from scipy.spatial import cKDTree
@@ -2507,18 +2384,16 @@ def drive_viewer_and_evals(device, seq):
     log("phase_v", seconds=time.perf_counter() - t_phase)
 
 
-# ---------------------------------------------------------------------------
 # Phase W: the semantic voxel map on phase L's sequence
-# ---------------------------------------------------------------------------
 
 SEMANTIC_TARGET = 128       # the embedder's square size (the Solver resizes)
 VOXEL_SIZE = 0.05
 
 
 def voxelize_errors(got, centers, counts, means, feats):
-    """voxelize_device's output on the card against voxelize_np's first
-    num voxels: (centres equal, counts equal, means within mean_tolerance,
-    the largest mean error)."""
+    """voxelize_device's output against voxelize_np's first num voxels:
+    (centres equal, counts equal, means within mean_tolerance, largest mean
+    error)."""
     import numpy as np
 
     from vggt_slam_tpu_torch.ops.voxel import mean_tolerance
@@ -2535,11 +2410,9 @@ def voxelize_errors(got, centers, counts, means, feats):
 
 
 def check_voxelize(device, pts, feats, V):
-    """voxelize_device on the card against voxelize_np on the map's own
-    points, at capacity V + 1 and V // 2 (against voxelize_np's first V // 2
-    voxels), then points shifted by half a voxel, which the check must
-    reject; device ms by CUDA events, the host path's seconds. Returns
-    (the results, voxelize_np's (centers, means, counts))."""
+    """voxelize_device against voxelize_np on the map's points at capacity V +
+    1 and V // 2, then a half-voxel shift it must reject; both timed. Returns
+    (results, voxelize_np's (centers, means, counts))."""
     import numpy as np
     import torch
 
@@ -2574,12 +2447,9 @@ def check_voxelize(device, pts, feats, V):
 
 
 def drive_semantics(device, seq):
-    """Phase W on phase L's sequence: the embedder CLI (Felzenszwalb
-    masks); the CLI at VGGT-1B with --semantic_emb_dir --get_voxel
-    --voxel_save_dir (every forward tma_wgmma); the saved map reloaded
-    (finite, contributors frames of the sequence, voxelize_np's centres,
-    means within mean_tolerance); `check_voxelize`; query_voxelmap --top_k
-    5 --visualize on the viser stub."""
+    """Phase W: the embedder CLI; the CLI at VGGT-1B with --get_voxel; the
+    saved map reloaded and checked; `check_voxelize`; query_voxelmap
+    --visualize on the viser stub."""
     import io
 
     import numpy as np
@@ -2704,48 +2574,69 @@ def drive_semantics(device, seq):
     log("phase_w", seconds=time.perf_counter() - t_phase)
 
 
-# ---------------------------------------------------------------------------
-# Phase P: CLIP ViT-B/32 and its tokenizer on the card, then the semantic map
-# on CLIP's features
-# ---------------------------------------------------------------------------
+# Phases P and N: CLIP ViT-B/32 and SigLIP base-patch16-224 with their
+# tokenizers on the card, then the semantic map on their features
 
-CLIP_TOL = SALAD_TOL   # L2 distance of a unit feature from the plain f32 path
-CLIP_TEXT_TOL = 1e-4   # the text tower on the card against the CPU
-CLIP_FRAMES = 8        # phase P's stretch of phase L's sequence
+ENCODER_TOL = SALAD_TOL   # L2 distance of a unit feature from the plain path
+CLIP_TEXT_TOL = 1e-4      # CLIP's causal text tower (plain) against the CPU
 CLIP_MERGES = ("c h", "a i", "ai r</w>", "ch air</w>", "t a", "b l",
                "ta bl", "tabl e</w>", "d o", "o r</w>", "do or</w>", "c a",
                "ca t</w>")
-CLIP_QUERIES = ("a chair", "a table by the door", "IT'S a photo of a cat!",
-                "½ cup ٣ café", "")
+QUERIES = ("a chair", "a table by the door", "IT'S a photo of a cat!",
+           "½ cup ٣ café", "")
+# family: (phase, frames of phase L's sequence, d, vision tokens, manifest,
+# its values, whether the text tower runs flash_single)
+ENCODERS = {"clip": ("P", 8, 512, 50, "manifest_clip_vit_b32.json",
+                     151_277_313, False),
+            "siglip": ("N", 4, 768, 196, "manifest_siglip_b16.json",
+                       203_155_970, True)}
 
 
-def write_clip_checkpoint(path, device):
-    """A ViT-B/32 checkpoint directory: transformers' config.json,
-    pytorch_model.bin of seeded weights (`clip.init_torch_state_dict`)
-    whose keys and shapes must be tests/data/manifest_clip_vit_b32.json's,
-    an authored vocab.json and merges.txt (the byte symbols, their </w>
-    forms, CLIP_MERGES, the specials). Returns (values, seconds)."""
+def encoder_module(family):
+    from vggt_slam_tpu_torch.models import clip, siglip
+    M = clip if family == "clip" else siglip
+    cfg = M.CLIPConfig.base_patch32() if family == "clip" else \
+        M.SigLIPConfig.base_patch16_224()
+    return M, cfg
+
+
+def write_encoder_checkpoint(path, device, family="clip"):
+    """A full-width checkpoint directory: config.json, seeded pytorch_model.bin
+    equal to the family's tests/data manifest, and a vocabulary (CLIP:
+    vocab.json, merges.txt; SigLIP: spiece.model). Returns (values,
+    seconds)."""
+    import string
+
     import torch
 
-    from vggt_slam_tpu_torch.models import clip as M
-    from vggt_slam_tpu_torch.models.clip_tokenizer import bytes_to_unicode
-
+    M, cfg = encoder_module(family)
+    *_, manifest, want, _ = ENCODERS[family]
     t0 = time.perf_counter()
-    cfg = M.CLIPConfig.base_patch32()
     g = torch.Generator(device=device).manual_seed(SEED)
     sd = {k: v.cpu() for k, v in M.init_torch_state_dict(cfg, g).items()}
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "tests", "data", "manifest_clip_vit_b32.json")) \
-            as f:
+                           "tests", "data", manifest)) as f:
         manifest = {k: tuple(v) for k, v in json.load(f).items()}
     values = sum(v.numel() for v in sd.values())
     if {k: tuple(v.shape) for k, v in sd.items()} != manifest or \
-            values != 151_277_313:
+            values != want:
         raise AssertionError(f"the seeded checkpoint ({len(sd)} keys, "
                              f"{values} values) is not the manifest's")
     torch.save(sd, os.path.join(path, "pytorch_model.bin"))
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(cfg.to_hf_dict(), f)
+    if family == "siglip":
+        from vggt_slam_tpu_torch.models.siglip_tokenizer import \
+            SigLIPTokenizer, write_spiece_model
+        words = sorted({w for q in QUERIES
+                        for w in SigLIPTokenizer.canonicalize(q).split()})
+        pieces = [("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2),
+                  ("▁", -4.0, 1)] + [("▁" + w, -1.0, 1) for w in words] + \
+            [(c, -5.0, 1) for c in string.ascii_letters + string.digits]
+        with open(os.path.join(path, "spiece.model"), "wb") as f:
+            f.write(write_spiece_model(pieces))
+        return values, time.perf_counter() - t0
+    from vggt_slam_tpu_torch.models.clip_tokenizer import bytes_to_unicode
     vocab = list(bytes_to_unicode().values())
     vocab += [v + "</w>" for v in vocab]
     vocab += ["".join(m.split()) for m in CLIP_MERGES]
@@ -2759,9 +2650,8 @@ def write_clip_checkpoint(path, device):
 
 @contextlib.contextmanager
 def permuted_keys():
-    """Inside the block flash_single sees each crop's keys rolled by one
-    token against its values: a kernel that pairs keys with the wrong
-    values."""
+    """flash_single sees each row's keys rolled by one token against its
+    values: a kernel that pairs keys with the wrong values."""
     from vggt_slam_tpu_torch.ops import attention as A
 
     flash = A.flash_single
@@ -2792,20 +2682,81 @@ def clip_crops(seq, n, size, seed=SEED):
     return out
 
 
-def check_clip(device, ckpt, seq):
-    """CLIP's vision tower through resolve_clip_encoders: 100 crops at 224
-    px and 6 at 180 x 150, 12 flash_single a chunk (tma_wgmma by the C
-    count), unit features within CLIP_TOL (L2) of the plain f32 path,
-    which the zeroed-attention and permuted-keys controls must exceed; the
-    text tower within CLIP_TEXT_TOL of the CPU; the vision forward at a
-    batch of 64 and flash_single at (64, 50, 12, 64) timed."""
+def kernel_vs_plain(fn, model):
+    """fn() on the kernel (its launches and designs), then plain, with zeroed
+    attention and with permuted keys: (features, launches, designs, max L2 from
+    plain, the controls' min L2)."""
     import numpy as np
     import torch
 
-    from vggt_slam_tpu_torch.models import clip as M
     from vggt_slam_tpu_torch.ops import attention as A
+
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    before = A.forward_design_launches()
+    feats = fn()
+    launches = dict(A.LAUNCHES)
+    designs = {d: n - before[d]
+               for d, n in A.forward_design_launches().items()}
+    model.set_attn_impl("plain")
+    ref = fn()
+    model.set_attn_impl("flash")
+    with zero_attention():
+        zeroed = fn()
+    with permuted_keys():
+        permuted = fn()
+
+    def l2(a):
+        return np.linalg.norm(a - ref, axis=1)
+
+    return feats, launches, designs, float(l2(feats).max()), {
+        "zero_attention_min_l2": float(l2(zeroed).min()),
+        "permuted_keys_min_l2": float(l2(permuted).min())}
+
+
+def flash_single_at(device, B, N):
+    """flash_single at (B, N, 12, 64) against its plain version, timed
+    beside it and SDPA, with its bound."""
+    import torch
+
+    from vggt_slam_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    case = dict(kw=dict(num_heads=12))
+    q, k, v = case["q"], case["k"], case["v"] = tuple(
+        torch.randn(B, N, 768, generator=g, device=device).to(
+            torch.bfloat16) for _ in range(3))
+    with torch.no_grad():
+        err = float((A.flash_single(q, k, v, num_heads=12).float()
+                     - A.flash_single_ref(q, k, v, num_heads=12).float()
+                     ).abs().max())
+        res = {"shape_b_n_h_d": [B, N, 12, 64], "max_abs_err": err,
+               "ms": cuda_ms(lambda: A.flash_single(q, k, v, num_heads=12),
+                             20),
+               "plain_ms": cuda_ms(lambda: A.flash_single_ref(
+                   q, k, v, num_heads=12), 5),
+               "library_ms": cuda_ms(sdpa_call(case), 20)}
+    res["bound_ms"], res["bound_by"], res["bound_unit"] = \
+        attention_bound_ms(case)
+    if err > 2e-2:
+        raise AssertionError(f"flash_single at ({B}, {N}): {err}")
+    return res
+
+
+def check_encoders(device, ckpt, seq, family):
+    """The family's encoders through resolve_clip_encoders on 100 crops at 224
+    px and 6 at 180 x 150: 12 flash_single a chunk by design, within
+    ENCODER_TOL (L2) of the plain path, which the controls must exceed; the
+    text tower held so where it runs the kernel (SigLIP), else within
+    CLIP_TEXT_TOL of the CPU; the vision forward at 64 and flash_single
+    timed."""
+    import numpy as np
+    import torch
+
     from vggt_slam_tpu_torch.semantic.embedder import resolve_clip_encoders
 
+    M, _ = encoder_module(family)
+    _, _, d, tokens, _, _, text_flash = ENCODERS[family]
     t0 = time.perf_counter()
     encode_crops, encode_text = resolve_clip_encoders(ckpt, "auto",
                                                       str(device))
@@ -2813,109 +2764,77 @@ def check_clip(device, ckpt, seq):
     model = encode_crops.model
     crops = clip_crops(seq, 100, (224, 224))
     odd = clip_crops(seq, 6, (180, 150), seed=SEED + 1)
-
-    def both():
-        return np.concatenate([encode_crops(crops), encode_crops(odd)])
-
-    torch.cuda.synchronize()
-    A.reset_launch_counts()
-    before = A.forward_design_launches()
     t0 = time.perf_counter()
-    feats = both()
+    feats, launches, designs, err, ctrl = kernel_vs_plain(
+        lambda: np.concatenate([encode_crops(crops), encode_crops(odd)]),
+        model)
     encode_s = time.perf_counter() - t0
-    launches = dict(A.LAUNCHES)
-    designs = {d: n - before[d]
-               for d, n in A.forward_design_launches().items()}
-    model.set_attn_impl("plain")
-    ref = both()
-    model.set_attn_impl("flash")
-    with zero_attention():
-        zeroed = both()
-    with permuted_keys():
-        permuted = both()
-
-    def l2(a):
-        return np.linalg.norm(a - ref, axis=1)
-
-    text = encode_text(list(CLIP_QUERIES))
-    _, cpu_text = M.make_encoders(ckpt, device="cpu")
-    text_ref = cpu_text(list(CLIP_QUERIES))
-
-    x = M.preprocess_images(torch.from_numpy(crops[:64]).to(device), 224)
-    with torch.no_grad():
-        vision_ms = cuda_ms(lambda: model.encode_image(x), 10)
-        model.set_attn_impl("plain")
-        plain_vision_ms = cuda_ms(lambda: model.encode_image(x), 10)
-        model.set_attn_impl("flash")
-    g = torch.Generator(device=device).manual_seed(SEED)
-    B, N, H, D = 64, 50, 12, 64
-    case = dict(kw=dict(num_heads=H))
-    case["q"], case["k"], case["v"] = (
-        torch.randn(B, N, H * D, generator=g, device=device).to(
-            torch.bfloat16) for _ in range(3))
-    q, k, v = case["q"], case["k"], case["v"]
-    with torch.no_grad():
-        err = float((A.flash_single(q, k, v, num_heads=H).float()
-                     - A.flash_single_ref(q, k, v, num_heads=H).float()
-                     ).abs().max())
-        kernel_ms = cuda_ms(lambda: A.flash_single(q, k, v, num_heads=H), 20)
-        plain_ms = cuda_ms(lambda: A.flash_single_ref(q, k, v, num_heads=H),
-                           5)
-        sdpa_ms = cuda_ms(sdpa_call(case), 20)
-    bound, bound_by, unit = attention_bound_ms(case)
-    chunks, per_chunk = 2 + 1, model.cfg.vision_layers    # 12 at ViT-B
+    per_chunk, chunks = 12, 2 + 1
     res = {"crops": len(feats), "d": int(feats.shape[1]), "load_s": load_s,
            "encode_s": encode_s, "launches": launches, "designs": designs,
-           "max_l2_from_plain": float(l2(feats).max()), "tol": CLIP_TOL,
-           "zero_attention_min_l2": float(l2(zeroed).min()),
-           "permuted_keys_min_l2": float(l2(permuted).min()),
+           "max_l2_from_plain": err, "tol": ENCODER_TOL, **ctrl,
            "norm_err": float(np.abs(np.linalg.norm(feats, axis=1) - 1).max()),
-           "finite": bool(np.isfinite(feats).all()),
-           "text_max_abs_err": float(np.abs(text - text_ref).max()),
-           "text_tol": CLIP_TEXT_TOL,
-           "vision_ms_batch64": vision_ms,
-           "plain_vision_ms_batch64": plain_vision_ms,
-           "crops_per_s": 64e3 / vision_ms, "launches_per_chunk": per_chunk,
-           "flash_single": {"shape_b_n_h_d": [B, N, H, D],
-                            "max_abs_err": err, "ms": kernel_ms,
-                            "plain_ms": plain_ms, "library_ms": sdpa_ms,
-                            "bound_ms": bound, "bound_by": bound_by,
-                            "bound_unit": unit}}
-    log("clip", **res)
-    if not res["finite"] or feats.shape != (106, 512) or \
-            res["norm_err"] > 1e-4 or text.shape != (len(CLIP_QUERIES), 512):
-        raise AssertionError(f"CLIP features {feats.shape}, finite "
+           "finite": bool(np.isfinite(feats).all())}
+    want = {"flash_single": per_chunk * chunks}
+    if text_flash:
+        text, tl, td, terr, tctrl = kernel_vs_plain(
+            lambda: encode_text(list(QUERIES)), model)
+        res.update(text_launches=tl, text_designs=td,
+                   text_max_l2_from_plain=terr,
+                   **{"text_" + k: v for k, v in tctrl.items()})
+        ctrl.update({"text_" + k: v for k, v in tctrl.items()})
+        if terr > ENCODER_TOL or td != {"tma_wgmma": per_chunk} or \
+                tl != {n: per_chunk * (n == "flash_single") for n in tl}:
+            raise AssertionError(f"{family}'s text tower on the kernel: "
+                                 f"{terr} from plain, {tl}, {td}")
+    else:
+        text = encode_text(list(QUERIES))
+        _, cpu_text = M.make_encoders(ckpt, device="cpu")
+        res["text_max_abs_err"] = float(np.abs(
+            text - cpu_text(list(QUERIES))).max())
+        if res["text_max_abs_err"] > CLIP_TEXT_TOL:
+            raise AssertionError(f"CLIP's text tower on the card lies "
+                                 f"{res['text_max_abs_err']} from the CPU")
+    x = M.preprocess_images(torch.from_numpy(crops[:64]).to(device), 224)
+    with torch.no_grad():
+        res["vision_ms_batch64"] = cuda_ms(lambda: model.encode_image(x), 10)
+        model.set_attn_impl("plain")
+        res["plain_vision_ms_batch64"] = cuda_ms(
+            lambda: model.encode_image(x), 10)
+        model.set_attn_impl("flash")
+    res["crops_per_s"] = 64e3 / res["vision_ms_batch64"]
+    res["launches_per_chunk"] = per_chunk
+    res["flash_single"] = flash_single_at(device, 64, tokens)
+    if text_flash:
+        res["flash_single_text"] = flash_single_at(device, 64, 64)
+    log(family, **res)
+    if not res["finite"] or feats.shape != (106, d) or \
+            res["norm_err"] > 1e-4 or text.shape != (len(QUERIES), d):
+        raise AssertionError(f"{family} features {feats.shape}, finite "
                              f"{res['finite']}, |norm - 1| "
                              f"{res['norm_err']}, text {text.shape}")
-    if launches != {n: per_chunk * chunks * (n == "flash_single")
-                    for n in launches} or \
+    if launches != {n: want.get(n, 0) for n in launches} or \
             designs != {"tma_wgmma": per_chunk * chunks}:
-        raise AssertionError(f"CLIP's {chunks} chunks launched {launches}, "
-                             f"{designs} by design: not {per_chunk} "
-                             f"flash_single a chunk on flash_sm90.cuh")
-    if res["max_l2_from_plain"] > CLIP_TOL:
-        raise AssertionError(f"CLIP on the kernel lies "
-                             f"{res['max_l2_from_plain']} from its plain "
-                             f"path (tol {CLIP_TOL})")
-    for ctrl in ("zero_attention_min_l2", "permuted_keys_min_l2"):
-        if res[ctrl] <= CLIP_TOL:
-            raise AssertionError(f"{ctrl} {res[ctrl]} lies within the "
-                                 f"tolerance: the check cannot reject it")
-    if res["text_max_abs_err"] > CLIP_TEXT_TOL:
-        raise AssertionError(f"CLIP's text tower on the card lies "
-                             f"{res['text_max_abs_err']} from the CPU")
-    if err > 2e-2:
-        raise AssertionError(f"flash_single at CLIP's shape: {err}")
+        raise AssertionError(f"{family}'s {chunks} chunks launched "
+                             f"{launches}, {designs} by design: not "
+                             f"{per_chunk} flash_single a chunk on "
+                             f"flash_sm90.cuh")
+    if err > ENCODER_TOL:
+        raise AssertionError(f"{family} on the kernel lies {err} from its "
+                             f"plain path (tol {ENCODER_TOL})")
+    for name, v in ctrl.items():
+        if v <= ENCODER_TOL:
+            raise AssertionError(f"{name} {v} lies within the tolerance: "
+                                 f"the check cannot reject it")
     return res
 
 
-def drive_clip(device, seq, ckpt):
-    """Phase P on phase L's sequence: `write_clip_checkpoint` into ckpt,
-    `check_clip`; the embedder CLI with --clip_model_dir on CLIP_FRAMES
-    frames (12 flash_single a frame, painted pixels finite unit vectors of
-    d 512); the CLI at the small model with --get_voxel on them; then
-    query_voxelmap --clip_model_dir --top_k 5. Returns flash_single's
-    phase-P entry."""
+def drive_encoders(device, seq, ckpt, family="clip"):
+    """Phase P (CLIP) or N (SigLIP): `write_encoder_checkpoint`,
+    `check_encoders`, the embedder CLI with --clip_model_dir (12 flash_single a
+    frame, unit features of d 512 or 768), the small-model CLI with
+    --get_voxel, query_voxelmap --clip_model_dir. Returns flash_single's entry
+    for the phase."""
     import io
     import shutil
 
@@ -2928,32 +2847,38 @@ def drive_clip(device, seq, ckpt):
     from vggt_slam_tpu_torch.tools import query_voxelmap
     from vggt_slam_tpu_torch.utils.profiling import sync
 
+    phase, n_frames, d_want = ENCODERS[family][:3]
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="phase_p_") as tmp:
-        values, write_s = write_clip_checkpoint(ckpt, device)
-        log("clip_checkpoint", values=values, seconds=write_s)
-        res = check_clip(device, ckpt, seq)
+    os.makedirs(ckpt, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix=f"phase_{phase}_") as tmp:
+        values, write_s = write_encoder_checkpoint(ckpt, device, family)
+        log(f"{family}_checkpoint", values=values, seconds=write_s)
+        res = check_encoders(device, ckpt, seq, family)
         torch.cuda.empty_cache()
 
         rgb = os.path.join(tmp, "rgb")
         os.makedirs(rgb)
-        frames = sorted(os.listdir(os.path.join(seq, "rgb")))[:CLIP_FRAMES]
+        frames = sorted(os.listdir(os.path.join(seq, "rgb")))[:n_frames]
         for f in frames:
             shutil.copy(os.path.join(seq, "rgb", f), rgb)
         emb_dir, vox_dir = os.path.join(tmp, "emb"), os.path.join(tmp, "vox")
-        out = io.StringIO()
-        sync()
-        A.reset_launch_counts()
-        before, t0 = A.forward_design_launches(), time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            n = embedder.main(["--image_dir", rgb, "--out_dir", emb_dir,
-                               "--target_size", str(SEMANTIC_TARGET),
-                               "--clip_model_dir", ckpt, "--device", "cuda"])
-        sync()
-        embed_s = time.perf_counter() - t0
-        launches = dict(A.LAUNCHES)
-        designs = {k: v - before[k]
-                   for k, v in A.forward_design_launches().items()}
+
+        def counted(fn):
+            out = io.StringIO()
+            sync()
+            A.reset_launch_counts()
+            before, t0 = A.forward_design_launches(), time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                r = fn()
+            sync()
+            return r, out.getvalue().strip(), time.perf_counter() - t0, \
+                dict(A.LAUNCHES), {k: v - before[k] for k, v in
+                                   A.forward_design_launches().items()}
+
+        n, out, embed_s, launches, designs = counted(lambda: embedder.main(
+            ["--image_dir", rgb, "--out_dir", emb_dir, "--target_size",
+             str(SEMANTIC_TARGET), "--clip_model_dir", ckpt,
+             "--device", "cuda"]))
         painted, norm_err, finite, d = 0.0, 0.0, True, set()
         for f in frames:
             with np.load(os.path.join(emb_dir, os.path.splitext(f)[0]
@@ -2967,30 +2892,22 @@ def drive_clip(device, seq, ckpt):
         emb = {"frames": n, "seconds": embed_s, "s_per_frame": embed_s / n,
                "launches": launches, "designs": designs, "d": sorted(d),
                "painted_share": painted, "norm_err": norm_err,
-               "finite": finite, "out": out.getvalue().strip()}
-        log("clip_embedder", **emb)
-        if n != len(frames) or d != {512} or not finite or norm_err > 1e-4 \
-                or "felzenszwalb_mask_generator" not in emb["out"] or \
-                launches["flash_single"] != res["launches_per_chunk"] * n \
-                or designs != {"tma_wgmma": res["launches_per_chunk"] * n}:
-            raise AssertionError(f"the embedder with CLIP: {emb}")
+               "finite": finite, "out": out}
+        log(f"{family}_embedder", **emb)
+        per = res["launches_per_chunk"] * n
+        if n != len(frames) or d != {d_want} or not finite or \
+                norm_err > 1e-4 or "felzenszwalb_mask_generator" not in out \
+                or launches["flash_single"] != per or \
+                designs != {"tma_wgmma": per}:
+            raise AssertionError(f"the embedder with {family}: {emb}")
 
         args = parser.parse_args(
             ["--image_folder", rgb, "--model_size", "small",
              "--min_disparity", "8", "--semantic_emb_dir", emb_dir,
              "--get_voxel", "--voxel_size", str(VOXEL_SIZE),
              "--voxel_save_dir", vox_dir, "--seed", str(SEED), "--timing"])
-        out = io.StringIO()
-        sync()
-        A.reset_launch_counts()
-        before, t0 = A.forward_design_launches(), time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            result = run_slam(args, device=device)
-        sync()
-        wall = time.perf_counter() - t0
-        launches = dict(A.LAUNCHES)
-        designs = {k: v - before[k]
-                   for k, v in A.forward_design_launches().items()}
+        result, _, wall, launches, designs = counted(
+            lambda: run_slam(args, device=device))
         vm = result["voxel_map"]
         feats = vm.get_features()
         stages = result["timer"].summary()
@@ -3001,45 +2918,44 @@ def drive_clip(device, seq, ckpt):
                "V": len(vm.get_centers_world()), "d": int(feats.shape[1]),
                "launches": launches, "designs": designs,
                "stages": {k: v["total_s"] for k, v in stages.items()}}
-        log("clip_semantic_cli", **cli)
+        log(f"{family}_semantic_cli", **cli)
         del result, vm
         if designs != {"tma_wgmma": forward_calls(launches)} or \
-                not forward_calls(launches) or cli["d"] != 512 or \
+                not forward_calls(launches) or cli["d"] != d_want or \
                 cli["V"] < 5 or not np.isfinite(feats).all():
-            raise AssertionError(f"the SLAM CLI on CLIP features: {cli}")
+            raise AssertionError(f"the SLAM CLI on {family} features: {cli}")
 
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            ranked = query_voxelmap.main(
-                ["--voxel_dir", vox_dir, "--query", "a chair", "--top_k",
-                 "5", "--clip_model_dir", ckpt, "--device", "cuda"])
-        log("clip_query", ranked=[list(r) for r in ranked])
+        ranked, *_ = counted(lambda: query_voxelmap.main(
+            ["--voxel_dir", vox_dir, "--query", "a chair", "--top_k", "5",
+             "--clip_model_dir", ckpt, "--device", "cuda"]))
+        log(f"{family}_query", ranked=[list(r) for r in ranked])
         if len(ranked) != 5 or not all(np.isfinite(r[2]) for r in ranked) \
                 or any(r[3] not in frames for r in ranked):
-            raise AssertionError(f"query_voxelmap with CLIP: {ranked}")
+            raise AssertionError(f"query_voxelmap with {family}: {ranked}")
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t_phase
-    log("phase_p", seconds=seconds)
+    log(f"phase_{phase.lower()}", seconds=seconds)
     return {"launches_per_chunk": res["launches_per_chunk"],
             "check_launches": res["launches"]["flash_single"],
             "embedder_launches": emb["launches"]["flash_single"],
             "vision_ms_batch64": res["vision_ms_batch64"],
             "crops_per_s": res["crops_per_s"],
             "max_l2_from_plain": res["max_l2_from_plain"],
-            "phase_s": seconds, **res["flash_single"]}
+            "phase_s": seconds, **res["flash_single"],
+            **({"text": res["flash_single_text"],
+                "text_launches": res["text_launches"]["flash_single"]}
+               if "flash_single_text" in res else {})}
 
 
-# ---------------------------------------------------------------------------
 # Phase M: SAM2 (Hiera-B+) and its automatic mask generator on the card
-# ---------------------------------------------------------------------------
 
 SAM2_TOL = 1e-4     # f32 on the card against float64, of the largest entry
 
 
 def sam2_errors(model, ref, image, points):
-    """embed_image's three features and decode_points' masks, iou and obj
-    of `model` against `ref` (float64): max abs error over the largest
-    entry, each."""
+    """embed_image's three features and decode_points' masks, iou and obj of
+    `model` against float64 `ref`: max abs error over the largest entry,
+    each."""
     import torch
 
     with torch.no_grad():
@@ -3051,14 +2967,11 @@ def sam2_errors(model, ref, image, points):
 
 
 def drive_sam2(device, seq, clip_ckpt):
-    """Phase M: a seeded sam2.1_hiera_base_plus .pt (public names; the IoU
-    head's last bias raised by 3, so that random weights pass the AMG's
-    0.9 IoU filter) through load_params; embed_image and a 192-point
-    decode at 1024 against float64 (SAM2_TOL), with a layout control
-    (transposed convs unflipped, patch kernel transposed) that must exceed
-    it; both timed; the AMG on a frame at its defaults, then at zero
-    thresholds (masks inside the frame, largest first); the embedder CLI
-    with --masker sam2 --clip_model_dir on 4 frames."""
+    """Phase M: a seeded sam2.1_hiera_base_plus .pt (the IoU head's last bias
+    +3 to pass the 0.9 filter); embed_image and a 192-point decode against
+    float64 (SAM2_TOL) with a layout control; the AMG at its defaults and at
+    zero thresholds; the embedder CLI with --masker sam2 --clip_model_dir on 4
+    frames."""
     import copy
     import io
     import shutil
@@ -3168,17 +3081,13 @@ def drive_sam2(device, seq, clip_ckpt):
     log("phase_m", seconds=time.perf_counter() - t_phase)
 
 
-# ---------------------------------------------------------------------------
 # --ab DIR: the bf16 forward at head dim 64 against an earlier build, in turns
-# ---------------------------------------------------------------------------
 
 
 @contextlib.contextmanager
 def using_library(lib, mod=None, loader="kernel_library"):
-    """Route the forward wrappers of `mod` (default this tree's
-    ops/attention.py) to `lib`, one ctypes build of some
-    flash_attention.cu, inside the block; with loader="bwd_kernel_library"
-    its backward wrappers to a build of some flash_attention_bwd.cu."""
+    """Route `mod`'s forward wrappers (or with loader="bwd_kernel_library" its
+    backward) to ctypes build `lib` inside the block."""
     from vggt_slam_tpu_torch.ops import attention as A
     mod = mod or A
     saved = getattr(mod, loader)
@@ -3190,9 +3099,8 @@ def using_library(lib, mod=None, loader="kernel_library"):
 
 
 def _ab_wrapper(d, module="attention"):
-    """The wrapper module of A/B folder `d`: its `module`.py (the same
-    tree's ops/`module`.py, e.g. entries that take their arguments in
-    another layout) where it holds one, else this tree's."""
+    """A/B folder `d`'s `module`.py where it holds one, else this tree's ops
+    module."""
     import importlib
     import importlib.util
 
@@ -3208,9 +3116,8 @@ def _ab_wrapper(d, module="attention"):
 
 
 def ab_builds(dirs):
-    """{build: (wrapper module, library)}: each of `dirs` that holds a
-    flash_attention.cu with the headers it includes, named after its
-    folder, then this tree's, "this_tree"; each behind its `_ab_wrapper`."""
+    """{build: (wrapper module, library)} for each DIR holding a
+    flash_attention.cu, then "this_tree"."""
     from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.ops import cuda_build
 
@@ -3228,10 +3135,8 @@ def ab_builds(dirs):
 
 
 def ab_bwd_calls(builds, dirs):
-    """{build: call(q, k, v, dout, out, m, l, H, vl) -> (dq, dk, dv)}: each
-    DIR's backward behind its forward build's wrapper (its flash_bwd, or
-    before flash_bwd torch's delta and its dq and dkv entries), then this
-    tree's flash_bwd."""
+    """{build: call(q, k, v, dout, out, m, l, H, vl) -> (dq, dk, dv)} behind
+    each forward build's wrapper, then this tree's flash_bwd."""
     from concurrent.futures import ThreadPoolExecutor
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -3268,10 +3173,8 @@ def ab_bwd_calls(builds, dirs):
 
 
 def ab_backward(device, builds, dirs):
-    """Each build's backward against its plain version, then in turns at
-    phase 4's six training shapes: 20 eager calls (`ms`) and a CUDA graph
-    of 20 (`graph_ms`) beside SDPA's backward both ways and the fused
-    bound. Returns the rows."""
+    """Each build's backward against its plain version, then in turns at phase
+    4's shapes (eager and CUDA graph) beside SDPA's backward and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -3366,10 +3269,8 @@ def _forward_calls(q, k, v, kw, smax):
 
 
 def ab_cases(device):
-    """The bf16 forward's shapes of phases 3 and 4 (head dims 32, 64 and
-    128): dicts of name, kernel, D, bound (ms and unit), kern(module) (the
-    call through a wrapper module), plain(), stats (with row stats) and
-    sdpa (one SDPA call computing the same function, or None)."""
+    """The bf16 forward shapes of phases 3 and 4 as dicts of name, kernel, D,
+    bound, kern(module), plain(), stats and sdpa."""
     import torch
     import torch.nn.functional as F
 
@@ -3410,8 +3311,8 @@ def ab_cases(device):
 
 
 def ab_errors(got, ref, stats):
-    """Max abs error of the output (tolerance 2e-2) and, with row stats,
-    their max relative errors (1e-3), as phases 3 and 4 hold them."""
+    """Max abs error of the output (tol 2e-2) and of the row stats, relative
+    (1e-3)."""
     import torch
 
     out, want = (got[0], ref[0]) if stats else (got, ref)
@@ -3426,11 +3327,9 @@ def ab_errors(got, ref, stats):
 
 
 def ab_host_us(builds, device, calls=100, rounds=12):
-    """Host µs per forward call where the card keeps up, at (B 1, N 256,
-    H 16, D 64; flash_multi with LN, rope, kv_bias, valid_len) and the
-    camera-trunk training shape (N 4, D 128, stats; flash_single): each
-    build behind its wrapper, `calls` calls at a time in turns, there and
-    back, `rounds` times; the median of each build's runs."""
+    """Host µs a forward call where the card keeps up, at a small flash_multi
+    and the camera-trunk training shape: each build, `calls` at a time in
+    turns, `rounds` times; the medians."""
     import torch
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -3461,9 +3360,8 @@ def ab_host_us(builds, device, calls=100, rounds=12):
 
 
 def graph_ms(fn, calls=20, reps=3, stream=None):
-    """Device ms per fn() from one CUDA graph of `calls` calls, captured on
-    `stream` (a side stream of its own where None), best of `reps` replays
-    after a warm-up call and replay: no host cost in it."""
+    """Device ms per fn() from one CUDA graph of `calls` calls on `stream`,
+    best of `reps` replays."""
     import torch
 
     fn()
@@ -3488,8 +3386,8 @@ def graph_ms(fn, calls=20, reps=3, stream=None):
 
 
 def _host_us(fn, calls):
-    """Host microseconds per fn() over `calls` calls after one warm-up call,
-    ending in a synchronize (at these shapes the card keeps up)."""
+    """Host µs per fn() over `calls` calls after a warm-up, ending in a
+    synchronize."""
     import torch
 
     fn()
@@ -3502,11 +3400,9 @@ def _host_us(fn, calls):
 
 
 def ab_forward(device, dirs):
-    """Each build (each DIR, then this tree) against its plain version,
-    then in turns at every bf16 forward shape of phases 3 and 4: 20 eager
-    calls (`ms`) and a CUDA graph of 20 (`graph_ms`) beside SDPA both ways
-    and the bound; then the host cost per call (`ab_host_us`). Returns the
-    builds and the rows."""
+    """Each build against its plain version, then in turns at every bf16
+    forward shape (eager and CUDA graph) beside SDPA and the bound; then
+    `ab_host_us`. Returns (builds, rows)."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -3562,11 +3458,8 @@ def ab_forward(device, dirs):
 
 
 def ab_probe_libs(dirs):
-    """{build: library}: each of `dirs` that holds a bench_attention.cu
-    (with the headers it includes beside it), named after its folder,
-    without the entries an older build lacks, then this tree's,
-    "this_tree". Builds on first use (`cuda_build.load`, which raises
-    where there is no nvcc)."""
+    """{build: library} for each DIR holding a bench_attention.cu (without
+    entries an older build lacks), then "this_tree"; built on first use."""
     from vggt_slam_tpu_torch.ops import cuda_build
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
 
@@ -3585,11 +3478,8 @@ def ab_probe_libs(dirs):
 
 
 def ab_matmul_only_tilings(args, ref):
-    """global_sm90's matmul mode at scale 1, the matmul-only floor's
-    function, at every tiling of bench_global_attention on the floor's
-    arguments `args`: each held to the plain version `ref` first, then
-    timed in turns as CUDA graphs (`graph_ms`), so that the floor's tiling
-    is the fastest. Returns {"BQxBK": device ms}."""
+    """global_sm90's matmul mode at every tiling on the floor's `args`, held to
+    `ref`, then timed in turns as CUDA graphs. Returns {"BQxBK": ms}."""
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
     from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
 
@@ -3607,12 +3497,9 @@ def ab_matmul_only_tilings(args, ref):
 
 
 def ab_probes(device, dirs):
-    """The matmul-only floor and the grouped, interleaved and pipelined
-    probes of each DIR holding a bench_attention.cu, then this tree's, at
-    the SLAM frame shape: each held to its plain version first, then timed
-    in turns as a CUDA graph of 20 calls beside the bound and SDPA; the
-    floor's row also times this tree's global_sm90 matmul mode at every
-    tiling. Returns the rows."""
+    """The matmul-only floor and the grouped, interleaved and pipelined probes
+    of each DIR, then this tree's, at the frame shape: held to their plain
+    versions, then timed in turns as CUDA graphs beside the bound and SDPA."""
     import torch
 
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
@@ -3675,8 +3562,7 @@ AB_MM_GROUPS = (2, 16)
 
 
 def ab_mm_tilings(d):
-    """The tilings of A/B folder `d`'s matmul build: TILINGS of the
-    bench_matmul_shapes.py beside its .cu (that tree's port script), read
+    """TILINGS of the bench_matmul_shapes.py beside A/B folder `d`'s .cu, read
     without importing it, else this tree's."""
     import ast
 
@@ -3694,9 +3580,8 @@ def ab_mm_tilings(d):
 
 
 def ab_mm_call(lib, tilings):
-    """run_variant's launch on one ctypes build `lib` of some
-    bench_matmul_shapes.cu, whose tilings are `tilings`: the operands
-    checked, its C entry called into `out`, nothing counted."""
+    """run_variant's launch on build `lib` with `tilings`: the C entry into
+    `out`, nothing counted."""
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
     from vggt_slam_tpu_torch.scripts import bench_matmul_shapes as MM
 
@@ -3710,13 +3595,10 @@ def ab_mm_call(lib, tilings):
 
 
 def ab_matmul(device, dirs, iters=20):
-    """The matmul-shape probes of each DIR holding a
-    bench_matmul_shapes.cu, then this tree's, at every tiling of each build
-    (`ab_mm_tilings`): the nine B = 1 shapes, and QK^T and PV at B 528,
-    grouped at AB_MM_GROUPS; each held within one bf16 ulp of max|ref| into
-    a NaN-filled output, then timed in turns as CUDA graphs over copies
-    spanning 2 x L2 beside torch.bmm / torch.matmul and the bound. Returns
-    the rows."""
+    """The matmul probes of each DIR, then this tree's, at every tiling: the B
+    = 1 shapes and QK^T, PV at B 528 (grouped at AB_MM_GROUPS), each within one
+    bf16 ulp, then timed in turns as CUDA graphs beside torch.bmm and the
+    bound."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -3789,10 +3671,8 @@ def ab_matmul(device, dirs, iters=20):
 
 
 def ab_dpt_tail(device, dirs, calls=10):
-    """Each DIR's DPT tail (behind its `_ab_wrapper`), then this tree's,
-    at phase B's shape, cout 2 and 4: held to fused_tail_ref (1e-2 of
-    max|ref|), then in turns as CUDA graphs of `calls` calls beside the
-    bound. Returns the rows."""
+    """Each DIR's DPT tail, then this tree's, at phase B's shape, cout 2 and 4:
+    held to fused_tail_ref, then timed in turns as CUDA graphs."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -3870,11 +3750,8 @@ AB_GLOBAL_SCRIPTS = ("bench_global_attention", "bench_softmax_variants",
 
 
 def ab_global_libs(dirs):
-    """{script: {build: library}} for the three global-shape probes: each
-    of `dirs` that holds the script's .cu (with the headers it includes
-    beside it), named after its folder, then this tree's, "this_tree"; a
-    script no DIR holds is left out. Builds on first use
-    (`cuda_build.load`, which raises where there is no nvcc)."""
+    """{script: {build: library}} of the three global-shape probes for each DIR
+    holding the .cu, then "this_tree"; built on first use."""
     import importlib
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -3898,10 +3775,8 @@ def ab_global_libs(dirs):
 
 
 def ab_global_modes(script, device, rate, iters):
-    """One global-shape probe at the global shape (BH 16, N 34816, D 64):
-    (module, wrapper, plain version, SDPA ms on the script's inputs and
-    scale, {mode: (args(bq, bk, n_rows): the wrapper's arguments on the
-    first n_rows q rows (None: all), bound)})."""
+    """One global probe at (BH 16, N 34816, D 64): (module, wrapper, plain,
+    SDPA ms, {mode: (args(bq, bk, n_rows), bound)})."""
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
     from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
     from vggt_slam_tpu_torch.scripts import bench_int8_inkernel as IK
@@ -3941,11 +3816,9 @@ def ab_global_modes(script, device, rate, iters):
 
 
 def ab_global(device, dirs, iters=4):
-    """The three global-shape probes of each DIR holding their .cu, then
-    this tree's, at (BH 16, N 34816, D 64): every mode and tiling held to
-    its plain version on a 2048-row slab, then timed in turns (CUDA
-    events, best of 2 over `iters` calls) beside SDPA, the bound and the
-    ptxas registers. Returns the rows."""
+    """The three global-shape probes of each DIR, then this tree's: every mode
+    and tiling held on a 2048-row slab, then timed in turns beside SDPA, the
+    bound and ptxas registers."""
     import torch
 
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
@@ -3997,10 +3870,8 @@ def ab_global(device, dirs, iters=4):
 
 
 def ab_int8(device, builds):
-    """Each build's int8 forward at phase A's shapes, both kernels, held to
-    its own wrapper's plain version and bf16 control (`int8_errors`), then
-    in turns beside this tree's bf16 call: 20 eager calls (`ms`) and a CUDA
-    graph of 20 (`graph_ms`). Returns the rows."""
+    """Each build's int8 forward at phase A's shapes against its plain version
+    and bf16 control, then timed in turns beside this tree's bf16 call."""
     names = list(builds) + ["bf16"]
     rows = []
     for case in int8_cases(device):
@@ -4049,11 +3920,9 @@ def ab_int8(device, builds):
     return rows
 
 
-# ---------------------------------------------------------------------------
-
 def sm90_registers(registers, static, int8) -> dict:
     """ptxas registers of the flash_fwd_sm90<D, STATIC, I8> instances with
-    these flags, by (demangled or mangled) name."""
+    these flags."""
     import re
 
     out = {}
@@ -4066,17 +3935,15 @@ def sm90_registers(registers, static, int8) -> dict:
 
 
 def own_ptxas_report(name) -> tuple[dict, dict]:
-    """`ptxas_report` of this tree's library `name` alone: an A/B build or
-    another library may hold instances of the same name."""
+    """`ptxas_report` of this tree's library `name` alone."""
     from vggt_slam_tpu_torch.ops import cuda_build
 
     return ptxas_report({name: cuda_build.build_log[name]})
 
 
 def ptxas_report(build_log) -> tuple[dict, dict]:
-    """({kernel: registers}, {kernel: spill-store bytes, where not 0}) from
-    nvcc's -Xptxas=-v output, the names demangled by c++filt where it is
-    installed."""
+    """({kernel: registers}, {kernel: spill bytes, where not 0}) from nvcc's
+    -Xptxas=-v output, demangled by c++filt where installed."""
     import re
     import shutil
 
@@ -4192,8 +4059,8 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory(prefix="converters_") as tmp:
         salad_npz = check_converters(tmp)
         salad = check_salad(device, salad_npz, frames)
-        salad["loop_cli_launches"], clip = drive_loop_closure(device,
-                                                              salad_npz)
+        salad["loop_cli_launches"], encoders = drive_loop_closure(
+            device, salad_npz)
 
     replaces = {
         "flash_single": "vggt_slam_tpu/ops/attention.py:387 "
@@ -4243,11 +4110,12 @@ def main(argv) -> int:
             "training_variant": train["variant"],
             "training_ms": train["fwd_ms"],
             "training_library_ms": train["sdpa_fwd_ms"],
-            **({"salad": salad, "clip": clip,
+            **({"salad": salad, **encoders,
                 "launches_path": "phase 6, the SLAM main path; a SALAD "
                                  "call 12 (phases S, L); CLIP's vision "
                                  "tower 12 a chunk of <= 64 crops "
-                                 "(phase P)"}
+                                 "(phase P); SigLIP's towers 12 a chunk "
+                                 "of <= 64 crops or texts (phase N)"}
                if name == "flash_single" else {}),
             "variants": variants})
     # One flash_bwd call computes both TPU kernels' functions (dq; dk, dv):

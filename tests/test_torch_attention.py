@@ -1,15 +1,9 @@
-"""The port's attention (vggt_slam_tpu_torch/ops/attention.py) against the
-JAX reference on the CPU.
-
-The plain versions of the two CUDA kernels (`flash_single_ref`,
-`flash_multi_ref`) are held against the reference's Pallas kernels run in
-interpret mode, on the same numpy inputs, in the packed (B, N, H*D) layout
-with every variant the main path uses: in-kernel qk-LN + rope, kv_bias,
-valid_len cutting a key block, static-max softmax, head dims 32 (the small
-models), 64 and 128.
-Tolerances: f32 inputs 5e-5 (the reference's own flash tests use 2e-5 on
-unit-scale data; the in-kernel LN/rope round in a different order here);
-bf16 inputs 2e-2 (bf16 tile roundings on both sides).
+"""The port's attention (ops/attention.py) against the JAX reference on the
+CPU: the plain versions of both CUDA kernels against the reference's
+Pallas kernels in interpret mode, packed, with every variant the main path
+uses (in-kernel qk-LN + rope, kv_bias, valid_len cutting a key block,
+static-max softmax, head dims 32, 64, 128). f32 inputs 5e-5 (the in-kernel
+LN and rope round in another order); bf16 inputs 2e-2 (bf16 tiles).
 """
 import math
 

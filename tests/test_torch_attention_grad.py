@@ -1,23 +1,16 @@
-"""The port's training attention against the JAX reference on the CPU.
+"""The port's training attention against the JAX reference on the CPU (the
+reference's Pallas kernels in interpret mode, packed layout).
 
-* The stats output of the forward kernels' plain versions (out, m, l)
-  against the reference's `flash_attention(..., return_stats=True)` with the
-  Pallas kernels in interpret mode, in the packed layout: one-block,
-  multi-block static, valid_len, head dim 32 and camera-trunk (head dim
-  128) cases. f32: 5e-5 on out,
-  5e-5 of the largest |m| and |l| on the stats (l sums up to Nk terms).
-* The backward through `FlashAttentionGrad` (the plain versions of the two
-  backward kernels on CPU tensors) against the reference's
-  `flash_attention_grad` gradients in interpret mode, on the cases of
-  tests/test_attention.py::TestFlashGrad plus a multi-block static and a
-  head dim 32 case: 3e-5 (the reference's own bound for its kernels against
-  autodiff), with the dk and dv rows of masked keys below 1e-6.
-* The same backward against torch autograd of `naive_attention`: 3e-5.
-* `flash_bwd`'s plain path (delta from the forward's output, then
-  `flash_bwd_ref`) against the reference's `_flash_bwd` in interpret mode
-  on the reference forward's out, m and l, at head dims 32, 64 and 128,
-  with and without valid_len, Nq equal to Nk and not: f32, 3e-5 of the
-  largest entry of each gradient (at least 3e-5).
+* The forward's stats (out, m, l) against `return_stats=True`: one-block,
+  multi-block static, valid_len, head dims 32 and 128. f32: 5e-5 on out and
+  of the largest |m| and |l|.
+* The backward through `FlashAttentionGrad` against the reference's
+  `flash_attention_grad` on tests/test_attention.py::TestFlashGrad's cases
+  plus two: 3e-5 (the reference's own bound), masked keys' dk, dv below
+  1e-6; and against autograd of `naive_attention`: 3e-5.
+* `flash_bwd`'s plain path against the reference's `_flash_bwd` on its
+  forward's out, m, l at head dims 32, 64, 128, with and without
+  valid_len, Nq = Nk and not: 3e-5 of each gradient's largest entry.
 """
 import jax
 import jax.numpy as jnp

@@ -1,23 +1,13 @@
 """The port's frame-attention probes against the reference script's Pallas
-kernels, on the CPU.
-
-scripts/bench_attention.py is loaded from its file and its module-level
-`pl` replaced with a namespace whose `pallas_call` runs in interpret mode,
-so no file of the reference changes. The same seeded bf16 inputs go through
-the reference's calls and the port's (vggt_slam_tpu_torch/scripts/
-bench_attention.py) at BH = 4 (S 1, H 4), N = 100 (padded to Np = 128),
-D = 64; on the CPU the port's wrappers run their plain versions.
-Tolerances:
-* softmax-only: bit-exact, and every output is bf16(1/Np);
-* matmul-only: 1e-2 of max|ref|: s is rounded to bf16 before PV, and
-  another f32 summation order can flip one of those roundings;
-* grouped, interleaved, pipelined: 2e-3 abs: the same exp2-domain function
-  with bf16 p on both sides, summed in f32; at G = 8 on S 2, H 4 (BH 8).
-* the plain version at the kernels' key tiles (`block_k` 16 to 128, the
-  running max per tile): `tiled_tolerance`, 2e-3 or one bf16 step of the
-  reference's value where that is larger (|o| reaches 0.90 at S 2, H 4, where
-  p rounded against the running max moves one output across a bf16
-  rounding boundary: one step, 0.0039).
+kernels, on the CPU: scripts/bench_attention.py loaded from its file with
+`pallas_call` in interpret mode; the same seeded bf16 inputs through both
+at BH 4 (S 1, H 4), N 100 (padded to 128), D 64. Tolerances: softmax-only
+bit-exact (every output bf16(1/Np)); matmul-only 1e-2 of max|ref| (another
+f32 order can flip a bf16 rounding of s); grouped, interleaved, pipelined
+2e-3 abs (bf16 p both sides, f32 sums), G = 8 at S 2; the plain version at
+the kernels' key tiles (`block_k` 16 to 128) `tiled_tolerance`, 2e-3 or
+one bf16 step of the reference where larger (|o| reaches 0.90 at S 2, H 4,
+where p rounded against the running max moves one output one step).
 """
 import functools
 import importlib.util
@@ -217,10 +207,9 @@ def test_slicing_back_and_wrappers_on_cpu(inputs):
 
 @pytest.mark.parametrize("n", [100, 1041])
 def test_dropping_padded_keys_from_l_fails_the_tolerance(n):
-    """The control of the card's check: attention whose l leaves out the
-    padded keys is further from the real function than the 1e-2 of max|ref|
-    the kernels are held to, at the small shape and at the frame shape's
-    padding (1041 -> 1152)."""
+    """The card check's control: l without the padded keys lies further than
+    1e-2 of max|ref| from the real function, at the small shape and the frame
+    shape's padding."""
     q, k, v = BA.make_inputs(1, 2, n, D, seed=1)
     call = BA.scaled(BA.make_grouped_call(BA.grouped_attention, 2, n, D, 2),
                      D)

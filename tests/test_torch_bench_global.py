@@ -1,17 +1,11 @@
 """The port's global-shape probes against the reference scripts' Pallas
-kernels, on the CPU.
-
-scripts/bench_global_attention.py, bench_softmax_variants.py and
-bench_int8_inkernel.py are loaded from their files with `pl` replaced by a
-namespace whose `pallas_call` runs in interpret mode (`pltpu` stays). The
-same seeded bf16 inputs go through them and the port's scripts at BH 2,
-N 256, D 64; on the CPU the port's wrappers run their plain versions,
-which take the kernels' running max per key block, as the reference's
-kernels do. Tolerances: quantizations and scales bit-exact (the same f32
-operations); every softmax mode 2e-3 abs (bf16 p and p8 against the same
-running max, f32 sums in another order; outputs are ~0.1, so a few bf16
-ulps); matmul 1e-2 of max|ref| (another f32 order can flip a bf16
-rounding of s).
+kernels, on the CPU: bench_global_attention.py, bench_softmax_variants.py
+and bench_int8_inkernel.py loaded from their files with `pallas_call` in
+interpret mode, the same seeded bf16 inputs at BH 2, N 256, D 64 (the
+port's plain versions take the kernels' running max per key block).
+Quantizations and scales bit-exact; every softmax mode 2e-3 abs (bf16 p
+against the same running max, f32 sums in another order); matmul 1e-2 of
+max|ref| (another order can flip a bf16 rounding of s).
 """
 import functools
 import importlib.util
@@ -152,12 +146,11 @@ def _reference_staticint8(q, k):
 
 @pytest.mark.parametrize("mode", SV.MODES)
 def test_softmax_variants_match_reference(ref, mode):
-    """staticint8: the reference's `_init` zeroes l for online and static
-    only, so its l is never reset: in interpret mode's NaN-filled scratch
-    the output is NaN, and with zeroed scratch l carries from one q block
-    to the next in grid order. The port resets l per q tile as `static`
-    does; it is held to the reference's first q block (zeroed scratch),
-    and the reference's later blocks are shown off by their carried l."""
+    """staticint8: the reference's `_init` zeroes l for online and static only,
+    so with interpret mode's NaN-filled scratch its output is NaN, and with
+    zeroed scratch l carries from one q block to the next. The port resets l
+    per q tile: it is held to the reference's first q block, and the later
+    blocks are shown off by their carried l."""
     q, k, v = _inputs(scale=0.3)
     smax = 12.0
     R = ref["bench_softmax_variants"]
@@ -320,10 +313,10 @@ def test_check_on_cpu_and_main_needs_a_card(name, monkeypatch, capsys):
 
 
 def test_bounds_at_the_global_shape():
-    """BH 16, N 34816, D 64 at a 4.19e12/s exp2 rate: the bf16 products take
-    4.97 TFLOP (5.02 ms at 989 TFLOP/s) against 4.63 ms of exp; int8 QKᵀ
-    (1.25 + 2.51 ms) and both products in int8 (2.51 ms) leave the exp
-    units the floor; matmul-only is the tensor cores alone."""
+    """BH 16, N 34816, D 64 at 4.19e12 exp2/s: bf16 products 4.97 TFLOP (5.02
+    ms) against 4.63 ms of exp; int8 QKᵀ (1.25 + 2.51 ms) and both products in
+    int8 (2.51) leave the exp units the floor; matmul-only is the tensor cores
+    alone."""
     args = (16, 34816, 34816, 64, 4.19e12)
     ms, by, unit = GA.bound_ms(*args)
     assert (by, unit) == ("operations", "tensor cores")

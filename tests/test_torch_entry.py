@@ -1,12 +1,10 @@
-"""The port's package boundary and entry points: it imports nothing of JAX,
-flax, OpenCV or the JAX package (every module, the probe scripts, the
-converters, retrieval, the evals, the kd-tree, the GLB writer, the
-SLAM-state checkpoint, the semantic voxel map and embedder, CLIP with
-its tokenizer, SAM2 and its mask generator among them; nor regex, transformers or safetensors; the viser viewer against tests/
-viser_stub.py, since viser is absent); its
-entry points default to the card and refuse to run without one unless the CPU is asked for; chip_smoke.py exits
-non-zero without a card and outside the repository; and the tiny-config
-SLAM loop runs end to end on the CPU from in-memory frames."""
+"""The port's package boundary and entry points: no module of it (the
+probe scripts, converters, evals, CLIP, SigLIP and SAM2 among them) imports
+JAX, flax, OpenCV, regex, transformers, safetensors, sentencepiece or the
+JAX package (the viser viewer runs on tests/viser_stub.py); its entry
+points refuse to run without a card unless the CPU is asked for;
+chip_smoke.py exits non-zero without a card and outside the repository;
+the tiny-config SLAM loop runs on the CPU from in-memory frames."""
 import os
 import subprocess
 import sys
@@ -33,7 +31,8 @@ assert all("vggt_slam_tpu_torch." + m in names
                      "semantic.voxel_map", "semantic.embedder",
                      "tools.query_voxelmap", "models.clip",
                      "models.clip_tokenizer", "models.sam2",
-                     "semantic.sam2_amg"))
+                     "semantic.sam2_amg", "models.siglip",
+                     "models.siglip_tokenizer"))
 viewer = "vggt_slam_tpu_torch.viz.viser_viewer"   # needs viser: the stub
 for name in names:
     if name != viewer:
@@ -43,21 +42,23 @@ chip_smoke.load_viser_stub().install(sys.modules)
 importlib.import_module(viewer)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "regex",
-                                    "transformers", "safetensors")
+                                    "transformers", "safetensors",
+                                    "sentencepiece")
              or m == "vggt_slam_tpu" or m.startswith("vggt_slam_tpu."))
 print(len(names), bad)
 """
 
 
 def test_port_imports_no_jax_flax_cv2_or_reference_package():
-    """Nor regex, transformers or safetensors, which the card's machine
-    lacks (CLIP's tokenizer and checkpoint reader do without them)."""
+    """Nor regex, transformers, safetensors or sentencepiece, which the
+    card's machine lacks (the tokenizers and checkpoint reader do without
+    them)."""
     out = subprocess.run([sys.executable, "-c", _GUARD.format(repo=REPO)],
                          capture_output=True, text=True, timeout=120,
                          cwd=REPO)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 68
+    assert int(n) >= 70
     assert bad == "[]"
 
 

@@ -1,39 +1,27 @@
 """The CUDA kernels against their plain versions, on the card.
 
-Marked `gpu`; without a CUDA device each test skips with that reason (the
-decision is taken inside the fixture, never at import). On the card:
-    python -m pytest tests/test_torch_gpu.py
-Tolerance 2e-2 on bf16 outputs: the bf16 output rounding (2^-9 relative)
-and the bf16 rounding of the softmax weights before PV. The row stats are
-f32 and are held to 1e-3 relative: the two sides sum the same bf16 products
-in another order. Where the kernel applies qk-LayerNorm itself (only the
-inference path does), its row sums run in another order and its rsqrt is
-the approximate one, which can flip one bf16 rounding of a prepared q or k
-element (2^-8 relative) and move a row's l by ~1e-3: those stats are held
-to 1e-2 relative. The backward's gradients are held to 2e-2 of the largest
-reference entry: dL is rounded to bf16 before its products on both sides,
-and a slightly different p flips single roundings. dq is summed across
-key tiles by f32 atomic adds in a varying order, so two runs may differ by
-one bf16 rounding: held to 2^-7 of the largest entry.
-The edge cases add an absolute floor of 1e-5 to the gradients' tolerance:
-with one key the exact dq and dk are 0, and the two sides compute dL there
-as a difference of two f32 dot products summed in other orders (~1e-7).
-The int8 kernels: both sides quantize with the same scales and their s32
-logits are exact, so the f32 row stats are held to 1e-4 relative (f32
-summation order) and the outputs to 1e-2 of their largest entry (one bf16
-ulp is at most 2^-7 = 0.0078 of it). As a control, the kernel's row sums
-must differ from the bf16 path's by more than ten times that 1e-4, which
-the int8 grid's logit error gives (relative 6e-3 to 1.7 at these shapes in
-the plain versions): so the test tells int8 QK^T from bf16. The fused DPT tail is held to 1e-2 of its
-largest output: both sides round u and h to bf16, and the f32 sums of the
-3x3 conv run in another order, which can flip a rounding of h; its
-outputs are written into NaN-filled tensors, and the check must reject
-the output with frames 0 and 1 swapped. CLIP's vision tower (flash_single
-on bf16 q, k, v in an f32 module) is held to 2e-2 (L2) of its plain f32
-route on unit features, SALAD's bound. SAM2 (plain torch, no kernel) in
-f32 is held to chip_smoke.SAM2_TOL of its float64 self. voxelize_device
-(torch on the card, no kernel of its own) sums by atomic adds: its means are held to
-ops/voxel.mean_tolerance of voxelize_np's, its centres and counts exactly.
+Marked `gpu`; without a CUDA device each test skips (decided inside the
+fixture, never at import). On the card:
+    python -m pytest --noconftest tests/test_torch_gpu.py
+bf16 outputs 2e-2: the output's rounding (2^-9 relative) and the bf16
+softmax weights before PV. f32 row stats 1e-3 relative (the same bf16
+products summed in another order); 1e-2 where the kernel applies
+qk-LayerNorm itself (its approximate rsqrt can flip one bf16 rounding of a
+prepared element, 2^-8, and move l by ~1e-3). Gradients 2e-2 of the
+largest reference entry (dL rounded to bf16 before its products; a
+slightly different p flips roundings), plus 1e-5 absolute in the edge
+cases (with one key the exact dq, dk are 0); dq's f32 atomic adds vary in
+order, so two runs are held to 2^-7 of its largest entry. int8: both sides
+share the scales and exact s32 logits, so stats 1e-4 relative and outputs
+1e-2 of their largest entry (one bf16 ulp is at most 2^-7 of it); the bf16
+path's row sums must lie ten times 1e-4 away, which tells int8 QK^T from
+bf16. The DPT tail 1e-2 of its largest output (u, h rounded to bf16 on
+both sides, the 3x3 sums in another order), written into NaN-filled
+tensors; the output with frames 0 and 1 swapped must fail. CLIP's vision
+tower and SigLIP's towers (flash_single on bf16 q, k, v in an f32 module)
+2e-2 (L2) of their plain routes on unit features, SALAD's bound. SAM2 in
+f32 within chip_smoke.SAM2_TOL of float64. voxelize_device sums by atomic
+adds: means within ops/voxel.mean_tolerance, centres and counts exact.
 """
 import functools
 import math
@@ -263,11 +251,10 @@ def test_bwd_nq_not_nk(cuda, nq, nk, vl, D):
 
 @pytest.mark.parametrize("D", [32, 64, 128])
 def test_bwd_repeated_runs_agree(cuda, D):
-    """Sixty calls at the small global shape (66 q tiles a CTA, one wave):
-    dk and dv bit-equal from call to call (each CTA owns its key rows), dq
-    within the spread of the atomics' order, every call within tolerance of
-    the plain version. A fault in the ordering of the CTA's shared buffers
-    across q tiles shows as a call that disagrees."""
+    """Sixty calls at the small global shape (one wave): dk, dv bit-equal call
+    to call, dq within the atomics' spread, each within tolerance of the plain
+    version; a fault in the order of the CTA's shared buffers across q tiles
+    shows as a call that disagrees."""
     H, vl = 4, None
     args = _bwd_case(cuda, 1, H, 4164, 4164, D, vl, seed=25)
     q, k, v, dout, out, m, l = args
@@ -401,9 +388,9 @@ def test_sm90_variants_with_and_without_stats(cuda, variant, softmax, D):
 @pytest.mark.parametrize("D", SM90_DIMS)
 @pytest.mark.parametrize("fill", [1e4, math.inf])
 def test_sm90_batches_do_not_mix(cuda, fill, D):
-    """B = 4 at N = 1041: batch 1's k and v filled with `fill` leave the
-    other batches' outputs bit-equal (a map over B * N rows would read batch
-    1's rows into batch 0's last key tile, and inf * 0 is NaN)."""
+    """B = 4 at N = 1041: batch 1's k and v filled with `fill` leave the other
+    batches' outputs bit-equal (a map over B * N rows would read batch 1 into
+    batch 0's last key tile)."""
     q, k, v, kw = _case(cuda, 4, 16, 1041, 1041, D, rope=True, ln=True,
                         bias=False, seed=14)
     clean = _sm90_check(q, k, v, kw, "online", stats=False)
@@ -712,9 +699,8 @@ def test_grouped_probe_one_group(cuda, variant, Np):
 
 
 def test_grouped_probe_runs_are_bit_equal(cuda):
-    """No atomics: each instance gives the same bits twice, at the frame
-    shape (more work items than SMs). Schedules that share a key tile at
-    the same G reorder the same arithmetic: their outputs are bit-equal."""
+    """No atomics: each instance gives the same bits twice at the frame shape,
+    and schedules that share a key tile at one G are bit-equal."""
     S, H, N = _PROBE_SHAPES["frame"]
     variants = BA.make_variants(S, H, N, 64)
     qkv = BA.make_inputs(S, H, N, 64, seed=7, device=cuda)
@@ -902,12 +888,9 @@ def test_global_sm90_edges(cuda, script, mode, tiling):
 
 
 def test_staticfused_sums_the_rounded_weights(cuda):
-    """staticfused's l is the tensor cores' sum of bf16(p) (the ones
-    panel's product), static's the f32 sum of p. Every logit 12 against
-    smax 12 - log2(1.0035), so every p is 1.0035 and bf16(p) is 1; v all
-    ones. staticfused gives exactly its plain version's 1 (n / n), static
-    1 / 1.0035, one bf16 step below: a kernel that summed p, or dropped
-    the ones product (l = 0), fails."""
+    """staticfused's l sums bf16(p) on the tensor cores, static's p in f32.
+    Every p is 1.0035 (bf16 1), v ones: staticfused gives exactly 1, static 1 /
+    1.0035; a kernel that summed p or dropped the ones product fails."""
     BH, N = 2, 1152
     q = torch.zeros(BH, N, 64, dtype=torch.bfloat16, device=cuda)
     k, v = torch.zeros_like(q), torch.ones_like(q)
@@ -944,10 +927,9 @@ def _key_pos(key):
 
 
 def test_qk8av8_needs_key_pos(cuda):
-    """The control of qk8av8's layout: a kernel that stored V8 without
-    key_pos would compute sum_k p8_k v_{key_pos(k)}. That function is
-    further from the plain version than the check's tolerance, and the
-    kernel is within it."""
+    """qk8av8's layout control: V8 stored without key_pos gives a function
+    further from the plain version than the tolerance; the kernel is within
+    it."""
     q, k, v = GA.make_inputs(2, 512, 64, seed=6, device=cuda)
     perm = torch.tensor([_key_pos(i) for i in range(512)], device=cuda)
     assert sorted(perm.tolist()) == list(range(512))
@@ -1161,10 +1143,9 @@ def test_f32_block_attention_runs_the_bf16_kernel(cuda):
 
 
 def test_voxelize_device_matches_voxelize_np(cuda):
-    """voxelize_device on the card against voxelize_np on the masked-in
-    points, with room for every voxel and with half of them (then against
-    voxelize_np's first half: both orders put x first); points shifted by
-    half a voxel must fail the centres check."""
+    """voxelize_device against voxelize_np with room for every voxel and for
+    half (then against its first half); points shifted by half a voxel fail the
+    centres check."""
     from vggt_slam_tpu_torch.ops import voxel as VX
 
     rng = np.random.default_rng(0)
@@ -1192,12 +1173,10 @@ def test_voxelize_device_matches_voxelize_np(cuda):
 
 
 def test_clip_vision_attention_runs_flash_single_at_50_tokens(cuda):
-    """CLIP ViT-B/32's vision tower cut to 2 layers (50 tokens, 12 heads of
-    64; q_proj, k_proj drawn so the logits spread by ~3): the kernel alone
-    at (16, 50, 768) within TOL of flash_single_ref, written into a
-    NaN-filled output, then the tower's unit features within 2e-2 (L2) of
-    the plain f32 route, 2 launches a forward; the keys permuted against
-    the values within each crop must fail that check."""
+    """CLIP ViT-B/32's vision tower cut to 2 layers (q, k drawn so logits
+    spread by ~3): the kernel at (16, 50, 768) within TOL into a NaN-filled
+    output, the unit features within 2e-2 (L2) of the plain route, 2 launches;
+    permuted keys must fail."""
     from vggt_slam_tpu_torch.models import clip as M
 
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -1236,6 +1215,48 @@ def test_clip_vision_attention_runs_flash_single_at_50_tokens(cuda):
     assert launches == 2
     assert torch.linalg.vector_norm(got - plain, dim=1).max().item() < 2e-2
     assert torch.linalg.vector_norm(bad - plain, dim=1).min().item() > 2e-2
+
+
+def test_siglip_towers_run_flash_single_at_196_and_64_tokens(cuda):
+    """SigLIP base_patch16_224 cut to 2 layers a tower: 16 crops and 16
+    full-context texts within 2e-2 (L2) of the plain route, 2 launches a tower;
+    permuted keys must fail."""
+    from vggt_slam_tpu_torch.models import siglip as M
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    cfg = M.SigLIPConfig.base_patch16_224(vision_layers=2, text_layers=2)
+    with torch.device("meta"):
+        model = M.SigLIP(cfg)
+    sd = M.convert_torch_state_dict(M.init_torch_state_dict(cfg, g), cfg)
+    model.load_state_dict(sd, assign=True)
+    x = M.preprocess_images(torch.rand(16, 3, 224, 224, generator=g,
+                                       device=cuda), 224)
+    ids = torch.randint(0, cfg.vocab_size, (16, 64), generator=g,
+                        device=cuda)
+    flash = A.flash_single
+
+    def permuted(q, k, v, **kw):
+        return flash(q, k.roll(1, dims=1).contiguous(), v, **kw)
+
+    def both():
+        return model.encode_image(x), model.encode_text(ids)
+
+    with torch.no_grad():
+        A.reset_launch_counts()
+        got = both()
+        launches = A.LAUNCHES["flash_single"]
+        model.set_attn_impl("plain")
+        plain = both()
+        model.set_attn_impl("flash")
+        A.flash_single = permuted
+        try:
+            bad = both()
+        finally:
+            A.flash_single = flash
+    assert launches == 4
+    for a, p, b in zip(got, plain, bad):
+        assert torch.linalg.vector_norm(a - p, dim=1).max().item() < 2e-2
+        assert torch.linalg.vector_norm(b - p, dim=1).min().item() > 2e-2
 
 
 def test_sam2_base_plus_matches_float64(cuda):

@@ -1,16 +1,10 @@
-"""The port's image loading (vggt_slam_tpu_torch/data/images.py), which uses
-no OpenCV, against OpenCV and the JAX package's copy on the CPU.
-
-* `resize_linear` / `resize_area` against cv2.resize INTER_LINEAR /
-  INTER_AREA: within one uint8 step everywhere and a mean difference under
-  0.05 steps. OpenCV's uint8 paths sum in SIMD orders (and round ties) that
-  numpy does not reproduce bit for bit. float32 `resize_linear` equals
-  OpenCV's portable code (IPP off) bit for bit.
-* `read_png` against cv2.imread, bit-exact, over gray, RGB, RGBA and
-  palette PNGs whose rows use every one of the five filters; `write_png`'s
-  files read back bit-exact by both.
-* `load_and_preprocess_images` against the reference's on a PNG folder of
-  TUM-sized frames: within one uint8 step (1/255) and a mean under 0.05/255.
+"""The port's image loading (data/images.py, no OpenCV) against OpenCV and
+the JAX package's copy on the CPU: `resize_linear` / `resize_area` within
+one uint8 step of cv2.resize (OpenCV's SIMD sums round otherwise) and a
+mean under 0.05 steps, float `resize_linear` bit-equal to OpenCV's portable
+code; `read_png` bit-exact against cv2.imread over every filter and colour
+type, `write_png` read back by both; `load_and_preprocess_images` within
+one step (1/255), mean under 0.05/255.
 """
 import struct
 import zlib

@@ -1,35 +1,25 @@
 """The port's int8 QK^T path against the JAX reference on the CPU.
 
-* The plain versions of the int8 kernels (`flash_attention(...,
-  qk_int8=True)` in the port) against the reference's
-  `flash_attention(..., block_q=128, block_k=128, interpret=True,
-  qk_int8=True)`, in the packed layout, with and without rope, valid_len,
-  kv_bias and static softmax, at head dims 32, 64 and 128 (the cases of
-  tests/test_attention.py:101-190, and two at 128). Tolerance 1e-4 max abs in f32: both
-  sides quantize to the same int8 grid with the same scales, and the s32
-  products are exact on both; what is left is f32 summation order.
-* The plain int8 path at the edges of the card's int8 route (Nq 1 and 129
-  against its 128-row q tiles, valid_len 0 and 1, two batches whose
-  per-(batch, head) amax differ 10x), at the same tolerance; and the q and
-  k int8 grids (`_quant_i8` after `_prep` at scale 1, bf16 rows) against
-  the reference's `_quant_i8` after `_rope_in_kernel`, bit for bit.
-* At head dim 128 the reference's interpret-mode kernel, traced by XLA,
-  contracts rope's x*C + swap(x)*S into a fused multiply-add: at seed 7
-  and (Nq 256, Nk 384) that moves one q value (row 83, head 1) across an
-  int8 rounding boundary and its output row 7.7e-4 off the exact one. The
-  port rounds the products and the sum apart, as its CUDA kernel does: its
-  grids there are held bit for bit to numpy's f32 arithmetic and its
-  output to a float64 evaluation on them (1e-5).
-* The tiny model with `global_qk_int8=True` against the reference's VGGT
-  at 2 frames of 392x518 with exact global attention (Nk = 2082 keys,
-  more than one 2048-key block, so the int8 path runs), and a fast case of
-  the LN-outside plumbing at block level. Tolerance 5e-4 absolute on
-  O(1) outputs (of the largest entry elsewhere): the standalone qk-LN runs
-  in torch's f32 order on one side and XLA's on the other, and an ulp
-  there can move a value across a rounding boundary of the int8 grid. One
-  such flip shifts a logit by sc2 |k_int| <= amax_q amax_k log2(e) /
-  (127 sqrt(D)), about 1e-2 here, and an output by a few 1e-4 at most
-  (measured: 4 of 134400 block outputs past 1e-4, the largest 1.4e-4).
+* The plain int8 kernels (`flash_attention(..., qk_int8=True)`) against
+  the reference's in interpret mode, packed, with and without rope,
+  valid_len, kv_bias and static softmax, at head dims 32, 64 and 128.
+  1e-4 max abs in f32: the same int8 grid and scales, exact s32 products;
+  only f32 summation order is left.
+* The edges of the card's int8 route (Nq 1 and 129, valid_len 0 and 1,
+  two batches whose amax differ 10x) at the same tolerance; the q and k
+  int8 grids against the reference's, bit for bit.
+* At head dim 128 the reference's interpret-mode kernel contracts rope's
+  x*C + swap(x)*S into an fma: at seed 7 and (256, 384) one q value
+  crosses an int8 rounding boundary and its output row lands 7.7e-4 off.
+  The port rounds apart, as its kernel does: its grids are held bit for
+  bit to numpy's f32 arithmetic and its output to float64 (1e-5).
+* The tiny model with `global_qk_int8=True` against the reference's at 2
+  frames of 392x518 with exact global attention (2082 keys), and the
+  LN-outside plumbing at block level: 5e-4 absolute on O(1) outputs. The
+  standalone qk-LN sums in torch's f32 order on one side and XLA's on the
+  other; one ulp there can flip an int8 rounding, a logit by about 1e-2,
+  an output by a few 1e-4 (measured: 4 of 134400 past 1e-4, at most
+  1.4e-4).
 """
 import jax
 import jax.numpy as jnp
@@ -181,10 +171,9 @@ def test_int8_edges_match_reference_kernel(name):
 
 
 def test_int8_d128_rope_rounds_apart():
-    """The case where the reference's contracted rope flips an int8 value
-    (module docstring): the port's q and k grids equal numpy's separately
-    rounded rope and quantization bit for bit, and its output a float64
-    evaluation of the int8 attention on those grids to 1e-5."""
+    """The case where the reference's contracted rope flips an int8 value: the
+    port's grids equal numpy's separately rounded rope and quantization bit for
+    bit, and its output float64's to 1e-5."""
     B, H, Nq, Nk, D, vl = 1, 2, 256, 384, 128, 333
     q, k, v, extra = _inputs(7, B, H, Nq, Nk, D, rope=True, bias=True)
     tkw = {key: _conv(val, torch.from_numpy) for key, val in extra.items()}

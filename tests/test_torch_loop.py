@@ -50,11 +50,9 @@ def test_tum_writer_matches_reference(tmp_path):
 
 
 def test_tum_writer_at_full_size_with_one_renderer(tmp_path, monkeypatch):
-    """At 392x518 the two scenes and renderers differ by one level at ~20
-    of 609,168 values a frame (OpenCV sums in another order; tests/
-    test_torch_train_tiny.py). With the port's scene and renderer under
-    both writers, the PNGs decode to the same pixels and the ground truth
-    is byte-equal."""
+    """At 392x518 the two renderers differ by one level at ~20 of 609,168
+    values a frame (OpenCV's sum order); with the port's renderer under both
+    writers the PNGs decode alike and the ground truth is byte-equal."""
     from vggt_slam_tpu.tools import synth3d as J
     from vggt_slam_tpu_torch.tools import synth3d as T
 
@@ -313,11 +311,9 @@ def _same_ransac_samples(monkeypatch):
 
 
 def _both_clis(argv, tmp_path, monkeypatch, model_fns=None):
-    """The reference's and the port's run_slam on one argv (their own
-    --platform / --device cpu), the same RANSAC samples, the reference's
-    pose graph in f64 as the port's (as tests/test_torch_slam.py runs it:
-    random-weight SL(4) chains are ill-conditioned enough that an f32 solve
-    moves poses by 0.1); returns both solvers and both TUM logs."""
+    """Both packages' run_slam on one argv, the same RANSAC samples, the
+    reference's pose graph in f64 as the port's (an f32 solve of random-weight
+    SL(4) chains moves poses by 0.1); returns both solvers and TUM logs."""
     import jax
 
     from vggt_slam_tpu import main as jmain
@@ -355,11 +351,10 @@ def _assert_same_run(js, ts, atol):
 
 @pytest.mark.slow   # ~3 min: the reference compiles its forward and LM
 def test_cli_tiny_backend_loop_matches_reference(tmp_path, monkeypatch):
-    """Both CLIs with --retrieval_backend tiny on one synthetic loop, the
-    same tiny random weights: the same loops detected, inserted and
-    rejected by the gate, and every world pose within 1e-3 (12 submaps
-    chained through SL(4) and a loop factor: the per-submap poses and
-    point maps agree to 1e-5, the RANSAC measurements to 1e-3)."""
+    """Both CLIs with --retrieval_backend tiny on one loop, the same tiny
+    weights: the same loops detected, inserted and rejected, world poses within
+    1e-3 (12 submaps chained through SL(4); poses and point maps agree to
+    1e-5)."""
     import jax
     import jax.numpy as jnp
 
@@ -401,15 +396,11 @@ def test_cli_tiny_backend_loop_matches_reference(tmp_path, monkeypatch):
 
 @pytest.mark.slow   # ~20 min on the CPU: 40 frames of the small model
 def test_smoke_loop_accuracy_matches_reference(tmp_path, monkeypatch):
-    """evals/smoke_loop.py's sequence and settings with the trained small
-    checkpoint, by both CLIs on the same RANSAC samples, both models in
-    f32: the same loops and gate fractions, and the port's Sim(3)-aligned
-    ATE under smoke_loop's --max_ate (0.5 m) and within 1e-2 m of the
-    reference's. Not 1e-3: the forwards agree to ~2e-6, but SL(4)
-    homographies fitted to 5-point samples of those point maps come out up
-    to several % apart, and the chain of 10 submaps carries that into the
-    trajectory (the printed figures). In the checkpoint's bf16 the two
-    forwards round apart and the ATEs lie further apart still."""
+    """smoke_loop's sequence and settings with the trained small checkpoint
+    through both CLIs in f32 on the same RANSAC samples: the same loops and
+    gate fractions, the port's ATE under 0.5 m and within 1e-2 m of the
+    reference's (not 1e-3: forwards agree to ~2e-6, but 5-point SL(4) fits land
+    up to several % apart and 10 submaps chain them)."""
     import jax
     import jax.numpy as jnp
     import torch

@@ -1,11 +1,8 @@
-"""The port's retrieval (vggt_slam_tpu_torch/models/retrieval.py,
-slam/loop_closure.py) against the reference's (vggt_slam_tpu/models/
-retrieval.py, slam/loop_closure.py) on the same seeded inputs and weights.
-
-Tolerances: the Sinkhorn assignment 1e-5 (f32 logsumexp in another order);
-the SALAD descriptor 1e-4 absolute (f32 forwards through a ViT, plain
-attention on both sides); the tiny-image descriptor 1e-6 (the area resize
-in f64 against OpenCV's f32); the converters bit-equal.
+"""The port's retrieval (models/retrieval.py, slam/loop_closure.py) against
+the reference's on the same seeded inputs and weights: the Sinkhorn
+assignment 1e-5 (f32 logsumexp order); the SALAD descriptor 1e-4 absolute
+(f32 ViT forwards); the tiny-image descriptor 1e-6 (the area resize in f64
+against OpenCV's f32); the converters bit-equal.
 """
 import json
 import os
@@ -190,11 +187,9 @@ def test_reference_converted_npz_loads_into_port(tiny_salad, tmp_path):
 
 @pytest.mark.parametrize("hw", [(392, 518), (480, 640)])
 def test_tiny_descriptor_matches_reference(hw):
-    """On textured frames (a smooth random field with noise, as camera
-    frames are). The thumbnail itself is also held to OpenCV's on i.i.d.
-    noise frames, to 5e-7: there the thumbnail's contrast is ~0.09, and the
-    descriptor's normalization would magnify OpenCV's f32 sums (3e-7 from
-    the exact area mean) ~11x past 1e-6."""
+    """On textured frames; the thumbnail is also held to OpenCV's on i.i.d.
+    noise frames to 5e-7 (there its contrast is ~0.09, and normalization would
+    magnify OpenCV's f32 sums ~11x past 1e-6)."""
     import cv2
 
     rng = np.random.default_rng(hw[0])

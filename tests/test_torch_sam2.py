@@ -1,18 +1,13 @@
-"""The port's SAM2 (vggt_slam_tpu_torch/models/sam2.py) and its automatic
-mask generator (semantic/sam2_amg.py) against the JAX package's, on the
-CPU at tiny_test, on the reference's parameters carried across by
+"""The port's SAM2 and its automatic mask generator against the JAX
+package's on the CPU at tiny_test, on the reference's parameters carried by
 `load_flax_params` (pos_embed random: the port resizes it by
-jax.image.resize's bicubic rule); the converter against the reference's
-on its torch mirror (tests/test_sam2.TSAM2Image); the helpers against the
-reference's (remove_small_regions against cv2); the generator, the
-embedder and the CLI's `--masker sam2`.
-
-Tolerances: features, masks and scores within 1e-4 of each output's
-largest entry (f32 sums in another order), the bicubic resize within 1e-6
-of it; the converter, the point grid, the crop boxes, NMS and the
-connected components exactly. The generators resize the uint8 crop within
-one step of OpenCV, so their masks are matched by IoU (>= 0.98) with the
-same count, and the embedders' painted maps agree on >= 99% of pixels.
+jax.image.resize's bicubic); the converter against the reference's on its
+torch mirror; the helpers (remove_small_regions against cv2); the
+generator, the embedder and `--masker sam2`. Features, masks and scores
+within 1e-4 of each output's largest entry, the bicubic resize 1e-6; the
+converter, point grid, crop boxes, NMS and components exact. The uint8
+crop resizes lie within one step of OpenCV's, so masks match by IoU (>=
+0.98, the same count) and painted maps on >= 99% of pixels.
 """
 import numpy as np
 import pytest

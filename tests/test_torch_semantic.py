@@ -1,17 +1,13 @@
-"""The port's semantic voxel map against the reference's on the CPU, on
-seeded numpy inputs: voxelize_np (bit-exact) and voxelize_device (centres,
-counts and num exact, means 1e-6), SemanticVoxelMap's queries and
-lookups, its files read across packages both ways, GraphMap.
-build_semantic_voxel_map and the Submap hooks on identical submaps
-(centre order and contributors exact, features 1e-5), the Felzenszwalb
-labels (bit-equal), the embedder (1e-6, file names and keys equal; the
-reference's cv2 runs without IPP, whose float INTER_LINEAR differs from
-OpenCV's portable code by up to ~2e-5, and the port is that code bit for
-bit), the hash text embeddings, the embedder CLI and the query tool's text
-embedding with a tiny CLIP checkpoint (--clip_model_dir, 1e-5),
-show_voxels on tests/viser_stub.py, and the CLI end to end: embedder, SLAM
-with --semantic_emb_dir --get_voxel --voxel_save_dir at the tiny model,
-then query_voxelmap."""
+"""The port's semantic voxel map against the reference's on the CPU:
+voxelize_np (bit-exact) and voxelize_device (centres, counts exact, means
+1e-6); SemanticVoxelMap and its files across packages; the map's semantic
+hooks on identical submaps (order and contributors exact, features 1e-5);
+Felzenszwalb labels (bit-equal); the embedder (1e-6; the reference's cv2
+runs without IPP, which differs from OpenCV's portable INTER_LINEAR by
+~2e-5); the hash text embeddings; the embedder CLI and the query tool with
+a tiny CLIP checkpoint (1e-5); show_voxels on the viser stub; the CLI end
+to end at the tiny model.
+"""
 import contextlib
 import io
 import json
@@ -363,16 +359,17 @@ def test_text_embeddings_equal_reference():
 
 
 def test_missing_models_raise_naming_the_module(tmp_path, monkeypatch):
-    """SigLIP (models.siglip) and the hf backend (transformers), which
-    `auto` takes without a CLIP config.json, are not ported. SAM2 is:
-    `--masker sam2` runs (base_plus, seeded, on an empty folder here), and
-    on --device cuda without a card it raises."""
+    """The hf backend, which `auto` takes without a CLIP or SigLIP config.json,
+    is not ported; a SigLIP config.json without weights raises naming them;
+    `--masker sam2` runs (seeded, on an empty folder) and raises on --device
+    cuda without a card."""
+    from vggt_slam_tpu_torch.models.siglip import SigLIPConfig
     from vggt_slam_tpu_torch.semantic import embedder
     from vggt_slam_tpu_torch.tools import query_voxelmap
 
-    (tmp_path / "config.json").write_text(json.dumps({"model_type":
-                                                      "siglip"}))
-    with pytest.raises(ModuleNotFoundError, match="models.siglip"):
+    (tmp_path / "config.json").write_text(json.dumps(
+        SigLIPConfig.tiny_test().to_hf_dict()))
+    with pytest.raises(FileNotFoundError, match="model.safetensors"):
         query_voxelmap.text_embedding("x", 8, str(tmp_path), device="cpu")
     with pytest.raises(ModuleNotFoundError, match="hf backend"):
         embedder.resolve_clip_encoders(str(tmp_path / "none"))

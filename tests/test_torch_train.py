@@ -1,18 +1,11 @@
-"""The port's training slice against the JAX reference on the CPU.
-
-* The tiny VGGT under the training configuration (flash_grad attention,
-  remat, exact global attention, no point head), with the reference's
-  initial weights carried over: the loss within 1e-5 relative and every
-  gradient leaf within 1e-4 of that leaf's largest entry, against
-  `jax.value_and_grad(parallel.train.vggt_loss)` with the Pallas kernels in
-  interpret mode. Both sides run in f32; the camera trunk runs chunked
-  autodiff in the reference and the flash backward in the port.
-* remat=True against remat=False in the port (1e-6).
-* save_checkpoint in the port, load_checkpoint in the reference: the same
-  forward (5e-5).
-* make_train_step on a fixed batch.
-tests/test_torch_train_tiny.py holds the trainer CLI, its optimizer chain
-and its data.
+"""The port's training slice against the JAX reference on the CPU: the tiny
+VGGT in the training configuration with the reference's initial weights,
+loss within 1e-5 relative and each gradient leaf within 1e-4 of its
+largest entry against `jax.value_and_grad(vggt_loss)` (f32; the camera
+trunk runs chunked autodiff there, the flash backward here); remat against
+no remat (1e-6); the port's checkpoint in the reference's loader (5e-5);
+make_train_step on a fixed batch. tests/test_torch_train_tiny.py holds the
+trainer CLI.
 """
 import math
 

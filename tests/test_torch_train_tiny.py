@@ -1,23 +1,18 @@
-"""The port's trainer (vggt_slam_tpu_torch/tools/train_tiny.py) and its
-data (tools/synth3d.py) against the JAX reference on the CPU.
+"""The port's trainer (tools/train_tiny.py) and its data (tools/synth3d.py)
+against the JAX reference on the CPU.
 
-* train_tiny's schedule against optax's warmup_cosine_decay_schedule
-  (1e-5 relative: optax evaluates it in float32).
-* train_tiny's optimizer chain against the reference's optax chain
-  (train_tiny.py:209-212) over three updates: 1e-6 relative on the
-  parameters (AdamW's decoupled decay is factored differently in torch and
-  optax, and the clip scale rounds differently; the clip here has no +1e-6
-  in the norm, as optax's).
-* synth3d.training_batch against the reference's copy for two seeds: pose
-  encodings bit-equal; images and depth within float32 rounding of the
-  reference's OpenCV resize, blur and remap (2e-4 on [0, 1] images, 1e-6
-  relative on depth), which the port writes in numpy.
-* train_tiny end to end on the CPU (log, checkpoints, resume continuing
-  the schedule), and its refusal to run without a card unless asked.
-* The optimizer-state file `<stem>_opt.npz` across packages: the
-  reference's read by the port and the port's read by the reference, on
-  the tiny VGGT's parameter tree; moments equal to 1e-6 and the next
-  update of both sides equal to 1e-6 relative.
+* The schedule against optax's warmup_cosine_decay_schedule (1e-5
+  relative: optax evaluates it in float32).
+* The optimizer chain against the reference's optax chain over three
+  updates: 1e-6 relative (AdamW's decay and the clip scale round
+  differently in torch and optax).
+* synth3d.training_batch for two seeds: pose encodings bit-equal; images
+  2e-4 and depth 1e-6 relative against the reference's OpenCV resize,
+  blur and remap.
+* train_tiny end to end on the CPU (log, checkpoints, resume), and its
+  refusal to run without a card unless asked.
+* `<stem>_opt.npz` across packages both ways on the tiny VGGT's tree:
+  moments and the next update equal to 1e-6 relative.
 """
 import json
 

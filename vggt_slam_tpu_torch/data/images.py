@@ -1,13 +1,10 @@
 """Image loading and preprocessing for the VGGT input pipeline (a copy of
 vggt_slam_tpu/data/images.py without OpenCV): resize to width 518 with the
 height rounded to the 14-px patch, values in [0, 1], (S, 3, H, W) float32.
-
-OpenCV is not used. PNG (TUM RGB-D, 7-Scenes and Replica ship it) is decoded
-by an in-repo reader on the standard library's zlib, and written by
-`write_png`; other formats, JPEG
-included, by PIL or torchvision where one of them imports. The two resizes
-of the reference (`cv2.resize` with INTER_LINEAR and INTER_AREA) are written
-in numpy with OpenCV's conventions.
+PNG is decoded by an in-repo reader on zlib and written by `write_png`;
+other formats, JPEG included, by PIL or torchvision where one imports. The
+reference's INTER_LINEAR and INTER_AREA resizes are numpy with OpenCV's
+conventions.
 """
 from __future__ import annotations
 
@@ -55,12 +52,10 @@ def _unfilter_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def _unfilter_wavefront(rows: np.ndarray, bpp: int) -> np.ndarray:
-    """Any mix of the five filters. A pixel depends on its left, upper and
-    upper-left neighbours only, so each anti-diagonal x + y = t is one
-    vectorised step over its rows (h + w - 1 steps). The pixels sit in a
-    diagonal-major copy, pixel (y, x) at z[x + y + 1, y + 1]: its left
-    neighbour at z[t, y + 1], its upper one at z[t, y], its upper-left one
-    at z[t - 1, y]; row and column 0 are the zero border."""
+    """Any mix of the five filters: a pixel depends on its left, upper and
+    upper-left neighbours, so each anti-diagonal x + y = t is one vectorised
+    step in a diagonal-major copy (pixel (y, x) at z[x + y + 1, y + 1]; row and
+    column 0 the zero border)."""
     h = rows.shape[0]
     w = (rows.shape[1] - 1) // bpp
     kind = rows[:, :1].astype(np.intp)
@@ -143,10 +138,9 @@ def read_png(path: str) -> np.ndarray:
 
 
 def write_png(path, bgr):
-    """(H, W, 3) uint8 BGR -> an 8-bit RGB PNG (zlib), each row filtered as
-    libpng's adaptive choice does it: of the five filters, the one whose
-    residuals, read as signed bytes, have the least absolute sum. Returns
-    the rows' filter types."""
+    """(H, W, 3) uint8 BGR -> an 8-bit RGB PNG, each row filtered by libpng's
+    adaptive rule (the least absolute sum of signed residuals). Returns the
+    rows' filter types."""
     h, w = bgr.shape[:2]
     x = bgr[..., ::-1].reshape(h, w * 3).astype(np.int16)
     up = np.concatenate([np.zeros((1, w * 3), np.int16), x[:-1]])
@@ -222,11 +216,10 @@ def _linear_taps(n_in: int, n_out: int):
 
 
 def resize_linear(img: np.ndarray, w: int, h: int) -> np.ndarray:
-    """cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR) for (H, W, C)
-    images. uint8 follows OpenCV's fixed point (within one step of it,
-    where its scalar tail rounds otherwise); float images are interpolated
-    in float32 as OpenCV's portable code does it, bit for bit (its IPP
-    build differs by up to ~2e-5)."""
+    """cv2.resize(img, (w, h), INTER_LINEAR) for (H, W, C): uint8 in OpenCV's
+    fixed point (within one step where its scalar tail rounds otherwise); float
+    in float32 as OpenCV's portable code, bit for bit (its IPP build differs by
+    ~2e-5)."""
     H, W = img.shape[:2]
     x0, x1, ax0, ax1, fx = _linear_taps(W, w)
     y0, y1, by0, by1, fy = _linear_taps(H, h)
@@ -269,10 +262,9 @@ def _area_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 
 def resize_area(img: np.ndarray, w: int, h: int) -> np.ndarray:
-    """cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA) for shrinking
-    (H, W, C) images: box weights at fractional scales, a plain mean at
-    integer ones. uint8 output rounds as OpenCV (half up for the mean,
-    half to even otherwise)."""
+    """cv2.resize(img, (w, h), INTER_AREA) for shrinking (H, W, C): box weights
+    at fractional scales, a plain mean at integer ones; uint8 rounds as
+    OpenCV."""
     H, W = img.shape[:2]
     cols = np.tensordot(img.astype(np.float64), _area_matrix(W, w),
                         axes=(1, 1))                      # (H, C, w)

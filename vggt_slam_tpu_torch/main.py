@@ -1,13 +1,10 @@
-"""VGGT-SLAM CLI on PyTorch: incremental dense SLAM over an image folder
-(counterpart of vggt_slam_tpu/main.py): per-frame keyframe gate, per-submap
-forward -> registration -> pose-graph solve, and the reference's artifacts
-(result.pcd, frame_output/*.npz, TUM pose log), the semantic voxel map,
-COLMAP alignment, the focal-length plot, a torch.profiler trace and the
-viser viewer.
+"""VGGT-SLAM CLI on PyTorch (counterpart of vggt_slam_tpu/main.py):
+incremental dense SLAM over an image folder (keyframe gate; per submap
+forward, registration, pose-graph solve) with the reference's artifacts,
+the semantic voxel map, COLMAP alignment, the focal-length plot, a
+torch.profiler trace and the viser viewer, on the card unless --device cpu.
 
 Run:  python -m vggt_slam_tpu_torch.main --image_folder <dir> [flags]
-
-The model and the solver run on the card unless --device cpu is given.
 """
 from __future__ import annotations
 
@@ -193,11 +190,9 @@ def build_model_fn(args, device="cuda"):
 
 def run_slam(args, *, frames=None, model_fn=None, retrieval=None,
              device="cuda"):
-    """Run the SLAM loop over `args.image_folder`, or over `frames`: a
-    sequence of decoded (H, W, 3) uint8 BGR images (no decoder needed).
-
-    Returns {"solver", "n_frames", "wall_s", "fps", "timer", "voxel_map"}
-    (the semantic voxel map with --get_voxel, else None)."""
+    """The SLAM loop over `args.image_folder`, or over `frames` (decoded (H, W,
+    3) uint8 BGR images). Returns {"solver", "n_frames", "wall_s", "fps",
+    "timer", "voxel_map"} (None without --get_voxel)."""
     from vggt_slam_tpu_torch.data.images import downsample_images, \
         list_image_folder, load_image, preprocess_frames
     from vggt_slam_tpu_torch.models.retrieval import \

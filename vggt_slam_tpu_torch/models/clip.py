@@ -1,26 +1,20 @@
 """CLIP's image and text towers in PyTorch (counterpart of
-vggt_slam_tpu/models/clip.py), as the released `transformers.CLIPModel`
-computes them: the semantic embedder's crop encoder and the query tool's
-text encoder (`openai/clip-vit-base-patch32` by default).
+vggt_slam_tpu/models/clip.py), as `transformers.CLIPModel` computes them
+(`openai/clip-vit-base-patch32` by default).
 
-  * vision: a patch conv without bias, a learned class token, learned
-    position embeddings, pre-LayerNorm, pre-LN blocks, post-LayerNorm on
-    the class token, a projection without bias. Its attention (non-causal,
-    50 tokens at ViT-B/32) runs the `flash_single` CUDA kernel on bf16 q,
-    k and v, whose own head_dim**-0.5 scale is CLIP's; the module stays
-    f32 and casts the output back. `attn_impl="plain"` (or
-    `CLIP.set_attn_impl`) takes the plain f32 path on the card too.
-  * text: token and position embeddings, causal pre-LN blocks, a final
-    LayerNorm pooled at the first end-of-text id (the largest id), a
-    projection without bias. Its causal attention is plain torch with f32
-    logits: the kernel masks only a key suffix.
-  * quick-gelu, LayerNorm eps 1e-5.
+  * vision: a patch conv without bias, a class token, learned positions,
+    pre-LayerNorm, pre-LN blocks, post-LayerNorm on the class token, a
+    projection without bias. Its attention runs `flash_single` on bf16 q,
+    k and v (its own head_dim**-0.5 is CLIP's scale) in the f32 module;
+    `attn_impl="plain"` takes the plain f32 path on the card too.
+  * text: causal pre-LN blocks (plain torch: the kernel masks only a key
+    suffix), a final LayerNorm pooled at the first end-of-text id (the
+    largest id), a projection without bias. Quick-gelu, LayerNorm eps 1e-5.
 
-Parameters keep the flax names and layouts (Dense kernels (in, out), the
-patch conv (kh, kw, in, out)), so the JAX package's parameters load by a
-rename (`load_flax_params`) and a transformers checkpoint converts as the
-reference converts it (`convert_torch_state_dict`). A checkpoint directory
-is read without transformers or safetensors (`read_safetensors`).
+Parameters keep the flax names and layouts, so the JAX package's
+parameters load by a rename (`load_flax_params`) and a transformers
+checkpoint converts as the reference's does, read without transformers or
+safetensors (`read_safetensors`). models/siglip.py builds on these pieces.
 """
 from __future__ import annotations
 
@@ -84,7 +78,7 @@ class CLIPConfig:
         if hf.get("model_type") != "clip":
             raise ValueError(f"{model_dir} is model_type="
                              f"{hf.get('model_type')!r}, not a CLIP "
-                             "checkpoint (use the hf backend for SigLIP)")
+                             "checkpoint (models.siglip reads SigLIP)")
         v, t = hf["vision_config"], hf["text_config"]
         return CLIPConfig(
             image_size=v.get("image_size", 224),
@@ -152,9 +146,12 @@ class CLIPAttention(nn.Module):
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             self.add_module(name, Dense(dim, dim, dtype))
 
-    def forward(self, x: torch.Tensor, causal: bool) -> torch.Tensor:
-        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
-        if causal or self.attn_impl == "plain":
+    def forward(self, x: torch.Tensor, causal: bool,
+                kv: torch.Tensor | None = None) -> torch.Tensor:
+        """Self-attention over x, or (plain) x's queries over kv."""
+        y = x if kv is None else kv
+        q, k, v = self.q_proj(x), self.k_proj(y), self.v_proj(y)
+        if causal or self.attn_impl == "plain" or kv is not None:
             o = self._plain(q, k, v, causal)
         else:
             # the kernel takes bf16: an f32 module casts in and back out
@@ -172,7 +169,7 @@ class CLIPAttention(nn.Module):
         hd = c // self.heads
 
         def split(t):
-            return t.view(b, n, self.heads, hd).transpose(1, 2)
+            return t.view(b, -1, self.heads, hd).transpose(1, 2)
 
         logits = torch.matmul(split(q) * hd ** -0.5,
                               split(k).transpose(-1, -2)).float()
@@ -186,9 +183,11 @@ class CLIPAttention(nn.Module):
 
 class CLIPBlock(nn.Module):
     def __init__(self, dim: int, heads: int, mlp_dim: int, ln_eps: float,
-                 dtype=torch.float32, attn_impl: str = "flash"):
+                 dtype=torch.float32, attn_impl: str = "flash",
+                 act=quick_gelu):
         super().__init__()
         self.dtype = dtype
+        self.act = act
         self.ln1 = LayerNorm(dim, ln_eps)
         self.attn = CLIPAttention(dim, heads, dtype, attn_impl)
         self.ln2 = LayerNorm(dim, ln_eps)
@@ -198,7 +197,7 @@ class CLIPBlock(nn.Module):
     def forward(self, x: torch.Tensor, causal: bool) -> torch.Tensor:
         x = x + self.attn(self.ln1(x).to(self.dtype), causal)
         h = self.ln2(x).to(self.dtype)
-        return x + self.fc2(quick_gelu(self.fc1(h)))
+        return x + self.fc2(self.act(self.fc1(h)))
 
 
 def _blocks(owner, n, *args):
@@ -301,11 +300,11 @@ class CLIP(nn.Module):
             img, txt
 
 
-def preprocess_images(images, image_size: int) -> torch.Tensor:
-    """(N, 3, H, W) or (N, H, W, 3) float [0, 1] (numpy or a tensor) ->
-    CLIP-normalized (N, image_size, image_size, 3) f32, the vision tower's
-    NHWC input, on the input tensor's device. Other sizes are resized
-    bilinearly, antialiased when shrinking, as jax.image.resize."""
+def preprocess_images(images, image_size: int, mean=IMAGE_MEAN,
+                      std=IMAGE_STD) -> torch.Tensor:
+    """(N, 3, H, W) or (N, H, W, 3) float [0, 1] (numpy or a tensor) -> (x -
+    mean) / std as (N, S, S, 3) f32 on the input's device, resized bilinearly
+    (antialiased when shrinking, as jax.image.resize) where not S x S."""
     x = torch.as_tensor(images, dtype=torch.float32)
     if x.ndim != 4:
         raise ValueError(f"expected (N, ., ., .) images, got "
@@ -317,9 +316,8 @@ def preprocess_images(images, image_size: int) -> torch.Tensor:
                                                        image_size),
                           mode="bilinear", align_corners=False,
                           antialias=True).permute(0, 2, 3, 1)
-    mean = torch.tensor(IMAGE_MEAN, device=x.device)
-    std = torch.tensor(IMAGE_STD, device=x.device)
-    return (x - mean) / std
+    return (x - torch.tensor(mean, device=x.device)) / \
+        torch.tensor(std, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -345,64 +343,67 @@ def load_flax_params(module: nn.Module, tree: Mapping):
     return module
 
 
+def name_ln(names, p, t):
+    names.extend([(f"{p}.scale", f"{t}.weight"), (f"{p}.bias", f"{t}.bias")])
+
+
+def name_dense(names, p, t, bias=True):
+    names.append((f"{p}.kernel", f"{t}.weight"))
+    if bias:
+        names.append((f"{p}.bias", f"{t}.bias"))
+
+
+def name_blocks(names, p, t, n):
+    """The (port key, transformers key) pairs of n pre-LN blocks."""
+    for i in range(n):
+        pi, ti = f"{p}.block_{i}", f"{t}.encoder.layers.{i}"
+        name_ln(names, f"{pi}.ln1", f"{ti}.layer_norm1")
+        name_ln(names, f"{pi}.ln2", f"{ti}.layer_norm2")
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            name_dense(names, f"{pi}.attn.{proj}", f"{ti}.self_attn.{proj}")
+        name_dense(names, f"{pi}.fc1", f"{ti}.mlp.fc1")
+        name_dense(names, f"{pi}.fc2", f"{ti}.mlp.fc2")
+
+
 def _torch_names(cfg: CLIPConfig) -> list[tuple[str, str]]:
     """(port key, transformers key) of every parameter of CLIP(cfg)."""
-    names = []
-
-    def ln(p, t):
-        names.extend([(f"{p}.scale", f"{t}.weight"),
-                      (f"{p}.bias", f"{t}.bias")])
-
-    def dense(p, t, bias=True):
-        names.append((f"{p}.kernel", f"{t}.weight"))
-        if bias:
-            names.append((f"{p}.bias", f"{t}.bias"))
-
-    def block(p, t):
-        ln(f"{p}.ln1", f"{t}.layer_norm1")
-        ln(f"{p}.ln2", f"{t}.layer_norm2")
-        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            dense(f"{p}.attn.{proj}", f"{t}.self_attn.{proj}")
-        dense(f"{p}.fc1", f"{t}.mlp.fc1")
-        dense(f"{p}.fc2", f"{t}.mlp.fc2")
-
     ve, te = "vision_model.embeddings", "text_model.embeddings"
-    names += [("vision.patch_embed.kernel", f"{ve}.patch_embedding.weight"),
-              ("vision.class_embedding", f"{ve}.class_embedding"),
-              ("vision.pos_embed", f"{ve}.position_embedding.weight")]
-    ln("vision.pre_ln", "vision_model.pre_layrnorm")   # [sic] transformers
-    for i in range(cfg.vision_layers):
-        block(f"vision.block_{i}", f"vision_model.encoder.layers.{i}")
-    ln("vision.post_ln", "vision_model.post_layernorm")
+    names = [("vision.patch_embed.kernel", f"{ve}.patch_embedding.weight"),
+             ("vision.class_embedding", f"{ve}.class_embedding"),
+             ("vision.pos_embed", f"{ve}.position_embedding.weight")]
+    name_ln(names, "vision.pre_ln", "vision_model.pre_layrnorm")  # [sic]
+    name_blocks(names, "vision", "vision_model", cfg.vision_layers)
+    name_ln(names, "vision.post_ln", "vision_model.post_layernorm")
     names += [("text.token_embedding", f"{te}.token_embedding.weight"),
               ("text.pos_embed", f"{te}.position_embedding.weight")]
-    for i in range(cfg.text_layers):
-        block(f"text.block_{i}", f"text_model.encoder.layers.{i}")
-    ln("text.final_ln", "text_model.final_layer_norm")
-    dense("visual_projection", "visual_projection", bias=False)
-    dense("text_projection", "text_projection", bias=False)
+    name_blocks(names, "text", "text_model", cfg.text_layers)
+    name_ln(names, "text.final_ln", "text_model.final_layer_norm")
+    name_dense(names, "visual_projection", "visual_projection", bias=False)
+    name_dense(names, "text_projection", "text_projection", bias=False)
     names.append(("logit_scale", "logit_scale"))
     return names
 
 
-def param_shapes(cfg: CLIPConfig) -> dict:
-    """{port key: shape} of CLIP(cfg), built on the meta device."""
+def module_shapes(cls, cfg) -> dict:
+    """{port key: shape} of cls(cfg), built on the meta device."""
     with torch.device("meta"):
-        model = CLIP(cfg)
+        model = cls(cfg)
     return {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+
+def param_shapes(cfg: CLIPConfig) -> dict:
+    return module_shapes(CLIP, cfg)
 
 
 def _is_conv(port_key: str) -> bool:
     return port_key.endswith("patch_embed.kernel")
 
 
-def torch_layout(cfg: CLIPConfig) -> dict:
-    """{transformers key: shape} of a `CLIPModel` state dict at cfg (the
-    position_ids buffers aside): the converter's names and layouts run
+def layout_of(names, shapes) -> dict:
+    """{transformers key: shape}: the converter's names and layouts run
     backwards."""
-    shapes = param_shapes(cfg)
     out = {}
-    for pk, tk in _torch_names(cfg):
+    for pk, tk in names:
         s = shapes[pk]
         if _is_conv(pk):            # (kh, kw, in, out) -> (out, in, kh, kw)
             s = (s[3], s[2], s[0], s[1])
@@ -412,16 +413,20 @@ def torch_layout(cfg: CLIPConfig) -> dict:
     return out
 
 
-def init_torch_state_dict(cfg: CLIPConfig, generator: torch.Generator,
-                          std: float = 0.02, logit_std: float = 3.0) -> dict:
-    """Seeded random weights in transformers' `CLIPModel` layout, drawn on
-    the generator's device (no weights ship): N(0, std), LayerNorm weights
-    1 + N(0, std), and q_proj/k_proj weights N(0, logit_std / width), so
-    that on unit-variance rows the attention logits spread with a standard
-    deviation of about logit_std and attention is far from uniform;
-    logit_scale log(1 / 0.07), CLIP's init."""
+def torch_layout(cfg: CLIPConfig) -> dict:
+    """{transformers key: shape} of a `CLIPModel` state dict at cfg (the
+    position_ids buffers aside)."""
+    return layout_of(_torch_names(cfg), param_shapes(cfg))
+
+
+def seeded(layout: dict, generator: torch.Generator, std: float,
+           logit_std: float) -> dict:
+    """Seeded weights of a {transformers key: shape} layout on the generator's
+    device: N(0, std), LayerNorm weights 1 + N(0, std), q_proj/k_proj weights
+    N(0, logit_std / width), so that attention logits spread by about
+    logit_std."""
     out = {}
-    for tk, shape in torch_layout(cfg).items():
+    for tk, shape in layout.items():
         scale = std
         if tk.endswith(("q_proj.weight", "k_proj.weight")):
             scale = (logit_std / shape[1]) ** 0.5
@@ -430,41 +435,51 @@ def init_torch_state_dict(cfg: CLIPConfig, generator: torch.Generator,
         if "norm" in tk and tk.endswith(".weight"):
             t += 1.0
         out[tk] = t
+    return out
+
+
+def init_torch_state_dict(cfg: CLIPConfig, generator: torch.Generator,
+                          std: float = 0.02, logit_std: float = 3.0) -> dict:
+    """`seeded` weights in transformers' `CLIPModel` layout (no weights
+    ship); logit_scale log(1 / 0.07), CLIP's init."""
+    out = seeded(torch_layout(cfg), generator, std, logit_std)
     out["logit_scale"] = torch.tensor(float(np.log(1 / 0.07)),
                                       device=generator.device)
     return out
 
 
-def convert_torch_state_dict(sd: dict, cfg: CLIPConfig) -> dict:
-    """A transformers `CLIPModel` state dict (tensors or numpy arrays) ->
-    the port's state dict of f32 tensors, as strict as the reference's: a
-    missing key, a shape off the config's, or an unconsumed key other than
-    `*.position_ids` raises, naming the key. Linear weights (out, in) become
-    kernels (in, out), the patch conv (out, in, kh, kw) becomes (kh, kw, in,
-    out)."""
-    shapes = param_shapes(cfg)
-    names = _torch_names(cfg)
+def convert_by_names(sd: dict, names, shapes, family: str) -> dict:
+    """A transformers state dict (tensors or numpy) -> the port's f32 tensors
+    by (port key, transformers key) `names`, as strict as the reference's
+    converters: a missing key, a wrong shape or an unconsumed key but
+    `*.position_ids` raises, naming it. Linear weights and the patch conv take
+    the flax layouts."""
     out = {}
     for pk, tk in names:
         if tk not in sd:
-            raise KeyError(f"CLIP converter: missing checkpoint key {tk}")
+            raise KeyError(f"{family} converter: missing checkpoint key {tk}")
         t = torch.as_tensor(sd[tk]).to(torch.float32)
         if _is_conv(pk) and t.dim() == 4:
             t = t.permute(2, 3, 1, 0)
         elif pk.endswith(".kernel") and t.dim() == 2:
             t = t.T
         if tuple(t.shape) != shapes[pk]:
-            raise ValueError(f"CLIP converter: {tk} gives {pk} the shape "
-                             f"{tuple(t.shape)}, expected {shapes[pk]}")
+            raise ValueError(f"{family} converter: {tk} gives {pk} the "
+                             f"shape {tuple(t.shape)}, expected {shapes[pk]}")
         out[pk] = t
     consumed = {tk for _, tk in names}
     leftover = sorted(k for k in sd if k not in consumed
                       and not k.endswith(".position_ids"))
     if leftover:
-        raise KeyError("CLIP converter: unexpected unconsumed checkpoint "
-                       f"keys: {leftover[:8]}"
+        raise KeyError(f"{family} converter: unexpected unconsumed "
+                       f"checkpoint keys: {leftover[:8]}"
                        f"{'...' if len(leftover) > 8 else ''}")
     return out
+
+
+def convert_torch_state_dict(sd: dict, cfg: CLIPConfig) -> dict:
+    """A `CLIPModel` state dict -> the port's (`convert_by_names`)."""
+    return convert_by_names(sd, _torch_names(cfg), param_shapes(cfg), "CLIP")
 
 
 # the weights' dtypes, and I64 for the position_ids older checkpoints hold
@@ -473,9 +488,8 @@ _SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16,
 
 
 def read_safetensors(path: str) -> dict:
-    """A .safetensors file -> {name: CPU tensor}: an 8-byte little-endian
-    header length, a JSON header of dtype, shape and data offsets (from the
-    end of the header), then the raw little-endian buffers."""
+    """A .safetensors file -> {name: CPU tensor}: an 8-byte header length, a
+    JSON header of dtypes, shapes and offsets, the raw buffers."""
     with open(path, "rb") as f:
         n = int.from_bytes(f.read(8), "little")
         header = json.loads(f.read(n))
@@ -497,30 +511,57 @@ def read_safetensors(path: str) -> dict:
     return out
 
 
-def load_torch_checkpoint(model_dir: str, cfg: CLIPConfig) -> dict:
-    """`model.safetensors` (first) or `pytorch_model.bin` of a local
-    transformers checkpoint directory -> the port's state dict."""
+def read_checkpoint(model_dir: str) -> dict:
+    """The state dict of a local transformers checkpoint directory:
+    `model.safetensors` first, else `pytorch_model.bin`."""
     st_path = os.path.join(model_dir, "model.safetensors")
     bin_path = os.path.join(model_dir, "pytorch_model.bin")
     if os.path.exists(st_path):
-        sd = read_safetensors(st_path)
-    elif os.path.exists(bin_path):
-        sd = torch.load(bin_path, map_location="cpu", weights_only=True)
-    else:
-        raise FileNotFoundError(
-            f"no pytorch_model.bin or model.safetensors under {model_dir}")
-    return convert_torch_state_dict(sd, cfg)
+        return read_safetensors(st_path)
+    if os.path.exists(bin_path):
+        return torch.load(bin_path, map_location="cpu", weights_only=True)
+    raise FileNotFoundError(
+        f"no pytorch_model.bin or model.safetensors under {model_dir}")
+
+
+def load_torch_checkpoint(model_dir: str, cfg: CLIPConfig) -> dict:
+    return convert_torch_state_dict(read_checkpoint(model_dir), cfg)
+
+
+def encoders(model, sd, tokenizer, dev, dim, image_size, max_batch,
+             mean=IMAGE_MEAN, std=IMAGE_STD):
+    """The embedder's pair on `model` (built on the meta device) with state
+    dict `sd`: `encode_crops((N, 3, H, W) or (N, H, W, 3) float [0, 1])` and
+    `encode_text(list of str)`, each -> L2-normalized (N, dim) float32 numpy in
+    chunks of at most `max_batch` on `dev`; both carry `.model`."""
+    model.load_state_dict({k: v.to(dev).contiguous() for k, v in sd.items()},
+                          assign=True)
+    model.eval()
+
+    @torch.no_grad()
+    def chunked(fn, batch):
+        if len(batch) == 0:
+            return np.zeros((0, dim), np.float32)
+        return np.concatenate([
+            fn(torch.from_numpy(batch[i:i + max_batch]).to(dev)).float()
+            .cpu().numpy() for i in range(0, len(batch), max_batch)])
+
+    def encode_crops(crops) -> np.ndarray:
+        return chunked(lambda x: model.encode_image(
+            preprocess_images(x, image_size, mean, std)),
+            np.ascontiguousarray(crops, np.float32))
+
+    def encode_text(texts: list[str]) -> np.ndarray:
+        return chunked(model.encode_text, tokenizer(texts))
+
+    encode_crops.model = encode_text.model = model
+    return encode_crops, encode_text
 
 
 def make_encoders(model_dir: str, cfg: CLIPConfig | None = None,
                   max_batch: int = 64, device="cuda"):
-    """The embedder's encoder pair on a checkpoint directory:
-    `encode_crops((N, 3, H, W) or (N, H, W, 3) float [0, 1])` and
-    `encode_text(list of str)`, each -> L2-normalized (N, projection_dim)
-    float32 numpy, in chunks of at most `max_batch` (each chunk of crops
-    is one vision forward: 12 flash_single launches at ViT-B) on `device`
-    (the card unless the CPU is asked for). Both functions carry the
-    network as `.model`."""
+    """`encoders` on a CLIP checkpoint directory on `device` (the card unless
+    the CPU is asked for): 12 flash_single a chunk of crops at ViT-B."""
     from vggt_slam_tpu_torch.models.clip_tokenizer import CLIPTokenizer
     from vggt_slam_tpu_torch.utils.device import resolve_device
 
@@ -530,26 +571,6 @@ def make_encoders(model_dir: str, cfg: CLIPConfig | None = None,
     sd = load_torch_checkpoint(model_dir, cfg)
     with torch.device("meta"):
         model = CLIP(cfg)
-    model.load_state_dict({k: v.to(dev).contiguous() for k, v in sd.items()},
-                          assign=True)
-    model.eval()
-    tokenizer = CLIPTokenizer.from_dir(model_dir, cfg.context_length)
-
-    @torch.no_grad()
-    def chunked(fn, batch):
-        if len(batch) == 0:
-            return np.zeros((0, cfg.projection_dim), np.float32)
-        return np.concatenate([
-            fn(torch.from_numpy(batch[i:i + max_batch]).to(dev)).float()
-            .cpu().numpy() for i in range(0, len(batch), max_batch)])
-
-    def encode_crops(crops) -> np.ndarray:
-        return chunked(lambda x: model.encode_image(
-            preprocess_images(x, cfg.image_size)),
-            np.ascontiguousarray(crops, np.float32))
-
-    def encode_text(texts: list[str]) -> np.ndarray:
-        return chunked(model.encode_text, tokenizer(texts))
-
-    encode_crops.model = encode_text.model = model
-    return encode_crops, encode_text
+    return encoders(model, sd, CLIPTokenizer.from_dir(model_dir,
+                                                      cfg.context_length),
+                    dev, cfg.projection_dim, cfg.image_size, max_batch)

@@ -1,20 +1,16 @@
 """CLIP's byte-pair-encoding tokenizer in plain Python (counterpart of
-vggt_slam_tpu/models/clip_tokenizer.py), reading a checkpoint directory's
-`vocab.json` and `merges.txt`.
+vggt_slam_tpu/models/clip_tokenizer.py), reading `vocab.json` and
+`merges.txt`.
 
   1. basic clean: control characters dropped, whitespace normalized, NFC,
-     CJK codepoints spaced out, lowercased (transformers' path without
-     ftfy).
-  2. the split of CLIP's pattern
+     CJK spaced out, lowercased (transformers' path without ftfy).
+  2. CLIP's pattern
          <|startoftext|>|<|endoftext|>|'s|'t|'re|'ve|'m|'ll|'d
          |[\\p{L}]+|[\\p{N}]|[^\\s\\p{L}\\p{N}]+      (case-insensitive)
-     by a scanner on `unicodedata.category` (`split`), so no `regex`
-     package is needed: Python's `re` has no \\p classes, and its \\w takes
-     marks and "_", its \\d only Nd.
-  3. GPT-2's byte -> unicode table, then BPE with a `</w>` on each word's
-     last symbol.
-  4. BOS ... EOS, cut to the context length and right-padded with EOS (the
-     text tower pools at the first EOS).
+     by a scanner on `unicodedata.category` (`split`): Python's `re` has no
+     \\p classes, and no `regex` package is needed.
+  3. GPT-2's byte -> unicode table, BPE with `</w>` on each word's end.
+  4. BOS ... EOS, cut to the context and right-padded with EOS.
 """
 from __future__ import annotations
 

@@ -2,19 +2,14 @@
 weight-free tiny-image descriptor (counterpart of
 vggt_slam_tpu/models/retrieval.py).
 
-SALAD ("Optimal Transport Aggregation for Visual Place Recognition", the
-public serizba/salad `dino_salad` model): a DINOv2-B/14 backbone without
-registers over 224x224 frames; 1x1-conv stacks project the patch tokens to
-cluster features and cluster scores, a linear stack projects the CLS token
-to a global token; log-domain Sinkhorn with a learned dustbin assigns
-patches to clusters; the descriptor is concat(normalized token,
-per-cluster-normalized aggregates flattened (cluster_dim, num_clusters)),
-L2-normalized: 8448-D at the defaults. Matching downstream is L2 distance,
-accepted under 0.80 (slam/loop_closure.py).
-
-The module is f32, as the reference's; its backbone's attention runs the
-port's `flash_single` kernel on the card (on bf16 q, k, v, cast in
-models/vggt/modules.Attention) and its plain version on the CPU.
+SALAD (serizba/salad `dino_salad`): a DINOv2-B/14 backbone without
+registers over 224x224 frames; 1x1-conv stacks give cluster features and
+scores, a linear stack a global token from CLS; log-domain Sinkhorn with a
+learned dustbin assigns patches to clusters; the descriptor is the
+normalized token and the per-cluster-normalized aggregates, L2-normalized
+(8448-D), matched by L2 distance under 0.80 (slam/loop_closure.py). The
+module is f32; its attention runs `flash_single` on bf16 q, k, v on the
+card (models/vggt/modules.Attention) and the plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -81,10 +76,10 @@ def log_otp_solver(log_a, log_b, M, num_iters: int):
 
 
 def get_matching_probs(S, dustbin_score, num_iters: int):
-    """SALAD's assignment of (..., K, n) cluster-patch scores: the learned
-    scalar dustbin row appended, optimal transport where the dustbin
-    absorbs the n - K leftover patch mass (clamped to 1 where n <= K), then
-    exp(log_P - log(1/n)) without the dustbin row: (..., K, n)."""
+    """SALAD's assignment of (..., K, n) scores: a learned dustbin row
+    appended, optimal transport where it absorbs the n - K leftover mass (1
+    where n <= K), then exp(log_P - log(1/n)) without the dustbin: (..., K,
+    n)."""
     K, n = S.shape[-2:]
     dust = torch.as_tensor(dustbin_score, dtype=S.dtype,
                            device=S.device).expand(*S.shape[:-2], 1, n)
@@ -248,12 +243,10 @@ def build_salad(input_size: int = 224, checkpoint: str | None = None,
 
 def default_descriptor_fn(input_size: int = 224,
                           checkpoint: str | None = None, device="cuda"):
-    """SALAD descriptor callable, (S, 3, H, W) [0, 1] -> (S, D) numpy; the
-    network is built on the first call, never per submap.
-
-    Random weights carry no place information (distinct frames land ~0.3
-    apart, under the 0.80 accept threshold), so `run.trusted` is True only
-    with a checkpoint; ImageRetrieval disables loop detection otherwise."""
+    """SALAD descriptor callable, (S, 3, H, W) [0, 1] -> (S, D) numpy, built on
+    the first call. Random weights carry no place information, so `run.trusted`
+    is True only with a checkpoint (ImageRetrieval disables loops
+    otherwise)."""
     def run(frames):
         model = build_salad(input_size, checkpoint, str(device))
         dev = next(model.parameters()).device
@@ -266,11 +259,9 @@ def default_descriptor_fn(input_size: int = 224,
 
 
 def tiny_image_descriptor_fn(grid: int = 16):
-    """Weight-free "tiny image" place descriptor (host, O(HW) a frame): the
-    gray thumbnail at grid x grid (area resize, as OpenCV's INTER_AREA),
-    mean-centred and L2-normalized, so L2 distance is monotone in the
-    thumbnails' NCC. Not a SALAD replacement for real scenes; it runs loop
-    closure end to end with no weights (--retrieval_backend tiny)."""
+    """Weight-free place descriptor: the gray grid x grid thumbnail (area
+    resize), mean-centred and L2-normalized, so L2 distance is monotone in NCC;
+    runs loop closure without weights (--retrieval_backend tiny)."""
     def run(frames):
         frames = np.asarray(frames, np.float32)   # (S, 3, H, W) in [0, 1]
         out = np.empty((frames.shape[0], grid * grid), np.float32)

@@ -3,16 +3,13 @@ vggt_slam_tpu/models/sam2.py): the Hiera trunk and FPN neck, the prompt
 encoder and the two-way mask decoder of `sam2.1_hiera_base_plus`, with the
 converter of the public `sam2.1_hiera_*.pt` naming.
 
-Tensors are NHWC, as the reference's. Parameters keep the flax names and
-layouts (Dense kernels (in, out), conv kernels (kh, kw, in, out), the
-transposed convs' kernels flipped in space as the reference's converter
-flips them), so the JAX package's parameters load by a rename
-(`load_flax_params`). The module computes in its parameters' dtype (f32;
-`.double()` gives the float64 check). Attention is plain torch products
-with the softmax in the parameters' dtype, as the reference's XLA einsums:
-SAM2 reaches no kernel (head dims 56 and 16). GELUs are tanh-approximate.
-A prompt batch broadcasts the image features: batch-1 tensors stay views
-until the decoder's first image update.
+Tensors are NHWC. Parameters keep the flax names and layouts (the
+transposed convs' kernels flipped in space, as the reference's converter
+does), so the JAX package's parameters load by a rename
+(`load_flax_params`). The module computes in its parameters' dtype
+(`.double()` gives the float64 check); attention is plain torch, as the
+reference's XLA einsums (no kernel: head dims 56 and 16); tanh GELUs. A
+prompt batch broadcasts the batch-1 image features.
 """
 from __future__ import annotations
 
@@ -201,11 +198,10 @@ def _max_pool(x, s):   # (B, H, W, C), MaxPool2d(s, s) flooring
 
 
 def resize_matrix(n_in: int, n_out: int) -> np.ndarray:
-    """(n_out, n_in) float64 weights of jax.image.resize(..., "bicubic")
-    along one axis: Keys' cubic with a = -0.5 (stretched by the scale when
-    shrinking) at (i + 0.5) n_in / n_out - 0.5, renormalised over the taps
-    inside the input, zero where the sample lies outside it. torch's
-    bicubic differs (a = -0.75, edge taps clamped)."""
+    """(n_out, n_in) float64 weights of jax.image.resize's bicubic along one
+    axis: Keys' cubic, a = -0.5 (stretched when shrinking), at (i + 0.5) n_in /
+    n_out - 0.5, renormalised over the taps inside the input (torch's bicubic:
+    a = -0.75, edges clamped)."""
     s = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
     x = np.abs(s[:, None] - np.arange(n_in)[None]) / max(n_in / n_out, 1.0)
     w = np.where(x >= 1, ((-0.5 * x + 2.5) * x - 4) * x + 2,
@@ -538,10 +534,9 @@ VIDEO_ONLY = ("memory_attention.", "memory_encoder.", "obj_ptr_",
 
 
 def checkpoint_names(cfg: SAM2Config) -> list:
-    """(port key, public checkpoint key, layout) of every parameter. The
-    layouts: "T" Linear, "conv" (out, in, kh, kw), "convt" ConvTranspose2d
-    (in, out, kh, kw) flipped in space, "nchw" a (1, C, h, w) embedding,
-    "cat" four (1, d) embeddings `{key}.{i}.weight`."""
+    """(port key, public key, layout) of every parameter: "T" Linear, "conv"
+    (out, in, kh, kw), "convt" ConvTranspose2d flipped in space, "nchw" a (1,
+    C, h, w) embedding, "cat" four (1, d) embeddings."""
     names = []
 
     def add(p, t, how=""):
@@ -637,10 +632,9 @@ def _to_torch(t, how):
 
 
 def convert_torch_state_dict(sd: Mapping, cfg: SAM2Config) -> dict:
-    """A public SAM2 state dict (sam2.1_hiera_*.pt ["model"], tensors or
-    numpy arrays) -> the port's state dict of f32 tensors, as strict as the
-    reference's: a missing key, a shape off the config's, or an unconsumed
-    key outside the video memory raises, naming the key."""
+    """A public SAM2 state dict (tensors or numpy) -> the port's f32 tensors,
+    as strict as the reference's: a missing key, a wrong shape or an unconsumed
+    key outside the video memory raises, naming it."""
     shapes, out, used = param_shapes(cfg), {}, set()
 
     def take(k):
@@ -680,11 +674,10 @@ def to_torch_state_dict(sd: Mapping, cfg: SAM2Config) -> dict:
 
 
 def init_state_dict(cfg: SAM2Config, seed: int = 0, device="cpu") -> dict:
-    """Seeded random weights (no weights ship), drawn on `device`: kernels
-    N(0, 1 / fan_in), the patch kernel 255 times smaller (the mask
-    generator feeds 0-255 pixels), LayerNorm weights 1 + N(0, 0.02),
-    biases, position embeddings and no_mem_embed N(0, 0.02), tokens and the
-    Fourier matrix N(0, 1)."""
+    """Seeded weights on `device`: kernels N(0, 1 / fan_in), the patch kernel
+    255 times smaller (the AMG feeds 0-255 pixels), LayerNorm weights 1 + N(0,
+    0.02), biases and embeddings N(0, 0.02), tokens and the Fourier matrix N(0,
+    1)."""
     g = torch.Generator(device=device).manual_seed(seed)
     out = {}
     for k, shape in param_shapes(cfg).items():

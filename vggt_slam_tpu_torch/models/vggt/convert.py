@@ -2,17 +2,14 @@
 initialisation and the torch-checkpoint converter (counterpart of
 vggt_slam_tpu/models/vggt/convert.py).
 
-The port's modules keep the flax parameter names and layouts, so a flax
-path "params/aggregator/frame_block_0/attn/qkv/kernel" is the state-dict
-key "aggregator.frame_block_0.attn.qkv.kernel". The flax conventions the
-weights assume carry over unchanged: single-swap rope with the quarter
-permutation already folded into q/k, tanh GELU, (k, k, in, out)
-ConvTranspose kernels with torch semantics.
-
+The port's modules keep the flax names and layouts, so the flax path
+"params/aggregator/frame_block_0/attn/qkv/kernel" is the state-dict key
+"aggregator.frame_block_0.attn.qkv.kernel", with the flax conventions
+(single-swap rope with the quarter permutation folded into q/k, tanh GELU,
+(k, k, in, out) ConvTranspose kernels with torch semantics).
 `convert_torch_state_dict` maps the released facebook/VGGT-1B state dict
-(facebookresearch/vggt names and layouts) onto that state dict with the
-reference's name rules and layout transforms, so a machine without JAX can
-turn a `model.pt` into the port's npz.
+onto it by the reference's name rules and layout transforms, so a machine
+without JAX turns a `model.pt` into the port's npz.
 """
 from __future__ import annotations
 
@@ -74,10 +71,10 @@ def _init_value(name: str, shape, generator, device, model_owner):
 
 
 def init_module_params(model, generator: torch.Generator, device) -> dict:
-    """Seeded random weights for `model` (built on the meta device), drawn
-    directly on `device`: lecun-normal kernels, N(0, 0.02) tokens and
-    position embeddings, LayerScale at its init value, unit LayerNorm scales
-    and SALAD dust bin, zero biases. Returns the state dict."""
+    """Seeded weights for `model` (built on the meta device), drawn on
+    `device`: lecun-normal kernels, N(0, 0.02) tokens and position embeddings,
+    LayerScale at its init, unit LayerNorm scales and SALAD dust bin, zero
+    biases. Returns the state dict."""
     owners = dict(model.named_modules())
     sd = {}
     for name, p in model.named_parameters():
@@ -101,10 +98,9 @@ def init_params(cfg, generator: torch.Generator, device) -> dict:
 # ---------------------------------------------------------------------------
 
 def allowed_unused_vggt(key: str) -> bool:
-    """Checkpoint keys the converter legitimately drops: DINOv2's unused
-    mask_token, the aggregator's resnet-normalization buffers (folded into
-    preprocessing), DPT's never-called refinenet4.resConfUnit1, and the
-    tracking head (out of SLAM scope)."""
+    """Checkpoint keys the converter drops: DINOv2's mask_token, the
+    aggregator's normalization buffers (folded into preprocessing), DPT's
+    never-called refinenet4.resConfUnit1, the tracking head."""
     return (key == "aggregator.patch_embed.mask_token"
             or key.startswith("aggregator._resnet_")
             or ".scratch.refinenet4.resConfUnit1." in key
@@ -139,13 +135,10 @@ def _torch_name_candidates(flax_path: str) -> list[str]:
 
 
 def _structural_transforms(flat_t: dict) -> None:
-    """Reshape torch arrays whose layout differs from the port's, in place.
-
-    The released camera_token (1, 2, 1, C) and register_token (1, 2, R, C)
-    lose their leading 1. DINOv2's pos_embed (1, 1 + g*g, C) holds a CLS
-    position and a flattened patch grid: the CLS slot is folded into
-    cls_token and the patch slots become the (1, g, g, C) grid. Then the
-    rope blocks' q/k dims are permuted (`_rope_pairing_transforms`)."""
+    """Reshape, in place, the torch arrays whose layout differs: camera_token
+    (1, 2, 1, C) and register_token (1, 2, R, C) lose the leading 1; DINOv2's
+    pos_embed (1, 1 + g*g, C) splits into cls_token's slot and a (1, g, g, C)
+    grid; then `_rope_pairing_transforms`."""
     for key in ("aggregator.camera_token", "aggregator.register_token"):
         arr = flat_t.get(key)
         if arr is not None and arr.ndim == 4 and arr.shape[0] == 1 \
@@ -177,12 +170,10 @@ def _quarter_perm(n: int) -> np.ndarray:
 
 
 def _rope_pairing_transforms(flat_t: dict) -> None:
-    """Permute the q/k head dims of the rope blocks (the aggregator's frame
-    and global blocks only) by the quarter permutation [q0, q2, q1, q3], in
-    place. The released croco rope pairs dim i with i + Dh/4 inside each
-    half of a head; the port's kernels pair (i, i + Dh/2) across the head
-    with the angle table [y | x]: the same scores once q, k and their
-    per-head norms are permuted alike."""
+    """Permute the frame and global blocks' q/k head dims by the quarter
+    permutation [q0, q2, q1, q3], in place: croco's rope pairs i with i + Dh/4
+    in each half, the port's kernels pair (i, i + Dh/2) with the angle table [y
+    | x]; the scores agree once q, k and their norms are permuted alike."""
     pat = re.compile(r"(frame|global)_blocks\.\d+\.attn\.")
     for key in list(flat_t):
         m = pat.search(key)
@@ -231,11 +222,10 @@ def _torch_kernel_layout(arr: np.ndarray, cand: str, shape) -> np.ndarray:
 
 
 def fill_state_dict(flat_t: dict, template: dict, candidates, layout):
-    """Fill each of `template`'s parameters (name -> tensor, meta or not;
-    only its shape is read) from the first candidate torch name whose
-    array, after `layout`, has its shape. Unmatched parameters are zeros.
-    Returns (state dict of f32 CPU tensors, report) with the reference's
-    report keys: unmatched flax paths and unused torch keys."""
+    """Fill each of `template`'s parameters (only its shape is read) from the
+    first candidate torch name whose array, after `layout`, has its shape;
+    unmatched ones are zeros. Returns (f32 CPU state dict, report of unmatched
+    flax paths and unused torch keys)."""
     used, unmatched, out = set(), [], {}
     for name, p in template.items():
         shape = tuple(p.shape)

@@ -1,18 +1,13 @@
-"""VGGT output heads (counterpart of vggt_slam_tpu/models/vggt/heads.py):
-the iterative camera head and the DPT dense heads.
+"""VGGT output heads (counterpart of vggt_slam_tpu/models/vggt/heads.py).
 
-Camera head: the final camera tokens are refined over `cam_iterations`;
-each iteration embeds the current 9-D pose encoding, gates an AdaLN
-modulation with a residual, runs a small self-attention trunk over the S
-frames (kernel 1 with the bucket's valid_len; under training the
-differentiable flash_grad path, the same exact softmax as the reference's
-chunked trunk) and adds a predicted delta.
-
-DPT head: the shared LayerNorm, 1x1 projections plus the UV sin/cos
-position embedding, learned resizes (ConvTranspose x4 / x2, identity,
-strided conv), coarse-to-fine fusion with residual conv units and
-align-corners upsampling, and a channel-first (C, S, H, W) f32 output.
-Tensors are NCHW here (the reference is NHWC); outputs match its layout.
+Camera head: the camera tokens are refined over `cam_iterations`; each
+embeds the current 9-D pose encoding, gates an AdaLN modulation with a
+residual, runs a small self-attention trunk over the S frames (kernel 1
+with the bucket's valid_len; flash_grad under training) and adds a
+predicted delta. DPT head: the shared LayerNorm, 1x1 projections plus the
+UV sin/cos embedding, learned resizes, coarse-to-fine fusion with residual
+conv units and align-corners upsampling, a channel-first (C, S, H, W) f32
+output. Tensors are NCHW here (the reference's NHWC); outputs match.
 """
 from __future__ import annotations
 

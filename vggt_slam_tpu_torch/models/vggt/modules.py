@@ -133,16 +133,11 @@ class _FusedQKV(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention with optional 2D rope, qk-norm and a
-    reduced (merged) key/value set.
-
-    `rope_cos`/`rope_sin` are full-length (N, head_dim // 2) tables
-    (identity rotation on special tokens). `kv_map` maps (B, N, C) tokens to
-    the reduced (B, n_kv, C) key/value source; k and v are projected only
-    on it. qk-norm runs before rope; on the flash path both run inside the
-    kernel, except with `qk_int8` (int8 QK^T, whose scales are taken before
-    the LN): then the LN runs outside and rope stays in the kernel.
-    """
+    """Multi-head self-attention with optional 2D rope, qk-norm and a merged
+    key/value set: `rope_cos`/`rope_sin` full-length (N, head_dim // 2) tables;
+    `kv_map` maps (B, N, C) tokens to the (B, n_kv, C) key/value source.
+    qk-norm runs before rope, both inside the kernel on the flash path, except
+    with `qk_int8` (scales taken before the LN): then the LN runs outside."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
                  attn_impl: str = "flash", qkv_bias: bool = True,

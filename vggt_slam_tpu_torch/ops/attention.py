@@ -1,38 +1,31 @@
 """Multi-head attention for the VGGT trunk: plain versions and the
-hand-written CUDA flash-attention kernels (forward and backward).
-
-Counterpart of vggt_slam_tpu/ops/attention.py. The packed layout is the
-port's kernel layout: q/k/v are (B, N, H*D), the natural output of the
-q/k/v projections, so no transposes cross device memory.
+hand-written CUDA flash-attention kernels, forward and backward
+(counterpart of vggt_slam_tpu/ops/attention.py). q, k, v are packed (B, N,
+H*D), the projections' natural output, so no transposes cross memory.
 
 * `naive_attention`, `chunked_attention`: plain (B, H, N, D) references
   with the suffix `valid_len` key mask and a per-key `kv_bias`.
-* `flash_single` / `flash_single_ref`: the counterpart of the TPU kernel
+* `flash_single` / `flash_single_ref`: the TPU kernel
   `_flash_single_kernel` (exact softmax; encoder, frame blocks, camera
   trunk) and its plain version.
-* `flash_multi` / `flash_multi_ref`: the counterpart of `_flash_kernel` in
-  its default composite (static-max softmax, qk-LN, rope, kv_bias,
-  valid_len; the global blocks) and its plain version.
-* `flash_attention`: the selection rule of the reference's
-  `flash_attention` plus the static bound; `attention` dispatches by name.
-  With `return_stats` the two forward kernels also return the row stats
-  (m, l) of the reference's `return_stats`.
-* `qk_int8=True` on either forward: the reference's int8 QK^T variant of
-  `_flash_kernel` (per-(batch, head) scales from `int8_scales`, q and k
-  quantized after rope, s32 logits, bf16 PV), counted as
-  `flash_single_i8` / `flash_multi_i8`. `flash_attention` takes it only
-  where the key set does not fit one block, as the reference does. On
-  CUDA tensors the call's pre-pass computes the scales bit for bit as
-  `int8_scales` does (`int8_scales_cuda` runs it alone).
-* `flash_bwd` / `flash_bwd_ref`: one CUDA call computing what the TPU
-  kernels `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` compute
-  together (dq, dk, dv), and their plain version; `FlashAttentionGrad` /
-  `flash_attention_grad` (the reference's `flash_attention_grad`) wrap the
-  forward with stats and the backward as a `torch.autograd.Function`,
-  `impl="flash_grad"`.
+* `flash_multi` / `flash_multi_ref`: `_flash_kernel` in its default
+  composite (static-max softmax, qk-LN, rope, kv_bias, valid_len; the
+  global blocks) and its plain version.
+* `flash_attention`: the reference's selection rule plus the static bound;
+  `attention` dispatches by name; `return_stats` gives the row stats (m,
+  l).
+* `qk_int8=True` on either forward: the reference's int8 QK^T (scales from
+  `int8_scales`, q and k quantized after rope, s32 logits, bf16 PV),
+  counted as `flash_single_i8` / `flash_multi_i8`, taken by
+  `flash_attention` only where the keys do not fit one block. On CUDA the
+  call's pre-pass computes the scales bit for bit (`int8_scales_cuda`).
+* `flash_bwd` / `flash_bwd_ref`: one CUDA call for what
+  `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` compute (dq, dk, dv);
+  `FlashAttentionGrad` / `flash_attention_grad` wrap the forward with stats
+  and the backward as `impl="flash_grad"`.
 
-A kernel wrapper runs its plain version only for tensors on the CPU; for a
-CUDA tensor it launches the kernel (csrc/flash_attention.cu,
+A wrapper runs its plain version only for CPU tensors; for a CUDA tensor
+it launches the kernel (csrc/flash_attention.cu,
 csrc/flash_attention_bwd.cu) or raises.
 """
 from __future__ import annotations
@@ -144,14 +137,11 @@ def _prep(x, num_heads, ln, ln_eps, rope, scale):
 
 
 def int8_scales(q, k, num_heads, rope: bool):
-    """Per-(batch, head) int8 quantization scales of packed q and k
-    (reference attention.py:606-629): amax is the largest pair norm of
-    (x1, x2) when rope rotates the rows (so every rotated component stays
-    within it), else the largest |x|, at least 1e-6, over all rows passed
-    in. Returns (3, B*H) f32: 127/amax_q, 127/amax_k (one division, as
-    the reference's; `127.0 / t` would take torch's reciprocal, then a
-    product, an ulp off it at times) and the dequant scale amax_q amax_k
-    log2(e) / (sqrt(D) 127^2)."""
+    """Per-(batch, head) int8 scales of packed q and k (reference
+    attention.py:606-629): amax the largest pair norm of (x1, x2) under rope,
+    else the largest |x|, at least 1e-6. Returns (3, B*H) f32: 127/amax_q,
+    127/amax_k (one division, as the reference's; a reciprocal and a product
+    can be an ulp off) and amax_q amax_k log2(e) / (sqrt(D) 127^2)."""
     B, H = q.shape[0], num_heads
     D = q.shape[2] // H
 
@@ -197,12 +187,10 @@ def _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln, qk_int8=False):
 
 def _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias, qk_ln,
            qk_ln_eps, smax, return_stats=False, qk_int8=False, q_chunk=2048):
-    """Shared plain version: `smax` None = exact running max (kernel 1),
-    else the static bound per (batch, head) (kernel 2). With
-    `return_stats` also the (B, H, Nq) f32 row shift m and row sum l. With
-    `qk_int8` q and k are quantized whole with `int8_scales`, and QK^T is
-    an f32 product of the int8 values: exact, as |sum| <= 128 * 127^2 <
-    2^24."""
+    """Shared plain version: `smax` None = exact running max (kernel 1), else
+    the static bound per (batch, head) (kernel 2); `return_stats` adds the (B,
+    H, Nq) f32 m and l; `qk_int8` quantizes q, k with `int8_scales` and takes
+    QK^T as an exact f32 product of the int8 values (|sum| < 2^24)."""
     _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln, qk_int8)
     B, Nq, HD = q.shape
     Nk = k.shape[1]
@@ -255,15 +243,12 @@ def _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias, qk_ln,
 def flash_single_ref(q, k, v, *, num_heads, valid_len=None, rope_q=None,
                      rope_k=None, kv_bias=None, qk_ln=None, qk_ln_eps=1e-5,
                      qk_int8=False, return_stats=False):
-    """Plain version of `flash_single`: packed (B, N, H*D) exact softmax
-    attention in f32 with the kernel's bf16 tile roundings.
-
-    `rope_q`/`rope_k`: (cos, sin) tables (N, D/2); `qk_ln`: (gq, bq, gk, bk)
-    per-head-dim LayerNorm params (needs rope); `kv_bias`: (Nk,) natural-log
-    per-key bias; `valid_len`: keys at or past it are masked.
-    `return_stats`: return (out, m, l), m the exp2-domain row max and l the
-    row sum of exp2(s - m), each (B, H, Nq) f32 (reference
-    attention.py:365-384). `qk_int8`: int8 QK^T, see `_plain`."""
+    """Plain `flash_single`: packed (B, N, H*D) exact softmax attention in f32
+    with the kernel's bf16 tile roundings. `rope_q`/`rope_k`: (cos, sin) (N,
+    D/2); `qk_ln`: (gq, bq, gk, bk) per-head-dim LayerNorm (needs rope);
+    `kv_bias`: (Nk,) natural-log bias; `valid_len`: keys from it on masked;
+    `return_stats`: (out, m, l), m the exp2-domain row max, l the row sum of
+    exp2(s - m), (B, H, Nq) f32; `qk_int8`: see `_plain`."""
     return _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
                   qk_ln, qk_ln_eps, None, return_stats, qk_int8)
 
@@ -533,15 +518,12 @@ def flash_multi(q, k, v, smax, *, num_heads, valid_len=None, rope_q=None,
 
 def flash_bwd_ref(q, k, v, dout, m, l, delta, *, num_heads, valid_len=None,
                   q_chunk=2048):
-    """Plain version of the backward kernels: packed (B, N, H*D) q, k,
-    v, dout and the forward's (B, H, Nq) f32 stats m, l with delta =
-    rowsum(dout * out) -> (dq, dk, dv) in the inputs' dtypes.
-
-    As the reference's `_flash_bwd_dq_kernel`/`_flash_bwd_dkv_kernel`:
-    p = exp2(c q.k - m) / max(l, 1e-30) with c = log2(e)/sqrt(D), zero for
-    keys at or past valid_len; dL = p (dout.v - delta) cast to the input
-    dtype before both of its products; p cast to dout's dtype before the
-    dv product; f32 accumulation."""
+    """Plain backward: packed q, k, v, dout and the forward's (B, H, Nq) f32 m,
+    l with delta = rowsum(dout * out) -> (dq, dk, dv) in the inputs' dtypes. As
+    the reference's kernels: p = exp2(c q.k - m) / max(l, 1e-30), c =
+    log2(e)/sqrt(D), zero from valid_len on; dL = p (dout.v - delta) cast to
+    the input dtype before its products; p cast to dout's dtype before dv; f32
+    sums."""
     B, Nq, HD = q.shape
     Nk = k.shape[1]
     H = num_heads
@@ -644,11 +626,9 @@ def flash_bwd(q, k, v, dout, out, m, l, *, num_heads, valid_len=None):
 
 
 class FlashAttentionGrad(torch.autograd.Function):
-    """Differentiable flash attention (reference `flash_attention_grad`):
-    the forward runs the stats variant of kernel 1 or 2 and saves q, k, v,
-    out, m and l; the backward runs `flash_bwd`. Under activation
-    checkpointing the forward runs again in the backward pass and saves the
-    recomputed stats, which are the ones the kernels then read."""
+    """Differentiable flash attention (reference `flash_attention_grad`): the
+    forward runs kernel 1 or 2 with stats and saves q, k, v, out, m, l; the
+    backward runs `flash_bwd` (under checkpointing on the recomputed stats)."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, valid_len, softmax):
@@ -722,16 +702,12 @@ def flash_attention(q, k, v, *, num_heads, valid_len=None, rope_q=None,
                     rope_k=None, kv_bias=None, softmax="online", qk_ln=None,
                     qk_ln_eps=1e-5, qk_int8=False, block_k=2048,
                     return_stats=False):
-    """Packed (B, N, H*D) flash attention with the reference's selection
-    rule (attention.py:972-979): key sets that fit one 128-rounded block of
-    at most min(block_k, 2304) keys take kernel 1; longer ones take
-    kernel 2 under softmax="static". Kernel 1 walks key tiles with a running
-    max, so softmax="online" on long key sets runs it too: the same exact
-    softmax the reference's online multi-block kernel computes.
-    `return_stats` returns (out, m, l) as the reference's does. `qk_int8`
-    quantizes QK^T to int8 only where the key set does not fit one block
-    (the reference's `use_int8`, attention.py:549); elsewhere it stays
-    bf16."""
+    """Packed flash attention by the reference's rule (attention.py:972-979):
+    keys that fit one 128-rounded block of at most min(block_k, 2304) take
+    kernel 1; longer ones kernel 2 under softmax="static" (kernel 1 otherwise:
+    its running max gives the reference's online softmax). `return_stats`:
+    (out, m, l). `qk_int8` only where the keys do not fit one block
+    (attention.py:549)."""
     if qk_int8 and qk_ln is not None:
         raise ValueError("qk_ln and qk_int8 do not go together")
     Nk = k.shape[1]
@@ -750,12 +726,9 @@ def attention(q, k, v, impl: str = "flash", valid_len=None, rope_q=None,
               rope_k=None, kv_bias=None, softmax: str = "online",
               qk_ln=None, qk_ln_eps: float = 1e-5, num_heads=None,
               qk_int8: bool = False):
-    """Dispatch by implementation name on packed (B, N, H*D) tensors.
-
-    Only "flash" takes rope and qk_ln in-kernel; "naive", "chunked" and
-    the differentiable "flash_grad" expect them pre-applied. `qk_int8`
-    (flash only) runs QK^T in int8, see `flash_attention`; "naive" and
-    "chunked" ignore it, as the reference's do."""
+    """Dispatch by name on packed tensors. Only "flash" takes rope and qk_ln
+    in-kernel; "naive", "chunked" and "flash_grad" expect them applied.
+    `qk_int8` is flash's alone."""
     if num_heads is None:
         raise ValueError("packed layout requires num_heads")
     if impl == "flash":

@@ -2,17 +2,12 @@
 1x1 conv in one CUDA kernel (counterpart of vggt_slam_tpu/ops/dpt_tail.py,
 whose Pallas `_kernel` it replaces).
 
-The tail of a DPT head is output_conv1 -> align-corners upsample to
-(H, W) -> + UV pos-embed -> 3x3 conv -> ReLU -> 1x1 conv. As in the
-reference, the cheap column upsample stays outside the kernel
-(`upsample_columns`, a torch.matmul with the interpolation matrix), and the
-kernel (csrc/dpt_tail.cu) does the rest, writing the output channel-first,
-(cout, S, H, W) f32. `fused_tail_ref` is its plain version with the same
-roundings. As in the reference, `DPTHead` does not call it.
-
-`fused_tail` runs its plain version only for tensors on the CPU; for a
-CUDA tensor it launches the kernel or raises. The kernel takes w0 in the
-layout `kernel_weights` prepares (its wgmma B operands).
+As in the reference, the column upsample stays outside (`upsample_columns`,
+a matmul with the interpolation matrix) and `DPTHead` does not call the
+kernel (csrc/dpt_tail.cu), which writes (cout, S, H, W) f32;
+`fused_tail_ref` is its plain version with the same roundings. CPU tensors
+take the plain version; a CUDA tensor launches the kernel or raises. w0
+comes in `kernel_weights`' layout.
 """
 from __future__ import annotations
 
@@ -76,13 +71,10 @@ def _row_taps(rows_in: int, rows_out: int, device):
 
 
 def fused_tail_ref(x, pos, w0, b0, w1, b1) -> torch.Tensor:
-    """Plain version of `fused_tail`, with the kernel's roundings: the row
-    taps and pos add in f32, rounded to x's dtype; the 3x3 conv in f32 on
-    weights rounded to x's dtype, plus b0; ReLU rounded to x's dtype; the
-    1x1 conv on weights rounded to x's dtype, in f32, plus b1. Both convs
-    take values of x's dtype, which TF32 holds exactly when it is bf16 (the
-    kernel's dtype), so their products are exact and the result does not
-    depend on the TF32 settings."""
+    """Plain `fused_tail` with the kernel's roundings: row taps and pos add in
+    f32, rounded to x's dtype; the 3x3 conv in f32 on weights rounded to x's
+    dtype, plus b0; ReLU rounded; the 1x1 conv likewise, plus b1. With bf16 x
+    the products are exact under TF32 too."""
     S, rows_in, W, cin = x.shape
     rows_out = pos.shape[0]
     dt = x.dtype
@@ -116,10 +108,9 @@ def design_launches() -> dict:
 
 
 def kernel_weights(w0: torch.Tensor) -> torch.Tensor:
-    """w0 (3, 3, cin, cmid) -> the kernel's B operand, (3 cin / 8, 3 cmid,
-    8) bf16: the K-major matrix B[n = (dr, m), k = (dc, ci)] = w0[dr, dc,
-    ci, m] in 8-element chunks of k, chunk-major (the no-swizzle
-    core-matrix layout, as one bulk copy lands it in shared memory)."""
+    """w0 (3, 3, cin, cmid) -> the kernel's B operand (3 cin / 8, 3 cmid, 8)
+    bf16: B[(dr, m), (dc, ci)] = w0[dr, dc, ci, m] in chunk-major 8-element
+    chunks of k (the no-swizzle core-matrix layout)."""
     cmid = w0.shape[-1]
     w = w0.to(torch.bfloat16).permute(1, 2, 0, 3)     # dc, ci, dr, m
     w = w.reshape(-1, 8, 3 * cmid)                    # k chunk, k % 8, n
@@ -171,15 +162,12 @@ def _launch(x, pos, w0, b0, w1, b1, out=None):
 
 
 def fused_tail(x, pos, w0, b0, w1, b1) -> torch.Tensor:
-    """Fused row upsample + pos + conv3x3 + ReLU + conv1x1, channel-first.
-
-    x: (S, rows_in, W, cin), output_conv1's result after the column
-    upsample; pos: (rows_out, W, cin) positional embedding at full
-    resolution (already scaled by 0.1); w0, b0: (3, 3, cin, cmid), (cmid,);
-    w1, b1: (1, 1, cmid, cout) or (cmid, cout), (cout,). Returns
-    (cout, S, rows_out, W) f32. CPU tensors take `fused_tail_ref`; CUDA
-    tensors the CUDA kernel (bf16 x, cin 32 to 128 in steps of 32, cmid 32,
-    cout <= 4)."""
+    """Fused row upsample + pos + conv3x3 + ReLU + conv1x1, channel-first. x
+    (S, rows_in, W, cin) after the column upsample; pos (rows_out, W, cin),
+    scaled by 0.1; w0, b0 (3, 3, cin, cmid), (cmid,); w1, b1 (1, 1, cmid, cout)
+    or (cmid, cout), (cout,). Returns (cout, S, rows_out, W) f32. CPU tensors
+    take `fused_tail_ref`; CUDA tensors the kernel (bf16 x, cin 32 to 128 by
+    32, cmid 32, cout <= 4)."""
     rows_in, rows_out = x.shape[1], pos.shape[0]
     if not supported(rows_in, rows_out):
         raise ValueError(f"unsupported rows {rows_in} -> {rows_out}")

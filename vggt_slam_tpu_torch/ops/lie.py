@@ -1,12 +1,10 @@
 """Lie-group operations: SO(3), SE(3), Sim(3), SL(4) (counterpart of
-vggt_slam_tpu/ops/lie.py).
-
-Pure torch, batched over leading dims, in f32 or f64, and free of
+vggt_slam_tpu/ops/lie.py). Pure torch, batched, f32 or f64, free of
 data-dependent Python control flow so the pose-graph solver can take
-forward-mode Jacobians under torch.func.vmap. Conventions as the
-reference: right retraction X @ exp(xi), quaternions (w, x, y, z), SL(4)
-tangent basis = the 12 off-diagonal units E_ij (row-major) then
-diag(1,-1,0,0), diag(0,1,-1,0), diag(0,0,1,-1).
+forward-mode Jacobians under torch.func.vmap. The reference's conventions:
+right retraction X @ exp(xi), quaternions (w, x, y, z), SL(4) tangent basis
+the 12 off-diagonal E_ij (row-major), then diag(1,-1,0,0), diag(0,1,-1,0),
+diag(0,0,1,-1).
 """
 from __future__ import annotations
 
@@ -315,14 +313,11 @@ def inv44(M: torch.Tensor, refine: int = 1) -> torch.Tensor:
 
 
 def expm(A: torch.Tensor, squarings: int | None = None) -> torch.Tensor:
-    """Matrix exponential: scaling so the norm is < 0.25, 12-term Taylor,
-    then squaring (per-matrix counts, as the reference).
-
-    `squarings`: None derives the counts from the data (eager only: one host
-    read of the largest count). An int fixes them for every matrix, which
-    keeps the function free of data-dependent control flow under
-    torch.func transforms; the pose-graph residuals pass 0 because they only
-    ever evaluate exp at a zero tangent."""
+    """Matrix exponential: scaling below norm 0.25, 12-term Taylor, squaring
+    (per-matrix counts, as the reference). `squarings` None derives the counts
+    from the data (eager only: one host read); an int fixes them, free of
+    data-dependent control flow under torch.func (the residuals pass 0: exp at
+    a zero tangent)."""
     if squarings is None:
         norm = torch.linalg.norm(A, dim=(-2, -1), keepdim=True)
         n_sq = torch.ceil(torch.log2(norm.clamp_min(1e-30) / 0.25)

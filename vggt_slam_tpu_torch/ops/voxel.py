@@ -1,13 +1,10 @@
 """Voxelization: the mean of per-point features over occupied voxels
-(counterpart of vggt_slam_tpu/ops/voxel.py).
-
-* `voxelize_np`: the exact host path; voxels in `np.unique(axis=0)`'s
-  lexicographic order.
-* `voxelize_device`: the static-capacity path on the tensors' device: three
-  stable sorts give the reference's lexsort order (x, then y, then z), runs
-  of equal coordinates become segments, sums by `index_add_`. On a CUDA
-  device the sums are atomic adds, so the means are not bit-reproducible:
-  they agree with `voxelize_np` within `mean_tolerance`.
+(counterpart of vggt_slam_tpu/ops/voxel.py). `voxelize_np` is the exact
+host path (voxels in `np.unique(axis=0)` order); `voxelize_device` the
+static-capacity path on the tensors' device (three stable sorts give the
+lexsort order, runs of equal coordinates become segments, sums by
+`index_add_`). On CUDA the sums are atomic adds, so its means agree with
+`voxelize_np` within `mean_tolerance`.
 """
 from __future__ import annotations
 
@@ -83,11 +80,9 @@ def unique_rows(rows: torch.Tensor):
 
 def voxelize_device(points: torch.Tensor, feats: torch.Tensor,
                     mask: torch.Tensor, voxel_size: float, capacity: int):
-    """Masked voxel mean with a static output size.
-
-    points (N, 3), feats (N, d), mask (N,) (False drops the point); the
-    first `capacity` voxels in coordinate order are kept. Returns centers
-    (capacity, 3) f32, feat_mean (capacity, d), counts (capacity,) in
+    """Masked voxel mean with a static output size: points (N, 3), feats (N,
+    d), mask (N,); the first `capacity` voxels in coordinate order. Returns
+    centers (capacity, 3) f32, feat_mean (capacity, d), counts (capacity,) in
     feats' dtype and num_voxels (); entries past num_voxels are zero."""
     coords = voxel_coords(points, voxel_size, torch.int32)
     coords = torch.where(mask.bool()[:, None], coords,

@@ -1,45 +1,27 @@
 """Microbenchmark of the frame-attention kernel on the card: the port's
 counterpart of scripts/bench_attention.py.
 
-Frame attention (and the DINOv2 encoder attention, same shape) is BH = S·H
-independent (frame, head) problems of ~1041 tokens at D = 64. This script
-times the port's production kernel (`ops.attention.flash_single`) beside
-four hand-written CUDA probes (csrc/bench_attention.cu) that split it:
-
-* `matmul_only`: o = bf16(q kᵀ) v, no softmax - the tensor-core floor;
-* `softmax_only`: the exp2 softmax of a broadcast logit row, no matmuls -
-  the softmax floor (its output is 1/Np everywhere);
-* `grouped_attention` (straight or interleaved) and `pipelined_attention`:
-  exp2-domain attention on pre-scaled q, G problems per work item in three
-  orders of asynchronous `wgmma` groups (the Hopper design of
-  csrc/bench_attention.cu's `grouped_sm90`), to see whether one problem's
-  tensor-core work hides another's softmax;
-
-and SDPA at the padded shape as the library yardstick: at scale ln 2 its
-exp is the probes' exp2. Inputs are padded to Np = roundup(N, 128) with
-zeros and the padded keys are not masked, as in the reference. G runs over
-2, 4 and 8 where it divides BH.
+Frame attention is BH = S·H independent problems of ~1041 tokens at D =
+64. The script times `ops.attention.flash_single` beside four CUDA probes
+(csrc/bench_attention.cu) that split it: `matmul_only` (o = bf16(q kᵀ) v,
+the tensor-core floor), `softmax_only` (the exp2 softmax of a broadcast
+logit row, the softmax floor), `grouped_attention` (straight or
+interleaved) and `pipelined_attention` (G problems a work item on
+`grouped_sm90`, to see whether one problem's products hide another's
+softmax), and SDPA at scale ln 2. Inputs are padded to Np = roundup(N,
+128) with unmasked zero keys, as in the reference; G in 2, 4, 8.
 
     python -m vggt_slam_tpu_torch.scripts.bench_attention [--iters 20]
         [--frames 33] [--heads 16] [--tokens 1041] [--dim 64] [--check]
 
-Each line gives ms (CUDA events over --iters launches, best of 3; the
-inputs exceed the 50 MB L2 at the default shape), TF/s (4·BH·Np²·D over
-the time, as the reference counts), the bound and the share of it.
-Each line also gives the plain version's time on the same arguments.
-`--check` first holds every call against its plain version on the same
-arguments (softmax-only bit-exact, the others 1e-2 of the largest |ref|),
-the grouped and pipelined kernels also against the plain version at their
-own key tile (`tiled_tolerance`: 2e-3, or one bf16 step of |ref| where
-larger), and the attention calls against naive
-attention on the first frame's first two heads (0.05, the reference's
-check), and raises on a mismatch. The script runs on the card and raises
-without one.
-
-The kernel wrappers take their plain versions for CPU tensors only; a CUDA
-tensor launches the kernel or raises. `LAUNCHES` counts kernel launches,
-`design_launches()` the C launcher's counts of `grouped_sm90` and (the
-matmul-only floor's) `global_sm90` launches.
+Each line: ms (CUDA events, best of 3), TF/s (4·BH·Np²·D), the bound and
+its share, the plain version's ms. `--check` first holds every call
+against its plain version (softmax-only bit-exact, else 1e-2 of max|ref|;
+grouped and pipelined also at their key tile, `tiled_tolerance`; the
+attention calls against naive attention on two heads) and raises on a
+mismatch. Needs the card. Wrappers take their plain versions for CPU
+tensors only; `LAUNCHES` counts launches, `design_launches()` the C
+launcher's counts.
 """
 from __future__ import annotations
 
@@ -115,16 +97,12 @@ def softmax_only_ref(q, k, v):
 
 
 def exp2_attention_ref(q, k, v, l_keys=None, block_k=None):
-    """Plain version of `grouped_attention` and `pipelined_attention`:
-    s = q kᵀ in f32 on pre-scaled q, m the row max over all keys (padded
-    keys too: logit 0, v 0), p = exp2(s - m), l the f32 sum of the unrounded
-    p, o = (bf16(p) v) / max(l, 1e-30) in q's dtype. With `block_k`, m is
-    the running max over key tiles of block_k, as the kernels take it (the
-    online softmax: per tile m' = max(m, tile max), a = exp2(m - m'),
-    p = exp2(s - m'), l = a l + Σp, acc = a acc + bf16(p) v), so p is
-    rounded against the same max as in the kernel. `l_keys` sums l over
-    the first l_keys keys only: a control that drops the padded keys from
-    l, which the checks must tell from the real function."""
+    """Plain version of the grouped and pipelined probes: s = q kᵀ in f32 on
+    pre-scaled q, m the row max over all keys (padded ones too), p = exp2(s -
+    m), l the f32 sum of p, o = (bf16(p) v) / max(l, 1e-30). With `block_k`, m
+    is the running max over key tiles as the kernels take it, so p rounds
+    against the same max. `l_keys` sums l over the first l_keys keys only: a
+    control the checks must reject."""
     def logits(q, k):
         return torch.matmul(q.float(), k.float().transpose(-1, -2))
 
@@ -182,10 +160,8 @@ def kernel_library():
 
 
 def design_launches() -> dict:
-    """The probe kernels' launches in this process by design, counted by
-    the C launcher at each launch: "tma_wgmma" for `grouped_sm90`
-    (csrc/bench_attention.cu: the grouped and pipelined kernels),
-    "global_sm90" for the matmul-only floor (csrc/global_sm90.cuh)."""
+    """The probes' launches by design from the C launcher: "tma_wgmma"
+    (`grouped_sm90`) and "global_sm90" (the matmul-only floor)."""
     out = (ctypes.c_longlong * 2)()
     kernel_library().bench_attention_design_launches(out)
     return {"tma_wgmma": out[0], "global_sm90": out[1]}
@@ -211,10 +187,8 @@ def block_k(schedule, G):
 
 
 def tiled_tolerance(ref):
-    """Elementwise tolerance against the plain version at the kernel's key
-    tile: TILED_TOL, or one bf16 step of |ref| where that is larger (|ref|
-    >= 0.5). Both sides round o to bf16, so two right f32 evaluations of a
-    value near a rounding boundary end one step apart."""
+    """TILED_TOL, or one bf16 step of |ref| where larger: both sides round o to
+    bf16, so two right f32 values near a boundary end one step apart."""
     m, e = torch.frexp(ref.float())
     step = torch.where(m == 0, torch.zeros_like(m),
                        torch.ldexp(torch.ones_like(m), e - 8))
@@ -222,10 +196,9 @@ def tiled_tolerance(ref):
 
 
 def tiled_error(variant, args, out):
-    """(max |out - ref|, max |out - ref| / `tiled_tolerance`, block_k) of a
-    grouped or pipelined variant's kernel output on its call's arguments
-    against `exp2_attention_ref` at the instance's own key tile: it holds
-    where the second number is at most 1."""
+    """(max |out - ref|, that over `tiled_tolerance`, block_k) of a grouped or
+    pipelined kernel against `exp2_attention_ref` at its own key tile; holds
+    where the second is at most 1."""
     bk = block_k(*instance(variant))
     ref = exp2_attention_ref(*args, block_k=bk)
     diff = (out.float() - ref.float()).abs()
@@ -318,12 +291,10 @@ def _grouped_out(q, k, v, out):
 
 
 def grouped_attention(q, k, v, *, interleave=False, out=None):
-    """Grouped probe on (BH/G, G, Np, D) bf16, G in (2, 4, 8), Np a
-    multiple of 128: a work item takes the G problems of a group, problem
-    by problem or, with `interleave`, all QKᵀ products of a key tile before
-    the softmax and PV chains. CPU tensors take `exp2_attention_ref`, CUDA
-    tensors the CUDA kernel (of the library `kernel_library` gives),
-    written into `out` where given."""
+    """Grouped probe on (BH/G, G, Np, D) bf16: a work item takes a group's G
+    problems one by one or, with `interleave`, all QKᵀ of a key tile first. CPU
+    tensors take `exp2_attention_ref`, CUDA tensors the kernel, into `out`
+    where given."""
     if q.device.type == "cpu":
         return exp2_attention_ref(q, k, v)
     out = _grouped_out(q, k, v, out)
@@ -370,12 +341,10 @@ _ROLE = {matmul_only: ("matmul", "matmul_only", matmul_only_ref),
 # ---------------------------------------------------------------------------
 
 class Probe:
-    """One line of the benchmark. `prep(q, k, v)` turns (S, H, N, D)
-    inputs into the call's arguments once (padding, reshapes, pre-scale;
-    untimed), `run(*args)` is the timed call, `plain(*args)` its plain
-    version, `unprep(out, shape)` slices back to (S, H, N, D), `kind` picks
-    the bound and the tolerance, and `counter` names the call's LAUNCHES
-    entry (None for flash_single and SDPA). Calling it runs all of it."""
+    """One line: `prep` makes the call's arguments once (untimed), `run` is the
+    timed call, `plain` its plain version, `unprep` slices back to (S, H, N,
+    D), `kind` picks bound and tolerance, `counter` names its LAUNCHES
+    entry."""
 
     def __init__(self, kind, counter, prep, run, plain, unprep):
         self.kind, self.counter, self.prep, self.run = kind, counter, prep, run
@@ -485,11 +454,8 @@ def make_inputs(S, H, N, D, seed=0, device="cpu"):
 
 
 def probe_error(kind, out, ref):
-    """(max |out - ref|, tolerance) of a call against its plain version:
-    softmax-only is bit-exact (tolerance 0); the others 1e-2 of max |ref|
-    (matmul-only: one bf16 rounding of s can flip under another f32
-    summation order; attention: the kernels round p to bf16 against the
-    running max, the plain version against the final one)."""
+    """(max |out - ref|, tolerance): softmax-only bit-exact, else 1e-2 of
+    max|ref| (another f32 order can flip a bf16 rounding of s or p)."""
     diff = float((out.float() - ref.float()).abs().max())
     tol = 0.0 if kind == "softmax" else 1e-2 * float(ref.float().abs().max())
     return diff, tol
@@ -500,12 +466,10 @@ def probe_error(kind, out, ref):
 # ---------------------------------------------------------------------------
 
 def bound_ms(kind, BH, n, D, ex2_rate):
-    """Least time on the card for one call on BH problems of n keys (Np for
-    the probes, N for flash_single): (ms, "operations" or "bytes"). The
-    operations are the tensor-core flops 4·BH·n²·D over the bf16 peak
-    (matmul-only), the BH·n² exp2 over `ex2_rate` (softmax-only), or the
-    larger of the two (attention); the bytes read each input and write the
-    output once over the HBM rate (softmax-only reads only q)."""
+    """Least card time of one call on BH problems of n keys: (ms, "operations"
+    or "bytes"): 4·BH·n²·D flops at the bf16 peak, BH·n² exp2 at `ex2_rate`, or
+    both (attention), against each input read and the output written once
+    (softmax-only reads only q)."""
     tensor = 4.0 * BH * n * n * D / BF16_PEAK_FLOPS * 1e3
     sfu = BH * n * n / ex2_rate * 1e3
     ops = {"matmul": tensor, "softmax": sfu}.get(kind, max(tensor, sfu))
@@ -548,10 +512,9 @@ def bench(fn, args, iters, reps=3):
 
 
 def graph_bench(fn, arg_sets, iters, reps=3, replayed=None):
-    """`bench` for calls shorter than a launch from Python: best of `reps`
-    mean device ms of fn(*args) over one CUDA graph of at least `iters`
-    calls that cycles through `arg_sets`, after a warm-up call and replay.
-    `replayed(n)` hears of the n calls each replay runs."""
+    """Best of `reps` mean device ms of fn(*args) over one CUDA graph of at
+    least `iters` calls cycling through `arg_sets`; `replayed(n)` hears of each
+    replay's n calls."""
     n = len(arg_sets) * -(-iters // len(arg_sets))
     fn(*arg_sets[0])
     torch.cuda.synchronize()
@@ -575,10 +538,9 @@ def graph_bench(fn, arg_sets, iters, reps=3, replayed=None):
 
 
 def ex2_rate(device, iters=4096):
-    """The card's measured MUFU.EX2 rate (exp2 per second): 8 CTAs of 256
-    threads per SM, each thread 8 independent chains x <- 2^-x on
-    ex2.approx (a calibration kernel, not a port), CUDA events. Every
-    output must be 8 times the chain's fixed point."""
+    """The card's measured MUFU.EX2 rate (exp2/s): 8 CTAs of 256 threads per
+    SM, 8 chains x <- 2^-x a thread (a calibration kernel), CUDA events; every
+    output must be 8 times the fixed point."""
     if device.type != "cuda":
         raise ValueError(f"ex2_rate measures a card, not {device}")
     blocks = 8 * torch.cuda.get_device_properties(device).multi_processor_count
@@ -617,12 +579,10 @@ parser.add_argument("--check", action="store_true",
 
 
 def check(variants, q, k, v):
-    """--check: every call against its plain version on the same arguments,
-    on the card the grouped and pipelined kernels also against it at their
-    own key tile (`tiled_error`), the attention calls against f32 naive
-    attention on the first frame's first two heads. Returns {name: (max
-    |err| against the plain version, its tolerance)}; raises on a
-    mismatch."""
+    """--check: every call against its plain version, the grouped and pipelined
+    kernels also at their key tile (`tiled_error`), the attention calls against
+    naive attention on two heads. Returns {name: (max err, tolerance)}; raises
+    on a mismatch."""
     ref = naive_attention(*(t[:1, :2].float() for t in (q, k, v)))
     errors = {}
     for name, p in variants.items():

@@ -1,35 +1,25 @@
 """Global-attention probe on the card: the port of
 scripts/bench_global_attention.py.
 
-At the exact global shape of an S = 33 submap (BH 16 heads, N = 34353
-padded to roundup(n, 2048) = 34816, D 64; every key real, nothing masked),
-one CUDA kernel (csrc/bench_global_attention.cu on csrc/global_sm90.cuh:
-TMA ring, wgmma) computes the reference's modes at five CTA tilings of the
-card's own (TILINGS, beside the reference's VMEM blocks):
-
-* `bf16`: s = f32(q kᵀ)/√D, online softmax with the natural exp;
-* `int8`: q, k quantized per tensor outside the kernel as the reference
-  does, s = f32(s32)·int8_scale, PV in bf16;
-* `matmul`: o = Σ bf16(s/√D) v, no softmax: the tensor-core floor.
-
-As in the reference, `run_kernel` attends to the first q.shape[1] keys
-(its grid takes the key count from q), so the "2048x4096 slab" attends to
-2048 keys; the line says so. SDPA (flash backend) is the library line.
+At an S = 33 submap's exact global shape (BH 16, N = 34353 padded to
+34816, D 64, nothing masked) one kernel (csrc/bench_global_attention.cu on
+csrc/global_sm90.cuh) computes the reference's modes at five tilings:
+`bf16` (s = f32(q kᵀ)/√D, online softmax with the natural exp), `int8` (q,
+k quantized per tensor outside the kernel, PV in bf16) and `matmul` (o =
+Σ bf16(s/√D) v, the tensor-core floor). As in the reference, `run_kernel`
+attends to the first q.shape[1] keys, so the "2048x4096 slab" attends to
+2048 keys. SDPA is the library line.
 
     python -m vggt_slam_tpu_torch.scripts.bench_global_attention
         [--iters 8] [--n 34353] [--heads 16] [--check]
 
-Each line: ms (CUDA events over --iters launches, best of 3; the 71 MB
-inputs exceed the L2, so the reference's per-launch perturbation is not
-copied), TF/s (4·BH·N²·D over the time), the bound and its share, the
-plain version's ms. `--check` first holds every mode against its plain
-version (the default tiling on all q rows, the others on a 2048-row slab
-over all keys) with the int8 control, and raises on a mismatch. The
-script raises without a card. This module also holds what the other
-global-shape probes share: the plain versions' blockwise online softmax,
-the operand checks, the bound and the line. Wrappers take their plain
-versions for CPU tensors only; `LAUNCHES` counts kernel launches and
-`design_launches` the C launcher's.
+Each line: ms (CUDA events, best of 3), TF/s (4·BH·N²·D), the bound and
+its share, the plain version's ms. `--check` first holds every mode
+against its plain version (the default tiling on all rows, the others on a
+2048-row slab) with the int8 control. Needs the card. The module also
+holds what the other global-shape probes share (the plain online softmax,
+the operand checks, the bound, the line); `LAUNCHES` and `design_launches`
+count launches.
 """
 from __future__ import annotations
 
@@ -80,11 +70,10 @@ def pv_bf16(p, v):
 
 
 def online_softmax(q, k, v, block_k, logits, ex, pv=pv_bf16):
-    """The reference kernels' online softmax over key blocks of block_k, in
-    their order: per block s = logits(q, k_blk) (f32), m_new = max(m, row
-    max), alpha = ex(m - m_new), p = ex(s - m_new), l = alpha l + Σp, acc =
-    alpha acc + pv(p, v_blk). The kernels' running max is this one, so p
-    is rounded against the same max. Returns (acc, l), f32."""
+    """The reference kernels' online softmax over key blocks of block_k in
+    their order (m_new = max(m, row max), alpha = ex(m - m_new), p = ex(s -
+    m_new), l = alpha l + Σp, acc = alpha acc + pv(p, v)), so p rounds against
+    the kernels' max. Returns (acc, l), f32."""
     shape = q.shape[:-1]
     acc = torch.zeros(*shape, v.shape[-1], device=q.device)
     m = torch.full(shape, NEG_INF, device=q.device)
@@ -108,10 +97,8 @@ def blockwise_sum(q, k, v, block_k, fn):
 
 
 def run_kernel_ref(q, k, v, block_q, block_k, mode, scale, n_keys=None):
-    """Plain version of `run_kernel` on (BH, Nq, D) q and (BH, Nk, D) k, v:
-    the first n_keys keys (default Nq, as the reference's grid) in blocks
-    of block_k, in the kernel's order. block_q does not change the
-    function."""
+    """Plain `run_kernel`: the first n_keys keys (default Nq) in blocks of
+    block_k, in the kernel's order."""
     n = q.shape[1] if n_keys is None else n_keys
     k, v = k[:, :n], v[:, :n]
 
@@ -148,10 +135,8 @@ def kernel_library():
 
 
 def design_launches(lib=None, entry="bench_global_attention") -> dict:
-    """The kernel's launches in this process by design, counted by the C
-    launcher at each launch: "tma_wgmma" for `global_sm90`
-    (csrc/global_sm90.cuh), its one design. `lib` and `entry` name another
-    probe's library (bench_int8_inkernel's)."""
+    """Launches by design from the C launcher: "tma_wgmma" for `global_sm90`;
+    `lib` and `entry` name another probe's library."""
     out = (ctypes.c_longlong * 1)()
     getattr(lib or kernel_library(), f"{entry}_design_launches")(out)
     return {"tma_wgmma": out[0]}
@@ -171,10 +156,9 @@ def output(q, out):
 
 
 def check_operands(q, k, v, qk_dtype, block_q, block_k, n_keys, tilings):
-    """Raise on what the global-shape probe kernels do not take: other than
-    (BH, rows, 64) contiguous tensors on q's device, q and k of qk_dtype, v
-    bf16, k and v of one row count of at least n_keys, a tiling not in
-    `tilings`, or a tile that does not divide its rows."""
+    """Raise on what the kernels do not take: (BH, rows, 64) contiguous tensors
+    on q's device, q and k of qk_dtype, v bf16, k and v of one row count >=
+    n_keys, a tiling in `tilings` whose tiles divide the rows."""
     if q.device.type != "cuda":
         raise ValueError(f"no probe kernel for device {q.device}")
     for name, t, dtype in (("q", q, qk_dtype), ("k", k, qk_dtype),
@@ -206,10 +190,9 @@ def check_operands(q, k, v, qk_dtype, block_q, block_k, n_keys, tilings):
 
 def run_kernel(q, k, v, block_q, block_k, mode, scale, n_keys=None,
                out=None):
-    """The probe on (BH, Nq, D) q and (BH, Nk, D) k, v (int8 q and k in
-    mode "int8", bf16 otherwise), attending to the first n_keys keys
-    (default Nq, as the reference's run_kernel), into `out` where given.
-    CPU tensors take `run_kernel_ref`, CUDA tensors the CUDA kernel."""
+    """The probe on (BH, Nq, D) q and (BH, Nk, D) k, v (int8 q, k in mode
+    "int8"), attending to the first n_keys keys (default Nq), into `out` where
+    given; CPU tensors take `run_kernel_ref`."""
     if q.device.type == "cpu":
         return run_kernel_ref(q, k, v, block_q, block_k, mode, scale, n_keys)
     n = q.shape[1] if n_keys is None else n_keys
@@ -253,9 +236,8 @@ def make_inputs(BH, N, D, seed=0, device="cpu", scale=1.0):
 
 
 def quantize(x):
-    """The reference's per-tensor quantization (:178-184): amax = max|x| in
-    f32, clip(rint(x / amax · 127), ±127) as int8 (divide, then multiply).
-    Returns (int8 tensor, amax as a 0-d f32 tensor)."""
+    """The reference's per-tensor quantization: amax = max|x|, clip(rint(x /
+    amax · 127), ±127) as int8. Returns (int8, amax as a 0-d f32 tensor)."""
     xf = x.float()
     amax = xf.abs().amax()
     return (torch.round(xf / amax * 127).clamp(-127, 127).to(torch.int8),
@@ -272,12 +254,11 @@ def int8_operands(q, k, scale):
 
 def bound_ms(BH, Nq, Nk, D, ex2_rate, *, qk8=False, pv8=False, exp=True,
              qk_bytes=2):
-    """Least time on the card for one call: the largest of the tensor-core
-    time (QKᵀ and PV, 2·BH·Nq·Nk·D each, at 1979 TOP/s in int8 or 989
-    TFLOP/s in bf16), the exp time (BH·Nq·Nk exp or exp2, one MUFU op each,
-    at `ex2_rate`) and the bytes (q, k read once at qk_bytes an element, v
-    read and o written once in bf16) over 3.35 TB/s. Returns (ms,
-    "operations" or "bytes", what sets it)."""
+    """Least card time of one call: the largest of the tensor-core time (QKᵀ
+    and PV, 2·BH·Nq·Nk·D each, at the int8 or bf16 peak), the exp time
+    (BH·Nq·Nk at `ex2_rate`) and the bytes (q, k at qk_bytes, v and o in bf16,
+    once each) at 3.35 TB/s. Returns (ms, "operations" or "bytes", what sets
+    it)."""
     mm = 2.0 * BH * Nq * Nk * D
     tensor = (mm / (INT8_PEAK_OPS if qk8 else BA.BF16_PEAK_FLOPS)
               + mm / (INT8_PEAK_OPS if pv8 else BA.BF16_PEAK_FLOPS)) * 1e3
@@ -294,10 +275,9 @@ def mean_distance(a, b):
 
 
 def check_line(name, out, ref, rows):
-    """Hold one output against its plain version (1e-2 of max|ref|: both
-    round p, and s in matmul, to bf16 against the same running max, but sum
-    in another f32 order, which can flip a rounding); print and return the
-    check's entry, raising on a mismatch."""
+    """Hold one output to its plain version (1e-2 of max|ref|: the same
+    roundings, another f32 order); print and return the entry, raising on a
+    mismatch."""
     err, tol = BA.probe_error("attention", out, ref)
     print(f"  check {name} ({rows} q rows): max|err|={err:.3g} against "
           f"plain (tol {tol:.3g})", flush=True)
@@ -307,9 +287,8 @@ def check_line(name, out, ref, rows):
 
 
 def int8_control(name, out, own_ref, bf16_ref):
-    """The check's control: an int8 kernel must be further (mean |diff|)
-    from the bf16 mode's plain version than from its own, or the check could
-    not tell int8 from bf16. Prints and returns both distances."""
+    """An int8 kernel must lie further (mean |diff|) from the bf16 plain
+    version than from its own. Prints and returns both."""
     own, other = mean_distance(out, own_ref), mean_distance(out, bf16_ref)
     print(f"  control {name}: mean|diff| {own:.3g} from its plain version, "
           f"{other:.3g} from the bf16 mode's", flush=True)
@@ -366,11 +345,9 @@ def variant_name(mode, bq, bk):
 
 
 def check_sweep(modes, tilings, default, N, call):
-    """--check's sweep: every mode at the `default` tiling on all N q rows
-    and at the other tilings on the first 2048, over all N keys, held
-    against its plain version by `check_line`; call(mode, bq, bk, rows)
-    returns (kernel output, plain output). Returns ({variant: check
-    entry}, {mode: (output, plain output) at the default tiling})."""
+    """--check's sweep: every mode at the `default` tiling on all rows and at
+    the others on the first 2048, by `check_line`. Returns ({variant: entry},
+    {mode: (output, plain) at the default tiling})."""
     errors, at_default = {}, {}
     for mode in modes:
         for bq, bk in tilings:
@@ -398,9 +375,8 @@ def check(operands, N):
 
 
 def main(argv=None):
-    """Run the benchmark on the card. Returns the measured exp2 rate, the
-    SDPA time, the slab's accuracy and one dict per line (with the check's
-    error, tolerance and control under --check)."""
+    """Run the benchmark on the card. Returns the exp2 rate, the SDPA time, the
+    slab's accuracy and the lines."""
     args = parser.parse_args(argv)
     device = require_card()
     D, BH = HEAD_DIM, args.heads

@@ -1,26 +1,22 @@
 """In-kernel int8 quantization at the global shape on the card: the port of
 scripts/bench_int8_inkernel.py.
 
-BH 16, N 34353 padded to 34816, D 64, bf16 q, k, v. One CUDA kernel
+BH 16, N 34353 padded to 34816, D 64, bf16 q, k, v. One kernel
 (csrc/bench_int8_inkernel.cu on csrc/global_sm90.cuh) computes
-exp2-domain online-softmax attention with the per-(b, h) scales that
-`scales` computes outside it, as the reference's `run` does: `bf16`
-(nothing quantized), `qk8` (q and k quantized in the kernel, QKᵀ in int8)
-and `qk8av8` (p and v too, PV in int8). The card's kernel quantizes each K
-(and V) tile as it lands, where the reference fills a persistent per-head
-scratch on the TPU's in-order grid: the same int8 values. SDPA (scale
-1/√D) is the library line of bf16.
+exp2-domain online-softmax attention with per-(b, h) scales computed
+outside (`scales`), as the reference's `run`: `bf16`, `qk8` (q, k
+quantized in the kernel, QKᵀ in int8) and `qk8av8` (p and v too). Each K
+and V tile is quantized as it lands (the reference fills a per-head
+scratch): the same int8 values. SDPA (scale 1/√D) is bf16's library line.
 
     python -m vggt_slam_tpu_torch.scripts.bench_int8_inkernel
         [--iters 6] [--n 34353] [--check]
 
 First the reference's accuracy lines (each mode against f32 attention on
-the first 2048 q rows over all keys), then one line per mode and tiling
-as in bench_global_attention (the kernel timed on precomputed scales).
-`--check` holds every mode against its plain version (the default tiling
-on all q rows, the other on a 2048-row slab) with the int8 controls for
-qk8 and qk8av8. The script raises without a card; `LAUNCHES` counts
-kernel launches and `design_launches` the C launcher's.
+2048 q rows), then one line per mode and tiling as in
+bench_global_attention. `--check` holds every mode against its plain
+version with the int8 controls. Needs the card; `LAUNCHES` and
+`design_launches` count launches.
 """
 from __future__ import annotations
 
@@ -69,10 +65,9 @@ def quant(x, inv):
 
 
 def attention_ref(sc, q, k, v, block_q, block_k, mode):
-    """Plain version of `attention` on (BH, Nq, D) q and (BH, Nk, D) k, v
-    with scales `sc`: the online exp2 softmax over key blocks of block_k in
-    the kernel's order; int8 products as exact f32 sums of integers (below
-    2^24). block_q does not change the function."""
+    """Plain `attention` with scales `sc`: the online exp2 softmax over key
+    blocks of block_k in the kernel's order; int8 products as exact f32 sums of
+    integers."""
     dq = sc[3][:, None, None]
     if mode != "bf16":
         q, k = quant(q, sc[0]), quant(k, sc[1])

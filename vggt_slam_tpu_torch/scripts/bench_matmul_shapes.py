@@ -1,37 +1,27 @@
 """Matmul rates at attention-like shapes on the card: the port of
 scripts/bench_matmul_shapes.py.
 
-Do the tensor cores keep up at K = 64 contractions, and does a grid of one
-problem per tile keep up with the library's batched product?
-csrc/bench_matmul_shapes.cu computes o[p] = bf16(a[p] @ b[p]) (f32 sums
-rounded once) on bf16 a (B, M, K), b (B, K, N) with one Hopper kernel, a
-persistent grid fed by a TMA ring, `wgmma` products and a TMA-store
-epilogue: `batched_mm` (a work item is one output tile of one problem;
-`pallas_batched_mm`) and `grouped_mm` (that tile of G consecutive problems
-in order; `pallas_grouped_mm`), at TILINGS, beside `torch.bmm`
-(`torch.matmul` at B = 1), in the reference's sections: nine products at
-B = 1 (µs), B = 528 at the QKᵀ shape with G in (2, 4, 8, 16), the PV shape.
+Do the tensor cores keep up at K = 64, and does a grid of one problem a
+tile keep up with the library's batched product?
+csrc/bench_matmul_shapes.cu computes o[p] = bf16(a[p] @ b[p]) on bf16 a
+(B, M, K), b (B, K, N) on `mm_sm90` (persistent grid, TMA ring, `wgmma`,
+TMA-store epilogue): `batched_mm` (a work item is one output tile;
+`pallas_batched_mm`) and `grouped_mm` (that tile of G problems in order;
+`pallas_grouped_mm`), at TILINGS, beside `torch.bmm`, in the reference's
+sections: nine products at B = 1, B = 528 at the QKᵀ shape with G in (2,
+4, 8, 16), the PV shape.
 
     python -m vggt_slam_tpu_torch.scripts.bench_matmul_shapes
         [--iters 20] [--check]
 
-Each line: the kernel alone, from CUDA events around a CUDA graph of at
-least --iters launches (`bench_attention.graph_bench`; a B = 1 product is
-shorter than a launch from Python, and the reference's loop also
-multiplies a, 2.4 GB at the PV shape), best of 3; TF/s; the bound
-(operations at 989 TFLOP/s or bytes, each read or written once, at 3.35
-TB/s) and its share; the plain and library times. The graph cycles
-through copies of the operands and output spanning twice the 50 MB L2, so
-B = 1 lines read HBM as the bound assumes. Inputs: seeded normals drawn on
-the card (seed 0, a then b per shape; numpy takes ~20 s at the PV shape).
-
-`--check` runs every line into a NaN-filled output, holds it within one
-bf16 ulp of max|ref| of the plain version, logs the library's distance,
-and at B = 528 runs three controls it must reject. `main(argv)` needs the
-card. CPU tensors take the plain version; `LAUNCHES` counts the kernels'
-runs on the card (a graph's at each replay), `CALLS` the C entries' calls
-that launched or were captured, and `design_launches()` the C launcher's
-count of `mm_sm90` launches (captures included), so CALLS and it agree.
+Each line: the kernel alone from a CUDA graph of at least --iters launches
+(`bench_attention.graph_bench`), best of 3, cycling through operand copies
+spanning twice the 50 MB L2; TF/s; the bound and its share; the plain and
+library times. Seeded normals drawn on the card. `--check` runs every line
+into a NaN-filled output, holds it within one bf16 ulp of max|ref|, and at
+B = 528 runs three controls it must reject. `LAUNCHES` counts runs (a
+graph's at each replay), `CALLS` the C entries' calls, `design_launches()`
+the C launcher's count (captures included).
 """
 from __future__ import annotations
 
@@ -72,9 +62,8 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 def batched_mm_ref(a, b, chunk=64):
-    """Plain version of both kernels: exact f32 products of the bf16 inputs
-    (TF32 holds bf16 values exactly too), f32 sums, rounded once; `chunk`
-    problems at a time (the PV shape's a is 2.4 GB in f32)."""
+    """Plain version of both kernels: exact f32 products of the bf16 inputs,
+    f32 sums, rounded once; `chunk` problems at a time."""
     return torch.cat([torch.matmul(a[i:i + chunk].float(),
                                    b[i:i + chunk].float()).to(torch.bfloat16)
                       for i in range(0, a.shape[0], chunk)])
@@ -127,19 +116,17 @@ def kernel_library():
 
 
 def design_launches() -> dict:
-    """Both kernels' launches in this process by design, counted by the C
-    launcher at each launch or capture: "tma_wgmma" for `mm_sm90`
-    (csrc/bench_matmul_shapes.cu), their one design."""
+    """Both kernels' launches by design from the C launcher (launches and
+    captures): "tma_wgmma" for `mm_sm90`."""
     out = (ctypes.c_longlong * 1)()
     kernel_library().bench_matmul_design_launches(out)
     return {"tma_wgmma": out[0]}
 
 
 def check_operands(a, b, G, tile, out=None, tilings=None):
-    """Raise unless a (B, M, K), b (B, K, N) and any out (B, M, N) are
-    bf16, contiguous, 16-byte aligned, on one device, K and N multiples of
-    8, G divides B and the tiling is one of `tilings` (default TILINGS,
-    this tree's build)."""
+    """Raise unless a (B, M, K), b (B, K, N) and out (B, M, N) are bf16,
+    contiguous, 16-byte aligned, on one device, K and N multiples of 8, G
+    divides B and the tiling is in `tilings`."""
     if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
             or a.shape[2] != b.shape[1]:
         raise ValueError(f"(B, M, K) and (B, K, N) operands expected, got "
@@ -247,13 +234,10 @@ def variants(B):
 
 
 def controls(a, b, out, ref, tile=DEFAULT_TILING):
-    """Controls `mm_error` must reject on a batched output (B >= 2):
-    `batch`, problem p against the plain output of p + 1 (batch indexing);
-    `edge`, the last partial row tile left NaN, as a kernel that skips it
-    leaves check's NaN-filled output (edges); `k_tile`, the plain
-    product without the last K_DROPPED of K (a lost K tile; at K = 1056
-    they lie in the 32-deep last step). Returns the errors and "tol";
-    raises if the check passes any."""
+    """Controls `mm_error` must reject on a batched output: `batch` (problem p
+    against the plain output of p + 1), `edge` (the last partial row tile left
+    NaN), `k_tile` (the plain product without the last K_DROPPED of K). Returns
+    the errors and "tol"; raises if the check passes any."""
     M, K = a.shape[1:]
     _, tol = mm_error(out, ref)
     edge = out.clone()
@@ -272,10 +256,9 @@ def controls(a, b, out, ref, tile=DEFAULT_TILING):
 
 
 def check(a, b, ref, names, with_controls):
-    """--check on one shape: every line of `names`, run into a NaN-filled
-    output, against the plain output `ref`, raising on a mismatch; the
-    controls on the default tiling's batched output. Returns ({name:
-    entry}, the controls or None)."""
+    """--check on one shape: every line of `names` into a NaN-filled output
+    against `ref`, raising on a mismatch; the controls on the default tiling's
+    output. Returns ({name: entry}, the controls or None)."""
     errors, ctrl = {}, None
     for name, kernel, G, tile in names:
         out = run_variant(kernel, a, b, G, tile,

@@ -2,28 +2,23 @@
 scripts/bench_softmax_variants.py.
 
 BH 16, N 34353 padded to 34816, D 64, q and k × 0.3, raw logits s = q kᵀ.
-One CUDA kernel (csrc/bench_softmax_variants.cu on csrc/global_sm90.cuh:
-TMA ring, wgmma) computes the modes: `matmul` (o = Σ bf16(s) v), `online`
-(exp2, running max), `static` (p = exp2(s - 12), l the sum of the
-unrounded p), `staticfused` (v widened to 128 columns by 64 of ones, so l
-is the tensor cores' sum of bf16(p): a second PV product in place of the
-row sum's adds) and `staticint8` (q, k quantized per tensor outside by
-x·(127/amax), p = exp2(f32(s32)·dequant - 12)). SDPA at scale ln 2 (whose
-exp is the exp2 of raw logits) is the library line of online and
-static.
+One kernel (csrc/bench_softmax_variants.cu on csrc/global_sm90.cuh)
+computes `matmul` (o = Σ bf16(s) v), `online` (exp2, running max),
+`static` (p = exp2(s - 12)), `staticfused` (v widened by 64 columns of
+ones, so l is the tensor cores' sum of bf16(p)) and `staticint8` (q, k
+quantized per tensor outside, p = exp2(f32(s32)·dequant - 12)). SDPA at
+scale ln 2 is the library line of online and static.
 
     python -m vggt_slam_tpu_torch.scripts.bench_softmax_variants
         [--iters 8] [--n 34353] [--heads 16] [--block_q 64] [--block_k 64]
         [--check]
 
-`--block_q`/`--block_k` keep the reference's names and take the card's
-CTA tilings (TILINGS). Lines as in bench_global_attention, then the
-reference's `max |static-online|` and `|staticfused-online|`. `--check`
-holds every mode at the chosen tiling on all q rows, and at the others on
-a 2048-row slab, against its plain version, with the int8 control
-(staticint8 against static's plain version). The script raises without a
-card; `LAUNCHES` counts kernel launches and `design_launches` the C
-launcher's.
+`--block_q`/`--block_k` take the card's tilings (TILINGS). Lines as in
+bench_global_attention, then the reference's `max |static-online|` and
+`|staticfused-online|`. `--check` holds every mode (the chosen tiling on
+all rows, the others on a 2048-row slab) against its plain version, with
+the int8 control. Needs the card; `LAUNCHES` and `design_launches` count
+launches.
 """
 from __future__ import annotations
 
@@ -55,11 +50,9 @@ def reset_launch_counts() -> None:
 
 def run_kernel_ref(q, k, v, block_q, block_k, mode, smax=SMAX,
                    n_keys=None):
-    """Plain version of `run_kernel` on (BH, Nq, D) q and (BH, Nk, D) k, v
-    (int8 q and k in `staticint8`, whose smax is (12.0, dequant)): the
-    first n_keys keys (default Nq, as the reference's grid) in blocks of
-    block_k, in the kernel's order. block_q does not change the
-    function."""
+    """Plain `run_kernel` (int8 q, k in `staticint8`, whose smax is (12.0,
+    dequant)): the first n_keys keys (default Nq) in blocks of block_k, in the
+    kernel's order."""
     n = q.shape[1] if n_keys is None else n_keys
     k, v = k[:, :n], v[:, :n]
     if mode == "matmul":
@@ -115,11 +108,9 @@ def design_launches() -> dict:
 
 def run_kernel(q, k, v, block_q, block_k, mode, smax=SMAX, n_keys=None,
                out=None):
-    """The probe on (BH, Nq, D) q and (BH, Nk, D) k, v (int8 q and k in
-    `staticint8`, whose smax is (12.0, dequant); bf16 otherwise),
-    attending to the first n_keys keys (default Nq, as the reference's
-    run_kernel), into `out` where given. CPU tensors take
-    `run_kernel_ref`, CUDA tensors the CUDA kernel."""
+    """The probe on (BH, Nq, D) q and (BH, Nk, D) k, v (int8 q, k in
+    `staticint8`), attending to the first n_keys keys (default Nq), into `out`
+    where given; CPU tensors take `run_kernel_ref`."""
     if q.device.type == "cpu":
         return run_kernel_ref(q, k, v, block_q, block_k, mode, smax, n_keys)
     int8 = mode == "staticint8"
@@ -137,10 +128,9 @@ def run_kernel(q, k, v, block_q, block_k, mode, smax=SMAX, n_keys=None,
 
 
 def int8_operands(q, k):
-    """The reference's staticint8 operands (:193-198): qs = max|q| in f32,
-    q8 = clip(round(q · (127/qs)), ±127) with 127/qs taken in double and
-    applied in f32; the same for k; dequant = (qs/127)(ks/127) in double.
-    Returns (q8, k8, (12.0, dequant))."""
+    """The reference's staticint8 operands (:193-198): q8 = clip(round(q ·
+    (127/max|q|)), ±127), 127/max|q| in double applied in f32, the same for k,
+    dequant = (qs/127)(ks/127) in double. Returns (q8, k8, (12.0, dequant))."""
     qs, ks = (float(t.float().abs().amax()) for t in (q, k))
     q8, k8 = (torch.round(t.float() * (127.0 / a)).clamp(-127, 127)
               .to(torch.int8) for t, a in ((q, qs), (k, ks)))

@@ -1,19 +1,16 @@
 """Offline dense semantic embedding (counterpart of
-vggt_slam_tpu/semantic/embedder.py, on its weight-free backends): each
-image becomes an (H, W, d) feature map saved as `{stem}.npz` under the key
-"embedding", which the SLAM CLI reads with --semantic_emb_dir.
+vggt_slam_tpu/semantic/embedder.py): each image becomes an (H, W, d)
+feature map saved as `{stem}.npz` under "embedding", which the SLAM CLI
+reads with --semantic_emb_dir.
 
-Masks come from a mask generator, image -> [dict(segmentation=(H, W) bool,
-area=int)] (Felzenszwalb segments, or a grid where g++ is missing); each
-mask's black-background box crop is embedded by a crop encoder, crops
-(N, 3, h, w) float [0, 1] -> (N, d) (CLIP's image tower with
---clip_model_dir, on --device; else colour statistics under a seeded
-projection), and the masks are painted largest first. Resizes are
-data/images.resize_linear (OpenCV's INTER_LINEAR without OpenCV).
-`--masker sam2` runs SAM2's automatic mask generator (semantic/sam2_amg) on
---device, with --sam2_checkpoint's weights or seeded random ones. SigLIP
-and the transformers (hf) backend are not ported: asking for them raises
-an error that names what is missing.
+A mask generator, image -> [dict(segmentation=(H, W) bool, area=int)]
+(Felzenszwalb segments, a grid where g++ is missing, or with `--masker
+sam2` SAM2's automatic mask generator on --device), proposes masks; each
+mask's black-background box crop, (N, 3, h, w) float [0, 1], is embedded
+by CLIP's or SigLIP's image tower (--clip_model_dir, on --device) or else
+colour statistics under a seeded projection, and the masks are painted
+largest first. Resizes are data/images.resize_linear. The transformers
+(hf) backend is not ported and raises.
 
     python -m vggt_slam_tpu_torch.semantic.embedder --image_dir DIR \
         --out_dir DIR [--masker felzenszwalb|grid|sam2 [--sam2_checkpoint
@@ -111,11 +108,10 @@ def render_masks_overlay(image_rgb: np.ndarray, masks: list,
 
 def resolve_clip_encoders(model_dir: str, backend: str = "auto",
                           device="cuda"):
-    """(encode_crops, encode_text) of a local checkpoint directory, by the
-    reference's rule: `native`, or `auto` on a config.json of model_type
-    "clip", is the port's CLIP (models/clip.make_encoders) on `device`;
-    SigLIP (models.siglip) is not ported, nor is `hf` (transformers on the
-    host), which `auto` takes for any other model_type: both raise."""
+    """(encode_crops, encode_text) of a local checkpoint directory by the
+    reference's rule: `native`, or `auto` on a config.json of model_type "clip"
+    or "siglip", is models.clip's or models.siglip's make_encoders on `device`;
+    `hf`, which `auto` takes otherwise, is not ported and raises."""
     if backend not in ("auto", "native", "hf"):
         raise ValueError(f"unknown clip backend {backend!r}")
     model_type = None
@@ -134,11 +130,9 @@ def resolve_clip_encoders(model_dir: str, backend: str = "auto",
             f"transformers on the host, which the port does not carry",
             name="transformers")
     if model_type == "siglip":
-        module = "vggt_slam_tpu_torch.models.siglip"
-        raise ModuleNotFoundError(
-            f"--clip_model_dir {model_dir} needs {module} (SigLIP and its "
-            f"tokenizer), which the port does not have yet", name=module)
-    from vggt_slam_tpu_torch.models.clip import make_encoders
+        from vggt_slam_tpu_torch.models.siglip import make_encoders
+    else:
+        from vggt_slam_tpu_torch.models.clip import make_encoders
     return make_encoders(model_dir, device=device)
 
 
@@ -329,16 +323,16 @@ def main(argv=None) -> int:
     p.add_argument("--image_dir", required=True)
     p.add_argument("--out_dir", required=True)
     p.add_argument("--clip_model_dir", default=None,
-                   help="a local CLIP checkpoint dir (transformers' files; "
-                        "SigLIP is not ported yet: raises); the colour-hash "
-                        "encoder without it")
+                   help="a local CLIP or SigLIP checkpoint dir "
+                        "(transformers' files, by config.json's "
+                        "model_type); the colour-hash encoder without it")
     p.add_argument("--clip_backend", default="auto",
                    choices=["auto", "native", "hf"],
-                   help="native = the port's CLIP; hf (transformers) is "
-                        "not ported: raises; auto = native for a CLIP "
-                        "config.json")
+                   help="native = the port's CLIP or SigLIP; hf "
+                        "(transformers) is not ported: raises; auto = "
+                        "native for a CLIP or SigLIP config.json")
     p.add_argument("--device", default="cuda",
-                   help="where CLIP and SAM2 run (cuda, or cpu)")
+                   help="where CLIP, SigLIP and SAM2 run (cuda, or cpu)")
     p.add_argument("--masker", default="auto",
                    choices=["auto", "felzenszwalb", "grid", "sam2"],
                    help="auto = felzenszwalb where the native segmenter "

@@ -1,14 +1,10 @@
 """SAM2's automatic mask generator in PyTorch (counterpart of
-vggt_slam_tpu/semantic/sam2_amg.py), at the reference's settings: a point
-grid per crop, batched multimask decodes, the IoU and stability filters,
-box NMS within each crop, overlapping crops, NMS across crops, small-region
-cleanup.
-
-Each chunk's statistics (stability, boxes, areas) and filters are torch
-reductions on the model's device; only the kept masks go to the host, where
-NMS, the resizes (data/images.resize_linear, OpenCV's INTER_LINEAR) and the
-connected components (scipy.ndimage, in OpenCV's label order) run. As the
-reference, the crop goes to `embed_image` in 0-255.
+vggt_slam_tpu/semantic/sam2_amg.py) at the reference's settings: a point
+grid per crop, batched multimask decodes, IoU and stability filters, box
+NMS within and across overlapping crops, small-region cleanup. Statistics
+and filters run on the model's device; NMS, the resizes and the connected
+components (scipy.ndimage in OpenCV's label order) on the host. As the
+reference, crops go to `embed_image` in 0-255.
 """
 from __future__ import annotations
 

@@ -143,13 +143,12 @@ class GraphMap:
     def semantic_points(self, voxel_size: float, stride: int = 1,
                         ignore_loop_closure_frames: bool = True,
                         device="cuda"):
-        """The world points the semantic voxel map averages. Per submap
-        with embeddings, in order: confidence >= its threshold, finite,
-        inside the 0.5-99.5 percentile box (these on the host), and in a
-        3x-voxel cell of >= 10 points (counted on `device`); loop frames
-        are skipped. Returns (points (N, 3) f32, features (N, d) f32, pair
-        (N,) int, pairs: [(submap id, frame id)], frame_name_maps), points
-        None where nothing is left."""
+        """The world points the semantic voxel map averages, per submap with
+        embeddings: confidence >= its threshold, finite, inside the 0.5-99.5
+        percentile box (on the host), in a 3x-voxel cell of >= 10 points (on
+        `device`); loop frames skipped. Returns (points (N, 3), features (N,
+        d), pair (N,), pairs [(submap, frame)], frame_name_maps), points None
+        where nothing is left."""
         if voxel_size <= 0.0:
             raise ValueError("voxel_size must be > 0")
         if stride < 1:

@@ -1,16 +1,9 @@
-"""SLAM orchestration per submap: perception -> registration -> factor
-graph (counterpart of vggt_slam_tpu/slam/solver.py).
-
-  dispatch_predictions(): loop detection, then the VGGT forward is queued
-      on the device and its outputs start copying to pinned host memory
-      without waiting.
-  collect_predictions(): waits for those copies, decodes cameras if the
-      model did not.
-  add_points(): inter-submap SL(4) RANSAC registration (or Sim(3) scale
-      propagation), factor insertion and loop-closure factors.
-
-The model is injected as a callable returning the prediction dict; RANSAC
-and the pose graph run on the solver's device.
+"""SLAM orchestration per submap (counterpart of vggt_slam_tpu/slam/solver.py):
+`dispatch_predictions` (loop detection, the forward queued on the device,
+its outputs copying to pinned host memory), `collect_predictions` (waits,
+decodes cameras), `add_points` (SL(4) RANSAC or Sim(3) registration,
+factors, loop factors). The model is a callable returning the prediction
+dict; RANSAC and the pose graph run on the solver's device.
 """
 from __future__ import annotations
 

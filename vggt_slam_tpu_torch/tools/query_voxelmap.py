@@ -21,10 +21,10 @@ from vggt_slam_tpu_torch.semantic.voxel_map import SemanticVoxelMap
 
 def text_embedding(query: str, dim: int, clip_model_dir: str | None,
                    clip_backend: str = "auto", device="cuda"):
-    """The CLIP text embedding (the text tower on `device`), or without a
-    checkpoint a unit vector drawn from a generator seeded by Python's
-    hash(query), which is salted per process (PYTHONHASHSEED), as in the
-    reference."""
+    """The CLIP or SigLIP text embedding (the text tower on `device`), or
+    without a checkpoint a unit vector drawn from a generator seeded by
+    Python's hash(query), which is salted per process (PYTHONHASHSEED), as
+    in the reference."""
     if clip_model_dir:
         from vggt_slam_tpu_torch.semantic.embedder import \
             resolve_clip_encoders
@@ -47,7 +47,7 @@ def main(argv=None):
     p.add_argument("--clip_backend", default="auto",
                    choices=["auto", "native", "hf"])
     p.add_argument("--device", default="cuda",
-                   help="where the CLIP text tower runs (cuda, or cpu)")
+                   help="where the text tower runs (cuda, or cpu)")
     p.add_argument("--image_dir", default=None,
                    help="if given, copy the retrieved frame image here")
     p.add_argument("--out_dir", default="query_results")

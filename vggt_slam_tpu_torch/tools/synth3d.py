@@ -1,24 +1,18 @@
-"""Synthetic 3D scenes with exact multi-view ground truth, the port's
-copy of vggt_slam_tpu/tools/synth3d.py: `training_batch`, the data of
-tools/train_tiny.py, and `write_tum_sequence`, the TUM-layout sequences of
-evals/smoke_loop.py.
+"""Synthetic 3D scenes with exact multi-view ground truth (the port's copy
+of vggt_slam_tpu/tools/synth3d.py): `training_batch`, tools/train_tiny.py's
+data, and `write_tum_sequence`, evals/smoke_loop.py's TUM-layout
+sequences.
 
     python -m vggt_slam_tpu_torch.tools.synth3d --out_dir DIR [--kind loop]
 
 A textured smooth heightfield is raycast from a moving perspective camera:
-frames with real parallax plus exact per-pixel depth and camera ground
-truth, in the model's conventions (world->cam extrinsics relative to frame
-0, pose encoding [t, quat wxyz, fov_h, fov_w]).
-
-The reference draws with OpenCV, which the port does not need: the five
-image operations it uses are written here in numpy with OpenCV's
-semantics. Filled circles and rectangles are OpenCV's rasterisation to the
-pixel. Cubic resize (A = -0.75, half-pixel centres, clamped taps), the
-Gaussian blur (OpenCV's kernel size and weights for float images, reflect-
-101 border) and bilinear remap (reflect border) agree with OpenCV to float32
-rounding, not to the bit: OpenCV sums in another order. The camera path and
-the pose encodings are the reference's numpy code unchanged. PNGs are written
-by data/images.write_png.
+frames with real parallax, exact depth and camera ground truth in the
+model's conventions (world->cam extrinsics relative to frame 0, pose
+encoding [t, quat wxyz, fov_h, fov_w]). The five OpenCV operations the
+reference uses are numpy here: filled circles and rectangles to the pixel;
+cubic resize, the Gaussian blur and bilinear remap to float32 rounding
+(OpenCV sums in another order). The camera path and pose encodings are the
+reference's numpy code; PNGs are data/images.write_png's.
 """
 from __future__ import annotations
 
@@ -154,14 +148,10 @@ class Scene:
 
 def make_scene(seed: int = 0, ng: int = 1536, extent: float = 2.2,
                zbase: float = 2.0, elev_amp: float = 0.25) -> Scene:
-    """Procedural scene: distinctive corner-rich texture + smooth elevation.
-
-    The texture layers a low-frequency color field (globally distinctive
-    neighborhoods, so pyramidal LK locks onto true matches), sparse
-    high-contrast shapes (strong corners), and light noise - the recipe
-    of the reference's synth_sequence.make_texture. Brightness is modulated by
-    elevation (a weak ambient-occlusion-style monocular depth cue).
-    """
+    """Procedural scene: a low-frequency colour field (distinctive
+    neighbourhoods for LK), sparse high-contrast shapes (corners) and light
+    noise, as the reference's make_texture, with brightness modulated by a
+    smooth elevation."""
     rng = np.random.default_rng(seed)
 
     coarse = rng.uniform(60, 220, (10, 10, 3)).astype(np.float32)
@@ -225,17 +215,10 @@ def rotation_rpy(roll: float, pitch: float, yaw: float) -> np.ndarray:
 
 def render(scene: Scene, cam_center: np.ndarray, R_wc: np.ndarray,
            K: np.ndarray, image_hw: tuple[int, int], iters: int = 8):
-    """Raycast one frame.
-
-    Args:
-        cam_center: (3,) camera center C in world coordinates.
-        R_wc: (3, 3) world->cam rotation (X_cam = R (X_w - C)).
-        K: (3, 3) intrinsics. image_hw: (H, W).
-    Returns:
-        rgb (H, W, 3) float32 in [0, 1], depth (H, W) float32 (camera z),
-        residual: max |s_k - s_{k-1}| of the final iteration (convergence
-        diagnostic; < 1e-4 in the supported regime).
-    """
+    """Raycast one frame from camera centre `cam_center` (3,), world->cam
+    `R_wc` (X_cam = R (X_w - C)), intrinsics `K`, `image_hw`. Returns rgb (H,
+    W, 3) f32 [0, 1], depth (H, W) f32 (camera z) and the last iteration's max
+    |s_k - s_{k-1}| (< 1e-4 in the supported regime)."""
     H, W = image_hw
     C = np.asarray(cam_center, dtype=np.float64)
     u, v = np.meshgrid(np.arange(W, dtype=np.float64),
@@ -272,12 +255,9 @@ def render(scene: Scene, cam_center: np.ndarray, R_wc: np.ndarray,
 def camera_path(n: int, seed: int = 0, kind: str = "loop",
                 span: float = 0.8, z_amp: float = 0.12,
                 rot_deg: float = 4.0):
-    """(centers (n, 3), rotations (n, 3, 3) world->cam) - smooth random walk.
-
-    `loop` closes back near the start (drives loop-closure evals); `pan`
-    sweeps across. Rotations are small smooth roll/pitch/yaw wobbles so
-    quaternion regression is non-trivial while LK keyframing stays stable.
-    """
+    """(centers (n, 3), world->cam rotations (n, 3, 3)) of a smooth random
+    walk: `loop` closes near the start, `pan` sweeps across; small smooth
+    roll/pitch/yaw wobbles."""
     rng = np.random.default_rng(seed + 7)
     if kind == "loop":
         # True revisit: every path term is periodic in t with period 1
@@ -389,13 +369,9 @@ def pose_encodings(extr_rel: np.ndarray, K: np.ndarray,
 def training_batch(seed: int, n_frames: int = 8,
                    image_hw: tuple[int, int] = (392, 518),
                    fov_w_deg: float = 55.0, ng: int = 1024):
-    """One scene -> one training batch (fresh geometry + texture per seed).
-
-    Returns dict(images (S,3,H,W) f32 [0,1], pose_enc_gt (S,9) f32,
-    depth_gt (S,H,W) f32) matching parallel.train.vggt_loss's contract.
-    Frames are a random smooth path, so inter-frame parallax varies from
-    near-overlap to wide baseline within each batch.
-    """
+    """One scene -> dict(images (S,3,H,W) f32 [0,1], pose_enc_gt (S,9),
+    depth_gt (S,H,W)), parallel.train.vggt_loss's contract, on a random smooth
+    path."""
     H, W = image_hw
     scene = make_scene(seed=seed, ng=ng)
     kind = "loop" if (seed % 2) else "pan"

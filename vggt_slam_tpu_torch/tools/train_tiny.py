@@ -1,25 +1,16 @@
-"""Train a small VGGT on synthetic 3D scenes on one device (the port's
-counterpart of vggt_slam_tpu/tools/train_tiny.py).
+"""Train a small VGGT on synthetic 3D scenes on one device (counterpart of
+vggt_slam_tpu/tools/train_tiny.py).
 
-Trains `VGGTConfig.small` (or another small size) on the heightfield scenes
-of tools/synth3d.py, so the SLAM pipeline gets a model whose pose and depth
-respond to the images. Losses follow the VGGT paper's recipe as
-parallel/train.vggt_loss: camera pose-encoding regression plus
-confidence-weighted dense depth (conf * |err| - alpha * log conf), with a
-pose weight and an optional log-space scale-consistency term. Training uses
-exact attention (global_kv_stride=1) through the differentiable flash
-kernels (`flash_grad`: the forward kernels with row stats and the
-backward, `flash_bwd`) with activation checkpointing. On the card the
-last line of its output holds the kernel launches and the backward's
-launches by design.
+Trains `VGGTConfig.small` on tools/synth3d.py's heightfield scenes with
+parallel/train.vggt_loss (pose-encoding regression plus confidence-weighted
+depth, a pose weight, an optional scale-consistency term), exact attention
+through `flash_grad` (the forward kernels with row stats and `flash_bwd`)
+and activation checkpointing; on the card the last output line holds the
+launches by design. The optimizer is the reference's optax chain
+(clip_by_global_norm, AdamW under a linear-warmup cosine schedule whose
+first update has lr 0); parameters and optimizer state are saved in the
+reference's flat npz layouts, so either package resumes the other's run.
 
-The optimizer chain is the reference's optax chain: clip_by_global_norm,
-then AdamW under a linear-warmup cosine schedule whose first update has
-lr 0. Parameters are saved as the reference's flat npz, and the optimizer
-state and step as the reference's `<stem>_opt.npz` (the flat optax leaves),
-so either package resumes a run of the other.
-
-CLI:
   python -m vggt_slam_tpu_torch.tools.train_tiny --out runs/small_synth \
       [--steps 8000] [--frames 10] [--model_size small] [--device cpu]
 """
@@ -107,11 +98,10 @@ def _flax_order(model) -> list:
 
 
 def save_train_state(opt, sched, model, step: int, path: str) -> None:
-    """Optimizer state and step index in the reference's `<stem>_opt.npz`
-    layout (vggt_slam_tpu/tools/train_tiny.py:63-79): `step` and the leaves
-    of chain(clip_by_global_norm, adamw(schedule)) in tree_leaves order,
-    leaf_0 the Adam count, then mu and nu over the flax paths in sorted
-    order, then the schedule's count."""
+    """Optimizer state and step in the reference's `<stem>_opt.npz` layout
+    (train_tiny.py:63-79): `step`, then chain(clip_by_global_norm, adamw)'s
+    leaves: the Adam count, mu and nu over the sorted flax paths, the
+    schedule's count."""
     params = _flax_order(model)
     mu, nu, count = [], [], 0
     for p in params:
@@ -128,10 +118,8 @@ def save_train_state(opt, sched, model, step: int, path: str) -> None:
 
 
 def load_train_state(opt, sched, model, path: str) -> int:
-    """Restore `opt` from a `<stem>_opt.npz` of either package and put
-    `sched` at the saved schedule count, with the learning rate of this
-    run's schedule there (as optax evaluates its schedule at the restored
-    count); returns the step."""
+    """Restore `opt` from either package's `<stem>_opt.npz`, `sched` at the
+    saved count (with this run's learning rate there); returns the step."""
     params = _flax_order(model)
     n = len(params)
     with np.load(path) as data:
