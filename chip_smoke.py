@@ -6,25 +6,24 @@
     python3 chip_smoke.py --ab DIR...     # time each DIR's sources beside
                                           # this tree's in turns, and stop
 
-Phases, one JSON line each: 1-2 environment (`nvidia-smi` name and power
-limit), the CUDA sources built by one nvcc each, all at once; 3-4 every forward
-and training kernel against its plain version at VGGT-1B's and the small
-model's shapes (errors, kernel, plain and SDPA ms, the bound, the design by the
-C launcher's counts); 5-6 a full-width forward against the plain path, then the
-SLAM path at VGGT-1B through `run_slam`; 7-9 a gradient against the plain path,
-3 training steps, the train_tiny CLI; A-D the int8 kernels, the fused DPT tail,
-the int8 forward, the CLI on 24 PNGs with --qk_int8; E-G the probe scripts'
-mains with --check; H, S, L both converters, SALAD on flash_single, loop
-closure through the CLI and evals/smoke_loop.py; then on phase L's sequence V
-(COLMAP alignment, --profile_dir, the viewer stub, GLB, the host evals), W (the
-embedder, --get_voxel, voxelize_device, the query), P (CLIP ViT-B/32), M (SAM2
-against float64, the AMG, the embedder with --masker sam2), N (SigLIP
-base-patch16-224); P and N: a seeded checkpoint through resolve_clip_encoders
-against the plain path with two controls, the embedder, the CLI and the query
-with --clip_model_dir. --ab builds each DIR's sources beside this tree's and
-times them in turns after holding each to its plain version. The last lines are
-the `nvidia-smi` line, the kernels JSON object and {"ok": true, "device": ...};
-any failure exits non-zero without them. It needs a CUDA device and imports
+Phases, a JSON line each: 1-2 the environment, the CUDA sources built by
+one nvcc each, at once; 3-4 every forward and training kernel against its
+plain version at VGGT-1B's and the small model's shapes (errors, kernel,
+plain and SDPA ms, bound, design by the C launcher's counts); 5-6 a
+full-width forward against plain, the SLAM path at VGGT-1B through
+`run_slam`; 7-9 a gradient against plain, 3 training steps, train_tiny;
+A-D the int8 kernels, the DPT tail, the int8 forward, the --qk_int8 CLI on
+24 PNGs; E-G the probe scripts with --check; H, S, L the converters, SALAD,
+loop closure through the CLI and smoke_loop; on phase L's sequence V
+(COLMAP alignment, --profile_dir, the viewer stub, GLB, host evals), W
+(the embedder, --get_voxel, voxelize_device, the query), P (CLIP
+ViT-B/32), M (SAM2 against float64, the AMG, --masker sam2), N (SigLIP
+base-patch16-224; P and N: a seeded checkpoint against plain with two
+controls, the embedder, the CLI, the query), Q (mask_eval with SAM2,
+voxel_eval with SigLIP's text tower, dense_7scenes on a rendered 7-Scenes
+dump, visualize_results, on V's, M's and N's outputs). The last lines are
+the `nvidia-smi` line, the kernels JSON and {"ok": true, "device": ...};
+a failure exits non-zero without them. Needs a CUDA device; imports
 nothing of JAX, OpenCV or the JAX package.
 """
 from __future__ import annotations
@@ -79,8 +78,8 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 
 def main_path_attention_cases(device):
     """The attention calls of one bucketed VGGT-1B forward (18 frames of 1041
-    tokens, global K/V sim-merged at stride 16, the last frame padding) and of
-    VGGTConfig.small at the same tokens (4 heads of 32)."""
+    tokens, global K/V sim-merged at stride 16, the last frame padding) and
+    of VGGTConfig.small at the same tokens."""
     import torch
 
     from vggt_slam_tpu_torch.models.vggt.modules import rope_2d_angles
@@ -226,9 +225,8 @@ def sdpa_call(case):
 
 
 def sdpa_prepared_call(case):
-    """SDPA on q and k prepared by `_prep` (LN and rope outside the timed
-    call), kv_bias and the valid_len mask as one float mask; None where
-    `sdpa_call` applies."""
+    """SDPA on `_prep`'s q, k (untimed), kv_bias and valid_len as one float
+    mask; None where `sdpa_call` applies."""
     import torch
     import torch.nn.functional as F
 
@@ -317,9 +315,8 @@ def takes_static(softmax, N) -> bool:
 
 
 def training_bounds(B, N, H, D, vl):
-    """`least_ms` of the forward with stats and of the backward: 4 and 10 N_q
-    N_k H D flops a batch, one exp2 a valid logit in each, each input read and
-    each output written once."""
+    """`least_ms` of the forward with stats and of the backward (4 and 10 Nq Nk
+    H D flops a batch, one exp2 a valid logit each)."""
     nk = N if vl is None else min(vl, N)
     qd = 2.0 * B * N * H * D           # one bf16 (B, N, H*D) tensor
     kd = 2.0 * B * nk * H * D          # the valid keys of k or v
@@ -336,8 +333,7 @@ def training_bounds(B, N, H, D, vl):
 
 def check_training_kernels(device):
     """The forward with stats and flash_bwd against their plain versions at
-    VGGT-1B's and the small model's training shapes; the backward twice (dq's
-    atomic adds vary by a bf16 rounding)."""
+    both models' training shapes; the backward twice (dq's adds vary)."""
     import torch
     import torch.nn.functional as F
 
@@ -730,9 +726,8 @@ def drive_main_path(model, device, frames):
 # Phases A-D: the --qk_int8 path and the fused DPT tail
 
 def int8_cases(device):
-    """The int8 kernels' shapes: the 18-frame bucket's global block at both
-    widths, its camera-trunk call (D 128, valid_len 17) and the training global
-    block."""
+    """The int8 kernels' shapes: the bucket's global block at both widths, its
+    camera-trunk call (D 128, valid_len 17), the training global block."""
     import torch
 
     cases = {c["name"]: c for c in main_path_attention_cases(device)}
@@ -775,9 +770,8 @@ INT8_STATS_TOL = 1e-4
 
 
 def int8_errors(got, ref, ctrl):
-    """The int8 (out, m, l) against its plain version `ref` (stats to
-    INT8_STATS_TOL relative, outputs to 1e-2 of max) and the bf16 path `ctrl`,
-    whose l must lie ten times INT8_STATS_TOL away."""
+    """int8 (out, m, l) against plain `ref` (stats INT8_STATS_TOL relative,
+    outputs 1e-2 of max) and the bf16 `ctrl`, whose l must lie 10x away."""
     import torch
 
     out, m, l = got
@@ -811,9 +805,8 @@ def int8_failure(e):
 
 
 def check_int8_kernels(device):
-    """Phase A: both int8 kernels against their plain versions and the bf16
-    control (`int8_errors`), their designs and the bf16 kernel's time; the
-    scales pass bit for bit, timed as CUDA graphs."""
+    """Phase A: both int8 kernels against plain and the bf16 control, designs,
+    the bf16 time; the scales pass bit for bit, timed as CUDA graphs."""
     import torch
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -873,10 +866,9 @@ def int8_global(model, softmax):
 
 
 def check_int8_forward(model, device, frames):
-    """Phases B and C on an 18-frame bucket: the bf16 forward captures
-    output_conv1's activations; the int8 forward in both softmax modes against
-    the plain versions on the bf16 designs. Returns (activations, launches per
-    mode, the bf16 designs)."""
+    """Phases B, C on an 18-frame bucket: the bf16 forward captures
+    output_conv1's input; the int8 forward in both softmax modes against
+    plain. Returns (activations, launches per mode, the bf16 designs)."""
     import numpy as np
     import torch
 
@@ -1209,10 +1201,10 @@ def run_probe_script(BA, argv):
 
 
 def check_grouped_tiled(device):
-    """The nine grouped, interleaved and pipelined instances at the small and
-    frame shapes, into NaN-filled outputs, held at their key tile
-    (`BA.tiled_error`), each one grouped_sm90 launch. Returns {variant: {shape:
-    (err, share of tol, block_k)}}."""
+    """The nine grouped, interleaved, pipelined instances at the small and
+    frame shapes into NaN-filled outputs, held at their key tile; one
+    grouped_sm90 launch each. Returns {variant: {shape: (err, share of tol,
+    block_k)}}."""
     import torch
 
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
@@ -1243,11 +1235,9 @@ def check_grouped_tiled(device):
 
 
 def check_probe_kernels(device):
-    """Phase E: bench_attention's main with --check at the frame shape (288 x
-    1152 x 64): every kernel against its plain version, timed beside
-    flash_single and SDPA; `check_grouped_tiled`; a padded-keys control; ptxas
-    registers; the softmax-only kernel's exp2 count; then the script at its
-    defaults."""
+    """Phase E: bench_attention --check at (288, 1152, 64),
+    `check_grouped_tiled`, a padded-keys control, ptxas registers,
+    softmax-only's exp2 count, then the script at its defaults."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -1419,10 +1409,9 @@ def global_ptxas(report, template, mode, bq, bk):
 
 
 def check_global_probes():
-    """Phase F: each global-shape script's main with --check --iters
-    GLOBAL_PROBE_ITERS: every mode and tiling against its plain version, the
-    int8 controls, one global_sm90 launch a call, ptxas registers. Returns
-    {script: (result, launches, global_sm90 launches)}."""
+    """Phase F: each global script --check --iters GLOBAL_PROBE_ITERS (modes,
+    tilings, int8 controls, one global_sm90 launch a call, registers).
+    Returns {script: (result, launches, global_sm90 launches)}."""
     import importlib
 
     import torch
@@ -1521,9 +1510,8 @@ MATMUL_PROBES = {
 
 
 def check_matmul_probes():
-    """Phase G: the script's main with --check: every line, the B 528 controls,
-    one mm_sm90 launch a C call, ptxas registers. Returns (result, launches,
-    designs)."""
+    """Phase G: the script --check (lines, B 528 controls, one mm_sm90 launch a
+    C call, registers). Returns (result, launches, designs)."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -1630,9 +1618,8 @@ GRAD_LEAVES = {
 
 
 def check_backward(device):
-    """A 2-frame VGGT-1B loss's gradient through the kernels against the plain
-    versions: relative RMS of named leaves and of every attention projection in
-    forward order."""
+    """A 2-frame VGGT-1B loss's gradient through the kernels against plain:
+    relative RMS of named leaves and every attention projection."""
     import torch
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -1677,9 +1664,8 @@ def check_backward(device):
 
 
 def drive_training(device, n_steps=3, profile=False):
-    """`n_steps` of make_train_step at VGGT-1B on one 4-frame synth3d batch.
-    Returns the steps' launches and the last one's; `profile` adds a profiled
-    step."""
+    """`n_steps` of make_train_step at VGGT-1B on a 4-frame batch: the steps'
+    launches and the last one's; `profile` adds a profiled step."""
     import torch
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -1752,9 +1738,8 @@ def backward_designs(cfg, n_steps) -> dict:
 
 
 def small_forward_launches(cfg) -> dict:
-    """Launches of one 4-frame forward of a `cfg` model: flash_single for the
-    encoder, frame and camera-trunk blocks, flash_multi for the global
-    blocks."""
+    """A 4-frame forward's launches of a `cfg` model: flash_single (encoder,
+    frame, camera trunk), flash_multi (global)."""
     from vggt_slam_tpu_torch.ops import attention as A
 
     want = dict.fromkeys(A.LAUNCHES, 0)
@@ -1839,17 +1824,15 @@ LOOP_SEQ_SEED = 4_000_000     # evals/smoke_loop.py's sequence
 
 
 def unit_salad_weight(key: str) -> bool:
-    """The seeded SALAD checkpoint's LayerNorm weights and LayerScale gammas,
-    drawn as 1: with all tensors N(0, 0.02) phase S's controls could not be
-    rejected."""
+    """LayerNorm weights and LayerScale gammas drawn as 1 (all N(0, 0.02) let
+    no phase S control be rejected)."""
     return key.endswith(".gamma") or (".norm" in key
                                       and key.endswith(".weight"))
 
 
 def check_converters(tmp):
-    """Phase H: both converters over the released manifests; then a seeded
-    dino_salad checkpoint converted into an npz for phases S and L. Returns its
-    path."""
+    """Phase H: both converters over the released manifests; a seeded
+    dino_salad checkpoint as the npz of phases S and L (its path)."""
     import torch
 
     from vggt_slam_tpu_torch.models import retrieval as R
@@ -1921,10 +1904,9 @@ def zero_attention():
 
 def check_salad(device, npz, frames):
     """Phase S: SALAD at full width on phase H's weights and 17 frames: 12
-    flash_single a call by design; descriptors within SALAD_TOL (L2) of the
-    plain path, which another frame's and the zeroed-attention ones must
-    exceed; flash_single at (204, 257, 64) timed. Returns the row's SALAD
-    entry."""
+    flash_single a call; descriptors within SALAD_TOL (L2) of plain, which
+    another frame's and zeroed attention must exceed; flash_single at (204,
+    257, 64) timed. Returns the row's SALAD entry."""
     import torch
 
     from vggt_slam_tpu_torch.data.images import preprocess_frames
@@ -2023,23 +2005,15 @@ def loop_cli_run(device, seq, backend, extra=()):
 
     from vggt_slam_tpu_torch.evals.ate import ate_from_files
     from vggt_slam_tpu_torch.main import parser, run_slam
-    from vggt_slam_tpu_torch.ops import attention as A
-    from vggt_slam_tpu_torch.utils.profiling import sync
 
     log_path = os.path.join(seq, f"poses_{backend}.txt")
     args = parser.parse_args(
         ["--image_folder", os.path.join(seq, "rgb"), "--retrieval_backend",
          backend, "--log_results", "--skip_dense_log", "--log_path",
          log_path, "--seed", str(SEED), "--timing", *extra])
-    sync()
-    A.reset_launch_counts()
-    before, t0 = A.forward_design_launches(), time.perf_counter()
-    result = run_slam(args, device=device)
-    sync()
-    wall = time.perf_counter() - t0
-    launches = dict(A.LAUNCHES)
-    designs = {d: n - before[d]
-               for d, n in A.forward_design_launches().items()}
+    result, out, wall, launches, designs = counted(
+        lambda: run_slam(args, device=device))
+    print(out[-1500:])
     solver = result["solver"]
     stages = {k: {"total_s": v["total_s"], "count": v["count"]}
               for k, v in result["timer"].summary().items()}
@@ -2084,12 +2058,11 @@ def run_smoke_loop(*argv):
 
 
 def drive_loop_closure(device, npz):
-    """Phase L: a 40-frame loop sequence through the CLI at VGGT-1B with the
-    tiny and SALAD backends (>= 1 loop, each detection inserted or rejected, or
-    a loop factor without the gate); phases V, W, P, M and N on it; then
-    evals/smoke_loop.py (rerun without the gate where the gate rejected every
-    loop). Returns the SALAD run's launches and {"clip": phase P's entry,
-    "siglip": phase N's}."""
+    """Phase L: a 40-frame loop through the CLI at VGGT-1B with the tiny and
+    SALAD backends (>= 1 loop, each inserted or rejected, or a factor
+    without the gate); phases V, W, P, M, N, Q on it; then smoke_loop (rerun
+    without the gate where it rejected every loop). Returns the SALAD run's
+    launches and {"clip": P's entry, "siglip": N's, "voxel_eval_launches"}."""
     import re
     import shutil
 
@@ -2130,6 +2103,10 @@ def drive_loop_closure(device, npz):
         drive_sam2(device, seq, os.path.join(seq, "clip"))
         encoders["siglip"] = drive_encoders(
             device, seq, os.path.join(seq, "siglip"), "siglip")
+        encoders["voxel_eval_launches"] = drive_evals(
+            device, seq, os.path.join(seq, "sam2.1_hiera_base_plus.pt"),
+            os.path.join(seq, "phase_N", "vox"), os.path.join(seq, "siglip"),
+            os.path.join(seq, "phase_v"))
     finally:
         shutil.rmtree(seq, ignore_errors=True)
     rc, out = run_smoke_loop()
@@ -2220,15 +2197,12 @@ def load_viser_stub():
 def viewer_cli_run(device, seq, tmp):
     """The CLI at VGGT-1B (tiny backend, submap 16) with the COLMAP alignment,
     the outputs, the trace and the viewer stub."""
-    import io
     import re
 
     import numpy as np
 
     from vggt_slam_tpu_torch.main import parser, run_slam
-    from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.slam.map import GraphMap
-    from vggt_slam_tpu_torch.utils.profiling import sync
     from vggt_slam_tpu_torch.viz.glb import GLBExporter
 
     calls = load_viser_stub().install(sys.modules)
@@ -2250,27 +2224,18 @@ def viewer_cli_run(device, seq, tmp):
         seen["T"] = align(self, *a, **kw)
         return seen["T"]
 
-    out = io.StringIO()
-    sync()
-    A.reset_launch_counts()
-    before, t0 = A.forward_design_launches(), time.perf_counter()
     GraphMap.align_scale_to_colmap = recording
     try:
-        with contextlib.redirect_stdout(out):
-            result = run_slam(args, device=device)
+        result, out, wall, launches, designs = counted(
+            lambda: run_slam(args, device=device))
     finally:
         GraphMap.align_scale_to_colmap = align
-    sync()
-    wall = time.perf_counter() - t0
-    print(out.getvalue()[-1500:], flush=True)
-    launches = dict(A.LAUNCHES)
-    designs = {d: n - before[d]
-               for d, n in A.forward_design_launches().items()}
+    print(out[-1500:], flush=True)
     if designs != {"tma_wgmma": forward_calls(launches)}:
         raise AssertionError(f"forward calls {launches} ran {designs}")
     solver = result["solver"]
     subs = list(solver.map.ordered_submaps_by_key())
-    rm = re.search(r"RMSE before: (\S+)\s+after: (\S+)", out.getvalue())
+    rm = re.search(r"RMSE before: (\S+)\s+after: (\S+)", out)
     if not rm or float(rm.group(2)) > float(rm.group(1)):
         raise AssertionError(f"[align]: {rm and rm.groups()}")
     T = seen["T"]
@@ -2301,6 +2266,7 @@ def viewer_cli_run(device, seq, tmp):
     glb_bytes = check_glb(ex.export(os.path.join(tmp, "scene.glb")),
                           n_points)
     trace = check_trace(os.path.join(tmp, "prof", "trace.json"))
+    os.remove(os.path.join(tmp, "prof", "trace.json"))
     res = {"frames": result["n_frames"], "submaps": len(subs),
            "gt_frames": n_gt, "align": [float(v) for v in rm.groups()],
            "T": T.tolist(), "wall_s": wall, "fps": result["n_frames"] / wall,
@@ -2326,61 +2292,62 @@ def drive_viewer_and_evals(device, seq):
     from vggt_slam_tpu_torch.native import kdtree
 
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="phase_v_") as tmp:
-        viewer_cli_run(device, seq, tmp)
-        torch.cuda.empty_cache()
+    tmp = os.path.join(seq, "phase_v")
+    os.makedirs(tmp)      # kept for phase Q
+    viewer_cli_run(device, seq, tmp)
+    torch.cuda.empty_cache()
 
-        t0 = time.perf_counter()
-        csv_path = os.path.join(tmp, "eval.csv")
-        rows = run_eval.main(
-            ["--dataset_root", os.path.dirname(seq), "--sequences",
-             os.path.basename(seq), "--trials", "1", "--min_disparity", "8",
-             "--global_kv_stride", "16", "--retrieval_backend", "tiny",
-             "--in_process", "--out", csv_path])
-        run_eval._WARM.update(model_fn=None, retrieval=None)
-        torch.cuda.empty_cache()
-        summary = process_logs.summarize(csv_path)
-        row = rows[0]
-        log("run_eval", row=row, summary=summary,
-            seconds=time.perf_counter() - t0)
-        if len(rows) != 1 or not np.isfinite(row["ate_rmse"]) or \
-                row["ate_pairs"] < 30:
-            raise AssertionError(f"run_eval: {rows}")
+    t0 = time.perf_counter()
+    csv_path = os.path.join(tmp, "eval.csv")
+    rows = run_eval.main(
+        ["--dataset_root", os.path.dirname(seq), "--sequences",
+         os.path.basename(seq), "--trials", "1", "--min_disparity", "8",
+         "--global_kv_stride", "16", "--retrieval_backend", "tiny",
+         "--in_process", "--out", csv_path])
+    run_eval._WARM.update(model_fn=None, retrieval=None)
+    torch.cuda.empty_cache()
+    summary = process_logs.summarize(csv_path)
+    row = rows[0]
+    log("run_eval", row=row, summary=summary,
+        seconds=time.perf_counter() - t0)
+    if len(rows) != 1 or not np.isfinite(row["ate_rmse"]) or \
+            row["ate_pairs"] < 30:
+        raise AssertionError(f"run_eval: {rows}")
 
-        t0 = time.perf_counter()
-        pts, _ = read_pcd(os.path.join(tmp, "out", "result.pcd"))
-        pts = pts[:: max(1, len(pts) // 400_000)]
-        shifted = pts + np.float32([0.01, -0.02, 0.005])
-        if not kdtree.available():
-            raise AssertionError("the kd-tree did not build")
-        d = GE.nn_distances(pts, shifted)
-        d_ref, _ = cKDTree(shifted).query(pts, k=1, workers=-1)
-        cham = GE.chamfer(pts, shifted)
-        err = float(np.abs(d - d_ref).max())
-        log("geometry_eval", points=len(pts), max_abs_vs_ckdtree=err,
-            chamfer=cham, seconds=time.perf_counter() - t0)
-        if err > 1e-6 or d.max() > 0.0230:   # no farther than |shift|
-            raise AssertionError(f"geometry_eval: {err}, {cham}")
+    t0 = time.perf_counter()
+    pts, _ = read_pcd(os.path.join(tmp, "out", "result.pcd"))
+    pts = pts[:: max(1, len(pts) // 400_000)]
+    shifted = pts + np.float32([0.01, -0.02, 0.005])
+    if not kdtree.available():
+        raise AssertionError("the kd-tree did not build")
+    d = GE.nn_distances(pts, shifted)
+    d_ref, _ = cKDTree(shifted).query(pts, k=1, workers=-1)
+    cham = GE.chamfer(pts, shifted)
+    err = float(np.abs(d - d_ref).max())
+    log("geometry_eval", points=len(pts), max_abs_vs_ckdtree=err,
+        chamfer=cham, seconds=time.perf_counter() - t0)
+    if err > 1e-6 or d.max() > 0.0230:   # no farther than |shift|
+        raise AssertionError(f"geometry_eval: {err}, {cham}")
 
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "vggt_slam_tpu_torch.evals."
-             "pipeline_overlap", "--seq_dir", seq, "--frames", "40",
-             "--warmup_frames", "17", "--submap_size", "16",
-             "--min_disparity", "8", "--model_size", "1b", "--out",
-             os.path.join(tmp, "pipeline_overlap.txt")],
-            capture_output=True, text=True, timeout=600)
-        lines = proc.stdout.strip().splitlines()
-        if proc.returncode != 0 or not lines:
-            raise AssertionError(f"pipeline_overlap ({proc.returncode}): "
-                                 f"{proc.stdout[-2000:]}"
-                                 f"{proc.stderr[-2000:]}")
-        split = json.loads(lines[-1])
-        log("pipeline_overlap", **split, seconds=time.perf_counter() - t0,
-            report=lines[-30:-2])
-        if any(split[k]["frames"] != 40 or not split[k]["fps"] > 0
-               for k in ("serial", "pipelined")):
-            raise AssertionError(f"pipeline_overlap: {split}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vggt_slam_tpu_torch.evals."
+         "pipeline_overlap", "--seq_dir", seq, "--frames", "40",
+         "--warmup_frames", "17", "--submap_size", "16",
+         "--min_disparity", "8", "--model_size", "1b", "--out",
+         os.path.join(tmp, "pipeline_overlap.txt")],
+        capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"pipeline_overlap ({proc.returncode}): "
+                             f"{proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    split = json.loads(lines[-1])
+    log("pipeline_overlap", **split, seconds=time.perf_counter() - t0,
+        report=lines[-30:-2])
+    if any(split[k]["frames"] != 40 or not split[k]["fps"] > 0
+           for k in ("serial", "pipelined")):
+        raise AssertionError(f"pipeline_overlap: {split}")
     log("phase_v", seconds=time.perf_counter() - t_phase)
 
 
@@ -2391,9 +2358,8 @@ VOXEL_SIZE = 0.05
 
 
 def voxelize_errors(got, centers, counts, means, feats):
-    """voxelize_device's output against voxelize_np's first num voxels:
-    (centres equal, counts equal, means within mean_tolerance, largest mean
-    error)."""
+    """voxelize_device against voxelize_np's first num voxels: (centres equal,
+    counts equal, means within mean_tolerance, largest mean error)."""
     import numpy as np
 
     from vggt_slam_tpu_torch.ops.voxel import mean_tolerance
@@ -2410,9 +2376,9 @@ def voxelize_errors(got, centers, counts, means, feats):
 
 
 def check_voxelize(device, pts, feats, V):
-    """voxelize_device against voxelize_np on the map's points at capacity V +
-    1 and V // 2, then a half-voxel shift it must reject; both timed. Returns
-    (results, voxelize_np's (centers, means, counts))."""
+    """voxelize_device against voxelize_np at capacity V + 1 and V // 2, a
+    half-voxel shift it must reject; timed. Returns (results, voxelize_np's
+    (centers, means, counts))."""
     import numpy as np
     import torch
 
@@ -2447,9 +2413,8 @@ def check_voxelize(device, pts, feats, V):
 
 
 def drive_semantics(device, seq):
-    """Phase W: the embedder CLI; the CLI at VGGT-1B with --get_voxel; the
-    saved map reloaded and checked; `check_voxelize`; query_voxelmap
-    --visualize on the viser stub."""
+    """Phase W: the embedder CLI; the 1B CLI with --get_voxel; the saved map
+    checked; `check_voxelize`; query_voxelmap --visualize on the stub."""
     import io
 
     import numpy as np
@@ -2458,12 +2423,10 @@ def drive_semantics(device, seq):
     from vggt_slam_tpu_torch.data.images import load_image, resize_linear
     from vggt_slam_tpu_torch.main import parser, run_slam
     from vggt_slam_tpu_torch.native import felzenszwalb
-    from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.ops.voxel import mean_tolerance
     from vggt_slam_tpu_torch.semantic import embedder
     from vggt_slam_tpu_torch.semantic.voxel_map import SemanticVoxelMap
     from vggt_slam_tpu_torch.tools import query_voxelmap
-    from vggt_slam_tpu_torch.utils.profiling import sync
 
     t_phase = time.perf_counter()
     rgb = os.path.join(seq, "rgb")
@@ -2494,17 +2457,8 @@ def drive_semantics(device, seq):
              "--min_disparity", "8", "--semantic_emb_dir", emb_dir,
              "--get_voxel", "--voxel_size", str(VOXEL_SIZE),
              "--voxel_save_dir", vox_dir, "--seed", str(SEED), "--timing"])
-        out = io.StringIO()
-        sync()
-        A.reset_launch_counts()
-        before, t0 = A.forward_design_launches(), time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            result = run_slam(args, device=device)
-        sync()
-        wall = time.perf_counter() - t0
-        launches = dict(A.LAUNCHES)
-        designs = {k: v - before[k]
-                   for k, v in A.forward_design_launches().items()}
+        result, _, wall, launches, designs = counted(
+            lambda: run_slam(args, device=device))
         if designs != {"tma_wgmma": forward_calls(launches)} or \
                 not forward_calls(launches):
             raise AssertionError(f"forward calls {launches} ran {designs}")
@@ -2601,10 +2555,9 @@ def encoder_module(family):
 
 
 def write_encoder_checkpoint(path, device, family="clip"):
-    """A full-width checkpoint directory: config.json, seeded pytorch_model.bin
-    equal to the family's tests/data manifest, and a vocabulary (CLIP:
-    vocab.json, merges.txt; SigLIP: spiece.model). Returns (values,
-    seconds)."""
+    """A full-width checkpoint directory (config.json, seeded pytorch_model.bin
+    equal to the tests/data manifest, CLIP's vocab.json and merges.txt or
+    SigLIP's spiece.model). Returns (values, seconds)."""
     import string
 
     import torch
@@ -2683,9 +2636,9 @@ def clip_crops(seq, n, size, seed=SEED):
 
 
 def kernel_vs_plain(fn, model):
-    """fn() on the kernel (its launches and designs), then plain, with zeroed
-    attention and with permuted keys: (features, launches, designs, max L2 from
-    plain, the controls' min L2)."""
+    """fn() on the kernel, then plain, with zeroed attention and with permuted
+    keys: (features, launches, designs, max L2 from plain, the controls'
+    min L2)."""
     import numpy as np
     import torch
 
@@ -2744,12 +2697,10 @@ def flash_single_at(device, B, N):
 
 
 def check_encoders(device, ckpt, seq, family):
-    """The family's encoders through resolve_clip_encoders on 100 crops at 224
-    px and 6 at 180 x 150: 12 flash_single a chunk by design, within
-    ENCODER_TOL (L2) of the plain path, which the controls must exceed; the
-    text tower held so where it runs the kernel (SigLIP), else within
-    CLIP_TEXT_TOL of the CPU; the vision forward at 64 and flash_single
-    timed."""
+    """The encoders through resolve_clip_encoders on 100 crops at 224 px and 6
+    at 180 x 150: 12 flash_single a chunk, within ENCODER_TOL (L2) of plain,
+    which the controls must exceed; the text tower so where it runs the
+    kernel (SigLIP), else within CLIP_TEXT_TOL of the CPU; timings."""
     import numpy as np
     import torch
 
@@ -2830,108 +2781,93 @@ def check_encoders(device, ckpt, seq, family):
 
 
 def drive_encoders(device, seq, ckpt, family="clip"):
-    """Phase P (CLIP) or N (SigLIP): `write_encoder_checkpoint`,
-    `check_encoders`, the embedder CLI with --clip_model_dir (12 flash_single a
-    frame, unit features of d 512 or 768), the small-model CLI with
-    --get_voxel, query_voxelmap --clip_model_dir. Returns flash_single's entry
-    for the phase."""
-    import io
+    """Phase P (CLIP) or N (SigLIP): the checkpoint, `check_encoders`, the
+    embedder CLI (12 flash_single a frame, unit features of d 512 or 768),
+    the small CLI with --get_voxel, query_voxelmap. Returns flash_single's
+    entry."""
     import shutil
 
     import numpy as np
     import torch
 
     from vggt_slam_tpu_torch.main import parser, run_slam
-    from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.semantic import embedder
     from vggt_slam_tpu_torch.tools import query_voxelmap
-    from vggt_slam_tpu_torch.utils.profiling import sync
 
     phase, n_frames, d_want = ENCODERS[family][:3]
     t_phase = time.perf_counter()
     os.makedirs(ckpt, exist_ok=True)
-    with tempfile.TemporaryDirectory(prefix=f"phase_{phase}_") as tmp:
-        values, write_s = write_encoder_checkpoint(ckpt, device, family)
-        log(f"{family}_checkpoint", values=values, seconds=write_s)
-        res = check_encoders(device, ckpt, seq, family)
-        torch.cuda.empty_cache()
+    tmp = os.path.join(seq, f"phase_{phase}")
+    os.makedirs(tmp)      # N's map is phase Q's
+    values, write_s = write_encoder_checkpoint(ckpt, device, family)
+    log(f"{family}_checkpoint", values=values, seconds=write_s)
+    res = check_encoders(device, ckpt, seq, family)
+    torch.cuda.empty_cache()
 
-        rgb = os.path.join(tmp, "rgb")
-        os.makedirs(rgb)
-        frames = sorted(os.listdir(os.path.join(seq, "rgb")))[:n_frames]
-        for f in frames:
-            shutil.copy(os.path.join(seq, "rgb", f), rgb)
-        emb_dir, vox_dir = os.path.join(tmp, "emb"), os.path.join(tmp, "vox")
+    rgb = os.path.join(tmp, "rgb")
+    os.makedirs(rgb)
+    frames = sorted(os.listdir(os.path.join(seq, "rgb")))[:n_frames]
+    for f in frames:
+        shutil.copy(os.path.join(seq, "rgb", f), rgb)
+    emb_dir, vox_dir = os.path.join(tmp, "emb"), os.path.join(tmp, "vox")
 
-        def counted(fn):
-            out = io.StringIO()
-            sync()
-            A.reset_launch_counts()
-            before, t0 = A.forward_design_launches(), time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                r = fn()
-            sync()
-            return r, out.getvalue().strip(), time.perf_counter() - t0, \
-                dict(A.LAUNCHES), {k: v - before[k] for k, v in
-                                   A.forward_design_launches().items()}
+    n, out, embed_s, launches, designs = counted(lambda: embedder.main(
+        ["--image_dir", rgb, "--out_dir", emb_dir, "--target_size",
+         str(SEMANTIC_TARGET), "--clip_model_dir", ckpt,
+         "--device", "cuda"]))
+    painted, norm_err, finite, d = 0.0, 0.0, True, set()
+    for f in frames:
+        with np.load(os.path.join(emb_dir, os.path.splitext(f)[0]
+                                  + ".npz")) as z:
+            e = z["embedding"]
+        norms = np.linalg.norm(e, axis=-1)
+        d.add(e.shape[-1])
+        finite &= bool(np.isfinite(e).all())
+        painted += float((norms > 0).mean()) / len(frames)
+        norm_err = max(norm_err, float(np.abs(norms[norms > 0] - 1).max()))
+    emb = {"frames": n, "seconds": embed_s, "s_per_frame": embed_s / n,
+           "launches": launches, "designs": designs, "d": sorted(d),
+           "painted_share": painted, "norm_err": norm_err,
+           "finite": finite, "out": out}
+    log(f"{family}_embedder", **emb)
+    per = res["launches_per_chunk"] * n
+    if n != len(frames) or d != {d_want} or not finite or \
+            norm_err > 1e-4 or "felzenszwalb_mask_generator" not in out \
+            or launches["flash_single"] != per or \
+            designs != {"tma_wgmma": per}:
+        raise AssertionError(f"the embedder with {family}: {emb}")
 
-        n, out, embed_s, launches, designs = counted(lambda: embedder.main(
-            ["--image_dir", rgb, "--out_dir", emb_dir, "--target_size",
-             str(SEMANTIC_TARGET), "--clip_model_dir", ckpt,
-             "--device", "cuda"]))
-        painted, norm_err, finite, d = 0.0, 0.0, True, set()
-        for f in frames:
-            with np.load(os.path.join(emb_dir, os.path.splitext(f)[0]
-                                      + ".npz")) as z:
-                e = z["embedding"]
-            norms = np.linalg.norm(e, axis=-1)
-            d.add(e.shape[-1])
-            finite &= bool(np.isfinite(e).all())
-            painted += float((norms > 0).mean()) / len(frames)
-            norm_err = max(norm_err, float(np.abs(norms[norms > 0] - 1).max()))
-        emb = {"frames": n, "seconds": embed_s, "s_per_frame": embed_s / n,
-               "launches": launches, "designs": designs, "d": sorted(d),
-               "painted_share": painted, "norm_err": norm_err,
-               "finite": finite, "out": out}
-        log(f"{family}_embedder", **emb)
-        per = res["launches_per_chunk"] * n
-        if n != len(frames) or d != {d_want} or not finite or \
-                norm_err > 1e-4 or "felzenszwalb_mask_generator" not in out \
-                or launches["flash_single"] != per or \
-                designs != {"tma_wgmma": per}:
-            raise AssertionError(f"the embedder with {family}: {emb}")
+    args = parser.parse_args(
+        ["--image_folder", rgb, "--model_size", "small",
+         "--min_disparity", "8", "--semantic_emb_dir", emb_dir,
+         "--get_voxel", "--voxel_size", str(VOXEL_SIZE),
+         "--voxel_save_dir", vox_dir, "--seed", str(SEED), "--timing"])
+    result, _, wall, launches, designs = counted(
+        lambda: run_slam(args, device=device))
+    vm = result["voxel_map"]
+    feats = vm.get_features()
+    stages = result["timer"].summary()
+    cli = {"frames": result["n_frames"],
+           "submaps": result["solver"].map.get_num_submaps(),
+           "wall_s": wall,
+           "build_s": stages["semantic_voxel_map"]["total_s"],
+           "V": len(vm.get_centers_world()), "d": int(feats.shape[1]),
+           "launches": launches, "designs": designs,
+           "stages": {k: v["total_s"] for k, v in stages.items()}}
+    log(f"{family}_semantic_cli", **cli)
+    del result, vm
+    if designs != {"tma_wgmma": forward_calls(launches)} or \
+            not forward_calls(launches) or cli["d"] != d_want or \
+            cli["V"] < 5 or not np.isfinite(feats).all():
+        raise AssertionError(f"the SLAM CLI on {family} features: {cli}")
 
-        args = parser.parse_args(
-            ["--image_folder", rgb, "--model_size", "small",
-             "--min_disparity", "8", "--semantic_emb_dir", emb_dir,
-             "--get_voxel", "--voxel_size", str(VOXEL_SIZE),
-             "--voxel_save_dir", vox_dir, "--seed", str(SEED), "--timing"])
-        result, _, wall, launches, designs = counted(
-            lambda: run_slam(args, device=device))
-        vm = result["voxel_map"]
-        feats = vm.get_features()
-        stages = result["timer"].summary()
-        cli = {"frames": result["n_frames"],
-               "submaps": result["solver"].map.get_num_submaps(),
-               "wall_s": wall,
-               "build_s": stages["semantic_voxel_map"]["total_s"],
-               "V": len(vm.get_centers_world()), "d": int(feats.shape[1]),
-               "launches": launches, "designs": designs,
-               "stages": {k: v["total_s"] for k, v in stages.items()}}
-        log(f"{family}_semantic_cli", **cli)
-        del result, vm
-        if designs != {"tma_wgmma": forward_calls(launches)} or \
-                not forward_calls(launches) or cli["d"] != d_want or \
-                cli["V"] < 5 or not np.isfinite(feats).all():
-            raise AssertionError(f"the SLAM CLI on {family} features: {cli}")
-
-        ranked, *_ = counted(lambda: query_voxelmap.main(
-            ["--voxel_dir", vox_dir, "--query", "a chair", "--top_k", "5",
-             "--clip_model_dir", ckpt, "--device", "cuda"]))
-        log(f"{family}_query", ranked=[list(r) for r in ranked])
-        if len(ranked) != 5 or not all(np.isfinite(r[2]) for r in ranked) \
-                or any(r[3] not in frames for r in ranked):
-            raise AssertionError(f"query_voxelmap with {family}: {ranked}")
+    ranked, *_ = counted(lambda: query_voxelmap.main(
+        ["--voxel_dir", vox_dir, "--query", "a chair", "--top_k", "5",
+         "--clip_model_dir", ckpt, "--device", "cuda"]))
+    log(f"{family}_query", ranked=[list(r) for r in ranked])
+    if len(ranked) != 5 or not all(np.isfinite(r[2]) for r in ranked) \
+            or any(r[3] not in frames for r in ranked):
+        raise AssertionError(f"query_voxelmap with {family}: {ranked}")
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t_phase
     log(f"phase_{phase.lower()}", seconds=seconds)
@@ -2953,9 +2889,8 @@ SAM2_TOL = 1e-4     # f32 on the card against float64, of the largest entry
 
 
 def sam2_errors(model, ref, image, points):
-    """embed_image's three features and decode_points' masks, iou and obj of
-    `model` against float64 `ref`: max abs error over the largest entry,
-    each."""
+    """embed_image's features and decode_points' masks, iou, obj of `model`
+    against float64 `ref`: max abs error over the largest entry, each."""
     import torch
 
     with torch.no_grad():
@@ -2968,10 +2903,10 @@ def sam2_errors(model, ref, image, points):
 
 def drive_sam2(device, seq, clip_ckpt):
     """Phase M: a seeded sam2.1_hiera_base_plus .pt (the IoU head's last bias
-    +3 to pass the 0.9 filter); embed_image and a 192-point decode against
-    float64 (SAM2_TOL) with a layout control; the AMG at its defaults and at
-    zero thresholds; the embedder CLI with --masker sam2 --clip_model_dir on 4
-    frames."""
+    +3 passes the 0.9 filter), kept for phase Q; embed_image and a 192-point
+    decode against float64 (SAM2_TOL) with a layout control; the AMG at its
+    defaults and zero thresholds; the embedder with --masker sam2
+    --clip_model_dir on 4 frames."""
     import copy
     import io
     import shutil
@@ -2990,7 +2925,7 @@ def drive_sam2(device, seq, clip_ckpt):
     rgb = os.path.join(seq, "rgb")
     frames = sorted(os.listdir(rgb))[:4]
     with tempfile.TemporaryDirectory(prefix="phase_m_") as tmp:
-        pt = os.path.join(tmp, "sam2.1_hiera_base_plus.pt")
+        pt = os.path.join(seq, "sam2.1_hiera_base_plus.pt")   # for phase Q
         sd = S.init_state_dict(cfg, SEED, device)
         sd["mask_decoder.iou_head.layers_2.bias"] += 3.0   # IoUs ~0.95
         torch.save({"model": {k: v.cpu() for k, v in
@@ -3079,6 +3014,234 @@ def drive_sam2(device, seq, clip_ckpt):
             raise AssertionError(f"the embedder with SAM2: {cli}")
     torch.cuda.empty_cache()
     log("phase_m", seconds=time.perf_counter() - t_phase)
+
+
+# Phase Q: the semantic evals on the outputs of phases V, M and N
+
+# The 7-Scenes dump: frames; the chamfer RMSE bound, ~10x the clean RMSEs
+# (3.1e-4) and ~6x under the control's: every DENSE_STRIDE-th frame scaled
+# about its centroid, against the same frames (a rigid ICP cannot undo it).
+DENSE_FRAMES, DENSE_BOUND, DENSE_SCALE, DENSE_STRIDE = 30, 3e-3, 1.1, 5
+
+
+def seven_scenes_dump(root, n=DENSE_FRAMES):
+    """A 7-Scenes sequence rendered by synth3d at 480x640 with K_7SCENES
+    (16-bit mm depth, pose.txt), an estimate (frame_output of the exact
+    depth, TUM poses) and the control: (seq, estimate, control, TUM)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from vggt_slam_tpu_torch.data.images import resize_nearest, write_png16
+    from vggt_slam_tpu_torch.evals import dense_7scenes as D
+    from vggt_slam_tpu_torch.evals.geometry_eval import backproject_depth
+    from vggt_slam_tpu_torch.ops.lie import rotmat_to_quat
+    from vggt_slam_tpu_torch.tools import synth3d
+
+    K = synth3d.camera_intrinsics(480, 640, math.degrees(
+        2 * math.atan(320 / 585)))
+    if np.abs(K - D.K_7SCENES).max() > 1e-9:
+        raise AssertionError(f"K {K} is not K_7SCENES")
+    scene = synth3d.make_scene(seed=SEED)
+    centers, rots = synth3d.camera_path(n, seed=SEED, kind="pan")
+    seq, est = os.path.join(root, "seq"), os.path.join(root, "est")
+    scaled = os.path.join(root, "scaled")
+    for d in (seq, est, scaled):
+        os.makedirs(d)
+    K_eval = D.vggt_resize_K(K)
+    c2w = np.zeros((n, 4, 4))
+    c2w[:, :3, :3] = rots.transpose(0, 2, 1)
+    c2w[:, :3, 3], c2w[:, 3, 3] = centers, 1.0
+
+    def frame(i):               # render, write, backproject: one a thread
+        depth = synth3d.render(scene, centers[i], rots[i], K, (480, 640))[1]
+        stem = os.path.join(seq, f"frame-{i:06d}")
+        write_png16(stem + ".depth.png", np.round(depth * 1000).astype(
+            np.uint16))
+        np.savetxt(stem + ".pose.txt", c2w[i])
+        return backproject_depth(resize_nearest(
+            depth, *D.EVAL_HW[::-1]), K_eval, c2w[i], max_depth=4.0,
+            stride=4).astype(np.float32)
+    with ThreadPoolExecutor(8) as ex:
+        clouds = list(ex.map(frame, range(n)))
+    centroid = np.concatenate(clouds[::DENSE_STRIDE]).mean(0)
+    for i, pts in enumerate(clouds):
+        for d, p in ((est, pts), (scaled, centroid + DENSE_SCALE
+                                  * (pts - centroid))):
+            if d == est or i % DENSE_STRIDE == 0:
+                np.savez(os.path.join(d, f"{i:06d}.npz"), point_map_world=p,
+                         conf_mask=np.ones(len(p), bool),
+                         extrinsic_world=c2w[i])
+    q = rotmat_to_quat(torch.from_numpy(c2w[:, :3, :3])).numpy()
+    tum = os.path.join(root, "est_poses.txt")
+    np.savetxt(tum, np.concatenate([np.arange(n)[:, None], centers,
+                                    q[:, 1:], q[:, :1]], 1))
+    return seq, est, scaled, tum
+
+
+def counted(fn):
+    """fn() with the launch counts zeroed just before, printing into a
+    buffer: (its result, its text, seconds, launches, designs by the C
+    count)."""
+    import io
+
+    from vggt_slam_tpu_torch.ops import attention as A
+    from vggt_slam_tpu_torch.utils.profiling import sync
+
+    out = io.StringIO()
+    sync()
+    A.reset_launch_counts()
+    before, t0 = A.forward_design_launches(), time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        r = fn()
+    sync()
+    return r, out.getvalue().strip(), time.perf_counter() - t0, \
+        dict(A.LAUNCHES), {k: v - before[k] for k, v in
+                           A.forward_design_launches().items()}
+
+
+def drive_evals(device, seq, sam2_pt, vox_dir, encoder_dir, phase_v):
+    """Phase Q: mask_eval's CLI with SAM2 base_plus (phase M's .pt) on the
+    card; voxel_eval over phase N's map and SigLIP (validity 1.0 on its
+    frames' stamps, 0.0 moved past the tolerance); dense_7scenes (ATE <
+    1e-6, chamfer RMSEs < DENSE_BOUND, the control above);
+    visualize_results on the stub over phase V's outputs and N's map, then
+    --headless. Returns the text tower's flash_single launches."""
+    import io
+    import re
+
+    import numpy as np
+
+    from vggt_slam_tpu_torch.evals import dense_7scenes, mask_eval, voxel_eval
+    from vggt_slam_tpu_torch.semantic import sam2_amg as AMG
+
+    t_phase = time.perf_counter()
+    tmp = os.path.join(seq, "phase_q")
+    os.makedirs(tmp)
+    make, sam2_s = AMG.make_sam2_mask_generator, []
+
+    def timed(*a, **kw):           # SAM2's seconds a scene
+        gen = make(*a, **kw)
+
+        def call(img):
+            t0 = time.perf_counter()
+            masks = gen(img)
+            sam2_s.append(time.perf_counter() - t0)
+            return masks
+        return call
+
+    AMG.make_sam2_mask_generator = timed
+    try:
+        rows, _, seconds, *_ = counted(lambda: mask_eval.main(
+            ["--scenes", "3", "--sam2_checkpoint", sam2_pt, "--out",
+             os.path.join(tmp, "mask_quality.csv")]))
+    finally:
+        AMG.make_sam2_mask_generator = make
+    rows = {r["proposer"]: r for r in rows}
+    log("mask_eval", rows=rows, seconds=seconds, sam2_s_per_scene=sum(
+        sam2_s) / 3)
+    fz, grid = rows["felzenszwalb"], rows["grid8"]
+    if set(rows) != {"felzenszwalb", "grid8", "sam2"} or len(sam2_s) != 3 \
+            or not fz["mean_best_iou"] > 0.6 > grid["mean_best_iou"] or \
+            not fz["recall_at_50"] > 0.8 > grid["recall_at_50"]:
+        raise AssertionError(f"mask_eval: {rows}")
+
+    with open(os.path.join(vox_dir, "frame_names.json")) as f:
+        stamps = sorted({voxel_eval.SearchValidityEvaluator._timestamp_of(n)
+                         for names in json.load(f).values()
+                         for n in names.values()})
+    # the names' stamps are seconds: the tolerance is in their units
+    tol = min(np.diff(stamps), default=1.0) / 4
+    moved = [s + stamps[-1] - stamps[0] + 4 * tol for s in stamps]
+    job = {"voxel_dir": vox_dir, "evaluator": "search_validity",
+           "clip_model_dir": encoder_dir, "tolerance_ns": tol}
+    cfg = os.path.join(tmp, "jobs.json")
+    with open(cfg, "w") as f:
+        json.dump({"jobs": [
+            dict(job, queries={"a chair": stamps}, sweep={"top_k": [1, 5]}),
+            dict(job, queries={"a chair": moved}),
+            {"voxel_dir": vox_dir, "evaluator": "voxel_count"},
+            {"voxel_dir": vox_dir, "evaluator": "perf"}]}, f)
+    res, _, seconds, launches, designs = counted(lambda: voxel_eval.main(
+        ["--config", cfg, "--out", os.path.join(tmp, "voxel_eval.json")]))
+    r = [x["result"] for x in res["results"]]
+    V = r[3]["num_voxels"]
+    vox = {"seconds": seconds, "launches": launches, "designs": designs,
+           "tolerance": tol, "validity": [x["validity_rate"] for x in r[:3]],
+           "count": r[3], "perf": r[4],
+           "hits": [x["per_query"]["a chair"]["hits"] for x in r[:3]]}
+    log("voxel_eval", **vox)
+    want = 3 * encoder_module("siglip")[1].text_layers   # a query a job
+    if vox["validity"] != [1.0, 1.0, 0.0] or len(vox["hits"][1]) != min(
+            5, V) or launches["flash_single"] != want or \
+            designs != {"tma_wgmma": want}:
+        raise AssertionError(f"voxel_eval: {vox}")
+
+    t0 = time.perf_counter()
+    d7, est, scaled, tum = seven_scenes_dump(os.path.join(tmp, "7scenes"))
+    dense = {"dump_s": time.perf_counter() - t0}
+    for name, fo, stride in (("estimate", est, 1),
+                             ("scaled_control", scaled, DENSE_STRIDE)):
+        t0 = time.perf_counter()
+        dense[name] = dense_7scenes.evaluate_sequence(
+            d7, tum, frame_output_dir=fo, gt_stride=stride)
+        dense[name]["seconds"] = time.perf_counter() - t0
+    log("dense_7scenes", frames=DENSE_FRAMES, bound=DENSE_BOUND,
+        scale=DENSE_SCALE, stride=DENSE_STRIDE, **dense)
+    m, c = dense["estimate"], dense["scaled_control"]
+    if not (m["ate_rmse"] < 1e-6 and m["ate_pairs"] == DENSE_FRAMES and
+            max(m["rmse_accuracy"], m["rmse_completeness"]) < DENSE_BOUND
+            < max(c["rmse_accuracy"], c["rmse_completeness"]) and
+            c["ate_pairs"] == len(range(0, DENSE_FRAMES, DENSE_STRIDE))):
+        raise AssertionError(f"dense_7scenes: {dense}")
+
+    calls = load_viser_stub().install(sys.modules)
+    sys.modules.pop("vggt_slam_tpu_torch.viz.viser_viewer", None)
+    from vggt_slam_tpu_torch.tools import visualize_results as VR
+    out_v, log_v = (os.path.join(phase_v, f) for f in ("out", "poses.txt"))
+    argv = ["--pose_log", log_v, "--poses_path", log_v, "--image_folder",
+            os.path.join(seq, "rgb"), "--voxel_dir", vox_dir,
+            "--side_by_side"]
+    printed, stdin = [], sys.stdin
+    try:
+        sys.stdin = io.StringIO("")       # main waits for Enter
+        # --headless without the cloud and the point maps: their reads are
+        # the pass's cost, and the first pass prints their stats
+        for a in (["--pcd_path", os.path.join(out_v, "result.pcd"),
+                   "--frame_output_dir", os.path.join(out_v, "frame_output")]
+                  + argv, argv + ["--headless"]):
+            printed.append(counted(lambda: VR.main(a))[1:3])
+    finally:
+        sys.stdin = stdin
+    n_frames = len(os.listdir(os.path.join(out_v, "frame_output")))
+    n_poses = len(VR.load_tum_poses(log_v))
+    n_images = len(os.listdir(os.path.join(seq, "rgb")))
+    counts = {k: sum(c[0] == k for c in calls) for k in (
+        "ViserServer", "scene.add_point_cloud", "scene.add_frame",
+        "scene.add_camera_frustum")}
+    drawn = [kw["points"] for name, _, kw in calls
+             if name == "scene.add_point_cloud"][-1]
+    with np.load(os.path.join(vox_dir, "semantic_voxels.npz")) as z:
+        centers = z["centers_world"]
+    x = re.search(r"offsetting voxels by \+X=(\S+)", printed[0][0])
+    x = float(x.group(1)) if x else 0.0
+    viz = {"seconds": [p[1] for p in printed], "calls": counts,
+           "frames": n_frames, "poses": n_poses, "images": n_images,
+           "V": V, "x_offset": x, "headless": printed[1][0].splitlines()}
+    log("visualize_results", **viz)
+    if counts != {"ViserServer": 2, "scene.add_point_cloud": 2,
+                  "scene.add_frame": n_frames + n_poses,
+                  "scene.add_camera_frustum":
+                  n_poses if n_images == n_poses else 0} or not x > 0 or \
+            len(drawn) != min(V, 20000) or (V <= 20000 and np.abs(
+                drawn - centers - [x, 0, 0]).max() > 1e-3) or \
+            not set(printed[1][0].splitlines()) <= set(
+                printed[0][0].splitlines()) or \
+            f"voxel map: {V} voxels" not in printed[1][0]:
+        raise AssertionError(f"visualize_results: {viz}, {printed}")
+    log("phase_q", seconds=time.perf_counter() - t_phase)
+    return launches["flash_single"]
 
 
 # --ab DIR: the bf16 forward at head dim 64 against an earlier build, in turns
@@ -3327,9 +3490,8 @@ def ab_errors(got, ref, stats):
 
 
 def ab_host_us(builds, device, calls=100, rounds=12):
-    """Host µs a forward call where the card keeps up, at a small flash_multi
-    and the camera-trunk training shape: each build, `calls` at a time in
-    turns, `rounds` times; the medians."""
+    """Host µs a forward call where the card keeps up (a small flash_multi,
+    the camera-trunk training shape): builds in turns; the medians."""
     import torch
 
     from vggt_slam_tpu_torch.ops import attention as A
@@ -3400,9 +3562,8 @@ def _host_us(fn, calls):
 
 
 def ab_forward(device, dirs):
-    """Each build against its plain version, then in turns at every bf16
-    forward shape (eager and CUDA graph) beside SDPA and the bound; then
-    `ab_host_us`. Returns (builds, rows)."""
+    """Each build against plain, then in turns at every bf16 forward shape
+    (eager, graph) beside SDPA and the bound; `ab_host_us`. (builds, rows)."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -3497,9 +3658,8 @@ def ab_matmul_only_tilings(args, ref):
 
 
 def ab_probes(device, dirs):
-    """The matmul-only floor and the grouped, interleaved and pipelined probes
-    of each DIR, then this tree's, at the frame shape: held to their plain
-    versions, then timed in turns as CUDA graphs beside the bound and SDPA."""
+    """Each DIR's and this tree's matmul-only and grouped probes at the frame
+    shape: held to plain, then in turns as graphs beside the bound and SDPA."""
     import torch
 
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
@@ -3595,10 +3755,9 @@ def ab_mm_call(lib, tilings):
 
 
 def ab_matmul(device, dirs, iters=20):
-    """The matmul probes of each DIR, then this tree's, at every tiling: the B
-    = 1 shapes and QK^T, PV at B 528 (grouped at AB_MM_GROUPS), each within one
-    bf16 ulp, then timed in turns as CUDA graphs beside torch.bmm and the
-    bound."""
+    """Each DIR's and this tree's matmul probes at every tiling (B 1; QK^T, PV
+    at B 528, grouped at AB_MM_GROUPS): one bf16 ulp, then in turns as
+    graphs beside torch.bmm and the bound."""
     import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
@@ -3816,9 +3975,8 @@ def ab_global_modes(script, device, rate, iters):
 
 
 def ab_global(device, dirs, iters=4):
-    """The three global-shape probes of each DIR, then this tree's: every mode
-    and tiling held on a 2048-row slab, then timed in turns beside SDPA, the
-    bound and ptxas registers."""
+    """Each DIR's and this tree's global probes: every mode and tiling on a
+    2048-row slab, then in turns beside SDPA, the bound and registers."""
     import torch
 
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
@@ -4115,7 +4273,8 @@ def main(argv) -> int:
                                  "call 12 (phases S, L); CLIP's vision "
                                  "tower 12 a chunk of <= 64 crops "
                                  "(phase P); SigLIP's towers 12 a chunk "
-                                 "of <= 64 crops or texts (phase N)"}
+                                 "of <= 64 crops or texts (phase N), a "
+                                 "query in voxel_eval (phase Q)"}
                if name == "flash_single" else {}),
             "variants": variants})
     # One flash_bwd call computes both TPU kernels' functions (dq; dk, dv):

@@ -1,9 +1,7 @@
-"""The port's attention (ops/attention.py) against the JAX reference on the
-CPU: the plain versions of both CUDA kernels against the reference's
-Pallas kernels in interpret mode, packed, with every variant the main path
-uses (in-kernel qk-LN + rope, kv_bias, valid_len cutting a key block,
-static-max softmax, head dims 32, 64, 128). f32 inputs 5e-5 (the in-kernel
-LN and rope round in another order); bf16 inputs 2e-2 (bf16 tiles).
+"""The port's attention against the JAX reference on the CPU: both kernels'
+plain versions against the Pallas kernels in interpret mode with every
+main-path variant (qk-LN + rope, kv_bias, valid_len, static softmax, D 32,
+64, 128): f32 5e-5 (another rounding order), bf16 2e-2.
 """
 import math
 

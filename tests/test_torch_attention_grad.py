@@ -1,16 +1,11 @@
-"""The port's training attention against the JAX reference on the CPU (the
-reference's Pallas kernels in interpret mode, packed layout).
-
-* The forward's stats (out, m, l) against `return_stats=True`: one-block,
-  multi-block static, valid_len, head dims 32 and 128. f32: 5e-5 on out and
-  of the largest |m| and |l|.
-* The backward through `FlashAttentionGrad` against the reference's
-  `flash_attention_grad` on tests/test_attention.py::TestFlashGrad's cases
-  plus two: 3e-5 (the reference's own bound), masked keys' dk, dv below
-  1e-6; and against autograd of `naive_attention`: 3e-5.
-* `flash_bwd`'s plain path against the reference's `_flash_bwd` on its
-  forward's out, m, l at head dims 32, 64, 128, with and without
-  valid_len, Nq = Nk and not: 3e-5 of each gradient's largest entry.
+"""The port's training attention against the JAX reference on the CPU (its
+Pallas kernels in interpret mode): the forward's stats (out, m, l) at one
+and several blocks, valid_len, D 32 and 128 (5e-5 of the largest |m|,
+|l|); `FlashAttentionGrad` against `flash_attention_grad` on
+TestFlashGrad's cases plus two (3e-5, the reference's bound; masked keys'
+dk, dv below 1e-6) and autograd of `naive_attention` (3e-5); `flash_bwd`'s
+plain path against `_flash_bwd` at D 32, 64, 128 (3e-5 of each gradient's
+largest entry).
 """
 import jax
 import jax.numpy as jnp

@@ -1,13 +1,9 @@
 """The port's frame-attention probes against the reference script's Pallas
-kernels, on the CPU: scripts/bench_attention.py loaded from its file with
-`pallas_call` in interpret mode; the same seeded bf16 inputs through both
-at BH 4 (S 1, H 4), N 100 (padded to 128), D 64. Tolerances: softmax-only
-bit-exact (every output bf16(1/Np)); matmul-only 1e-2 of max|ref| (another
-f32 order can flip a bf16 rounding of s); grouped, interleaved, pipelined
-2e-3 abs (bf16 p both sides, f32 sums), G = 8 at S 2; the plain version at
-the kernels' key tiles (`block_k` 16 to 128) `tiled_tolerance`, 2e-3 or
-one bf16 step of the reference where larger (|o| reaches 0.90 at S 2, H 4,
-where p rounded against the running max moves one output one step).
+kernels in interpret mode on the CPU, on the same seeded bf16 inputs at BH
+4, N 100 (padded to 128), D 64: softmax-only bit-exact; matmul-only 1e-2
+of max|ref|; grouped, interleaved, pipelined 2e-3 abs, G = 8 at S 2; the
+plain version at the kernels' key tiles (`block_k` 16 to 128)
+`tiled_tolerance`: 2e-3, or one bf16 step of the reference where larger.
 """
 import functools
 import importlib.util
@@ -262,9 +258,7 @@ def test_bounds_at_the_frame_shape():
     assert by == "bytes"
 
 
-# ---------------------------------------------------------------------------
 # chip_smoke.py --ab: the frame probes' leg
-# ---------------------------------------------------------------------------
 
 def test_ab_probe_leg_builds_each_folders_matmul_only(tmp_path, monkeypatch):
     """The leg builds each folder's bench_attention.cu (named after the

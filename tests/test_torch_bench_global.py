@@ -1,11 +1,7 @@
 """The port's global-shape probes against the reference scripts' Pallas
-kernels, on the CPU: bench_global_attention.py, bench_softmax_variants.py
-and bench_int8_inkernel.py loaded from their files with `pallas_call` in
-interpret mode, the same seeded bf16 inputs at BH 2, N 256, D 64 (the
-port's plain versions take the kernels' running max per key block).
-Quantizations and scales bit-exact; every softmax mode 2e-3 abs (bf16 p
-against the same running max, f32 sums in another order); matmul 1e-2 of
-max|ref| (another order can flip a bf16 rounding of s).
+kernels in interpret mode on the CPU, same seeded bf16 inputs at BH 2, N
+256, D 64: quantizations and scales bit-exact; every softmax mode 2e-3
+abs (bf16 p against the same running max); matmul 1e-2 of max|ref|.
 """
 import functools
 import importlib.util
@@ -72,9 +68,7 @@ def _close(got, want, mode):
     np.testing.assert_allclose(got, want, atol=tol, rtol=0)
 
 
-# ---------------------------------------------------------------------------
 # bench_global_attention
-# ---------------------------------------------------------------------------
 
 # Every tiling of the port's TILINGS, the first two as before.
 @pytest.mark.parametrize("tiling", [(64, 64), (128, 128)] + [
@@ -127,9 +121,7 @@ def test_global_attention_int8_operands_match_reference():
     assert got_scale == want_scale
 
 
-# ---------------------------------------------------------------------------
 # bench_softmax_variants
-# ---------------------------------------------------------------------------
 
 def _reference_staticint8(q, k):
     """Script 2's quantization (:193-198), in jnp as the reference writes
@@ -213,9 +205,7 @@ def test_staticfused_sums_the_rounded_weights():
     assert np.abs(_f32(st) - _f32(on)).max() < 2e-3
 
 
-# ---------------------------------------------------------------------------
 # bench_int8_inkernel
-# ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("mode", IK.MODES)
 def test_int8_inkernel_matches_reference(ref, mode):
@@ -270,9 +260,7 @@ def test_f32_attention_is_softmax_attention():
                                want)
 
 
-# ---------------------------------------------------------------------------
 # The scripts: check on CPU tensors, no main without a card, bounds, SDPA
-# ---------------------------------------------------------------------------
 
 def _check_on_cpu(name):
     if name == "bench_global_attention":
@@ -367,9 +355,7 @@ def test_wrappers_launch_nothing_on_cpu_and_refuse_other_devices():
             call()
 
 
-# ---------------------------------------------------------------------------
 # chip_smoke.py --ab: the global probes' leg
-# ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("holds", [("bench_global_attention",),
                                    ("bench_int8_inkernel",),

@@ -1,9 +1,8 @@
-"""The port's matmul-shape probes against scripts/bench_matmul_shapes.py,
-loaded by file with an interpret-mode `pallas_call`, on the CPU: the same
-seeded bf16 inputs, at shapes whose M, N and K are not multiples of the
-card's tiles or K step. Bit-exact: both sides sum exact f32 products in f32
-and round once, and at these depths (K <= 80) the two orders round alike.
-The library line is held to the reference's XLA dot at 1e-2 of max|ref|.
+"""The port's matmul-shape probes against scripts/bench_matmul_shapes.py
+(interpret-mode `pallas_call`) on the CPU, at shapes that are not
+multiples of the card's tiles: bit-exact (exact f32 products summed in
+f32, rounded once; at K <= 80 both orders round alike); the library line
+1e-2 of max|ref| against XLA's dot.
 """
 import functools
 import importlib.util

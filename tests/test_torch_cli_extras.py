@@ -1,11 +1,10 @@
-"""The rest of the port's single-GPU CLI against the reference on the CPU:
-the COLMAP alignment (slam/map.py align_scale_to_colmap; T and every
-homography 1e-9 relative, both in float64, and the known similarity
-recovered), the frame names it matches by, the parser's flags, and the
-tiny-config CLI with --profile_dir (a Chrome trace that parses),
---plot_focal_lengths (refused at parse time without matplotlib),
---colmap_images_txt, and --vis_map against tests/viser_stub.py (one point
-cloud per submap) or headless without viser."""
+"""The rest of the single-GPU CLI against the reference on the CPU: COLMAP
+alignment (T and homographies 1e-9 relative in float64, a known
+similarity recovered), its frame names, the parser's flags, and the tiny
+CLI with --profile_dir (a trace that parses), --plot_focal_lengths
+(refused without matplotlib), --colmap_images_txt and --vis_map on the
+viser stub or headless.
+"""
 import json
 import os
 import sys

@@ -1,15 +1,9 @@
-"""The port's CLIP and its tokenizer (vggt_slam_tpu_torch/models/clip.py,
-models/clip_tokenizer.py) against the JAX package's, on the same numpy
-inputs and the same weights, on the CPU (where the vision tower's
-flash_single takes its plain version).
-
-Tolerances: tokens and ids equal; the tokenizer's split equal to CLIP's
-pattern under the `regex` package; features and logits 1e-5 absolute in
-f32 (the two sides sum in other orders: ~3e-7 on features, ~4e-6 on
-logits, which carry exp(logit_scale) ~ 14); `preprocess_images` 1e-5
-(F.interpolate with antialias against jax.image.resize, ~7e-7 apart);
-converted leaves bit-equal; encoders 1e-5; the safetensors reader
-bit-equal to the safetensors package.
+"""The port's CLIP and its tokenizer against the JAX package's on the same
+inputs and weights on the CPU: tokens and ids equal, the split equal to
+CLIP's pattern under `regex`; features and logits 1e-5 in f32 (other sum
+orders: ~3e-7 and ~4e-6); `preprocess_images` 1e-5 (antialiased
+F.interpolate against jax.image.resize); converted leaves, the
+safetensors reader bit-equal; encoders 1e-5.
 """
 import json
 import os

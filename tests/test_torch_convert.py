@@ -1,10 +1,7 @@
-"""The port's VGGT torch-checkpoint converter
-(vggt_slam_tpu_torch/models/vggt/convert.py) against the reference's
-(vggt_slam_tpu/models/vggt/convert.py) on the same torch-layout state
-dicts: converted arrays bit-equal (the rope quarter permutation, the
-pos_embed fold and every kernel transpose included) and the same report;
-full-size coverage of the released VGGT-1B's manifest on the meta-device
-template; bf16 tensors; the `model.pt` helper's npz.
+"""The port's VGGT torch-checkpoint converter against the reference's on the
+same state dicts: arrays bit-equal (rope permutation, pos_embed fold,
+transposes) and the same report; the VGGT-1B manifest covered on the meta
+device; bf16 tensors; the `model.pt` helper's npz.
 """
 import json
 import os

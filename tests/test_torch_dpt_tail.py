@@ -1,15 +1,10 @@
-"""The port's fused DPT tail (vggt_slam_tpu_torch/ops/dpt_tail.py) against
-the JAX reference on the CPU.
-
-`fused_tail_ref`, the plain version of the CUDA kernel, is held against the
-reference's Pallas `fused_tail` in interpret mode at the shapes of
-tests/test_dpt_tail.py:44-56 (rows 224 -> 392, width 112, cin 8, cmid 16),
-cout 2 and 4, atol 2e-4 in f32 (the reference's own tolerance for the
-fused kernel against XLA's chain), and at the edge cases W 37 (no
-multiple of 8), S 1 and cout 1 and 3. In bf16 both sides round u, the conv
-weights and h at the same places, so what differs is f32 summation order,
-which can flip a bf16 rounding of h: tolerance 1e-2 of the largest output.
-`kernel_weights` is read back by the CUDA kernel's own addressing.
+"""The port's fused DPT tail against the JAX reference on the CPU:
+`fused_tail_ref` against the Pallas `fused_tail` in interpret mode at
+tests/test_dpt_tail.py's shapes (rows 224 -> 392, width 112, cin 8, cmid
+16), cout 2 and 4: 2e-4 in f32 (the reference's tolerance), and at W 37,
+S 1, cout 1 and 3. In bf16 both round u, the weights and h alike; summation
+order can flip h's rounding: 1e-2 of the largest output. `kernel_weights`
+is read back by the CUDA kernel's addressing.
 """
 import jax.numpy as jnp
 import numpy as np

@@ -1,11 +1,9 @@
-"""The port's host-only evals against the reference on the CPU: the native
-KD-tree (native/kdtree.py, built into build/vggt_slam_tpu_torch/; distances
-1e-6 and indices exact against the reference's and scipy's cKDTree), the
-dense geometry eval (evals/geometry_eval.py, 1e-6), the log summary
-(evals/process_logs.py, without pandas, against pandas to 1e-12), the
-sweep runner (evals/run_eval.py: its helpers equal, one in-process tiny
-run with a finite ATE row) and the pipeline-overlap report's helpers
-(evals/pipeline_overlap.py, equal strings and sums)."""
+"""The port's host evals against the reference on the CPU: the native
+KD-tree (distances 1e-6, indices exact, against the reference's and
+cKDTree), geometry_eval (1e-6), process_logs without pandas (1e-12),
+run_eval (helpers equal; one in-process tiny run) and pipeline_overlap's
+helpers (equal).
+"""
 import csv
 import os
 import types

@@ -1,10 +1,6 @@
-"""The port's geometry and solvers (vggt_slam_tpu_torch/ops: lie, geometry,
-homography, pose_graph) against the JAX reference on the CPU, in f32 and
-f64 (the solver widens to f64).
-
-Tolerances: f64 1e-9 (same formulas, different summation order); f32 5e-5
-relative to the values' scale; the pose graph 1e-6 (a converged LM solve,
-f64).
+"""The port's geometry and solvers (ops: lie, geometry, homography,
+pose_graph) against the JAX reference on the CPU: f64 1e-9, f32 5e-5
+relative to the values' scale, the pose graph 1e-6 (a converged f64 LM).
 """
 import jax
 import jax.numpy as jnp

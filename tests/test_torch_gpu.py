@@ -1,27 +1,17 @@
-"""The CUDA kernels against their plain versions, on the card.
-
-Marked `gpu`; without a CUDA device each test skips (decided inside the
-fixture, never at import). On the card:
-    python -m pytest --noconftest tests/test_torch_gpu.py
-bf16 outputs 2e-2: the output's rounding (2^-9 relative) and the bf16
-softmax weights before PV. f32 row stats 1e-3 relative (the same bf16
-products summed in another order); 1e-2 where the kernel applies
-qk-LayerNorm itself (its approximate rsqrt can flip one bf16 rounding of a
-prepared element, 2^-8, and move l by ~1e-3). Gradients 2e-2 of the
-largest reference entry (dL rounded to bf16 before its products; a
-slightly different p flips roundings), plus 1e-5 absolute in the edge
-cases (with one key the exact dq, dk are 0); dq's f32 atomic adds vary in
-order, so two runs are held to 2^-7 of its largest entry. int8: both sides
-share the scales and exact s32 logits, so stats 1e-4 relative and outputs
-1e-2 of their largest entry (one bf16 ulp is at most 2^-7 of it); the bf16
-path's row sums must lie ten times 1e-4 away, which tells int8 QK^T from
-bf16. The DPT tail 1e-2 of its largest output (u, h rounded to bf16 on
-both sides, the 3x3 sums in another order), written into NaN-filled
-tensors; the output with frames 0 and 1 swapped must fail. CLIP's vision
-tower and SigLIP's towers (flash_single on bf16 q, k, v in an f32 module)
-2e-2 (L2) of their plain routes on unit features, SALAD's bound. SAM2 in
-f32 within chip_smoke.SAM2_TOL of float64. voxelize_device sums by atomic
-adds: means within ops/voxel.mean_tolerance, centres and counts exact.
+"""The CUDA kernels against their plain versions, on the card. Marked `gpu`;
+without a CUDA device each test skips (decided in the fixture).
+bf16 outputs 2e-2 (the output's rounding and the bf16 weights before
+PV); f32 row stats 1e-3 relative (another summation order), 1e-2 where
+the kernel applies qk-LN itself (its rsqrt can flip a bf16 rounding).
+Gradients 2e-2 of the largest reference entry, plus 1e-5 absolute at the
+edges; dq's atomic adds vary in order, so two runs within 2^-7 of its
+largest entry. int8: shared scales and exact s32 logits, so stats 1e-4
+relative and outputs 1e-2 of their largest entry; the bf16 path's row
+sums must lie ten times 1e-4 away. The DPT tail 1e-2 of its largest
+output in NaN-filled tensors; frames 0 and 1 swapped must fail. CLIP's,
+SigLIP's towers 2e-2 (L2) of their plain routes on unit features. SAM2 in
+f32 within chip_smoke.SAM2_TOL of float64. voxelize_device: means within
+ops/voxel.mean_tolerance, centres and counts exact.
 """
 import functools
 import math
@@ -175,12 +165,9 @@ def test_flash_attention_grad_launches_the_kernels(cuda):
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
 
-# The backward runs csrc/flash_bwd_sm90.cuh at every head dim (128-key
-# tiles a CTA, 64-row q tiles by TMA from 4-D maps, two 64-column panels a
-# row at D = 128, K and V maps that end at valid_len, dq summed by bulk f32
-# reduce-adds): sequence, valid_len, batch and head edges, each case
-# written twice into NaN-filled dq, dk, dv (a missed store fails), against
-# the plain version at the tolerances above.
+# The backward (flash_bwd_sm90.cuh at every head dim): sequence, valid_len,
+# batch and head edges, each written twice into NaN-filled dq, dk, dv (a missed
+# store fails), against the plain version.
 def _bwd_case(device, B, H, Nq, Nk, D, vl, seed):
     q, k, v, _ = _case(device, B, H, Nq, Nk, D, rope=False, ln=False,
                        bias=False, seed=seed)
@@ -283,12 +270,8 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         A.flash_single(qb, qb, qb, num_heads=4)      # head dim 24
 
 
-# The Hopper design of the bf16 forward at every head dim
-# (csrc/flash_sm90.cuh: 128-row q tiles, 128-key K/V tiles by TMA from 4-D
-# maps that end at valid_len; 64-byte rows and swizzle at D = 32, 128-byte
-# at D = 64, two 128-byte panels a row at D = 128): its tile edges, batch
-# edges and masked rows, each written into a NaN-filled output so that a
-# missed store fails, against the plain version at the tolerances above.
+# The bf16 forward (flash_sm90.cuh) at every head dim: tile, batch and mask
+# edges, each into a NaN-filled output, against the plain version.
 SM90_DIMS = [32, 64, 128]
 
 
@@ -441,11 +424,9 @@ def test_int8_kernels_match_plain(cuda, variant, D):
     assert float(((l - bf16_l).abs() / bf16_l).max()) > 1e-3
 
 
-# The int8 route at every head dim (flash_fwd_sm90 with int8 Q and K
-# tiles, s8 wgmma; q and k quantized by the call's pre-pass, whose scales
-# must equal int8_scales bit for bit): its tile, mask and batch edges,
-# each written into a NaN-filled output and held to the plain version at
-# the int8 tolerances above.
+# The int8 route at every head dim (int8 Q, K tiles, s8 wgmma; the pre-pass's
+# scales equal int8_scales bit for bit): tile, mask and batch edges into
+# NaN-filled outputs, at the int8 tolerances.
 def _i8_check(q, k, v, kw, softmax, stats=True):
     H, static = kw["num_heads"], softmax == "static"
     smax = A.static_bound(q, k, H, kv_bias=kw.get("kv_bias")) \
@@ -561,10 +542,9 @@ def test_int8_scales_kernel_equals_plain(cuda, rope, D):
     assert torch.equal(got, want), (got - want).abs().max()
 
 
-# The camera trunk's calls (head dim 128, 16 heads, a few tokens, one key
-# tile): bf16 and int8, both softmax modes, with and without row stats,
-# batch 2, and the backward, at the SLAM shape (18 tokens, valid_len 13
-# and none) and the training shape (4 tokens).
+# The camera trunk's calls (D 128, 16 heads, one key tile): bf16 and int8, both
+# softmax modes, with and without stats, batch 2, and the backward, at the SLAM
+# shape (18 tokens, valid_len 13 and none) and training's (4).
 @pytest.mark.parametrize("n,vl", [(4, None), (18, None), (18, 13), (18, 0),
                                   (18, 1)])
 def test_camera_trunk_shapes(cuda, n, vl):
@@ -578,10 +558,9 @@ def test_camera_trunk_shapes(cuda, n, vl):
     _bwd_check(_bwd_case(cuda, 2, 16, n, n, 128, vl, seed=31), 16, vl)
 
 
-# The fused DPT tail at rows 224 -> 392: (S, W, cin, cout). W 100 leaves a
-# masked edge strip, W 37 is less than one 64-column strip, W 518 is the
-# production tail (nine strips, the last of 6 columns); S 1 and S 3 leave a
-# frame pair with one frame; cin 32 to 128 (the kernel's four instances).
+# The fused DPT tail at rows 224 -> 392, (S, W, cin, cout): W 100 a masked edge
+# strip, W 37 under one strip, W 518 the production tail; S 1, 3 a pair with
+# one frame; cin 32 to 128 (the four instances).
 _TAIL_CASES = {
     "w100_cout2": (2, 100, 64, 2),
     "w100_cout4": (2, 100, 64, 4),
@@ -632,19 +611,11 @@ def test_keyframe_auto_is_the_torch_tracker_on_the_card(cuda):
     assert solver.flow_tracker.backend == "torch"
 
 
-# The frame-attention probes (scripts/bench_attention.py's port): at a small
-# shape (BH 8, N 100 -> 128) and the SLAM frame shape (BH 288, N 1041 ->
-# 1152). Softmax-only is bit-exact; the others are held to 1e-2 of max|ref|
-# (matmul-only: another f32 summation order can flip a bf16 rounding of s;
-# attention: the kernels round p to bf16 against the running max, the plain
-# version against the row max). The grouped and pipelined kernels are also
-# held to the plain version at their own key tile (the running max per
-# tile, as theirs): `BA.tiled_tolerance`, 2e-3 or one bf16 step of the
-# plain value where that is larger (both sides round o to bf16). Their
-# outputs are written into NaN-filled tensors, so a missed store fails, and
-# each launch adds one to the C launcher's count of the design. The
-# attention probes must also be further than the tolerance from a control
-# that drops the padded keys from l.
+# The frame-attention probes at BH 8, N 100 -> 128 and the SLAM frame shape (BH
+# 288, N 1041 -> 1152): softmax-only bit-exact, the others 1e-2 of max|ref|;
+# grouped and pipelined also at their key tile (`BA.tiled_tolerance`);
+# NaN-filled outputs; one launch of the design a call; the attention probes
+# further than the tolerance from the padded-keys control.
 _PROBE_SHAPES = {"small": (2, 4, 100), "frame": (18, 16, 1041)}
 _GROUPED = [f"{s} G={G}" for G in (2, 4, 8)
             for s in ("grouped", "interleaved", "pipelined")]
@@ -734,11 +705,9 @@ def test_grouped_probe_design_counts_each_launch(cuda):
     assert BA.design_launches()["tma_wgmma"] == before + len(_GROUPED)
 
 
-# The matmul-only floor on global_sm90 (its matmul mode at scale 1): at
-# the frame shape (BH 288, N 1041 padded to 1152) and at BH 3, Np 1152
-# (fewer CTAs than SMs), into a NaN-filled output; each launch one of
-# global_sm90 by the C launcher's count, none of grouped_sm90; two runs
-# bit-equal (no atomics).
+# The matmul-only floor on global_sm90 at the frame shape and at BH 3, Np 1152
+# (fewer CTAs than SMs), into a NaN-filled output; one global_sm90 launch a
+# call, none of grouped_sm90; two runs bit-equal.
 @pytest.mark.parametrize("S,H,N", [(18, 16, 1041), (1, 3, 1152)],
                          ids=["frame", "bh3"])
 def test_matmul_only_on_global_sm90(cuda, S, H, N):
@@ -776,12 +745,9 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     assert 1e12 < rate < 1e13
 
 
-# The global-shape probes (bench_global_attention, bench_softmax_variants,
-# bench_int8_inkernel): every mode and tiling at a small shape (BH 2, N 512)
-# against its plain version, which takes the kernels' running max per key
-# block: 1e-2 of max|ref| (f32 sums in another order can flip a bf16 or p8
-# rounding). The int8 modes must be further from the bf16 mode's plain
-# version than from their own.
+# The global-shape probes: every mode and tiling at BH 2, N 512 against the
+# plain version (the kernels' running max per key block), 1e-2 of max|ref|; the
+# int8 modes further from bf16's plain version than from their own.
 _GLOBAL_PROBES = (
     [("global", m, t) for m in GA.MODES for t in GA.TILINGS]
     + [("softmax", m, t) for m in SV.MODES for t in SV.TILINGS]
@@ -832,13 +798,10 @@ def test_global_probe_kernels_match_plain(cuda, script, mode, tiling):
                 > GA.mean_distance(out, ref))
 
 
-# The three probes on global_sm90 (bench_global_attention,
-# bench_int8_inkernel, bench_softmax_variants) at their edges: 27 or 54
-# CTAs at BH 3, N 1152 (not a multiple of the 132 SMs); a NaN-filled
-# output, so a row the kernel does not write fails; for the global probe
-# and the softmax variants k and v of 1408 rows, NaN (int8 k: 127) past the
-# 1152 keys attended, which a load reaching past Nk would bring in; every
-# call one global_sm90 launch by the C launcher's count.
+# The three probes on global_sm90 at their edges: 27 or 54 CTAs at BH 3, N
+# 1152; NaN-filled outputs; k, v of 1408 rows with NaN (int8 k: 127) past the
+# 1152 keys attended, which a load past Nk would bring in; one global_sm90
+# launch a call.
 _SM90_PROBES = ([("global", m, t) for m in GA.MODES for t in GA.TILINGS]
                 + [("inkernel", m, t) for m in IK.MODES for t in IK.TILINGS]
                 + [("softmax", m, t) for m in SV.MODES for t in SV.TILINGS])
@@ -979,15 +942,9 @@ def test_global_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 # The matmul-shape probes: both kernels and tilings within one bf16 ulp of
-# max|ref| of the plain version (the script's check), at its B = 528 and
-# square shapes and odd ones (edges in M, N, K; B = 1); the controls. The
-# edges of the 128 x 128 and 128 x 256 tiles: M 1056 leaves 32 rows past
-# 1024, N 1056 32 columns past 1024, K 1056 a 32-deep last step (K 40 a
-# half k16 step); M < 64 (one warpgroup's rows), N < BN at B = 1; N = K =
-# 8; and more work items than 132 SMs x 4 ring slots (864 and 768 at 128
-# x 128), so the ring and the staging buffers wrap many times; more
-# problems than 65535 and more than 65535 64-row tiles (the persistent grid
-# has no per-dimension limit).
+# max|ref|, at B = 528, square and odd shapes (M, N, K 1056 leave 32 past 1024,
+# K 40 half a k16 step, M < 64, N < BN, N = K = 8), more items than 132 SMs x 4
+# ring slots, more than 65535 problems and 64-row tiles; the controls.
 _MM_SHAPES = {"qk": (528, 1056, 64, 1056), "pv": (528, 1056, 1056, 64),
               "square": (1, 2048, 2048, 2048), "odd": (6, 100, 72, 40),
               "odd_b1": (1, 130, 200, 136),

@@ -1,10 +1,9 @@
-"""The port's image loading (data/images.py, no OpenCV) against OpenCV and
-the JAX package's copy on the CPU: `resize_linear` / `resize_area` within
-one uint8 step of cv2.resize (OpenCV's SIMD sums round otherwise) and a
-mean under 0.05 steps, float `resize_linear` bit-equal to OpenCV's portable
-code; `read_png` bit-exact against cv2.imread over every filter and colour
+"""The port's image loading (no OpenCV) against OpenCV and the JAX package's
+copy on the CPU: `resize_linear`, `resize_area` within one uint8 step of
+cv2.resize, mean under 0.05 steps; float `resize_linear` bit-equal to
+OpenCV's portable code; `read_png` bit-exact over every filter and colour
 type, `write_png` read back by both; `load_and_preprocess_images` within
-one step (1/255), mean under 0.05/255.
+1/255, mean under 0.05/255.
 """
 import struct
 import zlib
@@ -193,6 +192,9 @@ def test_png_written_by_cv2_and_unsupported_pngs(tmp_path):
         images.load_image(deep)
     with pytest.raises(FileNotFoundError):
         images.load_image(str(tmp_path / "missing.png"))
+    _write_png(deep, img, 2, kinds=(1, 9))
+    with pytest.raises(ValueError, match="bad PNG row filter 9"):
+        images.load_image(deep)
 
 
 def test_jpeg_goes_through_pil_or_names_the_formats(tmp_path, monkeypatch):

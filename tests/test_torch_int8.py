@@ -1,25 +1,16 @@
-"""The port's int8 QK^T path against the JAX reference on the CPU.
-
-* The plain int8 kernels (`flash_attention(..., qk_int8=True)`) against
-  the reference's in interpret mode, packed, with and without rope,
-  valid_len, kv_bias and static softmax, at head dims 32, 64 and 128.
-  1e-4 max abs in f32: the same int8 grid and scales, exact s32 products;
-  only f32 summation order is left.
-* The edges of the card's int8 route (Nq 1 and 129, valid_len 0 and 1,
-  two batches whose amax differ 10x) at the same tolerance; the q and k
-  int8 grids against the reference's, bit for bit.
-* At head dim 128 the reference's interpret-mode kernel contracts rope's
-  x*C + swap(x)*S into an fma: at seed 7 and (256, 384) one q value
-  crosses an int8 rounding boundary and its output row lands 7.7e-4 off.
-  The port rounds apart, as its kernel does: its grids are held bit for
-  bit to numpy's f32 arithmetic and its output to float64 (1e-5).
-* The tiny model with `global_qk_int8=True` against the reference's at 2
-  frames of 392x518 with exact global attention (2082 keys), and the
-  LN-outside plumbing at block level: 5e-4 absolute on O(1) outputs. The
-  standalone qk-LN sums in torch's f32 order on one side and XLA's on the
-  other; one ulp there can flip an int8 rounding, a logit by about 1e-2,
-  an output by a few 1e-4 (measured: 4 of 134400 past 1e-4, at most
-  1.4e-4).
+"""The port's int8 QK^T against the JAX reference on the CPU.
+* The plain int8 kernels against the reference's in interpret mode, with
+  and without rope, valid_len, kv_bias, static softmax, at D 32, 64, 128:
+  1e-4 in f32 (same int8 grid and scales, exact s32 products); the card's
+  route's edges (Nq 1, 129, valid_len 0, 1, batches whose amax differ 10x);
+  the q, k int8 grids bit for bit.
+* At D 128 the reference's interpret mode contracts rope into an fma (at
+  seed 7, (256, 384) one q value crosses an int8 boundary, a row 7.7e-4
+  off); the port rounds apart as its kernel does, held bit for bit to
+  numpy's f32 and to float64 (1e-5).
+* The tiny model with `global_qk_int8=True` at 2 frames of 392x518 (2082
+  keys) and the LN-outside plumbing: 5e-4 on O(1) outputs (qk-LN sums in
+  other f32 orders can flip an int8 rounding: 4 of 134400 past 1e-4).
 """
 import jax
 import jax.numpy as jnp

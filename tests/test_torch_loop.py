@@ -1,14 +1,8 @@
 """Loop closure in the port against the reference on the CPU: the TUM
-sequence writer (tools/synth3d.write_tum_sequence), the trajectory evals
-(evals/ate.py, slam/alignment.py), the SLAM-state checkpoint
-(slam/checkpoint.py) in both directions, and the CLI with the tiny-image
-retrieval backend on a synthetic loop.
-
-Tolerances: the evals 1e-12 (the same float64 numpy code); checkpoint
-arrays bit-equal, graph nodes 1e-14 (re-normalized to det 1 on load); CLI world poses 1e-3 over a 12-submap loop (f32
-forwards that agree to ~1e-5, then RANSAC and the f64 pose-graph solve
-chained through SL(4)); the trained small model's ATE 1e-2 m (see
-its test).
+writer, the trajectory evals (1e-12, the same float64 code), the SLAM
+checkpoint both ways (arrays bit-equal, graph nodes 1e-14), and the CLI
+with the tiny retrieval backend on a synthetic loop (world poses 1e-3
+over a 12-submap loop; the trained small model's ATE 1e-2 m).
 """
 import dataclasses
 import os
@@ -22,9 +16,7 @@ from vggt_slam_tpu_torch.data.images import read_png
 IMAGE_HW = (28, 42)
 
 
-# ---------------------------------------------------------------------------
 # The TUM writer
-# ---------------------------------------------------------------------------
 
 def _same_sequence(a_dir, b_dir, a_names, b_names):
     import cv2
@@ -64,9 +56,7 @@ def test_tum_writer_at_full_size_with_one_renderer(tmp_path, monkeypatch):
     _same_sequence(str(tmp_path / "ref"), str(tmp_path / "port"), a, b)
 
 
-# ---------------------------------------------------------------------------
 # Evals
-# ---------------------------------------------------------------------------
 
 def _trajectories(seed, n=60):
     """A TUM ground truth and a Sim(3)-warped, noisy, re-timed estimate
@@ -120,9 +110,7 @@ def test_ate_associate_umeyama_match_reference(seed, tmp_path):
         dataclasses.astuple(JA.ate_from_files(*files))
 
 
-# ---------------------------------------------------------------------------
 # The SLAM-state checkpoint
-# ---------------------------------------------------------------------------
 
 def cheap_descriptor(frames):
     f = np.asarray(frames).reshape(len(frames), -1)
@@ -240,9 +228,7 @@ def test_checkpoint_crosses_packages(tmp_path):
     assert type(back).__module__ == "vggt_slam_tpu_torch.slam.solver"
 
 
-# ---------------------------------------------------------------------------
 # The CLI on a synthetic loop
-# ---------------------------------------------------------------------------
 
 def test_cli_tiny_backend_flags_and_counts(tmp_path):
     """The port's CLI on a short synthetic loop with --retrieval_backend

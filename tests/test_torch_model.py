@@ -1,10 +1,6 @@
-"""The port's VGGT (vggt_slam_tpu_torch/models/vggt) against the JAX
-reference on the CPU, with the reference's flax parameters carried over by
-the weight carrier (convert.load_flax_params).
-
-Everything runs in f32 at tiny widths, so the tolerance is the f32 one the
-reference's own parity tests use (5e-5 on O(1) outputs; 2e-4 relative on
-the intrinsics, whose focal lengths are O(100)).
+"""The port's VGGT against the JAX reference on the CPU with the reference's
+flax parameters (convert.load_flax_params), in f32 at tiny widths: 5e-5 on
+O(1) outputs, 2e-4 relative on the O(100) intrinsics.
 """
 import jax
 import jax.numpy as jnp

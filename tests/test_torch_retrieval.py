@@ -1,8 +1,6 @@
-"""The port's retrieval (models/retrieval.py, slam/loop_closure.py) against
-the reference's on the same seeded inputs and weights: the Sinkhorn
-assignment 1e-5 (f32 logsumexp order); the SALAD descriptor 1e-4 absolute
-(f32 ViT forwards); the tiny-image descriptor 1e-6 (the area resize in f64
-against OpenCV's f32); the converters bit-equal.
+"""The port's retrieval against the reference's on the same inputs and
+weights: Sinkhorn 1e-5, the SALAD descriptor 1e-4 (f32 ViT forwards), the
+tiny-image descriptor 1e-6, the converters bit-equal.
 """
 import json
 import os

@@ -1,13 +1,11 @@
-"""The port's SAM2 and its automatic mask generator against the JAX
-package's on the CPU at tiny_test, on the reference's parameters carried by
-`load_flax_params` (pos_embed random: the port resizes it by
-jax.image.resize's bicubic); the converter against the reference's on its
-torch mirror; the helpers (remove_small_regions against cv2); the
-generator, the embedder and `--masker sam2`. Features, masks and scores
-within 1e-4 of each output's largest entry, the bicubic resize 1e-6; the
-converter, point grid, crop boxes, NMS and components exact. The uint8
-crop resizes lie within one step of OpenCV's, so masks match by IoU (>=
-0.98, the same count) and painted maps on >= 99% of pixels.
+"""The port's SAM2 and its AMG against the JAX package's on the CPU at
+tiny_test, on the reference's parameters (`load_flax_params`; pos_embed
+random for the bicubic resize); the converter against the reference's;
+remove_small_regions against cv2; the generator, the embedder and
+`--masker sam2`. Features, masks, scores 1e-4 of each output's largest
+entry, the resize 1e-6; converter, grid, crops, NMS, components exact.
+The uint8 crop resizes lie within a step of OpenCV's, so masks match by
+IoU (>= 0.98, the same count), painted maps on >= 99% of pixels.
 """
 import numpy as np
 import pytest

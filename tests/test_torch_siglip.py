@@ -1,7 +1,6 @@
-"""The port's SigLIP and its tokenizer against the JAX package's on the
-same numpy inputs and weights, on the CPU (flash_single's plain version).
-Ids and proto bytes equal; features, logits, preprocessing and encoders
-1e-5 absolute in f32 (sums in other orders); converted leaves bit-equal.
+"""The port's SigLIP and its tokenizer against the JAX package's on the same
+inputs and weights on the CPU: ids and proto bytes equal; features,
+logits, preprocessing, encoders 1e-5 in f32; converted leaves bit-equal.
 """
 import json
 import os

@@ -1,12 +1,7 @@
 """The port's SLAM layer against the JAX reference on the CPU: the torch
-keyframe tracker against slam/keyframe_jax.py, and a tiny-config
-end-to-end `run_slam` against the reference CLI's on the same synthetic
-image folder with the same weights.
-
-Tolerances: tracked points 1e-3 px (grid_sample and the reference's
-gathers interpolate in a different order, 30 iterations deep); end-to-end
-poses 1e-4 (f32 forwards that agree to ~1e-6, then RANSAC and the f64
-pose-graph solve).
+keyframe tracker against keyframe_jax.py (points 1e-3 px; other
+interpolation orders, 30 iterations deep) and a tiny-config `run_slam`
+against the reference CLI on the same folder and weights (poses 1e-4).
 """
 import os
 

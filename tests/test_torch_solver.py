@@ -1,8 +1,7 @@
-"""The port's Solver (vggt_slam_tpu_torch/slam/solver.py) on the reference's
-deterministic fake VGGT (tests/fake_vggt.py): the same scenarios as
-tests/test_slam_e2e.py, with the same outcome bounds (ATE after Sim(3)
-alignment, loop factors), so the registration, graph and loop-closure
-logic is held to the reference's own expectations."""
+"""The port's Solver on the reference's deterministic fake VGGT
+(tests/fake_vggt.py): tests/test_slam_e2e.py's scenarios and outcome
+bounds (aligned ATE, loop factors).
+"""
 import numpy as np
 import pytest
 

@@ -1,11 +1,8 @@
 """The port's training slice against the JAX reference on the CPU: the tiny
-VGGT in the training configuration with the reference's initial weights,
-loss within 1e-5 relative and each gradient leaf within 1e-4 of its
-largest entry against `jax.value_and_grad(vggt_loss)` (f32; the camera
-trunk runs chunked autodiff there, the flash backward here); remat against
-no remat (1e-6); the port's checkpoint in the reference's loader (5e-5);
-make_train_step on a fixed batch. tests/test_torch_train_tiny.py holds the
-trainer CLI.
+VGGT with the reference's initial weights, loss 1e-5 relative and each
+gradient leaf 1e-4 of its largest entry against
+`jax.value_and_grad(vggt_loss)`; remat against none (1e-6); the port's
+checkpoint in the reference's loader (5e-5); make_train_step.
 """
 import math
 

@@ -1,18 +1,11 @@
-"""The port's trainer (tools/train_tiny.py) and its data (tools/synth3d.py)
-against the JAX reference on the CPU.
-
-* The schedule against optax's warmup_cosine_decay_schedule (1e-5
-  relative: optax evaluates it in float32).
-* The optimizer chain against the reference's optax chain over three
-  updates: 1e-6 relative (AdamW's decay and the clip scale round
-  differently in torch and optax).
-* synth3d.training_batch for two seeds: pose encodings bit-equal; images
-  2e-4 and depth 1e-6 relative against the reference's OpenCV resize,
-  blur and remap.
-* train_tiny end to end on the CPU (log, checkpoints, resume), and its
-  refusal to run without a card unless asked.
-* `<stem>_opt.npz` across packages both ways on the tiny VGGT's tree:
-  moments and the next update equal to 1e-6 relative.
+"""The port's trainer (tools/train_tiny.py) and data (tools/synth3d.py)
+against the JAX reference on the CPU: the schedule against optax's
+warmup_cosine_decay_schedule (1e-5 relative, optax in float32); the
+optimizer chain over three updates (1e-6 relative); training_batch for two
+seeds (pose encodings bit-equal, images 2e-4 and depth 1e-6 relative
+against OpenCV's resize, blur, remap); train_tiny end to end on the CPU
+(log, checkpoints, resume) and its refusal without a card; `<stem>_opt.npz`
+across packages both ways (1e-6 relative).
 """
 import json
 

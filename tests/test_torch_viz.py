@@ -1,10 +1,8 @@
-"""The port's viewer and export against the reference's on the CPU: the
-GLB writer (viz/glb.py, byte-equal files), the viser viewer (viz/
-viser_viewer.py) against one recording stub of viser (tests/viser_stub.py;
-calls and arguments exactly, frame poses 1e-6, frustum images one uint8
-step: the reference shrinks them with cv2's INTER_AREA, the port with
-data/images.resize_area), and the Solver's viewer hooks on identical
-synthetic submaps (arrays 1e-9 relative: both sides in float64)."""
+"""The port's viewer and export against the reference's on the CPU: GLB
+files byte-equal; the viser viewer on tests/viser_stub.py (calls exact,
+poses 1e-6, frustum images one uint8 step: cv2's INTER_AREA against
+resize_area); the Solver's viewer hooks (1e-9 relative in float64).
+"""
 import jax
 import numpy as np
 import pytest

@@ -1,14 +1,13 @@
-"""A recording stand-in for `viser` and `viser.transforms`, for running a
-viewer where viser is not installed (the CPU tests, chip_smoke.py).
+"""A recording stand-in for `viser` and `viser.transforms` where viser is not
+installed (the CPU tests, chip_smoke.py):
 
     calls = viser_stub.install(sys.modules)
     calls = viser_stub.install_with(monkeypatch)    # in a test
 
-puts both modules in place; every server, GUI and scene call is appended
-to `calls` as (name, args, kwargs), arrays as given. `install_with` also
-makes both packages' viewer modules import afresh against the stub, and
-a pytest monkeypatch undoes it all. SE3.from_matrix gives
-the (w, x, y, z) quaternion and translation of a (3, 4) [R | t].
+Every server, GUI and scene call is appended to `calls` as (name, args,
+kwargs). `install_with` also makes both packages' viewer modules import
+afresh, and the monkeypatch undoes it. SE3.from_matrix gives a (3, 4) [R |
+t]'s (w, x, y, z) quaternion and translation.
 """
 from __future__ import annotations
 

@@ -1,8 +1,5 @@
-"""PyTorch/CUDA port of VGGT-SLAM for one NVIDIA H100.
-
-Mirrors the module layout of the JAX reference package `vggt_slam_tpu`
-(which it never imports): models/vggt for the network, ops for attention,
-geometry and the solvers, slam for the per-submap loop, main for the CLI.
-The flash-attention kernels are CUDA sources under csrc/, built with nvcc
-at first use.
+"""PyTorch/CUDA port of VGGT-SLAM for one NVIDIA H100, in the module layout
+of the JAX package `vggt_slam_tpu` (never imported): models/vggt, ops,
+slam, main. The kernels are CUDA sources under csrc/, built by nvcc at
+first use.
 """

@@ -1,90 +1,33 @@
-// Probe kernels of the frame-attention microbenchmark for Hopper (sm_90a),
-// bound to PyTorch through a plain C interface (ctypes).
+// Probe kernels of the frame-attention microbenchmark (sm_90a, ctypes),
+// each replacing a diagnostic TPU kernel of scripts/bench_attention.py on
+// contiguous (BH, Np, D = 64) bf16 tensors, Np a multiple of 128:
+//   bench_matmul_only   _matmul_only_kernel (:45): o = bf16(q k^T) v, the
+//                       tensor-core floor, on global_sm90's matmul mode.
+//   bench_softmax_only  _softmax_only_kernel (:57): row r's logits are
+//                       q[r, 0] * 0.01; o = exp2(s - m)[:, :D] / l: the
+//                       softmax floor (4-warp CTAs, mma.sync's layout).
+//   bench_grouped       _grouped_kernel (:70): G problems a work item,
+//                       exp2 attention on pre-scaled q, o = bf16(p) v /
+//                       max(l, 1e-30), padded keys unmasked; straight or
+//                       interleaved.
+//   bench_pipelined     _pipelined_kernel (:101): QK^T of problem g + 1
+//                       issued before the softmax and PV of g.
 //
-// scripts/bench_attention.py splits the frame-attention problem (BH
-// independent (frame, head) problems of N tokens at D = 64, zero-padded to
-// Np, a multiple of 128) into diagnostic TPU kernels. Each entry point here
-// replaces one of them and computes what it computes, on contiguous
-// (BH, Np, D) bf16 tensors:
+// grouped_sm90<G, SCHED> is flash_sm90.cuh's design without ping-pong: a
+// persistent grid; two consumer warpgroups, no producer (a third warp on a
+// scheduler caps ptxas at 168 registers); TMA loads into buffers whose
+// eighth releasing warp issues the refill; S on m64nBKk16, O += P V on
+// m64n64k16 with P in registers; the running max per key tile, as
+// exp2_attention_ref(block_k=BK). Schedules (wgmma group orders per key
+// tile): straight, no overlap; interleaved, all QK^T committed, each
+// softmax + PV waiting for its own; pipelined, QK^T of g + 1 before g's
+// softmax and PV (= interleaved at G 2). Live registers set the instances
+// (GsCfg): straight BK 128, G 2 BK 64, G 4 BK 32, G 8 split between the
+// warpgroups at BK 32; the ring takes 2-4 key steps.
 //
-//   bench_matmul_only   _matmul_only_kernel (:45): o = bf16(q k^T) v with
-//                       f32 accumulation and no softmax; the tensor-core
-//                       floor. It runs global_sm90<MO_BQ, MO_BK, G_MATMUL>
-//                       (global_sm90.cuh, the global probes' design: a TMA
-//                       ring refilled by release counts, wgmma, QK^T of
-//                       tile t + 1 issued before PV of tile t) at scale 1.
-//   bench_softmax_only  _softmax_only_kernel (:57): the logits of row r are
-//                       q[r, 0] * 0.01 in every column; m = row max,
-//                       p = exp2(s - m), l = sum p, o = p[:, :D] / l. No
-//                       matmuls; the softmax floor (o is 1/Np everywhere).
-//   bench_grouped       _grouped_kernel (:70): G problems of the grouped
-//                       (BH/G, G, Np, D) layout per work item of
-//                       exp2-domain attention on pre-scaled q,
-//                       o = bf16(p) v / max(l, 1e-30), padded keys unmasked
-//                       (logit 0, v 0); straight or interleaved schedule.
-//   bench_pipelined     _pipelined_kernel (:101): the same function, the
-//                       QK^T of problem g + 1 issued before the softmax and
-//                       PV of problem g.
-//
-// The softmax-only floor keeps the first design of the port: one CTA of 4
-// warps per 64-row q tile and problem, the logits made in registers in
-// mma.sync's accumulator layout (no products).
-//
-// bench_grouped and bench_pipelined run grouped_sm90<G, SCHED>, the Hopper
-// design of flash_sm90.cuh without its ping-pong, so that a probe measures
-// the order of the products and the softmax inside one warpgroup:
-// - A persistent grid of one CTA per SM; a work item is (q tile, group of G
-//   problems). Two consumer warpgroups, 256 threads, so that ptxas allows
-//   up to 255 registers a thread: a producer warp or warpgroup beside them
-//   puts a third warp on one of the SM's four schedulers (16,384 registers
-//   each), and ptxas then compiles every thread to 168, setmaxnreg or not.
-// - Loads: each sweep's Q tiles and each key step's K and V tiles come by
-//   TMA into Q buffers and a ring, each with a "full" mbarrier that expects
-//   its bytes. There is no producer: a warp done with a buffer adds one to
-//   its release count, and the eighth warp to do so issues the load that
-//   refills it at once (thread 0 issues the first ones). The maps are
-//   4-D, (D, 1, Np, BH) through encode_heads<64>, a box of NB consecutive
-//   problems, so one load brings a key step of every problem of the group.
-//   Np is a multiple of 128: no tile is ragged, nothing is masked.
-// - S = Q K^T on wgmma m64nBKk16 from shared memory (128B swizzle), O += P V
-//   on wgmma m64n64k16 with P as the register A operand, V MN-major.
-// - The softmax: the running max per key tile (FlashAttention-2's online
-//   softmax), so p is rounded to bf16 against the running max, as
-//   exp2_attention_ref(block_k=BK) computes it.
-// - The schedules are orders of asynchronous wgmma groups inside each
-//   consumer warpgroup, per key tile:
-//     straight     each problem's whole key sweep in turn; QK^T is waited
-//                  on (wait_group 0) before its softmax and PV before the
-//                  next QK^T: no overlap inside the warpgroup;
-//     interleaved  the QK^T of all the warpgroup's problems committed as
-//                  one group each, then the softmax + PV chains, each
-//                  waiting only for its own group;
-//     pipelined    the QK^T of problem g + 1 committed before the softmax
-//                  and PV of problem g (two score tiles live).
-//   Both overlap PV of problem g - 1 with the softmax of problem g. For
-//   G = 2 interleaved and pipelined are the same order, as in the
-//   reference.
-// - What a warpgroup keeps live (f32 registers a thread at a 64-row tile:
-//   a score tile BK / 2, an accumulator 32) sets each instance (GsCfg):
-//   straight one problem at BK = 128 (128-row q tiles, warpgroup w its rows
-//   [64w, 64w + 64)); G = 2 both problems at BK = 64; G = 4 all four at
-//   BK = 32; G = 8 splits the problems between the warpgroups (warpgroup w
-//   takes g = w mod 2, 64-row q tiles), four each at BK = 32. So the
-//   schedules that reorder the same problems share a key tile. The ring is
-//   as deep as shared memory allows (2-4 key steps).
-//
-// What bounds them on this card: matmul-only does 4 BH Np^2 D flops on
-// 4 BH Np D bf16 values (tensor cores); softmax-only does BH Np^2 exp2 on
-// 2 BH Np D values (MUFU.EX2, 16 per SM per clock); the grouped kernels do
-// both. They are probes: set beside flash_single's time, their times say
-// which part bounds it. In softmax-only every logit of a row is equal, so
-// each one is computed as x + col * z with z a kernel argument the caller
-// passes as 0: the compiler cannot hoist the exp2 out of the column loop,
-// and the result is unchanged.
-//
-// ex2_rate is a calibration of the card, not a port: independent chains
-// x <- 2^-x on ex2.approx, to measure the MUFU.EX2 rate that the softmax
-// bound is taken against.
+// Bounds: matmul-only 4 BH Np^2 D flops; softmax-only BH Np^2 exp2 (each
+// logit x + col * z, z = 0 passed in so the exp2 is not hoisted).
+// ex2_rate calibrates ex2.approx with independent chains x <- 2^-x.
 
 #include "global_sm90.cuh"
 #include "sm90_common.cuh"
@@ -231,9 +174,7 @@ __global__ void __launch_bounds__(NTHREAD)
 }
 
 
-// ---------------------------------------------------------------------------
 // grouped_sm90: bench_grouped and bench_pipelined on TMA and wgmma
-// ---------------------------------------------------------------------------
 
 constexpr int ROWB = 2 * D;        // bytes of a q, k or v row: a 128B swizzle row
 constexpr int GS_THREADS = 256;    // two consumer warpgroups
@@ -367,10 +308,9 @@ __global__ void __launch_bounds__(GS_THREADS, 1)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nkt = P.Np / BKT;
 
-  // The loads of this CTA in order: its work items' key sweeps in turn,
-  // sweep m (item blockIdx.x + (m / UNITS) gridDim.x, unit m % UNITS) its
-  // Q tiles into buffer m % NQ, key step kv (sweep kv / nkt) its K and V
-  // tiles into ring slot kv % S.
+  // This CTA's loads in order: sweep m (item blockIdx.x + (m / UNITS)
+  // gridDim.x, unit m % UNITS) its Q tiles into buffer m % NQ; key step kv
+  // (sweep kv / nkt) its K, V tiles into ring slot kv % S.
   auto load_q = [&](int m) {
     const int item = blockIdx.x + (m / C::UNITS) * gridDim.x;
     if (item >= P.items) return;

@@ -1,28 +1,10 @@
-// The global-shape attention probe of scripts/bench_global_attention.py for
-// Hopper (sm_90a), bound to PyTorch through a plain C interface (ctypes).
-//
-// Replaces `_kernel` (scripts/bench_global_attention.py:48, launched through
-// run_kernel at :106) on contiguous (BH, N, 64) tensors, in three modes:
-// bf16 (s = f32(q k^T) * scale, online softmax with the natural exp in the
-// reference's order, o = sum alpha-rescaled bf16(p) v / l); int8 (q, k
-// quantized by the caller, s = f32(s32) * scale, PV in bf16); matmul (o =
-// sum bf16(s * scale) v, the tensor-core floor). It attends to the first Nk
-// keys of k and v (per-problem row count k_rows): the reference's
-// run_kernel takes Nk from q's length.
-//
-// The reference's VMEM blocks (512..2048 x 2048..4096) cannot be CTAs: a
-// 1024 x 64 f32 accumulator alone fills an SM's register file. The card
-// takes five CTA tilings of its own, (BQ, BK) = (64, 64), (128, 64), (64,
-// 128), (128, 128), (128, 32), beside the reference's (1024, 2048), (2048,
-// 2048), (1024, 4096), (2048, 4096), (512, 2048): BQ q rows (BQ / 64
-// warpgroups) share one stream of BK-key tiles.
-//
-// Bound on this card at the global shape (BH 16, N 34816): the bf16
-// products 5.0 ms at 989 TFLOP/s, one MUFU.EX2 per logit about 4.6 ms (the
-// floor once QK^T is int8); the 0.28 GB of tensors far below both. Every
-// mode and tiling runs global_sm90 (global_sm90.cuh: TMA ring refilled by
-// release counts, wgmma products, QK^T of one tile issued before PV of the
-// last).
+// The global-shape attention probe of scripts/bench_global_attention.py
+// (sm_90a, ctypes): `_kernel` (:48, run_kernel at :106) on (BH, N, 64) in
+// modes bf16 (online softmax, natural exp), int8 (q, k quantized by the
+// caller) and matmul (the floor), over the first Nk keys (k_rows).
+// Tilings (64, 64), (128, 64), (64, 128), (128, 128), (128, 32) stand
+// beside the reference's VMEM blocks (a 1024 x 64 f32 accumulator fills an
+// SM's registers). All run global_sm90.
 
 #include "global_sm90.cuh"
 

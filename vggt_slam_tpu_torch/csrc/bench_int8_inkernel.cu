@@ -1,26 +1,12 @@
-// The in-kernel int8 probe of scripts/bench_int8_inkernel.py for Hopper
-// (sm_90a), bound to PyTorch through a plain C interface (ctypes).
-//
-// Replaces `_kernel` (scripts/bench_int8_inkernel.py:43, launched through
-// run at :118): exp2-domain online-softmax attention over contiguous bf16
-// (BH, N, 64) tensors, with per-(b, h) scales sc (5, BH) from the caller
-// (127/amax of q, k, v; the logit scale dq; amax(v)/127^2), in three
-// modes: bf16; qk8 (q and k quantized in the kernel, clip(round(x *
-// 127/amax)), round half to even, s = f32(s32) * dq, PV in bf16); qk8av8
-// (v quantized too, p8 = clip(round(p * 127), 0, 127), PV in int8 with s32
-// accumulation, times amax(v)/127^2).
-//
-// The reference quantizes k (and v) into a persistent Nk x D scratch while
-// program_id(1) == 0, relying on the TPU's in-order grid; here CTAs run at
-// once and 2.2 MB a head is ten times an SM's shared memory, so each CTA
-// quantizes every K (and V) tile it loads, with the same scale: the same
-// int8 values. The int8 PV stores V transposed (its keys permuted by
-// key_pos, global_sm90.cuh), since 8-bit wgmma operands must be K-major.
-//
-// Tilings: the reference's (1024, 2048) and (2048, 2048) VMEM blocks become
-// (64, 64) and (128, 64) CTA tilings. Bound at the global shape: one
-// MUFU.EX2 per logit (about 4.6 ms) once QK^T is int8; bf16's products
-// take 5.0 ms. Every mode and tiling runs global_sm90 (global_sm90.cuh).
+// The in-kernel int8 probe of scripts/bench_int8_inkernel.py (sm_90a,
+// ctypes): `_kernel` (:43, run at :118), exp2 online softmax on bf16 (BH,
+// N, 64) with per-(b, h) scales sc (5, BH) in modes bf16, qk8 (q, k
+// quantized in the kernel, half to even) and qk8av8 (v and p too, PV in
+// int8). The reference fills a per-head scratch relying on the TPU's
+// in-order grid; here each CTA quantizes every tile it loads (the same
+// values; 2.2 MB a head exceeds shared memory); V8 is stored transposed
+// (8-bit wgmma operands are K-major). Tilings (64, 64), (128, 64). All run
+// global_sm90.
 
 #include "global_sm90.cuh"
 

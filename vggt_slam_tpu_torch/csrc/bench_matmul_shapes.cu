@@ -1,50 +1,17 @@
-// The matmul-shape probes of scripts/bench_matmul_shapes.py for Hopper
-// (sm_90a), bound to PyTorch through a plain C interface (ctypes): on
-// contiguous bf16 a (B, M, K), b (B, K, N) and o (B, M, N), o[p] =
-// bf16(a[p] @ b[p]), f32 sums rounded once at the store (the reference's
-// preferred_element_type=f32, then .astype).
-//   bench_batched_mm  replaces pallas_batched_mm (:41, launched at :49),
-//                     one whole problem per grid step;
-//   bench_grouped_mm  replaces pallas_grouped_mm (:64, launched at :75), G
-//                     problems per grid step in a loop over g (:67-70).
-// Both run mm_sm90<BN>, a persistent grid of at most one CTA per SM that
-// walks over work items: one 128 x BN output tile of one problem
-// (batched), or that tile of G consecutive problems in order g = 0 ... G-1
-// (grouped: the reference's grid step; batched is G = 1). Items run
-// problem by problem, the tiles of one problem row by row, so the CTAs in
-// flight share a problem's a row panels and b column panels in L2.
-//
-// Loads: TMA into a ring of slots, each an A tile (128 x 64, K-major) and a
-// B tile (64 x BN as BN / 64 panels of 64 K rows, N-contiguous), 128-byte
-// swizzled, through 3-D maps (K, M, B), (N, K, B) and (N, M, B): the batch
-// is a dimension of its own, so rows past M, columns past N and K past its
-// end (1056 = 16 * 64 + 32) read as zeros and a store clips them, never
-// touching the next problem. The ring runs across K steps, items and the G
-// problems of an item. 256 threads, two consumer warpgroups and no
-// producer: a warp done with a slot adds one to its release count in
-// shared memory and the eighth issues the slot's next load (a ninth warp
-// would cap ptxas at 168 registers; 64 x 256 f32 sums take 128 a thread).
-// A load's coordinates come from four divisions by run-time values, done
-// by multiply-high (`FastDiv`): as plain divisions, on the path of the
-// warp that issues the load, they made QK^T 1.19x and (2048)^3 1.56x as
-// long.
-// Products: wgmma m64nBNk16, warpgroup w rows [64w, 64w + 64) of the tile,
-// A K-major and B MN-major from shared memory, one instruction per 16 of K
-// for all BN columns (the descriptor's leading byte offset steps over the
-// panels); one m64n64k16 a panel, which reads A from shared memory BN / 64
-// times, took 1.2x as long at (2048)^3 at 128 x 256.
-// Epilogue: each warpgroup rounds its 64 x BN sums to bf16 into a staging
-// buffer of its own (the swizzled layout of a 64 x 64 box), then
-// fence.proxy.async and one thread stores it by TMA (one box a panel, one
-// bulk group a tile), and goes on to the next tile while the store drains;
-// wait_group.read frees a buffer before it is written again. Ring and
-// staging share the shared memory, split per launch (MmCfg): a sweep of
-// one or two K steps takes a ring of 2 and up to five staging buffers a
-// warpgroup, since at K = 64 the stores are the whole cost and drain only
-// as fast as the buffers in flight allow (two buffers: 1.48x the time at
-// the QK^T shape); a longer sweep the deepest ring that leaves one.
-// Bounds: bytes at the B = 528 shapes (the 1.18 GB output of QK^T, the
-// 1.18 GB a of PV) and at K = 64, operations at (2048)^3.
+// The matmul-shape probes (sm_90a, ctypes): o[p] = bf16(a[p] @ b[p]) on
+// contiguous bf16 (B, M, K), (B, K, N), f32 sums rounded once.
+// bench_batched_mm replaces pallas_batched_mm (:41, :49), a problem a grid
+// step; bench_grouped_mm pallas_grouped_mm (:64, :75), G problems a step.
+// mm_sm90<BN>: a persistent grid of 128 x BN output tiles (of G problems
+// in order), problem by problem; TMA into a ring of A (K-major) and B
+// (64-column panels) tiles, 3-D maps with the batch a dimension, so edges
+// read zeros and stores clip; two consumer warpgroups, no producer, the
+// eighth releasing warp refills (`FastDiv` for coordinates: plain
+// divisions made QK^T 1.19x as long). One m64nBNk16 a 16 of K (per panel
+// took 1.2x). Epilogue: bf16 into per-warpgroup staging, TMA stores that
+// drain while the next tile runs; MmCfg splits shared memory (at K = 64
+// up to five staging buffers: two took 1.48x). Bound: bytes at B = 528
+// and K = 64, operations at (2048)^3.
 
 #include <climits>
 
@@ -195,10 +162,9 @@ __global__ void __launch_bounds__(MM_THREADS, 1)
 #pragma unroll
   for (int j = 0; j < NT; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  // The products of the K step in ring slot `slot` (phase `phase` of its
-  // barrier), issued and committed once it landed: 64 x BN += A (this
-  // warpgroup's 64 rows) B, 16 of K an instruction (K past its end is zero
-  // in both tiles), the first overwriting acc. Then the next slot.
+  // The products of the K step in ring slot `slot` (phase `phase`), once it
+  // landed: 64 x BN += A (this warpgroup's rows) B, 16 of K an instruction (K
+  // past its end is zero), the first overwriting acc.
   int slot = 0, phase = 0;
   auto issue = [&](bool first) {
     const uint32_t at = ring + slot * C::SLOT;

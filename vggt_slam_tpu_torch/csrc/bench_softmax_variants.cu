@@ -1,23 +1,9 @@
-// The softmax-variant probe of scripts/bench_softmax_variants.py for Hopper
-// (sm_90a), bound to PyTorch through a plain C interface (ctypes).
-//
-// Replaces `_kernel` (scripts/bench_softmax_variants.py:41, launched through
-// run_kernel at :118) on contiguous (BH, N, 64) tensors with raw logits
-// s = q k^T, in five modes: matmul (o = sum bf16(s) v, the floor); online
-// (exp2, running max, o = acc / max(l, 1e-30)); static (p = exp2(s - smax),
-// l the f32 sum of the unrounded p); staticfused (V widened to 128 columns
-// by 64 of ones, so l is the tensor cores' sum of bf16(p), in place of the
-// row sum's adds); staticint8 (q, k quantized by the caller, p =
-// exp2(f32(s32) * dequant - smax), l reset per q tile). It attends to the
-// first Nk keys of k and v (per-problem row count k_rows): the reference's
-// run_kernel takes Nk from q's length.
-//
-// The reference's VMEM blocks (default 1024 x 2048) become CTA tilings:
-// (BQ, BK) = (64, 64), (128, 64), (64, 128). Bound at the global shape: the
-// bf16 products (5.0 ms; staticfused's widened PV takes the tensor cores
-// 7.5) and one MUFU.EX2 per logit (about 4.6 ms; the floor in staticint8).
-// Every mode and tiling runs global_sm90 (global_sm90.cuh), its MODE
-// SV_MATMUL + mode.
+// The softmax-variant probe of scripts/bench_softmax_variants.py (sm_90a,
+// ctypes): `_kernel` (:41, run_kernel at :118) on (BH, N, 64), raw logits,
+// modes matmul, online, static (p = exp2(s - smax)), staticfused (l the
+// tensor cores' sum of bf16(p) on 64 columns of ones) and staticint8 (l
+// reset per q tile), over the first Nk keys (k_rows); tilings (64, 64),
+// (128, 64), (64, 128). All run global_sm90, MODE SV_MATMUL + mode.
 
 #include "global_sm90.cuh"
 

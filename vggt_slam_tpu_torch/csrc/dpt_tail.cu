@@ -1,51 +1,22 @@
-// Fused DPT output tail for Hopper (sm_90a), bound to PyTorch through a
-// plain C interface (ctypes).
-//
-// dpt_tail_fwd replaces vggt_slam_tpu/ops/dpt_tail.py _kernel (fused_tail):
-// for each frame s and output pixel (r, c) of the (rows_out, W) map
+// Fused DPT output tail (sm_90a, ctypes): dpt_tail_fwd replaces
+// vggt_slam_tpu/ops/dpt_tail.py _kernel (fused_tail). Per frame s and pixel
+// (r, c) of the (rows_out, W) map, in f32 as the reference:
 //   u(r, c)  = bf16(x[s, lo, c] + (x[s, lo + 1, c] - x[s, lo, c]) frac
-//                   + pos[r, c])                  align-corners row taps,
-//              zero outside the image (the 3x3 conv's zero padding)
+//                   + pos[r, c])       align-corners row taps, 0 outside
 //   h(r, c)  = bf16(relu(sum_{dr, dc, ci} u(r + dr - 1, c + dc - 1, ci)
-//                        w0[dr, dc, ci, :] + b0))            f32 accumulate
-//   out[:, s, r, c] = w1t h(r, c) + b1                       f32
-// with lo = clip(floor(r ratio), 0, rows_in - 2), frac = clip(r ratio - lo,
-// 0, 1), ratio = (rows_in - 1) / (rows_out - 1), all in f32 as the reference
-// and fused_tail_ref. x arrives after the column upsample, (S, rows_in, W,
-// cin) bf16; the output is channel-first (cout, S, rows_out, W) f32.
+//                        w0[dr, dc, ci, :] + b0))
+//   out[:, s, r, c] = w1t h(r, c) + b1
+// lo = clip(floor(r ratio), 0, rows_in - 2), frac = clip(r ratio - lo, 0,
+// 1), ratio = (rows_in - 1) / (rows_out - 1). Bound at the depth head's
+// shape: 270 GFLOP, 0.27 ms of tensor cores against 0.19 ms of HBM.
 //
-// What bounds it on this card: at the depth head's shape (S 18, 224 -> 392
-// rows, W 518, cin 128, cmid 32) the 3x3 conv is 270 GFLOP on ~0.62 GB of
-// bytes (x once, pos, the f32 output): 0.27 ms of bf16 tensor-core time
-// against 0.19 ms of HBM time, so the tensor cores bound it. But with N =
-// cmid = 32, per output pixel the products read 1.9 KB of shared memory and
-// building u moves 0.8 KB, 1.2 times that time at 128 bytes a cycle.
-//
-// Design (dpt_tail_sm90<cin>): a persistent grid of at most one CTA per SM
-// walks over work items, each a 64-column strip of a band of TR output rows
-// (TR balances the items over the SMs) of a pair of frames. Warpgroup f (0,
-// 1) runs frame f's products, warpgroup 2 + f builds its u rows, since a
-// warpgroup's own products block it while the tensor cores take them; one
-// u row a frame passes between them under full and empty mbarriers (a
-// second does not fit). The band's halo rows r0 - 1 ... r0 + TR stream top
-// to bottom; u of halo row h is the A operand of wgmma m64n96k16 products
-// whose B operand stacks the three row taps dr along N, so h adds to output
-// rows h + 1, h and h - 1 at once and only four rows' f32 sums are live.
-// Both operands lie in shared memory in the no-swizzle K-major layout (8 x
-// 16-byte core matrices): u as a 16-byte chunk of 8 channels per pixel,
-// pixels contiguous, so a column tap dc is a 16-byte shift of the
-// descriptor's start (a swizzled tile cannot start one row later); the odd
-// pitch (67 pixels) keeps the 16-byte stores of u free of bank conflicts.
-// The rows keep their register tiles (wgmma takes its 48 sums as one
-// register range) and the values move up a row after each halo row; the
-// row that leaves is finished while the producer writes the next u: b0,
-// ReLU, the bf16 round, the 1x1 conv reduced across the four lanes of a
-// pixel, lane t storing output channel t (whole 32-byte sectors). w0 (in
-// `kernel_weights`' layout) arrives once a CTA by one bulk copy; x rows by
-// TMA (66 pixels, zero filled past the image's columns, so u is 0 there)
-// into a 3-row ring a frame, two halo rows ahead; pos by 16-byte loads one
-// row ahead. Waste: nine 64-column strips for W = 518 (11%), two halo rows
-// of products a band (4% at TR 49).
+// dpt_tail_sm90<cin>: a persistent grid over 64-column strips of TR rows of
+// a frame pair; warpgroup f runs frame f's products, 2 + f builds its u
+// rows. u of halo row h is the A operand of m64n96k16 whose B stacks the
+// three row taps, so h adds to rows h + 1, h, h - 1; no-swizzle K-major
+// operands, so a column tap is a 16-byte descriptor shift (odd pitch 67
+// keeps u's stores conflict-free). The leaving row gets b0, ReLU, bf16 and
+// the 1x1 conv; w0 by bulk copy once a CTA, x rows by TMA two ahead.
 
 #include <climits>
 
@@ -135,10 +106,9 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar) : "memory");
 }
 
-// wgmma descriptor of a K-major operand in the no-swizzle layout: 8-row
-// core matrices of 16-byte rows, rows 16 bytes apart (stride byte offset
-// 128 between 8-row groups), 8-element K chunks `lbo` bytes apart (leading
-// byte offset); layout type 0. The start may be any 16-byte address.
+// wgmma descriptor of a K-major no-swizzle operand: 8-row core matrices of
+// 16-byte rows (stride byte offset 128 between 8-row groups), 8-element K
+// chunks `lbo` bytes apart; layout 0; any 16-byte start.
 __device__ __forceinline__ uint64_t kdesc(uint32_t addr, uint32_t lbo) {
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
          (uint64_t(128 >> 4) << 32);
@@ -325,10 +295,10 @@ struct Tail {
 
   // ---- the products (warpgroups 0, 1) ----
 
-  // The products at halo row h: d's rows h + 1, h, h - 1 (n8 tiles 0-3,
-  // 4-7, 8-11) += the taps of u(h), 3 CIN / 16 instructions, once the
-  // producer has written u(h). Issuing waits for the tensor cores to take
-  // each instruction, so the other warpgroups' work is what overlaps them.
+  // The products at halo row h: rows h + 1, h, h - 1 (n8 tiles 0-3, 4-7, 8-11)
+  // += u(h)'s taps, 3 CIN / 16 instructions, once u(h) is written. Issue
+  // blocks until the tensor cores take each instruction, so the other
+  // warpgroups' work is what overlaps them.
   __device__ __forceinline__ void issue(float (&d)[12][4]) {
     if (!w_ready) {
       mbar_wait(wbar, 0);
@@ -348,13 +318,11 @@ struct Tail {
     wgmma_commit();
   }
 
-  // The rows move up one halo row once the products are done: h - 2 <-
-  // h - 1 (n8 tiles 12-15, then finished), h - 1 <- h, h <- h + 1, h + 1
-  // <- 0 (wgmma wants its 48 sums in one register range, so the rows keep
-  // their tiles and the values move). The moves are volatile instructions,
-  // ordered after the wait: as a renaming of SSA values they were left to
-  // the loop's phi copies, which read the sums while the next products are
-  // in flight, and ptxas then serialized every wgmma.
+  // The rows move up a halo row after the products (h - 2 <- h - 1, finished;
+  // h - 1 <- h; h <- h + 1; h + 1 <- 0): wgmma wants its 48 sums in one
+  // register range, so values move, by volatile instructions after the wait.
+  // As SSA renamings the loop's phi copies read the sums while the next
+  // products were in flight, and ptxas serialized every wgmma.
   __device__ __forceinline__ static void shift(float (&d)[16][4]) {
 #pragma unroll
     for (int j = 0; j < 12; ++j) {
@@ -371,11 +339,10 @@ struct Tail {
     }
   }
 
-  // Output row `row` is complete in d: add b0, apply ReLU, round to bf16
-  // and reduce the 1x1 conv across the four lanes that hold a pixel's
-  // channels, lane t keeping output channel t of its two pixels. Lane (g,
-  // t) holds pixels 16 warp + g (e < 2) and + 8 (e >= 2), mid channels 8j
-  // + 2t + (e & 1).
+  // Output row `row` is complete: add b0, ReLU, round to bf16, reduce the 1x1
+  // conv across the four lanes of a pixel, lane t keeping output channel t of
+  // its two pixels (lane (g, t): pixels 16 warp + g (e < 2), + 8 (e >= 2), mid
+  // channels 8j + 2t + (e & 1)).
   __device__ __forceinline__ void finish(const float (&d)[4][4], int row) {
     if (row < r0 || row >= r0 + nrows) return;
     float plo[MAX_COUT] = {0.f, 0.f, 0.f, 0.f};
@@ -503,10 +470,10 @@ int band_rows(int rows_out, int nstrips, int npairs, int sms) {
 
 extern "C" {
 
-// x (S, rows_in, W, cin), pos (rows_out, W, cin): contiguous bf16, 16-byte
-// aligned; w0p: `kernel_weights(w0)`, (3 cin / 8, 96, 8) bf16; b0 (cmid,),
-// w1t (cout, cmid), b1 (cout,) f32; out (cout, S, rows_out, W) f32. cin 32,
-// 64, 96 or 128, cmid 32, cout 1-4.
+// x (S, rows_in, W, cin), pos (rows_out, W, cin): contiguous 16-byte aligned
+// bf16; w0p: kernel_weights(w0), (3 cin / 8, 96, 8) bf16; b0 (cmid,), w1t
+// (cout, cmid), b1 (cout,), out (cout, S, rows_out, W) f32. cin 32-128 by 32,
+// cmid 32, cout 1-4.
 int dpt_tail_fwd(const void* x, const void* pos, const void* w0p,
                  const void* b0, const void* w1t, const void* b1, void* out,
                  int S, int rows_in, int rows_out, int W, int cin, int cmid,

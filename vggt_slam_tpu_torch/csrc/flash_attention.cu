@@ -1,60 +1,20 @@
 // Flash-attention forward kernels for Hopper (sm_90a), packed (B, N, H*D)
-// bf16 layout, bound to PyTorch through a plain C interface (ctypes).
-//
-// Two entry points, one per TPU kernel of the JAX package:
-//
-//   flash_single_fwd  replaces vggt_slam_tpu/ops/attention.py
-//                     _flash_single_kernel: exact softmax attention with a
-//                     running row max (encoder, frame blocks, camera trunk).
-//                     The TPU kernel holds all keys in one block; 1041 keys
-//                     of K and V do not fit in 227 KB of shared memory, so
-//                     this kernel walks 128-key tiles with an online
-//                     softmax, which computes the same function.
-//   flash_multi_fwd   replaces vggt_slam_tpu/ops/attention.py _flash_kernel
-//                     in its default composite: static-max softmax (a
-//                     per-(batch, head) bound replaces the running max, so
-//                     there is no rescale), in-kernel qk-LayerNorm and rope,
-//                     a per-key log-count bias and a valid_len key mask.
-//
-// Both compute, per (batch, head) and query row,
+// bf16, ctypes C interface: flash_single_fwd (_flash_single_kernel: exact
+// softmax with a running max, here over 128-key tiles) and flash_multi_fwd
+// (_flash_kernel's default: a static max per (batch, head), qk-LN and
+// rope, a log-count key bias, a valid_len mask). Per (batch, head) and row:
 //     out = sum_j exp2(s_j - m) v_j / max(sum_j exp2(s_j - m), 1e-30)
-// where s_j = q'.k'_j + kv_bias_j log2(e) for keys j < valid_len (masked
-// keys get s = -1e30 and their v rows are zeroed), q' and k' are the
-// prepared rows: optional fast-variance LayerNorm over the head dim
-// (rounded to bf16), then rope x*C + [x2|x1]*S' with the softmax scale and
-// log2(e) folded into q's tables (rounded to bf16); without rope q is
-// scaled by the same constant and rounded to bf16. m is the running row
-// max (single) or the static bound (multi). When the caller passes m_out
-// and l_out (the training forward), each kernel also writes per (batch,
-// head, row) the shift m the summands were taken against and the row sum
-// l = sum_j exp2(s_j - m), the return_stats convention of the JAX kernels
-// (attention.py:365-384); the inference path passes null pointers.
-//
-// What bounds it on this card: at the main-path shapes both kernels do
-// ~4 N_q N_k D flops per head on ~(N_q + 2 N_k) D bf16 bytes, far above
-// the H100's ~295 flop/byte ridge, so the tensor cores bound them, and at
-// head dim 32 the exp units (one exp2 per logit outweighs both products);
-// at head dim 128 (the camera trunk, 4-18 tokens) the bytes.
-// Design: the TPU kernel caches the prepared k once per (batch, head); here
-// a small prep kernel writes LN+rope'd k once to a scratch buffer
-// (prep_rows_kernel), and q with LN or rope into the output buffer, which
-// the attention kernel reads its q tiles from. Every head dim (32, 64,
-// 128), bf16 or int8 QK^T, runs the Hopper design of flash_sm90.cuh:
-// TMA-fed K/V ring, wgmma for both products, 128-row q tiles; key tiles
-// past valid_len are never loaded.
-//
-// The int8 variants (flash_single_i8_fwd, flash_multi_i8_fwd) replace
-// _flash_kernel with qk_int8=True (vggt_slam_tpu/ops/attention.py:103,
-// :169-221, :274-276, :310-311, :606-629): q and k are roped with tables
-// at scale 1, rounded to bf16 and quantized to int8 as
-// clip(rint(x * 127 / amax), +-127) with per-(batch, head) scales from the
-// int8 pre-pass (i8_scales_kernel, bit-equal to int8_scales in
-// ops/attention.py), which also writes the quantized q and k once per
-// call; QK^T runs on s8 wgmma with s32 accumulation, and the s32 logits
-// times amax_q amax_k log2(e) / (sqrt(D) 127^2) enter the same softmax, P
-// repack and bf16 PV as the bf16 kernels. The int8 products run at twice
-// the bf16 rate, so QK^T's share of the bound halves; PV, the softmax and
-// the bytes are unchanged.
+// s_j = q'.k'_j + kv_bias_j log2(e) for j < valid_len (else -1e30, v rows
+// zeroed); q', k' prepared rows (LN, then rope with the softmax scale and
+// log2(e) in q's tables, each rounded to bf16). With m_out, l_out each
+// kernel writes m and l per row (the JAX kernels' return_stats).
+// prep_rows_kernel writes the prepared k to scratch and q into the output
+// buffer; every D and route runs flash_sm90.cuh.
+// int8 (flash_{single,multi}_i8_fwd; attention.py:103, :169-221,
+// :606-629): q, k roped at scale 1, rounded to bf16 and quantized
+// clip(rint(x * 127 / amax), +-127) by the pre-pass (i8_scales_kernel,
+// bit-equal to int8_scales); s8 QK^T, the s32 logits times amax_q amax_k
+// log2(e) / (sqrt(D) 127^2) into the bf16 route's softmax and PV.
 
 #include <type_traits>
 
@@ -109,11 +69,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Prepare one head row held across a warp (lane l owns dims
-// [l*PER, l*PER + PER)): optional LayerNorm, then rope at position n from
-// (cos, sin) tables scaled by `scale`, or without rope a plain multiply by
-// `scale` (skipped when it is 1). Every stage rounds to bf16 as the
-// reference does. Returns whether x was changed.
+// One head row across a warp (lane l: dims [l*PER, l*PER + PER)): optional
+// LayerNorm, then rope at position n from (cos, sin) tables scaled by `scale`,
+// or without rope a multiply by `scale` (skipped at 1); each stage rounds to
+// bf16 as the reference. Returns whether x changed.
 template <int D>
 __device__ __forceinline__ bool prep_row(float (&x)[D / 32], int lane, int n,
                                          const float* gamma, const float* beta,
@@ -192,12 +151,10 @@ __global__ void __launch_bounds__(NTHREAD)
   for (int j = 0; j < PER; ++j) dst[base + j] = __float2bfloat16(x[j]);
 }
 
-// The int8 pre-pass of flash_single_i8_fwd and flash_multi_i8_fwd, the
-// counterpart of int8_scales (ops/attention.py; reference attention.py
-// :606-629) and of the reference's _quant_i8 after its rope (:103,
-// :169-221): the per-(batch, head) scales over every row of q and k, then
-// q and k quantized once per call. What bounds it: bytes (q and k read
-// twice, their int8 copies written once).
+// The int8 pre-pass of flash_{single,multi}_i8_fwd (int8_scales, reference
+// attention.py:606-629, and _quant_i8 after rope, :103, :169-221): the
+// per-(batch, head) scales over q's and k's rows, then q, k quantized once a
+// call. Bound: bytes (q, k read twice, int8 copies written once).
 struct I8Prep {
   const __nv_bfloat16* x[2];   // q, k: packed (B, N, H*D)
   int8_t* x8[2];      // their int8 copies
@@ -232,15 +189,13 @@ __device__ __forceinline__ uint2 quant8(const float (&x)[8], float inv) {
   return make_uint2(w[0], w[1]);
 }
 
-// Pass 1, grid (row blocks, 2 B H): the largest x1^2 + x2^2 over the rope
-// pairs (products and sum rounded apart, as int8_scales' separate f32 ops)
-// or the largest |x|, of I8_ROWS rows of one head of q (y < B H) or k. A
-// thread takes dims [8c, 8c + 8) and their partners D/2 away. The values
-// are not negative, so their f32 bits order as unsigned ints and blocks
-// combine by atomicMax; IEEE sqrt is monotone, so the largest pair norm is
-// the root of the largest square. The last block to finish turns the
-// maxima into the scales with int8_scales' roundings: the clamp at 1e-6,
-// 127/amax by one IEEE division, and (amax_q amax_k) dq.
+// Pass 1, grid (row blocks, 2 B H): the largest x1^2 + x2^2 over rope pairs
+// (rounded apart, as int8_scales' f32 ops) or the largest |x| of I8_ROWS rows
+// of one head of q (y < B H) or k; a thread takes dims [8c, 8c + 8) and their
+// partners D/2 away. Non-negative f32 bits order as unsigned ints, so blocks
+// combine by atomicMax, and sqrt is monotone. The last block turns the maxima
+// into scales with int8_scales' roundings (clamp 1e-6, 127/amax by one IEEE
+// division, (amax_q amax_k) dq).
 template <int D>
 __global__ void __launch_bounds__(I8_THREADS) i8_scales_kernel(I8Prep a) {
   constexpr int TPR = D / 16;                 // threads per row
@@ -299,10 +254,9 @@ __global__ void __launch_bounds__(I8_THREADS) i8_scales_kernel(I8Prep a) {
   }
 }
 
-// Pass 2: q rows, then k rows, rope'd at scale 1 (products and sum
-// rounded apart, as prep_row), rounded to bf16 and quantized with their
-// (batch, head) scale (quant_i8). A thread takes dims [8c, 8c + 8) of one
-// (row, head) and their rope partners D/2 away.
+// Pass 2: q rows, then k rows, rope'd at scale 1 (rounded apart, as prep_row),
+// rounded to bf16 and quantized with their scale (quant_i8); a thread takes
+// dims [8c, 8c + 8) of a (row, head) and their partners.
 template <int D>
 __global__ void __launch_bounds__(I8_THREADS) prep_rows_i8_kernel(I8Prep a) {
   constexpr int TPR = D / 16, HALF = D / 2;
@@ -457,10 +411,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   return launch_dim<STATIC, false>(p, B, D, st);
 }
 
-// work: one int8 buffer of B H D (Nq + Nk) + 4 (2 B H + 1) bytes: q8 (q
-// quantized), k8, then the pre-pass's counters. scales:
-// the (3, B*H) f32 scales of ParamsI8, which the pre-pass writes; dq: the
-// dequant constant log2(e) / sqrt(D) / 127^2.
+// work: an int8 buffer of B H D (Nq + Nk) + 4 (2 B H + 1) bytes (q8, k8, the
+// pre-pass's counters); scales: ParamsI8's (3, B*H) f32, written by the
+// pre-pass; dq: log2(e) / sqrt(D) / 127^2.
 I8Prep i8_prep_args(const void* q, const void* k, void* work, int B, int H,
                     int Nq, int Nk, int D, int rope, float dq, void* scales,
                     const void* cos_q, const void* sin_q, const void* cos_k,

@@ -1,24 +1,13 @@
-// Flash-attention backward for Hopper (sm_90a), packed (B, N, H*D) bf16
-// layout, bound to PyTorch through a plain C interface (ctypes).
-//
-// One entry point, flash_bwd, computes what the two TPU kernels of the JAX
-// package compute together: _flash_bwd_dq_kernel (dq) and
-// _flash_bwd_dkv_kernel (dk, dv), vggt_slam_tpu/ops/attention.py:1106 and
-// :1138. At every head dim (32, 64, 128) it runs bwd_prep_kernel (delta =
-// rowsum(dO * O), the q tiles' row stats, and the zeroing of the dq
-// accumulator), flash_bwd_sm90 (flash_bwd_sm90.cuh: TMA, wgmma, one CTA
-// per 128-key tile computing dq, dk and dv) and bwd_dq_kernel.
-//
-// The kernel recomputes, per tile, the FlashAttention backward from the
-// forward's row stats (m, l) and delta:
+// Flash-attention backward (sm_90a), packed (B, N, H*D) bf16, ctypes:
+// flash_bwd computes _flash_bwd_dq_kernel's and _flash_bwd_dkv_kernel's
+// outputs (vggt_slam_tpu/ops/attention.py:1106, :1138) by bwd_prep_kernel,
+// flash_bwd_sm90 (flash_bwd_sm90.cuh) and bwd_dq_kernel:
 //     p_ij  = exp2(c * q_i.k_j - m_i) / max(l_i, 1e-30),  0 for j >= valid_len
 //     dv_j  = sum_i bf16(p_ij) dO_i
-//     dl_ij = bf16(p_ij (dO_i.v_j - delta_i))
+//     dl_ij = bf16(p_ij (dO_i.v_j - delta_i)),  delta_i = dO_i.O_i
 //     dq_i  = sum_j dl_ij k_j / sqrt(D),   dk_j = sum_i dl_ij q_i / sqrt(D)
-// with c = log2(e) / sqrt(D); the bf16 roundings are the JAX kernels'
-// (dl cast to the input dtype before both products, p cast to dO's dtype
-// before the dv product). Rows of dk and dv at or past valid_len are exactly
-// zero, and query rows past Nq add nothing.
+// c = log2(e) / sqrt(D), the JAX kernels' roundings; dk, dv rows past
+// valid_len are zero.
 
 #include "flash_common.cuh"
 #include "flash_bwd_sm90.cuh"

@@ -1,63 +1,28 @@
-// Hopper design of the bf16 flash-attention backward at head dims 32, 64
-// and 128: one kernel that computes what the TPU kernels _flash_bwd_dq_kernel
-// and _flash_bwd_dkv_kernel (vggt_slam_tpu/ops/attention.py:1106, :1138)
-// compute together, with the formula and roundings of the header of
-// flash_attention_bwd.cu, except that a p below 2^-126 before its
-// 1 / l factor flushes to zero (ex2, sm90_common.cuh), as in the forward.
-// Included by flash_attention_bwd.cu, whose flash_bwd entry runs
-// bwd_prep_kernel, this kernel, then bwd_dq_kernel.
+// Hopper design of the bf16 flash-attention backward at D 32, 64, 128: one
+// kernel for _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel
+// (vggt_slam_tpu/ops/attention.py:1106, :1138) with flash_attention_bwd.cu's
+// formula (p below 2^-126 flushes to zero). Bound: five products of 2 Nq
+// Nk D flops (S^T, dP^T, dV, dK, dQ; P recomputed) and an exp2 a logit:
+// tensor cores at D 64, exp units at D 32, bytes at D 128. Splitting dq
+// from dk, dv would compute S, dP and the exp twice.
 //
-// What bounds it: five products of 2 Nq Nk D flops per head (S^T, dP^T,
-// dV, dK, dQ; P is recomputed, never stored) and one exp2 per valid logit,
-// on ~(3 Nq + 2 Nk) D bf16 bytes, far above the H100's ridge: the tensor
-// cores at D = 64 (989 TFLOP/s, reached only through wgmma), the exp units
-// at D = 32 (~4.18e12 exp2/s); at D = 128 (the camera trunk, 4-18 tokens,
-// one key tile) the bytes. Splitting dq from dk/dv, as the TPU kernels do,
-// would compute S, dP and the exp twice.
-//
-// Design (FlashAttention-3's backward). One CTA per (key tile, batch *
-// head); BwdCfg<D>::NW consumer warpgroups, warpgroup w owning keys [64w,
-// 64w + 64) of the tile (wgmma's M), and one producer warpgroup. At D = 32
-// and 64 two consumer warpgroups (128-key tiles), to which the producer
-// hands its registers (setmaxnreg: 40, 232, 232). At D = 128 one (64-key
-// tiles, 256 threads, up to 255 registers each): a consumer thread holds
-// dK and dV at 64 f32 each and S^T and dP^T at 32 each, which under two
-// consumer warpgroups' 168 registers spilled (1,280 bytes) and serialized
-// the wgmma; the camera trunk's 4-18 keys are one tile either way.
-// - Loads: one producer lane brings the tile's K and V once, then each
-//   64-row q tile's Q and dO (TMA, 4-D (D, H, N, B) maps of one head, so
-//   rows past N read as zeros) and its 768 bytes of row stats (m, w =
-//   1 / max(l, 1e-30) and delta, 0 past Nq, written by bwd_prep_kernel;
-//   one bulk copy) into a ring of BwdCfg<D>::STAGES (3) slots with full
-//   and empty mbarriers. K's and V's maps end at valid_len; a key tile
-//   wholly past it loads nothing and stores exact zeros. At D = 128 a
-//   256-byte row is two panels of 64 columns (sm90_common.cuh `panel`),
-//   one TMA box each.
-// - Per q tile, each consumer warpgroup: S^T = K Q^T and dP^T = V dO^T (wgmma
-//   m64n64k16, both operands K-major from shared memory); P^T and dL^T in
-//   registers (the one exp2 per logit; keys at or past valid_len give 0);
-//   dV += bf16(P^T) dO and dK += bf16(dL^T) Q (register A operand, Q and dO
-//   MN-major, as V in the forward's PV; one product per panel); dL^T
-//   stored once to shared memory as bf16, 128-byte rows of 64 queries in
-//   the 128-byte swizzle; then, after every warpgroup stored its own,
-//   dQ = dL K over all the tile's keys with both operands MN-major from
-//   shared memory (transpose bits), in halves of D / 2 dims (at D = 128
-//   one panel of K each): warpgroup w of two computes half w, the one
-//   warpgroup at D = 128 both, one after the other. dL^T has two buffers,
-//   by the parity of the q tile: the other warpgroup's dQ of tile qt may
-//   still read buffer qt & 1 while this one writes tile qt + 1's, and the
-//   barrier of tile qt + 1 orders both reads of it before tile qt + 2's
-//   writes.
-// - dq across key tiles: each warpgroup stores its f32 halves of the dQ
-//   tile to shared memory (two buffers) in the accumulator's layout
-//   (acc_off: the halves apart, 8-float chunks swizzled so that the stores
-//   are free of bank conflicts), and one of its threads adds it to the f32
-//   accumulator in global memory with one bulk reduce (cp.reduce.async
-//   .bulk .add.f32); bwd_dq_kernel then writes dq = bf16(acc / sqrt(D)).
-//   The atomic adds sum in a varying order, so dq's low bits vary from run
-//   to run.
-// - Epilogue: dK / sqrt(D) and dV stored as bf16 straight from registers,
-//   rows masked at Nk.
+// FlashAttention-3's backward: a CTA per (key tile, batch * head);
+// BwdCfg<D>::NW consumer warpgroups (keys [64w, 64w + 64)) and a producer.
+// D 32, 64: two consumers, 128-key tiles, setmaxnreg 40/232/232; D 128: one,
+// 64-key tiles, 256 threads (two spilled under 168 registers).
+// - K, V load once; each 64-row q tile's Q, dO and 768 bytes of row stats
+//   (m, 1 / max(l, 1e-30), delta from bwd_prep_kernel) into a 3-slot ring.
+//   K, V maps end at valid_len (a tile past it stores zeros).
+// - Per q tile: S^T = K Q^T, dP^T = V dO^T (m64n64k16, K-major); P^T, dL^T
+//   in registers; dV += bf16(P^T) dO, dK += bf16(dL^T) Q; dL^T stored as
+//   bf16 (two buffers by q-tile parity), then dQ = dL K in halves of D / 2
+//   (warpgroup w half w; one does both at D 128).
+// - dq across key tiles: f32 halves staged in shared memory (acc_off) and
+//   added to the global accumulator by one bulk reduce each
+//   (cp.reduce.async.bulk .add.f32); bwd_dq_kernel writes bf16(acc /
+//   sqrt(D)). The adds' order varies, so dq's low bits vary run to run.
+// - Epilogue: dK / sqrt(D), dV as bf16, rows masked at Nk.
+
 #pragma once
 
 #include "sm90_common.cuh"
@@ -69,10 +34,9 @@ using namespace flash;
 constexpr int BW_BQ = 64;             // q rows per tile
 constexpr int BW_STATS = 3 * BW_BQ * 4;  // m, w, delta of one q tile
 
-// Shared memory of a CTA at head dim D with `bk` keys and a ring `stages`
-// deep: 1 KB of alignment slack, K, V, two dL^T buffers (bk keys x 64 bf16
-// queries), the Q, dO and stats rings, two f32 dQ buffers, 2 barriers a
-// ring slot and one for K/V.
+// Shared memory at head dim D, `bk` keys, a ring `stages` deep: 1 KB of
+// alignment slack, K, V, two dL^T buffers, the Q, dO and stats rings, two f32
+// dQ buffers, 2 barriers a ring slot and one for K/V.
 __host__ __device__ constexpr size_t bwd_smem(int D, int bk, int stages) {
   return 1024 + 2 * size_t(bk) * 2 * D + 2 * size_t(bk) * 128 +
          stages * size_t(2 * BW_BQ * 2 * D + BW_STATS) + 2 * BW_BQ * D * 4 +
@@ -131,11 +95,9 @@ inline void bwd_sm90_scratch(int B, int H, int Nq, int D, long long* work,
   *acc = tiles * BW_BQ * D;
 }
 
-// Float offset of dims [8j, 8j + 8) of half `half` (dims [half D / 2,
-// (half + 1) D / 2), one dQ product's) of row r of a q tile in the
-// dq accumulator: the halves apart, each 64 rows of D / 2 floats, and the
-// 8-float chunks of a row XOR-swizzled so that a warp's float2 stores to 8
-// rows hit distinct banks.
+// Float offset of dims [8j, 8j + 8) of half `half` of row r of a q tile in the
+// dq staging buffer: the halves apart, each 64 rows of D / 2 floats, 8-float
+// chunks XOR-swizzled so a warp's float2 stores hit distinct banks.
 template <int D>
 __host__ __device__ __forceinline__ int acc_off(int r, int half, int j) {
   constexpr int HD = D / 2;
@@ -264,9 +226,8 @@ __device__ __forceinline__ void bwd_consume(const BwdSm90& P,
       reg_fence(dp);
 
       // P^T and dL^T = P^T (dP^T - delta) as bf16 A fragments (keys 16kk +
-      // 2t.. of n-tile 2kk, + 8 in n-tile 2kk + 1, as the forward packs P),
-      // and dL^T into its buffer: row r, queries 8j + 2t.. are bytes 4t of
-      // 16-byte chunk j.
+      // 2t.. of n-tile 2kk, + 8 in 2kk + 1, as the forward packs P); dL^T to
+      // its buffer: row r, queries 8j + 2t.. at bytes 4t of chunk j.
       const float* st = reinterpret_cast<const float*>(
           gen + sm.st + slot * BW_STATS);
       const uint32_t dl_s = sm.dl + (qt & 1) * C::DL;
@@ -444,10 +405,9 @@ __global__ void __launch_bounds__(BwdCfg<D>::THREADS, 1)
   }
 }
 
-// delta = rowsum(dO * O) of each (b, n, h) row, D / 8 lanes a row at 16
-// bytes each, and the rows' m, w = 1 / max(l, 1e-30) and delta into `work`
-// as (B*H, n_qt, 3, 64), zeros for the rows in [Nq, n_qt * 64); the
-// threads also zero `acc` (n4 float4s).
+// delta = rowsum(dO * O) per (b, n, h) row (D / 8 lanes a row), and m, w = 1 /
+// max(l, 1e-30), delta into `work` as (B*H, n_qt, 3, 64), zero for rows in
+// [Nq, n_qt * 64); the threads also zero `acc`.
 template <int D>
 __global__ void bwd_prep_kernel(const __nv_bfloat16* dout,
                                 const __nv_bfloat16* out, const float* m,

@@ -13,10 +13,9 @@ namespace flash {
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Raise `kernel`'s dynamic shared-memory limit to `bytes` on the current
-// device, once per device (the attribute lives in the device's context):
-// `done` is the caller's static for this kernel, a bit per device. Writes
-// the current device to *dev.
+// Raise `kernel`'s dynamic shared-memory limit to `bytes` once a device (the
+// attribute lives in its context): `done` is the caller's static bit set.
+// Writes the current device to *dev.
 template <typename Kernel>
 inline int smem_limit_once(Kernel kernel, int bytes,
                            std::atomic<uint64_t>& done, int* dev) {

@@ -1,75 +1,30 @@
-// Hopper design of the flash-attention forward, the route of
-// flash_single_fwd and flash_multi_fwd (bf16 QK^T) and of
-// flash_single_i8_fwd and flash_multi_i8_fwd (int8 QK^T, I8) at every head
-// dim, 32, 64 and 128 (launch_dim in flash_attention.cu). Included by
-// flash_attention.cu after Params, ParamsI8 and launch_prep; it computes
-// the formula in that file's header, with prep_row's roundings, and a
-// softmax weight below 2^-126 flushes to zero (ex2, sm90_common.cuh).
+// Hopper design of the flash-attention forward: flash_{single,multi}_fwd
+// (bf16 QK^T) and flash_{single,multi}_i8_fwd (int8, I8) at D 32, 64, 128,
+// included by flash_attention.cu; its formula with prep_row's roundings;
+// weights below 2^-126 flush to zero (ex2). Bound: the tensor cores (2.59e-13
+// s a logit against the exp units' 2.39e-13 at D 64), the exp units at D
+// 32 (1.85x), the bytes at D 128 (the camera trunk).
 //
-// What bounds it: at the main-path shapes ~4 Nq Nk D flops per head on
-// ~(Nq + 2 Nk) D bf16 bytes, above the H100's ridge, so the tensor cores
-// (989 TFLOP/s bf16, reached only through wgmma) or the exp units (one
-// exp2 per logit at ~4.18e12/s): at D = 64 the products take 2.59e-13 s a
-// logit against the exp2's 2.39e-13, at D = 32 half that, so there the
-// exp units bound it, 1.85x the tensor cores' time. The schedule below
-// keeps them busy: the softmax of one tile overlaps the products of the
-// previous one and of the other warpgroup. At D = 128 (the camera trunk,
-// 4-18 tokens) the bytes bound it, and a call is one tile per (batch,
-// head).
-//
-// Design (the same for every head dim; D sets the row width, the swizzle,
-// the panels and PV's N). A persistent grid of one CTA per SM; a work item
-// is a (128-row q tile, batch * head). A CTA has two consumer warpgroups,
-// warpgroup w owning q rows [64w, 64w + 64) (wgmma's M) and warp i rows
-// [16i, 16i + 16), and one producer warpgroup that hands them its
-// registers (setmaxnreg).
-// - Loads: one producer lane brings each item's Q tile into one of two Q
-//   buffers and its K and V tiles of SM90_BK keys into a ring of
-//   Sm90Cfg::STAGES slots by TMA (cp.async.bulk.tensor), running ahead
-//   across items, so the next item's loads overlap this one's sweep and
-//   epilogue. The tensor maps are 4-D, (D, H, N, B) with a box of one head,
-//   so rows past N arrive as zeros and never as the next batch's rows; K's
-//   and V's maps end at valid_len, so masked V rows are exact zeros.
-//   kv_bias comes with its K tile through a 1-D map, so the softmax reads
-//   it from shared memory (L1 stays free for the rope tables). Every buffer
-//   has a "full" mbarrier (expect_tx of its bytes) and an "empty" one that
-//   the eight consumer warps arrive on after their last read of it, on
-//   which the producer waits before it refills it. A tile row is D bf16:
-//   128 bytes at D = 64, loaded with the 128-byte swizzle, 64 bytes at
-//   D = 32 with the 64-byte one; each is wgmma's layout of that swizzle. At
-//   D = 128 a 256-byte row is wider than the 128-byte swizzle's atom and a
-//   TMA box, so a tile is two panels of 64 columns (sm90_common.cuh
-//   `panel`), one box each; the ring is 2 slots deep there (3 would take
-//   264,808 bytes of shared memory), the int8 route's 3.
-// - q with LN or rope is prepared before the kernel by prep_rows_kernel
-//   (prep_row: LN, rope with the softmax scale, bf16 rounds) into the
-//   output buffer, which the kernel loads Q from; without them the kernel
-//   scales its Q tile in place. Then fence.proxy.async and a warpgroup
-//   barrier hand it to wgmma.
-// - S = Q K^T: wgmma m64n128k16, both operands from shared memory
-//   (K-major), D / 16 k-steps (at D = 128 four in each panel), f32
-//   accumulators in registers. Per warp the accumulator is mma.sync's m16n8
-//   C layout repeated over the 16 key n-tiles, so the bias, mask and online
-//   or static softmax act on fragments as FlashAttention-2's do.
-// - O += P V: wgmma m64nDk16 (at D = 128 two m64n64k16, one per panel of
-//   V) with P as the register A operand (mma.sync's A layout, so P packs
-//   from S's fragments) and V from shared memory MN-major (transpose bit),
-//   8 k-steps per tile.
-// - Pipeline: QK^T of tile t + 1 is issued before PV of tile t, and the
-//   softmax of tile t + 1 runs while PV of tile t is on the tensor cores;
-//   O is rescaled once PV(t) is done, then P(t + 1) is packed. The two
-//   warpgroups take turns to issue (ping-pong), so one's softmax also
-//   overlaps the other's products.
-// - Epilogue: O / max(l, 1e-30) stored as bf16 straight from registers,
-//   rows masked at Nq; m and l where requested.
-// - int8 QK^T (I8): q and k arrive quantized by the int8 pre-pass
-//   (flash_attention.cu dispatch_i8), so Q and K tiles are int8 rows of D
-//   bytes (128-byte swizzle at D = 128, 64-byte at D = 64, 32-byte at D =
-//   32; V stays bf16). S = Q K^T runs on wgmma m64n128k32 s32.s8.s8 (both
-//   operands K-major, as PTX requires of 8-bit operands), D / 32 k-steps;
-//   the s32 accumulator has the f32 one's fragment layout, and each logit
-//   is its exact f32 value times the (batch, head) dequant scale, rounded
-//   once. The rest is the bf16 route's.
+// A persistent grid; an item is (128-row q tile, batch * head); two
+// consumer warpgroups (rows [64w, 64w + 64)) and a producer warpgroup that
+// hands them its registers (setmaxnreg).
+// - A producer lane TMA-loads Q (two buffers) and K, V tiles of SM90_BK
+//   keys (a ring of Sm90Cfg::STAGES) ahead across items; 4-D maps of one
+//   head, K and V ending at valid_len; kv_bias with its K tile; "full"
+//   (expect_tx) and "empty" mbarriers. 128-byte swizzle at D 64, 64-byte
+//   at D 32; at D 128 two 64-column panels (`panel`), a ring of 2 (I8: 3).
+// - q with LN or rope comes prepared by prep_rows_kernel into the output
+//   buffer; else the kernel scales Q in place.
+// - S = Q K^T on m64n128k16 (K-major, smem), f32 sums in mma.sync's m16n8
+//   layout, so bias, mask and the softmax act on fragments as
+//   FlashAttention-2's; O += P V on m64nDk16 (D 128: one a panel), P in
+//   registers, V MN-major.
+// - QK^T of tile t + 1 before PV of t; the softmax of t + 1 overlaps PV(t);
+//   the warpgroups issue in turns (ping-pong).
+// - Epilogue: O / max(l, 1e-30) as bf16 from registers; m, l when asked.
+// - I8: int8 q, k from the pre-pass (dispatch_i8), S on m64n128k32 s8, each
+//   logit its exact f32 value times the (batch, head) scale, rounded once.
+
 #pragma once
 
 #include "sm90_common.cuh"
@@ -92,10 +47,9 @@ __host__ __device__ constexpr size_t sm90_smem(int qk_tile, int tile,
          stages * size_t(qk_tile + tile + SM90_BIAS) + 8 * (3 * stages + 4);
 }
 
-// What the head dim and the QK^T type set: the bytes of a V row (D bf16)
-// and of a Q or K row (D bf16, or D int8 with I8) and of their 128-row
-// tiles, the swizzle (the panel row's width: 128B, 64B or 32B) and the ring
-// depth, 3 where it fits.
+// What D and the QK^T type set: the bytes of a V row (D bf16), a Q or K row (D
+// bf16, or D int8 with I8) and their 128-row tiles, the swizzle (128B, 64B or
+// 32B) and the ring depth, 3 where it fits.
 template <int D, bool I8>
 struct Sm90Cfg {
   static_assert(D == 32 || D == 64 || D == 128,
@@ -133,11 +87,9 @@ struct Sm90Smem {
 #undef SM90_F4
 #undef SM90_R4
 
-// Bias, mask and softmax of one S tile (flash_fwd_kernel's arithmetic):
-// updates the row shift m and the partial row sum l, sets c to the factor
-// O must be rescaled by before this tile's PV, and leaves p = exp2(s - m)
-// in s.
-// `bias` is the tile's kv_bias in shared memory (null without kv_bias).
+// Bias, mask and softmax of an S tile: updates m and the partial l, sets c to
+// O's rescale factor before this tile's PV, leaves p = exp2(s - m) in s.
+// `bias`: the tile's kv_bias in shared memory (null without).
 template <bool STATIC, int NT>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[NT][4], int k0, int vl, const float* bias, int t,
@@ -249,12 +201,10 @@ __device__ __forceinline__ void consume(const ParamsSm90<I8>& P,
     float sc2 = 0.f;               // int8: the (batch, head) dequant scale
     if constexpr (I8) sc2 = p.scales[2 * (P.items / P.n_qt) + bh];
 
-    // q arrives prepared (launch_sm90; int8: quantized), or needs only the
-    // softmax scale, applied here in place: warp i its 16 rows, D / 2 bf16
-    // pairs a row, lane l taking pairs l, l + 32, ... of them in row-major
-    // order (pair c: dims 2c, 2c + 1, bytes 4 (c % 4) of 16-byte chunk
-    // c / 4), rounded to bf16 as prep_row does. Each warpgroup reads only
-    // its own rows.
+    // q arrives prepared (launch_sm90; int8: quantized) or needs only the
+    // softmax scale, applied here in place: warp i its 16 rows, lane l pairs
+    // l, l + 32, ... (pair c: dims 2c, 2c + 1, bytes 4 (c % 4) of chunk c /
+    // 4), rounded to bf16 as prep_row; each warpgroup reads only its rows.
     mbar_wait(sm.q_full + 8 * qb, (it / 2) & 1);
     if constexpr (!I8) {
       if (p.q_scale != 1.f) {
@@ -342,10 +292,9 @@ __device__ __forceinline__ void consume(const ParamsSm90<I8>& P,
       if (lane == 0) mbar_arrive(bar);
     };
 
-    // Software pipeline: while PV(tile) runs on the tensor cores, QK^T of
-    // tile + 1 has been issued ahead of it and its softmax runs on the SM.
-    // The steady-state body has no branch around a wgmma, so ptxas keeps
-    // both groups in flight; the last tile's PV follows the loop.
+    // Software pipeline: while PV(tile) runs, QK^T of tile + 1 is already
+    // issued and its softmax runs on the SM; no branch around a wgmma in the
+    // steady state, so ptxas keeps both groups in flight; the last PV follows.
     if (ntiles > 0) {
       SM90_TURN();
       issue_qk(0);
@@ -511,10 +460,9 @@ int encode_bias(CUtensorMap* map, const float* ptr, int vl) {
 }
 
 // bf16: q with LN or rope is prepared by prep_rows_kernel into the output
-// buffer, from which the kernel loads it: each work item reads its q rows
-// before it writes the same rows, and no item touches another's. int8
-// (I8): a.q is q quantized by the pre-pass, a buffer of q's shape (int8
-// rows at half o's stride would overlap rows that other items write).
+// buffer; each item reads its q rows before writing them, and touches no other
+// item's. I8: a.q is the pre-pass's quantized q, a buffer of q's shape (int8
+// rows at half o's stride would overlap other items' rows).
 template <int D, bool STATIC, bool I8>
 int launch_sm90(const ParamsOf<I8>& a, int B, cudaStream_t stream) {
   constexpr size_t SMEM = Sm90Cfg<D, I8>::SMEM;

@@ -1,64 +1,25 @@
 // global_sm90: the Hopper design of the global-shape probes
-// bench_global_attention.cu (modes bf16, int8, matmul),
-// bench_int8_inkernel.cu (modes bf16, qk8, qk8av8) and
-// bench_softmax_variants.cu (modes matmul, online, static, staticfused,
-// staticint8), and of bench_attention.cu's matmul-only floor (the global
-// matmul mode at the frame shape), on contiguous (BH, rows, 64) tensors.
-// Each CTA takes one work item, a BQ-row q tile of one (batch, head)
-// problem, and sweeps its Nk keys in BK-key tiles (the probes' tilings,
-// whose meaning the scripts' TILINGS keep).
-//
-// What bounds it: at the global shape (BH 16, N 34816) the products (4 Nq
-// Nk D flops, 5.0 ms at 989 TFLOP/s in bf16) and one exp per logit (4.6 ms
-// at ~4.2e12/s) are nearly equal; the 0.28 GB of tensors are far below
-// both, but at BQ = 64 every CTA reads K and V from L2 again (78 GB at the
-// global shape), so L2 bandwidth is close too.
-//
-// Design:
-// - BQ / 64 consumer warpgroups (128 or 256 threads) and no producer
-//   (a producer warp caps ptxas at 168 registers beside two consumer
-//   warpgroups, bench_attention.cu). The ring is sized so that two CTAs
-//   fit an SM (at 64 x 64 without the in-kernel quantization four, matmul
-//   three; one at 128 x 128); one CTA per item, grid
-//   (Nq / BQ, BH), so CTAs in flight share a head's K and V in L2.
-// - Loads: thread 0 brings the Q tile and the first STAGES key tiles by TMA
-//   (3-D maps (64, rows, BH), so a box never reads the next head's rows; K
-//   and V maps end at Nk) into a Q buffer and a ring of slots, each with a
-//   "full" mbarrier expecting its bytes. A warp done with a slot adds one
-//   to its release count and the last warp to do so issues the slot's next
-//   load at once.
-// - S = Q K^T on wgmma m64nBKk16 (bf16 tiles, 128-byte swizzle) or
-//   m64nBKk32 s32.s8.s8 (int8 tiles, 64-byte swizzle, both K-major); each
-//   logit is f32(sum) times the logit scale, rounded once.
-// - O += P V on wgmma m64n64k16 with P in registers (packed from S's
-//   accumulator fragments, mma.sync's layout) and V MN-major from shared
-//   memory; qk8av8 on m64n64k32 s32.s8.s8 with p8 in registers and V8
-//   stored transposed (64 rows of BK key bytes, K-major as PTX requires of
-//   8-bit operands), its keys permuted by key_pos so that p8 packs from S's
-//   fragments without shuffles; O += f32(s32) * amax(v) / 127^2.
-// - Pipeline: QK^T of tile t + 1 is issued before PV of tile t, so the
-//   softmax of tile t + 1 runs while PV of tile t is on the tensor cores; O
-//   is rescaled once PV(t) is done (the reference's order: l = alpha l +
-//   sum p, o = alpha o + p v). At BQ = BK = 128 the two warpgroups issue in
-//   turns (ping-pong).
-// - qk8, qk8av8: the kernel quantizes (clip(round(x * 127 / amax)), half
-//   to even). Q once per item, each warpgroup its rows. Each K (and V) tile
-//   once per CTA, by all its threads, two tiles ahead of its QK^T, from the
-//   TMA-landed bf16 slot into int8 tiles in wgmma's swizzled layout (K8 a
-//   ring of 3, V8 of 4, since a warpgroup may be a tile behind the other),
-//   then fence.proxy.async and a CTA barrier before the s8 wgmma reads it.
-// - The softmax: the natural exp (__expf, ex2.approx of x log2 e) in the
-//   global probe; in the in-kernel probe and the softmax variants exp2 as
-//   `ex2` (ex2.approx.ftz, sm90_common.cuh) in place of exp2f: weights
-//   below 2^-126 flush to 0, invisible against a row's running max
-//   (l >= 1). The variants' static modes take p = exp2(s - smax) against
-//   a fixed smax: no row max, no rescale.
-// - staticfused: l is the tensor cores' sum of bf16(p), a second m64n64k16
-//   of the same P on a 16 x 64 panel of ones written once per CTA (V
-//   widened to 128 columns, as the reference's); the epilogue reads every
-//   column of that accumulator, so no product of it can be dropped.
-// - Epilogue: O / l (the variants: O / max(l, 1e-30); matmul: O) as bf16
-//   straight from registers.
+// (bench_global_attention.cu: bf16, int8, matmul; bench_int8_inkernel.cu:
+// bf16, qk8, qk8av8; bench_softmax_variants.cu: matmul, online, static,
+// staticfused, staticint8) and bench_attention.cu's matmul-only floor, on
+// (BH, rows, 64) tensors: a CTA takes a BQ-row q tile of one problem and
+// sweeps its keys in BK-key tiles. Bound at (BH 16, N 34816): the products
+// (5.0 ms) and the exps (4.6 ms) nearly equal; L2 rereads close too.
+// - BQ / 64 consumer warpgroups, no producer; the ring fits two CTAs an SM
+//   (64 x 64 without in-kernel quantization four, matmul three; 128 x 128
+//   one); grid (Nq / BQ, BH), so CTAs in flight share K, V in L2.
+// - Thread 0 TMA-loads Q and the first STAGES key tiles (3-D maps; K, V end
+//   at Nk); the last warp to release a slot issues its next load.
+// - S on m64nBKk16 (bf16) or m64nBKk32 s8; O += P V on m64n64k16, P in
+//   registers; qk8av8's PV on m64n64k32 s8 with V8 transposed and keys
+//   permuted by key_pos. QK^T of tile t + 1 before PV of t; ping-pong at
+//   128 x 128.
+// - qk8, qk8av8 quantize in the kernel (half to even): Q once an item, each
+//   K (V) tile once a CTA, two tiles ahead, into swizzled int8 tiles.
+// - exp: __expf in the global probe, `ex2` (ex2.approx.ftz) elsewhere;
+//   static modes p = exp2(s - smax); staticfused's l a second product of P
+//   on a panel of ones.
+
 #pragma once
 
 #include <type_traits>
@@ -115,11 +76,10 @@ struct GCfg {
   static constexpr int T8 = BK * 64;          // an int8 K or transposed V tile
   static constexpr int NK8 = M::QUANT ? 3 : 0, NV8 = M::AV8 ? 4 : 0;
   static constexpr int ONESB = M::ONES ? 16 * 128 : 0;   // 16 rows of ones
-  // CTAs an SM is sized for, ptxas's limit following at BQ = 64: at 64 x 64
-  // four (a 2-slot ring) took 9-10% off the softmax modes and added 12% to
-  // matmul against three (4 slots); with the in-kernel quantization's int8
-  // rings three would leave too small a key ring; staticfused's 32 more
-  // accumulator registers do not fit four
+  // CTAs an SM is sized for (ptxas's limit follows at BQ = 64): at 64 x 64
+  // four (2-slot ring) took 9-10% off the softmax modes and added 12% to
+  // matmul against three (4 slots); the in-kernel int8 rings leave three too
+  // small a key ring; staticfused's 32 more registers do not fit four
   static constexpr int CTAS =
       BK > 64 ? (BQ == 64 ? 2 : 1)
       : BQ == 64 && !M::QUANT ? (M::SOFTMAX && !M::ONES ? 4 : 3)
@@ -161,12 +121,10 @@ __device__ __forceinline__ uint4 chunk128(const unsigned char* tile, int r,
                                          ((c ^ (r & 7)) << 4));
 }
 
-// Quantization on the FP32 pipe (F2I issues at a quarter of its rate, and
-// was the in-kernel int8 modes' largest cost; exact here): the bits of
-// round(y) + 1.5 * 2^23, |y| <= 127, whose low byte is round(y) (half to
-// even, as __float2int_rn) as an int8. (The s32 sums keep I2F: an integer
-// added into the mantissa of 1.5 * 2^23 and a subtraction took 4% longer
-// in the int8 global mode.)
+// Quantization on the FP32 pipe (F2I issues at a quarter of its rate and was
+// the in-kernel int8 modes' largest cost): the low byte of the bits of
+// round(y) + 1.5 * 2^23, |y| <= 127, is round(y) (half to even) as int8. (The
+// s32 sums keep I2F: the mantissa trick took 4% longer there.)
 __device__ __forceinline__ uint32_t rne_bits(float y) {
   return __float_as_uint(__fadd_rn(y, 12582912.f));
 }
@@ -203,22 +161,20 @@ __device__ __forceinline__ void quant_rows(unsigned char* dst,
   }
 }
 
-// Byte of key `key` of a transposed V8 row: within its group of 32, key
-// 8 j + 2 t + i (j the n-tile of S, i = 0, 1) goes to byte 16 (j / 2) +
-// 4 t + 2 (j % 2) + i, where the register A fragment of wgmma_pv8 (and of
-// mma.sync m16n8k32) holds its p8.
+// Byte of key `key` of a transposed V8 row: in its group of 32, key 8 j + 2 t
+// + i goes to byte 16 (j / 2) + 4 t + 2 (j % 2) + i, where wgmma_pv8's
+// register A fragment holds its p8.
 __device__ __forceinline__ int key_pos(int key) {
   const int w = key & 7;
   return (key & ~31) + ((key >> 4) & 1) * 16 + (w >> 1) * 4 +
          ((key >> 3) & 1) * 2 + (w & 1);
 }
 
-// The 64 x 64 bf16 V tile at src (128B swizzle) quantized into the
-// transposed int8 tile at dst: 64 rows (dims) of 64 key bytes, keys at
-// key_pos, 64-byte swizzled. A word of a row holds keys k, k + 1, k + 8,
-// k + 9 (k = 32 g + 16 h + 2 t): unit u of 128 (thread u % NTH) takes
-// those four keys (quad u % 16) at dims 8c .. 8c + 7 (c = u / 16), one
-// word store a dim.
+// The 64 x 64 bf16 V tile at src (128B swizzle) quantized into the transposed
+// int8 tile at dst (64 dims of 64 key bytes at key_pos, 64-byte swizzle). A
+// row word holds keys k, k + 1, k + 8, k + 9 (k = 32 g + 16 h + 2 t): unit u
+// of 128 (thread u % NTH) takes quad u % 16 at dims 8c .. 8c + 7 (c = u / 16),
+// one word store a dim.
 template <int NTH>
 __device__ __forceinline__ void quant_vt(unsigned char* dst,
                                          const unsigned char* src, int tid,
@@ -417,11 +373,11 @@ __global__ void __launch_bounds__(GCfg<BQ, BK, MODE>::NTHREAD,
     }
     wgmma_commit();
   };
-  // The finished QK^T: s = f32(acc) * scale, rounded once (the variants'
-  // bf16 modes: f32(acc)); then the online softmax step in the reference's
-  // order (m_new = max(m, row max), c = exp(m - m_new), p = exp(s - m_new),
-  // l = c l + sum p), or the static one (p = exp2(s - smax), l += sum p;
-  // staticfused sums on the tensor cores), p left in s.
+  // The finished QK^T: s = f32(acc) * scale, rounded once (the variants' bf16
+  // modes: f32(acc)); then the online step in the reference's order (m_new =
+  // max(m, row max), c = exp(m - m_new), p = exp(s - m_new), l = c l + sum p)
+  // or the static one (p = exp2(s - smax), l += sum p; staticfused on the
+  // tensor cores), p left in s.
   auto softmax = [&]() {
     reg_fence(acc);
 #pragma unroll
@@ -508,11 +464,9 @@ __global__ void __launch_bounds__(GCfg<BQ, BK, MODE>::NTHREAD,
     }
   };
 
-  // Ping-pong at BQ = BK = 128: the two warpgroups take turns to issue
-  // their wgmma groups (named barriers 4 and 5; warpgroup 1 hands warpgroup
-  // 0 the first turn), so that one's softmax overlaps the other's products.
-  // It took 3-8% off each mode at BK = 128, and nothing or up to +7% at 64
-  // and 32, where a turn's products are shorter.
+  // Ping-pong at BQ = BK = 128: the warpgroups take turns to issue (named
+  // barriers 4 and 5; warpgroup 0 first), so one's softmax overlaps the
+  // other's products: 3-8% off each mode at BK 128, nothing or +7% at 64, 32.
   constexpr bool PING = BQ == 128 && BK == 128;
   auto turn = [&]() {
     if constexpr (PING)
@@ -619,10 +573,9 @@ __global__ void __launch_bounds__(GCfg<BQ, BK, MODE>::NTHREAD,
 // is launched; read by the library's *_design_launches entry.
 std::atomic<long long> design_launches{0};
 
-// q (BH, Nq, 64), k and v (BH, k_rows, 64), o (BH, Nq, 64), contiguous;
-// q, k int8 in G_INT8 and SV_STATICINT8, else bf16; attends to the first Nk
-// keys. sc: the (5, BH) scales of the in-kernel modes, else unused; smax:
-// the static modes' fixed max.
+// q (BH, Nq, 64), k, v (BH, k_rows, 64), o (BH, Nq, 64), contiguous; q, k int8
+// in G_INT8 and SV_STATICINT8, else bf16; the first Nk keys. sc: the in-kernel
+// modes' (5, BH) scales; smax: the static modes' max.
 template <int BQ, int BK, int MODE>
 int launch_global_sm90(const void* q, const void* k, const void* v, void* o,
                        const float* sc, float scale, int BH, int Nq, int Nk,

@@ -1,18 +1,12 @@
-// Hopper helpers shared by the flash-attention forward (flash_sm90.cuh),
-// backward (flash_bwd_sm90.cuh), grouped probes (bench_attention.cu),
-// matmul-shape probes (bench_matmul_shapes.cu) and global-shape probes
-// (global_sm90.cuh): mbarriers, TMA loads and stores with their bulk
-// groups, the swizzled tile layout and its wgmma descriptors, wgmma issue
-// and synchronisation, the register-A product with an MN-major B (bf16) or
-// a K-major B (int8), the shared-A product with an MN-major B of several
-// panels, the int8 QK^T, exp2 on MUFU.EX2, the 4-D tensor maps of the
-// packed (B, N, H*D) layout and the 3-D maps of a contiguous (B, rows,
-// cols) tensor. A tile
-// row is D bf16:
-// 256 bytes at D = 128, 128 at D = 64 (128-byte swizzle), 64 at D = 32
-// (64-byte swizzle); or D int8 (the int8 forward's q and k): 128, 64 or 32
-// bytes (32-byte swizzle). A row wider than the 128-byte swizzle's atom is
-// kept as panels (`panel`).
+// Hopper helpers shared by flash_sm90.cuh, flash_bwd_sm90.cuh,
+// bench_attention.cu, bench_matmul_shapes.cu and global_sm90.cuh:
+// mbarriers, TMA loads and stores, the swizzled tile layout and its wgmma
+// descriptors, wgmma issue and sync, register-A and shared-A products,
+// the int8 QK^T, exp2 on MUFU.EX2, and the 4-D maps of (B, N, H*D) and 3-D
+// maps of (B, rows, cols) tensors. A tile row is D bf16 (256, 128, 64
+// bytes at D 128, 64, 32; 128- and 64-byte swizzles) or D int8 (32-byte
+// swizzle); rows wider than the 128-byte atom are panels (`panel`).
+
 #pragma once
 
 #include <cuda.h>
@@ -24,18 +18,17 @@ namespace {
 // Shared memory a block may take on an H100 (dynamic, after the attribute).
 constexpr size_t SM90_SMEM_MAX = 232448;
 
-// The bytes of one row of a tile's panel. A tile of R rows of ROW bytes
-// lies in shared memory as ROW / panel(ROW) panels, each R rows of
-// panel(ROW) bytes: one swizzle atom and one TMA box wide. At ROW = 256 (D =
-// 128 bf16) panel p holds bytes [128p, 128p + 128) of every row.
+// The bytes of a row of a tile's panel: a tile of R rows of ROW bytes is ROW /
+// panel(ROW) panels of R rows, each one swizzle atom and one TMA box wide; at
+// ROW = 256 panel p holds bytes [128p, 128p + 128) of every row.
 __host__ __device__ constexpr int panel(int row) {
   return row < 128 ? row : 128;
 }
 
-// Byte offset of 16-byte chunk c of row r in a swizzled tile of R rows of D
-// bf16: the chunk index within its panel row XORs with address bits 7 and
-// up (CUTLASS's Swizzle<3,4,3> at 128-byte rows, c ^ (r & 7); Swizzle<2,4,3>
-// at 64-byte rows, c ^ ((r >> 1) & 3)), as TMA writes it and wgmma reads it.
+// Byte offset of 16-byte chunk c of row r in a swizzled tile: the chunk index
+// in its panel row XORs with address bits 7 and up (Swizzle<3,4,3> at 128-byte
+// rows, c ^ (r & 7); Swizzle<2,4,3> at 64, c ^ ((r >> 1) & 3)), as TMA writes
+// it and wgmma reads it.
 template <int D, int R = 128>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   constexpr int PR = panel(2 * D), PC = PR / 16;   // chunks of a panel row
@@ -167,14 +160,11 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst,
     tma_load(dst + p * R * PR, map, bar, p * PR / ESZ, h, row, b);
 }
 
-// wgmma shared-memory descriptor of a tile of ROW-byte rows, swizzled by
-// the row's width (PTX ISA, matrix descriptor: start address >> 4 in bits
-// 0-13, leading byte offset >> 4 in 16-29, stride byte offset >> 4 in
-// 32-45, swizzle mode in 62-63: 1 = 128B, 2 = 64B, 3 = 32B). The stride
-// offset steps over an 8-row atom, 8 rows of ROW bytes: 1024, 512 or 256
-// bytes. The leading offset is unused, as the operand's contiguous extent
-// is one panel row (K-major Q and K, 32 bytes of K a step; MN-major V and
-// the backward's operands, N at most one panel row).
+// wgmma descriptor of a tile of ROW-byte rows swizzled by the row's width
+// (start >> 4 in bits 0-13, leading byte offset >> 4 in 16-29, stride byte
+// offset >> 4 in 32-45, swizzle in 62-63: 1 = 128B, 2 = 64B, 3 = 32B). The
+// stride offset steps over an 8-row atom (1024, 512 or 256 bytes); the leading
+// offset is unused: the operand's contiguous extent is one panel row.
 template <int ROW>
 __device__ __forceinline__ uint64_t row_desc(uint32_t addr) {
   static_assert(ROW == 32 || ROW == 64 || ROW == 128, "row of 32-128 bytes");
@@ -183,11 +173,10 @@ __device__ __forceinline__ uint64_t row_desc(uint32_t addr) {
          (uint64_t(ROW == 128 ? 1 : ROW == 64 ? 2 : 3) << 62);
 }
 
-// The descriptor of an MN-major operand of several 128-byte panels (64
-// bf16 of N each) whose 8-row K groups lie 1024 bytes apart: the leading
-// byte offset steps from one panel to the next (`stride` bytes), so one
-// instruction reads N = 64 x panels (CUTLASS's canonical MN-major SW128
-// layout, ((8 chunks, panels), (8 rows, k)) : ((16 B, LBO), (128 B, SBO))).
+// An MN-major operand of several 128-byte panels (64 bf16 of N each) whose
+// 8-row K groups lie 1024 bytes apart: the leading byte offset steps panel to
+// panel (`stride`), so one instruction reads N = 64 x panels (CUTLASS's
+// canonical MN-major SW128 layout).
 __device__ __forceinline__ uint64_t mn_desc(uint32_t addr, uint32_t stride) {
   return (row_desc<128>(addr) & ~(uint64_t(0x3FFF) << 16)) |
          (uint64_t(stride >> 4) << 16);
@@ -409,10 +398,9 @@ __device__ __forceinline__ void wgmma_qk(int (&d)[4][4], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x 64 s32 per warpgroup) = or += A (64 x 32 int8, registers) B (32 x
-// 64 int8, smem, K-major): wgmma m64n64k32. Each warp's 16 rows of A take
-// mma.sync m16n8k32's A layout (a[0]: row g, bytes 4t..4t+3; a[1]: row
-// g + 8; a[2], a[3]: the same rows, bytes 16 + 4t..).
+// d (64 x 64 s32 a warpgroup) = or += A (64 x 32 int8, registers) B (32 x 64
+// int8, smem, K-major): wgmma m64n64k32; A in mma.sync m16n8k32's layout
+// (a[0]: row g, bytes 4t..; a[1]: row g + 8; a[2], a[3]: bytes 16 + 4t..).
 __device__ __forceinline__ void wgmma_pv8(int (&d)[8][4],
                                           const uint32_t (&a)[4], uint64_t db,
                                           int accumulate) {

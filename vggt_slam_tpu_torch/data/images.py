@@ -1,10 +1,11 @@
 """Image loading and preprocessing for the VGGT input pipeline (a copy of
 vggt_slam_tpu/data/images.py without OpenCV): resize to width 518 with the
 height rounded to the 14-px patch, values in [0, 1], (S, 3, H, W) float32.
-PNG is decoded by an in-repo reader on zlib and written by `write_png`;
-other formats, JPEG included, by PIL or torchvision where one imports. The
-reference's INTER_LINEAR and INTER_AREA resizes are numpy with OpenCV's
-conventions.
+PNG (8-bit, and 16-bit gray by `read_png_unchanged`) is decoded on zlib
+and native/png.cpp (built by g++) and written by `write_png` and
+`write_png16`; other formats, JPEG included, by PIL or torchvision where
+one imports. The reference's INTER_NEAREST, INTER_LINEAR and INTER_AREA
+resizes are numpy with OpenCV's conventions.
 """
 from __future__ import annotations
 
@@ -26,74 +27,37 @@ def preprocessed_hw(orig_h: int, orig_w: int,
     return max(PATCH, min(new_h, target_width)), target_width
 
 
-# ---------------------------------------------------------------------------
 # Decoding
-# ---------------------------------------------------------------------------
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 6: 4}     # gray, RGB, palette, RGBA
 
 
-def _unfilter_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
-    """Rows filtered with None, Sub or Up only: one vectorised step per
-    row."""
-    out = np.empty((rows.shape[0], rows.shape[1] - 1), np.uint8)
-    prev = np.zeros(out.shape[1], np.uint8)
-    for y, (kind, f) in enumerate(zip(rows[:, 0], rows[:, 1:])):
-        if kind == 0:
-            out[y] = f
-        elif kind == 1:      # sub: a running sum per byte of a pixel
-            out[y] = np.cumsum(f.reshape(-1, bpp), axis=0, dtype=np.uint8
-                               ).reshape(-1)
-        else:                # up
-            out[y] = f + prev
-        prev = out[y]
-    return out
-
-
-def _unfilter_wavefront(rows: np.ndarray, bpp: int) -> np.ndarray:
-    """Any mix of the five filters: a pixel depends on its left, upper and
-    upper-left neighbours, so each anti-diagonal x + y = t is one vectorised
-    step in a diagonal-major copy (pixel (y, x) at z[x + y + 1, y + 1]; row and
-    column 0 the zero border)."""
-    h = rows.shape[0]
-    w = (rows.shape[1] - 1) // bpp
-    kind = rows[:, :1].astype(np.intp)
-    if kind.max() > 4:
-        raise ValueError(f"bad PNG row filter {kind.max()}")
-    yy, xx = np.mgrid[:h, :w]
-    raw = np.zeros((w + h, h, bpp), np.int16)
-    raw[xx + yy, yy] = rows[:, 1:].reshape(h, w, bpp)
-    z = np.zeros((w + h + 1, h + 1, bpp), np.int16)
-    zero = np.zeros((h, bpp), np.int16)
-    for t in range(h + w - 1):
-        y0, y1 = max(0, t - w + 1), min(h, t + 1)
-        a, b = z[t, y0 + 1:y1 + 1], z[t, y0:y1]
-        c = z[t - 1, y0:y1] if t else zero[y0:y1]
-        d1, d2 = b - c, a - c
-        pa, pb, pc = np.abs(d1), np.abs(d2), np.abs(d1 + d2)
-        paeth = np.where((pa <= pb) & (pa <= pc), a,
-                         np.where(pb <= pc, b, c))
-        pred = np.choose(kind[y0:y1], (zero[y0:y1], a, b, (a + b) >> 1,
-                                       paeth))
-        pred += raw[t, y0:y1]
-        z[t + 1, y0 + 1:y1 + 1] = pred & 255
-    return z[xx + yy + 1, yy + 1].astype(np.uint8).reshape(h, w * bpp)
+_PNG_LIB = []     # native/png.cpp's library, built by g++ at first use
 
 
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """The five PNG row filters undone -> (h, stride) uint8."""
+    """The five PNG row filters undone in C -> (h, stride) uint8."""
+    if not _PNG_LIB:
+        import ctypes
+
+        from vggt_slam_tpu_torch.native import build_library, paths
+        lib = ctypes.CDLL(build_library(*paths("png")))
+        lib.png_unfilter.restype = ctypes.c_int32
+        lib.png_unfilter.argtypes = [ctypes.c_void_p] + 3 * [
+            ctypes.c_int32] + [ctypes.c_void_p]
+        _PNG_LIB.append(lib)
     rows = np.frombuffer(raw, np.uint8)[:h * (stride + 1)].reshape(
         h, stride + 1)
-    if rows[:, 0].max() <= 2:
-        return _unfilter_rows(rows, bpp)
-    return _unfilter_wavefront(rows, bpp)
+    out = np.empty((h, stride), np.uint8)
+    if _PNG_LIB[0].png_unfilter(rows.ctypes.data, h, stride, bpp,
+                                out.ctypes.data):
+        raise ValueError(f"bad PNG row filter {rows[:, 0].max()}")
+    return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """Decode an 8-bit gray, RGB, RGBA or palette PNG that is not
-    interlaced -> (H, W, 3) uint8 BGR, as cv2.imread(IMREAD_COLOR) gives
-    (alpha dropped). Raises ValueError on any other PNG."""
+def _png_parts(path: str):
+    """(IHDR fields, palette or None, inflated image data) of a PNG."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIG:
@@ -113,21 +77,32 @@ def read_png(path: str) -> np.ndarray:
             break
     if hdr is None:
         raise ValueError(f"{path}: PNG without IHDR")
-    w, h, depth, color, _, _, interlace = hdr
+    return hdr, palette, zlib.decompress(b"".join(idat))
+
+
+def _pixels(path, raw, h, stride, bpp):
+    if len(raw) < h * (stride + 1):
+        raise ValueError(f"{path}: truncated PNG image data")
+    try:
+        return _unfilter(raw, h, stride, bpp)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+
+
+def read_png(path: str) -> np.ndarray:
+    """Decode an 8-bit gray, RGB, RGBA or palette PNG that is not
+    interlaced -> (H, W, 3) uint8 BGR, as cv2.imread(IMREAD_COLOR) gives
+    (alpha dropped). Raises ValueError on any other PNG."""
+    (w, h, depth, color, _, _, interlace), palette, raw = _png_parts(path)
     if depth != 8 or color not in _PNG_CHANNELS or interlace != 0 or \
             (color == 3 and palette is None):
         raise ValueError(
             f"{path}: unsupported PNG (bit depth {depth}, colour type "
             f"{color}, interlace {interlace}); the reader takes 8-bit gray, "
-            f"RGB, RGBA and palette PNGs that are not interlaced")
+            f"RGB, RGBA and palette PNGs that are not interlaced, and "
+            f"read_png_unchanged 16-bit gray")
     ch = _PNG_CHANNELS[color]
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) < h * (w * ch + 1):
-        raise ValueError(f"{path}: truncated PNG image data")
-    try:
-        px = _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
-    except ValueError as e:
-        raise ValueError(f"{path}: {e}") from None
+    px = _pixels(path, raw, h, w * ch, ch).reshape(h, w, ch)
     if color == 3:
         rgb = palette[np.minimum(px[..., 0], len(palette) - 1)]
     elif ch == 1:
@@ -137,34 +112,67 @@ def read_png(path: str) -> np.ndarray:
     return np.ascontiguousarray(rgb[..., ::-1])
 
 
-def write_png(path, bgr):
-    """(H, W, 3) uint8 BGR -> an 8-bit RGB PNG, each row filtered by libpng's
-    adaptive rule (the least absolute sum of signed residuals). Returns the
-    rows' filter types."""
-    h, w = bgr.shape[:2]
-    x = bgr[..., ::-1].reshape(h, w * 3).astype(np.int16)
-    up = np.concatenate([np.zeros((1, w * 3), np.int16), x[:-1]])
-    left = np.concatenate([np.zeros((h, 3), np.int16), x[:, :-3]], 1)
-    ul = np.concatenate([np.zeros((h, 3), np.int16), up[:, :-3]], 1)
+def read_png_unchanged(path: str) -> np.ndarray:
+    """A 16-bit gray PNG (7-Scenes depth) -> (H, W) uint16, as
+    cv2.imread(IMREAD_UNCHANGED) gives; any other PNG as `read_png`."""
+    (w, h, depth, color, _, _, interlace), _, raw = _png_parts(path)
+    if depth != 16 or color != 0 or interlace != 0:
+        return read_png(path)
+    # the filters work on bytes: 2 a pixel, big-endian samples
+    px = _pixels(path, raw, h, 2 * w, 2)
+    return px.view(">u2").astype(np.uint16)
+
+
+def _filter_rows(x: np.ndarray, bpp: int, kinds=None):
+    """(h, stride) bytes as int16 -> filtered rows with their type byte
+    first. Each row takes `kinds[row]`, or libpng's adaptive rule (the
+    least absolute sum of signed residuals)."""
+    h, n = x.shape
+    up = np.concatenate([np.zeros((1, n), np.int16), x[:-1]])
+    left = np.concatenate([np.zeros((h, bpp), np.int16), x[:, :-bpp]], 1)
+    ul = np.concatenate([np.zeros((h, bpp), np.int16), up[:, :-bpp]], 1)
     pa, pb, pc = (np.abs(up - ul), np.abs(left - ul),
                   np.abs(left + up - 2 * ul))
     paeth = np.where((pa <= pb) & (pa <= pc), left,
                      np.where(pb <= pc, up, ul))
     res = np.stack([(x - p) & 255 for p in (0, left, up, (left + up) >> 1,
                                             paeth)]).astype(np.uint8)
-    kind = np.abs(res.view(np.int8).astype(np.int32)).sum(2).argmin(0)
-    rows = np.concatenate([kind[:, None].astype(np.uint8),
-                           res[kind, np.arange(h)]], 1)
+    kind = np.abs(res.view(np.int8).astype(np.int32)).sum(2).argmin(0) \
+        if kinds is None else np.resize(np.asarray(kinds, np.intp), h)
+    return np.concatenate([kind[:, None].astype(np.uint8),
+                           res[kind, np.arange(h)]], 1), kind
 
+
+def _write_png_file(path, w, h, depth, color, rows):
     def chunk(tag, body):
         return (struct.pack(">I", len(body)) + tag + body
                 + struct.pack(">I", zlib.crc32(tag + body) & 0xffffffff))
 
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+        f.write(_PNG_SIG
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color,
+                                             0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
                 + chunk(b"IEND", b""))
+
+
+def write_png(path, bgr):
+    """(H, W, 3) uint8 BGR -> an 8-bit RGB PNG, rows filtered adaptively.
+    Returns the rows' filter types."""
+    h, w = bgr.shape[:2]
+    rows, kind = _filter_rows(
+        bgr[..., ::-1].reshape(h, w * 3).astype(np.int16), 3)
+    _write_png_file(path, w, h, 8, 2, rows)
+    return kind
+
+
+def write_png16(path, gray, kinds=None):
+    """(H, W) uint16 -> a 16-bit gray PNG; each row filtered by `kinds`
+    (cycled) or adaptively. Returns the rows' filter types."""
+    h, w = gray.shape
+    be = np.ascontiguousarray(gray, ">u2").view(np.uint8).reshape(h, 2 * w)
+    rows, kind = _filter_rows(be.astype(np.int16), 2, kinds)
+    _write_png_file(path, w, h, 16, 0, rows)
     return kind
 
 
@@ -198,9 +206,15 @@ def load_image(path: str) -> np.ndarray:
     return read_png(path) if is_png else _read_other(path)
 
 
-# ---------------------------------------------------------------------------
-# Resizing (cv2.resize's INTER_LINEAR and INTER_AREA in numpy)
-# ---------------------------------------------------------------------------
+# Resizing (cv2.resize's INTER_NEAREST, INTER_LINEAR, INTER_AREA in numpy)
+
+def resize_nearest(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """cv2.resize(img, (w, h), INTER_NEAREST): source index floor(x / (w /
+    W)) in double, clamped to W - 1 (not INTER_NEAREST_EXACT's centres)."""
+    H, W = img.shape[:2]
+    x = np.minimum(np.floor(np.arange(w) * (1.0 / (w / W))), W - 1)
+    y = np.minimum(np.floor(np.arange(h) * (1.0 / (h / H))), H - 1)
+    return img[y.astype(np.intp)[:, None], x.astype(np.intp)]
 
 def _linear_taps(n_in: int, n_out: int):
     """OpenCV's INTER_LINEAR taps: half-pixel centres, clamped edges, no

@@ -1,11 +1,9 @@
 """How much host work the dispatch-ahead pipeline hides (counterpart of
-vggt_slam_tpu/evals/pipeline_overlap.py): the real CLI loop (main.run_slam)
-on a synthetic TUM sequence, in one process on one model, as a warm-up on
-the first frames (discarded), the serial flow (--no_pipeline) and the
-pipelined flow (the default). It reports both runs' FPS, stage tables and
-host/forward splits, and a JSON line of them last. Serial wall ~= host
-stages + blocking forward; the pipelined wall is nearer max(host, device)
-per submap.
+vggt_slam_tpu/evals/pipeline_overlap.py): main.run_slam on a synthetic TUM
+sequence in one process, a discarded warm-up, then the serial
+(--no_pipeline) and pipelined flows: FPS, stage tables, host/forward
+splits, and a JSON line last. Serial wall ~= host + blocking forward;
+pipelined nearer max(host, device) a submap.
 
   python -m vggt_slam_tpu_torch.evals.pipeline_overlap [--frames 320] \
       [--device cuda] [--out pipeline_overlap.txt]

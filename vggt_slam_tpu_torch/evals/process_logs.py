@@ -1,8 +1,7 @@
-"""Aggregate eval CSV logs (counterpart of vggt_slam_tpu/evals/
-process_logs.py, without pandas): per sequence the mean, std and count of
-each metric, the per-trial means, and the overall mean and std. As
-pandas: empty or non-numeric cells are NaN and skipped, std has ddof 1
-and is NaN for fewer than two values, groups are sorted by key.
+"""Aggregate eval CSV logs without pandas (counterpart of
+vggt_slam_tpu/evals/process_logs.py): per sequence each metric's mean,
+std and count, the per-trial means, the overall mean and std, as pandas
+(empty or non-numeric cells NaN and skipped, std ddof 1, groups sorted).
 
   python -m vggt_slam_tpu_torch.evals.process_logs results.csv
 """

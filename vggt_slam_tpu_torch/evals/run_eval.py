@@ -1,16 +1,11 @@
-"""Dataset evaluation runner for TUM / 7-Scenes / EuRoC sweeps
-(counterpart of vggt_slam_tpu/evals/run_eval.py): for each sequence and
-trial, run the port's SLAM CLI with --log_results, score the ATE against
-the dataset's ground truth (Sim(3)-aligned RMSE, evals/ate.py) and append
-a CSV row.
+"""Dataset evaluation runner for TUM / 7-Scenes / EuRoC sweeps (counterpart
+of vggt_slam_tpu/evals/run_eval.py): each sequence and trial runs the
+port's CLI with --log_results (a subprocess, or with --in_process one
+model and retrieval for the sweep), scores the Sim(3)-aligned ATE against
+the ground truth and appends a CSV row; --device goes to the CLI.
 
-  python -m vggt_slam_tpu_torch.evals.run_eval --dataset_root DIR \\
+  python -m vggt_slam_tpu_torch.evals.run_eval --dataset_root DIR \
       --sequences SEQ ... --trials 5 --submap_size 16 --out results.csv
-
-Each trial is a `python -m vggt_slam_tpu_torch.main` subprocess, or with
---in_process a run in this process on one model and one retrieval built
-for the whole sweep. --device is forwarded to the CLI (its default: the
-card).
 """
 from __future__ import annotations
 

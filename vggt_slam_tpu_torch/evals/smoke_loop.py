@@ -1,15 +1,9 @@
 """CLI-level loop-closure smoke run (counterpart of
-vggt_slam_tpu/evals/smoke_loop.py): writes a synthetic heightfield sequence
-whose camera path closes on its start (tools/synth3d.py kind="loop"), runs
-the port's CLI (`python -m vggt_slam_tpu_torch.main`) on it as a subprocess
-with the weight-free tiny-image retrieval backend, and asserts:
-
-  * the run completes and writes the TUM trajectory log,
-  * at least one loop closure lands in the graph (the CLI's "Total number
-    of loop closures in map N" line),
-  * (with --checkpoint) the Sim3-aligned ATE RMSE stays under --max_ate.
-
-Exit code 0 = PASS.
+vggt_slam_tpu/evals/smoke_loop.py): a synthetic sequence whose path closes
+on its start (synth3d kind="loop") through the port's CLI in a subprocess
+with the tiny retrieval backend; passes (exit 0) when the run writes the
+TUM log, at least one loop closure lands in the graph, and with
+--checkpoint the Sim3-aligned ATE RMSE is under --max_ate.
 
     python -m vggt_slam_tpu_torch.evals.smoke_loop [--device cpu] \
         [--checkpoint warmcache/small_synth/checkpoint.npz --model_size small]

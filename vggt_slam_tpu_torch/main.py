@@ -1,8 +1,7 @@
-"""VGGT-SLAM CLI on PyTorch (counterpart of vggt_slam_tpu/main.py):
-incremental dense SLAM over an image folder (keyframe gate; per submap
-forward, registration, pose-graph solve) with the reference's artifacts,
-the semantic voxel map, COLMAP alignment, the focal-length plot, a
-torch.profiler trace and the viser viewer, on the card unless --device cpu.
+"""VGGT-SLAM CLI on PyTorch (counterpart of vggt_slam_tpu/main.py): dense
+SLAM over an image folder with the reference's artifacts, the semantic
+voxel map, COLMAP alignment, the focal-length plot, a torch.profiler
+trace and the viser viewer, on the card unless --device cpu.
 
 Run:  python -m vggt_slam_tpu_torch.main --image_folder <dir> [flags]
 """

@@ -1,20 +1,14 @@
-"""CLIP's image and text towers in PyTorch (counterpart of
-vggt_slam_tpu/models/clip.py), as `transformers.CLIPModel` computes them
-(`openai/clip-vit-base-patch32` by default).
-
-  * vision: a patch conv without bias, a class token, learned positions,
-    pre-LayerNorm, pre-LN blocks, post-LayerNorm on the class token, a
-    projection without bias. Its attention runs `flash_single` on bf16 q,
-    k and v (its own head_dim**-0.5 is CLIP's scale) in the f32 module;
-    `attn_impl="plain"` takes the plain f32 path on the card too.
-  * text: causal pre-LN blocks (plain torch: the kernel masks only a key
-    suffix), a final LayerNorm pooled at the first end-of-text id (the
-    largest id), a projection without bias. Quick-gelu, LayerNorm eps 1e-5.
-
-Parameters keep the flax names and layouts, so the JAX package's
-parameters load by a rename (`load_flax_params`) and a transformers
-checkpoint converts as the reference's does, read without transformers or
-safetensors (`read_safetensors`). models/siglip.py builds on these pieces.
+"""CLIP's towers in PyTorch (counterpart of vggt_slam_tpu/models/clip.py), as
+`transformers.CLIPModel` computes them (default
+`openai/clip-vit-base-patch32`). Vision: a patch conv, a class token,
+learned positions, pre-LN blocks, post-LN on the class token, a
+projection; its attention runs `flash_single` on bf16 q, k, v in the f32
+module (`attn_impl="plain"`: the plain f32 path). Text: causal pre-LN
+blocks (plain: the kernel masks only a key suffix), a final LN pooled at
+the largest id (end of text), a projection. Quick-gelu, LN eps 1e-5.
+Parameters keep the flax names and layouts (`load_flax_params`); a
+transformers checkpoint converts as the reference's does, read without
+transformers or safetensors (`read_safetensors`).
 """
 from __future__ import annotations
 
@@ -320,9 +314,7 @@ def preprocess_images(images, image_size: int, mean=IMAGE_MEAN,
         torch.tensor(std, device=x.device)
 
 
-# ---------------------------------------------------------------------------
 # Weights: the JAX package's tree, transformers checkpoints
-# ---------------------------------------------------------------------------
 
 def load_flax_params(module: nn.Module, tree: Mapping):
     """The JAX package's parameters (the nested dict under "params" of
@@ -449,11 +441,10 @@ def init_torch_state_dict(cfg: CLIPConfig, generator: torch.Generator,
 
 
 def convert_by_names(sd: dict, names, shapes, family: str) -> dict:
-    """A transformers state dict (tensors or numpy) -> the port's f32 tensors
-    by (port key, transformers key) `names`, as strict as the reference's
-    converters: a missing key, a wrong shape or an unconsumed key but
-    `*.position_ids` raises, naming it. Linear weights and the patch conv take
-    the flax layouts."""
+    """A transformers state dict -> the port's f32 tensors by (port key,
+    transformers key) `names`, strictly: a missing key, a wrong shape or an
+    unconsumed key but `*.position_ids` raises, naming it. Linear weights and
+    the patch conv take the flax layouts."""
     out = {}
     for pk, tk in names:
         if tk not in sd:
@@ -530,10 +521,10 @@ def load_torch_checkpoint(model_dir: str, cfg: CLIPConfig) -> dict:
 
 def encoders(model, sd, tokenizer, dev, dim, image_size, max_batch,
              mean=IMAGE_MEAN, std=IMAGE_STD):
-    """The embedder's pair on `model` (built on the meta device) with state
-    dict `sd`: `encode_crops((N, 3, H, W) or (N, H, W, 3) float [0, 1])` and
-    `encode_text(list of str)`, each -> L2-normalized (N, dim) float32 numpy in
-    chunks of at most `max_batch` on `dev`; both carry `.model`."""
+    """The embedder's pair on `model` (built on meta) with state dict `sd`:
+    `encode_crops((N, 3, H, W) or (N, H, W, 3) [0, 1])`, `encode_text(list of
+    str)` -> L2-normalized (N, dim) float32 numpy, chunks of `max_batch` on
+    `dev`; both carry `.model`."""
     model.load_state_dict({k: v.to(dev).contiguous() for k, v in sd.items()},
                           assign=True)
     model.eval()

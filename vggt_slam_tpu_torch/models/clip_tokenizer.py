@@ -1,16 +1,11 @@
 """CLIP's byte-pair-encoding tokenizer in plain Python (counterpart of
 vggt_slam_tpu/models/clip_tokenizer.py), reading `vocab.json` and
-`merges.txt`.
-
-  1. basic clean: control characters dropped, whitespace normalized, NFC,
-     CJK spaced out, lowercased (transformers' path without ftfy).
-  2. CLIP's pattern
+`merges.txt`: basic clean (controls dropped, whitespace normalized, NFC,
+CJK spaced, lowercased); CLIP's pattern
          <|startoftext|>|<|endoftext|>|'s|'t|'re|'ve|'m|'ll|'d
          |[\\p{L}]+|[\\p{N}]|[^\\s\\p{L}\\p{N}]+      (case-insensitive)
-     by a scanner on `unicodedata.category` (`split`): Python's `re` has no
-     \\p classes, and no `regex` package is needed.
-  3. GPT-2's byte -> unicode table, BPE with `</w>` on each word's end.
-  4. BOS ... EOS, cut to the context and right-padded with EOS.
+by a scanner on `unicodedata.category` (`split`; no `regex`); GPT-2's
+byte table, BPE with `</w>`; BOS ... EOS cut and padded with EOS.
 """
 from __future__ import annotations
 
@@ -95,10 +90,9 @@ def _literal_at(text: str, i: int, lit: str) -> bool:
 
 
 def split(text: str) -> list[str]:
-    """What CLIP's pattern finds in `text`, left to right: at each position
-    the first alternative that matches (the specials, the contractions, a
-    run of letters, one number, a run of neither space, letter nor number);
-    white space matches none and is skipped."""
+    """CLIP's pattern's matches in `text`, left to right: the first alternative
+    at each position (specials, contractions, a letter run, one number, a
+    run of neither space, letter nor number); white space is skipped."""
     out, i, n = [], 0, len(text)
     while i < n:
         lit = next((s for s in _SPECIALS + _CONTRACTIONS

@@ -1,15 +1,10 @@
-"""Place-recognition descriptors: SALAD on the port's DINOv2 ViT, and the
-weight-free tiny-image descriptor (counterpart of
-vggt_slam_tpu/models/retrieval.py).
-
-SALAD (serizba/salad `dino_salad`): a DINOv2-B/14 backbone without
-registers over 224x224 frames; 1x1-conv stacks give cluster features and
-scores, a linear stack a global token from CLS; log-domain Sinkhorn with a
-learned dustbin assigns patches to clusters; the descriptor is the
-normalized token and the per-cluster-normalized aggregates, L2-normalized
-(8448-D), matched by L2 distance under 0.80 (slam/loop_closure.py). The
-module is f32; its attention runs `flash_single` on bf16 q, k, v on the
-card (models/vggt/modules.Attention) and the plain version on the CPU.
+"""Place-recognition descriptors (counterpart of
+vggt_slam_tpu/models/retrieval.py): SALAD (serizba/salad `dino_salad`) on
+the port's DINOv2-B/14 at 224x224: cluster features and scores from 1x1
+stacks, a global token from CLS, log-domain Sinkhorn with a dustbin; the
+8448-D descriptor is matched by L2 distance under 0.80
+(slam/loop_closure.py). f32; attention on `flash_single` (bf16 q, k, v)
+on the card. And the weight-free tiny-image descriptor.
 """
 from __future__ import annotations
 
@@ -142,9 +137,7 @@ def init_params(cfg: SALADConfig, generator: torch.Generator,
     return C.init_module_params(model, generator, device)
 
 
-# ---------------------------------------------------------------------------
 # Torch checkpoint conversion (dino_salad.ckpt)
-# ---------------------------------------------------------------------------
 
 _AGG_NAMES = {
     "cluster_hidden": "aggregator.cluster_features.0",
@@ -216,9 +209,7 @@ def convert_torch_checkpoint(torch_path: str, out_path: str,
     return report
 
 
-# ---------------------------------------------------------------------------
 # Descriptor callables for slam/loop_closure.ImageRetrieval
-# ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=4)
 def build_salad(input_size: int = 224, checkpoint: str | None = None,

@@ -1,15 +1,10 @@
-"""SAM2's image model in PyTorch (counterpart of
-vggt_slam_tpu/models/sam2.py): the Hiera trunk and FPN neck, the prompt
-encoder and the two-way mask decoder of `sam2.1_hiera_base_plus`, with the
-converter of the public `sam2.1_hiera_*.pt` naming.
-
-Tensors are NHWC. Parameters keep the flax names and layouts (the
-transposed convs' kernels flipped in space, as the reference's converter
-does), so the JAX package's parameters load by a rename
-(`load_flax_params`). The module computes in its parameters' dtype
-(`.double()` gives the float64 check); attention is plain torch, as the
-reference's XLA einsums (no kernel: head dims 56 and 16); tanh GELUs. A
-prompt batch broadcasts the batch-1 image features.
+"""SAM2's image model in PyTorch (counterpart of vggt_slam_tpu/models/sam2.py):
+the Hiera trunk, FPN neck, prompt encoder and two-way mask decoder of
+`sam2.1_hiera_base_plus`, with the converter of `sam2.1_hiera_*.pt`. NHWC;
+flax names and layouts (`load_flax_params`; transposed-conv kernels
+flipped, as the reference's converter); the parameters' dtype
+(`.double()` for the float64 check); plain attention (head dims 56, 16);
+tanh GELUs; a prompt batch broadcasts the batch-1 image features.
 """
 from __future__ import annotations
 
@@ -523,9 +518,7 @@ class SAM2ImageModel(nn.Module):
         return self.decode_points(self.embed_image(image), points, labels)
 
 
-# ---------------------------------------------------------------------------
 # Weights
-# ---------------------------------------------------------------------------
 
 # checkpoint keys of SAM2's video memory, which the image model does not run
 VIDEO_ONLY = ("memory_attention.", "memory_encoder.", "obj_ptr_",

@@ -1,19 +1,13 @@
-"""SigLIP's two towers in PyTorch (counterpart of
-vggt_slam_tpu/models/siglip.py), as `transformers.SiglipModel` computes
-them, from models/clip.py's pieces: the encoders of a `--clip_model_dir`
-whose config.json says model_type "siglip".
-
-  * vision: a patch conv with bias, learned positions, no class token,
-    pre-LN blocks, a post-LayerNorm, then a pooling head (a learned probe
-    attends over the tokens; LayerNorm and a residual MLP).
-  * text: non-causal pre-LN blocks, a final LayerNorm pooled at the last
-    position, a biased head. Tanh GELU, LayerNorm eps 1e-6.
-
-Self-attention in both towers runs `flash_single` on bf16 q, k and v (its
-own head_dim**-0.5 is SigLIP's scale) in the f32 module, as CLIP's vision
-tower does; `attn_impl="plain"` takes the plain f32 path, and the head's
-one-query cross-attention is always plain. Parameters keep the flax names
-and layouts (`clip.load_flax_params`).
+"""SigLIP's towers in PyTorch (counterpart of vggt_slam_tpu/models/siglip.py)
+as `transformers.SiglipModel` computes them, from models/clip.py's pieces,
+for a --clip_model_dir of model_type "siglip". Vision: a biased patch
+conv, learned positions, pre-LN blocks, a post-LN, a pooling head (a
+learned probe attends over the tokens; LN, residual MLP). Text:
+non-causal pre-LN blocks, a final LN pooled at the last position, a biased
+head. Tanh GELU, LN eps 1e-6. Both towers' self-attention runs
+`flash_single` on bf16 q, k, v in the f32 module (`attn_impl="plain"`:
+plain f32); the head's cross-attention is plain. Flax names and layouts
+(`clip.load_flax_params`).
 """
 from __future__ import annotations
 

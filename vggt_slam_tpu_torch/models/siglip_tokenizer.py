@@ -1,15 +1,10 @@
 """SigLIP's SentencePiece unigram tokenizer in plain Python (counterpart of
-vggt_slam_tpu/models/siglip_tokenizer.py), reading a checkpoint
-directory's `spiece.model` without the sentencepiece package.
-
-  1. the pieces of sentencepiece_model.proto's `ModelProto.pieces` (field 1:
-     {piece: string = 1, score: float = 2, type: enum = 3}), in id order;
-  2. SiglipTokenizer's text: ASCII punctuation stripped, whitespace
-     collapsed, then NFKC; spaces become "▁", with one leading;
-  3. Viterbi segmentation by the sum of piece scores; a character no piece
-     covers is `<unk>` at min(NORMAL scores) - 10;
-  4. eos appended after at most L - 1 ids, right-padded with eos to the
-     full context (the text tower pools the last position).
+vggt_slam_tpu/models/siglip_tokenizer.py), reading `spiece.model` without
+the sentencepiece package: the pieces of `ModelProto.pieces` (field 1:
+{piece = 1, score = 2, type = 3}) in id order; ASCII punctuation
+stripped, whitespace collapsed, NFKC, spaces as "▁" with one leading;
+Viterbi by the sum of piece scores (uncovered characters `<unk>` at
+min(NORMAL scores) - 10); eos after at most L - 1 ids, padded with eos.
 """
 from __future__ import annotations
 

@@ -30,15 +30,12 @@ def merge_indices(P: int, stride: int, device):
 
 
 def sim_merge(x0: torch.Tensor, ns: int, dst_patch, src_patch, dtype):
-    """Similarity merge of the K/V set (FastVGGT; reference
-    aggregator.py:113-159), computed from the tokens entering global
-    block 0.
-
-    x0: (S, N, C) tokens. Each dropped patch token of frames 1.. merges
-    into its most cosine-similar kept token of the same frame (assignment
-    in f32). Returns the per-frame merge matrix M (S-1, Pd, P) in `dtype`
-    (mean-pool weights of each kept group) and the (n_kv,) f32 log-count
-    bias in frame-major K/V order."""
+    """FastVGGT's similarity merge of the K/V set (reference aggregator.py
+    :113-159) from global block 0's input tokens x0 (S, N, C): each dropped
+    patch token of frames 1.. merges into its most cosine-similar kept token
+    of its frame (f32 assignment). Returns the merge matrix M (S-1, Pd, P) in
+    `dtype` (mean-pool weights) and the (n_kv,) f32 log-count bias in
+    frame-major K/V order."""
     S, N, _ = x0.shape
     P = N - ns
     Pd = dst_patch.shape[0]

@@ -1,15 +1,11 @@
-"""Weights for the port's VGGT: flat flax checkpoints, seeded random
-initialisation and the torch-checkpoint converter (counterpart of
-vggt_slam_tpu/models/vggt/convert.py).
-
-The port's modules keep the flax names and layouts, so the flax path
-"params/aggregator/frame_block_0/attn/qkv/kernel" is the state-dict key
-"aggregator.frame_block_0.attn.qkv.kernel", with the flax conventions
-(single-swap rope with the quarter permutation folded into q/k, tanh GELU,
-(k, k, in, out) ConvTranspose kernels with torch semantics).
-`convert_torch_state_dict` maps the released facebook/VGGT-1B state dict
-onto it by the reference's name rules and layout transforms, so a machine
-without JAX turns a `model.pt` into the port's npz.
+"""Weights for the port's VGGT (counterpart of
+vggt_slam_tpu/models/vggt/convert.py): flat flax checkpoints (flax path
+"params/a/b/kernel" is state-dict key "a.b.kernel", with the flax
+conventions: single-swap rope with the quarter permutation in q/k, tanh
+GELU, (k, k, in, out) ConvTranspose kernels), seeded initialisation, and
+`convert_torch_state_dict`, which maps the released facebook/VGGT-1B
+state dict by the reference's rules, so a `model.pt` becomes the port's
+npz without JAX.
 """
 from __future__ import annotations
 
@@ -93,9 +89,7 @@ def init_params(cfg, generator: torch.Generator, device) -> dict:
     return init_module_params(model, generator, device)
 
 
-# ---------------------------------------------------------------------------
 # Torch -> flax mapping (reference convert.py:76-297)
-# ---------------------------------------------------------------------------
 
 def allowed_unused_vggt(key: str) -> bool:
     """Checkpoint keys the converter drops: DINOv2's mask_token, the
@@ -135,10 +129,10 @@ def _torch_name_candidates(flax_path: str) -> list[str]:
 
 
 def _structural_transforms(flat_t: dict) -> None:
-    """Reshape, in place, the torch arrays whose layout differs: camera_token
-    (1, 2, 1, C) and register_token (1, 2, R, C) lose the leading 1; DINOv2's
-    pos_embed (1, 1 + g*g, C) splits into cls_token's slot and a (1, g, g, C)
-    grid; then `_rope_pairing_transforms`."""
+    """Reshape in place the torch arrays whose layout differs (camera_token,
+    register_token lose the leading 1; DINOv2's pos_embed splits into
+    cls_token's slot and a (1, g, g, C) grid), then
+    `_rope_pairing_transforms`."""
     for key in ("aggregator.camera_token", "aggregator.register_token"):
         arr = flat_t.get(key)
         if arr is not None and arr.ndim == 4 and arr.shape[0] == 1 \
@@ -170,10 +164,10 @@ def _quarter_perm(n: int) -> np.ndarray:
 
 
 def _rope_pairing_transforms(flat_t: dict) -> None:
-    """Permute the frame and global blocks' q/k head dims by the quarter
-    permutation [q0, q2, q1, q3], in place: croco's rope pairs i with i + Dh/4
-    in each half, the port's kernels pair (i, i + Dh/2) with the angle table [y
-    | x]; the scores agree once q, k and their norms are permuted alike."""
+    """Permute the frame and global blocks' q/k head dims by [q0, q2, q1,
+    q3] in place: croco's rope pairs i with i + Dh/4 in each half, the port's
+    kernels (i, i + Dh/2) with the table [y | x]; scores agree once q, k and
+    their norms are permuted alike."""
     pat = re.compile(r"(frame|global)_blocks\.\d+\.attn\.")
     for key in list(flat_t):
         m = pat.search(key)
@@ -222,10 +216,9 @@ def _torch_kernel_layout(arr: np.ndarray, cand: str, shape) -> np.ndarray:
 
 
 def fill_state_dict(flat_t: dict, template: dict, candidates, layout):
-    """Fill each of `template`'s parameters (only its shape is read) from the
-    first candidate torch name whose array, after `layout`, has its shape;
-    unmatched ones are zeros. Returns (f32 CPU state dict, report of unmatched
-    flax paths and unused torch keys)."""
+    """Fill `template`'s parameters (shapes only) from the first candidate
+    torch name whose array, after `layout`, fits; unmatched ones are zeros.
+    Returns (f32 CPU state dict, report of unmatched paths and unused keys)."""
     used, unmatched, out = set(), [], {}
     for name, p in template.items():
         shape = tuple(p.shape)

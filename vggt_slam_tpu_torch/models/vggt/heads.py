@@ -1,13 +1,10 @@
 """VGGT output heads (counterpart of vggt_slam_tpu/models/vggt/heads.py).
-
-Camera head: the camera tokens are refined over `cam_iterations`; each
-embeds the current 9-D pose encoding, gates an AdaLN modulation with a
-residual, runs a small self-attention trunk over the S frames (kernel 1
-with the bucket's valid_len; flash_grad under training) and adds a
-predicted delta. DPT head: the shared LayerNorm, 1x1 projections plus the
-UV sin/cos embedding, learned resizes, coarse-to-fine fusion with residual
-conv units and align-corners upsampling, a channel-first (C, S, H, W) f32
-output. Tensors are NCHW here (the reference's NHWC); outputs match.
+Camera: over `cam_iterations` the camera tokens embed the pose encoding,
+gate an AdaLN modulation, run a self-attention trunk over the S frames
+(kernel 1 with the bucket's valid_len; flash_grad in training) and add a
+delta. DPT: LayerNorm, 1x1 projections plus the UV embedding, learned
+resizes, coarse-to-fine fusion, align-corners upsampling; a (C, S, H, W)
+f32 output. NCHW (the reference's NHWC); outputs match.
 """
 from __future__ import annotations
 

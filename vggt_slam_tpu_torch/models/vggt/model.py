@@ -52,21 +52,14 @@ _CF_KEYS = ("world_points_cf", "unproj_points_cf")
 def make_bucketed_model_fn(model: VGGT, bucket_size: int,
                            as_numpy: bool = True,
                            with_unprojection: bool = False, device="cuda"):
-    """Prediction callable with static-shape submap bucketing.
-
-    Pads any (S, 3, H, W) batch with S <= bucket_size to bucket_size frames
-    and passes valid_frames=S, so padded frames are masked out of every
-    cross-frame softmax; outputs are sliced back to S. The model runs on
-    `device` (the card unless the CPU is asked for).
-
-    `with_unprojection` also decodes the cameras (`extrinsic` (S,3,4),
-    `intrinsic` (S,3,3)) and depth-unprojects world points
-    (`unproj_points_cf` (3,S,H,W)) in the same forward.
-
-    `as_numpy=False` returns device tensors without waiting for the device;
-    with True the host gets numpy arrays, channel-first maps restored to
-    (S, H, W, 3) under the key without `_cf`.
-    """
+    """Prediction callable with static-shape submap bucketing: an (S, 3, H, W)
+    batch with S <= bucket_size is padded to bucket_size frames with
+    valid_frames=S (padding masked out of every cross-frame softmax) and
+    outputs sliced back, on `device` (the card unless the CPU is asked for).
+    `with_unprojection` also decodes `extrinsic` (S, 3, 4), `intrinsic` (S,
+    3, 3) and world points `unproj_points_cf` (3, S, H, W) in the same
+    forward. `as_numpy=False` returns device tensors without waiting; True
+    gives numpy, channel-first maps as (S, H, W, 3) without `_cf`."""
     from vggt_slam_tpu_torch.ops import geometry
     from vggt_slam_tpu_torch.utils.device import resolve_device
 

@@ -1,11 +1,8 @@
-"""Transformer building blocks shared by the VGGT encoder, aggregator and
-heads (counterpart of vggt_slam_tpu/models/vggt/modules.py).
-
-Parameters keep the flax names and layouts of the reference so a flat
-checkpoint keyed by flax path loads with a plain rename (models/vggt/
-convert.py): Dense kernels are (in, out), conv kernels (kh, kw, in, out),
-LayerNorm params `scale`/`bias`. Parameters stay f32; compute runs in the
-config dtype, and LayerNorms in f32.
+"""Transformer blocks of the VGGT encoder, aggregator and heads (counterpart
+of vggt_slam_tpu/models/vggt/modules.py), with the flax names and layouts
+(Dense (in, out), conv (kh, kw, in, out), LayerNorm `scale`/`bias`), so a
+flax checkpoint loads by a rename. f32 parameters; compute in the config
+dtype, LayerNorms in f32.
 """
 from __future__ import annotations
 
@@ -133,11 +130,10 @@ class _FusedQKV(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention with optional 2D rope, qk-norm and a merged
-    key/value set: `rope_cos`/`rope_sin` full-length (N, head_dim // 2) tables;
-    `kv_map` maps (B, N, C) tokens to the (B, n_kv, C) key/value source.
-    qk-norm runs before rope, both inside the kernel on the flash path, except
-    with `qk_int8` (scales taken before the LN): then the LN runs outside."""
+    """Multi-head self-attention with optional 2D rope (`rope_cos`/`rope_sin`,
+    (N, head_dim // 2)), qk-norm and a merged K/V set (`kv_map`: (B, N, C) ->
+    (B, n_kv, C)). qk-norm precedes rope, both in the kernel on the flash
+    path, but with `qk_int8` (scales before the LN) the LN runs outside."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
                  attn_impl: str = "flash", qkv_bias: bool = True,

@@ -1,8 +1,8 @@
-"""DINOv2-style ViT image encoder, patch tokens (and the CLS token for
-SALAD) (counterpart of
-vggt_slam_tpu/models/vggt/vit.py): cls and register tokens, learned
-position embeddings resized bilinearly (antialiased when shrinking, as
-jax.image.resize) to the input grid, LayerScale blocks, no rope."""
+"""DINOv2-style ViT encoder (counterpart of vggt_slam_tpu/models/vggt/vit.py):
+patch tokens (and CLS for SALAD), register tokens, positions resized
+bilinearly to the grid (antialiased when shrinking, as jax.image.resize),
+LayerScale blocks, no rope.
+"""
 from __future__ import annotations
 
 import torch

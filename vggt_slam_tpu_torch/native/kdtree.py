@@ -1,8 +1,8 @@
-"""ctypes binding of the host KD-tree (native/kdtree.cpp), the port's
-counterpart of vggt_slam_tpu/native/kdtree.py. The library is built with
-g++ at first use into <repo>/build/vggt_slam_tpu_torch/, never beside the
-source; where no compiler is found, `available()` is False and callers
-take scipy's cKDTree."""
+"""ctypes binding of the host KD-tree (counterpart of
+vggt_slam_tpu/native/kdtree.py), built by g++ at first use into
+<repo>/build/vggt_slam_tpu_torch/; without a compiler `available()` is
+False and callers take scipy's cKDTree.
+"""
 from __future__ import annotations
 
 import ctypes

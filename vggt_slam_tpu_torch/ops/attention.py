@@ -1,32 +1,27 @@
-"""Multi-head attention for the VGGT trunk: plain versions and the
-hand-written CUDA flash-attention kernels, forward and backward
-(counterpart of vggt_slam_tpu/ops/attention.py). q, k, v are packed (B, N,
-H*D), the projections' natural output, so no transposes cross memory.
+"""Multi-head attention for the VGGT trunk (counterpart of
+vggt_slam_tpu/ops/attention.py): plain versions and the CUDA
+flash-attention kernels, forward and backward, on packed (B, N, H*D) q, k,
+v (the projections' output: no transposes).
 
 * `naive_attention`, `chunked_attention`: plain (B, H, N, D) references
-  with the suffix `valid_len` key mask and a per-key `kv_bias`.
-* `flash_single` / `flash_single_ref`: the TPU kernel
-  `_flash_single_kernel` (exact softmax; encoder, frame blocks, camera
-  trunk) and its plain version.
-* `flash_multi` / `flash_multi_ref`: `_flash_kernel` in its default
-  composite (static-max softmax, qk-LN, rope, kv_bias, valid_len; the
-  global blocks) and its plain version.
-* `flash_attention`: the reference's selection rule plus the static bound;
-  `attention` dispatches by name; `return_stats` gives the row stats (m,
-  l).
-* `qk_int8=True` on either forward: the reference's int8 QK^T (scales from
-  `int8_scales`, q and k quantized after rope, s32 logits, bf16 PV),
-  counted as `flash_single_i8` / `flash_multi_i8`, taken by
-  `flash_attention` only where the keys do not fit one block. On CUDA the
-  call's pre-pass computes the scales bit for bit (`int8_scales_cuda`).
-* `flash_bwd` / `flash_bwd_ref`: one CUDA call for what
-  `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` compute (dq, dk, dv);
-  `FlashAttentionGrad` / `flash_attention_grad` wrap the forward with stats
-  and the backward as `impl="flash_grad"`.
+  with a `valid_len` key mask and a per-key `kv_bias`.
+* `flash_single` / `flash_single_ref`: `_flash_single_kernel` (exact
+  softmax; encoder, frame blocks, camera trunk).
+* `flash_multi` / `flash_multi_ref`: `_flash_kernel`'s default composite
+  (static-max softmax, qk-LN, rope, kv_bias, valid_len; global blocks).
+* `flash_attention`: the reference's selection rule; `attention`
+  dispatches by name; `return_stats` gives the row stats (m, l).
+* `qk_int8=True`: the reference's int8 QK^T (`int8_scales`, q and k
+  quantized after rope, s32 logits, bf16 PV), counted as
+  `flash_single_i8` / `flash_multi_i8`; on CUDA the pre-pass computes the
+  scales bit for bit (`int8_scales_cuda`).
+* `flash_bwd` / `flash_bwd_ref`: one CUDA call for `_flash_bwd_dq_kernel`
+  and `_flash_bwd_dkv_kernel`; `FlashAttentionGrad` /
+  `flash_attention_grad` pair it with the forward as `impl="flash_grad"`.
 
-A wrapper runs its plain version only for CPU tensors; for a CUDA tensor
-it launches the kernel (csrc/flash_attention.cu,
-csrc/flash_attention_bwd.cu) or raises.
+A wrapper takes its plain version for CPU tensors only; on CUDA it
+launches the kernel (csrc/flash_attention.cu, flash_attention_bwd.cu) or
+raises.
 """
 from __future__ import annotations
 
@@ -52,9 +47,7 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-# ---------------------------------------------------------------------------
 # Plain (B, H, N, D) references
-# ---------------------------------------------------------------------------
 
 def _key_mask(valid_len, nk, device):
     return torch.arange(nk, device=device) < valid_len
@@ -95,9 +88,7 @@ def chunked_attention(q, k, v, valid_len=None, chunk=1024, kv_bias=None):
     return torch.cat(outs, dim=2)
 
 
-# ---------------------------------------------------------------------------
 # Kernel semantics: tile preparation and the plain versions
-# ---------------------------------------------------------------------------
 
 def ln_fast(x, g, b, eps):
     """Per-row LayerNorm over the last dim with f32 fast-variance stats
@@ -137,11 +128,11 @@ def _prep(x, num_heads, ln, ln_eps, rope, scale):
 
 
 def int8_scales(q, k, num_heads, rope: bool):
-    """Per-(batch, head) int8 scales of packed q and k (reference
-    attention.py:606-629): amax the largest pair norm of (x1, x2) under rope,
-    else the largest |x|, at least 1e-6. Returns (3, B*H) f32: 127/amax_q,
-    127/amax_k (one division, as the reference's; a reciprocal and a product
-    can be an ulp off) and amax_q amax_k log2(e) / (sqrt(D) 127^2)."""
+    """Per-(batch, head) int8 scales of packed q, k (reference
+    attention.py:606-629): amax the largest rope pair norm, else the largest
+    |x|, at least 1e-6. Returns (3, B*H) f32: 127/amax_q, 127/amax_k (one
+    division: a reciprocal and a product can be an ulp off) and amax_q amax_k
+    log2(e) / (sqrt(D) 127^2)."""
     B, H = q.shape[0], num_heads
     D = q.shape[2] // H
 
@@ -187,10 +178,10 @@ def _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln, qk_int8=False):
 
 def _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias, qk_ln,
            qk_ln_eps, smax, return_stats=False, qk_int8=False, q_chunk=2048):
-    """Shared plain version: `smax` None = exact running max (kernel 1), else
-    the static bound per (batch, head) (kernel 2); `return_stats` adds the (B,
-    H, Nq) f32 m and l; `qk_int8` quantizes q, k with `int8_scales` and takes
-    QK^T as an exact f32 product of the int8 values (|sum| < 2^24)."""
+    """Shared plain version: `smax` None = the running max (kernel 1), else the
+    static bound per (batch, head) (kernel 2); `return_stats` adds (B, H, Nq)
+    f32 m, l; `qk_int8` quantizes q, k by `int8_scales` and takes QK^T as an
+    exact f32 product of the int8 values."""
     _check_args(q, k, v, num_heads, rope_q, rope_k, qk_ln, qk_int8)
     B, Nq, HD = q.shape
     Nk = k.shape[1]
@@ -244,11 +235,11 @@ def flash_single_ref(q, k, v, *, num_heads, valid_len=None, rope_q=None,
                      rope_k=None, kv_bias=None, qk_ln=None, qk_ln_eps=1e-5,
                      qk_int8=False, return_stats=False):
     """Plain `flash_single`: packed (B, N, H*D) exact softmax attention in f32
-    with the kernel's bf16 tile roundings. `rope_q`/`rope_k`: (cos, sin) (N,
-    D/2); `qk_ln`: (gq, bq, gk, bk) per-head-dim LayerNorm (needs rope);
-    `kv_bias`: (Nk,) natural-log bias; `valid_len`: keys from it on masked;
-    `return_stats`: (out, m, l), m the exp2-domain row max, l the row sum of
-    exp2(s - m), (B, H, Nq) f32; `qk_int8`: see `_plain`."""
+    with the kernel's bf16 roundings. `rope_q`/`rope_k`: (cos, sin) (N, D/2);
+    `qk_ln`: (gq, bq, gk, bk) per-head-dim LN (needs rope); `kv_bias`: (Nk,)
+    natural-log bias; `valid_len`: keys from it on masked; `return_stats`:
+    (out, m, l), (B, H, Nq) f32 exp2-domain row max and sum; `qk_int8`: see
+    `_plain`."""
     return _plain(q, k, v, num_heads, valid_len, rope_q, rope_k, kv_bias,
                   qk_ln, qk_ln_eps, None, return_stats, qk_int8)
 
@@ -263,9 +254,7 @@ def flash_multi_ref(q, k, v, smax, *, num_heads, valid_len=None,
                   qk_ln, qk_ln_eps, smax, return_stats, qk_int8)
 
 
-# ---------------------------------------------------------------------------
 # CUDA kernel wrappers
-# ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -512,18 +501,15 @@ def flash_multi(q, k, v, smax, *, num_heads, valid_len=None, rope_q=None,
     return out
 
 
-# ---------------------------------------------------------------------------
 # Backward: plain version, CUDA kernel wrappers, autograd Function
-# ---------------------------------------------------------------------------
 
 def flash_bwd_ref(q, k, v, dout, m, l, delta, *, num_heads, valid_len=None,
                   q_chunk=2048):
-    """Plain backward: packed q, k, v, dout and the forward's (B, H, Nq) f32 m,
-    l with delta = rowsum(dout * out) -> (dq, dk, dv) in the inputs' dtypes. As
+    """Plain backward: packed q, k, v, dout, the forward's (B, H, Nq) f32 m, l
+    and delta = rowsum(dout * out) -> (dq, dk, dv) in the inputs' dtypes, as
     the reference's kernels: p = exp2(c q.k - m) / max(l, 1e-30), c =
     log2(e)/sqrt(D), zero from valid_len on; dL = p (dout.v - delta) cast to
-    the input dtype before its products; p cast to dout's dtype before dv; f32
-    sums."""
+    the input dtype before its products, p to dout's before dv; f32 sums."""
     B, Nq, HD = q.shape
     Nk = k.shape[1]
     H = num_heads
@@ -659,9 +645,7 @@ def flash_attention_grad(q, k, v, *, num_heads, valid_len=None,
                                     softmax)
 
 
-# ---------------------------------------------------------------------------
 # Selection rule and dispatch
-# ---------------------------------------------------------------------------
 
 def static_bound(q, k, num_heads, qk_ln=None, kv_bias=None):
     """Per-(batch, head) Cauchy-Schwarz bound on the exp2-domain logits,
@@ -704,10 +688,9 @@ def flash_attention(q, k, v, *, num_heads, valid_len=None, rope_q=None,
                     return_stats=False):
     """Packed flash attention by the reference's rule (attention.py:972-979):
     keys that fit one 128-rounded block of at most min(block_k, 2304) take
-    kernel 1; longer ones kernel 2 under softmax="static" (kernel 1 otherwise:
-    its running max gives the reference's online softmax). `return_stats`:
-    (out, m, l). `qk_int8` only where the keys do not fit one block
-    (attention.py:549)."""
+    kernel 1, longer ones kernel 2 under softmax="static" (else kernel 1).
+    `return_stats`: (out, m, l). `qk_int8` only where the keys do not fit one
+    block (attention.py:549)."""
     if qk_int8 and qk_ln is not None:
         raise ValueError("qk_ln and qk_int8 do not go together")
     Nk = k.shape[1]

@@ -1,12 +1,8 @@
-"""Build and load the port's CUDA kernels at first use.
-
-Each source under `vggt_slam_tpu_torch/csrc/` is compiled with plain
-`nvcc` for `sm_90a` into a shared library with a C interface under
-`<repo>/build/vggt_slam_tpu_torch/`, rebuilt only when the source or a
-shared header (`csrc/*.cuh`) is newer than the library or its ptxas
-report, and loaded with
-ctypes (the `native/kdtree.py` pattern of
-the JAX package). Nothing here runs at import time.
+"""Build and load the port's CUDA kernels at first use: each csrc/ source is
+compiled by plain `nvcc` for `sm_90a` into a C-interface library under
+`<repo>/build/vggt_slam_tpu_torch/` (rebuilt when it or a `csrc/*.cuh`
+header is newer than the library or its ptxas report) and loaded with
+ctypes. Nothing runs at import.
 """
 from __future__ import annotations
 

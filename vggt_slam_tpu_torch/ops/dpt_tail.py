@@ -1,13 +1,10 @@
-"""The fused DPT output tail: row upsample + pos-embed + 3x3 conv + ReLU +
-1x1 conv in one CUDA kernel (counterpart of vggt_slam_tpu/ops/dpt_tail.py,
-whose Pallas `_kernel` it replaces).
-
-As in the reference, the column upsample stays outside (`upsample_columns`,
-a matmul with the interpolation matrix) and `DPTHead` does not call the
-kernel (csrc/dpt_tail.cu), which writes (cout, S, H, W) f32;
-`fused_tail_ref` is its plain version with the same roundings. CPU tensors
-take the plain version; a CUDA tensor launches the kernel or raises. w0
-comes in `kernel_weights`' layout.
+"""The fused DPT output tail (counterpart of vggt_slam_tpu/ops/dpt_tail.py,
+whose Pallas `_kernel` csrc/dpt_tail.cu replaces): row upsample,
+pos-embed, 3x3 conv, ReLU and 1x1 conv in one kernel writing (cout, S, H,
+W) f32. The column upsample stays outside (`upsample_columns`), and
+`DPTHead` does not call it, as in the reference. `fused_tail_ref` is the
+plain version with the same roundings, for CPU tensors; w0 comes in
+`kernel_weights`' layout.
 """
 from __future__ import annotations
 
@@ -162,12 +159,11 @@ def _launch(x, pos, w0, b0, w1, b1, out=None):
 
 
 def fused_tail(x, pos, w0, b0, w1, b1) -> torch.Tensor:
-    """Fused row upsample + pos + conv3x3 + ReLU + conv1x1, channel-first. x
-    (S, rows_in, W, cin) after the column upsample; pos (rows_out, W, cin),
-    scaled by 0.1; w0, b0 (3, 3, cin, cmid), (cmid,); w1, b1 (1, 1, cmid, cout)
-    or (cmid, cout), (cout,). Returns (cout, S, rows_out, W) f32. CPU tensors
-    take `fused_tail_ref`; CUDA tensors the kernel (bf16 x, cin 32 to 128 by
-    32, cmid 32, cout <= 4)."""
+    """Fused row upsample + pos + conv3x3 + ReLU + conv1x1: x (S, rows_in, W,
+    cin) after the column upsample, pos (rows_out, W, cin) scaled by 0.1, w0
+    (3, 3, cin, cmid), b0, w1 (1, 1, cmid, cout) or (cmid, cout), b1 ->
+    (cout, S, rows_out, W) f32. CPU tensors take `fused_tail_ref`; CUDA the
+    kernel (bf16 x, cin 32 to 128 by 32, cmid 32, cout <= 4)."""
     rows_in, rows_out = x.shape[1], pos.shape[0]
     if not supported(rows_in, rows_out):
         raise ValueError(f"unsupported rows {rows_in} -> {rows_out}")

@@ -1,10 +1,7 @@
-"""Camera geometry: pose encodings, depth unprojection, P-matrix
-decomposition (counterpart of vggt_slam_tpu/ops/geometry.py).
-
-Conventions as the reference: extrinsics are world->camera (3, 4) [R|t];
-pose encoding (9,) = [t(3), quat(4, wxyz), fov_h, fov_w]; intrinsics
-fx = W / (2 tan(fov_w / 2)), principal point (W/2, H/2); the unprojection
-pixel grid uses integer (u, v).
+"""Camera geometry (counterpart of vggt_slam_tpu/ops/geometry.py): pose
+encodings (9,) = [t, quat wxyz, fov_h, fov_w], depth unprojection on
+integer (u, v), P-matrix decomposition; world->camera (3, 4) [R|t]
+extrinsics, fx = W / (2 tan(fov_w / 2)), principal point (W/2, H/2).
 """
 from __future__ import annotations
 

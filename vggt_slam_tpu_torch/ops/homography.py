@@ -54,12 +54,9 @@ def sample_indices(weights: torch.Tensor, generator: torch.Generator,
 def ransac_projective(X1, X2, weights=None, *, generator=None, indices=None,
                       threshold: float = 0.01, max_iter: int = 300,
                       sample_size: int = 5):
-    """RANSAC SL(4): H with X2 ~ H X1 from (N, 3) matched points.
-
-    Hypothesis samples come from `generator` or, for tests that hold two
-    implementations to the same draw, from injected `indices`
-    (max_iter, sample_size). Returns (H (4, 4), inlier count ()), the count
-    weighted by `weights` (invalid points are never counted)."""
+    """RANSAC SL(4): H with X2 ~ H X1 from (N, 3) matched points; samples from
+    `generator` or injected `indices` (max_iter, sample_size). Returns (H (4,
+    4), the inlier count weighted by `weights`)."""
     if X1.dtype not in (torch.float32, torch.float64):
         X1 = X1.float()
     X2 = X2.to(X1.dtype)

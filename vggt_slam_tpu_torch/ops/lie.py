@@ -1,10 +1,8 @@
-"""Lie-group operations: SO(3), SE(3), Sim(3), SL(4) (counterpart of
-vggt_slam_tpu/ops/lie.py). Pure torch, batched, f32 or f64, free of
-data-dependent Python control flow so the pose-graph solver can take
-forward-mode Jacobians under torch.func.vmap. The reference's conventions:
-right retraction X @ exp(xi), quaternions (w, x, y, z), SL(4) tangent basis
-the 12 off-diagonal E_ij (row-major), then diag(1,-1,0,0), diag(0,1,-1,0),
-diag(0,0,1,-1).
+"""SO(3), SE(3), Sim(3), SL(4) (counterpart of vggt_slam_tpu/ops/lie.py):
+batched torch, f32 or f64, without data-dependent control flow (for
+torch.func Jacobians); right retraction X @ exp(xi), quaternions (w, x,
+y, z), SL(4)'s basis the 12 off-diagonal E_ij (row-major), then
+diag(1,-1,0,0), diag(0,1,-1,0), diag(0,0,1,-1).
 """
 from __future__ import annotations
 
@@ -18,9 +16,7 @@ def _eye(n, like):
     return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
-# ---------------------------------------------------------------------------
 # Quaternions / SO(3)
-# ---------------------------------------------------------------------------
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     """(..., 4) (w, x, y, z) -> (..., 3, 3)."""
@@ -109,9 +105,7 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     return torch.where(near_pi[..., None], axis * theta[..., None], w_generic)
 
 
-# ---------------------------------------------------------------------------
 # SE(3): xi = (rho, omega)
-# ---------------------------------------------------------------------------
 
 def _so3_left_jacobian(w):
     theta2 = (w * w).sum(-1)
@@ -166,9 +160,7 @@ def se3_inverse(T):
     return _compose(Rt, ti, T)
 
 
-# ---------------------------------------------------------------------------
 # Sim(3): xi = (rho, omega, lambda)
-# ---------------------------------------------------------------------------
 
 def _sim3_W(w, lam):
     W = so3_hat(w)
@@ -227,9 +219,7 @@ def sim3_log(T):
     return torch.cat([rho, w, lam[..., None]], dim=-1)
 
 
-# ---------------------------------------------------------------------------
 # General 4x4 matrix exp/log (SL(4))
-# ---------------------------------------------------------------------------
 
 # 2x2 minors of rows (0, 1) ("s") and rows (2, 3) ("c") over the column
 # pairs below, and the adjugate of a 4x4 matrix as signed products of one
@@ -367,9 +357,7 @@ def logm(A: torch.Tensor, num_sqrt: int = 3,
     return acc * (2.0 * (2 ** num_sqrt))
 
 
-# ---------------------------------------------------------------------------
 # SL(4)
-# ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
 def _sl4_basis_np():

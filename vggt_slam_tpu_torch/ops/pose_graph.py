@@ -1,11 +1,8 @@
 """Levenberg-Marquardt pose-graph optimization on SL(4)/Sim(3)/SE(3)
-(counterpart of vggt_slam_tpu/ops/pose_graph.py).
-
-Residuals follow GTSAM semantics: r = Log(Z^-1 (X_i^-1 X_j)) for between
-factors, r = Log(Z^-1 X) for priors, whitened by diagonal sqrt information;
-right retraction X <- X @ Exp(delta). Jacobians are exact forward-mode
-derivatives (torch.func.jacfwd under torch.func.vmap). Nodes and factors
-are padded to bucket capacities and masked; the normal equations are dense.
+(counterpart of vggt_slam_tpu/ops/pose_graph.py): GTSAM residuals (r =
+Log(Z^-1 X_i^-1 X_j), priors Log(Z^-1 X)) whitened by sqrt information,
+right retraction, exact forward-mode Jacobians (jacfwd under vmap), nodes
+and factors padded to buckets and masked, dense normal equations.
 """
 from __future__ import annotations
 
@@ -158,12 +155,10 @@ def optimize(g: GraphArrays, manifold: str = "sl4", max_iters: int = 60,
              inner_tries: int = 4, lambda_init: float = 1e-5,
              lambda_factor: float = 10.0, abs_tol: float = 1e-12,
              rel_tol: float = 1e-10):
-    """LM to convergence; returns (values (N, 4, 4), final error).
-
-    Multiplicative damping on the Hessian diagonal, lambda /10 on an
-    accepted step and x10 on a rejected one (clipped to [1e-12, 1e10]), up
-    to `inner_tries` tries per iteration, stopping on no accepted step or an
-    absolute/relative decrease below tolerance - the reference's loop."""
+    """LM to convergence -> (values (N, 4, 4), final error): multiplicative
+    damping on the Hessian diagonal, lambda /10 on an accepted step, x10 on a
+    rejected one (in [1e-12, 1e10]), up to `inner_tries` a step; stops on no
+    accepted step or a decrease below tolerance, as the reference."""
     g = _active_factors(g)
     values = g.values
     err = total_error(manifold, g)

@@ -1,10 +1,9 @@
-"""Voxelization: the mean of per-point features over occupied voxels
-(counterpart of vggt_slam_tpu/ops/voxel.py). `voxelize_np` is the exact
-host path (voxels in `np.unique(axis=0)` order); `voxelize_device` the
-static-capacity path on the tensors' device (three stable sorts give the
-lexsort order, runs of equal coordinates become segments, sums by
-`index_add_`). On CUDA the sums are atomic adds, so its means agree with
-`voxelize_np` within `mean_tolerance`.
+"""Voxelization, the mean of per-point features over occupied voxels
+(counterpart of vggt_slam_tpu/ops/voxel.py): `voxelize_np` exact on the
+host (`np.unique(axis=0)` order); `voxelize_device` at a static capacity
+on the tensors' device (three stable sorts, segments of equal
+coordinates, `index_add_` sums; atomic on CUDA, so means within
+`mean_tolerance`).
 """
 from __future__ import annotations
 
@@ -80,10 +79,10 @@ def unique_rows(rows: torch.Tensor):
 
 def voxelize_device(points: torch.Tensor, feats: torch.Tensor,
                     mask: torch.Tensor, voxel_size: float, capacity: int):
-    """Masked voxel mean with a static output size: points (N, 3), feats (N,
-    d), mask (N,); the first `capacity` voxels in coordinate order. Returns
-    centers (capacity, 3) f32, feat_mean (capacity, d), counts (capacity,) in
-    feats' dtype and num_voxels (); entries past num_voxels are zero."""
+    """Masked voxel means at a static size: points (N, 3), feats (N, d), mask
+    (N,); the first `capacity` voxels in coordinate order. Returns centers
+    (capacity, 3) f32, feat_mean, counts (feats' dtype) and num_voxels ();
+    entries past num_voxels are zero."""
     coords = voxel_coords(points, voxel_size, torch.int32)
     coords = torch.where(mask.bool()[:, None], coords,
                          torch.full_like(coords, SENTINEL))

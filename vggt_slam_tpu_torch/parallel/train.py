@@ -1,11 +1,8 @@
 """VGGT training step on one device (counterpart of vggt_slam_tpu/parallel/
-train.py `vggt_loss`, `make_train_step` and `make_dryrun_batch`).
-
-Losses follow the VGGT paper's recipe, as the reference: camera
-pose-encoding regression plus confidence-weighted dense depth and point
-regression (conf * |err| - alpha * log conf). The step runs the model's
-forward and backward on its own device; the reference's mesh shardings,
-ZeRO-1 and GPipe variants are not ported yet.
+train.py `vggt_loss`, `make_train_step`, `make_dryrun_batch`): pose
+encoding regression plus confidence-weighted depth and point regression
+(conf |err| - alpha log conf), as the reference; its mesh shardings,
+ZeRO-1 and GPipe are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,12 +30,10 @@ def vggt_loss(model, batch: dict) -> torch.Tensor:
 
 
 def make_train_step(model, optimizer=None):
-    """-> (train_step, optimizer). train_step(batch) runs one forward,
-    backward and optimizer update of `model` in place on its device and
-    returns the loss as a 0-d device tensor (no host sync). The default
-    optimizer is the reference's optax.adamw(1e-4, weight_decay=0.05):
-    decoupled weight decay on every parameter, betas (0.9, 0.999), eps
-    1e-8."""
+    """-> (train_step, optimizer): train_step(batch) runs a forward, backward
+    and update of `model` in place on its device and returns the loss as a
+    0-d device tensor (no sync). The default optimizer is the reference's
+    optax.adamw(1e-4, weight_decay=0.05), betas (0.9, 0.999), eps 1e-8."""
     if optimizer is None:
         optimizer = torch.optim.AdamW(model.parameters(), lr=1e-4,
                                       weight_decay=0.05)

@@ -1,26 +1,21 @@
-"""Microbenchmark of the frame-attention kernel on the card: the port's
-counterpart of scripts/bench_attention.py.
-
-Frame attention is BH = S·H independent problems of ~1041 tokens at D =
-64. The script times `ops.attention.flash_single` beside four CUDA probes
-(csrc/bench_attention.cu) that split it: `matmul_only` (o = bf16(q kᵀ) v,
-the tensor-core floor), `softmax_only` (the exp2 softmax of a broadcast
-logit row, the softmax floor), `grouped_attention` (straight or
-interleaved) and `pipelined_attention` (G problems a work item on
-`grouped_sm90`, to see whether one problem's products hide another's
-softmax), and SDPA at scale ln 2. Inputs are padded to Np = roundup(N,
-128) with unmasked zero keys, as in the reference; G in 2, 4, 8.
+"""The frame-attention microbenchmark on the card (counterpart of
+scripts/bench_attention.py): BH = S·H problems of ~1041 tokens at D 64,
+`ops.attention.flash_single` beside four probes of csrc/bench_attention.cu
+that split it: `matmul_only` (o = bf16(q kᵀ) v, the tensor-core floor),
+`softmax_only` (the softmax floor), `grouped_attention` (straight or
+interleaved) and `pipelined_attention` (G in 2, 4, 8 problems a work item
+on `grouped_sm90`), and SDPA at scale ln 2. Inputs are padded to Np =
+roundup(N, 128) with unmasked zero keys, as in the reference.
 
     python -m vggt_slam_tpu_torch.scripts.bench_attention [--iters 20]
         [--frames 33] [--heads 16] [--tokens 1041] [--dim 64] [--check]
 
 Each line: ms (CUDA events, best of 3), TF/s (4·BH·Np²·D), the bound and
-its share, the plain version's ms. `--check` first holds every call
-against its plain version (softmax-only bit-exact, else 1e-2 of max|ref|;
-grouped and pipelined also at their key tile, `tiled_tolerance`; the
-attention calls against naive attention on two heads) and raises on a
-mismatch. Needs the card. Wrappers take their plain versions for CPU
-tensors only; `LAUNCHES` counts launches, `design_launches()` the C
+its share, the plain ms. `--check` first holds every call to its plain
+version (softmax-only bit-exact, else 1e-2 of max|ref|; grouped and
+pipelined also at their key tile, `tiled_tolerance`; attention against
+naive attention on two heads). Needs the card; CPU tensors take the plain
+versions. `LAUNCHES` counts launches, `design_launches()` the C
 launcher's counts.
 """
 from __future__ import annotations
@@ -62,9 +57,7 @@ def roundup(x, m):
     return -(-x // m) * m
 
 
-# ---------------------------------------------------------------------------
 # Plain versions
-# ---------------------------------------------------------------------------
 
 def _by_problem(fn, q, k, v, chunk=64):
     """fn over chunks of at most `chunk` problems of (..., Np, D) inputs,
@@ -97,11 +90,10 @@ def softmax_only_ref(q, k, v):
 
 
 def exp2_attention_ref(q, k, v, l_keys=None, block_k=None):
-    """Plain version of the grouped and pipelined probes: s = q kᵀ in f32 on
-    pre-scaled q, m the row max over all keys (padded ones too), p = exp2(s -
-    m), l the f32 sum of p, o = (bf16(p) v) / max(l, 1e-30). With `block_k`, m
-    is the running max over key tiles as the kernels take it, so p rounds
-    against the same max. `l_keys` sums l over the first l_keys keys only: a
+    """Plain grouped and pipelined probes: s = q kᵀ in f32 on pre-scaled q, m
+    the row max over all keys, p = exp2(s - m), l the f32 sum, o = bf16(p) v
+    / max(l, 1e-30); with `block_k` m is the running max over key tiles, as
+    the kernels take it. `l_keys` sums l over the first l_keys keys only: a
     control the checks must reject."""
     def logits(q, k):
         return torch.matmul(q.float(), k.float().transpose(-1, -2))
@@ -133,9 +125,7 @@ def exp2_attention_ref(q, k, v, l_keys=None, block_k=None):
     return _by_problem(fn, q, k, v)
 
 
-# ---------------------------------------------------------------------------
 # CUDA kernel wrappers
-# ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -336,9 +326,7 @@ _ROLE = {matmul_only: ("matmul", "matmul_only", matmul_only_ref),
          sdpa: ("library", None, exp2_attention_ref)}
 
 
-# ---------------------------------------------------------------------------
 # The reference's calls: padding, reshapes, pre-scale
-# ---------------------------------------------------------------------------
 
 class Probe:
     """One line: `prep` makes the call's arguments once (untimed), `run` is the
@@ -461,9 +449,7 @@ def probe_error(kind, out, ref):
     return diff, tol
 
 
-# ---------------------------------------------------------------------------
 # Bounds and timing
-# ---------------------------------------------------------------------------
 
 def bound_ms(kind, BH, n, D, ex2_rate):
     """Least card time of one call on BH problems of n keys: (ms, "operations"
@@ -560,9 +546,7 @@ def ex2_rate(device, iters=4096):
     return blocks * 256 * 8 * iters / (ms * 1e-3)
 
 
-# ---------------------------------------------------------------------------
 # Entry point
-# ---------------------------------------------------------------------------
 
 parser = argparse.ArgumentParser(
     description="Frame-attention probes on the card (matmul-only and "

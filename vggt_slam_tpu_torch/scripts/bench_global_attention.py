@@ -1,25 +1,22 @@
-"""Global-attention probe on the card: the port of
-scripts/bench_global_attention.py.
-
-At an S = 33 submap's exact global shape (BH 16, N = 34353 padded to
-34816, D 64, nothing masked) one kernel (csrc/bench_global_attention.cu on
-csrc/global_sm90.cuh) computes the reference's modes at five tilings:
-`bf16` (s = f32(q kᵀ)/√D, online softmax with the natural exp), `int8` (q,
-k quantized per tensor outside the kernel, PV in bf16) and `matmul` (o =
-Σ bf16(s/√D) v, the tensor-core floor). As in the reference, `run_kernel`
-attends to the first q.shape[1] keys, so the "2048x4096 slab" attends to
-2048 keys. SDPA is the library line.
+"""Global-attention probe on the card (counterpart of
+scripts/bench_global_attention.py): at an S = 33 submap's global shape (BH
+16, N = 34353 padded to 34816, D 64, nothing masked) one kernel
+(csrc/bench_global_attention.cu on global_sm90.cuh) computes the
+reference's modes at five tilings: `bf16` (s = f32(q kᵀ)/√D, online
+softmax, natural exp), `int8` (q, k quantized per tensor by the caller, PV
+in bf16), `matmul` (o = Σ bf16(s/√D) v). As in the reference, `run_kernel`
+attends to the first q.shape[1] keys (the "2048x4096 slab" to 2048). SDPA
+is the library line.
 
     python -m vggt_slam_tpu_torch.scripts.bench_global_attention
         [--iters 8] [--n 34353] [--heads 16] [--check]
 
 Each line: ms (CUDA events, best of 3), TF/s (4·BH·N²·D), the bound and
-its share, the plain version's ms. `--check` first holds every mode
-against its plain version (the default tiling on all rows, the others on a
-2048-row slab) with the int8 control. Needs the card. The module also
-holds what the other global-shape probes share (the plain online softmax,
-the operand checks, the bound, the line); `LAUNCHES` and `design_launches`
-count launches.
+share, the plain ms. `--check` holds every mode to its plain version (the
+default tiling on all rows, the others on a 2048-row slab) with the int8
+control. Needs the card. The module holds what the global probes share
+(plain online softmax, operand checks, bound, line); `LAUNCHES` and
+`design_launches` count launches.
 """
 from __future__ import annotations
 
@@ -55,9 +52,7 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-# ---------------------------------------------------------------------------
 # Plain versions (shared by the global-shape probes)
-# ---------------------------------------------------------------------------
 
 def qk_f32(q, k):
     """q kᵀ with f32 products and sums (exact for int8 values)."""
@@ -113,9 +108,7 @@ def run_kernel_ref(q, k, v, block_q, block_k, mode, scale, n_keys=None):
     return (acc / l[..., None]).to(torch.bfloat16)
 
 
-# ---------------------------------------------------------------------------
 # CUDA kernel wrapper
-# ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -219,9 +212,7 @@ def sdpa(q, k, v, scale):
                                               scale=scale)[0]
 
 
-# ---------------------------------------------------------------------------
 # Inputs, quantization, bounds, lines (shared by the global-shape probes)
-# ---------------------------------------------------------------------------
 
 def make_inputs(BH, N, D, seed=0, device="cpu", scale=1.0):
     """q, k, v (BH, N, D) bf16 from a seeded numpy normal, in the
@@ -254,11 +245,10 @@ def int8_operands(q, k, scale):
 
 def bound_ms(BH, Nq, Nk, D, ex2_rate, *, qk8=False, pv8=False, exp=True,
              qk_bytes=2):
-    """Least card time of one call: the largest of the tensor-core time (QKᵀ
-    and PV, 2·BH·Nq·Nk·D each, at the int8 or bf16 peak), the exp time
-    (BH·Nq·Nk at `ex2_rate`) and the bytes (q, k at qk_bytes, v and o in bf16,
-    once each) at 3.35 TB/s. Returns (ms, "operations" or "bytes", what sets
-    it)."""
+    """Least card time of a call: the largest of the tensor cores' time (QKᵀ,
+    PV: 2·BH·Nq·Nk·D each at the int8 or bf16 peak), the exp time (BH·Nq·Nk
+    at `ex2_rate`) and the bytes at 3.35 TB/s. Returns (ms, "operations" or
+    "bytes", what sets it)."""
     mm = 2.0 * BH * Nq * Nk * D
     tensor = (mm / (INT8_PEAK_OPS if qk8 else BA.BF16_PEAK_FLOPS)
               + mm / (INT8_PEAK_OPS if pv8 else BA.BF16_PEAK_FLOPS)) * 1e3
@@ -324,9 +314,7 @@ def require_card():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-# ---------------------------------------------------------------------------
 # Entry point
-# ---------------------------------------------------------------------------
 
 parser = argparse.ArgumentParser(
     description="Global-attention probe on the card: bf16 (natural exp), "

@@ -1,22 +1,17 @@
-"""In-kernel int8 quantization at the global shape on the card: the port of
-scripts/bench_int8_inkernel.py.
-
-BH 16, N 34353 padded to 34816, D 64, bf16 q, k, v. One kernel
-(csrc/bench_int8_inkernel.cu on csrc/global_sm90.cuh) computes
-exp2-domain online-softmax attention with per-(b, h) scales computed
-outside (`scales`), as the reference's `run`: `bf16`, `qk8` (q, k
-quantized in the kernel, QKᵀ in int8) and `qk8av8` (p and v too). Each K
-and V tile is quantized as it lands (the reference fills a per-head
-scratch): the same int8 values. SDPA (scale 1/√D) is bf16's library line.
+"""In-kernel int8 quantization at the global shape on the card (counterpart
+of scripts/bench_int8_inkernel.py): BH 16, N 34353 padded to 34816, D 64;
+csrc/bench_int8_inkernel.cu (on global_sm90.cuh) computes exp2-domain
+online-softmax attention with per-(b, h) scales from `scales`: `bf16`,
+`qk8` (q, k quantized in the kernel) and `qk8av8` (p and v too), each K, V
+tile quantized as it lands (the same int8 values as the reference's
+scratch). SDPA (scale 1/√D) is bf16's library line.
 
     python -m vggt_slam_tpu_torch.scripts.bench_int8_inkernel
         [--iters 6] [--n 34353] [--check]
 
-First the reference's accuracy lines (each mode against f32 attention on
-2048 q rows), then one line per mode and tiling as in
-bench_global_attention. `--check` holds every mode against its plain
-version with the int8 controls. Needs the card; `LAUNCHES` and
-`design_launches` count launches.
+The reference's accuracy lines (each mode against f32 on 2048 rows), then
+a line per mode and tiling. `--check` holds every mode to its plain
+version with the int8 controls. Needs the card.
 """
 from __future__ import annotations
 
@@ -54,9 +49,7 @@ def scales(q, k, v, mode):
                         va / (127.0 * 127.0)])
 
 
-# ---------------------------------------------------------------------------
 # Plain version
-# ---------------------------------------------------------------------------
 
 def quant(x, inv):
     """clip(round(x · inv), ±127) per (b, h) (round half to even), as f32
@@ -105,9 +98,7 @@ def f32_attention(q, k, v, heads_per_chunk=4):
     return torch.cat(out)
 
 
-# ---------------------------------------------------------------------------
 # CUDA kernel wrapper
-# ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -158,9 +149,7 @@ def run(q, k, v, block_q, block_k, mode):
     return attention(scales(q, k, v, mode), q, k, v, block_q, block_k, mode)
 
 
-# ---------------------------------------------------------------------------
 # Entry point
-# ---------------------------------------------------------------------------
 
 parser = argparse.ArgumentParser(
     description="In-kernel int8 quantization (bf16, qk8, qk8av8) of "

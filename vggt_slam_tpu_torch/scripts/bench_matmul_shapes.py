@@ -1,27 +1,23 @@
-"""Matmul rates at attention-like shapes on the card: the port of
-scripts/bench_matmul_shapes.py.
-
-Do the tensor cores keep up at K = 64, and does a grid of one problem a
-tile keep up with the library's batched product?
-csrc/bench_matmul_shapes.cu computes o[p] = bf16(a[p] @ b[p]) on bf16 a
-(B, M, K), b (B, K, N) on `mm_sm90` (persistent grid, TMA ring, `wgmma`,
-TMA-store epilogue): `batched_mm` (a work item is one output tile;
-`pallas_batched_mm`) and `grouped_mm` (that tile of G problems in order;
-`pallas_grouped_mm`), at TILINGS, beside `torch.bmm`, in the reference's
-sections: nine products at B = 1, B = 528 at the QKᵀ shape with G in (2,
-4, 8, 16), the PV shape.
+"""Matmul rates at attention-like shapes on the card (counterpart of
+scripts/bench_matmul_shapes.py): do the tensor cores keep up at K = 64,
+and a grid of one problem a tile with the library's batched product?
+csrc/bench_matmul_shapes.cu computes o[p] = bf16(a[p] @ b[p]) on `mm_sm90`
+(persistent grid, TMA ring, `wgmma`, TMA-store epilogue): `batched_mm`
+(`pallas_batched_mm`) and `grouped_mm` (G problems a tile in order;
+`pallas_grouped_mm`) at TILINGS beside `torch.bmm`, in the reference's
+sections: nine products at B = 1; B = 528 at the QKᵀ shape, G in (2, 4, 8,
+16); the PV shape.
 
     python -m vggt_slam_tpu_torch.scripts.bench_matmul_shapes
         [--iters 20] [--check]
 
-Each line: the kernel alone from a CUDA graph of at least --iters launches
-(`bench_attention.graph_bench`), best of 3, cycling through operand copies
-spanning twice the 50 MB L2; TF/s; the bound and its share; the plain and
-library times. Seeded normals drawn on the card. `--check` runs every line
-into a NaN-filled output, holds it within one bf16 ulp of max|ref|, and at
-B = 528 runs three controls it must reject. `LAUNCHES` counts runs (a
-graph's at each replay), `CALLS` the C entries' calls, `design_launches()`
-the C launcher's count (captures included).
+Each line: the kernel from a CUDA graph of >= --iters launches
+(`bench_attention.graph_bench`), best of 3, over operand copies spanning
+twice the 50 MB L2; TF/s; the bound and share; plain and library times.
+`--check` fills outputs with NaN, holds each line within one bf16 ulp of
+max|ref| and at B = 528 runs three controls it must reject. `LAUNCHES`
+counts runs (a graph's at each replay), `CALLS` the C entries' calls,
+`design_launches()` the C launcher's count.
 """
 from __future__ import annotations
 
@@ -57,9 +53,7 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = CALLS[name] = 0
 
 
-# ---------------------------------------------------------------------------
 # Plain version and the library line
-# ---------------------------------------------------------------------------
 
 def batched_mm_ref(a, b, chunk=64):
     """Plain version of both kernels: exact f32 products of the bf16 inputs,
@@ -94,9 +88,7 @@ def mm_error(out, ref):
     return max_abs_diff(out, ref), tol
 
 
-# ---------------------------------------------------------------------------
 # CUDA kernel wrappers
-# ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -197,9 +189,7 @@ def grouped_mm(a, b, G, tile=DEFAULT_TILING):
     return run_variant("grouped_mm", a, b, G, tile)
 
 
-# ---------------------------------------------------------------------------
 # Bounds, lines, check
-# ---------------------------------------------------------------------------
 
 def problem_bytes(B, M, K, N):
     """bf16 a and b read once, o written once."""
@@ -234,10 +224,10 @@ def variants(B):
 
 
 def controls(a, b, out, ref, tile=DEFAULT_TILING):
-    """Controls `mm_error` must reject on a batched output: `batch` (problem p
-    against the plain output of p + 1), `edge` (the last partial row tile left
-    NaN), `k_tile` (the plain product without the last K_DROPPED of K). Returns
-    the errors and "tol"; raises if the check passes any."""
+    """Controls `mm_error` must reject: `batch` (problem p against p + 1's
+    plain output), `edge` (the last partial row tile NaN), `k_tile` (the
+    plain product without the last K_DROPPED of K). Returns the errors and
+    "tol"; raises if the check passes any."""
     M, K = a.shape[1:]
     _, tol = mm_error(out, ref)
     edge = out.clone()
@@ -275,9 +265,7 @@ def check(a, b, ref, names, with_controls):
     return errors, ctrl
 
 
-# ---------------------------------------------------------------------------
 # Entry point
-# ---------------------------------------------------------------------------
 
 parser = argparse.ArgumentParser(
     description="Batched bf16 matmul rates at attention-like shapes on the "

@@ -1,24 +1,18 @@
-"""Flash-softmax variants at the global shape on the card: the port of
-scripts/bench_softmax_variants.py.
-
-BH 16, N 34353 padded to 34816, D 64, q and k × 0.3, raw logits s = q kᵀ.
-One kernel (csrc/bench_softmax_variants.cu on csrc/global_sm90.cuh)
-computes `matmul` (o = Σ bf16(s) v), `online` (exp2, running max),
-`static` (p = exp2(s - 12)), `staticfused` (v widened by 64 columns of
-ones, so l is the tensor cores' sum of bf16(p)) and `staticint8` (q, k
-quantized per tensor outside, p = exp2(f32(s32)·dequant - 12)). SDPA at
-scale ln 2 is the library line of online and static.
+"""Flash-softmax variants at the global shape on the card (counterpart of
+scripts/bench_softmax_variants.py): BH 16, N 34353 padded to 34816, D 64,
+q and k × 0.3, raw logits s = q kᵀ; csrc/bench_softmax_variants.cu (on
+global_sm90.cuh) computes `matmul`, `online` (exp2, running max), `static`
+(p = exp2(s - 12)), `staticfused` (l the tensor cores' sum of bf16(p))
+and `staticint8`. SDPA at scale ln 2 is online's and static's library
+line.
 
     python -m vggt_slam_tpu_torch.scripts.bench_softmax_variants
         [--iters 8] [--n 34353] [--heads 16] [--block_q 64] [--block_k 64]
         [--check]
 
-`--block_q`/`--block_k` take the card's tilings (TILINGS). Lines as in
-bench_global_attention, then the reference's `max |static-online|` and
-`|staticfused-online|`. `--check` holds every mode (the chosen tiling on
-all rows, the others on a 2048-row slab) against its plain version, with
-the int8 control. Needs the card; `LAUNCHES` and `design_launches` count
-launches.
+Lines as bench_global_attention's, then the reference's `max
+|static-online|` and `|staticfused-online|`. `--check` holds every mode to
+its plain version with the int8 control. Needs the card.
 """
 from __future__ import annotations
 
@@ -44,9 +38,7 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-# ---------------------------------------------------------------------------
 # Plain version
-# ---------------------------------------------------------------------------
 
 def run_kernel_ref(q, k, v, block_q, block_k, mode, smax=SMAX,
                    n_keys=None):
@@ -79,9 +71,7 @@ def run_kernel_ref(q, k, v, block_q, block_k, mode, smax=SMAX,
     return (o / l.clamp_min(1e-30)).to(torch.bfloat16)
 
 
-# ---------------------------------------------------------------------------
 # CUDA kernel wrapper
-# ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -137,9 +127,7 @@ def int8_operands(q, k):
     return q8, k8, (SMAX, (qs / 127.0) * (ks / 127.0))
 
 
-# ---------------------------------------------------------------------------
 # Entry point
-# ---------------------------------------------------------------------------
 
 parser = argparse.ArgumentParser(
     description="Flash-softmax variants (matmul, online, static, "

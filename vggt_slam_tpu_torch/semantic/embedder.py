@@ -1,16 +1,12 @@
 """Offline dense semantic embedding (counterpart of
 vggt_slam_tpu/semantic/embedder.py): each image becomes an (H, W, d)
-feature map saved as `{stem}.npz` under "embedding", which the SLAM CLI
-reads with --semantic_emb_dir.
-
-A mask generator, image -> [dict(segmentation=(H, W) bool, area=int)]
-(Felzenszwalb segments, a grid where g++ is missing, or with `--masker
-sam2` SAM2's automatic mask generator on --device), proposes masks; each
-mask's black-background box crop, (N, 3, h, w) float [0, 1], is embedded
-by CLIP's or SigLIP's image tower (--clip_model_dir, on --device) or else
-colour statistics under a seeded projection, and the masks are painted
-largest first. Resizes are data/images.resize_linear. The transformers
-(hf) backend is not ported and raises.
+feature map, `{stem}.npz` under "embedding", for the CLI's
+--semantic_emb_dir. A mask generator (Felzenszwalb segments, a grid
+without g++, or `--masker sam2` on --device) proposes masks; each mask's
+black-background box crop is embedded by CLIP's or SigLIP's image tower
+(--clip_model_dir, on --device) or else by colour statistics under a
+seeded projection; masks are painted largest first. Resizes are
+data/images.resize_linear; the hf backend is not ported and raises.
 
     python -m vggt_slam_tpu_torch.semantic.embedder --image_dir DIR \
         --out_dir DIR [--masker felzenszwalb|grid|sam2 [--sam2_checkpoint

@@ -1,10 +1,9 @@
-"""SAM2's automatic mask generator in PyTorch (counterpart of
-vggt_slam_tpu/semantic/sam2_amg.py) at the reference's settings: a point
-grid per crop, batched multimask decodes, IoU and stability filters, box
-NMS within and across overlapping crops, small-region cleanup. Statistics
-and filters run on the model's device; NMS, the resizes and the connected
-components (scipy.ndimage in OpenCV's label order) on the host. As the
-reference, crops go to `embed_image` in 0-255.
+"""SAM2's automatic mask generator (counterpart of
+vggt_slam_tpu/semantic/sam2_amg.py) at the reference's settings: point
+grids per crop, batched multimask decodes, IoU and stability filters, box
+NMS within and across crops, small-region cleanup. Statistics on the
+model's device; NMS, resizes and components (scipy.ndimage in OpenCV's
+order) on the host; crops go to `embed_image` in 0-255, as the reference.
 """
 from __future__ import annotations
 
@@ -65,10 +64,10 @@ def nms(boxes: np.ndarray, scores: np.ndarray, iou_thresh: float):
 
 
 def remove_small_regions(mask: np.ndarray, area_thresh: int, mode: str):
-    """Drop "islands" (components) or fill "holes" below area_thresh, as
-    cv2.connectedComponentsWithStats(., 8) does it for the reference: where
-    every island is small, the largest stays, the first in OpenCV's order
-    (by each component's first 2x2 block in raster order) on a tie."""
+    """Drop "islands" or fill "holes" below area_thresh as
+    cv2.connectedComponentsWithStats(., 8) does for the reference: where
+    every island is small the largest stays, on a tie the first in OpenCV's
+    order (each component's first 2x2 block in raster order)."""
     from scipy import ndimage
 
     holes = mode == "holes"
@@ -118,11 +117,10 @@ def _sync(device):
 
 
 class SAM2MaskGenerator:
-    """image (H, W, 3) uint8 or float RGB -> list of dicts (segmentation,
-    area, bbox XYWH, predicted_iou, stability_score, crop_box), largest
-    first. `seconds` accumulates the wall time of the embeds, of the
-    decodes with their filters, and of the host's resizes, NMS and cleanup;
-    `chunks` counts the decodes."""
+    """image (H, W, 3) uint8 or float RGB -> dicts (segmentation, area, bbox
+    XYWH, predicted_iou, stability_score, crop_box), largest first.
+    `seconds` sums the embeds', decodes' and host work's wall time; `chunks`
+    counts decodes."""
 
     def __init__(self, model, points_per_side: int = 24,
                  points_per_batch: int = 192, pred_iou_thresh: float = 0.9,

@@ -1,9 +1,8 @@
-"""Semantic voxel map: a queryable, persistent map of voxel-mean semantic
-features (counterpart of vggt_slam_tpu/semantic/voxel_map.py): the
-integer-coordinate index, position lookups, dot-product top-k queries,
-latest-frame provenance, and the same files on disk (semantic_voxels.npz
-with voxel_size, centers_world, features and an object array of
-contributors, plus frame_names.json), readable by either package."""
+"""Semantic voxel map (counterpart of vggt_slam_tpu/semantic/voxel_map.py):
+the integer-coordinate index, position lookups, dot-product top-k,
+latest-frame provenance, and the same files (semantic_voxels.npz,
+frame_names.json), readable by either package.
+"""
 from __future__ import annotations
 
 import json

@@ -1,10 +1,8 @@
-"""Full SLAM-state checkpoint / resume (counterpart of
-vggt_slam_tpu/slam/checkpoint.py, in the same layout and keys, so states
-cross between the two packages): every submap's arrays, the factor graph
-(nodes, between factors, priors, loop counter), the inter-submap anchor
-cloud and the solver flags, as host numpy.
-
-Layout: {dir}/manifest.json + {dir}/graph.npz + {dir}/submap_{id}.npz
+"""SLAM-state checkpoint and resume (counterpart of
+vggt_slam_tpu/slam/checkpoint.py, the same layout and keys, so states
+cross packages): submaps' arrays, the factor graph, the anchor cloud and
+the solver flags as host numpy in {dir}/manifest.json, graph.npz and
+submap_{id}.npz.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Pose-graph front API (counterpart of vggt_slam_tpu/slam/graph.py): the
-reference GTSAM wrapper's methods, backed by the LM solver in
-ops/pose_graph.py. Host bookkeeping keeps Python lists; `optimize()` pads
-the graph to power-of-two capacities (floors 64 nodes / 128 factors / 4
-priors, as the reference) and solves on `device`."""
+reference's GTSAM wrapper's methods on ops/pose_graph.py; `optimize()`
+pads to power-of-two capacities (floors 64 nodes, 128 factors, 4 priors)
+and solves on `device`.
+"""
 from __future__ import annotations
 
 import numpy as np

@@ -1,11 +1,8 @@
-"""Keyframe selection by optical-flow disparity (counterpart of
-vggt_slam_tpu/slam/keyframe.py): Shi-Tomasi corners tracked with pyramidal
-LK; a frame is a keyframe when the mean track displacement exceeds
-`min_disparity` or fewer than 10 tracks survive.
-
-Backends: "cv2" (host OpenCV, imported when used) and "torch" (the
-on-device tracker of slam/keyframe_torch.py, which needs no OpenCV).
-Frames are (H, W, 3) uint8 BGR, as an image decoder returns them.
+"""Keyframes by optical-flow disparity (counterpart of
+vggt_slam_tpu/slam/keyframe.py): Shi-Tomasi corners tracked by pyramidal
+LK; a keyframe when the mean displacement exceeds `min_disparity` or under
+10 tracks survive. Backends "cv2" (imported when used) and "torch"
+(slam/keyframe_torch.py, no OpenCV); frames (H, W, 3) uint8 BGR.
 """
 from __future__ import annotations
 

@@ -1,11 +1,8 @@
-"""Shi-Tomasi corners and pyramidal Lucas-Kanade tracking in torch
-(counterpart of vggt_slam_tpu/slam/keyframe_jax.py).
-
-Same algorithm and parameters as the reference gate: at most 1000 corners
-(quality 0.01, one per 8x8 cell), 21x21 window, 3 pyramid levels, 30
-iterations. Corners are a fixed-capacity (K, 2) array with a validity mask;
-all corners track at once, the per-point window gathers are one
-`grid_sample` per step, and the 30 iterations are a Python loop.
+"""Shi-Tomasi corners and pyramidal Lucas-Kanade in torch (counterpart of
+vggt_slam_tpu/slam/keyframe_jax.py), the reference gate's parameters (at
+most 1000 corners, quality 0.01, one per 8x8 cell, 21x21 window, 3
+levels, 30 iterations): corners a fixed-capacity (K, 2) array with a
+mask, all tracked at once, window gathers one `grid_sample` a step.
 """
 from __future__ import annotations
 

@@ -1,11 +1,8 @@
-"""Loop-closure retrieval: per-frame descriptors and best-frame matching
-(counterpart of vggt_slam_tpu/slam/loop_closure.py): L2 matching against
-every older submap's frames with the current and previous submap excluded,
-accepted under 0.80, at most `max_loops` matches kept.
-
-Descriptors come from SALAD (models/retrieval.py) by default. Without a
-retrieval checkpoint they are random-init and untrusted, so loop detection
-is off, as in the reference.
+"""Loop-closure retrieval (counterpart of vggt_slam_tpu/slam/loop_closure.py):
+L2 matching of per-frame descriptors (SALAD, models/retrieval.py) against
+older submaps' frames, the current and previous submap excluded, accepted
+under 0.80, at most `max_loops` kept. Without a retrieval checkpoint the
+descriptors are untrusted and detection is off, as in the reference.
 """
 from __future__ import annotations
 

@@ -143,12 +143,11 @@ class GraphMap:
     def semantic_points(self, voxel_size: float, stride: int = 1,
                         ignore_loop_closure_frames: bool = True,
                         device="cuda"):
-        """The world points the semantic voxel map averages, per submap with
+        """The world points the semantic map averages, per submap with
         embeddings: confidence >= its threshold, finite, inside the 0.5-99.5
-        percentile box (on the host), in a 3x-voxel cell of >= 10 points (on
-        `device`); loop frames skipped. Returns (points (N, 3), features (N,
-        d), pair (N,), pairs [(submap, frame)], frame_name_maps), points None
-        where nothing is left."""
+        percentile box (host), in a 3x-voxel cell of >= 10 points
+        (`device`); loop frames skipped. Returns (points (N, 3), features,
+        pair (N,), pairs, frame name maps), points None where none is left."""
         if voxel_size <= 0.0:
             raise ValueError("voxel_size must be > 0")
         if stride < 1:

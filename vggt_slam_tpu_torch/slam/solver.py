@@ -1,9 +1,8 @@
 """SLAM orchestration per submap (counterpart of vggt_slam_tpu/slam/solver.py):
 `dispatch_predictions` (loop detection, the forward queued on the device,
-its outputs copying to pinned host memory), `collect_predictions` (waits,
+outputs copied to pinned host memory), `collect_predictions` (waits,
 decodes cameras), `add_points` (SL(4) RANSAC or Sim(3) registration,
-factors, loop factors). The model is a callable returning the prediction
-dict; RANSAC and the pose graph run on the solver's device.
+factors, loop factors); RANSAC and the pose graph on the solver's device.
 """
 from __future__ import annotations
 

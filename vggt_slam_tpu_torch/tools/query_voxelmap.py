@@ -1,8 +1,7 @@
 """Text-query a saved semantic voxel map (counterpart of
-vggt_slam_tpu/tools/query_voxelmap.py): load semantic_voxels.npz and
-frame_names.json, embed the query, rank voxels by dot product, report (and
-optionally copy) the latest contributing frame of each, and optionally
-highlight them in viser.
+vggt_slam_tpu/tools/query_voxelmap.py): embed the query, rank voxels by
+dot product, report (and copy) each one's latest contributing frame,
+optionally highlight them in viser.
 
     python -m vggt_slam_tpu_torch.tools.query_voxelmap --voxel_dir DIR \
         --query "a chair" [--top_k 5] [--image_dir DIR] [--visualize] \

@@ -1,18 +1,13 @@
-"""Synthetic 3D scenes with exact multi-view ground truth (the port's copy
-of vggt_slam_tpu/tools/synth3d.py): `training_batch`, tools/train_tiny.py's
-data, and `write_tum_sequence`, evals/smoke_loop.py's TUM-layout
-sequences.
+"""Synthetic 3D scenes with exact multi-view ground truth (copy of
+vggt_slam_tpu/tools/synth3d.py): `training_batch` (train_tiny's data) and
+`write_tum_sequence` (smoke_loop's TUM-layout sequences). A textured
+heightfield is raycast from a moving camera: real parallax, exact depth,
+ground truth in the model's conventions (world->cam relative to frame 0,
+pose encoding [t, quat wxyz, fov_h, fov_w]). The reference's five OpenCV
+calls are numpy: circles and rectangles exact, cubic resize, blur and
+remap to float32 rounding; PNGs are data/images.write_png's.
 
     python -m vggt_slam_tpu_torch.tools.synth3d --out_dir DIR [--kind loop]
-
-A textured smooth heightfield is raycast from a moving perspective camera:
-frames with real parallax, exact depth and camera ground truth in the
-model's conventions (world->cam extrinsics relative to frame 0, pose
-encoding [t, quat wxyz, fov_h, fov_w]). The five OpenCV operations the
-reference uses are numpy here: filled circles and rectangles to the pixel;
-cubic resize, the Gaussian blur and bilinear remap to float32 rounding
-(OpenCV sums in another order). The camera path and pose encodings are the
-reference's numpy code; PNGs are data/images.write_png's.
 """
 from __future__ import annotations
 
@@ -23,9 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 
 
-# ---------------------------------------------------------------------------
 # Image operations (OpenCV semantics, float32)
-# ---------------------------------------------------------------------------
 
 
 def _cubic_taps(n_src: int, n_dst: int):
@@ -133,9 +126,7 @@ def remap_linear(src: np.ndarray, gx: np.ndarray, gy: np.ndarray):
     return (top + (bot - top) * ay).astype(np.float32)
 
 
-# ---------------------------------------------------------------------------
 # Scene
-# ---------------------------------------------------------------------------
 
 
 @dataclass
@@ -247,9 +238,7 @@ def render(scene: Scene, cam_center: np.ndarray, R_wc: np.ndarray,
     return rgb.astype(np.float32), s.astype(np.float32), residual
 
 
-# ---------------------------------------------------------------------------
 # Camera paths & ground-truth encodings
-# ---------------------------------------------------------------------------
 
 
 def camera_path(n: int, seed: int = 0, kind: str = "loop",
@@ -361,9 +350,7 @@ def pose_encodings(extr_rel: np.ndarray, K: np.ndarray,
     return np.concatenate([t, q, fovs], axis=1).astype(np.float32)
 
 
-# ---------------------------------------------------------------------------
 # Consumers: training batches & TUM-layout eval sequences
-# ---------------------------------------------------------------------------
 
 
 def training_batch(seed: int, n_frames: int = 8,

@@ -1,15 +1,11 @@
 """Train a small VGGT on synthetic 3D scenes on one device (counterpart of
-vggt_slam_tpu/tools/train_tiny.py).
-
-Trains `VGGTConfig.small` on tools/synth3d.py's heightfield scenes with
-parallel/train.vggt_loss (pose-encoding regression plus confidence-weighted
-depth, a pose weight, an optional scale-consistency term), exact attention
-through `flash_grad` (the forward kernels with row stats and `flash_bwd`)
-and activation checkpointing; on the card the last output line holds the
-launches by design. The optimizer is the reference's optax chain
-(clip_by_global_norm, AdamW under a linear-warmup cosine schedule whose
-first update has lr 0); parameters and optimizer state are saved in the
-reference's flat npz layouts, so either package resumes the other's run.
+vggt_slam_tpu/tools/train_tiny.py): `VGGTConfig.small` on tools/synth3d.py
+scenes with parallel/train.vggt_loss, exact attention through
+`flash_grad` and activation checkpointing; on the card the last line holds
+the launches by design. The optimizer is the reference's optax chain
+(clip_by_global_norm, AdamW, linear-warmup cosine, first lr 0); parameters
+and optimizer state use the reference's flat npz layouts, so either
+package resumes the other's run.
 
   python -m vggt_slam_tpu_torch.tools.train_tiny --out runs/small_synth \
       [--steps 8000] [--frames 10] [--model_size small] [--device cpu]

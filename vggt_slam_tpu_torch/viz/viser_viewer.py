@@ -1,9 +1,8 @@
-"""Viser viewer (optional dependency), the port's counterpart of
-vggt_slam_tpu/viz/viser_viewer.py: `ViserViewer` (per-submap camera
-frames and image frustums coloured from a fixed random palette, a global
-show/hide checkbox, and point-cloud layers) and `show_voxels`. Importing this module needs
-viser; the SLAM loop runs headless without it. The frustum images are
-shrunk by data/images.resize_area (OpenCV's INTER_AREA, no OpenCV)."""
+"""Viser viewer (optional; counterpart of vggt_slam_tpu/viz/viser_viewer.py):
+`ViserViewer` (per-submap camera frames and frustums from a fixed random
+palette, a show/hide checkbox, point-cloud layers) and `show_voxels`.
+Importing it needs viser; frustum images shrink by resize_area.
+"""
 from __future__ import annotations
 
 import numpy as np
@@ -83,13 +82,11 @@ def show_voxels(voxel_map, port: int = 8081, name: str = "semantic_voxels",
                 keep_alive: bool = True, x_offset: float = 0.0,
                 render_mode: str = "points", cube_opacity: float = 0.5,
                 server=None):
-    """Render a SemanticVoxelMap in viser: `render_mode="points"` as one
-    point cloud, "cubes" as one translucent box a voxel. Colours: "pca"
-    (features_to_rgb), "first3", "ones", or "query" (base colour, the
-    voxels of `query_voxel_indices` highlighted). At most `max_voxels`
-    voxels, drawn with numpy's global generator; `x_offset` shifts the
-    layer; `server` draws onto an existing viser server. Returns (server,
-    handle)."""
+    """Render a SemanticVoxelMap in viser as one point cloud ("points") or a
+    translucent box a voxel ("cubes"), coloured "pca", "first3", "ones" or
+    "query" (`query_voxel_indices` highlighted); at most `max_voxels`, drawn
+    with numpy's global generator; `x_offset` shifts the layer; `server`
+    reuses a server. Returns (server, handle)."""
     points = voxel_map.get_centers_world().astype(np.float32).copy()
     points[:, 0] += x_offset
     feats = voxel_map.get_features().astype(np.float32)
