@@ -3,40 +3,42 @@
     python3 chip_smoke.py                 # build, check, drive every path
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
     python3 chip_smoke.py --profile       # also profile a forward and a step
-    python3 chip_smoke.py --ab DIR...     # time each DIR's sources beside
-                                          # this tree's in turns, and stop
 
 Phases, a JSON line each: 1-2 the environment, the CUDA sources built by
 one nvcc each, at once; 3-4 every forward and training kernel against its
-plain version at VGGT-1B's and the small model's shapes (errors, kernel,
-plain and SDPA ms, bound, design by the C launcher's counts); 5-6 a
-full-width forward against plain, the SLAM path at VGGT-1B through
-`run_slam`; 7-9 a gradient against plain, 3 training steps, train_tiny;
-A-D the int8 kernels, the DPT tail, the int8 forward, the --qk_int8 CLI on
-24 PNGs; E-G the probe scripts with --check; H, S, L the converters, SALAD,
-loop closure through the CLI and smoke_loop; on phase L's sequence V
-(COLMAP alignment, --profile_dir, the viewer stub, GLB, host evals), W
-(the embedder, --get_voxel, voxelize_device, the query), P (CLIP
-ViT-B/32), M (SAM2 against float64, the AMG, --masker sam2), N (SigLIP
-base-patch16-224; P and N: a seeded checkpoint against plain with two
-controls, the embedder, the CLI, the query), Q (mask_eval with SAM2,
-voxel_eval with SigLIP's text tower, dense_7scenes on a rendered 7-Scenes
-dump, visualize_results, on V's, M's and N's outputs). The last lines are
-the `nvidia-smi` line, the kernels JSON and {"ok": true, "device": ...};
-a failure exits non-zero without them. Needs a CUDA device; imports
-nothing of JAX, OpenCV or the JAX package.
+plain version at VGGT-1B's and the small model's shapes; 5-6 a full-width
+forward against plain, the SLAM path at VGGT-1B through `run_slam`; 7-9 a
+gradient against plain, 3 training steps, train_tiny; A-D the int8
+kernels, the DPT tail, the int8 forward, the --qk_int8 CLI; E-G the probe
+scripts with --check; H, S, L the converters, SALAD, loop closure through
+the CLI and smoke_loop; on L's sequence V (COLMAP alignment, the viewer
+stub, GLB, a trace, host evals), W (the semantic map), P (CLIP), M (SAM2),
+N (SigLIP), Q (the semantic evals), R (retrieval_quality, ab_attention),
+T (occupancy, undistort, align_points). The last lines are the
+`nvidia-smi` line, the kernels JSON and {"ok": true, "device": ...}; a
+failure exits non-zero without them. Needs a CUDA device; imports nothing
+of JAX, OpenCV or the JAX package.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import io
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from vggt_slam_tpu_torch.ops import attention as A
 
 SEED = 0
 N_FRAMES = 40
@@ -47,7 +49,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 
 
 def log(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw}, default=lambda o: o.item()),
+          flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -61,7 +64,6 @@ def nvidia_smi_line() -> str:
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     """Mean device time of fn() over `iters` launches (CUDA events)."""
-    import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -78,9 +80,7 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 
 def main_path_attention_cases(device):
     """The attention calls of one bucketed VGGT-1B forward (18 frames of 1041
-    tokens, global K/V sim-merged at stride 16, the last frame padding) and
-    of VGGTConfig.small at the same tokens."""
-    import torch
+    tokens, K/V merged at stride 16) and of VGGTConfig.small."""
 
     from vggt_slam_tpu_torch.models.vggt.modules import rope_2d_angles
 
@@ -168,7 +168,6 @@ def main_path_attention_cases(device):
 @functools.lru_cache(maxsize=None)
 def ex2_per_s() -> float:
     """The card's exp2 rate (bench_attention.sfu_rate)."""
-    import torch
 
     from vggt_slam_tpu_torch.scripts.bench_attention import sfu_rate
     return sfu_rate(torch.device("cuda", 0))[0]
@@ -205,8 +204,6 @@ def attention_bound_ms(case, int8=False) -> tuple[float, str, str]:
 def sdpa_call(case):
     """One SDPA call computing the same function, where SDPA can (no in-kernel
     LN or rope)."""
-    import torch
-    import torch.nn.functional as F
 
     kw = case["kw"]
     if kw.get("rope_q") is not None or kw.get("qk_ln") is not None:
@@ -227,10 +224,6 @@ def sdpa_call(case):
 def sdpa_prepared_call(case):
     """SDPA on `_prep`'s q, k (untimed), kv_bias and valid_len as one float
     mask; None where `sdpa_call` applies."""
-    import torch
-    import torch.nn.functional as F
-
-    from vggt_slam_tpu_torch.ops import attention as A
 
     kw = case["kw"]
     if kw.get("rope_q") is None and kw.get("qk_ln") is None:
@@ -255,9 +248,6 @@ def launched_design(fn, counts=None) -> str:
     """The one design fn() ran by the C launcher's counts (forward, or
     flash_bwd with `counts` = bwd_design_launches); raises where it ran
     none."""
-    import torch
-
-    from vggt_slam_tpu_torch.ops import attention as A
 
     counts = counts or A.forward_design_launches
     torch.cuda.synchronize()
@@ -309,7 +299,6 @@ TRAINING_CASES = [
 def takes_static(softmax, N) -> bool:
     """Whether a TRAINING_CASES forward runs flash_multi (static softmax over
     more keys than one block)."""
-    from vggt_slam_tpu_torch.ops import attention as A
 
     return softmax == "static" and not A.fits_one_block(N)
 
@@ -334,10 +323,6 @@ def training_bounds(B, N, H, D, vl):
 def check_training_kernels(device):
     """The forward with stats and flash_bwd against their plain versions at
     both models' training shapes; the backward twice (dq's adds vary)."""
-    import torch
-    import torch.nn.functional as F
-
-    from vggt_slam_tpu_torch.ops import attention as A
 
     g = torch.Generator(device=device).manual_seed(SEED + 1)
     results = []
@@ -444,10 +429,6 @@ def check_training_kernels(device):
 
 
 def check_kernels(device):
-    import torch
-
-    from vggt_slam_tpu_torch.ops import attention as A
-
     tol = 2e-2   # bf16 output rounding (2^-9 relative) plus bf16 p
     results = []
     for case in main_path_attention_cases(device):
@@ -508,7 +489,6 @@ def check_kernels(device):
 def plain_attention(model=None):
     """The model's attention, forward and backward, through the plain versions
     inside the block."""
-    from vggt_slam_tpu_torch.ops import attention as A
     names = ("flash_single", "flash_multi", "flash_bwd")
     saved = [getattr(A, n) for n in names]
     A.flash_single, A.flash_multi = A.flash_single_ref, A.flash_multi_ref
@@ -543,8 +523,6 @@ def chunked_attention(model):
 def check_forward(model, device, frames):
     """A 2-frame VGGT-1B forward through the kernels against the plain versions
     (the check) and the chunked path (reported)."""
-    import numpy as np
-    import torch
 
     from vggt_slam_tpu_torch.data.images import preprocess_frames
     from vggt_slam_tpu_torch.models.vggt.model import make_bucketed_model_fn
@@ -581,7 +559,6 @@ def check_forward(model, device, frames):
 def profiled(fn):
     """fn() once under torch.profiler: wall ms, device kernel ms by family,
     busy share, the largest kernels."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -637,9 +614,6 @@ def profile_forward(model, device, frames):
 def synth_frames(n_frames: int, hw=HW, step_px: int = 60, seed: int = SEED):
     """(H, W, 3) uint8 BGR frames of a camera panning over a textured plane
     (tools/synth_sequence.py's scene)."""
-    import numpy as np
-    import torch
-    import torch.nn.functional as F
 
     rng = np.random.default_rng(seed)
     H, W = hw
@@ -670,12 +644,8 @@ def synth_frames(n_frames: int, hw=HW, step_px: int = 60, seed: int = SEED):
 
 
 def drive_main_path(model, device, frames):
-    import numpy as np
-    import torch
-
     from vggt_slam_tpu_torch.main import parser, run_slam
     from vggt_slam_tpu_torch.models.vggt.model import make_bucketed_model_fn
-    from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.utils.profiling import sync
 
     args = parser.parse_args(["--timing", "--seed", str(SEED)])
@@ -728,7 +698,6 @@ def drive_main_path(model, device, frames):
 def int8_cases(device):
     """The int8 kernels' shapes: the bucket's global block at both widths, its
     camera-trunk call (D 128, valid_len 17), the training global block."""
-    import torch
 
     cases = {c["name"]: c for c in main_path_attention_cases(device)}
     g = torch.Generator(device=device).manual_seed(SEED + 2)
@@ -748,7 +717,6 @@ def int8_cases(device):
 def int8_calls(case, mod=None):
     """{kernel: (call(i8, stats=False) through wrapper module `mod`, its
     plain version)} at an `int8_cases` case."""
-    from vggt_slam_tpu_torch.ops import attention as A
 
     mod = mod or A
     q, k, v, kw = case["q"], case["k"], case["v"], case["kw"]
@@ -772,7 +740,6 @@ INT8_STATS_TOL = 1e-4
 def int8_errors(got, ref, ctrl):
     """int8 (out, m, l) against plain `ref` (stats INT8_STATS_TOL relative,
     outputs 1e-2 of max) and the bf16 `ctrl`, whose l must lie 10x away."""
-    import torch
 
     out, m, l = got
     ref_out = ref[0].float()
@@ -807,9 +774,6 @@ def int8_failure(e):
 def check_int8_kernels(device):
     """Phase A: both int8 kernels against plain and the bf16 control, designs,
     the bf16 time; the scales pass bit for bit, timed as CUDA graphs."""
-    import torch
-
-    from vggt_slam_tpu_torch.ops import attention as A
 
     results = []
     for case in int8_cases(device):
@@ -866,15 +830,12 @@ def int8_global(model, softmax):
 
 
 def check_int8_forward(model, device, frames):
-    """Phases B, C on an 18-frame bucket: the bf16 forward captures
-    output_conv1's input; the int8 forward in both softmax modes against
-    plain. Returns (activations, launches per mode, the bf16 designs)."""
-    import numpy as np
-    import torch
+    """Phases B, C, 18 frames: the bf16 forward (capturing output_conv1's
+    input); int8 in both softmax modes against plain. (activations,
+    launches per mode, the bf16 designs)."""
 
     from vggt_slam_tpu_torch.data.images import preprocess_frames
     from vggt_slam_tpu_torch.models.vggt.model import make_bucketed_model_fn
-    from vggt_slam_tpu_torch.ops import attention as A
 
     images = preprocess_frames(frames[:17])
     fn = make_bucketed_model_fn(model, 18, as_numpy=True,
@@ -945,8 +906,6 @@ def check_int8_forward(model, device, frames):
 def check_dpt_tail(model, device, captured):
     """Phase B: the DPT tail on the depth head's activations against
     fused_tail_ref and against the head's unfused chain."""
-    import torch
-    import torch.nn.functional as F
 
     from vggt_slam_tpu_torch.models.vggt.heads import \
         resize_bilinear_align_corners, uv_pos_embed
@@ -1029,15 +988,10 @@ def check_dpt_tail(model, device, captured):
 def drive_image_folder_cli(device, per_forward):
     """Phase D: the CLI on 24 panned 480x640 PNGs with --qk_int8; each forward
     adds `per_forward` (phase C's designs)."""
-    import shutil
     import tempfile
-
-    import numpy as np
-    import torch
 
     from vggt_slam_tpu_torch.data.images import load_image, write_png
     from vggt_slam_tpu_torch.main import parser, run_slam
-    from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.utils.profiling import sync
 
     tmp = tempfile.mkdtemp(prefix="png_folder_")
@@ -1165,8 +1119,6 @@ def _instance_patterns(variant):
 def mufu_ex2_counts(lib_path):
     """{kernel: MUFU.EX2 count} from `cuobjdump -sass`, or None without
     cuobjdump."""
-    import re
-    import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
@@ -1186,9 +1138,6 @@ def mufu_ex2_counts(lib_path):
 
 def run_probe_script(BA, argv):
     """The probe script's main(argv), its printed lines captured."""
-    import io
-
-    import torch
 
     t0 = time.perf_counter()
     text = io.StringIO()
@@ -1202,10 +1151,8 @@ def run_probe_script(BA, argv):
 
 def check_grouped_tiled(device):
     """The nine grouped, interleaved, pipelined instances at the small and
-    frame shapes into NaN-filled outputs, held at their key tile; one
-    grouped_sm90 launch each. Returns {variant: {shape: (err, share of tol,
-    block_k)}}."""
-    import torch
+    frame shapes into NaN-filled outputs, held at their key tile. {variant:
+    {shape: (err, share of tol, block_k)}}."""
 
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
 
@@ -1238,7 +1185,6 @@ def check_probe_kernels(device):
     """Phase E: bench_attention --check at (288, 1152, 64),
     `check_grouped_tiled`, a padded-keys control, ptxas registers,
     softmax-only's exp2 count, then the script at its defaults."""
-    import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
@@ -1409,12 +1355,9 @@ def global_ptxas(report, template, mode, bq, bk):
 
 
 def check_global_probes():
-    """Phase F: each global script --check --iters GLOBAL_PROBE_ITERS (modes,
-    tilings, int8 controls, one global_sm90 launch a call, registers).
-    Returns {script: (result, launches, global_sm90 launches)}."""
+    """Phase F: each global script --check (modes, tilings, int8 controls,
+    one global_sm90 launch a call). {script: (result, launches, designs)}."""
     import importlib
-
-    import torch
 
     results = {}
     for script, (counter, template, _, _, offset) in GLOBAL_PROBES.items():
@@ -1512,7 +1455,6 @@ MATMUL_PROBES = {
 def check_matmul_probes():
     """Phase G: the script --check (lines, B 528 controls, one mm_sm90 launch a
     C call, registers). Returns (result, launches, designs)."""
-    import torch
 
     from vggt_slam_tpu_torch.ops import cuda_build
     from vggt_slam_tpu_torch.scripts import bench_matmul_shapes as MM
@@ -1601,8 +1543,6 @@ def training_model(device):
 
 
 def training_batch(n_frames, device):
-    import torch
-
     from vggt_slam_tpu_torch.tools import synth3d
     batch = synth3d.training_batch(SEED, n_frames=n_frames, image_hw=HW)
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
@@ -1620,9 +1560,7 @@ GRAD_LEAVES = {
 def check_backward(device):
     """A 2-frame VGGT-1B loss's gradient through the kernels against plain:
     relative RMS of named leaves and every attention projection."""
-    import torch
 
-    from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.parallel.train import vggt_loss
 
     model = training_model(device)
@@ -1666,9 +1604,7 @@ def check_backward(device):
 def drive_training(device, n_steps=3, profile=False):
     """`n_steps` of make_train_step at VGGT-1B on a 4-frame batch: the steps'
     launches and the last one's; `profile` adds a profiled step."""
-    import torch
 
-    from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.parallel.train import make_train_step
 
     torch.cuda.reset_peak_memory_stats()
@@ -1740,7 +1676,6 @@ def backward_designs(cfg, n_steps) -> dict:
 def small_forward_launches(cfg) -> dict:
     """A 4-frame forward's launches of a `cfg` model: flash_single (encoder,
     frame, camera trunk), flash_multi (global)."""
-    from vggt_slam_tpu_torch.ops import attention as A
 
     want = dict.fromkeys(A.LAUNCHES, 0)
     want["flash_single"] = (cfg.enc_depth + cfg.agg_depth
@@ -1750,16 +1685,12 @@ def small_forward_launches(cfg) -> dict:
 
 
 def drive_cli(device):
-    """train_tiny on the small model for 6 steps; its checkpoint's forward on
-    the card with its launches and design checked."""
+    """train_tiny on the small model for 6 steps; its checkpoint's forward,
+    launches and design checked. The checkpoint (kept for phase R)."""
     import os
-    import shutil
     import tempfile
 
-    import numpy as np
-
     from vggt_slam_tpu_torch.main import build_model
-    from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.models.vggt.config import VGGTConfig
     from vggt_slam_tpu_torch.models.vggt.model import make_bucketed_model_fn
     from vggt_slam_tpu_torch.tools import synth3d
@@ -1812,8 +1743,10 @@ def drive_cli(device):
         if train_designs != want_bwd:
             raise AssertionError(f"train_tiny's backward ran {train_designs}"
                                  f" by design, not {want_bwd}")
-    finally:
+    except BaseException:
         shutil.rmtree(out, ignore_errors=True)
+        raise
+    return ckpt
 
 
 # Phases H, S, L: the torch-checkpoint converters, SALAD at full width, and
@@ -1833,7 +1766,6 @@ def unit_salad_weight(key: str) -> bool:
 def check_converters(tmp):
     """Phase H: both converters over the released manifests; a seeded
     dino_salad checkpoint as the npz of phases S and L (its path)."""
-    import torch
 
     from vggt_slam_tpu_torch.models import retrieval as R
     from vggt_slam_tpu_torch.models.vggt import convert as C
@@ -1888,7 +1820,6 @@ def check_converters(tmp):
 def zero_attention():
     """Every attention of the port's modules (`attention`, `flash_single`)
     returns zeros inside the block."""
-    import torch
 
     from vggt_slam_tpu_torch.models.vggt import modules
 
@@ -1903,15 +1834,12 @@ def zero_attention():
 
 
 def check_salad(device, npz, frames):
-    """Phase S: SALAD at full width on phase H's weights and 17 frames: 12
-    flash_single a call; descriptors within SALAD_TOL (L2) of plain, which
-    another frame's and zeroed attention must exceed; flash_single at (204,
-    257, 64) timed. Returns the row's SALAD entry."""
-    import torch
+    """Phase S: SALAD at full width, phase H's weights, 17 frames: 12
+    flash_single a call, within SALAD_TOL (L2) of plain (another frame and
+    zeroed attention must exceed it); timed. The row's SALAD entry."""
 
     from vggt_slam_tpu_torch.data.images import preprocess_frames
     from vggt_slam_tpu_torch.models import retrieval as R
-    from vggt_slam_tpu_torch.ops import attention as A
 
     model = R.build_salad(224, npz, str(device))
     plain = R.SALAD(R.SALADConfig(attn_impl="chunked"))
@@ -2001,7 +1929,6 @@ LOOP_RUNS = (("tiny", ("--submap_size", "4", "--max_loops", "3",
 def loop_cli_run(device, seq, backend, extra=()):
     """run_slam on the loop sequence at VGGT-1B (seeded weights): loops
     detected, inserted, rejected; the TUM log and its ATE."""
-    import numpy as np
 
     from vggt_slam_tpu_torch.evals.ate import ate_from_files
     from vggt_slam_tpu_torch.main import parser, run_slam
@@ -2057,16 +1984,12 @@ def run_smoke_loop(*argv):
     return proc.returncode, proc.stdout + proc.stderr[-1500:]
 
 
-def drive_loop_closure(device, npz):
-    """Phase L: a 40-frame loop through the CLI at VGGT-1B with the tiny and
-    SALAD backends (>= 1 loop, each inserted or rejected, or a factor
-    without the gate); phases V, W, P, M, N, Q on it; then smoke_loop (rerun
-    without the gate where it rejected every loop). Returns the SALAD run's
-    launches and {"clip": P's entry, "siglip": N's, "voxel_eval_launches"}."""
-    import re
-    import shutil
-
-    import torch
+def drive_loop_closure(device, npz, small_ckpt):
+    """Phase L: a 40-frame loop through the 1B CLI, tiny and SALAD backends
+    (>= 1 loop, inserted or rejected, or a factor without the gate); V to
+    T on it (R with phase 9's `small_ckpt`); smoke_loop without the gate
+    (it exits 1 at its defaults in both packages). (SALAD's launches,
+    {"clip": P's entry, "siglip": N's, "voxel_eval_launches"})."""
 
     from vggt_slam_tpu_torch.tools.synth3d import write_tum_sequence
 
@@ -2107,18 +2030,15 @@ def drive_loop_closure(device, npz):
             device, seq, os.path.join(seq, "sam2.1_hiera_base_plus.pt"),
             os.path.join(seq, "phase_N", "vox"), os.path.join(seq, "siglip"),
             os.path.join(seq, "phase_v"))
+        drive_quality_evals(device, small_ckpt, seq)
+        drive_tools(device, seq, os.path.join(seq, "phase_v"))
     finally:
         shutil.rmtree(seq, ignore_errors=True)
-    rc, out = run_smoke_loop()
+        shutil.rmtree(os.path.dirname(small_ckpt), ignore_errors=True)
+    rc, out = run_smoke_loop("--loop_inlier_thresh", "0")
     if rc != 0:
-        m = re.search(r"Loop closures detected (\d+), rejected by the "
-                      r"geometric gate (\d+)", out)
-        if not (m and int(m.group(1)) >= 1 and m.group(1) == m.group(2)):
-            raise AssertionError(f"smoke_loop failed ({rc}): {out[-3000:]}")
-        rc, out = run_smoke_loop("--loop_inlier_thresh", "0")
-        if rc != 0:
-            raise AssertionError(f"smoke_loop without the gate failed "
-                                 f"({rc}): {out[-3000:]}")
+        raise AssertionError(f"smoke_loop without the gate failed ({rc}): "
+                             f"{out[-3000:]}")
     return salad["launches"], encoders
 
 
@@ -2128,16 +2048,19 @@ def drive_loop_closure(device, npz):
 ALIGN_SIM3 = (1.5, (0.3, -0.2, 0.1), (0.5, -1.0, 2.0))  # s, axis-angle, t
 
 
+def rotation(w):
+    """The rotation by axis-angle w (Rodrigues)."""
+    th = np.linalg.norm(w)
+    K = np.cross(np.eye(3), np.asarray(w) / th)
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
 def write_colmap_images(seq, path):
     """images.txt with each frame's camera at its groundtruth.txt centre under
     ALIGN_SIM3 (identity orientations)."""
-    import numpy as np
 
     s, w, t = ALIGN_SIM3
-    th = np.linalg.norm(w)
-    k = np.array(w) / th
-    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
-    R = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+    R = rotation(w)
     lines = []
     with open(os.path.join(seq, "groundtruth.txt")) as f:
         rows = [r.split() for r in f if r.strip() and not r.startswith("#")]
@@ -2196,10 +2119,7 @@ def load_viser_stub():
 
 def viewer_cli_run(device, seq, tmp):
     """The CLI at VGGT-1B (tiny backend, submap 16) with the COLMAP alignment,
-    the outputs, the trace and the viewer stub."""
-    import re
-
-    import numpy as np
+    the outputs and the viewer stub."""
 
     from vggt_slam_tpu_torch.main import parser, run_slam
     from vggt_slam_tpu_torch.slam.map import GraphMap
@@ -2213,7 +2133,7 @@ def viewer_cli_run(device, seq, tmp):
          "tiny", "--min_disparity", "8", "--colmap_images_txt", images_txt,
          "--save_path", os.path.join(tmp, "out"), "--log_results",
          "--skip_dense_log", "--log_path", os.path.join(tmp, "poses.txt"),
-         "--profile_dir", os.path.join(tmp, "prof"), "--vis_map",
+         "--vis_map",
          "--vis_stride", "4", "--seed", str(SEED), "--timing"])
     seen = {}
     align = GraphMap.align_scale_to_colmap
@@ -2265,13 +2185,11 @@ def viewer_cli_run(device, seq, tmp):
     n_points = sum(len(p) for p in ex.points)
     glb_bytes = check_glb(ex.export(os.path.join(tmp, "scene.glb")),
                           n_points)
-    trace = check_trace(os.path.join(tmp, "prof", "trace.json"))
-    os.remove(os.path.join(tmp, "prof", "trace.json"))
     res = {"frames": result["n_frames"], "submaps": len(subs),
            "gt_frames": n_gt, "align": [float(v) for v in rm.groups()],
            "T": T.tolist(), "wall_s": wall, "fps": result["n_frames"] / wall,
            "viewer_calls": got, "glb_points": n_points,
-           "glb_bytes": glb_bytes, "trace": trace, "launches": launches,
+           "glb_bytes": glb_bytes, "launches": launches,
            "designs": designs,
            "stages": {k: v["total_s"]
                       for k, v in result["timer"].summary().items()}}
@@ -2279,11 +2197,32 @@ def viewer_cli_run(device, seq, tmp):
     return res
 
 
+def profiled_cli_run(device, seq, tmp):
+    """--profile_dir on the loop's first 17 frames (one submap): a trace
+    with the flash kernels among its CUDA kernel events."""
+    from vggt_slam_tpu_torch.main import parser, run_slam
+
+    frames = os.path.join(tmp, "first17")
+    os.makedirs(frames)
+    for n in sorted(os.listdir(os.path.join(seq, "rgb")))[:17]:
+        os.symlink(os.path.join(seq, "rgb", n), os.path.join(frames, n))
+    args = parser.parse_args(
+        ["--image_folder", frames, "--retrieval_backend", "tiny",
+         "--min_disparity", "8", "--profile_dir", os.path.join(tmp, "prof"),
+         "--seed", str(SEED)])
+    _, _, wall, launches, designs = counted(
+        lambda: run_slam(args, device=device))
+    trace = check_trace(os.path.join(tmp, "prof", "trace.json"))
+    os.remove(os.path.join(tmp, "prof", "trace.json"))
+    log("profiled_cli", wall_s=wall, trace=trace, launches=launches)
+    if not trace["flash_kernels"] or \
+            designs != {"tma_wgmma": forward_calls(launches)}:
+        raise AssertionError(f"the trace: {trace}; {designs}")
+
+
 def drive_viewer_and_evals(device, seq):
-    """Phase V: the CLI's COLMAP alignment, trace, viewer and GLB; run_eval,
-    process_logs, geometry_eval (kd-tree against cKDTree), pipeline_overlap."""
-    import numpy as np
-    import torch
+    """Phase V: COLMAP alignment, viewer, GLB, a 17-frame trace; run_eval,
+    process_logs, geometry_eval (100k points), pipeline_overlap."""
     from scipy.spatial import cKDTree
 
     from vggt_slam_tpu_torch.data.pcd import read_pcd
@@ -2295,6 +2234,7 @@ def drive_viewer_and_evals(device, seq):
     tmp = os.path.join(seq, "phase_v")
     os.makedirs(tmp)      # kept for phase Q
     viewer_cli_run(device, seq, tmp)
+    profiled_cli_run(device, seq, tmp)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -2316,7 +2256,7 @@ def drive_viewer_and_evals(device, seq):
 
     t0 = time.perf_counter()
     pts, _ = read_pcd(os.path.join(tmp, "out", "result.pcd"))
-    pts = pts[:: max(1, len(pts) // 400_000)]
+    pts = pts[:: max(1, len(pts) // 100_000)]
     shifted = pts + np.float32([0.01, -0.02, 0.005])
     if not kdtree.available():
         raise AssertionError("the kd-tree did not build")
@@ -2360,7 +2300,6 @@ VOXEL_SIZE = 0.05
 def voxelize_errors(got, centers, counts, means, feats):
     """voxelize_device against voxelize_np's first num voxels: (centres equal,
     counts equal, means within mean_tolerance, largest mean error)."""
-    import numpy as np
 
     from vggt_slam_tpu_torch.ops.voxel import mean_tolerance
 
@@ -2377,10 +2316,7 @@ def voxelize_errors(got, centers, counts, means, feats):
 
 def check_voxelize(device, pts, feats, V):
     """voxelize_device against voxelize_np at capacity V + 1 and V // 2, a
-    half-voxel shift it must reject; timed. Returns (results, voxelize_np's
-    (centers, means, counts))."""
-    import numpy as np
-    import torch
+    half-voxel shift it must reject; timed. (results, voxelize_np's)."""
 
     from vggt_slam_tpu_torch.ops.voxel import voxelize_device, voxelize_np
 
@@ -2415,10 +2351,6 @@ def check_voxelize(device, pts, feats, V):
 def drive_semantics(device, seq):
     """Phase W: the embedder CLI; the 1B CLI with --get_voxel; the saved map
     checked; `check_voxelize`; query_voxelmap --visualize on the stub."""
-    import io
-
-    import numpy as np
-    import torch
 
     from vggt_slam_tpu_torch.data.images import load_image, resize_linear
     from vggt_slam_tpu_torch.main import parser, run_slam
@@ -2555,12 +2487,10 @@ def encoder_module(family):
 
 
 def write_encoder_checkpoint(path, device, family="clip"):
-    """A full-width checkpoint directory (config.json, seeded pytorch_model.bin
-    equal to the tests/data manifest, CLIP's vocab.json and merges.txt or
-    SigLIP's spiece.model). Returns (values, seconds)."""
+    """A full-width checkpoint directory (config.json, seeded
+    pytorch_model.bin as the tests/data manifest, tokenizer files).
+    (values, seconds)."""
     import string
-
-    import torch
 
     M, cfg = encoder_module(family)
     *_, manifest, want, _ = ENCODERS[family]
@@ -2605,7 +2535,6 @@ def write_encoder_checkpoint(path, device, family="clip"):
 def permuted_keys():
     """flash_single sees each row's keys rolled by one token against its
     values: a kernel that pairs keys with the wrong values."""
-    from vggt_slam_tpu_torch.ops import attention as A
 
     flash = A.flash_single
     A.flash_single = lambda q, k, v, **kw: flash(
@@ -2618,7 +2547,6 @@ def permuted_keys():
 
 def clip_crops(seq, n, size, seed=SEED):
     """n (3, size, size) float [0, 1] windows of phase L's frames."""
-    import numpy as np
 
     from vggt_slam_tpu_torch.data.images import load_image
 
@@ -2639,10 +2567,6 @@ def kernel_vs_plain(fn, model):
     """fn() on the kernel, then plain, with zeroed attention and with permuted
     keys: (features, launches, designs, max L2 from plain, the controls'
     min L2)."""
-    import numpy as np
-    import torch
-
-    from vggt_slam_tpu_torch.ops import attention as A
 
     torch.cuda.synchronize()
     A.reset_launch_counts()
@@ -2670,9 +2594,6 @@ def kernel_vs_plain(fn, model):
 def flash_single_at(device, B, N):
     """flash_single at (B, N, 12, 64) against its plain version, timed
     beside it and SDPA, with its bound."""
-    import torch
-
-    from vggt_slam_tpu_torch.ops import attention as A
 
     g = torch.Generator(device=device).manual_seed(SEED)
     case = dict(kw=dict(num_heads=12))
@@ -2697,12 +2618,10 @@ def flash_single_at(device, B, N):
 
 
 def check_encoders(device, ckpt, seq, family):
-    """The encoders through resolve_clip_encoders on 100 crops at 224 px and 6
-    at 180 x 150: 12 flash_single a chunk, within ENCODER_TOL (L2) of plain,
-    which the controls must exceed; the text tower so where it runs the
-    kernel (SigLIP), else within CLIP_TEXT_TOL of the CPU; timings."""
-    import numpy as np
-    import torch
+    """resolve_clip_encoders on 100 crops at 224 px and 6 at 180 x 150: 12
+    flash_single a chunk, within ENCODER_TOL (L2) of plain (controls must
+    exceed it); the text tower likewise (SigLIP) or within CLIP_TEXT_TOL
+    of the CPU; timings."""
 
     from vggt_slam_tpu_torch.semantic.embedder import resolve_clip_encoders
 
@@ -2782,13 +2701,8 @@ def check_encoders(device, ckpt, seq, family):
 
 def drive_encoders(device, seq, ckpt, family="clip"):
     """Phase P (CLIP) or N (SigLIP): the checkpoint, `check_encoders`, the
-    embedder CLI (12 flash_single a frame, unit features of d 512 or 768),
-    the small CLI with --get_voxel, query_voxelmap. Returns flash_single's
-    entry."""
-    import shutil
-
-    import numpy as np
-    import torch
+    embedder CLI (12 flash_single a frame), the small CLI with
+    --get_voxel, query_voxelmap. flash_single's entry."""
 
     from vggt_slam_tpu_torch.main import parser, run_slam
     from vggt_slam_tpu_torch.semantic import embedder
@@ -2891,7 +2805,6 @@ SAM2_TOL = 1e-4     # f32 on the card against float64, of the largest entry
 def sam2_errors(model, ref, image, points):
     """embed_image's features and decode_points' masks, iou, obj of `model`
     against float64 `ref`: max abs error over the largest entry, each."""
-    import torch
 
     with torch.no_grad():
         f, r = model.embed_image(image), ref.embed_image(image.double())
@@ -2902,21 +2815,14 @@ def sam2_errors(model, ref, image, points):
 
 
 def drive_sam2(device, seq, clip_ckpt):
-    """Phase M: a seeded sam2.1_hiera_base_plus .pt (the IoU head's last bias
-    +3 passes the 0.9 filter), kept for phase Q; embed_image and a 192-point
-    decode against float64 (SAM2_TOL) with a layout control; the AMG at its
-    defaults and zero thresholds; the embedder with --masker sam2
-    --clip_model_dir on 4 frames."""
+    """Phase M: a seeded sam2.1_hiera_base_plus .pt (IoU head's last bias +3),
+    kept for Q; embed_image and a 192-point decode against float64
+    (SAM2_TOL) with a layout control; the AMG; the embedder with --masker
+    sam2 --clip_model_dir on 4 frames."""
     import copy
-    import io
-    import shutil
-
-    import numpy as np
-    import torch
 
     from vggt_slam_tpu_torch.data.images import load_image, resize_linear
     from vggt_slam_tpu_torch.models import sam2 as S
-    from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.semantic import embedder
     from vggt_slam_tpu_torch.semantic import sam2_amg as AMG
 
@@ -3025,13 +2931,10 @@ DENSE_FRAMES, DENSE_BOUND, DENSE_SCALE, DENSE_STRIDE = 30, 3e-3, 1.1, 5
 
 
 def seven_scenes_dump(root, n=DENSE_FRAMES):
-    """A 7-Scenes sequence rendered by synth3d at 480x640 with K_7SCENES
-    (16-bit mm depth, pose.txt), an estimate (frame_output of the exact
-    depth, TUM poses) and the control: (seq, estimate, control, TUM)."""
+    """A 7-Scenes sequence by synth3d at 480x640 (16-bit mm depth,
+    pose.txt), an exact estimate and the control: (seq, estimate,
+    control, TUM)."""
     from concurrent.futures import ThreadPoolExecutor
-
-    import numpy as np
-    import torch
 
     from vggt_slam_tpu_torch.data.images import resize_nearest, write_png16
     from vggt_slam_tpu_torch.evals import dense_7scenes as D
@@ -3084,9 +2987,7 @@ def counted(fn):
     """fn() with the launch counts zeroed just before, printing into a
     buffer: (its result, its text, seconds, launches, designs by the C
     count)."""
-    import io
 
-    from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.utils.profiling import sync
 
     out = io.StringIO()
@@ -3102,16 +3003,11 @@ def counted(fn):
 
 
 def drive_evals(device, seq, sam2_pt, vox_dir, encoder_dir, phase_v):
-    """Phase Q: mask_eval's CLI with SAM2 base_plus (phase M's .pt) on the
-    card; voxel_eval over phase N's map and SigLIP (validity 1.0 on its
-    frames' stamps, 0.0 moved past the tolerance); dense_7scenes (ATE <
-    1e-6, chamfer RMSEs < DENSE_BOUND, the control above);
-    visualize_results on the stub over phase V's outputs and N's map, then
-    --headless. Returns the text tower's flash_single launches."""
-    import io
-    import re
-
-    import numpy as np
+    """Phase Q: mask_eval with M's SAM2; voxel_eval over N's map and SigLIP
+    (validity 1.0, 0.0 past the tolerance); dense_7scenes (ATE < 1e-6,
+    chamfer RMSEs < DENSE_BOUND, the control above); visualize_results
+    over V's outputs and N's map, then --headless. Returns the text
+    tower's flash_single launches."""
 
     from vggt_slam_tpu_torch.evals import dense_7scenes, mask_eval, voxel_eval
     from vggt_slam_tpu_torch.semantic import sam2_amg as AMG
@@ -3244,287 +3140,158 @@ def drive_evals(device, seq, sam2_pt, vox_dir, encoder_dir, phase_v):
     return launches["flash_single"]
 
 
-# --ab DIR: the bf16 forward at head dim 64 against an earlier build, in turns
+# Phases R, T: the retrieval and attention A/B evals, the host tools
 
+def drive_quality_evals(device, small_ckpt, root):
+    """Phase R: retrieval_quality's CLI a backend at a time on a 40-frame
+    loop with the gate (salad_random: unit descriptors); ab_attention's,
+    three configs on 24 frames with phase 9's model, run_eval in this
+    process so that launches count. Every launch tma_wgmma."""
+    import types
 
-@contextlib.contextmanager
-def using_library(lib, mod=None, loader="kernel_library"):
-    """Route `mod`'s forward wrappers (or with loader="bwd_kernel_library" its
-    backward) to ctypes build `lib` inside the block."""
-    from vggt_slam_tpu_torch.ops import attention as A
-    mod = mod or A
-    saved = getattr(mod, loader)
-    setattr(mod, loader, lambda: lib)
+    from vggt_slam_tpu_torch.evals import ab_attention as AB
+    from vggt_slam_tpu_torch.evals import retrieval_quality as RQ
+    from vggt_slam_tpu_torch.evals import run_eval
+
+    t_phase, tmp = time.perf_counter(), os.path.join(root, "phase_r")
+    make, descs, runs = RQ.make_backend, {}, {}
+
+    def capturing(name, dev):
+        fn = make(name, dev)
+        return lambda frames: descs.setdefault(name, fn(frames))
+
+    def in_process(cmd, **kw):
+        name = os.path.basename(cmd[cmd.index("--out") + 1])[:-4]
+        _, out, wall, launches, designs = counted(
+            lambda: run_eval.main(cmd[3:]))
+        run_eval._WARM.update(model_fn=None, retrieval=None)
+        torch.cuda.empty_cache()
+        runs[name] = dict(seconds=wall, launches=launches, designs=designs)
+        return subprocess.CompletedProcess(cmd, 0, out, "")
+
+    RQ.make_backend = capturing
+    AB.subprocess = types.SimpleNamespace(run=in_process)
     try:
-        yield mod
+        for b in ("tiny", "salad_random"):
+            (rows, _), _, wall, launches, designs = counted(lambda: RQ.main(
+                ["--backends", b, "--n_sequences", "1", "--n_frames", "40",
+                 "--geometric_gate", "--device", str(device), "--out",
+                 os.path.join(tmp, f"{b}.csv")]))
+            runs[b] = dict(rows[0], seconds=wall, launches=launches,
+                           designs=designs, gate_fracs=None)
+        (rows, summary, pairs), _, wall, _, _ = counted(lambda: AB.main(
+            ["--checkpoint", small_ckpt, "--seq_root", tmp, "--n_frames",
+             "24", "--n_sequences", "1", "--configs", "exact_online",
+             "merged8_static", "merged16_flash_full", "--device",
+             str(device), "--out", os.path.join(tmp, "ab.csv")]))
     finally:
-        setattr(mod, loader, saved)
+        RQ.make_backend, AB.subprocess = make, subprocess
+    d = descs["salad_random"]
+    err = float(np.abs(np.linalg.norm(d, axis=1) - 1).max())
+    log("phase_r", runs=runs, ab_rows=rows, ab_summary=summary,
+        ab_pairs=pairs, ab_seconds=wall, salad_shape=d.shape,
+        salad_norm_err=err, seconds=time.perf_counter() - t_phase)
+    calls = {k: forward_calls(r["launches"]) for k, r in runs.items()}
+    if any(r["designs"] != {"tma_wgmma": calls[k]} for k, r in runs.items()) \
+            or calls["tiny"] or runs["salad_random"]["launches"][
+                "flash_single"] != 12 or d.shape != (40, 8448) or \
+            not err < 1e-4 or len(rows) != 3 or any(
+                not calls.get(r["config"]) or not np.isfinite(
+                    float(r["ate_rmse"])) for r in rows):
+        raise AssertionError(f"phase R: {runs}, {rows}")
 
 
-def _ab_wrapper(d, module="attention"):
-    """A/B folder `d`'s `module`.py where it holds one, else this tree's ops
-    module."""
-    import importlib
-    import importlib.util
+def drive_tools(device, seq, phase_v):
+    """Phase T, CLIs: occupancy on V's cloud and L's ground truth (flags and
+    grid as the CPU's); undistort, metacam on two 3000x3000 frames, euroc
+    on two 752x480 (within one grey level of the CPU on >= 99.9%; ms);
+    align_points on a Sim(3)-moved 200k-point crop (1e-4)."""
 
-    wrapper = os.path.join(d, f"{module}.py")
-    if not os.path.exists(wrapper):
-        return importlib.import_module(f"vggt_slam_tpu_torch.ops.{module}")
-    name = os.path.basename(os.path.normpath(d))
-    spec = importlib.util.spec_from_file_location(f"ab_{module}_{name}",
-                                                  wrapper)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    from vggt_slam_tpu_torch.data.images import (read_png, resize_linear,
+                                                 write_png)
+    from vggt_slam_tpu_torch.data.pcd import read_pcd, write_pcd
+    from vggt_slam_tpu_torch.tools import align_points as AP
+    from vggt_slam_tpu_torch.tools import occupancy as OC
+    from vggt_slam_tpu_torch.tools import undistort as UD
 
+    t_phase, res = time.perf_counter(), {}
+    tmp = os.path.join(seq, "phase_t")
+    os.makedirs(tmp)
+    files = [os.path.join(phase_v, "out", "result.pcd"), os.path.join(
+        tmp, "images.txt"), os.path.join(tmp, "path")]
+    write_colmap_images(seq, files[1])
+    with open(files[2], "w") as f:
+        f.write("\n".join(sorted(os.listdir(os.path.join(seq, "rgb")))))
+    pts = read_pcd(files[0])[0]
+    z = OC.apply_T_world(OC.get_T_zup_from_xleft_ydown_zin(), pts)
+    lo, hi = np.nanpercentile(z, [5, 95], axis=0)
+    grid = [float(max(hi[:2] - lo[:2]) / 100), float(hi[2]),
+            float((hi[2] - lo[2]) / 10)]          # voxel, ceiling, height
+    nav = []
+    for dev in (str(device), "cpu"):
+        t0 = time.perf_counter()
+        nav.append(OC.main(sum((["--" + k, str(v)] for k, v in zip(
+            ("pcd_path", "colmap_images_txt", "path_txt", "voxel_size",
+             "ceiling_z", "height_thresh", "device"), files + grid + [dev])),
+            [])).details)
+        res[f"occupancy_{dev[:4]}_s"] = time.perf_counter() - t0
+    occ = [OC.build_occupancy_from_pointcloud(z, *grid, d)
+           for d in (device, "cpu")]
+    same = [np.array_equal(a, b) for a, b in zip(*occ)]
+    res.update(points=len(pts), grid=grid, cells=len(occ[1][0]),
+               blocked=int(occ[1][1].sum()), navigable=nav[1],
+               build_ms=cuda_ms(lambda: OC.build_occupancy_from_pointcloud(
+                   z, *grid, device), 3))
+    if nav[0] != nav[1] or not all(same):
+        raise AssertionError(f"occupancy: the card differs: {same}, {nav}")
 
-def ab_builds(dirs):
-    """{build: (wrapper module, library)} for each DIR holding a
-    flash_attention.cu, then "this_tree"."""
-    from vggt_slam_tpu_torch.ops import attention as A
-    from vggt_slam_tpu_torch.ops import cuda_build
+    rng = np.random.default_rng(SEED)
+    for mode, (h, w) in (("metacam", (3000, 3000)), ("euroc", (480, 752))):
+        d_in, d_out = (os.path.join(tmp, mode + s) for s in ("", "_out"))
+        os.makedirs(d_in)
+        for i in range(2):
+            write_png(os.path.join(d_in, f"{i}.png"), resize_linear(
+                rng.integers(0, 256, (h // 8, w // 8, 3), np.uint8), w, h))
+        _, _, wall, _, _ = counted(lambda: UD.main(
+            [mode, "--input_dir", d_in, "--output_dir", d_out, "--device",
+             str(device)]))
+        maps = ((lambda d: UD.METACAM_LEFT.undistort_maps(device=d)[:2])
+                if mode == "metacam" else lambda d: UD.radtan_maps(
+                    UD.EUROC_CAM0_K, UD.EUROC_CAM0_D, (w, h), d))
+        img = read_png(os.path.join(d_in, "0.png"))
+        diff = np.abs(read_png(os.path.join(d_out, "0.png")).astype(int)
+                      - UD.remap_linear(img, *maps("cpu")).numpy())
+        m, x = maps(device), torch.as_tensor(img, device=device)
+        res[mode] = dict(seconds=wall, within_one=float((diff <= 1).mean()),
+                         maps_ms=cuda_ms(lambda: maps(device), 3),
+                         remap_ms=cuda_ms(lambda: UD.remap_linear(x, *m), 5))
+        if res[mode]["within_one"] < 0.999 or len(os.listdir(d_out)) != 2:
+            raise AssertionError(f"undistort {mode}: {res[mode]}")
 
-    builds = {}
-    for d in dirs:
-        if not os.path.exists(os.path.join(d, "flash_attention.cu")):
-            continue
-        name = os.path.basename(os.path.normpath(d))
-        mod = _ab_wrapper(d)
-        builds[name] = (mod, cuda_build.load(
-            f"flash_attention_ab_{name}", mod._SIGNATURES,
-            os.path.join(d, "flash_attention.cu")))
-    builds["this_tree"] = (A, A.kernel_library())
-    return builds
-
-
-def ab_bwd_calls(builds, dirs):
-    """{build: call(q, k, v, dout, out, m, l, H, vl) -> (dq, dk, dv)} behind
-    each forward build's wrapper, then this tree's flash_bwd."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from vggt_slam_tpu_torch.ops import attention as A
-    from vggt_slam_tpu_torch.ops import cuda_build
-
-    def through(mod, lib):
-        def call(q, k, v, dout, out, m, l, H, vl):
-            with using_library(lib, mod, "bwd_kernel_library"):
-                if hasattr(mod, "flash_bwd"):
-                    return mod.flash_bwd(q, k, v, dout, out, m, l,
-                                         num_heads=H, valid_len=vl)
-                delta = A.bwd_delta(dout, out, H)
-                dq = mod.flash_bwd_dq(q, k, v, dout, m, l, delta,
-                                      num_heads=H, valid_len=vl)
-                return (dq, *mod.flash_bwd_dkv(q, k, v, dout, m, l, delta,
-                                               num_heads=H, valid_len=vl))
-        return call
-
-    folders = {os.path.basename(os.path.normpath(d)): d for d in dirs}
-    srcs = {n: os.path.join(d, "flash_attention_bwd.cu")
-            for n, d in folders.items()}
-    srcs = {n: src for n, src in srcs.items() if os.path.exists(src)}
-    with ThreadPoolExecutor(max(len(srcs), 1)) as pool:   # nvcc at once
-        list(pool.map(lambda n: cuda_build.build(
-            f"flash_attention_bwd_ab_{n}", srcs[n]), srcs))
-    calls = {}
-    for name, src in srcs.items():
-        mod = (builds[name][0] if name in builds
-               else _ab_wrapper(folders[name]))
-        calls[name] = through(mod, cuda_build.load(
-            f"flash_attention_bwd_ab_{name}", mod._BWD_SIGNATURES, src))
-    calls["this_tree"] = through(A, A.bwd_kernel_library())
-    return calls
-
-
-def ab_backward(device, builds, dirs):
-    """Each build's backward against its plain version, then in turns at phase
-    4's shapes (eager and CUDA graph) beside SDPA's backward and the bound."""
-    import torch
-    import torch.nn.functional as F
-
-    from vggt_slam_tpu_torch.ops import attention as A
-
-    calls = ab_bwd_calls(builds, dirs)
-    names = list(calls)
-    g = torch.Generator(device=device).manual_seed(SEED + 1)
-    rows = []
-    for name, B, N, H, D, vl, softmax, _ in TRAINING_CASES:
-        q, k, v, dout = (torch.randn((B, N, H * D), generator=g,
-                                     device=device).to(torch.bfloat16)
-                         for _ in range(4))
-        smax = A.static_bound(q, k, H) if takes_static(softmax, N) else None
-        kw = dict(num_heads=H, valid_len=vl, return_stats=True)
-        out, m, l = (A.flash_single(q, k, v, **kw) if smax is None
-                     else A.flash_multi(q, k, v, smax, **kw))
-        refs = A.flash_bwd_ref(q, k, v, dout, m, l, A.bwd_delta(dout, out, H),
-                               num_heads=H, valid_len=vl)
-        args = (q, k, v, dout, out, m, l, H, vl)
-        errs, runs, graph_runs = {}, {n: [] for n in names}, {
-            n: [] for n in names}
-        for n in names + names[::-1]:
-            fn = functools.partial(calls[n], *args)
-            if n not in errs:
-                got = fn()
-                torch.cuda.synchronize()
-                errs[n] = {gn: float((a.float() - b.float()).abs().max()
-                                     / max(float(b.float().abs().max()),
-                                           1e-30))
-                           for gn, a, b in zip(("dq", "dk", "dv"), got, refs)}
-                bad = max(errs[n].values()) > 2e-2 or not all(
-                    bool(torch.isfinite(t).all()) for t in got)
-                if bad:
-                    raise AssertionError(f"{n}'s backward disagrees with "
-                                         f"its plain version at {name}: "
-                                         f"{errs[n]}")
-                del got
-            runs[n].append(cuda_ms(fn, iters=20))
-            graph_runs[n].append(graph_ms(fn))
-        sdpa_ms = sdpa_graph_ms = None
-        if vl is None:
-            # each on one saved forward of its own leaves: eager on this
-            # stream's, the graph on one run on the stream it captures
-            # (autograd runs each backward op on its forward's stream)
-            do_h = dout.view(B, N, H, D).transpose(1, 2)
-
-            def leaves():
-                return tuple(t.view(B, N, H, D).transpose(1, 2).detach()
-                             .requires_grad_() for t in (q, k, v))
-
-            xs = leaves()
-            o = F.scaled_dot_product_attention(*xs)
-            sdpa_ms = cuda_ms(lambda: torch.autograd.grad(
-                o, xs, do_h, retain_graph=True), iters=20)
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                xs_side = leaves()
-                o_side = F.scaled_dot_product_attention(*xs_side)
-            torch.cuda.current_stream().wait_stream(side)
-            sdpa_graph_ms = graph_ms(lambda: torch.autograd.grad(
-                o_side, xs_side, do_h, retain_graph=True), stream=side)
-            del o, o_side
-        bound = training_bounds(B, N, H, D, vl)["bwd"]
-        dev_ms = {n: sum(r) / len(r) for n, r in graph_runs.items()}
-        row = dict(variant=f"training_{name}", D=D, bound_ms=bound[0],
-                   bound_unit=bound[2],
-                   ms={n: sum(r) / len(r) for n, r in runs.items()},
-                   graph_ms=dev_ms, runs=runs, graph_runs=graph_runs,
-                   errors=errs, sdpa_bwd_ms=sdpa_ms,
-                   sdpa_bwd_graph_ms=sdpa_graph_ms,
-                   share_of_bound={n: bound[0] / t for n, t in dev_ms.items()},
-                   speedup={n: t / dev_ms["this_tree"]
-                            for n, t in dev_ms.items() if n != "this_tree"})
-        log("ab_backward", **row)
-        rows.append(row)
-        del q, k, v, dout, out, m, l, refs
-    return rows
+    ok = pts[np.isfinite(pts).all(1)]
+    crop = ok[np.argsort(np.linalg.norm(ok - np.median(ok, 0), axis=1))
+              [:200_000]].astype(np.float64)
+    s, R, t = 1.3, rotation([0.2, -0.1, 0.3]), np.ptp(crop, 0) * [.5, -.2, .1]
+    paths = [os.path.join(tmp, n) for n in ("src.pcd", "dst.pcd")]
+    write_pcd(paths[0], crop)
+    write_pcd(paths[1], s * crop @ R.T + t)
+    (s1, R1, t1, rmse), _, wall, _, _ = counted(lambda: AP.main(
+        ["--source", paths[0], "--target", paths[1], "--max_points",
+         "200000", "--device", str(device)]))
+    err = max(abs(s1 / s - 1), np.abs(R1 - R).max(),
+              np.abs(t1 - t).max() / np.ptp(crop))
+    res["align"] = dict(points=len(crop), seconds=wall, rmse=rmse, err=err)
+    log("phase_t", **res, seconds=time.perf_counter() - t_phase)
+    if err > 1e-4:
+        raise AssertionError(f"align_points: {res['align']}")
 
 
-def _forward_calls(q, k, v, kw, smax):
-    """(kernel call of a wrapper module, plain call): flash_multi with
-    `smax`, or flash_single where it is None."""
-    from vggt_slam_tpu_torch.ops import attention as A
-
-    if smax is None:
-        return (lambda mod: lambda: mod.flash_single(q, k, v, **kw),
-                lambda: A.flash_single_ref(q, k, v, **kw))
-    return (lambda mod: lambda: mod.flash_multi(q, k, v, smax, **kw),
-            lambda: A.flash_multi_ref(q, k, v, smax, **kw))
-
-
-def ab_cases(device):
-    """The bf16 forward shapes of phases 3 and 4 as dicts of name, kernel, D,
-    bound, kern(module), plain(), stats and sdpa."""
-    import torch
-    import torch.nn.functional as F
-
-    from vggt_slam_tpu_torch.ops import attention as A
-
-    cases = []
-    for case in main_path_attention_cases(device):
-        q, k, v, kw = case["q"], case["k"], case["v"], case["kw"]
-        smax = (A.static_bound(q, k, kw["num_heads"], qk_ln=kw["qk_ln"],
-                               kv_bias=kw["kv_bias"])
-                if case["kernel"] == "flash_multi" else None)
-        kern, plain = _forward_calls(q, k, v, kw, smax)
-        bound = attention_bound_ms(case)
-        cases.append(dict(name=case["name"], kernel=case["kernel"],
-                          D=q.shape[2] // kw["num_heads"], bound=bound[0],
-                          unit=bound[2], kern=kern, plain=plain, stats=False,
-                          sdpa=sdpa_call(case) or sdpa_prepared_call(case)))
-    g = torch.Generator(device=device).manual_seed(SEED + 1)
-    for name, B, N, H, D, vl, softmax, _ in TRAINING_CASES:
-        q, k, v = (torch.randn((B, N, H * D), generator=g, device=device)
-                   .to(torch.bfloat16) for _ in range(3))
-        kw = dict(num_heads=H, valid_len=vl, return_stats=True)
-        static = takes_static(softmax, N)
-        smax = A.static_bound(q, k, H) if static else None
-        kern, plain = _forward_calls(q, k, v, kw, smax)
-        sdpa = None
-        if vl is None:   # as phase 4: q, k, v need grad, SDPA keeps its lse
-            qs, ks, vs = (t.view(B, N, H, D).transpose(1, 2).detach()
-                          .requires_grad_() for t in (q, k, v))
-            sdpa = functools.partial(F.scaled_dot_product_attention, qs, ks,
-                                     vs)
-        bound = training_bounds(B, N, H, D, vl)["fwd"]
-        cases.append(dict(name=f"training_{name}",
-                          kernel="flash_multi" if static else "flash_single",
-                          D=D, bound=bound[0], unit=bound[2], kern=kern,
-                          plain=plain, stats=True, sdpa=sdpa))
-    return cases
-
-
-def ab_errors(got, ref, stats):
-    """Max abs error of the output (tol 2e-2) and of the row stats, relative
-    (1e-3)."""
-    import torch
-
-    out, want = (got[0], ref[0]) if stats else (got, ref)
-    errs = {"out": float((out.float() - want.float()).abs().max())}
-    if stats:
-        errs["m_rel"] = float(((got[1] - ref[1]).abs()
-                               / ref[1].abs().clamp_min(1.0)).max())
-        errs["l_rel"] = float(((got[2] - ref[2]).abs() / ref[2]).max())
-    ok = errs["out"] <= 2e-2 and all(errs[n] <= 1e-3 for n in errs
-                                     if n != "out")
-    return errs, ok and bool(torch.isfinite(out).all())
-
-
-def ab_host_us(builds, device, calls=100, rounds=12):
-    """Host µs a forward call where the card keeps up (a small flash_multi,
-    the camera-trunk training shape): builds in turns; the medians."""
-    import torch
-
-    from vggt_slam_tpu_torch.ops import attention as A
-
-    g = torch.Generator(device=device).manual_seed(SEED + 2)
-    q, k, v = (torch.randn((1, 256, 1024), generator=g, device=device)
-               .to(torch.bfloat16) for _ in range(3))
-    cs = torch.rand((256, 32), generator=g, device=device)
-    ln = tuple(torch.ones(64, device=device) for _ in range(4))
-    kw = dict(num_heads=16, rope_q=(cs, cs), rope_k=(cs, cs), qk_ln=ln,
-              kv_bias=torch.zeros(256, device=device), valid_len=250)
-    smax = A.static_bound(q, k, 16, qk_ln=ln, kv_bias=kw["kv_bias"])
-    qc, kc, vc = (torch.randn((1, 4, 2048), generator=g, device=device)
-                  .to(torch.bfloat16) for _ in range(3))
-    shapes = {
-        "n256_d64_ln_rope": lambda mod: mod.flash_multi(q, k, v, smax, **kw),
-        "camera_trunk_stats": lambda mod: mod.flash_single(
-            qc, kc, vc, num_heads=16, return_stats=True)}
-    names = list(builds)
-    runs = {s_: {n: [] for n in names} for s_ in shapes}
-    for name in (names + names[::-1]) * rounds:
-        mod, lib = builds[name]
-        with using_library(lib, mod):
-            for shape, fn in shapes.items():
-                runs[shape][name].append(_host_us(lambda: fn(mod), calls))
-    return {s_: {n: dict(runs=r, median=sorted(r)[len(r) // 2], min=min(r))
-                 for n, r in rn.items()} for s_, rn in runs.items()}
+# Device time of one call
 
 
 def graph_ms(fn, calls=20, reps=3, stream=None):
     """Device ms per fn() from one CUDA graph of `calls` calls on `stream`,
     best of `reps` replays."""
-    import torch
 
     fn()
     torch.cuda.synchronize()
@@ -3547,541 +3314,9 @@ def graph_ms(fn, calls=20, reps=3, stream=None):
     return best
 
 
-def _host_us(fn, calls):
-    """Host µs per fn() over `calls` calls after a warm-up, ending in a
-    synchronize."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / calls * 1e6
-
-
-def ab_forward(device, dirs):
-    """Each build against plain, then in turns at every bf16 forward shape
-    (eager, graph) beside SDPA and the bound; `ab_host_us`. (builds, rows)."""
-    import torch
-
-    from vggt_slam_tpu_torch.ops import cuda_build
-
-    from vggt_slam_tpu_torch.ops import attention as A
-
-    t0 = time.perf_counter()
-    builds = ab_builds(dirs)
-    log("ab_build", seconds=time.perf_counter() - t0,
-        nvcc_seconds={n: cuda_build.build_seconds.get(
-            f"flash_attention_ab_{n}") for n in builds if n != "this_tree"})
-    names = list(builds)
-    rows = []
-    for c in ab_cases(device):
-        name, stats = c["name"], c["stats"]
-        ref = c["plain"]()
-        errs, runs, graph_runs = {}, {n: [] for n in names}, {
-            n: [] for n in names}
-        for n in names + names[::-1]:
-            mod, lib = builds[n]
-            with using_library(lib, mod):
-                kern = c["kern"](mod)
-                if n not in errs:
-                    got = kern()
-                    torch.cuda.synchronize()
-                    errs[n], ok = ab_errors(got, ref, stats)
-                    if not ok:
-                        raise AssertionError(f"{n} disagrees with the plain "
-                                             f"version at {name}: {errs[n]}")
-                    del got
-                runs[n].append(cuda_ms(kern, iters=20))
-                graph_runs[n].append(graph_ms(kern))
-        ms = {n: sum(r) / len(r) for n, r in runs.items()}
-        dev_ms = {n: sum(r) / len(r) for n, r in graph_runs.items()}
-        sdpa_ms = cuda_ms(c["sdpa"], iters=20) if c["sdpa"] else None
-        sdpa_graph = graph_ms(c["sdpa"]) if c["sdpa"] else None
-        row = dict(variant=name, kernel=c["kernel"], D=c["D"], stats=stats,
-                   design=launched_design(c["kern"](A)), bound_ms=c["bound"],
-                   bound_unit=c["unit"], ms=ms, graph_ms=dev_ms, runs=runs,
-                   graph_runs=graph_runs, errors=errs, sdpa_ms=sdpa_ms,
-                   sdpa_graph_ms=sdpa_graph,
-                   share_of_bound={n: c["bound"] / t
-                                   for n, t in dev_ms.items()})
-        row["faster_than"] = {n: dev_ms["this_tree"] < t
-                              for n, t in dev_ms.items() if n != "this_tree"}
-        if sdpa_ms is not None:
-            row["no_slower_than_sdpa"] = ms["this_tree"] <= sdpa_ms
-        log("ab_forward", **row)
-        rows.append(row)
-        del ref
-    log("ab_host", us_per_call=ab_host_us(builds, device))
-    return builds, rows
-
-
-def ab_probe_libs(dirs):
-    """{build: library} for each DIR holding a bench_attention.cu (without
-    entries an older build lacks), then "this_tree"; built on first use."""
-    from vggt_slam_tpu_torch.ops import cuda_build
-    from vggt_slam_tpu_torch.scripts import bench_attention as BA
-
-    ported = {n: sig for n, sig in BA._SIGNATURES.items()
-              if n not in ("bench_grouped_block_k",
-                           "bench_attention_design_launches")}
-    libs = {}
-    for d in dirs:
-        src = os.path.join(d, "bench_attention.cu")
-        if os.path.exists(src):
-            name = os.path.basename(os.path.normpath(d))
-            libs[name] = cuda_build.load(f"bench_attention_ab_{name}",
-                                         ported, src)
-    libs["this_tree"] = BA.kernel_library()
-    return libs
-
-
-def ab_matmul_only_tilings(args, ref):
-    """global_sm90's matmul mode at every tiling on the floor's `args`, held to
-    `ref`, then timed in turns as CUDA graphs. Returns {"BQxBK": ms}."""
-    from vggt_slam_tpu_torch.scripts import bench_attention as BA
-    from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
-
-    calls = {f"{bq}x{bk}": functools.partial(GA.run_kernel, *args, bq, bk,
-                                             "matmul", 1.0)
-             for bq, bk in GA.TILINGS}
-    for name, call in calls.items():
-        err, tol = BA.probe_error("matmul", call(), ref)
-        if not err <= tol:
-            raise AssertionError(f"global_sm90 matmul {name}: {err} > {tol}")
-    runs = {n: [] for n in calls}
-    for n in list(calls) + list(calls)[::-1]:
-        runs[n].append(graph_ms(calls[n]))
-    return {n: sum(r) / len(r) for n, r in runs.items()}
-
-
-def ab_probes(device, dirs):
-    """Each DIR's and this tree's matmul-only and grouped probes at the frame
-    shape: held to plain, then in turns as graphs beside the bound and SDPA."""
-    import torch
-
-    from vggt_slam_tpu_torch.scripts import bench_attention as BA
-
-    libs = ab_probe_libs(dirs)
-    names = list(libs)
-    S, H, N, D = 18, 16, 1041, 64
-    Np = BA.roundup(N, 128)
-    qkv = BA.make_inputs(S, H, N, D, seed=SEED, device=device)
-    variants = BA.make_variants(S, H, N, D)
-    rate = BA.sfu_rate(device)[0]
-    sdpa = variants["SDPA (library)"]
-    sdpa_args = sdpa.prep(*qkv)
-    sdpa_ms = graph_ms(lambda: sdpa.run(*sdpa_args))
-    del sdpa_args
-    rows = []
-    for variant, p in variants.items():
-        if not (BA.instance(variant) or p.counter == "matmul_only"):
-            continue
-        bound = BA.bound_ms(p.kind, S * H, Np, D, rate)
-        args = p.prep(*qkv)
-        ref = p.plain(*args)
-        errs, runs = {}, {n: [] for n in names}
-        for n in names + names[::-1]:
-            with using_library(libs[n], BA):
-                def call():
-                    return p.run(*args)
-                if n not in errs:
-                    got = call()
-                    torch.cuda.synchronize()
-                    errs[n] = BA.probe_error(p.kind, got, ref)
-                    if n == "this_tree" and BA.instance(variant):
-                        errs["this_tree_tiled"] = BA.tiled_error(variant,
-                                                                 args, got)
-                    if not (errs[n][0] <= errs[n][1]
-                            and errs.get(f"{n}_tiled", (0, 0))[1] <= 1):
-                        raise AssertionError(f"{n} disagrees with the plain "
-                                             f"version at {variant}: {errs}")
-                    del got
-                runs[n].append(graph_ms(call))
-        dev_ms = {n: sum(r) / len(r) for n, r in runs.items()}
-        row = dict(variant=variant, graph_ms=dev_ms, runs=runs, errors=errs,
-                   bound_ms=bound[0], bound_by=bound[1],
-                   share_of_bound={n: bound[0] / t for n, t in dev_ms.items()})
-        if p.kind == "attention":
-            row.update(sdpa_graph_ms=sdpa_ms,
-                       over_sdpa={n: t / sdpa_ms for n, t in dev_ms.items()})
-        else:
-            row["global_sm90_tilings_ms"] = ab_matmul_only_tilings(args, ref)
-        row["faster_than"] = {n: dev_ms["this_tree"] < t
-                              for n, t in dev_ms.items() if n != "this_tree"}
-        log("ab_probe", **row)
-        rows.append(row)
-        del args, ref
-        torch.cuda.empty_cache()
-    return rows
-
-
-AB_MM_GROUPS = (2, 16)
-
-
-def ab_mm_tilings(d):
-    """TILINGS of the bench_matmul_shapes.py beside A/B folder `d`'s .cu, read
-    without importing it, else this tree's."""
-    import ast
-
-    from vggt_slam_tpu_torch.scripts import bench_matmul_shapes as MM
-
-    script = os.path.join(d, "bench_matmul_shapes.py")
-    if not os.path.exists(script):
-        return MM.TILINGS
-    with open(script) as f:
-        tree = ast.parse(f.read())
-    return next(ast.literal_eval(node.value) for node in tree.body
-                if isinstance(node, ast.Assign)
-                and any(getattr(t, "id", None) == "TILINGS"
-                        for t in node.targets))
-
-
-def ab_mm_call(lib, tilings):
-    """run_variant's launch on build `lib` with `tilings`: the C entry into
-    `out`, nothing counted."""
-    from vggt_slam_tpu_torch.scripts import bench_attention as BA
-    from vggt_slam_tpu_torch.scripts import bench_matmul_shapes as MM
-
-    def call(kernel, a, b, G, tile, out):
-        MM.check_operands(a, b, G, tile, out, tilings)
-        BA._launch(f"bench_{kernel}", a.device, a.data_ptr(), b.data_ptr(),
-                   out.data_ptr(), *a.shape, b.shape[2],
-                   *((G,) if kernel == "grouped_mm" else ()), *tile, lib=lib)
-        return out
-    return call
-
-
-def ab_matmul(device, dirs, iters=20):
-    """Each DIR's and this tree's matmul probes at every tiling (B 1; QK^T, PV
-    at B 528, grouped at AB_MM_GROUPS): one bf16 ulp, then in turns as
-    graphs beside torch.bmm and the bound."""
-    import torch
-
-    from vggt_slam_tpu_torch.ops import cuda_build
-    from vggt_slam_tpu_torch.scripts import bench_attention as BA
-    from vggt_slam_tpu_torch.scripts import bench_matmul_shapes as MM
-
-    sigs = {n: sig for n, sig in MM._SIGNATURES.items()
-            if n != "bench_matmul_design_launches"}
-    libs, tilings = {}, {}
-    for d in dirs:
-        src = os.path.join(d, "bench_matmul_shapes.cu")
-        if os.path.exists(src):
-            name = os.path.basename(os.path.normpath(d))
-            libs[name] = cuda_build.load(f"bench_matmul_shapes_ab_{name}",
-                                         sigs, src)
-            tilings[name] = ab_mm_tilings(d)
-    libs["this_tree"], tilings["this_tree"] = MM.kernel_library(), MM.TILINGS
-    calls = {n: ab_mm_call(lib, tilings[n]) for n, lib in libs.items()}
-    log("ab_matmul_builds", tilings=tilings)
-    runners = [(n, t) for n in libs for t in tilings[n]]
-    gen = torch.Generator(device).manual_seed(SEED)
-    rows = []
-    for _, B, (M, K, N) in MM.sections():
-        a, b = (torch.randn(s_, generator=gen, device=device).to(
-            torch.bfloat16) for s_ in ((B, M, K), (B, K, N)))
-        ref = MM.batched_mm_ref(a, b)
-        bound, by = MM.bound_ms(B, M, K, N)
-        sets = [(x, y, torch.empty(B, M, N, dtype=torch.bfloat16,
-                                   device=device)) for x, y in
-                [(a, b)] + [(a.clone(), b.clone())
-                            for _ in range(MM.copies(B, M, K, N) - 1)]]
-        lib_ms = BA.graph_bench(MM.library_mm, sets, iters)
-        kernels = [("batched_mm", 1)] + ([("grouped_mm", G)
-                                          for G in AB_MM_GROUPS] if B > 1
-                                         else [])
-        for kernel, G in kernels:
-            errs, runs = {}, {r: [] for r in runners}
-            for n, t in runners + runners[::-1]:
-                if (n, t) not in errs:
-                    out = calls[n](kernel, a, b, G, t,
-                                   torch.full_like(ref, math.nan))
-                    torch.cuda.synchronize()
-                    errs[n, t] = MM.mm_error(out, ref)
-                    del out
-                    if not errs[n, t][0] <= errs[n, t][1]:
-                        raise AssertionError(
-                            f"{n} {kernel} G={G} {t} at B={B} "
-                            f"({M},{K},{N}): {errs[n, t]}")
-                runs[n, t].append(BA.graph_bench(
-                    calls[n], [(kernel, x, y, G, t, o) for x, y, o in sets],
-                    iters))
-            name = {r: f"{r[0]} {MM.tile_name(r[1])}" for r in runners}
-            ms = {name[r]: sum(v) / len(v) for r, v in runs.items()}
-            best = {n: min(ms[name[n, t]] for t in tilings[n]) for n in libs}
-            row = dict(kernel=kernel, G=G, B=B, M=M, K=K, N=N, graph_ms=ms,
-                       runs={name[r]: v for r, v in runs.items()},
-                       errors={name[r]: e for r, e in errs.items()},
-                       best_ms=best, bound_ms=bound, bound_by=by,
-                       library="torch.bmm" if B > 1 else "torch.matmul",
-                       library_ms=lib_ms, copies=len(sets),
-                       share_of_bound={n: bound / t for n, t in best.items()},
-                       over_library={n: t / lib_ms for n, t in best.items()})
-            row["faster_than"] = {n: best["this_tree"] < t
-                                  for n, t in best.items() if n != "this_tree"}
-            log("ab_matmul", **row)
-            rows.append(row)
-        del a, b, ref, sets
-        torch.cuda.empty_cache()
-    return rows
-
-
-def ab_dpt_tail(device, dirs, calls=10):
-    """Each DIR's DPT tail, then this tree's, at phase B's shape, cout 2 and 4:
-    held to fused_tail_ref, then timed in turns as CUDA graphs."""
-    import torch
-
-    from vggt_slam_tpu_torch.ops import cuda_build
-    from vggt_slam_tpu_torch.ops import dpt_tail as T
-
-    builds = {}
-    for d in dirs:
-        src = os.path.join(d, "dpt_tail.cu")
-        if os.path.exists(src):
-            name = os.path.basename(os.path.normpath(d))
-            mod = _ab_wrapper(d, "dpt_tail")
-            sigs = {n: sig for n, sig in mod._SIGNATURES.items()
-                    if not n.endswith("_design_launches")}
-            builds[name] = (mod, cuda_build.load(f"dpt_tail_ab_{name}", sigs,
-                                                 src))
-    builds["this_tree"] = (T, T.kernel_library())
-    names = list(builds)
-    gen = torch.Generator(device).manual_seed(SEED)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=device)
-
-    S, rows_in, (H, W), cin, cmid = 18, 224, HW, 128, 32
-    x = rnd(S, rows_in, W, cin).bfloat16()
-    pos = (0.1 * rnd(H, W, cin)).bfloat16()
-    w0 = (rnd(3, 3, cin, cmid) / (3 * cin ** 0.5)).bfloat16()
-    b0 = 0.1 * rnd(cmid)
-    rows = []
-    for cout in (2, 4):
-        w1, b1 = rnd(1, 1, cmid, cout) / 6.0, rnd(cout)
-        args = (x, pos, w0, b0, w1, b1)
-        ref = T.fused_tail_ref(*args)
-        tol = 1e-2 * float(ref.abs().max())
-        flops = 2.0 * S * H * W * (9 * cin * cmid + cmid * cout)
-        nbytes = 2 * x.numel() + 2 * pos.numel() + 4 * ref.numel()
-        t_ops = flops / BF16_PEAK_FLOPS * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound = max(t_ops, t_bytes)
-        errs, runs = {}, {n: [] for n in names}
-        for n in names + names[::-1]:
-            mod, lib = builds[n]
-            with using_library(lib, mod):
-                def call():
-                    return mod._launch(*args)
-                if n not in errs:
-                    got = call()
-                    torch.cuda.synchronize()
-                    errs[n] = float((got - ref).abs().nan_to_num(math.inf)
-                                    .max())
-                    del got
-                    if not errs[n] <= tol:
-                        raise AssertionError(f"{n}'s dpt_tail disagrees with "
-                                             f"the plain version at cout "
-                                             f"{cout}: {errs[n]} > {tol}")
-                runs[n].append(graph_ms(call, calls=calls))
-        dev_ms = {n: sum(r) / len(r) for n, r in runs.items()}
-        row = dict(kernel="dpt_tail", cout=cout, shape_x=list(x.shape),
-                   rows_out=H, graph_ms=dev_ms, runs=runs, errors=errs,
-                   tol=tol, bound_ms=bound,
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   share_of_bound={n: bound / t for n, t in dev_ms.items()},
-                   faster_than={n: dev_ms["this_tree"] < t
-                                for n, t in dev_ms.items()
-                                if n != "this_tree"})
-        log("ab_dpt_tail", **row)
-        rows.append(row)
-        del ref
-    del x, pos
-    torch.cuda.empty_cache()
-    return rows
-
-
-AB_GLOBAL_SCRIPTS = ("bench_global_attention", "bench_softmax_variants",
-                     "bench_int8_inkernel")
-
-
-def ab_global_libs(dirs):
-    """{script: {build: library}} of the three global-shape probes for each DIR
-    holding the .cu, then "this_tree"; built on first use."""
-    import importlib
-
-    from vggt_slam_tpu_torch.ops import cuda_build
-
-    libs = {}
-    for script in AB_GLOBAL_SCRIPTS:
-        mod = importlib.import_module(f"vggt_slam_tpu_torch.scripts.{script}")
-        sigs = {n: sig for n, sig in mod._SIGNATURES.items()
-                if not n.endswith("_design_launches")}
-        found = {}
-        for d in dirs:
-            src = os.path.join(d, f"{script}.cu")
-            if os.path.exists(src):
-                name = os.path.basename(os.path.normpath(d))
-                found[name] = cuda_build.load(f"{script}_ab_{name}", sigs,
-                                              src)
-        if found:
-            found["this_tree"] = mod.kernel_library()
-            libs[script] = found
-    return libs
-
-
-def ab_global_modes(script, device, rate, iters):
-    """One global probe at (BH 16, N 34816, D 64): (module, wrapper, plain,
-    SDPA ms, {mode: (args(bq, bk, n_rows), bound)})."""
-    from vggt_slam_tpu_torch.scripts import bench_attention as BA
-    from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
-    from vggt_slam_tpu_torch.scripts import bench_int8_inkernel as IK
-    from vggt_slam_tpu_torch.scripts import bench_softmax_variants as SV
-
-    BH, D = 16, GA.HEAD_DIM
-    N = BA.roundup(34353, 2048)
-    sv = script == "bench_softmax_variants"
-    q, k, v = GA.make_inputs(BH, N, D, device=device,
-                             scale=0.3 if sv else 1.0)
-    scale = math.log(2.0) if sv else 1.0 / math.sqrt(D)
-    sdpa_ms = BA.bench(GA.sdpa, (q, k, v, scale), iters)
-    modes = {}
-    if script == "bench_int8_inkernel":
-        for mode in IK.MODES:
-            sc = IK.scales(q, k, v, mode)
-            modes[mode] = (
-                lambda bq, bk, n, mode=mode, sc=sc: (
-                    sc, q[:, :n].contiguous(), k, v, bq, bk, mode),
-                GA.bound_ms(BH, N, N, D, rate, qk8=mode != "bf16",
-                            pv8=mode == "qk8av8"))
-        return IK, IK.attention, IK.attention_ref, sdpa_ms, modes
-    mod = SV if sv else GA
-    int8_mode = "staticint8" if sv else "int8"
-    q8, k8, s8 = (SV.int8_operands(q, k) if sv
-                  else GA.int8_operands(q, k, scale))
-    for mode in mod.MODES:
-        qq, kk, sc = ((q8, k8, s8) if mode == int8_mode
-                      else (q, k, SV.SMAX if sv else scale))
-        modes[mode] = (
-            lambda bq, bk, n, mode=mode, qq=qq, kk=kk, sc=sc: (
-                qq[:, :n].contiguous(), kk, v, bq, bk, mode, sc, N),
-            GA.bound_ms(BH, N, N, D, rate, qk8=mode == int8_mode,
-                        exp=mode != "matmul",
-                        qk_bytes=1 if mode == int8_mode else 2))
-    return mod, mod.run_kernel, mod.run_kernel_ref, sdpa_ms, modes
-
-
-def ab_global(device, dirs, iters=4):
-    """Each DIR's and this tree's global probes: every mode and tiling on a
-    2048-row slab, then in turns beside SDPA, the bound and registers."""
-    import torch
-
-    from vggt_slam_tpu_torch.scripts import bench_attention as BA
-    from vggt_slam_tpu_torch.scripts import bench_global_attention as GA
-
-    libs = ab_global_libs(dirs)
-    rate = BA.ex2_rate(device)
-    rows = []
-    for script, builds in libs.items():
-        _, template, _, _, offset = GLOBAL_PROBES[script]
-        report = own_ptxas_report(script)
-        mod, run, plain, sdpa_ms, modes = ab_global_modes(script, device,
-                                                          rate, iters)
-        for mode, (call, bound) in modes.items():
-            for bq, bk in mod.TILINGS:
-                slab = call(bq, bk, GA.SLAB_ROWS)
-                ref = plain(*slab)
-                errs, runs = {}, {n: [] for n in builds}
-                for n in list(builds) + list(builds)[::-1]:
-                    with using_library(builds[n], mod):
-                        if n not in errs:
-                            errs[n] = GA.check_line(
-                                f"{n} {GA.variant_name(mode, bq, bk)}",
-                                run(*slab), ref, GA.SLAB_ROWS)
-                        runs[n].append(BA.bench(run, call(bq, bk, None),
-                                                iters, reps=2))
-                ms = {n: sum(r) / len(r) for n, r in runs.items()}
-                regs, spill = global_ptxas(
-                    report, template, mod.MODES.index(mode) + offset, bq, bk)
-                row = dict(script=script, variant=GA.variant_name(mode, bq,
-                                                                  bk),
-                           mode=mode, block_q=bq, block_k=bk, ms=ms,
-                           runs=runs, errors=errs, bound_ms=bound[0],
-                           bound_by=bound[1], bound_unit=bound[2],
-                           sdpa_ms=sdpa_ms, registers=regs,
-                           spill_store_bytes=spill,
-                           share_of_bound={n: bound[0] / t
-                                           for n, t in ms.items()},
-                           over_sdpa={n: t / sdpa_ms for n, t in ms.items()})
-                row["faster_than"] = {n: ms["this_tree"] < t
-                                      for n, t in ms.items()
-                                      if n != "this_tree"}
-                log("ab_global", **row)
-                rows.append(row)
-                del ref
-        del modes
-        torch.cuda.empty_cache()
-    return rows
-
-
-def ab_int8(device, builds):
-    """Each build's int8 forward at phase A's shapes against its plain version
-    and bf16 control, then timed in turns beside this tree's bf16 call."""
-    names = list(builds) + ["bf16"]
-    rows = []
-    for case in int8_cases(device):
-        D = case["q"].shape[2] // case["kw"]["num_heads"]
-        bound = attention_bound_ms(case, int8=True)
-        bf16_bound = attention_bound_ms(case)[0]
-        for kernel in ("flash_multi_i8", "flash_single_i8"):
-            calls = {n: int8_calls(case, builds[n][0])[kernel]
-                     for n in builds}
-            errs, runs, graph_runs = {}, {n: [] for n in names}, {
-                n: [] for n in names}
-            for n in names + names[::-1]:
-                mod, lib = builds["this_tree" if n == "bf16" else n]
-                with using_library(lib, mod):
-                    kern = calls["this_tree" if n == "bf16" else n][0]
-                    fn = functools.partial(kern, n != "bf16")
-                    if n not in errs and n != "bf16":
-                        plain = calls[n][1]
-                        errs[n] = int8_errors(kern(True, True),
-                                              plain(True, True),
-                                              plain(False, True))
-                        why = int8_failure(errs[n])
-                        if why is not None:
-                            raise AssertionError(f"{n}'s {kernel} at "
-                                                 f"{case['name']}: {why}")
-                    runs[n].append(cuda_ms(fn, iters=20))
-                    graph_runs[n].append(graph_ms(fn))
-            ms = {n: sum(r) / len(r) for n, r in runs.items()}
-            dev_ms = {n: sum(r) / len(r) for n, r in graph_runs.items()}
-            row = dict(variant=case["name"], kernel=kernel, D=D,
-                       design=launched_design(functools.partial(
-                           calls["this_tree"][0], True)),
-                       bound_ms=bound[0], bound_unit=bound[2], ms=ms,
-                       graph_ms=dev_ms, runs=runs, graph_runs=graph_runs,
-                       errors=errs,
-                       share_of_bound={
-                           n: (bf16_bound if n == "bf16" else bound[0]) / t
-                           for n, t in dev_ms.items()},
-                       speedup={n: t / dev_ms["this_tree"]
-                                for n, t in dev_ms.items()
-                                if n not in ("this_tree", "bf16")},
-                       vs_bf16=dev_ms["this_tree"] / dev_ms["bf16"])
-            log("ab_int8", **row)
-            expect_design(f"{kernel} at {case['name']}", D, row["design"])
-            rows.append(row)
-    return rows
-
-
 def sm90_registers(registers, static, int8) -> dict:
     """ptxas registers of the flash_fwd_sm90<D, STATIC, I8> instances with
     these flags."""
-    import re
 
     out = {}
     for name, n in registers.items():
@@ -4102,8 +3337,6 @@ def own_ptxas_report(name) -> tuple[dict, dict]:
 def ptxas_report(build_log) -> tuple[dict, dict]:
     """({kernel: registers}, {kernel: spill bytes, where not 0}) from nvcc's
     -Xptxas=-v output, demangled by c++filt where installed."""
-    import re
-    import shutil
 
     regs, spills, name = {}, {}, None
     for text in build_log.values():
@@ -4127,12 +3360,10 @@ def ptxas_report(build_log) -> tuple[dict, dict]:
 
 
 def main(argv) -> int:
-    import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from vggt_slam_tpu_torch.main import build_model, make_config, parser
-    from vggt_slam_tpu_torch.ops import attention as A
     from vggt_slam_tpu_torch.ops import cuda_build
     from vggt_slam_tpu_torch.ops import dpt_tail as T
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
@@ -4163,28 +3394,6 @@ def main(argv) -> int:
         nvcc_seconds=cuda_build.build_seconds, registers=registers,
         spill_store_bytes=spills)
 
-    if "--ab" in argv:     # the builds in turns, then stop
-        rest = argv[argv.index("--ab") + 1:]
-        dirs = [d for d in rest if not d.startswith("-")]
-
-        def holding(src):
-            return any(os.path.exists(os.path.join(d, src)) for d in dirs)
-
-        builds = {}
-        if holding("flash_attention.cu"):
-            builds, _ = ab_forward(device, dirs)
-            ab_int8(device, builds)
-        if holding("flash_attention_bwd.cu"):
-            ab_backward(device, builds, dirs)
-        if holding("bench_attention.cu"):
-            ab_probes(device, dirs)
-        if holding("bench_matmul_shapes.cu"):
-            ab_matmul(device, dirs)
-        if any(holding(f"{s}.cu") for s in AB_GLOBAL_SCRIPTS):
-            ab_global(device, dirs)
-        if holding("dpt_tail.cu"):
-            ab_dpt_tail(device, dirs)
-        return 0
     checks = check_kernels(device)
     int8_checks = check_int8_kernels(device)
     train_checks = check_training_kernels(device)
@@ -4213,12 +3422,12 @@ def main(argv) -> int:
     check_backward(device)
     train_launches, train_per_step = drive_training(
         device, profile="--profile" in argv)
-    drive_cli(device)
+    small_ckpt = drive_cli(device)
     with tempfile.TemporaryDirectory(prefix="converters_") as tmp:
         salad_npz = check_converters(tmp)
         salad = check_salad(device, salad_npz, frames)
         salad["loop_cli_launches"], encoders = drive_loop_closure(
-            device, salad_npz)
+            device, salad_npz, small_ckpt)
 
     replaces = {
         "flash_single": "vggt_slam_tpu/ops/attention.py:387 "

@@ -256,51 +256,3 @@ def test_bounds_at_the_frame_shape():
     assert att == max(mm, sm)
     _, by = BA.bound_ms("matmul", 288, 128, 64, 4e12)
     assert by == "bytes"
-
-
-# chip_smoke.py --ab: the frame probes' leg
-
-def test_ab_probe_leg_builds_each_folders_matmul_only(tmp_path, monkeypatch):
-    """The leg builds each folder's bench_attention.cu (named after the
-    folder) with the entries every build has, bench_matmul_only among
-    them, and without the ones an older build lacks; then this tree's."""
-    import chip_smoke
-    from vggt_slam_tpu_torch.ops import cuda_build
-
-    folder = tmp_path / "parent"
-    folder.mkdir()
-    (folder / "bench_attention.cu").write_text("// a build\n")
-    loaded = []
-
-    def load(name, sigs, src=None):
-        loaded.append((name, src, set(sigs)))
-        return name
-    monkeypatch.setattr(cuda_build, "load", load)
-    monkeypatch.setattr(BA, "kernel_library", lambda: "this BA")
-    libs = chip_smoke.ab_probe_libs([str(folder), str(tmp_path / "none")])
-    assert libs == {"parent": "bench_attention_ab_parent",
-                    "this_tree": "this BA"}
-    (name, src, sigs), = loaded
-    assert src == str(folder / "bench_attention.cu")
-    assert {"bench_matmul_only", "bench_grouped", "bench_pipelined"} <= sigs
-    assert not sigs & {"bench_grouped_block_k",
-                       "bench_attention_design_launches"}
-
-
-def test_ab_probe_leg_without_nvcc_raises_before_any_launch(tmp_path,
-                                                            monkeypatch):
-    """Without a CUDA toolkit the leg's first build raises nvcc's error
-    before it writes or times anything."""
-    import chip_smoke
-    from vggt_slam_tpu_torch.ops import cuda_build
-
-    def no_nvcc():
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
-                           "first use and need the CUDA toolkit")
-    monkeypatch.setattr(cuda_build, "nvcc_path", no_nvcc)
-    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
-    monkeypatch.setattr(cuda_build, "_loaded", {})
-    (tmp_path / "bench_attention.cu").write_text("// a build\n")
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        chip_smoke.ab_probes(torch.device("cpu"), [str(tmp_path)])
-    assert not (tmp_path / "build").exists()

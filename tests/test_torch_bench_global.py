@@ -353,73 +353,3 @@ def test_wrappers_launch_nothing_on_cpu_and_refuse_other_devices():
                  lambda: IK.attention(sc, meta, meta, meta, 64, 64, "bf16")):
         with pytest.raises(ValueError, match="no probe kernel"):
             call()
-
-
-# chip_smoke.py --ab: the global probes' leg
-
-@pytest.mark.parametrize("holds", [("bench_global_attention",),
-                                   ("bench_int8_inkernel",),
-                                   ("bench_global_attention",
-                                    "bench_int8_inkernel"), (),
-                                   ("bench_softmax_variants",),
-                                   ("bench_global_attention",
-                                    "bench_softmax_variants",
-                                    "bench_int8_inkernel")])
-def test_ab_global_leg_builds_what_each_folder_holds(tmp_path, monkeypatch,
-                                                     holds):
-    """The leg builds, for each script, the .cu of each folder that holds
-    one (named after the folder, without the design-count entry an older
-    build lacks), then this tree's; a script no folder holds is left out."""
-    import chip_smoke
-    from vggt_slam_tpu_torch.ops import cuda_build
-
-    folder = tmp_path / "parent"
-    folder.mkdir()
-    for script in holds:
-        (folder / f"{script}.cu").write_text("// a build\n")
-    loaded = []
-
-    def load(name, sigs, src=None):
-        loaded.append((name, src, set(sigs)))
-        return name
-    monkeypatch.setattr(cuda_build, "load", load)
-    monkeypatch.setattr(GA, "kernel_library", lambda: "this GA")
-    monkeypatch.setattr(SV, "kernel_library", lambda: "this SV")
-    monkeypatch.setattr(IK, "kernel_library", lambda: "this IK")
-    libs = chip_smoke.ab_global_libs([str(folder), str(tmp_path / "none")])
-    assert list(libs) == list(holds)
-    this = {"bench_global_attention": "this GA",
-            "bench_softmax_variants": "this SV",
-            "bench_int8_inkernel": "this IK"}
-    for script in holds:
-        assert libs[script] == {"parent": f"{script}_ab_parent",
-                                "this_tree": this[script]}
-    assert [(n, src) for n, src, _ in loaded] == [
-        (f"{s}_ab_parent", str(folder / f"{s}.cu")) for s in holds]
-    for _, _, sigs in loaded:
-        assert sigs and not any(n.endswith("_design_launches") for n in sigs)
-
-
-@pytest.mark.parametrize("script", ["bench_int8_inkernel",
-                                    "bench_softmax_variants"])
-def test_ab_global_leg_without_nvcc_raises_before_any_launch(tmp_path,
-                                                             monkeypatch,
-                                                             script):
-    """Where there is no CUDA toolkit the leg's first build raises nvcc's
-    error before it writes anything: no build is skipped and nothing is
-    timed."""
-    import chip_smoke
-    from vggt_slam_tpu_torch.ops import cuda_build
-
-    def no_nvcc():
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
-                           "first use and need the CUDA toolkit")
-    monkeypatch.setattr(cuda_build, "nvcc_path", no_nvcc)
-    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
-    monkeypatch.setattr(cuda_build, "_loaded", {})
-    (tmp_path / f"{script}.cu").write_text("// a build\n")
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        chip_smoke.ab_global_libs([str(tmp_path)])
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        chip_smoke.ab_global(torch.device("cpu"), [str(tmp_path)])
-    assert not (tmp_path / "build").exists()

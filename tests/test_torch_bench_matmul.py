@@ -293,25 +293,3 @@ def test_ptxas_report_survives_a_cached_build(tmp_path, monkeypatch):
 
 def _no_nvcc():
     raise AssertionError("nvcc called on an up-to-date library")
-
-
-@pytest.mark.parametrize("carries_script", [True, False])
-def test_ab_leg_takes_each_builds_tilings(tmp_path, carries_script):
-    """The A/B leg reads a folder's tilings from the port script beside its
-    .cu (this tree's where there is none) and refuses, before any launch,
-    a tiling that build does not take."""
-    import chip_smoke
-
-    parent = ((64, 64), (128, 128))
-    if carries_script:
-        (tmp_path / "bench_matmul_shapes.py").write_text(
-            f"import math\n\nTILINGS = {parent!r}   # (block_m, block_n)\n"
-            f"DEFAULT_TILING = (64, 64)\n")
-    tilings = chip_smoke.ab_mm_tilings(str(tmp_path))
-    assert tilings == (parent if carries_script else MM.TILINGS)
-    a, b = _inputs(2, 40, 64, 24)
-    out = torch.empty(2, 40, 24, dtype=torch.bfloat16)
-    refused = next(t for t in ((64, 64), (128, 256)) if t not in tilings)
-    with pytest.raises(ValueError, match="not built"):
-        chip_smoke.ab_mm_call(None, tilings)("batched_mm", a, b, 1, refused,
-                                             out)

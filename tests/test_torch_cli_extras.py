@@ -16,6 +16,9 @@ import torch
 
 from tests import viser_stub
 from tests.test_torch_viz import _rotation, synthetic_submaps
+from vggt_slam_tpu.slam.submap import Submap as RefSubmap
+from vggt_slam_tpu_torch import main
+from vggt_slam_tpu_torch.slam.submap import Submap
 
 jax.config.update("jax_enable_x64", True)
 
@@ -42,9 +45,7 @@ def write_images_txt(path, names, centers, seed=0):
 
 def _maps():
     from vggt_slam_tpu.slam.map import GraphMap as RefMap
-    from vggt_slam_tpu.slam.submap import Submap as RefSubmap
     from vggt_slam_tpu_torch.slam.map import GraphMap
-    from vggt_slam_tpu_torch.slam.submap import Submap
 
     out = []
     for map_cls, sub_cls in ((RefMap, RefSubmap), (GraphMap, Submap)):
@@ -56,9 +57,6 @@ def _maps():
 
 
 def test_frame_names_match_reference():
-    from vggt_slam_tpu.slam.submap import Submap as RefSubmap
-    from vggt_slam_tpu_torch.slam.submap import Submap
-
     paths = ["/d/rgb/1305031102.175304.png", "rgb/frame_000012.jpg",
              "img7.png"]
     a, b = RefSubmap(0), Submap(0)
@@ -141,7 +139,6 @@ def _frames():
 
 
 def _tiny_args(*extra):
-    from vggt_slam_tpu_torch import main
     return main.parser.parse_args(
         ["--model_size", "tiny", "--submap_size", "3", "--max_loops", "0",
          "--min_disparity", "20", *extra])
@@ -158,7 +155,6 @@ def test_plot_focal_lengths_refused_without_matplotlib(monkeypatch, capsys):
 def test_cli_extras_on_cpu(tmp_path, monkeypatch, capsys):
     """A tiny run with --plot_focal_lengths, --colmap_images_txt and
     --vis_map on the viser stub."""
-    from vggt_slam_tpu_torch import main
 
     calls = viser_stub.install_with(monkeypatch)
     monkeypatch.chdir(tmp_path)
@@ -196,7 +192,6 @@ def test_cli_headless_without_viser_with_a_trace(tmp_path, monkeypatch,
     """--vis_map and --keep_alive without viser run headless; --profile_dir
     writes a Chrome trace that parses (three frames, one submap: the
     profiler records every op of the pose-graph solve)."""
-    from vggt_slam_tpu_torch import main
 
     viser_stub.install_with(monkeypatch, present=False)
     args = _tiny_args("--vis_map", "--keep_alive", "--log_results",

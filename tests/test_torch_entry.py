@@ -20,21 +20,20 @@ import importlib, pkgutil, sys
 sys.path.insert(0, {repo!r})
 import vggt_slam_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-assert all("vggt_slam_tpu_torch." + m in names
-           for m in ("scripts.bench_attention", "scripts.bench_matmul_shapes",
-                     "models.retrieval", "models.vggt.convert", "evals.ate",
-                     "evals.smoke_loop", "slam.alignment", "slam.checkpoint",
-                     "tools.synth3d", "viz.glb", "viz.viser_viewer",
-                     "evals.geometry_eval", "evals.run_eval",
-                     "evals.process_logs", "evals.pipeline_overlap",
-                     "native.kdtree", "native.felzenszwalb", "ops.voxel",
-                     "semantic.voxel_map", "semantic.embedder",
-                     "tools.query_voxelmap", "models.clip",
-                     "models.clip_tokenizer", "models.sam2",
-                     "semantic.sam2_amg", "models.siglip",
-                     "models.siglip_tokenizer", "evals.mask_eval",
-                     "evals.voxel_eval", "evals.dense_7scenes",
-                     "tools.visualize_results"))
+want = dict(
+    scripts="bench_attention bench_matmul_shapes",
+    models="retrieval vggt.convert clip clip_tokenizer sam2 siglip "
+           "siglip_tokenizer",
+    evals="ate smoke_loop geometry_eval run_eval process_logs "
+          "pipeline_overlap mask_eval voxel_eval dense_7scenes "
+          "retrieval_quality ab_attention",
+    slam="alignment checkpoint", viz="glb viser_viewer",
+    native="kdtree felzenszwalb", ops="voxel",
+    semantic="voxel_map embedder sam2_amg",
+    tools="synth3d query_voxelmap visualize_results occupancy align_points "
+          "undistort")
+assert all("vggt_slam_tpu_torch." + p + "." + m in names
+           for p, ms in want.items() for m in ms.split())
 viewer = "vggt_slam_tpu_torch.viz.viser_viewer"   # needs viser: the stub
 for name in names:
     if name != viewer:
@@ -60,7 +59,7 @@ def test_port_imports_no_jax_flax_cv2_or_reference_package():
                          cwd=REPO)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 74
+    assert int(n) >= 79
     assert bad == "[]"
 
 

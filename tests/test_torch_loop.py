@@ -7,11 +7,23 @@ over a 12-submap loop; the trained small model's ATE 1e-2 m).
 import dataclasses
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tests.fake_vggt import FakeVGGT, circular_trajectory, default_K
+from vggt_slam_tpu.models.vggt.config import VGGTConfig as JConfig
+from vggt_slam_tpu.models.vggt.model import VGGT as JVGGT
+from vggt_slam_tpu.tools import synth3d as J
+from vggt_slam_tpu_torch import main as tmain
 from vggt_slam_tpu_torch.data.images import read_png
+from vggt_slam_tpu_torch.slam import checkpoint
+from vggt_slam_tpu_torch.slam.loop_closure import ImageRetrieval
+from vggt_slam_tpu_torch.slam.solver import Solver
+from vggt_slam_tpu_torch.tools import synth3d as T
+from vggt_slam_tpu_torch.tools.synth3d import write_tum_sequence
 
 IMAGE_HW = (28, 42)
 
@@ -32,9 +44,6 @@ def _same_sequence(a_dir, b_dir, a_names, b_names):
 
 
 def test_tum_writer_matches_reference(tmp_path):
-    from vggt_slam_tpu.tools import synth3d as J
-    from vggt_slam_tpu_torch.tools import synth3d as T
-
     kw = dict(n_frames=4, seed=3, image_hw=(56, 70), ng=256)
     a = J.write_tum_sequence(str(tmp_path / "ref"), **kw)
     b = T.write_tum_sequence(str(tmp_path / "port"), **kw)
@@ -45,8 +54,6 @@ def test_tum_writer_at_full_size_with_one_renderer(tmp_path, monkeypatch):
     """At 392x518 the two renderers differ by one level at ~20 of 609,168
     values a frame (OpenCV's sum order); with the port's renderer under both
     writers the PNGs decode alike and the ground truth is byte-equal."""
-    from vggt_slam_tpu.tools import synth3d as J
-    from vggt_slam_tpu_torch.tools import synth3d as T
 
     monkeypatch.setattr(J, "make_scene", T.make_scene)
     monkeypatch.setattr(J, "render", T.render)
@@ -180,9 +187,6 @@ def _assert_same_state(a, b):
 def test_checkpoint_round_trip_and_resume(tmp_path):
     """As tests/test_slam_e2e.py's resume case: run part of the
     trajectory, checkpoint, load, and keep mapping from the loaded state."""
-    from vggt_slam_tpu_torch.slam import checkpoint
-    from vggt_slam_tpu_torch.slam.loop_closure import ImageRetrieval
-    from vggt_slam_tpu_torch.slam.solver import Solver
 
     n = 7
     w2c = circular_trajectory(n)
@@ -209,9 +213,6 @@ def test_checkpoint_crosses_packages(tmp_path):
     """A state the port saves loads in the reference's load_state; the
     reference's save of that state loads in the port's: arrays equal."""
     from vggt_slam_tpu.slam import checkpoint as jckpt
-    from vggt_slam_tpu_torch.slam import checkpoint
-    from vggt_slam_tpu_torch.slam.loop_closure import ImageRetrieval
-    from vggt_slam_tpu_torch.slam.solver import Solver
 
     w2c = circular_trajectory(7)
     model = FakeVGGT(w2c, default_K(IMAGE_HW), image_hw=IMAGE_HW)
@@ -234,7 +235,6 @@ def test_cli_tiny_backend_flags_and_counts(tmp_path):
     """The port's CLI on a short synthetic loop with --retrieval_backend
     tiny: the counts it prints add up (detected = inserted + rejected)."""
     from vggt_slam_tpu_torch import main
-    from vggt_slam_tpu_torch.tools.synth3d import write_tum_sequence
 
     write_tum_sequence(str(tmp_path / "seq"), n_frames=5, seed=4_000_000,
                        image_hw=(56, 518), ng=512)
@@ -258,8 +258,6 @@ def _same_ransac_samples(monkeypatch):
     """Both solvers' RANSAC on the same hypothesis samples (drawn from one
     seeded numpy stream per side, in call order), as tests/
     test_torch_slam.py does."""
-    import jax.numpy as jnp
-    import torch
 
     from vggt_slam_tpu.ops import homography as jhom
     from vggt_slam_tpu.ops import lie as jlie
@@ -300,10 +298,8 @@ def _both_clis(argv, tmp_path, monkeypatch, model_fns=None):
     """Both packages' run_slam on one argv, the same RANSAC samples, the
     reference's pose graph in f64 as the port's (an f32 solve of random-weight
     SL(4) chains moves poses by 0.1); returns both solvers and TUM logs."""
-    import jax
 
     from vggt_slam_tpu import main as jmain
-    from vggt_slam_tpu_torch import main as tmain
 
     jax.config.update("jax_enable_x64", True)
 
@@ -341,19 +337,13 @@ def test_cli_tiny_backend_loop_matches_reference(tmp_path, monkeypatch):
     weights: the same loops detected, inserted and rejected, world poses within
     1e-3 (12 submaps chained through SL(4); poses and point maps agree to
     1e-5)."""
-    import jax
-    import jax.numpy as jnp
 
-    from vggt_slam_tpu.models.vggt.config import VGGTConfig as JConfig
     from vggt_slam_tpu.models.vggt.convert import _flatten
-    from vggt_slam_tpu.models.vggt.model import VGGT as JVGGT
     from vggt_slam_tpu.models.vggt.model import \
         make_bucketed_model_fn as jax_model_fn
-    from vggt_slam_tpu_torch import main as tmain
     from vggt_slam_tpu_torch.models.vggt.convert import load_flax_params
     from vggt_slam_tpu_torch.models.vggt.model import VGGT, \
         make_bucketed_model_fn
-    from vggt_slam_tpu_torch.tools.synth3d import write_tum_sequence
 
     write_tum_sequence(str(tmp_path / "seq"), n_frames=24, seed=4_000_000,
                        image_hw=(56, 518), ng=512)
@@ -387,21 +377,14 @@ def test_smoke_loop_accuracy_matches_reference(tmp_path, monkeypatch):
     gate fractions, the port's ATE under 0.5 m and within 1e-2 m of the
     reference's (not 1e-3: forwards agree to ~2e-6, but 5-point SL(4) fits land
     up to several % apart and 10 submaps chain them)."""
-    import jax
-    import jax.numpy as jnp
-    import torch
 
     from vggt_slam_tpu.evals.ate import ate_from_files as jate
-    from vggt_slam_tpu.models.vggt.config import VGGTConfig as JConfig
     from vggt_slam_tpu.models.vggt.convert import load_checkpoint
-    from vggt_slam_tpu.models.vggt.model import VGGT as JVGGT
     from vggt_slam_tpu.models.vggt.model import \
         make_bucketed_model_fn as jax_model_fn
-    from vggt_slam_tpu_torch import main as tmain
     from vggt_slam_tpu_torch.evals import smoke_loop
     from vggt_slam_tpu_torch.evals.ate import ate_from_files
     from vggt_slam_tpu_torch.models.vggt.model import make_bucketed_model_fn
-    from vggt_slam_tpu_torch.tools.synth3d import write_tum_sequence
 
     ckpt = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                         "warmcache", "small_synth", "checkpoint.npz")

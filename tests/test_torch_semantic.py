@@ -19,6 +19,12 @@ import pytest
 import torch
 
 from tests import viser_stub
+from vggt_slam_tpu.semantic import embedder as ref
+from vggt_slam_tpu.semantic.voxel_map import SemanticVoxelMap as Ref
+from vggt_slam_tpu.tools import query_voxelmap as ref_query
+from vggt_slam_tpu_torch.data.images import write_png
+from vggt_slam_tpu_torch.semantic import embedder
+from vggt_slam_tpu_torch.tools import query_voxelmap
 
 jax.config.update("jax_enable_x64", True)
 
@@ -132,7 +138,6 @@ def test_voxel_map_queries_and_lookups():
 
 @pytest.mark.parametrize("writer", ["port", "reference"])
 def test_saved_map_loads_across_packages(tmp_path, writer):
-    from vggt_slam_tpu.semantic.voxel_map import SemanticVoxelMap as Ref
     from vggt_slam_tpu_torch.semantic.voxel_map import SemanticVoxelMap
 
     (ref, port), _ = _voxel_maps()
@@ -267,10 +272,6 @@ def test_felzenszwalb_labels_bit_equal_reference(seed):
 
 @pytest.mark.parametrize("masker", ["felzenszwalb", "grid"])
 def test_embedder_matches_reference(tmp_path, masker):
-    from vggt_slam_tpu.semantic import embedder as ref
-    from vggt_slam_tpu_torch.data.images import write_png
-    from vggt_slam_tpu_torch.semantic import embedder
-
     folder = tmp_path / "rgb"
     folder.mkdir()
     for i in range(3):
@@ -311,8 +312,6 @@ def test_embedder_matches_reference(tmp_path, masker):
 def test_embedder_shards_and_worker_processes_match_one_process(tmp_path):
     """The CLI's --num_procs 2 (spawned workers) and two --shard_index
     runs write the files one process writes, bit for bit."""
-    from vggt_slam_tpu_torch.data.images import write_png
-    from vggt_slam_tpu_torch.semantic import embedder
 
     folder = tmp_path / "rgb"
     folder.mkdir()
@@ -338,11 +337,6 @@ def test_embedder_shards_and_worker_processes_match_one_process(tmp_path):
 
 
 def test_text_embeddings_equal_reference():
-    from vggt_slam_tpu.semantic import embedder as ref
-    from vggt_slam_tpu.tools import query_voxelmap as ref_query
-    from vggt_slam_tpu_torch.semantic import embedder
-    from vggt_slam_tpu_torch.tools import query_voxelmap
-
     texts = ["a chair", "", "kitchen table ü"]
     np.testing.assert_array_equal(embedder.hash_text_encoder(texts, 32),
                                   ref.hash_text_encoder(texts, 32))
@@ -362,8 +356,6 @@ def test_missing_models_raise_naming_the_module(tmp_path, monkeypatch):
     `--masker sam2` runs (seeded, on an empty folder) and raises on --device
     cuda without a card."""
     from vggt_slam_tpu_torch.models.siglip import SigLIPConfig
-    from vggt_slam_tpu_torch.semantic import embedder
-    from vggt_slam_tpu_torch.tools import query_voxelmap
 
     (tmp_path / "config.json").write_text(json.dumps(
         SigLIPConfig.tiny_test().to_hf_dict()))
@@ -400,10 +392,6 @@ def test_embedder_cli_with_clip_matches_reference(tmp_path, monkeypatch):
     unit-norm."""
     import sys
 
-    from vggt_slam_tpu.semantic import embedder as ref
-    from vggt_slam_tpu_torch.data.images import write_png
-    from vggt_slam_tpu_torch.semantic import embedder
-
     ckpt, cfg = _clip_dir(tmp_path / "clip")
     folder = tmp_path / "rgb"
     folder.mkdir()
@@ -434,9 +422,6 @@ def test_embedder_cli_with_clip_matches_reference(tmp_path, monkeypatch):
 
 
 def test_query_text_embedding_with_clip_matches_reference(tmp_path):
-    from vggt_slam_tpu.tools import query_voxelmap as ref_query
-    from vggt_slam_tpu_torch.tools import query_voxelmap
-
     ckpt, cfg = _clip_dir(tmp_path / "clip")
     for q in ("a chair", "the cat and the dog", ""):
         got = query_voxelmap.text_embedding(q, 64, ckpt, device="cpu")
@@ -490,11 +475,7 @@ def test_cli_semantic_voxel_map_and_query(tmp_path, monkeypatch):
     --semantic_emb_dir --get_voxel --voxel_save_dir on the CPU, the saved
     map read by the reference's loader, then query_voxelmap on it (its
     --visualize on the viser stub)."""
-    from vggt_slam_tpu.semantic.voxel_map import SemanticVoxelMap as Ref
     from vggt_slam_tpu_torch import main
-    from vggt_slam_tpu_torch.data.images import write_png
-    from vggt_slam_tpu_torch.semantic import embedder
-    from vggt_slam_tpu_torch.tools import query_voxelmap
 
     rng = np.random.default_rng(0)
     coarse = rng.uniform(0, 255, (8, 60)).astype(np.float32)

@@ -166,6 +166,28 @@ def write_png(path, bgr):
     return kind
 
 
+def write_image(path, bgr):
+    """(H, W, 3) uint8 BGR -> `path`: PNG in-repo; JPEG (quality 95, as
+    cv2.imwrite) and the other formats through PIL or torchvision."""
+    if os.path.splitext(path)[1].lower() == ".png":
+        return write_png(path, bgr)
+    rgb = np.ascontiguousarray(np.asarray(bgr)[..., ::-1])
+    try:
+        from PIL import Image
+        return Image.fromarray(rgb).save(path, quality=95)
+    except ImportError:
+        try:
+            import torch
+            from torchvision.io import write_jpeg
+        except ImportError:
+            raise RuntimeError(
+                f"cannot encode {path}: PNG is written in-repo; other "
+                f"formats need PIL (JPEG also torchvision), and neither "
+                f"imports") from None
+    write_jpeg(torch.from_numpy(rgb).permute(2, 0, 1).contiguous(), path,
+               quality=95)
+
+
 def write_png16(path, gray, kinds=None):
     """(H, W) uint16 -> a 16-bit gray PNG; each row filtered by `kinds`
     (cycled) or adaptively. Returns the rows' filter types."""
