@@ -4,20 +4,15 @@
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
     python3 chip_smoke.py --profile       # also profile a forward and a step
 
-Phases, a JSON line each: 1-2 the environment, the CUDA sources built by
-one nvcc each, at once; 3-4 every forward and training kernel against its
-plain version at VGGT-1B's and the small model's shapes; 5-6 a full-width
-forward against plain, the SLAM path at VGGT-1B through `run_slam`; 7-9 a
-gradient against plain, 3 training steps, train_tiny; A-D the int8
-kernels, the DPT tail, the int8 forward, the --qk_int8 CLI; E-G the probe
-scripts with --check; H, S, L the converters, SALAD, loop closure through
-the CLI and smoke_loop; on L's sequence V (COLMAP alignment, the viewer
-stub, GLB, a trace, host evals), W (the semantic map), P (CLIP), M (SAM2),
-N (SigLIP), Q (the semantic evals), R (retrieval_quality, ab_attention),
-T (occupancy, undistort, align_points). The last lines are the
-`nvidia-smi` line, the kernels JSON and {"ok": true, "device": ...}; a
-failure exits non-zero without them. Needs a CUDA device; imports nothing
-of JAX, OpenCV or the JAX package.
+Phases, a JSON line each: 1-2 environment, build (one nvcc a source, at
+once); 3-4 each kernel against plain at VGGT-1B's and the small model's
+shapes; 5-6 a full-width forward, the SLAM path; 7-9 a gradient, training,
+train_tiny; A-D int8, the DPT tail, the --qk_int8 CLI; E-G the probes; H,
+S, L converters, SALAD, loop closure, smoke_loop; on L's sequence V (CLI
+extras, host evals), W (semantic map), P (CLIP), M (SAM2), N (SigLIP), Q
+(semantic evals), R (quality evals), T (tools), X (the demo app).
+Then the `nvidia-smi` line, the kernels JSON and {"ok": true, ...}; a
+failure exits non-zero without them. Imports no JAX, OpenCV or JAX package.
 """
 from __future__ import annotations
 
@@ -63,7 +58,6 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean device time of fn() over `iters` launches (CUDA events)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -79,7 +73,7 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 # Phase 3: kernels against their plain versions
 
 def main_path_attention_cases(device):
-    """The attention calls of one bucketed VGGT-1B forward (18 frames of 1041
+    """The attention calls of a bucketed VGGT-1B forward (18 frames of 1041
     tokens, K/V merged at stride 16) and of VGGTConfig.small."""
 
     from vggt_slam_tpu_torch.models.vggt.modules import rope_2d_angles
@@ -167,15 +161,12 @@ def main_path_attention_cases(device):
 
 @functools.lru_cache(maxsize=None)
 def ex2_per_s() -> float:
-    """The card's exp2 rate (bench_attention.sfu_rate)."""
-
     from vggt_slam_tpu_torch.scripts.bench_attention import sfu_rate
     return sfu_rate(torch.device("cuda", 0))[0]
 
 
 def least_ms(t_tensor, n_exp2, nbytes) -> tuple[float, str, str]:
-    """A call's bound from its tensor-core ms, exp2 count and bytes: (ms,
-    "operations" or "bytes", the unit that sets it)."""
+    """A bound from tensor-core ms, exp2 count, bytes: (ms, bound_by, unit)."""
     terms = {"tensor cores": t_tensor, "exp units": n_exp2 / ex2_per_s() * 1e3,
              "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
     unit = max(terms, key=terms.get)
@@ -183,9 +174,8 @@ def least_ms(t_tensor, n_exp2, nbytes) -> tuple[float, str, str]:
 
 
 def attention_bound_ms(case, int8=False) -> tuple[float, str, str]:
-    """`least_ms` of the call: bytes read and written once; tensor-core flops
-    at the bf16 peak (with `int8`, QK^T's half at the int8 peak); one exp2 a
-    valid logit."""
+    """`least_ms`: bytes once; bf16 peak (int8: QK^T's half at the int8
+    peak); one exp2 a valid logit."""
     q, k, v, kw = case["q"], case["k"], case["v"], case["kw"]
     B, Nq, HD = q.shape
     Nk = k.shape[1]
@@ -202,9 +192,6 @@ def attention_bound_ms(case, int8=False) -> tuple[float, str, str]:
 
 
 def sdpa_call(case):
-    """One SDPA call computing the same function, where SDPA can (no in-kernel
-    LN or rope)."""
-
     kw = case["kw"]
     if kw.get("rope_q") is not None or kw.get("qk_ln") is not None:
         return None
@@ -222,8 +209,8 @@ def sdpa_call(case):
 
 
 def sdpa_prepared_call(case):
-    """SDPA on `_prep`'s q, k (untimed), kv_bias and valid_len as one float
-    mask; None where `sdpa_call` applies."""
+    """SDPA on `_prep`'s q, k, kv_bias and valid_len as one float mask;
+    None where `sdpa_call` applies."""
 
     kw = case["kw"]
     if kw.get("rope_q") is None and kw.get("qk_ln") is None:
@@ -245,9 +232,8 @@ def sdpa_prepared_call(case):
 
 
 def launched_design(fn, counts=None) -> str:
-    """The one design fn() ran by the C launcher's counts (forward, or
-    flash_bwd with `counts` = bwd_design_launches); raises where it ran
-    none."""
+    """The one design fn() ran by the C counts (`counts`: the backward's);
+    raises otherwise."""
 
     counts = counts or A.forward_design_launches
     torch.cuda.synchronize()
@@ -263,14 +249,11 @@ def launched_design(fn, counts=None) -> str:
 
 
 def forward_calls(launches) -> int:
-    """The forward calls among a LAUNCHES count, bf16 and int8: each
-    launches flash_fwd_sm90 once."""
     return sum(n for k, n in launches.items()
                if k.startswith(("flash_single", "flash_multi")))
 
 
 def expect_design(name, D, design):
-    """Forward and backward run the Hopper headers at every head dim."""
     want = "tma_wgmma"
     if design != want:
         raise AssertionError(f"{name} (head dim {D}) ran {design}, not "
@@ -297,15 +280,12 @@ TRAINING_CASES = [
 
 
 def takes_static(softmax, N) -> bool:
-    """Whether a TRAINING_CASES forward runs flash_multi (static softmax over
-    more keys than one block)."""
-
     return softmax == "static" and not A.fits_one_block(N)
 
 
 def training_bounds(B, N, H, D, vl):
-    """`least_ms` of the forward with stats and of the backward (4 and 10 Nq Nk
-    H D flops a batch, one exp2 a valid logit each)."""
+    """`least_ms` of the forward with stats and the backward (4 and 10 Nq
+    Nk H D flops a batch)."""
     nk = N if vl is None else min(vl, N)
     qd = 2.0 * B * N * H * D           # one bf16 (B, N, H*D) tensor
     kd = 2.0 * B * nk * H * D          # the valid keys of k or v
@@ -321,8 +301,8 @@ def training_bounds(B, N, H, D, vl):
 
 
 def check_training_kernels(device):
-    """The forward with stats and flash_bwd against their plain versions at
-    both models' training shapes; the backward twice (dq's adds vary)."""
+    """Forward with stats and flash_bwd against plain at both training
+    shapes; the backward twice."""
 
     g = torch.Generator(device=device).manual_seed(SEED + 1)
     results = []
@@ -382,8 +362,7 @@ def check_training_kernels(device):
                  "bwd_plain_ms": cuda_ms(bwd_plain, 2)}
         sdpa = sdpa_fwd = sdpa_bwd = None
         if vl is None:
-            # SDPA on the same q, k, v: forward + backward, the forward
-            # alone (with grad, as the kernel keeps stats), the backward
+            # SDPA: forward + backward, the forward (with grad), the backward
             qs, ks, vs = (t.view(B, N, H, D).transpose(1, 2).detach()
                           .requires_grad_() for t in (q, k, v))
             do_h = dout.view(B, N, H, D).transpose(1, 2)
@@ -487,8 +466,6 @@ def check_kernels(device):
 
 @contextlib.contextmanager
 def plain_attention(model=None):
-    """The model's attention, forward and backward, through the plain versions
-    inside the block."""
     names = ("flash_single", "flash_multi", "flash_bwd")
     saved = [getattr(A, n) for n in names]
     A.flash_single, A.flash_multi = A.flash_single_ref, A.flash_multi_ref
@@ -508,7 +485,6 @@ def plain_attention(model=None):
 
 @contextlib.contextmanager
 def chunked_attention(model):
-    """Run the model's attention on the plain chunked reference path."""
     from vggt_slam_tpu_torch.models.vggt.modules import Attention
     mods = [m for m in model.modules() if isinstance(m, Attention)]
     for m in mods:
@@ -521,9 +497,6 @@ def chunked_attention(model):
 
 
 def check_forward(model, device, frames):
-    """A 2-frame VGGT-1B forward through the kernels against the plain versions
-    (the check) and the chunked path (reported)."""
-
     from vggt_slam_tpu_torch.data.images import preprocess_frames
     from vggt_slam_tpu_torch.models.vggt.model import make_bucketed_model_fn
 
@@ -543,8 +516,7 @@ def check_forward(model, device, frames):
                 raise AssertionError(f"forward output {key}: bad values")
             errs[name][key] = float(np.sqrt(np.mean((a - b) ** 2)
                                             / max(np.mean(b * b), 1e-30)))
-    # Relative RMS, not max: 48 random bf16 blocks amplify single-ulp
-    # differences to a few percent at the worst pixel (RMS 0.9e-2-1.9e-2).
+    # RMS, not max: 48 bf16 blocks amplify ulps at the worst pixel
     tol = 5e-2
     log("forward_check", frames=2, rel_rms_err_vs_plain=errs["plain"],
         rel_rms_err_vs_chunked=errs["chunked"], tol=tol,
@@ -557,8 +529,8 @@ def check_forward(model, device, frames):
 
 
 def profiled(fn):
-    """fn() once under torch.profiler: wall ms, device kernel ms by family,
-    busy share, the largest kernels."""
+    """fn() under torch.profiler: wall ms, kernel ms by family, busy share,
+    the largest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -573,8 +545,7 @@ def profiled(fn):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    # kernels only: operator events carry their kernels' time as well, and
-    # a user annotation (such as Optimizer.step) spans kernels on the device
+    # kernels only: operator events and annotations repeat their time
     rows = sorted(((e.key, dev_us(e) / 1e3) for e in prof.key_averages()
                    if "CUDA" in str(e.device_type) and dev_us(e) > 0
                    and not getattr(e, "is_user_annotation", False)),
@@ -598,7 +569,6 @@ def profiled(fn):
 
 
 def profile_forward(model, device, frames):
-    """`--profile`: one bucketed 17-frame forward under torch.profiler."""
     from vggt_slam_tpu_torch.data.images import preprocess_frames
     from vggt_slam_tpu_torch.models.vggt.model import make_bucketed_model_fn
 
@@ -612,9 +582,6 @@ def profile_forward(model, device, frames):
 # Phase 5: the SLAM main path
 
 def synth_frames(n_frames: int, hw=HW, step_px: int = 60, seed: int = SEED):
-    """(H, W, 3) uint8 BGR frames of a camera panning over a textured plane
-    (tools/synth_sequence.py's scene)."""
-
     rng = np.random.default_rng(seed)
     H, W = hw
     th, tw = H + 200, W + step_px * n_frames + 200
@@ -696,8 +663,8 @@ def drive_main_path(model, device, frames):
 # Phases A-D: the --qk_int8 path and the fused DPT tail
 
 def int8_cases(device):
-    """The int8 kernels' shapes: the bucket's global block at both widths, its
-    camera-trunk call (D 128, valid_len 17), the training global block."""
+    """The int8 kernels' shapes: the global block at both widths, the
+    camera trunk (D 128, valid_len 17), the training global block."""
 
     cases = {c["name"]: c for c in main_path_attention_cases(device)}
     g = torch.Generator(device=device).manual_seed(SEED + 2)
@@ -715,9 +682,6 @@ def int8_cases(device):
 
 
 def int8_calls(case, mod=None):
-    """{kernel: (call(i8, stats=False) through wrapper module `mod`, its
-    plain version)} at an `int8_cases` case."""
-
     mod = mod or A
     q, k, v, kw = case["q"], case["k"], case["v"], case["kw"]
     smax = A.static_bound(q, k, kw["num_heads"], kv_bias=kw.get("kv_bias"))
@@ -738,8 +702,8 @@ INT8_STATS_TOL = 1e-4
 
 
 def int8_errors(got, ref, ctrl):
-    """int8 (out, m, l) against plain `ref` (stats INT8_STATS_TOL relative,
-    outputs 1e-2 of max) and the bf16 `ctrl`, whose l must lie 10x away."""
+    """int8 (out, m, l) against plain (stats INT8_STATS_TOL, outputs 1e-2
+    of max) and the bf16 control, whose l must lie 10x away."""
 
     out, m, l = got
     ref_out = ref[0].float()
@@ -760,7 +724,6 @@ def int8_errors(got, ref, ctrl):
 
 
 def int8_failure(e):
-    """Why an `int8_errors` result fails, or None."""
     if not e["finite"] or e["max_abs_err"] > e["out_tol"]:
         return f"output off its plain version (max abs {e['max_abs_err']})"
     if e["stats_err"] > e["stats_tol"]:
@@ -772,8 +735,8 @@ def int8_failure(e):
 
 
 def check_int8_kernels(device):
-    """Phase A: both int8 kernels against plain and the bf16 control, designs,
-    the bf16 time; the scales pass bit for bit, timed as CUDA graphs."""
+    """Phase A: both int8 kernels against plain and the bf16 control;
+    scales bit-exact, timed as CUDA graphs."""
 
     results = []
     for case in int8_cases(device):
@@ -815,8 +778,6 @@ def check_int8_kernels(device):
 
 @contextlib.contextmanager
 def int8_global(model, softmax):
-    """The global blocks with int8 QK^T under `softmax`, as --qk_int8
-    [--global_softmax] set them, inside the block."""
     blocks = [getattr(model.aggregator, f"global_block_{d}").attn
               for d in range(model.cfg.agg_depth)]
     saved = [(b.qk_int8, b.softmax_mode) for b in blocks]
@@ -830,9 +791,8 @@ def int8_global(model, softmax):
 
 
 def check_int8_forward(model, device, frames):
-    """Phases B, C, 18 frames: the bf16 forward (capturing output_conv1's
-    input); int8 in both softmax modes against plain. (activations,
-    launches per mode, the bf16 designs)."""
+    """Phases B, C: the 18-frame bf16 forward (capturing output_conv1's
+    input); int8 in both modes against plain."""
 
     from vggt_slam_tpu_torch.data.images import preprocess_frames
     from vggt_slam_tpu_torch.models.vggt.model import make_bucketed_model_fn
@@ -904,9 +864,6 @@ def check_int8_forward(model, device, frames):
 
 
 def check_dpt_tail(model, device, captured):
-    """Phase B: the DPT tail on the depth head's activations against
-    fused_tail_ref and against the head's unfused chain."""
-
     from vggt_slam_tpu_torch.models.vggt.heads import \
         resize_bilinear_align_corners, uv_pos_embed
     from vggt_slam_tpu_torch.ops import dpt_tail as T
@@ -965,9 +922,7 @@ def check_dpt_tail(model, device, captured):
                     "upsample, pos add, cuDNN 3x3 conv with TF32 off, "
                     "ReLU, 1x1 einsum)")
     log("dpt_tail_check", **res)
-    # fused vs plain: the same roundings, f32 sums in another order;
-    # vs the head's chain: it rounds the 2D upsample, the pos sum and the
-    # conv output to bf16 at other places
+    # the head's chain rounds to bf16 at other places
     if not bool(torch.isfinite(out).all()) or max_abs > 1e-2 * scale \
             or rel_chain > 2e-2:
         raise AssertionError(f"dpt_tail disagrees: max abs {max_abs} of "
@@ -986,8 +941,7 @@ def check_dpt_tail(model, device, captured):
 
 
 def drive_image_folder_cli(device, per_forward):
-    """Phase D: the CLI on 24 panned 480x640 PNGs with --qk_int8; each forward
-    adds `per_forward` (phase C's designs)."""
+    """Phase D: the --qk_int8 CLI on 24 panned 480x640 PNGs."""
     import tempfile
 
     from vggt_slam_tpu_torch.data.images import load_image, write_png
@@ -1074,8 +1028,7 @@ def drive_image_folder_cli(device, per_forward):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# Phase E: the frame-attention probes (vggt_slam_tpu_torch/scripts/
-# bench_attention.py, the counterpart of scripts/bench_attention.py)
+# Phase E: the frame-attention probes (scripts/bench_attention.py)
 
 PROBE_COMMAND = "python -m vggt_slam_tpu_torch.scripts.bench_attention --check"
 # kernel: (representative variant, the TPU kernel it replaces)
@@ -1096,8 +1049,6 @@ PROBE_KERNELS = {
 
 
 def _instance_patterns(variant):
-    """Name patterns of a variant's grouped_sm90<G, schedule> instance in
-    ptxas's report."""
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
 
     kind = variant.split(" ")[0]
@@ -1117,9 +1068,6 @@ def _instance_patterns(variant):
 
 
 def mufu_ex2_counts(lib_path):
-    """{kernel: MUFU.EX2 count} from `cuobjdump -sass`, or None without
-    cuobjdump."""
-
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -1137,8 +1085,6 @@ def mufu_ex2_counts(lib_path):
 
 
 def run_probe_script(BA, argv):
-    """The probe script's main(argv), its printed lines captured."""
-
     t0 = time.perf_counter()
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
@@ -1150,9 +1096,8 @@ def run_probe_script(BA, argv):
 
 
 def check_grouped_tiled(device):
-    """The nine grouped, interleaved, pipelined instances at the small and
-    frame shapes into NaN-filled outputs, held at their key tile. {variant:
-    {shape: (err, share of tol, block_k)}}."""
+    """The nine grouped and pipelined instances at the small and frame
+    shapes, NaN-filled outputs, at their key tile."""
 
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
 
@@ -1182,9 +1127,8 @@ def check_grouped_tiled(device):
 
 
 def check_probe_kernels(device):
-    """Phase E: bench_attention --check at (288, 1152, 64),
-    `check_grouped_tiled`, a padded-keys control, ptxas registers,
-    softmax-only's exp2 count, then the script at its defaults."""
+    """Phase E: bench_attention --check at (288, 1152, 64), the tiled
+    checks, a padded-keys control, registers, exp2 counts, the defaults."""
 
     from vggt_slam_tpu_torch.ops import cuda_build
     from vggt_slam_tpu_torch.scripts import bench_attention as BA
@@ -1197,8 +1141,7 @@ def check_probe_kernels(device):
     frame, run = run_probe_script(BA, ["--frames", str(S), "--check"])
     expect_probe_design(BA, before)
     log("probe_frame_shape", **run)
-    # the probes' instances from their own library's report (global_sm90's
-    # matmul instance has namesakes in the global probes' libraries)
+    # from the probes' own library (global_sm90 has namesakes elsewhere)
     report = ptxas_report(cuda_build.build_log)
     probe_report = own_ptxas_report("bench_attention")
     results = {}
@@ -1270,8 +1213,6 @@ def check_probe_kernels(device):
 
 
 def expect_probe_design(BA, before):
-    """Every grouped and pipelined launch since `before` ran grouped_sm90 and
-    every matmul-only launch global_sm90. Returns both counts."""
     now = BA.design_launches()
     n = {d: now[d] - before[d] for d in now}
     calls = BA.LAUNCHES["grouped"] + BA.LAUNCHES["pipelined"]
@@ -1286,7 +1227,6 @@ def expect_probe_design(BA, before):
 
 
 def probe_kernel_entries(results, launches):
-    """The four probe kernels' entries of the kernels line."""
     library_ms = results["SDPA (library)"]["ms"]
     entries = []
     for name, (rep, replaces) in PROBE_KERNELS.items():
@@ -1318,14 +1258,12 @@ def probe_kernel_entries(results, launches):
     return entries
 
 
-# Phase F: the global-shape probes (vggt_slam_tpu_torch/scripts/
-# bench_global_attention.py, bench_softmax_variants.py and
-# bench_int8_inkernel.py, the counterparts of the scripts of those names)
+# Phase F: the global-shape probes (scripts/bench_{global_attention,
+# softmax_variants,int8_inkernel}.py)
 
 GLOBAL_PROBE_ITERS = "4"
-# script: (its LAUNCHES key, its kernel template, the TPU kernel it replaces,
-# the representative variant of the kernels line, the offset of its modes in
-# global_sm90's MODE)
+# script: (LAUNCHES key, template, TPU kernel, representative variant,
+# offset of its modes in global_sm90's MODE)
 GLOBAL_PROBES = {
     "bench_global_attention": (
         "global_attention", "global_sm90",
@@ -1345,8 +1283,6 @@ GLOBAL_SM90_DESIGN = ("tma_wgmma (global_sm90: TMA ring refilled by release "
 
 
 def global_ptxas(report, template, mode, bq, bk):
-    """(registers, spill bytes) of <bq, bk, mode> of `template` in a
-    `ptxas_report`; (None, None) if absent."""
     registers, spills = report
     patterns = (f"{template}<{bq}, {bk}, {mode}>(",
                 f"{template}ILi{bq}ELi{bk}ELi{mode}EE")
@@ -1355,8 +1291,7 @@ def global_ptxas(report, template, mode, bq, bk):
 
 
 def check_global_probes():
-    """Phase F: each global script --check (modes, tilings, int8 controls,
-    one global_sm90 launch a call). {script: (result, launches, designs)}."""
+    """Phase F: each global script --check, one global_sm90 launch a call."""
     import importlib
 
     results = {}
@@ -1407,7 +1342,6 @@ def check_global_probes():
 
 
 def global_probe_entries(results):
-    """The three global-shape probe kernels' entries of the kernels line."""
     entries = []
     for script, (_, _, replaces, rep, _) in GLOBAL_PROBES.items():
         out, launches, designs = results[script]
@@ -1437,13 +1371,11 @@ def global_probe_entries(results):
     return entries
 
 
-# Phase G: the matmul-shape probes (vggt_slam_tpu_torch/scripts/
-# bench_matmul_shapes.py, the counterpart of scripts/bench_matmul_shapes.py)
+# Phase G: the matmul-shape probes (scripts/bench_matmul_shapes.py)
 
 MATMUL_COMMAND = ("python -m vggt_slam_tpu_torch.scripts.bench_matmul_shapes "
                   "--check")
-# kernel: (the TPU kernel it replaces, its representative line at the
-# reference's B = 528 QK^T shape)
+# kernel: (TPU kernel, representative line at B = 528 QK^T)
 MATMUL_PROBES = {
     "batched_mm": ("scripts/bench_matmul_shapes.py:41 (pallas_batched_mm, "
                    "launched at :49)", "batched 128x128"),
@@ -1453,8 +1385,7 @@ MATMUL_PROBES = {
 
 
 def check_matmul_probes():
-    """Phase G: the script --check (lines, B 528 controls, one mm_sm90 launch a
-    C call, registers). Returns (result, launches, designs)."""
+    """Phase G: the script --check; one mm_sm90 launch a C call."""
 
     from vggt_slam_tpu_torch.ops import cuda_build
     from vggt_slam_tpu_torch.scripts import bench_matmul_shapes as MM
@@ -1493,8 +1424,6 @@ def check_matmul_probes():
 
 
 def mm_ptxas(report, bn):
-    """(registers, spill bytes) of mm_sm90<bn> in a `ptxas_report`; (None,
-    None) if absent."""
     registers, spills = report
     patterns = (f"mm_sm90<{bn}>(", f"mm_sm90ILi{bn}EE")
     return next(((r, spills.get(f, 0)) for f, r in registers.items()
@@ -1502,7 +1431,6 @@ def mm_ptxas(report, bn):
 
 
 def matmul_probe_entries(out, launches, designs):
-    """The two matmul-shape kernels' entries of the kernels line."""
     entries = []
     for name, (replaces, rep) in MATMUL_PROBES.items():
         variants = [line for line in out["lines"] if line["kernel"] == name]
@@ -1531,9 +1459,6 @@ def matmul_probe_entries(out, launches, designs):
 # Phases 7-9: training at VGGT-1B width, and the train_tiny CLI
 
 def training_model(device):
-    """VGGT-1B with seeded weights on the card, configured for training
-    (flash_grad, checkpointing, exact global attention, no point head,
-    bf16)."""
     from vggt_slam_tpu_torch.main import build_model
     from vggt_slam_tpu_torch.models.vggt.config import VGGTConfig
 
@@ -1558,9 +1483,6 @@ GRAD_LEAVES = {
 
 
 def check_backward(device):
-    """A 2-frame VGGT-1B loss's gradient through the kernels against plain:
-    relative RMS of named leaves and every attention projection."""
-
     from vggt_slam_tpu_torch.parallel.train import vggt_loss
 
     model = training_model(device)
@@ -1602,9 +1524,6 @@ def check_backward(device):
 
 
 def drive_training(device, n_steps=3, profile=False):
-    """`n_steps` of make_train_step at VGGT-1B on a 4-frame batch: the steps'
-    launches and the last one's; `profile` adds a profiled step."""
-
     from vggt_slam_tpu_torch.parallel.train import make_train_step
 
     torch.cuda.reset_peak_memory_stats()
@@ -1666,17 +1585,12 @@ def drive_training(device, n_steps=3, profile=False):
 
 
 def backward_designs(cfg, n_steps) -> dict:
-    """flash_bwd launches by design in `n_steps` steps of a `cfg` model (each
-    camera-trunk block at each iteration), all "tma_wgmma"."""
     return {"tma_wgmma": n_steps * (cfg.enc_depth + 2 * cfg.agg_depth
                                     + cfg.cam_trunk_depth
                                     * cfg.cam_iterations)}
 
 
 def small_forward_launches(cfg) -> dict:
-    """A 4-frame forward's launches of a `cfg` model: flash_single (encoder,
-    frame, camera trunk), flash_multi (global)."""
-
     want = dict.fromkeys(A.LAUNCHES, 0)
     want["flash_single"] = (cfg.enc_depth + cfg.agg_depth
                             + cfg.cam_trunk_depth * cfg.cam_iterations)
@@ -1685,8 +1599,8 @@ def small_forward_launches(cfg) -> dict:
 
 
 def drive_cli(device):
-    """train_tiny on the small model for 6 steps; its checkpoint's forward,
-    launches and design checked. The checkpoint (kept for phase R)."""
+    """train_tiny, 6 steps on the small model; its checkpoint's forward.
+    Returns the checkpoint (phase R's)."""
     import os
     import tempfile
 
@@ -1749,23 +1663,19 @@ def drive_cli(device):
     return ckpt
 
 
-# Phases H, S, L: the torch-checkpoint converters, SALAD at full width, and
-# loop closure through the CLI
+# Phases H, S, L: converters, SALAD, loop closure through the CLI
 
 SALAD_TOL = 2e-2      # L2 distance of a descriptor from the plain f32 path
 LOOP_SEQ_SEED = 4_000_000     # evals/smoke_loop.py's sequence
 
 
 def unit_salad_weight(key: str) -> bool:
-    """LayerNorm weights and LayerScale gammas drawn as 1 (all N(0, 0.02) let
-    no phase S control be rejected)."""
     return key.endswith(".gamma") or (".norm" in key
                                       and key.endswith(".weight"))
 
 
 def check_converters(tmp):
-    """Phase H: both converters over the released manifests; a seeded
-    dino_salad checkpoint as the npz of phases S and L (its path)."""
+    """Phase H: both converters; a seeded dino_salad npz (S, L)."""
 
     from vggt_slam_tpu_torch.models import retrieval as R
     from vggt_slam_tpu_torch.models.vggt import convert as C
@@ -1818,9 +1728,6 @@ def check_converters(tmp):
 
 @contextlib.contextmanager
 def zero_attention():
-    """Every attention of the port's modules (`attention`, `flash_single`)
-    returns zeros inside the block."""
-
     from vggt_slam_tpu_torch.models.vggt import modules
 
     ops = modules.attn_ops
@@ -1834,9 +1741,8 @@ def zero_attention():
 
 
 def check_salad(device, npz, frames):
-    """Phase S: SALAD at full width, phase H's weights, 17 frames: 12
-    flash_single a call, within SALAD_TOL (L2) of plain (another frame and
-    zeroed attention must exceed it); timed. The row's SALAD entry."""
+    """Phase S: SALAD at full width on 17 frames, 12 flash_single a call,
+    within SALAD_TOL (L2) of plain, controls outside; timed."""
 
     from vggt_slam_tpu_torch.data.images import preprocess_frames
     from vggt_slam_tpu_torch.models import retrieval as R
@@ -1919,17 +1825,13 @@ def check_salad(device, npz, frames):
             **res["flash_single"]}
 
 
-# Phase L's runs: tiny at smoke_loop's settings; SALAD on phase H's weights
-# at the CLI's defaults (B*H = 204) but smoke_loop's keyframe disparity.
+# Phase L: tiny at smoke_loop's settings; SALAD (H's weights) at the CLI's
 LOOP_RUNS = (("tiny", ("--submap_size", "4", "--max_loops", "3",
                        "--min_disparity", "8")),
              ("salad", ("--min_disparity", "8")))
 
 
 def loop_cli_run(device, seq, backend, extra=()):
-    """run_slam on the loop sequence at VGGT-1B (seeded weights): loops
-    detected, inserted, rejected; the TUM log and its ATE."""
-
     from vggt_slam_tpu_torch.evals.ate import ate_from_files
     from vggt_slam_tpu_torch.main import parser, run_slam
 
@@ -1973,7 +1875,6 @@ def loop_cli_run(device, seq, backend, extra=()):
 
 
 def run_smoke_loop(*argv):
-    """evals/smoke_loop.py as a subprocess; (exit code, stdout)."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "vggt_slam_tpu_torch.evals.smoke_loop",
@@ -1985,11 +1886,9 @@ def run_smoke_loop(*argv):
 
 
 def drive_loop_closure(device, npz, small_ckpt):
-    """Phase L: a 40-frame loop through the 1B CLI, tiny and SALAD backends
-    (>= 1 loop, inserted or rejected, or a factor without the gate); V to
-    T on it (R with phase 9's `small_ckpt`); smoke_loop without the gate
-    (it exits 1 at its defaults in both packages). (SALAD's launches,
-    {"clip": P's entry, "siglip": N's, "voxel_eval_launches"})."""
+    """Phase L: a 40-frame loop through the 1B CLI, tiny and SALAD (>= 1
+    loop, or a factor without the gate); V to X on it; smoke_loop
+    without the gate. (SALAD's launches, encoders' entries)."""
 
     from vggt_slam_tpu_torch.tools.synth3d import write_tum_sequence
 
@@ -2011,7 +1910,7 @@ def drive_loop_closure(device, npz, small_ckpt):
                     raise AssertionError(f"{backend}: no loop factor "
                                          f"without the gate")
             torch.cuda.empty_cache()
-        # a VGGT forward a submap (88 calls at 1B), plus 12 SALAD's in SALAD's
+        # a forward a submap (88 calls at 1B), plus 12 SALAD's
         tiny, salad = runs["tiny"], runs["salad"]
         per_forward = forward_calls(tiny["launches"]) / tiny["submaps"]
         want = salad["submaps"] * (per_forward + 12)
@@ -2032,6 +1931,7 @@ def drive_loop_closure(device, npz, small_ckpt):
             os.path.join(seq, "phase_v"))
         drive_quality_evals(device, small_ckpt, seq)
         drive_tools(device, seq, os.path.join(seq, "phase_v"))
+        drive_app(device, seq)
     finally:
         shutil.rmtree(seq, ignore_errors=True)
         shutil.rmtree(os.path.dirname(small_ckpt), ignore_errors=True)
@@ -2042,23 +1942,18 @@ def drive_loop_closure(device, npz, small_ckpt):
     return salad["launches"], encoders
 
 
-# Phase V: the rest of the CLI (COLMAP alignment, the profiler trace, the
-# viewer, GLB export) and the host evals, on phase L's sequence
+# Phase V: the CLI's extras and the host evals, on phase L's sequence
 
 ALIGN_SIM3 = (1.5, (0.3, -0.2, 0.1), (0.5, -1.0, 2.0))  # s, axis-angle, t
 
 
 def rotation(w):
-    """The rotation by axis-angle w (Rodrigues)."""
     th = np.linalg.norm(w)
     K = np.cross(np.eye(3), np.asarray(w) / th)
     return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
 
 
 def write_colmap_images(seq, path):
-    """images.txt with each frame's camera at its groundtruth.txt centre under
-    ALIGN_SIM3 (identity orientations)."""
-
     s, w, t = ALIGN_SIM3
     R = rotation(w)
     lines = []
@@ -2073,8 +1968,9 @@ def write_colmap_images(seq, path):
     return len(rows)
 
 
-def check_glb(path, n_points):
-    """The GLB's header, JSON chunk and point accessor."""
+def check_glb(path, n_points=None):
+    """The GLB's header and points (`n_points`, else > 0), all finite;
+    returns its bytes."""
     import struct
 
     with open(path, "rb") as f:
@@ -2084,16 +1980,20 @@ def check_glb(path, n_points):
     gltf = json.loads(data[20:20 + js_len])
     count = gltf["accessors"][gltf["meshes"][0]["primitives"][0][
         "attributes"]["POSITION"]]["count"]
+    finite = all(np.isfinite(np.frombuffer(
+        data, np.float32, a["count"] * 3, 28 + js_len + gltf["bufferViews"][
+            a["bufferView"]]["byteOffset"])).all()
+        for a in gltf["accessors"] if a["componentType"] == 5126)
+    wrong = count != n_points if n_points is not None else count == 0
     if (magic, version, total, js_type) != (0x46546C67, 2, len(data),
-                                            0x4E4F534A) or count != n_points:
+                                            0x4E4F534A) or not finite or wrong:
         raise AssertionError(f"GLB: {magic:#x} v{version} {total}/"
                              f"{len(data)} bytes, {count} of {n_points} "
-                             f"points")
+                             f"points, finite {finite}")
     return len(data)
 
 
 def check_trace(path):
-    """Parse the CLI's Chrome trace; count its CUDA kernel events."""
     t0 = time.perf_counter()
     size = os.path.getsize(path)
     with open(path) as f:
@@ -2105,8 +2005,6 @@ def check_trace(path):
 
 
 def load_viser_stub():
-    """tests/viser_stub.py by path (an installed package named `tests`
-    may shadow the repository's)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -2118,8 +2016,7 @@ def load_viser_stub():
 
 
 def viewer_cli_run(device, seq, tmp):
-    """The CLI at VGGT-1B (tiny backend, submap 16) with the COLMAP alignment,
-    the outputs and the viewer stub."""
+    """The 1B CLI with COLMAP alignment, outputs and the viewer stub."""
 
     from vggt_slam_tpu_torch.main import parser, run_slam
     from vggt_slam_tpu_torch.slam.map import GraphMap
@@ -2198,8 +2095,6 @@ def viewer_cli_run(device, seq, tmp):
 
 
 def profiled_cli_run(device, seq, tmp):
-    """--profile_dir on the loop's first 17 frames (one submap): a trace
-    with the flash kernels among its CUDA kernel events."""
     from vggt_slam_tpu_torch.main import parser, run_slam
 
     frames = os.path.join(tmp, "first17")
@@ -2221,8 +2116,8 @@ def profiled_cli_run(device, seq, tmp):
 
 
 def drive_viewer_and_evals(device, seq):
-    """Phase V: COLMAP alignment, viewer, GLB, a 17-frame trace; run_eval,
-    process_logs, geometry_eval (100k points), pipeline_overlap."""
+    """Phase V: alignment, viewer, GLB, a trace; run_eval, process_logs,
+    geometry_eval, pipeline_overlap."""
     from scipy.spatial import cKDTree
 
     from vggt_slam_tpu_torch.data.pcd import read_pcd
@@ -2298,8 +2193,8 @@ VOXEL_SIZE = 0.05
 
 
 def voxelize_errors(got, centers, counts, means, feats):
-    """voxelize_device against voxelize_np's first num voxels: (centres equal,
-    counts equal, means within mean_tolerance, largest mean error)."""
+    """voxelize_device against voxelize_np: (centres, counts equal, means
+    within tolerance, largest mean error)."""
 
     from vggt_slam_tpu_torch.ops.voxel import mean_tolerance
 
@@ -2315,8 +2210,8 @@ def voxelize_errors(got, centers, counts, means, feats):
 
 
 def check_voxelize(device, pts, feats, V):
-    """voxelize_device against voxelize_np at capacity V + 1 and V // 2, a
-    half-voxel shift it must reject; timed. (results, voxelize_np's)."""
+    """voxelize_device against numpy at capacity V + 1 and V // 2, with a
+    shifted control; timed."""
 
     from vggt_slam_tpu_torch.ops.voxel import voxelize_device, voxelize_np
 
@@ -2349,8 +2244,8 @@ def check_voxelize(device, pts, feats, V):
 
 
 def drive_semantics(device, seq):
-    """Phase W: the embedder CLI; the 1B CLI with --get_voxel; the saved map
-    checked; `check_voxelize`; query_voxelmap --visualize on the stub."""
+    """Phase W: the embedder, the 1B CLI with --get_voxel, the map,
+    `check_voxelize`, query_voxelmap on the stub."""
 
     from vggt_slam_tpu_torch.data.images import load_image, resize_linear
     from vggt_slam_tpu_torch.main import parser, run_slam
@@ -2460,8 +2355,7 @@ def drive_semantics(device, seq):
     log("phase_w", seconds=time.perf_counter() - t_phase)
 
 
-# Phases P and N: CLIP ViT-B/32 and SigLIP base-patch16-224 with their
-# tokenizers on the card, then the semantic map on their features
+# Phases P and N: CLIP ViT-B/32 and SigLIP base-patch16-224, their maps
 
 ENCODER_TOL = SALAD_TOL   # L2 distance of a unit feature from the plain path
 CLIP_TEXT_TOL = 1e-4      # CLIP's causal text tower (plain) against the CPU
@@ -2470,8 +2364,7 @@ CLIP_MERGES = ("c h", "a i", "ai r</w>", "ch air</w>", "t a", "b l",
                "ca t</w>")
 QUERIES = ("a chair", "a table by the door", "IT'S a photo of a cat!",
            "½ cup ٣ café", "")
-# family: (phase, frames of phase L's sequence, d, vision tokens, manifest,
-# its values, whether the text tower runs flash_single)
+# family: (phase, frames, d, vision tokens, manifest, values, text flash)
 ENCODERS = {"clip": ("P", 8, 512, 50, "manifest_clip_vit_b32.json",
                      151_277_313, False),
             "siglip": ("N", 4, 768, 196, "manifest_siglip_b16.json",
@@ -2487,9 +2380,6 @@ def encoder_module(family):
 
 
 def write_encoder_checkpoint(path, device, family="clip"):
-    """A full-width checkpoint directory (config.json, seeded
-    pytorch_model.bin as the tests/data manifest, tokenizer files).
-    (values, seconds)."""
     import string
 
     M, cfg = encoder_module(family)
@@ -2533,9 +2423,6 @@ def write_encoder_checkpoint(path, device, family="clip"):
 
 @contextlib.contextmanager
 def permuted_keys():
-    """flash_single sees each row's keys rolled by one token against its
-    values: a kernel that pairs keys with the wrong values."""
-
     flash = A.flash_single
     A.flash_single = lambda q, k, v, **kw: flash(
         q, k.roll(1, dims=1).contiguous(), v, **kw)
@@ -2546,8 +2433,6 @@ def permuted_keys():
 
 
 def clip_crops(seq, n, size, seed=SEED):
-    """n (3, size, size) float [0, 1] windows of phase L's frames."""
-
     from vggt_slam_tpu_torch.data.images import load_image
 
     rgb = os.path.join(seq, "rgb")
@@ -2564,9 +2449,8 @@ def clip_crops(seq, n, size, seed=SEED):
 
 
 def kernel_vs_plain(fn, model):
-    """fn() on the kernel, then plain, with zeroed attention and with permuted
-    keys: (features, launches, designs, max L2 from plain, the controls'
-    min L2)."""
+    """fn() on the kernel, plain, and two controls: (features, launches,
+    designs, max L2 from plain, the controls' min L2)."""
 
     torch.cuda.synchronize()
     A.reset_launch_counts()
@@ -2592,9 +2476,6 @@ def kernel_vs_plain(fn, model):
 
 
 def flash_single_at(device, B, N):
-    """flash_single at (B, N, 12, 64) against its plain version, timed
-    beside it and SDPA, with its bound."""
-
     g = torch.Generator(device=device).manual_seed(SEED)
     case = dict(kw=dict(num_heads=12))
     q, k, v = case["q"], case["k"], case["v"] = tuple(
@@ -2618,10 +2499,8 @@ def flash_single_at(device, B, N):
 
 
 def check_encoders(device, ckpt, seq, family):
-    """resolve_clip_encoders on 100 crops at 224 px and 6 at 180 x 150: 12
-    flash_single a chunk, within ENCODER_TOL (L2) of plain (controls must
-    exceed it); the text tower likewise (SigLIP) or within CLIP_TEXT_TOL
-    of the CPU; timings."""
+    """Encoders on 106 crops: 12 flash_single a chunk within ENCODER_TOL
+    (L2) of plain, controls outside; the text tower; timings."""
 
     from vggt_slam_tpu_torch.semantic.embedder import resolve_clip_encoders
 
@@ -2700,9 +2579,8 @@ def check_encoders(device, ckpt, seq, family):
 
 
 def drive_encoders(device, seq, ckpt, family="clip"):
-    """Phase P (CLIP) or N (SigLIP): the checkpoint, `check_encoders`, the
-    embedder CLI (12 flash_single a frame), the small CLI with
-    --get_voxel, query_voxelmap. flash_single's entry."""
+    """Phase P (CLIP) or N (SigLIP): `check_encoders`, the embedder, the
+    small CLI with --get_voxel, query_voxelmap."""
 
     from vggt_slam_tpu_torch.main import parser, run_slam
     from vggt_slam_tpu_torch.semantic import embedder
@@ -2803,9 +2681,6 @@ SAM2_TOL = 1e-4     # f32 on the card against float64, of the largest entry
 
 
 def sam2_errors(model, ref, image, points):
-    """embed_image's features and decode_points' masks, iou, obj of `model`
-    against float64 `ref`: max abs error over the largest entry, each."""
-
     with torch.no_grad():
         f, r = model.embed_image(image), ref.embed_image(image.double())
         got = (*f.values(), *model.decode_points(f, points))
@@ -2815,10 +2690,8 @@ def sam2_errors(model, ref, image, points):
 
 
 def drive_sam2(device, seq, clip_ckpt):
-    """Phase M: a seeded sam2.1_hiera_base_plus .pt (IoU head's last bias +3),
-    kept for Q; embed_image and a 192-point decode against float64
-    (SAM2_TOL) with a layout control; the AMG; the embedder with --masker
-    sam2 --clip_model_dir on 4 frames."""
+    """Phase M: seeded sam2.1_hiera_base_plus; embed and a 192-point
+    decode against float64 with a control; the AMG; the embedder."""
     import copy
 
     from vggt_slam_tpu_torch.data.images import load_image, resize_linear
@@ -2924,16 +2797,12 @@ def drive_sam2(device, seq, clip_ckpt):
 
 # Phase Q: the semantic evals on the outputs of phases V, M and N
 
-# The 7-Scenes dump: frames; the chamfer RMSE bound, ~10x the clean RMSEs
-# (3.1e-4) and ~6x under the control's: every DENSE_STRIDE-th frame scaled
-# about its centroid, against the same frames (a rigid ICP cannot undo it).
+# The 7-Scenes dump; the chamfer bound (~10x clean, ~6x under the control:
+# every DENSE_STRIDE-th frame scaled about its centroid)
 DENSE_FRAMES, DENSE_BOUND, DENSE_SCALE, DENSE_STRIDE = 30, 3e-3, 1.1, 5
 
 
 def seven_scenes_dump(root, n=DENSE_FRAMES):
-    """A 7-Scenes sequence by synth3d at 480x640 (16-bit mm depth,
-    pose.txt), an exact estimate and the control: (seq, estimate,
-    control, TUM)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from vggt_slam_tpu_torch.data.images import resize_nearest, write_png16
@@ -2984,9 +2853,8 @@ def seven_scenes_dump(root, n=DENSE_FRAMES):
 
 
 def counted(fn):
-    """fn() with the launch counts zeroed just before, printing into a
-    buffer: (its result, its text, seconds, launches, designs by the C
-    count)."""
+    """fn() with launch counts zeroed, stdout captured: (result, text,
+    seconds, launches, designs by the C count)."""
 
     from vggt_slam_tpu_torch.utils.profiling import sync
 
@@ -3003,11 +2871,8 @@ def counted(fn):
 
 
 def drive_evals(device, seq, sam2_pt, vox_dir, encoder_dir, phase_v):
-    """Phase Q: mask_eval with M's SAM2; voxel_eval over N's map and SigLIP
-    (validity 1.0, 0.0 past the tolerance); dense_7scenes (ATE < 1e-6,
-    chamfer RMSEs < DENSE_BOUND, the control above); visualize_results
-    over V's outputs and N's map, then --headless. Returns the text
-    tower's flash_single launches."""
+    """Phase Q: mask_eval (M's SAM2), voxel_eval (N's map), dense_7scenes
+    with its control, visualize_results. Text-tower launches."""
 
     from vggt_slam_tpu_torch.evals import dense_7scenes, mask_eval, voxel_eval
     from vggt_slam_tpu_torch.semantic import sam2_amg as AMG
@@ -3102,8 +2967,7 @@ def drive_evals(device, seq, sam2_pt, vox_dir, encoder_dir, phase_v):
     printed, stdin = [], sys.stdin
     try:
         sys.stdin = io.StringIO("")       # main waits for Enter
-        # --headless without the cloud and the point maps: their reads are
-        # the pass's cost, and the first pass prints their stats
+        # --headless without the cloud and point maps (read in the first pass)
         for a in (["--pcd_path", os.path.join(out_v, "result.pcd"),
                    "--frame_output_dir", os.path.join(out_v, "frame_output")]
                   + argv, argv + ["--headless"]):
@@ -3143,10 +3007,8 @@ def drive_evals(device, seq, sam2_pt, vox_dir, encoder_dir, phase_v):
 # Phases R, T: the retrieval and attention A/B evals, the host tools
 
 def drive_quality_evals(device, small_ckpt, root):
-    """Phase R: retrieval_quality's CLI a backend at a time on a 40-frame
-    loop with the gate (salad_random: unit descriptors); ab_attention's,
-    three configs on 24 frames with phase 9's model, run_eval in this
-    process so that launches count. Every launch tma_wgmma."""
+    """Phase R: retrieval_quality, both backends; ab_attention, three
+    configs on 24 frames in process. Every launch tma_wgmma."""
     import types
 
     from vggt_slam_tpu_torch.evals import ab_attention as AB
@@ -3202,10 +3064,8 @@ def drive_quality_evals(device, small_ckpt, root):
 
 
 def drive_tools(device, seq, phase_v):
-    """Phase T, CLIs: occupancy on V's cloud and L's ground truth (flags and
-    grid as the CPU's); undistort, metacam on two 3000x3000 frames, euroc
-    on two 752x480 (within one grey level of the CPU on >= 99.9%; ms);
-    align_points on a Sim(3)-moved 200k-point crop (1e-4)."""
+    """Phase T: occupancy on V's cloud (card = CPU); undistort (within one
+    grey level on 99.9%); align_points on 200k points (1e-4)."""
 
     from vggt_slam_tpu_torch.data.images import (read_png, resize_linear,
                                                  write_png)
@@ -3286,12 +3146,59 @@ def drive_tools(device, seq, phase_v):
         raise AssertionError(f"align_points: {res['align']}")
 
 
+# Phase X: the demo app at VGGT-1B
+
+APP_DISPARITY = 20.0   # px: a keyframe about every second frame (18 px/frame)
+
+
+def drive_app(device, seq):
+    """Phase X: a 40-frame 640x480 synth_sequence zip through app.run_slam
+    at VGGT-1B (seeded): every flash launch tma_wgmma, a finite GLB."""
+    import zipfile
+
+    from vggt_slam_tpu_torch import app
+    from vggt_slam_tpu_torch.slam import solver as S
+    from vggt_slam_tpu_torch.tools.synth_sequence import generate_sequence
+
+    t_phase = time.perf_counter()
+    tmp = os.path.join(seq, "phase_x")
+    names = generate_sequence(os.path.join(tmp, "rgb"), n_frames=40,
+                              seed=SEED)
+    zip_path = os.path.join(tmp, "frames.zip")
+    with zipfile.ZipFile(zip_path, "w") as zf:
+        for n in names:
+            zf.write(n, os.path.basename(n))
+    solvers, init = [], S.Solver.__init__
+
+    def recording(self, *a, **kw):
+        init(self, *a, **kw)
+        solvers.append(self)
+
+    S.Solver.__init__ = recording
+    try:
+        glb, out, wall, launches, designs = counted(lambda: app.run_slam(
+            zip_path, min_disparity=APP_DISPARITY, model_size="1b",
+            device=device, seed=SEED))
+    finally:
+        S.Solver.__init__ = init
+    subs = list(solvers[0].map.ordered_submaps_by_key())
+    glb_bytes = check_glb(glb)
+    shutil.rmtree(os.path.dirname(glb))
+    res = dict(frames=len(names), keyframes=len({
+        f for s in subs for f in s.get_frame_ids()}), submaps=len(subs),
+        seconds=wall, glb_bytes=glb_bytes, launches=launches,
+        designs=designs)
+    log("phase_x", **res, phase_seconds=time.perf_counter() - t_phase)
+    if designs != {"tma_wgmma": forward_calls(launches)} or not all(
+            launches.get(k) for k in ("flash_single", "flash_multi")):
+        raise AssertionError(f"app: {res}; {out[-1500:]}")
+
+
 # Device time of one call
 
 
 def graph_ms(fn, calls=20, reps=3, stream=None):
-    """Device ms per fn() from one CUDA graph of `calls` calls on `stream`,
-    best of `reps` replays."""
+    """Device ms a fn() from a graph of `calls` calls, best of `reps`."""
 
     fn()
     torch.cuda.synchronize()
@@ -3315,9 +3222,6 @@ def graph_ms(fn, calls=20, reps=3, stream=None):
 
 
 def sm90_registers(registers, static, int8) -> dict:
-    """ptxas registers of the flash_fwd_sm90<D, STATIC, I8> instances with
-    these flags."""
-
     out = {}
     for name, n in registers.items():
         m = (re.search(r"flash_fwd_sm90<\d+, (\w+), (\w+)>", name)
@@ -3328,15 +3232,13 @@ def sm90_registers(registers, static, int8) -> dict:
 
 
 def own_ptxas_report(name) -> tuple[dict, dict]:
-    """`ptxas_report` of this tree's library `name` alone."""
     from vggt_slam_tpu_torch.ops import cuda_build
 
     return ptxas_report({name: cuda_build.build_log[name]})
 
 
 def ptxas_report(build_log) -> tuple[dict, dict]:
-    """({kernel: registers}, {kernel: spill bytes, where not 0}) from nvcc's
-    -Xptxas=-v output, demangled by c++filt where installed."""
+    """({kernel: registers}, {kernel: spill bytes}) from -Xptxas=-v."""
 
     regs, spills, name = {}, {}, None
     for text in build_log.values():
@@ -3486,8 +3388,7 @@ def main(argv) -> int:
                                  "query in voxel_eval (phase Q)"}
                if name == "flash_single" else {}),
             "variants": variants})
-    # One flash_bwd call computes both TPU kernels' functions (dq; dk, dv):
-    # both rows carry its time, the fused bound and SDPA's backward alone.
+    # One flash_bwd call does both TPU kernels' work: both rows carry it.
     rep = next(c for c in train_checks if c["variant"] == "global")
     for name, grads in (("flash_bwd_dq", ("dq",)),
                         ("flash_bwd_dkv", ("dk", "dv"))):
@@ -3513,9 +3414,7 @@ def main(argv) -> int:
                 "bwd_design", "bwd_ms", "bwd_plain_ms", "sdpa_bwd_ms",
                 "sdpa_fwd_bwd_ms", "bound_ms", "bound_by")}
                 for c in train_checks]})
-    # The int8 kernels: launches on their own paths (the --qk_int8 CLI run
-    # for the static kernel, the online-softmax int8 forward for the other;
-    # counts reset just before each).
+    # The int8 kernels' launches on their own paths (counts reset before)
     int8_path = {"flash_multi_i8": (cli_launches, "image_folder_cli"),
                  "flash_single_i8": (int8_launches["online"],
                                      "int8_forward_online")}

@@ -1,9 +1,9 @@
 """The port's boundary and entry points: no module imports JAX, flax,
-OpenCV, regex, transformers, safetensors, sentencepiece or the JAX
-package (the viewer on tests/viser_stub.py); entry points refuse to run
-without a card unless the CPU is asked for; chip_smoke.py exits non-zero
-without a card and outside the repository; the tiny SLAM loop runs on the
-CPU from in-memory frames.
+OpenCV, regex, transformers, safetensors, sentencepiece, gradio, laspy,
+rosbag, rosbags or the JAX package (the viewer on tests/viser_stub.py);
+entry points refuse to run without a card unless the CPU is asked for;
+chip_smoke.py exits non-zero without a card and outside the repository;
+the tiny SLAM loop runs on the CPU from in-memory frames.
 """
 import os
 import subprocess
@@ -31,9 +31,10 @@ want = dict(
     native="kdtree felzenszwalb", ops="voxel",
     semantic="voxel_map embedder sam2_amg",
     tools="synth3d query_voxelmap visualize_results occupancy align_points "
-          "undistort")
+          "undistort synth_sequence")
 assert all("vggt_slam_tpu_torch." + p + "." + m in names
            for p, ms in want.items() for m in ms.split())
+assert "vggt_slam_tpu_torch.app" in names
 viewer = "vggt_slam_tpu_torch.viz.viser_viewer"   # needs viser: the stub
 for name in names:
     if name != viewer:
@@ -44,7 +45,8 @@ importlib.import_module(viewer)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "regex",
                                     "transformers", "safetensors",
-                                    "sentencepiece")
+                                    "sentencepiece", "gradio", "laspy",
+                                    "rosbag", "rosbags")
              or m == "vggt_slam_tpu" or m.startswith("vggt_slam_tpu."))
 print(len(names), bad)
 """
@@ -59,7 +61,7 @@ def test_port_imports_no_jax_flax_cv2_or_reference_package():
                          cwd=REPO)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 79
+    assert int(n) >= 81
     assert bad == "[]"
 
 

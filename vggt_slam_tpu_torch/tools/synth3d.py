@@ -90,17 +90,31 @@ def fill_rect(img: np.ndarray, p0, p1, color) -> None:
 
 
 def gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
-    """cv2.GaussianBlur(img, (0, 0), sigma) for a 2-D float32 image: kernel
-    size round(8 sigma + 1) | 1, weights normalised in float64 and stored
-    as float32, reflect-101 border, rows then columns."""
+    """cv2.GaussianBlur(img, (0, 0), sigma), reflect-101 border, rows then
+    columns. A float32 image: kernel size round(8 sigma + 1) | 1, weights
+    normalised in float64 and stored as float32. A uint8 (h, w[, c])
+    image, OpenCV's bit-exact 8-bit path: size round(6 sigma + 1) | 1,
+    weights error-diffused to 1/256, integer sums rounded once."""
     from scipy.ndimage import correlate1d
 
-    n = int(np.floor(sigma * 8 + 1 + 0.5)) | 1
+    u8 = np.asarray(img).dtype == np.uint8
+    n = int(np.floor(sigma * (6 if u8 else 8) + 1 + 0.5)) | 1
     x = np.arange(n) - (n - 1) * 0.5
     k = np.exp(-0.5 / (sigma * sigma) * x * x)
-    k = (k / k.sum()).astype(np.float32)
-    out = correlate1d(np.asarray(img, np.float32), k, axis=1, mode="mirror")
-    return correlate1d(out, k, axis=0, mode="mirror")
+    k = k / k.sum()
+    if not u8:
+        out = correlate1d(np.asarray(img, np.float32), k.astype(np.float32),
+                          axis=1, mode="mirror")
+        return correlate1d(out, k.astype(np.float32), axis=0, mode="mirror")
+    q, err = np.zeros(n, np.int64), 0.0
+    for i in range(n // 2):
+        v = k[i] * 256 + err
+        q[i] = q[-1 - i] = np.rint(v)
+        err = v - q[i]
+    q[n // 2] = 256 - 2 * q[:n // 2].sum()
+    out = correlate1d(img.astype(np.int64), q, axis=1, mode="mirror")
+    out = correlate1d(out, q, axis=0, mode="mirror")
+    return np.clip((out + (1 << 15)) >> 16, 0, 255).astype(np.uint8)
 
 
 def _reflect(i: np.ndarray, n: int) -> np.ndarray:
